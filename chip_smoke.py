@@ -7,11 +7,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device: the card's name, capability (must be 9.x, Hopper) and power
    limit;
-2. build: nvcc builds the normalize kernel from dml_tpu_torch/csrc/;
-3. kernel: the kernel against its plain PyTorch version on the card, in
-   every mode (caffe, tf, unit), output dtype (bf16, f32) and shape
-   ([32,224,224,3], [32,299,299,3], ragged [3,7,5,3]); float32 must
-   agree within 1e-6, bf16 within one bf16 ulp (and the count of
+2. build: nvcc builds the three kernel libraries (normalize, flash
+   attention, decode attention) from dml_tpu_torch/csrc/, all started
+   together, with seconds for each;
+3. kernel: the normalize kernel against its plain PyTorch version on the
+   card, in every mode (caffe, tf, unit), output dtype (bf16, f32) and
+   shape ([32,224,224,3], [32,299,299,3], ragged [3,7,5,3]); float32
+   must agree within 1e-6, bf16 within one bf16 ulp (and the count of
    elements that are not bit-identical is printed). Kernel and plain
    times by CUDA events, L2 flushed before every launch, beside the
    device-memory byte bound;
@@ -25,7 +27,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
    bf16 engine and a float32 CUDA engine with TF32 off). Per-batch
    latency p50/p90/p99 over 1000 batches and images/s at batch 32, the
    device time of one forward, and a torch.profiler breakdown of where
-   a batch's time goes.
+   a batch's time goes;
+6. flash_check: the flash attention kernel against its plain version
+   (out and lse) at the LM's prefill shape (q [8,2048,16,64], GQA-4 k/v
+   [8,2048,4,64], bf16, causal) and at [1,2048,16,64], D=128, ragged
+   T=100 and T=1000, non-causal cross attention (Tq=64, Tk=192), and
+   float32 cases; tolerances float32 2e-5 (out and lse), bf16 out 2e-2
+   and lse 1e-4. Kernel, plain and torch SDPA times at the prefill
+   shape beside the tensor-core operation bound;
+7. decode_check: the decode attention kernel against its plain version
+   within 2e-5 for bf16, f32 and int8 caches; GQA-4, MQA and MHA; B=1
+   and B=8 at T=4096 with mixed per-slot positions, and the LM's own
+   decode shape; rows past each slot's position poisoned with +-1e4
+   must not change the output. Kernel, plain and SDPA (bf16) times
+   beside the byte bound of the valid cache rows;
+8. lm: the 198M-parameter GQA-4 LM (bench.py's _bench_lm config, 12
+   layers, d_model 1024, seeded weights) served by the port's generate
+   on cuda in bf16: B=8 prompts of 2048 tokens, 64 new tokens. The
+   flash kernel must launch 12 times (one per layer) and the decode
+   kernel 12 x 63 times; tokens in range and equal to prefill plus 63
+   batched_decode_step calls. Then the int8 form (int8 KV cache and
+   int8 weights) for 16 new tokens with its launch counts, and float32
+   parity: the CUDA run (TF32 off) and the port's CPU run give the same
+   greedy tokens on 2 prompts of 32 tokens. Prefill ms, time to first
+   token and decode ms per step (and tokens/s) at B=1 and B=8, peak
+   device memory, and a torch.profiler breakdown of one prefill and one
+   decode step.
 
 Then the card's name and power limit as nvidia-smi prints them, the
 kernels' summary line, and last `{"ok": true, "device": {...}}`.
@@ -44,10 +71,16 @@ import time
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM dense, published
 BATCH = 32
 N_IMAGES = 40  # 2 chunks at batch 32: one full, one padded
 N_FILES = 8
 MODELS = (("ResNet50", "caffe"), ("InceptionV3", "tf"))
+# the LM that bench.py's _bench_lm measures (bench.py:3077-3085, GQA-4 at
+# :3229-3232): about 198M parameters
+LM_CFG = dict(vocab_size=32000, d_model=1024, n_heads=16, n_layers=12, d_ff=4096, n_kv_heads=4)
+LM_BATCH, PROMPT_LEN, NEW_TOKENS = 8, 2048, 64
+DECODE_CTX = 4096
 
 
 def check(ok, msg):
@@ -68,6 +101,23 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def reset_launch_counts():
+    """Every kernel's launch count to 0, just before a main path runs."""
+    from dml_tpu_torch.ops import decode_attention, flash_attention, preprocess
+
+    preprocess.normalize_launches = 0
+    flash_attention.flash_launches = 0
+    decode_attention.decode_launches = 0
+
+
+def launch_counts():
+    from dml_tpu_torch.ops import decode_attention, flash_attention, preprocess
+
+    return {"normalize": preprocess.normalize_launches,
+            "flash_attention": flash_attention.flash_launches,
+            "decode_attention": decode_attention.decode_launches}
+
+
 def bf16_ulp(ref):
     import torch
 
@@ -77,9 +127,14 @@ def bf16_ulp(ref):
 
 class Timer:
     """Per-launch device time by CUDA events. A 256 MB write before each
-    launch evicts the 50 MB L2 (the serving path meets its input cold)
-    and keeps the card busy while the host enqueues the timed launch,
-    so host overhead stays out of the measurement."""
+    launch evicts the 50 MB L2 (the serving path meets its input cold).
+    Then the card spins for about a millisecond, longer than the host
+    takes to enqueue the timed call: without that, a wrapper whose host
+    side outlasts the flush (the decode wrapper, ~0.1-0.2 ms of Python on
+    a loaded host) leaves the card idle between the start event and its
+    kernel, and the measurement doubles with the host's load."""
+
+    HOLD_CYCLES = 2_000_000  # ~1 ms at the H100's 1.98 GHz boost clock
 
     def __init__(self):
         import torch
@@ -94,6 +149,7 @@ class Timer:
         pairs = []
         for _ in range(iters):
             self.flush.zero_()
+            torch.cuda._sleep(self.HOLD_CYCLES)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -186,7 +242,6 @@ def phase_model(name, mode, timer):
     from dml_tpu_torch.inference import InferenceEngine
     from dml_tpu_torch.models.preprocess import normalize_on_device
     from dml_tpu_torch.models.registry import get_model
-    from dml_tpu_torch.ops import preprocess as ops
 
     spec = get_model(name)
     h, w = spec.input_size
@@ -205,14 +260,16 @@ def phase_model(name, mode, timer):
     with tempfile.TemporaryDirectory() as tmp:
         files = write_pngs(tmp, imgs[:N_FILES])
         # ---- the main path, counted ----
-        ops.normalize_launches = 0
+        reset_launch_counts()
         probs = eng.infer_arrays(name, imgs)
         probs_nw = eng.infer_arrays_nowait(name, imgs)()
         res = eng.infer_files(name, files)
         torch.cuda.synchronize()
-        launches = ops.normalize_launches
+        counts = launch_counts()
+    launches = counts["normalize"]
     chunks = 2 * -(-N_IMAGES // BATCH) + -(-N_FILES // BATCH)
-    check(launches == chunks, f"{name}: {launches} kernel launches for {chunks} chunks")
+    check(counts == {"normalize": chunks, "flash_attention": 0, "decode_attention": 0},
+          f"{name}: launches {counts} for {chunks} chunks")
     check(probs.shape == (N_IMAGES, 1000) and probs.dtype == np.float32,
           f"{name}: probs {probs.dtype} {probs.shape}")
     check(np.isfinite(probs).all(), f"{name}: non-finite probabilities")
@@ -284,17 +341,33 @@ def phase_model(name, mode, timer):
          images_per_s=BATCH / (statistics.mean(lat) / 1e3),
          forward_device_ms=fwd_ms,
          max_memory_allocated_mb=torch.cuda.max_memory_allocated() / 1e6)
-    emit(phase="profile", model=name, **profile_serving(eng, name, batch))
+    emit(phase="profile", model=name,
+         **profile_calls(lambda: eng.infer_arrays(name, batch), 5, IMAGE_KINDS))
     eng.unload_model(name)
     return launches
 
 
-def profile_serving(eng, name, batch, iters=5):
-    """Where a batch's time goes: torch.profiler over `iters` calls of
-    infer_arrays at batch 32. Device time by kernel (top 8 and by kind),
-    device operations per batch, and the device's idle share of the wall
-    time (the profiler's own host overhead lengthens the wall time, so
-    this share is an upper bound for the unprofiled run)."""
+IMAGE_KINDS = (
+    ("normalize_kernel", "normalize"), ("Memcpy HtoD", "copy_h2d"),
+    ("Memcpy DtoH", "copy_d2h"), ("fprop", "conv"), ("implicit_gemm", "conv"),
+    ("conv", "conv"), ("batch_norm", "batch_norm"), ("pool", "pool"),
+    ("CatArray", "concat"), ("gemm", "dense"), ("softmax", "softmax"),
+    ("clamp", "relu"), ("CUDAFunctor_add", "add"), ("reduce", "mean"))
+LM_KINDS = (
+    ("flash_fwd_", "flash_attention"), ("decode_partial_kernel", "decode_attention"),
+    ("decode_merge_kernel", "decode_attention"), ("index_put", "cache_write"),
+    ("gemm", "matmul"), ("gemv", "matmul"), ("nvjet", "matmul"), ("xmma", "matmul"),
+    ("cutlass", "matmul"), ("Memcpy", "copy"), ("Memset", "copy"), ("reduce", "reduce"),
+    ("index", "gather"), ("CatArray", "concat"), ("elementwise", "elementwise"))
+
+
+def profile_calls(fn, iters, kinds):
+    """Where a call's time goes: torch.profiler over `iters` calls of
+    `fn`. Device time by kernel (top 8 and by kind, first substring
+    match in `kinds` wins), device operations per call, and the device's
+    idle share of the wall time (the profiler's own host overhead
+    lengthens the wall time, so this share is an upper bound for the
+    unprofiled run)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -302,14 +375,9 @@ def profile_serving(eng, name, batch, iters=5):
         torch.cuda.synchronize()
         t0 = time.monotonic()
         for _ in range(iters):
-            eng.infer_arrays(name, batch)
+            fn()
+        torch.cuda.synchronize()
         wall_us = (time.monotonic() - t0) * 1e6
-    # (substring of the kernel name, kind), first match wins
-    kinds = (("normalize_kernel", "normalize"), ("Memcpy HtoD", "copy_h2d"),
-             ("Memcpy DtoH", "copy_d2h"), ("fprop", "conv"), ("implicit_gemm", "conv"),
-             ("conv", "conv"), ("batch_norm", "batch_norm"), ("pool", "pool"),
-             ("CatArray", "concat"), ("gemm", "dense"), ("softmax", "softmax"),
-             ("clamp", "relu"), ("CUDAFunctor_add", "add"), ("reduce", "mean"))
     by_kind, per_kernel, n_kernels = {}, [], 0
     for e in prof.key_averages():
         us = e.self_device_time_total
@@ -322,13 +390,363 @@ def profile_serving(eng, name, batch, iters=5):
     busy = sum(by_kind.values())
     per_kernel.sort(reverse=True)
     return dict(
-        iters=iters, wall_ms_per_batch=wall_us / iters / 1e3,
-        device_busy_ms_per_batch=busy / iters / 1e3 if busy else None,
+        iters=iters, wall_ms_per_call=wall_us / iters / 1e3,
+        device_busy_ms_per_call=busy / iters / 1e3 if busy else None,
         device_idle_share=1 - busy / wall_us if busy else None,
-        device_ops_per_batch=n_kernels / iters,
-        by_kind_ms_per_batch={k: v / iters / 1e3 for k, v in sorted(by_kind.items())},
+        device_ops_per_call=n_kernels / iters,
+        by_kind_ms_per_call={k: v / iters / 1e3 for k, v in sorted(by_kind.items())},
         top_kernels=[(k[:120], us / iters / 1e3) for us, k in per_kernel[:8]],
     )
+
+
+def build_all():
+    """nvcc for every kernel library at once, one thread (and one nvcc)
+    each; seconds per library."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dml_tpu_torch.ops import decode_attention, flash_attention, preprocess
+
+    libs = {"normalize": preprocess._library, "flash_attention": flash_attention._library,
+            "decode_attention": decode_attention._library}
+
+    def timed(fn):
+        t0 = time.monotonic()
+        fn()
+        return time.monotonic() - t0
+
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(len(libs)) as ex:
+        futures = {k: ex.submit(timed, fn) for k, fn in libs.items()}
+        seconds = {k: f.result() for k, f in futures.items()}
+    emit(phase="build", seconds=seconds, wall_seconds=time.monotonic() - t0)
+
+
+def dtype_name(dtype):
+    return str(dtype).split(".")[-1]
+
+
+def phase_flash(timer):
+    """The flash kernel against its plain version; times at the LM's
+    prefill shapes."""
+    import torch
+    import torch.nn.functional as F
+    from dml_tpu_torch.ops import flash_attention as fa
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    g = torch.Generator(device="cuda").manual_seed(1)
+    cases = (  # name, b, tq, tk, h, kv, d, causal, dtype
+        ("prefill_b8", 8, PROMPT_LEN, PROMPT_LEN, 16, 4, 64, True, bf16),
+        ("prefill_b1", 1, PROMPT_LEN, PROMPT_LEN, 16, 4, 64, True, bf16),
+        ("mha_b1", 1, PROMPT_LEN, PROMPT_LEN, 16, 16, 64, True, bf16),
+        ("d128", 2, 1024, 1024, 8, 8, 128, True, bf16),
+        ("ragged_t100", 2, 100, 100, 16, 4, 64, True, bf16),
+        ("ragged_t1000", 2, 1000, 1000, 16, 4, 64, True, bf16),
+        ("cross", 2, 64, 192, 16, 16, 64, False, bf16),
+        ("f32_t1000", 2, 1000, 1000, 8, 2, 64, True, f32),
+        ("f32_cross", 2, 64, 192, 4, 4, 32, False, f32),
+        ("f32_d16", 1, 130, 130, 2, 1, 16, True, f32),
+    )
+    timings = {}
+    for name, b, tq, tk, h, kv, d, causal, dtype in cases:
+        q = torch.randn((b, tq, h, d), generator=g, device="cuda").to(dtype)
+        if name.startswith("prefill"):
+            # the LM's layout: k contiguous after rope, v a strided view of the qkv output
+            qkv = torch.randn((b, tk, (h + 2 * kv) * d), generator=g, device="cuda").to(dtype)
+            k = qkv[..., h * d:(h + kv) * d].reshape(b, tk, kv, d).contiguous()
+            v = qkv[..., (h + kv) * d:].reshape(b, tk, kv, d)
+        else:
+            k = torch.randn((b, tk, kv, d), generator=g, device="cuda").to(dtype)
+            v = torch.randn((b, tk, kv, d), generator=g, device="cuda").to(dtype)
+        out, lse = fa.flash_attention_lse(q, k, v, causal=causal)
+        p_out, p_lse = fa.attention_with_lse(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err_out = float((out.float() - p_out.float()).abs().max())
+        err_lse = float((lse - p_lse).abs().max())
+        # bf16 lse: the scores are the same bf16 products summed in f32
+        # on both sides, only in another order
+        tol_out, tol_lse = (2e-5, 2e-5) if dtype == f32 else (2e-2, 1e-4)
+        ok = (out.dtype == dtype and tuple(out.shape) == (b, tq, h, d)
+              and tuple(lse.shape) == (b, h, tq) and err_out <= tol_out and err_lse <= tol_lse)
+        case = dict(phase="flash_check", case=name, q=[b, tq, h, d], kv=[b, tk, kv, d],
+                    causal=causal, dtype=dtype_name(dtype), max_abs_err_out=err_out,
+                    max_abs_err_lse=err_lse, tol_out=tol_out, tol_lse=tol_lse, ok=ok)
+        emit(**case)
+        check(ok, f"flash kernel disagrees: {case}")
+        if name.startswith("prefill"):
+            qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+            def library():
+                return F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal,
+                                                      enable_gqa=kv != h)
+
+            lib_diff = float((library().transpose(1, 2).float() - p_out.float()).abs().max())
+            k_ms = timer.ms(lambda: fa.flash_attention_lse(q, k, v, causal=causal), iters=20)
+            p_ms = timer.ms(lambda: fa.attention_with_lse(q, k, v, causal=causal), iters=5,
+                            warmup=1)
+            l_ms = timer.ms(library, iters=20)
+            ops = 4 * b * h * tq * tk * d / (2 if causal else 1)
+            nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * q.element_size() \
+                + lse.numel() * 4
+            t_ops = ops / PEAK_FLOPS[dtype_name(dtype)] * 1e3
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            timings[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                                 bound_ms=max(t_ops, t_bytes),
+                                 bound_by="operations" if t_ops >= t_bytes else "bytes",
+                                 max_abs_err=err_out)
+            emit(phase="flash_time", case=name, ms=k_ms, plain_ms=p_ms, sdpa_ms=l_ms,
+                 sdpa_vs_plain_max_abs=lib_diff, ops=ops, bytes=nbytes, ops_bound_ms=t_ops,
+                 bytes_bound_ms=t_bytes, achieved_tflop_s=ops / (k_ms * 1e-3) / 1e12,
+                 share_of_bound=max(t_ops, t_bytes) / k_ms)
+        del q, k, v, out, lse, p_out, p_lse
+    torch.cuda.empty_cache()
+    return timings
+
+
+def phase_decode(timer):
+    """The decode kernel against its plain version, every cache form;
+    times at the LM's decode shape and at 4k context."""
+    import torch
+    import torch.nn.functional as F
+    from dml_tpu_torch.ops import decode_attention as da
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    lm_t = PROMPT_LEN + NEW_TOKENS
+    cases = (  # name, b, kv, h, t, cache dtype, positions
+        ("lm_b8", 8, 4, 16, lm_t, torch.bfloat16, [PROMPT_LEN + NEW_TOKENS // 2] * 8),
+        ("gqa4_b8", 8, 4, 16, DECODE_CTX, torch.bfloat16, None),
+        ("gqa4_b1", 1, 4, 16, DECODE_CTX, torch.bfloat16, [3000]),
+        ("mqa_b8", 8, 1, 16, DECODE_CTX, torch.bfloat16, None),
+        ("mha_b8", 8, 16, 16, DECODE_CTX, torch.bfloat16, None),
+        ("mha_b1", 1, 16, 16, DECODE_CTX, torch.bfloat16, [DECODE_CTX - 1]),
+        ("f32_gqa4_b8", 8, 4, 16, DECODE_CTX, torch.float32, None),
+        ("f32_mqa_b1", 1, 1, 16, DECODE_CTX, torch.float32, [1234]),
+        ("int8_gqa4_b8", 8, 4, 16, DECODE_CTX, torch.int8, None),
+        ("int8_mha_b1", 1, 16, 16, DECODE_CTX, torch.int8, [2047]),
+    )
+    d = 64
+    timings = {}
+    for name, b, kv, h, t, cdt, pos in cases:
+        if pos is None:  # mixed per-slot positions, one slot at the end
+            pos = torch.randint(0, t, (b,), generator=g, device="cuda").tolist()
+            pos[0] = t - 1
+        pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        if cdt == torch.int8:
+            k = torch.randint(-127, 128, (b, kv, t, d), generator=g, device="cuda").to(cdt)
+            v = torch.randint(-127, 128, (b, kv, t, d), generator=g, device="cuda").to(cdt)
+            ks = torch.rand((b, kv, 1, t), generator=g, device="cuda") * 0.02
+            vs = torch.rand((b, kv, 1, t), generator=g, device="cuda") * 0.02
+            q = torch.randn((b, 1, h, d), generator=g, device="cuda")
+        else:
+            k = torch.randn((b, kv, t, d), generator=g, device="cuda").to(cdt)
+            v = torch.randn((b, kv, t, d), generator=g, device="cuda").to(cdt)
+            ks = vs = None
+            q = torch.randn((b, 1, h, d), generator=g, device="cuda").to(cdt)
+        out = da.decode_attention(q, k, v, pos_t, k_scale=ks, v_scale=vs)
+        plain = da.decode_attention_plain(q, k, v, pos_t, k_scale=ks, v_scale=vs)
+        # rows past each slot's position are invisible: poison them
+        kp, vp = k.clone(), v.clone()
+        ksp, vsp = (ks.clone(), vs.clone()) if ks is not None else (None, None)
+        for i, p in enumerate(pos):
+            big = 127 if cdt == torch.int8 else 1e4
+            kp[i, :, p + 1:] = big if i % 2 else -big
+            vp[i, :, p + 1:] = -big if i % 2 else big
+            if ksp is not None:
+                ksp[i, :, :, p + 1:] = 1e4
+                vsp[i, :, :, p + 1:] = 1e4
+        poisoned = da.decode_attention(q, kp, vp, pos_t, k_scale=ksp, v_scale=vsp)
+        torch.cuda.synchronize()
+        err = float((out - plain).abs().max())
+        ok = (out.dtype == torch.float32 and tuple(out.shape) == (b, 1, h, d) and err <= 2e-5
+              and torch.equal(poisoned, out))
+        case = dict(phase="decode_check", case=name, b=b, kv=kv, h=h, t=t, cache=dtype_name(cdt),
+                    pos=pos, max_abs_err=err, poisoned_rows_change_output=not torch.equal(
+                        poisoned, out), ok=ok)
+        emit(**case)
+        check(ok, f"decode kernel disagrees: {case}")
+        del kp, vp, ksp, vsp, poisoned
+        if name in ("lm_b8", "gqa4_b8", "gqa4_b1", "mqa_b8", "mha_b1", "int8_gqa4_b8"):
+            k_ms = timer.ms(lambda: da.decode_attention(q, k, v, pos_t, k_scale=ks, v_scale=vs),
+                            iters=50)
+            p_ms = timer.ms(lambda: da.decode_attention_plain(q, k, v, pos_t, k_scale=ks,
+                                                             v_scale=vs), iters=20)
+            l_ms = None
+            if cdt == torch.bfloat16:
+                mask = (torch.arange(t, device="cuda")[None, :] <= pos_t[:, None])[:, None, None, :]
+                qh = q.transpose(1, 2)
+
+                def library():
+                    return F.scaled_dot_product_attention(qh, k, v, attn_mask=mask,
+                                                          enable_gqa=kv != h)
+
+                l_ms = timer.ms(library, iters=50)
+            rows = sum(p + 1 for p in pos)
+            nbytes = 2 * rows * kv * d * k.element_size() + (8 * rows * kv if ks is not None else 0) \
+                + q.numel() * q.element_size() + out.numel() * 4 + b * 4
+            ops = 4 * rows * h * d
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / PEAK_FLOPS["float32"] * 1e3
+            timings[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                                 bound_ms=max(t_bytes, t_ops),
+                                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                                 max_abs_err=err)
+            emit(phase="decode_time", case=name, ms=k_ms, plain_ms=p_ms, sdpa_ms=l_ms,
+                 bytes=nbytes, bytes_bound_ms=t_bytes, ops_bound_ms=t_ops,
+                 achieved_gb_s=nbytes / (k_ms * 1e-3) / 1e9, share_of_bound=t_bytes / k_ms)
+    torch.cuda.empty_cache()
+    return timings
+
+
+def wall_ms(fn, reps=5, warmup=1):
+    """Median host time of `fn` ending in a device sync (what a caller waits)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.monotonic() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def greedy_with_margins(gen, params, cfg, prompt, n):
+    """Greedy tokens through prefill and batched_decode_step, with the
+    top-1 minus top-2 logit margin of every step."""
+    import torch
+
+    b, tp = prompt.shape
+    logits, cache = gen.prefill(params, cfg, prompt, tp + n)
+    toks, margins = [], []
+    for i in range(n):
+        top2 = logits.topk(2, dim=-1).values
+        margins.append((top2[:, 0] - top2[:, 1]).tolist())
+        toks.append(logits.argmax(-1).to(torch.int32))
+        if i < n - 1:
+            pos = torch.full((b,), tp + i, dtype=torch.int32, device=prompt.device)
+            logits, cache = gen.batched_decode_step(params, cfg, cache, toks[-1], pos)
+    return torch.stack(toks, 1), margins
+
+
+def phase_lm():
+    """The LM serving path at full width: generate on cuda, counted."""
+    import dataclasses
+
+    import torch
+    from dml_tpu_torch.inference import generate as gen
+    from dml_tpu_torch.inference.quantize import quantize_lm_params, quantized_bytes
+    from dml_tpu_torch.models.lm_params import init_lm_params
+
+    cfg = gen.LMConfig(**LM_CFG, dtype=torch.bfloat16)
+    t0 = time.monotonic()
+    p32 = init_lm_params(cfg, seed=0)  # device None -> cuda
+    params = gen.serving_params(p32, cfg)
+    torch.cuda.synchronize()
+    load_s = time.monotonic() - t0
+    n_params = quantized_bytes(p32)[1] // 4
+    rng = np.random.RandomState(3)
+    prompts = torch.from_numpy(
+        rng.randint(0, cfg.vocab_size, (LM_BATCH, PROMPT_LEN)).astype(np.int32)).cuda()
+    gen.generate(params, cfg, prompts[:, :64], 2)  # warm-up: cuBLAS handles, kernel loads
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the main path, counted ----
+    reset_launch_counts()
+    t0 = time.monotonic()
+    toks = gen.generate(params, cfg, prompts, NEW_TOKENS)
+    torch.cuda.synchronize()
+    generate_s = time.monotonic() - t0
+    launches = launch_counts()
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    want = {"normalize": 0, "flash_attention": cfg.n_layers,
+            "decode_attention": cfg.n_layers * (NEW_TOKENS - 1)}
+    check(launches == want, f"generate launched {launches}, want {want}")
+    check(toks.dtype == torch.int32 and tuple(toks.shape) == (LM_BATCH, NEW_TOKENS),
+          f"tokens {toks.dtype} {tuple(toks.shape)}")
+    check(0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size, "token out of range")
+    manual, _ = greedy_with_margins(gen, params, cfg, prompts, NEW_TOKENS)
+    check(torch.equal(manual, toks), "prefill + batched_decode_step tokens != generate's")
+
+    # int8 KV cache and int8 weights
+    qcfg = dataclasses.replace(cfg, kv_quant=True)
+    qparams = quantize_lm_params(p32)
+    reset_launch_counts()
+    qtoks = gen.generate(qparams, qcfg, prompts, 16)
+    torch.cuda.synchronize()
+    q_launches = launch_counts()
+    q_want = {"normalize": 0, "flash_attention": cfg.n_layers, "decode_attention": cfg.n_layers * 15}
+    check(q_launches == q_want, f"int8 generate launched {q_launches}, want {q_want}")
+    check(0 <= int(qtoks.min()) and int(qtoks.max()) < cfg.vocab_size, "int8 token out of range")
+    int8_agree = float((qtoks == toks[:, :16]).float().mean())
+
+    # float32: the card (TF32 off) against the port's CPU path
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    small = prompts[:2, :32]
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        g32 = gen.generate(p32, cfg32, small, 8).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    cpu_params = init_lm_params(cfg32, seed=0, device="cpu")
+    c32, margins = greedy_with_margins(gen, cpu_params, cfg32, small.cpu(), 8)
+    check(torch.equal(g32, c32), f"f32 cuda tokens {g32.tolist()} != cpu {c32.tolist()}")
+    check(torch.equal(gen.generate(cpu_params, cfg32, small.cpu(), 8), c32),
+          "cpu generate != cpu prefill + decode steps")
+    bf16_first_vs_f32 = toks[:2, :8].cpu().tolist()
+    del cpu_params, qparams
+
+    # latency: prefill and time to first token at B=1 and B=8 (Tp=2048),
+    # decode ms per step at 4k context
+    timing = {}
+    for b in (1, LM_BATCH):
+        pb = prompts[:b]
+        timing[f"prefill_ms_b{b}"] = wall_ms(lambda: gen.prefill(params, cfg, pb, PROMPT_LEN + 1))
+        timing[f"ttft_ms_b{b}"] = wall_ms(
+            lambda: gen.generate(params, cfg, pb, 1))
+        ctx = torch.from_numpy(
+            rng.randint(0, cfg.vocab_size, (b, DECODE_CTX)).astype(np.int32)).cuda()
+        logits, cache = gen.prefill(params, cfg, ctx, DECODE_CTX + 48)
+        cur = logits.argmax(-1).to(torch.int32)
+        for i in range(3):  # warm-up
+            logits, cache = gen.decode_step(params, cfg, cache, cur, DECODE_CTX + i)
+        steps = 40
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for i in range(steps):  # back to back, as generate runs them
+            logits, cache = gen.decode_step(params, cfg, cache, cur, DECODE_CTX + 3 + i)
+            cur = logits.argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        step_ms = (time.monotonic() - t0) * 1e3 / steps
+        timing[f"decode_ms_per_step_b{b}_ctx{DECODE_CTX}"] = step_ms
+        timing[f"decode_tokens_per_s_b{b}_ctx{DECODE_CTX}"] = b * 1e3 / step_ms
+        if b == LM_BATCH:
+            pos = torch.full((b,), DECODE_CTX + 44, dtype=torch.int32, device="cuda")
+            prof_decode = profile_calls(
+                lambda: gen.batched_decode_step(params, cfg, cache, cur, pos), 5, LM_KINDS)
+            prof_decode["device_ops_per_token"] = prof_decode["device_ops_per_call"] / b
+        del cache, logits
+    prof_prefill = profile_calls(
+        lambda: gen.prefill(params, cfg, prompts, PROMPT_LEN + 1), 2, LM_KINDS)
+    prof_prefill["device_ops_per_token"] = prof_prefill["device_ops_per_call"] / (
+        LM_BATCH * PROMPT_LEN)
+    emit(phase="lm", config=dict(LM_CFG, dtype="bfloat16"), params_millions=n_params / 1e6,
+         load_s=load_s, batch=LM_BATCH, prompt_len=PROMPT_LEN, new_tokens=NEW_TOKENS,
+         generate_s=generate_s, launches=launches, int8_launches=q_launches,
+         tokens_in_range=True, prefill_plus_steps_equal_generate=True,
+         int8_vs_bf16_token_agreement=int8_agree,
+         weight_bytes={"bf16_serving": quantized_bytes(params)[0],
+                       "int8": quantized_bytes(quantize_lm_params(p32))[0],
+                       "f32": quantized_bytes(p32)[0]},
+         f32_cuda_tokens=g32.tolist(), f32_cpu_tokens=c32.tolist(),
+         f32_cpu_top1_margins=margins, bf16_cuda_tokens_first8=bf16_first_vs_f32,
+         max_memory_allocated_mb_generate_b8=peak_mb, **timing)
+    emit(phase="profile", path="lm_prefill_b8_t2048", **prof_prefill)
+    emit(phase="profile", path=f"lm_decode_step_b8_ctx{DECODE_CTX}", **prof_decode)
+    return launches
 
 
 def main() -> int:
@@ -346,15 +764,13 @@ def main() -> int:
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
     check(cap[0] == 9, f"expected a Hopper card (9.x), got {cap}")
 
-    from dml_tpu_torch.ops import preprocess as ops
-
-    t0 = time.monotonic()
-    ops._library()
-    emit(phase="build", kernel="normalize", seconds=time.monotonic() - t0)
-
+    build_all()
     timer = Timer()
     timings = phase_kernel(timer)
     launches = {m: phase_model(m, mode, timer) for m, mode in MODELS}
+    flash = phase_flash(timer)
+    decode = phase_decode(timer)
+    lm_launches = phase_lm()
 
     kernels = []
     for model, mode in MODELS:
@@ -368,6 +784,18 @@ def main() -> int:
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by="bytes", library_ms=None,
         ))
+    t = flash["prefill_b8"]
+    kernels.append(dict(
+        name=f"flash_fwd[prefill b{LM_BATCH} T{PROMPT_LEN} H16 KV4 D64 bf16 causal]",
+        route="cuda", source="dml_tpu_torch/csrc/flash_attention.cu",
+        replaces="dml_tpu/ops/flash_attention.py:65",
+        launches=lm_launches["flash_attention"], **t))
+    t = decode["lm_b8"]
+    kernels.append(dict(
+        name=f"decode_attention[b{LM_BATCH} cache {PROMPT_LEN + NEW_TOKENS} KV4 G4 D64 bf16]",
+        route="cuda", source="dml_tpu_torch/csrc/decode_attention.cu",
+        replaces="dml_tpu/ops/decode_attention.py:53",
+        launches=lm_launches["decode_attention"], **t))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

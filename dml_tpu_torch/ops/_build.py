@@ -25,7 +25,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards the two dicts below
+_name_locks: Dict[str, threading.Lock] = {}
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
@@ -50,8 +51,11 @@ def _digest(paths: Sequence[str]) -> str:
 
 def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
     """Compile `sources` (file names under csrc/) into lib<name>.so and
-    load it. Thread-safe; one build per process at most."""
+    load it. Thread-safe, one build per library per process at most;
+    different libraries build in parallel from different threads."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _loaded.get(name)
         if lib is not None:
             return lib
@@ -69,5 +73,6 @@ def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
                 )
             os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
         lib = ctypes.CDLL(so)
-        _loaded[name] = lib
+        with _lock:
+            _loaded[name] = lib
         return lib

@@ -69,7 +69,10 @@ def _parse(path):
 def test_no_jax_import():
     rel = {os.path.relpath(p, ROOT) for p in _port_files()}
     assert {"chip_smoke.py", "dml_tpu_torch/ops/preprocess.py",
-            "dml_tpu_torch/inference/engine.py", "dml_tpu_torch/models/resnet.py"} <= rel
+            "dml_tpu_torch/inference/engine.py", "dml_tpu_torch/models/resnet.py",
+            "dml_tpu_torch/ops/flash_attention.py", "dml_tpu_torch/ops/decode_attention.py",
+            "dml_tpu_torch/models/transformer.py", "dml_tpu_torch/models/lm_params.py",
+            "dml_tpu_torch/inference/quantize.py", "dml_tpu_torch/inference/generate.py"} <= rel
     bad = [
         f"{os.path.relpath(path, ROOT)}:{node.lineno}: {name}"
         for path in _port_files()
@@ -95,6 +98,7 @@ def test_importing_the_port_loads_no_kernel_library():
     code = (
         "import sys; before = set(sys.modules); "
         "import chip_smoke, dml_tpu_torch.inference, dml_tpu_torch.ops._build as b; "
+        "import dml_tpu_torch.inference.generate, dml_tpu_torch.models.transformer; "
         "assert not b._loaded, b._loaded; "
         "bad = [m for m in set(sys.modules) - before "
         "if m.split('.')[0] in ('jax', 'flax', 'dml_tpu', 'triton')]; "
