@@ -7,9 +7,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device: the card's name, capability (must be 9.x, Hopper) and power
    limit;
-2. build: nvcc builds the three kernel libraries (normalize, flash
-   attention, decode attention) from dml_tpu_torch/csrc/, all started
-   together, with seconds for each;
+2. build: nvcc builds the four kernel libraries (normalize, flash
+   attention forward and backward, decode attention) from
+   dml_tpu_torch/csrc/, all started together, with seconds for each;
 3. kernel: the normalize kernel against its plain PyTorch version on the
    card, in every mode (caffe, tf, unit), output dtype (bf16, f32) and
    shape ([32,224,224,3], [32,299,299,3], ragged [3,7,5,3]); float32
@@ -52,7 +52,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
    greedy tokens on 2 prompts of 32 tokens. Prefill ms, time to first
    token and decode ms per step (and tokens/s) at B=1 and B=8, peak
    device memory, and a torch.profiler breakdown of one prefill and one
-   decode step.
+   decode step;
+9. flash_bwd_check: the flash backward kernels (dq and dkv) against the
+   plain `attention_backward` on the card, each case with and without
+   an lse cotangent: the training shape (q/k/v [1,2048,16,64] bf16,
+   causal, k/v repeated to 16 heads as the LM's blocks send them), GQA
+   k/v [1,2048,4,64], D=128, ragged T=100 and T=1000, non-causal cross
+   attention (Tq=64, Tk=192), and float32 at T=1000, cross and D=16;
+   float32 within atol 5e-5 + rtol 5e-4, bf16 within 1e-2 of the
+   largest reference magnitude. Times at the training shape (delta +
+   both kernels, each kernel alone, the plain version, SDPA's backward)
+   beside the operation bounds (the backward's 5 products and the
+   two-kernel split's 7);
+10. train: the port's LongContextLM on cuda at the same LM config, bf16,
+   B=1, T=2048, seed 0: 1 warm-up and 20 steps on one seeded batch.
+   Every loss finite, the last below the first; each step 12 flash and
+   12 flash-backward launches and no other kernel; a checkpoint save
+   and restore repeats the next two losses within 1e-5 relative; then
+   16 greedy tokens from the trained weights (12 flash, 12 x 15 decode
+   launches); float32 parity: a 2-layer d_model-128 config trained 3
+   steps on cuda (TF32 off) and on the CPU gives losses within 1e-4
+   relative. Step ms median and p90, tokens/s, peak device memory, and
+   a torch.profiler breakdown of one step.
 
 Then the card's name and power limit as nvidia-smi prints them, the
 kernels' summary line, and last `{"ok": true, "device": {...}}`.
@@ -81,6 +102,8 @@ MODELS = (("ResNet50", "caffe"), ("InceptionV3", "tf"))
 LM_CFG = dict(vocab_size=32000, d_model=1024, n_heads=16, n_layers=12, d_ff=4096, n_kv_heads=4)
 LM_BATCH, PROMPT_LEN, NEW_TOKENS = 8, 2048, 64
 DECODE_CTX = 4096
+# training: bench.py's lm_198m_t2048 entry (bench.py:2867-2903), batch 1
+TRAIN_T, TRAIN_STEPS, TRAIN_NEW_TOKENS = 2048, 20, 16
 
 
 def check(ok, msg):
@@ -107,6 +130,7 @@ def reset_launch_counts():
 
     preprocess.normalize_launches = 0
     flash_attention.flash_launches = 0
+    flash_attention.flash_bwd_launches = 0
     decode_attention.decode_launches = 0
 
 
@@ -115,6 +139,7 @@ def launch_counts():
 
     return {"normalize": preprocess.normalize_launches,
             "flash_attention": flash_attention.flash_launches,
+            "flash_bwd": flash_attention.flash_bwd_launches,
             "decode_attention": decode_attention.decode_launches}
 
 
@@ -268,7 +293,8 @@ def phase_model(name, mode, timer):
         counts = launch_counts()
     launches = counts["normalize"]
     chunks = 2 * -(-N_IMAGES // BATCH) + -(-N_FILES // BATCH)
-    check(counts == {"normalize": chunks, "flash_attention": 0, "decode_attention": 0},
+    check(counts == {"normalize": chunks, "flash_attention": 0, "flash_bwd": 0,
+                     "decode_attention": 0},
           f"{name}: launches {counts} for {chunks} chunks")
     check(probs.shape == (N_IMAGES, 1000) and probs.dtype == np.float32,
           f"{name}: probs {probs.dtype} {probs.shape}")
@@ -381,7 +407,10 @@ def profile_calls(fn, iters, kinds):
     by_kind, per_kernel, n_kernels = {}, [], 0
     for e in prof.key_averages():
         us = e.self_device_time_total
-        if e.device_type != torch.autograd.DeviceType.CUDA or us <= 0:
+        # a user annotation (Optimizer.step's record_function) spans its
+        # kernels on the device timeline: counting it would count them twice
+        if (e.device_type != torch.autograd.DeviceType.CUDA or us <= 0
+                or getattr(e, "is_user_annotation", False)):
             continue
         per_kernel.append((us, e.key))
         n_kernels += e.count
@@ -407,6 +436,7 @@ def build_all():
     from dml_tpu_torch.ops import decode_attention, flash_attention, preprocess
 
     libs = {"normalize": preprocess._library, "flash_attention": flash_attention._library,
+            "flash_attention_bwd": flash_attention._bwd_library,
             "decode_attention": decode_attention._library}
 
     def timed(fn):
@@ -661,7 +691,7 @@ def phase_lm():
     generate_s = time.monotonic() - t0
     launches = launch_counts()
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
-    want = {"normalize": 0, "flash_attention": cfg.n_layers,
+    want = {"normalize": 0, "flash_attention": cfg.n_layers, "flash_bwd": 0,
             "decode_attention": cfg.n_layers * (NEW_TOKENS - 1)}
     check(launches == want, f"generate launched {launches}, want {want}")
     check(toks.dtype == torch.int32 and tuple(toks.shape) == (LM_BATCH, NEW_TOKENS),
@@ -677,7 +707,8 @@ def phase_lm():
     qtoks = gen.generate(qparams, qcfg, prompts, 16)
     torch.cuda.synchronize()
     q_launches = launch_counts()
-    q_want = {"normalize": 0, "flash_attention": cfg.n_layers, "decode_attention": cfg.n_layers * 15}
+    q_want = {"normalize": 0, "flash_attention": cfg.n_layers, "flash_bwd": 0,
+              "decode_attention": cfg.n_layers * 15}
     check(q_launches == q_want, f"int8 generate launched {q_launches}, want {q_want}")
     check(0 <= int(qtoks.min()) and int(qtoks.max()) < cfg.vocab_size, "int8 token out of range")
     int8_agree = float((qtoks == toks[:, :16]).float().mean())
@@ -748,6 +779,216 @@ def phase_lm():
     emit(phase="profile", path=f"lm_decode_step_b8_ctx{DECODE_CTX}", **prof_decode)
     return launches
 
+def phase_flash_bwd(timer):
+    """The flash backward kernels against their plain version; times at
+    the training shape."""
+    import torch
+    import torch.nn.functional as F
+    from dml_tpu_torch.ops import flash_attention as fa
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    g = torch.Generator(device="cuda").manual_seed(4)
+    cases = (  # name, b, tq, tk, h, kv, d, causal, dtype
+        ("train", 1, TRAIN_T, TRAIN_T, 16, 16, 64, True, bf16),
+        ("gqa4", 1, TRAIN_T, TRAIN_T, 16, 4, 64, True, bf16),
+        ("d128", 1, 1024, 1024, 8, 8, 128, True, bf16),
+        ("ragged_t100", 2, 100, 100, 16, 4, 64, True, bf16),
+        ("ragged_t1000", 2, 1000, 1000, 16, 4, 64, True, bf16),
+        ("cross", 2, 64, 192, 16, 16, 64, False, bf16),
+        ("f32_t1000", 2, 1000, 1000, 8, 2, 64, True, f32),
+        ("f32_cross", 2, 64, 192, 4, 4, 32, False, f32),
+        ("f32_d16", 1, 130, 130, 2, 1, 16, True, f32),
+    )
+    timings = {}
+    for name, b, tq, tk, h, kv, d, causal, dtype in cases:
+        q = torch.randn((b, tq, h, d), generator=g, device="cuda").to(dtype)
+        k = torch.randn((b, tk, kv, d), generator=g, device="cuda").to(dtype)
+        v = torch.randn((b, tk, kv, d), generator=g, device="cuda").to(dtype)
+        dout = torch.randn((b, tq, h, d), generator=g, device="cuda").to(dtype)
+        out, lse = fa.flash_attention_lse(q, k, v, causal=causal)
+        for with_lse in (False, True):
+            dlse = torch.randn((b, h, tq), generator=g, device="cuda") if with_lse else None
+            got = fa.flash_attention_backward(q, k, v, out, lse, dout, dlse, causal=causal)
+            want = fa.attention_backward(q, k, v, out, lse, dout, dlse, causal=causal)
+            torch.cuda.synchronize()
+            errs, ok = {}, True
+            for n, a, r in zip(("dq", "dk", "dv"), got, want):
+                ok &= a.dtype == r.dtype and a.shape == r.shape
+                diff = (a.float() - r.float()).abs()
+                errs[n] = float(diff.max())
+                if dtype == f32:
+                    ok &= bool((diff <= 5e-5 + 5e-4 * r.abs()).all())
+                else:
+                    ok &= errs[n] <= 1e-2 * float(r.float().abs().max())
+            case = dict(phase="flash_bwd_check", case=name, q=[b, tq, h, d], kv=[b, tk, kv, d],
+                        causal=causal, dtype=dtype_name(dtype), lse_cotangent=with_lse,
+                        max_abs_err=errs,
+                        max_abs_ref={n: float(r.float().abs().max()) for n, r in
+                                     zip(("dq", "dk", "dv"), want)},
+                        bar="atol 5e-5 + rtol 5e-4" if dtype == f32 else "1e-2 of max |ref|",
+                        ok=ok)
+            emit(**case)
+            check(ok, f"flash backward kernels disagree: {case}")
+            del got, want
+        if name == "train":
+            scale = d ** -0.5
+            delta = fa._delta(out, dout)
+
+            def part(n):
+                return lambda: fa._flash_bwd_cuda(q, k, v, dout, lse, delta, None, causal, scale,
+                                                  parts=n)
+
+            k3_ms = timer.ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, dout,
+                                                                 causal=causal), iters=20)
+            dq_ms = timer.ms(part(1), iters=20)
+            dkv_ms = timer.ms(part(2), iters=20)
+            p_ms = timer.ms(lambda: fa.attention_backward(q, k, v, out, lse, dout, causal=causal),
+                            iters=5, warmup=1)
+            qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+            oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)
+            doh = dout.transpose(1, 2)
+            l_ms = timer.ms(lambda: torch.autograd.grad(oh, (qh, kh, vh), doh, retain_graph=True),
+                            iters=20)
+            product = 2 * b * h * tq * tk * d / (2 if causal else 1)
+            el = q.element_size()
+            qkvo = b * tq * h * d * el  # one [B, T, H, D] tensor (k/v have H heads here)
+            rows = b * h * tq * 4
+            bound = {}
+            # (operations, bytes): the whole backward at its minimum (5
+            # products; q, k, v, out, dO, lse in; dq, dk, dv out), the
+            # split's 7, and each kernel's own (dq: S, dP, dQ; dkv: S, dP,
+            # dV, dK; both read q, k, v, dO, lse, delta)
+            for key, ops, nbytes in (("min", 5 * product, 8 * qkvo + rows),
+                                     ("split", 7 * product, 8 * qkvo + rows),
+                                     ("dq", 3 * product, 5 * qkvo + 2 * rows),
+                                     ("dkv", 4 * product, 6 * qkvo + 2 * rows)):
+                t_ops = ops / PEAK_FLOPS["bfloat16"] * 1e3
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                bound[key] = dict(ops=ops, bytes=nbytes, ops_bound_ms=t_ops, bytes_bound_ms=t_bytes,
+                                  bound_ms=max(t_ops, t_bytes),
+                                  bound_by="operations" if t_ops >= t_bytes else "bytes")
+            timings[name] = dict(ms=k3_ms, dq_ms=dq_ms, dkv_ms=dkv_ms, plain_ms=p_ms,
+                                 library_ms=l_ms, bound=bound,
+                                 max_abs_err=max(errs.values()))
+            emit(phase="flash_bwd_time", case=name, k3_ms=k3_ms, dq_ms=dq_ms, dkv_ms=dkv_ms,
+                 delta_ms_approx=k3_ms - dq_ms - dkv_ms, plain_ms=p_ms, sdpa_bwd_ms=l_ms,
+                 bound=bound, share_of_min_bound=bound["min"]["bound_ms"] / k3_ms,
+                 share_of_split_bound=bound["split"]["bound_ms"] / k3_ms,
+                 achieved_tflop_s_split=bound["split"]["ops"] / (k3_ms * 1e-3) / 1e12)
+            del qh, kh, vh, oh, doh, delta
+        del q, k, v, dout, out, lse
+    torch.cuda.empty_cache()
+    return timings
+
+
+TRAIN_KINDS = (
+    ("flash_bwd_", "flash_attention_bwd"), ("flash_fwd_", "flash_attention_fwd"),
+    ("Adam", "optimizer"), ("multi_tensor_apply", "optimizer"),
+    ("gemm", "matmul"), ("gemv", "matmul"), ("nvjet", "matmul"), ("xmma", "matmul"),
+    ("cutlass", "matmul"), ("Memcpy", "copy"), ("Memset", "copy"), ("softmax", "softmax"),
+    ("index", "gather_scatter"), ("reduce", "reduce"), ("CatArray", "concat"),
+    ("elementwise", "elementwise"))
+
+
+def _rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def phase_train():
+    """The LM training path at full width: LongContextLM.train_step on
+    cuda, counted."""
+    import torch
+    from dml_tpu_torch.parallel.long_context import LongContextLM
+
+    n_layers = LM_CFG["n_layers"]
+    t0 = time.monotonic()
+    lm = LongContextLM(seq_len=TRAIN_T, dtype=torch.bfloat16, seed=0, **LM_CFG)  # device None -> cuda
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    check(lm.device.type == "cuda", f"LongContextLM on {lm.device}")
+    rng = np.random.RandomState(5)
+    toks = torch.from_numpy(
+        rng.randint(0, LM_CFG["vocab_size"], (1, TRAIN_T)).astype(np.int32)).cuda()
+    warm = lm.train_step(toks)  # warm-up: cuBLAS handles, kernel loads
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the main path, counted ----
+    reset_launch_counts()
+    losses, step_ms = [], []
+    per_step = {"normalize": 0, "flash_attention": n_layers, "flash_bwd": n_layers,
+                "decode_attention": 0}
+    for _ in range(TRAIN_STEPS):
+        before = launch_counts()
+        t0 = time.monotonic()
+        losses.append(lm.train_step(toks))  # float(loss) waits for the whole step
+        step_ms.append((time.monotonic() - t0) * 1e3)
+        after = launch_counts()
+        moved = {k: after[k] - before[k] for k in after}
+        check(moved == per_step, f"a train step launched {moved}, want {per_step}")
+    launches = launch_counts()
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses[0]} -> {losses[-1]}")
+
+    # checkpoint round trip on the card: the next two losses repeat
+    with tempfile.TemporaryDirectory() as ck:
+        t0 = time.monotonic()
+        lm.save_checkpoint(ck)
+        save_s = time.monotonic() - t0
+        ahead = [lm.train_step(toks) for _ in range(2)]
+        t0 = time.monotonic()
+        check(lm.restore_checkpoint(ck) == 1 + TRAIN_STEPS, "restored the wrong step")
+        restore_s = time.monotonic() - t0
+        again = [lm.train_step(toks) for _ in range(2)]
+    ck_rel = max(_rel(a, b) for a, b in zip(again, ahead))
+    check(ck_rel <= 1e-5, f"losses after restore {again} != {ahead}")
+
+    # serve from the trained weights
+    reset_launch_counts()
+    gen_toks = lm.generate(toks[:, :128].cpu().numpy(), TRAIN_NEW_TOKENS)
+    torch.cuda.synchronize()
+    gen_launches = launch_counts()
+    gen_want = {"normalize": 0, "flash_attention": n_layers, "flash_bwd": 0,
+                "decode_attention": n_layers * (TRAIN_NEW_TOKENS - 1)}
+    check(gen_launches == gen_want, f"generate launched {gen_launches}, want {gen_want}")
+    check(gen_toks.shape == (1, TRAIN_NEW_TOKENS) and 0 <= gen_toks.min()
+          and gen_toks.max() < LM_CFG["vocab_size"], f"generated tokens {gen_toks}")
+
+    prof = profile_calls(lambda: lm.train_step(toks), 3, TRAIN_KINDS)
+    del lm
+    torch.cuda.empty_cache()
+
+    # float32: the card (TF32 off) against the port's CPU path
+    small = dict(vocab_size=512, d_model=128, n_heads=4, n_kv_heads=2, n_layers=2, d_ff=256)
+    stoks = np.random.RandomState(6).randint(0, 512, (2, 128)).astype(np.int32)
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        g32 = LongContextLM(seq_len=128, dtype=torch.float32, seed=1, **small)
+        cuda_losses = [g32.train_step(stoks) for _ in range(3)]
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    c32 = LongContextLM(seq_len=128, dtype=torch.float32, seed=1, device="cpu", **small)
+    cpu_losses = [c32.train_step(stoks) for _ in range(3)]
+    f32_rel = max(_rel(a, b) for a, b in zip(cuda_losses, cpu_losses))
+    check(f32_rel <= 1e-4, f"f32 cuda losses {cuda_losses} != cpu {cpu_losses}")
+    del g32, c32
+
+    med = statistics.median(step_ms)
+    emit(phase="train", config=dict(LM_CFG, dtype="bfloat16", seq_len=TRAIN_T, batch=1,
+                                    optimizer="AdamW lr 3e-4 wd 1e-4"),
+         init_s=init_s, warmup_loss=warm, steps=TRAIN_STEPS, losses=losses, launches=launches,
+         launches_per_step=per_step, step_ms=step_ms, step_ms_median=med,
+         step_ms_p90=float(np.percentile(step_ms, 90)), tokens_per_s=TRAIN_T / (med / 1e3),
+         max_memory_allocated_mb=peak_mb, checkpoint_save_s=save_s,
+         checkpoint_restore_s=restore_s, losses_ahead=ahead, losses_after_restore=again,
+         restore_max_rel_diff=ck_rel, generate_launches=gen_launches,
+         generated=gen_toks.tolist(), f32_cuda_losses=cuda_losses, f32_cpu_losses=cpu_losses,
+         f32_max_rel_diff=f32_rel)
+    emit(phase="profile", path=f"train_step_b1_t{TRAIN_T}", **prof)
+    return launches
+
 
 def main() -> int:
     import torch
@@ -771,6 +1012,8 @@ def main() -> int:
     flash = phase_flash(timer)
     decode = phase_decode(timer)
     lm_launches = phase_lm()
+    bwd = phase_flash_bwd(timer)
+    train_launches = phase_train()
 
     kernels = []
     for model, mode in MODELS:
@@ -796,6 +1039,16 @@ def main() -> int:
         route="cuda", source="dml_tpu_torch/csrc/decode_attention.cu",
         replaces="dml_tpu/ops/decode_attention.py:53",
         launches=lm_launches["decode_attention"], **t))
+    t = bwd["train"]
+    for part, line in (("dq", 113), ("dkv", 166)):
+        kernels.append(dict(
+            name=f"flash_bwd_{part}[train b1 T{TRAIN_T} H16 D64 bf16 causal; plain and "
+                 f"library times are the whole backward's]",
+            route="cuda", source="dml_tpu_torch/csrc/flash_attention_bwd.cu",
+            replaces=f"dml_tpu/ops/flash_attention.py:{line}",
+            launches=train_launches["flash_bwd"], max_abs_err=t["max_abs_err"],
+            ms=t[f"{part}_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound"][part]["bound_ms"],
+            bound_by=t["bound"][part]["bound_by"], library_ms=t["library_ms"]))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

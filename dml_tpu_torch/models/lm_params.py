@@ -168,3 +168,53 @@ def state_dict_of(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         if isinstance(v, Mapping):
             raise TypeError(f"{k!r} is quantized: TransformerLM takes float weights")
     return {k.replace("/", "."): v for k, v in flat.items()}
+
+
+def params_tree_of(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """`TransformerLM` state_dict ('a.b.c' keys) -> the params tree that
+    `inference.generate` serves (the inverse of `state_dict_of`)."""
+    return _nest({k.replace(".", "/"): v for k, v in state_dict.items()})
+
+
+def _adam_state(opt_state: Any) -> Any:
+    """The optax `ScaleByAdamState` (count, mu, nu) inside a chain's
+    state (nested tuples)."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu") and hasattr(opt_state, "count"):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for s in opt_state:
+            found = _adam_state(s)
+            if found is not None:
+                return found
+    return None
+
+
+def lm_train_state_from_flax(state: Mapping[str, Any], device=None) -> Dict[str, Any]:
+    """The JAX package's `LongContextLM.state` (`{"params", "opt_state",
+    "step"}` with numpy or array leaves; `opt_state` is optax.adamw's
+    chain state, whose `ScaleByAdamState` holds count, mu and nu) -> the
+    port's train state, as `parallel.long_context.LongContextLM.state`
+    holds it: `{"params": TransformerLM state_dict, "opt_state":
+    {"count": int, "exp_avg": {name: tensor}, "exp_avg_sq": {name:
+    tensor}}, "step": int}`, tensors on `device` (`cuda` unless given).
+
+    Params are converted by `lm_params_from_flax`, with its key and
+    shape checks; mu and nu must hold exactly the params' keys and
+    shapes (KeyError, ValueError otherwise)."""
+    params = state_dict_of(lm_params_from_flax(state["params"], device))
+    adam = _adam_state(state["opt_state"])
+    if adam is None:
+        raise KeyError("opt_state holds no ScaleByAdamState (count, mu, nu)")
+    moments = {}
+    for name, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+        sd = state_dict_of(lm_params_from_flax(getattr(adam, name), device))
+        if set(sd) != set(params):
+            raise KeyError(f"opt_state {name} keys {sorted(set(sd) ^ set(params))} differ from the params'")
+        for k, v in sd.items():
+            if v.shape != params[k].shape:
+                raise ValueError(f"opt_state {name} {k!r}: shape {tuple(v.shape)}, "
+                                 f"the param's is {tuple(params[k].shape)}")
+        moments[key] = sd
+    return {"params": params,
+            "opt_state": {"count": int(np.asarray(adam.count)), **moments},
+            "step": int(np.asarray(state["step"]))}

@@ -156,6 +156,9 @@ class TransformerLM(nn.Module):
                  num_experts: int = 0, moe_every: int = 2):
         super().__init__()
         attn = attention or reference_attention
+        # the Flax module's fields, which LongContextLM.generate reads
+        self.vocab_size, self.d_model, self.n_heads, self.d_ff = vocab_size, d_model, n_heads, d_ff
+        self.n_kv_heads, self.dtype = n_kv_heads, dtype
         self.n_layers, self.head_dim = n_layers, d_model // n_heads
         self.embed = Embed(vocab_size, d_model, dtype)
         for i in range(n_layers):
