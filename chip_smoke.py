@@ -10,6 +10,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
 2. build: nvcc builds the four kernel libraries (normalize, flash
    attention forward and backward, decode attention) from
    dml_tpu_torch/csrc/, all started together, with seconds for each;
+   beside them ptxas reports the flash forward's kernels (registers,
+   spills; `ptxas` line, with the wgmma kernel's setmaxnreg counts);
 3. kernel: the normalize kernel against its plain PyTorch version on the
    card, in every mode (caffe, tf, unit), output dtype (bf16, f32) and
    shape ([32,224,224,3], [32,299,299,3], ragged [3,7,5,3]); float32
@@ -28,13 +30,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
    latency p50/p90/p99 over 1000 batches and images/s at batch 32, the
    device time of one forward, and a torch.profiler breakdown of where
    a batch's time goes;
-6. flash_check: the flash attention kernel against its plain version
-   (out and lse) at the LM's prefill shape (q [8,2048,16,64], GQA-4 k/v
-   [8,2048,4,64], bf16, causal) and at [1,2048,16,64], D=128, ragged
-   T=100 and T=1000, non-causal cross attention (Tq=64, Tk=192), and
-   float32 cases; tolerances float32 2e-5 (out and lse), bf16 out 2e-2
-   and lse 1e-4. Kernel, plain and torch SDPA times at the prefill
-   shape beside the tensor-core operation bound;
+6. flash_check: the flash attention forward against its plain version
+   (out and lse), each case naming its route (`kernel_route`): the LM's
+   prefill shape (q [8,2048,16,64], GQA-4 k/v [8,2048,4,64], bf16,
+   causal, v a strided view of the qkv output) and B=1, the training
+   forward ([1,2048,16,64], k/v repeated from 4 heads), D=128 (MHA, and
+   GQA-4 at B=2 T=2048), ragged T=100 and T=1000, a poisoned tail (k/v
+   [:, :1000] views of longer buffers holding +-1e4 past row 1000: the
+   output must equal the clean copies'), non-causal cross attention
+   (Tq=64, Tk=192; Tq=200, Tk=1000 GQA-4), bf16 D=32 (the mma.sync
+   route) and float32 cases; tolerances float32 2e-5 (out and lse),
+   bf16 out 2e-2 and lse 1e-4. At prefill_b8, prefill_b1 and mha_b1 the
+   wgmma kernel, the mma.sync kernel (checked too), SDPA and the plain
+   version are timed in turns (new, mma.sync, SDPA, plain, SDPA,
+   mma.sync, new) beside the tensor-core operation bound, with TFLOP/s
+   and share of the bound;
 7. decode_check: the decode attention kernel against its plain version
    within 2e-5 for bf16, f32 and int8 caches; GQA-4, MQA and MHA; B=1
    and B=8 at T=4096 with mixed per-slot positions, and the LM's own
@@ -433,7 +443,7 @@ def build_all():
     each; seconds per library."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from dml_tpu_torch.ops import decode_attention, flash_attention, preprocess
+    from dml_tpu_torch.ops import _build, decode_attention, flash_attention, preprocess
 
     libs = {"normalize": preprocess._library, "flash_attention": flash_attention._library,
             "flash_attention_bwd": flash_attention._bwd_library,
@@ -445,10 +455,52 @@ def build_all():
         return time.monotonic() - t0
 
     t0 = time.monotonic()
-    with ThreadPoolExecutor(len(libs)) as ex:
+    with ThreadPoolExecutor(len(libs) + 1) as ex:
+        report = ex.submit(_build.ptxas_report, ["flash_attention.cu"])
         futures = {k: ex.submit(timed, fn) for k, fn in libs.items()}
         seconds = {k: f.result() for k, f in futures.items()}
+        ptxas = report.result()
     emit(phase="build", seconds=seconds, wall_seconds=time.monotonic() - t0)
+    emit(phase="ptxas", source="dml_tpu_torch/csrc/flash_attention.cu", kernels=ptxas_usage(ptxas),
+         setmaxnreg=setmaxnreg_counts())
+
+
+def ptxas_usage(report):
+    """{kernel<template args>: {registers, spill_stores, spill_loads}}
+    from ptxas -v."""
+    import re
+
+    usage, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Function properties for \S*?(flash_fwd_\w+?_kernel)I((?:Li\d+E)+)E", line)
+        if m:
+            name = f"{m.group(1)}<{','.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
+            usage[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            usage[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            usage[name]["registers"] = int(m.group(1))
+            name = None
+    return usage
+
+
+def setmaxnreg_counts():
+    """The wgmma kernel's registers per thread after setmaxnreg, by its
+    consumer count, from its source: ptxas reports the count at entry."""
+    import re
+
+    from dml_tpu_torch.ops import _build
+
+    with open(os.path.join(_build.CSRC_DIR, "flash_attention.cu")) as f:
+        src = f.read()
+    regs = {}
+    for role in ("PRODUCER", "CONSUMER"):
+        m = re.search(role + r"_REGS = NC == 3 \? (\d+) : (\d+);", src)
+        regs[role.lower()] = {"3 consumers": int(m.group(1)), "2 consumers": int(m.group(2))}
+    return regs
 
 
 def dtype_name(dtype):
@@ -456,8 +508,8 @@ def dtype_name(dtype):
 
 
 def phase_flash(timer):
-    """The flash kernel against its plain version; times at the LM's
-    prefill shapes."""
+    """The flash kernel against its plain version; the wgmma route beside
+    the mma.sync route, the plain version and SDPA at the LM's shapes."""
     import torch
     import torch.nn.functional as F
     from dml_tpu_torch.ops import flash_attention as fa
@@ -467,23 +519,41 @@ def phase_flash(timer):
     cases = (  # name, b, tq, tk, h, kv, d, causal, dtype
         ("prefill_b8", 8, PROMPT_LEN, PROMPT_LEN, 16, 4, 64, True, bf16),
         ("prefill_b1", 1, PROMPT_LEN, PROMPT_LEN, 16, 4, 64, True, bf16),
-        ("mha_b1", 1, PROMPT_LEN, PROMPT_LEN, 16, 16, 64, True, bf16),
+        ("mha_b1", 1, TRAIN_T, TRAIN_T, 16, 16, 64, True, bf16),
         ("d128", 2, 1024, 1024, 8, 8, 128, True, bf16),
+        ("d128_gqa", 2, 2048, 2048, 16, 4, 128, True, bf16),
         ("ragged_t100", 2, 100, 100, 16, 4, 64, True, bf16),
         ("ragged_t1000", 2, 1000, 1000, 16, 4, 64, True, bf16),
+        ("poisoned_tail", 2, 1000, 1000, 16, 4, 64, True, bf16),
         ("cross", 2, 64, 192, 16, 16, 64, False, bf16),
+        ("cross_ragged", 2, 200, 1000, 16, 4, 64, False, bf16),
+        ("d32", 2, 300, 300, 4, 2, 32, True, bf16),
         ("f32_t1000", 2, 1000, 1000, 8, 2, 64, True, f32),
         ("f32_cross", 2, 64, 192, 4, 4, 32, False, f32),
         ("f32_d16", 1, 130, 130, 2, 1, 16, True, f32),
     )
+    timed = ("prefill_b8", "prefill_b1", "mha_b1")
     timings = {}
     for name, b, tq, tk, h, kv, d, causal, dtype in cases:
         q = torch.randn((b, tq, h, d), generator=g, device="cuda").to(dtype)
+        clean = None
         if name.startswith("prefill"):
             # the LM's layout: k contiguous after rope, v a strided view of the qkv output
             qkv = torch.randn((b, tk, (h + 2 * kv) * d), generator=g, device="cuda").to(dtype)
             k = qkv[..., h * d:(h + kv) * d].reshape(b, tk, kv, d).contiguous()
             v = qkv[..., (h + kv) * d:].reshape(b, tk, kv, d)
+        elif name == "mha_b1":
+            # the training forward: Block repeats 4 kv heads to 16
+            k, v = (torch.randn((b, tk, 4, d), generator=g, device="cuda").to(dtype)
+                    .repeat_interleave(h // 4, dim=2) for _ in range(2))
+        elif name == "poisoned_tail":
+            # k and v are [:, :Tk] views of longer buffers whose rows at Tk
+            # and beyond hold +-1e4: the kernel must never read them
+            kb, vb = (torch.randn((b, tk + 152, kv, d), generator=g, device="cuda").to(dtype)
+                      for _ in range(2))
+            kb[:, tk:], vb[:, tk:] = 1e4, -1e4
+            k, v = kb[:, :tk], vb[:, :tk]
+            clean = fa.flash_attention_lse(q, k.contiguous(), v.contiguous(), causal=causal)
         else:
             k = torch.randn((b, tk, kv, d), generator=g, device="cuda").to(dtype)
             v = torch.randn((b, tk, kv, d), generator=g, device="cuda").to(dtype)
@@ -497,12 +567,24 @@ def phase_flash(timer):
         tol_out, tol_lse = (2e-5, 2e-5) if dtype == f32 else (2e-2, 1e-4)
         ok = (out.dtype == dtype and tuple(out.shape) == (b, tq, h, d)
               and tuple(lse.shape) == (b, h, tq) and err_out <= tol_out and err_lse <= tol_lse)
+        extra = {}
+        if clean is not None:
+            extra["equal_to_clean_run"] = bool(torch.equal(clean[0], out) and torch.equal(clean[1], lse))
+            ok &= extra["equal_to_clean_run"]
         case = dict(phase="flash_check", case=name, q=[b, tq, h, d], kv=[b, tk, kv, d],
-                    causal=causal, dtype=dtype_name(dtype), max_abs_err_out=err_out,
-                    max_abs_err_lse=err_lse, tol_out=tol_out, tol_lse=tol_lse, ok=ok)
+                    causal=causal, dtype=dtype_name(dtype), route=fa.kernel_route(dtype, d),
+                    max_abs_err_out=err_out, max_abs_err_lse=err_lse, tol_out=tol_out,
+                    tol_lse=tol_lse, ok=ok, **extra)
         emit(**case)
         check(ok, f"flash kernel disagrees: {case}")
-        if name.startswith("prefill"):
+        if name in timed:
+            scale = d ** -0.5
+            m_out, m_lse = fa._flash_cuda(q, k, v, causal, scale, mma_sync=True)
+            torch.cuda.synchronize()
+            m_err = float((m_out.float() - p_out.float()).abs().max())
+            m_err_lse = float((m_lse - p_lse).abs().max())
+            check(m_err <= tol_out and m_err_lse <= tol_lse,
+                  f"{name}: mma.sync route disagrees ({m_err}, {m_err_lse})")
             qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
             def library():
@@ -510,24 +592,37 @@ def phase_flash(timer):
                                                       enable_gqa=kv != h)
 
             lib_diff = float((library().transpose(1, 2).float() - p_out.float()).abs().max())
-            k_ms = timer.ms(lambda: fa.flash_attention_lse(q, k, v, causal=causal), iters=20)
+            runs = {"wgmma": lambda: fa.flash_attention_lse(q, k, v, causal=causal),
+                    "mma_sync": lambda: fa._flash_cuda(q, k, v, causal, scale, mma_sync=True),
+                    "sdpa": library}
+            # in turns on one card: new, mma.sync, SDPA, plain, SDPA, mma.sync, new
+            turns = {key: [] for key in runs}
+            for key in ("wgmma", "mma_sync", "sdpa"):
+                turns[key].append(timer.ms(runs[key], iters=20))
             p_ms = timer.ms(lambda: fa.attention_with_lse(q, k, v, causal=causal), iters=5,
                             warmup=1)
-            l_ms = timer.ms(library, iters=20)
+            for key in ("sdpa", "mma_sync", "wgmma"):
+                turns[key].append(timer.ms(runs[key], iters=20))
+            k_ms, m_ms, l_ms = (statistics.mean(turns[key]) for key in ("wgmma", "mma_sync", "sdpa"))
             ops = 4 * b * h * tq * tk * d / (2 if causal else 1)
             nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * q.element_size() \
                 + lse.numel() * 4
             t_ops = ops / PEAK_FLOPS[dtype_name(dtype)] * 1e3
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            timings[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                                 bound_ms=max(t_ops, t_bytes),
+            bound = max(t_ops, t_bytes)
+            timings[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound,
                                  bound_by="operations" if t_ops >= t_bytes else "bytes",
-                                 max_abs_err=err_out)
-            emit(phase="flash_time", case=name, ms=k_ms, plain_ms=p_ms, sdpa_ms=l_ms,
-                 sdpa_vs_plain_max_abs=lib_diff, ops=ops, bytes=nbytes, ops_bound_ms=t_ops,
-                 bytes_bound_ms=t_bytes, achieved_tflop_s=ops / (k_ms * 1e-3) / 1e12,
-                 share_of_bound=max(t_ops, t_bytes) / k_ms)
-        del q, k, v, out, lse, p_out, p_lse
+                                 max_abs_err=err_out, mma_sync_ms=m_ms)
+            emit(phase="flash_time", case=name, route=fa.kernel_route(dtype, d), ms=k_ms,
+                 mma_sync_ms=m_ms, plain_ms=p_ms, sdpa_ms=l_ms, turns_ms=turns,
+                 speedup_vs_mma_sync=m_ms / k_ms, vs_sdpa=k_ms / l_ms,
+                 mma_sync_max_abs_err_out=m_err, sdpa_vs_plain_max_abs=lib_diff, ops=ops,
+                 bytes=nbytes, ops_bound_ms=t_ops, bytes_bound_ms=t_bytes,
+                 achieved_tflop_s=ops / (k_ms * 1e-3) / 1e12,
+                 mma_sync_tflop_s=ops / (m_ms * 1e-3) / 1e12,
+                 sdpa_tflop_s=ops / (l_ms * 1e-3) / 1e12,
+                 share_of_bound=bound / k_ms, mma_sync_share_of_bound=bound / m_ms)
+        del q, k, v, out, lse, p_out, p_lse, clean
     torch.cuda.empty_cache()
     return timings
 
@@ -1027,12 +1122,16 @@ def main() -> int:
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by="bytes", library_ms=None,
         ))
-    t = flash["prefill_b8"]
-    kernels.append(dict(
-        name=f"flash_fwd[prefill b{LM_BATCH} T{PROMPT_LEN} H16 KV4 D64 bf16 causal]",
-        route="cuda", source="dml_tpu_torch/csrc/flash_attention.cu",
-        replaces="dml_tpu/ops/flash_attention.py:65",
-        launches=lm_launches["flash_attention"], **t))
+    for case, shape, path_launches in (
+            ("prefill_b8", f"prefill b{LM_BATCH} T{PROMPT_LEN} H16 KV4 D64 bf16 causal",
+             lm_launches["flash_attention"]),
+            ("mha_b1", f"train forward b1 T{TRAIN_T} H16 D64 bf16 causal, k/v repeated",
+             train_launches["flash_attention"])):
+        t = dict(flash[case])
+        kernels.append(dict(
+            name=f"flash_fwd[{shape}; wgmma+TMA]", route="cuda", variant="wgmma+tma",
+            source="dml_tpu_torch/csrc/flash_attention.cu",
+            replaces="dml_tpu/ops/flash_attention.py:65", launches=path_launches, **t))
     t = decode["lm_b8"]
     kernels.append(dict(
         name=f"decode_attention[b{LM_BATCH} cache {PROMPT_LEN + NEW_TOKENS} KV4 G4 D64 bf16]",

@@ -49,6 +49,22 @@ def _digest(paths: Sequence[str]) -> str:
     return h.hexdigest()[:16]
 
 
+def ptxas_report(sources: Sequence[str]) -> str:
+    """What ptxas says of each kernel in `sources` (file names under
+    csrc/) under the build's own flags plus `-Xptxas -v`: registers,
+    shared memory, spills. Compiles into a temporary file; raises if
+    nvcc fails."""
+    import tempfile
+
+    paths = [os.path.join(CSRC_DIR, s) for s in sources]
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [_find_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", os.path.join(tmp, "lib.so"), *paths]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr[-4000:]}")
+    return proc.stderr
+
+
 def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
     """Compile `sources` (file names under csrc/) into lib<name>.so and
     load it. Thread-safe, one build per library per process at most;

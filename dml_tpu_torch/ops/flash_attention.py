@@ -4,14 +4,19 @@ dml_tpu/ops/flash_attention.py.
 The TPU kernels it replaces are `dml_tpu/ops/flash_attention.py::
 _fwd_kernel` (K2) and the backward pair `_bwd_dq_kernel` and
 `_bwd_dkv_kernel` (K3). On Hopper they are the CUDA C++ kernels in
-`dml_tpu_torch/csrc/flash_attention.cu` (one block per (q-tile, head,
-batch) looping over k-tiles; bf16 on `mma.sync` tensor-core tiles with
-f32 accumulation, f32 on plain FMAs) and `csrc/flash_attention_bwd.cu`
-(the TPU's two-kernel split: dq over k-tiles, dk and dv over q-tiles,
-no atomics), built with nvcc for sm_90a at first use and called through
-ctypes. The source files say what bounds them and how they are laid
-out. The kernels pick their own tiles, so the TPU knobs `block_q`,
-`block_k` and `interpret` are not part of these signatures.
+`dml_tpu_torch/csrc/flash_attention.cu` and `csrc/flash_attention_bwd.cu`,
+built with nvcc for sm_90a at first use and called through ctypes.
+
+The forward's route follows from the dtype and the head dim alone
+(`kernel_route`): bf16 at D 64 and 128, every main-path shape, runs the
+warp-specialized kernel (a TMA producer streaming K and V tiles through a
+shared-memory ring, two or three consumer warpgroups on `wgmma`, P kept
+in registers); bf16 at D 16 and 32 runs the `mma.sync` kernel; float32
+runs plain FMAs. The backward (the TPU's two-kernel split: dq over k-tiles,
+dk and dv over q-tiles, no atomics) is bf16 `mma.sync` and f32 FMAs. The
+source files say what bounds each kernel and how it is laid out. The
+kernels pick their own tiles, so the TPU knobs `block_q`, `block_k` and
+`interpret` are not part of these signatures.
 
 `flash_attention` and `flash_attention_lse` are the forward kernel's
 wrappers. On a CUDA tensor they launch the kernel (and count the launch
@@ -62,15 +67,26 @@ def _library() -> ctypes.CDLL:
     from ._build import load_library
 
     lib = load_library("dml_flash_attention", ["flash_attention.cu"])
-    fn = lib.dml_flash_fwd
-    fn.argtypes = (
-        [ctypes.c_void_p] * 5
-        + [ctypes.c_int] * 7
-        + [ctypes.c_longlong] * 9
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    )
-    fn.restype = ctypes.c_int
+    for fn in (lib.dml_flash_fwd, lib.dml_flash_fwd_mma):
+        fn.argtypes = (
+            [ctypes.c_void_p] * 5
+            + [ctypes.c_int] * 7
+            + [ctypes.c_longlong] * 9
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
     return lib
+
+
+def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The forward kernel that `dml_flash_fwd` launches for (dtype, D),
+    as the C entry point picks it: "wgmma+tma" for bf16 at D 64 and 128,
+    "mma.sync" for bf16 at D 16 and 32, "fma" for float32."""
+    if dtype not in _DTYPES or head_dim not in HEAD_DIMS:
+        raise ValueError(f"no flash attention kernel for {dtype} at head_dim {head_dim}")
+    if dtype == torch.float32:
+        return "fma"
+    return "wgmma+tma" if head_dim in (64, 128) else "mma.sync"
 
 
 def _bwd_library() -> ctypes.CDLL:
@@ -194,12 +210,15 @@ def _check(q, k, v, causal):
 
 
 def _kernel_view(x: torch.Tensor) -> torch.Tensor:
-    """x itself if the kernel can read it through strides (unit last
-    stride, 16-byte aligned rows), else a contiguous copy."""
+    """x itself if the kernels can read it through strides (unit last
+    stride, a 16-byte aligned base, 16-byte multiples for the other
+    strides, none of them 0 where the dim is longer than 1: what a TMA
+    tensor map takes), else a contiguous copy in a new allocation (for a
+    contiguous x at a misaligned offset, `x.contiguous()` would be x)."""
     vec = 16 // x.element_size()
     ok = (x.stride(3) == 1 and x.data_ptr() % 16 == 0
-          and all(s % vec == 0 for s in x.stride()[:3]))
-    return x if ok else x.contiguous()
+          and all(s % vec == 0 and (s > 0 or n == 1) for s, n in zip(x.stride()[:3], x.shape[:3])))
+    return x if ok else x.clone(memory_format=torch.contiguous_format)
 
 
 def _check_cuda(q, k, v):
@@ -209,7 +228,10 @@ def _check_cuda(q, k, v):
         raise ValueError("q, k and v must be on one device")
 
 
-def _flash_cuda(q, k, v, causal, scale):
+def _flash_cuda(q, k, v, causal, scale, mma_sync=False):
+    """Launch K2 on the current stream; returns (out, lse). `mma_sync`
+    runs the mma.sync kernel whatever D is (to time it beside the
+    wgmma route); the wrappers never pass it. Counts one launch."""
     global flash_launches
     _check_cuda(q, k, v)
     b, tq, h, d = q.shape
@@ -220,7 +242,8 @@ def _flash_cuda(q, k, v, causal, scale):
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.dml_flash_fwd(
+        fn = lib.dml_flash_fwd_mma if mma_sync else lib.dml_flash_fwd
+        err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             int(q.dtype == torch.bfloat16), b, h, h // kv, tq, tk, d,
             q.stride(0), q.stride(1), q.stride(2),
@@ -229,7 +252,8 @@ def _flash_cuda(q, k, v, causal, scale):
             float(scale), int(causal), stream,
         )
     if err != 0:
-        raise RuntimeError(f"flash attention kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"flash attention kernel launch failed: error {err} "
+                           "(a cudaError, or 10000 + the CUresult of a tensor map)")
     with _count_lock:
         flash_launches += 1
     return out, lse

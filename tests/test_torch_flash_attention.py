@@ -112,3 +112,99 @@ def test_wrapper_contract():
     m = q.to("meta")
     with pytest.raises(RuntimeError, match="no flash attention kernel"):
         fa.flash_attention(m, m, m)
+
+
+# The Hopper kernel's tile edges: 128-row q- and k-tiles, 64-column
+# sub-tiles (D 128 is two). The plain version is what the kernel is held
+# to on the card; here it is held to JAX's kernel (interpret mode) with
+# 128-row blocks, at lengths below, across and far past one tile.
+EDGE_CASES = [
+    pytest.param(1, t, t, 2, 2, d, True, id=f"causal-D{d}-T{t}")
+    for d in (64, 128) for t in (100, 200, 1000)
+] + [pytest.param(1, 200, 1000, 4, 1, 64, False, id="cross-Tq200-Tk1000-GQA4")]
+
+
+@pytest.mark.parametrize("b,tq,tk,h,kv,d,causal", EDGE_CASES)
+def test_plain_matches_jax_at_kernel_tile_edges(b, tq, tk, h, kv, d, causal):
+    q, k, v = _qkv(b, tq, tk, h, d, seed=tq + tk + d, kv=kv)
+    g = h // kv
+    jb = lambda x: jnp.asarray(x, jnp.bfloat16)  # noqa: E731
+    j_out, j_lse = jax_flash_lse(jb(q), jnp.repeat(jb(k), g, axis=2), jnp.repeat(jb(v), g, axis=2),
+                                 causal=causal, block_q=128, block_k=128, interpret=True)
+    out, lse = fa.flash_attention_lse(*(torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)),
+                                      causal=causal)
+    tol_out, tol_lse = _tols(torch.bfloat16)
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(j_out, np.float32), atol=tol_out)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(j_lse), atol=tol_lse)
+
+
+def _prefill_qkv(b, t, h, kv, d, seed):
+    """The LM prefill's layout: q, k contiguous, v a strided view of the
+    qkv projection's output [B, T, (H + 2 KV) D]."""
+    rng = np.random.RandomState(seed)
+    q = torch.from_numpy(rng.standard_normal((b, t, h, d)).astype(np.float32)).to(torch.bfloat16)
+    qkv = torch.from_numpy(rng.standard_normal((b, t, (h + 2 * kv) * d)).astype(np.float32))
+    qkv = qkv.to(torch.bfloat16)
+    k = qkv[..., h * d:(h + kv) * d].reshape(b, t, kv, d).contiguous()
+    v = qkv[..., (h + kv) * d:].reshape(b, t, kv, d)
+    return q, k, v
+
+
+def test_gqa4_strided_v_matches_jax():
+    q, k, v = _prefill_qkv(2, 200, 8, 2, 64, seed=11)
+    assert not v.is_contiguous() and fa._kernel_view(v) is v
+    out, lse = fa.flash_attention_lse(q, k, v, causal=True)
+    jx = lambda x: jnp.asarray(x.float().numpy(), jnp.bfloat16)  # noqa: E731
+    j_out, j_lse = jax_flash_lse(jx(q), jnp.repeat(jx(k), 4, axis=2), jnp.repeat(jx(v.contiguous()), 4, axis=2),
+                                 causal=True, block_q=128, block_k=128, interpret=True)
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(j_out, np.float32), atol=2e-2)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(j_lse), atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 16, "mma.sync"), (torch.bfloat16, 32, "mma.sync"),
+    (torch.bfloat16, 64, "wgmma+tma"), (torch.bfloat16, 128, "wgmma+tma"),
+    (torch.float32, 16, "fma"), (torch.float32, 32, "fma"),
+    (torch.float32, 64, "fma"), (torch.float32, 128, "fma"),
+])
+def test_kernel_route_by_dtype_and_head_dim(dtype, d, route):
+    assert fa.kernel_route(dtype, d) == route
+
+
+def test_kernel_route_refuses_what_no_kernel_takes():
+    with pytest.raises(ValueError, match="no flash attention kernel"):
+        fa.kernel_route(torch.bfloat16, 96)
+    with pytest.raises(ValueError, match="no flash attention kernel"):
+        fa.kernel_route(torch.float16, 64)
+
+
+def _misaligned_base():
+    flat = torch.zeros(1 + 2 * 8 * 2 * 64, dtype=torch.bfloat16)
+    return flat[1:].view(2, 8, 2, 64)  # base 2 bytes past an aligned one
+
+
+VIEW_CASES = [
+    # (make x, passes through unchanged)
+    pytest.param(lambda: torch.zeros((2, 8, 2, 64), dtype=torch.bfloat16), True, id="contiguous"),
+    pytest.param(lambda: _prefill_qkv(2, 16, 8, 2, 64, seed=0)[2], True, id="prefill-strided-v"),
+    pytest.param(lambda: torch.zeros((2, 16, 4, 64))[:, :10], True, id="f32-row-slice"),
+    pytest.param(_misaligned_base, False, id="base-not-16B-aligned"),
+    pytest.param(lambda: torch.zeros((2, 8, 2, 68), dtype=torch.bfloat16)[..., :64], False,
+                 id="row-stride-not-16B"),
+    pytest.param(lambda: torch.zeros((2, 1152, 4, 64), dtype=torch.bfloat16)[:, :1000], True,
+                 id="rows-of-a-longer-buffer"),
+    pytest.param(lambda: torch.zeros((1, 8, 1, 64), dtype=torch.bfloat16).expand(2, 8, 3, 64), False,
+                 id="broadcast-stride-0"),
+    pytest.param(lambda: torch.zeros((2, 64, 8, 2), dtype=torch.bfloat16).permute(0, 2, 3, 1), False,
+                 id="last-stride-not-1"),
+]
+
+
+@pytest.mark.parametrize("make,passes", VIEW_CASES)
+def test_kernel_view_copies_only_what_the_kernels_cannot_read(make, passes):
+    x = make()
+    y = fa._kernel_view(x)
+    assert (y is x) == passes
+    assert torch.equal(y, x) and y.shape == x.shape
+    if not passes:
+        assert y.is_contiguous() and y.data_ptr() % 16 == 0
