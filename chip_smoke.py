@@ -10,8 +10,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
 2. build: nvcc builds the four kernel libraries (normalize, flash
    attention forward and backward, decode attention) from
    dml_tpu_torch/csrc/, all started together, with seconds for each;
-   beside them ptxas reports the flash forward's kernels (registers,
-   spills; `ptxas` line, with the wgmma kernel's setmaxnreg counts);
+   beside them ptxas reports the flash forward's and backward's kernels
+   (registers, spills; one `ptxas` line per source, with the wgmma
+   kernels' setmaxnreg counts); a spill in a wgmma kernel fails;
 3. kernel: the normalize kernel against its plain PyTorch version on the
    card, in every mode (caffe, tf, unit), output dtype (bf16, f32) and
    shape ([32,224,224,3], [32,299,299,3], ragged [3,7,5,3]); float32
@@ -63,21 +64,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
    token and decode ms per step (and tokens/s) at B=1 and B=8, peak
    device memory, and a torch.profiler breakdown of one prefill and one
    decode step;
-9. flash_bwd_check: the flash backward kernels (dq and dkv) against the
-   plain `attention_backward` on the card, each case with and without
-   an lse cotangent: the training shape (q/k/v [1,2048,16,64] bf16,
-   causal, k/v repeated to 16 heads as the LM's blocks send them), GQA
-   k/v [1,2048,4,64], D=128, ragged T=100 and T=1000, non-causal cross
-   attention (Tq=64, Tk=192), and float32 at T=1000, cross and D=16;
-   float32 within atol 5e-5 + rtol 5e-4, bf16 within 1e-2 of the
-   largest reference magnitude. Times at the training shape (delta +
-   both kernels, each kernel alone, the plain version, SDPA's backward)
-   beside the operation bounds (the backward's 5 products and the
-   two-kernel split's 7);
+9. flash_bwd_check: the flash backward (the delta kernel, then the dq
+   and dkv kernels) against the plain `attention_backward` on the card,
+   each case naming its route (`bwd_kernel_route`) and run with and
+   without an lse cotangent: the training shape (q/k/v [1,2048,16,64]
+   bf16, causal, k/v repeated to 16 heads as the LM's blocks send them),
+   GQA k/v [1,2048,4,64], D=128 (MHA, and GQA-4 at T=2048), ragged
+   T=100, 129, 193 and 1000, a poisoned tail (q, k, v and dO [:, :1000]
+   views of longer buffers holding NaN past row 1000: the gradients must
+   equal the clean copies'), strided views (q, k, v cut from a qkv
+   projection's output, dO transposed), non-causal cross attention
+   (Tq=64, Tk=192; Tq=200, Tk=1000 GQA-4), bf16 D=32 (the mma.sync
+   route) and float32 at T=1000, cross and D=16; float32 within atol
+   5e-5 + rtol 5e-4, bf16 within 1e-2 of the largest reference
+   magnitude. The delta kernel's row arrays against `bwd_rows_plain`
+   (lse and the pad rows exact, delta within 1e-4). Two backwards on the
+   same inputs give bit-equal dq, dk and dv (train, gqa4). At the
+   training shape the new pair, the mma.sync pair (checked too), the
+   delta kernel, SDPA's backward and the plain version are timed in
+   turns, whole and per kernel, beside the operation bounds (the
+   backward's 5 products, the two-kernel split's 7, dq's 3 and dkv's 4)
+   and the delta kernel's byte bound;
 10. train: the port's LongContextLM on cuda at the same LM config, bf16,
    B=1, T=2048, seed 0: 1 warm-up and 20 steps on one seeded batch.
-   Every loss finite, the last below the first; each step 12 flash and
-   12 flash-backward launches and no other kernel; a checkpoint save
+   Every loss finite, the last below the first; each step 12 flash, 12
+   flash-backward and 12 delta-kernel launches and no other kernel; a checkpoint save
    and restore repeats the next two losses within 1e-5 relative; then
    16 greedy tokens from the trained weights (12 flash, 12 x 15 decode
    launches); float32 parity: a 2-layer d_model-128 config trained 3
@@ -141,6 +152,7 @@ def reset_launch_counts():
     preprocess.normalize_launches = 0
     flash_attention.flash_launches = 0
     flash_attention.flash_bwd_launches = 0
+    flash_attention.flash_bwd_delta_launches = 0
     decode_attention.decode_launches = 0
 
 
@@ -150,6 +162,7 @@ def launch_counts():
     return {"normalize": preprocess.normalize_launches,
             "flash_attention": flash_attention.flash_launches,
             "flash_bwd": flash_attention.flash_bwd_launches,
+            "flash_bwd_delta": flash_attention.flash_bwd_delta_launches,
             "decode_attention": decode_attention.decode_launches}
 
 
@@ -304,7 +317,7 @@ def phase_model(name, mode, timer):
     launches = counts["normalize"]
     chunks = 2 * -(-N_IMAGES // BATCH) + -(-N_FILES // BATCH)
     check(counts == {"normalize": chunks, "flash_attention": 0, "flash_bwd": 0,
-                     "decode_attention": 0},
+                     "flash_bwd_delta": 0, "decode_attention": 0},
           f"{name}: launches {counts} for {chunks} chunks")
     check(probs.shape == (N_IMAGES, 1000) and probs.dtype == np.float32,
           f"{name}: probs {probs.dtype} {probs.shape}")
@@ -454,15 +467,20 @@ def build_all():
         fn()
         return time.monotonic() - t0
 
+    sources = ("flash_attention.cu", "flash_attention_bwd.cu")
     t0 = time.monotonic()
-    with ThreadPoolExecutor(len(libs) + 1) as ex:
-        report = ex.submit(_build.ptxas_report, ["flash_attention.cu"])
+    with ThreadPoolExecutor(len(libs) + len(sources)) as ex:
+        reports = {src: ex.submit(_build.ptxas_report, [src]) for src in sources}
         futures = {k: ex.submit(timed, fn) for k, fn in libs.items()}
         seconds = {k: f.result() for k, f in futures.items()}
-        ptxas = report.result()
+        ptxas = {src: ptxas_usage(r.result()) for src, r in reports.items()}
     emit(phase="build", seconds=seconds, wall_seconds=time.monotonic() - t0)
-    emit(phase="ptxas", source="dml_tpu_torch/csrc/flash_attention.cu", kernels=ptxas_usage(ptxas),
-         setmaxnreg=setmaxnreg_counts())
+    for src in sources:
+        emit(phase="ptxas", source=f"dml_tpu_torch/csrc/{src}", kernels=ptxas[src],
+             setmaxnreg=setmaxnreg_counts(src))
+        spills = {k: u for k, u in ptxas[src].items()
+                  if "wgmma" in k and (u.get("spill_stores") or u.get("spill_loads"))}
+        check(not spills, f"wgmma kernels spill registers: {spills}")
 
 
 def ptxas_usage(report):
@@ -472,7 +490,7 @@ def ptxas_usage(report):
 
     usage, name = {}, None
     for line in report.splitlines():
-        m = re.search(r"Function properties for \S*?(flash_fwd_\w+?_kernel)I((?:Li\d+E)+)E", line)
+        m = re.search(r"Function properties for \S*?(flash_(?:fwd|bwd)_\w+?_kernel)I((?:Li\d+E)+)E", line)
         if m:
             name = f"{m.group(1)}<{','.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
             usage[name] = {}
@@ -487,19 +505,23 @@ def ptxas_usage(report):
     return usage
 
 
-def setmaxnreg_counts():
-    """The wgmma kernel's registers per thread after setmaxnreg, by its
-    consumer count, from its source: ptxas reports the count at entry."""
+def setmaxnreg_counts(source):
+    """The wgmma kernels' registers per thread after setmaxnreg, by role
+    (and, in the forward, by consumer count), from their source: ptxas
+    reports the count at entry."""
     import re
 
     from dml_tpu_torch.ops import _build
 
-    with open(os.path.join(_build.CSRC_DIR, "flash_attention.cu")) as f:
+    with open(os.path.join(_build.CSRC_DIR, source)) as f:
         src = f.read()
     regs = {}
     for role in ("PRODUCER", "CONSUMER"):
         m = re.search(role + r"_REGS = NC == 3 \? (\d+) : (\d+);", src)
-        regs[role.lower()] = {"3 consumers": int(m.group(1)), "2 consumers": int(m.group(2))}
+        if m:
+            regs[role.lower()] = {"3 consumers": int(m.group(1)), "2 consumers": int(m.group(2))}
+        else:
+            regs[role.lower()] = int(re.search(role + r"_REGS = (\d+);", src).group(1))
     return regs
 
 
@@ -787,7 +809,7 @@ def phase_lm():
     launches = launch_counts()
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
     want = {"normalize": 0, "flash_attention": cfg.n_layers, "flash_bwd": 0,
-            "decode_attention": cfg.n_layers * (NEW_TOKENS - 1)}
+            "flash_bwd_delta": 0, "decode_attention": cfg.n_layers * (NEW_TOKENS - 1)}
     check(launches == want, f"generate launched {launches}, want {want}")
     check(toks.dtype == torch.int32 and tuple(toks.shape) == (LM_BATCH, NEW_TOKENS),
           f"tokens {toks.dtype} {tuple(toks.shape)}")
@@ -803,7 +825,7 @@ def phase_lm():
     torch.cuda.synchronize()
     q_launches = launch_counts()
     q_want = {"normalize": 0, "flash_attention": cfg.n_layers, "flash_bwd": 0,
-              "decode_attention": cfg.n_layers * 15}
+              "flash_bwd_delta": 0, "decode_attention": cfg.n_layers * 15}
     check(q_launches == q_want, f"int8 generate launched {q_launches}, want {q_want}")
     check(0 <= int(qtoks.min()) and int(qtoks.max()) < cfg.vocab_size, "int8 token out of range")
     int8_agree = float((qtoks == toks[:, :16]).float().mean())
@@ -874,11 +896,64 @@ def phase_lm():
     emit(phase="profile", path=f"lm_decode_step_b8_ctx{DECODE_CTX}", **prof_decode)
     return launches
 
-def phase_flash_bwd(timer):
-    """The flash backward kernels against their plain version; times at
-    the training shape."""
+def _bwd_inputs(name, b, tq, tk, h, kv, d, dtype, g):
+    """q, k, v, dO for a flash_bwd_check case, and for the poisoned tail
+    their clean contiguous copies."""
     import torch
-    import torch.nn.functional as F
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    if name == "poisoned_tail":
+        # [:, :T] views of longer buffers whose rows at T and beyond hold
+        # NaN: no kernel may read them
+        bufs = [randn(b, t + 152, n, d) for t, n in ((tq, h), (tk, kv), (tk, kv), (tq, h))]
+        for x, t in zip(bufs, (tq, tk, tk, tq)):
+            x[:, t:] = float("nan")
+        views = [x[:, :t] for x, t in zip(bufs, (tq, tk, tk, tq))]
+        return views, [x.contiguous() for x in views]
+    if name == "strided":
+        # q, k, v cut from a qkv projection's output; dO made head-major
+        qkv = randn(b, tq, (h + 2 * kv) * d)
+        q = qkv[..., :h * d].view(b, tq, h, d)
+        k = qkv[..., h * d:(h + kv) * d].view(b, tk, kv, d)
+        v = qkv[..., (h + kv) * d:].view(b, tk, kv, d)
+        return [q, k, v, randn(b, h, tq, d).transpose(1, 2)], None
+    return [randn(b, tq, h, d), randn(b, tk, kv, d), randn(b, tk, kv, d), randn(b, tq, h, d)], None
+
+
+def _bwd_bounds(b, tq, tk, h, d, causal, el):
+    """(operations, bytes) and the bound of the whole backward at its
+    minimum (5 products; q, k, v, out, dO, lse in; dq, dk, dv out), the
+    split's 7, each kernel's own (dq: S, dP, dQ; dkv: S, dP, dV, dK; both
+    read q, k, v, dO and the two row arrays), and the delta kernel's
+    (out, dO, lse in; the two padded row arrays out)."""
+    from dml_tpu_torch.ops.flash_attention import _rows_len
+
+    product = 2 * b * h * tq * tk * d / (2 if causal else 1)
+    qkvo = b * tq * h * d * el  # one [B, T, H, D] tensor (k/v have H heads here)
+    rows = b * h * tq * 4
+    prows = b * h * _rows_len(tq) * 4
+    bound = {}
+    for key, ops, nbytes, peak in (
+            ("min", 5 * product, 8 * qkvo + rows, "bfloat16"),
+            ("split", 7 * product, 8 * qkvo + rows, "bfloat16"),
+            ("dq", 3 * product, 5 * qkvo + 2 * prows, "bfloat16"),
+            ("dkv", 4 * product, 6 * qkvo + 2 * prows, "bfloat16"),
+            ("delta", 2 * b * tq * h * d, 2 * qkvo + rows + 2 * prows, "float32")):
+        t_ops = ops / PEAK_FLOPS[peak] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound[key] = dict(ops=ops, bytes=nbytes, ops_bound_ms=t_ops, bytes_bound_ms=t_bytes,
+                          bound_ms=max(t_ops, t_bytes),
+                          bound_by="operations" if t_ops >= t_bytes else "bytes")
+    return bound
+
+
+def phase_flash_bwd(timer):
+    """The flash backward kernels against their plain versions; the
+    wgmma pair beside the mma.sync pair, SDPA's backward and the plain
+    version at the training shape."""
+    import torch
     from dml_tpu_torch.ops import flash_attention as fa
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -887,93 +962,146 @@ def phase_flash_bwd(timer):
         ("train", 1, TRAIN_T, TRAIN_T, 16, 16, 64, True, bf16),
         ("gqa4", 1, TRAIN_T, TRAIN_T, 16, 4, 64, True, bf16),
         ("d128", 1, 1024, 1024, 8, 8, 128, True, bf16),
+        ("d128_gqa", 1, TRAIN_T, TRAIN_T, 16, 4, 128, True, bf16),
         ("ragged_t100", 2, 100, 100, 16, 4, 64, True, bf16),
+        ("ragged_t129", 2, 129, 129, 16, 4, 64, True, bf16),
+        ("ragged_t193", 2, 193, 193, 8, 8, 128, True, bf16),
         ("ragged_t1000", 2, 1000, 1000, 16, 4, 64, True, bf16),
+        ("poisoned_tail", 2, 1000, 1000, 16, 4, 64, True, bf16),
+        ("strided", 2, 1000, 1000, 16, 4, 64, True, bf16),
         ("cross", 2, 64, 192, 16, 16, 64, False, bf16),
+        ("cross_ragged", 2, 200, 1000, 16, 4, 64, False, bf16),
+        ("d32", 2, 300, 300, 4, 2, 32, True, bf16),
         ("f32_t1000", 2, 1000, 1000, 8, 2, 64, True, f32),
         ("f32_cross", 2, 64, 192, 4, 4, 32, False, f32),
         ("f32_d16", 1, 130, 130, 2, 1, 16, True, f32),
     )
+    deterministic = ("train", "gqa4")
+    names = ("dq", "dk", "dv")
+
+    def held(got, want, dtype):
+        errs, ok = {}, True
+        for n, a, r in zip(names, got, want):
+            ok &= a.dtype == r.dtype and a.shape == r.shape
+            diff = (a.float() - r.float()).abs()
+            errs[n] = float(diff.max())
+            if dtype == f32:
+                ok &= bool((diff <= 5e-5 + 5e-4 * r.float().abs()).all())
+            else:
+                ok &= errs[n] <= 1e-2 * float(r.float().abs().max())
+        return errs, ok
+
     timings = {}
     for name, b, tq, tk, h, kv, d, causal, dtype in cases:
-        q = torch.randn((b, tq, h, d), generator=g, device="cuda").to(dtype)
-        k = torch.randn((b, tk, kv, d), generator=g, device="cuda").to(dtype)
-        v = torch.randn((b, tk, kv, d), generator=g, device="cuda").to(dtype)
-        dout = torch.randn((b, tq, h, d), generator=g, device="cuda").to(dtype)
+        (q, k, v, dout), clean = _bwd_inputs(name, b, tq, tk, h, kv, d, dtype, g)
         out, lse = fa.flash_attention_lse(q, k, v, causal=causal)
         for with_lse in (False, True):
             dlse = torch.randn((b, h, tq), generator=g, device="cuda") if with_lse else None
             got = fa.flash_attention_backward(q, k, v, out, lse, dout, dlse, causal=causal)
             want = fa.attention_backward(q, k, v, out, lse, dout, dlse, causal=causal)
+            rows = fa._bwd_rows_cuda(out, dout, lse, dlse)
+            p_rows = fa.bwd_rows_plain(out, dout, lse, dlse)
             torch.cuda.synchronize()
-            errs, ok = {}, True
-            for n, a, r in zip(("dq", "dk", "dv"), got, want):
-                ok &= a.dtype == r.dtype and a.shape == r.shape
-                diff = (a.float() - r.float()).abs()
-                errs[n] = float(diff.max())
-                if dtype == f32:
-                    ok &= bool((diff <= 5e-5 + 5e-4 * r.abs()).all())
-                else:
-                    ok &= errs[n] <= 1e-2 * float(r.float().abs().max())
+            errs, ok = held(got, want, dtype)
+            delta_err = float((rows[1] - p_rows[1]).abs().max())
+            rows_ok = torch.equal(rows[0], p_rows[0]) and delta_err <= 1e-4 and torch.equal(
+                rows[1][..., tq:], p_rows[1][..., tq:])
+            ok &= rows_ok
+            extra = {}
+            if clean is not None:
+                c_out, c_lse = fa.flash_attention_lse(*clean[:3], causal=causal)
+                c_got = fa.flash_attention_backward(*clean[:3], c_out, c_lse, clean[3], dlse,
+                                                    causal=causal)
+                extra["equal_to_clean_run"] = all(torch.equal(a, c) for a, c in zip(got, c_got))
+                ok &= extra["equal_to_clean_run"]
+            if name in deterministic:
+                again = fa.flash_attention_backward(q, k, v, out, lse, dout, dlse, causal=causal)
+                extra["bit_equal_rerun"] = all(torch.equal(a, c) for a, c in zip(got, again))
+                ok &= extra["bit_equal_rerun"]
             case = dict(phase="flash_bwd_check", case=name, q=[b, tq, h, d], kv=[b, tk, kv, d],
-                        causal=causal, dtype=dtype_name(dtype), lse_cotangent=with_lse,
-                        max_abs_err=errs,
-                        max_abs_ref={n: float(r.float().abs().max()) for n, r in
-                                     zip(("dq", "dk", "dv"), want)},
+                        causal=causal, dtype=dtype_name(dtype), route=fa.bwd_kernel_route(dtype, d),
+                        lse_cotangent=with_lse, max_abs_err=errs,
+                        max_abs_ref={n: float(r.float().abs().max()) for n, r in zip(names, want)},
                         bar="atol 5e-5 + rtol 5e-4" if dtype == f32 else "1e-2 of max |ref|",
-                        ok=ok)
+                        delta_max_abs_err=delta_err, rows_ok=rows_ok, ok=ok, **extra)
             emit(**case)
             check(ok, f"flash backward kernels disagree: {case}")
-            del got, want
+            del got, want, rows, p_rows
         if name == "train":
-            scale = d ** -0.5
-            delta = fa._delta(out, dout)
-
-            def part(n):
-                return lambda: fa._flash_bwd_cuda(q, k, v, dout, lse, delta, None, causal, scale,
-                                                  parts=n)
-
-            k3_ms = timer.ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, dout,
-                                                                 causal=causal), iters=20)
-            dq_ms = timer.ms(part(1), iters=20)
-            dkv_ms = timer.ms(part(2), iters=20)
-            p_ms = timer.ms(lambda: fa.attention_backward(q, k, v, out, lse, dout, causal=causal),
-                            iters=5, warmup=1)
-            qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-            oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)
-            doh = dout.transpose(1, 2)
-            l_ms = timer.ms(lambda: torch.autograd.grad(oh, (qh, kh, vh), doh, retain_graph=True),
-                            iters=20)
-            product = 2 * b * h * tq * tk * d / (2 if causal else 1)
-            el = q.element_size()
-            qkvo = b * tq * h * d * el  # one [B, T, H, D] tensor (k/v have H heads here)
-            rows = b * h * tq * 4
-            bound = {}
-            # (operations, bytes): the whole backward at its minimum (5
-            # products; q, k, v, out, dO, lse in; dq, dk, dv out), the
-            # split's 7, and each kernel's own (dq: S, dP, dQ; dkv: S, dP,
-            # dV, dK; both read q, k, v, dO, lse, delta)
-            for key, ops, nbytes in (("min", 5 * product, 8 * qkvo + rows),
-                                     ("split", 7 * product, 8 * qkvo + rows),
-                                     ("dq", 3 * product, 5 * qkvo + 2 * rows),
-                                     ("dkv", 4 * product, 6 * qkvo + 2 * rows)):
-                t_ops = ops / PEAK_FLOPS["bfloat16"] * 1e3
-                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-                bound[key] = dict(ops=ops, bytes=nbytes, ops_bound_ms=t_ops, bytes_bound_ms=t_bytes,
-                                  bound_ms=max(t_ops, t_bytes),
-                                  bound_by="operations" if t_ops >= t_bytes else "bytes")
-            timings[name] = dict(ms=k3_ms, dq_ms=dq_ms, dkv_ms=dkv_ms, plain_ms=p_ms,
-                                 library_ms=l_ms, bound=bound,
-                                 max_abs_err=max(errs.values()))
-            emit(phase="flash_bwd_time", case=name, k3_ms=k3_ms, dq_ms=dq_ms, dkv_ms=dkv_ms,
-                 delta_ms_approx=k3_ms - dq_ms - dkv_ms, plain_ms=p_ms, sdpa_bwd_ms=l_ms,
-                 bound=bound, share_of_min_bound=bound["min"]["bound_ms"] / k3_ms,
-                 share_of_split_bound=bound["split"]["bound_ms"] / k3_ms,
-                 achieved_tflop_s_split=bound["split"]["ops"] / (k3_ms * 1e-3) / 1e12)
-            del qh, kh, vh, oh, doh, delta
-        del q, k, v, dout, out, lse
+            timings[name] = time_flash_bwd(timer, q, k, v, out, lse, dout, causal, errs)
+        del q, k, v, dout, out, lse, clean
     torch.cuda.empty_cache()
     return timings
+
+
+def time_flash_bwd(timer, q, k, v, out, lse, dout, causal, errs):
+    """K3 at one shape: the new pair and the mma.sync pair (checked
+    against the plain version first), whole and per kernel, the delta
+    kernel, SDPA's backward and the plain version, in turns."""
+    import torch
+    import torch.nn.functional as F
+    from dml_tpu_torch.ops import flash_attention as fa
+
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    scale = d ** -0.5
+    lse_r, delta_r = fa._bwd_rows_cuda(out, dout, lse, None)
+    delta_err = float((delta_r - fa.bwd_rows_plain(out, dout, lse)[1]).abs().max())
+    m_got = fa._flash_bwd_cuda(q, k, v, dout, lse_r, delta_r, causal, scale, mma_sync=True)
+    want = fa.attention_backward(q, k, v, out, lse, dout, causal=causal)
+    torch.cuda.synchronize()
+    m_err = max(float((a.float() - r.float()).abs().max()) for a, r in zip(m_got, want))
+    m_bar = max(1e-2 * float(r.float().abs().max()) for r in want)
+    check(m_err <= m_bar, f"mma.sync backward disagrees ({m_err} > {m_bar})")
+    del m_got, want
+
+    def part(n, mma_sync=False):
+        return lambda: fa._flash_bwd_cuda(q, k, v, dout, lse_r, delta_r, causal, scale, parts=n,
+                                          mma_sync=mma_sync)
+
+    def k3_mma():
+        rows = fa._bwd_rows_cuda(out, dout, lse, None)
+        return fa._flash_bwd_cuda(q, k, v, dout, *rows, causal, scale, mma_sync=True)
+
+    qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)
+    doh = dout.transpose(1, 2)
+    runs = {
+        "k3": lambda: fa.flash_attention_backward(q, k, v, out, lse, dout, causal=causal),
+        "dq": part(1), "dkv": part(2),
+        "delta": lambda: fa._bwd_rows_cuda(out, dout, lse, None),
+        "k3_mma_sync": k3_mma, "dq_mma_sync": part(1, True), "dkv_mma_sync": part(2, True),
+        "sdpa": lambda: torch.autograd.grad(oh, (qh, kh, vh), doh, retain_graph=True),
+    }
+    # in turns on one card: new, mma.sync, SDPA, plain, SDPA, mma.sync, new
+    order = ("k3", "dq", "dkv", "delta", "k3_mma_sync", "dq_mma_sync", "dkv_mma_sync", "sdpa")
+    turns = {key: [] for key in runs}
+    for key in order:
+        turns[key].append(timer.ms(runs[key], iters=20))
+    p_ms = timer.ms(lambda: fa.attention_backward(q, k, v, out, lse, dout, causal=causal), iters=5,
+                    warmup=1)
+    p_delta_ms = timer.ms(lambda: fa.bwd_rows_plain(out, dout, lse), iters=20)
+    for key in reversed(order):
+        turns[key].append(timer.ms(runs[key], iters=20))
+    ms = {key: statistics.mean(v) for key, v in turns.items()}
+    bound = _bwd_bounds(b, tq, tk, h, d, causal, q.element_size())
+    emit(phase="flash_bwd_time", case="train", route=fa.bwd_kernel_route(q.dtype, d),
+         ms=ms, turns_ms=turns, plain_ms=p_ms, delta_plain_ms=p_delta_ms, bound=bound,
+         mma_sync_max_abs_err=m_err, delta_max_abs_err=delta_err,
+         speedup_vs_mma_sync={key: ms[f"{key}_mma_sync"] / ms[key] for key in ("k3", "dq", "dkv")},
+         vs_sdpa=ms["k3"] / ms["sdpa"],
+         share_of_bound={"k3_min": bound["min"]["bound_ms"] / ms["k3"],
+                         "k3_split": bound["split"]["bound_ms"] / ms["k3"],
+                         "dq": bound["dq"]["bound_ms"] / ms["dq"],
+                         "dkv": bound["dkv"]["bound_ms"] / ms["dkv"],
+                         "delta": bound["delta"]["bound_ms"] / ms["delta"],
+                         "k3_split_mma_sync": bound["split"]["bound_ms"] / ms["k3_mma_sync"],
+                         "dq_mma_sync": bound["dq"]["bound_ms"] / ms["dq_mma_sync"],
+                         "dkv_mma_sync": bound["dkv"]["bound_ms"] / ms["dkv_mma_sync"]},
+         achieved_tflop_s_split=bound["split"]["ops"] / (ms["k3"] * 1e-3) / 1e12)
+    del qh, kh, vh, oh, doh
+    return dict(ms=ms, plain_ms=p_ms, delta_plain_ms=p_delta_ms, library_ms=ms["sdpa"],
+                bound=bound, max_abs_err=max(errs.values()), delta_max_abs_err=delta_err)
 
 
 TRAIN_KINDS = (
@@ -1012,7 +1140,7 @@ def phase_train():
     reset_launch_counts()
     losses, step_ms = [], []
     per_step = {"normalize": 0, "flash_attention": n_layers, "flash_bwd": n_layers,
-                "decode_attention": 0}
+                "flash_bwd_delta": n_layers, "decode_attention": 0}
     for _ in range(TRAIN_STEPS):
         before = launch_counts()
         t0 = time.monotonic()
@@ -1045,7 +1173,7 @@ def phase_train():
     torch.cuda.synchronize()
     gen_launches = launch_counts()
     gen_want = {"normalize": 0, "flash_attention": n_layers, "flash_bwd": 0,
-                "decode_attention": n_layers * (TRAIN_NEW_TOKENS - 1)}
+                "flash_bwd_delta": 0, "decode_attention": n_layers * (TRAIN_NEW_TOKENS - 1)}
     check(gen_launches == gen_want, f"generate launched {gen_launches}, want {gen_want}")
     check(gen_toks.shape == (1, TRAIN_NEW_TOKENS) and 0 <= gen_toks.min()
           and gen_toks.max() < LM_CFG["vocab_size"], f"generated tokens {gen_toks}")
@@ -1139,15 +1267,24 @@ def main() -> int:
         replaces="dml_tpu/ops/decode_attention.py:53",
         launches=lm_launches["decode_attention"], **t))
     t = bwd["train"]
+    shape = f"train b1 T{TRAIN_T} H16 D64 bf16 causal"
     for part, line in (("dq", 113), ("dkv", 166)):
         kernels.append(dict(
-            name=f"flash_bwd_{part}[train b1 T{TRAIN_T} H16 D64 bf16 causal; plain and "
-                 f"library times are the whole backward's]",
-            route="cuda", source="dml_tpu_torch/csrc/flash_attention_bwd.cu",
+            name=f"flash_bwd_{part}[{shape}; wgmma+TMA; plain and library times are the whole "
+                 f"backward's]",
+            route="cuda", variant="wgmma+tma", source="dml_tpu_torch/csrc/flash_attention_bwd.cu",
             replaces=f"dml_tpu/ops/flash_attention.py:{line}",
             launches=train_launches["flash_bwd"], max_abs_err=t["max_abs_err"],
-            ms=t[f"{part}_ms"], plain_ms=t["plain_ms"], bound_ms=t["bound"][part]["bound_ms"],
-            bound_by=t["bound"][part]["bound_by"], library_ms=t["library_ms"]))
+            ms=t["ms"][part], mma_sync_ms=t["ms"][f"{part}_mma_sync"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound"][part]["bound_ms"], bound_by=t["bound"][part]["bound_by"],
+            library_ms=t["library_ms"]))
+    kernels.append(dict(
+        name=f"flash_bwd_delta[{shape}; rowsum(dO*O) and padded lse rows]", route="cuda",
+        source="dml_tpu_torch/csrc/flash_attention_bwd.cu",
+        replaces="dml_tpu/ops/flash_attention.py:311 (a jnp expression beside the Pallas kernels)",
+        launches=train_launches["flash_bwd_delta"], max_abs_err=t["delta_max_abs_err"],
+        ms=t["ms"]["delta"], plain_ms=t["delta_plain_ms"], bound_ms=t["bound"]["delta"]["bound_ms"],
+        bound_by=t["bound"]["delta"]["bound_by"], library_ms=None))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -76,11 +76,15 @@
 // cuTensorMapEncodeTiled when a tensor map cannot be encoded) so a
 // refused launch raises in the wrapper. That function is looked up at run
 // time (cudaGetDriverEntryPoint), so the library links no libcuda.
+// The Hopper building blocks (mbarriers, TMA, wgmma descriptors and forms,
+// tensor maps) live in hopper.cuh, shared with flash_attention_bwd.cu.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -427,11 +431,10 @@ int launch(const Args& a, int B, int is_bf16, cudaStream_t stream) {
 
 namespace wg {
 
+using namespace hopper;
+
 constexpr int BK = 128;               // key rows per k-tile
 constexpr int SUB_BYTES = 128 * 128;  // one K/V sub-tile: 128 rows of 64 bf16 (128 B)
-constexpr int ROW_BYTES = 128;
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
 
 // Shape of one block for head dim D with NC consumer warpgroups of 64
 // query rows each (warpgroup 0 produces). NC = 3 puts three consumer warps
@@ -464,132 +467,6 @@ struct Params {
   float scale_log2;  // scale * log2(e)
   int causal;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Wait for the completion of the barrier's phase of parity `parity`. A
-// pipeline fault that would wait forever traps after ~2^32 cycles (about
-// two seconds), so the launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  long long start = 0;
-  while (true) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (start == 0) {
-      start = clock64();
-    } else if (clock64() - start > (1ll << 32)) {
-      __trap();
-    }
-  }
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                         int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1,
-                                          int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a tile in TMA's 128-byte swizzle:
-// start address, leading and stride byte offsets (all >> 4), layout type
-// 1 (128B swizzle) in bits 62-63. Tiles sit 1024-B aligned, so the base
-// offset field stays 0; stepping along K inside a 128-byte row adds to the
-// start address (32 B per 16 bf16), as the swizzle is applied to address
-// bits.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-// K-major (Q and K: D contiguous): 8-row groups 1024 B apart; the leading
-// offset is unused under the swizzle.
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) { return sw128_desc(addr, 16, 1024); }
-
-// MN-major (V read as the B operand of P V: keys are K, D is N and
-// contiguous): groups of 8 keys 1024 B apart. Each product covers one
-// 64-column sub-tile, a single swizzle atom along N, so the offset between
-// atoms along N is never stepped; both offsets are 1024.
-__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr) { return sw128_desc(addr, 1024, 1024); }
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keep the compiler from moving accumulator accesses across the
-// asynchronous wgmma's issue and wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// d[64] (+)= A B for one k16 step, m64n128k16 bf16 -> f32, A and B both
-// K-major in shared memory; scale_d = 0 starts the sum from zero.
-__device__ __forceinline__ void wgmma_ss_m64n128(float* d, uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d[32] += A B for one k16 step, m64n64k16 bf16 -> f32, A (bf16 pairs in
-// the accumulator's row/column layout) from registers, B MN-major in shared
-// memory (imm-trans-b = 1).
-__device__ __forceinline__ void wgmma_rs_m64n64_tb(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
 
 // S = Q K^T for one k-tile: D / 16 steps of m64n128k16, stepping across
 // the 64-column sub-tiles; one commit group (the caller fences and waits).
@@ -779,7 +656,7 @@ __global__ void __launch_bounds__(Smem<D, NC>::THREADS, 1)
       fence_regs<64>(s);
       wgmma_fence();
       issue_qk<D, L::QSUB>(s, q_addr, base + L::K + st * L::TILE);
-      wgmma_wait0();
+      wgmma_wait<0>();
       fence_regs<64>(s);
       // a mask where some key passes this consumer's first row, or past
       // Tk; with 128-row q-tiles only the last k-tile can need one
@@ -796,7 +673,7 @@ __global__ void __launch_bounds__(Smem<D, NC>::THREADS, 1)
       for (int j = 0; j < L::SUBS; ++j) fence_regs<32>(o[j]);
       wgmma_fence();  // P and the rescaled O were written since the last products
       issue_pv<L::SUBS>(o, pa, base + L::V + st * L::TILE);
-      wgmma_wait0();
+      wgmma_wait<0>();
 #pragma unroll
       for (int j = 0; j < L::SUBS; ++j) fence_regs<32>(o[j]);
       mbar_arrive(bar_e + 8 * st);
@@ -842,52 +719,6 @@ __global__ void __launch_bounds__(Smem<D, NC>::THREADS, 1)
       }
     }
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;  // looked up at run time: no -lcuda
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                        cudaEnableDefault, &status);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
-#endif
-    if (err == cudaSuccess && status == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 4-d map {D, heads, T, B} over a bf16 BTHD tensor with element strides
-// (sh, st, sb), read or written in boxes of 64 columns x `rows` rows of
-// one head, 128-byte swizzled. T is the tensor's own length, so rows past
-// it read as zeros (and are not written). Returns 0 or 10000 + CUresult.
-int encode_map(CUtensorMap* map, const void* ptr, int d, int heads, int t, int b, long long sh,
-               long long st, long long sb, int rows) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorNotSupported;
-  cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)t, (cuuint64_t)b};
-  cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2, (cuuint64_t)sb * 2};
-  // a dimension of size 1 is never stepped, but its stride must still be
-  // a legal one (a multiple of 16 B, not 0): the span of the dims inside
-  cuuint64_t span = (cuuint64_t)d * 2;
-  for (int i = 1; i < 4; ++i) {
-    if (dims[i] == 1) strides[i - 1] = span;
-    span = strides[i - 1] * dims[i];
-  }
-  cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  cuuint32_t elem[4] = {1, 1, 1, 1};
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-                      elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : 10000 + (int)r;
 }
 
 template <int D, int NC>

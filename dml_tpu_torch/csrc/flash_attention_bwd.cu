@@ -1,62 +1,101 @@
 // Flash attention backward: the Hopper counterpart of the TPU kernels
-// dml_tpu/ops/flash_attention.py::_bwd_dq_kernel and ::_bwd_dkv_kernel.
+// dml_tpu/ops/flash_attention.py::_bwd_dq_kernel and ::_bwd_dkv_kernel
+// (K3), plus the rowwise delta that the JAX code computes beside them.
 //
 // q and dO [B, Tq, H, D], k and v [B, Tk, KV, D] (BTHD, read through
-// strides; KV divides H and query head h reads kv head h / (H / KV)),
-// lse, delta = rowsum(dO * O) and the optional lse cotangent g_lse
-// [B, H, Tq] f32 -> dq [B, Tq, H, D] in q's dtype, dk and dv
-// [B, Tk, KV, D] in k's and v's dtype, all contiguous.
+// strides; KV divides H and query head h reads kv head h / (H / KV)), the
+// forward's out [B, Tq, H, D] and lse [B, H, Tq] f32, the optional lse
+// cotangent g_lse [B, H, Tq] f32 -> dq [B, Tq, H, D] in q's dtype, dk and
+// dv [B, Tk, KV, D] in k's and v's dtype, all contiguous.
 //
-// Recomputation from the saved lse, as on the TPU, in the TPU's two
-// kernels: no atomics, so every gradient is deterministic.
+// What every route computes, by recomputation from the saved lse, in the
+// TPU's two kernels:
 //   S = Q K^T * scale, masked as the forward masks it (columns at Tk and
-//   beyond and, if causal, past the row's position, with -1e30);
+//   beyond and, if causal, past the row's position);
 //   P = exp(S - lse); dP = dO V^T;
-//   dS = P * (dP - delta [+ g_lse]) * scale.
-//   dq kernel: one block of 4 warps per (64-row q-tile, head, batch)
-//     loops over the k-tiles up to the diagonal: dQ += dS K, dS rounded
-//     to K's dtype first (the TPU kernel's `ds.astype(k_ref.dtype)`).
-//   dkv kernel: one block per (64-row k-tile, kv head, batch) loops over
-//     the G query heads of its group and, for each, over the q-tiles from
-//     the diagonal down: dV += P^T dO with P rounded to dO's dtype, dK +=
-//     dS^T Q with dS rounded to Q's dtype (the TPU kernel's roundings).
-//     The sum over the group is the gradient of a grouped k/v input.
-//   The TPU kernels carry dq (and dk, dv) in scratch across a sequential
-//   innermost grid axis; here each block loops over that axis itself and
-//   keeps the accumulators in registers (bf16) or shared memory (f32).
-//   Query rows at Tq and beyond (the TPU pads lse with +1e30 for them)
-//   are masked to P = 0 in the dkv kernel and never stored by the dq one.
+//   dS = P * (dP - delta') * scale, where delta' = rowsum(dO * O) - g_lse;
+//   dq kernel: one block per q-tile loops over the k-tiles up to the
+//     diagonal: dQ += dS K, dS rounded to K's dtype first (the TPU
+//     kernel's `ds.astype(k_ref.dtype)`);
+//   dkv kernel: one block per k-tile loops over the G query heads of its
+//     group and, for each, over the q-tiles from the diagonal down: dV +=
+//     P^T dO with P rounded to dO's dtype, dK += dS^T Q with dS rounded to
+//     Q's dtype. The sum over the group is the gradient of a grouped k/v.
+// No atomics: each dq row and each dk, dv row is summed by one block in a
+// fixed order, so every gradient is the same from run to run (a
+// checkpoint resume repeats the losses bit for bit). The one-kernel form
+// that adds dq with atomics would save the dkv kernel's recomputation of
+// S and dP, which is not where the time goes (below).
 //
-// bf16: mma.sync m16n8k16 (bf16 in, f32 accumulate). Each warp owns 16
-// rows of its block's tile (query rows in the dq kernel, key rows in the
-// dkv kernel). The dq kernel computes S and dP with those rows as the
-// M dimension, so the dS accumulator's register layout is the A operand
-// layout of dS K and dS never touches shared memory (the same trick the
-// forward plays with P V). The dkv kernel computes S^T = K Q^T and
-// dP^T = V dO^T, so P^T and dS^T sit in registers as the A operands of
-// P^T dO and dS^T Q. Tiles sit in shared memory row-major for the
-// operands read along D, and transposed ([D, 64]) for those read along
-// the sequence, so every fragment is one 32-bit read; rows are padded by
-// 16 bytes to keep those reads on distinct banks. f32 inputs take plain
-// FMAs with the tiles in shared memory (dq's accumulator too; dk and dv
-// in registers).
+// flash_bwd_delta_kernel runs first: delta' (in f32, from out and dO
+// through their strides) and a copy of lse into row arrays [B, H, Tp], Tp
+// = Tq rounded up to 128, whose rows past Tq hold lse = +1e30 and delta'
+// = 0 (the TPU pads lse the same way): a query row past Tq, zero-filled by
+// TMA, then gets P = 0 and dS = 0 exactly, never a NaN from memory past
+// the view. The TPU kernels carry dq (and dk, dv) in scratch across a
+// sequential innermost grid axis; here each block loops over that axis
+// itself and keeps the accumulators in registers.
 //
-// Bound: tensor-core operations at the training shape. The backward
-// needs 5 products of 2 * Tq * Tk * D operations per head (S, dP, dV,
-// dK, dQ; halved for causal); the two-kernel split recomputes S and dP
-// in the dkv kernel, 7 products. At [1, 2048, 16, 64] bf16 causal that
-// is 21.5 GFLOP (30.1 for the split) against ~34 MB of q, k, v, o, dO,
-// dq, dk and dv: the H100's bf16 tensor cores (989 TFLOP/s dense), not
-// its 3.35 TB/s, are the limit. This version loads tiles synchronously
-// and uses mma.sync; TMA, wgmma and the one-kernel form with atomic dq
-// are later work.
+// Routes, picked from the dtype and D alone:
+//
+// - bf16, D 64 or 128 (every main-path shape): flash_bwd_dq_wgmma_kernel
+//   and flash_bwd_dkv_wgmma_kernel. Each block is a producer warpgroup and
+//   two consumer warpgroups of 64 rows each; setmaxnreg gives the
+//   consumers 232 registers and the producer 40. One producer thread
+//   loads the block's own tiles once and streams the other operand's
+//   tiles through a ring in shared memory with TMA over 4-d tensor maps
+//   {D, heads, T, B} built from the tensors' strides (GQA reads kv head h
+//   / G with no repeat; rows past T arrive as zeros; 128-byte swizzle);
+//   "full" mbarriers complete on the copies' byte counts, "empty" ones on
+//   the consumers' release. Products (SS: both operands in shared memory,
+//   K-major; RS: A from registers, B read MN-major as TMA left it, so no
+//   tile is ever transposed):
+//     dq:  blocks of 128 query rows, longest causal q-tiles first; Q and
+//          dO loaded once; K and V streamed in k-tiles of 128 rows (64 at
+//          D 128). S = Q K^T (SS), dP = dO V^T (SS), P and dS in
+//          registers, dQ += dS K (RS, dS packed from the accumulator into
+//          A registers, K MN-major). dQ goes out by TMA store (rows past
+//          Tq clipped).
+//     dkv: blocks of 128 key rows, longest causal k-tiles first; K and V
+//          loaded once; (Q, dO) pairs of 64-row q-tiles streamed with
+//          their 64 lse and delta' rows (bulk copies into the same stage).
+//          S^T = K Q^T (SS), dP^T = V dO^T (SS), P^T and dS^T in
+//          registers (each thread reads its columns' lse and delta' from
+//          shared memory), dV += P^T dO (RS, dO MN-major), dK += dS^T Q
+//          (RS, Q MN-major). dK and dV are stored once per block by TMA.
+//   P = exp2(S * scale * log2(e) - lse * log2(e)), one FMA and one exp2.
+//   Masks are applied only on tiles that cross the diagonal (or Tk, in
+//   dq); a consumer skips the products of a causal tile wholly past (or
+//   before) its rows. An mbarrier wait that outlasts ~2 s traps.
+// - bf16, D 16 or 32: flash_bwd_dq_mma_kernel and flash_bwd_dkv_mma_kernel,
+//   the first Hopper version: 64-row tiles, 4-warp blocks, synchronous
+//   tile loads, mma.sync m16n8k16 with dS, P^T and dS^T in registers as A
+//   operands and the operands read along the sequence copied transposed
+//   into shared memory. dml_flash_bwd_mma runs them at any bf16 D so one
+//   card can time them beside the wgmma route.
+// - float32: flash_bwd_dq_f32_kernel and flash_bwd_dkv_f32_kernel, plain
+//   FMAs with the tiles in shared memory.
+//
+// Bound: tensor-core operations at the training shape. The backward needs
+// 5 products of 2 * Tq * Tk * D operations per head (S, dP, dV, dK, dQ;
+// halved for causal); the two-kernel split recomputes S and dP in the
+// dkv kernel, 7 products (dq: 3, dkv: 4). At [1, 2048, 16, 64] bf16 causal
+// that is 21.5 GFLOP (30.1 for the split: 0.0304 ms at 989 TFLOP/s;
+// 0.0217 ms at the 5-product minimum) against ~34 MB of q, k, v, o, dO,
+// dq, dk and dv (0.010 ms at 3.35 TB/s). The delta kernel is bound by
+// its bytes (out and dO read once).
 //
 // Plain C interface for ctypes; launches on the caller's stream and
-// returns cudaGetLastError() so a refused launch raises in the wrapper.
+// returns cudaGetLastError() (or 10000 + the CUresult of
+// cuTensorMapEncodeTiled when a tensor map cannot be encoded) so a
+// refused launch raises in the wrapper.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -70,13 +109,12 @@ struct Args {
   const void* k;
   const void* v;
   const void* dout;
-  const float* lse;
-  const float* delta;
-  const float* glse;  // nullptr when the lse output has no cotangent
+  const float* lse;    // [B, H, Tp]: the forward's lse, +1e30 past Tq
+  const float* delta;  // [B, H, Tp]: rowsum(dO * O) - g_lse, 0 past Tq
   void* dq;
   void* dk;
   void* dv;
-  int H, G, KV, Tq, Tk;
+  int H, G, KV, Tq, Tk, Tp;
   long long qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, dsb, dst, dsh;
   float scale;
   int causal;
@@ -120,7 +158,66 @@ __device__ __forceinline__ void load_tile_t(__nv_bfloat16* dst, int ldt, const _
 __device__ __forceinline__ void load_rows(float* dst, const float* src, int row0, int n_rows) {
   if (threadIdx.x < 64) {
     const int r = row0 + threadIdx.x;
-    dst[threadIdx.x] = (src != nullptr && r < n_rows) ? src[r] : 0.f;
+    dst[threadIdx.x] = r < n_rows ? src[r] : 0.f;
+  }
+}
+
+// ---------------------------------------------------------------- delta
+
+struct RowArgs {
+  const void* out;
+  const void* dout;
+  const float* lse;
+  const float* glse;  // nullptr when the lse output has no cotangent
+  float* lse_r;
+  float* delta_r;
+  int H, Tq, Tp, lane_shift;  // log2 of the lanes per row: D * sizeof(T) / 16
+  long long osb, ost, osh, dsb, dst, dsh;
+};
+
+// Grid (Tp * lanes / 256, H, B): one row t of head h per 2^lane_shift
+// lanes, each reading 16 bytes of out and of dO, so a row is whole cache
+// lines and a warp's rows are consecutive in t (the row arrays are written
+// in runs). The lanes' partial sums meet by shuffles.
+template <int BF16>
+__global__ void __launch_bounds__(256) flash_bwd_delta_kernel(RowArgs r) {
+  const int i = blockIdx.x * 256 + threadIdx.x;
+  const int t = i >> r.lane_shift;
+  const int part = i & ((1 << r.lane_shift) - 1);
+  const int h = blockIdx.y, b = blockIdx.z;
+  float sum = 0.f;
+  if (t < r.Tq) {
+    const uint4 o = *(reinterpret_cast<const uint4*>(
+        static_cast<const unsigned char*>(r.out) +
+        (b * r.osb + t * r.ost + h * r.osh) * (BF16 ? 2 : 4)) + part);
+    const uint4 d = *(reinterpret_cast<const uint4*>(
+        static_cast<const unsigned char*>(r.dout) +
+        (b * r.dsb + t * r.dst + h * r.dsh) * (BF16 ? 2 : 4)) + part);
+    const uint32_t ov[4] = {o.x, o.y, o.z, o.w}, dv[4] = {d.x, d.y, d.z, d.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (BF16) {
+        const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ov[j]));
+        const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&dv[j]));
+        sum = fmaf(c.x, a.x, sum);
+        sum = fmaf(c.y, a.y, sum);
+      } else {
+        sum = fmaf(__uint_as_float(dv[j]), __uint_as_float(ov[j]), sum);
+      }
+    }
+  }
+  for (int off = (1 << r.lane_shift) / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (part == 0) {
+    const long long bh = (long long)b * r.H + h;
+    const long long slot = bh * r.Tp + t;
+    if (t < r.Tq) {
+      const long long src = bh * r.Tq + t;
+      r.lse_r[slot] = r.lse[src];
+      r.delta_r[slot] = r.glse != nullptr ? sum - r.glse[src] : sum;
+    } else {
+      r.lse_r[slot] = -NEG_INF;
+      r.delta_r[slot] = 0.f;
+    }
   }
 }
 
@@ -199,16 +296,13 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_mma_kernel(Args a) {
   load_tile<bf16, D>(dOs, L::LD, dp_, a.dst, q0, a.Tq);
 
   const int row[2] = {q0 + 16 * warp + g, q0 + 16 * warp + g + 8};
-  const long long rbase = ((long long)b * a.H + h) * a.Tq;
-  float lse[2], delta[2], glse[2] = {0.f, 0.f};
+  const long long rbase = ((long long)b * a.H + h) * a.Tp;
+  float lse[2], delta[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const bool in = row[r] < a.Tq;
-    lse[r] = in ? a.lse[rbase + row[r]] : 0.f;
-    delta[r] = in ? a.delta[rbase + row[r]] : 0.f;
-    if (a.glse != nullptr && in) glse[r] = a.glse[rbase + row[r]];
+  for (int r = 0; r < 2; ++r) {  // rows past Tq read the arrays' pad rows
+    lse[r] = a.lse[rbase + row[r]];
+    delta[r] = a.delta[rbase + row[r]];
   }
-  const bool has_glse = a.glse != nullptr;
 
   float acc[D / 8][4];
 #pragma unroll
@@ -248,7 +342,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_mma_kernel(Args a) {
       }
     }
 
-    // dS = P (dP - delta [+ g_lse]) scale, in place of S
+    // dS = P (dP - delta') scale, in place of S
 #pragma unroll
     for (int nt = 0; nt < BK / 8; ++nt) {
 #pragma unroll
@@ -258,9 +352,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_mma_kernel(Args a) {
         float sv = s[nt][e] * a.scale;
         if (key >= a.Tk || (a.causal && key > row[r])) sv = NEG_INF;
         const float p = expf(sv - lse[r]);
-        float term = dpv[nt][e] - delta[r];
-        if (has_glse) term += glse[r];
-        s[nt][e] = p * term * a.scale;
+        s[nt][e] = p * (dpv[nt][e] - delta[r]) * a.scale;
       }
     }
 
@@ -296,7 +388,7 @@ struct DkvLayout {
   static constexpr int LD = D + 8;    // K, V, Q, dO tiles, row-major
   static constexpr int LDT = BQ + 8;  // Q and dO tiles transposed: [D, 64]
   static constexpr size_t bytes =
-      sizeof(bf16) * (size_t)(2 * BK * LD + 2 * BQ * LD + 2 * D * LDT) + sizeof(float) * 3 * BQ;
+      sizeof(bf16) * (size_t)(2 * BK * LD + 2 * BQ * LD + 2 * D * LDT) + sizeof(float) * 2 * BQ;
 };
 
 template <int D>
@@ -311,13 +403,11 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_mma_kernel(Args a) {
   bf16* dOt = Qt + D * L::LDT;
   float* lse_s = reinterpret_cast<float*>(dOt + D * L::LDT);
   float* delta_s = lse_s + BQ;
-  float* glse_s = delta_s + BQ;
 
   const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int k0 = kt * BK;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
-  const bool has_glse = a.glse != nullptr;
   const bf16* kp = static_cast<const bf16*>(a.k) + b * a.ksb + kvh * a.ksh;
   const bf16* vp = static_cast<const bf16*>(a.v) + b * a.vsb + kvh * a.vsh;
   load_tile<bf16, D>(Ks, L::LD, kp, a.kst, k0, a.Tk);
@@ -340,7 +430,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_mma_kernel(Args a) {
     const int h = kvh * a.G + gi;
     const bf16* qp = static_cast<const bf16*>(a.q) + b * a.qsb + h * a.qsh;
     const bf16* dp_ = static_cast<const bf16*>(a.dout) + b * a.dsb + h * a.dsh;
-    const long long rbase = ((long long)b * a.H + h) * a.Tq;
+    const long long rbase = ((long long)b * a.H + h) * a.Tp;
     for (int qt = qt0; qt < n_qt; ++qt) {
       const int q0 = qt * BQ;
       __syncthreads();  // every warp is done with the previous Q/dO tiles
@@ -350,7 +440,6 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_mma_kernel(Args a) {
       load_tile_t<D>(dOt, L::LDT, dp_, a.dst, q0, a.Tq);
       load_rows(lse_s, a.lse + rbase, q0, a.Tq);
       load_rows(delta_s, a.delta + rbase, q0, a.Tq);
-      if (has_glse) load_rows(glse_s, a.glse + rbase, q0, a.Tq);
       __syncthreads();
 
       // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x 64 queries
@@ -385,10 +474,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_mma_kernel(Args a) {
           float sv = s[nt][e] * a.scale;
           if (qpos >= a.Tq || (a.causal && key[r] > qpos)) sv = NEG_INF;
           const float p = expf(sv - lse_s[c]);
-          float term = dpv[nt][e] - delta_s[c];
-          if (has_glse) term += glse_s[c];
           s[nt][e] = p;
-          dpv[nt][e] = p * term * a.scale;
+          dpv[nt][e] = p * (dpv[nt][e] - delta_s[c]) * a.scale;
         }
       }
 
@@ -432,7 +519,7 @@ template <int D>
 struct F32DqLayout {
   static constexpr int LDT = D + 4;   // Q, dO, K, V tiles and the dQ accumulator
   static constexpr int LDS = BK + 4;  // dS
-  static constexpr size_t bytes = sizeof(float) * (size_t)(5 * 64 * LDT + BQ * LDS + 3 * BQ);
+  static constexpr size_t bytes = sizeof(float) * (size_t)(5 * 64 * LDT + BQ * LDS + 2 * BQ);
 };
 
 template <int D>
@@ -447,7 +534,6 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_f32_kernel(Args a) {
   float* dS = dQ + 64 * L::LDT;
   float* lse_s = dS + BQ * L::LDS;
   float* delta_s = lse_s + BQ;
-  float* glse_s = delta_s + BQ;
 
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / a.G;
@@ -457,14 +543,13 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_f32_kernel(Args a) {
   const float* dp_ = static_cast<const float*>(a.dout) + b * a.dsb + h * a.dsh;
   const float* kp = static_cast<const float*>(a.k) + b * a.ksb + kvh * a.ksh;
   const float* vp = static_cast<const float*>(a.v) + b * a.vsb + kvh * a.vsh;
-  const long long rbase = ((long long)b * a.H + h) * a.Tq;
+  const long long rbase = ((long long)b * a.H + h) * a.Tp;
 
   load_tile<float, D>(Qs, L::LDT, qp, a.qst, q0, a.Tq);
   load_tile<float, D>(dOs, L::LDT, dp_, a.dst, q0, a.Tq);
   for (int i = tid; i < 64 * L::LDT; i += THREADS) dQ[i] = 0.f;
   load_rows(lse_s, a.lse + rbase, q0, a.Tq);
   load_rows(delta_s, a.delta + rbase, q0, a.Tq);
-  load_rows(glse_s, a.glse != nullptr ? a.glse + rbase : nullptr, q0, a.Tq);
 
   int n_tiles = (a.Tk + BK - 1) / BK;
   if (a.causal) n_tiles = min(n_tiles, (q0 + BQ - 1) / BK + 1);
@@ -492,7 +577,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_f32_kernel(Args a) {
       s *= a.scale;
       if (key >= a.Tk || (a.causal && key > q0 + r)) s = NEG_INF;
       const float p = expf(s - lse_s[r]);
-      dS[r * L::LDS + c] = p * (dp - delta_s[r] + glse_s[r]) * a.scale;
+      dS[r * L::LDS + c] = p * (dp - delta_s[r]) * a.scale;
     }
     __syncthreads();
 
@@ -518,7 +603,7 @@ template <int D>
 struct F32DkvLayout {
   static constexpr int LDT = D + 4;   // K, V, Q, dO tiles
   static constexpr int LDS = BQ + 4;  // P^T and dS^T
-  static constexpr size_t bytes = sizeof(float) * (size_t)(4 * 64 * LDT + 2 * BK * LDS + 3 * BQ);
+  static constexpr size_t bytes = sizeof(float) * (size_t)(4 * 64 * LDT + 2 * BK * LDS + 2 * BQ);
 };
 
 template <int D>
@@ -533,7 +618,6 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_f32_kernel(Args a) {
   float* dSt = Pt + BK * L::LDS;
   float* lse_s = dSt + BK * L::LDS;
   float* delta_s = lse_s + BQ;
-  float* glse_s = delta_s + BQ;
 
   const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int k0 = kt * BK;
@@ -556,7 +640,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_f32_kernel(Args a) {
     const int h = kvh * a.G + gi;
     const float* qp = static_cast<const float*>(a.q) + b * a.qsb + h * a.qsh;
     const float* dp_ = static_cast<const float*>(a.dout) + b * a.dsb + h * a.dsh;
-    const long long rbase = ((long long)b * a.H + h) * a.Tq;
+    const long long rbase = ((long long)b * a.H + h) * a.Tp;
     for (int qt = qt0; qt < n_qt; ++qt) {
       const int q0 = qt * BQ;
       __syncthreads();
@@ -564,7 +648,6 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_f32_kernel(Args a) {
       load_tile<float, D>(dOs, L::LDT, dp_, a.dst, q0, a.Tq);
       load_rows(lse_s, a.lse + rbase, q0, a.Tq);
       load_rows(delta_s, a.delta + rbase, q0, a.Tq);
-      load_rows(glse_s, a.glse != nullptr ? a.glse + rbase : nullptr, q0, a.Tq);
       __syncthreads();
 
       for (int i = tid; i < BK * BQ; i += THREADS) {
@@ -584,7 +667,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_f32_kernel(Args a) {
         if (qpos >= a.Tq || (a.causal && k0 + r > qpos)) s = NEG_INF;
         const float p = expf(s - lse_s[c]);
         Pt[r * L::LDS + c] = p;
-        dSt[r * L::LDS + c] = p * (dp - delta_s[c] + glse_s[c]) * a.scale;
+        dSt[r * L::LDS + c] = p * (dp - delta_s[c]) * a.scale;
       }
       __syncthreads();
 
@@ -643,24 +726,525 @@ int launch(const Args& a, int B, int is_bf16, int parts, cudaStream_t stream) {
   return err;
 }
 
-}  // namespace
 
-extern "C" int dml_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
-                             const void* lse, const void* delta, const void* glse,
-                             void* dq, void* dk, void* dv,
-                             int is_bf16, int B, int H, int KV, int Tq, int Tk, int D,
-                             long long qsb, long long qst, long long qsh,
-                             long long ksb, long long kst, long long ksh,
-                             long long vsb, long long vst, long long vsh,
-                             long long dsb, long long dst, long long dsh,
-                             float scale, int causal, int parts, void* stream) {
+// ------------------------------------------ bf16, D 64 / 128: wgmma + TMA
+
+namespace wg {
+
+using namespace hopper;
+
+constexpr int NC = 2;                       // consumer warpgroups, 64 rows each
+constexpr int WG_THREADS = 128 * (NC + 1);  // + the producer warpgroup
+// registers after setmaxnreg: 128 * 40 + 256 * 232 <= 65536
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+
+struct Params {
+  const float* lse;    // [B, H, Tp], natural units, +1e30 past Tq
+  const float* delta;  // [B, H, Tp], 0 past Tq
+  int H, G, Tq, Tk, Tp, n_tiles;
+  float scale;       // softmax scale
+  float scale_log2;  // scale * log2(e)
+  int causal;
+};
+
+// dq: 128 query rows per block (Q and dO loaded once), k-tiles of BN
+// keys streamed. At D 64 the k-tile is 128 keys (S and dP take 64
+// registers each beside dQ's 32); at D 128 it is 64 keys, so S, dP (32
+// each) and dQ (64) fit the consumers' 232 registers.
+template <int D>
+struct DqSmem {
+  static constexpr int BQ = 64 * NC;
+  static constexpr int BN = D == 64 ? 128 : 64;
+  static constexpr int STAGES = D == 64 ? 3 : 2;
+  static constexpr int SUBS = D / 64;             // 64-column sub-tiles
+  static constexpr int QSUB = BQ * ROW_BYTES;     // one sub-tile of Q or dO
+  static constexpr int KSUB = BN * ROW_BYTES;     // one sub-tile of a K or V tile
+  static constexpr int TILE = SUBS * KSUB;
+  static constexpr int Q = 0;
+  static constexpr int DO = Q + SUBS * QSUB;
+  static constexpr int K = DO + SUBS * QSUB;      // + stage * TILE
+  static constexpr int V = K + STAGES * TILE;     // + stage * TILE
+  static constexpr int BAR = V + STAGES * TILE;   // mbarriers: q, k[S], v[S], empty[S]
+  static constexpr int bytes = BAR + 8 * (1 + 3 * STAGES) + 1024;  // + slack for 1024-B alignment
+};
+
+// dkv: 128 key rows per block (K and V loaded once), q-tiles of 64 rows
+// streamed with their lse and delta' rows. dK and dV (32 registers each
+// at D 64, 64 at D 128) stay in registers beside S^T and dP^T (32 each).
+template <int D>
+struct DkvSmem {
+  static constexpr int BK = 64 * NC;
+  static constexpr int BQ = 64;
+  static constexpr int STAGES = 3;
+  static constexpr int SUBS = D / 64;
+  static constexpr int KSUB = BK * ROW_BYTES;     // one sub-tile of K or V
+  static constexpr int QSUB = BQ * ROW_BYTES;     // one sub-tile of a Q or dO tile
+  static constexpr int QTILE = SUBS * QSUB;
+  static constexpr int ROWS_BYTES = 2 * BQ * 4;   // a stage's lse and delta' rows
+  static constexpr int K = 0;
+  static constexpr int V = K + SUBS * KSUB;
+  static constexpr int Q = V + SUBS * KSUB;       // + stage * QTILE
+  static constexpr int DO = Q + STAGES * QTILE;   // + stage * QTILE
+  static constexpr int ROWS = DO + STAGES * QTILE;  // + stage * ROWS_BYTES
+  static constexpr int BAR = ROWS + STAGES * ROWS_BYTES;  // mbarriers: kv, full[S], empty[S]
+  static constexpr int bytes = BAR + 8 * (1 + 2 * STAGES) + 1024;
+};
+
+// d (+)= A B for one k16 step with both operands K-major in shared memory,
+// N = 64 or 128.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (N == 128) {
+    wgmma_ss_m64n128(d, da, db, scale_d);
+  } else {
+    wgmma_ss_m64n64(d, da, db, scale_d);
+  }
+}
+
+// acc = A B^T over D for 64 rows of A and the N rows of B, both row-major
+// [rows, D] tiles in 64-column swizzled sub-tiles (a_sub and b_sub bytes
+// apart): D / 16 steps; one commit group.
+template <int D, int N>
+__device__ __forceinline__ void issue_abt(float* acc, uint32_t a_addr, int a_sub, uint32_t b_addr,
+                                          int b_sub) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t step = (kk % 4) * 32;
+    wgmma_ss<N>(acc, kmajor_desc(a_addr + (kk / 4) * a_sub + step),
+                kmajor_desc(b_addr + (kk / 4) * b_sub + step), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// acc[j] += A B for each 64-column sub-tile j of B: A (KSTEPS x 16 rows of
+// B's sequence axis) from registers, B a row-major [rows, D] tile read
+// MN-major, 16 rows (2048 B) a step; no commit.
+template <int SUBS, int KSTEPS>
+__device__ __forceinline__ void issue_rs(float (*acc)[32], const uint32_t (*a)[4], uint32_t b_addr,
+                                         int b_sub) {
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk)
+#pragma unroll
+    for (int j = 0; j < SUBS; ++j)
+      wgmma_rs_m64n64_tb(acc[j], a[kk], mnmajor_desc(b_addr + j * b_sub + kk * 16 * ROW_BYTES));
+}
+
+// A registers (bf16) from an m64nN accumulator: its fragment of columns
+// 16kk..16kk+15 is the A fragment of k16 step kk.
+template <int KSTEPS>
+__device__ __forceinline__ void pack_a(uint32_t (*a)[4], const float* c) {
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[kk][i] = pack_bf16(c[8 * kk + 2 * i], c[8 * kk + 2 * i + 1]);
+}
+
+// The consumer's accumulator (64 rows x 64 columns per sub-tile) as bf16
+// into its own rows of a swizzled tile (sub-tiles `sub` bytes apart), for
+// a TMA store.
+template <int SUBS>
+__device__ __forceinline__ void stage_out(unsigned char* dst, int sub, const float (*acc)[32], int warp,
+                                          int g, int t) {
+#pragma unroll
+  for (int j = 0; j < SUBS; ++j)
+#pragma unroll
+    for (int i2 = 0; i2 < 8; ++i2)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int rl = 16 * warp + g + 8 * r;  // row within the consumer's 64
+        const int byte = j * sub + rl * ROW_BYTES + ((i2 ^ (rl & 7)) << 4) + 4 * t;
+        *reinterpret_cast<uint32_t*>(dst + byte) = pack_bf16(acc[j][4 * i2 + 2 * r], acc[j][4 * i2 + 2 * r + 1]);
+      }
+}
+
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_do,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const __grid_constant__ CUtensorMap tm_dq, const Params a) {
+  using L = DqSmem<D>;
+  constexpr int BN = L::BN;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzled tiles need 1024-B alignment
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t bar_q = base + L::BAR;
+  const uint32_t bar_k = bar_q + 8;                // + 8 * stage
+  const uint32_t bar_v = bar_k + 8 * L::STAGES;    // + 8 * stage
+  const uint32_t bar_e = bar_v + 8 * L::STAGES;    // + 8 * stage
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (a.n_tiles - 1 - blockIdx.z) * L::BQ;  // longest causal q-tiles first
+  const int kvh = h / a.G;
+  int n_kt = (a.Tk + BN - 1) / BN;
+  if (a.causal) n_kt = min(n_kt, (q0 + L::BQ - 1) / BN + 1);  // past the diagonal: never
+  const bool ragged = (a.Tk % BN) != 0;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(bar_k + 8 * s, 1);
+      mbar_init(bar_v + 8 * s, 1);
+      mbar_init(bar_e + 8 * s, NC * 128);  // every consumer thread releases the stage
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (tid == 0) {
+      mbar_expect_tx(bar_q, 2 * L::SUBS * L::QSUB);
+#pragma unroll
+      for (int j = 0; j < L::SUBS; ++j) {
+        tma_load(base + L::Q + j * L::QSUB, &tm_q, bar_q, 64 * j, h, q0, b);
+        tma_load(base + L::DO + j * L::QSUB, &tm_do, bar_q, 64 * j, h, q0, b);
+      }
+      for (int i = 0; i < n_kt; ++i) {
+        const int s = i % L::STAGES;
+        if (i >= L::STAGES) mbar_wait(bar_e + 8 * s, ((i / L::STAGES) - 1) & 1);
+        const int k0 = i * BN;
+        mbar_expect_tx(bar_k + 8 * s, L::TILE);
+#pragma unroll
+        for (int j = 0; j < L::SUBS; ++j)
+          tma_load(base + L::K + s * L::TILE + j * L::KSUB, &tm_k, bar_k + 8 * s, 64 * j, kvh, k0, b);
+        mbar_expect_tx(bar_v + 8 * s, L::TILE);
+#pragma unroll
+        for (int j = 0; j < L::SUBS; ++j)
+          tma_load(base + L::V + s * L::TILE + j * L::KSUB, &tm_v, bar_v + 8 * s, 64 * j, kvh, k0, b);
+      }
+    }
+  } else {
+    // ------------------------------------------------------------ consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int c = tid / 128 - 1;  // rows [64c, 64c + 64) of the q-tile
+    const int tw = tid % 128, warp = tw / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
+    const int first = q0 + 64 * c;          // this consumer's first row
+    const int row0 = first + 16 * warp + g;  // this thread's rows: row0, row0 + 8
+    const uint32_t q_addr = base + L::Q + c * 64 * ROW_BYTES;
+    const uint32_t do_addr = base + L::DO + c * 64 * ROW_BYTES;
+    // lse (as -lse * log2(e)) and delta' of the thread's rows; the row
+    // arrays reach Tp >= every block's last row
+    const long long rbase = ((long long)b * a.H + h) * a.Tp;
+    float neg_lse[2], delta[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      neg_lse[r] = -a.lse[rbase + row0 + 8 * r] * LOG2E;
+      delta[r] = a.delta[rbase + row0 + 8 * r];
+    }
+
+    float dq[L::SUBS][32];  // dQ, one m64n64 accumulator per 64-column sub-tile
+    float s[BN / 2];        // S, then P: one m64nBN accumulator
+    float dp[BN / 2];       // dP, then dS
+#pragma unroll
+    for (int j = 0; j < L::SUBS; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dq[j][i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) s[i] = dp[i] = 0.f;
+
+    mbar_wait(bar_q, 0);
+    for (int i = 0; i < n_kt; ++i) {
+      const int st = i % L::STAGES;
+      const uint32_t parity = (i / L::STAGES) & 1;
+      const int k0 = i * BN;
+      const uint32_t k_addr = base + L::K + st * L::TILE;
+      const uint32_t v_addr = base + L::V + st * L::TILE;
+      mbar_wait(bar_k + 8 * st, parity);
+      if (a.causal && k0 > first + 63) {  // every key past every row of this consumer
+        mbar_arrive(bar_e + 8 * st);
+        continue;
+      }
+      fence_regs<BN / 2>(s);
+      fence_regs<BN / 2>(dp);
+      wgmma_fence();
+      issue_abt<D, BN>(s, q_addr, L::QSUB, k_addr, L::KSUB);
+      mbar_wait(bar_v + 8 * st, parity);
+      issue_abt<D, BN>(dp, do_addr, L::QSUB, v_addr, L::KSUB);
+      wgmma_wait<1>();
+      fence_regs<BN / 2>(s);
+      // P = exp2(S scale log2(e) - lse log2(e)); a mask only where some key
+      // passes this consumer's first row, or on the last tile past Tk
+      const bool masked = (a.causal && k0 + BN - 1 > first) || (ragged && i == n_kt - 1);
+      if (masked) {
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = k0 + 8 * j + 2 * t + (e & 1);
+            if (key >= a.Tk || (a.causal && key > row0 + 8 * (e >> 1))) s[4 * j + e] = -INFINITY;
+          }
+      }
+#pragma unroll
+      for (int j = 0; j < BN / 2; ++j) s[j] = ex2(fmaf(s[j], a.scale_log2, neg_lse[(j >> 1) & 1]));
+      wgmma_wait<0>();
+      fence_regs<BN / 2>(dp);
+      // dS = P (dP - delta') scale, rounded to bf16 as the A registers of dS K
+#pragma unroll
+      for (int j = 0; j < BN / 2; ++j) dp[j] = s[j] * (dp[j] - delta[(j >> 1) & 1]) * a.scale;
+      uint32_t da[BN / 16][4];
+      pack_a<BN / 16>(da, dp);
+#pragma unroll
+      for (int j = 0; j < L::SUBS; ++j) fence_regs<32>(dq[j]);
+      wgmma_fence();
+      issue_rs<L::SUBS, BN / 16>(dq, da, k_addr, L::KSUB);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int j = 0; j < L::SUBS; ++j) fence_regs<32>(dq[j]);
+      mbar_arrive(bar_e + 8 * st);
+    }
+
+    // epilogue: dQ as bf16 into this consumer's own Q rows (no longer
+    // read), one TMA store per sub-tile; rows past Tq are clipped
+    stage_out<L::SUBS>(smem + L::Q + c * 64 * ROW_BYTES, L::QSUB, dq, warp, g, t);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+    if (tw == 0) {
+#pragma unroll
+      for (int j = 0; j < L::SUBS; ++j) tma_store(&tm_dq, q_addr + j * L::QSUB, 64 * j, h, first, b);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                               const __grid_constant__ CUtensorMap tm_do,
+                               const __grid_constant__ CUtensorMap tm_k,
+                               const __grid_constant__ CUtensorMap tm_v,
+                               const __grid_constant__ CUtensorMap tm_dk,
+                               const __grid_constant__ CUtensorMap tm_dv, const Params a) {
+  using L = DkvSmem<D>;
+  constexpr int BQW = L::BQ;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t bar_kv = base + L::BAR;
+  const uint32_t bar_f = bar_kv + 8;              // + 8 * stage
+  const uint32_t bar_e = bar_f + 8 * L::STAGES;   // + 8 * stage
+
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * L::BK;  // longest causal k-tiles (the first) first
+  const int n_qt = (a.Tq + BQW - 1) / BQW;
+  const int qt0 = a.causal ? k0 / BQW : 0;  // q-tiles wholly above the diagonal see none of these keys
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(bar_f + 8 * s, 1);
+      mbar_init(bar_e + 8 * s, NC * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (tid == 0) {
+      mbar_expect_tx(bar_kv, 2 * L::SUBS * L::KSUB);
+#pragma unroll
+      for (int j = 0; j < L::SUBS; ++j) {
+        tma_load(base + L::K + j * L::KSUB, &tm_k, bar_kv, 64 * j, kvh, k0, b);
+        tma_load(base + L::V + j * L::KSUB, &tm_v, bar_kv, 64 * j, kvh, k0, b);
+      }
+      int i = 0;
+      for (int gi = 0; gi < a.G; ++gi) {
+        const int h = kvh * a.G + gi;
+        const long long rbase = ((long long)b * a.H + h) * a.Tp;
+        for (int qt = qt0; qt < n_qt; ++qt, ++i) {
+          const int s = i % L::STAGES;
+          if (i >= L::STAGES) mbar_wait(bar_e + 8 * s, ((i / L::STAGES) - 1) & 1);
+          const int q0 = qt * BQW;
+          const uint32_t full = bar_f + 8 * s;
+          mbar_expect_tx(full, 2 * L::QTILE + L::ROWS_BYTES);
+#pragma unroll
+          for (int j = 0; j < L::SUBS; ++j) {
+            tma_load(base + L::Q + s * L::QTILE + j * L::QSUB, &tm_q, full, 64 * j, h, q0, b);
+            tma_load(base + L::DO + s * L::QTILE + j * L::QSUB, &tm_do, full, 64 * j, h, q0, b);
+          }
+          const uint32_t rows = base + L::ROWS + s * L::ROWS_BYTES;
+          bulk_load(rows, a.lse + rbase + q0, BQW * 4, full);
+          bulk_load(rows + BQW * 4, a.delta + rbase + q0, BQW * 4, full);
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------------------------ consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int c = tid / 128 - 1;  // keys [64c, 64c + 64) of the k-tile
+    const int tw = tid % 128, warp = tw / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
+    const int first = k0 + 64 * c;          // this consumer's first key
+    const int key0 = first + 16 * warp + g;  // this thread's keys: key0, key0 + 8
+    const uint32_t k_addr = base + L::K + c * 64 * ROW_BYTES;
+    const uint32_t v_addr = base + L::V + c * 64 * ROW_BYTES;
+
+    float dk[L::SUBS][32], dv[L::SUBS][32];  // one m64n64 accumulator per sub-tile
+    float s[BQW / 2];   // S^T, then P^T: keys x queries
+    float dp[BQW / 2];  // dP^T, then dS^T
+#pragma unroll
+    for (int j = 0; j < L::SUBS; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dk[j][i] = dv[j][i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < BQW / 2; ++i) s[i] = dp[i] = 0.f;
+
+    mbar_wait(bar_kv, 0);
+    int i = 0;
+    for (int gi = 0; gi < a.G; ++gi) {
+      for (int qt = qt0; qt < n_qt; ++qt, ++i) {
+        const int st = i % L::STAGES;
+        const uint32_t parity = (i / L::STAGES) & 1;
+        const int q0 = qt * BQW;
+        mbar_wait(bar_f + 8 * st, parity);
+        if (a.causal && q0 + BQW - 1 < first) {  // every query before every key of this consumer
+          mbar_arrive(bar_e + 8 * st);
+          continue;
+        }
+        const uint32_t q_addr = base + L::Q + st * L::QTILE;
+        const uint32_t do_addr = base + L::DO + st * L::QTILE;
+        const float* rows = reinterpret_cast<const float*>(smem + L::ROWS + st * L::ROWS_BYTES);
+        fence_regs<BQW / 2>(s);
+        fence_regs<BQW / 2>(dp);
+        wgmma_fence();
+        issue_abt<D, BQW>(s, k_addr, L::KSUB, q_addr, L::QSUB);
+        issue_abt<D, BQW>(dp, v_addr, L::KSUB, do_addr, L::QSUB);
+        wgmma_wait<1>();
+        fence_regs<BQW / 2>(s);
+        // P^T: each thread's columns are the queries 8j + 2t and 8j + 2t + 1
+        const bool masked = a.causal && q0 < first + 63;  // some key of this consumer past a query
+#pragma unroll
+        for (int j = 0; j < BQW / 8; ++j) {
+          const float2 l2 = *reinterpret_cast<const float2*>(rows + 8 * j + 2 * t);
+          const float nl[2] = {-l2.x * LOG2E, -l2.y * LOG2E};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = s[4 * j + e];
+            if (masked && key0 + 8 * (e >> 1) > q0 + 8 * j + 2 * t + (e & 1)) x = -INFINITY;
+            s[4 * j + e] = ex2(fmaf(x, a.scale_log2, nl[e & 1]));
+          }
+        }
+        wgmma_wait<0>();
+        fence_regs<BQW / 2>(dp);
+        // dS^T = P^T (dP^T - delta') scale
+#pragma unroll
+        for (int j = 0; j < BQW / 8; ++j) {
+          const float2 d2 = *reinterpret_cast<const float2*>(rows + BQW + 8 * j + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? d2.y : d2.x)) * a.scale;
+        }
+        // P^T in dO's dtype and dS^T in Q's, as A registers
+        uint32_t pa[BQW / 16][4], da[BQW / 16][4];
+        pack_a<BQW / 16>(pa, s);
+        pack_a<BQW / 16>(da, dp);
+#pragma unroll
+        for (int j = 0; j < L::SUBS; ++j) {
+          fence_regs<32>(dv[j]);
+          fence_regs<32>(dk[j]);
+        }
+        wgmma_fence();
+        issue_rs<L::SUBS, BQW / 16>(dv, pa, do_addr, L::QSUB);  // dV += P^T dO
+        issue_rs<L::SUBS, BQW / 16>(dk, da, q_addr, L::QSUB);   // dK += dS^T Q
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int j = 0; j < L::SUBS; ++j) {
+          fence_regs<32>(dv[j]);
+          fence_regs<32>(dk[j]);
+        }
+        mbar_arrive(bar_e + 8 * st);
+      }
+    }
+
+    // epilogue: dK and dV as bf16 into this consumer's own K and V rows
+    // (no longer read), TMA stores; rows past Tk are clipped
+    stage_out<L::SUBS>(smem + L::K + c * 64 * ROW_BYTES, L::KSUB, dk, warp, g, t);
+    stage_out<L::SUBS>(smem + L::V + c * 64 * ROW_BYTES, L::KSUB, dv, warp, g, t);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+    if (tw == 0) {
+#pragma unroll
+      for (int j = 0; j < L::SUBS; ++j) {
+        tma_store(&tm_dk, k_addr + j * L::KSUB, 64 * j, kvh, first, b);
+        tma_store(&tm_dv, v_addr + j * L::KSUB, 64 * j, kvh, first, b);
+      }
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    }
+  }
+}
+
+template <int D>
+int launch(const Args& a, int B, int parts, cudaStream_t stream) {
+  int err;
+  const Params base{a.lse, a.delta, a.H, a.G, a.Tq, a.Tk, a.Tp, 0, a.scale, a.scale * LOG2E, a.causal};
+  if (parts & 1) {
+    using L = DqSmem<D>;
+    CUtensorMap tq, tdo, tk, tv, tdq;
+    if ((err = encode_map(&tq, a.q, D, a.H, a.Tq, B, a.qsh, a.qst, a.qsb, L::BQ))) return err;
+    if ((err = encode_map(&tdo, a.dout, D, a.H, a.Tq, B, a.dsh, a.dst, a.dsb, L::BQ))) return err;
+    if ((err = encode_map(&tk, a.k, D, a.KV, a.Tk, B, a.ksh, a.kst, a.ksb, L::BN))) return err;
+    if ((err = encode_map(&tv, a.v, D, a.KV, a.Tk, B, a.vsh, a.vst, a.vsb, L::BN))) return err;
+    // dq is contiguous [B, Tq, H, D]; each consumer stores its 64 rows
+    if ((err = encode_map(&tdq, a.dq, D, a.H, a.Tq, B, D, (long long)a.H * D, (long long)a.Tq * a.H * D, 64)))
+      return err;
+    Params p = base;
+    p.n_tiles = (a.Tq + L::BQ - 1) / L::BQ;
+    auto kernel = flash_bwd_dq_wgmma_kernel<D>;
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<dim3(a.H, B, p.n_tiles), WG_THREADS, L::bytes, stream>>>(tq, tdo, tk, tv, tdq, p);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
+  if (parts & 2) {
+    using L = DkvSmem<D>;
+    CUtensorMap tq, tdo, tk, tv, tdk, tdv;
+    if ((err = encode_map(&tq, a.q, D, a.H, a.Tq, B, a.qsh, a.qst, a.qsb, L::BQ))) return err;
+    if ((err = encode_map(&tdo, a.dout, D, a.H, a.Tq, B, a.dsh, a.dst, a.dsb, L::BQ))) return err;
+    if ((err = encode_map(&tk, a.k, D, a.KV, a.Tk, B, a.ksh, a.kst, a.ksb, L::BK))) return err;
+    if ((err = encode_map(&tv, a.v, D, a.KV, a.Tk, B, a.vsh, a.vst, a.vsb, L::BK))) return err;
+    // dk and dv are contiguous [B, Tk, KV, D]
+    const long long st = (long long)a.KV * D, sb = (long long)a.Tk * a.KV * D;
+    if ((err = encode_map(&tdk, a.dk, D, a.KV, a.Tk, B, D, st, sb, 64))) return err;
+    if ((err = encode_map(&tdv, a.dv, D, a.KV, a.Tk, B, D, st, sb, 64))) return err;
+    Params p = base;
+    p.n_tiles = (a.Tk + L::BK - 1) / L::BK;
+    auto kernel = flash_bwd_dkv_wgmma_kernel<D>;
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<dim3(a.KV, B, p.n_tiles), WG_THREADS, L::bytes, stream>>>(tq, tdo, tk, tv, tdk, tdv, p);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
+  return 0;
+}
+
+}  // namespace wg
+
+int flash_bwd(const void* q, const void* k, const void* v, const void* dout, const void* lse_r,
+              const void* delta_r, void* dq, void* dk, void* dv, int is_bf16, int B, int H, int KV,
+              int Tq, int Tk, int Tp, int D, long long qsb, long long qst, long long qsh, long long ksb,
+              long long kst, long long ksh, long long vsb, long long vst, long long vsh, long long dsb,
+              long long dst, long long dsh, float scale, int causal, int parts, void* stream,
+              bool wgmma) {
   if (B <= 0 || Tq <= 0 || Tk <= 0) return 0;
   Args a{q, k, v, dout,
-         static_cast<const float*>(lse), static_cast<const float*>(delta),
-         static_cast<const float*>(glse), dq, dk, dv,
-         H, H / KV, KV, Tq, Tk,
+         static_cast<const float*>(lse_r), static_cast<const float*>(delta_r), dq, dk, dv,
+         H, H / KV, KV, Tq, Tk, Tp,
          qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, dsb, dst, dsh, scale, causal};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16 && wgmma && D == 64) return wg::launch<64>(a, B, parts, s);
+  if (is_bf16 && wgmma && D == 128) return wg::launch<128>(a, B, parts, s);
   switch (D) {
     case 16: return launch<16>(a, B, is_bf16, parts, s);
     case 32: return launch<32>(a, B, is_bf16, parts, s);
@@ -668,4 +1252,61 @@ extern "C" int dml_flash_bwd(const void* q, const void* k, const void* v, const 
     case 128: return launch<128>(a, B, is_bf16, parts, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// The row arrays of one backward: lse_r and delta_r [B, H, Tp] f32 (Tp a
+// multiple of 128, at least Tq) from out and dO [B, Tq, H, D] (strided;
+// 16-byte aligned rows), lse and the optional g_lse [B, H, Tq].
+extern "C" int dml_flash_bwd_rows(const void* out, const void* dout, const void* lse, const void* glse,
+                                  void* lse_r, void* delta_r, int is_bf16, int B, int H, int Tq, int Tp,
+                                  int D, long long osb, long long ost, long long osh,
+                                  long long dsb, long long dst, long long dsh, void* stream) {
+  if (B <= 0 || Tq <= 0) return 0;
+  const int lanes = D / (is_bf16 ? 8 : 4);  // 2..32
+  if (Tp % 128 != 0 || Tp < Tq || lanes < 2 || lanes > 32 || (lanes & (lanes - 1)))
+    return (int)cudaErrorInvalidValue;
+  RowArgs r{out, dout, static_cast<const float*>(lse), static_cast<const float*>(glse),
+            static_cast<float*>(lse_r), static_cast<float*>(delta_r), H, Tq, Tp, __builtin_ctz(lanes),
+            osb, ost, osh, dsb, dst, dsh};
+  const dim3 grid(Tp * lanes / 256, H, B);  // Tp * lanes: a multiple of 256
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    flash_bwd_delta_kernel<1><<<grid, 256, 0, s>>>(r);
+  } else {
+    flash_bwd_delta_kernel<0><<<grid, 256, 0, s>>>(r);
+  }
+  return (int)cudaGetLastError();
+}
+
+// dq, dk and dv given the row arrays, on the kernel for (dtype, D): wgmma
+// + TMA for bf16 at D 64 and 128, mma.sync for bf16 at D 16 and 32, FMAs
+// for float32. parts: 1 = the dq kernel, 2 = the dkv kernel, 3 = both.
+extern "C" int dml_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
+                             const void* lse_r, const void* delta_r,
+                             void* dq, void* dk, void* dv,
+                             int is_bf16, int B, int H, int KV, int Tq, int Tk, int Tp, int D,
+                             long long qsb, long long qst, long long qsh,
+                             long long ksb, long long kst, long long ksh,
+                             long long vsb, long long vst, long long vsh,
+                             long long dsb, long long dst, long long dsh,
+                             float scale, int causal, int parts, void* stream) {
+  return flash_bwd(q, k, v, dout, lse_r, delta_r, dq, dk, dv, is_bf16, B, H, KV, Tq, Tk, Tp, D, qsb, qst,
+                   qsh, ksb, kst, ksh, vsb, vst, vsh, dsb, dst, dsh, scale, causal, parts, stream, true);
+}
+
+// The same call on the mma.sync kernels at every bf16 D (float32 as
+// above), so one card can time the two routes side by side.
+extern "C" int dml_flash_bwd_mma(const void* q, const void* k, const void* v, const void* dout,
+                                 const void* lse_r, const void* delta_r,
+                                 void* dq, void* dk, void* dv,
+                                 int is_bf16, int B, int H, int KV, int Tq, int Tk, int Tp, int D,
+                                 long long qsb, long long qst, long long qsh,
+                                 long long ksb, long long kst, long long ksh,
+                                 long long vsb, long long vst, long long vsh,
+                                 long long dsb, long long dst, long long dsh,
+                                 float scale, int causal, int parts, void* stream) {
+  return flash_bwd(q, k, v, dout, lse_r, delta_r, dq, dk, dv, is_bf16, B, H, KV, Tq, Tk, Tp, D, qsb, qst,
+                   qsh, ksb, kst, ksh, vsb, vst, vsh, dsb, dst, dsh, scale, causal, parts, stream, false);
 }

@@ -2,14 +2,16 @@
 
 Each library is compiled at first use from `dml_tpu_torch/csrc/` into
 `dml_tpu_torch/_build/` (listed in .gitignore), under a file name keyed
-by a hash of its sources and flags, so an edited source rebuilds and an
-unchanged one loads the existing build. Nothing here runs at import
-time; a build or load failure raises and is never papered over.
+by a hash of its sources, the headers under csrc/ and the flags, so an
+edited source or header rebuilds and an unchanged one loads the existing
+build. Nothing here runs at import time; a build or load failure raises
+and is never papered over.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -42,8 +44,11 @@ def _find_nvcc() -> str:
 
 
 def _digest(paths: Sequence[str]) -> str:
+    """Hash of the flags, the sources `paths` and every header (*.cuh)
+    under CSRC_DIR: a source may include any of them."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in paths:
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+    for p in [*paths, *headers]:
         with open(p, "rb") as f:
             h.update(os.path.basename(p).encode() + b"\0" + f.read())
     return h.hexdigest()[:16]

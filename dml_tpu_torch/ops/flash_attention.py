@@ -7,16 +7,17 @@ _fwd_kernel` (K2) and the backward pair `_bwd_dq_kernel` and
 `dml_tpu_torch/csrc/flash_attention.cu` and `csrc/flash_attention_bwd.cu`,
 built with nvcc for sm_90a at first use and called through ctypes.
 
-The forward's route follows from the dtype and the head dim alone
-(`kernel_route`): bf16 at D 64 and 128, every main-path shape, runs the
-warp-specialized kernel (a TMA producer streaming K and V tiles through a
-shared-memory ring, two or three consumer warpgroups on `wgmma`, P kept
-in registers); bf16 at D 16 and 32 runs the `mma.sync` kernel; float32
-runs plain FMAs. The backward (the TPU's two-kernel split: dq over k-tiles,
-dk and dv over q-tiles, no atomics) is bf16 `mma.sync` and f32 FMAs. The
-source files say what bounds each kernel and how it is laid out. The
-kernels pick their own tiles, so the TPU knobs `block_q`, `block_k` and
-`interpret` are not part of these signatures.
+Routes follow from the dtype and the head dim alone (`kernel_route` for
+the forward, `bwd_kernel_route` for the backward): bf16 at D 64 and 128,
+every main-path shape, runs warp-specialized kernels (a TMA producer
+streaming tiles through a shared-memory ring, consumer warpgroups on
+`wgmma`, P and dS kept in registers); bf16 at D 16 and 32 runs `mma.sync`
+kernels; float32 runs plain FMAs. The backward keeps the TPU's two-kernel
+split (dq over k-tiles, dk and dv over q-tiles, no atomics), after a
+small kernel that computes delta = rowsum(dO * O) and pads the row
+arrays the two read. The source files say what bounds each kernel and
+how it is laid out. The kernels pick their own tiles, so the TPU knobs
+`block_q`, `block_k` and `interpret` are not part of these signatures.
 
 `flash_attention` and `flash_attention_lse` are the forward kernel's
 wrappers. On a CUDA tensor they launch the kernel (and count the launch
@@ -25,8 +26,9 @@ version, `attention_with_lse`: full-matrix attention in float32 that
 rounds the probabilities to V's dtype before P V, as the kernel does.
 When grad is enabled and an input requires it, both go through one
 `torch.autograd.Function` (the custom VJPs `_flash` and `_flash_lse`),
-whose backward is `flash_attention_backward`: K3 on a CUDA tensor
-(counted in `flash_bwd_launches`, one per backward), the plain
+whose backward is `flash_attention_backward`: K3 on a CUDA tensor (the
+delta kernel, counted in `flash_bwd_delta_launches`, then the dq and dkv
+kernels, counted once in `flash_bwd_launches`), the plain
 `attention_backward` on a CPU tensor. An lse output that gets no
 gradient passes nothing to the backward, as the JAX code leaves its
 g_lse stream out of the kernels. `reference_attention` is this module's
@@ -55,10 +57,13 @@ _DTYPES = (torch.bfloat16, torch.float32)
 
 #: kernel launches since the last reset (plain ints; a test or
 #: chip_smoke.py zeroes them, drives a path, and reads them back):
-#: forward launches, and backward launches (the dq and dkv kernels of
-#: one backward count once)
+#: forward launches, backward launches (the dq and dkv kernels of one
+#: backward count once) and the backward's delta-kernel launches
 flash_launches = 0
 flash_bwd_launches = 0
+flash_bwd_delta_launches = 0
+#: the backward's row arrays (lse, delta) are padded to a multiple of this
+ROW_PAD = 128
 _count_lock = threading.Lock()
 
 
@@ -89,17 +94,29 @@ def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
     return "wgmma+tma" if head_dim in (64, 128) else "mma.sync"
 
 
+def bwd_kernel_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The backward kernels that `dml_flash_bwd` launches for (dtype, D),
+    as the C entry point picks them: "wgmma+tma" for bf16 at D 64 and
+    128, "mma.sync" for bf16 at D 16 and 32, "fma" for float32."""
+    return kernel_route(dtype, head_dim)
+
+
 def _bwd_library() -> ctypes.CDLL:
     """Build (at first use) and load the backward kernels' library."""
     from ._build import load_library
 
     lib = load_library("dml_flash_attention_bwd", ["flash_attention_bwd.cu"])
-    fn = lib.dml_flash_bwd
+    for fn in (lib.dml_flash_bwd, lib.dml_flash_bwd_mma):
+        fn.argtypes = (
+            [ctypes.c_void_p] * 9
+            + [ctypes.c_int] * 8
+            + [ctypes.c_longlong] * 12
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+    fn = lib.dml_flash_bwd_rows
     fn.argtypes = (
-        [ctypes.c_void_p] * 10
-        + [ctypes.c_int] * 7
-        + [ctypes.c_longlong] * 12
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 6 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return lib
@@ -164,6 +181,28 @@ def _delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     """delta = rowsum(dO * O) in float32, [B, Tq, H, D] -> [B, H, Tq]
     (the JAX package computes it outside its kernels too)."""
     return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _rows_len(tq: int) -> int:
+    return -(-tq // ROW_PAD) * ROW_PAD
+
+
+def bwd_rows_plain(
+    out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor, dlse: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The delta kernel's plain version: the row arrays the backward
+    kernels read, (lse, delta - dlse) [B, H, Tp] in float32 with Tp = Tq
+    rounded up to ROW_PAD; rows past Tq hold lse = +1e30 and delta = 0
+    (the TPU pads lse the same way), so a padded query row gets P = 0."""
+    b, tq, h, _ = out.shape
+    delta = _delta(out, dout)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    lse_r = torch.full((b, h, _rows_len(tq)), -NEG_INF, dtype=torch.float32, device=out.device)
+    delta_r = torch.zeros((b, h, _rows_len(tq)), dtype=torch.float32, device=out.device)
+    lse_r[..., :tq] = lse
+    delta_r[..., :tq] = delta
+    return lse_r, delta_r
 
 
 def attention_backward(
@@ -259,33 +298,68 @@ def _flash_cuda(q, k, v, causal, scale, mma_sync=False):
     return out, lse
 
 
-def _flash_bwd_cuda(q, k, v, dout, lse, delta, dlse, causal, scale, parts=3):
-    """Launch K3: the dq kernel (parts & 1) and the dkv kernel (parts &
-    2) on the current stream; returns (dq, dk, dv), a part not launched
-    left unwritten. Counts one backward launch."""
+def _bwd_rows_cuda(out, dout, lse, dlse):
+    """Launch the delta kernel on the current stream: the row arrays
+    (lse_r, delta_r) of `bwd_rows_plain`. Counts one launch."""
+    global flash_bwd_delta_launches
+    b, tq, h, d = out.shape
+    if dout.shape != out.shape or dout.dtype != out.dtype or dout.device != out.device:
+        raise ValueError(f"dout {dout.dtype} {tuple(dout.shape)} does not fit out {out.dtype} {tuple(out.shape)}")
+    rows = [lse] + ([] if dlse is None else [dlse])
+    if any(r.shape != (b, h, tq) or r.dtype != torch.float32 or r.device != out.device for r in rows):
+        raise ValueError(f"lse/dlse must be float32 [B, H, Tq] = {(b, h, tq)} on {out.device}")
+    out, dout = _kernel_view(out), _kernel_view(dout)
+    lse = lse.contiguous()
+    dlse = None if dlse is None else dlse.contiguous()
+    tp = _rows_len(tq)
+    lse_r = torch.empty((b, h, tp), dtype=torch.float32, device=out.device)
+    delta_r = torch.empty((b, h, tp), dtype=torch.float32, device=out.device)
+    lib = _bwd_library()
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        err = lib.dml_flash_bwd_rows(
+            out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            None if dlse is None else dlse.data_ptr(), lse_r.data_ptr(), delta_r.data_ptr(),
+            int(out.dtype == torch.bfloat16), b, h, tq, tp, d,
+            out.stride(0), out.stride(1), out.stride(2),
+            dout.stride(0), dout.stride(1), dout.stride(2), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash attention backward delta kernel launch failed: cudaError {err}")
+    with _count_lock:
+        flash_bwd_delta_launches += 1
+    return lse_r, delta_r
+
+
+def _flash_bwd_cuda(q, k, v, dout, lse_r, delta_r, causal, scale, parts=3, mma_sync=False):
+    """Launch K3's dq kernel (parts & 1) and dkv kernel (parts & 2) on
+    the current stream, given the row arrays of `_bwd_rows_cuda`; returns
+    (dq, dk, dv), a part not launched left unwritten. `mma_sync` runs the
+    mma.sync kernels whatever D is (to time them beside the wgmma route);
+    the wrappers never pass it. Counts one backward launch."""
     global flash_bwd_launches
     _check_cuda(q, k, v)
     b, tq, h, d = q.shape
     tk, kv = k.shape[1], k.shape[2]
     if dout.shape != q.shape or dout.dtype != q.dtype or dout.device != q.device:
         raise ValueError(f"dout {dout.dtype} {tuple(dout.shape)} does not fit q {q.dtype} {tuple(q.shape)}")
-    rows = [lse, delta] + ([] if dlse is None else [dlse])
-    if any(r.shape != (b, h, tq) or r.dtype != torch.float32 or r.device != q.device for r in rows):
-        raise ValueError(f"lse/delta/dlse must be float32 [B, H, Tq] = {(b, h, tq)} on {q.device}")
+    tp = _rows_len(tq)
+    if any(r.shape != (b, h, tp) or r.dtype != torch.float32 or r.device != q.device
+           or not r.is_contiguous() for r in (lse_r, delta_r)):
+        raise ValueError(f"lse_r/delta_r must be contiguous float32 [B, H, Tp] = {(b, h, tp)} on {q.device}")
     q, k, v, dout = (_kernel_view(x) for x in (q, k, v, dout))
-    lse, delta = lse.contiguous(), delta.contiguous()
-    dlse = None if dlse is None else dlse.contiguous()
     dq = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, tk, kv, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, tk, kv, d), dtype=v.dtype, device=q.device)
     lib = _bwd_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.dml_flash_bwd(
+        fn = lib.dml_flash_bwd_mma if mma_sync else lib.dml_flash_bwd
+        err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), None if dlse is None else dlse.data_ptr(),
+            lse_r.data_ptr(), delta_r.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            int(q.dtype == torch.bfloat16), b, h, kv, tq, tk, d,
+            int(q.dtype == torch.bfloat16), b, h, kv, tq, tk, tp, d,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
@@ -293,7 +367,8 @@ def _flash_bwd_cuda(q, k, v, dout, lse, delta, dlse, causal, scale, parts=3):
             float(scale), int(causal), int(parts), stream,
         )
     if err != 0:
-        raise RuntimeError(f"flash attention backward kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"flash attention backward kernel launch failed: error {err} "
+                           "(a cudaError, or 10000 + the CUresult of a tensor map)")
     with _count_lock:
         flash_bwd_launches += 1
     return dq, dk, dv
@@ -307,15 +382,16 @@ def flash_attention_backward(
     """The backward kernels' wrapper: (dq, dk, dv) of attention given
     the forward's (out, lse), the out cotangent `dout` and, for the lse
     variant, the lse cotangent `dlse` (None when lse gets no gradient).
-    K3 on a CUDA tensor (delta = rowsum(dO * O) as a torch expression,
-    then the dq and dkv kernels), the plain version on a CPU tensor."""
+    K3 on a CUDA tensor (the delta kernel, then the dq and dkv kernels),
+    the plain version on a CPU tensor."""
     _check(q, k, v, causal)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if q.device.type == "cpu":
         return attention_backward(q, k, v, out, lse, dout, dlse, causal=causal, scale=scale)
     if q.device.type != "cuda":
         raise RuntimeError(f"no flash attention kernel for device {q.device}")
-    return _flash_bwd_cuda(q, k, v, dout, lse, _delta(out, dout), dlse, causal, scale)
+    lse_r, delta_r = _bwd_rows_cuda(out, dout, lse, dlse)
+    return _flash_bwd_cuda(q, k, v, dout, lse_r, delta_r, causal, scale)
 
 
 def _forward(q, k, v, causal, scale):

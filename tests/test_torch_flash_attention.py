@@ -161,21 +161,55 @@ def test_gqa4_strided_v_matches_jax():
     np.testing.assert_allclose(lse.numpy(), np.asarray(j_lse), atol=1e-4)
 
 
-@pytest.mark.parametrize("dtype,d,route", [
+ROUTES = [
     (torch.bfloat16, 16, "mma.sync"), (torch.bfloat16, 32, "mma.sync"),
     (torch.bfloat16, 64, "wgmma+tma"), (torch.bfloat16, 128, "wgmma+tma"),
     (torch.float32, 16, "fma"), (torch.float32, 32, "fma"),
     (torch.float32, 64, "fma"), (torch.float32, 128, "fma"),
-])
+]
+
+
+@pytest.mark.parametrize("dtype,d,route", ROUTES)
 def test_kernel_route_by_dtype_and_head_dim(dtype, d, route):
     assert fa.kernel_route(dtype, d) == route
 
 
+@pytest.mark.parametrize("dtype,d,route", ROUTES)
+def test_bwd_kernel_route_by_dtype_and_head_dim(dtype, d, route):
+    assert fa.bwd_kernel_route(dtype, d) == route
+
+
 def test_kernel_route_refuses_what_no_kernel_takes():
-    with pytest.raises(ValueError, match="no flash attention kernel"):
-        fa.kernel_route(torch.bfloat16, 96)
-    with pytest.raises(ValueError, match="no flash attention kernel"):
-        fa.kernel_route(torch.float16, 64)
+    for route in (fa.kernel_route, fa.bwd_kernel_route):
+        with pytest.raises(ValueError, match="no flash attention kernel"):
+            route(torch.bfloat16, 96)
+        with pytest.raises(ValueError, match="no flash attention kernel"):
+            route(torch.float16, 64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_delta_and_backward_rows_match_the_jax_expression(dtype):
+    # delta = rowsum(dO * O), as dml_tpu/ops/flash_attention.py computes it
+    # beside its backward kernels (on [B, H, T, D]); the row arrays the
+    # Hopper kernels read: lse and delta - dlse, padded to 128 rows with
+    # lse = +1e30 and delta = 0 (the JAX code pads lse with +1e30 too)
+    rng = np.random.RandomState(21)
+    b, t, h, d = 2, 129, 4, 64
+    out, dout = (rng.standard_normal((b, t, h, d)).astype(np.float32) for _ in range(2))
+    lse, dlse = (rng.standard_normal((b, h, t)).astype(np.float32) for _ in range(2))
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    jo, jg = (jnp.transpose(jnp.asarray(x, jdt), (0, 2, 1, 3)) for x in (out, dout))
+    j_delta = np.asarray(jnp.sum(jg.astype(jnp.float32) * jo.astype(jnp.float32), axis=-1))
+    to = lambda x: torch.from_numpy(x).to(dtype)  # noqa: E731
+    delta = fa._delta(to(out), to(dout))
+    assert delta.dtype == torch.float32 and delta.shape == (b, h, t)
+    np.testing.assert_allclose(delta.numpy(), j_delta, atol=1e-5, rtol=1e-5)
+    lse_r, delta_r = fa.bwd_rows_plain(to(out), to(dout), torch.from_numpy(lse), torch.from_numpy(dlse))
+    assert lse_r.shape == delta_r.shape == (b, h, 256) and lse_r.dtype == delta_r.dtype == torch.float32
+    np.testing.assert_array_equal(lse_r[..., :t].numpy(), lse)
+    assert bool((lse_r[..., t:] == 1e30).all()) and bool((delta_r[..., t:] == 0).all())
+    np.testing.assert_allclose(delta_r[..., :t].numpy(), j_delta - dlse, atol=1e-5, rtol=1e-5)
+    assert torch.equal(fa.bwd_rows_plain(to(out), to(dout), torch.from_numpy(lse))[1][..., :t], delta)
 
 
 def _misaligned_base():

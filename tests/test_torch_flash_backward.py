@@ -47,15 +47,15 @@ def _qkv(b, tq, tk, h, d, seed, kv=None):
     return q, k, v
 
 
-def _jax_grads(q, k, v, causal, dtype, with_lse):
+def _jax_grads(q, k, v, causal, dtype, with_lse, block=BLOCK):
     jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
 
     def loss(q, k, v):
         if with_lse:
-            o, lse = jax_flash_lse(q, k, v, causal=causal, block_q=BLOCK, block_k=BLOCK,
+            o, lse = jax_flash_lse(q, k, v, causal=causal, block_q=block, block_k=block,
                                    interpret=True)
             return jnp.sum(jnp.sin(o.astype(jnp.float32))) + jnp.sum(jnp.cos(lse))
-        o = jax_flash(q, k, v, causal=causal, block_q=BLOCK, block_k=BLOCK, interpret=True)
+        o = jax_flash(q, k, v, causal=causal, block_q=block, block_k=block, interpret=True)
         return jnp.sum(jnp.sin(o.astype(jnp.float32)))
 
     grads = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(x, jdt) for x in (q, k, v)))
@@ -100,6 +100,35 @@ def test_backward_matches_jax_kernels(b, tq, tk, h, d, causal, with_lse, dtype):
         else:
             np.testing.assert_allclose(g, ref, atol=BF16_REL * np.abs(ref).max(), rtol=0,
                                        err_msg=f"d{name}")
+
+
+# The Hopper kernels' tile edges: dq's q-tiles and dkv's k-tiles are 128
+# rows, dkv's q-tiles 64, and the row arrays (lse, delta) are padded to
+# 128. The plain backward is what the kernels are held to on the card;
+# here it is held to JAX's kernels (interpret mode, 64-row blocks) below,
+# at and past those edges, with and without the lse cotangent, at the JAX
+# package's float32 gradient bar. JAX gets k/v repeated to H heads; its
+# gradients summed over each group are the grouped k/v's.
+EDGE_CASES = [
+    pytest.param(1, t, t, 2, 2, True, id=f"causal-T{t}") for t in (127, 128, 129, 193)
+] + [
+    pytest.param(1, 64, 200, 2, 2, False, id="cross-Tq64-Tk200"),
+    pytest.param(1, 129, 129, 4, 1, True, id="causal-T129-GQA4"),
+]
+
+
+@pytest.mark.parametrize("b,tq,tk,h,kv,causal", EDGE_CASES)
+def test_plain_backward_matches_jax_at_kernel_tile_edges(b, tq, tk, h, kv, causal):
+    d, g = 64, h // kv
+    q, k, v = _qkv(b, tq, tk, h, d, seed=tq + tk + kv, kv=kv)
+    for with_lse in (False, True):
+        jq, jk, jv = _jax_grads(q, np.repeat(k, g, axis=2), np.repeat(v, g, axis=2), causal,
+                                torch.float32, with_lse, block=64)
+        jk, jv = (x.reshape(b, tk, kv, g, d).sum(3) for x in (jk, jv))
+        got = _torch_grads(q, k, v, causal, torch.float32, with_lse)
+        for t, ref, name in zip(got, (jq, jk, jv), "qkv"):
+            np.testing.assert_allclose(t.grad.numpy(), ref, atol=5e-5, rtol=5e-4,
+                                       err_msg=f"d{name}, lse cotangent {with_lse}")
 
 
 def test_grouped_kv_gradients_equal_the_repeated_form():
