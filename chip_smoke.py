@@ -9,10 +9,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
    limit;
 2. build: nvcc builds the four kernel libraries (normalize, flash
    attention forward and backward, decode attention) from
-   dml_tpu_torch/csrc/, all started together, with seconds for each;
-   beside them ptxas reports the flash forward's and backward's kernels
-   (registers, spills; one `ptxas` line per source, with the wgmma
-   kernels' setmaxnreg counts); a spill in a wgmma kernel fails;
+   dml_tpu_torch/csrc/, and g++ the native JPEG loader
+   (dml_tpu_torch/native/), all started together, with seconds for each;
+   beside them ptxas reports the flash forward's, backward's and decode's
+   kernels (registers, spills; one `ptxas` line per source, with the
+   wgmma kernels' setmaxnreg counts); a spill in a wgmma kernel or in
+   any decode kernel fails;
 3. kernel: the normalize kernel against its plain PyTorch version on the
    card, in every mode (caffe, tf, unit), output dtype (bf16, f32) and
    shape ([32,224,224,3], [32,299,299,3], ragged [3,7,5,3]); float32
@@ -23,8 +25,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
 4. ResNet50 and 5. InceptionV3, bf16 at batch 32, served through the
    port's InferenceEngine on cuda with seeded weights: infer_arrays on
    40 images (2 padded chunks), infer_arrays_nowait on the same,
-   infer_files on 8 PNGs. The kernel's launch count over that run must
-   equal the number of forward chunks. Probabilities must be finite and
+   infer_files on 8 PNGs and on the same 8 as JPEGs. The kernel's launch
+   count over that run must equal the number of forward chunks. A
+   `loader` line says whether the JPEG batch went through the native
+   loader or PIL, with the build error if any. Probabilities must be finite and
    sum to 1; top-1 must match the same module fed by the plain
    normalize, and, on 4 images, the port's float32 CPU engine (both the
    bf16 engine and a float32 CUDA engine with TF32 off). Per-batch
@@ -46,12 +50,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
    version are timed in turns (new, mma.sync, SDPA, plain, SDPA,
    mma.sync, new) beside the tensor-core operation bound, with TFLOP/s
    and share of the bound;
-7. decode_check: the decode attention kernel against its plain version
-   within 2e-5 for bf16, f32 and int8 caches; GQA-4, MQA and MHA; B=1
-   and B=8 at T=4096 with mixed per-slot positions, and the LM's own
-   decode shape; rows past each slot's position poisoned with +-1e4
-   must not change the output. Kernel, plain and SDPA (bf16) times
-   beside the byte bound of the valid cache rows;
+7. decode_check: the one-launch decode kernel and the first version
+   (split kernel + merge kernel, `split_pair=True`) against the plain
+   version within 2e-5 for bf16, f32 and int8 caches; GQA-4, MQA and
+   MHA; B=1 and B=8 at T=4096 with mixed per-slot positions, the LM's
+   own decode shape, D 16 int8, D 32 bf16, D 128 bf16 and f32, pos 0,
+   T=1001, B=64 with short positions; each case run twice, bit-equal,
+   with a call at another (B, KV) between the two; rows past each slot's
+   position poisoned with +-1e4 must not change the output. A profiler
+   line shows one device kernel per call. At lm_b8, gqa4_b8, gqa4_b1,
+   mqa_b8, mha_b1 and int8_gqa4_b8 the new kernel, the first version,
+   SDPA (bf16) and the plain version are timed in turns (new, first,
+   SDPA, plain, SDPA, first, new) beside the byte bound of the valid
+   cache rows (lm_b8 also under an L2 flushed by reads);
 8. lm: the 198M-parameter GQA-4 LM (bench.py's _bench_lm config, 12
    layers, d_model 1024, seeded weights) served by the port's generate
    on cuda in bf16: B=8 prompts of 2048 tokens, 64 new tokens. The
@@ -62,8 +73,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    parity: the CUDA run (TF32 off) and the port's CPU run give the same
    greedy tokens on 2 prompts of 32 tokens. Prefill ms, time to first
    token and decode ms per step (and tokens/s) at B=1 and B=8, peak
-   device memory, and a torch.profiler breakdown of one prefill and one
-   decode step;
+   device memory, a torch.profiler breakdown of one prefill and one
+   decode step, and the decode kernel's time in that step beside 12 x
+   its time alone on one layer's cache (`decode_in_step`);
 9. flash_bwd_check: the flash backward (the delta kernel, then the dq
    and dkv kernels) against the plain `attention_backward` on the card,
    each case naming its route (`bwd_kernel_route`) and run with and
@@ -189,14 +201,20 @@ class Timer:
 
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
-    def ms(self, fn, iters=30, warmup=3):
+    def ms(self, fn, iters=30, warmup=3, clean=False):
+        """Median ms of `fn`. clean=True flushes by reading the 256 MB
+        instead of writing it, so the L2 holds no dirty lines that the
+        timed call must write back as it evicts them."""
         import torch
 
         for _ in range(warmup):
             fn()
         pairs = []
         for _ in range(iters):
-            self.flush.zero_()
+            if clean:
+                self.flush.max()
+            else:
+                self.flush.zero_()
             torch.cuda._sleep(self.HOLD_CYCLES)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
@@ -274,13 +292,14 @@ def seeded_weights(spec, seed):
     return sd
 
 
-def write_pngs(dirname, imgs):
+def write_images(dirname, imgs, fmt):
+    """PNG or JPEG (quality 90) files of `imgs`."""
     from PIL import Image
 
     files = []
     for i, im in enumerate(imgs):
-        p = os.path.join(dirname, f"img{i}.png")
-        Image.fromarray(im).save(p)
+        p = os.path.join(dirname, f"img{i}.{fmt}")
+        Image.fromarray(im).save(p, **({"quality": 90} if fmt == "jpeg" else {}))
         files.append(p)
     return files
 
@@ -288,8 +307,10 @@ def write_pngs(dirname, imgs):
 def phase_model(name, mode, timer):
     import torch
     from dml_tpu_torch.inference import InferenceEngine
+    from dml_tpu_torch.models import preprocess
     from dml_tpu_torch.models.preprocess import normalize_on_device
     from dml_tpu_torch.models.registry import get_model
+    from dml_tpu_torch.native import loader as native_loader
 
     spec = get_model(name)
     h, w = spec.input_size
@@ -306,16 +327,26 @@ def phase_model(name, mode, timer):
     load_s = time.monotonic() - t0
 
     with tempfile.TemporaryDirectory() as tmp:
-        files = write_pngs(tmp, imgs[:N_FILES])
+        files = write_images(tmp, imgs[:N_FILES], "png")
+        jpegs = write_images(tmp, imgs[:N_FILES], "jpeg")
         # ---- the main path, counted ----
         reset_launch_counts()
+        decoded = preprocess.decoded_batches
+        decoded.update(native=0, pil=0)
         probs = eng.infer_arrays(name, imgs)
         probs_nw = eng.infer_arrays_nowait(name, imgs)()
         res = eng.infer_files(name, files)
+        res_jpeg = eng.infer_files(name, jpegs)
         torch.cuda.synchronize()
         counts = launch_counts()
+    # which decoder served the JPEG batch (the PNG batch is PIL's)
+    emit(phase="loader", model=name, jpeg_batch_decoder="native" if decoded["native"] else "pil",
+         decoded_batches=dict(decoded), native_available=native_loader.native_available(),
+         build_error=native_loader.build_error())
+    check(decoded["native"] + decoded["pil"] == 2, f"{name}: decoded batches {decoded}")
+    check(len(res_jpeg.top5) == N_FILES, f"{name}: infer_files on JPEGs malformed")
     launches = counts["normalize"]
-    chunks = 2 * -(-N_IMAGES // BATCH) + -(-N_FILES // BATCH)
+    chunks = 2 * -(-N_IMAGES // BATCH) + 2 * -(-N_FILES // BATCH)
     check(counts == {"normalize": chunks, "flash_attention": 0, "flash_bwd": 0,
                      "flash_bwd_delta": 0, "decode_attention": 0},
           f"{name}: launches {counts} for {chunks} chunks")
@@ -403,8 +434,9 @@ IMAGE_KINDS = (
     ("CatArray", "concat"), ("gemm", "dense"), ("softmax", "softmax"),
     ("clamp", "relu"), ("CUDAFunctor_add", "add"), ("reduce", "mean"))
 LM_KINDS = (
-    ("flash_fwd_", "flash_attention"), ("decode_partial_kernel", "decode_attention"),
-    ("decode_merge_kernel", "decode_attention"), ("index_put", "cache_write"),
+    ("flash_fwd_", "flash_attention"), ("decode_kernel", "decode_attention"),
+    ("decode_split_kernel", "decode_attention"), ("decode_merge_kernel", "decode_attention"),
+    ("index_put", "cache_write"),
     ("gemm", "matmul"), ("gemv", "matmul"), ("nvjet", "matmul"), ("xmma", "matmul"),
     ("cutlass", "matmul"), ("Memcpy", "copy"), ("Memset", "copy"), ("reduce", "reduce"),
     ("index", "gather"), ("CatArray", "concat"), ("elementwise", "elementwise"))
@@ -456,18 +488,20 @@ def build_all():
     each; seconds per library."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from dml_tpu_torch.native import loader
     from dml_tpu_torch.ops import _build, decode_attention, flash_attention, preprocess
 
     libs = {"normalize": preprocess._library, "flash_attention": flash_attention._library,
             "flash_attention_bwd": flash_attention._bwd_library,
-            "decode_attention": decode_attention._library}
+            "decode_attention": decode_attention._library,
+            "jpeg_loader": loader.get_loader}  # g++, host code; None if it cannot build
 
     def timed(fn):
         t0 = time.monotonic()
         fn()
         return time.monotonic() - t0
 
-    sources = ("flash_attention.cu", "flash_attention_bwd.cu")
+    sources = ("flash_attention.cu", "flash_attention_bwd.cu", "decode_attention.cu")
     t0 = time.monotonic()
     with ThreadPoolExecutor(len(libs) + len(sources)) as ex:
         reports = {src: ex.submit(_build.ptxas_report, [src]) for src in sources}
@@ -476,11 +510,14 @@ def build_all():
         ptxas = {src: ptxas_usage(r.result()) for src, r in reports.items()}
     emit(phase="build", seconds=seconds, wall_seconds=time.monotonic() - t0)
     for src in sources:
+        wgmma = src.startswith("flash")
         emit(phase="ptxas", source=f"dml_tpu_torch/csrc/{src}", kernels=ptxas[src],
-             setmaxnreg=setmaxnreg_counts(src))
+             **({"setmaxnreg": setmaxnreg_counts(src)} if wgmma else {}))
+        check(ptxas[src], f"ptxas reported no kernel of {src}")
+        # the wgmma kernels of the flash sources, every kernel of the decode source
         spills = {k: u for k, u in ptxas[src].items()
-                  if "wgmma" in k and (u.get("spill_stores") or u.get("spill_loads"))}
-        check(not spills, f"wgmma kernels spill registers: {spills}")
+                  if ("wgmma" in k or not wgmma) and (u.get("spill_stores") or u.get("spill_loads"))}
+        check(not spills, f"{src}: kernels spill registers: {spills}")
 
 
 def ptxas_usage(report):
@@ -488,11 +525,23 @@ def ptxas_usage(report):
     from ptxas -v."""
     import re
 
+    types = {"f": "float", "a": "int8", "13__nv_bfloat16": "bf16"}
     usage, name = {}, None
     for line in report.splitlines():
         m = re.search(r"Function properties for \S*?(flash_(?:fwd|bwd)_\w+?_kernel)I((?:Li\d+E)+)E", line)
         if m:
             name = f"{m.group(1)}<{','.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
+            usage[name] = {}
+            continue
+        m = re.search(r"Function properties for \S*?(decode_(?:split_)?kernel)I(f|a|13__nv_bfloat16)"
+                      r"((?:Li\d+E)*)E", line)
+        if m:
+            args = [types[m.group(2)], *re.findall(r"Li(\d+)E", m.group(3))]
+            name = f"{m.group(1)}<{','.join(args)}>"
+            usage[name] = {}
+            continue
+        if re.search(r"Function properties for \S*?decode_merge_kernel", line):
+            name = "decode_merge_kernel"
             usage[name] = {}
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -649,46 +698,89 @@ def phase_flash(timer):
     return timings
 
 
+def _decode_inputs(g, b, kv, h, t, d, cdt, pos):
+    """q, k, v, k_scale, v_scale for a decode case (scales None unless int8)."""
+    import torch
+
+    if cdt == torch.int8:
+        k, v = (torch.randint(-127, 128, (b, kv, t, d), generator=g, device="cuda").to(cdt)
+                for _ in range(2))
+        ks, vs = (torch.rand((b, kv, 1, t), generator=g, device="cuda") * 0.02 for _ in range(2))
+        q = torch.randn((b, 1, h, d), generator=g, device="cuda")
+    else:
+        k, v = (torch.randn((b, kv, t, d), generator=g, device="cuda").to(cdt) for _ in range(2))
+        ks = vs = None
+        q = torch.randn((b, 1, h, d), generator=g, device="cuda").to(cdt)
+    return q, k, v, ks, vs
+
+
+def _decode_bytes(pos, kv, h, d, k, q, ks):
+    """Bytes a decode call must move (valid cache rows, their scales, q,
+    out, pos) and its operations (4 per cache element per query head)."""
+    rows = sum(min(p + 1, k.shape[2]) for p in pos)
+    nbytes = 2 * rows * kv * d * k.element_size() + (8 * rows * kv if ks is not None else 0) \
+        + q.numel() * q.element_size() + q.numel() * 4 + len(pos) * 4
+    return nbytes, 4 * rows * h * d
+
+
+DECODE_CASES = (  # name, b, kv, h, t, d, cache dtype, positions (None: mixed, one at the end)
+    ("lm_b8", 8, 4, 16, PROMPT_LEN + NEW_TOKENS, 64, "bfloat16", [PROMPT_LEN + NEW_TOKENS // 2] * 8),
+    ("gqa4_b8", 8, 4, 16, DECODE_CTX, 64, "bfloat16", None),
+    ("gqa4_b1", 1, 4, 16, DECODE_CTX, 64, "bfloat16", [3000]),
+    ("mqa_b8", 8, 1, 16, DECODE_CTX, 64, "bfloat16", None),
+    ("mha_b8", 8, 16, 16, DECODE_CTX, 64, "bfloat16", None),
+    ("mha_b1", 1, 16, 16, DECODE_CTX, 64, "bfloat16", [DECODE_CTX - 1]),
+    ("f32_gqa4_b8", 8, 4, 16, DECODE_CTX, 64, "float32", None),
+    ("f32_mqa_b1", 1, 1, 16, DECODE_CTX, 64, "float32", [1234]),
+    ("int8_gqa4_b8", 8, 4, 16, DECODE_CTX, 64, "int8", None),
+    ("int8_mha_b1", 1, 16, 16, DECODE_CTX, 64, "int8", [2047]),
+    ("int8_d16", 4, 2, 8, 1000, 16, "int8", None),
+    ("bf16_d32", 4, 2, 8, 1000, 32, "bfloat16", None),
+    ("bf16_d128_gqa4", 4, 4, 16, 2048, 128, "bfloat16", None),
+    ("f32_d128", 2, 2, 8, 1500, 128, "float32", None),
+    ("pos0", 4, 4, 16, 512, 64, "bfloat16", [0, 0, 0, 0]),
+    ("t_not_16", 3, 4, 16, 1001, 64, "bfloat16", [1000, 17, 500]),
+    ("b64_short", 64, 4, 16, DECODE_CTX, 64, "bfloat16", "short"),
+)
+DECODE_TIMED = ("lm_b8", "gqa4_b8", "gqa4_b1", "mqa_b8", "mha_b1", "int8_gqa4_b8")
+
+
 def phase_decode(timer):
-    """The decode kernel against its plain version, every cache form;
-    times at the LM's decode shape and at 4k context."""
+    """The decode kernel (one launch) and the first version (split +
+    merge) against the plain version, every cache form, each case twice
+    (bit-equal, with a call at another (B, KV) in between); poisoned
+    rows; one device kernel per call; the two versions, SDPA and the plain
+    version timed in turns at the LM's decode shapes."""
     import torch
     import torch.nn.functional as F
     from dml_tpu_torch.ops import decode_attention as da
 
     g = torch.Generator(device="cuda").manual_seed(2)
-    lm_t = PROMPT_LEN + NEW_TOKENS
-    cases = (  # name, b, kv, h, t, cache dtype, positions
-        ("lm_b8", 8, 4, 16, lm_t, torch.bfloat16, [PROMPT_LEN + NEW_TOKENS // 2] * 8),
-        ("gqa4_b8", 8, 4, 16, DECODE_CTX, torch.bfloat16, None),
-        ("gqa4_b1", 1, 4, 16, DECODE_CTX, torch.bfloat16, [3000]),
-        ("mqa_b8", 8, 1, 16, DECODE_CTX, torch.bfloat16, None),
-        ("mha_b8", 8, 16, 16, DECODE_CTX, torch.bfloat16, None),
-        ("mha_b1", 1, 16, 16, DECODE_CTX, torch.bfloat16, [DECODE_CTX - 1]),
-        ("f32_gqa4_b8", 8, 4, 16, DECODE_CTX, torch.float32, None),
-        ("f32_mqa_b1", 1, 1, 16, DECODE_CTX, torch.float32, [1234]),
-        ("int8_gqa4_b8", 8, 4, 16, DECODE_CTX, torch.int8, None),
-        ("int8_mha_b1", 1, 16, 16, DECODE_CTX, torch.int8, [2047]),
-    )
-    d = 64
+    other = _decode_inputs(g, 2, 3, 6, 300, 64, torch.bfloat16, None)  # the call in between
+    other_pos = torch.tensor([299, 100], dtype=torch.int32, device="cuda")
     timings = {}
-    for name, b, kv, h, t, cdt, pos in cases:
+    for name, b, kv, h, t, d, cname, pos in DECODE_CASES:
+        cdt = getattr(torch, cname)
         if pos is None:  # mixed per-slot positions, one slot at the end
             pos = torch.randint(0, t, (b,), generator=g, device="cuda").tolist()
             pos[0] = t - 1
+        elif pos == "short":  # most blocks lie past their slot's position
+            pos = torch.randint(0, 200, (b,), generator=g, device="cuda").tolist()
+            pos[0] = t - 1
         pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
-        if cdt == torch.int8:
-            k = torch.randint(-127, 128, (b, kv, t, d), generator=g, device="cuda").to(cdt)
-            v = torch.randint(-127, 128, (b, kv, t, d), generator=g, device="cuda").to(cdt)
-            ks = torch.rand((b, kv, 1, t), generator=g, device="cuda") * 0.02
-            vs = torch.rand((b, kv, 1, t), generator=g, device="cuda") * 0.02
-            q = torch.randn((b, 1, h, d), generator=g, device="cuda")
-        else:
-            k = torch.randn((b, kv, t, d), generator=g, device="cuda").to(cdt)
-            v = torch.randn((b, kv, t, d), generator=g, device="cuda").to(cdt)
-            ks = vs = None
-            q = torch.randn((b, 1, h, d), generator=g, device="cuda").to(cdt)
-        out = da.decode_attention(q, k, v, pos_t, k_scale=ks, v_scale=vs)
+        q, k, v, ks, vs = _decode_inputs(g, b, kv, h, t, d, cdt, pos)
+        scale = d ** -0.5
+
+        def new():
+            return da.decode_attention(q, k, v, pos_t, k_scale=ks, v_scale=vs)
+
+        def old():
+            return da._decode_cuda(q, k, v, pos_t, ks, vs, scale, split_pair=True)
+
+        out = new()
+        da.decode_attention(*other[:3], other_pos)  # another (B, KV) between the two runs
+        again = new()
+        pair = old()
         plain = da.decode_attention_plain(q, k, v, pos_t, k_scale=ks, v_scale=vs)
         # rows past each slot's position are invisible: poison them
         kp, vp = k.clone(), v.clone()
@@ -703,20 +795,32 @@ def phase_decode(timer):
         poisoned = da.decode_attention(q, kp, vp, pos_t, k_scale=ksp, v_scale=vsp)
         torch.cuda.synchronize()
         err = float((out - plain).abs().max())
+        pair_err = float((pair - plain).abs().max())
         ok = (out.dtype == torch.float32 and tuple(out.shape) == (b, 1, h, d) and err <= 2e-5
-              and torch.equal(poisoned, out))
-        case = dict(phase="decode_check", case=name, b=b, kv=kv, h=h, t=t, cache=dtype_name(cdt),
-                    pos=pos, max_abs_err=err, poisoned_rows_change_output=not torch.equal(
-                        poisoned, out), ok=ok)
+              and pair_err <= 2e-5 and torch.equal(poisoned, out) and torch.equal(again, out))
+        plan = da.split_plan(b, kv, t, d, h // kv, k.element_size(), ks is not None,
+                             da._sms(q.device))
+        case = dict(phase="decode_check", case=name, b=b, kv=kv, h=h, t=t, d=d, cache=cname,
+                    pos=pos if b <= 8 else f"{b} slots, max {max(pos)}", max_abs_err=err,
+                    split_pair_max_abs_err=pair_err, rerun_bit_equal=torch.equal(again, out),
+                    poisoned_rows_change_output=not torch.equal(poisoned, out),
+                    plan=plan._asdict(), ok=ok)
         emit(**case)
         check(ok, f"decode kernel disagrees: {case}")
         del kp, vp, ksp, vsp, poisoned
-        if name in ("lm_b8", "gqa4_b8", "gqa4_b1", "mqa_b8", "mha_b1", "int8_gqa4_b8"):
-            k_ms = timer.ms(lambda: da.decode_attention(q, k, v, pos_t, k_scale=ks, v_scale=vs),
-                            iters=50)
-            p_ms = timer.ms(lambda: da.decode_attention_plain(q, k, v, pos_t, k_scale=ks,
-                                                             v_scale=vs), iters=20)
-            l_ms = None
+        if name == "lm_b8":  # one device kernel per call
+            before = da.decode_launches
+            prof = profile_calls(new, 100, LM_KINDS)
+            launched = da.decode_launches - before
+            emit(phase="decode_launches_per_call", case=name, calls=100, wrapper_launches=launched,
+                 device_ops_per_call=prof["device_ops_per_call"], top_kernels=prof["top_kernels"])
+            # the profiler may drop a few records of a long run of short
+            # kernels; it must show no other kernel and none beyond one a call
+            check(launched == 100 and 0.95 <= prof["device_ops_per_call"] <= 1
+                  and prof["by_kind_ms_per_call"].keys() == {"decode_attention"},
+                  f"decode_attention is not one device kernel per call: {prof}")
+        if name in DECODE_TIMED:
+            runs = {"new": new, "split_pair": old}
             if cdt == torch.bfloat16:
                 mask = (torch.arange(t, device="cuda")[None, :] <= pos_t[:, None])[:, None, None, :]
                 qh = q.transpose(1, 2)
@@ -725,20 +829,39 @@ def phase_decode(timer):
                     return F.scaled_dot_product_attention(qh, k, v, attn_mask=mask,
                                                           enable_gqa=kv != h)
 
-                l_ms = timer.ms(library, iters=50)
-            rows = sum(p + 1 for p in pos)
-            nbytes = 2 * rows * kv * d * k.element_size() + (8 * rows * kv if ks is not None else 0) \
-                + q.numel() * q.element_size() + out.numel() * 4 + b * 4
-            ops = 4 * rows * h * d
+                runs["sdpa"] = library
+            # in turns on one card: new, split pair, SDPA, plain, SDPA, split pair, new
+            turns = {key: [] for key in runs}
+            for key in ("new", "split_pair", "sdpa"):
+                if key in runs:
+                    turns[key].append(timer.ms(runs[key], iters=50))
+            p_ms = timer.ms(lambda: da.decode_attention_plain(q, k, v, pos_t, k_scale=ks,
+                                                             v_scale=vs), iters=20)
+            for key in ("sdpa", "split_pair", "new"):
+                if key in runs:
+                    turns[key].append(timer.ms(runs[key], iters=50))
+            k_ms, o_ms = statistics.mean(turns["new"]), statistics.mean(turns["split_pair"])
+            l_ms = statistics.mean(turns["sdpa"]) if "sdpa" in turns else None
+            nbytes, ops = _decode_bytes(pos, kv, h, d, k, q, ks)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = ops / PEAK_FLOPS["float32"] * 1e3
             timings[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
                                  bound_ms=max(t_bytes, t_ops),
                                  bound_by="bytes" if t_bytes >= t_ops else "operations",
-                                 max_abs_err=err)
-            emit(phase="decode_time", case=name, ms=k_ms, plain_ms=p_ms, sdpa_ms=l_ms,
-                 bytes=nbytes, bytes_bound_ms=t_bytes, ops_bound_ms=t_ops,
-                 achieved_gb_s=nbytes / (k_ms * 1e-3) / 1e9, share_of_bound=t_bytes / k_ms)
+                                 max_abs_err=err, split_pair_ms=o_ms)
+            extra = {}
+            if name == "lm_b8":  # the same, with an L2 flushed by reads (no dirty lines)
+                clean = {key: timer.ms(runs[key], iters=50, clean=True) for key in runs}
+                extra = {"clean_flush_ms": clean,
+                         "clean_flush_share_of_bound": max(t_bytes, t_ops) / clean["new"]}
+            emit(phase="decode_time", case=name, ms=k_ms, split_pair_ms=o_ms, plain_ms=p_ms,
+                 sdpa_ms=l_ms, turns_ms=turns, bytes=nbytes, bytes_bound_ms=t_bytes,
+                 ops_bound_ms=t_ops, achieved_gb_s=nbytes / (k_ms * 1e-3) / 1e9,
+                 share_of_bound=max(t_bytes, t_ops) / k_ms,
+                 split_pair_share_of_bound=max(t_bytes, t_ops) / o_ms,
+                 vs_sdpa=k_ms / l_ms if l_ms else None, vs_split_pair=k_ms / o_ms,
+                 grid=[plan.n_split, kv, b], chunk=plan.chunk, **extra)
+        del q, k, v, ks, vs, out, again, pair, plain
     torch.cuda.empty_cache()
     return timings
 
@@ -777,7 +900,7 @@ def greedy_with_margins(gen, params, cfg, prompt, n):
     return torch.stack(toks, 1), margins
 
 
-def phase_lm():
+def phase_lm(timer):
     """The LM serving path at full width: generate on cuda, counted."""
     import dataclasses
 
@@ -876,6 +999,18 @@ def phase_lm():
             prof_decode = profile_calls(
                 lambda: gen.batched_decode_step(params, cfg, cache, cur, pos), 5, LM_KINDS)
             prof_decode["device_ops_per_token"] = prof_decode["device_ops_per_call"] / b
+            # K4 inside the step against K4 alone on one layer's cache at
+            # the same context (the L2 flushed before each launch)
+            from dml_tpu_torch.ops import decode_attention as da
+
+            lay = cache["block_0"]
+            q1 = torch.randn((b, 1, cfg.n_heads, cfg.head_dim), device="cuda").to(cfg.dtype)
+            alone = timer.ms(lambda: da.decode_attention(q1, lay["k"], lay["v"], pos), iters=50)
+            in_step = prof_decode["by_kind_ms_per_call"].get("decode_attention", 0.0)
+            emit(phase="decode_in_step", batch=b, context=DECODE_CTX + 45,
+                 cache_rows=int(lay["k"].shape[2]), k4_ms_per_step_in_profile=in_step,
+                 k4_ms_alone=alone, k4_ms_alone_x_layers=cfg.n_layers * alone,
+                 in_step_over_alone=in_step / (cfg.n_layers * alone))
         del cache, logits
     prof_prefill = profile_calls(
         lambda: gen.prefill(params, cfg, prompts, PROMPT_LEN + 1), 2, LM_KINDS)
@@ -1234,7 +1369,7 @@ def main() -> int:
     launches = {m: phase_model(m, mode, timer) for m, mode in MODELS}
     flash = phase_flash(timer)
     decode = phase_decode(timer)
-    lm_launches = phase_lm()
+    lm_launches = phase_lm(timer)
     bwd = phase_flash_bwd(timer)
     train_launches = phase_train()
 
@@ -1262,8 +1397,9 @@ def main() -> int:
             replaces="dml_tpu/ops/flash_attention.py:65", launches=path_launches, **t))
     t = decode["lm_b8"]
     kernels.append(dict(
-        name=f"decode_attention[b{LM_BATCH} cache {PROMPT_LEN + NEW_TOKENS} KV4 G4 D64 bf16]",
-        route="cuda", source="dml_tpu_torch/csrc/decode_attention.cu",
+        name=f"decode_attention[b{LM_BATCH} cache {PROMPT_LEN + NEW_TOKENS} KV4 G4 D64 bf16; "
+             f"one launch, bulk async loads, merge folded in]",
+        route="cuda", variant="one_launch", source="dml_tpu_torch/csrc/decode_attention.cu",
         replaces="dml_tpu/ops/decode_attention.py:53",
         launches=lm_launches["decode_attention"], **t))
     t = bwd["train"]

@@ -16,19 +16,27 @@ distribution they were trained on:
 - "unit": scale to [0, 1]
 - "raw": a plain cast (the model normalizes internally)
 
-Decoding is PIL only; the JAX package's native libjpeg loader has no
-counterpart in this package yet.
+Decoding: an all-JPEG batch goes through the port's native loader
+(`native/loader.py`: libjpeg DCT-scaled decode, C++ bilinear resize, a
+thread pool), the JAX package's fast path; PIL decodes everything else,
+and everything when the loader cannot be built or `DML_NATIVE_LOADER=0`.
 """
 
 from __future__ import annotations
 
 import io
+import threading
 from typing import Iterable, List, Tuple
 
 import numpy as np
 import torch
 
 _CAFFE_MEAN_BGR = (103.939, 116.779, 123.68)
+
+#: batches `load_images` decoded by each path since the last reset (a
+#: caller zeroes it, loads, and reads which decoder served the batch)
+decoded_batches = {"native": 0, "pil": 0}
+_count_lock = threading.Lock()
 
 
 def decode_image(data: bytes, size: Tuple[int, int]) -> np.ndarray:
@@ -40,12 +48,47 @@ def decode_image(data: bytes, size: Tuple[int, int]) -> np.ndarray:
     return np.asarray(img, dtype=np.uint8)
 
 
+def _is_jpeg_file(path: str) -> bool:
+    """Content sniff (the SOI marker), not the extension: fetched inputs
+    carry store/version suffixes that an extension check misses."""
+    try:
+        with open(path, "rb") as f:
+            return f.read(2) == b"\xff\xd8"
+    except OSError:
+        return False
+
+
 def load_images(paths: Iterable[str], size: Tuple[int, int]) -> np.ndarray:
-    """Decode a batch of image files -> uint8 (N, H, W, 3)."""
+    """Decode a batch of image files -> uint8 (N, H, W, 3).
+
+    An all-JPEG batch (sniffed by content) goes through the native
+    loader; PIL decodes otherwise, when the loader is unavailable, and
+    when the native decode raises on a file (a truncated JPEG, say).
+    The same structure as dml_tpu/models/preprocess.py::load_images."""
+    paths = [str(p) for p in paths]
+    if paths:
+        from ..native.loader import get_loader
+
+        # loader first (cached), sniff second: without the library the
+        # per-file open and read would be pure overhead
+        loader = get_loader()
+        if loader is not None and all(_is_jpeg_file(p) for p in paths):
+            try:
+                out = loader.decode_batch(paths, size)
+                with _count_lock:
+                    decoded_batches["native"] += 1
+                return out
+            except RuntimeError as e:
+                import logging
+
+                logging.getLogger(__name__).debug("native decode fell back to PIL: %s", e)
     arrs: List[np.ndarray] = []
     for p in paths:
         with open(p, "rb") as f:
             arrs.append(decode_image(f.read(), size))
+    if arrs:
+        with _count_lock:
+            decoded_batches["pil"] += 1
     return np.stack(arrs) if arrs else np.zeros((0, *size, 3), np.uint8)
 
 

@@ -20,9 +20,9 @@ Differences from the JAX package, by design:
   {"count", "exp_avg", "exp_avg_sq"} by parameter name, "step"}`;
   `models.lm_params.lm_train_state_from_flax` converts the JAX state to
   it. The getter's tensors are the live ones, not copies.
-- `generate` serves `inference.generate.serving_params` of the trained
-  weights (block kernels cast once to the model dtype; embedding and
-  head stay float32), the port's serving form.
+- `generate` serves the trained weights in the JAX package's cast form:
+  every floating leaf with ndim >= 2 (block kernels, embedding, lm_head)
+  rounded once to the model dtype, norm scales float32.
 
 Entry points run on `cuda` unless `device` says otherwise, and raise
 when there is no CUDA device; the tests pass `device="cpu"`.
@@ -36,7 +36,7 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from ..inference.generate import LMConfig, generate as _generate, serving_params
+from ..inference.generate import LMConfig, generate as _generate
 from ..inference.quantize import quantize_lm_params
 from ..models.lm_params import init_lm_params, params_tree_of, resolve_device, state_dict_of
 from ..models.transformer import TransformerLM
@@ -207,9 +207,9 @@ class LongContextLM:
         kv_quant: bool = False,
     ) -> np.ndarray:
         """Autoregressive decoding with the trained weights
-        (`inference.generate`): int32 [B, max_new_tokens]. By default the
-        float32 block kernels are cast once to the model dtype for
-        serving (a second copy stays resident; `serve_dtype_cast=False`
+        (`inference.generate`): int32 [B, max_new_tokens]. By default every
+        float32 leaf with ndim >= 2 (block kernels, embedding, lm_head) is
+        cast once to the model dtype for serving, as the JAX package does (a second copy stays resident; `serve_dtype_cast=False`
         serves the training weights themselves); `quantize_weights=True`
         serves weight-only int8, `kv_quant=True` an int8 KV cache.
         Serving forms are cached per training step."""
@@ -236,5 +236,17 @@ class LongContextLM:
         if key not in forms:
             with torch.no_grad():
                 tree = params_tree_of(self._params())
-                forms[key] = quantize_lm_params(tree) if key == "int8" else serving_params(tree, self.cfg)
+                forms[key] = quantize_lm_params(tree) if key == "int8" else _cast_tree(tree, self.cfg.dtype)
         return forms[key]
+
+
+def _cast_tree(tree: Dict[str, Any], dtype: torch.dtype) -> Dict[str, Any]:
+    """Every floating leaf with ndim >= 2 (block kernels, lm_head,
+    embedding) rounded to `dtype`; 1-d leaves (norm scales) and int8
+    leaves as they are: the JAX package's cast form
+    (dml_tpu/parallel/long_context.py:292-295)."""
+    if isinstance(tree, dict):
+        return {k: _cast_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor) and tree.ndim >= 2 and tree.is_floating_point():
+        return tree.to(dtype)
+    return tree

@@ -115,6 +115,71 @@ def test_bf16_cache_and_stale_rows():
     assert torch.equal(poisoned, got)
 
 
+def _block_rows(plan, t, pos, split):
+    """The cache rows block `split` of a plane reads when its slot sees
+    rows <= pos: the kernel's arithmetic (csrc/decode_attention.cu)."""
+    t0 = split * plan.chunk
+    return range(t0, max(t0, min(t0 + plan.chunk, pos + 1, t)))
+
+
+def _scale_spans(row0, n):
+    """The kernel's int8 scale loads for the n rows from cache row row0:
+    the bulk-copied 16-byte-aligned interior and the rows loaded by hand
+    (csrc/decode_attention.cu)."""
+    lo, hi = (row0 + 3) & ~3, (row0 + n) & ~3
+    if hi <= lo:
+        return range(0), list(range(n))
+    return range(lo - row0, hi - row0), list(range(lo - row0)) + list(range(hi - row0, n))
+
+
+@pytest.mark.parametrize("d", da.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8],
+                         ids=["f32", "bf16", "int8"])
+def test_split_plan_covers_budgets_aligns_and_fits_one_wave(dtype, d):
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    quantized = dtype == torch.int8
+    rng = np.random.RandomState(d + itemsize)
+    for n_sm in (132, 114):
+        for b, kv, g in ((1, 4, 4), (8, 4, 4), (8, 1, 16), (1, 16, 1), (64, 4, 4), (3, 2, 3)):
+            for t in (1, 16, 100, 2112, 4096, 4099):
+                plan = da.split_plan(b, kv, t, d, g, itemsize, quantized, n_sm)
+                chunk, n_split = plan.chunk, plan.n_split
+                assert chunk % da.SUB_ROWS == 0 and da.SUB_ROWS <= chunk <= da.MAX_CHUNK
+                assert n_split * chunk >= t > (n_split - 1) * chunk
+                # the byte budget, and what an SM can hold
+                row = 2 * d * itemsize + (8 if quantized else 0)
+                assert chunk * row <= da.CHUNK_BYTES or chunk == da.SUB_ROWS
+                assert plan.smem_bytes <= 227 << 10 and plan.blocks_per_sm >= 1
+                # one wave wherever the budget's fewest splits fit one
+                min_split = -(-t // min(da.MAX_CHUNK, da.CHUNK_BYTES // row // 32 * 32))
+                if b * kv * min_split <= n_sm * plan.blocks_per_sm:
+                    assert b * kv * n_split <= n_sm * plan.blocks_per_sm
+                else:
+                    assert n_split == min_split
+                # the plane's partials stay small enough for one block to merge
+                assert n_split * g * d * 4 <= da.MERGE_BYTES or n_split == min_split
+                # every row <= pos read exactly once, sub-tiles and scales aligned
+                for p in {0, t - 1, t // 2, int(rng.randint(0, t)), t + 5}:
+                    seen = []
+                    for split in range(n_split):
+                        rows = _block_rows(plan, t, p, split)
+                        seen += list(rows)
+                        n = len(rows)
+                        assert n * row <= max(da.CHUNK_BYTES, da.SUB_ROWS * row)
+                        for plane in (0, 1, b * kv - 1):
+                            row0 = plane * t + split * chunk
+                            for j in range(0, n, da.SUB_ROWS):
+                                nr = min(da.SUB_ROWS, n - j)
+                                assert ((row0 + j) * d * itemsize) % 16 == 0
+                                assert (nr * d * itemsize) % 16 == 0
+                            if quantized:
+                                bulk, by_hand = _scale_spans(row0, n)
+                                assert not bulk or ((row0 + bulk.start) * 4) % 16 == 0
+                                assert (len(bulk) * 4) % 16 == 0
+                                assert len(by_hand) <= 6 and sorted(list(bulk) + by_hand) == list(range(n))
+                    assert seen == list(range(min(p + 1, t)))
+
+
 def test_wrapper_contract():
     q = torch.zeros((2, 1, 4, 8))
     c = torch.zeros((2, 2, 16, 8))

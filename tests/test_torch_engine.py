@@ -87,14 +87,17 @@ def test_infer_arrays_nowait_equals_sync(engines):
     assert port.infer_arrays_nowait("ResNet50", imgs[:0])().shape == (0, 1000)
 
 
-def test_infer_files_top5_wnids_match_jax(engines, tmp_path):
+@pytest.mark.parametrize("fmt", ["png", "jpeg"])
+def test_infer_files_top5_wnids_match_jax(engines, tmp_path, fmt):
     from PIL import Image
 
     jax_engine, port = engines
     files = []
     for i, im in enumerate(_images(3, seed=2)):
-        p = tmp_path / f"img{i}.png"  # PNG: both packages decode with PIL
-        Image.fromarray(im[:150, :190]).save(p)
+        # PNG: both packages decode with PIL; JPEG: both with their native
+        # loader where it builds (else PIL), the main path's input
+        p = tmp_path / f"img{i}.{fmt}"
+        Image.fromarray(im[:150, :190]).save(p, **({"quality": 90} if fmt == "jpeg" else {}))
         files.append(str(p))
     rt = port.infer_files("ResNet50", files)
     rj = jax_engine.infer_files("ResNet50", files)

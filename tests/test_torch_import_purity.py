@@ -73,7 +73,8 @@ def test_no_jax_import():
             "dml_tpu_torch/ops/flash_attention.py", "dml_tpu_torch/ops/decode_attention.py",
             "dml_tpu_torch/models/transformer.py", "dml_tpu_torch/models/lm_params.py",
             "dml_tpu_torch/inference/quantize.py", "dml_tpu_torch/inference/generate.py",
-            "dml_tpu_torch/parallel/long_context.py", "dml_tpu_torch/parallel/checkpoint.py"} <= rel
+            "dml_tpu_torch/parallel/long_context.py", "dml_tpu_torch/parallel/checkpoint.py",
+            "dml_tpu_torch/native/loader.py"} <= rel
     bad = [
         f"{os.path.relpath(path, ROOT)}:{node.lineno}: {name}"
         for path in _port_files()
@@ -100,7 +101,8 @@ def test_importing_the_port_loads_no_kernel_library():
         "import sys; before = set(sys.modules); "
         "import chip_smoke, dml_tpu_torch.inference, dml_tpu_torch.ops._build as b; "
         "import dml_tpu_torch.inference.generate, dml_tpu_torch.models.transformer; "
-        "import dml_tpu_torch.parallel.long_context; "
+        "import dml_tpu_torch.parallel.long_context, dml_tpu_torch.native.loader as nl; "
+        "assert nl._loader is None and nl._error is None; "
         "assert not b._loaded, b._loaded; "
         "bad = [m for m in set(sys.modules) - before "
         "if m.split('.')[0] in ('jax', 'flax', 'dml_tpu', 'triton')]; "

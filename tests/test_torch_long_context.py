@@ -164,3 +164,24 @@ def test_generate_serves_the_trained_weights():
     q8 = lm16.generate(prompt, 4, quantize_weights=True, kv_quant=True)
     assert q8.shape == (BATCH, 4) and 0 <= q8.min() and q8.max() < CFG["vocab_size"]
 
+
+
+def test_bfloat16_cast_form_matches_jax():
+    """The bf16 serving form rounds every leaf with ndim >= 2 (lm_head and
+    embedding included) as the JAX package's does: the same prefill
+    logits, bit for bit up to 1e-6, and the same greedy tokens."""
+    from dml_tpu.inference import generate as jax_gen
+
+    jlm, lm = _pair(torch.bfloat16)
+    prompt = np.random.RandomState(4).randint(0, CFG["vocab_size"], (2, 16)).astype(np.int32)
+    jparams = jlm._serving_params(quantized=False, cast=True)
+    params = lm._serving_params(quantized=False, cast=True)
+    for name in ("lm_head", "embed"):
+        for leaf in params[name].values():
+            assert leaf.dtype == torch.bfloat16, name
+    assert params["ln_out"]["scale"].dtype == torch.float32
+    j_logits, _ = jax_gen.prefill(jparams, jax_gen.LMConfig(**CFG, dtype=jnp.bfloat16),
+                                  jnp.asarray(prompt), 24)
+    logits, _ = gen.prefill(params, lm.cfg, torch.from_numpy(prompt), 24)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(j_logits), atol=1e-6, rtol=0)
+    np.testing.assert_array_equal(lm.generate(prompt, 8), jlm.generate(prompt, 8))
