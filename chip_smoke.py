@@ -55,14 +55,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
    version within 2e-5 for bf16, f32 and int8 caches; GQA-4, MQA and
    MHA; B=1 and B=8 at T=4096 with mixed per-slot positions, the LM's
    own decode shape, D 16 int8, D 32 bf16, D 128 bf16 and f32, pos 0,
-   T=1001, B=64 with short positions; each case run twice, bit-equal,
-   with a call at another (B, KV) between the two; rows past each slot's
-   position poisoned with +-1e4 must not change the output. A profiler
-   line shows one device kernel per call. At lm_b8, gqa4_b8, gqa4_b1,
-   mqa_b8, mha_b1 and int8_gqa4_b8 the new kernel, the first version,
-   SDPA (bf16) and the plain version are timed in turns (new, first,
-   SDPA, plain, SDPA, first, new) beside the byte bound of the valid
-   cache rows (lm_b8 also under an L2 flushed by reads);
+   T=1001, B=64 with short positions; q in bf16 (as generate gives it,
+   int8 caches too), in f32, bf16 over an f32 cache (D 16, 64, 128), f32
+   over a bf16 cache, and a strided view; each case run twice, bit-equal,
+   with a call at another (B, KV) between the two, and once with each
+   block's whole chunk issued at start (`ahead=ISSUE_ALL`), bit-equal
+   too; rows past each slot's position poisoned with +-1e4 must not
+   change the output. A profiler line shows one device kernel per call.
+   At lm_b8, gqa4_b8, gqa4_b1, mqa_b8, mha_b1 and int8_gqa4_b8 the new
+   kernel, the first version, the new kernel with whole chunks issued
+   at start, SDPA (bf16) and the plain version are timed in turns (new,
+   first, issue-all, SDPA, plain, SDPA, issue-all, first, new) beside the
+   byte bound of the valid cache rows (lm_b8 also under an L2 flushed by
+   reads);
 8. lm: the 198M-parameter GQA-4 LM (bench.py's _bench_lm config, 12
    layers, d_model 1024, seeded weights) served by the port's generate
    on cuda in bf16: B=8 prompts of 2048 tokens, 64 new tokens. The
@@ -698,19 +703,24 @@ def phase_flash(timer):
     return timings
 
 
-def _decode_inputs(g, b, kv, h, t, d, cdt, pos):
-    """q, k, v, k_scale, v_scale for a decode case (scales None unless int8)."""
+def _decode_inputs(g, b, kv, h, t, d, cdt, qname):
+    """q, k, v, k_scale, v_scale for a decode case (scales None unless
+    int8). `qname` is q's dtype, with "_strided" for a view whose heads
+    lie 2 * d apart."""
     import torch
 
     if cdt == torch.int8:
         k, v = (torch.randint(-127, 128, (b, kv, t, d), generator=g, device="cuda").to(cdt)
                 for _ in range(2))
         ks, vs = (torch.rand((b, kv, 1, t), generator=g, device="cuda") * 0.02 for _ in range(2))
-        q = torch.randn((b, 1, h, d), generator=g, device="cuda")
     else:
         k, v = (torch.randn((b, kv, t, d), generator=g, device="cuda").to(cdt) for _ in range(2))
         ks = vs = None
-        q = torch.randn((b, 1, h, d), generator=g, device="cuda").to(cdt)
+    qdt = getattr(torch, qname.removesuffix("_strided"))
+    if qname.endswith("_strided"):
+        q = torch.randn((b, 1, h, 2 * d), generator=g, device="cuda").to(qdt)[..., :d]
+    else:
+        q = torch.randn((b, 1, h, d), generator=g, device="cuda").to(qdt)
     return q, k, v, ks, vs
 
 
@@ -723,43 +733,51 @@ def _decode_bytes(pos, kv, h, d, k, q, ks):
     return nbytes, 4 * rows * h * d
 
 
-DECODE_CASES = (  # name, b, kv, h, t, d, cache dtype, positions (None: mixed, one at the end)
-    ("lm_b8", 8, 4, 16, PROMPT_LEN + NEW_TOKENS, 64, "bfloat16", [PROMPT_LEN + NEW_TOKENS // 2] * 8),
-    ("gqa4_b8", 8, 4, 16, DECODE_CTX, 64, "bfloat16", None),
-    ("gqa4_b1", 1, 4, 16, DECODE_CTX, 64, "bfloat16", [3000]),
-    ("mqa_b8", 8, 1, 16, DECODE_CTX, 64, "bfloat16", None),
-    ("mha_b8", 8, 16, 16, DECODE_CTX, 64, "bfloat16", None),
-    ("mha_b1", 1, 16, 16, DECODE_CTX, 64, "bfloat16", [DECODE_CTX - 1]),
-    ("f32_gqa4_b8", 8, 4, 16, DECODE_CTX, 64, "float32", None),
-    ("f32_mqa_b1", 1, 1, 16, DECODE_CTX, 64, "float32", [1234]),
-    ("int8_gqa4_b8", 8, 4, 16, DECODE_CTX, 64, "int8", None),
-    ("int8_mha_b1", 1, 16, 16, DECODE_CTX, 64, "int8", [2047]),
-    ("int8_d16", 4, 2, 8, 1000, 16, "int8", None),
-    ("bf16_d32", 4, 2, 8, 1000, 32, "bfloat16", None),
-    ("bf16_d128_gqa4", 4, 4, 16, 2048, 128, "bfloat16", None),
-    ("f32_d128", 2, 2, 8, 1500, 128, "float32", None),
-    ("pos0", 4, 4, 16, 512, 64, "bfloat16", [0, 0, 0, 0]),
-    ("t_not_16", 3, 4, 16, 1001, 64, "bfloat16", [1000, 17, 500]),
-    ("b64_short", 64, 4, 16, DECODE_CTX, 64, "bfloat16", "short"),
+BF, F32 = "bfloat16", "float32"
+DECODE_CASES = (  # name, b, kv, h, t, d, cache dtype, q dtype, positions (None: mixed, one at the end)
+    ("lm_b8", 8, 4, 16, PROMPT_LEN + NEW_TOKENS, 64, BF, BF, [PROMPT_LEN + NEW_TOKENS // 2] * 8),
+    ("gqa4_b8", 8, 4, 16, DECODE_CTX, 64, BF, BF, None),
+    ("gqa4_b1", 1, 4, 16, DECODE_CTX, 64, BF, BF, [3000]),
+    ("mqa_b8", 8, 1, 16, DECODE_CTX, 64, BF, BF, None),
+    ("mha_b8", 8, 16, 16, DECODE_CTX, 64, BF, BF, None),
+    ("mha_b1", 1, 16, 16, DECODE_CTX, 64, BF, BF, [DECODE_CTX - 1]),
+    ("f32_gqa4_b8", 8, 4, 16, DECODE_CTX, 64, F32, F32, None),
+    ("f32_mqa_b1", 1, 1, 16, DECODE_CTX, 64, F32, F32, [1234]),
+    ("int8_gqa4_b8", 8, 4, 16, DECODE_CTX, 64, "int8", BF, None),  # generate's int8 form
+    ("int8_mha_b1", 1, 16, 16, DECODE_CTX, 64, "int8", F32, [2047]),
+    ("int8_d16", 4, 2, 8, 1000, 16, "int8", BF, None),
+    ("bf16_d32", 4, 2, 8, 1000, 32, BF, BF, None),
+    ("bf16_d128_gqa4", 4, 4, 16, 2048, 128, BF, BF, None),
+    ("f32_d128", 2, 2, 8, 1500, 128, F32, F32, None),
+    ("pos0", 4, 4, 16, 512, 64, BF, BF, [0, 0, 0, 0]),
+    ("t_not_16", 3, 4, 16, 1001, 64, BF, BF, [1000, 17, 500]),
+    ("b64_short", 64, 4, 16, DECODE_CTX, 64, BF, BF, "short"),
+    ("bf16q_f32_gqa4", 4, 4, 16, 1000, 64, F32, BF, None),
+    ("bf16q_f32_d16", 4, 2, 8, 700, 16, F32, BF, None),
+    ("bf16q_f32_d128_mqa", 2, 1, 16, 1500, 128, F32, BF, None),
+    ("f32q_bf16_d32", 4, 2, 8, 1000, 32, BF, F32, None),
+    ("strided_q", 4, 4, 16, 1000, 64, BF, BF + "_strided", None),
 )
 DECODE_TIMED = ("lm_b8", "gqa4_b8", "gqa4_b1", "mqa_b8", "mha_b1", "int8_gqa4_b8")
 
 
 def phase_decode(timer):
     """The decode kernel (one launch) and the first version (split +
-    merge) against the plain version, every cache form, each case twice
-    (bit-equal, with a call at another (B, KV) in between); poisoned
-    rows; one device kernel per call; the two versions, SDPA and the plain
-    version timed in turns at the LM's decode shapes."""
+    merge) against the plain version, every cache and q form, each case
+    twice (bit-equal, with a call at another (B, KV) in between) and once
+    with whole chunks issued at block start (bit-equal); poisoned rows;
+    one device kernel per call; the new kernel, its issue-all form, the
+    first version, SDPA and the plain version timed in turns at the LM's
+    decode shapes."""
     import torch
     import torch.nn.functional as F
     from dml_tpu_torch.ops import decode_attention as da
 
     g = torch.Generator(device="cuda").manual_seed(2)
-    other = _decode_inputs(g, 2, 3, 6, 300, 64, torch.bfloat16, None)  # the call in between
+    other = _decode_inputs(g, 2, 3, 6, 300, 64, torch.bfloat16, BF)  # the call in between
     other_pos = torch.tensor([299, 100], dtype=torch.int32, device="cuda")
     timings = {}
-    for name, b, kv, h, t, d, cname, pos in DECODE_CASES:
+    for name, b, kv, h, t, d, cname, qname, pos in DECODE_CASES:
         cdt = getattr(torch, cname)
         if pos is None:  # mixed per-slot positions, one slot at the end
             pos = torch.randint(0, t, (b,), generator=g, device="cuda").tolist()
@@ -768,7 +786,7 @@ def phase_decode(timer):
             pos = torch.randint(0, 200, (b,), generator=g, device="cuda").tolist()
             pos[0] = t - 1
         pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
-        q, k, v, ks, vs = _decode_inputs(g, b, kv, h, t, d, cdt, pos)
+        q, k, v, ks, vs = _decode_inputs(g, b, kv, h, t, d, cdt, qname)
         scale = d ** -0.5
 
         def new():
@@ -777,10 +795,14 @@ def phase_decode(timer):
         def old():
             return da._decode_cuda(q, k, v, pos_t, ks, vs, scale, split_pair=True)
 
+        def issue_all():
+            return da._decode_cuda(q, k, v, pos_t, ks, vs, scale, ahead=da.ISSUE_ALL)
+
         out = new()
         da.decode_attention(*other[:3], other_pos)  # another (B, KV) between the two runs
         again = new()
         pair = old()
+        whole = issue_all()
         plain = da.decode_attention_plain(q, k, v, pos_t, k_scale=ks, v_scale=vs)
         # rows past each slot's position are invisible: poison them
         kp, vp = k.clone(), v.clone()
@@ -797,12 +819,14 @@ def phase_decode(timer):
         err = float((out - plain).abs().max())
         pair_err = float((pair - plain).abs().max())
         ok = (out.dtype == torch.float32 and tuple(out.shape) == (b, 1, h, d) and err <= 2e-5
-              and pair_err <= 2e-5 and torch.equal(poisoned, out) and torch.equal(again, out))
+              and pair_err <= 2e-5 and torch.equal(poisoned, out) and torch.equal(again, out)
+              and torch.equal(whole, out))
         plan = da.split_plan(b, kv, t, d, h // kv, k.element_size(), ks is not None,
                              da._sms(q.device))
-        case = dict(phase="decode_check", case=name, b=b, kv=kv, h=h, t=t, d=d, cache=cname,
+        case = dict(phase="decode_check", case=name, b=b, kv=kv, h=h, t=t, d=d, cache=cname, q=qname,
                     pos=pos if b <= 8 else f"{b} slots, max {max(pos)}", max_abs_err=err,
                     split_pair_max_abs_err=pair_err, rerun_bit_equal=torch.equal(again, out),
+                    issue_all_bit_equal=torch.equal(whole, out),
                     poisoned_rows_change_output=not torch.equal(poisoned, out),
                     plan=plan._asdict(), ok=ok)
         emit(**case)
@@ -820,7 +844,7 @@ def phase_decode(timer):
                   and prof["by_kind_ms_per_call"].keys() == {"decode_attention"},
                   f"decode_attention is not one device kernel per call: {prof}")
         if name in DECODE_TIMED:
-            runs = {"new": new, "split_pair": old}
+            runs = {"new": new, "split_pair": old, "issue_all": issue_all}
             if cdt == torch.bfloat16:
                 mask = (torch.arange(t, device="cuda")[None, :] <= pos_t[:, None])[:, None, None, :]
                 qh = q.transpose(1, 2)
@@ -830,17 +854,19 @@ def phase_decode(timer):
                                                           enable_gqa=kv != h)
 
                 runs["sdpa"] = library
-            # in turns on one card: new, split pair, SDPA, plain, SDPA, split pair, new
+            # in turns on one card: new, split pair, issue-all, SDPA, plain,
+            # SDPA, issue-all, split pair, new
             turns = {key: [] for key in runs}
-            for key in ("new", "split_pair", "sdpa"):
+            for key in ("new", "split_pair", "issue_all", "sdpa"):
                 if key in runs:
                     turns[key].append(timer.ms(runs[key], iters=50))
             p_ms = timer.ms(lambda: da.decode_attention_plain(q, k, v, pos_t, k_scale=ks,
                                                              v_scale=vs), iters=20)
-            for key in ("sdpa", "split_pair", "new"):
+            for key in ("sdpa", "issue_all", "split_pair", "new"):
                 if key in runs:
                     turns[key].append(timer.ms(runs[key], iters=50))
             k_ms, o_ms = statistics.mean(turns["new"]), statistics.mean(turns["split_pair"])
+            a_ms = statistics.mean(turns["issue_all"])
             l_ms = statistics.mean(turns["sdpa"]) if "sdpa" in turns else None
             nbytes, ops = _decode_bytes(pos, kv, h, d, k, q, ks)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -854,14 +880,16 @@ def phase_decode(timer):
                 clean = {key: timer.ms(runs[key], iters=50, clean=True) for key in runs}
                 extra = {"clean_flush_ms": clean,
                          "clean_flush_share_of_bound": max(t_bytes, t_ops) / clean["new"]}
-            emit(phase="decode_time", case=name, ms=k_ms, split_pair_ms=o_ms, plain_ms=p_ms,
+            emit(phase="decode_time", case=name, ms=k_ms, split_pair_ms=o_ms, issue_all_ms=a_ms,
+                 plain_ms=p_ms,
                  sdpa_ms=l_ms, turns_ms=turns, bytes=nbytes, bytes_bound_ms=t_bytes,
                  ops_bound_ms=t_ops, achieved_gb_s=nbytes / (k_ms * 1e-3) / 1e9,
                  share_of_bound=max(t_bytes, t_ops) / k_ms,
                  split_pair_share_of_bound=max(t_bytes, t_ops) / o_ms,
                  vs_sdpa=k_ms / l_ms if l_ms else None, vs_split_pair=k_ms / o_ms,
+                 vs_issue_all=k_ms / a_ms,
                  grid=[plan.n_split, kv, b], chunk=plan.chunk, **extra)
-        del q, k, v, ks, vs, out, again, pair, plain
+        del q, k, v, ks, vs, out, again, pair, whole, plain
     torch.cuda.empty_cache()
     return timings
 

@@ -1,7 +1,7 @@
 // Decode-step attention over the KV cache: the Hopper counterpart of the
 // TPU kernel dml_tpu/ops/decode_attention.py::_decode_kernel.
 //
-// q [B, 1, H, D] (f32 or bf16, read through its batch and head strides)
+// q [B, 1, H, D] (f32 or bf16, contiguous)
 // attends the head-major cache [B, KV, T, D] (bf16, f32, or int8 with f32
 // scales [B, KV, 1, T]); slot b sees cache rows t <= pos[b]. H = KV * G
 // with kv-major head order (head h = kv * G + g). Output f32 [B, 1, H, D].
@@ -33,15 +33,16 @@
 // - Loads. Thread 0 initialises one mbarrier per K and per V sub-tile of
 //   32 rows and issues each sub-tile as a 1-D bulk copy (cp.async.bulk,
 //   completing on the sub-tile's barrier by its byte count) into its own
-//   slot of shared memory: the first AHEAD = 2 at block start, then
-//   sub-tile j + 2 before the block waits on sub-tile j, so no thread waits
-//   on a load before asking for the next. Measured on an H100 at the LM's
-//   decode shapes, two sub-tiles in flight per block (32 KB of K + V at
-//   bf16 D 64, some 100 KB an SM) beat issuing the whole chunk at once by
-//   5-11%: the SM's copies are served in issue order, so with everything
-//   issued at once the last resident block got its first rows only after
-//   the others' last ones and computed all of its chunk after the stream
-//   ended. The last sub-tile is sized by n, so no row past pos[b] is ever
+//   slot of shared memory: the first `ahead` (2 from the wrapper) at block
+//   start, then sub-tile j + ahead before the block waits on sub-tile j, so
+//   no thread waits on a load before asking for the next. Two sub-tiles in
+//   flight per block (32 KB of K + V at bf16 D 64) rather than the whole
+//   chunk at once: an SM serves its copies in issue order, so with
+//   everything issued at block start the last resident block gets its
+//   first rows only after the others' last ones and computes its whole
+//   chunk after the stream has ended. chip_smoke.py times both in turns
+//   (`ahead` as large as a chunk issues it all at once). The last sub-tile
+//   is sized by n, so no row past pos[b] is ever
 //   read. Cache rows are D * itemsize >= 16 bytes and the cache is 16-byte
 //   aligned, so every K and V copy is aligned. int8 scale rows (4 bytes
 //   each) are bulk-copied over their 16-byte-aligned interior at block
@@ -105,7 +106,6 @@ constexpr int WARPS = THREADS / 32;
 constexpr int SUB = 32;           // rows per bulk sub-tile
 constexpr int MAX_CHUNK = 1024;   // rows per block at most (32 sub-tiles)
 constexpr float RESCALE = 8.f;    // log2 units a score may pass the running max by
-constexpr int AHEAD = 2;          // sub-tiles of K and V a block keeps in flight
 
 // Cache elements a lane reads at once, and their widening into floats.
 template <typename TC>
@@ -182,8 +182,8 @@ struct Args {
   float* l_part;
   int* counters;    // [B * KV], 0 between calls
   float* out;       // [B, 1, H, D]
-  long long q_sb, q_sh;  // q's batch and head strides, in elements
   int KV, G, T, chunk, n_split, q_is_bf16;
+  int ahead;        // sub-tiles of K and V a block keeps in flight
   float scale;
 };
 
@@ -236,6 +236,7 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Args a) {
   constexpr int RB = D * sizeof(TC);  // bytes per cache row
   constexpr float LOG2E = 1.4426950408889634f;
   static_assert(LPR >= 1 && LPR <= 32 && SUB % NRP == 0, "row split");
+  static_assert(EL == 4 || EL == 8, "q is read 4 or 8 elements at a time");
   extern __shared__ __align__(128) unsigned char smem[];
 
   const int split = blockIdx.x, kv = blockIdx.y, b = blockIdx.z;
@@ -257,12 +258,18 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Args a) {
   const float qscale = a.scale * LOG2E;
   float q[GT][EL], o[GT][EL], m[GT], l[GT];
 #pragma unroll
-  for (int g = 0; g < GT; ++g) {  // 16-byte loads, all issued before any is used
-    const long long qo = b * a.q_sb + (long long)(kv * G + min(g0 + g, G - 1)) * a.q_sh + c * EL;
+  for (int g = 0; g < GT; ++g) {  // vector loads, all issued before any is used
+    const long long qo = ((long long)b * a.KV * G + kv * G + min(g0 + g, G - 1)) * D + c * EL;
     if (a.q_is_bf16) {
-#pragma unroll
-      for (int e = 0; e < EL; e += 8)
-        Vec<__nv_bfloat16>::load(static_cast<const unsigned char*>(a.q) + 2 * (qo + e), &q[g][e]);
+      const unsigned char* qp = static_cast<const unsigned char*>(a.q) + 2 * qo;
+      if constexpr (EL == 8) {
+        Vec<__nv_bfloat16>::load(qp, q[g]);
+      } else {  // an f32 cache: 4 bf16 of q, 8 bytes
+        const uint2 u = *reinterpret_cast<const uint2*>(qp);
+        const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+        const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+        q[g][0] = x.x, q[g][1] = x.y, q[g][2] = y.x, q[g][3] = y.y;
+      }
     } else {
 #pragma unroll
       for (int e = 0; e < EL; e += 4)
@@ -321,9 +328,9 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Args a) {
     }
     hopper::mbar_init(bar_s, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    // the first AHEAD sub-tiles, K_j before V_j in the order they are
+    // the first `ahead` sub-tiles, K_j before V_j in the order they are
     // used; the rest as the block works through them (below)
-    for (int j = 0; j < min(nsub, AHEAD); ++j) issue(j);
+    for (int j = 0; j < min(nsub, a.ahead); ++j) issue(j);
     if (s_hi > s_lo) {
       const uint32_t bytes = static_cast<uint32_t>((s_hi - s_lo) * 4);
       hopper::mbar_expect_tx(bar_s, 2 * bytes);
@@ -342,7 +349,7 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Args a) {
   if (s_hi > s_lo) hopper::mbar_wait(bar_s, 0);
 
   for (int j = 0; active && j < nsub; ++j) {
-    if (tid == 0 && j + AHEAD < nsub) issue(j + AHEAD);  // before waiting on j
+    if (tid == 0 && j + a.ahead < nsub) issue(j + a.ahead);  // before waiting on j
     const int nr = min(SUB, n - j * SUB);
     const int np = (nr + NRP - 1) / NRP;                          // passes in sub-tile j
     const int first = (wi - (j * NP) % wg + wg) % wg;             // this warp's first pass
@@ -516,12 +523,17 @@ template <typename TC, int D>
 int launch_one(const Args& a, int B, cudaStream_t stream) {
   const Layout L = layout(a.chunk, D, sizeof(TC), a.ks != nullptr);
   auto kernel = decode_kernel<TC, D>;
-  static int attr_bytes = 48 * 1024;  // the most this instantiation was allowed so far
-  if (L.total > attr_bytes) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+  // the most this instantiation was allowed so far, per device (the
+  // attribute is set per device)
+  constexpr int MAX_DEVICES = 64;
+  static int attr_bytes[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (L.total > 48 * 1024 && (dev >= MAX_DEVICES || L.total > attr_bytes[dev])) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
     if (err != cudaSuccess) return (int)err;
-    attr_bytes = L.total;
+    if (dev < MAX_DEVICES) attr_bytes[dev] = L.total;
   }
   kernel<<<dim3(a.n_split, a.KV, B), THREADS, L.total, stream>>>(a);
   return (int)cudaGetLastError();
@@ -759,24 +771,26 @@ bool valid_shape(int G, int D) {
 
 }  // namespace
 
-// cache_kind: 0 = f32, 1 = bf16, 2 = int8 (ks and vs required). One
-// launch of decode_kernel; `counters` holds B * KV zeros and is left so.
+// cache_kind: 0 = f32, 1 = bf16, 2 = int8 (ks and vs required). q is
+// contiguous and 16-byte aligned. `ahead`: K and V sub-tiles a block keeps
+// in flight (>= 1). One launch of decode_kernel; `counters` holds B * KV
+// zeros and is left so.
 extern "C" int dml_decode_attention(const void* q, const void* k, const void* v,
                                     const void* ks, const void* vs, const void* pos,
                                     void* o_part, void* m_part, void* l_part, void* counters,
-                                    void* out, int cache_kind, int q_is_bf16, long long q_sb,
-                                    long long q_sh, int B, int KV, int G, int T, int D, int chunk,
-                                    int n_split, float scale, void* stream) {
+                                    void* out, int cache_kind, int q_is_bf16, int B, int KV,
+                                    int G, int T, int D, int chunk, int n_split, int ahead,
+                                    float scale, void* stream) {
   if (B <= 0) return 0;
   if (!valid_shape(G, D) || chunk < SUB || chunk > MAX_CHUNK || chunk % SUB ||
-      (long long)chunk * n_split < T)
+      (long long)chunk * n_split < T || ahead < 1)
     return (int)cudaErrorInvalidValue;
   Args a{q, static_cast<const unsigned char*>(k), static_cast<const unsigned char*>(v),
          static_cast<const float*>(ks), static_cast<const float*>(vs),
          static_cast<const int*>(pos), static_cast<float*>(o_part),
          static_cast<float*>(m_part), static_cast<float*>(l_part),
          static_cast<int*>(counters), static_cast<float*>(out),
-         q_sb, q_sh, KV, G, T, chunk, n_split, q_is_bf16, scale};
+         KV, G, T, chunk, n_split, q_is_bf16, ahead, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (cache_kind) {
     case 0: a.ks = a.vs = nullptr; return launch_d<float>(a, B, D, s);

@@ -20,8 +20,11 @@ there is no switch. `split_plan` sizes the grid; it is a pure function
 of the shapes and the SM count, so the CPU tests hold it to its rules.
 
 `_decode_cuda(..., split_pair=True)` runs the first Hopper version
-instead (a split kernel and a merge kernel, two launches); only
-chip_smoke.py passes it, to time the two in turns on one card.
+instead (a split kernel and a merge kernel, two launches), and
+`_decode_cuda(..., ahead=...)` sets how many K and V sub-tiles a block of
+the new kernel keeps in flight (AHEAD; ISSUE_ALL issues its whole chunk
+at block start); only chip_smoke.py passes either, to time the
+alternatives in turns on one card.
 """
 
 from __future__ import annotations
@@ -45,6 +48,8 @@ MAX_SPLIT = 64           # splits a plane is cut into for parallelism alone
 MERGE_BYTES = 64 << 10   # partials of one plane, read by its last block
 SMEM_PER_SM = 228 << 10  # H100: shared memory of an SM, 1 KB of it reserved per block
 MAX_BLOCKS_PER_SM = 4    # a residency the registers allow (128 threads, <= 128 registers)
+AHEAD = 2                # K and V sub-tiles a block keeps in flight
+ISSUE_ALL = MAX_CHUNK // SUB_ROWS  # an `ahead` that issues a block's whole chunk at once
 THREADS, WARPS = 128, 4
 # the first version's tile (csrc/decode_attention.cu::split_pair)
 SPLIT_PAIR_ROWS = 128
@@ -64,8 +69,7 @@ def _library() -> ctypes.CDLL:
 
     lib = load_library("dml_decode_attention", ["decode_attention.cu"])
     fn = lib.dml_decode_attention
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 2 + [ctypes.c_longlong] * 2
-                   + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.dml_decode_attention_split
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
@@ -165,7 +169,7 @@ def _split_pair_plan(batch: int, kv: int, t: int, device) -> tuple:
     return chunk, -(-t // chunk)
 
 
-def _decode_cuda(q, k, v, pos, k_scale, v_scale, scale, split_pair=False):
+def _decode_cuda(q, k, v, pos, k_scale, v_scale, scale, split_pair=False, ahead=AHEAD):
     global decode_launches
     b, _, h, d = q.shape
     kv, t = k.shape[1], k.shape[2]
@@ -188,10 +192,9 @@ def _decode_cuda(q, k, v, pos, k_scale, v_scale, scale, split_pair=False):
         raise TypeError("int8 cache scales must be float32")
     if quantized and (k_scale.data_ptr() % 16 or v_scale.data_ptr() % 16):
         raise ValueError("decode_attention needs 16-byte aligned cache scales")
-    # the kernel reads q through its batch and head strides, 16 bytes at a time
-    vec = 16 // q.element_size()
-    if split_pair or q.stride(-1) != 1 or q.data_ptr() % 16 or q.stride(0) % vec or q.stride(2) % vec:
-        q = q.contiguous()
+    # the kernel reads a contiguous q in 8- or 16-byte vectors
+    if not q.is_contiguous() or q.data_ptr() % 16:
+        q = q.clone(memory_format=torch.contiguous_format)
     pos = pos.to(torch.int32).contiguous()
     out = torch.empty((b, 1, h, d), dtype=torch.float32, device=q.device)
     if split_pair:
@@ -217,8 +220,8 @@ def _decode_cuda(q, k, v, pos, k_scale, v_scale, scale, split_pair=False):
         else:
             counters = _counters(q.device, stream, b * kv)
             err = lib.dml_decode_attention(
-                *ptrs, counters.data_ptr(), out.data_ptr(), kind, q_bf16, q.stride(0),
-                q.stride(2), b, kv, g, t, d, chunk, n_split, float(scale), stream)
+                *ptrs, counters.data_ptr(), out.data_ptr(), kind, q_bf16, b, kv, g, t, d, chunk,
+                n_split, ahead, float(scale), stream)
             if err != 0:
                 counters.zero_()  # a launch that failed may have left tickets behind
     if err != 0:
