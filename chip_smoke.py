@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (dml_tpu_torch) on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernel-only   # phases 1-3 for the normalize kernel alone
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
@@ -11,17 +12,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
    attention forward and backward, decode attention) from
    dml_tpu_torch/csrc/, and g++ the native JPEG loader
    (dml_tpu_torch/native/), all started together, with seconds for each;
-   beside them ptxas reports the flash forward's, backward's and decode's
-   kernels (registers, spills; one `ptxas` line per source, with the
-   wgmma kernels' setmaxnreg counts); a spill in a wgmma kernel or in
-   any decode kernel fails;
-3. kernel: the normalize kernel against its plain PyTorch version on the
-   card, in every mode (caffe, tf, unit), output dtype (bf16, f32) and
-   shape ([32,224,224,3], [32,299,299,3], ragged [3,7,5,3]); float32
-   must agree within 1e-6, bf16 within one bf16 ulp (and the count of
-   elements that are not bit-identical is printed). Kernel and plain
-   times by CUDA events, L2 flushed before every launch, beside the
-   device-memory byte bound;
+   beside them ptxas reports the normalize, flash forward, backward and
+   decode kernels (registers, spills; one `ptxas` line per source, with
+   the wgmma kernels' setmaxnreg counts); a spill in a wgmma kernel or
+   in any normalize or decode kernel fails;
+3. kernel: the normalize kernel (K1) against its plain PyTorch version
+   on the card, in every mode (caffe, tf, unit) and output dtype (bf16,
+   f32), at [32,224,224,3], [32,299,299,3] and the pixel counts that
+   reach each of its routes (1, 15, 16, 17 and 105 pixels: tail only,
+   one group, a group and a tail, [3,7,5,3]), and on contiguous views
+   whose base is not 16-byte aligned (the wrapper's copy route); every
+   form (tiles staged through shared memory or each lane's own 16-byte
+   accesses, 1 or 2 groups a thread) and the first version too. float32
+   must agree within 1e-6 and bf16 within one bf16 ulp, and every
+   element must be bit-identical (the count that is not is printed).
+   Launches through the C entry into the middle of a larger buffer
+   holding a sentinel must change no value outside their pixels; a
+   misaligned output and too few blocks must be refused. At ResNet50 b32
+   caffe and InceptionV3 b32 tf, bf16 and f32, the forms, the first
+   version, `x.to(dtype)` (the `raw` mode's one PyTorch call on the same
+   bytes), the launch floor (the wrapper on one 16-pixel group) and the
+   plain version are timed in turns (forms, to, floor, plain, floor, to,
+   forms back) by CUDA events under three conditions: the L2 flushed by
+   writes before each launch, flushed by reads, and the engine's order
+   (the batch freshly copied in from pinned host memory, no flush), each
+   beside the device-memory byte bound, its share, GB/s and the time
+   above the floor;
 4. ResNet50 and 5. InceptionV3, bf16 at batch 32, served through the
    port's InferenceEngine on cuda with seeded weights: infer_arrays on
    40 images (2 padded chunks), infer_arrays_nowait on the same,
@@ -34,7 +50,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    bf16 engine and a float32 CUDA engine with TF32 off). Per-batch
    latency p50/p90/p99 over 1000 batches and images/s at batch 32, the
    device time of one forward, and a torch.profiler breakdown of where
-   a batch's time goes;
+   a batch's time goes, with the normalize kernel's share of the busy
+   time and the device operations that follow it into the stem conv;
 6. flash_check: the flash attention forward against its plain version
    (out and lse), each case naming its route (`kernel_route`): the LM's
    prefill shape (q [8,2048,16,64], GQA-4 k/v [8,2048,4,64], bf16,
@@ -231,46 +248,194 @@ class Timer:
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+# K1 at the two serving batches, in each model's mode, timed in both dtypes
+K1_TIMED = (("ResNet50", (32, 224, 224, 3), "caffe"), ("InceptionV3", (32, 299, 299, 3), "tf"))
+# pixel counts that reach each route of K1: tail pixels only (1, 15), one
+# group (16), a group and a tail pixel (17), 6 groups and 9 tail pixels (105)
+K1_SMALL = ((1, 1, 1, 3), (1, 3, 5, 3), (1, 4, 4, 3), (1, 1, 17, 3), (3, 7, 5, 3))
+# K1's forms: each warp's tile staged through shared memory with 1 or 2
+# groups a thread (g1, g2), or each lane's own 16-byte accesses (direct);
+# and its first version
+K1_FORMS = {"g1": dict(form="staged", groups_per_thread=1),
+            "g2": dict(form="staged", groups_per_thread=2),
+            "g1_direct": dict(form="direct", groups_per_thread=1),
+            "g2_direct": dict(form="direct", groups_per_thread=2),
+            "first_version": dict(first_version=True)}
+
+
+def k1_default_form():
+    """The name in K1_FORMS of the form the wrapper launches."""
+    from dml_tpu_torch.ops import preprocess as ops
+
+    want = dict(form=ops.FORM, groups_per_thread=ops.GROUPS_PER_THREAD)
+    return next(k for k, kw in K1_FORMS.items() if kw == want)
+
+
+def ms_after_copy(fn, pinned, iters=30, warmup=3):
+    """Median ms of fn(x) in the engine's order: x freshly copied in from
+    pinned host memory with non_blocking=True, as `_dispatch_chunk` does
+    just before `_forward` launches K1; no flush, events around fn alone.
+    The copy (~0.2 ms) outlasts the host's enqueue of fn."""
+    import torch
+
+    for _ in range(warmup):
+        fn(pinned.to("cuda", non_blocking=True))
+    pairs = []
+    for _ in range(iters):
+        x = pinned.to("cuda", non_blocking=True)
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn(x)
+        e.record()
+        pairs.append((s, e))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def k1_held(got, want, dtype):
+    """(max abs error, elements not bit-identical, within tolerance):
+    float32 within 1e-6, bf16 within one bf16 ulp."""
+    err = (got.float() - want.float()).abs()
+    max_err = float(err.max()) if err.numel() else 0.0
+    ok = max_err <= 1e-6 if dtype.itemsize == 4 else bool((err <= bf16_ulp(want)).all())
+    return max_err, int((got != want).sum()), ok
+
+
+def k1_c_entry_checks(lib, x, mode, dtype, plain):
+    """Launch through the C entry into the middle of a larger output
+    buffer that holds a sentinel: the pixels land where they belong and
+    no value before or past them changes, in every form. A misaligned
+    output and too few blocks are refused with nothing written."""
+    import torch
+    from dml_tpu_torch.ops import preprocess as ops
+
+    n = x.numel() // 3
+    lead = 64  # elements: a 16-byte aligned start in either dtype
+    buf = torch.full((lead + 3 * n + 256,), -8192.0, dtype=dtype, device="cuda")
+    sentinel = buf.clone()
+    el = buf.element_size()
+    stream = torch.cuda.current_stream().cuda_stream
+    bf16 = int(dtype == torch.bfloat16)
+    mode_id = ops._MODES[mode]
+    for form, g in (("staged", 1), ("staged", 2), ("direct", 1), ("direct", 2)):
+        name = f"{mode} {dtype} n={n} {form} g={g}"
+        buf.copy_(sentinel)
+        err = lib.dml_normalize_u8(x.data_ptr(), buf.data_ptr() + lead * el, n, mode_id, bf16,
+                                   ops.FORMS[form], g, ops.launch_plan(n, g).blocks, stream)
+        check(err == 0, f"C entry refused a launch ({err}): {name}")
+        torch.cuda.synchronize()
+        check(torch.equal(buf[lead:lead + 3 * n], plain.flatten()),
+              f"C entry into a larger buffer: {name}")
+        check(torch.equal(buf[:lead], sentinel[:lead])
+              and torch.equal(buf[lead + 3 * n:], sentinel[lead + 3 * n:]),
+              f"C entry wrote outside its pixels: {name}")
+    buf.copy_(sentinel)
+    blocks = ops.launch_plan(n).blocks
+    refused = (lib.dml_normalize_u8(x.data_ptr(), buf.data_ptr() + lead * el + el, n, mode_id,
+                                    bf16, 0, 1, blocks, stream),
+               lib.dml_normalize_u8(x.data_ptr(), buf.data_ptr() + lead * el, n, mode_id, bf16,
+                                    0, 1, blocks - 1, stream))
+    torch.cuda.synchronize()
+    check(refused == (1, 1) and torch.equal(buf, sentinel),
+          f"C entry took a misaligned output or too few blocks: {refused}")
+
+
 def phase_kernel(timer):
+    """K1 against its plain version on every route, then timed in turns
+    beside the first version, x.to(dtype) (the `raw` mode's one call on
+    the same bytes) and the plain version, under three L2 conditions."""
     import torch
     from dml_tpu_torch.ops import preprocess as ops
     from dml_tpu_torch.models.preprocess import normalize_on_device
 
+    lib = ops._library()
     g = torch.Generator(device="cuda").manual_seed(0)
-    timings = {}
-    for shape in ((32, 224, 224, 3), (32, 299, 299, 3), (3, 7, 5, 3)):
-        x = torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda", generator=g)
-        for mode in ("caffe", "tf", "unit"):
-            for dtype in (torch.bfloat16, torch.float32):
-                got = ops.fused_normalize(x, mode, dtype)
+    modes, dtypes = ("caffe", "tf", "unit"), (torch.bfloat16, torch.float32)
+
+    def images(*shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda", generator=g)
+
+    # (name, uint8 batch, also launched through the C entry)
+    cases = [(str(list(shape)), images(*shape), shape[0] != 32 or shape[1] == 224)
+             for shape in [shape for _, shape, _ in K1_TIMED] + list(K1_SMALL)]
+    # contiguous views whose base is not 16-byte aligned: the copy route
+    cases += [("[33,299,299,3][1:]", images(33, 299, 299, 3)[1:], False),
+              ("[4,7,5,3][1:]", images(4, 7, 5, 3)[1:], False)]
+    for name, x, c_entry in cases:
+        offset = x.data_ptr() % 16
+        check(x.is_contiguous() and (offset != 0) == name.endswith("[1:]"),
+              f"{name}: base offset {offset}")
+        for mode in modes:
+            for dtype in dtypes:
                 want = normalize_on_device(x, mode, dtype)
+                before = ops.normalize_launches
+                got = ops.fused_normalize(x, mode, dtype)
+                forms = {k: ops._normalize_cuda(x, mode, dtype, **kw) for k, kw in K1_FORMS.items()}
                 torch.cuda.synchronize()
+                check(ops.normalize_launches == before + 1 + len(forms),
+                      "one counted launch a wrapper call")
                 check(got.dtype == dtype and got.shape == x.shape and got.is_contiguous(),
                       f"kernel output {got.dtype} {tuple(got.shape)}")
-                err = (got.float() - want.float()).abs()
-                max_err = float(err.max())
-                n_diff = int((got != want).sum())
-                if dtype == torch.float32:
-                    ok = max_err <= 1e-6
-                else:
-                    ok = bool((err <= bf16_ulp(want)).all())
-                case = dict(phase="kernel_check", shape=list(shape), mode=mode,
-                            dtype=str(dtype).split(".")[-1], max_abs_err=max_err,
-                            n_not_identical=n_diff, ok=ok)
+                max_err, n_diff, ok = k1_held(got, want, dtype)
+                held = {k: k1_held(v, want, dtype) for k, v in forms.items()}
+                ok = ok and n_diff == 0 and all(h[2] and h[1] == 0 for h in held.values())
+                case = dict(phase="kernel_check", case=name, shape=list(x.shape), mode=mode,
+                            dtype=dtype_name(dtype), base_offset_bytes=offset,
+                            max_abs_err=max_err, n_not_identical=n_diff,
+                            forms_n_not_identical={k: h[1] for k, h in held.items()}, ok=ok)
                 emit(**case)
                 if not ok:
                     raise AssertionError(f"normalize kernel disagrees: {case}")
-                if shape[0] == 32:
-                    k_ms = timer.ms(lambda: ops.fused_normalize(x, mode, dtype))
-                    p_ms = timer.ms(lambda: normalize_on_device(x, mode, dtype))
-                    nbytes = x.numel() * (1 + got.element_size())
-                    bound = nbytes / HBM_BYTES_PER_S * 1e3
-                    timings[(shape, mode, dtype)] = dict(
-                        ms=k_ms, plain_ms=p_ms, bound_ms=bound, max_abs_err=max_err)
-                    emit(phase="kernel_time", shape=list(shape), mode=mode,
-                         dtype=str(dtype).split(".")[-1], ms=k_ms, plain_ms=p_ms,
-                         bound_ms=bound, bytes=nbytes,
-                         achieved_gb_s=nbytes / (k_ms * 1e-3) / 1e9)
+                if c_entry:
+                    k1_c_entry_checks(lib, x, mode, dtype, want)
+    emit(phase="kernel_c_entry", ok=True, cases=[name for name, _, c in cases if c],
+         refuses=["misaligned output", "too few blocks"])
+    inputs = {name: x for name, x, _ in cases}
+
+    timings = {}
+    tiny = inputs["[1, 4, 4, 3]"]
+    order = [*K1_FORMS, "to", "floor_16px", "plain", "floor_16px", "to", *reversed(K1_FORMS)]
+    for model, shape, mode in K1_TIMED:
+        x = inputs[str(list(shape))]
+        pinned = x.cpu().pin_memory()
+        for dtype in dtypes:
+            runs = {k: (lambda x, kw=kw: ops._normalize_cuda(x, mode, dtype, **kw))
+                    for k, kw in K1_FORMS.items()}
+            runs["to"] = lambda x: x.to(dtype)
+            runs["plain"] = lambda x: normalize_on_device(x, mode, dtype)
+            # the launch floor: the wrapper on one 16-pixel group
+            runs["floor_16px"] = lambda x: ops.fused_normalize(tiny, mode, dtype)
+            nbytes = x.numel() * (1 + dtype.itemsize)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            by_cond = {}
+            for cond in ("write_flush", "read_flush", "after_copy"):
+                turns = {k: [] for k in runs}
+                for k in order:  # in turns: forms, to, plain, to, forms back
+                    if cond == "after_copy":
+                        turns[k].append(ms_after_copy(runs[k], pinned))
+                    else:
+                        turns[k].append(timer.ms(lambda k=k: runs[k](x),
+                                                 clean=cond == "read_flush"))
+                ms = {k: statistics.mean(v) for k, v in turns.items()}
+                by_cond[cond] = ms
+                emit(phase="kernel_time", model=model, shape=list(shape), mode=mode,
+                     dtype=dtype_name(dtype), condition=cond, default_form=k1_default_form(),
+                     bytes=nbytes, bound_ms=bound, ms=ms,
+                     share_of_bound={k: bound / v for k, v in ms.items()},
+                     ms_above_floor={k: v - ms["floor_16px"] for k, v in ms.items()},
+                     gb_s={k: nbytes / (v * 1e-3) / 1e9 for k, v in ms.items()}, turns_ms=turns)
+            want = normalize_on_device(x, mode, dtype)
+            a = by_cond["write_flush"]
+            default = k1_default_form()
+            timings[(shape, mode, dtype)] = dict(
+                ms=a[default], plain_ms=a["plain"], bound_ms=bound, library_ms=a["to"],
+                max_abs_err=k1_held(ops.fused_normalize(x, mode, dtype), want, dtype)[0],
+                first_version_ms=a["first_version"],
+                read_flush_ms=by_cond["read_flush"][default],
+                after_copy_ms=by_cond["after_copy"][default])
+    del inputs, cases
+    torch.cuda.empty_cache()
     return timings
 
 
@@ -426,14 +591,16 @@ def phase_model(name, mode, timer):
          images_per_s=BATCH / (statistics.mean(lat) / 1e3),
          forward_device_ms=fwd_ms,
          max_memory_allocated_mb=torch.cuda.max_memory_allocated() / 1e6)
+    prof = profile_calls(lambda: eng.infer_arrays(name, batch), 5, IMAGE_KINDS, after="normalize_")
     emit(phase="profile", model=name,
-         **profile_calls(lambda: eng.infer_arrays(name, batch), 5, IMAGE_KINDS))
+         normalize_share_of_busy=prof["by_kind_ms_per_call"].get("normalize", 0.0)
+         / prof["device_busy_ms_per_call"], **prof)
     eng.unload_model(name)
     return launches
 
 
 IMAGE_KINDS = (
-    ("normalize_kernel", "normalize"), ("Memcpy HtoD", "copy_h2d"),
+    ("normalize_", "normalize"), ("Memcpy HtoD", "copy_h2d"),
     ("Memcpy DtoH", "copy_d2h"), ("fprop", "conv"), ("implicit_gemm", "conv"),
     ("conv", "conv"), ("batch_norm", "batch_norm"), ("pool", "pool"),
     ("CatArray", "concat"), ("gemm", "dense"), ("softmax", "softmax"),
@@ -447,13 +614,14 @@ LM_KINDS = (
     ("index", "gather"), ("CatArray", "concat"), ("elementwise", "elementwise"))
 
 
-def profile_calls(fn, iters, kinds):
+def profile_calls(fn, iters, kinds, after=None):
     """Where a call's time goes: torch.profiler over `iters` calls of
     `fn`. Device time by kernel (top 8 and by kind, first substring
     match in `kinds` wins), device operations per call, and the device's
     idle share of the wall time (the profiler's own host overhead
     lengthens the wall time, so this share is an upper bound for the
-    unprofiled run)."""
+    unprofiled run). `after`: also the first device operation whose name
+    holds it and the six that follow, in time order, with their ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -478,6 +646,15 @@ def profile_calls(fn, iters, kinds):
         by_kind[kind] = by_kind.get(kind, 0.0) + us
     busy = sum(by_kind.values())
     per_kernel.sort(reverse=True)
+    extra = {}
+    if after:
+        dev = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False)),
+                     key=lambda e: e.time_range.start)
+        i = next((i for i, e in enumerate(dev) if after in e.name), None)
+        extra[f"after_{after.strip('_')}"] = None if i is None else [
+            (e.name[:120], e.time_range.elapsed_us() / 1e3) for e in dev[i:i + 7]]
     return dict(
         iters=iters, wall_ms_per_call=wall_us / iters / 1e3,
         device_busy_ms_per_call=busy / iters / 1e3 if busy else None,
@@ -485,12 +662,13 @@ def profile_calls(fn, iters, kinds):
         device_ops_per_call=n_kernels / iters,
         by_kind_ms_per_call={k: v / iters / 1e3 for k, v in sorted(by_kind.items())},
         top_kernels=[(k[:120], us / iters / 1e3) for us, k in per_kernel[:8]],
+        **extra,
     )
 
 
-def build_all():
+def build_all(kernel_only=False):
     """nvcc for every kernel library at once, one thread (and one nvcc)
-    each; seconds per library."""
+    each; seconds per library. kernel_only: the normalize library alone."""
     from concurrent.futures import ThreadPoolExecutor
 
     from dml_tpu_torch.native import loader
@@ -506,7 +684,10 @@ def build_all():
         fn()
         return time.monotonic() - t0
 
-    sources = ("flash_attention.cu", "flash_attention_bwd.cu", "decode_attention.cu")
+    sources = ("normalize.cu", "flash_attention.cu", "flash_attention_bwd.cu",
+               "decode_attention.cu")
+    if kernel_only:
+        libs, sources = {"normalize": libs["normalize"]}, sources[:1]
     t0 = time.monotonic()
     with ThreadPoolExecutor(len(libs) + len(sources)) as ex:
         reports = {src: ex.submit(_build.ptxas_report, [src]) for src in sources}
@@ -519,7 +700,7 @@ def build_all():
         emit(phase="ptxas", source=f"dml_tpu_torch/csrc/{src}", kernels=ptxas[src],
              **({"setmaxnreg": setmaxnreg_counts(src)} if wgmma else {}))
         check(ptxas[src], f"ptxas reported no kernel of {src}")
-        # the wgmma kernels of the flash sources, every kernel of the decode source
+        # the wgmma kernels of the flash sources, every kernel of the others
         spills = {k: u for k, u in ptxas[src].items()
                   if ("wgmma" in k or not wgmma) and (u.get("spill_stores") or u.get("spill_loads"))}
         check(not spills, f"{src}: kernels spill registers: {spills}")
@@ -542,6 +723,13 @@ def ptxas_usage(report):
                       r"((?:Li\d+E)*)E", line)
         if m:
             args = [types[m.group(2)], *re.findall(r"Li(\d+)E", m.group(3))]
+            name = f"{m.group(1)}<{','.join(args)}>"
+            usage[name] = {}
+            continue
+        m = re.search(r"Function properties for \S*?(normalize_(?:vec|first)_kernel)"
+                      r"I(f|13__nv_bfloat16)((?:L[ib]\d+E)*)E", line)
+        if m:
+            args = [types[m.group(2)], *re.findall(r"L[ib](\d+)E", m.group(3))]
             name = f"{m.group(1)}<{','.join(args)}>"
             usage[name] = {}
             continue
@@ -1391,9 +1579,13 @@ def main() -> int:
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
     check(cap[0] == 9, f"expected a Hopper card (9.x), got {cap}")
 
-    build_all()
+    kernel_only = "--kernel-only" in sys.argv[1:]
+    build_all(kernel_only)
     timer = Timer()
     timings = phase_kernel(timer)
+    if kernel_only:  # a short call after a K1 edit: build, check, time, stop
+        print(smi, flush=True)
+        return 0
     launches = {m: phase_model(m, mode, timer) for m, mode in MODELS}
     flash = phase_flash(timer)
     decode = phase_decode(timer)
@@ -1406,13 +1598,11 @@ def main() -> int:
         shape = (32, 224, 224, 3) if model == "ResNet50" else (32, 299, 299, 3)
         t = timings[(shape, mode, torch.bfloat16)]
         kernels.append(dict(
-            name=f"normalize_u8[{model} b32 {mode} bf16]", route="cuda",
-            source="dml_tpu_torch/csrc/normalize.cu",
-            replaces="dml_tpu/ops/preprocess.py:30",
-            launches=launches[model], max_abs_err=t["max_abs_err"],
-            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-            bound_by="bytes", library_ms=None,
-        ))
+            name=f"normalize_u8[{model} b32 {mode} bf16; 16-pixel vector groups; "
+                 f"library call: x.to(bfloat16), the raw mode's call on the same bytes]",
+            route="cuda", variant=k1_default_form(), source="dml_tpu_torch/csrc/normalize.cu",
+            replaces="dml_tpu/ops/preprocess.py:30", launches=launches[model], bound_by="bytes",
+            **t))
     for case, shape, path_launches in (
             ("prefill_b8", f"prefill b{LM_BATCH} T{PROMPT_LEN} H16 KV4 D64 bf16 causal",
              lm_launches["flash_attention"]),

@@ -10,13 +10,16 @@ says what bounds it (device-memory bytes) and how it is laid out.
 the kernel (and counts the launch in `normalize_launches`) or raises; on
 a CPU tensor it runs the plain PyTorch version,
 `models.preprocess.normalize_on_device`, as the JAX package pairs its
-kernel with the same function.
+kernel with the same function. `launch_plan` is the grid the kernel
+runs on, and `_aligned_input` the 16-byte alignment its vector loads
+need; both are plain Python.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -31,17 +34,59 @@ normalize_launches = 0
 _count_lock = threading.Lock()
 
 
+#: a block's threads (4 warps) and a vector group's pixels
+#: (csrc/normalize.cu kThreads, kGroup)
+THREADS = 128
+GROUP = 16
+#: the kernel's forms (csrc/normalize.cu Form): each warp's tile staged
+#: through shared memory, or each lane's own 16-byte accesses
+FORMS = {"staged": 0, "direct": 1}
+#: the form the wrapper launches and the groups a thread converts (1 or 2)
+FORM = "staged"
+GROUPS_PER_THREAD = 1
+
+
+class LaunchPlan(NamedTuple):
+    """The kernel's grid for `n_pixels` pixels: warp w < tile_warps
+    converts groups 32 G w + 32 g + lane (g < G, G groups a thread) below
+    `groups` (16 pixels each); lane l < tail of warp tile_warps converts
+    pixel 16 * groups + l."""
+
+    groups: int
+    tail: int
+    tile_warps: int
+    blocks: int
+
+
+def launch_plan(n_pixels: int, groups_per_thread: int = GROUPS_PER_THREAD) -> LaunchPlan:
+    groups, tail = divmod(n_pixels, GROUP)
+    tile_warps = -(-groups // (32 * groups_per_thread))
+    warps = tile_warps + (tail > 0)
+    return LaunchPlan(groups, tail, tile_warps, -(-warps // (THREADS // 32)))
+
+
+def _aligned_input(x: torch.Tensor) -> torch.Tensor:
+    """x itself if its base is 16-byte aligned (a fresh allocation always
+    is), else a copy in a new allocation: a contiguous view such as x[1:]
+    of a [N,299,299,3] batch starts 268,203 bytes in, where the kernel's
+    16-byte loads cannot read."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def _library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library."""
     from ._build import load_library
 
     lib = load_library("dml_normalize", ["normalize.cu"])
-    fn = lib.dml_normalize_u8
-    fn.argtypes = [
+    lib.dml_normalize_u8.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+    ]
+    lib.dml_normalize_u8_first.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
-    fn.restype = ctypes.c_int
+    lib.dml_normalize_u8.restype = lib.dml_normalize_u8_first.restype = ctypes.c_int
     return lib
 
 
@@ -60,7 +105,6 @@ def fused_normalize(
     as `normalize_on_device`: "caffe", "tf", "unit", "raw"). The output
     is contiguous NHWC, so `out.permute(0, 3, 1, 2)` is a channels-last
     NCHW tensor with no copy."""
-    global normalize_launches
     if mode == "raw":
         return x.to(dtype)
     if mode not in _MODES:
@@ -77,14 +121,31 @@ def fused_normalize(
         raise RuntimeError(f"no normalize kernel for device {x.device}")
     if not x.is_contiguous():
         raise ValueError("fused_normalize needs a contiguous input")
+    return _normalize_cuda(x, mode, dtype)
+
+
+def _normalize_cuda(x, mode, dtype, form=FORM, groups_per_thread=GROUPS_PER_THREAD,
+                    first_version=False):
+    """Launch K1 on the current stream and count the launch. The
+    arguments past `dtype` pick another form of the kernel, or the first
+    version (one pixel a thread), to time beside it; only chip_smoke.py
+    passes them."""
+    global normalize_launches
     lib = _library()
+    x = _aligned_input(x)
     out = torch.empty(x.shape, dtype=dtype, device=x.device)
+    n_pixels = x.numel() // 3
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.dml_normalize_u8(
-            x.data_ptr(), out.data_ptr(), x.numel() // 3,
-            _MODES[mode], int(dtype == torch.bfloat16), stream,
-        )
+        if first_version:
+            err = lib.dml_normalize_u8_first(
+                x.data_ptr(), out.data_ptr(), n_pixels, _MODES[mode],
+                int(dtype == torch.bfloat16), stream)
+        else:
+            err = lib.dml_normalize_u8(
+                x.data_ptr(), out.data_ptr(), n_pixels, _MODES[mode],
+                int(dtype == torch.bfloat16), FORMS[form], groups_per_thread,
+                launch_plan(n_pixels, groups_per_thread).blocks, stream)
     if err != 0:
         raise RuntimeError(f"normalize kernel launch failed: cudaError {err}")
     with _count_lock:
