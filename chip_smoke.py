@@ -21,23 +21,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
    f32), at [32,224,224,3], [32,299,299,3] and the pixel counts that
    reach each of its routes (1, 15, 16, 17 and 105 pixels: tail only,
    one group, a group and a tail, [3,7,5,3]), and on contiguous views
-   whose base is not 16-byte aligned (the wrapper's copy route); every
-   form (tiles staged through shared memory or each lane's own 16-byte
-   accesses, 1 or 2 groups a thread) and the first version too. float32
-   must agree within 1e-6 and bf16 within one bf16 ulp, and every
-   element must be bit-identical (the count that is not is printed).
-   Launches through the C entry into the middle of a larger buffer
-   holding a sentinel must change no value outside their pixels; a
-   misaligned output and too few blocks must be refused. At ResNet50 b32
-   caffe and InceptionV3 b32 tf, bf16 and f32, the forms, the first
-   version, `x.to(dtype)` (the `raw` mode's one PyTorch call on the same
-   bytes), the launch floor (the wrapper on one 16-pixel group) and the
-   plain version are timed in turns (forms, to, floor, plain, floor, to,
-   forms back) by CUDA events under three conditions: the L2 flushed by
-   writes before each launch, flushed by reads, and the engine's order
-   (the batch freshly copied in from pinned host memory, no flush), each
-   beside the device-memory byte bound, its share, GB/s and the time
-   above the floor;
+   whose base is not 16-byte aligned (the wrapper's copy route); the
+   first version too. float32 must agree within 1e-6 and bf16 within one
+   bf16 ulp, and every element must be bit-identical (the count that is
+   not is printed). Launches through the C entry into the middle of a
+   larger buffer holding a sentinel must change no value outside their
+   pixels; a misaligned output must be refused. At ResNet50 b32 caffe
+   and InceptionV3 b32 tf, bf16 and f32, the kernel, the first version,
+   `x.to(dtype)` (the `raw` mode's one PyTorch call on the same bytes),
+   the launch floor (the wrapper on one 16-pixel group) and the plain
+   version are timed in turns (kernel, first version, to, floor, plain,
+   floor, to, first version, kernel) by CUDA events under three
+   conditions: the L2 flushed by writes before each launch, flushed by
+   reads, and the engine's order (the batch freshly copied in from
+   pinned host memory, no flush), each beside the device-memory byte
+   bound, its share and GB/s;
 4. ResNet50 and 5. InceptionV3, bf16 at batch 32, served through the
    port's InferenceEngine on cuda with seeded weights: infer_arrays on
    40 images (2 padded chunks), infer_arrays_nowait on the same,
@@ -253,22 +251,8 @@ K1_TIMED = (("ResNet50", (32, 224, 224, 3), "caffe"), ("InceptionV3", (32, 299, 
 # pixel counts that reach each route of K1: tail pixels only (1, 15), one
 # group (16), a group and a tail pixel (17), 6 groups and 9 tail pixels (105)
 K1_SMALL = ((1, 1, 1, 3), (1, 3, 5, 3), (1, 4, 4, 3), (1, 1, 17, 3), (3, 7, 5, 3))
-# K1's forms: each warp's tile staged through shared memory with 1 or 2
-# groups a thread (g1, g2), or each lane's own 16-byte accesses (direct);
-# and its first version
-K1_FORMS = {"g1": dict(form="staged", groups_per_thread=1),
-            "g2": dict(form="staged", groups_per_thread=2),
-            "g1_direct": dict(form="direct", groups_per_thread=1),
-            "g2_direct": dict(form="direct", groups_per_thread=2),
-            "first_version": dict(first_version=True)}
-
-
-def k1_default_form():
-    """The name in K1_FORMS of the form the wrapper launches."""
-    from dml_tpu_torch.ops import preprocess as ops
-
-    want = dict(form=ops.FORM, groups_per_thread=ops.GROUPS_PER_THREAD)
-    return next(k for k, kw in K1_FORMS.items() if kw == want)
+# K1 as the wrapper launches it, and its first version
+K1_FORMS = {"kernel": {}, "first_version": dict(first_version=True)}
 
 
 def ms_after_copy(fn, pinned, iters=30, warmup=3):
@@ -305,8 +289,8 @@ def k1_held(got, want, dtype):
 def k1_c_entry_checks(lib, x, mode, dtype, plain):
     """Launch through the C entry into the middle of a larger output
     buffer that holds a sentinel: the pixels land where they belong and
-    no value before or past them changes, in every form. A misaligned
-    output and too few blocks are refused with nothing written."""
+    no value before or past them changes. A misaligned output is refused
+    with nothing written."""
     import torch
     from dml_tpu_torch.ops import preprocess as ops
 
@@ -318,27 +302,21 @@ def k1_c_entry_checks(lib, x, mode, dtype, plain):
     stream = torch.cuda.current_stream().cuda_stream
     bf16 = int(dtype == torch.bfloat16)
     mode_id = ops._MODES[mode]
-    for form, g in (("staged", 1), ("staged", 2), ("direct", 1), ("direct", 2)):
-        name = f"{mode} {dtype} n={n} {form} g={g}"
-        buf.copy_(sentinel)
-        err = lib.dml_normalize_u8(x.data_ptr(), buf.data_ptr() + lead * el, n, mode_id, bf16,
-                                   ops.FORMS[form], g, ops.launch_plan(n, g).blocks, stream)
-        check(err == 0, f"C entry refused a launch ({err}): {name}")
-        torch.cuda.synchronize()
-        check(torch.equal(buf[lead:lead + 3 * n], plain.flatten()),
-              f"C entry into a larger buffer: {name}")
-        check(torch.equal(buf[:lead], sentinel[:lead])
-              and torch.equal(buf[lead + 3 * n:], sentinel[lead + 3 * n:]),
-              f"C entry wrote outside its pixels: {name}")
-    buf.copy_(sentinel)
-    blocks = ops.launch_plan(n).blocks
-    refused = (lib.dml_normalize_u8(x.data_ptr(), buf.data_ptr() + lead * el + el, n, mode_id,
-                                    bf16, 0, 1, blocks, stream),
-               lib.dml_normalize_u8(x.data_ptr(), buf.data_ptr() + lead * el, n, mode_id, bf16,
-                                    0, 1, blocks - 1, stream))
+    name = f"{mode} {dtype} n={n}"
+    err = lib.dml_normalize_u8(x.data_ptr(), buf.data_ptr() + lead * el, n, mode_id, bf16, stream)
+    check(err == 0, f"C entry refused a launch ({err}): {name}")
     torch.cuda.synchronize()
-    check(refused == (1, 1) and torch.equal(buf, sentinel),
-          f"C entry took a misaligned output or too few blocks: {refused}")
+    check(torch.equal(buf[lead:lead + 3 * n], plain.flatten()),
+          f"C entry into a larger buffer: {name}")
+    check(torch.equal(buf[:lead], sentinel[:lead])
+          and torch.equal(buf[lead + 3 * n:], sentinel[lead + 3 * n:]),
+          f"C entry wrote outside its pixels: {name}")
+    buf.copy_(sentinel)
+    refused = lib.dml_normalize_u8(x.data_ptr(), buf.data_ptr() + lead * el + el, n, mode_id,
+                                   bf16, stream)
+    torch.cuda.synchronize()
+    check(refused == 1 and torch.equal(buf, sentinel),
+          f"C entry took a misaligned output: {refused}")
 
 
 def phase_kernel(timer):
@@ -390,7 +368,7 @@ def phase_kernel(timer):
                 if c_entry:
                     k1_c_entry_checks(lib, x, mode, dtype, want)
     emit(phase="kernel_c_entry", ok=True, cases=[name for name, _, c in cases if c],
-         refuses=["misaligned output", "too few blocks"])
+         refuses=["misaligned output"])
     inputs = {name: x for name, x, _ in cases}
 
     timings = {}
@@ -411,7 +389,7 @@ def phase_kernel(timer):
             by_cond = {}
             for cond in ("write_flush", "read_flush", "after_copy"):
                 turns = {k: [] for k in runs}
-                for k in order:  # in turns: forms, to, plain, to, forms back
+                for k in order:  # in turns: kernel, first version, to, plain, and back
                     if cond == "after_copy":
                         turns[k].append(ms_after_copy(runs[k], pinned))
                     else:
@@ -420,20 +398,18 @@ def phase_kernel(timer):
                 ms = {k: statistics.mean(v) for k, v in turns.items()}
                 by_cond[cond] = ms
                 emit(phase="kernel_time", model=model, shape=list(shape), mode=mode,
-                     dtype=dtype_name(dtype), condition=cond, default_form=k1_default_form(),
+                     dtype=dtype_name(dtype), condition=cond,
                      bytes=nbytes, bound_ms=bound, ms=ms,
                      share_of_bound={k: bound / v for k, v in ms.items()},
-                     ms_above_floor={k: v - ms["floor_16px"] for k, v in ms.items()},
                      gb_s={k: nbytes / (v * 1e-3) / 1e9 for k, v in ms.items()}, turns_ms=turns)
             want = normalize_on_device(x, mode, dtype)
             a = by_cond["write_flush"]
-            default = k1_default_form()
             timings[(shape, mode, dtype)] = dict(
-                ms=a[default], plain_ms=a["plain"], bound_ms=bound, library_ms=a["to"],
+                ms=a["kernel"], plain_ms=a["plain"], bound_ms=bound, library_ms=a["to"],
                 max_abs_err=k1_held(ops.fused_normalize(x, mode, dtype), want, dtype)[0],
                 first_version_ms=a["first_version"],
-                read_flush_ms=by_cond["read_flush"][default],
-                after_copy_ms=by_cond["after_copy"][default])
+                read_flush_ms=by_cond["read_flush"]["kernel"],
+                after_copy_ms=by_cond["after_copy"]["kernel"])
     del inputs, cases
     torch.cuda.empty_cache()
     return timings
@@ -727,9 +703,9 @@ def ptxas_usage(report):
             usage[name] = {}
             continue
         m = re.search(r"Function properties for \S*?(normalize_(?:vec|first)_kernel)"
-                      r"I(f|13__nv_bfloat16)((?:L[ib]\d+E)*)E", line)
+                      r"I(f|13__nv_bfloat16)((?:Li\d+E)*)E", line)
         if m:
-            args = [types[m.group(2)], *re.findall(r"L[ib](\d+)E", m.group(3))]
+            args = [types[m.group(2)], *re.findall(r"Li(\d+)E", m.group(3))]
             name = f"{m.group(1)}<{','.join(args)}>"
             usage[name] = {}
             continue
@@ -1600,7 +1576,7 @@ def main() -> int:
         kernels.append(dict(
             name=f"normalize_u8[{model} b32 {mode} bf16; 16-pixel vector groups; "
                  f"library call: x.to(bfloat16), the raw mode's call on the same bytes]",
-            route="cuda", variant=k1_default_form(), source="dml_tpu_torch/csrc/normalize.cu",
+            route="cuda", variant="staged 16-pixel tiles", source="dml_tpu_torch/csrc/normalize.cu",
             replaces="dml_tpu/ops/preprocess.py:30", launches=launches[model], bound_by="bytes",
             **t))
     for case, shape, path_launches in (

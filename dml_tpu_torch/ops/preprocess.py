@@ -38,19 +38,13 @@ _count_lock = threading.Lock()
 #: (csrc/normalize.cu kThreads, kGroup)
 THREADS = 128
 GROUP = 16
-#: the kernel's forms (csrc/normalize.cu Form): each warp's tile staged
-#: through shared memory, or each lane's own 16-byte accesses
-FORMS = {"staged": 0, "direct": 1}
-#: the form the wrapper launches and the groups a thread converts (1 or 2)
-FORM = "staged"
-GROUPS_PER_THREAD = 1
 
 
 class LaunchPlan(NamedTuple):
-    """The kernel's grid for `n_pixels` pixels: warp w < tile_warps
-    converts groups 32 G w + 32 g + lane (g < G, G groups a thread) below
-    `groups` (16 pixels each); lane l < tail of warp tile_warps converts
-    pixel 16 * groups + l."""
+    """The kernel's grid for `n_pixels` pixels, as the C entry
+    `dml_normalize_u8` computes it: lane l of warp w < tile_warps converts
+    group 32 w + l below `groups` (16 pixels each); lane l < tail of warp
+    tile_warps converts pixel 16 * groups + l."""
 
     groups: int
     tail: int
@@ -58,9 +52,9 @@ class LaunchPlan(NamedTuple):
     blocks: int
 
 
-def launch_plan(n_pixels: int, groups_per_thread: int = GROUPS_PER_THREAD) -> LaunchPlan:
+def launch_plan(n_pixels: int) -> LaunchPlan:
     groups, tail = divmod(n_pixels, GROUP)
-    tile_warps = -(-groups // (32 * groups_per_thread))
+    tile_warps = -(-groups // 32)
     warps = tile_warps + (tail > 0)
     return LaunchPlan(groups, tail, tile_warps, -(-warps // (THREADS // 32)))
 
@@ -79,13 +73,10 @@ def _library() -> ctypes.CDLL:
 
     lib = load_library("dml_normalize", ["normalize.cu"])
     lib.dml_normalize_u8.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
-    ]
-    lib.dml_normalize_u8_first.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
+    lib.dml_normalize_u8_first.argtypes = lib.dml_normalize_u8.argtypes
     lib.dml_normalize_u8.restype = lib.dml_normalize_u8_first.restype = ctypes.c_int
     return lib
 
@@ -124,12 +115,10 @@ def fused_normalize(
     return _normalize_cuda(x, mode, dtype)
 
 
-def _normalize_cuda(x, mode, dtype, form=FORM, groups_per_thread=GROUPS_PER_THREAD,
-                    first_version=False):
-    """Launch K1 on the current stream and count the launch. The
-    arguments past `dtype` pick another form of the kernel, or the first
-    version (one pixel a thread), to time beside it; only chip_smoke.py
-    passes them."""
+def _normalize_cuda(x, mode, dtype, first_version=False):
+    """Launch K1 on the current stream and count the launch.
+    first_version=True launches the first version (one pixel a thread)
+    instead, to time beside it; only chip_smoke.py passes it."""
     global normalize_launches
     lib = _library()
     x = _aligned_input(x)
@@ -137,15 +126,9 @@ def _normalize_cuda(x, mode, dtype, form=FORM, groups_per_thread=GROUPS_PER_THRE
     n_pixels = x.numel() // 3
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if first_version:
-            err = lib.dml_normalize_u8_first(
-                x.data_ptr(), out.data_ptr(), n_pixels, _MODES[mode],
-                int(dtype == torch.bfloat16), stream)
-        else:
-            err = lib.dml_normalize_u8(
-                x.data_ptr(), out.data_ptr(), n_pixels, _MODES[mode],
-                int(dtype == torch.bfloat16), FORMS[form], groups_per_thread,
-                launch_plan(n_pixels, groups_per_thread).blocks, stream)
+        entry = lib.dml_normalize_u8_first if first_version else lib.dml_normalize_u8
+        err = entry(x.data_ptr(), out.data_ptr(), n_pixels, _MODES[mode],
+                    int(dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"normalize kernel launch failed: cudaError {err}")
     with _count_lock:
