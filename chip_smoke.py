@@ -21,17 +21,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
    f32), at [32,224,224,3], [32,299,299,3] and the pixel counts that
    reach each of its routes (1, 15, 16, 17 and 105 pixels: tail only,
    one group, a group and a tail, [3,7,5,3]), and on contiguous views
-   whose base is not 16-byte aligned (the wrapper's copy route); the
-   first version too. float32 must agree within 1e-6 and bf16 within one
+   whose base is not 16-byte aligned (the wrapper's copy route).
+   float32 must agree within 1e-6 and bf16 within one
    bf16 ulp, and every element must be bit-identical (the count that is
    not is printed). Launches through the C entry into the middle of a
    larger buffer holding a sentinel must change no value outside their
    pixels; a misaligned output must be refused. At ResNet50 b32 caffe
-   and InceptionV3 b32 tf, bf16 and f32, the kernel, the first version,
-   `x.to(dtype)` (the `raw` mode's one PyTorch call on the same bytes),
-   the launch floor (the wrapper on one 16-pixel group) and the plain
-   version are timed in turns (kernel, first version, to, floor, plain,
-   floor, to, first version, kernel) by CUDA events under three
+   and InceptionV3 b32 tf, bf16 and f32, the kernel, `x.to(dtype)` (the
+   `raw` mode's one PyTorch call on the same bytes), the launch floor
+   (the wrapper on one 16-pixel group) and the plain version are timed
+   in turns (kernel, to, floor, plain, floor, to, kernel) by CUDA events
+   under three
    conditions: the L2 flushed by writes before each launch, flushed by
    reads, and the engine's order (the batch freshly copied in from
    pinned host memory, no flush), each beside the device-memory byte
@@ -126,14 +126,37 @@ Phases, each printing one JSON line; any failure exits non-zero:
    launches); float32 parity: a 2-layer d_model-128 config trained 3
    steps on cuda (TF32 off) and on the CPU gives losses within 1e-4
    relative. Step ms median and p90, tokens/s, peak device memory, and
-   a torch.profiler breakdown of one step.
+   a torch.profiler breakdown of one step;
+11. image_train: the port's image Trainer (`parallel.train`) on cuda:
+   ResNet50 at its published width and depth, 224x224 caffe, bf16,
+   batch 32, float32 master weights, AdamW lr 1e-3, seeded weights: 1
+   warm-up and 20 steps on one seeded batch on the card. Every loss
+   finite, the last below the first; each step exactly one normalize
+   (K1) launch and no other kernel of the port, one more for
+   `evaluate`, which moves neither the step nor the running statistics.
+   Under cuDNN's deterministic algorithms: a checkpoint save and restore
+   repeats the next two losses within 1e-5 relative, and `remat=True`
+   from the same state repeats 3 plain steps' losses and running
+   statistics within 1e-5 relative. `export_variables` loads into the
+   port's CUDA InferenceEngine, whose accuracy on the training batch
+   equals `evaluate`'s. A `Prefetcher(device="cuda")` loop over 64
+   seeded JPEGs feeds two more steps (each batch bit-equal to the host
+   decode; a `loader` line names the decoder). InceptionV3 b32 299x299
+   tf trains 5 steps (finite losses, one K1 launch a step, no trainable
+   BN scale). Float32 parity: a narrow ResNet (depths 1,1,1,1, 10
+   classes, 64x64, batch 8, lr 1e-4) trained 3 steps on cuda (TF32
+   off) and on the CPU gives losses within 1e-4 relative. Step ms
+   median and p90, images/s, peak device memory, and a torch.profiler
+   breakdown of one step with K1's share of the busy time.
 
 Then the card's name and power limit as nvidia-smi prints them, the
-kernels' summary line, and last `{"ok": true, "device": {...}}`.
+kernels' summary line (K1's launches by path: serving and training),
+and last `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -251,8 +274,6 @@ K1_TIMED = (("ResNet50", (32, 224, 224, 3), "caffe"), ("InceptionV3", (32, 299, 
 # pixel counts that reach each route of K1: tail pixels only (1, 15), one
 # group (16), a group and a tail pixel (17), 6 groups and 9 tail pixels (105)
 K1_SMALL = ((1, 1, 1, 3), (1, 3, 5, 3), (1, 4, 4, 3), (1, 1, 17, 3), (3, 7, 5, 3))
-# K1 as the wrapper launches it, and its first version
-K1_FORMS = {"kernel": {}, "first_version": dict(first_version=True)}
 
 
 def ms_after_copy(fn, pinned, iters=30, warmup=3):
@@ -321,7 +342,7 @@ def k1_c_entry_checks(lib, x, mode, dtype, plain):
 
 def phase_kernel(timer):
     """K1 against its plain version on every route, then timed in turns
-    beside the first version, x.to(dtype) (the `raw` mode's one call on
+    beside x.to(dtype) (the `raw` mode's one call on
     the same bytes) and the plain version, under three L2 conditions."""
     import torch
     from dml_tpu_torch.ops import preprocess as ops
@@ -349,19 +370,15 @@ def phase_kernel(timer):
                 want = normalize_on_device(x, mode, dtype)
                 before = ops.normalize_launches
                 got = ops.fused_normalize(x, mode, dtype)
-                forms = {k: ops._normalize_cuda(x, mode, dtype, **kw) for k, kw in K1_FORMS.items()}
                 torch.cuda.synchronize()
-                check(ops.normalize_launches == before + 1 + len(forms),
-                      "one counted launch a wrapper call")
+                check(ops.normalize_launches == before + 1, "one counted launch a wrapper call")
                 check(got.dtype == dtype and got.shape == x.shape and got.is_contiguous(),
                       f"kernel output {got.dtype} {tuple(got.shape)}")
                 max_err, n_diff, ok = k1_held(got, want, dtype)
-                held = {k: k1_held(v, want, dtype) for k, v in forms.items()}
-                ok = ok and n_diff == 0 and all(h[2] and h[1] == 0 for h in held.values())
+                ok = ok and n_diff == 0
                 case = dict(phase="kernel_check", case=name, shape=list(x.shape), mode=mode,
                             dtype=dtype_name(dtype), base_offset_bytes=offset,
-                            max_abs_err=max_err, n_not_identical=n_diff,
-                            forms_n_not_identical={k: h[1] for k, h in held.items()}, ok=ok)
+                            max_abs_err=max_err, n_not_identical=n_diff, ok=ok)
                 emit(**case)
                 if not ok:
                     raise AssertionError(f"normalize kernel disagrees: {case}")
@@ -373,14 +390,13 @@ def phase_kernel(timer):
 
     timings = {}
     tiny = inputs["[1, 4, 4, 3]"]
-    order = [*K1_FORMS, "to", "floor_16px", "plain", "floor_16px", "to", *reversed(K1_FORMS)]
+    order = ["kernel", "to", "floor_16px", "plain", "floor_16px", "to", "kernel"]
     for model, shape, mode in K1_TIMED:
         x = inputs[str(list(shape))]
         pinned = x.cpu().pin_memory()
         for dtype in dtypes:
-            runs = {k: (lambda x, kw=kw: ops._normalize_cuda(x, mode, dtype, **kw))
-                    for k, kw in K1_FORMS.items()}
-            runs["to"] = lambda x: x.to(dtype)
+            runs = {"kernel": lambda x: ops._normalize_cuda(x, mode, dtype),
+                    "to": lambda x: x.to(dtype)}
             runs["plain"] = lambda x: normalize_on_device(x, mode, dtype)
             # the launch floor: the wrapper on one 16-pixel group
             runs["floor_16px"] = lambda x: ops.fused_normalize(tiny, mode, dtype)
@@ -389,7 +405,7 @@ def phase_kernel(timer):
             by_cond = {}
             for cond in ("write_flush", "read_flush", "after_copy"):
                 turns = {k: [] for k in runs}
-                for k in order:  # in turns: kernel, first version, to, plain, and back
+                for k in order:  # in turns: kernel, to, floor, plain, and back
                     if cond == "after_copy":
                         turns[k].append(ms_after_copy(runs[k], pinned))
                     else:
@@ -407,7 +423,6 @@ def phase_kernel(timer):
             timings[(shape, mode, dtype)] = dict(
                 ms=a["kernel"], plain_ms=a["plain"], bound_ms=bound, library_ms=a["to"],
                 max_abs_err=k1_held(ops.fused_normalize(x, mode, dtype), want, dtype)[0],
-                first_version_ms=a["first_version"],
                 read_flush_ms=by_cond["read_flush"]["kernel"],
                 after_copy_ms=by_cond["after_copy"]["kernel"])
     del inputs, cases
@@ -702,7 +717,7 @@ def ptxas_usage(report):
             name = f"{m.group(1)}<{','.join(args)}>"
             usage[name] = {}
             continue
-        m = re.search(r"Function properties for \S*?(normalize_(?:vec|first)_kernel)"
+        m = re.search(r"Function properties for \S*?(normalize_vec_kernel)"
                       r"I(f|13__nv_bfloat16)((?:Li\d+E)*)E", line)
         if m:
             args = [types[m.group(2)], *re.findall(r"Li(\d+)E", m.group(3))]
@@ -1540,6 +1555,238 @@ def phase_train():
     return launches
 
 
+# the image training path: ResNet50 at its published width and depth,
+# 224x224 caffe, bf16, batch 32 (the serving batch), AdamW lr 1e-3
+IMAGE_TRAIN_STEPS, INCEPTION_TRAIN_STEPS, REMAT_STEPS, PREFETCH_IMAGES = 20, 5, 3, 64
+IMAGE_TRAIN_KINDS = (
+    ("normalize_", "normalize"), ("dgrad", "conv_backward"), ("wgrad", "conv_backward"),
+    ("Adam", "optimizer"), ("multi_tensor_apply", "optimizer"),
+    ("bn_bw", "batch_norm"), ("batch_norm", "batch_norm"), ("bn_fw", "batch_norm"),
+    ("fprop", "conv"), ("implicit_gemm", "conv"), ("conv", "conv"), ("pool", "pool"),
+    ("gemm", "gemm"), ("nvjet", "gemm"), ("softmax", "softmax"), ("Memcpy", "copy"),
+    ("Memset", "copy"), ("reduce", "reduce"), ("CatArray", "concat"),
+    ("elementwise", "elementwise"))
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms within the block: a comparison of
+    two runs that must agree (a resume, remat against plain) then sees
+    the state and the recomputation, not cuDNN's run-to-run order of
+    atomic adds."""
+    import torch
+
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def _seeded_batch(rng, n, h, w, classes):
+    imgs = rng.randint(0, 256, (n, h, w, 3)).astype(np.uint8)
+    imgs = np.clip(imgs // 2 + rng.randint(0, 128, (n, 1, 1, 3)), 0, 255).astype(np.uint8)
+    return imgs, rng.randint(0, classes, n).astype(np.int64)
+
+
+def _counted_steps(tr, x, y, n):
+    """n train steps, each checked to launch K1 exactly once and no other
+    kernel of the port; (losses, accuracies, step ms)."""
+    import torch
+
+    per_step = {"normalize": 1, "flash_attention": 0, "flash_bwd": 0, "flash_bwd_delta": 0,
+                "decode_attention": 0}
+    losses, accs, step_ms = [], [], []
+    for _ in range(n):
+        before = launch_counts()
+        t0 = time.monotonic()
+        m = tr.step(x, y)  # float(loss) waits for the whole step
+        step_ms.append((time.monotonic() - t0) * 1e3)
+        after = launch_counts()
+        moved = {k: after[k] - before[k] for k in after}
+        check(moved == per_step, f"an image train step launched {moved}, want {per_step}")
+        losses.append(m["loss"])
+        accs.append(m["accuracy"])
+    torch.cuda.synchronize()
+    return losses, accs, step_ms
+
+
+def phase_image_train():
+    """The image training path: `parallel.train.Trainer` on cuda, counted.
+    Returns K1's launches on it, by model."""
+    import torch
+    from dml_tpu_torch.data import ImageDataset, Prefetcher
+    from dml_tpu_torch.inference import InferenceEngine
+    from dml_tpu_torch.models import preprocess
+    from dml_tpu_torch.models.registry import CostDefaults, ModelSpec, get_model, register
+    from dml_tpu_torch.models.resnet import ResNet
+    from dml_tpu_torch.native import loader as native_loader
+    from dml_tpu_torch.parallel.train import Trainer
+
+    h, w = get_model("ResNet50").input_size
+    x_np, y_np = _seeded_batch(np.random.RandomState(9), BATCH, h, w, 1000)
+    # the batch on the card, as Prefetcher(device="cuda") yields it
+    x, y = torch.from_numpy(x_np).cuda(), torch.from_numpy(y_np).cuda()
+    t0 = time.monotonic()
+    tr = Trainer("ResNet50", batch_size=BATCH, dtype=torch.bfloat16, seed=0)  # device None -> cuda
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    check(tr.device.type == "cuda", f"Trainer on {tr.device}")
+    check(all(p.dtype == torch.float32 for p in tr.params.values()), "master weights not float32")
+    warm = tr.step(x, y)  # warm-up: cuDNN's algorithm choice, the optimizer's state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the main path, counted ----
+    reset_launch_counts()
+    losses, accs, step_ms = _counted_steps(tr, x, y, IMAGE_TRAIN_STEPS)
+    stats_before = {k: v.clone() for k, v in tr.state["batch_stats"].items()}
+    step_before = tr.state["step"]
+    before = launch_counts()["normalize"]
+    ev = tr.evaluate(x, y)
+    eval_launches = launch_counts()["normalize"] - before
+    launches = launch_counts()
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses[0]} -> {losses[-1]}")
+    check(eval_launches == 1, f"evaluate launched K1 {eval_launches} times")
+    check(tr.state["step"] == step_before == 1 + IMAGE_TRAIN_STEPS, "evaluate moved the step")
+    check(all(torch.equal(v, stats_before[k]) for k, v in tr.state["batch_stats"].items()),
+          "evaluate moved the running statistics")
+    check(np.isfinite(ev["loss"]), f"evaluate loss {ev}")
+
+    with tempfile.TemporaryDirectory() as ck, deterministic_cudnn():
+        # checkpoint round trip on the card: the next two losses repeat
+        t0 = time.monotonic()
+        tr.save_checkpoint(ck)
+        save_s = time.monotonic() - t0
+        ahead = [tr.step(x, y)["loss"] for _ in range(2)]
+        t0 = time.monotonic()
+        check(tr.restore_checkpoint(ck) == step_before, "restored the wrong step")
+        restore_s = time.monotonic() - t0
+        again = [tr.step(x, y)["loss"] for _ in range(2)]
+        ck_rel = max(_rel(a, b) for a, b in zip(again, ahead))
+        check(ck_rel <= 1e-5, f"losses after restore {again} != {ahead}")
+        # remat against the plain step from the same state
+        check(tr.restore_checkpoint(ck) == step_before, "restored the wrong step")
+        plain = [tr.step(x, y)["loss"] for _ in range(REMAT_STEPS)]
+        plain_stats = tr.state["batch_stats"]
+        rt = Trainer("ResNet50", batch_size=BATCH, dtype=torch.bfloat16, remat=True)
+        rt.restore_checkpoint(ck)
+        remat = [rt.step(x, y)["loss"] for _ in range(REMAT_STEPS)]
+        remat_rel = max(_rel(a, b) for a, b in zip(remat, plain))
+        stats_rel = max(float(((v - plain_stats[k]).abs() / plain_stats[k].abs().clamp_min(1e-3)).max())
+                        for k, v in rt.state["batch_stats"].items())
+        del rt
+    check(remat_rel <= 1e-5, f"remat losses {remat} != plain {plain}")
+    check(stats_rel <= 1e-5, f"remat running statistics differ by {stats_rel} relative")
+
+    # the trained weights served by the engine: the same accuracy
+    ev_export = tr.evaluate(x, y)
+    eng = InferenceEngine(dtype=torch.bfloat16)
+    eng.load_model("ResNet50", variables=tr.export_variables(), batch_size=BATCH)
+    probs = eng.infer_arrays("ResNet50", x_np)
+    engine_acc = float((probs.argmax(-1) == y_np).mean())
+    check(engine_acc == ev_export["accuracy"],
+          f"engine accuracy {engine_acc} != evaluate's {ev_export['accuracy']}")
+    del eng
+
+    prof = profile_calls(lambda: tr.step(x, y), 3, IMAGE_TRAIN_KINDS)
+    prof["normalize_share_of_busy"] = (prof["by_kind_ms_per_call"].get("normalize", 0.0)
+                                       / prof["device_busy_ms_per_call"])
+
+    # the input pipeline into the trainer: JPEGs decoded on the host,
+    # copied by the Prefetcher from pinned memory on its own stream
+    p_np, p_labels = _seeded_batch(np.random.RandomState(10), PREFETCH_IMAGES, h, w, 1000)
+    with tempfile.TemporaryDirectory() as tmp:
+        files = write_images(tmp, p_np, "jpeg")
+        ds = ImageDataset(list(zip(files, p_labels.tolist())), (h, w), BATCH, seed=1)
+        decoded = preprocess.decoded_batches
+        decoded.update(native=0, pil=0)
+        reset_launch_counts()
+        pf_losses, pf_equal = [], []
+        for (images, labels), (want, want_labels) in zip(Prefetcher(ds, device="cuda"),
+                                                         ds.epoch(0)):
+            check(images.device.type == "cuda" and images.dtype == torch.uint8
+                  and tuple(images.shape) == (BATCH, h, w, 3), f"prefetched {images.shape}")
+            pf_losses.append(tr.step(images, labels)["loss"])
+            pf_equal.append(bool(np.array_equal(images.cpu().numpy(), want))
+                            and bool(np.array_equal(labels.cpu().numpy(), want_labels)))
+        pf_launches = launch_counts()["normalize"]
+    emit(phase="loader", model="ResNet50", path="image_train Prefetcher",
+         jpeg_batch_decoder="native" if decoded["native"] else "pil",
+         decoded_batches=dict(decoded), native_available=native_loader.native_available(),
+         build_error=native_loader.build_error())
+    n_batches = PREFETCH_IMAGES // BATCH
+    check(len(pf_losses) == n_batches and all(pf_equal), f"prefetched batches {pf_equal}")
+    check(pf_launches == n_batches and all(np.isfinite(pf_losses)),
+          f"prefetch loop: {pf_launches} K1 launches, losses {pf_losses}")
+    del tr
+    torch.cuda.empty_cache()
+
+    # InceptionV3 b32 299x299 tf: no trainable BN scale
+    ih, iw = get_model("InceptionV3").input_size
+    xi_np, yi_np = _seeded_batch(np.random.RandomState(11), BATCH, ih, iw, 1000)
+    xi, yi = torch.from_numpy(xi_np).cuda(), torch.from_numpy(yi_np).cuda()
+    ti = Trainer("InceptionV3", batch_size=BATCH, dtype=torch.bfloat16, seed=0)
+    check(not any("batch_normalization" in n and n.endswith(".weight") for n in ti.params),
+          "InceptionV3 has a trainable BN scale")
+    inc_warm = ti.step(xi, yi)
+    reset_launch_counts()
+    inc_losses, inc_accs, inc_ms = _counted_steps(ti, xi, yi, INCEPTION_TRAIN_STEPS)
+    inc_launches = launch_counts()
+    check(all(np.isfinite(inc_losses)), f"InceptionV3 non-finite loss: {inc_losses}")
+    del ti
+    torch.cuda.empty_cache()
+
+    # float32: the card (TF32 off) against the port's CPU path, on a
+    # narrow ResNet
+    register(ModelSpec(
+        name="ResNetNarrow", input_size=(64, 64), preprocess="caffe",
+        builder=lambda num_classes, dtype, param_dtype=None: ResNet(
+            (1, 1, 1, 1), num_classes, dtype, param_dtype),
+        cost=CostDefaults(load_time=0.1, first_query=0.1, per_query=0.01)))
+    xs, ys = _seeded_batch(np.random.RandomState(12), 8, 64, 64, 10)
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        g32 = Trainer("ResNetNarrow", batch_size=8, dtype=torch.float32, num_classes=10, seed=1,
+                      learning_rate=1e-4)
+        cuda_losses = [g32.step(xs, ys)["loss"] for _ in range(3)]
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    c32 = Trainer("ResNetNarrow", batch_size=8, dtype=torch.float32, num_classes=10, seed=1,
+                  learning_rate=1e-4, device="cpu")
+    cpu_losses = [c32.step(xs, ys)["loss"] for _ in range(3)]
+    f32_rel = max(_rel(a, b) for a, b in zip(cuda_losses, cpu_losses))
+    check(f32_rel <= 1e-4, f"f32 cuda losses {cuda_losses} != cpu {cpu_losses}")
+    del g32, c32
+
+    med = statistics.median(step_ms)
+    emit(phase="image_train", config=dict(model="ResNet50", image=[h, w], mode="caffe",
+                                          dtype="bfloat16", batch=BATCH,
+                                          optimizer="AdamW lr 1e-3 wd 1e-4",
+                                          params="float32 masters"),
+         init_s=init_s, warmup_loss=warm["loss"], steps=IMAGE_TRAIN_STEPS, losses=losses,
+         accuracies=accs, launches=launches, evaluate=ev, evaluate_launches=eval_launches,
+         step_ms=step_ms, step_ms_median=med, step_ms_p90=float(np.percentile(step_ms, 90)),
+         images_per_s=BATCH / (med / 1e3), max_memory_allocated_mb=peak_mb,
+         checkpoint_save_s=save_s, checkpoint_restore_s=restore_s, losses_ahead=ahead,
+         losses_after_restore=again, restore_max_rel_diff=ck_rel,
+         remat_losses=remat, plain_losses=plain, remat_max_rel_diff=remat_rel,
+         remat_batch_stats_max_rel_diff=stats_rel,
+         export_engine_accuracy=engine_acc, export_evaluate=ev_export,
+         prefetch_losses=pf_losses, prefetch_launches=pf_launches,
+         inception=dict(image=[ih, iw], mode="tf", warmup_loss=inc_warm["loss"],
+                        losses=inc_losses, launches=inc_launches, step_ms=inc_ms,
+                        step_ms_median=statistics.median(inc_ms),
+                        images_per_s=BATCH / (statistics.median(inc_ms) / 1e3)),
+         f32_cuda_losses=cuda_losses, f32_cpu_losses=cpu_losses, f32_max_rel_diff=f32_rel)
+    emit(phase="profile", path=f"image_train_step_resnet50_b{BATCH}", **prof)
+    return {"ResNet50": launches["normalize"], "InceptionV3": inc_launches["normalize"]}
+
+
 def main() -> int:
     import torch
 
@@ -1568,17 +1815,19 @@ def main() -> int:
     lm_launches = phase_lm(timer)
     bwd = phase_flash_bwd(timer)
     train_launches = phase_train()
+    image_train_launches = phase_image_train()
 
     kernels = []
     for model, mode in MODELS:
         shape = (32, 224, 224, 3) if model == "ResNet50" else (32, 299, 299, 3)
         t = timings[(shape, mode, torch.bfloat16)]
+        by_path = {"serve": launches[model], "train": image_train_launches[model]}
         kernels.append(dict(
             name=f"normalize_u8[{model} b32 {mode} bf16; 16-pixel vector groups; "
                  f"library call: x.to(bfloat16), the raw mode's call on the same bytes]",
             route="cuda", variant="staged 16-pixel tiles", source="dml_tpu_torch/csrc/normalize.cu",
-            replaces="dml_tpu/ops/preprocess.py:30", launches=launches[model], bound_by="bytes",
-            **t))
+            replaces="dml_tpu/ops/preprocess.py:30", launches=sum(by_path.values()),
+            launches_by_path=by_path, bound_by="bytes", **t))
     for case, shape, path_launches in (
             ("prefill_b8", f"prefill b{LM_BATCH} T{PROMPT_LEN} H16 KV4 D64 bf16 causal",
              lm_launches["flash_attention"]),

@@ -7,7 +7,8 @@ Flax names them, so the state_dict keys are the Flax tree's layer names.
 order, which is the order the JAX graph calls them in.
 
 What must match the Flax graph:
-- convs have no bias; BN has no scale (its weight is ones), eps 1e-3
+- convs have no bias; BN has no scale (its weight is a buffer of ones,
+  not a parameter), eps 1e-3, momentum 0.99
 - stride-1 convs are SAME, which for the odd 1x7/7x1/1x3/3x1/3x3/5x5
   kernels is a symmetric pad of (k-1)/2; stride-2 convs, and the stem's
   marked ones, are VALID
@@ -17,25 +18,30 @@ What must match the Flax graph:
   3x3 (or double 7x7), pool
 - head: global average pool, cast to float32, dense, softmax, all f32
 
-NHWC at the public input, channels-last NCHW inside, conv weights in the
-compute dtype, BN and head in float32 (see models/resnet.py).
+NHWC at the public input, channels-last NCHW inside, conv weights in
+`param_dtype` cast to the compute dtype at each call, BN and head in
+float32 (see models/resnet.py).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import BatchNorm
+from .layers import BatchNorm, Conv2d
 
 BN_EPS = 1e-3
 
 
 class InceptionV3(nn.Module):
-    def __init__(self, num_classes: int = 1000, dtype: torch.dtype = torch.float32):
+    def __init__(self, num_classes: int = 1000, dtype: torch.dtype = torch.float32,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dtype = dtype
+        self.param_dtype = dtype if param_dtype is None else param_dtype
         self._n = 0
         add = self._add
         # ---- stem ----
@@ -103,10 +109,11 @@ class InceptionV3(nn.Module):
         pad = (0, 0) if valid else ((kh - 1) // 2, (kw - 1) // 2)
         self.add_module(
             f"conv2d_{i}",
-            nn.Conv2d(cin, cout, (kh, kw), stride=stride, padding=pad,
-                      bias=False, dtype=self.dtype),
+            Conv2d(cin, cout, (kh, kw), stride=stride, padding=pad, bias=False,
+                   dtype=self.param_dtype, compute_dtype=self.dtype),
         )
-        self.add_module(f"batch_normalization_{i}", BatchNorm(cout, BN_EPS))
+        self.add_module(f"batch_normalization_{i}",
+                        BatchNorm(cout, BN_EPS, momentum=0.99, scale=False))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC image in any float dtype -> float32 class probabilities."""

@@ -16,7 +16,7 @@ device, and raise when there is no CUDA device; the tests pass
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -189,6 +189,30 @@ def _adam_state(opt_state: Any) -> Any:
     return None
 
 
+def adam_opt_state_from_flax(opt_state: Any, params: Mapping[str, torch.Tensor],
+                             convert: Callable[[Any, str], Dict[str, torch.Tensor]]
+                             ) -> Dict[str, Any]:
+    """optax.adamw's chain state -> `{"count": int, "exp_avg": {name:
+    tensor}, "exp_avg_sq": {name: tensor}}`, the form the port's
+    trainers carry (`parallel.adamw`). `convert(tree, "mu" | "nu")` turns
+    a moment tree into tensors by parameter name; each must hold exactly
+    `params`' keys and shapes (KeyError, ValueError otherwise)."""
+    adam = _adam_state(opt_state)
+    if adam is None:
+        raise KeyError("opt_state holds no ScaleByAdamState (count, mu, nu)")
+    moments = {}
+    for name, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+        sd = convert(getattr(adam, name), name)
+        if set(sd) != set(params):
+            raise KeyError(f"opt_state {name} keys {sorted(set(sd) ^ set(params))} differ from the params'")
+        for k, v in sd.items():
+            if v.shape != params[k].shape:
+                raise ValueError(f"opt_state {name} {k!r}: shape {tuple(v.shape)}, "
+                                 f"the param's is {tuple(params[k].shape)}")
+        moments[key] = sd
+    return {"count": int(np.asarray(adam.count)), **moments}
+
+
 def lm_train_state_from_flax(state: Mapping[str, Any], device=None) -> Dict[str, Any]:
     """The JAX package's `LongContextLM.state` (`{"params", "opt_state",
     "step"}` with numpy or array leaves; `opt_state` is optax.adamw's
@@ -202,19 +226,7 @@ def lm_train_state_from_flax(state: Mapping[str, Any], device=None) -> Dict[str,
     shape checks; mu and nu must hold exactly the params' keys and
     shapes (KeyError, ValueError otherwise)."""
     params = state_dict_of(lm_params_from_flax(state["params"], device))
-    adam = _adam_state(state["opt_state"])
-    if adam is None:
-        raise KeyError("opt_state holds no ScaleByAdamState (count, mu, nu)")
-    moments = {}
-    for name, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
-        sd = state_dict_of(lm_params_from_flax(getattr(adam, name), device))
-        if set(sd) != set(params):
-            raise KeyError(f"opt_state {name} keys {sorted(set(sd) ^ set(params))} differ from the params'")
-        for k, v in sd.items():
-            if v.shape != params[k].shape:
-                raise ValueError(f"opt_state {name} {k!r}: shape {tuple(v.shape)}, "
-                                 f"the param's is {tuple(params[k].shape)}")
-        moments[key] = sd
-    return {"params": params,
-            "opt_state": {"count": int(np.asarray(adam.count)), **moments},
-            "step": int(np.asarray(state["step"]))}
+    opt_state = adam_opt_state_from_flax(
+        state["opt_state"], params,
+        lambda tree, name: state_dict_of(lm_params_from_flax(tree, device)))
+    return {"params": params, "opt_state": opt_state, "step": int(np.asarray(state["step"]))}

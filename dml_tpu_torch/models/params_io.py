@@ -1,14 +1,17 @@
 """Weights for the ported models: deterministic init, and the JAX
 package's variables carried across.
 
-Two sources feed a model's `load_state_dict`:
+Two sources feed a model's `load_state_dict`, and one a trainer's state:
 
 - `init_variables(spec, seed)`: the engine's default weights, drawn
   with Flax's initializers from a `torch.Generator`;
 - `from_flax_variables(tree)`: weights in the JAX package's layout,
   either its nested `{'params': ..., 'batch_stats': ...}` tree or the
   flat 'a/b/c'-keyed dict that `dml_tpu.models.params_io.
-  save_npz_fixture` writes (read here with `load_npz_fixture`).
+  save_npz_fixture` writes (read here with `load_npz_fixture`);
+- `image_train_state_from_flax(state)`: the JAX package's image
+  `Trainer.state` (params, batch statistics, AdamW moments, step), which
+  `parallel.train.Trainer.state` takes, so a JAX run resumes in the port.
 
 Layout mapping (Flax -> PyTorch):
 - conv `kernel` HWIO -> `weight` OIHW; dense `kernel` [in, out] ->
@@ -88,6 +91,21 @@ def _leaf_to_torch(key: str, leaf: str, arr: np.ndarray) -> Tuple[str, np.ndarra
     return names[leaf], arr
 
 
+def params_from_flax(tree: Mapping[str, Any], collection: str = "params") -> Dict[str, torch.Tensor]:
+    """One Flax collection (`params`, `batch_stats`, or an optimizer
+    moment shaped like `params`), nested or flat 'layer/leaf'-keyed ->
+    {'layer.name': float32 tensor} in the PyTorch layout. Errors name a
+    leaf as '<collection>/layer/leaf'."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, value in _flatten(tree, collection).items():
+        parts = key[len(collection) + 1:].split("/")
+        if len(parts) < 2:
+            raise KeyError(f"unexpected Flax variable {key!r}")
+        name, arr = _leaf_to_torch(key, parts[-1], np.asarray(value, dtype=np.float32))
+        out[f"{'.'.join(parts[:-1])}.{name}"] = torch.tensor(arr)  # a contiguous copy
+    return out
+
+
 def from_flax_variables(
     tree: Mapping[str, Any], module: Optional[nn.Module] = None
 ) -> Dict[str, torch.Tensor]:
@@ -97,21 +115,17 @@ def from_flax_variables(
     wrong shape raises ValueError."""
     flat = _flatten(tree)
     flat.pop(_CLASS_INDEX_KEY, None)
-    sd: Dict[str, torch.Tensor] = {}
-    bn_layers, scaled = set(), set()
+    collections: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
     for key, value in flat.items():
-        parts = key.split("/")
-        if len(parts) < 3 or parts[0] not in ("params", "batch_stats"):
+        top, _, rest = key.partition("/")
+        if top not in collections or "/" not in rest:
             raise KeyError(f"unexpected Flax variable {key!r}")
-        layer, leaf = ".".join(parts[1:-1]), parts[-1]
-        if parts[0] == "batch_stats":
-            bn_layers.add(layer)
-        if leaf == "scale":
-            scaled.add(layer)
-        name, arr = _leaf_to_torch(key, leaf, np.asarray(value, dtype=np.float32))
-        sd[f"{layer}.{name}"] = torch.tensor(arr)  # a contiguous copy
-    for layer in bn_layers - scaled:
-        sd[f"{layer}.weight"] = torch.ones_like(sd[f"{layer}.running_mean"])
+        collections[top][rest] = value
+    stats = params_from_flax(collections["batch_stats"], "batch_stats")
+    sd = {**params_from_flax(collections["params"]), **stats}
+    for k in stats:  # a BN layer built without a scale: weight = ones
+        layer = k.rpartition(".")[0]
+        sd.setdefault(f"{layer}.weight", torch.ones_like(stats[f"{layer}.running_mean"]))
     if module is not None:
         want = module.state_dict()
         for k in want:
@@ -126,3 +140,29 @@ def from_flax_variables(
                     f"{tuple(want[k].shape)}"
                 )
     return sd
+
+
+def image_train_state_from_flax(state: Mapping[str, Any], device=None) -> Dict[str, Any]:
+    """The JAX package's `Trainer.state` (`{"params", "batch_stats",
+    "opt_state", "step"}` with numpy or array leaves; `opt_state` is
+    optax.adamw's chain state, whose `ScaleByAdamState` holds count, mu
+    and nu) -> the port's `parallel.train.Trainer.state`: `{"params":
+    {name: tensor}, "batch_stats": {name: tensor}, "opt_state": {"count":
+    int, "exp_avg": {name: tensor}, "exp_avg_sq": {name: tensor}},
+    "step": int}`, PyTorch names and layouts, float32, on `device`
+    (`cuda` unless given). mu and nu must hold exactly the params' keys
+    and shapes (KeyError, ValueError otherwise)."""
+    from .lm_params import adam_opt_state_from_flax, resolve_device
+
+    dev = resolve_device(device)
+
+    def on_device(tree, collection):
+        return {k: v.to(dev) for k, v in params_from_flax(tree, collection).items()}
+
+    params = on_device(state["params"], "params")
+    return {"params": params,
+            "batch_stats": on_device(state["batch_stats"], "batch_stats"),
+            "opt_state": adam_opt_state_from_flax(
+                state["opt_state"], params,
+                lambda tree, name: on_device(tree, f"opt_state/{name}")),
+            "step": int(np.asarray(state["step"]))}

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import partial
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -32,14 +32,19 @@ class CostDefaults:
 @dataclass(frozen=True)
 class ModelSpec:
     name: str
-    builder: Callable[..., nn.Module]  # (num_classes, dtype) -> nn.Module
+    builder: Callable[..., nn.Module]  # (num_classes, dtype, param_dtype) -> nn.Module
     input_size: Tuple[int, int]
     preprocess: str  # normalize mode
     cost: CostDefaults
     aliases: Tuple[str, ...] = ()
 
-    def build(self, dtype: torch.dtype = torch.bfloat16, num_classes: int = 1000) -> nn.Module:
-        return self.builder(num_classes=num_classes, dtype=dtype)
+    def build(self, dtype: torch.dtype = torch.bfloat16, num_classes: int = 1000,
+              param_dtype: Optional[torch.dtype] = None) -> nn.Module:
+        """The model computing in `dtype`, its conv weights held in
+        `param_dtype` (None: `dtype`, as the inference engine holds them;
+        the trainer passes float32)."""
+        kw = {} if param_dtype is None else {"param_dtype": param_dtype}
+        return self.builder(num_classes=num_classes, dtype=dtype, **kw)
 
 
 MODEL_REGISTRY: Dict[str, ModelSpec] = {}
@@ -61,16 +66,17 @@ def get_model(name: str) -> ModelSpec:
         ) from None
 
 
-def _build_resnet(depth, num_classes=1000, dtype=torch.bfloat16):
+def _build_resnet(depth, num_classes=1000, dtype=torch.bfloat16, param_dtype=None):
     from . import resnet
 
-    return getattr(resnet, f"ResNet{depth}")(num_classes=num_classes, dtype=dtype)
+    return getattr(resnet, f"ResNet{depth}")(num_classes=num_classes, dtype=dtype,
+                                              param_dtype=param_dtype)
 
 
-def _build_inception(num_classes=1000, dtype=torch.bfloat16):
+def _build_inception(num_classes=1000, dtype=torch.bfloat16, param_dtype=None):
     from .inception import InceptionV3
 
-    return InceptionV3(num_classes=num_classes, dtype=dtype)
+    return InceptionV3(num_classes=num_classes, dtype=dtype, param_dtype=param_dtype)
 
 
 def _register_builtin() -> None:

@@ -16,20 +16,24 @@ What must match the Flax graph:
 
 The public input is NHWC, as in the JAX package. Inside, the model runs
 NCHW in `torch.channels_last` memory: `x.permute(0, 3, 1, 2)` of an NHWC
-tensor is already that, so no copy. Conv weights are held in the compute
-`dtype` (Flax casts its float32 kernels at each call; casting once gives
-the same values); BN statistics and the dense head stay float32.
+tensor is already that, so no copy. Conv weights are held in
+`param_dtype` and cast to the compute `dtype` at each call, as Flax
+casts its float32 kernels (`layers.Conv2d`). The inference engine holds
+them in the compute dtype (cast once: the same values); the trainer in
+float32, so its gradients and AdamW updates are float32. BN statistics
+and parameters and the dense head stay float32. BN momentum 0.99, as in
+the Flax graph (it moves the running statistics in training).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import BatchNorm
+from .layers import BatchNorm, Conv2d
 
 BN_EPS = 1.001e-5
 
@@ -42,11 +46,12 @@ class ResNet(nn.Module):
         depths: Sequence[int] = (3, 4, 6, 3),
         num_classes: int = 1000,
         dtype: torch.dtype = torch.float32,
+        param_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         self.dtype = dtype
-        self.conv1_conv = nn.Conv2d(3, 64, 7, stride=2, padding=3, dtype=dtype)
-        self.conv1_bn = BatchNorm(64, BN_EPS)
+        self.param_dtype = dtype if param_dtype is None else param_dtype
+        self._conv_bn("conv1", 3, 64, 7, 2)
         # (prefix, has conv shortcut) per block, in forward order
         self.blocks: List[Tuple[str, bool]] = []
         cin, filters = 64, 64
@@ -67,9 +72,10 @@ class ResNet(nn.Module):
     def _conv_bn(self, name, cin, cout, k, stride):
         self.add_module(
             f"{name}_conv",
-            nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, dtype=self.dtype),
+            Conv2d(cin, cout, k, stride=stride, padding=k // 2, dtype=self.param_dtype,
+                   compute_dtype=self.dtype),
         )
-        self.add_module(f"{name}_bn", BatchNorm(cout, BN_EPS))
+        self.add_module(f"{name}_bn", BatchNorm(cout, BN_EPS, momentum=0.99))
 
     def _cbn(self, x, name):
         return getattr(self, f"{name}_bn")(getattr(self, f"{name}_conv")(x))
@@ -77,7 +83,7 @@ class ResNet(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC image in any float dtype -> float32 class probabilities."""
         x = x.to(self.dtype).permute(0, 3, 1, 2)
-        x = F.relu(self.conv1_bn(self.conv1_conv(x)))
+        x = F.relu(self._cbn(x, "conv1"))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         for p, shortcut in self.blocks:
             sc = self._cbn(x, f"{p}_0") if shortcut else x
@@ -89,13 +95,19 @@ class ResNet(nn.Module):
         return torch.softmax(self.predictions(x), dim=-1)
 
 
-def ResNet50(num_classes: int = 1000, dtype: torch.dtype = torch.float32) -> ResNet:
-    return ResNet(depths=(3, 4, 6, 3), num_classes=num_classes, dtype=dtype)
+def ResNet50(num_classes: int = 1000, dtype: torch.dtype = torch.float32,
+             param_dtype: Optional[torch.dtype] = None) -> ResNet:
+    return ResNet(depths=(3, 4, 6, 3), num_classes=num_classes, dtype=dtype,
+                  param_dtype=param_dtype)
 
 
-def ResNet101(num_classes: int = 1000, dtype: torch.dtype = torch.float32) -> ResNet:
-    return ResNet(depths=(3, 4, 23, 3), num_classes=num_classes, dtype=dtype)
+def ResNet101(num_classes: int = 1000, dtype: torch.dtype = torch.float32,
+             param_dtype: Optional[torch.dtype] = None) -> ResNet:
+    return ResNet(depths=(3, 4, 23, 3), num_classes=num_classes, dtype=dtype,
+                  param_dtype=param_dtype)
 
 
-def ResNet152(num_classes: int = 1000, dtype: torch.dtype = torch.float32) -> ResNet:
-    return ResNet(depths=(3, 8, 36, 3), num_classes=num_classes, dtype=dtype)
+def ResNet152(num_classes: int = 1000, dtype: torch.dtype = torch.float32,
+             param_dtype: Optional[torch.dtype] = None) -> ResNet:
+    return ResNet(depths=(3, 8, 36, 3), num_classes=num_classes, dtype=dtype,
+                  param_dtype=param_dtype)

@@ -2,7 +2,8 @@
 
 - `preprocess.fused_normalize`: uint8 image -> normalized bf16/f32 in
   one pass (csrc/normalize.cu), the counterpart of the JAX package's
-  Pallas `_normalize_kernel`.
+  Pallas `_normalize_kernel`; the engine reaches it through `normalize`,
+  the image Trainer through `normalize_sharded`.
 - `flash_attention.flash_attention(_lse)`: blockwise attention forward
   with an online softmax (csrc/flash_attention.cu), the counterpart of
   the Pallas flash `_fwd_kernel`; runs in the LM's prefill.

@@ -6,7 +6,9 @@ is the CUDA C++ kernel in `dml_tpu_torch/csrc/normalize.cu`, built with
 nvcc for sm_90a at first use and called through ctypes. The source file
 says what bounds it (device-memory bytes) and how it is laid out.
 
-`fused_normalize` is the kernel's wrapper. On a CUDA tensor it launches
+`fused_normalize` is the kernel's wrapper, reached by `normalize` (the
+engine's forward) and `normalize_sharded` (the Trainer's step and
+evaluate). On a CUDA tensor it launches
 the kernel (and counts the launch in `normalize_launches`) or raises; on
 a CPU tensor it runs the plain PyTorch version,
 `models.preprocess.normalize_on_device`, as the JAX package pairs its
@@ -76,8 +78,7 @@ def _library() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
-    lib.dml_normalize_u8_first.argtypes = lib.dml_normalize_u8.argtypes
-    lib.dml_normalize_u8.restype = lib.dml_normalize_u8_first.restype = ctypes.c_int
+    lib.dml_normalize_u8.restype = ctypes.c_int
     return lib
 
 
@@ -86,6 +87,25 @@ def normalize(
 ) -> torch.Tensor:
     """Product entry point (the engine's forward calls it): the Hopper
     kernel on a CUDA tensor, plain PyTorch on a CPU tensor."""
+    return fused_normalize(x, mode, dtype)
+
+
+def normalize_sharded(
+    x: torch.Tensor, mode: str, dtype: torch.dtype = torch.bfloat16, mesh=None
+) -> torch.Tensor:
+    """`normalize` for the mesh paths (the Trainer's step and evaluate),
+    per rank: each rank normalizes its own batch shard, as the JAX
+    package wraps its kernel in `shard_map` over the dp axis. On one
+    device (`mesh` None or of size 1) that is `fused_normalize` on the
+    local batch: K1 on a CUDA tensor, the plain version on a CPU tensor.
+    A mesh of more than one device raises NotImplementedError."""
+    from ..parallel import mesh_size
+
+    if mesh_size(mesh) > 1:
+        raise NotImplementedError(
+            "normalize_sharded over a mesh of more than one device (one batch shard "
+            "per rank) is not ported yet: ROADMAP A5 (multi-GPU forms)"
+        )
     return fused_normalize(x, mode, dtype)
 
 
@@ -115,10 +135,8 @@ def fused_normalize(
     return _normalize_cuda(x, mode, dtype)
 
 
-def _normalize_cuda(x, mode, dtype, first_version=False):
-    """Launch K1 on the current stream and count the launch.
-    first_version=True launches the first version (one pixel a thread)
-    instead, to time beside it; only chip_smoke.py passes it."""
+def _normalize_cuda(x, mode, dtype):
+    """Launch K1 on the current stream and count the launch."""
     global normalize_launches
     lib = _library()
     x = _aligned_input(x)
@@ -126,9 +144,8 @@ def _normalize_cuda(x, mode, dtype, first_version=False):
     n_pixels = x.numel() // 3
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        entry = lib.dml_normalize_u8_first if first_version else lib.dml_normalize_u8
-        err = entry(x.data_ptr(), out.data_ptr(), n_pixels, _MODES[mode],
-                    int(dtype == torch.bfloat16), stream)
+        err = lib.dml_normalize_u8(x.data_ptr(), out.data_ptr(), n_pixels, _MODES[mode],
+                                   int(dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"normalize kernel launch failed: cudaError {err}")
     with _count_lock:

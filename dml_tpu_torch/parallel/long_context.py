@@ -14,8 +14,8 @@ Differences from the JAX package, by design:
   data or tensor parallelism: ring or Ulysses attention, GSPMD) raises
   NotImplementedError; those forms are ROADMAP's multi-GPU slice.
 - PyTorch runs eagerly: no jit, and the state is updated in place
-  (`torch.optim.AdamW` with optax.adamw's hyperparameters: b1 0.9,
-  b2 0.999, eps 1e-8, weight decay 1e-4 on every parameter).
+  (`adamw.make_adamw`: torch's AdamW with optax.adamw's
+  hyperparameters).
 - `state` is `{"params": TransformerLM state_dict, "opt_state":
   {"count", "exp_avg", "exp_avg_sq"} by parameter name, "step"}`;
   `models.lm_params.lm_train_state_from_flax` converts the JAX state to
@@ -41,22 +41,11 @@ from ..inference.quantize import quantize_lm_params
 from ..models.lm_params import init_lm_params, params_tree_of, resolve_device, state_dict_of
 from ..models.transformer import TransformerLM
 from ..ops.flash_attention import flash_attention
+from . import mesh_size
+from .adamw import adam_state, load_adam_state, make_adamw
 from .checkpoint import CheckpointManager
 
 SEQ_PARALLEL = ("ring", "ulysses")
-ADAM_BETAS, ADAM_EPS = (0.9, 0.999), 1e-8
-WEIGHT_DECAY = 1e-4  # optax.adamw's default (torch's AdamW defaults to 1e-2)
-
-
-def _mesh_size(mesh) -> int:
-    """Devices a mesh asks for: the product of its axis sizes (`mesh` is
-    None, a mapping of axis sizes, or an object with such a `.shape`)."""
-    if mesh is None:
-        return 1
-    shape = getattr(mesh, "shape", mesh)
-    if not isinstance(shape, Mapping):
-        raise TypeError(f"mesh must be None or map axis names to sizes, got {type(mesh).__name__}")
-    return int(np.prod([int(v) for v in shape.values()]))
 
 
 def make_lm(mesh=None, seq_parallel: str = "ring", **config) -> TransformerLM:
@@ -65,7 +54,7 @@ def make_lm(mesh=None, seq_parallel: str = "ring", **config) -> TransformerLM:
     it, whatever the mesh; a mesh of more than one device raises."""
     if seq_parallel not in SEQ_PARALLEL:
         raise ValueError(f"seq_parallel must be 'ring' or 'ulysses', got {seq_parallel!r}")
-    if _mesh_size(mesh) > 1:
+    if mesh_size(mesh) > 1:
         raise NotImplementedError(
             "a mesh of more than one device (ring/Ulysses sequence parallelism, dp/tp "
             "sharding) is not ported yet: ROADMAP A, slice 4 (multi-GPU)"
@@ -114,10 +103,7 @@ class LongContextLM:
                             n_layers=m.n_layers, d_ff=m.d_ff, dtype=m.dtype,
                             n_kv_heads=m.n_kv_heads)
         m.load_state_dict(state_dict_of(init_lm_params(self.cfg, seed=seed, device=self.device)))
-        self.optimizer = torch.optim.AdamW(
-            m.parameters(), lr=learning_rate, betas=ADAM_BETAS, eps=ADAM_EPS,
-            weight_decay=WEIGHT_DECAY, fused=True if self.device.type == "cuda" else None,
-        )
+        self.optimizer = make_adamw(m.parameters(), learning_rate, self.device)
         self.step = 0
         self._serve: Optional[tuple] = None  # (step, {form: params tree})
 
@@ -155,34 +141,14 @@ class LongContextLM:
     @property
     def state(self) -> Dict[str, Any]:
         named = list(self.model.named_parameters())
-        opt = self.optimizer.state
-        first = opt.get(named[0][1])
-        count = int(first["step"]) if first else 0
-
-        def moment(key):
-            return {n: opt[p][key] if p in opt else torch.zeros_like(p) for n, p in named}
-
-        return {"params": self._params(),
-                "opt_state": {"count": count, "exp_avg": moment("exp_avg"),
-                              "exp_avg_sq": moment("exp_avg_sq")},
+        return {"params": self._params(), "opt_state": adam_state(self.optimizer, named),
                 "step": self.step}
 
     @state.setter
     def state(self, state: Mapping[str, Any]) -> None:
-        named = list(self.model.named_parameters())
-        opt = state["opt_state"]
         self.model.load_state_dict(state["params"])
-
-        def own(x, p):  # the optimizer keeps what it is given: copy
-            return x.to(device=p.device, dtype=p.dtype, copy=True)
-
-        self.optimizer.load_state_dict({
-            "state": {i: {"step": torch.tensor(float(opt["count"])),
-                          "exp_avg": own(opt["exp_avg"][n], p),
-                          "exp_avg_sq": own(opt["exp_avg_sq"][n], p)}
-                      for i, (n, p) in enumerate(named)},
-            "param_groups": self.optimizer.state_dict()["param_groups"],
-        })
+        load_adam_state(self.optimizer, list(self.model.named_parameters()),
+                        state["opt_state"])
         self.step = int(state["step"])
         self._serve = None
 
