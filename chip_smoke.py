@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel-only   # phases 1-3 for the normalize kernel alone
+    python3 chip_smoke.py --lm-server     # phases 1-2 and 12 (the LM server) alone
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
@@ -147,11 +148,42 @@ Phases, each printing one JSON line; any failure exits non-zero:
    classes, 64x64, batch 8, lr 1e-4) trained 3 steps on cuda (TF32
    off) and on the CPU gives losses within 1e-4 relative. Step ms
    median and p90, images/s, peak device memory, and a torch.profiler
-   breakdown of one step with K1's share of the busy time.
+   breakdown of one step with K1's share of the busy time;
+12. lm_server: the port's continuous-batching LMServer on cuda at the
+   same LM config, bf16, seeded weights. (a) bench.py's mixed-budget
+   stream (32 requests of 12 prompt tokens, budgets from 32..512 drawn
+   by RandomState(3), 8 slots, max_len 1024, chunk 32): a warm-up, in
+   which K4 is held to its plain version (2e-5) on the live cache with
+   the live ragged positions and a freed slot pinned at max_len - 1;
+   then continuous refill, run step by step under
+   torch.cuda.set_sync_debug_mode("warn") (the submit must make no
+   synchronizing call and each step exactly one), and waves of 8, with
+   tokens/s, the speedup, steps, mean slot occupancy, latency and TTFT
+   p50/p99; the two modes' tokens must be equal. (b) 16 prompts of
+   256-2048 tokens, budget 64, max_len 4096, chunk 16. On every counted
+   server run K2 must launch 12 x the server's placement prefills and
+   K4 12 x chunk x its chunk steps (plus the draft's launches under
+   speculation), and K1, K3 and delta never. bf16 tokens of (b) equal
+   each request's lone generate path up to its first near-tie (top-1
+   minus top-2 logit margin under TIE_MARGIN); sampled tokens
+   (temperature 0.8, top_k 40) of a request equal with 7 grid-mates and
+   with 1; in float32 with TF32 off, 4 requests of (a) equal their lone
+   generate exactly, and speculative decoding (k=4) with the target as
+   its own draft accepts every proposal and with a 2-layer
+   draft_lm_spec draft prints its acceptance, both giving the plain
+   server's tokens. The KV prefix cache warm-starts second turns (hits
+   and saved tokens > 0; warm and cold tokens against the lone run as
+   above; TTFT warm and cold); an int8 server (int8 weights and KV
+   cache); LMDriver with 4 threads of 8 requests equals a serial run;
+   LMBackend.serve_files over prompt files with budget directives, and
+   from_spec over a weights file written by the port's
+   variables_to_bytes, give the server's tokens. A torch.profiler
+   breakdown of one chunk step.
 
 Then the card's name and power limit as nvidia-smi prints them, the
-kernels' summary line (K1's launches by path: serving and training),
-and last `{"ok": true, "device": {...}}`.
+kernels' summary line (K1's launches by path: serving and training; K2's
+and K4's: generate, train and lm_server), and last `{"ok": true,
+"device": {...}}`.
 """
 
 from __future__ import annotations
@@ -1787,6 +1819,476 @@ def phase_image_train():
     return {"ResNet50": launches["normalize"], "InceptionV3": inc_launches["normalize"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the continuous-batching LM server
+# ---------------------------------------------------------------------------
+
+# bench.py's lm.mixed_budget_batching (bench.py:3373-3421): 32 requests of 12
+# prompt tokens, budgets drawn from 32..512, 8 slots, max_len 1024, chunk 32
+LMS_SLOTS, LMS_MAX_LEN, LMS_CHUNK = 8, 1024, 32
+# long prompts, so that K2 runs at real lengths: 16 requests of 256-2048 tokens
+LONG_REQS, LONG_BUDGET, LONG_MAX_LEN, LONG_CHUNK = 16, 64, 4096, 16
+# bf16 token checks: equal up to the first position where the lone run's top-1
+# minus top-2 logit margin is under this (a bf16 rounding of the residual
+# stream moves a logit by a few 1e-3; 0.1 is 20-50 times that)
+TIE_MARGIN = 0.1
+
+
+def mixed_requests(vocab):
+    rng = np.random.RandomState(3)
+    return [(rng.randint(0, vocab, 12).astype(np.int32), int(b))
+            for b in rng.choice([32, 64, 128, 256, 512], size=32)]
+
+
+def server_dispatches():
+    """The servers' own dispatch counters (process-wide, read as deltas):
+    placement group prefills, decode dispatches (chunk steps and spec
+    rounds), and the slot-occupancy samples."""
+    from dml_tpu_torch.observability import METRICS
+
+    pre = METRICS.histogram("lm_server_prefill_dispatch_seconds").items()
+    occ = METRICS.histogram("lm_server_slot_occupancy").items()
+    return {"prefill": sum(st[0] for _, st in pre),
+            "steps": int(METRICS.counter("lm_server_steps_total").value()),
+            "occupancy_sum": sum(st[1] for _, st in occ),
+            "occupancy_n": sum(st[0] for _, st in occ)}
+
+
+def check_server_launches(name, launches, d, n_layers, chunk, spec=None):
+    """K2 = layers x placement prefills (+ the draft's layers per prefill),
+    K4 = layers x chunk x chunk steps (+ the draft's layers x k per spec
+    round); no other kernel."""
+    rounds = spec["rounds"] if spec else 0
+    want = {"normalize": 0, "flash_bwd": 0, "flash_bwd_delta": 0,
+            "flash_attention": n_layers * d["prefill"],
+            "decode_attention": n_layers * chunk * (d["steps"] - rounds)}
+    if spec:
+        want["flash_attention"] += spec["draft_layers"] * d["prefill"]
+        want["decode_attention"] += spec["draft_layers"] * spec["k"] * rounds
+    check(launches == want, f"{name}: launched {launches}, the server's dispatches {d} "
+                            f"give {want}")
+    return want
+
+
+def _pct(xs, q):
+    return float(np.percentile(np.asarray(xs, np.float64), q)) if xs else None
+
+
+def serve_stream(srv, reqs, waves=None, count_syncs=False):
+    """Submit `reqs` ([(prompt, budget)]) at once (continuous refill) or in
+    waves of `waves` each drained to its slowest request, and run to the
+    end. Per request: submit, first-token and last-token times from the
+    on_token stream. count_syncs: step by step under
+    torch.cuda.set_sync_debug_mode("warn"), counting the synchronizing
+    calls of the submit and of each step."""
+    import warnings
+
+    import torch
+
+    n = len(reqs)
+    t_sub, t_first, t_last, outs = [0.0] * n, [None] * n, [None] * n, [None] * n
+    syncs = {"submit": [], "steps": [], "where": {}}
+
+    def cb(i):
+        def fire(_tok):
+            now = time.monotonic()
+            if t_first[i] is None:
+                t_first[i] = now
+            t_last[i] = now
+        return fire
+
+    def n_syncs(w, since):
+        hits = [x for x in w[since:] if "called a synchronizing CUDA operation" in str(x.message)]
+        for x in hits:  # where each synchronizing call came from
+            where = f"{os.path.relpath(x.filename)}:{x.lineno}"
+            syncs["where"][where] = syncs["where"].get(where, 0) + 1
+        return len(hits)
+
+    groups = [list(range(n))] if waves is None else [
+        list(range(i, min(n, i + waves))) for i in range(0, n, waves)]
+    d0 = server_dispatches()
+    t0 = time.monotonic()
+    for g in groups:
+        now = time.monotonic()
+        for i in g:
+            t_sub[i] = now
+        args = ([reqs[i][0] for i in g], [reqs[i][1] for i in g])
+        if count_syncs:
+            with warnings.catch_warnings(record=True) as w:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    rids = srv.submit_many(*args, on_token=[cb(i) for i in g])
+                    syncs["submit"].append(n_syncs(w, 0))
+                    while srv.has_work():
+                        k = len(w)
+                        srv.step()
+                        syncs["steps"].append(n_syncs(w, k))
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            done = srv.take_done()
+        else:
+            rids = srv.submit_many(*args, on_token=[cb(i) for i in g])
+            done = srv.run(rids)
+        for i, rid in zip(g, rids):
+            outs[i] = done[rid]
+    wall = time.monotonic() - t0
+    d = {k: v - d0[k] for k, v in server_dispatches().items()}
+    tokens = sum(len(o) for o in outs)
+    check(all(len(o) == b for o, (_, b) in zip(outs, reqs)), "a request's token count != its budget")
+    stats = dict(wall_s=wall, tokens=tokens, tokens_per_s=tokens / wall, steps=d["steps"],
+                 prefill_dispatches=d["prefill"],
+                 mean_slot_occupancy=d["occupancy_sum"] / max(d["occupancy_n"], 1),
+                 latency_ms_p50=_pct([(b - a) * 1e3 for a, b in zip(t_sub, t_last)], 50),
+                 latency_ms_p99=_pct([(b - a) * 1e3 for a, b in zip(t_sub, t_last)], 99),
+                 ttft_ms_p50=_pct([(b - a) * 1e3 for a, b in zip(t_sub, t_first)], 50),
+                 ttft_ms_p99=_pct([(b - a) * 1e3 for a, b in zip(t_sub, t_first)], 99))
+    if count_syncs:
+        stats["syncs"] = syncs
+    return outs, d, stats
+
+
+def prefix_agreement(outs, ref):
+    """The share of equal tokens over each pair's common length."""
+    same = sum(int((a[:len(b)] == b[:len(a)]).sum()) for a, b in zip(outs, ref))
+    return same / sum(min(len(a), len(b)) for a, b in zip(outs, ref))
+
+
+def lone_greedy(gen, params, cfg, prompt, n):
+    """A request's lone greedy tokens through prefill and decode steps
+    (generate's path at B=1), with the top-1 minus top-2 margin of each."""
+    import torch
+
+    toks, margins = greedy_with_margins(gen, params, cfg,
+                                        torch.from_numpy(prompt[None]).cuda(), n)
+    return toks[0].tolist(), [m[0] for m in margins]
+
+
+def tie_compare(got, want, margins, bound=TIE_MARGIN):
+    """(held, compared, first near-tie, smallest margin up to the first
+    mismatch): `got` equals `want` everywhere, or up to its first
+    mismatch, at or after a position where the lone run's margin is
+    under `bound` (a near-tie, where bf16 rounding may choose either
+    token)."""
+    got = [int(t) for t in got]
+    tie = next((i for i, m in enumerate(margins) if m < bound), None)
+    mism = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    if mism is None:
+        return True, len(want), tie, None
+    return tie is not None and tie <= mism, mism, tie, min(margins[:mism + 1])
+
+
+def k4_live_check(srv, cfg):
+    """K4 on the server's live cache against its plain version: the live
+    ragged positions, clamped as the chunk clamps them, with one freed slot
+    pinned at max_len - 1 (where the clamp holds a freed slot)."""
+    import torch
+    from dml_tpu_torch.ops import decode_attention as da
+
+    free = [s for s, r in enumerate(srv._slot_req) if r is None]
+    pos = srv._pos_dev.clamp(max=srv.max_len - 1)
+    pos[free[0]] = srv.max_len - 1
+    g = torch.Generator(device=srv.device).manual_seed(12)
+    q = torch.randn((srv.max_slots, 1, cfg.n_heads, cfg.head_dim), device=srv.device,
+                    generator=g).to(cfg.dtype)
+    errs = {}
+    for name in ("block_0", f"block_{cfg.n_layers - 1}"):
+        lay = srv.cache[name]
+        got = da.decode_attention(q, lay["k"], lay["v"], pos)
+        want = da.decode_attention_plain(q, lay["k"], lay["v"], pos)
+        errs[name] = float((got - want).abs().max())
+        check(errs[name] <= 2e-5, f"K4 on the live cache ({name}): max |err| {errs[name]} > 2e-5")
+    return {"pos": pos.tolist(), "free_slots": free, "max_abs_err": errs}
+
+
+def phase_lm_server(timer):
+    """The continuous-batching LM server at full width and depth (phase 12)."""
+    import dataclasses
+
+    import torch
+    from dml_tpu_torch.config import draft_lm_spec
+    from dml_tpu_torch.inference import generate as gen
+    from dml_tpu_torch.inference.kv_cache import KVPrefixCache
+    from dml_tpu_torch.inference.lm_backend import LMBackend, lm_spec_parts, write_prompt_file
+    from dml_tpu_torch.inference.lm_server import LMDriver, LMServer, _bucket
+    from dml_tpu_torch.inference.quantize import quantize_lm_params
+    from dml_tpu_torch.models.lm_params import init_lm_params
+    from dml_tpu_torch.models.params_io import variables_to_bytes
+
+    t_phase = time.monotonic()
+    cfg = gen.LMConfig(**LM_CFG, dtype=torch.bfloat16)
+    nl = cfg.n_layers
+    p32 = init_lm_params(cfg, seed=0)  # device None -> cuda
+    params = gen.serving_params(p32, cfg)
+    reqs = mixed_requests(cfg.vocab_size)
+    out = {"config": dict(LM_CFG, dtype="bfloat16"), "slots": LMS_SLOTS,
+           "max_len": LMS_MAX_LEN, "chunk": LMS_CHUNK, "requests": len(reqs),
+           "budgets": [b for _, b in reqs], "tie_margin": TIE_MARGIN}
+
+    # ---- (a) the mixed-budget stream: a warm-up with K4 checked on the
+    # live cache mid-serve, then continuous refill (counted, every
+    # synchronizing call counted) and waves of 8 (counted)
+    srv = LMServer(params, cfg, max_slots=LMS_SLOTS, max_len=LMS_MAX_LEN, chunk=LMS_CHUNK)
+    srv.submit_many([p for p, _ in reqs], [b for _, b in reqs])
+    live = None
+    while srv.has_work():
+        srv.step()
+        n_free = srv.free_slot_count()
+        if live is None and not srv._queue and 0 < n_free < LMS_SLOTS:
+            live = k4_live_check(srv, cfg)
+    srv.take_done()
+    check(live is not None, "no mid-serve state with a freed slot beside a live one")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    cont, d, out["continuous"] = serve_stream(srv, reqs, count_syncs=True)
+    launches = launch_counts()
+    check_server_launches("continuous", launches, d, nl, LMS_CHUNK)
+    syncs = out["continuous"]["syncs"]
+    check(syncs["submit"] == [0] and syncs["steps"] and all(s == 1 for s in syncs["steps"]),
+          f"synchronizing calls: submit {syncs['submit']}, per step {syncs['steps']} "
+          f"(want 0 and exactly 1), from {syncs['where']}")
+    out["continuous"]["syncs"] = {"submit": syncs["submit"][0], "per_step": sorted(set(syncs["steps"])),
+                                  "steps": len(syncs["steps"]), "where": syncs["where"]}
+    reset_launch_counts()
+    waves, d, out["waves"] = serve_stream(srv, reqs, waves=LMS_SLOTS)
+    wl = launch_counts()
+    check_server_launches("waves", wl, d, nl, LMS_CHUNK)
+    check(all(np.array_equal(a, b) for a, b in zip(cont, waves)),
+          "continuous and wave tokens differ (a row's tokens depend on its grid-mates)")
+    out["speedup_continuous_over_waves"] = out["waves"]["wall_s"] / out["continuous"]["wall_s"]
+    out["k4_live"] = live
+    lm_server = {k: launches[k] + wl[k] for k in launches}
+
+    # a steady chunk step's device profile: 8 slots busy for 3+ steps
+    prof_reqs = [(p, 4 * LMS_CHUNK) for p, _ in reqs[:LMS_SLOTS]]
+    srv.submit_many([p for p, _ in prof_reqs], [b for _, b in prof_reqs])
+    srv.step()
+    prof_step = profile_calls(srv.step, 2, LM_KINDS)
+    srv.run()
+    del srv
+
+    # ---- (b) long prompts: K2 at 256-2048 tokens, counted
+    rng = np.random.RandomState(5)
+    long_reqs = [(rng.randint(0, cfg.vocab_size, int(t)).astype(np.int32), LONG_BUDGET)
+                 for t in rng.randint(256, 2049, size=LONG_REQS)]
+    lsrv = LMServer(params, cfg, max_slots=LMS_SLOTS, max_len=LONG_MAX_LEN, chunk=LONG_CHUNK)
+    serve_stream(lsrv, long_reqs[:2])  # warm-up: two prompts, two buckets
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    long_out, d, out["long"] = serve_stream(lsrv, long_reqs)
+    ll = launch_counts()
+    check_server_launches("long prompts", ll, d, nl, LONG_CHUNK)
+    lm_server = {k: lm_server[k] + ll[k] for k in ll}
+    out["long"]["prompt_lens"] = [len(p) for p, _ in long_reqs]
+    del lsrv
+
+    # ---- check 4, bf16: each long request against its lone generate path;
+    # the logit noise between a grid-shaped prefill (bucket-padded, 8 rows)
+    # and the lone one says how near a tie has to be to flip
+    ties = mism = 0
+    compared, noise, at_mismatch = [], [], []
+    for i, ((p, n), got) in enumerate(zip(long_reqs, long_out)):
+        want, margins = lone_greedy(gen, params, cfg, p, n)
+        held, upto, tie, low = tie_compare(got, want, margins)
+        check(held, f"bf16 server tokens differ from the lone run at {upto} with no near-tie "
+                    f"before it (margins {margins[:upto + 1]})")
+        ties += tie is not None
+        mism += upto < n
+        compared.append(upto)
+        if low is not None:
+            at_mismatch.append(low)
+        if i < 4:
+            lone = gen.prefill(params, cfg, torch.from_numpy(p[None]).cuda(), len(p) + 1)[0]
+            bucket = min(_bucket(len(p)), LONG_MAX_LEN)
+            grid = np.repeat(np.concatenate([p, np.full(bucket - len(p), p[-1], np.int32)])[None],
+                             LMS_SLOTS, axis=0)
+            glog = gen.prefill(params, cfg, torch.from_numpy(grid).cuda(), LONG_MAX_LEN,
+                               logits_index=torch.full((LMS_SLOTS,), len(p) - 1).cuda())[0]
+            noise.append(float((glog[0] - lone[0]).abs().max()))
+    out["bf16_vs_lone"] = {"requests": len(long_reqs), "near_ties": ties,
+                           "stopped_at_a_tie": mism, "tokens_compared": compared,
+                           "first_token_logit_noise": noise,
+                           "least_margin_up_to_each_mismatch": at_mismatch}
+
+    # ---- check 5: sampled tokens do not depend on the grid-mates
+    sreqs = [(p, 64) for p, _ in reqs[:LMS_SLOTS]]
+    sampled = []
+    for share in (sreqs, sreqs[:2]):  # rid 1 beside 7 others, then beside 1
+        s = LMServer(params, cfg, max_slots=LMS_SLOTS, max_len=LMS_MAX_LEN, chunk=LMS_CHUNK,
+                     temperature=0.8, top_k=40, seed=11)
+        toks, _, _ = serve_stream(s, share)
+        sampled.append(toks)
+    check(np.array_equal(sampled[0][0], sampled[1][0]) and np.array_equal(sampled[0][1], sampled[1][1]),
+          "a sampled request's tokens changed with its grid-mates")
+    check(all(0 <= int(t) < cfg.vocab_size for o in sampled[0] for t in o), "sampled token out of range")
+    out["sampled_independent_of_grid"] = True
+    out["sampled_agreement_with_greedy"] = prefix_agreement(sampled[0], cont)
+
+    # ---- float32, TF32 off: check 4's exact form and check 6 (spec)
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+        s32 = LMServer(p32, cfg32, max_slots=LMS_SLOTS, max_len=LMS_MAX_LEN, chunk=LMS_CHUNK)
+        f32_out, _, _ = serve_stream(s32, reqs[:4])
+        for (p, n), got in zip(reqs[:4], f32_out):
+            want = gen.generate(p32, cfg32, torch.from_numpy(p[None]).cuda(), n)[0].cpu().numpy()
+            check(np.array_equal(got, want), "f32 server tokens != the lone f32 generate's")
+        out["f32_exact_vs_lone"] = {"requests": 4, "tokens": int(sum(n for _, n in reqs[:4]))}
+        spec_reqs = [(p, 64) for p, _ in reqs[:LMS_SLOTS]]
+        plain32, _, plain_st = serve_stream(s32, spec_reqs)
+        del s32
+        spec_lm = dict(LM_CFG, dtype="float32", seed=0)
+        draft_spec = draft_lm_spec(spec_lm, n_layers=2)
+        dparams, dcfg = lm_spec_parts(draft_spec, device="cuda")
+        spec_out = {}
+        for name, (dp, dc) in (("self_draft", (p32, cfg32)), ("draft_2_layer", (dparams, dcfg))):
+            s = LMServer(p32, cfg32, max_slots=LMS_SLOTS, max_len=LMS_MAX_LEN, chunk=LMS_CHUNK)
+            s.enable_spec_decode(4, draft_params=dp, draft_cfg=dc)
+            reset_launch_counts()
+            toks, d, st = serve_stream(s, spec_reqs)
+            sp = s.spec_stats()
+            check_server_launches(name, launch_counts(), d, nl, LMS_CHUNK,
+                                  spec=dict(sp, draft_layers=dc.n_layers))
+            check(all(np.array_equal(a, b) for a, b in zip(toks, plain32)),
+                  f"spec ({name}) tokens != the plain server's")
+            spec_out[name] = dict(sp, wall_s=st["wall_s"], tokens_per_s=st["tokens_per_s"],
+                                  steps=st["steps"])
+            del s
+        sd = spec_out["self_draft"]
+        check(sd["enabled"] and sd["proposed"] > 0 and sd["accepted"] == sd["proposed"],
+              f"self-draft spec: {sd}")
+        out["spec_f32"] = spec_out
+        out["spec_f32"]["plain"] = {"tokens_per_s": plain_st["tokens_per_s"],
+                                    "wall_s": plain_st["wall_s"], "steps": plain_st["steps"]}
+        out["spec_f32"]["draft_spec"] = {k: draft_spec[k] for k in ("d_model", "n_layers", "d_ff")}
+        del dparams
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    # ---- check 7: the KV prefix cache, warm second turns against cold
+    turn1 = [(rng.randint(0, cfg.vocab_size, 500).astype(np.int32), 32) for _ in range(LMS_SLOTS)]
+    wsrv = LMServer(params, cfg, max_slots=LMS_SLOTS, max_len=LMS_MAX_LEN, chunk=LMS_CHUNK)
+    kv = KVPrefixCache(4 << 30)
+    wsrv.enable_kv_cache(kv)
+    first, _, _ = serve_stream(wsrv, turn1)
+    turn2 = [(np.concatenate([p, o, rng.randint(0, cfg.vocab_size, 16).astype(np.int32)]), 32)
+             for (p, _), o in zip(turn1, first)]
+    reset_launch_counts()
+    warm, d, wst = serve_stream(wsrv, turn2)
+    check_server_launches("warm turn", launch_counts(), d, nl, LMS_CHUNK)
+    kst = kv.stats()
+    check(kst["hits"] > 0 and kst["tokens_saved"] > 0, f"KV prefix cache: {kst}")
+    csrv = LMServer(params, cfg, max_slots=LMS_SLOTS, max_len=LMS_MAX_LEN, chunk=LMS_CHUNK)
+    serve_stream(csrv, turn2[:1])  # warm-up of the 1024 bucket
+    cold, _, cst = serve_stream(csrv, turn2)
+    kties = 0
+    for (p, n), w_, c_ in zip(turn2, warm, cold):
+        want, margins = lone_greedy(gen, params, cfg, p, n)
+        for got in (w_, c_):
+            held, upto, tie, _ = tie_compare(got, want, margins)
+            check(held, f"second turn differs from the lone run at {upto} with no near-tie")
+        kties += tie is not None
+    out["kv_cache"] = {"stats": kst, "near_ties": kties, "turn2_prompt_lens": [len(p) for p, _ in turn2],
+                       "ttft_ms_p50_warm": wst["ttft_ms_p50"], "ttft_ms_p50_cold": cst["ttft_ms_p50"],
+                       "ttft_ms_p99_warm": wst["ttft_ms_p99"], "ttft_ms_p99_cold": cst["ttft_ms_p99"],
+                       "wall_s_warm": wst["wall_s"], "wall_s_cold": cst["wall_s"]}
+    del wsrv, csrv, kv
+
+    # ---- check 8: int8 weights and an int8 KV cache
+    qcfg = dataclasses.replace(cfg, kv_quant=True)
+    qsrv = LMServer(quantize_lm_params(p32), qcfg, max_slots=LMS_SLOTS, max_len=LMS_MAX_LEN,
+                    chunk=LMS_CHUNK)
+    serve_stream(qsrv, sreqs[:1])
+    reset_launch_counts()
+    qtoks, d, qst = serve_stream(qsrv, sreqs)
+    check_server_launches("int8", launch_counts(), d, nl, LMS_CHUNK)
+    check(all(0 <= int(t) < cfg.vocab_size for o in qtoks for t in o), "int8 token out of range")
+    out["int8"] = {"tokens_per_s": qst["tokens_per_s"], "wall_s": qst["wall_s"],
+                   "agreement_with_bf16": prefix_agreement(qtoks, cont)}
+    del qsrv
+
+    # ---- check 9: LMDriver, 4 threads x a ticket of 8, against a serial run
+    import threading
+
+    dsrv = LMServer(params, cfg, max_slots=LMS_SLOTS, max_len=LMS_MAX_LEN, chunk=LMS_CHUNK)
+    tickets = [[(p, min(b, 64)) for p, b in reqs[i:i + 8]] for i in range(0, 32, 8)]
+    serial = []
+    for t in tickets:
+        o, _, _ = serve_stream(dsrv, t)
+        serial.append(o)
+    drv = LMDriver(dsrv)
+    results, errors = [None] * 4, []
+
+    def worker(i):
+        try:
+            results[i] = drv.serve([p for p, _ in tickets[i]], [b for _, b in tickets[i]])
+        except BaseException as e:  # surfaced below
+            errors.append(e)
+
+    reset_launch_counts()
+    d0 = server_dispatches()
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(4)]
+    t0 = time.monotonic()
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        drv.stop()
+    driver_s = time.monotonic() - t0
+    check(not errors and all(r is not None for r in results), f"LMDriver: {errors}")
+    d = {k: v - d0[k] for k, v in server_dispatches().items()}
+    check_server_launches("driver", launch_counts(), d, nl, LMS_CHUNK)
+    check(all(np.array_equal(a, b) for r, s in zip(results, serial) for a, b in zip(r, s)),
+          "LMDriver tokens != the serial run's")
+    out["driver"] = {"threads": 4, "wall_s": driver_s, "steps": drv.steps,
+                     "tokens_per_s": sum(b for t in tickets for _, b in t) / driver_s}
+    del dsrv, drv
+
+    # ---- check 10: LMBackend over prompt files, and from_spec over a weights
+    # file written by the port's codec
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for i, (p, b) in enumerate(reqs[:LMS_SLOTS]):
+            paths.append(os.path.join(tmp, f"p{i}.tokens.txt"))
+            write_prompt_file(paths[-1], p, max_new_tokens=min(b, 48))
+        be = LMBackend(params, cfg, max_new_tokens=32, max_slots=LMS_SLOTS, max_len=LMS_MAX_LEN,
+                       chunk=LMS_CHUNK)
+        try:
+            res, be_s, _ = be.serve_files(paths)
+        finally:
+            be.close()
+        for (p, b), path, o in zip(reqs, paths, cont):
+            check(res[path]["tokens"] == [int(t) for t in o[:min(b, 48)]],
+                  "serve_files tokens != the server's")
+        wpath = os.path.join(tmp, "lm.msgpack")
+        t0 = time.monotonic()
+        with open(wpath, "wb") as f:
+            f.write(variables_to_bytes({"params": p32}))
+        write_s = time.monotonic() - t0
+        spec = dict(LM_CFG, name="LM198M", dtype="bfloat16", max_new_tokens=32,
+                    max_slots=LMS_SLOTS, max_len=LMS_MAX_LEN, chunk=LMS_CHUNK, weights=wpath)
+        t0 = time.monotonic()
+        be2 = LMBackend.from_spec(spec)  # device None -> cuda
+        load_s = time.monotonic() - t0
+        try:
+            res2, _, _ = be2.serve_files(paths)
+        finally:
+            be2.close()
+        check(res2 == res, "from_spec over the port's weights file gives other tokens")
+        out["backend"] = {"files": len(paths), "serve_files_s": be_s,
+                          "weights_file_mb": os.path.getsize(wpath) / 1e6,
+                          "write_s": write_s, "from_spec_load_s": load_s}
+    del p32, params
+    out["profile_step"] = prof_step
+    out["phase_s"] = time.monotonic() - t_phase
+    emit(phase="lm_server", **out)
+    emit(phase="profile", path=f"lm_server_step_b{LMS_SLOTS}_chunk{LMS_CHUNK}", **prof_step)
+    return lm_server
+
+
 def main() -> int:
     import torch
 
@@ -1805,6 +2307,10 @@ def main() -> int:
     kernel_only = "--kernel-only" in sys.argv[1:]
     build_all(kernel_only)
     timer = Timer()
+    if "--lm-server" in sys.argv[1:]:  # a short call after a server edit: build, phase 12, stop
+        phase_lm_server(timer)
+        print(smi, flush=True)
+        return 0
     timings = phase_kernel(timer)
     if kernel_only:  # a short call after a K1 edit: build, check, time, stop
         print(smi, flush=True)
@@ -1816,6 +2322,7 @@ def main() -> int:
     bwd = phase_flash_bwd(timer)
     train_launches = phase_train()
     image_train_launches = phase_image_train()
+    server_launches = phase_lm_server(timer)
 
     kernels = []
     for model, mode in MODELS:
@@ -1828,23 +2335,28 @@ def main() -> int:
             route="cuda", variant="staged 16-pixel tiles", source="dml_tpu_torch/csrc/normalize.cu",
             replaces="dml_tpu/ops/preprocess.py:30", launches=sum(by_path.values()),
             launches_by_path=by_path, bound_by="bytes", **t))
-    for case, shape, path_launches in (
-            ("prefill_b8", f"prefill b{LM_BATCH} T{PROMPT_LEN} H16 KV4 D64 bf16 causal",
-             lm_launches["flash_attention"]),
-            ("mha_b1", f"train forward b1 T{TRAIN_T} H16 D64 bf16 causal, k/v repeated",
-             train_launches["flash_attention"])):
+    # one kernel timed at two shapes: each row carries every path's launches
+    by_path = {kern: {"generate": lm_launches[kern], "train": train_launches[kern],
+                      "lm_server": server_launches[kern]}
+               for kern in ("flash_attention", "decode_attention")}
+    for case, shape in (
+            ("prefill_b8", f"prefill b{LM_BATCH} T{PROMPT_LEN} H16 KV4 D64 bf16 causal"),
+            ("mha_b1", f"train forward b1 T{TRAIN_T} H16 D64 bf16 causal, k/v repeated")):
         t = dict(flash[case])
         kernels.append(dict(
             name=f"flash_fwd[{shape}; wgmma+TMA]", route="cuda", variant="wgmma+tma",
             source="dml_tpu_torch/csrc/flash_attention.cu",
-            replaces="dml_tpu/ops/flash_attention.py:65", launches=path_launches, **t))
+            replaces="dml_tpu/ops/flash_attention.py:65",
+            launches=sum(by_path["flash_attention"].values()),
+            launches_by_path=by_path["flash_attention"], **t))
     t = decode["lm_b8"]
     kernels.append(dict(
         name=f"decode_attention[b{LM_BATCH} cache {PROMPT_LEN + NEW_TOKENS} KV4 G4 D64 bf16; "
              f"one launch, bulk async loads, merge folded in]",
         route="cuda", variant="one_launch", source="dml_tpu_torch/csrc/decode_attention.cu",
         replaces="dml_tpu/ops/decode_attention.py:53",
-        launches=lm_launches["decode_attention"], **t))
+        launches=sum(by_path["decode_attention"].values()),
+        launches_by_path=by_path["decode_attention"], **t))
     t = bwd["train"]
     shape = f"train b1 T{TRAIN_T} H16 D64 bf16 causal"
     for part, line in (("dq", 113), ("dkv", 166)):

@@ -28,7 +28,10 @@ Differences from the JAX package, by design:
 - Sampling (temperature > 0) draws from an explicit `torch.Generator`
   (Gumbel-max, as `jax.random.categorical` does), so sampled tokens
   differ from the JAX package's by construction; greedy decoding is
-  deterministic and matches it.
+  deterministic and matches it. `sample_per_request` is the LM
+  server's sampler: the token at position p of request rid is a pure
+  function of (seed, rid, p) and the logits, drawn with noise from an
+  integer hash on the device (not JAX's threefry bits).
 
 Entry points run where their params live: `models.lm_params` puts them
 on `cuda` unless asked for the CPU, and `init_cache` does the same.
@@ -331,6 +334,53 @@ def _sample(logits, generator, temperature: float, top_k: Optional[int]):
         logits = torch.where(logits < kth, torch.full_like(logits, NEG_INF), logits)
     # Gumbel-max: argmax(logits + Gumbel noise) is a draw from softmax(logits)
     u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    return (logits - torch.log(-torch.log(u))).argmax(dim=-1).to(torch.int32)
+
+
+_MASK32 = 0xFFFFFFFF
+# odd multipliers below 2**31: a 32-bit value times one stays under
+# 2**63, so int64 tensors hold every product exactly (no overflow)
+_MIX1, _MIX2 = 0x7FEB352D, 0x2C1B3C6D
+
+
+def _mix32(x):
+    """A 32-bit integer hash (xor-shift-multiply rounds) on int64 values
+    in [0, 2**32): a Python int or an int64 tensor, the same bits."""
+    x = x ^ (x >> 16)
+    x = (x * _MIX1) & _MASK32
+    x = x ^ (x >> 15)
+    x = (x * _MIX2) & _MASK32
+    return x ^ (x >> 16)
+
+
+def request_uniforms(seed: int, rid, pos, vocab: int) -> torch.Tensor:
+    """Uniforms in (0, 1), float32 [B, vocab]: entry (b, v) is a pure
+    function of (seed, rid[b], pos[b], v). A counter-based stream like
+    JAX's `fold_in(fold_in(key, rid), pos)`, made of int64 tensor
+    operations on rid's device, with no host round trip."""
+    key = _mix32((int(seed) ^ 0x9E3779B9) & _MASK32)
+    rid = torch.as_tensor(rid).to(torch.int64) & _MASK32
+    pos = torch.as_tensor(pos, device=rid.device).to(torch.int64) & _MASK32
+    h = _mix32(_mix32(key ^ rid) ^ pos)  # [B]
+    col = _mix32(torch.arange(vocab, dtype=torch.int64, device=rid.device) ^ 0x85EBCA6B)
+    bits = _mix32(h[:, None] ^ col[None, :])  # [B, V]
+    return ((bits >> 8).to(torch.float32) + 0.5) * (2.0 ** -24)
+
+
+def sample_per_request(logits, seed: int, rid, pos, temperature: float,
+                       top_k: Optional[int]) -> torch.Tensor:
+    """The token at position pos[b] of request rid[b], from logits [B, V]:
+    argmax at temperature 0, else Gumbel-max over the top_k-masked
+    logits / temperature with `request_uniforms`' noise. A row's token
+    depends on its own logits and (seed, rid, pos) alone, never on the
+    other rows (the LM server's per-request sampling contract)."""
+    if temperature == 0.0:
+        return logits.argmax(dim=-1).to(torch.int32)
+    logits = logits / temperature
+    if top_k is not None:
+        kth = torch.topk(logits, top_k, dim=-1).values[:, -1:]
+        logits = torch.where(logits < kth, torch.full_like(logits, NEG_INF), logits)
+    u = request_uniforms(seed, rid, pos, logits.shape[-1])
     return (logits - torch.log(-torch.log(u))).argmax(dim=-1).to(torch.int32)
 
 

@@ -107,9 +107,18 @@ def init_lm_params(cfg, seed: int = 0, device=None) -> Dict[str, Any]:
     return _nest(flat)
 
 
+def _as_tensor(v: Any, dtype: torch.dtype) -> torch.Tensor:
+    """A leaf (numpy, a JAX array, or a CPU tensor such as
+    `params_io.variables_from_bytes` gives, bfloat16 included) as a new
+    CPU tensor of `dtype`."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().to("cpu", dtype, copy=True)
+    return torch.from_numpy(np.array(v, dtype={torch.int8: np.int8, torch.float32: np.float32}[dtype]))
+
+
 def lm_params_from_flax(tree: Mapping[str, Any], device=None, *, cfg=None) -> Dict[str, Any]:
-    """The JAX package's LM params tree (numpy or array leaves; float,
-    or quantized by `quantize_lm_params`) -> the port's tree of tensors
+    """The JAX package's LM params tree (numpy, array or CPU tensor
+    leaves; float, or quantized by `quantize_lm_params`) -> the port's tree of tensors
     on `device`. Values are copied exactly (float32 stays float32, int8
     stays int8).
 
@@ -151,13 +160,13 @@ def lm_params_from_flax(tree: Mapping[str, Any], device=None, *, cfg=None) -> Di
         if shape_of(v) != tuple(want[k]):
             raise ValueError(f"{k!r}: shape {shape_of(v)}, the LM expects {tuple(want[k])}")
         if isinstance(v, Mapping):  # quantized kernel
-            q = torch.from_numpy(np.array(v["q"], dtype=np.int8))
-            s = torch.from_numpy(np.array(v["scale"], dtype=np.float32))
+            q = _as_tensor(v["q"], torch.int8)
+            s = _as_tensor(v["scale"], torch.float32)
             if tuple(s.shape) != (1, q.shape[1]):
                 raise ValueError(f"{k!r}: scale shape {tuple(s.shape)}, expected {(1, q.shape[1])}")
             out[k] = {"q": q.to(dev), "scale": s.to(dev)}
         else:
-            out[k] = torch.from_numpy(np.array(v, dtype=np.float32)).to(dev)
+            out[k] = _as_tensor(v, torch.float32).to(dev)
     return _nest(out)
 
 

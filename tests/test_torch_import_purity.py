@@ -1,6 +1,6 @@
 """The port stands alone: no module of dml_tpu_torch, nor chip_smoke.py,
-imports jax, flax or the JAX package; triton and the CUDA library load
-only inside the functions that launch a kernel.
+imports jax, flax, msgpack or the JAX package; triton and the CUDA
+library load only inside the functions that launch a kernel.
 
 Kept to three test functions or fewer: pytest-xdist's loadfile scheduler
 orders files by their test count, so a small count runs the port's files
@@ -11,7 +11,7 @@ import ast
 import os
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "dml_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "dml_tpu")
 NATIVE_LOADS = ("ctypes.CDLL", "CDLL", "load_library", "_library")
 
 
@@ -74,7 +74,10 @@ def test_no_jax_import():
             "dml_tpu_torch/models/transformer.py", "dml_tpu_torch/models/lm_params.py",
             "dml_tpu_torch/inference/quantize.py", "dml_tpu_torch/inference/generate.py",
             "dml_tpu_torch/parallel/long_context.py", "dml_tpu_torch/parallel/checkpoint.py",
-            "dml_tpu_torch/native/loader.py"} <= rel
+            "dml_tpu_torch/native/loader.py", "dml_tpu_torch/observability.py",
+            "dml_tpu_torch/config.py", "dml_tpu_torch/inference/lm_server.py",
+            "dml_tpu_torch/inference/kv_cache.py", "dml_tpu_torch/inference/lm_backend.py",
+            "dml_tpu_torch/models/params_io.py"} <= rel
     bad = [
         f"{os.path.relpath(path, ROOT)}:{node.lineno}: {name}"
         for path in _port_files()
@@ -102,10 +105,12 @@ def test_importing_the_port_loads_no_kernel_library():
         "import chip_smoke, dml_tpu_torch.inference, dml_tpu_torch.ops._build as b; "
         "import dml_tpu_torch.inference.generate, dml_tpu_torch.models.transformer; "
         "import dml_tpu_torch.parallel.long_context, dml_tpu_torch.native.loader as nl; "
+        "import dml_tpu_torch.inference.lm_backend, dml_tpu_torch.inference.kv_cache; "
+        "import dml_tpu_torch.models.params_io, dml_tpu_torch.config; "
         "assert nl._loader is None and nl._error is None; "
         "assert not b._loaded, b._loaded; "
         "bad = [m for m in set(sys.modules) - before "
-        "if m.split('.')[0] in ('jax', 'flax', 'dml_tpu', 'triton')]; "
+        "if m.split('.')[0] in ('jax', 'flax', 'msgpack', 'dml_tpu', 'triton')]; "
         "assert not bad, bad"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)
