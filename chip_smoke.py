@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel-only   # phases 1-3 for the normalize kernel alone
     python3 chip_smoke.py --lm-server     # phases 1-2 and 12 (the LM server) alone
+    python3 chip_smoke.py --moe           # phases 1-2 and 13 (mixture of experts) alone
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
@@ -178,12 +179,33 @@ Phases, each printing one JSON line; any failure exits non-zero:
    LMBackend.serve_files over prompt files with budget directives, and
    from_spec over a weights file written by the port's
    variables_to_bytes, give the server's tokens. A torch.profiler
-   breakdown of one chunk step.
+   breakdown of one chunk step;
+13. moe: lm_moe8, the same LM with the repo's MoE option on (8 experts
+   in every second block, capacity factor 1.25; 550.05M parameters),
+   seeded weights, bf16, on cuda. (a) generate at B=8, 2048-token
+   prompts, 64 new tokens (K2 12, K4 12 x 63, no other kernel; equal to
+   prefill plus decode steps), the int8 form (int8 weights and KV cache,
+   16 tokens); prefill ms, decode ms a step and tokens/s, peak memory,
+   and a torch.profiler breakdown of one prefill and one decode step
+   with the expert einsums' share of the busy time. (b) MoEMLP and the
+   serving FFN (`generate._moe_ffn`) at lm_moe8's widths in float32,
+   TF32 off, at 300 and 1100 tokens (chunked): the card within 1e-4 of
+   the CPU; greedy f32 tokens of 2 prompts of 32 tokens equal to the
+   CPU run's. (c) LMServer over bench.py's mixed-budget stream as in
+   12(a): K2 and K4 by phase 12's formula, no synchronizing call at
+   submit and one a step, bf16 tokens equal each request's lone
+   generate path up to its first near-tie, 4 requests in f32 exactly.
+   (d) LongContextLM(num_experts=8, moe_every=2) at B=1, T=2048, AdamW
+   lr 3e-4, 1 warm-up and 10 steps: losses finite and falling, each step
+   12 K2, 12 K3 and 12 delta launches, the first step's loss minus the
+   bare lm_loss of the same params equal to 1e-2 x the mean aux within
+   1e-5 of the loss; step ms median and p90, tokens/s, peak memory, a
+   profile of one step; 16 tokens served from the trained weights.
 
 Then the card's name and power limit as nvidia-smi prints them, the
 kernels' summary line (K1's launches by path: serving and training; K2's
-and K4's: generate, train and lm_server), and last `{"ok": true,
-"device": {...}}`.
+and K4's: generate, train, lm_server and moe; K3's: train and moe), and
+last `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -637,14 +659,17 @@ LM_KINDS = (
     ("index", "gather"), ("CatArray", "concat"), ("elementwise", "elementwise"))
 
 
-def profile_calls(fn, iters, kinds, after=None):
+def profile_calls(fn, iters, kinds, after=None, ranges=()):
     """Where a call's time goes: torch.profiler over `iters` calls of
     `fn`. Device time by kernel (top 8 and by kind, first substring
     match in `kinds` wins), device operations per call, and the device's
     idle share of the wall time (the profiler's own host overhead
     lengthens the wall time, so this share is an upper bound for the
     unprofiled run). `after`: also the first device operation whose name
-    holds it and the six that follow, in time order, with their ms."""
+    holds it and the six that follow, in time order, with their ms.
+    `ranges`: also, for each named host range (a `record_function`),
+    the device time of the kernels launched inside it, by kind, ms a
+    call, and its share of the busy time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -678,6 +703,25 @@ def profile_calls(fn, iters, kinds, after=None):
         i = next((i for i, e in enumerate(dev) if after in e.name), None)
         extra[f"after_{after.strip('_')}"] = None if i is None else [
             (e.name[:120], e.time_range.elapsed_us() / 1e3) for e in dev[i:i + 7]]
+    for name in ranges:
+        within = {}
+
+        def walk(e):
+            for k in e.kernels:
+                kind = next((v for key, v in kinds if key in k.name), "other")
+                within[kind] = within.get(kind, 0.0) + k.duration
+            for c in e.cpu_children:
+                walk(c)
+
+        for e in prof.events():
+            if e.name == name and e.device_type == torch.autograd.DeviceType.CPU:
+                walk(e)
+        us = sum(within.values())
+        extra[name] = {"ms_per_call": us / iters / 1e3,
+                       "share_of_busy": us / busy if busy else None,
+                       "by_kind_ms_per_call": {k: v / iters / 1e3 for k, v in sorted(within.items())},
+                       "by_kind_share_of_busy": {k: v / busy if busy else None
+                                                 for k, v in sorted(within.items())}}
     return dict(
         iters=iters, wall_ms_per_call=wall_us / iters / 1e3,
         device_busy_ms_per_call=busy / iters / 1e3 if busy else None,
@@ -2289,6 +2333,284 @@ def phase_lm_server(timer):
     return lm_server
 
 
+# ---------------------------------------------------------------------------
+# phase 13: mixture of experts
+# ---------------------------------------------------------------------------
+
+# lm_moe8: the LM above with the repo's own MoE option on: TransformerLM's
+# num_experts=8 and its moe_every=2, capacity_factor=1.25 defaults
+# (dml_tpu/models/transformer.py:117-121), 6 MoE blocks of 8 experts at
+# d_ff 4096, 550.05M parameters
+MOE = dict(num_experts=8, moe_every=2)
+MOE_LAYER_TOKENS = (300, 1100)  # one serving chunk, and three (chunked)
+MOE_TRAIN_STEPS = 10
+
+
+def tree_cpu(tree):
+    """A params tree's tensors copied to the CPU."""
+    return {k: tree_cpu(v) if isinstance(v, dict) else v.cpu() for k, v in tree.items()}
+
+
+def phase_moe(timer):
+    """The MoE LM served by generate and LMServer and trained by
+    LongContextLM on cuda (phase 13); returns each kernel's launches over
+    the counted runs."""
+    import dataclasses
+
+    import torch
+    from dml_tpu_torch.inference import generate as gen
+    from dml_tpu_torch.inference.lm_server import LMServer
+    from dml_tpu_torch.inference.quantize import quantize_lm_params, quantized_bytes
+    from dml_tpu_torch.models.lm_params import init_lm_params
+    from dml_tpu_torch.parallel import moe as moe_mod
+    from dml_tpu_torch.parallel.long_context import LongContextLM, lm_loss
+
+    t_phase = time.monotonic()
+    nl = LM_CFG["n_layers"]
+    cfg = gen.LMConfig(**LM_CFG, dtype=torch.bfloat16)
+    t0 = time.monotonic()
+    p32 = init_lm_params(cfg, seed=0, **MOE)  # device None -> cuda
+    params = gen.serving_params(p32, cfg)
+    torch.cuda.synchronize()
+    out = {"config": dict(LM_CFG, **MOE, capacity_factor=1.25, dtype="bfloat16"),
+           "params_millions": quantized_bytes(p32)[1] / 4e6, "load_s": time.monotonic() - t0,
+           "moe_blocks": [i for i in range(nl) if "moe" in p32[f"block_{i}"]]}
+    check(out["moe_blocks"] == list(range(1, nl, 2)), f"MoE blocks {out['moe_blocks']}")
+    total = {k: 0 for k in launch_counts()}
+
+    def count(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    # ---- (a) generate: B=8, 2048-token prompts, 64 new tokens; int8
+    rng = np.random.RandomState(3)
+    prompts = torch.from_numpy(
+        rng.randint(0, cfg.vocab_size, (LM_BATCH, PROMPT_LEN)).astype(np.int32)).cuda()
+    gen.generate(params, cfg, prompts[:, :64], 2)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.monotonic()
+    toks = gen.generate(params, cfg, prompts, NEW_TOKENS)
+    torch.cuda.synchronize()
+    gen_s = time.monotonic() - t0
+    launches = launch_counts()
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    want = {"normalize": 0, "flash_attention": nl, "flash_bwd": 0, "flash_bwd_delta": 0,
+            "decode_attention": nl * (NEW_TOKENS - 1)}
+    check(launches == want, f"MoE generate launched {launches}, want {want}")
+    count(launches)
+    check(tuple(toks.shape) == (LM_BATCH, NEW_TOKENS) and 0 <= int(toks.min())
+          and int(toks.max()) < cfg.vocab_size, "MoE tokens out of range")
+    manual, _ = greedy_with_margins(gen, params, cfg, prompts, NEW_TOKENS)
+    check(torch.equal(manual, toks), "MoE prefill + batched_decode_step tokens != generate's")
+    qparams = quantize_lm_params(p32)
+    qcfg = dataclasses.replace(cfg, kv_quant=True)
+    reset_launch_counts()
+    qtoks = gen.generate(qparams, qcfg, prompts, 16)
+    torch.cuda.synchronize()
+    q_launches = launch_counts()
+    q_want = dict(want, decode_attention=nl * 15)
+    check(q_launches == q_want, f"MoE int8 generate launched {q_launches}, want {q_want}")
+    count(q_launches)
+    check(0 <= int(qtoks.min()) and int(qtoks.max()) < cfg.vocab_size, "int8 token out of range")
+    out["generate"] = {
+        "batch": LM_BATCH, "prompt_len": PROMPT_LEN, "new_tokens": NEW_TOKENS, "generate_s": gen_s,
+        "launches": launches, "int8_launches": q_launches,
+        "max_memory_allocated_mb": peak_mb,
+        "int8_vs_bf16_token_agreement": float((qtoks == toks[:, :16]).float().mean()),
+        "weight_bytes": {"bf16_serving": quantized_bytes(params)[0],
+                         "int8": quantized_bytes(qparams)[0], "f32": quantized_bytes(p32)[0]}}
+    del qparams
+    pb = prompts
+    out["generate"]["prefill_ms_b8"] = wall_ms(lambda: gen.prefill(params, cfg, pb, PROMPT_LEN + 1))
+    logits, cache = gen.prefill(params, cfg, prompts, PROMPT_LEN + 48)
+    cur = logits.argmax(-1).to(torch.int32)
+    for i in range(3):  # warm-up
+        logits, cache = gen.decode_step(params, cfg, cache, cur, PROMPT_LEN + i)
+    steps = 40
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for i in range(steps):
+        logits, cache = gen.decode_step(params, cfg, cache, cur, PROMPT_LEN + 3 + i)
+        cur = logits.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    step_ms = (time.monotonic() - t0) * 1e3 / steps
+    out["generate"].update({f"decode_ms_per_step_b8_ctx{PROMPT_LEN}": step_ms,
+                            f"decode_tokens_per_s_b8_ctx{PROMPT_LEN}": LM_BATCH * 1e3 / step_ms})
+    pos = torch.full((LM_BATCH,), PROMPT_LEN + 44, dtype=torch.int32, device=prompts.device)
+    # the serving FFN inside a named range, for the profiles only: its
+    # matmul kernels are the expert products (with the router's [n, d] x
+    # [d, 8] and the gate-weighted combine)
+    moe_ffn = gen._moe_ffn
+
+    def ranged_moe_ffn(*a):
+        with torch.profiler.record_function("moe_ffn"):
+            return moe_ffn(*a)
+
+    gen._moe_ffn = ranged_moe_ffn
+    try:
+        prof_decode = profile_calls(lambda: gen.batched_decode_step(params, cfg, cache, cur, pos),
+                                    5, LM_KINDS, ranges=("moe_ffn",))
+        del cache, logits
+        prof_prefill = profile_calls(lambda: gen.prefill(params, cfg, prompts, PROMPT_LEN + 1), 2,
+                                     LM_KINDS, ranges=("moe_ffn",))
+    finally:
+        gen._moe_ffn = moe_ffn
+
+    # ---- (b) the layer on the card against the CPU, float32, TF32 off
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        blk = p32["block_1"]["moe"]
+        cpu_blk = {"router": {"kernel": blk["router"]["kernel"].cpu()},
+                   "w_up": blk["w_up"].cpu(), "w_down": blk["w_down"].cpu()}
+        layer = moe_mod.MoEMLP(cfg.d_model, MOE["num_experts"], cfg.d_ff, dtype=torch.float32)
+        layer.load_state_dict({"router.kernel": cpu_blk["router"]["kernel"],
+                               "w_up": cpu_blk["w_up"], "w_down": cpu_blk["w_down"]})
+        layer_cuda = moe_mod.MoEMLP(cfg.d_model, MOE["num_experts"], cfg.d_ff,
+                                    dtype=torch.float32).cuda()
+        layer_cuda.load_state_dict(layer.state_dict())
+        g = torch.Generator().manual_seed(13)
+        layer_errs = {}
+        with torch.no_grad():
+            for n in MOE_LAYER_TOKENS:
+                x = torch.randn((1, n, cfg.d_model), generator=g)
+                y_c, aux_c = layer(x)
+                y_g, aux_g = layer_cuda(x.cuda())
+                f_c = gen._moe_ffn(cpu_blk, x, torch.float32)
+                f_g = gen._moe_ffn(blk, x.cuda(), torch.float32)
+                errs = {"moe_mlp": float((y_g.cpu() - y_c).abs().max()),
+                        "moe_mlp_aux": abs(float(aux_g) - float(aux_c)),
+                        "moe_ffn": float((f_g.cpu() - f_c).abs().max()),
+                        "max_abs_ref": float(f_c.abs().max())}
+                layer_errs[f"tokens_{n}"] = errs
+                check(max(v for k, v in errs.items() if k != "max_abs_ref") <= 1e-4,
+                      f"MoE layer on the card != the CPU at {n} tokens: {errs}")
+        del layer, layer_cuda, cpu_blk
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+        small = prompts[:2, :32]
+        g32 = gen.generate(p32, cfg32, small, 8).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    cpu_params = tree_cpu(p32)
+    c32, margins = greedy_with_margins(gen, cpu_params, cfg32, small.cpu(), 8)
+    check(torch.equal(g32, c32), f"MoE f32 cuda tokens {g32.tolist()} != cpu {c32.tolist()}")
+    del cpu_params
+    out["layer_f32_vs_cpu"] = dict(layer_errs, bar=1e-4, tf32=False)
+    out["f32_greedy"] = {"cuda": g32.tolist(), "cpu": c32.tolist(), "cpu_top1_margins": margins}
+
+    # ---- (c) LMServer: bench.py's mixed-budget stream
+    reqs = mixed_requests(cfg.vocab_size)
+    srv = LMServer(params, cfg, max_slots=LMS_SLOTS, max_len=LMS_MAX_LEN, chunk=LMS_CHUNK)
+    serve_stream(srv, reqs[:LMS_SLOTS])  # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    cont, d, st = serve_stream(srv, reqs, count_syncs=True)
+    s_launches = launch_counts()
+    check_server_launches("moe continuous", s_launches, d, nl, LMS_CHUNK)
+    count(s_launches)
+    syncs = st.pop("syncs")
+    check(syncs["submit"] == [0] and syncs["steps"] and all(n == 1 for n in syncs["steps"]),
+          f"MoE server synchronizing calls: submit {syncs['submit']}, per step {syncs['steps']} "
+          f"(want 0 and exactly 1), from {syncs['where']}")
+    st["syncs"] = {"submit": 0, "per_step": 1, "steps": len(syncs["steps"])}
+    del srv
+    ties = mism = 0
+    compared = []
+    for (p, n), got in zip(reqs, cont):
+        want_t, margins_t = lone_greedy(gen, params, cfg, p, n)
+        held, upto, tie, _ = tie_compare(got, want_t, margins_t)
+        check(held, f"MoE bf16 server tokens differ from the lone run at {upto} with no "
+                    f"near-tie before it")
+        ties += tie is not None
+        mism += upto < n
+        compared.append(upto)
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        s32 = LMServer(p32, cfg32, max_slots=LMS_SLOTS, max_len=LMS_MAX_LEN, chunk=LMS_CHUNK)
+        f32_out, _, _ = serve_stream(s32, reqs[:4])
+        for (p, n), got in zip(reqs[:4], f32_out):
+            want_t = gen.generate(p32, cfg32, torch.from_numpy(p[None]).cuda(), n)[0].cpu().numpy()
+            check(np.array_equal(got, want_t), "MoE f32 server tokens != the lone f32 generate's")
+        del s32
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    out["lm_server"] = dict(st, slots=LMS_SLOTS, max_len=LMS_MAX_LEN, chunk=LMS_CHUNK,
+                            requests=len(reqs), launches=s_launches,
+                            bf16_vs_lone={"near_ties": ties, "stopped_at_a_tie": mism,
+                                          "tokens_compared": compared},
+                            f32_exact_vs_lone={"requests": 4,
+                                               "tokens": int(sum(n for _, n in reqs[:4]))})
+    del p32, params
+    torch.cuda.empty_cache()
+
+    # ---- (d) training: B=1, T=2048, AdamW lr 3e-4 (T1's settings)
+    lm = LongContextLM(seq_len=TRAIN_T, dtype=torch.bfloat16, seed=0, **MOE, **LM_CFG)
+    trng = np.random.RandomState(5)
+    ttoks = torch.from_numpy(
+        trng.randint(0, LM_CFG["vocab_size"], (1, TRAIN_T)).astype(np.int32)).cuda()
+    warm = lm.train_step(ttoks)
+    with torch.no_grad():  # the objective's terms at the next step's params
+        logits, aux = lm.model(ttoks, return_aux=True)
+        bare = float(lm_loss(logits, ttoks))
+        aux_mean = float(sum(aux) / len(aux))
+    del logits
+    check(len(aux) == nl // 2, f"{len(aux)} aux terms, want {nl // 2}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, t_ms = [], []
+    per_step = {"normalize": 0, "flash_attention": nl, "flash_bwd": nl, "flash_bwd_delta": nl,
+                "decode_attention": 0}
+    for _ in range(MOE_TRAIN_STEPS):
+        before = launch_counts()
+        t0 = time.monotonic()
+        losses.append(lm.train_step(ttoks))
+        t_ms.append((time.monotonic() - t0) * 1e3)
+        after = launch_counts()
+        moved = {k: after[k] - before[k] for k in after}
+        check(moved == per_step, f"an MoE train step launched {moved}, want {per_step}")
+    t_launches = launch_counts()
+    count(t_launches)
+    t_peak = torch.cuda.max_memory_allocated() / 1e6
+    check(all(np.isfinite(losses)), f"non-finite MoE loss: {losses}")
+    check(losses[-1] < losses[0], f"MoE loss did not fall: {losses[0]} -> {losses[-1]}")
+    aux_rel = abs((losses[0] - bare) - 1e-2 * aux_mean) / abs(losses[0])
+    check(aux_rel <= 1e-5, f"train loss {losses[0]} - bare {bare} != 1e-2 x mean aux {aux_mean}")
+    reset_launch_counts()
+    served = lm.generate(ttoks[:, :128].cpu().numpy(), TRAIN_NEW_TOKENS)
+    torch.cuda.synchronize()
+    g_launches = launch_counts()
+    g_want = dict(want, decode_attention=nl * (TRAIN_NEW_TOKENS - 1))
+    check(g_launches == g_want, f"MoE generate after training launched {g_launches}, want {g_want}")
+    count(g_launches)
+    check(served.shape == (1, TRAIN_NEW_TOKENS) and 0 <= served.min()
+          and served.max() < LM_CFG["vocab_size"], f"served tokens {served}")
+    prof_train = profile_calls(lambda: lm.train_step(ttoks), 3, TRAIN_KINDS)
+    del lm
+    torch.cuda.empty_cache()
+    med = statistics.median(t_ms)
+    out["train"] = {"config": dict(LM_CFG, **MOE, dtype="bfloat16", seq_len=TRAIN_T, batch=1,
+                                   optimizer="AdamW lr 3e-4 wd 1e-4", moe_aux_weight=1e-2),
+                    "routing": {"group": 1024, "capacity": 160},
+                    "warmup_loss": warm, "losses": losses, "launches": t_launches,
+                    "launches_per_step": per_step, "step_ms": t_ms, "step_ms_median": med,
+                    "step_ms_p90": float(np.percentile(t_ms, 90)),
+                    "tokens_per_s": TRAIN_T / (med / 1e3), "max_memory_allocated_mb": t_peak,
+                    "bare_lm_loss": bare, "aux_mean": aux_mean,
+                    "aux_term_rel_err": aux_rel, "generate_launches": g_launches,
+                    "generated": served.tolist()}
+    out["launches"] = total
+    out["phase_s"] = time.monotonic() - t_phase
+    emit(phase="moe", **out)
+    emit(phase="profile", path=f"moe_prefill_b{LM_BATCH}_t{PROMPT_LEN}", **prof_prefill)
+    emit(phase="profile", path=f"moe_decode_step_b{LM_BATCH}_ctx{PROMPT_LEN + 45}", **prof_decode)
+    emit(phase="profile", path=f"moe_train_step_b1_t{TRAIN_T}", **prof_train)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2311,6 +2633,10 @@ def main() -> int:
         phase_lm_server(timer)
         print(smi, flush=True)
         return 0
+    if "--moe" in sys.argv[1:]:  # a short call after an MoE edit: build, phase 13, stop
+        phase_moe(timer)
+        print(smi, flush=True)
+        return 0
     timings = phase_kernel(timer)
     if kernel_only:  # a short call after a K1 edit: build, check, time, stop
         print(smi, flush=True)
@@ -2323,6 +2649,7 @@ def main() -> int:
     train_launches = phase_train()
     image_train_launches = phase_image_train()
     server_launches = phase_lm_server(timer)
+    moe_launches = phase_moe(timer)
 
     kernels = []
     for model, mode in MODELS:
@@ -2337,7 +2664,7 @@ def main() -> int:
             launches_by_path=by_path, bound_by="bytes", **t))
     # one kernel timed at two shapes: each row carries every path's launches
     by_path = {kern: {"generate": lm_launches[kern], "train": train_launches[kern],
-                      "lm_server": server_launches[kern]}
+                      "lm_server": server_launches[kern], "moe": moe_launches[kern]}
                for kern in ("flash_attention", "decode_attention")}
     for case, shape in (
             ("prefill_b8", f"prefill b{LM_BATCH} T{PROMPT_LEN} H16 KV4 D64 bf16 causal"),
@@ -2365,7 +2692,10 @@ def main() -> int:
                  f"backward's]",
             route="cuda", variant="wgmma+tma", source="dml_tpu_torch/csrc/flash_attention_bwd.cu",
             replaces=f"dml_tpu/ops/flash_attention.py:{line}",
-            launches=train_launches["flash_bwd"], max_abs_err=t["max_abs_err"],
+            launches=train_launches["flash_bwd"] + moe_launches["flash_bwd"],
+            launches_by_path={"train": train_launches["flash_bwd"],
+                              "moe": moe_launches["flash_bwd"]},
+            max_abs_err=t["max_abs_err"],
             ms=t["ms"][part], mma_sync_ms=t["ms"][f"{part}_mma_sync"], plain_ms=t["plain_ms"],
             bound_ms=t["bound"][part]["bound_ms"], bound_by=t["bound"][part]["bound_by"],
             library_ms=t["library_ms"]))
@@ -2373,7 +2703,10 @@ def main() -> int:
         name=f"flash_bwd_delta[{shape}; rowsum(dO*O) and padded lse rows]", route="cuda",
         source="dml_tpu_torch/csrc/flash_attention_bwd.cu",
         replaces="dml_tpu/ops/flash_attention.py:311 (a jnp expression beside the Pallas kernels)",
-        launches=train_launches["flash_bwd_delta"], max_abs_err=t["delta_max_abs_err"],
+        launches=train_launches["flash_bwd_delta"] + moe_launches["flash_bwd_delta"],
+        launches_by_path={"train": train_launches["flash_bwd_delta"],
+                          "moe": moe_launches["flash_bwd_delta"]},
+        max_abs_err=t["delta_max_abs_err"],
         ms=t["ms"]["delta"], plain_ms=t["delta_plain_ms"], bound_ms=t["bound"]["delta"]["bound_ms"],
         bound_by=t["bound"]["delta"]["bound_by"], library_ms=None))
     print(smi, flush=True)

@@ -13,8 +13,10 @@ PyTorch counterpart of dml_tpu/inference/generate.py.
   sync per token.
 
 Same params tree as the JAX package (`models.lm_params`), same layer
-math (`_apply_block` is the one copy prefill and decode share), same
-cache layout (head-major [B, KV, T, D]; int8 scales [B, KV, 1, T]).
+math (`_apply_block` is the one copy prefill and decode share; a block
+whose tree holds `moe` runs `_moe_ffn`, exact per-token top-2 routing
+over every expert), same cache layout (head-major [B, KV, T, D]; int8
+scales [B, KV, 1, T]).
 
 Differences from the JAX package, by design:
 - The cache is a dict of preallocated tensors updated IN PLACE: a
@@ -43,6 +45,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..models.lm_params import resolve_device
 from ..models.transformer import rms_norm as _rms_norm
@@ -113,18 +116,27 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, device=None) -> Dict[str
 
 
 def serving_params(params: Dict[str, Any], cfg: LMConfig) -> Dict[str, Any]:
-    """The tree to serve from: float block kernels cast once to
-    `cfg.dtype` (bit-identical to the cast at every use), everything
-    else (embedding, norms, f32 lm_head, int8 kernels) as it is."""
+    """The tree to serve from: float block kernels and stacked expert
+    tensors (`moe.w_up`, `moe.w_down`) cast once to `cfg.dtype`
+    (bit-identical to `kernel_of`'s cast at every use), everything else
+    (embedding, norms, the router, f32 lm_head, int8 kernels) as it is.
+    The router stays as given: `_moe_ffn` routes in float32."""
+
+    def cast(v):
+        return v if is_quantized(v) else v.to(cfg.dtype)
+
     out: Dict[str, Any] = {}
     for name, sub in params.items():
         if name.startswith("block_"):
-            out[name] = {
-                k: ({"kernel": v["kernel"].to(cfg.dtype)}
-                    if isinstance(v, dict) and "kernel" in v and not is_quantized(v["kernel"])
-                    else v)
-                for k, v in sub.items()
-            }
+            blk = {}
+            for k, v in sub.items():
+                if k == "moe":
+                    blk[k] = dict(v, w_up=cast(v["w_up"]), w_down=cast(v["w_down"]))
+                elif isinstance(v, dict) and "kernel" in v:
+                    blk[k] = {"kernel": cast(v["kernel"])}
+                else:
+                    blk[k] = v
+            out[name] = blk
         else:
             out[name] = sub
     return out
@@ -148,6 +160,51 @@ def _device_of(params: Dict[str, Any]) -> torch.device:
     return params["embed"]["embedding"].device
 
 
+# tokens per dense-dispatch chunk: the [chunk, E, d_ff] intermediate
+# stays bounded whatever the prompt length
+_MOE_CHUNK = 512
+
+
+def _moe_ffn(moe: Dict[str, Any], y: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The MoE FFN at serve time (`parallel.moe.MoEMLP`'s function without
+    capacity): y [B, T, d] -> [B, T, d]. Per-token top-2 routing is exact,
+    so no token drops (capacity drops are a training-time batching
+    artifact). Every expert runs on every token and the outputs are
+    combined with the two gate weights, as the JAX package does; runs of
+    more than `_MOE_CHUNK` tokens go through in zero-padded chunks of that
+    many (pad rows route too and are thrown away). The router runs in
+    float32 (a bf16-cast router is promoted exactly, as JAX promotes it);
+    the expert products and the combine run in `dtype`."""
+    w_up = kernel_of(moe["w_up"], dtype)
+    w_down = kernel_of(moe["w_down"], dtype)
+    router = kernel_of(moe["router"], torch.float32)
+
+    def dense(tok):  # [n, d] -> [n, d]
+        gates = torch.softmax(tok.to(torch.float32) @ router, dim=-1)  # [n, E]
+        e = gates.shape[-1]
+        m1 = F.one_hot(gates.argmax(-1), e).to(gates.dtype)
+        m2 = F.one_hot((gates * (1.0 - m1)).argmax(-1), e).to(gates.dtype)
+        g1 = (gates * m1).sum(-1)
+        g2 = (gates * m2).sum(-1)
+        denom = torch.clamp(g1 + g2, min=1e-9)
+        w = m1 * (g1 / denom)[:, None] + m2 * (g2 / denom)[:, None]  # [n, E]
+        # batched over experts: [n, d] @ [E, d, d_ff] -> [E, n, d_ff]
+        # (torch.einsum's "nd,edf" folds E into one GEMM and copies the
+        # whole permuted w_up on every call)
+        h = silu(torch.matmul(tok, w_up))
+        o = torch.matmul(h, w_down)  # [E, n, d]
+        return torch.einsum("end,ne->nd", o, w.to(dtype))
+
+    d = y.shape[-1]
+    tok = y.reshape(-1, d)
+    n = tok.shape[0]
+    if n <= _MOE_CHUNK:
+        return dense(tok).reshape(y.shape)
+    tokp = F.pad(tok, (0, 0, 0, (-n) % _MOE_CHUNK))
+    out = torch.cat([dense(c) for c in tokp.split(_MOE_CHUNK)])
+    return out[:n].reshape(y.shape)
+
+
 def _apply_block(blk, cfg: LMConfig, x, tables, attn_fn):
     """One transformer block, the single copy of the layer math that
     decode (T=1, cache attention) and prefill (T=Tp, flash attention)
@@ -156,11 +213,6 @@ def _apply_block(blk, cfg: LMConfig, x, tables, attn_fn):
     [B, T, KV, D]."""
     b, t = x.shape[:2]
     h, hd, kv, d = cfg.n_heads, cfg.head_dim, cfg.kv_heads, cfg.d_model
-    if "moe" in blk:
-        raise NotImplementedError(
-            "mixture-of-experts serving (generate._moe_ffn, parallel/moe.py) is not "
-            "ported yet: ROADMAP A, MoE serving"
-        )
     y = _rms_norm(x, blk["ln_attn"]["scale"], cfg.dtype)
     qkv = y @ kernel_of(blk["qkv"], cfg.dtype)  # [B, T, d + 2*kv*hd]
     q = apply_rope(qkv[..., :d].reshape(b, t, h, hd), tables)
@@ -169,6 +221,8 @@ def _apply_block(blk, cfg: LMConfig, x, tables, attn_fn):
     attn = attn_fn(q, k, v).reshape(b, t, d).to(cfg.dtype)
     x = x + attn @ kernel_of(blk["proj"], cfg.dtype)
     y = _rms_norm(x, blk["ln_mlp"]["scale"], cfg.dtype)
+    if "moe" in blk:
+        return x + _moe_ffn(blk["moe"], y, cfg.dtype), k, v
     y = silu(y @ kernel_of(blk["up"], cfg.dtype))
     return x + y @ kernel_of(blk["down"], cfg.dtype), k, v
 

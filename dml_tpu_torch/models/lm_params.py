@@ -6,8 +6,17 @@ leaves: `{"embed": {"embedding"}, "block_i": {"ln_attn": {"scale"},
 "qkv": {"kernel"}, "proj", "ln_mlp", "up", "down"}, "ln_out",
 "lm_head"}`, kernels in Flax's [in, out] layout, float32 (or, after
 `inference.quantize.quantize_lm_params`, `{"q": int8, "scale": f32}` in
-place of a kernel). `inference.generate` consumes it directly and
-`state_dict_of` flattens it for `models.transformer.TransformerLM`.
+place of a kernel). A mixture-of-experts block holds `"moe":
+{"router": {"kernel"} [d, E], "w_up" [E, d, d_ff], "w_down" [E, d_ff,
+d]}` in place of up and down. `inference.generate` consumes the tree
+directly and `state_dict_of` flattens it for
+`models.transformer.TransformerLM`.
+
+`LMConfig` carries no MoE fields (as in the JAX package): which blocks
+are MoE comes from the tree (`"moe" in blk`), or, to make one, from the
+`num_experts` and `moe_every` arguments of `lm_param_shapes` and
+`init_lm_params` (every `moe_every`-th block, as `TransformerLM` lays
+them out).
 
 Entry points place the tree on `cuda` unless the caller passes another
 device, and raise when there is no CUDA device; the tests pass
@@ -16,13 +25,15 @@ device, and raise when there is no CUDA device; the tests pass
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
-_BLOCK_NORMS = ("ln_attn", "ln_mlp")
-_BLOCK_KERNELS = ("qkv", "proj", "up", "down")
+_DENSE_FFN = ("up/kernel", "down/kernel")
+_MOE_FFN = ("moe/router/kernel", "moe/w_up", "moe/w_down")
+_BLOCK_LEAVES = ("ln_attn/scale", "qkv/kernel", "proj/kernel", "ln_mlp/scale")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -34,25 +45,38 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def lm_param_shapes(cfg) -> Dict[str, tuple]:
+def _block_shapes(cfg, num_experts: int) -> Dict[str, tuple]:
+    """Leaf -> shape of one block: a mixture of `num_experts` experts in
+    its FFN, or a dense FFN when that is 0."""
+    d, hd, kv, f = cfg.d_model, cfg.head_dim, cfg.kv_heads, cfg.d_ff
+    shapes = {"ln_attn/scale": (d,), "qkv/kernel": (d, d + 2 * kv * hd),
+              "proj/kernel": (d, d), "ln_mlp/scale": (d,)}
+    if num_experts:
+        shapes.update({"moe/router/kernel": (d, num_experts),
+                       "moe/w_up": (num_experts, d, f), "moe/w_down": (num_experts, f, d)})
+    else:
+        shapes.update({"up/kernel": (d, f), "down/kernel": (f, d)})
+    return shapes
+
+
+def is_moe_block(i: int, num_experts: int, moe_every: int) -> bool:
+    """Whether block i is a mixture of experts: every `moe_every`-th
+    block when `num_experts` > 0 (`TransformerLM`'s layout)."""
+    return num_experts > 0 and i % moe_every == moe_every - 1
+
+
+def lm_param_shapes(cfg, num_experts: int = 0, moe_every: int = 2) -> Dict[str, tuple]:
     """Flat 'a/b/c' key -> shape of every float leaf for `cfg` (an
-    `inference.generate.LMConfig`)."""
-    d, hd, kv = cfg.d_model, cfg.head_dim, cfg.kv_heads
+    `inference.generate.LMConfig`), with `num_experts` experts in every
+    `moe_every`-th block when `num_experts` > 0."""
     shapes = {
-        "embed/embedding": (cfg.vocab_size, d),
-        "ln_out/scale": (d,),
-        "lm_head/kernel": (d, cfg.vocab_size),
+        "embed/embedding": (cfg.vocab_size, cfg.d_model),
+        "ln_out/scale": (cfg.d_model,),
+        "lm_head/kernel": (cfg.d_model, cfg.vocab_size),
     }
     for i in range(cfg.n_layers):
-        p = f"block_{i}"
-        shapes.update({
-            f"{p}/ln_attn/scale": (d,),
-            f"{p}/qkv/kernel": (d, d + 2 * kv * hd),
-            f"{p}/proj/kernel": (d, d),
-            f"{p}/ln_mlp/scale": (d,),
-            f"{p}/up/kernel": (d, cfg.d_ff),
-            f"{p}/down/kernel": (cfg.d_ff, d),
-        })
+        e = num_experts if is_moe_block(i, num_experts, moe_every) else 0
+        shapes.update({f"block_{i}/{k}": v for k, v in _block_shapes(cfg, e).items()})
     return shapes
 
 
@@ -80,27 +104,32 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
     return flat
 
 
-def init_lm_params(cfg, seed: int = 0, device=None) -> Dict[str, Any]:
-    """Deterministic float32 params tree for `cfg`, with Flax's
-    initializers: the embedding normal with std sqrt(1/d_model)
-    (`nn.Embed`'s variance scaling), dense kernels lecun-normal (a
-    normal truncated at two standard deviations, std
-    sqrt(1/fan_in)/0.8796, `nn.Dense`'s default), RMSNorm scales one.
-    Drawn in key order from `torch.Generator(seed)` on the CPU, so the
-    values do not depend on the device; the bits are not JAX's (a test
-    that needs both packages on the same weights initialises in JAX and
-    converts with `lm_params_from_flax`)."""
+def init_lm_params(cfg, seed: int = 0, device=None, num_experts: int = 0,
+                   moe_every: int = 2) -> Dict[str, Any]:
+    """Deterministic float32 params tree for `cfg` (with experts as
+    `lm_param_shapes` lays them out), with Flax's initializers: the
+    embedding normal with std sqrt(1/d_model) (`nn.Embed`'s variance
+    scaling), kernels and expert tensors lecun-normal (a normal truncated
+    at two standard deviations, std sqrt(1/fan_in)/0.8796, `nn.Dense`'s
+    default and MoEMLP's variance scaling), RMSNorm scales one. fan_in
+    is the product of every axis but the last, as Flax counts it: d for
+    a [d, out] kernel, E * d for `w_up` [E, d, d_ff] (the expert axis is
+    a receptive field to Flax). Drawn in key order from
+    `torch.Generator(seed)` on the CPU, so the values do not depend on
+    the device; the bits are not JAX's (a test that needs both packages
+    on the same weights initialises in JAX and converts with
+    `lm_params_from_flax`)."""
     dev = resolve_device(device)
     g = torch.Generator().manual_seed(seed)
     flat = {}
-    for key, shape in lm_param_shapes(cfg).items():
+    for key, shape in lm_param_shapes(cfg, num_experts, moe_every).items():
         leaf = key.rsplit("/", 1)[1]
         if leaf == "scale":
             t = torch.ones(shape)
         elif leaf == "embedding":
             t = torch.empty(shape).normal_(0.0, shape[1] ** -0.5, generator=g)
         else:
-            std = shape[0] ** -0.5 / 0.87962566103423978
+            std = math.prod(shape[:-1]) ** -0.5 / 0.87962566103423978
             t = torch.nn.init.trunc_normal_(torch.empty(shape), 0.0, std, -2 * std, 2 * std,
                                             generator=g)
         flat[key] = t.to(dev)
@@ -122,33 +151,39 @@ def lm_params_from_flax(tree: Mapping[str, Any], device=None, *, cfg=None) -> Di
     on `device`. Values are copied exactly (float32 stays float32, int8
     stays int8).
 
-    Keys and shapes are checked: against `lm_param_shapes(cfg)` when
-    `cfg` is given, else against block_0's (every block must have the
-    same leaves and shapes, and the top level must be embed, ln_out,
-    lm_head and block_0..block_{n-1}). A missing or extra key raises
-    KeyError naming it, a wrong shape ValueError."""
+    Keys and shapes are checked block by block; a block whose tree holds
+    `moe` is a mixture of experts (E from its router), any other a dense
+    block. With `cfg`, every leaf against `cfg`'s shapes (blocks
+    0..n_layers-1); without it, every block against the first block of
+    its kind, and the top level must be embed, ln_out, lm_head and
+    block_0..block_{n-1}. A missing or extra key raises KeyError naming
+    it, a wrong shape ValueError."""
     dev = resolve_device(device)
     flat = _flatten(tree)
-    if any("/moe/" in k or k.endswith("/moe") for k in flat):
-        raise NotImplementedError(
-            "mixture-of-experts blocks (dml_tpu/parallel/moe.py) are not ported yet: "
-            "ROADMAP A, MoE serving"
-        )
 
     def shape_of(v):
         return tuple(np.shape(v["q"] if isinstance(v, Mapping) else v))
 
+    def experts(name):
+        router = flat.get(f"{name}/moe/router/kernel")
+        return shape_of(router)[-1] if router is not None else 0
+
     if cfg is not None:
-        want = lm_param_shapes(cfg)
+        want = {k: shape for k, shape in lm_param_shapes(cfg).items()
+                if not k.startswith("block_")}
+        for i in range(cfg.n_layers):
+            want.update({f"block_{i}/{k}": v
+                         for k, v in _block_shapes(cfg, experts(f"block_{i}")).items()})
     else:
         n_blocks = len({k.split("/")[0] for k in flat if k.startswith("block_")})
         want = {k: shape_of(flat[k]) for k in ("embed/embedding", "ln_out/scale", "lm_head/kernel")
                 if k in flat}
+        first: Dict[bool, str] = {}  # MoE or dense -> the first block of that kind
         for i in range(n_blocks):
-            for leaf in _BLOCK_NORMS:
-                want[f"block_{i}/{leaf}/scale"] = shape_of(flat.get(f"block_0/{leaf}/scale", ()))
-            for leaf in _BLOCK_KERNELS:
-                want[f"block_{i}/{leaf}/kernel"] = shape_of(flat.get(f"block_0/{leaf}/kernel", ()))
+            moe = experts(f"block_{i}") > 0
+            ref = first.setdefault(moe, f"block_{i}")
+            for leaf in _BLOCK_LEAVES + (_MOE_FFN if moe else _DENSE_FFN):
+                want[f"block_{i}/{leaf}"] = shape_of(flat.get(f"{ref}/{leaf}", ()))
     for k in want:
         if k not in flat:
             raise KeyError(f"the params tree has no value for {k!r}")
@@ -162,8 +197,9 @@ def lm_params_from_flax(tree: Mapping[str, Any], device=None, *, cfg=None) -> Di
         if isinstance(v, Mapping):  # quantized kernel
             q = _as_tensor(v["q"], torch.int8)
             s = _as_tensor(v["scale"], torch.float32)
-            if tuple(s.shape) != (1, q.shape[1]):
-                raise ValueError(f"{k!r}: scale shape {tuple(s.shape)}, expected {(1, q.shape[1])}")
+            want_s = (*q.shape[:-2], 1, q.shape[-1])  # one per (expert,) output channel
+            if tuple(s.shape) != want_s:
+                raise ValueError(f"{k!r}: scale shape {tuple(s.shape)}, expected {want_s}")
             out[k] = {"q": q.to(dev), "scale": s.to(dev)}
         else:
             out[k] = _as_tensor(v, torch.float32).to(dev)

@@ -9,8 +9,11 @@ scale`, `lm_head.kernel` [d, V]. Parameters are float32 and cast to the
 module's dtype at use, as Flax does; the LM head runs in float32.
 
 The default attention is `ops.flash_attention.reference_attention`, the
-port's copy of the JAX package's `reference_attention`. Blocks with
-experts (`num_experts > 0`) need parallel/moe.py, which is not ported.
+port's copy of the JAX package's `reference_attention`. With
+`num_experts > 0` every `moe_every`-th block's FFN is a mixture of
+experts (`parallel.moe.MoEMLP`, leaves `block_i.moe.{router.kernel,
+w_up, w_down}`); `forward(tokens, return_aux=True)` also returns each MoE
+block's load-balance loss, in block order, for the trainer.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 from torch import nn
 
 from ..ops.flash_attention import reference_attention
+from .lm_params import is_moe_block
 
 RMS_EPS = 1e-6  # flax nn.RMSNorm default, as used by TransformerLM
 
@@ -106,13 +110,9 @@ class Embed(nn.Module):
 class Block(nn.Module):
     def __init__(self, d_model: int, n_heads: int, d_ff: int,
                  attention: Callable[..., torch.Tensor], dtype: torch.dtype = torch.bfloat16,
-                 n_kv_heads: Optional[int] = None, num_experts: int = 0):
+                 n_kv_heads: Optional[int] = None, num_experts: int = 0,
+                 capacity_factor: float = 1.25):
         super().__init__()
-        if num_experts:
-            raise NotImplementedError(
-                "mixture-of-experts blocks (dml_tpu/parallel/moe.py) are not ported yet: "
-                "ROADMAP A, MoE serving"
-            )
         kv = n_kv_heads or n_heads
         if n_heads % kv:
             raise ValueError(f"n_kv_heads {kv} must divide n_heads {n_heads}")
@@ -123,11 +123,19 @@ class Block(nn.Module):
         self.qkv = Dense(d_model, d_model + 2 * kv * hd, dtype)
         self.proj = Dense(d_model, d_model, dtype)
         self.ln_mlp = RMSNorm(d_model, dtype)
-        self.up = Dense(d_model, d_ff, dtype)
-        self.down = Dense(d_ff, d_model, dtype)
+        if num_experts:
+            from ..parallel.moe import MoEMLP
+
+            self.moe = MoEMLP(d_model, num_experts, d_ff, capacity_factor=capacity_factor,
+                              dtype=dtype)
+        else:
+            self.up = Dense(d_model, d_ff, dtype)
+            self.down = Dense(d_ff, d_model, dtype)
 
     def forward(self, x, tables):
-        """x [B, T, d]; `tables` from `rope_tables` for these positions."""
+        """x [B, T, d]; `tables` from `rope_tables` for these positions.
+        Returns (x_out, the MoE load-balance loss, or None for a dense
+        block)."""
         b, t, _ = x.shape
         h, kv, d = self.n_heads, self.kv, self.d_model
         hd = d // h
@@ -142,8 +150,11 @@ class Block(nn.Module):
             v = v.repeat_interleave(h // kv, dim=2)
         attn = self.attention(q, k, v, causal=True).reshape(b, t, d)
         x = x + self.proj(attn)
-        y = self.up(self.ln_mlp(x))
-        return x + self.down(silu(y))
+        y = self.ln_mlp(x)
+        if hasattr(self, "moe"):
+            y, aux = self.moe(y)
+            return x + y, aux
+        return x + self.down(silu(self.up(y))), None
 
 
 class TransformerLM(nn.Module):
@@ -153,26 +164,32 @@ class TransformerLM(nn.Module):
                  n_layers: int = 6, d_ff: int = 2048,
                  attention: Optional[Callable[..., torch.Tensor]] = None,
                  dtype: torch.dtype = torch.bfloat16, n_kv_heads: Optional[int] = None,
-                 num_experts: int = 0, moe_every: int = 2):
+                 num_experts: int = 0, moe_every: int = 2, capacity_factor: float = 1.25):
         super().__init__()
         attn = attention or reference_attention
         # the Flax module's fields, which LongContextLM.generate reads
         self.vocab_size, self.d_model, self.n_heads, self.d_ff = vocab_size, d_model, n_heads, d_ff
         self.n_kv_heads, self.dtype = n_kv_heads, dtype
         self.n_layers, self.head_dim = n_layers, d_model // n_heads
+        self.num_experts, self.moe_every = num_experts, moe_every
         self.embed = Embed(vocab_size, d_model, dtype)
         for i in range(n_layers):
-            is_moe = num_experts > 0 and i % moe_every == moe_every - 1
             self.add_module(f"block_{i}", Block(
                 d_model, n_heads, d_ff, attn, dtype, n_kv_heads,
-                num_experts if is_moe else 0,
+                num_experts if is_moe_block(i, num_experts, moe_every) else 0, capacity_factor,
             ))
         self.ln_out = RMSNorm(d_model, dtype)
         self.lm_head = Dense(d_model, vocab_size, torch.float32)
 
-    def forward(self, tokens):
+    def forward(self, tokens, return_aux: bool = False):
+        """Logits [B, T, vocab] f32; with `return_aux`, (logits, [the
+        load-balance loss of each MoE block, in block order])."""
         x = self.embed(tokens)
         tables = rope_tables(torch.arange(tokens.shape[1], device=x.device), self.head_dim)
+        aux = []
         for i in range(self.n_layers):
-            x = getattr(self, f"block_{i}")(x, tables)
-        return self.lm_head(self.ln_out(x).to(torch.float32))
+            x, a = getattr(self, f"block_{i}")(x, tables)
+            if a is not None:
+                aux.append(a)
+        logits = self.lm_head(self.ln_out(x).to(torch.float32))
+        return (logits, aux) if return_aux else logits

@@ -7,7 +7,11 @@ dml_tpu/parallel/long_context.py at sp=1.
 every layer; `LongContextLM` holds the float32 params and the AdamW
 state and runs `train_step` (loss, backward, optimizer step), `forward`,
 `generate` (the trained weights served by `inference.generate`) and
-checkpoints (`parallel.checkpoint`).
+checkpoints (`parallel.checkpoint`). With `num_experts > 0` every
+`moe_every`-th block is a mixture of experts (`parallel.moe`), and the
+objective adds `moe_aux_weight` times the mean of the blocks'
+load-balance losses to the next-token loss, as the JAX package's
+train step does.
 
 Differences from the JAX package, by design:
 - One device. A mesh that asks for more than one device (sequence,
@@ -21,8 +25,10 @@ Differences from the JAX package, by design:
   `models.lm_params.lm_train_state_from_flax` converts the JAX state to
   it. The getter's tensors are the live ones, not copies.
 - `generate` serves the trained weights in the JAX package's cast form:
-  every floating leaf with ndim >= 2 (block kernels, embedding, lm_head)
-  rounded once to the model dtype, norm scales float32.
+  every floating leaf with ndim >= 2 (block kernels, expert tensors and
+  the router, embedding, lm_head) rounded once to the model dtype, norm
+  scales float32; `inference.generate` routes with the rounded router
+  promoted back to float32, as JAX promotes it.
 
 Entry points run on `cuda` unless `device` says otherwise, and raise
 when there is no CUDA device; the tests pass `device="cpu"`.
@@ -94,15 +100,15 @@ class LongContextLM:
             raise TypeError("LongContextLM needs seq_len")
         self.device = resolve_device(device)
         self.mesh, self.seq_len = mesh, seq_len
-        # MoE blocks raise in make_lm, so there are no load-balance terms
-        # yet for this weight to scale
         self.moe_aux_weight = moe_aux_weight
         self.model = make_lm(mesh, dtype=dtype, **config).to(self.device)
         m = self.model
         self.cfg = LMConfig(vocab_size=m.vocab_size, d_model=m.d_model, n_heads=m.n_heads,
                             n_layers=m.n_layers, d_ff=m.d_ff, dtype=m.dtype,
                             n_kv_heads=m.n_kv_heads)
-        m.load_state_dict(state_dict_of(init_lm_params(self.cfg, seed=seed, device=self.device)))
+        m.load_state_dict(state_dict_of(init_lm_params(
+            self.cfg, seed=seed, device=self.device, num_experts=m.num_experts,
+            moe_every=m.moe_every)))
         self.optimizer = make_adamw(m.parameters(), learning_rate, self.device)
         self.step = 0
         self._serve: Optional[tuple] = None  # (step, {form: params tree})
@@ -119,9 +125,17 @@ class LongContextLM:
             return self.model(self._tokens(tokens))
 
     def loss(self, tokens) -> torch.Tensor:
-        """The training objective on `tokens`, differentiable."""
+        """The training objective on `tokens`, differentiable: the
+        next-token loss plus `moe_aux_weight` times the mean of the MoE
+        blocks' load-balance losses (none without experts). Without that
+        term the top-2 router can collapse onto one expert and drop
+        tokens."""
         t = self._tokens(tokens)
-        return lm_loss(self.model(t), t)
+        logits, aux = self.model(t, return_aux=True)
+        loss = lm_loss(logits, t)
+        if aux:
+            loss = loss + self.moe_aux_weight * (sum(aux) / len(aux))
+        return loss
 
     def train_step(self, tokens) -> float:
         """One AdamW step on the next-token loss; returns the loss before

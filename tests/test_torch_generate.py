@@ -206,3 +206,137 @@ def test_sampling_serving_params_and_devices(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tg.init_cache(tcfg, 1, 8)
     assert tg.init_cache(tcfg, 1, 8, device="cpu")["block_0"]["k"].shape == (1, 2, 8, 8)
+
+
+# ---- mixture of experts: blocks 1 and 3 of 4 hold 4 experts each
+MOE_SHAPE = dict(vocab_size=61, d_model=32, n_heads=4, n_layers=4, d_ff=64, n_kv_heads=2)
+
+
+def _moe_cfgs(jdtype=jnp.float32, tdtype=torch.float32, **kw):
+    return (jg.LMConfig(dtype=jdtype, **MOE_SHAPE, **kw),
+            tg.LMConfig(dtype=tdtype, **MOE_SHAPE, **kw))
+
+
+def _moe_params(capacity_factor=1.25):
+    """(JAX params, port params, the JAX module) of the MoE LM."""
+    key = ("moe", capacity_factor)
+    if key not in _PARAMS:
+        model = JaxLM(dtype=jnp.float32, num_experts=4, moe_every=2,
+                      capacity_factor=capacity_factor, **MOE_SHAPE)
+        jp = model.init(jax.random.PRNGKey(1), jnp.zeros((1, 8), jnp.int32))["params"]
+        _PARAMS[key] = jp, lm_params_from_flax(jax.tree_util.tree_map(np.asarray, jp),
+                                               device="cpu"), model
+    return _PARAMS[key]
+
+
+def _moe_dict(rng, d=16, e=4, dff=32):
+    return {"router": {"kernel": rng.randn(d, e).astype(np.float32)},
+            "w_up": (rng.randn(e, d, dff) * d ** -0.5).astype(np.float32),
+            "w_down": (rng.randn(e, dff, d) * dff ** -0.5).astype(np.float32)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tokens", [14, 1400], ids=["one-chunk", "chunked"])
+def test_moe_ffn_matches_jax(tokens, dtype, monkeypatch):
+    """The serving FFN on the same weights and tokens: one call at n <= 512,
+    zero-padded 512-token chunks above (JAX's lax.map)."""
+    rng = np.random.RandomState(0)
+    moe = _moe_dict(rng)
+    y = rng.randn(2, tokens // 2, 16).astype(np.float32)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16, torch.bfloat16)
+    want = np.asarray(jg._moe_ffn(jax.tree_util.tree_map(jnp.asarray, moe),
+                                  jnp.asarray(y, jdt), jdt), np.float32)
+    tmoe = {"router": {"kernel": torch.from_numpy(moe["router"]["kernel"])},
+            "w_up": torch.from_numpy(moe["w_up"]), "w_down": torch.from_numpy(moe["w_down"])}
+    got = tg._moe_ffn(tmoe, torch.from_numpy(y).to(tdt), tdt)
+    assert got.dtype == tdt and tuple(got.shape) == y.shape
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
+    else:  # the same roundings, up to the order of a few bf16 sums
+        err = np.abs(got.float().numpy() - want)
+        assert err.max() <= 1e-2 * np.abs(want).max(), err.max()
+    if tokens > tg._MOE_CHUNK and dtype == "float32":  # the chunked run equals one shot
+        monkeypatch.setattr(tg, "_MOE_CHUNK", 10 ** 9)
+        np.testing.assert_allclose(got.numpy(), tg._moe_ffn(tmoe, torch.from_numpy(y), tdt).numpy(),
+                                   atol=1e-4)
+
+
+def test_moe_prefill_decode_and_verify_match_jax():
+    jcfg, tcfg = _moe_cfgs()
+    jp, tp_, _ = _moe_params()
+    prompt = _prompt(seed=8)
+    j_logits, j_cache = jg.prefill(jp, jcfg, jnp.asarray(prompt), MAX_LEN)
+    logits, cache = tg.prefill(tp_, tcfg, torch.from_numpy(prompt), MAX_LEN)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(j_logits), atol=2e-4)
+    _check_cache(cache, j_cache, False)
+    tokens, pos = np.asarray([3, 50], np.int32), np.asarray([TP, TP - 3], np.int32)
+    j_logits, j_next = jg.batched_decode_step(jp, jcfg, j_cache, jnp.asarray(tokens),
+                                              jnp.asarray(pos))
+    logits, out = tg.batched_decode_step(tp_, tcfg, _to_torch_cache(j_cache), tokens, pos)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(j_logits), atol=2e-4)
+    _check_cache(out, j_next, False)
+    cand = np.asarray([[4, 9, 11], [20, 1, 0]], np.int32)
+    vpos = np.asarray([TP + 1, 2], np.int32)
+    j_vl, _ = jg.batched_verify_step(jp, jcfg, j_next, jnp.asarray(cand), jnp.asarray(vpos))
+    t_vl, _ = tg.batched_verify_step(tp_, tcfg, out, cand, vpos)
+    np.testing.assert_allclose(t_vl.numpy(), np.asarray(j_vl), atol=2e-4)
+
+
+def test_moe_long_prompt_prefill_matches_jax():
+    """A 600-token prompt: the FFN's tokens go through two 512-token
+    chunks, the second zero-padded."""
+    jcfg, tcfg = _moe_cfgs()
+    jp, tp_, _ = _moe_params()
+    prompt = _prompt(b=1, t=600, seed=9)
+    j_logits, _ = jg.prefill(jp, jcfg, jnp.asarray(prompt), 602)
+    logits, _ = tg.prefill(tp_, tcfg, torch.from_numpy(prompt), 602)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(j_logits), atol=2e-4)
+
+
+@pytest.mark.parametrize("weights", ["float", "int8", "bf16"])
+def test_moe_greedy_generate_matches_jax(weights):
+    bf16 = weights == "bf16"
+    jcfg, tcfg = _moe_cfgs(*((jnp.bfloat16, torch.bfloat16) if bf16 else ()))
+    jp, tp_, _ = _moe_params()
+    if weights == "int8":
+        jp, tp_ = jax_quantize(jp), quantize_lm_params(tp_)
+    prompt = _prompt(seed=11)
+    if bf16:
+        want = _jax_greedy_op_by_op(jp, jcfg, prompt, 6)
+    else:
+        want = np.asarray(jg.generate(jp, jcfg, jnp.asarray(prompt), max_new_tokens=6))
+    served = tg.serving_params(tp_, tcfg)
+    got = tg.generate(served, tcfg, torch.from_numpy(prompt), 6)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # serving_params casts the expert tensors once (the bits kernel_of's
+    # cast gives at every use) and leaves the router as it is
+    moe = served["block_1"]["moe"]
+    assert moe["router"]["kernel"] is tp_["block_1"]["moe"]["router"]["kernel"]
+    if weights == "int8":
+        assert moe["w_up"]["q"].dtype == torch.int8
+    else:
+        assert moe["w_up"].dtype == tcfg.dtype
+        np.testing.assert_array_equal(tg.generate(tp_, tcfg, torch.from_numpy(prompt), 6).numpy(),
+                                      want)
+
+
+def test_moe_decode_matches_full_forward():
+    """tests/test_generate.py's case on the port: with ample capacity the
+    full forward drops nothing, so exact per-token decode routing matches
+    it position by position; both match JAX's full forward."""
+    jcfg, tcfg = _moe_cfgs()
+    jp, tp_, model = _moe_params(capacity_factor=16.0)
+    tokens = np.random.RandomState(5).randint(0, 61, (2, 6)).astype(np.int32)
+    full = np.asarray(model.apply({"params": jp}, jnp.asarray(tokens)))
+    from dml_tpu_torch.models.lm_params import state_dict_of
+    from dml_tpu_torch.models.transformer import TransformerLM
+
+    lm = TransformerLM(dtype=torch.float32, num_experts=4, moe_every=2, capacity_factor=16.0,
+                       **MOE_SHAPE)
+    lm.load_state_dict(state_dict_of(tp_))
+    with torch.no_grad():
+        np.testing.assert_allclose(lm(torch.from_numpy(tokens)).numpy(), full, atol=2e-4)
+    cache = tg.init_cache(tcfg, 2, 6, device="cpu")
+    for t in range(6):
+        logits, cache = tg.decode_step(tp_, tcfg, cache, torch.from_numpy(tokens[:, t]), t)
+        np.testing.assert_allclose(logits.numpy(), full[:, t], atol=3e-4, err_msg=f"pos {t}")

@@ -365,3 +365,37 @@ def test_failed_warm_start_falls_back_to_cold(both, monkeypatch):
     r2 = srv.submit(nxt, 4)
     np.testing.assert_array_equal(srv.run([r2])[r2], _isolated(jp, nxt, 4))
     assert cache.stats()["hits"] == 0
+
+
+def test_moe_suffix_prefill_and_warm_start_match_jax():
+    """An MoE tree (block_1 a mixture of 4 experts): the suffix prefill
+    over a prefix slab gives JAX's rows and first token, and a warm second
+    turn through the server gives JAX generate's tokens."""
+    model = JaxLM(dtype=jnp.float32, num_experts=4, moe_every=2, **SHAPE)
+    jp = model.init(jax.random.PRNGKey(3), jnp.zeros((1, 8), jnp.int32))["params"]
+    tp = lm_params_from_flax(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+    rng = np.random.RandomState(22)
+    prompt = rng.randint(0, 61, 21).astype(np.int32)
+    m = 13
+    _, jcache = jg.prefill(jp, JCFG, jnp.asarray(prompt[None]), 64)
+    prefix = {name: {k: np.asarray(v)[0][:, :m] for k, v in lay.items()}
+              for name, lay in jcache.items()}
+    j_first, j_rows = jkv.SuffixPrefiller(JCFG, 64)(jp, prefix, m, prompt[m:])
+    t_prefix = {n: {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in kv.items()}
+                for n, kv in prefix.items()}
+    t_first, t_rows = tkv.SuffixPrefiller(CFG, 64)(tp, t_prefix, m, prompt[m:])
+    assert t_first == j_first
+    for name, kv in j_rows.items():
+        for key, a in kv.items():
+            np.testing.assert_allclose(t_rows[name][key].numpy(), np.asarray(a), atol=2e-4,
+                                       err_msg=f"{name}/{key}")
+    srv = LMServer(tp, CFG, max_slots=2, max_len=128, chunk=4)
+    cache = tkv.KVPrefixCache(64 << 20)
+    srv.enable_kv_cache(cache)
+    r1 = srv.submit(prompt, 6)
+    out1 = srv.run([r1])[r1]
+    np.testing.assert_array_equal(out1, _isolated(jp, prompt, 6))
+    nxt = np.concatenate([prompt, out1, rng.randint(0, 61, 5).astype(np.int32)])
+    r2 = srv.submit(nxt, 7)
+    np.testing.assert_array_equal(srv.run([r2])[r2], _isolated(jp, nxt, 7))
+    assert cache.stats()["hits"] >= 1

@@ -9,7 +9,9 @@ against the JAX package, on the CPU.
 - `quantize_lm_params`: int8 values and scales equal to JAX's bit for
   bit, `kernel_of` and `quantized_bytes` equal;
 - weight conversion and seeded init: exact copies, key and shape checks,
-  Flax's distributions, and `cuda` by default.
+  Flax's distributions, and `cuda` by default; for mixture-of-experts
+  trees too (block-by-block layout checks, Flax's fan-in of a stacked
+  expert tensor, int8 per (expert, channel) equal to JAX's bit for bit).
 """
 
 import jax
@@ -150,6 +152,81 @@ def test_weight_conversion_and_seeded_init(monkeypatch):
         lm_params.init_lm_params(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         lm_params.lm_params_from_flax(params)
-    # mixture-of-experts blocks wait for parallel/moe.py
-    with pytest.raises(NotImplementedError, match="MoE serving"):
-        TransformerLM(VOCAB, D_MODEL, N_HEADS, 2, D_FF, num_experts=4)
+    # mixture-of-experts blocks: every moe_every-th block, the seeded
+    # init's keys and shapes fit them
+    moe_lm = TransformerLM(VOCAB, D_MODEL, N_HEADS, 2, D_FF, num_experts=4)
+    assert hasattr(moe_lm.block_1, "moe") and hasattr(moe_lm.block_0, "up")
+    moe_cfg = LMConfig(VOCAB, D_MODEL, N_HEADS, 2, D_FF, dtype=torch.float32)
+    moe_lm.load_state_dict(lm_params.state_dict_of(
+        lm_params.init_lm_params(moe_cfg, seed=1, device="cpu", num_experts=4)))
+
+
+def _jax_moe_params(seed=0):
+    model = JaxLM(vocab_size=VOCAB, d_model=D_MODEL, n_heads=N_HEADS, n_layers=4, d_ff=D_FF,
+                  dtype=jnp.float32, n_kv_heads=2, num_experts=4, moe_every=2)
+    params = model.init(jax.random.PRNGKey(seed), jnp.zeros((1, 8), jnp.int32))["params"]
+    return jax.tree_util.tree_map(np.asarray, params)
+
+
+def test_moe_quantize_matches_jax_bit_for_bit():
+    params = _jax_moe_params()
+    jq = jax.tree_util.tree_map(np.asarray, jax_quantize(jax.tree_util.tree_map(jnp.asarray, params)))
+    pq = tq.quantize_lm_params(lm_params.lm_params_from_flax(params, device="cpu"))
+    for name in ("block_1", "block_3"):
+        for leaf in ("w_up", "w_down"):
+            mine, theirs = pq[name]["moe"][leaf], jq[name]["moe"][leaf]
+            assert mine["q"].dtype == torch.int8 and mine["scale"].shape[1] == 1  # per (expert, channel)
+            np.testing.assert_array_equal(mine["q"].numpy(), theirs["q"])
+            np.testing.assert_array_equal(mine["scale"].numpy(), theirs["scale"])
+            np.testing.assert_array_equal(
+                tq.kernel_of(mine, torch.float32).numpy(),
+                np.asarray(jax_kernel_of(jax.tree_util.tree_map(jnp.asarray, theirs), jnp.float32)))
+        # the router stays float
+        assert not tq.is_quantized(pq[name]["moe"]["router"]["kernel"])
+    assert tq.quantized_bytes(pq) == jax_quantized_bytes(jq)
+    # the converter takes the quantized MoE tree, checked against cfg
+    cfg = LMConfig(VOCAB, D_MODEL, N_HEADS, 4, D_FF, dtype=torch.float32, n_kv_heads=2)
+    again = lm_params.lm_params_from_flax(jq, device="cpu", cfg=cfg)
+    assert torch.equal(again["block_3"]["moe"]["w_down"]["q"], pq["block_3"]["moe"]["w_down"]["q"])
+
+
+def test_moe_weight_conversion_and_seeded_init():
+    params = _jax_moe_params()
+    cfg = LMConfig(VOCAB, D_MODEL, N_HEADS, 4, D_FF, dtype=torch.float32, n_kv_heads=2)
+    tree = lm_params.lm_params_from_flax(params, device="cpu", cfg=cfg)
+    np.testing.assert_array_equal(tree["block_1"]["moe"]["w_up"].numpy(), params["block_1"]["moe"]["w_up"])
+    assert set(tree["block_1"]) == {"ln_attn", "qkv", "proj", "ln_mlp", "moe"}
+    assert set(lm_params._flatten(tree)) == set(lm_params.lm_param_shapes(cfg, num_experts=4))
+    # the state dict round-trips and loads into the MoE TransformerLM
+    sd = lm_params.state_dict_of(tree)
+    assert sd["block_3.moe.router.kernel"].shape == (D_MODEL, 4)
+    assert lm_params._flatten(lm_params.params_tree_of(sd)).keys() == lm_params._flatten(tree).keys()
+    TransformerLM(VOCAB, D_MODEL, N_HEADS, 4, D_FF, dtype=torch.float32, n_kv_heads=2,
+                  num_experts=4).load_state_dict(sd)
+    # block by block: an MoE block against the first MoE block, a dense
+    # one against the first dense block
+    bad = jax.tree_util.tree_map(lambda x: x, params)
+    bad["block_3"]["moe"]["w_up"] = np.zeros((4, D_MODEL, D_FF + 1), np.float32)
+    with pytest.raises(ValueError, match="block_3/moe/w_up"):
+        lm_params.lm_params_from_flax(bad, device="cpu")
+    bad = jax.tree_util.tree_map(lambda x: x, params)
+    del bad["block_1"]["moe"]["w_down"]
+    with pytest.raises(KeyError, match="block_1/moe/w_down"):
+        lm_params.lm_params_from_flax(bad, device="cpu", cfg=cfg)
+    bad = jax.tree_util.tree_map(lambda x: x, params)
+    bad["block_2"]["up"] = {"kernel": np.zeros((D_MODEL, D_FF + 1), np.float32)}
+    with pytest.raises(ValueError, match="block_2/up/kernel"):
+        lm_params.lm_params_from_flax(bad, device="cpu")
+    # seeded init: Flax's fan-in of a stacked expert tensor counts the
+    # expert axis (fan_in = E * d for w_up [E, d, d_ff])
+    a = lm_params.init_lm_params(cfg, seed=2, device="cpu", num_experts=4, moe_every=2)
+    assert "moe" in a["block_1"] and "up" in a["block_2"] and "moe" not in a["block_0"]
+    for leaf, fan_in in (("w_up", 4 * D_MODEL), ("w_down", 4 * D_FF)):
+        w = a["block_1"]["moe"][leaf]
+        std = fan_in ** -0.5
+        assert float(w.abs().max()) <= 2 * std / 0.87962566103423978 + 1e-6
+        assert abs(float(w.std()) - std) < 0.1 * std, leaf
+        # against the JAX initializer's own spread
+        assert abs(float(w.std()) - float(params["block_1"]["moe"][leaf].std())) < 0.1 * std, leaf
+    router = a["block_3"]["moe"]["router"]["kernel"]
+    assert abs(float(router.std()) - D_MODEL ** -0.5) < 0.2 * D_MODEL ** -0.5

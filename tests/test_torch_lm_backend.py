@@ -400,3 +400,27 @@ def test_server_and_cache_write_the_port_registry():
 
     assert {"lm_server_requests_total", "lm_server_steps_total", "lm_specdec_disabled_total",
             "lm_kv_cache_hits_total", "lm_kv_cache_bytes"} <= set(tobs.METRICS._metrics)
+
+
+def test_from_spec_over_jax_moe_weights_file(tmp_path):
+    """An MoE tree in a JAX weights file (the spec has no MoE field; the
+    layout is the tree's): the codec reads and writes its bytes exactly,
+    and the port's backend serves JAX generate's tokens. (The JAX
+    backend restores a file into the dense tree its spec describes, so
+    it cannot load this one.)"""
+    model = JaxLM(dtype=jnp.float32, num_experts=4, moe_every=2, **SHAPE)
+    jp = model.init(jax.random.PRNGKey(4), jnp.zeros((1, 8), jnp.int32))["params"]
+    data = jpio.variables_to_bytes({"params": jp})
+    assert tpio.variables_to_bytes(tpio.variables_from_bytes(data)) == data
+    wpath = str(tmp_path / "moe.msgpack")
+    with open(wpath, "wb") as f:
+        f.write(data)
+    spec = dict(SPEC, weights=wpath)
+    paths, prompts = _files(tmp_path, np.random.RandomState(24), [None, 5], [9, 14])
+    be = tlb.LMBackend.from_spec(spec, device="cpu")
+    try:
+        mine, _, _ = be.serve_files(paths)
+    finally:
+        be.close()
+    for p, prompt, b in zip(paths, prompts, [6, 5]):
+        np.testing.assert_array_equal(mine[p]["tokens"], _isolated(jp, prompt, b))

@@ -460,3 +460,29 @@ def test_on_token_streams_equal_final_result(both):
     for i, (rid, p, n) in enumerate(zip(rids, prompts, [6, 1, 4])):
         assert got[i] == out[rid].tolist()
         np.testing.assert_array_equal(out[rid], _isolated(jp, p, n))
+
+
+@pytest.fixture(scope="module")
+def moe_both():
+    """The same, with block_1's FFN a mixture of 4 experts (LMConfig has no
+    MoE field: the servers read the layout from the tree)."""
+    model = JaxLM(dtype=jnp.float32, num_experts=4, moe_every=2, **SHAPE)
+    jp = model.init(jax.random.PRNGKey(2), jnp.zeros((1, 8), jnp.int32))["params"]
+    assert "moe" in jp["block_1"]
+    return jp, lm_params_from_flax(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+
+
+def test_moe_tree_matches_jax_server_and_generate(moe_both):
+    """An MoE tree served unchanged: mixed budgets, more requests than
+    slots, a prompt past the 16-token bucket; tokens equal the JAX
+    server's and JAX generate's, and the port's LMDriver gives the same."""
+    rng = np.random.RandomState(8)
+    reqs = [(rng.randint(0, CFG.vocab_size, t), n) for t, n in ((7, 12), (16, 5), (23, 9), (4, 6))]
+    _check_three_ways(moe_both, reqs, max_slots=2, max_len=64, chunk=3)
+    drv = LMDriver(LMServer(moe_both[1], CFG, max_slots=2, max_len=64, chunk=3))
+    try:
+        outs = drv.serve([p for p, _ in reqs], [n for _, n in reqs])
+    finally:
+        drv.stop()
+    for o, (p, n) in zip(outs, reqs):
+        np.testing.assert_array_equal(o, _isolated(moe_both[0], p, n))

@@ -130,8 +130,9 @@ def test_bfloat16_loss_lm_loss_and_entry_points(monkeypatch):
         LongContextLM(make_mesh(MeshSpec(dp=2), devices=jax.devices()[:2]), seq_len=SEQ,
                       device="cpu", **CFG)
     assert make_lm(_mesh(), seq_parallel="ulysses", **CFG).block_0.attention is fa.flash_attention
-    with pytest.raises(NotImplementedError, match="MoE"):
-        LongContextLM(seq_len=SEQ, device="cpu", num_experts=4, **CFG)
+    # mixture-of-experts blocks train: block_1 holds the experts
+    moe_lm = LongContextLM(seq_len=SEQ, device="cpu", num_experts=4, **CFG)
+    assert hasattr(moe_lm.model.block_1, "moe") and moe_lm.model.block_1.moe.w_up.shape == (4, 64, 128)
     # cuda by default, and it raises without a card
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -180,6 +181,81 @@ def test_bfloat16_cast_form_matches_jax():
         for leaf in params[name].values():
             assert leaf.dtype == torch.bfloat16, name
     assert params["ln_out"]["scale"].dtype == torch.float32
+    j_logits, _ = jax_gen.prefill(jparams, jax_gen.LMConfig(**CFG, dtype=jnp.bfloat16),
+                                  jnp.asarray(prompt), 24)
+    logits, _ = gen.prefill(params, lm.cfg, torch.from_numpy(prompt), 24)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(j_logits), atol=1e-6, rtol=0)
+    np.testing.assert_array_equal(lm.generate(prompt, 8), jlm.generate(prompt, 8))
+
+
+MOE = dict(CFG, num_experts=4, moe_every=2)  # block_1's FFN: 4 experts, capacity 20 of 64 tokens
+
+
+def test_moe_train_steps_aux_state_and_checkpoint_match_jax(tmp_path):
+    """The MoE LM: the objective holds 1e-2 x the mean load-balance loss,
+    three train steps' losses follow JAX's, a converted JAX state (3-d
+    AdamW moments) continues with JAX's losses, a checkpoint round trip
+    repeats the next losses, and the trained weights serve JAX's tokens
+    (float and int8)."""
+    jlm = JaxLCLM(_mesh(), seq_len=SEQ, dtype=jnp.float32, **MOE)
+    lm = LongContextLM(seq_len=SEQ, dtype=torch.float32, device="cpu", **MOE)
+    lm.state = lm_train_state_from_flax(_host(jlm.state), device="cpu")
+    toks = _tokens(3)
+    t = torch.from_numpy(toks)
+    with torch.no_grad():
+        logits, aux = lm.model(t, return_aux=True)
+        total = float(lm.loss(toks))
+    bare = float(lm_loss(logits, t))
+    assert len(aux) == 1 and float(aux[0]) > 0
+    assert abs((total - bare) - 1e-2 * float(aux[0])) <= 1e-5 * abs(total)
+    j_bare = float(jax_lm_loss(jlm.forward(jlm.state["params"], jnp.asarray(toks)), jnp.asarray(toks)))
+    j_losses = [jlm.train_step(toks) for _ in range(3)]
+    assert abs(j_losses[0] - j_bare) > 1e-6  # JAX's objective holds the term too
+    losses = [lm.train_step(toks) for _ in range(3)]
+    np.testing.assert_allclose(losses, j_losses, rtol=1e-4)
+    assert losses[-1] < losses[0]
+
+    # JAX's state after one more step crosses, 3-d moments and all
+    jlm.train_step(toks)
+    lm.state = lm_train_state_from_flax(_host(jlm.state), device="cpu")
+    opt = lm.state["opt_state"]
+    assert opt["count"] == 4 and opt["exp_avg_sq"]["block_1.moe.w_up"].shape == (4, 64, 128)
+    np.testing.assert_array_equal(opt["exp_avg"]["block_1.moe.w_down"].numpy(),
+                                  np.asarray(jlm.state["opt_state"][0].mu["block_1"]["moe"]["w_down"]))
+    np.testing.assert_allclose([lm.train_step(toks) for _ in range(2)],
+                               [jlm.train_step(toks) for _ in range(2)], rtol=1e-4)
+
+    # checkpoint round trip: MoE leaves and their moments come back
+    lm.save_checkpoint(str(tmp_path))
+    ahead = [lm.train_step(toks) for _ in range(2)]
+    assert lm.restore_checkpoint(str(tmp_path)) == 6
+    assert [lm.train_step(toks) for _ in range(2)] == ahead
+
+    # the trained weights served: the same state on both sides
+    lm.state = lm_train_state_from_flax(_host(jlm.state), device="cpu")
+    prompt = toks[:, :16]
+    np.testing.assert_array_equal(lm.generate(prompt, 6), jlm.generate(prompt, 6))
+    np.testing.assert_array_equal(lm.generate(prompt, 4, quantize_weights=True),
+                                  jlm.generate(prompt, 4, quantize_weights=True))
+
+
+def test_moe_bfloat16_cast_form_matches_jax():
+    """The bf16 cast form of an MoE tree rounds the expert tensors and the
+    router too (every leaf with ndim >= 2); the router is promoted back to
+    float32 at use, as JAX promotes it: the same prefill logits within
+    1e-6 and the same greedy tokens."""
+    from dml_tpu.inference import generate as jax_gen
+
+    jlm = JaxLCLM(_mesh(), seq_len=SEQ, dtype=jnp.bfloat16, **MOE)
+    lm = LongContextLM(seq_len=SEQ, dtype=torch.bfloat16, device="cpu", **MOE)
+    lm.state = lm_train_state_from_flax(_host(jlm.state), device="cpu")
+    jlm.train_step(_tokens(5))
+    lm.state = lm_train_state_from_flax(_host(jlm.state), device="cpu")
+    params = lm._serving_params(quantized=False, cast=True)
+    moe = params["block_1"]["moe"]
+    assert moe["router"]["kernel"].dtype == moe["w_up"].dtype == torch.bfloat16
+    prompt = np.random.RandomState(4).randint(0, CFG["vocab_size"], (2, 16)).astype(np.int32)
+    jparams = jlm._serving_params(quantized=False, cast=True)
     j_logits, _ = jax_gen.prefill(jparams, jax_gen.LMConfig(**CFG, dtype=jnp.bfloat16),
                                   jnp.asarray(prompt), 24)
     logits, _ = gen.prefill(params, lm.cfg, torch.from_numpy(prompt), 24)
