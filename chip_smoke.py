@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernel-only   # phases 1-3 for the normalize kernel alone
     python3 chip_smoke.py --lm-server     # phases 1-2 and 12 (the LM server) alone
     python3 chip_smoke.py --moe           # phases 1-2 and 13 (mixture of experts) alone
+    python3 chip_smoke.py --parallel      # phases 1-2 and 14 (data and tensor parallelism) alone
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
@@ -67,24 +68,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
    version are timed in turns (new, mma.sync, SDPA, plain, SDPA,
    mma.sync, new) beside the tensor-core operation bound, with TFLOP/s
    and share of the bound;
-7. decode_check: the one-launch decode kernel and the first version
-   (split kernel + merge kernel, `split_pair=True`) against the plain
+7. decode_check: the one-launch decode kernel against the plain
    version within 2e-5 for bf16, f32 and int8 caches; GQA-4, MQA and
    MHA; B=1 and B=8 at T=4096 with mixed per-slot positions, the LM's
    own decode shape, D 16 int8, D 32 bf16, D 128 bf16 and f32, pos 0,
    T=1001, B=64 with short positions; q in bf16 (as generate gives it,
    int8 caches too), in f32, bf16 over an f32 cache (D 16, 64, 128), f32
    over a bf16 cache, and a strided view; each case run twice, bit-equal,
-   with a call at another (B, KV) between the two, and once with each
-   block's whole chunk issued at start (`ahead=ISSUE_ALL`), bit-equal
-   too; rows past each slot's position poisoned with +-1e4 must not
-   change the output. A profiler line shows one device kernel per call.
-   At lm_b8, gqa4_b8, gqa4_b1, mqa_b8, mha_b1 and int8_gqa4_b8 the new
-   kernel, the first version, the new kernel with whole chunks issued
-   at start, SDPA (bf16) and the plain version are timed in turns (new,
-   first, issue-all, SDPA, plain, SDPA, issue-all, first, new) beside the
-   byte bound of the valid cache rows (lm_b8 also under an L2 flushed by
-   reads);
+   with a call at another (B, KV) between the two; rows past each slot's
+   position poisoned with +-1e4 must not change the output. A profiler
+   line shows one device kernel per call. At lm_b8, gqa4_b8, gqa4_b1,
+   mqa_b8, mha_b1 and int8_gqa4_b8 the kernel, SDPA (bf16) and the plain
+   version are timed in turns (kernel, SDPA, plain, SDPA, kernel) beside
+   the byte bound of the valid cache rows (lm_b8 also under an L2
+   flushed by reads);
 8. lm: the 198M-parameter GQA-4 LM (bench.py's _bench_lm config, 12
    layers, d_model 1024, seeded weights) served by the port's generate
    on cuda in bf16: B=8 prompts of 2048 tokens, 64 new tokens. The
@@ -202,10 +199,33 @@ Phases, each printing one JSON line; any failure exits non-zero:
    1e-5 of the loss; step ms median and p90, tokens/s, peak memory, a
    profile of one step; 16 tokens served from the trained weights.
 
+14. parallel: the dp and tp forms over torch.distributed, ResNet50 at
+   224x224 with seeded weights. (a) NCCL at world size 1 on cuda:0 in
+   this process (real collectives on groups of one): ShardedInference
+   over local_mesh(dp=1), b32, float32 and bf16, both forms (one K1
+   launch a call; at tp 1 the two forms must agree bit for bit), the
+   Trainer through the mesh path (bf16, b32, 1 warm-up and 20 steps,
+   one K1 launch a step, losses finite and falling, one more for
+   `evaluate`), and the narrow float32 ResNet 3 steps with TF32 off;
+   K1 must have launched exactly that often and no other kernel. Then,
+   not counted, the mesh Trainer and the one-device Trainer in turns
+   (10, 10, 10, 10 steps): step ms median and p90 and images/s of each,
+   and profiles with the collectives' share. (b) Two gloo ranks, both
+   on cuda:0, spawned: at (dp 2, tp 1) and (dp 1, tp 2),
+   ShardedInference in float32 and bf16, both forms: float32
+   param-gather bitwise equal to world 1, the Megatron form within rtol
+   2e-4 atol 2e-5 of it, bf16 top-1 equal; wall ms a call, K1 launches,
+   peak memory and the collectives' share per rank; ResNet50 b32 bf16
+   Trainer at dp 2, 5 steps (finite, falling, one K1 launch per rank a
+   step), its checkpoint restored bitwise at world 1; the narrow float32
+   ResNet at dp 2 and at tp 2 within 1e-4 relative of world 1; whether
+   gloo's own CUDA path took an all_gather (the forms always stage
+   through the host). A rank that exits non-zero fails the phase.
+
 Then the card's name and power limit as nvidia-smi prints them, the
-kernels' summary line (K1's launches by path: serving and training; K2's
-and K4's: generate, train, lm_server and moe; K3's: train and moe), and
-last `{"ok": true, "device": {...}}`.
+kernels' summary line (K1's launches by path: serving, training and,
+for ResNet50, parallel; K2's and K4's: generate, train, lm_server and
+moe; K3's: train and moe), and last `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -1017,13 +1037,11 @@ DECODE_TIMED = ("lm_b8", "gqa4_b8", "gqa4_b1", "mqa_b8", "mha_b1", "int8_gqa4_b8
 
 
 def phase_decode(timer):
-    """The decode kernel (one launch) and the first version (split +
-    merge) against the plain version, every cache and q form, each case
-    twice (bit-equal, with a call at another (B, KV) in between) and once
-    with whole chunks issued at block start (bit-equal); poisoned rows;
-    one device kernel per call; the new kernel, its issue-all form, the
-    first version, SDPA and the plain version timed in turns at the LM's
-    decode shapes."""
+    """The decode kernel (one launch) against the plain version, every
+    cache and q form, each case twice (bit-equal, with a call at another
+    (B, KV) in between); poisoned rows; one device kernel per call; the
+    kernel, SDPA and the plain version timed in turns at the LM's decode
+    shapes."""
     import torch
     import torch.nn.functional as F
     from dml_tpu_torch.ops import decode_attention as da
@@ -1047,17 +1065,9 @@ def phase_decode(timer):
         def new():
             return da.decode_attention(q, k, v, pos_t, k_scale=ks, v_scale=vs)
 
-        def old():
-            return da._decode_cuda(q, k, v, pos_t, ks, vs, scale, split_pair=True)
-
-        def issue_all():
-            return da._decode_cuda(q, k, v, pos_t, ks, vs, scale, ahead=da.ISSUE_ALL)
-
         out = new()
         da.decode_attention(*other[:3], other_pos)  # another (B, KV) between the two runs
         again = new()
-        pair = old()
-        whole = issue_all()
         plain = da.decode_attention_plain(q, k, v, pos_t, k_scale=ks, v_scale=vs)
         # rows past each slot's position are invisible: poison them
         kp, vp = k.clone(), v.clone()
@@ -1072,16 +1082,13 @@ def phase_decode(timer):
         poisoned = da.decode_attention(q, kp, vp, pos_t, k_scale=ksp, v_scale=vsp)
         torch.cuda.synchronize()
         err = float((out - plain).abs().max())
-        pair_err = float((pair - plain).abs().max())
         ok = (out.dtype == torch.float32 and tuple(out.shape) == (b, 1, h, d) and err <= 2e-5
-              and pair_err <= 2e-5 and torch.equal(poisoned, out) and torch.equal(again, out)
-              and torch.equal(whole, out))
+              and torch.equal(poisoned, out) and torch.equal(again, out))
         plan = da.split_plan(b, kv, t, d, h // kv, k.element_size(), ks is not None,
                              da._sms(q.device))
         case = dict(phase="decode_check", case=name, b=b, kv=kv, h=h, t=t, d=d, cache=cname, q=qname,
                     pos=pos if b <= 8 else f"{b} slots, max {max(pos)}", max_abs_err=err,
-                    split_pair_max_abs_err=pair_err, rerun_bit_equal=torch.equal(again, out),
-                    issue_all_bit_equal=torch.equal(whole, out),
+                    rerun_bit_equal=torch.equal(again, out),
                     poisoned_rows_change_output=not torch.equal(poisoned, out),
                     plan=plan._asdict(), ok=ok)
         emit(**case)
@@ -1099,7 +1106,7 @@ def phase_decode(timer):
                   and prof["by_kind_ms_per_call"].keys() == {"decode_attention"},
                   f"decode_attention is not one device kernel per call: {prof}")
         if name in DECODE_TIMED:
-            runs = {"new": new, "split_pair": old, "issue_all": issue_all}
+            runs = {"new": new}
             if cdt == torch.bfloat16:
                 mask = (torch.arange(t, device="cuda")[None, :] <= pos_t[:, None])[:, None, None, :]
                 qh = q.transpose(1, 2)
@@ -1109,19 +1116,17 @@ def phase_decode(timer):
                                                           enable_gqa=kv != h)
 
                 runs["sdpa"] = library
-            # in turns on one card: new, split pair, issue-all, SDPA, plain,
-            # SDPA, issue-all, split pair, new
+            # in turns on one card: new, SDPA, plain, SDPA, new
             turns = {key: [] for key in runs}
-            for key in ("new", "split_pair", "issue_all", "sdpa"):
+            for key in ("new", "sdpa"):
                 if key in runs:
                     turns[key].append(timer.ms(runs[key], iters=50))
             p_ms = timer.ms(lambda: da.decode_attention_plain(q, k, v, pos_t, k_scale=ks,
                                                              v_scale=vs), iters=20)
-            for key in ("sdpa", "issue_all", "split_pair", "new"):
+            for key in ("sdpa", "new"):
                 if key in runs:
                     turns[key].append(timer.ms(runs[key], iters=50))
-            k_ms, o_ms = statistics.mean(turns["new"]), statistics.mean(turns["split_pair"])
-            a_ms = statistics.mean(turns["issue_all"])
+            k_ms = statistics.mean(turns["new"])
             l_ms = statistics.mean(turns["sdpa"]) if "sdpa" in turns else None
             nbytes, ops = _decode_bytes(pos, kv, h, d, k, q, ks)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1129,22 +1134,19 @@ def phase_decode(timer):
             timings[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
                                  bound_ms=max(t_bytes, t_ops),
                                  bound_by="bytes" if t_bytes >= t_ops else "operations",
-                                 max_abs_err=err, split_pair_ms=o_ms)
+                                 max_abs_err=err)
             extra = {}
             if name == "lm_b8":  # the same, with an L2 flushed by reads (no dirty lines)
                 clean = {key: timer.ms(runs[key], iters=50, clean=True) for key in runs}
                 extra = {"clean_flush_ms": clean,
                          "clean_flush_share_of_bound": max(t_bytes, t_ops) / clean["new"]}
-            emit(phase="decode_time", case=name, ms=k_ms, split_pair_ms=o_ms, issue_all_ms=a_ms,
-                 plain_ms=p_ms,
+            emit(phase="decode_time", case=name, ms=k_ms, plain_ms=p_ms,
                  sdpa_ms=l_ms, turns_ms=turns, bytes=nbytes, bytes_bound_ms=t_bytes,
                  ops_bound_ms=t_ops, achieved_gb_s=nbytes / (k_ms * 1e-3) / 1e9,
                  share_of_bound=max(t_bytes, t_ops) / k_ms,
-                 split_pair_share_of_bound=max(t_bytes, t_ops) / o_ms,
-                 vs_sdpa=k_ms / l_ms if l_ms else None, vs_split_pair=k_ms / o_ms,
-                 vs_issue_all=k_ms / a_ms,
+                 vs_sdpa=k_ms / l_ms if l_ms else None,
                  grid=[plan.n_split, kv, b], chunk=plan.chunk, **extra)
-        del q, k, v, ks, vs, out, again, pair, whole, plain
+        del q, k, v, ks, vs, out, again, plain
     torch.cuda.empty_cache()
     return timings
 
@@ -1695,8 +1697,7 @@ def phase_image_train():
     from dml_tpu_torch.data import ImageDataset, Prefetcher
     from dml_tpu_torch.inference import InferenceEngine
     from dml_tpu_torch.models import preprocess
-    from dml_tpu_torch.models.registry import CostDefaults, ModelSpec, get_model, register
-    from dml_tpu_torch.models.resnet import ResNet
+    from dml_tpu_torch.models.registry import get_model
     from dml_tpu_torch.native import loader as native_loader
     from dml_tpu_torch.parallel.train import Trainer
 
@@ -1818,11 +1819,7 @@ def phase_image_train():
 
     # float32: the card (TF32 off) against the port's CPU path, on a
     # narrow ResNet
-    register(ModelSpec(
-        name="ResNetNarrow", input_size=(64, 64), preprocess="caffe",
-        builder=lambda num_classes, dtype, param_dtype=None: ResNet(
-            (1, 1, 1, 1), num_classes, dtype, param_dtype),
-        cost=CostDefaults(load_time=0.1, first_query=0.1, per_query=0.01)))
+    register_narrow_resnet()
     xs, ys = _seeded_batch(np.random.RandomState(12), 8, 64, 64, 10)
     tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
@@ -2611,6 +2608,352 @@ def phase_moe(timer):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 14: data and tensor parallelism over torch.distributed
+# ---------------------------------------------------------------------------
+
+PAR_STEPS, PAR_GLOO_STEPS, PAR_NARROW_STEPS, PAR_SERVE_CALLS = 20, 5, 3, 3
+PAR_MESHES = ((2, 1), (1, 2))  # (dp, tp) of the two gloo ranks
+PAR_KINDS = (("nccl", "collective"),) + IMAGE_TRAIN_KINDS
+
+
+def register_narrow_resnet():
+    from dml_tpu_torch.models.registry import CostDefaults, ModelSpec, register
+    from dml_tpu_torch.models.resnet import ResNet
+
+    register(ModelSpec(
+        name="ResNetNarrow", input_size=(64, 64), preprocess="caffe",
+        builder=lambda num_classes, dtype, param_dtype=None: ResNet(
+            (1, 1, 1, 1), num_classes, dtype, param_dtype),
+        cost=CostDefaults(load_time=0.1, first_query=0.1, per_query=0.01)))
+
+
+def collectives_profile(fn, iters=2):
+    """The collectives' share of a call: host time inside the mesh's
+    `mesh.*` ranges (under gloo: the copies to and from the host and the
+    collective itself) over the wall time, and the device time of NCCL's
+    kernels over the device's busy time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    host, busy, nccl = {}, 0.0, 0.0
+    for e in prof.key_averages():
+        # a range also appears as an annotation on the device's timeline,
+        # under the same key: its host time is the CPU entry's
+        if e.key.startswith("mesh.") and e.device_type == torch.autograd.DeviceType.CPU:
+            host[e.key] = host.get(e.key, 0.0) + e.cpu_time_total
+        if (e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+                and not getattr(e, "is_user_annotation", False)):
+            busy += e.self_device_time_total
+            nccl += e.self_device_time_total if "nccl" in e.key.lower() else 0.0
+    return {"wall_ms_per_call": wall_us / iters / 1e3,
+            "collective_host_ms_per_call": sum(host.values()) / iters / 1e3,
+            "collective_host_share_of_wall": sum(host.values()) / wall_us,
+            "collective_host_ms_by_range": {k: v / iters / 1e3 for k, v in sorted(host.items())},
+            "device_busy_ms_per_call": busy / iters / 1e3,
+            "nccl_device_ms_per_call": nccl / iters / 1e3,
+            "nccl_share_of_busy": nccl / busy if busy else None}
+
+
+def _serve_timed(sh, x_np):
+    """The first call (warm-up: cuDNN's choices), then PAR_SERVE_CALLS
+    timed calls, each checked to launch K1 once; (output, wall ms per
+    call, K1 launches of the timed calls)."""
+    import torch
+    from dml_tpu_torch.ops import preprocess
+
+    out = sh(x_np)
+    ms, launches = [], 0
+    for _ in range(PAR_SERVE_CALLS):
+        before = preprocess.normalize_launches
+        t0 = time.monotonic()
+        again = sh(x_np)  # numpy: waits for the call
+        ms.append((time.monotonic() - t0) * 1e3)
+        moved = preprocess.normalize_launches - before
+        check(moved == 1, f"a ShardedInference call launched K1 {moved} times")
+        check(np.array_equal(again, out), "a repeated ShardedInference call changed its output")
+        launches += moved
+    torch.cuda.synchronize()
+    return out, statistics.median(ms), launches
+
+
+def _parallel_rank(rank, world, tmp):
+    """One of the gloo ranks, both on cuda:0. Writes its results to
+    tmp/rank<r>.pt; a failure exits non-zero."""
+    import torch
+    import torch.distributed as dist
+    from dml_tpu_torch.config import MeshSpec
+    from dml_tpu_torch.models.registry import get_model
+    from dml_tpu_torch.ops import preprocess
+    from dml_tpu_torch.parallel.inference import ShardedInference
+    from dml_tpu_torch.parallel.mesh import make_mesh
+    from dml_tpu_torch.parallel.train import Trainer
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous_gloo",
+                            world_size=world, rank=rank)
+    register_narrow_resnet()
+    weights = torch.load(os.path.join(tmp, "weights.pt"), weights_only=True)
+    x_np, y_np = _seeded_batch(np.random.RandomState(14), BATCH,
+                               *get_model("ResNet50").input_size, 1000)
+    xs, ys = _seeded_batch(np.random.RandomState(12), 8, 64, 64, 10)
+    res = {"serve": {}, "launches": 0}
+    try:  # whether gloo's own CUDA path takes an all_gather here (the forms always stage)
+        t = torch.full((4,), float(rank + 1)).cuda()
+        parts = [torch.empty_like(t) for _ in range(world)]
+        dist.all_gather(parts, t)
+        res["gloo_cuda_all_gather"] = [float(p[0]) for p in parts] == [1.0, 2.0]
+    except RuntimeError as e:
+        res["gloo_cuda_all_gather"] = str(e).splitlines()[0][:200]
+    for dp, tp in PAR_MESHES:
+        mesh = make_mesh(MeshSpec(dp=dp, tp=tp))
+        for dtype in (torch.float32, torch.bfloat16):
+            for pg in (True, False):
+                torch.cuda.reset_peak_memory_stats()
+                sh = ShardedInference("ResNet50", mesh, BATCH, variables=weights, dtype=dtype,
+                                      param_gather=pg)
+                out, ms, launches = _serve_timed(sh, x_np)
+                prof = collectives_profile(lambda: sh(x_np), 1)
+                res["launches"] += launches
+                res["serve"][f"dp{dp}_tp{tp}/{dtype_name(dtype)}/{'gather' if pg else 'megatron'}"] = {
+                    "out": out, "wall_ms_per_call": ms, "k1_launches": launches,
+                    "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 1e6,
+                    "collectives": prof}
+                del sh
+        torch.cuda.empty_cache()
+    # ResNet50 b32 bf16 training at dp 2: one K1 launch per rank per step
+    mesh = make_mesh(MeshSpec(dp=2, tp=1))
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer("ResNet50", mesh, batch_size=BATCH, dtype=torch.bfloat16, variables=weights)
+    x, y = torch.from_numpy(x_np).cuda(), torch.from_numpy(y_np).cuda()
+    warm = tr.step(x, y)["loss"]
+    before = preprocess.normalize_launches
+    losses, accs, step_ms = _counted_steps(tr, x, y, PAR_GLOO_STEPS)
+    res["launches"] += preprocess.normalize_launches - before
+    res["train"] = {"warmup_loss": warm, "losses": losses, "step_ms": step_ms,
+                    "k1_launches": preprocess.normalize_launches - before,
+                    "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 1e6,
+                    "collectives": collectives_profile(lambda: tr.step(x, y), 1)}
+    state = tr.state
+    tr.save_checkpoint(os.path.join(tmp, "ck_dp2"))
+    if rank == 0:
+        torch.save(state, os.path.join(tmp, "ck_dp2_state.pt"))
+    del tr, state
+    torch.cuda.empty_cache()
+    # the narrow float32 ResNet at dp 2 and at tp 2, TF32 off
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    res["narrow"] = {}
+    for dp, tp in PAR_MESHES:
+        mesh = make_mesh(MeshSpec(dp=dp, tp=tp))
+        tn = Trainer("ResNetNarrow", mesh, batch_size=8, dtype=torch.float32, num_classes=10,
+                     seed=1, learning_rate=1e-4)
+        res["narrow"][f"dp{dp}_tp{tp}"] = [tn.step(xs, ys)["loss"]
+                                           for _ in range(PAR_NARROW_STEPS)]
+    torch.save(res, os.path.join(tmp, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_parallel():
+    """Data and tensor parallelism: NCCL at world size 1 on cuda:0 in
+    this process, then two gloo ranks sharing the card. Returns K1's
+    launches on the path (this process's and both ranks')."""
+    import multiprocessing
+
+    import torch
+    import torch.distributed as dist
+    from dml_tpu_torch.models.registry import get_model
+    from dml_tpu_torch.ops import preprocess
+    from dml_tpu_torch.parallel.inference import ShardedInference
+    from dml_tpu_torch.parallel.mesh import local_mesh
+    from dml_tpu_torch.parallel.train import Trainer
+
+    t_phase = time.monotonic()
+    register_narrow_resnet()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous_nccl",
+                            world_size=1, rank=0)
+    out = {"world1": {}, "note": "world 1: NCCL, real collectives on groups of one; two ranks: "
+           "both on the one card (cuda:0), gloo, every collective staged through the host"}
+    try:
+        mesh = local_mesh(dp=1)
+        weights = seeded_weights(get_model("ResNet50"), 0)
+        torch.save(weights, os.path.join(tmp, "weights.pt"))
+        x_np, y_np = _seeded_batch(np.random.RandomState(14), BATCH,
+                                   *get_model("ResNet50").input_size, 1000)
+
+        # ---- the main path (world 1), counted ----
+        reset_launch_counts()
+        ref, served = {}, {}
+        for dtype in (torch.float32, torch.bfloat16):
+            for pg in (True, False):
+                torch.cuda.reset_peak_memory_stats()
+                sh = ShardedInference("ResNet50", mesh, BATCH, variables=weights, dtype=dtype,
+                                      param_gather=pg)
+                probs, ms, launches = _serve_timed(sh, x_np)
+                check(probs.shape == (BATCH, 1000) and np.isfinite(probs).all()
+                      and np.allclose(probs.sum(1), 1.0, atol=1e-2), f"world-1 probs {probs.shape}")
+                key = f"{dtype_name(dtype)}/{'gather' if pg else 'megatron'}"
+                ref[key], served[key] = probs, sh
+                out["world1"][f"serve/{key}"] = {
+                    "wall_ms_per_call": ms, "k1_launches": launches,
+                    "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 1e6}
+            # tp = 1: the two forms run one program
+            name = dtype_name(dtype)
+            check(np.array_equal(ref[f"{name}/gather"], ref[f"{name}/megatron"]),
+                  f"world-1 forms differ in {name}")
+        x, y = torch.from_numpy(x_np).cuda(), torch.from_numpy(y_np).cuda()
+        torch.cuda.reset_peak_memory_stats()
+        tr = Trainer("ResNet50", mesh, batch_size=BATCH, dtype=torch.bfloat16, variables=weights)
+        warm = tr.step(x, y)["loss"]
+        losses, _, _ = _counted_steps(tr, x, y, PAR_STEPS)
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"world-1 mesh losses {losses}")
+        before = preprocess.normalize_launches
+        ev = tr.evaluate(x, y)
+        check(preprocess.normalize_launches - before == 1, "evaluate launched K1 more than once")
+        train_peak_mb = torch.cuda.max_memory_allocated() / 1e6
+        # the narrow float32 ResNet at world 1, TF32 off: the gloo ranks' reference
+        tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            xs, ys = _seeded_batch(np.random.RandomState(12), 8, 64, 64, 10)
+            tn = Trainer("ResNetNarrow", mesh, batch_size=8, dtype=torch.float32, num_classes=10,
+                         seed=1, learning_rate=1e-4)
+            narrow_ref = [tn.step(xs, ys)["loss"] for _ in range(PAR_NARROW_STEPS)]
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        world1 = launch_counts()
+        want = 4 * (1 + PAR_SERVE_CALLS) + 1 + PAR_STEPS + 1 + PAR_NARROW_STEPS
+        check(world1 == {**{k: 0 for k in world1}, "normalize": want},
+              f"the world-1 path launched {world1}, want K1 {want} times and nothing else")
+        par_launches = world1["normalize"]
+
+        # not counted: world 1 serving BATCH / 2 rows a call, the program each
+        # of two dp ranks runs (cuDNN picks its algorithms by batch size)
+        half = ShardedInference("ResNet50", mesh, BATCH // 2, variables=weights,
+                                dtype=torch.float32, param_gather=True)
+        ref["float32/gather/half"] = half(x_np)
+        del half
+        # not counted: where the time goes, and the distributed form's cost
+        # at world 1, in turns with the one-device Trainer on the same card
+        for key, sh in served.items():
+            out["world1"][f"serve/{key}"]["collectives"] = collectives_profile(
+                lambda: sh(x_np), 1)
+        del served, sh
+        one = Trainer("ResNet50", batch_size=BATCH, dtype=torch.bfloat16, variables=weights)
+        one.step(x, y)
+        runs = {"mesh": [], "one_device": []}
+        for turn in ("mesh", "one_device", "one_device", "mesh"):
+            runs[turn].extend(_counted_steps(tr if turn == "mesh" else one, x, y,
+                                             PAR_STEPS // 2)[2])
+        i1 = {turn: {"step_ms_median": statistics.median(ms),
+                     "step_ms_p90": float(np.percentile(ms, 90)),
+                     "images_per_s": BATCH / (statistics.median(ms) / 1e3)}
+              for turn, ms in runs.items()}
+        out["world1"]["train"] = dict(
+            i1, warmup_loss=warm, losses=losses, evaluate=ev, k1_launches_per_step=1,
+            mesh_over_one_device_step_ms=i1["mesh"]["step_ms_median"]
+            / i1["one_device"]["step_ms_median"],
+            max_memory_allocated_mb=train_peak_mb,
+            collectives=collectives_profile(lambda: tr.step(x, y), 2),
+            profile_mesh=profile_calls(lambda: tr.step(x, y), 2, PAR_KINDS),
+            profile_one_device=profile_calls(lambda: one.step(x, y), 2, PAR_KINDS))
+        out["world1"]["narrow_f32_losses"] = narrow_ref
+        del tr, one, tn
+        torch.cuda.empty_cache()
+
+        # ---- two gloo ranks on the one card ----
+        t0 = time.monotonic()
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=_parallel_rank, args=(r, 2, tmp)) for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=600)
+        codes = [p.exitcode for p in procs]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        check(codes == [0, 0], f"gloo ranks exited {codes}")
+        gloo_s = time.monotonic() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+        gloo = {"wall_s": gloo_s, "gloo_cuda_all_gather": [r["gloo_cuda_all_gather"] for r in ranks],
+                "serve": {}, "k1_launches_per_rank": [r["launches"] for r in ranks]}
+        for key in ranks[0]["serve"]:
+            cfg, name, form = key.split("/")
+            want = ref[f"{name}/gather"]
+            # the program a rank runs: world 1 at the rank's rows a call
+            same_rows = ref["float32/gather/half"] if cfg.startswith("dp2") else want
+            got = [r["serve"][key]["out"] for r in ranks]
+            check(np.array_equal(got[0], got[1]), f"{key}: the two ranks return different outputs")
+            err = float(np.abs(got[0] - want).max())
+            row = {"max_abs_err": err, "bitwise_equal_world1": bool(np.array_equal(got[0], want)),
+                   "top1_equal_world1": bool((got[0].argmax(1) == want.argmax(1)).all()),
+                   "max_abs_err_world1_same_rows": float(np.abs(got[0] - same_rows).max()),
+                   "bitwise_equal_world1_same_rows": bool(np.array_equal(got[0], same_rows)),
+                   **{k: [r["serve"][key][k] for r in ranks]
+                      for k in ("wall_ms_per_call", "k1_launches", "max_memory_allocated_mb")},
+                   "collectives": [r["serve"][key]["collectives"] for r in ranks]}
+            gloo["serve"][key] = row
+            if name == "float32" and form == "gather":
+                check(row["bitwise_equal_world1_same_rows"],
+                      f"{key}: not bitwise equal to world 1 at the rank's rows a call: {row}")
+            if name == "float32":
+                check(np.allclose(got[0], want, rtol=2e-4, atol=2e-5),
+                      f"{key}: {err} from world 1")
+            else:
+                check(row["top1_equal_world1"], f"{key}: top-1 differs from world 1")
+        tl = [r["train"] for r in ranks]
+        for r, t in enumerate(tl):
+            check(all(np.isfinite(t["losses"])) and t["losses"][-1] < t["losses"][0],
+                  f"rank {r} dp-2 losses {t['losses']}")
+            check(t["k1_launches"] == PAR_GLOO_STEPS, f"rank {r} K1 launches {t['k1_launches']}")
+        check(tl[0]["losses"] == tl[1]["losses"], "the two ranks report different losses")
+        gloo["train_dp2"] = {k: [t[k] for t in tl] for k in tl[0]}
+        narrow = {}
+        for cfg in ranks[0]["narrow"]:
+            got = ranks[0]["narrow"][cfg]
+            rel = max(_rel(a, b) for a, b in zip(got, narrow_ref))
+            narrow[cfg] = {"losses": got, "max_rel_diff_world1": rel}
+            check(rel <= 1e-4, f"narrow f32 {cfg} losses {got} != world 1 {narrow_ref}")
+        gloo["narrow_f32"] = dict(narrow, world1_losses=narrow_ref)
+
+        # the dp-2 checkpoint restores bitwise at world 1
+        tr = Trainer("ResNet50", mesh, batch_size=BATCH, dtype=torch.bfloat16, seed=5)
+        step = tr.restore_checkpoint(os.path.join(tmp, "ck_dp2"))
+        saved = torch.load(os.path.join(tmp, "ck_dp2_state.pt"), weights_only=True)
+        got = tr.state
+        same = all(torch.equal(got[k][n].cpu(), saved[k][n].cpu())
+                   for k in ("params", "batch_stats") for n in saved[k])
+        same = same and all(torch.equal(got["opt_state"][m][n].cpu(), saved["opt_state"][m][n].cpu())
+                            for m in ("exp_avg", "exp_avg_sq") for n in saved["opt_state"][m])
+        check(step == saved["step"] and same
+              and got["opt_state"]["count"] == saved["opt_state"]["count"],
+              f"dp-2 checkpoint restored at world 1: step {step}, bitwise {same}")
+        gloo["checkpoint_dp2_to_world1"] = {"step": step, "bitwise": same}
+        del tr
+        out["gloo_2_ranks"] = gloo
+        total = par_launches + sum(gloo["k1_launches_per_rank"])
+        out["k1_launches"] = {"world1": par_launches, "gloo_ranks": gloo["k1_launches_per_rank"],
+                              "total": total}
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.monotonic() - t_phase
+    emit(phase="parallel", **out)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2637,6 +2980,10 @@ def main() -> int:
         phase_moe(timer)
         print(smi, flush=True)
         return 0
+    if "--parallel" in sys.argv[1:]:  # a short call after a mesh edit: build, phase 14, stop
+        phase_parallel()
+        print(smi, flush=True)
+        return 0
     timings = phase_kernel(timer)
     if kernel_only:  # a short call after a K1 edit: build, check, time, stop
         print(smi, flush=True)
@@ -2650,12 +2997,15 @@ def main() -> int:
     image_train_launches = phase_image_train()
     server_launches = phase_lm_server(timer)
     moe_launches = phase_moe(timer)
+    parallel_launches = phase_parallel()
 
     kernels = []
     for model, mode in MODELS:
         shape = (32, 224, 224, 3) if model == "ResNet50" else (32, 299, 299, 3)
         t = timings[(shape, mode, torch.bfloat16)]
         by_path = {"serve": launches[model], "train": image_train_launches[model]}
+        if model == "ResNet50":
+            by_path["parallel"] = parallel_launches
         kernels.append(dict(
             name=f"normalize_u8[{model} b32 {mode} bf16; 16-pixel vector groups; "
                  f"library call: x.to(bfloat16), the raw mode's call on the same bytes]",

@@ -201,8 +201,8 @@ class LMServer:
             raise ValueError("max_slots must be >= 1")
         if gather_shardings is not None:
             raise NotImplementedError(
-                "the param-gather serving form (gather_shardings) needs the multi-GPU "
-                "forms: ROADMAP A5")
+                "the param-gather serving form (gather_shardings) needs the pp/tp LM "
+                "serving forms: ROADMAP A5(c)")
         self.params = params
         self.cfg = cfg
         self.device = _device_of(params)

@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 from contextlib import contextmanager
-from typing import Iterator
+from typing import Callable, Iterator, Optional
 
 import torch
 import torch.nn.functional as F
@@ -53,6 +53,14 @@ class BatchNorm(nn.Module):
     way and leaves the running statistics alone, for a forward run again
     under activation checkpointing.
 
+    Across data-parallel ranks (`sum_batch_stats`, set by the trainer
+    over a mesh), training normalizes by the global batch's statistics,
+    as GSPMD computes them (`_GlobalBatchNorm`): each rank's per-channel
+    sums of x and x^2 over its shard, in float32, with its element
+    count, summed over the ranks by `stats_sum`; the variance is Flax's
+    max(0, E[x^2] - E[x]^2), which the running variance takes as it is.
+    With `stats_sum` None (one device) the layer is the form above.
+
     The state_dict keys are weight/bias/running_mean/running_var. A
     layer built without a scale (Keras's InceptionV3, `scale=False`)
     holds weight = ones as a buffer, not a parameter: nothing trains it,
@@ -64,6 +72,9 @@ class BatchNorm(nn.Module):
         super().__init__()
         self.eps, self.momentum = eps, momentum
         self.update_stats = True
+        #: sums a float32 tensor over the data-parallel ranks (in place,
+        #: returning it), or None
+        self.stats_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
         ones = torch.ones(num_features)
         if scale:
             self.weight = nn.Parameter(ones)
@@ -79,6 +90,8 @@ class BatchNorm(nn.Module):
                 x, self.running_mean, self.running_var, self.weight, self.bias,
                 training=False, momentum=0.0, eps=self.eps,
             )
+        if self.stats_sum is not None:
+            return self._global_batch_forward(x)
         # PyTorch moves running buffers by ra = m ra + (1 - m) batch with
         # m = 1 - momentum, Flax's rule, but with the unbiased variance
         # v n/(n-1). It updates copies (autograd keeps the tensors it was
@@ -95,6 +108,76 @@ class BatchNorm(nn.Module):
                 new_part = torch.add(var, self.running_var, alpha=-m)
                 self.running_var.mul_(m).add_(new_part, alpha=(n - 1) / n)
         return y
+
+    def _global_batch_forward(self, x: torch.Tensor) -> torch.Tensor:
+        y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps, self.stats_sum)
+        if self.update_stats:
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+                self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+        return y
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """BatchNorm in training by statistics summed over the ranks:
+    (x, weight, bias, eps, stats_sum) -> (y, mean, var), mean and var
+    float32 and not differentiated.
+
+    Forward: each rank's per-channel mean and biased variance in float32
+    (`var_mean`), as sums (n mean, n (var + mean^2), n) summed over the
+    ranks; the global mean and Flax's variance; y by PyTorch's batch_norm
+    kernel with them. Backward: the loss of each rank is its own, and the
+    global statistics tie every rank's input to every rank's output, so
+    the per-channel sums of dy and dy * x_hat that the input gradient
+    needs are summed over the ranks (a second collective, in the same
+    order on every rank): dx = w invstd (dy - S(dy) / N - x_hat
+    S(dy x_hat) / N), with the local sums of this rank as its weight and
+    bias gradients (the trainer sums those over the ranks)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, stats_sum):
+        c = x.shape[1]
+        n = x.numel() // c
+        dims = [0, *range(2, x.ndim)]
+        var_l, mean_l = torch.var_mean(x.float(), dims, correction=0)
+        sums = stats_sum(torch.cat([mean_l * n, (var_l + mean_l * mean_l) * n,
+                                    mean_l.new_full((1,), float(n))]))
+        count = sums[-1]
+        mean = sums[:c] / count
+        var = (sums[c:2 * c] / count - mean * mean).clamp_min(0.0)
+        y = F.batch_norm(x, mean, var, weight, bias, training=False, momentum=0.0, eps=eps)
+        ctx.save_for_backward(x, weight, mean, var, count)
+        ctx.eps, ctx.stats_sum = eps, stats_sum
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _mean, _var):
+        x, weight, mean, var, count = ctx.saved_tensors
+        c = x.shape[1]
+        invstd = torch.rsqrt(var + ctx.eps)
+        # eval mode: dx = dy w invstd, and the local sums of dy x_hat and dy
+        # (the CUDA kernel wants the saved statistics too: the same ones)
+        dx, gw, gb = torch.ops.aten.native_batch_norm_backward(
+            dy, x, weight, mean, var, mean, invstd, False, ctx.eps, [True, True, True])
+        sums = ctx.stats_sum(torch.cat([gb, gw])) / count
+        k1 = -weight * invstd * invstd * sums[c:]  # the x_hat term, per unit of x
+        k0 = -weight * invstd * sums[:c] - k1 * mean
+        shape = (1, c) + (1,) * (x.ndim - 2)
+        dx = torch.addcmul(k0.view(shape), x, k1.view(shape)).add_(dx).to(x.dtype)
+        return (dx, gw if ctx.needs_input_grad[1] else None,
+                gb if ctx.needs_input_grad[2] else None, None, None)
+
+
+def sum_batch_stats(module: nn.Module,
+                    stats_sum: Optional[Callable[[torch.Tensor], torch.Tensor]]) -> None:
+    """Every BatchNorm of `module` normalizes in training by the global
+    batch, its statistics summed over the ranks by `stats_sum` (None: by
+    its own batch)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.stats_sum = stats_sum
 
 
 @contextmanager

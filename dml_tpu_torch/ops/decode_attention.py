@@ -18,13 +18,6 @@ einsum of `dml_tpu/inference/generate.py::batched_decode_step`
 cache form goes to the kernel on CUDA (bf16, f32, int8; MHA, GQA, MQA):
 there is no switch. `split_plan` sizes the grid; it is a pure function
 of the shapes and the SM count, so the CPU tests hold it to its rules.
-
-`_decode_cuda(..., split_pair=True)` runs the first Hopper version
-instead (a split kernel and a merge kernel, two launches), and
-`_decode_cuda(..., ahead=...)` sets how many K and V sub-tiles a block of
-the new kernel keeps in flight (AHEAD; ISSUE_ALL issues its whole chunk
-at block start); only chip_smoke.py passes either, to time the
-alternatives in turns on one card.
 """
 
 from __future__ import annotations
@@ -49,10 +42,7 @@ MERGE_BYTES = 64 << 10   # partials of one plane, read by its last block
 SMEM_PER_SM = 228 << 10  # H100: shared memory of an SM, 1 KB of it reserved per block
 MAX_BLOCKS_PER_SM = 4    # a residency the registers allow (128 threads, <= 128 registers)
 AHEAD = 2                # K and V sub-tiles a block keeps in flight
-ISSUE_ALL = MAX_CHUNK // SUB_ROWS  # an `ahead` that issues a block's whole chunk at once
 THREADS, WARPS = 128, 4
-# the first version's tile (csrc/decode_attention.cu::split_pair)
-SPLIT_PAIR_ROWS = 128
 
 #: kernel launches since the last reset (plain int; a test or
 #: chip_smoke.py zeroes it, drives a path, and reads it back)
@@ -70,9 +60,6 @@ def _library() -> ctypes.CDLL:
     lib = load_library("dml_decode_attention", ["decode_attention.cu"])
     fn = lib.dml_decode_attention
     fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    fn = lib.dml_decode_attention_split
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -159,17 +146,7 @@ def _counters(device, stream: int, n: int) -> torch.Tensor:
         return ws
 
 
-def _split_pair_plan(batch: int, kv: int, t: int, device) -> tuple:
-    """The first version's (rows per block, blocks along T): at least
-    four blocks per SM over the whole grid, at most SPLIT_PAIR_ROWS and
-    at least 16 rows per block."""
-    want = -(-4 * _sms(device) // (batch * kv))
-    n_split = min(max(-(-t // SPLIT_PAIR_ROWS), want), -(-t // 16))
-    chunk = -(-t // n_split)
-    return chunk, -(-t // chunk)
-
-
-def _decode_cuda(q, k, v, pos, k_scale, v_scale, scale, split_pair=False, ahead=AHEAD):
+def _decode_cuda(q, k, v, pos, k_scale, v_scale, scale):
     global decode_launches
     b, _, h, d = q.shape
     kv, t = k.shape[1], k.shape[2]
@@ -197,11 +174,8 @@ def _decode_cuda(q, k, v, pos, k_scale, v_scale, scale, split_pair=False, ahead=
         q = q.clone(memory_format=torch.contiguous_format)
     pos = pos.to(torch.int32).contiguous()
     out = torch.empty((b, 1, h, d), dtype=torch.float32, device=q.device)
-    if split_pair:
-        chunk, n_split = _split_pair_plan(b, kv, t, q.device)
-    else:
-        plan = split_plan(b, kv, t, d, g, k.element_size(), quantized, _sms(q.device))
-        chunk, n_split = plan.chunk, plan.n_split
+    plan = split_plan(b, kv, t, d, g, k.element_size(), quantized, _sms(q.device))
+    chunk, n_split = plan.chunk, plan.n_split
     o_part = torch.empty((b, kv, n_split, g, d), dtype=torch.float32, device=q.device)
     m_part = torch.empty((b, kv, n_split, g), dtype=torch.float32, device=q.device)
     l_part = torch.empty_like(m_part)
@@ -213,17 +187,12 @@ def _decode_cuda(q, k, v, pos, k_scale, v_scale, scale, split_pair=False, ahead=
                 v_scale.data_ptr() if quantized else None,
                 pos.data_ptr(), o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr())
         kind, q_bf16 = _CACHE_KINDS[k.dtype], int(q.dtype == torch.bfloat16)
-        if split_pair:
-            err = lib.dml_decode_attention_split(
-                *ptrs, out.data_ptr(), kind, q_bf16, b, kv, g, t, d, chunk, n_split,
-                float(scale), stream)
-        else:
-            counters = _counters(q.device, stream, b * kv)
-            err = lib.dml_decode_attention(
-                *ptrs, counters.data_ptr(), out.data_ptr(), kind, q_bf16, b, kv, g, t, d, chunk,
-                n_split, ahead, float(scale), stream)
-            if err != 0:
-                counters.zero_()  # a launch that failed may have left tickets behind
+        counters = _counters(q.device, stream, b * kv)
+        err = lib.dml_decode_attention(
+            *ptrs, counters.data_ptr(), out.data_ptr(), kind, q_bf16, b, kv, g, t, d, chunk,
+            n_split, AHEAD, float(scale), stream)
+        if err != 0:
+            counters.zero_()  # a launch that failed may have left tickets behind
     if err != 0:
         raise RuntimeError(f"decode attention kernel launch failed: cudaError {err}")
     with _count_lock:

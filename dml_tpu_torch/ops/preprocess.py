@@ -93,19 +93,18 @@ def normalize(
 def normalize_sharded(
     x: torch.Tensor, mode: str, dtype: torch.dtype = torch.bfloat16, mesh=None
 ) -> torch.Tensor:
-    """`normalize` for the mesh paths (the Trainer's step and evaluate),
-    per rank: each rank normalizes its own batch shard, as the JAX
-    package wraps its kernel in `shard_map` over the dp axis. On one
-    device (`mesh` None or of size 1) that is `fused_normalize` on the
-    local batch: K1 on a CUDA tensor, the plain version on a CPU tensor.
-    A mesh of more than one device raises NotImplementedError."""
-    from ..parallel import mesh_size
+    """`normalize` for the mesh paths (the Trainer's step and evaluate,
+    `ShardedInference`), per rank: `x` is this rank's batch shard, and
+    K1 launches once on it, as the JAX package wraps its kernel in
+    `shard_map` over the dp axis (the ranks of one tp group normalize the
+    same shard, as every device of a tp group runs the kernel there). A
+    CUDA tensor launches K1 or raises; a CPU tensor runs the plain
+    version. `mesh` is checked as every form checks it
+    (`parallel.mesh.resolve_mesh`): a mesh of more ranks than the world
+    has, or with no process group, raises ValueError."""
+    from ..parallel.mesh import resolve_mesh
 
-    if mesh_size(mesh) > 1:
-        raise NotImplementedError(
-            "normalize_sharded over a mesh of more than one device (one batch shard "
-            "per rank) is not ported yet: ROADMAP A5 (multi-GPU forms)"
-        )
+    resolve_mesh(mesh)
     return fused_normalize(x, mode, dtype)
 
 

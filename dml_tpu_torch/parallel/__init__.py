@@ -1,10 +1,14 @@
-"""Training on one device: `long_context.LongContextLM` (the LM's train
-step with the flash kernels forward and backward), `train.Trainer` (the
-image models, BatchNorm in training mode, float32 master weights, K1 in
-every step) and `checkpoint.CheckpointManager` (atomic, retained,
-step-indexed checkpoints). Multi-device forms (the mesh, data and
-sequence parallelism) are not ported yet: a mesh of more than one
-device raises NotImplementedError."""
+"""Training and the forms over several GPUs: `long_context.LongContextLM`
+(the LM's train step with the flash kernels forward and backward, one
+device), `train.Trainer` (the image models, BatchNorm in training mode,
+float32 master weights, K1 in every step; one device or a dp x tp mesh),
+`inference.ShardedInference` (image serving over a dp x tp mesh, in the
+param-gather and the Megatron form), `checkpoint.CheckpointManager`
+(atomic, retained, step-indexed checkpoints), `mesh` (meshes over
+torch.distributed and the collectives), `sharding` (the tp partition
+rule) and `multihost` (start-up from the cluster spec). The sequence,
+expert and pipeline forms are ROADMAP A5(b) and A5(c): a mesh of more
+than one device raises NotImplementedError there."""
 
 from typing import Mapping
 
@@ -20,3 +24,12 @@ def mesh_size(mesh) -> int:
     if not isinstance(shape, Mapping):
         raise TypeError(f"mesh must be None or map axis names to sizes, got {type(mesh).__name__}")
     return int(np.prod([int(v) for v in shape.values()]))
+
+
+from .mesh import local_mesh, make_mesh  # noqa: E402  (after mesh_size, which they import)
+from .sharding import partition_params, replicated  # noqa: E402
+from .inference import ShardedInference  # noqa: E402
+from .train import Trainer, make_train_step  # noqa: E402
+
+__all__ = ["mesh_size", "make_mesh", "local_mesh", "partition_params", "replicated",
+           "ShardedInference", "Trainer", "make_train_step"]

@@ -91,14 +91,14 @@ class CheckpointManager:
             json.dump({"steps": sorted(steps)}, f)
         os.replace(tmp, self._manifest_path())
 
-    def _blob_path(self, step: int) -> str:
+    def blob_path(self, step: int) -> str:
         return os.path.join(self.dir, f"step_{step}.pt")
 
     # ---- save / restore ----
 
     def save(self, step: int, state: Any) -> str:
         """Atomic write + manifest update + retention sweep."""
-        path = self._blob_path(step)
+        path = self.blob_path(step)
         tmp = path + ".tmp"
         torch.save(_to_cpu(state), tmp)
         os.replace(tmp, path)
@@ -107,7 +107,7 @@ class CheckpointManager:
         self._write_manifest(steps)
         for s in evicted:
             try:
-                os.unlink(self._blob_path(s))
+                os.unlink(self.blob_path(s))
             except FileNotFoundError:
                 pass
         return path
@@ -120,5 +120,5 @@ class CheckpointManager:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
-        state = torch.load(self._blob_path(step), map_location="cpu", weights_only=True)
+        state = torch.load(self.blob_path(step), map_location="cpu", weights_only=True)
         return _like(state, like)

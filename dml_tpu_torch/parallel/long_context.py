@@ -16,7 +16,7 @@ train step does.
 Differences from the JAX package, by design:
 - One device. A mesh that asks for more than one device (sequence,
   data or tensor parallelism: ring or Ulysses attention, GSPMD) raises
-  NotImplementedError; those forms are ROADMAP's multi-GPU slice.
+  NotImplementedError; the LM's forms over a mesh are ROADMAP A5(b).
 - PyTorch runs eagerly: no jit, and the state is updated in place
   (`adamw.make_adamw`: torch's AdamW with optax.adamw's
   hyperparameters).
@@ -62,8 +62,8 @@ def make_lm(mesh=None, seq_parallel: str = "ring", **config) -> TransformerLM:
         raise ValueError(f"seq_parallel must be 'ring' or 'ulysses', got {seq_parallel!r}")
     if mesh_size(mesh) > 1:
         raise NotImplementedError(
-            "a mesh of more than one device (ring/Ulysses sequence parallelism, dp/tp "
-            "sharding) is not ported yet: ROADMAP A, slice 4 (multi-GPU)"
+            "the LM over a mesh of more than one device (ring/Ulysses sequence "
+            "parallelism) is not ported yet: ROADMAP A5(b) (multi-GPU forms)"
         )
     return TransformerLM(attention=flash_attention, **config)
 

@@ -1,0 +1,188 @@
+"""Device meshes over torch.distributed, and the collectives the port's
+dp and tp forms call: PyTorch counterpart of dml_tpu/parallel/mesh.py.
+
+The JAX package runs one process over N devices, and GSPMD places the
+collectives from sharding annotations. The port runs one process per
+rank (one GPU each), every rank given the same host arguments (SPMD),
+and calls the collectives itself, through the functions below.
+
+A `Mesh` lays its ranks out as `np.asarray(ranks).reshape(shape)` over
+the axes `AXES`, `dp` outermost, as the JAX package lays its devices
+out: rank r's coordinates are those of device r in JAX's mesh over the
+same count. It holds one process group per axis: for `dp` and `tp`
+always (a group of one where the axis has size 1, so that a one-rank
+world still runs its collectives), for `sp`, `pp` and `ep` where the
+axis has more than one rank (no form of this package runs over them
+yet). `make_mesh` is collective: every rank of the world calls it, in
+the same order, as `torch.distributed.new_group` requires, whether or
+not the rank is in the mesh (`ranks=`).
+
+Without torch.distributed a mesh of one rank is a plain one-device mesh
+(`resolve_mesh` gives None for it, and the forms run their one-device
+code); a mesh of more ranks than the world has raises, and so does a
+mesh of more than one rank that has no process group. Nothing runs on
+one rank in place of several.
+
+Collectives (`all_reduce`, `all_gather`, `barrier`)
+take a tensor on the rank's device. Under gloo a CUDA tensor is copied
+to the host, reduced or gathered there and copied back: the group's
+backend decides that, never a caught error. Each runs inside a
+`torch.profiler.record_function` range named `mesh.<collective>.<axis>`,
+which a profile reads for the collectives' share of a step.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..config import MeshSpec
+from . import mesh_size
+
+AXES = ("dp", "tp", "sp", "pp", "ep")
+#: axes that always get a process group (the forms of this package)
+_ALWAYS_GROUPED = ("dp", "tp")
+
+
+def _world() -> int:
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+class Mesh:
+    """Ranks laid out over `AXES`. `shape` maps every axis to its size
+    (an ordered mapping, as `jax.sharding.Mesh.shape`); `ranks` is the
+    grid of global ranks; `rank` this process's global rank, or None when
+    it is not in the mesh; `coords` its index along each axis."""
+
+    def __init__(self, shape: Dict[str, int], ranks: np.ndarray, rank: Optional[int],
+                 groups: Dict[str, object], group_all, backend: Optional[str]):
+        self.shape = OrderedDict((a, int(shape[a])) for a in AXES)
+        self.ranks = ranks
+        self.rank = rank
+        self.backend = backend
+        self._groups = groups
+        self._group_all = group_all
+        self.coords: Optional[Dict[str, int]] = None
+        if rank is not None:
+            at = np.argwhere(ranks == rank)[0]
+            self.coords = {a: int(i) for a, i in zip(AXES, at)}
+
+    @property
+    def distributed(self) -> bool:
+        """Whether the mesh runs over torch.distributed (it has groups)."""
+        return self.backend is not None
+
+    @property
+    def index(self) -> int:
+        """This rank's place in the mesh's row-major order (0 writes)."""
+        return int(np.flatnonzero(self.ranks.reshape(-1) == self.rank)[0])
+
+    def group(self, axis: str):
+        if axis not in self._groups:
+            raise ValueError(f"mesh has no process group for axis {axis!r} on this rank")
+        return self._groups[axis]
+
+    def __repr__(self) -> str:
+        return f"Mesh({dict(self.shape)}, rank={self.rank}, backend={self.backend})"
+
+
+def make_mesh(spec: Optional[MeshSpec] = None, ranks: Optional[Sequence[int]] = None) -> Mesh:
+    """A Mesh over `ranks` (default: every rank of the world) with the
+    axis sizes of `spec` (-1 fills). `ranks=range(k)` is the counterpart
+    of JAX's `devices=jax.devices()[:k]`: the other ranks take no part,
+    and each of them gets a Mesh whose `rank` is None."""
+    spec = spec or MeshSpec()
+    world = _world()
+    ranks = list(range(world)) if ranks is None else [int(r) for r in ranks]
+    sizes = spec.resolve(len(ranks))
+    if len(ranks) > world:
+        raise ValueError(f"mesh asks for {len(ranks)} ranks but the world has {world}"
+                         + ("" if world > 1 else " (torch.distributed is not initialized)"))
+    if len(set(ranks)) != len(ranks) or not all(0 <= r < world for r in ranks):
+        raise ValueError(f"mesh ranks {ranks} are not distinct ranks of a world of {world}")
+    grid = np.asarray(ranks).reshape([sizes[a] for a in AXES])
+    if world == 1 and not (dist.is_available() and dist.is_initialized()):
+        return Mesh(sizes, grid, 0, {}, None, None)
+    me = dist.get_rank()
+    groups = {}
+    for i, axis in enumerate(AXES):
+        if sizes[axis] == 1 and axis not in _ALWAYS_GROUPED:
+            continue
+        for line in np.moveaxis(grid, i, -1).reshape(-1, sizes[axis]):
+            members = [int(r) for r in line]
+            group = dist.new_group(members)
+            if me in members:
+                groups[axis] = group
+    group_all = dist.group.WORLD if len(ranks) == world else dist.new_group(ranks)
+    rank = me if me in ranks else None
+    return Mesh(sizes, grid, rank, groups if rank is not None else {}, group_all,
+                dist.get_backend())
+
+
+def local_mesh(dp: int = -1, tp: int = 1, sp: int = 1, pp: int = 1, ep: int = 1) -> Mesh:
+    """A mesh over every rank of the world."""
+    return make_mesh(MeshSpec(dp=dp, tp=tp, sp=sp, pp=pp, ep=ep))
+
+
+def resolve_mesh(mesh) -> Optional[Mesh]:
+    """The Mesh a form runs over, or None to run on one device: `mesh` is
+    None, a mapping of axis sizes or an object with such a `.shape` (a
+    JAX mesh), or a Mesh. One device when it asks for one rank and runs
+    no collectives; ValueError when it asks for more ranks than the world
+    has, when it has no process group, or when this rank is not in it."""
+    if isinstance(mesh, Mesh):
+        if not mesh.distributed:
+            return None
+        if mesh.rank is None:
+            raise ValueError(f"rank {dist.get_rank()} is not in {mesh}")
+        return mesh
+    n, world = mesh_size(mesh), _world()
+    if n == 1:
+        return None
+    if n > world:
+        raise ValueError(f"mesh asks for {n} ranks but the world has {world}"
+                         + ("" if world > 1 else " (torch.distributed is not initialized)"))
+    raise ValueError(f"mesh {dict(getattr(mesh, 'shape', mesh))} has no process group: "
+                     f"build it with parallel.mesh.make_mesh")
+
+
+# ---- collectives ----
+
+def _staged(t: torch.Tensor, mesh: Mesh) -> bool:
+    """gloo reduces host tensors: a CUDA tensor goes through the host."""
+    return t.is_cuda and mesh.backend == "gloo"
+
+
+def all_reduce(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """Sum `t` over the ranks of this rank's `axis` group, in place;
+    returns `t`."""
+    with torch.profiler.record_function(f"mesh.all_reduce.{axis}"):
+        if _staged(t, mesh):
+            host = t.cpu()
+            dist.all_reduce(host, group=mesh.group(axis))
+            t.copy_(host)
+        else:
+            dist.all_reduce(t, group=mesh.group(axis))
+    return t
+
+
+def all_gather(t: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0) -> torch.Tensor:
+    """The ranks' `t` along `axis`, concatenated along `dim` in the
+    axis's order (a new tensor on `t`'s device)."""
+    n = mesh.shape[axis]
+    with torch.profiler.record_function(f"mesh.all_gather.{axis}"):
+        src = (t.cpu() if _staged(t, mesh) else t).contiguous()
+        parts: List[torch.Tensor] = [torch.empty_like(src) for _ in range(n)]
+        dist.all_gather(parts, src, group=mesh.group(axis))
+        out = torch.cat(parts, dim)
+    return out.to(t.device) if out.device != t.device else out
+
+
+def barrier(mesh: Mesh) -> None:
+    """Wait for every rank of the mesh."""
+    with torch.profiler.record_function("mesh.barrier"):
+        dist.barrier(group=mesh._group_all)

@@ -20,7 +20,9 @@ return_aux=True)` collects one per MoE block for the trainer.
 
 Differences from the JAX package, by design: one device. A mesh of more
 than one device (expert parallelism over `ep`) raises
-NotImplementedError, as does `moe_partition_spec`; those are ROADMAP A5.
+NotImplementedError, as does `moe_partition_spec` for ep > 1; those are
+ROADMAP A5(b). At ep = 1 the expert weights are replicated over any
+mesh, as in the JAX package (`sharding.partition_params`).
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ def _one_device(mesh) -> None:
     if mesh_size(mesh) > 1:
         raise NotImplementedError(
             "expert parallelism over a mesh of more than one device is not ported yet: "
-            "ROADMAP A5 (multi-GPU forms)"
+            "ROADMAP A5(b) (all-to-all and ring forms)"
         )
 
 
@@ -127,9 +129,12 @@ class MoEMLP(nn.Module):
 
 
 def moe_partition_spec(path: tuple, leaf, mesh) -> Optional[tuple]:
-    """The JAX package's sharding rule for expert weights at one device:
+    """The JAX package's sharding rule for expert weights at ep = 1:
     None for a leaf that is not `w_up` or `w_down`, else () (replicated).
-    A mesh of more than one device (the E axis over `ep`) raises."""
-    _one_device(mesh)
+    A mesh with ep > 1 (the E axis over `ep`) raises."""
+    if int((getattr(mesh, "shape", mesh) or {}).get("ep", 1)) > 1:
+        raise NotImplementedError(
+            "expert weights sharded over an ep axis of more than one rank are not ported "
+            "yet: ROADMAP A5(b)")
     keys = [getattr(k, "key", str(k)) for k in path]
     return () if any(k in ("w_up", "w_down") for k in keys) else None

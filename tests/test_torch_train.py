@@ -438,9 +438,10 @@ def test_arguments_the_jax_trainer_refuses_raise(monkeypatch):
                       grad_accum=3, device="cpu")
     with pytest.raises(TypeError, match="batch_size"):
         train.Trainer("TinyNet", device="cpu")
-    with pytest.raises(NotImplementedError, match="A5"):
+    # a mesh of two ranks in a world of one (no process group)
+    with pytest.raises(ValueError, match="asks for 2 ranks but the world has 1"):
         train.Trainer("TinyNet", {"dp": 2}, batch_size=BATCH, device="cpu")
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(ValueError, match="asks for 2 ranks but the world has 1"):
         train.Trainer("TinyNet", make_mesh(MeshSpec(dp=2), devices=jax.devices()[:2]),
                       batch_size=BATCH, device="cpu")
     tr = train.Trainer("TinyNet", _mesh(), batch_size=BATCH, variables=v, num_classes=CLASSES,
