@@ -6,6 +6,7 @@
     python3 chip_smoke.py --lm-server     # phases 1-2 and 12 (the LM server) alone
     python3 chip_smoke.py --moe           # phases 1-2 and 13 (mixture of experts) alone
     python3 chip_smoke.py --parallel      # phases 1-2 and 14 (data and tensor parallelism) alone
+    python3 chip_smoke.py --seq-parallel  # phases 1-2 and 15 (sequence, expert parallelism) alone
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
@@ -221,11 +222,44 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ResNet at dp 2 and at tp 2 within 1e-4 relative of world 1; whether
    gloo's own CUDA path took an all_gather (the forms always stage
    through the host). A rank that exits non-zero fails the phase.
+15. seq_parallel: the sequence and expert forms over torch.distributed.
+   (a) NCCL at world size 1 on cuda:0 in this process: ring_attention
+   and ulysses_attention over local_mesh() (sp 1) on the LM's attention
+   shape, [1, 2048, 16, 64] bf16 causal, each exactly one K2 launch and
+   bit-equal to flash_attention; LongContextLM over local_mesh() at the
+   LM's full width, bf16, B=1, T=2048, 3 steps through the mesh's loss
+   and gradient reductions (groups of one), each step 12 K2, 12 K3 and
+   12 delta launches, losses finite and falling. (b) Two gloo ranks,
+   both on cuda:0, spawned: at (dp 1, sp 2), q/k/v [1, 8192, 16, 64]
+   (4096 rows a rank) through ring and Ulysses, causal and full, bf16
+   and float32: each rank's output within K2's bars (float32 2e-5, bf16
+   2e-2) of the one-device K2 on the whole sequence, float32 gradients
+   of sum(sin(out)) within atol 5e-5, rtol 5e-4 of the one-device K3,
+   launches by formula (causal ring: sp-rank r makes r + 1 K2 and r + 1
+   K3; full ring 2 of each; Ulysses 1; one delta kernel a backward), and
+   the two forms' forward timed in turns; the LM at full width, bf16,
+   B=1, T=2048 (1024 tokens a rank), AdamW lr 3e-4, 5 steps and a
+   profiled one with the ring and as many with Ulysses: losses finite
+   and falling and equal on both ranks, each step 12 x the formula's K2
+   and K3 and 12 delta launches, step ms median and p90, tokens/s, peak
+   memory and the `mesh.*` ranges' share of the profiled step; then 16
+   tokens served from the trained weights on each rank (K2 12, K4 12 x
+   15), equal on both; lm_moe8 at (dp 1, ep 2), 4 experts a rank (half
+   of world 1's expert parameters): the bf16 logits of one 2048-token
+   row against the one-device model's, top-1 equal wherever its top-2
+   margin is at least TIE_MARGIN, 3 train steps finite (12 K2, 12 K3,
+   12 delta each), peak memory; the float32 narrow LM (d 128, 2 layers,
+   GQA-2, an MoE block, T 2048 so that routing groups sit inside each
+   shard, TF32 off) at (dp 1, sp 2) ring, (dp 1, sp 2) Ulysses, (dp 1,
+   ep 2) and (dp 2): 3 steps' losses within 1e-4 relative of the one
+   device's; its dp-2 checkpoint restored bitwise at one device. A rank
+   that exits non-zero fails the phase.
 
 Then the card's name and power limit as nvidia-smi prints them, the
 kernels' summary line (K1's launches by path: serving, training and,
 for ResNet50, parallel; K2's and K4's: generate, train, lm_server and
-moe; K3's: train and moe), and last `{"ok": true, "device": {...}}`.
+moe, and K2's seq_parallel; K3's and the delta kernel's: train, moe and
+seq_parallel), and last `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -2954,6 +2988,400 @@ def phase_parallel():
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 15: sequence and expert parallelism over torch.distributed
+# ---------------------------------------------------------------------------
+
+SP_T = 8192  # the long-context attention: q/k/v [1, 8192, 16, 64], 4096 rows a rank
+SP_LM_STEPS, SP_MOE_STEPS, SP_NARROW_STEPS, SP_NEW_TOKENS = 5, 3, 3, 16
+# the float32 narrow LM: GQA-2 and an MoE block; T 2048 puts MoE's routing
+# groups (1024 tokens) inside each sp shard, so sp 2 routes as world 1 does
+SP_NARROW = dict(vocab_size=512, d_model=128, n_heads=4, n_kv_heads=2, n_layers=2, d_ff=256,
+                 num_experts=4, moe_every=2)
+SP_NARROW_T, SP_NARROW_B = 2048, 2
+SP_ATTN_BARS = {"float32": 2e-5, "bfloat16": 2e-2}  # K2's bars against its plain version
+
+
+def torch_from_seed(seed, shape, vocab):
+    """int32 tokens drawn by numpy's RandomState(seed), on cuda."""
+    import torch
+
+    return torch.from_numpy(
+        np.random.RandomState(seed).randint(0, vocab, shape).astype(np.int32)).cuda()
+
+
+def _counted(fn):
+    """(fn(), the launches it made by kernel)."""
+    before = launch_counts()
+    out = fn()
+    after = launch_counts()
+    return out, {k: after[k] - before[k] for k in after}
+
+
+def _kernels(k2=0, k3=0, delta=0, k4=0):
+    return {"normalize": 0, "flash_attention": k2, "flash_bwd": k3, "flash_bwd_delta": delta,
+            "decode_attention": k4}
+
+
+def _add(total, moved):
+    for k, v in moved.items():
+        total[k] = total.get(k, 0) + v
+
+
+def ring_k2(form, causal, r, sp=2):
+    """K2 (and K3) launches of one attention call on sp-rank r: the ring
+    runs r + 1 blocks causal, sp full; Ulysses one."""
+    if form == "ulysses":
+        return 1
+    return r + 1 if causal else sp
+
+
+def _seq_parallel_rank(rank, world, tmp):
+    """One of the two gloo ranks, both on cuda:0 (sp rank = rank). Writes
+    its results to tmp/sp_rank<r>.pt; a failure exits non-zero."""
+    import torch
+    import torch.distributed as dist
+    from dml_tpu_torch.config import MeshSpec
+    from dml_tpu_torch.ops.flash_attention import flash_attention
+    from dml_tpu_torch.parallel.long_context import LongContextLM
+    from dml_tpu_torch.parallel.mesh import make_mesh
+    from dml_tpu_torch.parallel.ring_attention import ring_attention
+    from dml_tpu_torch.parallel.ulysses import ulysses_attention
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous_gloo",
+                            world_size=world, rank=rank)
+    sp_mesh = make_mesh(MeshSpec(dp=1, sp=2))
+    ep_mesh = make_mesh(MeshSpec(dp=1, ep=2))
+    dp_mesh = make_mesh(MeshSpec(dp=2))
+    s = sp_mesh.coords["sp"]
+    res = {"attention": {}, "launches": {}}
+    forms = {"ring": ring_attention, "ulysses": ulysses_attention}
+
+    # ---- 1. attention at long context, (dp 1, sp 2) ----
+    tl = SP_T // 2
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device="cuda").manual_seed(15)
+        q, k, v = (torch.randn(1, SP_T, 16, 64, generator=g, device="cuda", dtype=dtype)
+                   for _ in range(3))
+        for causal in (True, False):
+            # the one-device reference: K2 (and K3 in float32) on the whole sequence
+            full = [t.clone().requires_grad_(dtype == torch.float32) for t in (q, k, v)]
+            ref = flash_attention(*full, causal=causal)
+            if dtype == torch.float32:
+                torch.sin(ref).sum().backward()
+            for form, fn in forms.items():
+                mine = [t[:, s * tl:(s + 1) * tl].detach().clone().requires_grad_(
+                    dtype == torch.float32) for t in (q, k, v)]
+
+                def run():
+                    out = fn(*mine, sp_mesh, causal=causal)
+                    if dtype == torch.float32:
+                        torch.sin(out).sum().backward()
+                    torch.cuda.synchronize()
+                    return out
+
+                out, moved = _counted(run)
+                _add(res["launches"], moved)
+                n = ring_k2(form, causal, s)
+                f32 = dtype == torch.float32
+                err = out.detach().float() - ref[:, s * tl:(s + 1) * tl].detach().float()
+                row = {"moved": moved, "want": _kernels(n, n if f32 else 0, 1 if f32 else 0),
+                       "max_abs_err": float(err.abs().max())}
+                if f32:
+                    row["grad_ok"] = all(torch.allclose(m.grad, f.grad[:, s * tl:(s + 1) * tl],
+                                                        atol=5e-5, rtol=5e-4)
+                                         for m, f in zip(mine, full))
+                    row["grad_max_abs_err"] = max(
+                        float((m.grad - f.grad[:, s * tl:(s + 1) * tl]).abs().max())
+                        for m, f in zip(mine, full))
+                res["attention"][f"{form}/{dtype_name(dtype)}/{'causal' if causal else 'full'}"] = row
+            del full, ref
+        # not counted: the forward alone, ring and Ulysses in turns (bf16 and
+        # float32, causal), wall ms a call on this rank
+        mine = [t[:, s * tl:(s + 1) * tl].contiguous() for t in (q, k, v)]
+        ms = {f: [] for f in forms}
+        for f in ("ring", "ulysses", "ulysses", "ring"):
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                forms[f](*mine, sp_mesh, causal=True)
+                torch.cuda.synchronize()
+                ms[f].append((time.monotonic() - t0) * 1e3)
+        res["attention"][f"forward_ms/{dtype_name(dtype)}/causal"] = {
+            f: statistics.median(v) for f, v in ms.items()}
+        del q, k, v, mine
+    torch.cuda.empty_cache()
+
+    # ---- 2. the LM at full width, (dp 1, sp 2): ring and Ulysses ----
+    nl = LM_CFG["n_layers"]
+    toks = torch_from_seed(5, (1, TRAIN_T), LM_CFG["vocab_size"])
+    res["lm"] = {}
+    for form in ("ring", "ulysses"):
+        torch.cuda.reset_peak_memory_stats()
+        lm = LongContextLM(sp_mesh, seq_len=TRAIN_T, dtype=torch.bfloat16, seed=0,
+                           seq_parallel=form, **LM_CFG)
+        n = ring_k2(form, True, s)
+        want = _kernels(nl * n, nl * n, nl)
+        losses, step_ms, moves = [], [], []
+        for _ in range(SP_LM_STEPS):
+            t0 = time.monotonic()
+            loss, moved = _counted(lambda: lm.train_step(toks))
+            step_ms.append((time.monotonic() - t0) * 1e3)
+            losses.append(loss)
+            moves.append(moved)
+            _add(res["launches"], moved)
+        prof, moved = _counted(lambda: collectives_profile(lambda: lm.train_step(toks), 1))
+        moves.append(moved)
+        _add(res["launches"], moved)
+        gen, gmoved = _counted(lambda: lm.generate(toks[:, :128].cpu().numpy(), SP_NEW_TOKENS))
+        _add(res["launches"], gmoved)
+        med = statistics.median(step_ms)
+        res["lm"][form] = {
+            "losses": losses, "step_ms": step_ms, "step_ms_median": med,
+            "step_ms_p90": float(np.percentile(step_ms, 90)), "tokens_per_s": TRAIN_T / (med / 1e3),
+            "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 1e6,
+            "collectives": prof, "moves": moves, "want": want, "generated": gen,
+            "generate_moved": gmoved,
+            "generate_want": _kernels(nl, 0, 0, nl * (SP_NEW_TOKENS - 1))}
+        del lm
+        torch.cuda.empty_cache()
+
+    # ---- 3. lm_moe8 at (dp 1, ep 2) ----
+    torch.cuda.reset_peak_memory_stats()
+    lm = LongContextLM(ep_mesh, seq_len=TRAIN_T, dtype=torch.bfloat16, seed=0, **MOE, **LM_CFG)
+    experts = sum(p.numel() for n, p in lm.model.named_parameters() if n.endswith(("w_up", "w_down")))
+    held = sum(p.numel() for _, p in lm._named)
+    logits = lm.forward(toks)[0]
+    w1 = torch.load(os.path.join(tmp, "moe8_world1.pt"), weights_only=True)
+    top = logits.argmax(-1).cpu()
+    margin_ok = w1["margin"] >= TIE_MARGIN
+    res["moe"] = {"expert_params": experts, "params_held": held,
+                  "logits_max_abs_err": float((logits.cpu() - w1["logits"]).abs().max()),
+                  "top1_equal": int((top == w1["top1"]).sum()),
+                  "top1_differ_at_margin": int(((top != w1["top1"]) & margin_ok).sum()),
+                  "near_ties": int((~margin_ok).sum())}
+    del logits, w1
+    losses, moves = [], []
+    for _ in range(SP_MOE_STEPS):
+        loss, moved = _counted(lambda: lm.train_step(toks))
+        losses.append(loss)
+        moves.append(moved)
+        _add(res["launches"], moved)
+    res["moe"].update(losses=losses, moves=moves, want=_kernels(nl, nl, nl),
+                      max_memory_allocated_mb=torch.cuda.max_memory_allocated() / 1e6)
+    del lm
+    torch.cuda.empty_cache()
+
+    # ---- 4. the float32 narrow LM, TF32 off ----
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    ntoks = torch_from_seed(6, (SP_NARROW_B, SP_NARROW_T), SP_NARROW["vocab_size"])
+    res["narrow"] = {}
+    for name, mesh, form in (("sp2_ring", sp_mesh, "ring"), ("sp2_ulysses", sp_mesh, "ulysses"),
+                             ("ep2", ep_mesh, "ring"), ("dp2", dp_mesh, "ring")):
+        nlm = LongContextLM(mesh, seq_len=SP_NARROW_T, dtype=torch.float32, seed=1,
+                            seq_parallel=form, **SP_NARROW)
+        losses = []
+        for _ in range(SP_NARROW_STEPS):
+            loss, moved = _counted(lambda: nlm.train_step(ntoks))
+            losses.append(loss)
+            _add(res["launches"], moved)
+        res["narrow"][name] = losses
+        if name == "dp2":
+            nlm.save_checkpoint(os.path.join(tmp, "ck_dp2_lm"))
+            state = nlm.state
+            if rank == 0:
+                torch.save(state, os.path.join(tmp, "ck_dp2_lm_state.pt"))
+        del nlm
+    torch.save(res, os.path.join(tmp, f"sp_rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_seq_parallel():
+    """Sequence and expert parallelism: NCCL at world size 1 on cuda:0 in
+    this process, then two gloo ranks sharing the card. Returns K2's, K3's
+    and the delta kernel's launches on the path (this process's and both
+    ranks')."""
+    import multiprocessing
+
+    import torch
+    import torch.distributed as dist
+    from dml_tpu_torch.ops.flash_attention import flash_attention
+    from dml_tpu_torch.parallel.long_context import LongContextLM
+    from dml_tpu_torch.parallel.mesh import local_mesh
+    from dml_tpu_torch.parallel.ring_attention import ring_attention
+    from dml_tpu_torch.parallel.ulysses import ulysses_attention
+
+    t_phase = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_seq_parallel_")
+    torch.cuda.set_device(0)
+    nl = LM_CFG["n_layers"]
+    out = {"note": "world 1: NCCL, groups of one, sp 1 (no sequence collective); two ranks: "
+           "both on the one card (cuda:0), gloo, every collective staged through the host"}
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous_nccl",
+                            world_size=1, rank=0)
+    try:
+        mesh = local_mesh()
+        g = torch.Generator(device="cuda").manual_seed(15)
+        q, k, v = (torch.randn(1, TRAIN_T, 16, 64, generator=g, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(3))
+        want = flash_attention(q, k, v, causal=True)  # not counted: the reference
+
+        # ---- the main path (world 1), counted ----
+        reset_launch_counts()
+        w1 = {}
+        for name, fn in (("ring", ring_attention), ("ulysses", ulysses_attention)):
+            got, moved = _counted(lambda: fn(q, k, v, mesh, causal=True))
+            check(moved == _kernels(1), f"world-1 {name} launched {moved}, want one K2")
+            check(torch.equal(got, want), f"world-1 {name} is not bit-equal to flash_attention")
+            w1[name] = {"launches": moved, "bit_equal": True}
+        del q, k, v, want, got
+        toks = torch_from_seed(5, (1, TRAIN_T), LM_CFG["vocab_size"])
+        lm = LongContextLM(mesh, seq_len=TRAIN_T, dtype=torch.bfloat16, seed=0, **LM_CFG)
+        losses, step_ms = [], []
+        for _ in range(3):
+            t0 = time.monotonic()
+            loss, moved = _counted(lambda: lm.train_step(toks))
+            step_ms.append((time.monotonic() - t0) * 1e3)
+            check(moved == _kernels(nl, nl, nl), f"a world-1 mesh step launched {moved}")
+            losses.append(loss)
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"world-1 losses {losses}")
+        w1["train"] = {"losses": losses, "step_ms": step_ms}
+        world1 = launch_counts()
+        # not counted: where a world-1 mesh step's time goes (the flat
+        # gradient buffer and its all-reduce over the dp x sp plane)
+        prof_w1 = profile_calls(lambda: lm.train_step(toks), 2, PAR_KINDS[:1] + TRAIN_KINDS,
+                                ranges=("mesh.all_reduce.dp+sp",))
+        del lm
+        torch.cuda.empty_cache()
+
+        # not counted: the references the ranks are held to, on one device
+        moe = LongContextLM(seq_len=TRAIN_T, dtype=torch.bfloat16, seed=0, **MOE, **LM_CFG)
+        w1_experts = sum(p.numel() for n, p in moe.model.named_parameters()
+                         if n.endswith(("w_up", "w_down")))
+        logits = moe.forward(toks)[0]
+        top2 = logits.topk(2, dim=-1).values
+        torch.save({"logits": logits.cpu(), "top1": logits.argmax(-1).cpu(),
+                    "margin": (top2[:, 0] - top2[:, 1]).cpu()},
+                   os.path.join(tmp, "moe8_world1.pt"))
+        del moe, logits, top2
+        torch.cuda.empty_cache()
+        tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            ntoks = torch_from_seed(6, (SP_NARROW_B, SP_NARROW_T), SP_NARROW["vocab_size"])
+            nlm = LongContextLM(seq_len=SP_NARROW_T, dtype=torch.float32, seed=1, **SP_NARROW)
+            narrow_ref = [nlm.train_step(ntoks) for _ in range(SP_NARROW_STEPS)]
+            del nlm
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.cuda.empty_cache()
+
+        # ---- two gloo ranks on the one card ----
+        t0 = time.monotonic()
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=_seq_parallel_rank, args=(r, 2, tmp)) for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=900)
+        codes = [p.exitcode for p in procs]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        check(codes == [0, 0], f"gloo ranks exited {codes}")
+        ranks = [torch.load(os.path.join(tmp, f"sp_rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+        gloo = {"wall_s": time.monotonic() - t0, "attention": {}, "lm": {}}
+        for key in ranks[0]["attention"]:
+            rows = [r["attention"][key] for r in ranks]
+            if key.startswith("forward_ms"):
+                gloo["attention"][key] = rows
+                continue
+            dtype = key.split("/")[1]
+            for r, row in enumerate(rows):
+                check(row["moved"] == row["want"],
+                      f"rank {r} {key} launched {row['moved']}, want {row['want']}")
+                check(row["max_abs_err"] <= SP_ATTN_BARS[dtype],
+                      f"rank {r} {key}: {row['max_abs_err']} from the one-device K2")
+                if "grad_ok" in row:
+                    check(row["grad_ok"], f"rank {r} {key} gradients: {row['grad_max_abs_err']} "
+                          f"from the one-device K3")
+            gloo["attention"][key] = {
+                "max_abs_err": [row["max_abs_err"] for row in rows],
+                "grad_max_abs_err": [row.get("grad_max_abs_err") for row in rows],
+                "launches": [row["moved"] for row in rows]}
+        for form in ("ring", "ulysses"):
+            rows = [r["lm"][form] for r in ranks]
+            for r, row in enumerate(rows):
+                check(all(m == row["want"] for m in row["moves"]),
+                      f"rank {r} {form} LM steps launched {row['moves']}, want {row['want']}")
+                check(all(np.isfinite(row["losses"])) and row["losses"][-1] < row["losses"][0],
+                      f"rank {r} {form} losses {row['losses']}")
+                check(row["generate_moved"] == row["generate_want"],
+                      f"rank {r} {form} generate launched {row['generate_moved']}")
+            check(rows[0]["losses"] == rows[1]["losses"], f"{form}: the ranks' losses differ")
+            check(np.array_equal(rows[0]["generated"], rows[1]["generated"]),
+                  f"{form}: the ranks served different tokens")
+            gloo["lm"][form] = {
+                "losses": rows[0]["losses"], "generated": rows[0]["generated"].tolist(),
+                "launches_per_step": [row["want"] for row in rows],
+                **{k: [row[k] for row in rows]
+                   for k in ("step_ms", "step_ms_median", "step_ms_p90", "tokens_per_s",
+                             "max_memory_allocated_mb", "collectives")}}
+        mrows = [r["moe"] for r in ranks]
+        for r, row in enumerate(mrows):
+            check(row["top1_differ_at_margin"] == 0,
+                  f"rank {r} lm_moe8 ep 2: top-1 differs from world 1's at "
+                  f"{row['top1_differ_at_margin']} positions with a margin >= {TIE_MARGIN}")
+            check(all(m == row["want"] for m in row["moves"]), f"rank {r} moe moves {row['moves']}")
+            check(all(np.isfinite(row["losses"])), f"rank {r} moe losses {row['losses']}")
+            check(2 * row["expert_params"] == w1_experts,
+                  f"rank {r} holds {row['expert_params']} expert parameters of {w1_experts}")
+        gloo["moe8_ep2"] = {k: [row[k] for row in mrows] for k in mrows[0]
+                            if k not in ("moves", "want")}
+        gloo["moe8_ep2"]["world1_expert_params"] = w1_experts
+        narrow = {}
+        for name in ranks[0]["narrow"]:
+            got = ranks[0]["narrow"][name]
+            check(got == ranks[1]["narrow"][name], f"narrow {name}: the ranks' losses differ")
+            rel = max(_rel(a, b) for a, b in zip(got, narrow_ref))
+            narrow[name] = {"losses": got, "max_rel_diff_world1": rel}
+            check(rel <= 1e-4, f"narrow f32 {name} losses {got} != world 1 {narrow_ref}")
+        gloo["narrow_f32"] = dict(narrow, world1_losses=narrow_ref)
+        # the dp-2 checkpoint restores bitwise at world 1
+        nlm = LongContextLM(seq_len=SP_NARROW_T, dtype=torch.float32, seed=7, **SP_NARROW)
+        step = nlm.restore_checkpoint(os.path.join(tmp, "ck_dp2_lm"))
+        saved = torch.load(os.path.join(tmp, "ck_dp2_lm_state.pt"), map_location="cpu",
+                           weights_only=True)
+        got = nlm.state
+        same = all(torch.equal(got["params"][n].cpu(), t) for n, t in saved["params"].items())
+        same = same and all(torch.equal(got["opt_state"][m][n].cpu(), t)
+                            for m in ("exp_avg", "exp_avg_sq")
+                            for n, t in saved["opt_state"][m].items())
+        check(step == saved["step"] == SP_NARROW_STEPS and same
+              and got["opt_state"]["count"] == saved["opt_state"]["count"],
+              f"dp-2 LM checkpoint restored at world 1: step {step}, bitwise {same}")
+        gloo["checkpoint_dp2_to_world1"] = {"step": step, "bitwise": same}
+        del nlm
+        out["world1"] = w1
+        out["gloo_2_ranks"] = gloo
+        total = dict(world1)
+        per_rank = [r["launches"] for r in ranks]
+        for moved in per_rank:
+            _add(total, moved)
+        out["launches"] = {"world1": world1, "gloo_ranks": per_rank, "total": total}
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.monotonic() - t_phase
+    emit(phase="seq_parallel", **out)
+    emit(phase="profile", path=f"seq_parallel_world1_mesh_step_b1_t{TRAIN_T}", **prof_w1)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2984,6 +3412,10 @@ def main() -> int:
         phase_parallel()
         print(smi, flush=True)
         return 0
+    if "--seq-parallel" in sys.argv[1:]:  # after a sequence/expert-form edit: build, phase 15
+        phase_seq_parallel()
+        print(smi, flush=True)
+        return 0
     timings = phase_kernel(timer)
     if kernel_only:  # a short call after a K1 edit: build, check, time, stop
         print(smi, flush=True)
@@ -2998,6 +3430,7 @@ def main() -> int:
     server_launches = phase_lm_server(timer)
     moe_launches = phase_moe(timer)
     parallel_launches = phase_parallel()
+    sp_launches = phase_seq_parallel()
 
     kernels = []
     for model, mode in MODELS:
@@ -3014,7 +3447,8 @@ def main() -> int:
             launches_by_path=by_path, bound_by="bytes", **t))
     # one kernel timed at two shapes: each row carries every path's launches
     by_path = {kern: {"generate": lm_launches[kern], "train": train_launches[kern],
-                      "lm_server": server_launches[kern], "moe": moe_launches[kern]}
+                      "lm_server": server_launches[kern], "moe": moe_launches[kern],
+                      "seq_parallel": sp_launches[kern]}
                for kern in ("flash_attention", "decode_attention")}
     for case, shape in (
             ("prefill_b8", f"prefill b{LM_BATCH} T{PROMPT_LEN} H16 KV4 D64 bf16 causal"),
@@ -3042,9 +3476,11 @@ def main() -> int:
                  f"backward's]",
             route="cuda", variant="wgmma+tma", source="dml_tpu_torch/csrc/flash_attention_bwd.cu",
             replaces=f"dml_tpu/ops/flash_attention.py:{line}",
-            launches=train_launches["flash_bwd"] + moe_launches["flash_bwd"],
+            launches=train_launches["flash_bwd"] + moe_launches["flash_bwd"]
+            + sp_launches["flash_bwd"],
             launches_by_path={"train": train_launches["flash_bwd"],
-                              "moe": moe_launches["flash_bwd"]},
+                              "moe": moe_launches["flash_bwd"],
+                              "seq_parallel": sp_launches["flash_bwd"]},
             max_abs_err=t["max_abs_err"],
             ms=t["ms"][part], mma_sync_ms=t["ms"][f"{part}_mma_sync"], plain_ms=t["plain_ms"],
             bound_ms=t["bound"][part]["bound_ms"], bound_by=t["bound"][part]["bound_by"],
@@ -3053,9 +3489,11 @@ def main() -> int:
         name=f"flash_bwd_delta[{shape}; rowsum(dO*O) and padded lse rows]", route="cuda",
         source="dml_tpu_torch/csrc/flash_attention_bwd.cu",
         replaces="dml_tpu/ops/flash_attention.py:311 (a jnp expression beside the Pallas kernels)",
-        launches=train_launches["flash_bwd_delta"] + moe_launches["flash_bwd_delta"],
+        launches=train_launches["flash_bwd_delta"] + moe_launches["flash_bwd_delta"]
+        + sp_launches["flash_bwd_delta"],
         launches_by_path={"train": train_launches["flash_bwd_delta"],
-                          "moe": moe_launches["flash_bwd_delta"]},
+                          "moe": moe_launches["flash_bwd_delta"],
+                          "seq_parallel": sp_launches["flash_bwd_delta"]},
         max_abs_err=t["delta_max_abs_err"],
         ms=t["ms"]["delta"], plain_ms=t["delta_plain_ms"], bound_ms=t["bound"]["delta"]["bound_ms"],
         bound_by=t["bound"]["delta"]["bound_by"], library_ms=None))

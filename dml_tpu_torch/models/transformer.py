@@ -14,6 +14,10 @@ port's copy of the JAX package's `reference_attention`. With
 experts (`parallel.moe.MoEMLP`, leaves `block_i.moe.{router.kernel,
 w_up, w_down}`); `forward(tokens, return_aux=True)` also returns each MoE
 block's load-balance loss, in block order, for the trainer.
+`TransformerLM(mesh=)` hands the mesh to the MoE blocks (experts over
+`ep`), as the JAX module does; `forward(tokens, offset=)` takes the
+position of the first token, so that a rank holding a chunk of the
+sequence (sequence parallelism) rotates it by its global positions.
 """
 
 from __future__ import annotations
@@ -111,7 +115,7 @@ class Block(nn.Module):
     def __init__(self, d_model: int, n_heads: int, d_ff: int,
                  attention: Callable[..., torch.Tensor], dtype: torch.dtype = torch.bfloat16,
                  n_kv_heads: Optional[int] = None, num_experts: int = 0,
-                 capacity_factor: float = 1.25):
+                 capacity_factor: float = 1.25, mesh=None):
         super().__init__()
         kv = n_kv_heads or n_heads
         if n_heads % kv:
@@ -127,7 +131,7 @@ class Block(nn.Module):
             from ..parallel.moe import MoEMLP
 
             self.moe = MoEMLP(d_model, num_experts, d_ff, capacity_factor=capacity_factor,
-                              dtype=dtype)
+                              mesh=mesh, dtype=dtype)
         else:
             self.up = Dense(d_model, d_ff, dtype)
             self.down = Dense(d_ff, d_model, dtype)
@@ -164,7 +168,8 @@ class TransformerLM(nn.Module):
                  n_layers: int = 6, d_ff: int = 2048,
                  attention: Optional[Callable[..., torch.Tensor]] = None,
                  dtype: torch.dtype = torch.bfloat16, n_kv_heads: Optional[int] = None,
-                 num_experts: int = 0, moe_every: int = 2, capacity_factor: float = 1.25):
+                 num_experts: int = 0, moe_every: int = 2, capacity_factor: float = 1.25,
+                 mesh=None):
         super().__init__()
         attn = attention or reference_attention
         # the Flax module's fields, which LongContextLM.generate reads
@@ -177,15 +182,18 @@ class TransformerLM(nn.Module):
             self.add_module(f"block_{i}", Block(
                 d_model, n_heads, d_ff, attn, dtype, n_kv_heads,
                 num_experts if is_moe_block(i, num_experts, moe_every) else 0, capacity_factor,
+                mesh,
             ))
         self.ln_out = RMSNorm(d_model, dtype)
         self.lm_head = Dense(d_model, vocab_size, torch.float32)
 
-    def forward(self, tokens, return_aux: bool = False):
+    def forward(self, tokens, return_aux: bool = False, offset: int = 0):
         """Logits [B, T, vocab] f32; with `return_aux`, (logits, [the
-        load-balance loss of each MoE block, in block order])."""
+        load-balance loss of each MoE block, in block order]). Token t
+        sits at position `offset` + t."""
         x = self.embed(tokens)
-        tables = rope_tables(torch.arange(tokens.shape[1], device=x.device), self.head_dim)
+        positions = torch.arange(offset, offset + tokens.shape[1], device=x.device)
+        tables = rope_tables(positions, self.head_dim)
         aux = []
         for i in range(self.n_layers):
             x, a = getattr(self, f"block_{i}")(x, tables)

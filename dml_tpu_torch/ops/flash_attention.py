@@ -394,6 +394,36 @@ def flash_attention_backward(
     return _flash_bwd_cuda(q, k, v, dout, lse_r, delta_r, causal, scale)
 
 
+def flash_block_backward(
+    q: torch.Tensor, out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
+    scale: Optional[float] = None,
+):
+    """The backward of attention whose key/value blocks were computed
+    apart and merged into (`out`, `lse`), as ring attention merges them:
+    returns `block(k, v, causal) -> (dq, dk, dv)`, one block's share of
+    the gradients. Each block recomputes its probabilities from the
+    merged lse, P_blk = exp(S_blk - lse), which is the whole softmax
+    restricted to the block, so no lse cotangent enters and delta =
+    rowsum(dO * O) is the same for every block. On a CUDA tensor the
+    delta kernel runs once, here, and each `block` call launches K3's dq
+    and dkv kernels; on a CPU tensor each call is the plain
+    `attention_backward`. `out` and `dout` share q's shape and dtype."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    if q.device.type == "cpu":
+        def block(k, v, causal):
+            _check(q, k, v, causal)
+            return attention_backward(q, k, v, out, lse, dout, causal=causal, scale=scale)
+        return block
+    if q.device.type != "cuda":
+        raise RuntimeError(f"no flash attention kernel for device {q.device}")
+    lse_r, delta_r = _bwd_rows_cuda(out, dout, lse, None)
+
+    def block(k, v, causal):
+        _check(q, k, v, causal)
+        return _flash_bwd_cuda(q, k, v, dout, lse_r, delta_r, causal, scale)
+    return block
+
+
 def _forward(q, k, v, causal, scale):
     if q.device.type == "cpu":
         return attention_with_lse(q, k, v, causal=causal, scale=scale)

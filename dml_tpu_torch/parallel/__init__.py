@@ -1,14 +1,15 @@
 """Training and the forms over several GPUs: `long_context.LongContextLM`
-(the LM's train step with the flash kernels forward and backward, one
-device), `train.Trainer` (the image models, BatchNorm in training mode,
-float32 master weights, K1 in every step; one device or a dp x tp mesh),
+(the LM's train step with the flash kernels forward and backward, on one
+device or a dp x sp x tp x ep mesh), `ring_attention` and `ulysses`
+(attention over a sequence sharded on sp), `moe` (experts over ep),
+`train.Trainer` (the image models, BatchNorm in training mode, float32
+master weights, K1 in every step; one device or a dp x tp mesh),
 `inference.ShardedInference` (image serving over a dp x tp mesh, in the
 param-gather and the Megatron form), `checkpoint.CheckpointManager`
 (atomic, retained, step-indexed checkpoints), `mesh` (meshes over
-torch.distributed and the collectives), `sharding` (the tp partition
-rule) and `multihost` (start-up from the cluster spec). The sequence,
-expert and pipeline forms are ROADMAP A5(b) and A5(c): a mesh of more
-than one device raises NotImplementedError there."""
+torch.distributed and the collectives), `sharding` (the tp and ep
+partition rule) and `multihost` (start-up from the cluster spec). The
+pipeline form is ROADMAP A5(c)."""
 
 from typing import Mapping
 
@@ -30,6 +31,9 @@ from .mesh import local_mesh, make_mesh  # noqa: E402  (after mesh_size, which t
 from .sharding import partition_params, replicated  # noqa: E402
 from .inference import ShardedInference  # noqa: E402
 from .train import Trainer, make_train_step  # noqa: E402
+from .ring_attention import ring_attention  # noqa: E402
+from .ulysses import ulysses_attention  # noqa: E402
 
 __all__ = ["mesh_size", "make_mesh", "local_mesh", "partition_params", "replicated",
-           "ShardedInference", "Trainer", "make_train_step"]
+           "ShardedInference", "Trainer", "make_train_step", "ring_attention",
+           "ulysses_attention"]

@@ -12,8 +12,11 @@ out: rank r's coordinates are those of device r in JAX's mesh over the
 same count. It holds one process group per axis: for `dp` and `tp`
 always (a group of one where the axis has size 1, so that a one-rank
 world still runs its collectives), for `sp`, `pp` and `ep` where the
-axis has more than one rank (no form of this package runs over them
-yet). `make_mesh` is collective: every rank of the world calls it, in
+axis has more than one rank, and always one for the dp x sp plane
+(`("dp", "sp")`: the ranks that hold different rows or sequence chunks
+of a batch, over which the LM sums its gradients in one collective; the
+dp or sp group itself where the other axis has size 1).
+`make_mesh` is collective: every rank of the world calls it, in
 the same order, as `torch.distributed.new_group` requires, whether or
 not the rank is in the mesh (`ranks=`).
 
@@ -23,12 +26,16 @@ code); a mesh of more ranks than the world has raises, and so does a
 mesh of more than one rank that has no process group. Nothing runs on
 one rank in place of several.
 
-Collectives (`all_reduce`, `all_gather`, `barrier`)
-take a tensor on the rank's device. Under gloo a CUDA tensor is copied
-to the host, reduced or gathered there and copied back: the group's
+Collectives (`all_reduce`, `all_gather`, `all_to_all`, `ring_shift`,
+`barrier`) take a tensor on the rank's device. Under gloo a CUDA tensor
+is copied to the host, exchanged there and copied back: the group's
 backend decides that, never a caught error. Each runs inside a
 `torch.profiler.record_function` range named `mesh.<collective>.<axis>`,
 which a profile reads for the collectives' share of a step.
+`all_to_all` and `ring_shift` are the sequence-parallel forms'
+collectives (JAX's `lax.all_to_all(tiled=True)` and the ring's
+`ppermute`); both are differentiable: the gradient of an all-to-all is
+the inverse all-to-all, and that of a shift the shift the other way.
 """
 
 from __future__ import annotations
@@ -46,6 +53,8 @@ from . import mesh_size
 AXES = ("dp", "tp", "sp", "pp", "ep")
 #: axes that always get a process group (the forms of this package)
 _ALWAYS_GROUPED = ("dp", "tp")
+#: groups over more than one axis, always made
+PLANES = (("dp", "sp"),)
 
 
 def _world() -> int:
@@ -81,7 +90,9 @@ class Mesh:
         """This rank's place in the mesh's row-major order (0 writes)."""
         return int(np.flatnonzero(self.ranks.reshape(-1) == self.rank)[0])
 
-    def group(self, axis: str):
+    def group(self, axis):
+        """The process group of this rank's line along `axis` (a name, or
+        a tuple of `PLANES`)."""
         if axis not in self._groups:
             raise ValueError(f"mesh has no process group for axis {axis!r} on this rank")
         return self._groups[axis]
@@ -109,14 +120,22 @@ def make_mesh(spec: Optional[MeshSpec] = None, ranks: Optional[Sequence[int]] = 
         return Mesh(sizes, grid, 0, {}, None, None)
     me = dist.get_rank()
     groups = {}
-    for i, axis in enumerate(AXES):
-        if sizes[axis] == 1 and axis not in _ALWAYS_GROUPED:
-            continue
-        for line in np.moveaxis(grid, i, -1).reshape(-1, sizes[axis]):
+    grouped = [(a, (a,)) for a in AXES if sizes[a] > 1 or a in _ALWAYS_GROUPED]
+    # a plane with at most one axis longer than 1 is that axis's line (or
+    # its first axis's, which is always grouped): it shares that group
+    shared = {p: next((a for a in p if sizes[a] > 1), p[0]) for p in PLANES
+              if sum(sizes[a] > 1 for a in p) <= 1}
+    for key, axes in grouped + [(p, p) for p in PLANES if p not in shared]:
+        at = [AXES.index(a) for a in axes]
+        n = int(np.prod([sizes[a] for a in axes]))
+        for line in np.moveaxis(grid, at, range(-len(at), 0)).reshape(-1, n):
             members = [int(r) for r in line]
             group = dist.new_group(members)
             if me in members:
-                groups[axis] = group
+                groups[key] = group
+    for plane, axis in shared.items():
+        if axis in groups:
+            groups[plane] = groups[axis]
     group_all = dist.group.WORLD if len(ranks) == world else dist.new_group(ranks)
     rank = me if me in ranks else None
     return Mesh(sizes, grid, rank, groups if rank is not None else {}, group_all,
@@ -157,10 +176,11 @@ def _staged(t: torch.Tensor, mesh: Mesh) -> bool:
     return t.is_cuda and mesh.backend == "gloo"
 
 
-def all_reduce(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
-    """Sum `t` over the ranks of this rank's `axis` group, in place;
-    returns `t`."""
-    with torch.profiler.record_function(f"mesh.all_reduce.{axis}"):
+def all_reduce(t: torch.Tensor, mesh: Mesh, axis) -> torch.Tensor:
+    """Sum `t` over the ranks of this rank's `axis` group (an axis name or
+    a plane of `PLANES`), in place; returns `t`."""
+    name = axis if isinstance(axis, str) else "+".join(axis)
+    with torch.profiler.record_function(f"mesh.all_reduce.{name}"):
         if _staged(t, mesh):
             host = t.cpu()
             dist.all_reduce(host, group=mesh.group(axis))
@@ -186,3 +206,87 @@ def barrier(mesh: Mesh) -> None:
     """Wait for every rank of the mesh."""
     with torch.profiler.record_function("mesh.barrier"):
         dist.barrier(group=mesh._group_all)
+
+
+def _group_rank(mesh: Mesh, axis: str, i: int) -> int:
+    """The global rank of the axis group's i-th member (a peer of a
+    point-to-point op is named by its global rank)."""
+    return dist.get_global_rank(mesh.group(axis), i)
+
+
+def _all_to_all(t: torch.Tensor, mesh: Mesh, axis: str, split_dim: int,
+                concat_dim: int) -> torch.Tensor:
+    n = mesh.shape[axis]
+    if t.shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dim {split_dim} of {tuple(t.shape)} is not divisible "
+                         f"by {axis}={n}")
+    with torch.profiler.record_function(f"mesh.all_to_all.{axis}"):
+        x = t.movedim(split_dim, 0)
+        # piece j (rows j*S/n..) goes to the axis's rank j
+        x = x.reshape(n, x.shape[0] // n, *x.shape[1:])
+        x = (x.cpu() if _staged(t, mesh) else x).contiguous()
+        got = torch.empty_like(x)
+        dist.all_to_all_single(got, x, group=mesh.group(axis))
+        got = got.to(t.device) if got.device != t.device else got
+        # got[i] came from rank i: concatenated along concat_dim in rank order
+        return torch.cat([p.movedim(0, split_dim) for p in got.unbind(0)], concat_dim)
+
+
+def _shift(t: torch.Tensor, mesh: Mesh, axis: str, reverse: bool) -> torch.Tensor:
+    n, i = mesh.shape[axis], mesh.coords[axis]
+    to, frm = ((i - 1) % n, (i + 1) % n) if reverse else ((i + 1) % n, (i - 1) % n)
+    with torch.profiler.record_function(f"mesh.ring_shift.{axis}"):
+        src = (t.cpu() if _staged(t, mesh) else t).contiguous()
+        got = torch.empty_like(src)
+        group = mesh.group(axis)
+        reqs = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, src, _group_rank(mesh, axis, to), group),
+            dist.P2POp(dist.irecv, got, _group_rank(mesh, axis, frm), group)])
+        for r in reqs:  # complete before the next exchange: each is matched in order
+            r.wait()
+    return got.to(t.device) if got.device != t.device else got
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, split_dim, concat_dim):
+        ctx.args = (mesh, axis, split_dim, concat_dim)
+        return _all_to_all(t, mesh, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, split_dim, concat_dim = ctx.args
+        return _all_to_all(g, mesh, axis, concat_dim, split_dim), None, None, None, None
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.args = (mesh, axis)
+        return _shift(t, mesh, axis, reverse=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g, *ctx.args, reverse=True), None, None
+
+
+def all_to_all(t: torch.Tensor, mesh: Mesh, axis: str, split_dim: int,
+               concat_dim: int) -> torch.Tensor:
+    """`jax.lax.all_to_all(t, axis, split_dim, concat_dim, tiled=True)`:
+    `t`'s `split_dim` is cut into as many pieces as the axis has ranks,
+    piece j goes to the axis's rank j, and the pieces received are
+    concatenated along `concat_dim` in rank order (a new tensor on `t`'s
+    device). Differentiable: the backward is the inverse all-to-all."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _AllToAll.apply(t, mesh, axis, split_dim, concat_dim)
+    return _all_to_all(t, mesh, axis, split_dim, concat_dim)
+
+
+def ring_shift(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """`ppermute` with perm [(j, (j + 1) % n)]: send `t` to the next rank
+    of the axis and return what the previous rank sent. Every rank of the
+    axis calls it, with tensors of one shape and dtype. Differentiable:
+    the backward is the shift the other way."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _RingShift.apply(t, mesh, axis)
+    return _shift(t, mesh, axis, reverse=False)

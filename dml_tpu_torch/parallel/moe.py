@@ -1,5 +1,5 @@
-"""Mixture-of-experts FFN: PyTorch counterpart of dml_tpu/parallel/moe.py
-on one device.
+"""Mixture-of-experts FFN: PyTorch counterpart of dml_tpu/parallel/moe.py,
+on one device and with the experts sharded over an `ep` mesh axis.
 
 GShard top-2 routing with a fixed per-expert capacity: `top2_dispatch`
 turns the softmaxed router gates of a group of g tokens into dense
@@ -18,11 +18,28 @@ kept on the module (a value left there goes stale under `no_grad`, remat
 or a second forward); `models.transformer.TransformerLM(...,
 return_aux=True)` collects one per MoE block for the trainer.
 
-Differences from the JAX package, by design: one device. A mesh of more
-than one device (expert parallelism over `ep`) raises
-NotImplementedError, as does `moe_partition_spec` for ep > 1; those are
-ROADMAP A5(b). At ep = 1 the expert weights are replicated over any
-mesh, as in the JAX package (`sharding.partition_params`).
+Over a mesh (`MoEMLP(mesh=)`, a `parallel.mesh.Mesh` with ep > 1 and E
+divisible by ep), rank e of the `ep` axis holds experts [e E/ep, (e+1)
+E/ep) of `w_up` and `w_down` (`moe_partition_spec`: the JAX package's
+P("ep", None, None), whose device shards these are). The tokens are the
+same on every rank of the `ep` axis (the JAX package never splits them
+over ep: its tokens are P("dp", "sp"), and GSPMD places one all-reduce
+over ep, no all-to-all). Every rank routes all of them over all E
+experts, runs its own experts on its slice of the dispatch tensor,
+all-gathers the expert outputs over ep and combines on the full E, as
+one device does. The gradients match one device's on every rank: the
+router's and the aux term's come from the full combine, identical on
+each rank; the input's share through the local experts is summed over ep
+in the backward (the all-gather's backward keeps the rank's own slice).
+When E is not divisible by ep, every rank holds and runs every expert,
+with no collective (the JAX package drops the annotation then).
+
+A rank's x is its own tokens (its dp rows and sp slice of the LM's
+batch), and routing groups are taken within them: over sp that is the
+per-shard sequence, the JAX package's rule (`dml_tpu/parallel/moe.py:
+86-103`); a caller whose tokens do not split over dp or sp passes them
+whole, and the groups are taken over the whole sequence, as JAX takes
+them then.
 """
 
 from __future__ import annotations
@@ -35,15 +52,45 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..models.transformer import Dense, silu
-from . import mesh_size
+from .mesh import Mesh, all_gather, all_reduce, resolve_mesh
 
 
-def _one_device(mesh) -> None:
-    if mesh_size(mesh) > 1:
-        raise NotImplementedError(
-            "expert parallelism over a mesh of more than one device is not ported yet: "
-            "ROADMAP A5(b) (all-to-all and ring forms)"
-        )
+def expert_shards(num_experts: int, mesh) -> int:
+    """Over how many ranks the experts are split: ep when the mesh's ep
+    axis has more than one rank and divides E, else 1 (replicated)."""
+    ep = int((getattr(mesh, "shape", mesh) or {}).get("ep", 1))
+    return ep if ep > 1 and num_experts % ep == 0 else 1
+
+
+class _SumGradOverEp(torch.autograd.Function):
+    """Identity forward; the gradient summed over ep (each rank's share
+    flows through its own experts only)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh: Mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous(), ctx.mesh, "ep"), None
+
+
+class _GatherOverEp(torch.autograd.Function):
+    """The ranks' expert outputs [..., E/ep, ...] gathered into [..., E,
+    ...] along `dim`; the backward keeps this rank's slice (every rank
+    computes the same loss from the gathered tensor, so the slice is the
+    whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh: Mesh, dim: int):
+        ctx.mesh, ctx.dim, ctx.k = mesh, dim, x.shape[dim]
+        return all_gather(x, mesh, "ep", dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        start = ctx.mesh.coords["ep"] * ctx.k
+        return g.narrow(ctx.dim, start, ctx.k).contiguous(), None, None
 
 
 def top2_dispatch(gates: torch.Tensor, capacity: int
@@ -98,18 +145,21 @@ class MoEMLP(nn.Module):
 
     Routing groups are the [B, T/g, g] grid with g = `group_size_for(T,
     group_size)`; capacity is max(1, ceil(g / E * capacity_factor)) per
-    expert and group."""
+    expert and group. With `mesh` (ep > 1 dividing E), `w_up` and
+    `w_down` hold this rank's E/ep experts (`expert_shards`)."""
 
     def __init__(self, d_model: int, num_experts: int, d_ff: int,
                  capacity_factor: float = 1.25, group_size: int = 1024, mesh=None,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        _one_device(mesh)
+        self.mesh = resolve_mesh(mesh)
         self.num_experts, self.d_ff = num_experts, d_ff
         self.capacity_factor, self.group_size, self.dtype = capacity_factor, group_size, dtype
+        self.shards = expert_shards(num_experts, self.mesh)
+        local = num_experts // self.shards
         self.router = Dense(d_model, num_experts, torch.float32)
-        self.w_up = nn.Parameter(torch.zeros(num_experts, d_model, d_ff))
-        self.w_down = nn.Parameter(torch.zeros(num_experts, d_ff, d_model))
+        self.w_up = nn.Parameter(torch.zeros(local, d_model, d_ff))
+        self.w_down = nn.Parameter(torch.zeros(local, d_ff, d_model))
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         b, t, d = x.shape
@@ -121,20 +171,29 @@ class MoEMLP(nn.Module):
         gates = torch.softmax(self.router(tokens), dim=-1)  # float32 [B, Gt, g, E]
         dispatch, combine, aux = top2_dispatch(gates, capacity)
 
+        if self.shards > 1:  # this rank's experts on their slice of the dispatch
+            local = e // self.shards
+            dispatch = dispatch.narrow(3, self.mesh.coords["ep"] * local, local)
+            tokens = _SumGradOverEp.apply(tokens, self.mesh)
         expert_in = torch.einsum("bgnec,bgnd->bgecd", dispatch.to(dt), tokens.to(dt))
         h = silu(torch.einsum("bgecd,edf->bgecf", expert_in, self.w_up.to(dt)))
         out_e = torch.einsum("bgecf,efd->bgecd", h, self.w_down.to(dt))
+        if self.shards > 1:
+            out_e = _GatherOverEp.apply(out_e, self.mesh, 2)
         out = torch.einsum("bgnec,bgecd->bgnd", combine.to(dt), out_e)
         return out.reshape(b, t, d), aux.mean()
 
 
 def moe_partition_spec(path: tuple, leaf, mesh) -> Optional[tuple]:
-    """The JAX package's sharding rule for expert weights at ep = 1:
-    None for a leaf that is not `w_up` or `w_down`, else () (replicated).
-    A mesh with ep > 1 (the E axis over `ep`) raises."""
-    if int((getattr(mesh, "shape", mesh) or {}).get("ep", 1)) > 1:
-        raise NotImplementedError(
-            "expert weights sharded over an ep axis of more than one rank are not ported "
-            "yet: ROADMAP A5(b)")
+    """The JAX package's sharding rule for expert weights: None for a
+    leaf that is not `w_up` or `w_down`; else ("ep", None, None) (the
+    leading E axis over ep) when the mesh's ep axis has more than one
+    rank and divides the leaf's E, () (replicated) otherwise. The layout
+    [E, d, d_ff] is Flax's, so the pieces are the JAX device shards."""
     keys = [getattr(k, "key", str(k)) for k in path]
-    return () if any(k in ("w_up", "w_down") for k in keys) else None
+    if not any(k in ("w_up", "w_down") for k in keys):
+        return None
+    shape = tuple(getattr(leaf, "shape", ()))
+    if shape and expert_shards(shape[0], mesh) > 1:
+        return ("ep",) + (None,) * (len(shape) - 1)
+    return ()

@@ -6,15 +6,19 @@ The rule is the JAX package's: a leaf's output-channel axis is sharded
 over `tp` when it divides evenly and holds at least two channels a rank
 (`size % tp == 0 and size >= 2 * tp`), else the leaf is replicated;
 expert weights (`w_up`, `w_down`) follow `moe.moe_partition_spec`
-(replicated at ep = 1). The layouts differ: JAX shards the last axis of
-a Flax leaf (HWIO convs, [in, out] dense kernels), where the port holds
+(their leading E axis over `ep` when ep > 1 divides it, else
+replicated; the layout [E, d, d_ff] is Flax's, so those pieces are the
+JAX device shards as they are). Elsewhere the layouts differ: JAX
+shards the last axis of a Flax leaf (HWIO convs, [in, out] dense
+kernels), where the port holds
 OIHW and [out, in] (`models.params_io`). So the port's output-channel
 axis is dim 0 of every conv and linear weight and channel vector, and
 the test is on that dim: rank t of the tp axis holds the same
 contiguous channel block as JAX's device at tp index t.
 
 A spec is a `PartitionSpec`: one axis name or None per dim, `P()` for a
-replicated leaf, as JAX spells it.
+replicated leaf, as JAX spells it. A spec of this rule names at most one
+axis; `shard`, `gather` and `gather_tree` cut and reassemble over it.
 """
 
 from __future__ import annotations
@@ -81,47 +85,52 @@ def partition_params(tree: Any, mesh) -> Any:
     return walk(tree, ())
 
 
-def shard_dim(spec: PartitionSpec) -> Optional[int]:
-    """The dim sharded over tp, or None for a replicated leaf."""
-    return spec.index("tp") if "tp" in spec else None
+def shard_dim(spec: PartitionSpec, axis: str = "tp") -> Optional[int]:
+    """The dim sharded over `axis`, or None when no dim is."""
+    return spec.index(axis) if axis in spec else None
+
+
+def _axis_of(spec: PartitionSpec) -> Optional[str]:
+    return next((a for a in spec if a is not None), None)
 
 
 def shard(t: torch.Tensor, spec: PartitionSpec, mesh: Mesh) -> torch.Tensor:
-    """This rank's tp piece of the full tensor `t` (a contiguous copy;
-    `t` itself when the leaf is replicated)."""
-    dim = shard_dim(spec)
-    if dim is None:
+    """This rank's piece of the full tensor `t` over the axis `spec`
+    names (a contiguous copy; `t` itself when the leaf is replicated)."""
+    axis = _axis_of(spec)
+    if axis is None:
         return t
-    tp, i = mesh.shape["tp"], mesh.coords["tp"]
-    k = t.shape[dim] // tp
+    dim, n, i = spec.index(axis), mesh.shape[axis], mesh.coords[axis]
+    k = t.shape[dim] // n
     return t.narrow(dim, i * k, k).clone(memory_format=torch.contiguous_format)
 
 
 def gather(t: torch.Tensor, spec: PartitionSpec, mesh: Mesh) -> torch.Tensor:
-    """The full tensor from the tp pieces of a sharded leaf (a
-    collective over the tp group); `t` itself when it is replicated."""
-    dim = shard_dim(spec)
-    return t if dim is None else all_gather(t, mesh, "tp", dim)
+    """The full tensor from the pieces of a sharded leaf (a collective
+    over the group of the axis `spec` names); `t` itself when it is
+    replicated."""
+    axis = _axis_of(spec)
+    return t if axis is None else all_gather(t, mesh, axis, spec.index(axis))
 
 
 def gather_tree(pieces: Mapping[str, torch.Tensor], specs: Mapping[str, PartitionSpec],
-                mesh: Mesh) -> Dict[str, torch.Tensor]:
-    """Full tensors from this rank's pieces (`shard` of each): the
-    sharded leaves of each dtype in one all-gather over tp, flattened
-    into one buffer; replicated leaves as they are."""
+                mesh: Mesh, axis: str = "tp") -> Dict[str, torch.Tensor]:
+    """Full tensors from this rank's pieces (`shard` of each) of the
+    leaves sharded over `axis`: those of each dtype in one all-gather,
+    flattened into one buffer; the other leaves as they are."""
     out = dict(pieces)
     by_dtype: Dict[torch.dtype, list] = {}
     for n, t in pieces.items():
-        if shard_dim(specs[n]) is not None:
+        if shard_dim(specs[n], axis) is not None:
             by_dtype.setdefault(t.dtype, []).append(n)
-    tp = mesh.shape["tp"]
+    size = mesh.shape[axis]
     for names in by_dtype.values():
         flat = torch.cat([pieces[n].reshape(-1) for n in names])
-        full = all_gather(flat, mesh, "tp").view(tp, -1)
+        full = all_gather(flat, mesh, axis).view(size, -1)
         off = 0
         for n in names:
             p, k = pieces[n], pieces[n].numel()
-            out[n] = torch.cat([full[r, off:off + k].view(p.shape) for r in range(tp)],
-                               shard_dim(specs[n]))
+            out[n] = torch.cat([full[r, off:off + k].view(p.shape) for r in range(size)],
+                               shard_dim(specs[n], axis))
             off += k
     return out

@@ -223,17 +223,20 @@ def local_rows(batch, mesh: Mesh, grad_accum: int = 1):
         grad_accum * k, *batch.shape[1:])
 
 
-class _TpParams:
+class TpParams:
     """A trainer's parameters over a mesh: this rank's tp piece of each
-    (`sharding.shard` of the full tensor; a replicated leaf's piece is
-    the model's own parameter), which the optimizer updates. `gather`
-    puts the full weights into the model, `step` (the step's optimizer
-    call) hands each piece its slice of the model's gradient and updates
-    the pieces, and `release` drops the full weights again."""
+    (`sharding.shard` of the full tensor; a leaf not sharded over tp
+    keeps the model's own parameter as its piece), which the optimizer
+    updates. `gather` puts the full weights into the model, `step` (the
+    step's optimizer call) hands each piece its slice of the model's
+    gradient and updates the pieces, and `release` drops the full weights
+    again. `specs` (default: `partition_params` of the model's
+    parameters) are by parameter name; the LM trainer passes those of
+    its full logical shapes."""
 
-    def __init__(self, named, mesh: Mesh):
+    def __init__(self, named, mesh: Mesh, specs=None):
         self.mesh, self.model_named = mesh, named
-        self.specs = partition_params({n: p for n, p in named}, mesh)
+        self.specs = partition_params({n: p for n, p in named}, mesh) if specs is None else specs
         self.shapes = {n: tuple(p.shape) for n, p in named}
         self.named = [(n, p if shard_dim(self.specs[n]) is None
                        else nn.Parameter(shard(p.detach(), self.specs[n], mesh)))
@@ -327,7 +330,7 @@ class Trainer:
         self.model = model.to(self.device, memory_format=torch.channels_last).train()
         # the optimizer's (name, parameter) pairs: the model's own on one
         # device, this rank's pieces over a mesh
-        self._tp = None if self.mesh is None else _TpParams(
+        self._tp = None if self.mesh is None else TpParams(
             list(self.model.named_parameters()), self.mesh)
         self._named = list(self.model.named_parameters()) if self._tp is None else self._tp.named
         self._schedule = learning_rate if callable(learning_rate) and optimizer is None else None

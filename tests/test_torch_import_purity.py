@@ -77,7 +77,9 @@ def test_no_jax_import():
             "dml_tpu_torch/native/loader.py", "dml_tpu_torch/observability.py",
             "dml_tpu_torch/config.py", "dml_tpu_torch/inference/lm_server.py",
             "dml_tpu_torch/inference/kv_cache.py", "dml_tpu_torch/inference/lm_backend.py",
-            "dml_tpu_torch/models/params_io.py"} <= rel
+            "dml_tpu_torch/models/params_io.py", "dml_tpu_torch/parallel/ring_attention.py",
+            "dml_tpu_torch/parallel/ulysses.py", "dml_tpu_torch/parallel/moe.py",
+            "dml_tpu_torch/parallel/mesh.py"} <= rel
     bad = [
         f"{os.path.relpath(path, ROOT)}:{node.lineno}: {name}"
         for path in _port_files()
@@ -105,6 +107,7 @@ def test_importing_the_port_loads_no_kernel_library():
         "import chip_smoke, dml_tpu_torch.inference, dml_tpu_torch.ops._build as b; "
         "import dml_tpu_torch.inference.generate, dml_tpu_torch.models.transformer; "
         "import dml_tpu_torch.parallel.long_context, dml_tpu_torch.native.loader as nl; "
+        "import dml_tpu_torch.parallel.ring_attention, dml_tpu_torch.parallel.ulysses; "
         "import dml_tpu_torch.inference.lm_backend, dml_tpu_torch.inference.kv_cache; "
         "import dml_tpu_torch.models.params_io, dml_tpu_torch.config; "
         "assert nl._loader is None and nl._error is None; "

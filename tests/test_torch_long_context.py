@@ -121,12 +121,15 @@ def test_bfloat16_loss_lm_loss_and_entry_points(monkeypatch):
     out = lm.forward(toks)
     assert out.dtype == torch.float32 and out.shape == (BATCH, SEQ, CFG["vocab_size"])
     assert out.grad_fn is None
-    # make_lm: seq_parallel validated whatever the mesh; one device only
+    # make_lm: seq_parallel validated whatever the mesh; a mesh of more
+    # ranks than the world (here, no process group) is refused, never run
+    # on one device in its place (the forms over a mesh:
+    # tests/test_torch_seq_parallel.py)
     with pytest.raises(ValueError, match="seq_parallel"):
         make_lm(None, seq_parallel="rings", **CFG)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(ValueError, match="the world has 1"):
         make_lm({"dp": 1, "sp": 2}, **CFG)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(ValueError, match="the world has 1"):
         LongContextLM(make_mesh(MeshSpec(dp=2), devices=jax.devices()[:2]), seq_len=SEQ,
                       device="cpu", **CFG)
     assert make_lm(_mesh(), seq_parallel="ulysses", **CFG).block_0.attention is fa.flash_attention

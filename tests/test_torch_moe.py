@@ -119,14 +119,20 @@ def test_moe_mlp_gradients_match_jax(name):
 def test_group_size_capacity_and_one_device_only():
     assert [moe.group_size_for(t, 1024) for t in (5, 2048, 1100, 4096)] == [5, 1024, 550, 1024]
     assert moe.group_size_for(5, 4) == 1 and moe.group_size_for(8, 4) == 4
-    # a mesh of more than one device is ROADMAP A5; one device is plain
-    with pytest.raises(NotImplementedError, match="A5"):
+    # a mesh of more ranks than the world is refused (the experts over ep:
+    # tests/test_torch_seq_parallel.py); a one-device mesh is plain
+    with pytest.raises(ValueError, match="the world has 1"):
         moe.MoEMLP(D, 4, D_FF, mesh={"dp": 1, "ep": 2})
-    moe.MoEMLP(D, 4, D_FF, mesh={"dp": 1, "ep": 1})
-    with pytest.raises(NotImplementedError, match="A5"):
-        moe.moe_partition_spec(("w_up",), None, {"ep": 4})
+    plain = moe.MoEMLP(D, 4, D_FF, mesh={"dp": 1, "ep": 1})
+    assert plain.mesh is None and plain.w_up.shape == (4, D, D_FF)
+    # the JAX rule: E over ep when ep > 1 divides it, else replicated
+    w = torch.zeros(4, D, D_FF)
+    assert moe.moe_partition_spec(("w_up",), w, {"ep": 4}) == ("ep", None, None)
+    assert moe.moe_partition_spec(("moe", "w_down"), w, {"ep": 2}) == ("ep", None, None)
+    assert moe.moe_partition_spec(("w_up",), w, {"ep": 3}) == ()
     assert moe.moe_partition_spec(("moe", "w_up"), None, None) == ()
-    assert moe.moe_partition_spec(("moe", "router", "kernel"), None, None) is None
+    assert moe.moe_partition_spec(("moe", "router", "kernel"), w, {"ep": 4}) is None
+    assert [moe.expert_shards(8, {"ep": e}) for e in (1, 2, 3, 8)] == [1, 2, 1, 8]
 
 
 def test_transformer_lm_with_moe_matches_jax():
