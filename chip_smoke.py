@@ -7,8 +7,10 @@
     python3 chip_smoke.py --moe           # phases 1-2 and 13 (mixture of experts) alone
     python3 chip_smoke.py --parallel      # phases 1-2 and 14 (data and tensor parallelism) alone
     python3 chip_smoke.py --seq-parallel  # phases 1-2 and 15 (sequence, expert parallelism) alone
+    python3 chip_smoke.py --pipeline      # phases 1-2 and 16 (pipeline, pp/tp LM serving) alone
 
-Phases, each printing one JSON line; any failure exits non-zero:
+Phases, each printing one JSON line (with `t_s`, the seconds since the
+script started); any failure exits non-zero:
 
 1. device: the card's name, capability (must be 9.x, Hopper) and power
    limit;
@@ -254,11 +256,45 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ep 2) and (dp 2): 3 steps' losses within 1e-4 relative of the one
    device's; its dp-2 checkpoint restored bitwise at one device. A rank
    that exits non-zero fails the phase.
+16. pipeline: the pp and tp LM serving forms (`inference.lm_sharded`)
+   over torch.distributed, the 198M LM in bf16 with seeded weights.
+   First, not counted: K2 on GQA's kv head h // G (what a pipeline
+   stage launches) bit-equal to K2 on k/v repeated to 16 heads (JAX's
+   pipelined prefill) at a stage's prefill shape, [4, 2048, 16, 64];
+   the references (one device's server on 8 requests of phase 12's
+   stream, budgets capped at 64, each request's lone greedy run with its
+   margins, the float32
+   narrow LM's lone tokens). (a) NCCL at world size 1 on cuda:0 in this
+   process: `sharded_lm_backend` in both forms at (dp 1, tp 1) over the
+   8 requests, tokens equal to `LMBackend`'s server's, K2 12 x placement
+   prefills and K4 12 x chunk x chunk steps; `LMPrefillBackend` (12 K2
+   a prompt; `slabs_bytes` equal to its `prefill_one` entries' blob) ->
+   `kv_slab_from_bytes` (rows bit-equal, the blob re-serialized
+   byte-equal, in bf16 and int8 kv_quant) -> `LMBackend.
+   serve_prefilled` (K4 by formula, no K2), tokens equal to the lone
+   runs up to a near-tie (TIE_MARGIN) and counted where equal to the
+   local serve's; the float32 narrow LM's slabs (TF32 off) adopted with
+   tokens equal to its local serve's. (b) Two gloo ranks, both on cuda:0, spawned: at pp 2
+   `PipelinedLMBackend` (6 blocks a stage, 2 microbatches) on 8 prompts
+   of 256-2048 tokens with budgets up to 64: a warm-up, 2 timed and a
+   profiled batch, each (n_layers / pp) x microbatches = 12 K2 launches
+   a rank, tokens equal on both ranks and to each prompt's lone run up
+   to a near-tie, each rank's weight bytes `pp_hbm_report`'s
+   per-member bytes, ms a batch, tokens/s, peak memory and the
+   `mesh.ring_shift.pp` share of the profiled batch; at tp 2 both
+   `sharded_lm_backend` forms over the first 4 of those requests
+   (budgets 64, 32, 64, 64): K2 and K4 by phase 12's formula on each
+   rank, tokens equal on both ranks and to the lone runs up to a
+   near-tie, tokens/s, peak memory and the `mesh.all_gather.tp` share
+   of a profiled serve (2 requests, one chunk); the float32 narrow
+   dense LM (d 128, 4 layers, GQA-2, TF32 off) at pp 2 and at tp 2 in
+   both forms: tokens exactly one device's. A rank that exits non-zero
+   fails the phase.
 
 Then the card's name and power limit as nvidia-smi prints them, the
 kernels' summary line (K1's launches by path: serving, training and,
-for ResNet50, parallel; K2's and K4's: generate, train, lm_server and
-moe, and K2's seq_parallel; K3's and the delta kernel's: train, moe and
+for ResNet50, parallel; K2's and K4's: generate, train, lm_server, moe,
+seq_parallel and pipeline; K3's and the delta kernel's: train, moe and
 seq_parallel), and last `{"ok": true, "device": {...}}`.
 """
 
@@ -296,8 +332,12 @@ def check(ok, msg):
         raise AssertionError(msg)
 
 
+_T0 = time.monotonic()
+
+
 def emit(**kw):
-    print(json.dumps(kw), flush=True)
+    """One JSON line, with the seconds since the script started (`t_s`)."""
+    print(json.dumps(dict(kw, t_s=round(time.monotonic() - _T0, 1))), flush=True)
 
 
 def nvidia_smi() -> str:
@@ -2382,6 +2422,11 @@ def tree_cpu(tree):
     return {k: tree_cpu(v) if isinstance(v, dict) else v.cpu() for k, v in tree.items()}
 
 
+def tree_cuda(tree):
+    """A params tree's tensors copied to the card."""
+    return {k: tree_cuda(v) if isinstance(v, dict) else v.cuda() for k, v in tree.items()}
+
+
 def phase_moe(timer):
     """The MoE LM served by generate and LMServer and trained by
     LongContextLM on cuda (phase 13); returns each kernel's launches over
@@ -3382,6 +3427,393 @@ def phase_seq_parallel():
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the pipeline form and the pp/tp LM serving forms
+# ---------------------------------------------------------------------------
+
+# the 198M LM behind phase 12's server settings; the pipeline's max_len
+# holds its longest prompt (2048) and budget (64)
+LM_SPEC = dict(LM_CFG, name="lm198m", dtype="bfloat16", seed=0, max_new_tokens=64,
+               max_slots=LMS_SLOTS, max_len=LMS_MAX_LEN, chunk=LMS_CHUNK)
+PIPE_MICRO, PIPE_TIMED = 2, 2  # microbatches, timed batches
+PIPE_LENS = (256, 2048)  # prompt lengths: the least, and the most (the first prompt's)
+PIPE_BUDGETS = [64, 16, 48, 32, 64, 8, 40, 24]  # one per prompt
+PIPE_SPEC = dict(LM_SPEC, max_len=PIPE_LENS[1] + max(PIPE_BUDGETS))
+# the served requests: phase 12's mixed-budget stream cut to its first 8
+# (world 1) and 4 (tp 2) requests, budgets capped at 64 (its 128 and 256
+# cut): every collective of the resident form goes through the host under
+# gloo, about 50 a token
+SERVE_CAP, TP_REQS = 64, 4
+# the float32 narrow dense LM, held to one device's tokens exactly
+NARROW_SPEC = dict(vocab_size=512, d_model=128, n_heads=4, n_kv_heads=2, n_layers=4, d_ff=256,
+                   name="narrow", dtype="float32", seed=1, max_new_tokens=16, max_slots=4,
+                   max_len=256, chunk=8)
+NARROW_BUDGETS = [16, 5, 1, 9]
+
+
+def pipe_requests(vocab):
+    rng = np.random.RandomState(16)
+    lens = rng.randint(PIPE_LENS[0], PIPE_LENS[1] + 1, size=len(PIPE_BUDGETS))
+    lens[0] = PIPE_LENS[1]  # the longest prompt fills the bucket
+    return [(rng.randint(0, vocab, int(t)).astype(np.int32), b)
+            for t, b in zip(lens, PIPE_BUDGETS)]
+
+
+def narrow_requests():
+    rng = np.random.RandomState(17)
+    return [(rng.randint(0, NARROW_SPEC["vocab_size"], int(t)).astype(np.int32), b)
+            for t, b in zip((20, 45, 77, 100), NARROW_BUDGETS)]
+
+
+@contextlib.contextmanager
+def tf32_off():
+    import torch
+
+    was = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = was
+
+
+def held_to_lone(name, got, lone):
+    """Each request's tokens against its lone greedy run up to a near-tie
+    (`tie_compare`); returns {requests equal throughout, requests with a
+    near-tie, tokens compared (up to the first mismatch) of each}."""
+    exact = ties = 0
+    compared = []
+    for i, (toks, (want, margins)) in enumerate(zip(got, lone)):
+        held, upto, tie, low = tie_compare(toks, want, margins)
+        check(held, f"{name} request {i}: tokens differ from the lone run at {upto} with no "
+                    f"near-tie before it (least margin {low})")
+        exact += upto == len(want)
+        ties += tie is not None
+        compared.append(upto)
+    return {"equal_to_lone": exact, "near_ties": ties, "tokens_compared": compared}
+
+
+def _pipeline_rank(rank, world, tmp):
+    """One of the two gloo ranks, both on cuda:0: pp 2 (stage = rank) and
+    tp 2 (tp index = rank). Writes its results to tmp/pipe_rank<r>.pt; a
+    failure exits non-zero."""
+    import torch
+    import torch.distributed as dist
+    from dml_tpu_torch.config import MeshSpec
+    from dml_tpu_torch.inference.lm_sharded import PipelinedLMBackend, sharded_lm_backend
+    from dml_tpu_torch.parallel.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous_gloo",
+                            world_size=world, rank=rank)
+    pp_mesh = make_mesh(MeshSpec(dp=1, pp=2))
+    tp_mesh = make_mesh(MeshSpec(dp=1, tp=2))
+    refs = torch.load(os.path.join(tmp, "pipe_refs.pt"), weights_only=False)
+    res = {"launches": {}}
+    reset_launch_counts()
+
+    # ---- pp 2: the 198M LM, 6 blocks a stage ----
+    torch.cuda.reset_peak_memory_stats()
+    be = PipelinedLMBackend(PIPE_SPEC, pp_mesh, microbatches=PIPE_MICRO)
+    prompts, budgets = refs["pipe_prompts"], refs["pipe_budgets"]
+    runs, ms, moves = [], [], []
+    for _ in range(1 + PIPE_TIMED):  # the first is the warm-up
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        toks, moved = _counted(lambda: be.generate_batch(prompts, budgets))
+        torch.cuda.synchronize()
+        ms.append((time.monotonic() - t0) * 1e3)
+        runs.append(toks)
+        moves.append(moved)
+    prof, moved = _counted(lambda: collectives_profile(
+        lambda: be.generate_batch(prompts, budgets), iters=1))
+    moves.append(moved)
+    med = statistics.median(ms[1:])
+    res["pp"] = {"tokens": runs[0], "repeat_equal": all(r == runs[0] for r in runs),
+                 "batch_ms": ms, "batch_ms_median": med,
+                 "tokens_per_s": sum(budgets) / (med / 1e3), "moves": moves,
+                 "want": _kernels(be.l_per * PIPE_MICRO), "held_bytes": be.held_bytes(),
+                 "hbm": be.hbm, "stage": be.stage,
+                 "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 1e6,
+                 "collectives": prof}
+    del be
+    torch.cuda.empty_cache()
+
+    # ---- tp 2: both forms over the first TP_REQS requests of the stream ----
+    reqs = refs["tp_reqs"]
+    res["tp"] = {}
+    for form in ("resident", "gather"):
+        torch.cuda.reset_peak_memory_stats()
+        be = sharded_lm_backend(LM_SPEC, tp_mesh, form=form)
+        (toks, d, stats), moved = _counted(lambda: serve_stream(be.server, reqs))
+        short = [(p, LMS_CHUNK) for p, _ in reqs[:2]]  # one placement group, one chunk step
+        prof_box = {}
+
+        def profiled():
+            prof_box["serve"] = serve_stream(be.server, short)
+        prof, pmoved = _counted(lambda: collectives_profile(profiled, iters=1))
+        res["tp"][form] = {
+            "tokens": [t.tolist() for t in toks], "dispatches": d, "moved": moved,
+            "profile_dispatches": prof_box["serve"][1], "profile_moved": pmoved,
+            "wall_s": stats["wall_s"], "tokens_per_s": stats["tokens_per_s"],
+            "steps": stats["steps"], "ttft_ms_p50": stats["ttft_ms_p50"],
+            "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 1e6,
+            "collectives": prof,
+            "qkv_piece": list(be.server.params["block_0"]["qkv"]["kernel"].shape)}
+        del be
+        torch.cuda.empty_cache()
+
+    # ---- the float32 narrow dense LM at pp 2 and tp 2, TF32 off ----
+    nreqs = refs["narrow_reqs"]
+    with tf32_off():
+        be = PipelinedLMBackend(NARROW_SPEC, pp_mesh)
+        toks, moved = _counted(lambda: be.generate_batch([p for p, _ in nreqs],
+                                                         [b for _, b in nreqs]))
+        res["narrow"] = {"pp": {"tokens": toks, "moved": moved,
+                                "want": _kernels(be.l_per * be.microbatches)}}
+        del be
+        for form in ("resident", "gather"):
+            be = sharded_lm_backend(NARROW_SPEC, tp_mesh, form=form)
+            (toks, d, _), moved = _counted(lambda: serve_stream(be.server, nreqs))
+            res["narrow"][form] = {"tokens": [t.tolist() for t in toks], "dispatches": d,
+                                   "moved": moved}
+            del be
+    res["launches"] = launch_counts()
+    torch.save(res, os.path.join(tmp, f"pipe_rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_pipeline():
+    """The pipeline form and the pp/tp LM serving forms: NCCL at world size
+    1 on cuda:0 in this process, then two gloo ranks sharing the card.
+    Returns K2's and K4's launches on the path (this process's and both
+    ranks')."""
+    import dataclasses
+    import multiprocessing
+
+    import torch
+    import torch.distributed as dist
+    from dml_tpu_torch.inference import generate as gen
+    from dml_tpu_torch.inference.lm_backend import LMBackend, lm_spec_parts
+    from dml_tpu_torch.inference.lm_sharded import (LMPrefillBackend, kv_slab_from_bytes,
+                                                    kv_slab_to_bytes, lm_spec_parts_cached,
+                                                    pp_hbm_report, sharded_lm_backend)
+    from dml_tpu_torch.ops.flash_attention import flash_attention
+    from dml_tpu_torch.parallel.mesh import local_mesh
+
+    t_phase = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pipeline_")
+    torch.cuda.set_device(0)
+    # the host tree the sharded forms start from (built once), on the card
+    host, cfg = lm_spec_parts_cached(LM_SPEC, device="cpu")
+    params = tree_cuda(host)
+    nl = cfg.n_layers
+    reqs = [(p, min(b, SERVE_CAP)) for p, b in mixed_requests(cfg.vocab_size)[:LMS_SLOTS]]
+    prompts, budgets = [p for p, _ in reqs], [b for _, b in reqs]
+    out = {"note": "world 1: NCCL, tp 1 (every leaf whole, no collective); two ranks: both on "
+                   "the one card (cuda:0), gloo, every collective staged through the host",
+           "config": dict(LM_CFG, dtype="bfloat16"), "tie_margin": TIE_MARGIN}
+
+    # ---- not counted: the references ----
+    # K2 on GQA's kv head h // G (what the pipeline's stages launch)
+    # against k/v repeated to H heads (what JAX's pipelined prefill
+    # gives it), at a stage's prefill shape: bit for bit
+    g = torch.Generator(device="cuda").manual_seed(16)
+    shape = [len(PIPE_BUDGETS) // PIPE_MICRO, PIPE_LENS[1], cfg.n_heads, cfg.head_dim]
+    q = torch.randn(*shape, generator=g, device="cuda", dtype=torch.bfloat16)
+    k, v = (torch.randn(*shape[:2], cfg.kv_heads, cfg.head_dim, generator=g, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(2))
+    grp = cfg.n_heads // cfg.kv_heads
+    gqa = flash_attention(q, k, v, causal=True)
+    rep = flash_attention(q, k.repeat_interleave(grp, 2), v.repeat_interleave(grp, 2),
+                          causal=True)
+    check(torch.equal(gqa, rep), "K2's GQA form differs from k/v repeated to every head")
+    out["k2_gqa_equals_repeat"] = {"q": shape, "kv_heads": cfg.kv_heads, "bit_equal": True}
+    del q, k, v, gqa, rep
+    # one device's server, and each request's lone greedy run with its margins
+    ref_srv = LMBackend(params, cfg, max_new_tokens=64, max_slots=LMS_SLOTS,
+                        max_len=LMS_MAX_LEN, chunk=LMS_CHUNK).server
+    ref_toks, _, _ = serve_stream(ref_srv, reqs)
+    del ref_srv
+    lone = [lone_greedy(gen, params, cfg, p, n) for p, n in reqs]
+    out["one_device_server"] = held_to_lone("one-device server", ref_toks, lone)
+    preqs = pipe_requests(cfg.vocab_size)
+    pipe_lone = [lone_greedy(gen, params, cfg, p, n) for p, n in preqs]
+    nparams, ncfg = lm_spec_parts(NARROW_SPEC)
+    nreqs = narrow_requests()
+    with tf32_off():
+        narrow_ref = [gen.generate(nparams, ncfg, torch.from_numpy(p[None]).cuda(), n)[0].tolist()
+                      for p, n in nreqs]
+        nsrv = LMBackend(nparams, ncfg, max_new_tokens=16, max_slots=NARROW_SPEC["max_slots"],
+                         max_len=NARROW_SPEC["max_len"], chunk=NARROW_SPEC["chunk"]).server
+        narrow_local, _, _ = serve_stream(nsrv, nreqs)
+        del nsrv
+    check([t.tolist() for t in narrow_local] == narrow_ref,
+          "the float32 narrow LM's server differs from its lone generate")
+    torch.save({"pipe_prompts": [p for p, _ in preqs], "pipe_budgets": PIPE_BUDGETS,
+                "tp_reqs": reqs[:TP_REQS], "narrow_reqs": nreqs},
+               os.path.join(tmp, "pipe_refs.pt"))
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous_nccl",
+                            world_size=1, rank=0)
+    try:
+        # ---- the main path at world 1, counted ----
+        mesh = local_mesh(dp=1)
+        reset_launch_counts()
+        w1 = {}
+        for form in ("resident", "gather"):
+            be = sharded_lm_backend(LM_SPEC, mesh, form=form)
+            (toks, d, stats), moved = _counted(lambda: serve_stream(be.server, reqs))
+            check_server_launches(f"world-1 {form}", moved, d, nl, LMS_CHUNK)
+            check(all(np.array_equal(a, b) for a, b in zip(toks, ref_toks)),
+                  f"world-1 {form}: tokens differ from LMBackend's on the same requests")
+            w1[form] = {"launches": moved, "dispatches": d, "tokens_per_s": stats["tokens_per_s"],
+                        "equal_to_lmbackend": True}
+            del be
+        # the slab path: LMPrefillBackend -> bytes -> LMBackend.serve_prefilled
+        pf = LMPrefillBackend(params, cfg, max_len=LMS_MAX_LEN)
+        entries, moved = _counted(lambda: [pf.prefill_one(p, b) for p, b in reqs])
+        check(moved == _kernels(nl * len(reqs)), f"prefill_one launched {moved}")
+        blob = kv_slab_to_bytes(entries)
+        sblob, smoved = _counted(lambda: pf.slabs_bytes(prompts, budgets))
+        check(smoved == _kernels(nl * len(reqs)), f"slabs_bytes launched {smoved}")
+        check(sblob == blob, "slabs_bytes differs from the same prompts' prefill_one entries")
+        slabs = kv_slab_from_bytes(blob)
+        same = all(torch.equal(s["rows"][n][key], e["rows"][n][key])
+                   for s, e in zip(slabs, entries) for n in e["rows"] for key in e["rows"][n])
+        check(same and kv_slab_to_bytes(slabs) == blob, "the bf16 slab blob does not round-trip")
+        be = LMBackend(params, cfg, max_new_tokens=64, max_slots=LMS_SLOTS, max_len=LMS_MAX_LEN,
+                       chunk=LMS_CHUNK)
+        d0 = server_dispatches()
+        (adopted, infer_s), amoved = _counted(lambda: be.serve_prefilled(prompts, budgets, slabs))
+        d = {key: val - d0[key] for key, val in server_dispatches().items()}
+        check_server_launches("serve_prefilled", amoved, d, nl, LMS_CHUNK)
+        exact = sum(np.array_equal(a, b) for a, b in zip(adopted, ref_toks))
+        vs_lone = held_to_lone("serve_prefilled", adopted, lone)
+        be.close()
+        # in float32 (TF32 off) the 1-row slab prefill and the server's grid
+        # prefill pick the same tokens: the adopted serve equals the local one
+        with tf32_off():
+            npf = LMPrefillBackend(nparams, ncfg, max_len=NARROW_SPEC["max_len"])
+            nslabs, nmoved = _counted(lambda: kv_slab_from_bytes(npf.slabs_bytes(
+                [p for p, _ in nreqs], [b for _, b in nreqs])))
+            check(nmoved == _kernels(ncfg.n_layers * len(nreqs)), f"narrow slabs: {nmoved}")
+            nbe = LMBackend(nparams, ncfg, max_new_tokens=16, max_slots=NARROW_SPEC["max_slots"],
+                            max_len=NARROW_SPEC["max_len"], chunk=NARROW_SPEC["chunk"])
+            d0 = server_dispatches()
+            (nadopted, _), namoved = _counted(lambda: nbe.serve_prefilled(
+                [p for p, _ in nreqs], [b for _, b in nreqs], nslabs))
+            nd = {key: val - d0[key] for key, val in server_dispatches().items()}
+            check_server_launches("narrow serve_prefilled", namoved, nd, ncfg.n_layers,
+                                  NARROW_SPEC["chunk"])
+            check([t.tolist() for t in nadopted] == [t.tolist() for t in narrow_local],
+                  "float32 narrow LM: the adopted slabs' tokens differ from the local serve's")
+            nbe.close()
+        del nparams
+        qcfg = dataclasses.replace(cfg, kv_quant=True)
+        qentries, qmoved = _counted(lambda: [LMPrefillBackend(params, qcfg, max_len=LMS_MAX_LEN)
+                                             .prefill_one(p, b) for p, b in reqs[:2]])
+        check(qmoved == _kernels(nl * 2), f"int8 prefill_one launched {qmoved}")
+        qblob = kv_slab_to_bytes(qentries)
+        qback = kv_slab_from_bytes(qblob)
+        qsame = all(torch.equal(s["rows"][n][key], e["rows"][n][key]) and
+                    s["rows"][n][key].dtype == e["rows"][n][key].dtype
+                    for s, e in zip(qback, qentries) for n in e["rows"] for key in e["rows"][n])
+        check(qsame and kv_slab_to_bytes(qback) == qblob
+              and qentries[0]["rows"]["block_0"]["k_q"].dtype == torch.int8,
+              "the int8 (kv_quant) slab blob does not round-trip")
+        w1["slabs"] = {"requests": len(reqs), "bytes": len(blob), "int8_bytes_2_requests": len(qblob),
+                       "bit_exact_bf16": True, "bit_exact_int8": True,
+                       "adopted_equal_to_local_serve": int(exact), "adopted_vs_lone": vs_lone,
+                       "narrow_f32_adopted_equal_to_local_serve": len(nreqs), "adopted_s": infer_s,
+                       "serve_prefilled_launches": amoved, "serve_prefilled_dispatches": d}
+        world1 = launch_counts()
+        out["world1"] = w1
+
+        # ---- two gloo ranks on the one card ----
+        t0 = time.monotonic()
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=_pipeline_rank, args=(r, 2, tmp)) for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=600)
+        codes = [p.exitcode for p in procs]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        check(codes == [0, 0], f"gloo ranks exited {codes}")
+        ranks = [torch.load(os.path.join(tmp, f"pipe_rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+        gloo = {"wall_s": time.monotonic() - t0}
+        # pp 2
+        rows = [r["pp"] for r in ranks]
+        rep = pp_hbm_report(PIPE_SPEC, 2)
+        for r, row in enumerate(rows):
+            check(row["stage"] == r and row["repeat_equal"], f"rank {r} pp: stage {row['stage']}, "
+                  f"repeats equal {row['repeat_equal']}")
+            check(all(m == row["want"] for m in row["moves"]),
+                  f"rank {r} pp batches launched {row['moves']}, want {row['want']} each")
+            check(row["held_bytes"] == rep["per_member_bytes"] < rep["full_bytes"],
+                  f"rank {r} holds {row['held_bytes']} weight bytes, pp_hbm_report {rep}")
+        check(rows[0]["tokens"] == rows[1]["tokens"], "pp: the ranks decoded different tokens")
+        gloo["pp"] = {
+            "prompt_lens": [len(p) for p, _ in preqs], "budgets": PIPE_BUDGETS,
+            "microbatches": PIPE_MICRO, **held_to_lone("pp 2", rows[0]["tokens"], pipe_lone),
+            "k2_per_batch": [row["want"]["flash_attention"] for row in rows],
+            "hbm_report": rep,
+            **{key: [row[key] for row in rows]
+               for key in ("batch_ms", "batch_ms_median", "tokens_per_s", "held_bytes",
+                           "max_memory_allocated_mb", "collectives")}}
+        # tp 2, both forms
+        gloo["tp"] = {"requests": TP_REQS, "budgets": [b for _, b in reqs[:TP_REQS]]}
+        for form in ("resident", "gather"):
+            rows = [r["tp"][form] for r in ranks]
+            for r, row in enumerate(rows):
+                check_server_launches(f"rank {r} tp {form}", row["moved"], row["dispatches"], nl,
+                                      LMS_CHUNK)
+                check_server_launches(f"rank {r} tp {form} profiled", row["profile_moved"],
+                                      row["profile_dispatches"], nl, LMS_CHUNK)
+            check(rows[0]["tokens"] == rows[1]["tokens"], f"tp {form}: the ranks' tokens differ")
+            one = sum(np.array_equal(a, b) for a, b in zip(rows[0]["tokens"], ref_toks))
+            gloo["tp"][form] = {
+                **held_to_lone(f"tp 2 {form}", rows[0]["tokens"], lone[:TP_REQS]),
+                "equal_to_one_device_server": int(one),
+                "qkv_piece": rows[0]["qkv_piece"],
+                **{key: [row[key] for row in rows]
+                   for key in ("dispatches", "wall_s", "tokens_per_s", "steps", "ttft_ms_p50",
+                               "max_memory_allocated_mb", "collectives")}}
+        # the float32 narrow LM: one device's tokens exactly
+        narrow = {}
+        for name in ("pp", "resident", "gather"):
+            for r, rank_res in enumerate(ranks):
+                row = rank_res["narrow"][name]
+                check(row["tokens"] == narrow_ref,
+                      f"rank {r} narrow f32 {name}: {row['tokens']} != one device {narrow_ref}")
+                if name == "pp":
+                    check(row["moved"] == row["want"], f"rank {r} narrow pp launched {row['moved']}")
+                else:
+                    check_server_launches(f"rank {r} narrow {name}", row["moved"],
+                                          row["dispatches"], NARROW_SPEC["n_layers"],
+                                          NARROW_SPEC["chunk"])
+            narrow[name] = "equal to one device"
+        gloo["narrow_f32"] = dict(narrow, tokens=narrow_ref)
+        out["gloo_2_ranks"] = gloo
+        total = dict(world1)
+        per_rank = [r["launches"] for r in ranks]
+        for moved in per_rank:
+            _add(total, moved)
+        out["launches"] = {"world1": world1, "gloo_ranks": per_rank, "total": total}
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.monotonic() - t_phase
+    emit(phase="pipeline", **out)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -3416,6 +3848,10 @@ def main() -> int:
         phase_seq_parallel()
         print(smi, flush=True)
         return 0
+    if "--pipeline" in sys.argv[1:]:  # after a pp/tp serving edit: build, phase 16, stop
+        phase_pipeline()
+        print(smi, flush=True)
+        return 0
     timings = phase_kernel(timer)
     if kernel_only:  # a short call after a K1 edit: build, check, time, stop
         print(smi, flush=True)
@@ -3431,6 +3867,7 @@ def main() -> int:
     moe_launches = phase_moe(timer)
     parallel_launches = phase_parallel()
     sp_launches = phase_seq_parallel()
+    pipe_launches = phase_pipeline()
 
     kernels = []
     for model, mode in MODELS:
@@ -3448,7 +3885,7 @@ def main() -> int:
     # one kernel timed at two shapes: each row carries every path's launches
     by_path = {kern: {"generate": lm_launches[kern], "train": train_launches[kern],
                       "lm_server": server_launches[kern], "moe": moe_launches[kern],
-                      "seq_parallel": sp_launches[kern]}
+                      "seq_parallel": sp_launches[kern], "pipeline": pipe_launches[kern]}
                for kern in ("flash_attention", "decode_attention")}
     for case, shape in (
             ("prefill_b8", f"prefill b{LM_BATCH} T{PROMPT_LEN} H16 KV4 D64 bf16 causal"),

@@ -1,7 +1,9 @@
 """The port's copy of the parts of dml_tpu/config.py that it reads: the
-speculative-decoding settings (`inference.lm_backend`, `:195-234`), and
+speculative-decoding settings (`inference.lm_backend`, `:195-234`),
 `NodeId`, `MeshSpec` and the node table of `ClusterSpec` (the mesh and
-the multi-host start-up, `parallel.mesh` and `parallel.multihost`)."""
+the multi-host start-up, `parallel.mesh` and `parallel.multihost`), and
+`WorkerGroupSpec` (the serving group whose memory budget
+`inference.lm_sharded.check_hbm_budget` reads)."""
 
 from __future__ import annotations
 
@@ -109,6 +111,26 @@ class MeshSpec:
         elif fixed != n_devices:
             raise ValueError(f"mesh {sizes} != {n_devices} devices")
         return sizes
+
+
+@dataclass(frozen=True)
+class WorkerGroupSpec:
+    """A serving group (the port's copy of `dml_tpu/config.py:125-175`):
+    nodes that pool their devices into one worker over `mesh`. `members`
+    are node names or unique names; `lm_models` the LM models the group
+    serves sharded (`inference.lm_sharded`); `roles` optionally splits
+    the members into "prefill" and "decode" roles; a `mesh` with pp > 1
+    serves pipeline-parallel, each member holding n_layers/pp blocks.
+    `hbm_bytes` (0: unchecked) is a member's device-memory budget, which
+    `lm_sharded.check_hbm_budget` holds the model's per-member weight
+    bytes to."""
+
+    name: str
+    members: Tuple[str, ...] = ()
+    mesh: MeshSpec = field(default_factory=lambda: MeshSpec(dp=-1, tp=1))
+    lm_models: Tuple[str, ...] = ()
+    roles: Dict[str, str] = field(default_factory=dict)
+    hbm_bytes: int = 0
 
 
 @dataclass

@@ -33,8 +33,12 @@ Differences from the JAX package, by design:
   a `torch.where` on device vectors.
 - Host arrays reach the card by non-blocking copies from pinned memory,
   so the readback stays each step's only synchronizing call.
-- `gather_shardings` (the tp param-gather serving form) is accepted
-  only as None until the multi-GPU forms are ported.
+- `gather_shardings` (the tp serving forms, `inference.lm_sharded`) is
+  a callable, not JAX's tree of shardings: at each dispatch (a placement
+  prefill group, a warm start, a decode chunk, a verify round) the
+  server passes it the params it holds (this rank's tp pieces) and runs
+  the one-device program on what it returns, as JAX's `_maybe_gather`
+  constrains the tree at each dispatch's entry.
 
 The server clamps every position it hands a step to the cache
 (`_chunk_impl`, `_propose_impl`, `_verify_impl`): the port's decode step
@@ -199,11 +203,8 @@ class LMServer:
             raise ValueError("chunk must be >= 1")
         if max_slots < 1:
             raise ValueError("max_slots must be >= 1")
-        if gather_shardings is not None:
-            raise NotImplementedError(
-                "the param-gather serving form (gather_shardings) needs the pp/tp LM "
-                "serving forms: ROADMAP A5(c)")
         self.params = params
+        self._gather_shardings = gather_shardings
         self.cfg = cfg
         self.device = _device_of(params)
         self.max_slots = max_slots
@@ -239,6 +240,12 @@ class LMServer:
         _M_SLOTS_TOTAL.set(max_slots)
 
     # -- device pieces (JAX jits these) ---------------------------------
+
+    def _maybe_gather(self, params):
+        """The tree a dispatch computes with: `params`, or under a tp
+        form what `gather_shardings` makes of them (the pieces
+        all-gathered, or kept sharded with the norm scales gathered)."""
+        return params if self._gather_shardings is None else self._gather_shardings(params)
 
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         """A host array on the grid's device. To a GPU it goes from
@@ -593,8 +600,9 @@ class LMServer:
             # cold group prefill. Greedy only (sampled firsts are
             # rid-keyed).
             cold: List[Tuple[int, _Request]] = []
+            params = self._maybe_gather(self.params)
             for slot, req in pairs:
-                warm = self._warm.rows_for(self.params, req.prompt)
+                warm = self._warm.rows_for(params, req.prompt)
                 if warm is None:
                     cold.append((slot, req))
                     continue
@@ -636,7 +644,7 @@ class LMServer:
                 tps[row] = tps[0]
             # logits_index = tp - 1 per row: causal masking makes each
             # row's logits there those of an unpadded prefill
-            logits, pcache = self._prefill(self.params, self.cfg, padded, tps)
+            logits, pcache = self._prefill(self._maybe_gather(self.params), self.cfg, padded, tps)
             for row, (slot, req) in enumerate(grp):
                 self.cache = self._insert_impl(self.cache, pcache, slot, row)
             del pcache
@@ -823,7 +831,7 @@ class LMServer:
             self._seen_shapes.add("spec_verify")
             _M_COMPILES.inc()
         self.cache, self._cur_dev, self._pos_dev, toks, acc = self._verify_impl(
-            self.params, self.cache, self._cur_dev, self._pos_dev, d_toks)
+            self._maybe_gather(self.params), self.cache, self._cur_dev, self._pos_dev, d_toks)
         packed = self._readback([toks, acc] + [v for _, v in firsts])
         n = b * k
         tokm = packed[:n].reshape(b, k)
@@ -885,7 +893,8 @@ class LMServer:
             self._seen_shapes.add("chunk")
             _M_COMPILES.inc()
         self.cache, self._cur_dev, self._pos_dev, toks = self._chunk_impl(
-            self.params, self.cache, self._cur_dev, self._pos_dev, self._rid_dev)
+            self._maybe_gather(self.params), self.cache, self._cur_dev, self._pos_dev,
+            self._rid_dev)
         # one packed readback per step: the chunk's tokens and any
         # placement first tokens deferred since the last one
         packed = self._readback([toks] + [v for _, v in firsts])

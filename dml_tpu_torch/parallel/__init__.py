@@ -8,8 +8,8 @@ master weights, K1 in every step; one device or a dp x tp mesh),
 param-gather and the Megatron form), `checkpoint.CheckpointManager`
 (atomic, retained, step-indexed checkpoints), `mesh` (meshes over
 torch.distributed and the collectives), `sharding` (the tp and ep
-partition rule) and `multihost` (start-up from the cluster spec). The
-pipeline form is ROADMAP A5(c)."""
+partition rule), `multihost` (start-up from the cluster spec) and
+`pipeline` (stages over pp, `pipeline_apply`)."""
 
 from typing import Mapping
 

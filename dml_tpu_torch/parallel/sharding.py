@@ -15,6 +15,8 @@ OIHW and [out, in] (`models.params_io`). So the port's output-channel
 axis is dim 0 of every conv and linear weight and channel vector, and
 the test is on that dim: rank t of the tp axis holds the same
 contiguous channel block as JAX's device at tp index t.
+`partition_lm_params` is the LM serving forms' rule: the last axis of
+the LM tree's Flax-layout leaves, as JAX cuts them.
 
 A spec is a `PartitionSpec`: one axis name or None per dim, `P()` for a
 replicated leaf, as JAX spells it. A spec of this rule names at most one
@@ -81,6 +83,35 @@ def partition_params(tree: Any, mesh) -> Any:
         if isinstance(node, Mapping):
             return {k: walk(v, path + tuple(str(k).split("."))) for k, v in node.items()}
         return _spec_for(path, node, tp, mesh)
+
+    return walk(tree, ())
+
+
+def partition_lm_params(tree: Any, mesh) -> Any:
+    """The LM serving forms' rule (`inference.lm_sharded`): a tree of
+    PartitionSpecs matching the LM params tree `tree` (nested dicts of
+    tensors in Flax's layout). Expert weights follow `moe_partition_spec`;
+    every other leaf has its LAST axis over tp under JAX's size test, as
+    JAX's `partition_params` cuts the same leaves (the embedding [V, d]
+    on d, the [in, out] kernels on out, the norm scales [d]), so rank t's
+    piece is JAX's device shard at tp index t. (`partition_params` cuts
+    dim 0, the output axis of the port's image layouts and the input axis
+    of an LM kernel.)"""
+    tp = _tp(mesh)
+
+    def spec(path, leaf):
+        moe_spec = moe_partition_spec(path, leaf, mesh) if mesh is not None else None
+        if moe_spec is not None:
+            return P(*moe_spec)
+        shape = tuple(leaf.shape)
+        if tp <= 1 or not shape or shape[-1] % tp != 0 or shape[-1] < 2 * tp:
+            return P()
+        return P(*([None] * (len(shape) - 1)), "tp")
+
+    def walk(node, path):
+        if isinstance(node, Mapping):
+            return {k: walk(v, path + (str(k),)) for k, v in node.items()}
+        return spec(path, node)
 
     return walk(tree, ())
 

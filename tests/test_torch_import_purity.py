@@ -79,7 +79,8 @@ def test_no_jax_import():
             "dml_tpu_torch/inference/kv_cache.py", "dml_tpu_torch/inference/lm_backend.py",
             "dml_tpu_torch/models/params_io.py", "dml_tpu_torch/parallel/ring_attention.py",
             "dml_tpu_torch/parallel/ulysses.py", "dml_tpu_torch/parallel/moe.py",
-            "dml_tpu_torch/parallel/mesh.py"} <= rel
+            "dml_tpu_torch/parallel/mesh.py", "dml_tpu_torch/parallel/pipeline.py",
+            "dml_tpu_torch/inference/lm_sharded.py"} <= rel
     bad = [
         f"{os.path.relpath(path, ROOT)}:{node.lineno}: {name}"
         for path in _port_files()
@@ -110,6 +111,7 @@ def test_importing_the_port_loads_no_kernel_library():
         "import dml_tpu_torch.parallel.ring_attention, dml_tpu_torch.parallel.ulysses; "
         "import dml_tpu_torch.inference.lm_backend, dml_tpu_torch.inference.kv_cache; "
         "import dml_tpu_torch.models.params_io, dml_tpu_torch.config; "
+        "import dml_tpu_torch.parallel.pipeline, dml_tpu_torch.inference.lm_sharded; "
         "assert nl._loader is None and nl._error is None; "
         "assert not b._loaded, b._loaded; "
         "bad = [m for m in set(sys.modules) - before "

@@ -132,9 +132,73 @@ def test_single_token_budget_and_validation(both):
         LMServer(tp, CFG, chunk=0)
     with pytest.raises(ValueError, match="max_slots"):
         LMServer(tp, CFG, max_slots=0)
-    # the tp param-gather form waits for the multi-GPU port
-    with pytest.raises(NotImplementedError, match="A5"):
-        LMServer(tp, CFG, gather_shardings=object())
+
+
+GATHER_CHILD = r'''
+import os, sys
+import numpy as np
+import torch
+
+torch.set_num_threads(1)
+import torch.distributed as dist
+
+out_dir, rank = sys.argv[1], int(sys.argv[2])
+dist.init_process_group("gloo", init_method="file://" + os.path.join(out_dir, "rendezvous"),
+                        world_size=2, rank=rank)
+from dml_tpu_torch.config import MeshSpec
+from dml_tpu_torch.inference import generate as tg
+from dml_tpu_torch.inference.lm_server import LMServer
+from dml_tpu_torch.inference.lm_sharded import replicated_shardings, shard_lm_params
+from dml_tpu_torch.parallel.mesh import make_mesh
+
+full = torch.load(os.path.join(out_dir, "params.pt"))
+reqs = torch.load(os.path.join(out_dir, "reqs.pt"), weights_only=False)
+mesh = make_mesh(MeshSpec(dp=1, tp=2))
+srv = LMServer(shard_lm_params(full, mesh), tg.LMConfig(dtype=torch.float32, **reqs["shape"]),
+               max_slots=2, max_len=32, chunk=3, gather_shardings=replicated_shardings(full, mesh))
+rids = srv.submit_many(reqs["prompts"], reqs["budgets"])
+out = srv.run()
+held = sum(t.numel() for t in [srv.params["block_0"]["qkv"]["kernel"]])
+torch.save({"tokens": [out[r].tolist() for r in rids], "qkv_numel": held},
+           os.path.join(out_dir, f"rank{rank}.pt"))
+dist.barrier()
+print(f"RANK_OK {rank}", flush=True)
+'''
+
+
+def test_gather_form_serves_token_equal(both, tmp_path):
+    """The param-gather form (`gather_shardings`, JAX's `_maybe_gather`):
+    two gloo ranks each hold half of every sharded leaf, gather the tree
+    at each dispatch, and serve JAX generate's tokens, the same on both
+    ranks; mixed budgets refill the two slots."""
+    import os
+    import subprocess
+    import sys
+
+    jp, tp = both
+    reqs = [(np.array([1, 2, 3]), 6), (np.array([4, 5, 6, 7, 8]), 4), (np.array([9]), 7)]
+    torch.save(tp, tmp_path / "params.pt")
+    torch.save({"shape": SHAPE, "prompts": [p for p, _ in reqs],
+                "budgets": [n for _, n in reqs]}, tmp_path / "reqs.pt")
+    (tmp_path / "child.py").write_text(GATHER_CHILD)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([repo, os.environ.get("PYTHONPATH", "")]))
+    procs = [subprocess.Popen([sys.executable, str(tmp_path / "child.py"), str(tmp_path), str(r)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env, text=True)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=180)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and f"RANK_OK {r}" in out, f"rank {r} failed:\n{out}"
+    res = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    want = [_isolated(jp, p, n).tolist() for p, n in reqs]
+    assert res[0]["tokens"] == res[1]["tokens"] == want
+    assert 2 * res[0]["qkv_numel"] == tp["block_0"]["qkv"]["kernel"].numel()
 
 
 def test_submit_many_matches_sequential_submit(both):
