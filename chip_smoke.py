@@ -8,6 +8,7 @@
     python3 chip_smoke.py --parallel      # phases 1-2 and 14 (data and tensor parallelism) alone
     python3 chip_smoke.py --seq-parallel  # phases 1-2 and 15 (sequence, expert parallelism) alone
     python3 chip_smoke.py --pipeline      # phases 1-2 and 16 (pipeline, pp/tp LM serving) alone
+    python3 chip_smoke.py --cluster       # phases 1-2 and 17 (a port cluster serving jobs) alone
 
 Phases, each printing one JSON line (with `t_s`, the seconds since the
 script started); any failure exits non-zero:
@@ -181,8 +182,10 @@ script started); any failure exits non-zero:
    variables_to_bytes, give the server's tokens. A torch.profiler
    breakdown of one chunk step;
 13. moe: lm_moe8, the same LM with the repo's MoE option on (8 experts
-   in every second block, capacity factor 1.25; 550.05M parameters),
-   seeded weights, bf16, on cuda. (a) generate at B=8, 2048-token
+   in every second block, capacity factor 1.25; 550.05M parameters at
+   12 blocks), cut to 6 blocks (3 MoE blocks, every width kept),
+   seeded weights, bf16, on cuda; the launch counts below are per
+   block, 6 where they say 12. (a) generate at B=8, 2048-token
    prompts, 64 new tokens (K2 12, K4 12 x 63, no other kernel; equal to
    prefill plus decode steps), the int8 form (int8 weights and KV cache,
    16 tokens); prefill ms, decode ms a step and tokens/s, peak memory,
@@ -290,11 +293,32 @@ script started); any failure exits non-zero:
    dense LM (d 128, 4 layers, GQA-2, TF32 off) at pp 2 and at tp 2 in
    both forms: tokens exactly one device's. A rank that exits non-zero
    fails the phase.
+17. cluster: the job pipeline. In this process, on 127.0.0.1 with ports
+   probed free at run time: the introducer and 4 port nodes H1-H4, each
+   Node + StoreService + JobService, all four sharing one
+   InferenceEngine (cuda, bf16, batch 32, seeded weights) and each with
+   an LMBackend of the 198M LM (phase 12's settings) registered with
+   register_lm. 64 seeded JPEGs are put into the store; ResNet50 512
+   and InceptionV3 512 are submitted together (the reference's
+   two-model fair-share mix), then ResNet50 256, during which a worker
+   holding one of its batches is stopped after the job's first ACK;
+   then an LM job of 8 prompt files cut from phase 12's mixed-budget
+   stream. Every query of every job must have an output after
+   get-output, worker_batch_failures_total must not move, K1 must have
+   launched once per chunk the engine dispatched (and more than once),
+   and no other kernel; the killed-worker job completes with its
+   requeues counted; each job's top-5 equals the engine's infer_files
+   on the same files (scores within 1e-6); K2 and K4 match phase 12's
+   formula from the server's counters, and the LM job's tokens equal a
+   lone LMBackend serve of the same files up to a near-tie
+   (TIE_MARGIN). Per model C1 images/s over each job and C2 p50/p99,
+   the per-batch fetch/decode/infer/put medians, the committed
+   pipeline depth and LM tokens/s.
 
 Then the card's name and power limit as nvidia-smi prints them, the
-kernels' summary line (K1's launches by path: serving, training and,
-for ResNet50, parallel; K2's and K4's: generate, train, lm_server, moe,
-seq_parallel and pipeline; K3's and the delta kernel's: train, moe and
+kernels' summary line (K1's launches by path: serving, training,
+cluster and, for ResNet50, parallel; K2's and K4's: generate, train,
+lm_server, moe, seq_parallel, pipeline and cluster; K3's and the delta kernel's: train, moe and
 seq_parallel), and last `{"ok": true, "device": {...}}`.
 """
 
@@ -2413,6 +2437,9 @@ def phase_lm_server(timer):
 # (dml_tpu/models/transformer.py:117-121), 6 MoE blocks of 8 experts at
 # d_ff 4096, 550.05M parameters
 MOE = dict(num_experts=8, moe_every=2)
+# phase 13 runs lm_moe8 cut to 6 of its 12 blocks (3 MoE blocks), every
+# width kept: half the depth pays for phase 17
+MOE_LM_CFG = dict(LM_CFG, n_layers=6)
 MOE_LAYER_TOKENS = (300, 1100)  # one serving chunk, and three (chunked)
 MOE_TRAIN_STEPS = 10
 
@@ -2442,13 +2469,13 @@ def phase_moe(timer):
     from dml_tpu_torch.parallel.long_context import LongContextLM, lm_loss
 
     t_phase = time.monotonic()
-    nl = LM_CFG["n_layers"]
-    cfg = gen.LMConfig(**LM_CFG, dtype=torch.bfloat16)
+    nl = MOE_LM_CFG["n_layers"]
+    cfg = gen.LMConfig(**MOE_LM_CFG, dtype=torch.bfloat16)
     t0 = time.monotonic()
     p32 = init_lm_params(cfg, seed=0, **MOE)  # device None -> cuda
     params = gen.serving_params(p32, cfg)
     torch.cuda.synchronize()
-    out = {"config": dict(LM_CFG, **MOE, capacity_factor=1.25, dtype="bfloat16"),
+    out = {"config": dict(MOE_LM_CFG, **MOE, capacity_factor=1.25, dtype="bfloat16"),
            "params_millions": quantized_bytes(p32)[1] / 4e6, "load_s": time.monotonic() - t0,
            "moe_blocks": [i for i in range(nl) if "moe" in p32[f"block_{i}"]]}
     check(out["moe_blocks"] == list(range(1, nl, 2)), f"MoE blocks {out['moe_blocks']}")
@@ -2623,10 +2650,10 @@ def phase_moe(timer):
     torch.cuda.empty_cache()
 
     # ---- (d) training: B=1, T=2048, AdamW lr 3e-4 (T1's settings)
-    lm = LongContextLM(seq_len=TRAIN_T, dtype=torch.bfloat16, seed=0, **MOE, **LM_CFG)
+    lm = LongContextLM(seq_len=TRAIN_T, dtype=torch.bfloat16, seed=0, **MOE, **MOE_LM_CFG)
     trng = np.random.RandomState(5)
     ttoks = torch.from_numpy(
-        trng.randint(0, LM_CFG["vocab_size"], (1, TRAIN_T)).astype(np.int32)).cuda()
+        trng.randint(0, MOE_LM_CFG["vocab_size"], (1, TRAIN_T)).astype(np.int32)).cuda()
     warm = lm.train_step(ttoks)
     with torch.no_grad():  # the objective's terms at the next step's params
         logits, aux = lm.model(ttoks, return_aux=True)
@@ -2663,12 +2690,12 @@ def phase_moe(timer):
     check(g_launches == g_want, f"MoE generate after training launched {g_launches}, want {g_want}")
     count(g_launches)
     check(served.shape == (1, TRAIN_NEW_TOKENS) and 0 <= served.min()
-          and served.max() < LM_CFG["vocab_size"], f"served tokens {served}")
+          and served.max() < MOE_LM_CFG["vocab_size"], f"served tokens {served}")
     prof_train = profile_calls(lambda: lm.train_step(ttoks), 3, TRAIN_KINDS)
     del lm
     torch.cuda.empty_cache()
     med = statistics.median(t_ms)
-    out["train"] = {"config": dict(LM_CFG, **MOE, dtype="bfloat16", seq_len=TRAIN_T, batch=1,
+    out["train"] = {"config": dict(MOE_LM_CFG, **MOE, dtype="bfloat16", seq_len=TRAIN_T, batch=1,
                                    optimizer="AdamW lr 3e-4 wd 1e-4", moe_aux_weight=1e-2),
                     "routing": {"group": 1024, "capacity": 160},
                     "warmup_loss": warm, "losses": losses, "launches": t_launches,
@@ -3814,6 +3841,315 @@ def phase_pipeline():
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the job pipeline, a port cluster serving image and LM jobs
+# ---------------------------------------------------------------------------
+
+CLUSTER_NODES, CLUSTER_FILES = 4, 64
+CLUSTER_MIX = (("ResNet50", 512), ("InceptionV3", 512))  # submitted together
+CLUSTER_KILL_JOB = ("ResNet50", 256)  # a worker is stopped after its first ACK
+CLUSTER_LM_PROMPTS = 8  # the first 8 requests of phase 12's mixed-budget stream
+CLUSTER_PORTS = (50000, 54999)  # base ports probed here; the data plane at +10000
+
+
+def free_port_block(n):
+    """A base port B with B-1 .. B+n-1 and B+9999 .. B+n+9999 free to bind
+    on 127.0.0.1 (UDP and TCP) now: the introducer, the nodes and their
+    store data planes."""
+    import random
+    import socket
+
+    rng = random.Random(os.getpid())
+    for _ in range(200):
+        base = rng.randrange(CLUSTER_PORTS[0] + 1, CLUSTER_PORTS[1] - n)
+        ok = True
+        for port in [p + off for p in range(base - 1, base + n) for off in (0, 10000)]:
+            for kind in (socket.SOCK_DGRAM, socket.SOCK_STREAM):
+                s = socket.socket(socket.AF_INET, kind)
+                try:
+                    s.bind(("127.0.0.1", port))
+                except OSError:
+                    ok = False
+                finally:
+                    s.close()
+        if ok:
+            return base
+    raise RuntimeError(f"no free block of {n + 1} ports in {CLUSTER_PORTS}")
+
+
+def _median(xs):
+    return float(statistics.median(xs)) if xs else None
+
+
+async def _run_cluster(tmp, engine, lm_make, out):
+    """The introducer and CLUSTER_NODES nodes (Node + StoreService +
+    JobService sharing `engine`, an LM backend each from `lm_make`) on
+    127.0.0.1; the image jobs, the killed-worker job and the LM job. Fills
+    `out`; returns the launch counts of the image jobs and the LM job."""
+    import asyncio
+    import glob
+    import threading
+
+    import torch
+    from dml_tpu_torch import config
+    from dml_tpu_torch.cluster.introducer import IntroducerService
+    from dml_tpu_torch.cluster.node import Node
+    from dml_tpu_torch.cluster.store_service import StoreService
+    from dml_tpu_torch.inference.lm_backend import write_prompt_file
+    from dml_tpu_torch.jobs.service import JobService
+    from dml_tpu_torch.observability import METRICS
+
+    base = free_port_block(CLUSTER_NODES)
+    spec = config.ClusterSpec.localhost(
+        CLUSTER_NODES, base_port=base, introducer_port=base - 1,
+        timing=config.Timing(ping_interval=0.2, ack_timeout=0.5, cleanup_time=1.5,
+                             leader_rpc_timeout=20.0),
+        store=config.StoreConfig(root=os.path.join(tmp, "roots"),
+                                 download_dir=os.path.join(tmp, "dl")))
+    dns = IntroducerService(spec)
+    await dns.start()
+    stack, backends = {}, []
+    try:
+        for n in spec.nodes:
+            node = Node(spec, n)
+            store = StoreService(node, root=os.path.join(tmp, f"st_{n.name}"))
+            jobs = JobService(node, store, engine=engine)
+            be = lm_make()
+            backends.append(be)
+            jobs.register_lm("LM198M", backend=be.backend, cost=be.cost())
+            await node.start()
+            await store.start()
+            await jobs.start()
+            stack[n.name] = (node, store, jobs)
+        t0 = time.monotonic()
+        while not all(nd.joined and nd.leader_unique
+                      and len(nd.membership.alive_nodes()) == CLUSTER_NODES
+                      for nd, _, _ in stack.values()):
+            check(time.monotonic() - t0 < 30, "the port cluster did not converge in 30 s")
+            await asyncio.sleep(0.1)
+        out["converge_s"] = time.monotonic() - t0
+        leader = stack["H1"][0].leader_unique
+        check(leader == spec.node_by_name("H1").unique_name, f"leader {leader}, want H1")
+        coord = stack["H1"][2]
+        _, cstore, client = stack["H2"]
+        rng = np.random.RandomState(17)
+        imgs = np.clip(rng.randint(0, 256, (CLUSTER_FILES, 256, 256, 3)) // 2
+                       + rng.randint(0, 128, (CLUSTER_FILES, 1, 1, 3)), 0, 255).astype(np.uint8)
+        os.makedirs(os.path.join(tmp, "in"))
+        files = write_images(os.path.join(tmp, "in"), imgs, "jpeg")
+        for f in files:
+            await cstore.put(f, os.path.basename(f))
+        lm_files = []
+        for i, (p, b) in enumerate(mixed_requests(LM_CFG["vocab_size"])[:CLUSTER_LM_PROMPTS]):
+            lm_files.append(os.path.join(tmp, f"p{i}.tokens.txt"))
+            write_prompt_file(lm_files[-1], p, max_new_tokens=b)
+            await cstore.put(lm_files[-1], os.path.basename(lm_files[-1]))
+
+        async def job(model, n, after_first_ack=None):
+            t_sub = time.monotonic()
+            jid = await client.submit_job(model, n)
+            if after_first_ack is not None:
+                while not coord.scheduler.jobs.get(jid) or \
+                        not coord.scheduler.jobs[jid].completed_batches:
+                    check(time.monotonic() - t_sub < 120, f"job {jid}: no ACK in 120 s")
+                    await asyncio.sleep(0.005)
+                await after_first_ack()
+            done = await client.wait_job(jid, timeout=300.0)
+            wall = time.monotonic() - t_sub
+            check(done["total_queries"] == n, f"job {jid} {model}: {done}")
+            merged = await client.get_output(jid, os.path.join(tmp, f"final_{jid}.json"))
+            # one output file a batch (output_<job>_<batch>_<host>.json); a
+            # batch's queries are its slice of the wrap-around sample
+            bs = coord.scheduler.batch_size_of(model)
+            parts = {}
+            for p in sorted(glob.glob(os.path.join(client.store.cfg.download_path(),
+                                                   f"output_{jid}_*.json"))):
+                with open(p) as f:
+                    parts.setdefault(int(os.path.basename(p).split("_")[2]), json.load(f))
+            sizes = [min(bs, n - s) for s in range(0, n, bs)]
+            check(sorted(parts) == list(range(len(sizes))),
+                  f"job {jid} {model}: output files of batches {sorted(parts)}, want {len(sizes)}")
+            check(all(len(parts[b]) == min(k, len(files)) for b, k in enumerate(sizes)),
+                  f"job {jid} {model}: a batch's output misses one of its queries")
+            return jid, wall, merged
+
+        def fails():
+            return sum(v for _, v in METRICS.counter("worker_batch_failures_total").items())
+
+        # ---- image jobs: the two-model fair-share mix, then a worker stopped
+        chunks, lock = {}, threading.Lock()
+        dispatch = engine._dispatch_chunk
+
+        def counted_dispatch(lm, chunk, *a, **kw):  # two workers' threads call it
+            with lock:
+                chunks[lm.spec.name] = chunks.get(lm.spec.name, 0) + 1
+            return dispatch(lm, chunk, *a, **kw)
+
+        engine._dispatch_chunk = counted_dispatch
+        fails0 = fails()
+        try:
+            reset_launch_counts()
+            mix = await asyncio.gather(*(job(m, n) for m, n in CLUSTER_MIX))
+            requeues0 = coord.scheduler.requeue_count
+            killed = {}
+
+            async def stop_worker():
+                # a worker holding a batch of the job: its requeue is the evidence
+                busy = {nd.me.unique_name: k for k, (nd, _, _) in stack.items()
+                        if k not in ("H1", "H2")}
+                name = next((busy[u] for u in sorted(coord.scheduler.in_progress)
+                             if u in busy), "H4")
+                node, store, jobs = stack.pop(name)
+                killed["t"] = time.monotonic()
+                await jobs.stop()
+                await store.stop()
+                await node.stop()
+                killed["name"] = name
+
+            kill = await job(*CLUSTER_KILL_JOB, after_first_ack=stop_worker)
+            torch.cuda.synchronize()
+            image_launches = launch_counts()
+        finally:
+            engine._dispatch_chunk = dispatch
+        check(killed.get("name") in ("H3", "H4"), "the worker was not stopped")
+        requeues = coord.scheduler.requeue_count - requeues0
+        check(requeues >= 1, f"the killed-worker job counted {requeues} requeues")
+        check(fails() == fails0, f"worker_batch_failures_total rose by {fails() - fails0}")
+        n_chunks = sum(chunks.values())
+        check(n_chunks > 0 and image_launches == {
+            "normalize": n_chunks, "flash_attention": 0, "flash_bwd": 0, "flash_bwd_delta": 0,
+            "decode_attention": 0}, f"image jobs launched {image_launches} for {chunks} chunks")
+        c2 = {m: await client.c2_stats(m) for m, _ in CLUSTER_MIX}
+        jobs_out = {}
+        for (m, n), (jid, wall, merged) in zip(CLUSTER_MIX + (CLUSTER_KILL_JOB,), mix + [kill]):
+            check(len(merged) == CLUSTER_FILES and all(len(r) == 5 for r in merged.values()),
+                  f"job {jid} {m}: merged output malformed")
+            jobs_out[f"{m}_{n}" + ("_killed_worker" if jid == kill[0] else "")] = {
+                "job": jid, "queries": n, "wall_s": wall, "c1_images_per_s": n / wall}
+        timing = list(coord.batch_timing)
+        out["image"] = {
+            "jobs": jobs_out, "c1": coord.c1_stats(), "c2": c2,
+            "batch_timing_ms_median": {
+                "fetch": _median([s["fetch"] * 1e3 for s in timing]),
+                "decode": _median([(s["backend"] - s["infer"]) * 1e3 for s in timing]),
+                "infer": _median([s["infer"] * 1e3 for s in timing]),
+                "put": _median([s["put"] * 1e3 for s in timing]),
+                "exec": _median([s["exec"] * 1e3 for s in timing]), "batches": len(timing)},
+            "pipeline_depth": coord.depth_controller_stats(),
+            "killed_worker": {"name": killed["name"], "requeues": requeues,
+                              "worker_batch_failures_total": fails() - fails0},
+            "chunks": chunks, "launches": image_launches}
+        merged_by_model = {m: mix[i][2] for i, (m, _) in enumerate(CLUSTER_MIX)}
+        merged_by_model["ResNet50_killed"] = kill[2]
+
+        # ---- the LM job through register_lm
+        torch.cuda.synchronize()
+        d0 = server_dispatches()
+        reset_launch_counts()
+        t_sub = time.monotonic()
+        lm_jid = await client.submit_job("LM198M", CLUSTER_LM_PROMPTS)
+        lm_done = await client.wait_job(lm_jid, timeout=300.0)
+        lm_wall = time.monotonic() - t_sub
+        torch.cuda.synchronize()
+        lm_launches = launch_counts()
+        d = {k: v - d0[k] for k, v in server_dispatches().items()}
+        check(lm_done["total_queries"] == CLUSTER_LM_PROMPTS, f"LM job: {lm_done}")
+        lm_merged = await client.get_output(lm_jid, os.path.join(tmp, f"final_{lm_jid}.json"))
+        check(len(lm_merged) == CLUSTER_LM_PROMPTS, f"LM job answered {sorted(lm_merged)}")
+        want = check_server_launches("cluster LM job", lm_launches, d,
+                                     LM_CFG["n_layers"], LMS_CHUNK)
+        tokens = sum(len(v["tokens"]) for v in lm_merged.values())
+        out["lm"] = {"job": lm_jid, "prompts": CLUSTER_LM_PROMPTS, "wall_s": lm_wall,
+                     "tokens": tokens, "tokens_per_s": tokens / lm_wall,
+                     "server_dispatches": d, "launches": lm_launches, "formula": want}
+        return image_launches, lm_launches, chunks, merged_by_model, files, lm_merged, lm_files
+    finally:
+        for nd, st, js in reversed(list(stack.values())):
+            await js.stop()
+            await st.stop()
+            await nd.stop()
+        await dns.stop()
+        for be in backends:
+            be.close()
+
+
+def phase_cluster(timer):
+    """A port cluster on 127.0.0.1 serving image and LM jobs end to end
+    (phase 17); returns the cluster's launches: K1 by model, K2 and K4."""
+    import asyncio
+
+    import torch
+    from dml_tpu_torch.inference import InferenceEngine
+    from dml_tpu_torch.inference import generate as gen
+    from dml_tpu_torch.inference.lm_backend import LMBackend
+    from dml_tpu_torch.models.lm_params import init_lm_params
+    from dml_tpu_torch.models.registry import get_model
+
+    t_phase = time.monotonic()
+    eng = InferenceEngine(dtype=torch.bfloat16)  # device None -> cuda
+    check(eng.device.type == "cuda", f"engine on {eng.device}")
+    for m, _ in CLUSTER_MIX:
+        eng.load_model(m, variables=seeded_weights(get_model(m), seed=0), batch_size=BATCH)
+    cfg = gen.LMConfig(**LM_CFG, dtype=torch.bfloat16)
+    params = gen.serving_params(init_lm_params(cfg, seed=0), cfg)
+
+    def lm_make():
+        return LMBackend(params, cfg, max_new_tokens=64, max_slots=LMS_SLOTS,
+                         max_len=LMS_MAX_LEN, chunk=LMS_CHUNK)
+
+    out = {"nodes": CLUSTER_NODES, "files": CLUSTER_FILES,
+           "engine": f"{eng.device} {eng.dtype} b{BATCH}, one for all nodes",
+           "jobs": {"mix": CLUSTER_MIX, "killed_worker": CLUSTER_KILL_JOB,
+                    "lm_prompts": CLUSTER_LM_PROMPTS}}
+    with tempfile.TemporaryDirectory() as tmp:
+        (image_launches, lm_launches, chunks, merged, files, lm_merged,
+         lm_files) = asyncio.run(asyncio.wait_for(_run_cluster(tmp, eng, lm_make, out), 600))
+        # the job outputs against the engine called directly on the same files
+        worst = 0.0
+        for key, got in merged.items():
+            model = key.split("_")[0]
+            direct = eng.infer_files(model, files).to_json_dict()
+            direct = {os.path.basename(k): v for k, v in direct.items()}
+            check(set(got) == set(direct), f"{key}: job keys != the files")
+            for f, rows in got.items():
+                check([r["wnid"] for r in rows] == [r["wnid"] for r in direct[f]],
+                      f"{key} {f}: top-5 {[r['wnid'] for r in rows]} != the engine's "
+                      f"{[r['wnid'] for r in direct[f]]}")
+                err = max(abs(a["score"] - b["score"]) for a, b in zip(rows, direct[f]))
+                worst = max(worst, err)
+        check(worst <= 1e-6, f"job scores differ from the engine's by {worst} (> 1e-6)")
+        out["image"]["vs_engine_infer_files"] = {"max_abs_score_diff": worst, "bar": 1e-6}
+        # the LM job against the lone LMBackend serve of the same prompt files
+        be = lm_make()
+        try:
+            lone, _, _ = be.serve_files(lm_files)
+        finally:
+            be.close()
+        lone = {os.path.basename(k): v for k, v in lone.items()}
+        ties = equal = 0
+        reqs = mixed_requests(cfg.vocab_size)[:CLUSTER_LM_PROMPTS]
+        for i, (p, b) in enumerate(reqs):
+            got = lm_merged[f"p{i}.tokens.txt"]["tokens"]
+            want = lone[f"p{i}.tokens.txt"]["tokens"]
+            check(len(got) == b, f"LM prompt {i}: {len(got)} tokens, budget {b}")
+            if got == want:
+                equal += 1
+                continue
+            want_t, margins = lone_greedy(gen, params, cfg, p, b)
+            held, upto, tie, _ = tie_compare(got, want_t, margins)
+            check(held, f"LM prompt {i}: the job's tokens differ from the lone run at {upto} "
+                        f"with no near-tie before it")
+            ties += 1
+        out["lm"]["vs_lone_backend"] = {"equal": equal, "held_to_a_near_tie": ties,
+                                       "tie_margin": TIE_MARGIN}
+    del params, eng
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.monotonic() - t_phase
+    emit(phase="cluster", **out)
+    return {"normalize": chunks, "flash_attention": lm_launches["flash_attention"],
+            "decode_attention": lm_launches["decode_attention"]}
+
+
 def main() -> int:
     import torch
 
@@ -3852,6 +4188,10 @@ def main() -> int:
         phase_pipeline()
         print(smi, flush=True)
         return 0
+    if "--cluster" in sys.argv[1:]:  # after a cluster or job-layer edit: build, phase 17, stop
+        phase_cluster(timer)
+        print(smi, flush=True)
+        return 0
     timings = phase_kernel(timer)
     if kernel_only:  # a short call after a K1 edit: build, check, time, stop
         print(smi, flush=True)
@@ -3868,6 +4208,7 @@ def main() -> int:
     parallel_launches = phase_parallel()
     sp_launches = phase_seq_parallel()
     pipe_launches = phase_pipeline()
+    cluster_launches = phase_cluster(timer)
 
     kernels = []
     for model, mode in MODELS:
@@ -3876,6 +4217,7 @@ def main() -> int:
         by_path = {"serve": launches[model], "train": image_train_launches[model]}
         if model == "ResNet50":
             by_path["parallel"] = parallel_launches
+        by_path["cluster"] = cluster_launches["normalize"].get(model, 0)
         kernels.append(dict(
             name=f"normalize_u8[{model} b32 {mode} bf16; 16-pixel vector groups; "
                  f"library call: x.to(bfloat16), the raw mode's call on the same bytes]",
@@ -3885,7 +4227,8 @@ def main() -> int:
     # one kernel timed at two shapes: each row carries every path's launches
     by_path = {kern: {"generate": lm_launches[kern], "train": train_launches[kern],
                       "lm_server": server_launches[kern], "moe": moe_launches[kern],
-                      "seq_parallel": sp_launches[kern], "pipeline": pipe_launches[kern]}
+                      "seq_parallel": sp_launches[kern], "pipeline": pipe_launches[kern],
+                      "cluster": cluster_launches[kern]}
                for kern in ("flash_attention", "decode_attention")}
     for case, shape in (
             ("prefill_b8", f"prefill b{LM_BATCH} T{PROMPT_LEN} H16 KV4 D64 bf16 causal"),

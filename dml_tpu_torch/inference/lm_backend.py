@@ -272,11 +272,13 @@ class LMBackend:
         }
 
     def cost(self):
-        """The scheduler's `ModelCost` lives in the job layer, which the
-        port does not have yet."""
-        raise NotImplementedError(
-            "LMBackend.cost() returns a jobs.cost_model.ModelCost; the port's jobs layer "
-            "is ROADMAP A6 (use cost_constants())")
+        """The scheduler's initial `jobs.cost_model.ModelCost` (refined
+        from ACK measurements), as `register_lm(cost=)` takes it."""
+        from ..jobs.cost_model import ModelCost
+
+        return ModelCost(load_time=0.0, first_query=self._per_query,
+                         per_query=self._per_query, download_time=0.0,
+                         batch_size=self.server.max_slots)
 
     def serve_prefilled(self, prompts: Sequence[np.ndarray], budgets: Sequence[int],
                         slabs: Sequence[Dict[str, Any]], on_token=None

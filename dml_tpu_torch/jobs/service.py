@@ -1,0 +1,2688 @@
+"""Job service: attaches the ML job pipeline to a Node.
+
+Rebuilds the reference's L7 I/O wiring (worker.py:176-537, 887-1059,
+1356-1459, 1573-1627) on top of the pure-logic Scheduler:
+
+- coordinator role (while node.is_leader): job intake, fair-share
+  scheduling, ACK bookkeeping, completion notification, C1/C2/C3/C5
+  metrics, standby relays
+- worker role (every node): execute WORKER_TASK_REQUESTs — fetch the
+  batch's images over the store data plane, run the batched forward on
+  the port's InferenceEngine, PUT the output JSON into the replicated store, ACK
+  the coordinator with timing
+- standby role (the computed election runner-up): mirror the
+  primary's queues from SUBMIT_JOB_RELAY / WORKER_TASK_ACK_RELAY so a
+  failover resumes scheduling with no lost work (reference
+  worker.py:887-897, 965-986; promotion worker.py:577-588)
+
+Accelerator-specific deltas from the reference (SURVEY §7 hard part #2):
+- "preemption" on a worker cancels only the host-side task; both
+  models stay resident in device memory so the switch costs nothing (the
+  reference pays a model reload per switch, which its cost model
+  charges for)
+- the scheduler's cost constants are *measured* on the device (engine
+  warmup) and piggybacked on task ACKs back to the coordinator; the
+  reference hardcodes CPU measurements (worker.py:57-89)
+"""
+
+from __future__ import annotations
+
+import asyncio
+import itertools
+import json
+import logging
+import os
+import threading
+import time
+from collections import OrderedDict, deque
+from typing import Any, Awaitable, Callable, Deque, Dict, List, Optional, Tuple
+
+from ..config import NodeId
+from ..cluster.node import Node
+from ..cluster.store_service import StoreService, data_addr
+from ..cluster.util import BoundedDict, leader_retry, reap_task
+from ..cluster.wire import Message, MsgType
+from ..models.registry import MODEL_REGISTRY, get_model
+from ..observability import METRICS
+from ..tracing import CURRENT_CTXS, TRACER, TraceContext
+from ..autoscale import AutoscaleController
+from ..signal import SignalPlane
+from .train import TrainCoordinator
+from .cost_model import ModelCost, overlap_headroom
+from .groups import GroupDirectory, note_group_requeue
+from .scheduler import Assignment, Batch, DepthController, Scheduler
+
+log = logging.getLogger(__name__)
+
+# Worker-side stage timings + counters (the registry form of the
+# ACK-carried breakdown the coordinator folds into breakdown_stats);
+# labeled by model so METRICS_PULL shows where each model's batch wall
+# goes on every node
+_M_BATCHES = METRICS.counter(
+    "worker_batches_total", "batches executed on this node, per model")
+_M_BATCH_FAILS = METRICS.counter(
+    "worker_batch_failures_total",
+    "batches this node reported as failed, per model")
+_M_FETCH = METRICS.histogram(
+    "worker_fetch_seconds", "store replica fetch per batch")
+_M_INFER = METRICS.histogram(
+    "worker_infer_seconds",
+    "backend infer call per batch (device forward + dispatch)")
+_M_PUT = METRICS.histogram(
+    "worker_put_seconds", "output JSON write + replicated store PUT")
+_M_ACKS = METRICS.counter(
+    "coordinator_batch_acks_total",
+    "worker batch ACKs processed by the coordinator, per model")
+_M_CACHE_HITS = METRICS.counter(
+    "worker_decode_cache_hits_total", "decoded-input cache hits")
+_M_CACHE_MISSES = METRICS.counter(
+    "worker_decode_cache_misses_total", "decoded-input cache misses")
+_M_STREAM_TOKENS = METRICS.counter(
+    "request_stream_tokens_total",
+    "LM tokens pushed into per-request ingress token streams")
+
+# (files_dict, exec_time_s, cost_constants_or_None)
+InferBackend = Callable[[str, List[str]], Awaitable[Tuple[Dict[str, Any], float, Optional[Dict[str, float]]]]]
+
+
+def _accepts_on_token(fn) -> bool:
+    """Whether a serving callable declares the ``on_token`` streaming
+    parameter (ingress/streaming.py contract). Checked against the
+    callable that will actually run the batch — group engines and
+    single-chip backends opt in independently. Reflection is paid once
+    per callable: _execute memoizes through _group_token_aware."""
+    try:
+        import inspect
+
+        return "on_token" in inspect.signature(fn).parameters
+    except (TypeError, ValueError):
+        return False
+
+
+class _StreamFanout:
+    """Per-batch token-stream plumbing for ingress LM requests
+    (dml_tpu/ingress/streaming.py): one data-plane StreamFeed per
+    streaming request file, announced to the owning client
+    (REQUEST_STREAM_READY) BEFORE decode begins, fed from the
+    backend's ``on_token(local_path, text)`` callback — which may fire
+    on the backend's decode thread, so every feed touch hops back to
+    the loop. close() EOFs every feed (success or failure: the stream
+    must always terminate)."""
+
+    #: how long a closed stream's token stays pullable: covers a
+    #: client whose READY push raced the decode but must not let a
+    #: dead client pin the feed (and its buffered chunks) forever
+    STREAM_TTL_S = 60.0
+
+    def __init__(self, service: "JobService", batch, paths: List[str]):
+        self._loop = asyncio.get_running_loop()
+        self._service = service
+        #: file -> [feed, ...]: one feed PER REQUEST, not per input —
+        #: two streaming requests sharing a store input each get their
+        #: own feed and READY push, fed the same tokens
+        self.feeds: Dict[str, List[Any]] = {}
+        self.tokens: List[str] = []
+        self._path_to_file: Dict[str, str] = {}
+        self._closed = False
+        for p, f in zip(paths, batch.files):
+            self._path_to_file.setdefault(p, f)
+            self._path_to_file.setdefault(os.path.basename(p), f)
+        dp = service.store.data_plane
+        for f, targets in batch.streams.items():
+            for target in targets:
+                client, req_id = target[0], target[1]
+                token, feed = dp.expose_stream()
+                self.feeds.setdefault(f, []).append(feed)
+                self.tokens.append(token)
+                service.node.send_unique(
+                    client, MsgType.REQUEST_STREAM_READY,
+                    {"id": req_id, "host": service.node.me.host,
+                     "port": dp.port, "token": token},
+                )
+
+    def on_token(self, path: str, text: str) -> None:
+        feeds = self.feeds.get(self._path_to_file.get(path, path))
+        if feeds:
+            _M_STREAM_TOKENS.inc()
+            data = text.encode("utf-8")
+            for feed in feeds:
+                self._loop.call_soon_threadsafe(feed.push, data)
+
+    def close(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        for feeds in self.feeds.values():
+            for feed in feeds:
+                self._loop.call_soon_threadsafe(feed.close)
+        # retire the tokens after a grace window: a connected puller
+        # already drains to EOF; one whose READY push was lost (single
+        # unacked datagram) or that died after submit would otherwise
+        # leak the feed + buffered chunks in DataPlane._streams forever
+        tokens = list(self.tokens)
+        service = self._service
+
+        async def reap() -> None:
+            await asyncio.sleep(_StreamFanout.STREAM_TTL_S)
+            for t in tokens:
+                service.store.data_plane.unexpose_stream(t)
+
+        self._loop.call_soon_threadsafe(
+            lambda: service._spawn_bg(reap(), "stream-token ttl")
+        )
+
+
+class JobService:
+    """One per node. Acts in coordinator/worker/standby roles depending
+    on the node's current cluster position."""
+
+    def __init__(
+        self,
+        node: Node,
+        store: StoreService,
+        infer_backend: Optional[InferBackend] = None,
+        image_patterns: Tuple[str, ...] = ("*.jpeg", "*.jpg"),
+        engine=None,
+        pipeline_depth: Optional[int] = None,
+        group_backend: Optional[InferBackend] = None,
+    ):
+        """`engine` shares one InferenceEngine across co-located
+        services (one weights copy + one compile per model per chip).
+
+        `pipeline_depth=None` (default) runs the ADAPTIVE controller:
+        the coordinator probes depth-1 vs depth-2 on real batches at
+        job warmup, commits to the measured winner, and re-probes when
+        the ACK-carried stage walls drift (DepthController — the
+        worker-pipeline analog of `engine.choose_dispatch_mode`).
+        An explicit int pins a STATIC depth: 1 restores the
+        reference's strict one-outstanding-batch worker loop
+        (worker.py:518-537), >1 forces staging batch N+1's store-fetch
+        + host JPEG decode + device dispatch under batch N's in-flight
+        inference. Through a high-latency device link the blocking
+        per-batch round-trip is the cluster-serving bottleneck and
+        overlap wins; on a fast link the overlap state machine can
+        lose — which is why measured, not assumed, is the default.
+
+        `group_backend` is this node's tensor-parallel GROUP engine
+        (jobs/groups.py `sharded_backend` over the group mesh): used
+        for a batch only while this node is the PRIMARY of a formed
+        worker group; every other situation (lender, degraded group,
+        no group) serves on the ordinary single-chip backend. The
+        directory view driving that choice is derived from spec +
+        SWIM liveness, so it needs no relay protocol to survive
+        failover."""
+        self.node = node
+        self.store = store
+        self.image_patterns = image_patterns
+        self._backend = infer_backend or self._engine_backend
+        self._backend_is_engine = infer_backend is None
+        # worker-group subsystem: the directory every role derives
+        # from spec + liveness, this node's group engine (primaries
+        # only), and the per-round pool weights handed the scheduler
+        self.groups = GroupDirectory(node.spec)
+        self._group_backend = group_backend
+        self._pool_weights: Dict[str, float] = {}
+        # LM (or other non-CNN) serving models registered on this node:
+        # per-model worker backend + per-model input-file patterns
+        # (image jobs sample *.jpeg; LM jobs sample prompt-token files)
+        self._extra_backends: Dict[str, InferBackend] = {}
+        # per-model LM GROUP backends (weight-resident tp-sharded or
+        # disaggregated decode — inference/lm_sharded.py): used for a
+        # batch only while this node is the primary of a formed group
+        # that declares the model in WorkerGroupSpec.lm_models
+        self._lm_group_backends: Dict[str, InferBackend] = {}
+        # per-model prefill-role backends (LMPrefillBackend): serve
+        # LM_PREFILL_REQUEST from a disaggregated group's decode
+        # primary by building + exposing the KV slab
+        self._lm_prefill: Dict[str, Any] = {}
+        # models whose backend declares `on_dispatch` (see register_lm)
+        self._backend_dispatch_aware: Dict[str, bool] = {}
+        # models whose backend declares `on_token` (per-token streaming
+        # for ingress requests; see register_lm + _execute)
+        self._backend_token_aware: Dict[str, bool] = {}
+        # group-backend callable -> on_token capability: signature
+        # reflection must not run per executed batch on the serving
+        # path (the single-chip case caches at register_lm time)
+        self._gb_token_aware: Dict[Any, bool] = {}
+        self.model_patterns: Dict[str, Tuple[str, ...]] = {}
+        self._engine = engine  # lazy InferenceEngine (cuda; built on first use)
+        # Decoded-input cache for the worker prepare stage, keyed by
+        # (local path, mtime_ns, size, target hw). Store objects are
+        # immutable per version (a re-PUT mints a new version and a
+        # new local path), so hits are always coherent. The reference
+        # workload wrap-around-samples a small file set per job
+        # (worker.py:188-245) and its workers re-download + re-decode
+        # every occurrence; serving hot immutable objects from a
+        # decoded cache is the host analog of not doing that.
+        # Budget is bytes of decoded uint8; 0 disables.
+        self.decode_cache_bytes: int = 256 << 20
+        self._decode_cache: "OrderedDict[tuple, Any]" = OrderedDict()
+        self._decode_cache_lock = threading.Lock()
+        self._decode_cache_used = 0
+        self.decode_cache_hits = 0
+        self.decode_cache_misses = 0
+        self.scheduler = Scheduler(costs=self._seed_costs())
+        self.depth_ctl: Optional[DepthController] = None
+        self.set_pipeline_depth(pipeline_depth)
+        # worker-side execution state: running batches (primary + an
+        # early-promoted staged batch draining concurrently, <= depth)
+        # and the one staged batch whose prepare runs eagerly
+        self._running: Dict[Tuple[int, int], asyncio.Task] = {}
+        # set for the whole of stop(): a task request (or a staged
+        # promotion) landing while stop() awaits its reaps would start a
+        # batch that outlives the service and fails on its stopped node
+        self._stopping = False
+        self._staged: Optional[
+            Tuple[Tuple[int, int], Batch, str, asyncio.Task]
+        ] = None
+        self._bg_tasks: set = set()
+        # client-side completion futures; bounded so fire-and-forget
+        # submitters don't leak (evicted callers fall back to polling)
+        self._job_done: BoundedDict = BoundedDict(1000)
+        self._sched_task: Optional[asyncio.Task] = None
+        # loss tolerance over the at-most-once UDP transport: the
+        # coordinator re-sends un-ACKed assignments (covers both a lost
+        # WORKER_TASK_REQUEST and a lost ACK; batch-completion dedup in
+        # the scheduler absorbs the resulting re-execution), and every
+        # assignment carries a monotonic seq so a reordered stale
+        # request can't cancel a newer batch on the worker
+        self._task_seq = itertools.count(1)
+        # incarnation stamp: a restarted coordinator's seq counter
+        # restarts at 1, so workers compare seqs only within one
+        # incarnation (keyed per sender as (inc, last_seq))
+        self._incarnation = int(time.time() * 1000)
+        self._assigned_at: Dict[str, Tuple[Tuple[int, int], float]] = {}
+        self._staged_at: Dict[str, Tuple[Tuple[int, int], float]] = {}
+        # coordinator-side per-batch wall-time breakdown from ACKs
+        # (fetch / backend / infer) — where cluster-serving time goes
+        self.batch_timing: Deque[Dict[str, float]] = deque(maxlen=512)
+        self._last_seq: Dict[str, Tuple[int, int]] = {}  # sender -> (inc, seq)
+        self.task_resend_after = max(
+            1.0, 4 * node.spec.timing.ping_interval
+        )
+        # submit idempotency tokens -> job id
+        self._submit_tokens: BoundedDict = BoundedDict(1000)
+        # job-terminal observers (request front door, dml_tpu/ingress/):
+        # called as cb(job_state, last_worker_or_None) on the
+        # coordinator whenever a job reaches a terminal state —
+        # completion (last_worker = the ACKing node, the session-
+        # affinity signal) or failure (None). Callbacks must not raise
+        # (guarded anyway) and must not block (spawn their own tasks).
+        self.on_job_done_cbs: List[Callable[[Any, Optional[str]], None]] = []
+        # model -> pinned store version currently served (for recovery
+        # after an eviction; "latest" is resolved at load time)
+        self._served_weight_version: Dict[str, Optional[int]] = {}
+        # --- shadow-restore relay protocol state ---
+        # coordinator: every relay carries a generation; restore-jobs
+        # bumps it, so "sent after the restore" is observable on the
+        # standby regardless of datagram arrival order. Seeded from the
+        # incarnation timestamp so a RESTARTED coordinator (same
+        # host:port identity) starts above every generation it ever
+        # sent before — otherwise the standby's _gen_stale would
+        # silently drop all of the new incarnation's relays.
+        self._relay_gen = self._incarnation
+        # standby: recent relays (sender, gen, apply-fn, msg), kept so
+        # a snapshot restore can replay everything sent at/after its
+        # generation — relays race the snapshot fetch arbitrarily and
+        # apply-fns are idempotent, so apply-now + replay-later is safe
+        self._relay_log: Deque[Tuple[str, int, Any, Message]] = deque(maxlen=500)
+        # while a restore is pending the bounded log is not enough:
+        # >500 relays arriving before the snapshot replay runs would
+        # evict entries the replay depends on. This side buffer holds
+        # every relay from the FIRST fetch attempt of a generation
+        # until that generation's replay succeeds (NOT per-fetch: the
+        # coordinator retries failed fetches, and relays landing
+        # between attempts need the same protection). Unbounded, but
+        # its lifetime is one restore (seconds); replaying a relay
+        # twice is safe because apply-fns are idempotent.
+        self._restore_buffer: list = []
+        self._restore_buffer_gen: Optional[int] = None
+        self._shadow_restoring = False
+        self._shadow_gen: Optional[int] = None  # last restored generation
+        self._shadow_gen_leader: Optional[str] = None
+        self._restored_keys: BoundedDict = BoundedDict(50)  # (leader, ver, gen)
+        # SLO signal plane: windows sample on every node, burn/health
+        # evaluation runs only while this node leads (signal.py)
+        self.signal = SignalPlane(node, jobs=self)
+        # closed-loop autoscaler (autoscale.py): adopts relayed
+        # decisions everywhere, evaluates/actuates only while leading.
+        # The capacity actuators stay None until the environment (the
+        # chaos harness, the bench) wires real scale_out/scale_in
+        # verbs — a bare cluster still gets reallocation + a typed
+        # decision stream.
+        self.autoscale = AutoscaleController(node, jobs=self, plane=self.signal)
+        # elastic data-parallel training (train.py): registers the
+        # trainer backend + SLO class on every node, drives runs and
+        # adopts checkpointed ones only while this node leads
+        self.train = TrainCoordinator(node, jobs=self)
+        # chaos seam (`liar` event): stall each batch for this many
+        # seconds AFTER measuring exec_time, so the self-reported wall
+        # stays clean while the leader's dispatch->ACK observation
+        # absorbs the stall — the forged-evidence straggler the
+        # signal plane's cross-check must catch
+        self.liar_extra_s: float = 0.0
+        self._register()
+        node.on_node_failed_cbs.append(self._on_node_failed)
+        node.on_became_leader_cbs.append(self._on_became_leader)
+
+    @staticmethod
+    def _seed_costs() -> Dict[str, ModelCost]:
+        """Registry priors; replaced by device measurements as ACKs
+        arrive."""
+        costs: Dict[str, ModelCost] = {}
+        for spec in set(MODEL_REGISTRY.values()):
+            c = spec.cost
+            costs[spec.name] = ModelCost(
+                load_time=c.load_time,
+                first_query=c.first_query,
+                per_query=c.per_query,
+                download_time=c.download_time,
+                batch_size=c.default_batch_size,
+            )
+        return costs
+
+    async def start(self) -> None:
+        self._stopping = False
+        self._sched_task = asyncio.create_task(
+            self._schedule_loop(), name=f"{self.node.me}-sched"
+        )
+        self.signal.start()
+        self.autoscale.start()
+        self.train.start()
+        interval = getattr(self.node.spec, "jobs_checkpoint_interval", 0.0)
+        if interval and interval > 0:
+            self._ckpt_task = asyncio.create_task(
+                self._auto_checkpoint_loop(interval),
+                name=f"{self.node.me}-autockpt",
+            )
+
+    async def _auto_checkpoint_loop(self, interval: float) -> None:
+        """Periodic coordinator snapshots while work is in flight —
+        the automated version of the checkpoint-jobs verb, so a full
+        cluster restart can always restore the latest queues."""
+        was_busy = False
+        edge_pending = False
+        while True:
+            await asyncio.sleep(interval)
+            if self._me != self.node.leader_unique:
+                continue
+            busy = bool(self.scheduler.jobs or self.scheduler.queue_depths())
+            # busy-state observation is independent of snapshot success:
+            # a failed tick must not suppress the busy->idle edge
+            # snapshot (the drained state has to land eventually, or a
+            # post-restart restore resurrects completed jobs)
+            if busy:
+                was_busy = True
+            elif was_busy:
+                was_busy = False
+                edge_pending = True
+            if not busy and not edge_pending:
+                continue  # steady idle: latest snapshot already drained
+            try:
+                await self.checkpoint_jobs()
+                if not busy:
+                    edge_pending = False
+            except Exception:
+                log.exception("%s: auto checkpoint failed", self._me)
+
+    async def stop(self) -> None:
+        self._stopping = True
+        await self.train.stop()
+        await self.autoscale.stop()
+        await self.signal.stop()
+        ct = getattr(self, "_ckpt_task", None)
+        if ct is not None:
+            await reap_task(ct, self._me, "checkpoint loop")
+            self._ckpt_task = None
+        if self._staged is not None:
+            self._staged[3].cancel()
+            self._staged = None
+        for t in list(self._bg_tasks):
+            t.cancel()
+        for t in [self._sched_task] + list(self._running.values()):
+            if t is not None:
+                await reap_task(t, self._me, f"task {t.get_name()}")
+        self._sched_task = None
+        self._running.clear()
+
+    # ------------------------------------------------------------------
+    # roles
+    # ------------------------------------------------------------------
+
+    @property
+    def _me(self) -> str:
+        return self.node.me.unique_name
+
+    def _eligible_workers(self) -> List[str]:
+        """Live schedulable nodes = alive minus coordinator and
+        standby (reference hardcodes H3..H10, worker.py:52). A cluster
+        too small to spare dedicated coordinators uses every live
+        node — this is also the single-node "leader = self" mode
+        (SURVEY §7 minimum slice)."""
+        alive = [n.unique_name for n in self.node.membership.alive_nodes()]
+        leader = self.node.leader_unique
+        sb = self.store.standby_node()
+        standby = sb.unique_name if sb else None
+        pool = [u for u in alive if u != leader and u != standby]
+        return pool if pool else alive
+
+    def worker_pool(self) -> List[str]:
+        """The scheduler-visible pool: eligible nodes with every
+        FORMED worker group collapsed to its primary (one slot, group
+        capacity as its fair-share weight — jobs/groups.py). Members
+        of a degraded group stay as ordinary single-chip slots. The
+        weights of the returned pool are in `self._pool_weights`.
+
+        Collapse is ROUND-aware per group: a round's active LM models
+        (register_lm names) keep a group collapsed only if the group
+        declares them ALL in ``WorkerGroupSpec.lm_models`` — its
+        engine serves them weight-resident tp-sharded
+        (inference/lm_sharded.py); any other group withholds its
+        members as single-chip slots for the round (the
+        fallback), because collapsing would withdraw the lender and
+        weight the primary at a capacity its engine never delivers
+        for that model. The token/bitwise-equality contracts make the
+        per-batch engine choice (`_group_serves`) safe either way;
+        THIS guard is about capacity accounting.
+
+        The derivation memoizes on (SWIM view epoch, leader, standby,
+        active-LM set): unchanged membership and roles return the
+        cached pool instead of re-deriving O(groups×members) every
+        scheduling tick."""
+        eligible = self._eligible_workers()
+        active = self.scheduler.active_models()
+        lm_active = frozenset(
+            m for m in active if m in self.model_patterns
+        )
+        sb = self.store.standby_node()
+        cache_key = (
+            self.node.membership.view_epoch,
+            # elastic membership: a join/leave re-shapes groups and
+            # pool slots without necessarily moving the SWIM view
+            # epoch on this node first
+            self.node.spec.universe_epoch,
+            self.node.leader_unique,
+            sb.unique_name if sb else None,
+        )
+        pool, self._pool_weights = self.groups.collapse(
+            eligible, lm_active=lm_active, cache_key=cache_key
+        )
+        return pool
+
+    def group_role(self) -> Optional[str]:
+        """This node's serving role right now: "primary" (serves on
+        the group engine), "lender", "degraded", or None."""
+        return self.groups.role_in(self._eligible_workers(), self._me)
+
+    def _group_backend_for(self, model: str) -> Optional[InferBackend]:
+        """The group engine that would serve a batch of `model` on
+        this node, if any: LM models route to their per-model sharded
+        group backend (register_lm's `group_backend`, gated on the
+        group declaring the model in lm_models); everything else to
+        the CNN group engine."""
+        if model in self._extra_backends:
+            gb = self._lm_group_backends.get(model)
+            if gb is None:
+                return None
+            g = self.groups.group_of(self._me)
+            if g is None or model not in g.lm_models:
+                return None
+            return gb
+        return self._group_backend
+
+    def _group_token_aware(self, gb) -> bool:
+        """Memoized _accepts_on_token for group backends: _execute
+        asks per batch, signature reflection runs once per callable
+        (an unhashable callable just pays it each time)."""
+        try:
+            return self._gb_token_aware[gb]
+        except KeyError:
+            pass
+        except TypeError:
+            return _accepts_on_token(gb)
+        aware = _accepts_on_token(gb)
+        self._gb_token_aware[gb] = aware
+        return aware
+
+    def _group_serves(self, model: str) -> bool:
+        """True when a batch of `model` executing NOW would run on
+        this node's group engine: a group backend is wired for it, it
+        serves this model (gb.model pins a single compiled engine;
+        None = any CNN), and this node is the primary of a formed
+        group."""
+        gb = self._group_backend_for(model)
+        if gb is None:
+            return False
+        if getattr(gb, "model", None) not in (None, model):
+            return False
+        if model in self._extra_backends:
+            # LM group engines are FIXED-mesh (weights resident,
+            # sharded at registration): a group below full strength
+            # (reform-ladder territory) must route LM batches to the
+            # single-chip backend instead. Derived LIVE from spec +
+            # liveness like role_in — the directory's collapsed-shape
+            # memo only refreshes on nodes that run the collapse.
+            g = self.groups.group_of(self._me)
+            if g is not None:
+                pool_set = set(self._eligible_workers())
+                if not all(m in pool_set
+                           for m in self.groups.members(g.name)):
+                    return False
+        return self.group_role() == "primary"
+
+    def group_stats(self) -> Dict[str, Any]:
+        """CLI `breakdown` topology line: configured groups, formed
+        state, capacity in force, degradation/reform history. The
+        directory's formed-state is normally refreshed by the
+        scheduling loop — which runs the collapse only on the
+        coordinator — so refresh it here first: `breakdown` must show
+        LIVE topology on any node, not whatever this node last saw
+        while it happened to be leader."""
+        self.groups.collapse(self._eligible_workers())
+        return self.groups.stats()
+
+    # ------------------------------------------------------------------
+    # client verbs (reference CLI submit-job / get-output /
+    # predict-locally, worker.py:1744-1997)
+    # ------------------------------------------------------------------
+
+    def _canon(self, model: str) -> str:
+        """Canonical model name: registry aliases resolve (resnet ->
+        ResNet50); names registered via `register_lm` resolve
+        case-insensitively (matching the registry's convention), and
+        an unknown name's error lists them."""
+        try:
+            return get_model(model).name
+        except KeyError:
+            lm_names = set(self._extra_backends) | set(self.model_patterns)
+            hit = {n.lower(): n for n in sorted(lm_names)}.get(model.lower())
+            if hit is not None:
+                return hit
+            raise KeyError(
+                f"unknown model {model!r}; registered LM models: "
+                f"{sorted(lm_names) or 'none'}; CNN registry: "
+                f"{sorted({s.name for s in MODEL_REGISTRY.values()})}"
+            ) from None
+
+    def register_lm(
+        self,
+        name: str,
+        backend: Optional[InferBackend] = None,
+        cost: Optional[Any] = None,
+        patterns: Tuple[str, ...] = ("*.tokens.txt", "*.prompt.txt"),
+        group_backend: Optional[InferBackend] = None,
+        prefill: Optional[Any] = None,
+    ) -> None:
+        """Register an LM serving model as a first-class job type.
+
+        Call on EVERY node with the same arguments (like the engine's
+        CNN registry, which is implicitly shared): `backend` makes
+        this node able to EXECUTE the model's batches (worker role),
+        `cost` seeds the fair-share scheduler's plan wherever this
+        node coordinates (leader or promoted standby; refined from
+        ACK measurements either way), `patterns` tells the intake
+        which store files are this model's inputs. After this,
+        `submit-job <name> <N>` flows through the identical pipeline
+        as image jobs — same batching, fair-share split, preemption,
+        requeue-on-failure, standby relays, and get-output merge.
+
+        `group_backend` (group PRIMARIES only) is this node's sharded
+        LM group engine for the model — weight-resident tp-sharded
+        decode or the disaggregated decode form
+        (inference/lm_sharded.py). It serves a batch only while this
+        node is the primary of a FORMED group declaring the model in
+        ``WorkerGroupSpec.lm_models``; otherwise batches fall through
+        to `backend` (single-chip), so degradation changes throughput,
+        never answers. `prefill` (prefill-role members) is an
+        `LMPrefillBackend` serving LM_PREFILL_REQUEST: it builds each
+        batch's KV-cache slab and this service exposes the bytes on
+        the data plane for the decode primary to pull."""
+        if group_backend is not None:
+            self._lm_group_backends[name] = group_backend
+        if prefill is not None:
+            self._lm_prefill[name] = prefill
+        if backend is not None:
+            self._extra_backends[name] = backend
+            # Backends that declare an `on_dispatch` parameter (the
+            # LMBackend contract) opt in to promote-at-dispatch: the
+            # staged next batch starts the moment this batch's prompts
+            # are submitted to the backend's continuous-batching
+            # driver, instead of after its decode drains — the
+            # generic-path analog of the engine path's
+            # promote-at-dispatch.
+            try:
+                import inspect
+
+                params = inspect.signature(backend).parameters
+                self._backend_dispatch_aware[name] = "on_dispatch" in params
+                # `on_token` (ingress/streaming.py contract): the
+                # backend calls on_token(local_path, text) per decoded
+                # token; the worker feeds each streaming request's
+                # data-plane stream from it
+                self._backend_token_aware[name] = "on_token" in params
+            except (TypeError, ValueError):
+                self._backend_dispatch_aware[name] = False
+                self._backend_token_aware[name] = False
+        self.model_patterns[name] = tuple(patterns)
+        if cost is not None:
+            self.scheduler.set_cost(name, cost)
+
+    async def submit_job(
+        self, model: str, n_queries: int, timeout: float = 20.0, retries: int = 3
+    ) -> int:
+        """`submit-job <model> <N>`: returns the job id. Await
+        `wait_job(job_id)` for completion.
+
+        The request carries an idempotency token and is retried on
+        timeout (the transport is at-most-once UDP); the coordinator
+        dedups by token so a retry can't mint a second job."""
+        model = self._canon(model)
+        token = self.node.new_rid()
+        reply = await leader_retry(
+            self.node,
+            MsgType.SUBMIT_JOB_REQUEST,
+            {"model": model, "n": int(n_queries), "token": token},
+            timeout=timeout,
+            retries=retries,
+        )
+        if not reply.get("ok"):
+            raise RuntimeError(f"submit-job failed: {reply.get('error')}")
+        job_id = int(reply["job_id"])
+        self._job_done.setdefault(
+            job_id, asyncio.get_running_loop().create_future()
+        )
+        return job_id
+
+    async def wait_job(self, job_id: int, timeout: Optional[float] = None) -> Dict[str, Any]:
+        """Wait for completion. Primary signal is the coordinator's
+        SUBMIT_JOB_REQUEST_SUCCESS push; because that is a single
+        unacked datagram, we also poll job status as a fallback so a
+        dropped notification (or a failover) can't strand the caller."""
+        fut = self._job_done.setdefault(
+            job_id, asyncio.get_running_loop().create_future()
+        )
+
+        async def waiter() -> Dict[str, Any]:
+            unknown = 0
+            while not fut.done():
+                try:
+                    return await asyncio.wait_for(asyncio.shield(fut), 1.0)
+                except asyncio.TimeoutError:
+                    try:
+                        reply = await self.node.leader_request(
+                            MsgType.JOB_STATUS_REQUEST, {"job": job_id}, timeout=2.0
+                        )
+                    except Exception:
+                        continue
+                    if reply.get("done") and not fut.done():
+                        fut.set_result(dict(reply))
+                    elif not reply.get("ok"):
+                        # the (possibly newly-elected) coordinator has no
+                        # record of this job: the standby relay was lost
+                        # before the failover. Surface it instead of
+                        # polling forever; the caller resubmits.
+                        unknown += 1
+                        if unknown >= 5:
+                            raise RuntimeError(
+                                f"job {job_id} lost (coordinator has no record; "
+                                "resubmit)"
+                            )
+                    else:
+                        unknown = 0
+            return fut.result()
+
+        try:
+            result = await asyncio.wait_for(waiter(), timeout)
+            if result.get("error"):
+                raise RuntimeError(
+                    f"job {job_id} failed: {result['error']}"
+                )
+            return result
+        finally:
+            if fut.done():
+                self._job_done.pop(job_id, None)
+
+    async def get_output(self, job_id: int, dest_path: str) -> Dict[str, Any]:
+        """`get-output <jobid>`: collect every worker's
+        output_<job>_<batch>_<host>.json from the store and merge into
+        final_<jobid>.json (reference get_output_cli +
+        merge_all_json_files, worker.py:1513-1534, 1617-1627)."""
+        listing = await self.store.ls_all(f"output_{job_id}_*.json")
+        merged: Dict[str, Any] = {}
+        tmpdir = self.store.cfg.download_path()
+        os.makedirs(tmpdir, exist_ok=True)
+        for name in sorted(listing):
+            local = os.path.join(tmpdir, name)
+            await self.store.get(name, local)
+            with open(local) as f:
+                part = json.load(f)
+            for k, v in part.items():
+                merged.setdefault(k, v)
+        dest_path = os.path.abspath(os.path.expanduser(dest_path))
+        os.makedirs(os.path.dirname(dest_path) or ".", exist_ok=True)
+        with open(dest_path, "w") as f:
+            json.dump(merged, f, indent=2)
+        return merged
+
+    async def predict_locally(self, model: str, files: List[str]) -> Dict[str, Any]:
+        """`predict-locally <model> <files...>` (reference
+        worker.py:1573-1585): run inference on this node, no cluster."""
+        model = self._canon(model)
+        be = self._extra_backends.get(model, self._backend)
+        results, exec_time, _ = await be(model, files)
+        return {"results": results, "exec_time": exec_time}
+
+    async def set_batch_size(self, model: str, batch_size: int) -> None:
+        """C3 verb: cluster-wide batch size change (reference
+        SET_BATCH_SIZE, worker.py:1028-1037)."""
+        reply = await self.node.leader_request(
+            MsgType.SET_BATCH_SIZE,
+            {"model": self._canon(model), "batch_size": int(batch_size)},
+        )
+        # the ACK's ok flag gates success (drift-wire-payloads: it was
+        # shipped but never checked — a garbled rid-resolved reply
+        # passed as a silent success)
+        if not reply.get("ok"):
+            raise RuntimeError(f"set-batch-size {model} not acknowledged")
+
+    async def c2_stats(self, model: str) -> Dict[str, float]:
+        """C2: processing-time stats, computed on the coordinator,
+        fetchable from any node (reference GET_C2_COMMAND,
+        worker.py:1039-1059)."""
+        reply = await self.node.leader_request(
+            MsgType.GET_C2_COMMAND, {"model": self._canon(model)}
+        )
+        if not reply.get("ok"):
+            raise RuntimeError(f"c2-stats {model} not acknowledged")
+        return reply.get("stats", {})
+
+    def c1_stats(self) -> Dict[str, Dict[str, float]]:
+        """C1 is local to the coordinator; non-coordinators show their
+        shadow counts (reference prints on the leader)."""
+        return self.scheduler.c1_stats()
+
+    def c5_assignments(self) -> Dict[str, Any]:
+        return self.scheduler.c5_assignments()
+
+    @property
+    def pipeline_depth(self) -> int:
+        """Worker-pipelining depth (operator surface; the scheduler
+        owns the knob)."""
+        return self.scheduler.pipeline_depth
+
+    def set_pipeline_depth(self, depth: Optional[int]) -> None:
+        """`None` → adaptive (probe-and-commit DepthController, the
+        product default); an int → static depth, controller off (the
+        bench's forced-comparison runs and reference-faithful depth-1
+        use this)."""
+        if depth is None:
+            self.depth_ctl = DepthController()
+            self.scheduler.pipeline_depth = self.depth_ctl.depth
+        else:
+            self.depth_ctl = None
+            self.scheduler.pipeline_depth = max(1, int(depth))
+
+    def depth_controller_stats(self) -> Dict[str, Any]:
+        """CLI `breakdown`: the depth in force and WHY (probe rates,
+        trigger, drift signature) — or the pinned static depth."""
+        if self.depth_ctl is None:
+            return {
+                "mode": "static", "depth": self.scheduler.pipeline_depth,
+            }
+        out = {"mode": "adaptive", **self.depth_ctl.explain()}
+        # analytic prior next to the measurement: the upper bound on
+        # what depth-2 overlap COULD buy given the current stage walls
+        bd = self.breakdown_stats()
+        if bd:
+            out["overlap_headroom_bound"] = overlap_headroom(
+                fetch_s=bd.get("fetch_ms", 0.0) / 1e3,
+                decode_s=bd.get("decode_ms", 0.0) / 1e3,
+                infer_s=bd.get("infer_ms", 0.0) / 1e3,
+                put_s=bd.get("put_ms", 0.0) / 1e3,
+            )
+        return out
+
+    def decode_cache_stats(self) -> Dict[str, int]:
+        """Worker decoded-input cache counters (operator surface for
+        the CLI `breakdown` verb)."""
+        return {
+            "hits": self.decode_cache_hits,
+            "misses": self.decode_cache_misses,
+            "bytes_used": self._decode_cache_used,
+            "bytes_budget": self.decode_cache_bytes,
+        }
+
+    def breakdown_stats(self) -> Dict[str, float]:
+        """Mean per-batch wall-time split from ACK-carried timings
+        (coordinator-side): `fetch_ms` replica fetch, `decode_ms` host JPEG
+        decode (backend − infer), `infer_ms` the engine's infer call —
+        device forward PLUS dispatch and readback —
+        `stage_wait_ms` the time a STAGED batch sat parked, prepare
+        done, waiting out the previous batch's inference (pipelining
+        means this stage runs CONCURRENTLY with another batch's
+        infer — it is exec-accounting, not lost wall time), `put_ms`
+        the output write + replicated store PUT, and `other_ms` the
+        unattributed residue (result re-keying, ACK send, loop
+        scheduling; should be near zero). Per-batch exec
+        sums across stages while the job's WALL tracks max(stage) —
+        overlap means the sum exceeds wall. Empty dict when no
+        samples."""
+        if not self.batch_timing:
+            return {}
+        n = len(self.batch_timing)
+        mean = lambda k: sum(s.get(k, 0.0) for s in self.batch_timing) / n  # noqa: E731
+        f, b, i, e = mean("fetch"), mean("backend"), mean("infer"), mean("exec")
+        sw, p = mean("stage_wait"), mean("put")
+        return {
+            "batches": n,
+            "fetch_ms": round(f * 1e3, 1),
+            "decode_ms": round((b - i) * 1e3, 1),
+            "infer_ms": round(i * 1e3, 1),
+            "stage_wait_ms": round(sw * 1e3, 1),
+            "put_ms": round(p * 1e3, 1),
+            "other_ms": round((e - f - b - sw - p) * 1e3, 1),
+            "exec_ms": round(e * 1e3, 1),
+        }
+
+    # ------------------------------------------------------------------
+    # handler registration
+    # ------------------------------------------------------------------
+
+    def _register(self) -> None:
+        n = self.node
+        n.register(MsgType.SUBMIT_JOB_REQUEST, self._h_submit_job)
+        n.register(MsgType.SUBMIT_JOB_REQUEST_SUCCESS, self._h_job_success)
+        n.register(MsgType.SUBMIT_JOB_RELAY, self._h_submit_relay)
+        n.register(MsgType.JOBS_RESTORE_RELAY, self._h_restore_relay)
+        n.register(MsgType.JOB_FAILED_RELAY, self._h_job_failed_relay)
+        n.register(MsgType.WORKER_TASK_REQUEST, self._h_task_request)
+        n.register(MsgType.WORKER_STAGE_CANCEL, self._h_stage_cancel)
+        n.register(MsgType.WORKER_TASK_REQUEST_ACK, self._h_task_ack)
+        n.register(MsgType.WORKER_TASK_FAIL, self._h_task_fail)
+        n.register(MsgType.WORKER_TASK_ACK_RELAY, self._h_ack_relay)
+        n.register(MsgType.LM_PREFILL_REQUEST, self._h_lm_prefill)
+        n.register(MsgType.SET_BATCH_SIZE, self._h_set_batch_size)
+        n.register(MsgType.GET_C2_COMMAND, self._h_get_c2)
+        n.register(MsgType.JOB_STATUS_REQUEST, self._h_job_status)
+
+    # ------------------------------------------------------------------
+    # coordinator side
+    # ------------------------------------------------------------------
+
+    async def _schedule_loop(self) -> None:
+        """Periodic scheduling tick: catches workers that joined after
+        the last event-driven round (the reference reschedules only on
+        ACKs, worker.py:1025-1026, so late joiners idle until one)."""
+        interval = max(self.node.spec.timing.ping_interval, 0.05)
+        while True:
+            await asyncio.sleep(interval)
+            try:
+                if self.node.is_leader:
+                    self._run_schedule()
+                    self._resend_stale_assignments()
+            except Exception:
+                log.exception("%s: scheduling tick failed", self._me)
+
+    def _run_schedule(self) -> None:
+        # worker_pool() collapses formed groups and refreshes
+        # _pool_weights; the DepthController below operates at the
+        # same granularity — a group is one slot, its probe ACKs all
+        # arrive under the primary's name
+        pool = self.worker_pool()
+        if self.depth_ctl is not None:
+            # elastic membership: a join/leave that changed the slot
+            # count counts as drift — the committed pipelining depth
+            # re-validates against the pool that exists NOW
+            self.depth_ctl.on_pool_size(len(pool))
+            queued = sum(len(q) for q in self.scheduler.queues.values())
+            self.scheduler.pipeline_depth = self.depth_ctl.tick(queued)
+        assigns = self.scheduler.schedule(
+            pool, weights=self._pool_weights
+        )
+        for w, key in self.scheduler.pop_revoked_stages():
+            sat = self._staged_at.get(w)
+            if sat is not None and sat[0] == key:
+                del self._staged_at[w]
+            self.node.send_unique(
+                w, MsgType.WORKER_STAGE_CANCEL,
+                {"job": key[0], "batch": key[1],
+                 "seq": next(self._task_seq), "inc": self._incarnation},
+            )
+        for a in assigns:
+            self._send_task(a.worker, a.batch, staged=a.staged)
+
+    def _resend_stale_assignments(self) -> None:
+        """Re-send assignments in flight past the resend deadline: the
+        request or its ACK may have been dropped (SWIM's reliability
+        pattern applied to the task channel)."""
+        now = time.monotonic()
+        for worker, batch in list(self.scheduler.in_progress.items()):
+            key_t = self._assigned_at.get(worker)
+            if key_t is None or key_t[0] != batch.key:
+                self._send_task(worker, batch)
+            elif now - key_t[1] > self.task_resend_after:
+                log.info(
+                    "%s: re-sending un-ACKed batch %s to %s",
+                    self._me, batch.key, worker,
+                )
+                self._send_task(worker, batch)
+        for worker, batch in list(self.scheduler.prefetch.items()):
+            key_t = self._staged_at.get(worker)
+            if (
+                key_t is None
+                or key_t[0] != batch.key
+                or now - key_t[1] > self.task_resend_after
+            ):
+                self._send_task(worker, batch, staged=True)
+
+    def _send_task(self, worker: str, b: Batch, staged: bool = False) -> None:
+        # replicas are resolved at send time from the live metadata so
+        # re-replication and failover promotions are reflected
+        # (reference resolves at assignment, worker.py:290-297)
+        versions: Dict[str, int] = {}
+        if self.node.is_leader:
+            for f in set(b.files):
+                reps = self.store.metadata.replicas_of(f)
+                if reps:
+                    b.replicas[f] = reps
+                versions[f] = self.store.metadata.latest_version(f)
+        if staged:
+            self._staged_at[worker] = (b.key, time.monotonic())
+        else:
+            self._assigned_at[worker] = (b.key, time.monotonic())
+            if b.traces:
+                # close the scheduler-side `dispatch` span on the
+                # FIRST real send: `q` (stamped by the router at
+                # ingress_submit) -> now covers scheduler queue wait +
+                # assignment. Popping `q` keeps resends from minting
+                # duplicate spans.
+                now_wall = time.time()
+                for e in b.traces:
+                    q = e.pop("q", None) if isinstance(e, dict) else None
+                    if q is None:
+                        continue
+                    ctx = TraceContext.from_wire(e)
+                    if ctx is not None and ctx.sampled:
+                        TRACER.start_span(
+                            "dispatch", ctx=ctx, node=self._me,
+                            t0=float(q),
+                            labels={"worker": worker, "job": b.job_id,
+                                    "batch": b.batch_id},
+                        ).end(now_wall)
+        try:
+            self.node.send_unique(
+                worker,
+                MsgType.WORKER_TASK_REQUEST,
+                {
+                    "job": b.job_id,
+                    "batch": b.batch_id,
+                    "model": b.model,
+                    "files": b.files,
+                    "replicas": b.replicas,
+                    "versions": versions,
+                    "staged": staged,
+                    "streams": b.streams,
+                    "inline": b.inline_results,
+                    "traces": b.traces,
+                    "seq": next(self._task_seq),
+                    "inc": self._incarnation,
+                },
+            )
+        except Exception:
+            # oversized/failed frame: leave in_progress; the resend
+            # tick will retry and the failure is visible in the log
+            log.exception("%s: sending batch %s to %s failed", self._me, b.key, worker)
+
+    async def _h_submit_job(self, msg: Message, addr) -> None:
+        """Intake (reference SUBMIT_JOB_REQUEST, worker.py:911-920):
+        mint the id, batch the queries, relay to the standby, ACK the
+        client, schedule."""
+        if not self.node.is_leader:
+            return
+        rid = msg.data.get("rid")
+        token = msg.data.get("token")
+        if token and token in self._submit_tokens:
+            # duplicate of a submit whose ACK was lost: re-ACK, same id
+            self.node.send_unique(
+                msg.sender,
+                MsgType.SUBMIT_JOB_REQUEST_ACK,
+                {"rid": rid, "ok": True, "job_id": self._submit_tokens[token]},
+            )
+            return
+        model = msg.data.get("model", "")
+        n = int(msg.data.get("n", 0))
+        # case-insensitive like _canon: the submitting node may have
+        # registered a different casing than the leader
+        lm_hit = {k.lower(): k for k in self.model_patterns}.get(model.lower())
+        if lm_hit is not None:
+            model = lm_hit
+            patterns = self.model_patterns[lm_hit]
+            known = True
+        else:
+            # only registry CNNs may take the image-pattern default; an
+            # LM whose register_lm was skipped on the leader must fail
+            # fast here, not burn max_batch_failures on *.jpeg batches
+            patterns = self.image_patterns
+            try:
+                get_model(model)
+                known = True
+            except KeyError:
+                known = False
+        error = None
+        if not known:
+            error = (
+                f"model {model!r} is neither a registry CNN nor "
+                "registered via register_lm on the leader; register it "
+                "on every node (including the leader) before submitting"
+            )
+        elif n <= 0:
+            error = f"n_queries must be positive, got {n}"
+        files: list = []
+        if error is None:
+            files = sorted({
+                f for p in patterns for f in self.store.metadata.matching(p)
+            })
+            if not files:
+                error = f"no {'/'.join(patterns)} files in the store"
+        if error is not None:
+            self.node.send_unique(
+                msg.sender,
+                MsgType.SUBMIT_JOB_REQUEST_ACK,
+                {"rid": rid, "ok": False, "error": error},
+            )
+            return
+        job_id = self.scheduler.next_job_id()
+        if token:
+            self._submit_tokens[token] = job_id
+        bs = self.scheduler.batch_size_of(model)
+        replicas = {f: self.store.metadata.replicas_of(f) for f in files}
+        self.scheduler.submit_job(
+            job_id, model, files, n, msg.sender, replicas, batch_size=bs
+        )
+        # client ACK first: a relay failure must never eat the ACK
+        self.node.send_unique(
+            msg.sender,
+            MsgType.SUBMIT_JOB_REQUEST_ACK,
+            {"rid": rid, "ok": True, "job_id": job_id},
+        )
+        self._relay_submit(
+            job_id,
+            {"job": job_id, "model": model, "n": n, "files": files,
+             "batch_size": bs, "requester": msg.sender,
+             "gen": self._relay_gen},
+        )
+        self._run_schedule()
+
+    def _relay_submit(self, job_id: int, payload: Dict[str, Any]) -> None:
+        """One copy of the standby submit-relay discipline (operator
+        and ingress intake both use it): slim relay — file names + the
+        exact batch_size used for slicing (so shadow batch ids always
+        match); replicas are re-resolved from metadata at promotion
+        time. A relay failure is logged, never raised (the client ACK
+        must already be out)."""
+        sb = self.store.standby_node()
+        if sb is not None and sb.unique_name != self._me:
+            try:
+                self.node.send(sb, MsgType.SUBMIT_JOB_RELAY, payload)
+            except Exception:
+                log.exception(
+                    "%s: standby relay of job %d failed", self._me, job_id
+                )
+
+    def ingress_submit(
+        self,
+        job_id: int,
+        model: str,
+        files: List[str],
+        requester: str,
+        affinity: Optional[str] = None,
+        streams: Optional[Dict[str, List[Any]]] = None,
+        slo_class: Optional[str] = None,
+        traces: Optional[List[Dict[str, Any]]] = None,
+    ) -> Any:
+        """Leader-side direct intake for the request front door
+        (dml_tpu/ingress/router.py): a batch the router FORMED from
+        individual requests becomes one single-batch job — explicit
+        file list, n = len(files), batch_size pinned to the formed
+        size — and inherits the whole job pipeline: fair-share
+        scheduling against operator jobs, standby relays, exactly-once
+        completion dedup, requeue on worker death, failover.
+
+        `affinity` is the batch's session-affinity target (the worker
+        holding its sessions' KV state); `streams` maps input files of
+        streaming requests to a LIST of [client, request id] targets
+        (several requests may share one input) so the executing
+        worker can expose per-request token streams. Both relay to
+        the standby so a promoted coordinator re-sends identically."""
+        if not self.node.is_leader:
+            raise RuntimeError("ingress_submit runs on the coordinator")
+        if not files:
+            raise ValueError("empty ingress batch")
+        replicas = {
+            f: self.store.metadata.replicas_of(f) for f in set(files)
+        }
+        st = self.scheduler.submit_job(
+            job_id, model, list(files), len(files), requester, replicas,
+            batch_size=len(files), affinity=affinity, streams=streams,
+            inline_results=True, slo_class=slo_class, traces=traces,
+        )
+        self._relay_submit(
+            job_id,
+            {"job": job_id, "model": model, "n": len(files),
+             "files": list(files), "batch_size": len(files),
+             "requester": requester, "gen": self._relay_gen,
+             "affinity": affinity, "streams": streams or {},
+             "inline": True, "slo": slo_class,
+             "traces": traces or []},
+        )
+        self._run_schedule()
+        return st
+
+    async def _h_task_ack(self, msg: Message, addr) -> None:
+        """A worker finished a batch (reference WORKER_TASK_REQUEST_ACK
+        handler, worker.py:989-1026)."""
+        if not self.node.is_leader:
+            return
+        d = msg.data
+        job_id, batch_id = int(d["job"]), int(d["batch"])
+        _M_ACKS.inc(model=d.get("model", ""))
+        cost = d.get("cost")
+        if cost:
+            self._fold_cost(d.get("model", ""), cost)
+        at = self._assigned_at.get(msg.sender)
+        if at is not None and at[0] == (job_id, batch_id):
+            # the cross-check's unforgeable side: OUR wall between
+            # dispatch and this ACK, paired with the worker's self-
+            # reported exec wall inside the payload
+            self.signal.observe_ack(
+                msg.sender, time.monotonic() - at[1], d
+            )
+            del self._assigned_at[msg.sender]
+        sat = self._staged_at.get(msg.sender)
+        if sat is not None and sat[0] == (job_id, batch_id):
+            del self._staged_at[msg.sender]
+        # freshness BEFORE on_batch_done marks it complete: the depth
+        # controller must see each batch exactly once (a duplicated
+        # ACK — LinkShaper dup injection, re-ACK of a resent task —
+        # counted into a probe phase would inflate that phase's rate
+        # and could flip the commit)
+        st_pre = self.scheduler.jobs.get(job_id)
+        fresh_ack = (
+            st_pre is not None
+            and batch_id not in st_pre.completed_batches
+        )
+        if fresh_ack and isinstance(d.get("results"), dict):
+            # inline-results (ingress) batch: the results rode the ACK
+            # instead of the store; merge across the job's batches so
+            # the completion observers can fan them out per request
+            st_pre.inline_results = {
+                **(st_pre.inline_results or {}), **d["results"],
+            }
+        if fresh_ack and "fetch_time" in d:
+            # ACK-carried stage walls, kept on the job state: the
+            # request front door's terminal attribution (per-request
+            # `stages` + the deadline-miss stage= counter) reads these
+            # synchronously at completion — available on a real
+            # multi-process cluster where the worker's spans are not
+            st_pre.stage_timing = {
+                "fetch": float(d.get("fetch_time", 0.0)),
+                "backend": float(d.get("backend_time", 0.0)),
+                "infer": float(d.get("infer_time", 0.0)),
+                "put": float(d.get("put_time", 0.0)),
+                "exec": float(d.get("exec_time", 0.0)),
+                "stage_wait": float(d.get("stage_wait_time", 0.0)),
+            }
+        if fresh_ack:
+            # group-served ACKs advertise membership + capacity: this
+            # is how any coordinator — including one promoted mid-job
+            # — learns measured group capacity for the fair-share
+            # weights. FRESH acks only: a duplicate/stale delivery
+            # must not revert the capacity any more than it may feed
+            # the scheduler counts or the DepthController below.
+            self.groups.observe_ack(msg.sender, d)
+        done = self.scheduler.on_batch_done(
+            msg.sender, job_id, batch_id,
+            float(d.get("exec_time", 0.0)), int(d.get("n_images", 0)),
+        )
+        # promotion bookkeeping: the worker moved on to its staged
+        # batch when this one finished — carry the stage's send time
+        # over so the resend loop doesn't immediately re-send it
+        cur = self.scheduler.in_progress.get(msg.sender)
+        sat = self._staged_at.get(msg.sender)
+        if cur is not None and sat is not None and sat[0] == cur.key:
+            self._assigned_at[msg.sender] = sat
+            del self._staged_at[msg.sender]
+        if self.depth_ctl is not None and fresh_ack:
+            # adaptive depth: fold the ACK (and its stage walls) into
+            # the probe/drift machinery and apply what it decides
+            self.scheduler.pipeline_depth = self.depth_ctl.on_ack(
+                int(d.get("n_images", 0)),
+                fetch=float(d.get("fetch_time", 0.0)),
+                infer=float(d.get("infer_time", 0.0)),
+                put=float(d.get("put_time", 0.0)),
+                worker=msg.sender,
+            )
+        if "fetch_time" in d:
+            self.batch_timing.append({
+                "model": d.get("model", ""),
+                "exec": float(d.get("exec_time", 0.0)),
+                "fetch": float(d.get("fetch_time", 0.0)),
+                "backend": float(d.get("backend_time", 0.0)),
+                "infer": float(d.get("infer_time", 0.0)),
+                "stage_wait": float(d.get("stage_wait_time", 0.0)),
+                "put": float(d.get("put_time", 0.0)),
+                "n": int(d.get("n_images", 0)),
+            })
+        sb = self.store.standby_node()
+        if sb is not None and sb.unique_name != self._me:
+            self.node.send(
+                sb,
+                MsgType.WORKER_TASK_ACK_RELAY,
+                {"job": job_id, "batch": batch_id,
+                 "n_images": int(d.get("n_images", 0)),
+                 "gen": self._relay_gen},
+            )
+        if done is not None:
+            self.node.send_unique(
+                done.requester,
+                MsgType.SUBMIT_JOB_REQUEST_SUCCESS,
+                {"job_id": job_id, "model": done.model,
+                 "total_queries": done.total_queries},
+            )
+            self._fire_job_done(done, msg.sender)
+        self._run_schedule()
+
+    def _fold_cost(self, model: str, cost: Dict[str, Any]) -> None:
+        """Adopt device-measured constants (replaces the reference's
+        hardcoded CPU numbers, worker.py:57-89)."""
+        cur = self.scheduler.costs.get(model)
+        if cur is None:
+            return
+        self.scheduler.costs[model] = cur.with_measurements(
+            load_time=cost.get("load_time"),
+            first_query=cost.get("first_query"),
+            per_query=cost.get("per_query"),
+        )
+
+    async def _h_lm_prefill(self, msg: Message, addr) -> None:
+        """Prefill-role worker side of disaggregated LM serving: a
+        decode primary sent a batch's prompt token ids; run the
+        chunked prefill (LMPrefillBackend) and hand the slabs back
+        over the data plane. Two forms:
+
+        - ``stream: true`` (the chunk-streamed handoff): ACK a LIVE
+          stream token IMMEDIATELY, then push each request's framed
+          slab chunks as its prefill completes — the decode side
+          adopts early requests while later ones still compute.
+        - default: the whole-slab file token (the first form, kept as the
+          bench's comparison baseline and for old-form callers).
+
+        The prefill runs as a background task — blocking the receive
+        loop on a device forward would stall SWIM heartbeats into
+        false suspicion (same discipline as the shadow-restore
+        fetch)."""
+        d = msg.data
+        rid = d.get("rid")
+        model = str(d.get("model", ""))
+        pf = self._lm_prefill.get(model)
+        if pf is None:
+            self.node.send_unique(
+                msg.sender, MsgType.LM_PREFILL_ACK,
+                {"rid": rid, "ok": False,
+                 "error": f"no prefill backend for {model!r} on "
+                          f"{self._me}"},
+            )
+            return
+        prompts = d.get("prompts") or []
+        budgets = d.get("budgets") or []
+        # remote-draft speculation: the decode primary asks for this
+        # many draft tokens per slab; a backend without a draft model
+        # (or an old one without the parameter) just omits them
+        draft_k = int(d.get("draft_k") or 0)
+        # per-request trace contexts shipped by the decode primary:
+        # the prefill member records its own `prefill` span per
+        # sampled request so the stitched trace shows where the
+        # disaggregated context phase ran
+        pf_ctxs = [
+            c for e in (d.get("traces") or [])
+            if (c := TraceContext.from_wire(e)) is not None and c.sampled
+        ]
+
+        def _prefill_spans(t0_wall: float) -> None:
+            t1_wall = time.time()
+            for c in pf_ctxs:
+                TRACER.start_span(
+                    "prefill", ctx=c, node=self._me, t0=t0_wall,
+                    labels={"model": model, "shared": len(prompts)},
+                ).end(t1_wall)
+
+        if d.get("stream") and hasattr(pf, "stream_slabs"):
+            dp = self.store.data_plane
+            # small buffer bound: the slab producer pushes via the
+            # backpressured put(), so this caps in-flight memory per
+            # handoff instead of buffering a whole share's slabs
+            token, feed = dp.expose_stream(maxsize=64)
+
+            async def serve_stream() -> None:
+                t0_wall = time.time()
+                try:
+                    if draft_k > 0:
+                        await pf.stream_slabs(
+                            prompts, budgets, feed, draft_k=draft_k
+                        )
+                    else:
+                        # positional form: older/stub prefill backends
+                        # predate the draft_k parameter
+                        await pf.stream_slabs(prompts, budgets, feed)
+                    _prefill_spans(t0_wall)
+                finally:
+                    # unexpose the moment the puller drains to EOF;
+                    # the TTL only bounds leakage when the puller
+                    # died mid-handoff and never comes back
+                    deadline = time.monotonic() + 120.0
+                    while (not feed.drained()
+                           and time.monotonic() < deadline):
+                        await asyncio.sleep(0.5)
+                    dp.unexpose_stream(token)
+
+            self._spawn_bg(
+                serve_stream(),
+                f"lm prefill stream {model} x{len(prompts)}",
+            )
+            self.node.send_unique(
+                msg.sender, MsgType.LM_PREFILL_ACK,
+                {"rid": rid, "ok": True, "token": token,
+                 "stream": True, "n": len(prompts)},
+            )
+            return
+        self._spawn_bg(
+            self._serve_prefill(
+                pf, prompts, budgets, msg.sender, rid, _prefill_spans,
+                draft_k=draft_k,
+            ),
+            f"lm prefill {model} x{len(prompts)}",
+        )
+
+    async def _serve_prefill(
+        self, pf, prompts, budgets, reply_to: str, rid,
+        prefill_spans=None, draft_k: int = 0,
+    ) -> None:
+        import tempfile
+
+        try:
+            t0_wall = time.time()
+            if draft_k > 0:
+                data = await asyncio.to_thread(
+                    pf.slabs_bytes, prompts, budgets, draft_k
+                )
+            else:
+                data = await asyncio.to_thread(
+                    pf.slabs_bytes, prompts, budgets
+                )
+            if prefill_spans is not None:
+                prefill_spans(t0_wall)
+            tmpdir = self.store.cfg.download_path()
+            os.makedirs(tmpdir, exist_ok=True)
+            fd, path = tempfile.mkstemp(prefix="kvslab_", dir=tmpdir)
+            with os.fdopen(fd, "wb") as f:
+                f.write(data)
+            token = self.store.data_plane.expose(path)
+
+            async def cleanup() -> None:
+                # the decode side pulls exactly once, promptly; the
+                # TTL bounds leakage when it died mid-handoff
+                await asyncio.sleep(120.0)
+                self.store.data_plane.unexpose(token)
+                try:
+                    os.unlink(path)
+                except OSError:
+                    pass
+
+            self._spawn_bg(cleanup(), f"kv-slab ttl {token[:8]}")
+            self.node.send_unique(
+                reply_to, MsgType.LM_PREFILL_ACK,
+                {"rid": rid, "ok": True, "token": token,
+                 "size": len(data), "n": len(prompts)},
+            )
+        except asyncio.CancelledError:
+            raise
+        except Exception as e:
+            log.exception("%s: prefill slab build failed", self._me)
+            self.node.send_unique(
+                reply_to, MsgType.LM_PREFILL_ACK,
+                {"rid": rid, "ok": False, "error": str(e)},
+            )
+
+    async def _h_set_batch_size(self, msg: Message, addr) -> None:
+        """C3: leader updates the scheduler and fans out to every live
+        node so engines recompile at the new shape."""
+        model = msg.data["model"]
+        bs = int(msg.data["batch_size"])
+        if msg.data.get("fanout"):
+            # every node updates its scheduler too, so a standby
+            # promoted later batches new jobs at the current C3 setting
+            self._apply_batch_size(model, bs)
+            return
+        if not self.node.is_leader:
+            return
+        self._apply_batch_size(model, bs)
+        for node in self.node.membership.alive_nodes():
+            if node.unique_name != self._me:
+                self.node.send(
+                    node, MsgType.SET_BATCH_SIZE,
+                    {"model": model, "batch_size": bs, "fanout": True},
+                )
+        # reply type is unregistered, so the client dispatcher's
+        # fallback resolves the awaiting rid future
+        self.node.send_unique(
+            msg.sender, MsgType.SET_BATCH_SIZE_ACK,
+            {"rid": msg.data.get("rid"), "ok": True},
+        )
+
+    def _apply_batch_size(self, model: str, bs: int) -> None:
+        try:
+            self.scheduler.set_batch_size(model, bs)
+        except KeyError:
+            pass
+        eng = self._engine
+        if eng is not None and model in eng.loaded_models:
+            # the engine-side reshape warms up (2 forwards) — too long
+            # to run on the event loop (it would stall SWIM heartbeats
+            # into false suspicion and time out the C3 RPC). The scheduler's
+            # batch size above switches immediately; engine-side the
+            # new chunk shape takes effect at once (compiling lazily
+            # on first use) while in-flight nowait handles keep their
+            # dispatch-time size snapshot (engine._dispatch_chunk).
+            try:
+                asyncio.get_running_loop()
+            except RuntimeError:
+                eng.set_batch_size(model, bs)
+            else:
+                self._spawn_bg(
+                    asyncio.to_thread(eng.set_batch_size, model, bs),
+                    f"batch-size warmup {model}@{bs}",
+                )
+
+    async def _h_job_status(self, msg: Message, addr) -> None:
+        """Pull-based completion fallback (no reference equivalent —
+        the reference's single completion datagram can strand clients;
+        this closes that gap)."""
+        if not self.node.is_leader:
+            return
+        st = self.scheduler.job_state(int(msg.data.get("job", -1)))
+        self.node.send_unique(
+            msg.sender,
+            MsgType.JOB_STATUS_ACK,
+            {
+                "rid": msg.data.get("rid"),
+                "ok": st is not None,
+                "done": bool(st and st.done),
+                "job_id": st.job_id if st else None,
+                "model": st.model if st else None,
+                "total_queries": st.total_queries if st else 0,
+                "error": st.error if st else None,
+            },
+        )
+
+    async def _h_get_c2(self, msg: Message, addr) -> None:
+        if not self.node.is_leader:
+            return
+        self.node.send_unique(
+            msg.sender,
+            MsgType.GET_C2_COMMAND_ACK,
+            {"rid": msg.data.get("rid"), "ok": True,
+             "stats": self.scheduler.c2_stats(msg.data.get("model", ""))},
+        )
+
+    async def _h_task_fail(self, msg: Message, addr) -> None:
+        """A live worker could not run its batch (e.g. an input had no
+        reachable replica): requeue it and free the worker — without
+        this the worker would sit 'busy' forever and the job would
+        hang."""
+        if not self.node.is_leader:
+            return
+        failed_key = (int(msg.data["job"]), int(msg.data["batch"]))
+        at = self._assigned_at.get(msg.sender)
+        if at is not None and at[0] == failed_key:
+            del self._assigned_at[msg.sender]
+        sat = self._staged_at.get(msg.sender)
+        if sat is not None and sat[0] == failed_key:
+            del self._staged_at[msg.sender]
+        b = self.scheduler.on_batch_failed(msg.sender, *failed_key)
+        # a failed PRIMARY promotes the worker's staged batch (the
+        # worker does the same) — carry the stage's send time over
+        cur = self.scheduler.in_progress.get(msg.sender)
+        sat = self._staged_at.get(msg.sender)
+        if cur is not None and sat is not None and sat[0] == cur.key:
+            self._assigned_at[msg.sender] = sat
+            del self._staged_at[msg.sender]
+        if b is not None:
+            log.info(
+                "%s: batch %s failed on %s (%s); requeued",
+                self._me, b.key, msg.sender, msg.data.get("error"),
+            )
+        for st in self.scheduler.pop_failed_jobs():
+            # the batch hit the failure cap: fail the JOB loudly (the
+            # alternative is an infinite fail/requeue loop pinning a
+            # worker while the client waits forever)
+            log.error("%s: job %d FAILED: %s", self._me, st.job_id, st.error)
+            self.node.send_unique(
+                st.requester,
+                MsgType.SUBMIT_JOB_REQUEST_SUCCESS,
+                {"job_id": st.job_id, "model": st.model,
+                 "total_queries": st.total_queries, "error": st.error},
+            )
+            # the standby's shadow must drop the job too, or a
+            # failover resurrects work the client was told failed
+            sb = self.store.standby_node()
+            if sb is not None and sb.unique_name != self._me:
+                self.node.send(
+                    sb, MsgType.JOB_FAILED_RELAY,
+                    {"job": st.job_id, "error": st.error,
+                     "gen": self._relay_gen},
+                )
+            self._fire_job_done(st, None)
+        self._run_schedule()
+
+    def _fire_job_done(self, st, worker: Optional[str]) -> None:
+        """Notify job-terminal observers (ingress completion fan-out);
+        a broken observer must never break the ACK path."""
+        for cb in self.on_job_done_cbs:
+            try:
+                cb(st, worker)
+            except Exception:
+                log.exception("%s: on_job_done callback failed", self._me)
+
+    def _on_node_failed(self, uname: str) -> None:
+        """Requeue the dead worker's batch and reschedule (reference
+        handle_failures_if_pending_status, worker.py:1279-1306).
+
+        Group degradation is handled here too. The directory edge is
+        acted on by the COORDINATOR (worker-side serving decisions —
+        group_role, member liveness checks around the device call —
+        are computed live, not from the edge), and the requeue of the
+        group primary's in-flight batches is its job: those batches were
+        executing on an ICI domain that no longer exists, so they go
+        back to the queue front like a dead worker's, even though the
+        primary node itself is alive. If the primary does manage to
+        ACK the old batch (the sim's stub mesh has no real ICI to
+        lose), completion dedup counts it exactly once and the
+        requeued copy's late ACK is dropped the same way."""
+        degraded = self.groups.on_node_failed(uname)
+        if not self.node.is_leader:
+            return
+        self._assigned_at.pop(uname, None)
+        self._staged_at.pop(uname, None)
+        if self.scheduler.on_worker_failed(uname) is not None:
+            log.info("%s: requeued batch from dead worker %s", self._me, uname)
+        if degraded is not None:
+            gname, primary = degraded
+            if primary != uname:
+                self._assigned_at.pop(primary, None)
+                self._staged_at.pop(primary, None)
+                # had_work BEFORE the call: on_worker_failed requeues
+                # the staged (prefetch) batch too but only RETURNS the
+                # in-progress one, and a staged-only requeue must
+                # still be counted and logged
+                had_work = (
+                    primary in self.scheduler.in_progress
+                    or primary in self.scheduler.prefetch
+                )
+                self.scheduler.on_worker_failed(primary)
+                if had_work:
+                    note_group_requeue(gname)
+                    log.info(
+                        "%s: group %s degraded by %s death; requeued "
+                        "primary %s's in-flight work onto the "
+                        "reformed single-chip pool",
+                        self._me, gname, uname, primary,
+                    )
+        self._run_schedule()
+
+    def _on_became_leader(self) -> None:
+        """Failover promotion (reference worker.py:577-588): the shadow
+        queues built from relays become live; resume scheduling. Any
+        batch the dead primary had in flight on a worker will be ACKed
+        to us (workers ACK the *current* leader) or re-sent — shadow
+        queues still hold every un-ACKed batch, so nothing is lost."""
+        if self.scheduler.queue_depths():
+            log.info(
+                "%s: promoted to coordinator with shadow queues %s",
+                self._me, self.scheduler.queue_depths(),
+            )
+        self._run_schedule()
+
+    # ------------------------------------------------------------------
+    # standby side (reference worker.py:887-897, 965-986)
+    # ------------------------------------------------------------------
+
+    def _gen_of(self, msg: Message) -> int:
+        return int(msg.data.get("gen", 0))
+
+    def _log_relay(self, entry: Tuple[str, int, Any, Message]) -> None:
+        """Record a relay for post-restore replay. The bounded deque
+        covers normal operation; while a restore is pending (across
+        fetch retries) the unbounded side buffer guarantees nothing
+        sent at/after the restore generation can be evicted before
+        the replay runs."""
+        self._relay_log.append(entry)
+        if self._restore_buffer_gen is not None:
+            self._restore_buffer.append(entry)
+
+    def _gen_stale(self, msg: Message) -> bool:
+        """A relay from the current leader with a generation below the
+        last restored one reflects pre-restore state the coordinator
+        deliberately wiped — drop it."""
+        return (
+            self._shadow_gen is not None
+            and msg.sender == self._shadow_gen_leader
+            and self._gen_of(msg) < self._shadow_gen
+        )
+
+    async def _h_submit_relay(self, msg: Message, addr) -> None:
+        if msg.sender != self.node.leader_unique or self._gen_stale(msg):
+            return
+        # log first, then apply: if a snapshot restore is (or gets)
+        # in flight, replaying the log after restore() re-applies
+        # everything sent at/after the restore generation. Apply-fns
+        # are idempotent, so apply-now + replay-later is always safe.
+        self._log_relay(
+            (msg.sender, self._gen_of(msg), self._apply_submit_relay, msg)
+        )
+        self._apply_submit_relay(msg)
+
+    def _apply_submit_relay(self, msg: Message) -> None:
+        d = msg.data
+        job_id = int(d["job"])
+        if self.scheduler.job_state(job_id) is not None:
+            return
+        self.scheduler.submit_job(
+            job_id, d["model"], d["files"], int(d["n"]), d["requester"],
+            batch_size=int(d["batch_size"]) if d.get("batch_size") else None,
+            affinity=d.get("affinity"),
+            streams=d.get("streams") or None,
+            inline_results=bool(d.get("inline")),
+            slo_class=d.get("slo"),
+            traces=d.get("traces") or None,
+        )
+
+    async def _h_ack_relay(self, msg: Message, addr) -> None:
+        if msg.sender != self.node.leader_unique or self._gen_stale(msg):
+            return
+        self._log_relay(
+            (msg.sender, self._gen_of(msg), self._apply_ack_relay, msg)
+        )
+        self._apply_ack_relay(msg)
+
+    def _apply_ack_relay(self, msg: Message) -> None:
+        self.scheduler.shadow_prune(
+            int(msg.data["job"]), int(msg.data["batch"]),
+            int(msg.data.get("n_images", 0)),
+        )
+
+    async def _h_job_failed_relay(self, msg: Message, addr) -> None:
+        if msg.sender != self.node.leader_unique or self._gen_stale(msg):
+            return
+        self._log_relay(
+            (msg.sender, self._gen_of(msg), self._apply_job_failed_relay, msg)
+        )
+        self._apply_job_failed_relay(msg)
+
+    def _apply_job_failed_relay(self, msg: Message) -> None:
+        st = self.scheduler.fail_job(
+            int(msg.data["job"]), str(msg.data.get("error", "failed"))
+        )
+        self.scheduler.pop_failed_jobs()  # shadow doesn't notify clients
+        if st is not None:
+            log.info(
+                "%s: shadow dropped failed job %d", self._me, st.job_id
+            )
+
+    async def _h_restore_relay(self, msg: Message, addr) -> None:
+        """Standby side of restore-jobs: pull the same pinned snapshot
+        from the store and make it the shadow state, so a failover
+        right after a restore loses nothing.
+
+        The fetch runs as a task — awaiting a store GET inline would
+        block this node's receive loop on a reply that loop itself must
+        process (self-deadlock until timeout, plus a suspicion storm
+        from unanswered pings). ACKs (echoing rid) go back only after a
+        restore lands, so the coordinator's retry loop covers lost
+        datagrams AND failed fetches. Duplicate restores are keyed by
+        (leader, version, generation): a deliberate re-restore to the
+        same version bumps the generation, so it re-applies."""
+        if msg.sender != self.node.leader_unique or self.node.is_leader:
+            return
+        version = int(msg.data["version"])
+        gen = self._gen_of(msg)
+        rid = msg.data.get("rid")
+        if self._restored_keys.get((msg.sender, version, gen)):
+            if rid:  # duplicate/retry of a landed restore: ack only
+                self.node.send_unique(
+                    msg.sender, MsgType.JOBS_RESTORE_RELAY_ACK,
+                    {"rid": rid, "ok": True},
+                )
+            return
+        # monotonicity: a delayed/retried relay from an OLDER restore
+        # must not roll the shadow back to an older snapshot. Ack it
+        # (so its retry loop stops) without applying.
+        if self._gen_stale(msg):
+            if rid:
+                self.node.send_unique(
+                    msg.sender, MsgType.JOBS_RESTORE_RELAY_ACK,
+                    {"rid": rid, "ok": True},
+                )
+            return
+        # buffer scope = the whole restore of this generation: opened
+        # the moment the generation is FIRST seen (even if an older
+        # generation's fetch is still in flight — its replay won't
+        # close a buffer that has moved past it), surviving failed
+        # fetch attempts (the coordinator's resend re-enters here with
+        # the same gen), and closed only by a successful replay of the
+        # current buffer generation / promotion. A newer generation
+        # supersedes the old buffer.
+        if self._restore_buffer_gen is None or gen > self._restore_buffer_gen:
+            self._restore_buffer.clear()
+            self._restore_buffer_gen = gen
+        if self._shadow_restoring:
+            return  # a fetch is already in flight; the retry re-asks
+        # set the latch HERE (not inside the task): a second restore
+        # relay queued right behind this one must not spawn a
+        # concurrent fetch
+        self._shadow_restoring = True
+        # tracked via _spawn_bg: stop() must be able to cancel a fetch
+        # still in flight, and a failed restore must be logged, not
+        # dropped as a never-retrieved task exception
+        self._spawn_bg(
+            self._restore_shadow(version, gen, rid, msg.sender),
+            "shadow-restore",
+        )
+
+    async def _restore_shadow(
+        self, version: int, gen: int, rid: Optional[str], reply_to: str
+    ) -> None:
+        """Fetch + apply the snapshot, then replay every logged relay
+        sent at/after the restore generation — relays race the fetch
+        (and even the restore relay itself) arbitrarily over UDP, and
+        restore() replaces the shadow wholesale, so anything the
+        coordinator sent after bumping the generation must be
+        re-applied on top."""
+        snap = None
+        try:
+            for attempt in range(3):  # local retry before the 10s resend
+                try:
+                    snap = json.loads(await self.store.get_bytes(
+                        self.JOBS_CKPT_NAME, version=version
+                    ))
+                    break
+                except asyncio.CancelledError:
+                    raise
+                except Exception:
+                    log.exception(
+                        "%s: standby snapshot fetch failed (attempt %d)",
+                        self._me, attempt + 1,
+                    )
+                    await asyncio.sleep(0.2 * (attempt + 1))
+        finally:
+            self._shadow_restoring = False
+        if snap is None:
+            # no ack -> coordinator retries the relay; keep the side
+            # buffer OPEN so relays landing between fetch attempts
+            # stay protected from log eviction
+            return
+        if self.node.is_leader:
+            # promoted mid-fetch: the live state must not be clobbered,
+            # and a leader never restores a shadow — retire the buffer
+            self._restore_buffer.clear()
+            self._restore_buffer_gen = None
+            return
+        self.scheduler.restore(snap)
+        self._shadow_gen = gen
+        self._shadow_gen_leader = reply_to
+        replayed = 0
+        # bounded log first, then the in-flight side buffer: overlap
+        # applies twice, which is safe (idempotent apply-fns) and
+        # guarantees no eviction gap under relay floods
+        for sender, g, apply_fn, m in (
+            list(self._relay_log) + self._restore_buffer
+        ):
+            if sender == reply_to and g >= gen:
+                apply_fn(m)
+                replayed += 1
+        # replay succeeded: close the buffer only if no NEWER restore
+        # generation has started accumulating in the meantime
+        if self._restore_buffer_gen is not None and gen >= self._restore_buffer_gen:
+            self._restore_buffer.clear()
+            self._restore_buffer_gen = None
+        self._restored_keys[(reply_to, version, gen)] = True
+        if rid:
+            self.node.send_unique(
+                reply_to, MsgType.JOBS_RESTORE_RELAY_ACK,
+                {"rid": rid, "ok": True},
+            )
+        log.info(
+            "%s: shadow restored from snapshot v%d gen %d (%d jobs, "
+            "%d relays replayed)",
+            self._me, version, gen, len(self.scheduler.jobs), replayed,
+        )
+
+    # ------------------------------------------------------------------
+    # worker side (reference handle_worker_task_request,
+    # worker.py:518-537, 940-962)
+    # ------------------------------------------------------------------
+
+    async def _h_task_request(self, msg: Message, addr) -> None:
+        if self._stopping:
+            return
+        d = msg.data
+        key = (int(d["job"]), int(d["batch"]))
+        seq = int(d.get("seq", 0))
+        inc = int(d.get("inc", 0))
+        stale = False
+        if seq:
+            prev_inc, prev_seq = self._last_seq.get(msg.sender, (0, 0))
+            stale = inc < prev_inc or (inc == prev_inc and seq <= prev_seq)
+            if not stale:
+                self._last_seq[msg.sender] = (inc, seq)
+        self._running = {k: t for k, t in self._running.items() if not t.done()}
+        batch = Batch(
+            job_id=key[0], batch_id=key[1], model=d["model"],
+            files=list(d["files"]),
+            replicas={f: list(r) for f, r in d.get("replicas", {}).items()},
+            versions={f: int(v) for f, v in d.get("versions", {}).items()},
+            streams={
+                f: list(v) for f, v in (d.get("streams") or {}).items()
+            },
+            inline_results=bool(d.get("inline")),
+            traces=[
+                e for e in (d.get("traces") or []) if isinstance(e, dict)
+            ],
+        )
+        if key in self._running:
+            return  # duplicate/re-sent delivery of a running batch
+        if d.get("staged"):
+            # pipeline assignment: start the prepare (store fetch +
+            # host decode) NOW; dispatch happens when the running
+            # batch's inference completes (promotion)
+            if stale:
+                return  # a reordered old stage; the resend tick re-stages
+            if self._staged is not None:
+                if self._staged[0] == key:
+                    return  # duplicate staged delivery
+                self._staged[3].cancel()
+            prep = asyncio.create_task(
+                self._prepare(batch),
+                name=f"{self.node.me}-prep-{key[0]}-{key[1]}",
+            )
+            self._staged = (key, batch, msg.sender, prep)
+            if not self._running:
+                # UDP reorder: the stage outran its same-round primary.
+                # Hold it staged (executing it now would later be
+                # cancelled as a 'preemption' when the primary lands);
+                # if the primary never arrives, self-promote after a
+                # beat so the batch isn't stranded until the resend.
+                self._spawn_bg(
+                    self._promote_orphaned_stage(key),
+                    f"orphan-stage promotion {key}",
+                )
+            return
+        if self._running:
+            # a different batch while busy = preemption (reference
+            # worker.py:944-953): cancel the host-side tasks; the
+            # coordinator already requeued the displaced batches
+            # (primary AND stage). Model weights stay resident on the device.
+            # A STALE reordered request must not cancel newer work.
+            if stale:
+                return
+            for t in self._running.values():
+                t.cancel()
+            self._running.clear()
+            if self._staged is not None and self._staged[0] != key:
+                self._staged[3].cancel()
+                self._staged = None
+        # idle (or just preempted): run it — even a stale-seq request
+        # cancels nothing here, and completion dedup absorbs re-runs
+        if self._staged is not None and self._staged[0] == key:
+            # the primary for a batch we already staged (normal-order
+            # promotion resend, or the reordered-primary case above):
+            # reuse its in-flight prepare
+            _, sbatch, _, prep = self._staged
+            self._staged = None
+            task = asyncio.create_task(
+                self._execute(sbatch, coordinator=msg.sender, prep=prep),
+                name=f"{self.node.me}-task-{key[0]}-{key[1]}",
+            )
+        else:
+            task = asyncio.create_task(
+                self._execute(batch, coordinator=msg.sender),
+                name=f"{self.node.me}-task-{key[0]}-{key[1]}",
+            )
+        self._running[key] = task
+
+    async def _promote_orphaned_stage(self, key: Tuple[int, int]) -> None:
+        """Fallback for a stage whose primary was lost or reordered
+        away: after a beat, if the stage is still parked and the worker
+        is idle, run it rather than strand it until the coordinator's
+        resend timeout."""
+        await asyncio.sleep(2 * self.node.spec.timing.ping_interval)
+        self._running = {k: t for k, t in self._running.items() if not t.done()}
+        if (
+            self._staged is not None
+            and self._staged[0] == key
+            and not self._running
+        ):
+            log.info("%s: promoting orphaned stage %s", self._me, key)
+            self._promote_staged()
+
+    def _spawn_bg(self, coro, what: str) -> asyncio.Task:
+        """Fire-and-forget with a strong reference (the loop keeps only
+        weak refs — an untracked task can be GC'd before it runs) and
+        exception logging (otherwise failures vanish as 'exception was
+        never retrieved')."""
+        t = asyncio.create_task(coro, name=f"{self._me}-{what}")
+        self._bg_tasks.add(t)
+
+        def _done(task: asyncio.Task) -> None:
+            self._bg_tasks.discard(task)
+            if not task.cancelled() and task.exception() is not None:
+                log.error(
+                    "%s: background %s failed: %r",
+                    self._me, what, task.exception(),
+                )
+
+        t.add_done_callback(_done)
+        return t
+
+    async def _h_stage_cancel(self, msg: Message, addr) -> None:
+        """The coordinator revoked our staged batch (it went back to
+        the queue when a second model's work arrived). If it already
+        promoted to running, let it finish — completion dedup absorbs
+        the duplicate. Carries the same (inc, seq) staleness guard as
+        assignments so a reordered old cancel can't kill a NEWER
+        re-stage of the same batch."""
+        seq = int(msg.data.get("seq", 0))
+        inc = int(msg.data.get("inc", 0))
+        if seq:
+            prev_inc, prev_seq = self._last_seq.get(msg.sender, (0, 0))
+            if inc < prev_inc or (inc == prev_inc and seq <= prev_seq):
+                return
+            self._last_seq[msg.sender] = (inc, seq)
+        key = (int(msg.data["job"]), int(msg.data["batch"]))
+        if self._staged is not None and self._staged[0] == key:
+            self._staged[3].cancel()
+            self._staged = None
+
+    def _promote_staged(self) -> None:
+        """Start executing the staged batch (its prepare is already in
+        flight). Called the moment the current batch's inference is
+        dispatched (engine path) or finished (generic path): the
+        coordinator performs the matching in_progress promotion when
+        the current batch's ACK arrives."""
+        if self._staged is None or self._stopping:
+            return
+        key, batch, coordinator, prep = self._staged
+        self._staged = None
+        task = asyncio.create_task(
+            self._execute(batch, coordinator=coordinator, prep=prep),
+            name=f"{self.node.me}-task-{key[0]}-{key[1]}",
+        )
+        self._running[key] = task
+
+    async def _prepare(
+        self, batch: Batch
+    ) -> Tuple[List[str], Optional[Any], float, float, float, float]:
+        """Stage 1 of the worker pipeline: materialize the batch's
+        inputs locally and (for engine-served CNN models) decode them
+        to the uint8 batch array. Runs eagerly for staged batches so
+        it overlaps the previous batch's device time. Returns its own
+        start AND end times so exec accounting spans the true first
+        touch (for a staged batch, _execute begins long after prepare
+        did) and the parked time between prepare finishing and the
+        batch's promotion is attributable (`stage_wait` in the
+        breakdown)."""
+        t0 = time.monotonic()
+        paths = await self._fetch_inputs(batch)
+        t_fetch = time.monotonic() - t0
+        imgs = None
+        t_decode = 0.0
+        # the engine path pre-decodes; skip it when the batch will run
+        # on the GROUP engine (which decodes at its own mesh shapes) —
+        # otherwise every group batch pays the host JPEG decode twice.
+        # If the role flips between prepare and execute, the generic
+        # engine fallback decodes internally, so skipping stays safe.
+        if (
+            self._backend_is_engine
+            and batch.model not in self._extra_backends
+            and not self._group_serves(batch.model)
+        ):
+            try:
+                spec = get_model(batch.model)
+            except KeyError:
+                spec = None
+            if spec is not None:
+                t1 = time.monotonic()
+                imgs = await asyncio.to_thread(
+                    self._decode_cached, paths, spec.input_size
+                )
+                t_decode = time.monotonic() - t1
+        return paths, imgs, t_fetch, t_decode, t0, time.monotonic()
+
+    def _decode_cached(self, paths: List[str], size) -> Any:
+        """load_images through the per-file decoded cache (thread
+        context). Cache keys carry mtime+size so an overwritten local
+        file can never serve a stale decode."""
+        import numpy as np
+
+        from ..models.preprocess import load_images
+
+        if self.decode_cache_bytes <= 0:
+            return load_images(paths, size)
+        keys = []
+        for p in paths:
+            try:
+                st = os.stat(p)
+                keys.append((p, st.st_mtime_ns, st.st_size, tuple(size)))
+            except OSError:
+                keys.append(None)
+        out: List[Optional[Any]] = [None] * len(paths)
+        miss_idx = []
+        with self._decode_cache_lock:
+            for i, k in enumerate(keys):
+                hit = self._decode_cache.get(k) if k is not None else None
+                if hit is not None:
+                    self._decode_cache.move_to_end(k)
+                    self.decode_cache_hits += 1
+                    out[i] = hit
+                else:
+                    self.decode_cache_misses += 1
+                    miss_idx.append(i)
+        if miss_idx:
+            _M_CACHE_MISSES.inc(len(miss_idx))
+        if len(paths) - len(miss_idx):
+            _M_CACHE_HITS.inc(len(paths) - len(miss_idx))
+        if miss_idx:
+            decoded = load_images([paths[i] for i in miss_idx], size)
+            with self._decode_cache_lock:
+                for j, i in enumerate(miss_idx):
+                    # copy the slice out of the batch array: caching the
+                    # view would pin the WHOLE decoded batch base while
+                    # the byte accounting counts only the slice
+                    arr = np.ascontiguousarray(decoded[j])
+                    out[i] = arr
+                    k = keys[i]
+                    if k is not None and k not in self._decode_cache:
+                        self._decode_cache[k] = arr
+                        self._decode_cache_used += arr.nbytes
+        with self._decode_cache_lock:
+            while (
+                self._decode_cache_used > self.decode_cache_bytes
+                and self._decode_cache
+            ):
+                _, old = self._decode_cache.popitem(last=False)
+                self._decode_cache_used -= old.nbytes
+        return np.stack(out)
+
+    async def _execute(
+        self,
+        batch: Batch,
+        coordinator: str,
+        prep: Optional[asyncio.Task] = None,
+    ) -> None:
+        import dataclasses as _dc
+
+        from ..observability import span
+
+        fanout: Optional[_StreamFanout] = None
+        ctx_token = None
+        trace_ctxs: List[TraceContext] = []
+        try:
+            with span("worker.fetch_inputs"):
+                if prep is None:
+                    (paths, imgs, t_fetch, t_decode, t0,
+                     t_prep_end) = await self._prepare(batch)
+                else:
+                    paths, imgs, t_fetch, t_decode, t0, t_prep_end = await prep
+            _M_FETCH.observe(t_fetch)
+            t1 = time.monotonic()
+            if batch.traces:
+                # per-request trace contexts, re-keyed from sdfs name
+                # to the LOCAL input path so backend internals (the
+                # disagg LM prefill/handoff spans) can route contexts
+                # per request without a side table. ALL contexts ride
+                # the contextvar (the fallback-exemplar paths must see
+                # unsampled requests too); the ordinary span loops
+                # below gate on .sampled themselves.
+                by_file = {}
+                for e in batch.traces:
+                    c = TraceContext.from_wire(e)
+                    if c is not None:
+                        by_file[c.key] = c
+                all_ctxs = [
+                    _dc.replace(c, key=p)
+                    for p, f in zip(paths, batch.files)
+                    if (c := by_file.get(f)) is not None
+                ]
+                trace_ctxs = [c for c in all_ctxs if c.sampled]
+                # the fetch span is wall-positioned at the PREPARE
+                # window (a staged batch's prepare ran long before
+                # this dispatch)
+                prep_end_wall = time.time() - max(
+                    0.0, time.monotonic() - t_prep_end
+                )
+                for c in trace_ctxs:
+                    TRACER.start_span(
+                        "fetch", ctx=c, node=self._me,
+                        t0=prep_end_wall - t_fetch - t_decode,
+                        labels={"job": batch.job_id,
+                                "batch": batch.batch_id,
+                                "shared": len(batch.files)},
+                    ).end(prep_end_wall)
+                # batch-scoped contexts for instrumentation that
+                # cannot thread them through its signature (store
+                # put/get, the LM group backends); task-local via
+                # contextvars, inherited by to_thread and subtasks
+                ctx_token = CURRENT_CTXS.set(tuple(all_ctxs))
+            # staged batches park between prepare finishing and
+            # promotion (waiting out the previous batch's inference) —
+            # a real, named stage of exec, not "other"
+            stage_wait = max(0.0, t1 - t_prep_end)
+            group_fields: Dict[str, Any] = {}
+            be = self._extra_backends.get(batch.model, self._backend)
+            gb = self._group_backend_for(batch.model)
+            # _group_serves: a sharded group engine serves exactly
+            # ONE model (gb.model; None = any, the lazy/stub
+            # forms); any other model's batch falls through to the
+            # single-chip backend — running the wrong forward
+            # would ack wrong predictions silently. LM models
+            # route to their own per-model sharded group backend
+            # (weight-resident or disaggregated decode).
+            group_serving = gb is not None and self._group_serves(batch.model)
+            # ingress token streaming: a batch carrying stream targets
+            # for a token-aware backend exposes per-request streams on
+            # the data plane and tells each client where to pull
+            # BEFORE decode starts (tokens flow while the batch runs).
+            # Gated on the callable that will ACTUALLY serve the batch:
+            # announcing streams a group engine never feeds would hand
+            # clients an empty stream + EOF instead of the documented
+            # degraded mode (tokens arrive with the final result).
+            token_aware = (
+                self._group_token_aware(gb) if group_serving
+                else self._backend_token_aware.get(batch.model)
+            )
+            if batch.streams and token_aware:
+                fanout = _StreamFanout(self, batch, paths)
+            stream_kw = {"on_token": fanout.on_token} if fanout else {}
+            infer_wall0 = time.time()
+            with span("worker.inference"):
+                if group_serving:
+                    # formed-group PRIMARY: serve on the group's
+                    # sharded engine (jobs/groups.py). The ACK
+                    # advertises membership + capacity so the
+                    # coordinator's fair-share weights track what the
+                    # group actually is. A member dying mid-batch
+                    # raises GroupDegraded out of the backend, riding
+                    # the ordinary TASK_FAIL -> requeue path below.
+                    results, infer_time, cost = await gb(
+                        batch.model, paths, **stream_kw
+                    )
+                    g = self.groups.group_of(self._me)
+                    members = self.groups.members(g.name) if g else ()
+                    group_fields = {
+                        "group": g.name if g else None,
+                        "group_size": len(members),
+                        "group_capacity": getattr(
+                            gb, "capacity", float(len(members) or 1)
+                        ),
+                    }
+                    self._promote_staged()
+                elif imgs is not None and self._backend_is_engine:
+                    results, infer_time, cost = await self._engine_infer_prepared(
+                        batch.model, paths, imgs
+                    )
+                elif self._backend_dispatch_aware.get(batch.model):
+                    # dispatch-aware backend (LMBackend): the staged
+                    # next batch promotes the moment this batch's
+                    # prompts enter the continuous-batching driver, so
+                    # its decode JOINS the grid while this one drains.
+                    # The callback fires on the
+                    # driver thread — hop back to the loop.
+                    loop = asyncio.get_running_loop()
+                    results, infer_time, cost = await be(
+                        batch.model, paths,
+                        on_dispatch=lambda: loop.call_soon_threadsafe(
+                            self._promote_staged
+                        ),
+                        **stream_kw,
+                    )
+                    # also promote now: covers backends whose serial
+                    # mode never fires the callback, and a NEW stage
+                    # that landed mid-drain (engine path does the same)
+                    self._promote_staged()
+                else:
+                    results, infer_time, cost = await be(
+                        batch.model, paths, **stream_kw
+                    )
+                    # generic path: promote once inference finished
+                    # (the engine path promoted at dispatch)
+                    self._promote_staged()
+            if fanout is not None:
+                fanout.close()
+            t_backend = (time.monotonic() - t1) + t_decode
+            _M_INFER.observe(infer_time)
+            infer_wall1 = time.time()
+            for c in trace_ctxs:
+                # the span covers the backend CALL wall (the request
+                # sat in this stage that long); the device-only
+                # portion rides as a label
+                TRACER.start_span(
+                    "infer", ctx=c, node=self._me, t0=infer_wall0,
+                    labels={"job": batch.job_id,
+                            "batch": batch.batch_id,
+                            "model": batch.model,
+                            "infer_s": round(infer_time, 6),
+                            "shared": len(batch.files)},
+                ).end(infer_wall1)
+            # backends key results by the LOCAL path (the engine uses
+            # the full path, others may use the basename), which
+            # differs by how the input materialized (store-replica hit
+            # -> name_versionN, data-plane download -> name.vN). Re-key
+            # to the sdfs names so merged job output is consistent no
+            # matter which worker classified which image.
+            to_sdfs = {}
+            for p, f in zip(paths, batch.files):
+                to_sdfs[p] = f
+                to_sdfs[os.path.basename(p)] = f
+            results = {to_sdfs.get(k, k): v for k, v in results.items()}
+            # inline-results (ingress) batches ride the ACK when they
+            # fit a datagram, skipping the 3x-replicated store PUT per
+            # batch — the per-request serving path cannot afford one
+            # replicated object per formed batch, and nothing ever
+            # get-output's an ingress job. Oversized results (or
+            # ordinary jobs) take the store path unchanged.
+            inline_payload: Optional[Dict[str, Any]] = None
+            if batch.inline_results:
+                blob = json.dumps(results)
+                if len(blob) <= 40_000:
+                    inline_payload = results
+            t_put0 = time.monotonic()
+            if inline_payload is None:
+                out_name = f"output_{batch.job_id}_{batch.batch_id}_{self.node.me.port}.json"
+                tmp = os.path.join(self.store.cfg.download_path(), out_name)
+                os.makedirs(os.path.dirname(tmp), exist_ok=True)
+                with open(tmp, "w") as f:
+                    json.dump(results, f)
+                try:
+                    # timeout scales with the cluster's RPC envelope
+                    # (capped at the old fixed 60 s): a worker wedged
+                    # publishing output under churn holds its batch
+                    # un-ACKed (and the job un-finishable) far past an
+                    # aggressive-timing cluster's whole recovery window
+                    await self.store.put(
+                        tmp, out_name,
+                        timeout=min(
+                            60.0,
+                            4 * self.node.spec.timing.leader_rpc_timeout,
+                        ),
+                    )
+                except Exception as e:
+                    # store unavailable (e.g. mid-failover): the ACK
+                    # still carries the result timing; get-output will
+                    # miss this shard, which the reference tolerates
+                    # identically
+                    log.warning("%s: PUT of %s failed: %s",
+                                self._me, out_name, e)
+            t_put = time.monotonic() - t_put0
+            _M_PUT.observe(t_put)
+            put_wall1 = time.time()
+            for c in trace_ctxs:
+                TRACER.start_span(
+                    "put", ctx=c, node=self._me, t0=put_wall1 - t_put,
+                    labels={"job": batch.job_id,
+                            "batch": batch.batch_id,
+                            "inline": int(inline_payload is not None)},
+                ).end(put_wall1)
+            _M_BATCHES.inc(model=batch.model)
+            # the wall we REPORT is measured here, BEFORE the liar
+            # seam's stall below: an injected liar keeps its metrics
+            # clean and only the coordinator's own dispatch->ACK clock
+            # (signal.HealthScorer cross-check) sees the truth
+            exec_wall = time.monotonic() - t0
+            liar_extra = self.liar_extra_s
+            if liar_extra > 0:
+                await asyncio.sleep(liar_extra)
+            self.node.send_unique(
+                coordinator if self.node.leader_unique is None else self.node.leader_unique,
+                MsgType.WORKER_TASK_REQUEST_ACK,
+                {
+                    "job": batch.job_id,
+                    "batch": batch.batch_id,
+                    "model": batch.model,
+                    "n_images": len(batch.files),
+                    "exec_time": exec_wall,
+                    "infer_time": infer_time,
+                    # where the batch's wall time went: replica fetch vs backend (backend −
+                    # infer ≈ host JPEG decode) vs staged-parking vs
+                    # output PUT; the coordinator aggregates these
+                    # into breakdown_stats()
+                    "fetch_time": t_fetch,
+                    "backend_time": t_backend,
+                    "stage_wait_time": stage_wait,
+                    "put_time": t_put,
+                    "cost": cost,
+                    **({"results": inline_payload}
+                       if inline_payload is not None else {}),
+                    **group_fields,
+                },
+            )
+            # a staged batch that arrived while we were draining (the
+            # engine path promotes at dispatch, but the NEXT stage can
+            # land mid-drain) starts now
+            self._promote_staged()
+        except asyncio.CancelledError:
+            log.info("%s: batch %s preempted", self._me, batch.key)
+            raise
+        except Exception as e:
+            log.exception("%s: batch %s failed", self._me, batch.key)
+            _M_BATCH_FAILS.inc(model=batch.model)
+            # tell the coordinator so it requeues the batch and frees
+            # this worker — silence would wedge the job forever
+            self.node.send_unique(
+                coordinator if self.node.leader_unique is None else self.node.leader_unique,
+                MsgType.WORKER_TASK_FAIL,
+                {"job": batch.job_id, "batch": batch.batch_id, "error": str(e)},
+            )
+            # the staged batch is independent work: run it (the
+            # coordinator's on_batch_failed does the same promotion)
+            self._promote_staged()
+        finally:
+            if ctx_token is not None:
+                CURRENT_CTXS.reset(ctx_token)
+            if fanout is not None:
+                # idempotent: normal completion already closed; this
+                # covers failure/preemption — a stream always EOFs
+                fanout.close()
+            t = self._running.get(batch.key)
+            if t is not None and t is asyncio.current_task():
+                del self._running[batch.key]
+
+    async def _fetch_inputs(self, batch: Batch) -> List[str]:
+        """Materialize the batch's images locally: local store hit if
+        this node replicates the file, else pull from a live replica
+        over the data plane (reference scp-per-image,
+        run_inference_cli worker.py:1361-1386)."""
+        dl = self.store.cfg.download_path()
+        os.makedirs(dl, exist_ok=True)
+        paths: List[str] = []
+        for f in batch.files:
+            want = batch.versions.get(f, 0) or None
+            if self.store.store.has(f, want):
+                paths.append(self.store.store.get_path(f, want))
+                continue
+            # version-qualified cache name: a re-PUT of the same sdfs
+            # name must never be served from a stale cached download
+            dest = os.path.join(dl, f"{f.replace('/', '_')}.v{want or 'latest'}")
+            if want is not None and os.path.exists(dest):
+                paths.append(dest)
+                continue
+            fetched = False
+            for uname in batch.replicas.get(f, []):
+                node = self.node.spec.node_by_unique_name(uname)
+                if node is None:
+                    continue
+                try:
+                    data, _ = await self.store.data_plane.fetch_from_store(
+                        data_addr(node), f, want
+                    )
+                    with open(dest, "wb") as fh:
+                        fh.write(data)
+                    paths.append(dest)
+                    fetched = True
+                    break
+                except Exception:
+                    continue
+            if not fetched:
+                raise RuntimeError(f"no live replica served {f}")
+        return paths
+
+    # ------------------------------------------------------------------
+    # client-side completion handler
+    # ------------------------------------------------------------------
+
+    async def _h_job_success(self, msg: Message, addr) -> None:
+        job_id = int(msg.data.get("job_id", -1))
+        fut = self._job_done.setdefault(
+            job_id, asyncio.get_running_loop().create_future()
+        )
+        if not fut.done():
+            fut.set_result(dict(msg.data))
+
+    # ------------------------------------------------------------------
+    # model-weight distribution (store-backed; inference/weights.py)
+    # ------------------------------------------------------------------
+
+    async def publish_model(self, model: str) -> Dict[str, Any]:
+        """Publish this node's current weights for `model` into the
+        replicated store (loads/initializes the model first if needed)."""
+        from ..inference.weights import publish_weights
+        from ..models.params_io import to_flax_variables
+
+        eng = self._ensure_engine()
+        name = get_model(model).name
+        if name not in eng.loaded_models:
+            await asyncio.to_thread(eng.load_model, name)
+        lm = eng._require(name)
+        variables = await asyncio.to_thread(
+            to_flax_variables, lm.module.state_dict(), lm.module
+        )
+        return await publish_weights(self.store, name, variables)
+
+    async def load_model_weights(
+        self, model: str, version: Optional[int] = None
+    ) -> None:
+        """Fetch published weights from the store and (re)load the
+        serving engine with them."""
+        from ..inference.weights import fetch_weights
+
+        from ..inference.weights import weights_name
+
+        eng = self._ensure_engine()
+        name = get_model(model).name
+        if version is None:
+            # pin "latest" NOW: the served version must be recoverable
+            # later even if newer versions get published in between
+            listing = await self.store.ls_all(weights_name(name))
+            vs = listing.get(weights_name(name))
+            version = max(vs) if vs else None
+        variables = await fetch_weights(self.store, name, version=version)
+        # engine.load_model keeps the serving batch size across a
+        # reload (a C3 set_batch_size survives a weight rollout)
+        await asyncio.to_thread(eng.load_model, name, variables)
+        # the GROUP engine must serve the same weights: group-served
+        # and single-chip answers for one model may never differ by
+        # formation state (jobs/groups.py group_engine_backend)
+        setv = getattr(self._group_backend, "set_variables", None)
+        if setv is not None:
+            setv(name, variables)
+        self._served_weight_version[name] = version
+
+    JOBS_CKPT_NAME = "coordinator_jobs.ckpt"
+
+    async def checkpoint_jobs(self) -> Dict[str, Any]:
+        """Coordinator-only: snapshot the scheduler (queues, in-flight
+        folded to queue fronts, job states, counters, measured costs)
+        into the replicated store. Survives a FULL cluster restart —
+        the hot-standby relay (reference worker.py:887-919) only
+        survives single-leader failover."""
+        if self._me != self.node.leader_unique:
+            raise RuntimeError("checkpoint-jobs runs on the coordinator")
+        snap = self.scheduler.snapshot()
+        return await self.store.put_bytes(
+            self.JOBS_CKPT_NAME, json.dumps(snap).encode()
+        )
+
+    async def restore_jobs(
+        self, version: Optional[int] = None, force: bool = False
+    ) -> Dict[str, Any]:
+        """Coordinator-only: restore a checkpoint_jobs() snapshot and
+        resume scheduling the recovered queues.
+
+        Refuses while jobs are live unless `force=True`: restore()
+        replaces scheduler state wholesale, so a job submitted after
+        the snapshot would vanish and its client would hang."""
+        if self._me != self.node.leader_unique:
+            raise RuntimeError("restore-jobs runs on the coordinator")
+        if self.scheduler.jobs and not force:
+            raise RuntimeError(
+                f"{len(self.scheduler.jobs)} job(s) in flight would be "
+                "dropped by the restore; pass force to override"
+            )
+        if version is None:
+            # pin the version now so the standby relay below restores
+            # the exact same snapshot
+            version = self.store.metadata.latest_version(self.JOBS_CKPT_NAME)
+        snap = json.loads(
+            await self.store.get_bytes(self.JOBS_CKPT_NAME, version=version)
+        )
+        self.scheduler.restore(snap)
+        stats = {
+            "jobs": len(self.scheduler.jobs),
+            "queued_batches": sum(
+                len(q) for q in self.scheduler.queues.values()
+            ),
+        }
+        # bump the relay generation FIRST: every relay sent from here
+        # on (job submits, batch acks) carries gen >= this restore's,
+        # so the standby can tell post-restore relays from pre-restore
+        # ones regardless of UDP arrival order
+        self._relay_gen += 1
+        # bring the hot-standby's shadow up to the restored state —
+        # without this, a failover right after a restore would promote
+        # an empty shadow and drop every restored job. Retried until
+        # the standby ACKs: one lost datagram must not silently void
+        # the failover guarantee.
+        # tracked via _spawn_bg (same teardown/logging contract as the
+        # shadow-restore task above)
+        self._spawn_bg(
+            self._relay_restore_to_standby(version, self._relay_gen),
+            "restore-relay",
+        )
+        self._run_schedule()
+        return stats
+
+    async def _relay_restore_to_standby(self, version: int, gen: int) -> None:
+        for _ in range(5):
+            sb = self.store.standby_node()
+            if sb is None or sb.unique_name == self._me:
+                return
+            try:
+                reply = await self.node.request(
+                    sb, MsgType.JOBS_RESTORE_RELAY,
+                    {"version": version, "gen": gen},
+                    timeout=10.0,
+                )
+                if reply.get("ok"):
+                    return
+            except (TimeoutError, asyncio.TimeoutError):
+                continue  # request() already waited out its timeout
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                # not just timeouts: ANY failure (encode error, socket
+                # down, ...) must keep the retry loop alive so the
+                # final "never acked" warning below is always reached
+                # instead of the task dying silently. Fast-failing
+                # errors need real spacing or all 5 attempts burn in
+                # microseconds.
+                log.exception(
+                    "%s: restore relay attempt failed", self._me
+                )
+                await asyncio.sleep(1.0)
+                continue
+            await asyncio.sleep(1.0)  # replied but not ok: space retries
+        log.warning(
+            "%s: standby never acked snapshot v%d — its shadow may be "
+            "stale until the next checkpoint", self._me, version,
+        )
+
+    def engine_memory_stats(self) -> Dict[str, Dict[str, float]]:
+        """Resident models + device-memory footprint (empty if the engine never
+        started — don't build one just to report nothing)."""
+        return self._engine.memory_stats() if self._engine else {}
+
+    def unload_model(self, model: str) -> bool:
+        """Evict a model's weights from device memory on this node."""
+        return bool(self._engine) and self._engine.unload_model(model)
+
+    def _ensure_engine(self):
+        if self._engine is None:
+            from ..inference.engine import InferenceEngine
+
+            self._engine = InferenceEngine()
+        return self._engine
+
+    # ------------------------------------------------------------------
+    # default inference backend: the port's InferenceEngine (cuda; K1 a chunk)
+    # ------------------------------------------------------------------
+
+    async def _ensure_model_loaded(self, model: str):
+        eng = self._ensure_engine()
+        if model not in eng.loaded_models:
+            if eng.evicted_with_explicit_weights(model):
+                # recover the SAME weights the node was serving before
+                # the eviction (pinned version — "latest" may since
+                # have moved past a deliberate rollback); any other
+                # load failure (OOM etc.) propagates untouched
+                pinned = self._served_weight_version.get(
+                    get_model(model).name
+                )
+                log.warning(
+                    "%s: %s evicted with explicit weights; refetching "
+                    "v%s from the store", self._me, model, pinned,
+                )
+                await self.load_model_weights(model, version=pinned)
+            else:
+                await asyncio.to_thread(eng.load_model, model)
+        return eng
+
+    async def _engine_backend(
+        self, model: str, paths: List[str]
+    ) -> Tuple[Dict[str, Any], float, Optional[Dict[str, float]]]:
+        eng = await self._ensure_model_loaded(model)
+        res = await eng.infer_files_async(model, paths)
+        return res.to_json_dict(), res.infer_time, eng.cost_constants(model)
+
+    async def _engine_infer_prepared(
+        self, model: str, paths: List[str], imgs
+    ) -> Tuple[Dict[str, Any], float, Optional[Dict[str, float]]]:
+        """Pipelined engine path: inputs are already decoded. Enqueues
+        the device forward WITHOUT blocking (infer_arrays_nowait),
+        promotes the staged batch so its dispatch overlaps this
+        batch's drain, then drains in a thread: the per-batch
+        round-trip latency becomes pipeline depth."""
+        from ..models.labels import decode_predictions
+
+        eng = await self._ensure_model_loaded(model)
+        t0 = time.monotonic()
+        loop = asyncio.get_running_loop()
+
+        def dispatch_and_drain():
+            # dispatch AND drain off the event loop: the pinned copy,
+            # the forward's launches and the readback block for
+            # milliseconds, which on the loop would stall the whole
+            # control plane (heartbeats, ACKs, scheduling) per batch
+            handle = eng.infer_arrays_nowait(model, imgs)
+            # batch N+1 dispatches while we drain batch N
+            loop.call_soon_threadsafe(self._promote_staged)
+            return handle()
+
+        probs = await asyncio.to_thread(dispatch_and_drain)
+        infer_time = time.monotonic() - t0
+        top5 = decode_predictions(probs)
+        results = {
+            p: [
+                {"wnid": w, "label": lbl, "score": s}
+                for (w, lbl, s) in t
+            ]
+            for p, t in zip(paths, top5)
+        }
+        return results, infer_time, eng.cost_constants(model)

@@ -151,6 +151,45 @@ def from_flax_variables(
     return sd
 
 
+def to_flax_variables(state_dict: Mapping[str, torch.Tensor],
+                      module: Optional[nn.Module] = None) -> Dict[str, Any]:
+    """Inverse of `from_flax_variables`: a model's state_dict -> the JAX
+    package's nested `{'params': ..., 'batch_stats': ...}` tree of
+    float32 CPU tensors in the Flax layout, which `variables_to_bytes`
+    writes as a weights file a JAX node loads. With `module`, a BN layer
+    built without a scale (its `weight` a buffer of ones, InceptionV3)
+    gets no `scale` leaf, as in Flax."""
+    scaleless = set()
+    if module is not None:
+        scaleless = {name for name, m in module.named_modules()
+                     if "weight" in getattr(m, "_buffers", {})}
+    tree: Dict[str, Any] = {"params": {}, "batch_stats": {}}
+    for key, value in state_dict.items():
+        layer, _, leaf = key.rpartition(".")
+        arr = value.detach().to("cpu", torch.float32)
+        if leaf == "num_batches_tracked":
+            continue
+        if leaf == "weight" and arr.ndim == 4:
+            top, name, arr = "params", "kernel", arr.permute(2, 3, 1, 0)  # OIHW -> HWIO
+        elif leaf == "weight" and arr.ndim == 2:
+            top, name, arr = "params", "kernel", arr.t()  # [out, in] -> [in, out]
+        elif leaf == "weight" and arr.ndim == 1:
+            if layer in scaleless:
+                continue
+            top, name = "params", "scale"
+        elif leaf == "bias":
+            top, name = "params", "bias"
+        elif leaf in ("running_mean", "running_var"):
+            top, name = "batch_stats", leaf[len("running_"):]
+        else:
+            raise KeyError(f"no Flax counterpart for state_dict entry {key!r}")
+        node = tree[top]
+        for part in layer.split("."):
+            node = node.setdefault(part, {})
+        node[name] = arr.contiguous()
+    return {k: v for k, v in tree.items() if v}
+
+
 def image_train_state_from_flax(state: Mapping[str, Any], device=None) -> Dict[str, Any]:
     """The JAX package's `Trainer.state` (`{"params", "batch_stats",
     "opt_state", "step"}` with numpy or array leaves; `opt_state` is

@@ -80,7 +80,18 @@ def test_no_jax_import():
             "dml_tpu_torch/models/params_io.py", "dml_tpu_torch/parallel/ring_attention.py",
             "dml_tpu_torch/parallel/ulysses.py", "dml_tpu_torch/parallel/moe.py",
             "dml_tpu_torch/parallel/mesh.py", "dml_tpu_torch/parallel/pipeline.py",
-            "dml_tpu_torch/inference/lm_sharded.py"} <= rel
+            "dml_tpu_torch/inference/lm_sharded.py", "dml_tpu_torch/tracing.py",
+            "dml_tpu_torch/signal.py", "dml_tpu_torch/autoscale.py",
+            "dml_tpu_torch/cluster/wire.py", "dml_tpu_torch/cluster/transport.py",
+            "dml_tpu_torch/cluster/util.py", "dml_tpu_torch/cluster/membership.py",
+            "dml_tpu_torch/cluster/election.py", "dml_tpu_torch/cluster/introducer.py",
+            "dml_tpu_torch/cluster/node.py", "dml_tpu_torch/cluster/store_service.py",
+            "dml_tpu_torch/cluster/store/local_store.py",
+            "dml_tpu_torch/cluster/store/metadata.py",
+            "dml_tpu_torch/cluster/store/data_plane.py", "dml_tpu_torch/ingress/slo.py",
+            "dml_tpu_torch/jobs/cost_model.py", "dml_tpu_torch/jobs/scheduler.py",
+            "dml_tpu_torch/jobs/train.py", "dml_tpu_torch/jobs/groups.py",
+            "dml_tpu_torch/jobs/service.py", "dml_tpu_torch/inference/weights.py"} <= rel
     bad = [
         f"{os.path.relpath(path, ROOT)}:{node.lineno}: {name}"
         for path in _port_files()
@@ -112,6 +123,8 @@ def test_importing_the_port_loads_no_kernel_library():
         "import dml_tpu_torch.inference.lm_backend, dml_tpu_torch.inference.kv_cache; "
         "import dml_tpu_torch.models.params_io, dml_tpu_torch.config; "
         "import dml_tpu_torch.parallel.pipeline, dml_tpu_torch.inference.lm_sharded; "
+        "import dml_tpu_torch.jobs, dml_tpu_torch.jobs.service, dml_tpu_torch.autoscale; "
+        "import dml_tpu_torch.cluster.introducer, dml_tpu_torch.inference.weights; "
         "assert nl._loader is None and nl._error is None; "
         "assert not b._loaded, b._loaded; "
         "bad = [m for m in set(sys.modules) - before "

@@ -213,15 +213,24 @@ def test_serve_prefilled_adopts_jax_slabs(both):
 
 
 def test_cost_waits_for_the_jobs_layer(both):
-    _, tp = both
+    """`cost()` is the port's jobs-layer `ModelCost`, field for field the
+    JAX backend's on the same server shape."""
+    import dataclasses
+
+    from dml_tpu_torch.jobs.cost_model import ModelCost
+
+    jp, tp = both
     be = tlb.LMBackend(tp, CFG, max_slots=3, max_len=32, chunk=2)
+    jbe = jlb.LMBackend(jp, JCFG, max_slots=3, max_len=32, chunk=2)
     try:
-        with pytest.raises(NotImplementedError, match="A6"):
-            be.cost()
-        assert be.cost_constants()["batch_size"] == 3
+        cost = be.cost()
+        assert isinstance(cost, ModelCost)
+        assert dataclasses.asdict(cost) == dataclasses.asdict(jbe.cost())
+        assert cost.batch_size == be.cost_constants()["batch_size"] == 3
         assert be.kv_cache_stats() is None and be.spec_stats() is None
     finally:
         be.close()
+        jbe.close()
 
 
 # ----------------------------------------------------------------------
