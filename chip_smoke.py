@@ -9,6 +9,7 @@
     python3 chip_smoke.py --seq-parallel  # phases 1-2 and 15 (sequence, expert parallelism) alone
     python3 chip_smoke.py --pipeline      # phases 1-2 and 16 (pipeline, pp/tp LM serving) alone
     python3 chip_smoke.py --cluster       # phases 1-2 and 17 (a port cluster serving jobs) alone
+    python3 chip_smoke.py --ingress       # phases 1-2 and 18 (per-request traffic) alone
 
 Phases, each printing one JSON line (with `t_s`, the seconds since the
 script started); any failure exits non-zero:
@@ -314,12 +315,30 @@ script started); any failure exits non-zero:
    (TIE_MARGIN). Per model C1 images/s over each job and C2 p50/p99,
    the per-batch fetch/decode/infer/put medians, the committed
    pipeline depth and LM tokens/s.
+18. ingress: the request front door. A port `cluster.chaos.LocalCluster`
+   of 4 nodes with the front door (a RequestRouter on every node), on
+   probed ports, every node a JobService on one InferenceEngine (cuda,
+   bf16, ResNet50 b32, seeded weights) and its own LMBackend of the
+   198M LM (8 slots, chunk 32, a KV prefix cache). Arm 1: an open-loop
+   trace of 128 interactive ResNet50 requests at 100/s, each pinned to
+   one of 64 seeded JPEGs in the store. Arm 2: 3 streamed sessions of 3
+   turns (batch class, 16-token suffixes, budget 32) through
+   `loadgen.run_sessions`. Arm 3: arm 1's trace with the leader crashed
+   when half the requests were submitted. Every request reaches exactly
+   one terminal, none completes twice, none of arm 1 is lost; completed
+   top-5 equals the engine's infer_files (scores within 1e-6); each
+   turn equals a lone LMBackend serve of the same history up to a
+   near-tie; K1 launched once per engine chunk, K2 and K4 by phase 12's
+   formula. Per arm: completed, shed, rejected, lost, e2e p50/p99 and
+   completions a second; tokens a second, TTFT p50/p99 by turn and the
+   session-affinity hits and misses for arm 2.
 
 Then the card's name and power limit as nvidia-smi prints them, the
 kernels' summary line (K1's launches by path: serving, training,
-cluster and, for ResNet50, parallel; K2's and K4's: generate, train,
-lm_server, moe, seq_parallel, pipeline and cluster; K3's and the delta kernel's: train, moe and
-seq_parallel), and last `{"ok": true, "device": {...}}`.
+cluster, ingress and, for ResNet50, parallel; K2's and K4's: generate,
+train, lm_server, moe, seq_parallel, pipeline, cluster and ingress; K3's
+and the delta kernel's: train, moe and seq_parallel), and last
+`{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -3853,26 +3872,30 @@ CLUSTER_PORTS = (50000, 54999)  # base ports probed here; the data plane at +100
 
 
 def free_port_block(n):
-    """A base port B with B-1 .. B+n-1 and B+9999 .. B+n+9999 free to bind
-    on 127.0.0.1 (UDP and TCP) now: the introducer, the nodes and their
-    store data planes."""
+    """A base port B such that the introducer and the nodes can bind UDP at
+    B-1 .. B+n-1 and their store data planes TCP at B+9999 .. B+n+9999 on
+    127.0.0.1 now (TCP with SO_REUSEADDR, as asyncio's server binds, so an
+    earlier listener's TIME_WAIT does not count as taken)."""
     import random
     import socket
+
+    def free(kind, port):
+        s = socket.socket(socket.AF_INET, kind)
+        try:
+            if kind == socket.SOCK_STREAM:
+                s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            s.bind(("127.0.0.1", port))
+            return True
+        except OSError:
+            return False
+        finally:
+            s.close()
 
     rng = random.Random(os.getpid())
     for _ in range(200):
         base = rng.randrange(CLUSTER_PORTS[0] + 1, CLUSTER_PORTS[1] - n)
-        ok = True
-        for port in [p + off for p in range(base - 1, base + n) for off in (0, 10000)]:
-            for kind in (socket.SOCK_DGRAM, socket.SOCK_STREAM):
-                s = socket.socket(socket.AF_INET, kind)
-                try:
-                    s.bind(("127.0.0.1", port))
-                except OSError:
-                    ok = False
-                finally:
-                    s.close()
-        if ok:
+        if all(free(socket.SOCK_DGRAM, p) and free(socket.SOCK_STREAM, p + 10000)
+               for p in range(base - 1, base + n)):
             return base
     raise RuntimeError(f"no free block of {n + 1} ports in {CLUSTER_PORTS}")
 
@@ -4150,6 +4173,342 @@ def phase_cluster(timer):
             "decode_attention": lm_launches["decode_attention"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the request front door, per-request traffic through a port
+# LocalCluster
+# ---------------------------------------------------------------------------
+
+INGRESS_NODES, INGRESS_FILES = 4, 64
+INGRESS_REQUESTS, INGRESS_QPS = 128, 100.0  # arms 1 and 3: one request each 10 ms on average
+INGRESS_SESSIONS = dict(n_sessions=3, turns=3, suffix_len=16, budget=32)  # arm 2
+INGRESS_KV_BYTES = 256 << 20  # each node's KV prefix cache
+INGRESS_JOIN_SPAN = 132  # LocalCluster's runtime joiners take base + n + 100 onward
+
+
+class _OneRequest:
+    """A router's client verbs for one request, keeping its terminal (the
+    load generator's Outcome keeps only whether it had a result)."""
+
+    def __init__(self, ingress):
+        self.ingress, self.rids, self.terminal = ingress, [], None
+
+    async def submit(self, *a, **kw):
+        rid = await self.ingress.submit(*a, **kw)
+        self.rids.append(rid)
+        return rid
+
+    async def wait(self, rid, **kw):
+        self.terminal = await self.ingress.wait(rid, **kw)
+        return self.terminal
+
+
+def _arm_summary(loadgen, outcomes, wall):
+    s = loadgen.summarize(outcomes, wall)
+    return {"requests": s["n"], "completed": s["completed"], "shed": s["shed"],
+            "rejected": sum(o.terminal == "rejected" for o in outcomes),
+            "lost": sum(o.terminal == "lost" for o in outcomes),
+            "e2e_ms_p50": s["latency_ms"]["p50"], "e2e_ms_p99": s["latency_ms"]["p99"],
+            "completed_per_s": s["completed"] / wall, "wall_s": wall,
+            "shed_ratio": s["shed_ratio"]}
+
+
+def _where_time_goes(metrics, js, since, model, wait0):
+    """Medians (ms) of the coordinator's per-batch stages for `model`'s
+    batches ACKed after `since` (a `batch_timing` length), and the router's
+    mean admission-to-dispatch wait since the `wait0` snapshot."""
+    rows = [r for r in list(js.batch_timing)[since:] if r["model"] == model]
+    wait = _queue_wait(metrics)
+    n, total = wait[0] - wait0[0], wait[1] - wait0[1]
+    return dict({k: _median([r[k] * 1e3 for r in rows])
+                 for k in ("fetch", "backend", "infer", "put", "exec")},
+                batches=len(rows), queue_wait_ms_mean=total / n * 1e3 if n else None)
+
+
+def _queue_wait(metrics):
+    items = metrics.histogram("request_queue_wait_seconds").items()
+    return sum(st[0] for _, st in items), sum(st[1] for _, st in items)
+
+
+async def _run_ingress(tmp, engine, lm_make, out):
+    """A port LocalCluster of INGRESS_NODES nodes with the front door,
+    every node a JobService on `engine` and its own LM backend; arm 1
+    (pinned image requests), arm 2 (streamed LM sessions), arm 3 (arm 1's
+    trace with the leader crashed halfway). Fills `out`; returns what the
+    checks after the main path need."""
+    import asyncio
+    import threading
+
+    import torch
+    from dml_tpu_torch.cluster.chaos import LocalCluster
+    from dml_tpu_torch.config import Timing
+    from dml_tpu_torch.ingress import loadgen
+    from dml_tpu_torch.jobs.service import JobService
+    from dml_tpu_torch.observability import METRICS
+
+    backends = []
+
+    def make_jobs(node, store):
+        js = JobService(node, store, engine=engine)
+        be = lm_make(kv=True)
+        backends.append(be)
+        js.register_lm("LM198M", backend=be.backend, cost=be.cost(),
+                       patterns=("*.tokens.txt", "ingress_*.req"))
+        return js
+
+    base = free_port_block(INGRESS_NODES + INGRESS_JOIN_SPAN)
+    c = LocalCluster(INGRESS_NODES, os.path.join(tmp, "cluster"), base, with_ingress=True,
+                     make_jobs=make_jobs,
+                     timing=Timing(ping_interval=0.2, ack_timeout=0.3, cleanup_time=1.0,
+                                   leader_rpc_timeout=10.0))
+    chunks, lock = [0], threading.Lock()
+    dispatch = engine._dispatch_chunk
+
+    def counted_dispatch(lm, chunk, *a, **kw):  # the workers' threads call it
+        with lock:
+            chunks[0] += 1
+        return dispatch(lm, chunk, *a, **kw)
+
+    def counter(name):
+        return sum(v for _, v in METRICS.counter(name).items())
+
+    try:
+        t0 = time.monotonic()
+        await c.start()
+        await c.wait_for(c.converged, 30.0, "the port cluster's convergence")
+        out["converge_s"] = time.monotonic() - t0
+        client = c.client()
+        rng = np.random.RandomState(18)
+        imgs = np.clip(rng.randint(0, 256, (INGRESS_FILES, 256, 256, 3)) // 2
+                       + rng.randint(0, 128, (INGRESS_FILES, 1, 1, 3)), 0, 255).astype(np.uint8)
+        os.makedirs(os.path.join(tmp, "in"))
+        files = write_images(os.path.join(tmp, "in"), imgs, "jpeg")
+        for f in files:
+            await client.store.put(f, os.path.basename(f))
+        # one request before the counted run: the scheduler measures its costs
+        warm = await client.ingress.request("ResNet50", store_name=os.path.basename(files[0]),
+                                            timeout=120.0)
+        check(warm.get("ok"), f"warm-up request: {warm}")
+        trace = loadgen.open_loop_trace(18, 2.0 * INGRESS_REQUESTS / INGRESS_QPS, INGRESS_QPS,
+                                        model="ResNet50")
+        check(len(trace.arrivals) >= INGRESS_REQUESTS, "the trace is short")
+        trace.arrivals = trace.arrivals[:INGRESS_REQUESTS]
+
+        async def image_arm(kill_at=None):
+            """The pinned image trace; returns (outcomes, wall, terminals,
+            request ids per arrival, the crashed leader, where the time
+            went)."""
+            coord = c.nodes[c.leader_uname()].jobs
+            since, wait0 = len(coord.batch_timing), _queue_wait(METRICS)
+            recs, killed, n_sub = [None] * len(trace.arrivals), {}, [0]
+            index = {id(a): i for i, a in enumerate(trace.arrivals)}
+
+            async def submit(a):
+                i = index[id(a)]
+                n_sub[0] += 1
+                if kill_at is not None and n_sub[0] == kill_at:
+                    killed["leader"] = c.leader_uname()
+                    killed["task"] = asyncio.ensure_future(c.crash_node(killed["leader"]))
+                recs[i] = _OneRequest(client.ingress)
+                return await loadgen.drive_one(
+                    recs[i], a, store_name=os.path.basename(files[i % len(files)]),
+                    submit_timeout=8.0, wait_timeout=90.0)
+
+            outcomes, wall = await loadgen.run_open_loop(submit, trace)
+            if "task" in killed:
+                await killed["task"]
+            return (outcomes, wall, [r.terminal for r in recs], [r.rids for r in recs],
+                    killed.get("leader"),
+                    _where_time_goes(METRICS, coord, since, "ResNet50", wait0))
+
+        engine._dispatch_chunk = counted_dispatch
+        arms, counts = {}, {}
+        try:
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            # ---- arm 1: pinned image requests
+            ch0 = chunks[0]
+            arms["images"] = await image_arm()
+            torch.cuda.synchronize()
+            counts["images"] = dict(launch_counts(), chunks=chunks[0] - ch0)
+            # ---- arm 2: streamed multi-turn LM sessions
+            d0, l0 = server_dispatches(), launch_counts()
+            hits0 = counter("request_session_affinity_hits_total")
+            miss0 = counter("request_session_affinity_misses_total")
+            kv0 = [be.kv_cache_stats() for be in backends]
+            coord = c.nodes[c.leader_uname()].jobs
+            since, wait0 = len(coord.batch_timing), _queue_wait(METRICS)
+            strace = loadgen.multi_turn_trace(18, model="LM198M", slo="batch",
+                                              vocab=LM_CFG["vocab_size"], **INGRESS_SESSIONS)
+            s_out, s_wall, transcripts = await loadgen.run_sessions(
+                client.ingress, strace, wait_timeout=120.0)
+            torch.cuda.synchronize()
+            l1 = launch_counts()
+            d = {k: v - d0[k] for k, v in server_dispatches().items()}
+            counts["sessions"] = dict({k: l1[k] - l0[k] for k in l1}, dispatches=d)
+            kv1 = [be.kv_cache_stats() for be in backends]
+            lm_stages = _where_time_goes(METRICS, coord, since, "LM198M", wait0)
+            affinity = {"hits": counter("request_session_affinity_hits_total") - hits0,
+                        "misses": counter("request_session_affinity_misses_total") - miss0}
+            # ---- arm 3: arm 1's trace, the leader crashed at half the submits
+            l2, ch2 = launch_counts(), chunks[0]
+            arms["failover"] = await image_arm(kill_at=INGRESS_REQUESTS // 2)
+            torch.cuda.synchronize()
+            l3 = launch_counts()
+            counts["failover"] = dict({k: l3[k] - l2[k] for k in l3}, chunks=chunks[0] - ch2)
+            total = launch_counts()
+        finally:
+            engine._dispatch_chunk = dispatch
+        conflicts = sum(sn.ingress.terminal_conflicts for sn in c.nodes.values()
+                        if sn.ingress is not None)
+    finally:
+        await c.stop()
+        for be in backends:
+            be.close()
+    # ---- what each arm must show
+    for arm in ("images", "failover"):
+        outcomes, wall, terms, rids = arms[arm][:4]
+        check(len(outcomes) == INGRESS_REQUESTS and all(t is not None for t in terms),
+              f"{arm}: {len(outcomes)} terminals for {INGRESS_REQUESTS} requests")
+        check(all(o.terminal in ("completed", "shed", "rejected", "lost") for o in outcomes),
+              f"{arm}: a terminal of no kind")
+        done = [r[-1] for o, r in zip(outcomes, rids) if o.terminal == "completed"]
+        check(len(set(done)) == len(done), f"{arm}: a request id completed twice")
+        check(all(o.has_result for o in outcomes if o.terminal == "completed"),
+              f"{arm}: a completion without its result")
+        if arm == "images":
+            check(not any(o.terminal == "lost" for o in outcomes), "images: a request was lost")
+            check(sum(o.terminal == "completed" for o in outcomes) > 0, "images: none completed")
+    check(conflicts == 0, f"{conflicts} terminal conflicts (a request settled twice)")
+    check(any(o.terminal == "completed" for o in arms["failover"][0]),
+          "failover: no request completed across the leader crash")
+    for arm in ("images", "failover"):
+        n = counts[arm]
+        check(n["chunks"] > 0 and {k: n[k] for k in n if k != "chunks"} == {
+            "normalize": n["chunks"], "flash_attention": 0, "flash_bwd": 0, "flash_bwd_delta": 0,
+            "decode_attention": 0}, f"{arm}: launched {n} (K1 one a chunk)")
+    n = counts["sessions"]
+    want = check_server_launches("LM sessions", {k: n[k] for k in n if k != "dispatches"},
+                                 n["dispatches"], LM_CFG["n_layers"], LMS_CHUNK)
+    check(all(o.terminal == "completed" for o in s_out), "sessions: a turn did not complete")
+    tokens = sum(len(t) for tx in transcripts.values() for t in tx)
+    by_turn = {}
+    for o in s_out:
+        by_turn.setdefault(o.turn, []).append(o.ttft_s * 1e3)
+    out["images"] = dict(_arm_summary(loadgen, arms["images"][0], arms["images"][1]),
+                         stages_ms=arms["images"][5], launches=counts["images"])
+    out["sessions"] = dict(
+        _arm_summary(loadgen, s_out, s_wall), tokens=tokens, tokens_per_s=tokens / s_wall,
+        ttft_ms_by_turn={t: {"p50": _pct(v, 50), "p99": _pct(v, 99)}
+                         for t, v in sorted(by_turn.items())},
+        session_affinity=affinity, stages_ms=lm_stages,
+        kv_cache={k: sum(b[k] - a[k] for a, b in zip(kv0, kv1)) for k in kv1[0]
+                  if isinstance(kv1[0][k], (int, float))},
+        launches={k: v for k, v in n.items() if k != "dispatches"}, server_dispatches=n["dispatches"],
+        formula=want)
+    out["failover"] = dict(_arm_summary(loadgen, arms["failover"][0], arms["failover"][1]),
+                           crashed_leader=arms["failover"][4], terminal_conflicts=conflicts,
+                           stages_ms=arms["failover"][5],
+                           launches=counts["failover"])
+    out["launches"] = total
+    images = {arm: [(files[i % len(files)], t["result"]) for i, (o, t) in
+                    enumerate(zip(arms[arm][0], arms[arm][2])) if o.terminal == "completed"]
+              for arm in ("images", "failover")}
+    return total, images, strace, transcripts
+
+
+def phase_ingress():
+    """The request front door on a port LocalCluster (phase 18): pinned
+    ResNet50 requests, streamed sessions of the 198M LM, and a leader crash
+    mid-trace; returns the path's launches: K1, K2 and K4."""
+    import asyncio
+
+    import torch
+    from dml_tpu_torch.inference import InferenceEngine
+    from dml_tpu_torch.inference import generate as gen
+    from dml_tpu_torch.inference.lm_backend import LMBackend, write_prompt_file
+    from dml_tpu_torch.models.lm_params import init_lm_params
+    from dml_tpu_torch.models.registry import get_model
+
+    t_phase = time.monotonic()
+    eng = InferenceEngine(dtype=torch.bfloat16)  # device None -> cuda
+    check(eng.device.type == "cuda", f"engine on {eng.device}")
+    eng.load_model("ResNet50", variables=seeded_weights(get_model("ResNet50"), seed=0),
+                   batch_size=BATCH)
+    cfg = gen.LMConfig(**LM_CFG, dtype=torch.bfloat16)
+    params = gen.serving_params(init_lm_params(cfg, seed=0), cfg)
+
+    def lm_make(kv):
+        return LMBackend(params, cfg, max_new_tokens=64, max_slots=LMS_SLOTS,
+                         max_len=LMS_MAX_LEN, chunk=LMS_CHUNK,
+                         kv_cache_bytes=INGRESS_KV_BYTES if kv else 0)
+
+    out = {"nodes": INGRESS_NODES, "files": INGRESS_FILES,
+           "engine": f"{eng.device} {eng.dtype} b{BATCH}, one for all nodes",
+           "lm": f"198M GQA-4 bf16 on every node: {LMS_SLOTS} slots, chunk {LMS_CHUNK}, "
+                 f"KV prefix cache {INGRESS_KV_BYTES >> 20} MiB",
+           "arms": {"images": f"{INGRESS_REQUESTS} ResNet50 requests, interactive, "
+                              f"open loop at {INGRESS_QPS:g}/s, each pinned to one of "
+                              f"{INGRESS_FILES} JPEGs",
+                    "sessions": f"multi_turn_trace {INGRESS_SESSIONS}, batch class, streamed",
+                    "failover": "the images arm's trace, the leader crashed at half the "
+                                "submits"}}
+    with tempfile.TemporaryDirectory() as tmp:
+        total, images, strace, transcripts = asyncio.run(
+            asyncio.wait_for(_run_ingress(tmp, eng, lm_make, out), 600))
+        # completed image results against the engine called directly
+        direct = {os.path.basename(k): v for k, v in
+                  eng.infer_files("ResNet50", sorted({f for rows in images.values()
+                                                     for f, _ in rows})).to_json_dict().items()}
+        worst = 0.0
+        for arm, rows in images.items():
+            for f, got in rows:
+                want = direct[os.path.basename(f)]
+                check([r["wnid"] for r in got] == [r["wnid"] for r in want],
+                      f"{arm} {os.path.basename(f)}: top-5 {[r['wnid'] for r in got]} != the "
+                      f"engine's {[r['wnid'] for r in want]}")
+                worst = max(worst, max(abs(a["score"] - b["score"]) for a, b in zip(got, want)))
+        check(worst <= 1e-6, f"request scores differ from the engine's by {worst} (> 1e-6)")
+        out["vs_engine_infer_files"] = {"max_abs_score_diff": worst, "bar": 1e-6}
+        # each turn against the lone LMBackend serve of the same history
+        turns, history = [], {}
+        for a in sorted(strace.arrivals, key=lambda x: (x.session, x.turn)):
+            got = transcripts[a.session][a.turn - 1]
+            prompt = history.get(a.session, []) + list(a.suffix)
+            turns.append((np.asarray(prompt, np.int32), int(a.budget), got))
+            history[a.session] = prompt + got
+        paths = []
+        for i, (p, b, _) in enumerate(turns):
+            paths.append(os.path.join(tmp, f"turn{i}.tokens.txt"))
+            write_prompt_file(paths[-1], p, max_new_tokens=b)
+        be = lm_make(kv=False)
+        try:
+            lone, _, _ = be.serve_files(paths)
+        finally:
+            be.close()
+        equal = ties = 0
+        for i, (p, b, got) in enumerate(turns):
+            want = lone[paths[i]]["tokens"]
+            check(len(got) == b, f"turn {i}: {len(got)} tokens, budget {b}")
+            if got == want:
+                equal += 1
+                continue
+            want_t, margins = lone_greedy(gen, params, cfg, p, b)
+            held, upto, _, _ = tie_compare(got, want_t, margins)
+            check(held, f"turn {i}: the session's tokens differ from the lone run at {upto} "
+                        f"with no near-tie before it")
+            ties += 1
+        out["sessions"]["vs_lone_backend"] = {"turns": len(turns), "equal": equal,
+                                              "held_to_a_near_tie": ties,
+                                              "tie_margin": TIE_MARGIN}
+    del params, eng
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.monotonic() - t_phase
+    emit(phase="ingress", **out)
+    return {"normalize": {"ResNet50": total["normalize"]},
+            "flash_attention": total["flash_attention"],
+            "decode_attention": total["decode_attention"]}
+
+
 def main() -> int:
     import torch
 
@@ -4192,6 +4551,10 @@ def main() -> int:
         phase_cluster(timer)
         print(smi, flush=True)
         return 0
+    if "--ingress" in sys.argv[1:]:  # after a router or chaos-harness edit: build, phase 18
+        phase_ingress()
+        print(smi, flush=True)
+        return 0
     timings = phase_kernel(timer)
     if kernel_only:  # a short call after a K1 edit: build, check, time, stop
         print(smi, flush=True)
@@ -4209,6 +4572,7 @@ def main() -> int:
     sp_launches = phase_seq_parallel()
     pipe_launches = phase_pipeline()
     cluster_launches = phase_cluster(timer)
+    ingress_launches = phase_ingress()
 
     kernels = []
     for model, mode in MODELS:
@@ -4218,6 +4582,7 @@ def main() -> int:
         if model == "ResNet50":
             by_path["parallel"] = parallel_launches
         by_path["cluster"] = cluster_launches["normalize"].get(model, 0)
+        by_path["ingress"] = ingress_launches["normalize"].get(model, 0)
         kernels.append(dict(
             name=f"normalize_u8[{model} b32 {mode} bf16; 16-pixel vector groups; "
                  f"library call: x.to(bfloat16), the raw mode's call on the same bytes]",
@@ -4228,7 +4593,7 @@ def main() -> int:
     by_path = {kern: {"generate": lm_launches[kern], "train": train_launches[kern],
                       "lm_server": server_launches[kern], "moe": moe_launches[kern],
                       "seq_parallel": sp_launches[kern], "pipeline": pipe_launches[kern],
-                      "cluster": cluster_launches[kern]}
+                      "cluster": cluster_launches[kern], "ingress": ingress_launches[kern]}
                for kern in ("flash_attention", "decode_attention")}
     for case, shape in (
             ("prefill_b8", f"prefill b{LM_BATCH} T{PROMPT_LEN} H16 KV4 D64 bf16 causal"),

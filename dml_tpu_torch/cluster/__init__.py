@@ -1,3 +1,2 @@
-"""Cluster control plane: transport, membership, election, store (the
-port's copy of dml_tpu/cluster/, plain Python; the chaos harness is
-ROADMAP A6(b))."""
+"""Cluster control plane: transport, membership, election, store and
+the chaos harness (the port's copy of dml_tpu/cluster/, plain Python)."""

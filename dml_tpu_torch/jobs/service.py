@@ -1141,7 +1141,7 @@ class JobService:
         traces: Optional[List[Dict[str, Any]]] = None,
     ) -> Any:
         """Leader-side direct intake for the request front door
-        (dml_tpu/ingress/router.py): a batch the router FORMED from
+        (dml_tpu_torch/ingress/router.py): a batch the router FORMED from
         individual requests becomes one single-batch job — explicit
         file list, n = len(files), batch_size pinned to the formed
         size — and inherits the whole job pipeline: fair-share

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import ast
 import builtins
+import contextlib
 import errno
 import functools
 import importlib.util
@@ -48,16 +49,25 @@ _PREFIX = "port_cases."
 
 PORT_LO, PORT_HI = 50000, 54999
 DATA_OFFSET = 10000
+#: ports a literal base owns past its nodes: the chaos harness's
+#: runtime joiners take base + n + 100 onward (`LocalCluster._join_port`)
+JOIN_SPAN = 132
 _rng = random.Random(os.getpid() ^ int.from_bytes(os.urandom(4), "little"))
 _handed: set = set()
 _lock = threading.Lock()
 
 
 def _free(port: int) -> bool:
-    for kind in (socket.SOCK_DGRAM, socket.SOCK_STREAM):
+    """Whether a node could bind at `port` now: its UDP socket there and
+    its store data plane's TCP listener at `port + DATA_OFFSET`, with
+    SO_REUSEADDR as asyncio's server sets it (so a listener's own
+    TIME_WAIT from an earlier case does not count as taken)."""
+    for kind, p in ((socket.SOCK_DGRAM, port), (socket.SOCK_STREAM, port + DATA_OFFSET)):
         s = socket.socket(socket.AF_INET, kind)
         try:
-            s.bind(("127.0.0.1", port))
+            if kind == socket.SOCK_STREAM:
+                s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            s.bind(("127.0.0.1", p))
         except OSError:
             return False
         finally:
@@ -68,30 +78,173 @@ def _free(port: int) -> bool:
 def free_port_block(n: int, tries: int = 200) -> int:
     """A base port B such that B-1 .. B+n-1 and their data-plane ports
     (+10000) are free to bind on 127.0.0.1 (UDP and TCP) right now.
-    Blocks already handed out in this process are not handed out again.
-    A later bind can still lose a race to another process; callers
-    retry on EADDRINUSE (`port_cases` does)."""
+    Blocks already handed out in this process are not handed out again
+    until `release_ports` gives them back. A later bind can still lose
+    a race to another process; callers retry on EADDRINUSE
+    (`port_cases` does)."""
     for _ in range(tries):
         base = _rng.randrange(PORT_LO + 1, PORT_HI - n)
         with _lock:
             if any(b in _handed for b in range(base - 1, base + n)):
                 continue
         ports = list(range(base - 1, base + n))
-        if all(_free(p) and _free(p + DATA_OFFSET) for p in ports):
+        if all(_free(p) for p in ports):
             with _lock:
                 _handed.update(ports)
             return base
     raise OSError(errno.EADDRINUSE, f"no free block of {n + 1} ports in {PORT_LO}-{PORT_HI}")
 
 
+def release_ports(base: int, n: int) -> None:
+    with _lock:
+        _handed.difference_update(range(base - 1, base + n))
+
+
+class PortMap:
+    """One case's literal ports, each moved into a probed block: the
+    first base literal L it sees takes a free block B of `n + JOIN_SPAN`
+    ports, and from then on every port L-1 .. L+n+JOIN_SPAN-1 that the
+    case names maps to the same offset from B. So a case that binds a
+    cluster at 23200 and later rebuilds `ClusterSpec.localhost(...,
+    base_port=23200)` to name its nodes sees the ports it bound, and a
+    joiner at `NodeId(host, 24230)` beside a cluster at 24220 lands in
+    that cluster's block."""
+
+    def __init__(self):
+        self.windows = []  # (literal base, span, probed base)
+
+    def base(self, literal: int, n: int) -> int:
+        got = self.port(literal)
+        if got != literal or PORT_LO <= literal <= PORT_HI:
+            return got
+        span = n + JOIN_SPAN
+        probed = free_port_block(span)
+        self.windows.append((literal, span, probed))
+        return probed
+
+    def port(self, literal: int) -> int:
+        for lit, span, probed in self.windows:
+            if lit - 1 <= literal < lit + span:
+                return probed + literal - lit
+        return literal
+
+    def release(self) -> None:
+        for _, span, probed in self.windows:
+            release_ports(probed, span)
+        self.windows = []
+
+
+#: the running case's PortMap (cases run one at a time in a process);
+#: None outside a probed case
+_case_ports: list = [None]
+#: every port a probed case bound through the port's UdpTransport, with
+#: the bases its LocalClusters took (the guard tests read these)
+BOUND_PORTS: list = []
+CLUSTER_BASES: list = []
+
+
+def _map_base(literal: int, n: int) -> int:
+    pm = _case_ports[0]
+    if pm is None:
+        return free_port_block(n)
+    return pm.base(literal, n)
+
+
+def _map_port(literal: int) -> int:
+    pm = _case_ports[0]
+    return literal if pm is None else pm.port(literal)
+
+
+def _record_udp_binds():
+    from dml_tpu_torch.cluster.transport import UdpTransport
+
+    real = UdpTransport.bind.__func__
+
+    async def bind(cls, host, port, *a, **kw):
+        if _case_ports[0] is not None:
+            BOUND_PORTS.append(int(port))
+        return await real(cls, host, port, *a, **kw)
+
+    UdpTransport.bind = classmethod(bind)
+
+
+_record_udp_binds()
+
+
 class ProbedClusterSpec(tconfig.ClusterSpec):
-    """The port's ClusterSpec whose `localhost` puts the nodes on a free
-    block (`free_port_block`), whatever base port the caller named."""
+    """The port's ClusterSpec whose `localhost` puts the nodes on the
+    case's probed block for the base port the caller named."""
 
     @classmethod
     def localhost(cls, n: int, base_port: int = 8001, introducer_port: int = 8888, **kw):
-        base = free_port_block(n)
+        base = _map_base(base_port, n)
         return super().localhost(n, base_port=base, introducer_port=base - 1, **kw)
+
+
+def _probed_node_id(host, port, *a, **kw):
+    return tconfig.NodeId(host, _map_port(port), *a, **kw)
+
+
+def _probed_chaos():
+    """Overrides for the port's `cluster.chaos` as a probed case sees
+    it: every entry that takes a base port takes the case's block."""
+    from dml_tpu_torch.cluster import chaos
+
+    class LocalCluster(chaos.LocalCluster):
+        def __init__(self, n_nodes, root, base_port, *a, **kw):
+            base = _map_base(base_port, n_nodes)
+            CLUSTER_BASES.append(base)
+            super().__init__(n_nodes, root, base, *a, **kw)
+
+    def with_base(fn, n_of):
+        @functools.wraps(fn)
+        def call(*a, **kw):
+            args = inspect.signature(fn).bind(*a, **kw)
+            args.arguments["base_port"] = _map_base(args.arguments["base_port"],
+                                                    n_of(args.arguments))
+            return fn(*args.args, **args.kwargs)
+
+        return call
+
+    plan_n = lambda a: a["plan"].n_nodes  # noqa: E731
+    return {
+        "LocalCluster": LocalCluster,
+        "run_plan": with_base(chaos.run_plan, plan_n),
+        "run_plan_sync": with_base(chaos.run_plan_sync, plan_n),
+        "diurnal_probe": with_base(chaos.diurnal_probe, lambda a: a.get("n_nodes") or 64),
+        "control_plane_probe": with_base(chaos.control_plane_probe, lambda a: a["n_nodes"]),
+        "control_plane_probe_sync": with_base(chaos.control_plane_probe_sync,
+                                              lambda a: a["n_nodes"]),
+    }
+
+
+class _ProxyModule(types.ModuleType):
+    """A port module as a probed case imports it: `overrides` first,
+    every other name (and every assignment) the module's own."""
+
+    def __init__(self, real, overrides):
+        super().__init__(real.__name__, real.__doc__)
+        self.__dict__.update(overrides)
+        object.__setattr__(self, "_real", real)
+
+    def __getattr__(self, key):
+        return getattr(self._real, key)
+
+    def __setattr__(self, key, value):
+        setattr(self._real, key, value)
+
+
+_PROBED: Dict[str, Any] = {}
+
+
+def _probed_module(name: str):
+    if not _PROBED:
+        _PROBED["dml_tpu_torch.config"] = _ProxyModule(
+            tconfig, {"ClusterSpec": ProbedClusterSpec, "NodeId": _probed_node_id})
+        from dml_tpu_torch.cluster import chaos
+
+        _PROBED["dml_tpu_torch.cluster.chaos"] = _ProxyModule(chaos, _probed_chaos())
+    return _PROBED.get(name)
 
 
 # ----------------------------------------------------------------------
@@ -112,13 +265,25 @@ def _has_port(name: str) -> bool:
         return False
 
 
+#: the exec'd modules whose clusters take probed ports
+_probing: set = set()
+
+
 def _port_import(name, globals=None, locals=None, fromlist=(), level=0):
-    if (level == 0 and globals is not None
-            and str(globals.get("__name__", "")).startswith(_PREFIX)
+    importer = str((globals or {}).get("__name__", ""))
+    if not (level == 0 and importer.startswith(_PREFIX)
             and (name == "dml_tpu" or name.startswith("dml_tpu."))
             and _has_port(name)):
-        name = _port_name(name)
-    return _real_import(name, globals, locals, fromlist, level)
+        return _real_import(name, globals, locals, fromlist, level)
+    mod = _real_import(_port_name(name), globals, locals, fromlist, level)
+    if importer not in _probing or not fromlist:
+        return mod
+    proxy = _probed_module(mod.__name__)
+    if proxy is not None:
+        return proxy
+    subs = {k: _probed_module(f"{mod.__name__}.{k}") for k in fromlist}
+    subs = {k: v for k, v in subs.items() if v is not None}
+    return _ProxyModule(mod, subs) if subs else mod
 
 
 builtins.__import__ = _port_import
@@ -179,20 +344,44 @@ def _needs_unported(fn, ns: Dict[str, Any], jax_names: set) -> set:
     return need
 
 
-def _retry_on_eaddrinuse(fn):
-    """Run an async test case again (at most twice more) when its
-    cluster lost a port race; each run gets its own time limit."""
+@contextlib.contextmanager
+def case_port_map():
+    """A fresh PortMap for the body (one run of a case); its blocks go
+    back when the body ends."""
+    pm = _case_ports[0] = PortMap()
+    try:
+        yield pm
+    finally:
+        pm.release()
+        _case_ports[0] = None
 
-    @functools.wraps(fn)
-    async def run(**kw):
-        import asyncio
 
-        for attempt in range(3):
-            try:
-                return await asyncio.wait_for(fn(**kw), timeout=90.0)
-            except OSError as e:
-                if e.errno != errno.EADDRINUSE or attempt == 2:
-                    raise
+def _probed_case(fn):
+    """Run a case under its own PortMap, again (at most twice more) when
+    its cluster lost a port race; an async case's every run gets its own
+    90 s limit."""
+    if inspect.iscoroutinefunction(fn):
+        @functools.wraps(fn)
+        async def run(**kw):
+            import asyncio
+
+            for attempt in range(3):
+                with case_port_map():
+                    try:
+                        return await asyncio.wait_for(fn(**kw), timeout=90.0)
+                    except OSError as e:
+                        if e.errno != errno.EADDRINUSE or attempt == 2:
+                            raise
+    else:
+        @functools.wraps(fn)
+        def run(**kw):
+            for attempt in range(3):
+                with case_port_map():
+                    try:
+                        return fn(**kw)
+                    except OSError as e:
+                        if e.errno != errno.EADDRINUSE or attempt == 2:
+                            raise
 
     return run
 
@@ -201,19 +390,20 @@ def port_cases(name: str, prefix: str, exclude: Iterable[str] = (),
                probe_ports: bool = False) -> Dict[str, Any]:
     """{new name: object} of `tests/<name>.py`'s test cases and fixtures,
     bound to the port. Test `test_x` becomes `test_<prefix>_x`; fixtures
-    keep their names. With `probe_ports`, `ClusterSpec.localhost` puts
-    every cluster on a free port block and async cases retry on
-    EADDRINUSE."""
+    keep their names. With `probe_ports`, every port a case names
+    through `ClusterSpec.localhost`, `NodeId` or a base port of the chaos
+    harness (`LocalCluster`, `run_plan`, the probes) moves into probed
+    blocks in 50000-54999 (`PortMap`), and cases retry on EADDRINUSE."""
     path = os.path.join(TESTS, f"{name}.py")
     with open(path, encoding="utf-8") as f:
         source = f.read()
     mod = types.ModuleType(_PREFIX + name)
     mod.__file__ = path
     sys.modules[mod.__name__] = mod
+    if probe_ports:
+        _probing.add(mod.__name__)
     exec(compile(source, path, "exec"), mod.__dict__)
     ns = mod.__dict__
-    if probe_ports and "ClusterSpec" in ns:
-        ns["ClusterSpec"] = ProbedClusterSpec
     # names the module bound at import time to the JAX package (its
     # modules the port does not have)
     jax_names = {k for k, v in ns.items()
@@ -225,8 +415,8 @@ def port_cases(name: str, prefix: str, exclude: Iterable[str] = (),
         if key.startswith("test_") and callable(obj):
             if key in excluded or _needs_unported(obj, ns, jax_names):
                 continue
-            if probe_ports and inspect.iscoroutinefunction(obj):
-                obj = _retry_on_eaddrinuse(obj)
+            if probe_ports:
+                obj = _probed_case(obj)
             out[f"test_{prefix}_{key[5:]}"] = obj
         elif type(obj).__name__ in ("FixtureFunctionDefinition", "FixtureFunctionMarker") or hasattr(
                 obj, "_pytestfixturefunction"):

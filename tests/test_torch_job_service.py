@@ -23,6 +23,7 @@ from __future__ import annotations
 import asyncio
 import errno
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -30,14 +31,24 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_cluster import free_port_block, port_cases
+from test_torch_cluster import TESTS, free_port_block, port_cases
 from test_torch_models import jax_init, perturb_bn
 
-for _name, _prefix, _exclude in (
-        ("test_jobs_sim", "jobs_sim", ("test_group_sharded_serving_outputs_equal_single_chip",
-                                       "test_efficientnet_dynamic_batching_with_failure")),
-        ("test_cluster_sim", "cluster_sim", ())):
+SIM_FILES = (("test_jobs_sim", "jobs_sim", ("test_group_sharded_serving_outputs_equal_single_chip",
+                                             "test_efficientnet_dynamic_batching_with_failure")),
+             ("test_cluster_sim", "cluster_sim", ()))
+for _name, _prefix, _exclude in SIM_FILES:
     globals().update(port_cases(_name, _prefix, exclude=_exclude, probe_ports=True))
+
+
+@pytest.mark.parametrize("name,prefix,exclude", SIM_FILES)
+def test_port_cases_cover_each_file(name, prefix, exclude):
+    """Every case of these files but the excluded ones runs on the port
+    (the chaos-harness case of test_jobs_sim included)."""
+    with open(os.path.join(TESTS, f"{name}.py"), encoding="utf-8") as f:
+        want = set(re.findall(r"^(?:async )?def test_(\w+)", f.read(), re.M))
+    got = {k[len(prefix) + 6:] for k in globals() if k.startswith(f"test_{prefix}_")}
+    assert got == want - {k[5:] for k in exclude}, sorted(want - got)
 
 N_NODES = 4
 N_FILES = 8

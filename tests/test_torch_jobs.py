@@ -4,10 +4,12 @@
 (`test_torch_cluster.port_cases`), and the two packages' Scheduler and
 DepthController held to each other on one seeded event script.
 
-The cases of test_train_job, test_signal, test_autoscale and
-test_tracing that drive the chaos harness (`cluster.chaos.
-LocalCluster`), the request router, the load generator or the tools
-are left out: the port does not have those modules yet (ROADMAP).
+The cases that drive the chaos harness (`cluster.chaos.LocalCluster`),
+the request router or the load generator run on probed ports like the
+rest. Left out: the cases that need the tools (`dml_tpu.tools`, ROADMAP
+A8) or the disaggregated LM backend (the cluster half of
+`inference.lm_sharded`, ROADMAP A6(b)), which `port_cases` drops by
+itself, and the groups' sharded backends named in `EXCLUDE`.
 """
 
 from __future__ import annotations
@@ -33,9 +35,9 @@ for _name, _prefix in JOB_FILES:
                                 probe_ports=True))
 
 #: cases each file contributes at least (the rest need a module the port
-#: lacks); test_scheduler contributes every case
-MIN_CASES = {"scheduler": None, "train_job": 10, "signal": 15, "autoscale": 15,
-             "tracing": 10, "observability": 18, "groups": 11}
+#: lacks or are in EXCLUDE); None: every case
+MIN_CASES = {"scheduler": None, "train_job": 14, "signal": None, "autoscale": 27,
+             "tracing": 16, "observability": 18, "groups": 17}
 
 
 @pytest.mark.parametrize("name,prefix", JOB_FILES)
