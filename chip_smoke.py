@@ -10,6 +10,7 @@
     python3 chip_smoke.py --pipeline      # phases 1-2 and 16 (pipeline, pp/tp LM serving) alone
     python3 chip_smoke.py --cluster       # phases 1-2 and 17 (a port cluster serving jobs) alone
     python3 chip_smoke.py --ingress       # phases 1-2 and 18 (per-request traffic) alone
+    python3 chip_smoke.py --families      # phases 1-2 and 19 (the other image families) alone
 
 Phases, each printing one JSON line (with `t_s`, the seconds since the
 script started); any failure exits non-zero:
@@ -34,8 +35,9 @@ script started); any failure exits non-zero:
    bf16 ulp, and every element must be bit-identical (the count that is
    not is printed). Launches through the C entry into the middle of a
    larger buffer holding a sentinel must change no value outside their
-   pixels; a misaligned output must be refused. At ResNet50 b32 caffe
-   and InceptionV3 b32 tf, bf16 and f32, the kernel, `x.to(dtype)` (the
+   pixels; a misaligned output must be refused. At ResNet50 b32 caffe,
+   InceptionV3 b32 tf and [32,224,224,3] tf (MobileNetV2's and
+   ViT-B16's batch), bf16 and f32, the kernel, `x.to(dtype)` (the
    `raw` mode's one PyTorch call on the same bytes), the launch floor
    (the wrapper on one 16-pixel group) and the plain version are timed
    in turns (kernel, to, floor, plain, floor, to, kernel) by CUDA events
@@ -66,9 +68,11 @@ script started); any failure exits non-zero:
    GQA-4 at B=2 T=2048), ragged T=100 and T=1000, a poisoned tail (k/v
    [:, :1000] views of longer buffers holding +-1e4 past row 1000: the
    output must equal the clean copies'), non-causal cross attention
-   (Tq=64, Tk=192; Tq=200, Tk=1000 GQA-4), bf16 D=32 (the mma.sync
+   (Tq=64, Tk=192; Tq=200, Tk=1000 GQA-4), ViT-B16's non-causal
+   self-attention (vit_b16: [32,197,12,64], q/k/v strided views of one
+   [32,197,2304] qkv output), bf16 D=32 (the mma.sync
    route) and float32 cases; tolerances float32 2e-5 (out and lse),
-   bf16 out 2e-2 and lse 1e-4. At prefill_b8, prefill_b1 and mha_b1 the
+   bf16 out 2e-2 and lse 1e-4. At prefill_b8, prefill_b1, mha_b1 and vit_b16 the
    wgmma kernel, the mma.sync kernel (checked too), SDPA and the plain
    version are timed in turns (new, mma.sync, SDPA, plain, SDPA,
    mma.sync, new) beside the tensor-core operation bound, with TFLOP/s
@@ -110,13 +114,14 @@ script started); any failure exits non-zero:
    views of longer buffers holding NaN past row 1000: the gradients must
    equal the clean copies'), strided views (q, k, v cut from a qkv
    projection's output, dO transposed), non-causal cross attention
-   (Tq=64, Tk=192; Tq=200, Tk=1000 GQA-4), bf16 D=32 (the mma.sync
+   (Tq=64, Tk=192; Tq=200, Tk=1000 GQA-4), ViT-B16's shape (vit_b16:
+   [32,197,12,64] non-causal, strided as above), bf16 D=32 (the mma.sync
    route) and float32 at T=1000, cross and D=16; float32 within atol
    5e-5 + rtol 5e-4, bf16 within 1e-2 of the largest reference
    magnitude. The delta kernel's row arrays against `bwd_rows_plain`
    (lse and the pad rows exact, delta within 1e-4). Two backwards on the
-   same inputs give bit-equal dq, dk and dv (train, gqa4). At the
-   training shape the new pair, the mma.sync pair (checked too), the
+   same inputs give bit-equal dq, dk and dv (train, gqa4, vit_b16). At the
+   training shape and at vit_b16 the new pair, the mma.sync pair (checked too), the
    delta kernel, SDPA's backward and the plain version are timed in
    turns, whole and per kernel, beside the operation bounds (the
    backward's 5 products, the two-kernel split's 7, dq's 3 and dkv's 4)
@@ -332,13 +337,34 @@ script started); any failure exits non-zero:
    formula. Per arm: completed, shed, rejected, lost, e2e p50/p99 and
    completions a second; tokens a second, TTFT p50/p99 by turn and the
    session-affinity hits and misses for arm 2.
+19. families: MobileNetV2 (tf), EfficientNet-B0 (raw), EfficientNet-B4
+   at 380x380 (raw) and ViT-B16 (tf), the registry's published widths
+   and depths, seeded weights, bf16 at batch 32, served through the
+   port's InferenceEngine on cuda (40 images, 2 chunks): K1 must launch
+   once a chunk for the tf models and never for the raw ones (their
+   normalization is in the graph), K2 12 times a ViT-B16 chunk (one a
+   block), and no other kernel; probabilities finite, rows summing to 1;
+   top-1 equal to the same module fed by the plain normalize; on 4
+   images the float32 CUDA engine (TF32 off) has the float32 CPU
+   engine's top-1 and probabilities within 1e-4, and the bf16 one its
+   top-1 wherever the CPU's top-1 leads
+   by TIE_MARGIN in log-probability. The device time of one forward;
+   EfficientNet-B4 served once more with the space-to-depth stem on the
+   same weights (max difference, top-1 agreement, both forwards timed
+   in turns). Then each model trains 1 warm-up and 3 steps at batch 16
+   through the image Trainer (AdamW lr 1e-3, float32 masters): losses
+   finite, each step one K1 launch for the tf models (none for the raw
+   ones) and for ViT-B16 12 K2, 12 K3 and 12 delta launches, and no
+   other kernel; step ms and images/s, peak memory.
 
 Then the card's name and power limit as nvidia-smi prints them, the
 kernels' summary line (K1's launches by path: serving, training,
-cluster, ingress and, for ResNet50, parallel; K2's and K4's: generate,
-train, lm_server, moe, seq_parallel, pipeline, cluster and ingress; K3's
-and the delta kernel's: train, moe and seq_parallel), and last
-`{"ok": true, "device": {...}}`.
+cluster, ingress and, for ResNet50, parallel, and a row at the families'
+[32,224,224,3] tf shape with the families path; K2's and K4's:
+generate, train, lm_server, moe, seq_parallel, pipeline, cluster,
+ingress and families, K2 timed at the LM's shapes and ViT-B16's; K3's
+and the delta kernel's: train, moe, seq_parallel and families), and
+last `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -461,7 +487,8 @@ class Timer:
 
 
 # K1 at the two serving batches, in each model's mode, timed in both dtypes
-K1_TIMED = (("ResNet50", (32, 224, 224, 3), "caffe"), ("InceptionV3", (32, 299, 299, 3), "tf"))
+K1_TIMED = (("ResNet50", (32, 224, 224, 3), "caffe"), ("InceptionV3", (32, 299, 299, 3), "tf"),
+            ("MobileNetV2, ViT-B16", (32, 224, 224, 3), "tf"))
 # pixel counts that reach each route of K1: tail pixels only (1, 15), one
 # group (16), a group and a tail pixel (17), 6 groups and 9 tail pixels (105)
 K1_SMALL = ((1, 1, 1, 3), (1, 3, 5, 3), (1, 4, 4, 3), (1, 1, 17, 3), (3, 7, 5, 3))
@@ -548,7 +575,7 @@ def phase_kernel(timer):
 
     # (name, uint8 batch, also launched through the C entry)
     cases = [(str(list(shape)), images(*shape), shape[0] != 32 or shape[1] == 224)
-             for shape in [shape for _, shape, _ in K1_TIMED] + list(K1_SMALL)]
+             for shape in list(dict.fromkeys(shape for _, shape, _ in K1_TIMED)) + list(K1_SMALL)]
     # contiguous views whose base is not 16-byte aligned: the copy route
     cases += [("[33,299,299,3][1:]", images(33, 299, 299, 3)[1:], False),
               ("[4,7,5,3][1:]", images(4, 7, 5, 3)[1:], False)]
@@ -995,12 +1022,13 @@ def phase_flash(timer):
         ("poisoned_tail", 2, 1000, 1000, 16, 4, 64, True, bf16),
         ("cross", 2, 64, 192, 16, 16, 64, False, bf16),
         ("cross_ragged", 2, 200, 1000, 16, 4, 64, False, bf16),
+        ("vit_b16", BATCH, 197, 197, 12, 12, 64, False, bf16),
         ("d32", 2, 300, 300, 4, 2, 32, True, bf16),
         ("f32_t1000", 2, 1000, 1000, 8, 2, 64, True, f32),
         ("f32_cross", 2, 64, 192, 4, 4, 32, False, f32),
         ("f32_d16", 1, 130, 130, 2, 1, 16, True, f32),
     )
-    timed = ("prefill_b8", "prefill_b1", "mha_b1")
+    timed = ("prefill_b8", "prefill_b1", "mha_b1", "vit_b16")
     timings = {}
     for name, b, tq, tk, h, kv, d, causal, dtype in cases:
         q = torch.randn((b, tq, h, d), generator=g, device="cuda").to(dtype)
@@ -1010,6 +1038,10 @@ def phase_flash(timer):
             qkv = torch.randn((b, tk, (h + 2 * kv) * d), generator=g, device="cuda").to(dtype)
             k = qkv[..., h * d:(h + kv) * d].reshape(b, tk, kv, d).contiguous()
             v = qkv[..., (h + kv) * d:].reshape(b, tk, kv, d)
+        elif name == "vit_b16":
+            # ViT-B16's self-attention: q, k and v cut from one qkv output
+            qkv = torch.randn((b, tq, 3 * h * d), generator=g, device="cuda").to(dtype)
+            q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].view(b, tq, h, d) for i in range(3))
         elif name == "mha_b1":
             # the training forward: Block repeats 4 kv heads to 16
             k, v = (torch.randn((b, tk, 4, d), generator=g, device="cuda").to(dtype)
@@ -1449,8 +1481,9 @@ def _bwd_inputs(name, b, tq, tk, h, kv, d, dtype, g):
             x[:, t:] = float("nan")
         views = [x[:, :t] for x, t in zip(bufs, (tq, tk, tk, tq))]
         return views, [x.contiguous() for x in views]
-    if name == "strided":
-        # q, k, v cut from a qkv projection's output; dO made head-major
+    if name in ("strided", "vit_b16"):
+        # q, k, v cut from a qkv projection's output (ViT-B16's layout);
+        # dO made head-major
         qkv = randn(b, tq, (h + 2 * kv) * d)
         q = qkv[..., :h * d].view(b, tq, h, d)
         k = qkv[..., h * d:(h + kv) * d].view(b, tk, kv, d)
@@ -1508,12 +1541,13 @@ def phase_flash_bwd(timer):
         ("strided", 2, 1000, 1000, 16, 4, 64, True, bf16),
         ("cross", 2, 64, 192, 16, 16, 64, False, bf16),
         ("cross_ragged", 2, 200, 1000, 16, 4, 64, False, bf16),
+        ("vit_b16", BATCH, 197, 197, 12, 12, 64, False, bf16),
         ("d32", 2, 300, 300, 4, 2, 32, True, bf16),
         ("f32_t1000", 2, 1000, 1000, 8, 2, 64, True, f32),
         ("f32_cross", 2, 64, 192, 4, 4, 32, False, f32),
         ("f32_d16", 1, 130, 130, 2, 1, 16, True, f32),
     )
-    deterministic = ("train", "gqa4")
+    deterministic = ("train", "gqa4", "vit_b16")
     names = ("dq", "dk", "dv")
 
     def held(got, want, dtype):
@@ -1564,14 +1598,14 @@ def phase_flash_bwd(timer):
             emit(**case)
             check(ok, f"flash backward kernels disagree: {case}")
             del got, want, rows, p_rows
-        if name == "train":
-            timings[name] = time_flash_bwd(timer, q, k, v, out, lse, dout, causal, errs)
+        if name in ("train", "vit_b16"):
+            timings[name] = time_flash_bwd(timer, name, q, k, v, out, lse, dout, causal, errs)
         del q, k, v, dout, out, lse, clean
     torch.cuda.empty_cache()
     return timings
 
 
-def time_flash_bwd(timer, q, k, v, out, lse, dout, causal, errs):
+def time_flash_bwd(timer, case, q, k, v, out, lse, dout, causal, errs):
     """K3 at one shape: the new pair and the mma.sync pair (checked
     against the plain version first), whole and per kernel, the delta
     kernel, SDPA's backward and the plain version, in turns."""
@@ -1622,7 +1656,7 @@ def time_flash_bwd(timer, q, k, v, out, lse, dout, causal, errs):
         turns[key].append(timer.ms(runs[key], iters=20))
     ms = {key: statistics.mean(v) for key, v in turns.items()}
     bound = _bwd_bounds(b, tq, tk, h, d, causal, q.element_size())
-    emit(phase="flash_bwd_time", case="train", route=fa.bwd_kernel_route(q.dtype, d),
+    emit(phase="flash_bwd_time", case=case, route=fa.bwd_kernel_route(q.dtype, d),
          ms=ms, turns_ms=turns, plain_ms=p_ms, delta_plain_ms=p_delta_ms, bound=bound,
          mma_sync_max_abs_err=m_err, delta_max_abs_err=delta_err,
          speedup_vs_mma_sync={key: ms[f"{key}_mma_sync"] / ms[key] for key in ("k3", "dq", "dkv")},
@@ -1785,13 +1819,14 @@ def _seeded_batch(rng, n, h, w, classes):
     return imgs, rng.randint(0, classes, n).astype(np.int64)
 
 
-def _counted_steps(tr, x, y, n):
-    """n train steps, each checked to launch K1 exactly once and no other
-    kernel of the port; (losses, accuracies, step ms)."""
+def _counted_steps(tr, x, y, n, per_step=None):
+    """n train steps, each checked to launch the kernels of `per_step`
+    exactly that often (default: K1 once and no other kernel of the
+    port); (losses, accuracies, step ms)."""
     import torch
 
-    per_step = {"normalize": 1, "flash_attention": 0, "flash_bwd": 0, "flash_bwd_delta": 0,
-                "decode_attention": 0}
+    per_step = per_step or {"normalize": 1, "flash_attention": 0, "flash_bwd": 0,
+                            "flash_bwd_delta": 0, "decode_attention": 0}
     losses, accs, step_ms = [], [], []
     for _ in range(n):
         before = launch_counts()
@@ -4509,6 +4544,194 @@ def phase_ingress():
             "decode_attention": total["decode_attention"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the other image families
+# ---------------------------------------------------------------------------
+
+FAMILY_MODELS = (("MobileNetV2", "tf"), ("EfficientNetB0", "raw"), ("EfficientNetB4", "raw"),
+                 ("ViT-B16", "tf"))
+FAMILY_TRAIN_BATCH, FAMILY_TRAIN_STEPS = 16, 3
+FAMILY_CHECK_IMAGES = 4  # top-1 against the float32 engines
+VIT_BLOCKS = 12  # ViT-B16's encoder blocks: one K2 launch (and K3, delta) each
+
+
+def family_launches(name, mode, chunks=1, train=False):
+    """The launches a families path must make per `chunks` engine chunks
+    (or train steps): K1 once each in `tf` mode (EfficientNet's `raw` mode
+    is a cast), and for ViT-B16 one K2 a block, in training one K3 and one
+    delta kernel a block too."""
+    vit = VIT_BLOCKS * chunks if name.startswith("ViT") else 0
+    return {"normalize": chunks if mode == "tf" else 0, "flash_attention": vit,
+            "flash_bwd": vit if train else 0, "flash_bwd_delta": vit if train else 0,
+            "decode_attention": 0}
+
+
+def _f32_probs(name, sd, few):
+    """Probabilities of `few` from the port's float32 CPU engine and its
+    float32 CUDA engine with TF32 off."""
+    import torch
+    from dml_tpu_torch.inference import InferenceEngine
+
+    cpu = InferenceEngine(dtype=torch.float32, device="cpu")
+    cpu.load_model(name, variables=sd, batch_size=len(few), warmup=False)
+    p_cpu = cpu.infer_arrays(name, few)
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        g32 = InferenceEngine(dtype=torch.float32)
+        g32.load_model(name, variables=sd, batch_size=len(few), warmup=False)
+        p_g32 = g32.infer_arrays(name, few)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    return p_cpu, p_g32
+
+
+def register_b4_s2d():
+    """EfficientNetB4 with the space-to-depth stem, as a model of its own
+    (the same weights load into it)."""
+    import torch
+    from dml_tpu_torch.models.efficientnet import build_variant
+    from dml_tpu_torch.models.registry import ModelSpec, get_model, register
+
+    b4 = get_model("EfficientNetB4")
+
+    def build(num_classes=1000, dtype=torch.bfloat16, param_dtype=None):
+        return build_variant("b4", num_classes=num_classes, dtype=dtype,
+                             param_dtype=param_dtype, s2d_stem=True)
+
+    return register(ModelSpec(name="EfficientNetB4-s2d", builder=build,
+                              input_size=b4.input_size, preprocess=b4.preprocess, cost=b4.cost))
+
+
+def phase_families(timer):
+    """MobileNetV2, EfficientNet-B0 and -B4 and ViT-B16 at b32 bf16 served
+    through InferenceEngine on cuda and trained through the image Trainer,
+    counted. Returns each kernel's launches on the path."""
+    import torch
+    from dml_tpu_torch.inference import InferenceEngine
+    from dml_tpu_torch.models.preprocess import normalize_on_device
+    from dml_tpu_torch.models.registry import get_model
+    from dml_tpu_torch.parallel.train import Trainer
+
+    t_phase = time.monotonic()
+    total = dict.fromkeys(launch_counts(), 0)
+    chunks = -(-N_IMAGES // BATCH)
+    for name, mode in FAMILY_MODELS:
+        t_model = time.monotonic()
+        spec = get_model(name)
+        check(spec.preprocess == mode, f"{name}: preprocess {spec.preprocess}, want {mode}")
+        h, w = spec.input_size
+        sd = seeded_weights(spec, seed=0)
+        imgs, _ = _seeded_batch(np.random.RandomState(19), N_IMAGES, h, w, 1000)
+        eng = InferenceEngine(dtype=torch.bfloat16)  # device None -> cuda
+        check(eng.device.type == "cuda", f"engine on {eng.device}")
+        t0 = time.monotonic()
+        lm = eng.load_model(name, variables=sd, batch_size=BATCH)
+        load_s = time.monotonic() - t0
+
+        # ---- the main path, counted: serving ----
+        reset_launch_counts()
+        probs = eng.infer_arrays(name, imgs)
+        torch.cuda.synchronize()
+        serve = launch_counts()
+        want = family_launches(name, mode, chunks)
+        check(serve == want, f"{name}: serving launched {serve}, want {want} for {chunks} chunks")
+        _add(total, serve)
+        check(probs.shape == (N_IMAGES, 1000) and np.isfinite(probs).all(),
+              f"{name}: probs {probs.shape}, finite {np.isfinite(probs).all()}")
+        row_err = float(np.abs(probs.sum(-1) - 1.0).max())
+        check(row_err <= 1e-2, f"{name}: rows sum to 1 +- {row_err}")
+        top1 = probs.argmax(-1)
+
+        # the same module fed by the plain normalize
+        with torch.inference_mode():
+            plain = []
+            for s in range(0, N_IMAGES, BATCH):
+                chunk = imgs[s:s + BATCH]
+                pad = np.zeros((BATCH - len(chunk), h, w, 3), np.uint8)
+                x = torch.from_numpy(np.concatenate([chunk, pad])).cuda()
+                plain.append(lm.module(normalize_on_device(x, mode, torch.bfloat16))[:len(chunk)]
+                             .float().cpu().numpy())
+        plain = np.concatenate(plain)
+        check((plain.argmax(-1) == top1).all(), f"{name}: top-1 differs from the plain-normalize run")
+
+        # float32 on the CPU against the card: f32 (TF32 off) exactly in
+        # top-1, bf16 wherever the f32 top-1 leads by TIE_MARGIN in log-prob
+        few = imgs[:FAMILY_CHECK_IMAGES]
+        p_cpu, p_g32 = _f32_probs(name, sd, few)
+        cpu_top1 = p_cpu.argmax(-1)
+        srt = np.sort(np.log(p_cpu + 1e-30), -1)
+        margins = (srt[:, -1] - srt[:, -2]).tolist()
+        held = [m >= TIE_MARGIN for m in margins]
+        f32_diff = float(np.abs(p_g32 - p_cpu).max())
+        check((p_g32.argmax(-1) == cpu_top1).all() and f32_diff <= 1e-4,
+              f"{name}: f32 cuda top-1 {p_g32.argmax(-1)} != cpu {cpu_top1} or probabilities "
+              f"{f32_diff} apart")
+        check(all(t == c for t, c, k in zip(top1, cpu_top1, held) if k),
+              f"{name}: bf16 cuda top-1 {top1[:len(few)]} != f32 cpu {cpu_top1} (margins {margins})")
+
+        # device time of one forward (normalize + model), L2 flushed
+        xb = torch.from_numpy(imgs[:BATCH]).cuda()
+        fwd_ms = timer.ms(lambda: eng._forward(lm, xb), iters=10, warmup=2)
+        extra = {}
+        if name == "EfficientNetB4":
+            # the space-to-depth stem on the same weights, timed in turns
+            # with the stock stem (stock, s2d, s2d, stock)
+            s2d_name = register_b4_s2d().name
+            lm2 = eng.load_model(s2d_name, variables=sd, batch_size=BATCH)
+            p2 = eng.infer_arrays(s2d_name, imgs)
+            turns = {"stock": [], "s2d": []}
+            for key in ("stock", "s2d", "s2d", "stock"):
+                turns[key].append(timer.ms(lambda key=key: eng._forward(
+                    lm if key == "stock" else lm2, xb), iters=10, warmup=2))
+            check(np.isfinite(p2).all(), "s2d stem: non-finite probabilities")
+            extra["s2d_stem"] = dict(
+                max_abs_diff=float(np.abs(p2 - probs).max()),
+                top1_equal=int((p2.argmax(-1) == top1).sum()), images=N_IMAGES,
+                forward_ms={k: statistics.mean(v) for k, v in turns.items()}, turns_ms=turns)
+            eng.unload_model(s2d_name)
+        mem_serve = torch.cuda.max_memory_allocated() / 1e6
+        first_query_s = lm.first_query
+        del eng, lm
+        torch.cuda.empty_cache()
+
+        # ---- the main path, counted: training ----
+        x_np, y_np = _seeded_batch(np.random.RandomState(20), FAMILY_TRAIN_BATCH, h, w, 1000)
+        x, y = torch.from_numpy(x_np).cuda(), torch.from_numpy(y_np).cuda()
+        tr = Trainer(name, batch_size=FAMILY_TRAIN_BATCH, dtype=torch.bfloat16, seed=0)
+        check(tr.device.type == "cuda", f"Trainer on {tr.device}")
+        warm = tr.step(x, y)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        per_step = family_launches(name, mode, train=True)
+        losses, accs, step_ms = _counted_steps(tr, x, y, FAMILY_TRAIN_STEPS, per_step)
+        trained = launch_counts()
+        _add(total, trained)
+        check(all(np.isfinite(losses)), f"{name}: non-finite loss {losses}")
+        check(all(p.dtype == torch.float32 for p in tr.params.values()),
+              f"{name}: master weights not float32")
+        med = statistics.median(step_ms)
+        emit(phase="families", model=name, mode=mode, image=[h, w], dtype="bfloat16",
+             batch=BATCH, load_s=load_s, first_query_s=first_query_s,
+             serve_launches=serve, chunks=chunks, row_sum_err=row_err,
+             plain_normalize_max_abs_diff=float(np.abs(plain - probs).max()),
+             top1=top1.tolist(), top1_cpu_f32=cpu_top1.tolist(), cpu_f32_log_margin=margins,
+             bf16_held_to_cpu=sum(held),
+             cuda_f32_vs_cpu_f32_max_abs=f32_diff,
+             forward_device_ms=fwd_ms, images_per_s_forward=BATCH / (fwd_ms / 1e3),
+             max_memory_allocated_mb_serve=mem_serve,
+             train=dict(batch=FAMILY_TRAIN_BATCH, optimizer="AdamW lr 1e-3 wd 1e-4",
+                        warmup_loss=warm["loss"], losses=losses, accuracies=accs,
+                        launches=trained, launches_per_step=per_step, step_ms=step_ms,
+                        step_ms_median=med, images_per_s=FAMILY_TRAIN_BATCH / (med / 1e3),
+                        max_memory_allocated_mb=torch.cuda.max_memory_allocated() / 1e6),
+             model_s=time.monotonic() - t_model, **extra)
+        del tr, x, y
+        torch.cuda.empty_cache()
+    emit(phase="families_total", launches=total, phase_s=time.monotonic() - t_phase)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -4555,6 +4778,10 @@ def main() -> int:
         phase_ingress()
         print(smi, flush=True)
         return 0
+    if "--families" in sys.argv[1:]:  # after an image-family edit: build, phase 19, stop
+        phase_families(timer)
+        print(smi, flush=True)
+        return 0
     timings = phase_kernel(timer)
     if kernel_only:  # a short call after a K1 edit: build, check, time, stop
         print(smi, flush=True)
@@ -4573,6 +4800,7 @@ def main() -> int:
     pipe_launches = phase_pipeline()
     cluster_launches = phase_cluster(timer)
     ingress_launches = phase_ingress()
+    families_launches = phase_families(timer)
 
     kernels = []
     for model, mode in MODELS:
@@ -4589,15 +4817,25 @@ def main() -> int:
             route="cuda", variant="staged 16-pixel tiles", source="dml_tpu_torch/csrc/normalize.cu",
             replaces="dml_tpu/ops/preprocess.py:30", launches=sum(by_path.values()),
             launches_by_path=by_path, bound_by="bytes", **t))
-    # one kernel timed at two shapes: each row carries every path's launches
+    t = timings[((32, 224, 224, 3), "tf", torch.bfloat16)]
+    kernels.append(dict(
+        name="normalize_u8[MobileNetV2 and ViT-B16 b32 224x224 tf bf16; 16-pixel vector groups; "
+             "library call: x.to(bfloat16), the raw mode's call on the same bytes]",
+        route="cuda", variant="staged 16-pixel tiles", source="dml_tpu_torch/csrc/normalize.cu",
+        replaces="dml_tpu/ops/preprocess.py:30", launches=families_launches["normalize"],
+        launches_by_path={"families": families_launches["normalize"]}, bound_by="bytes", **t))
+    # one kernel timed at several shapes: each row carries every path's launches
     by_path = {kern: {"generate": lm_launches[kern], "train": train_launches[kern],
                       "lm_server": server_launches[kern], "moe": moe_launches[kern],
                       "seq_parallel": sp_launches[kern], "pipeline": pipe_launches[kern],
-                      "cluster": cluster_launches[kern], "ingress": ingress_launches[kern]}
+                      "cluster": cluster_launches[kern], "ingress": ingress_launches[kern],
+                      "families": families_launches[kern]}
                for kern in ("flash_attention", "decode_attention")}
     for case, shape in (
             ("prefill_b8", f"prefill b{LM_BATCH} T{PROMPT_LEN} H16 KV4 D64 bf16 causal"),
-            ("mha_b1", f"train forward b1 T{TRAIN_T} H16 D64 bf16 causal, k/v repeated")):
+            ("mha_b1", f"train forward b1 T{TRAIN_T} H16 D64 bf16 causal, k/v repeated"),
+            ("vit_b16", f"ViT-B16 b{BATCH} T197 H12 D64 bf16 non-causal, q/k/v strided views "
+                        f"of the qkv output")):
         t = dict(flash[case])
         kernels.append(dict(
             name=f"flash_fwd[{shape}; wgmma+TMA]", route="cuda", variant="wgmma+tma",
@@ -4622,10 +4860,11 @@ def main() -> int:
             route="cuda", variant="wgmma+tma", source="dml_tpu_torch/csrc/flash_attention_bwd.cu",
             replaces=f"dml_tpu/ops/flash_attention.py:{line}",
             launches=train_launches["flash_bwd"] + moe_launches["flash_bwd"]
-            + sp_launches["flash_bwd"],
+            + sp_launches["flash_bwd"] + families_launches["flash_bwd"],
             launches_by_path={"train": train_launches["flash_bwd"],
                               "moe": moe_launches["flash_bwd"],
-                              "seq_parallel": sp_launches["flash_bwd"]},
+                              "seq_parallel": sp_launches["flash_bwd"],
+                              "families": families_launches["flash_bwd"]},
             max_abs_err=t["max_abs_err"],
             ms=t["ms"][part], mma_sync_ms=t["ms"][f"{part}_mma_sync"], plain_ms=t["plain_ms"],
             bound_ms=t["bound"][part]["bound_ms"], bound_by=t["bound"][part]["bound_by"],
@@ -4635,10 +4874,11 @@ def main() -> int:
         source="dml_tpu_torch/csrc/flash_attention_bwd.cu",
         replaces="dml_tpu/ops/flash_attention.py:311 (a jnp expression beside the Pallas kernels)",
         launches=train_launches["flash_bwd_delta"] + moe_launches["flash_bwd_delta"]
-        + sp_launches["flash_bwd_delta"],
+        + sp_launches["flash_bwd_delta"] + families_launches["flash_bwd_delta"],
         launches_by_path={"train": train_launches["flash_bwd_delta"],
                           "moe": moe_launches["flash_bwd_delta"],
-                          "seq_parallel": sp_launches["flash_bwd_delta"]},
+                          "seq_parallel": sp_launches["flash_bwd_delta"],
+                          "families": families_launches["flash_bwd_delta"]},
         max_abs_err=t["delta_max_abs_err"],
         ms=t["ms"]["delta"], plain_ms=t["delta_plain_ms"], bound_ms=t["bound"]["delta"]["bound_ms"],
         bound_by=t["bound"]["delta"]["bound_by"], library_ms=None))

@@ -7,9 +7,11 @@ flight, cost-model constants measured at warmup.
 
 The forward is `ops.preprocess.normalize(batch_u8, spec.preprocess,
 dtype)` followed by the model. On a CUDA tensor that normalize launches
-the hand-written Hopper kernel (dml_tpu_torch/csrc/normalize.cu); the
-convolutions, BN, pooling and the dense head are PyTorch calls, run in
-channels-last memory.
+the hand-written Hopper kernel (dml_tpu_torch/csrc/normalize.cu; the
+"raw" mode of EfficientNet, which normalizes in its graph, is a cast);
+ViT's attention launches the flash kernel (csrc/flash_attention.cu);
+the convolutions, BN, LayerNorm, pooling and the dense layers are
+PyTorch calls, run in channels-last memory.
 
 PyTorch launches asynchronously, as JAX dispatches: `_dispatch_chunk`
 enqueues the host->device copy (from pinned memory) and the forward and
@@ -158,11 +160,13 @@ class InferenceEngine:
             flax_layout = "params" in variables or any("/" in k for k in variables)
             state = from_flax_variables(variables) if flax_layout else variables
         # the classifier width comes from the weights, as in the JAX engine
-        head = state.get("predictions.bias")
+        # ("predictions" is the Keras-parity name on the CNN families,
+        # "head" on ViT)
+        head = state.get("predictions.bias", state.get("head.bias"))
         if head is None:
             raise ValueError(
-                f"{spec.name}: cannot find classifier head 'predictions.bias' "
-                f"in the weights (keys: {sorted(state)[:8]}...)"
+                f"{spec.name}: cannot find classifier head 'predictions.bias' or "
+                f"'head.bias' in the weights (keys: {sorted(state)[:8]}...)"
             )
         num_classes = int(head.shape[-1])
         module = spec.build(dtype=self.dtype, num_classes=num_classes)

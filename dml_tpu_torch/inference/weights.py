@@ -50,7 +50,8 @@ async def fetch_weights(
 ) -> Dict[str, Any]:
     """GET a model's published weights (latest or pinned version) and
     read them against a flax-layout template of the model (its keys
-    only: `to_flax_variables` of a freshly built module's state): a
+    only: `to_flax_variables` of a freshly built module's state, built
+    at the model's own input size, which ViT's `pos_embed` depends on): a
     nested dict of CPU tensors, in the stored dtypes or cast to `dtype`.
     `InferenceEngine.load_model` takes it as is."""
     spec = get_model(model_name)

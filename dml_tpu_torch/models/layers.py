@@ -1,9 +1,9 @@
-"""Layers shared by the CNN families."""
+"""Layers shared by the model families, with Flax's semantics."""
 
 from __future__ import annotations
 
 from contextlib import contextmanager
-from typing import Callable, Iterator, Optional
+from typing import Callable, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +28,65 @@ class Conv2d(nn.Conv2d):
             x, self.weight.to(self.compute_dtype),
             None if b is None else b.to(self.compute_dtype),
         )
+
+
+class Linear(nn.Linear):
+    """`nn.Linear` held in one dtype and computed in another: Flax's
+    `nn.Dense(dtype=compute_dtype)` over `param_dtype` parameters. The
+    input, weight and bias are cast to `compute_dtype` at each call (as
+    `Conv2d` casts its weights), so a trainer keeps float32 masters."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = self.bias
+        cd = self.compute_dtype
+        return F.linear(x.to(cd), self.weight.to(cd), None if b is None else b.to(cd))
+
+
+class LayerNorm(nn.Module):
+    """Flax's `nn.LayerNorm(dtype=compute_dtype)` over the last dim:
+    epsilon 1e-6 (PyTorch's default is 1e-5), statistics in float32,
+    float32 scale and bias, and the output rounded once to
+    `compute_dtype`: the input is promoted to float32, as Flax promotes
+    it against its float32 statistics (CUDA's `layer_norm` refuses a
+    bf16 input with float32 parameters)."""
+
+    def __init__(self, num_features: int, compute_dtype: torch.dtype, eps: float = 1e-6):
+        super().__init__()
+        self.eps, self.compute_dtype = eps, compute_dtype
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), self.weight.shape, self.weight, self.bias, self.eps)
+        return y.to(self.compute_dtype)
+
+
+def relu6(x: torch.Tensor) -> torch.Tensor:
+    """min(max(x, 0), 6), Keras's ReLU6."""
+    return x.clamp(0.0, 6.0)
+
+
+def correct_pad(kernel: int, size_hw: Tuple[int, int]) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """Keras `imagenet_utils.correct_pad` for the stride-2 VALID convs:
+    ((top, bottom), (left, right)), with `adjust = 1 - size % 2` per dim
+    (an even size drops one pixel of leading pad, (0, 1) for k = 3; an
+    odd one keeps the symmetric pad). Getting this wrong on odd feature
+    maps (EfficientNet-B4's 95-pixel block input) shifts every activation
+    after it off the Keras graph."""
+    correct = kernel // 2
+    adj_h = 1 - size_hw[0] % 2
+    adj_w = 1 - size_hw[1] % 2
+    return ((correct - adj_h, correct), (correct - adj_w, correct))
+
+
+def zero_pad(x: torch.Tensor, pads: Tuple[Tuple[int, int], Tuple[int, int]]) -> torch.Tensor:
+    """Zero-pad an NCHW tensor by ((top, bottom), (left, right))."""
+    (top, bottom), (left, right) = pads
+    return F.pad(x, (left, right, top, bottom))
 
 
 class BatchNorm(nn.Module):

@@ -23,11 +23,15 @@ sorted, as the JAX package's `variables_to_bytes` writes them, so the
 same tree gives the same bytes.
 
 Layout mapping (Flax -> PyTorch):
-- conv `kernel` HWIO -> `weight` OIHW; dense `kernel` [in, out] ->
-  `weight` [out, in]; `bias` -> `bias`
+- conv `kernel` HWIO -> `weight` OIHW (a depthwise kernel (k, k, 1, C)
+  -> (C, 1, k, k)); dense `kernel` [in, out] -> `weight` [out, in];
+  `bias` -> `bias`
 - BN `params/scale`, `params/bias`, `batch_stats/mean`,
   `batch_stats/var` -> `weight`, `bias`, `running_mean`, `running_var`;
-  a BN built without a scale (InceptionV3) gets weight = ones
+  a BN built without a scale (InceptionV3) gets weight = ones;
+  LayerNorm `scale`, `bias` -> `weight`, `bias`
+- a parameter of the top module itself (ViT's `params/cls_token` and
+  `params/pos_embed`) keeps its name and layout
 """
 
 from __future__ import annotations
@@ -47,7 +51,10 @@ def init_variables(spec, seed: int = 0, num_classes: int = 1000) -> Dict[str, to
     Flax's defaults, drawn in module order from `torch.Generator(seed)`:
     conv and dense kernels lecun-normal (a normal truncated at two
     standard deviations, std sqrt(1/fan_in)/0.8796), biases zero, BN
-    scale one, bias zero, mean zero, var one. The distribution is
+    scale one, bias zero, mean zero, var one, LayerNorm scale one and
+    bias zero; ViT's `pos_embed` normal with std 0.02 and `cls_token`
+    zero. Nothing is drawn from torch's global generator, so one seed
+    gives one set of weights in every process. The distribution is
     Flax's; the bits are not JAX's, since the two generators differ.
     A test that needs both packages on the same weights initialises in
     JAX and converts with `from_flax_variables`.
@@ -62,6 +69,9 @@ def init_variables(spec, seed: int = 0, num_classes: int = 1000) -> Dict[str, to
                 nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std, generator=g)
                 if m.bias is not None:
                     m.bias.zero_()
+            if isinstance(getattr(m, "pos_embed", None), nn.Parameter):  # ViT
+                nn.init.normal_(m.pos_embed, 0.0, 0.02, generator=g)
+                m.cls_token.zero_()
     return module.state_dict()
 
 
@@ -108,9 +118,11 @@ def params_from_flax(tree: Mapping[str, Any], collection: str = "params") -> Dic
     out: Dict[str, torch.Tensor] = {}
     for key, value in _flatten(tree, collection).items():
         parts = key[len(collection) + 1:].split("/")
-        if len(parts) < 2:
-            raise KeyError(f"unexpected Flax variable {key!r}")
-        name, arr = _leaf_to_torch(key, parts[-1], np.asarray(value, dtype=np.float32))
+        arr = np.asarray(value, dtype=np.float32)
+        if len(parts) == 1:  # the top module's own parameter (ViT's cls_token, pos_embed)
+            out[parts[0]] = torch.tensor(arr)
+            continue
+        name, arr = _leaf_to_torch(key, parts[-1], arr)
         out[f"{'.'.join(parts[:-1])}.{name}"] = torch.tensor(arr)  # a contiguous copy
     return out
 
@@ -127,7 +139,7 @@ def from_flax_variables(
     collections: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
     for key, value in flat.items():
         top, _, rest = key.partition("/")
-        if top not in collections or "/" not in rest:
+        if top not in collections or not rest or (top == "batch_stats" and "/" not in rest):
             raise KeyError(f"unexpected Flax variable {key!r}")
         collections[top][rest] = value
     stats = params_from_flax(collections["batch_stats"], "batch_stats")
@@ -168,6 +180,9 @@ def to_flax_variables(state_dict: Mapping[str, torch.Tensor],
         layer, _, leaf = key.rpartition(".")
         arr = value.detach().to("cpu", torch.float32)
         if leaf == "num_batches_tracked":
+            continue
+        if not layer:  # the top module's own parameter (ViT's cls_token, pos_embed)
+            tree["params"][leaf] = arr.contiguous()
             continue
         if leaf == "weight" and arr.ndim == 4:
             top, name, arr = "params", "kernel", arr.permute(2, 3, 1, 0)  # OIHW -> HWIO

@@ -1,9 +1,11 @@
 """Model registry: the families this package has ported.
 
-Counterpart of dml_tpu/models/registry.py, with the same names, input
-sizes, preprocess modes and cost priors. Only the ported families are
-registered (ResNet50/101/152, InceptionV3); any other name raises a
-KeyError that lists what is registered.
+Counterpart of dml_tpu/models/registry.py, with the same names, aliases,
+input sizes, preprocess modes, cost priors and `spatial_invariant`
+flags: ResNet50/101/152, InceptionV3, EfficientNetB0/B4, MobileNetV2 and
+ViT-B16/S16/Ti16, every family of the JAX registry. Any other name
+raises a KeyError that lists what is registered. The ViTs are built
+with `attention=ops.flash_attention.flash_attention` (see models/vit.py).
 """
 
 from __future__ import annotations
@@ -37,6 +39,10 @@ class ModelSpec:
     preprocess: str  # normalize mode
     cost: CostDefaults
     aliases: Tuple[str, ...] = ()
+    # True when param shapes are independent of the input's spatial size
+    # (fully-conv + global-pool CNNs). ViT's pos_embed is sized by patch
+    # count, so False there.
+    spatial_invariant: bool = True
 
     def build(self, dtype: torch.dtype = torch.bfloat16, num_classes: int = 1000,
               param_dtype: Optional[torch.dtype] = None) -> nn.Module:
@@ -79,6 +85,26 @@ def _build_inception(num_classes=1000, dtype=torch.bfloat16, param_dtype=None):
     return InceptionV3(num_classes=num_classes, dtype=dtype, param_dtype=param_dtype)
 
 
+def _build_efficientnet(variant, num_classes=1000, dtype=torch.bfloat16, param_dtype=None):
+    from .efficientnet import build_variant
+
+    return build_variant(variant, num_classes=num_classes, dtype=dtype, param_dtype=param_dtype)
+
+
+def _build_mobilenet(num_classes=1000, dtype=torch.bfloat16, param_dtype=None):
+    from .mobilenet import MobileNetV2
+
+    return MobileNetV2(num_classes=num_classes, dtype=dtype, param_dtype=param_dtype)
+
+
+def _build_vit(variant, num_classes=1000, dtype=torch.bfloat16, param_dtype=None):
+    from ..ops.flash_attention import flash_attention
+    from . import vit
+
+    return getattr(vit, f"ViT_{variant}")(num_classes=num_classes, dtype=dtype,
+                                          param_dtype=param_dtype, attention=flash_attention)
+
+
 def _register_builtin() -> None:
     register(
         ModelSpec(
@@ -102,6 +128,42 @@ def _register_builtin() -> None:
                 # priors scaled from the ResNet50 CPU numbers by FLOPs
                 cost=CostDefaults(load_time=4.0, first_query=1.2, per_query=per_q),
                 aliases=(f"resnet-{depth}",),
+            )
+        )
+    # input sizes inlined (efficientnet.VARIANTS), as the JAX registry does
+    for variant, size in (("b0", 224), ("b4", 380)):
+        register(
+            ModelSpec(
+                name=f"EfficientNet{variant.upper()}",
+                builder=partial(_build_efficientnet, variant),
+                input_size=(size, size),
+                preprocess="raw",  # normalization baked into the graph
+                # priors scaled from the ResNet CPU numbers by FLOPs
+                cost=CostDefaults(load_time=4.0, first_query=1.5, per_query=0.3),
+                aliases=(f"efficientnet-{variant}", f"effnet{variant}"),
+            )
+        )
+    register(
+        ModelSpec(
+            name="MobileNetV2",
+            builder=_build_mobilenet,
+            input_size=(224, 224),
+            preprocess="tf",  # keras mobilenet_v2 preprocess = [-1, 1]
+            # light model: priors scaled well under the ResNet numbers
+            cost=CostDefaults(load_time=2.0, first_query=0.5, per_query=0.08),
+            aliases=("mobilenet", "mobilenet-v2", "mobilenetv2"),
+        )
+    )
+    for variant in ("B16", "S16", "Ti16"):
+        register(
+            ModelSpec(
+                name=f"ViT-{variant}",
+                builder=partial(_build_vit, variant),
+                input_size=(224, 224),
+                preprocess="tf",  # [-1, 1] scaling, the standard ViT input
+                cost=CostDefaults(load_time=4.0, first_query=1.5, per_query=0.3),
+                aliases=(f"vit{variant.lower()}", f"vit_{variant.lower()}"),
+                spatial_invariant=False,  # pos_embed sized by patch count
             )
         )
     register(

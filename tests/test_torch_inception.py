@@ -62,7 +62,7 @@ def test_state_dict_keys_and_registry():
     assert get_model("ResNet152").input_size == (224, 224)
     assert get_model("InceptionV3").preprocess == "tf"
     with pytest.raises(KeyError, match="registered: .*ResNet50"):
-        get_model("MobileNetV2")  # not ported yet
+        get_model("InceptionV4")  # not a registered family
     m = get_model("ResNet101").build(dtype=torch.bfloat16, num_classes=7)
     assert m.predictions.out_features == 7
     assert m.conv1_conv.weight.dtype == torch.bfloat16

@@ -3,8 +3,7 @@
 - The `FakeBackend` cases of test_jobs_sim and test_cluster_sim, run on
   port nodes (`test_torch_cluster.port_cases`, every cluster on a probed
   free port block). Left out: the sharded worker-group case (its group
-  backend is ROADMAP A6(b)) and the EfficientNetB4 case (the family is
-  ROADMAP A7).
+  backend is ROADMAP A6(b)).
 - The slice as a whole, on the CPU: a 4-node JAX cluster serving
   ResNet50 float32 on the JAX engine and a 4-node port cluster on
   `InferenceEngine(device="cpu")`, the same weights (`jax_init` +
@@ -34,8 +33,7 @@ import torch
 from test_torch_cluster import TESTS, free_port_block, port_cases
 from test_torch_models import jax_init, perturb_bn
 
-SIM_FILES = (("test_jobs_sim", "jobs_sim", ("test_group_sharded_serving_outputs_equal_single_chip",
-                                             "test_efficientnet_dynamic_batching_with_failure")),
+SIM_FILES = (("test_jobs_sim", "jobs_sim", ("test_group_sharded_serving_outputs_equal_single_chip",)),
              ("test_cluster_sim", "cluster_sim", ()))
 for _name, _prefix, _exclude in SIM_FILES:
     globals().update(port_cases(_name, _prefix, exclude=_exclude, probe_ports=True))

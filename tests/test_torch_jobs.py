@@ -25,7 +25,7 @@ from test_torch_cluster import TESTS, port_cases
 JOB_FILES = (("test_scheduler", "scheduler"), ("test_train_job", "train_job"),
              ("test_signal", "signal"), ("test_autoscale", "autoscale"),
              ("test_tracing", "tracing"), ("test_observability", "observability"),
-             ("test_groups", "groups"))
+             ("test_groups", "groups"), ("test_depth_adaptive", "depth_adaptive"))
 #: the groups' sharded backends are ROADMAP A6(b): they raise in the port
 EXCLUDE = {"test_groups": ("test_wire_group_backend_primary_only",
                            "test_group_engine_backend_lazy_models_and_equality",
@@ -37,7 +37,7 @@ for _name, _prefix in JOB_FILES:
 #: cases each file contributes at least (the rest need a module the port
 #: lacks or are in EXCLUDE); None: every case
 MIN_CASES = {"scheduler": None, "train_job": 14, "signal": None, "autoscale": 27,
-             "tracing": 16, "observability": 18, "groups": 17}
+             "tracing": 16, "observability": 18, "groups": 17, "depth_adaptive": 16}
 
 
 @pytest.mark.parametrize("name,prefix", JOB_FILES)
