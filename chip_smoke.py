@@ -11,6 +11,7 @@
     python3 chip_smoke.py --cluster       # phases 1-2 and 17 (a port cluster serving jobs) alone
     python3 chip_smoke.py --ingress       # phases 1-2 and 18 (per-request traffic) alone
     python3 chip_smoke.py --families      # phases 1-2 and 19 (the other image families) alone
+    python3 chip_smoke.py --groups        # phases 1-2 and 20 (the worker groups' backends) alone
 
 Phases, each printing one JSON line (with `t_s`, the seconds since the
 script started); any failure exits non-zero:
@@ -356,13 +357,34 @@ script started); any failure exits non-zero:
    finite, each step one K1 launch for the tf models (none for the raw
    ones) and for ViT-B16 12 K2, 12 K3 and 12 delta launches, and no
    other kernel; step ms and images/s, peak memory.
+20. groups: the worker groups' sharded backends, on two 4-node port
+   `LocalCluster`s in this process sharing one cuda engine (H1 leads,
+   H2 is the standby, so the group H3 + H4 is the whole pool). A group
+   mesh resolves over this process's world (1 rank): dp 1 x tp 1.
+   img0: every node wired by `jobs.groups.wire_group_backend`, H3's
+   lazy `group_engine_backend` given the engine's weights through the
+   store (publish, then load, which calls its `set_variables`), a
+   ResNet50 job of 64 queries over 64 seeded 256x256 JPEGs: every batch
+   group-served, top-5 wnids equal to the engine's `infer_files`,
+   scores within 1e-6, K1 once a group-engine chunk and no other
+   kernel. tp0: every node wired by `inference.lm_sharded.wire_lm_group`
+   with the 198M LM (H3 the `DisaggLMBackend` decode primary over the
+   resident form, H4 the prefill role): (a) a job of phase 12's first 8
+   prompts, streamed handoff: 8 handoffs, 0 fallbacks; (b) the 8
+   prompts with H3's data plane failing every pull (whole-slab form): 8
+   local fallbacks; (c) the first 4, whole-slab form: 4 handoffs. Each
+   arm's tokens equal the lone `LMBackend.serve_files` up to a near-tie
+   (TIE_MARGIN); K2 = 12 x (the prefill member's prefills + the decode
+   server's placement prefills), K4 = 12 x chunk x the decode server's
+   steps. Then H4 is crashed and H3's backend refuses a batch
+   (GroupDegraded).
 
 Then the card's name and power limit as nvidia-smi prints them, the
 kernels' summary line (K1's launches by path: serving, training,
-cluster, ingress and, for ResNet50, parallel, and a row at the families'
-[32,224,224,3] tf shape with the families path; K2's and K4's:
-generate, train, lm_server, moe, seq_parallel, pipeline, cluster,
-ingress and families, K2 timed at the LM's shapes and ViT-B16's; K3's
+cluster, ingress and, for ResNet50, parallel and groups, and a row at
+the families' [32,224,224,3] tf shape with the families path; K2's and
+K4's: generate, train, lm_server, moe, seq_parallel, pipeline, cluster,
+ingress, families and groups, K2 timed at the LM's shapes and ViT-B16's; K3's
 and the delta kernel's: train, moe, seq_parallel and families), and
 last `{"ok": true, "device": {...}}`.
 """
@@ -4732,6 +4754,325 @@ def phase_families(timer):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the worker groups' sharded backends
+# ---------------------------------------------------------------------------
+
+GROUP_NODES, GROUP_FILES, GROUP_QUERIES = 4, 64, 64
+GROUP_LM_PROMPTS, GROUP_SLAB_PROMPTS = 8, 4  # phase 12's stream: its first 8, then first 4
+GROUP_LM_SPEC = dict(LM_SPEC, name="LM198M")
+GROUP_TIMING = dict(ping_interval=0.2, ack_timeout=0.5, cleanup_time=1.5,
+                    leader_rpc_timeout=20.0)
+
+
+async def _group_cluster(tmp, group, make_jobs):
+    """A started port LocalCluster of GROUP_NODES nodes with one worker
+    group. H1 leads and H2 is the standby, so a group of H3 and H4 is the
+    whole pool: every batch runs on its primary's group backend."""
+    from dml_tpu_torch.cluster.chaos import LocalCluster
+    from dml_tpu_torch.config import Timing
+
+    c = LocalCluster(GROUP_NODES, tmp, free_port_block(GROUP_NODES),
+                     timing=Timing(**GROUP_TIMING), worker_groups=[group], make_jobs=make_jobs)
+    await c.start()
+    await c.wait_for(c.converged, 30.0, "group cluster convergence")
+    check(c.leader_uname() == c.spec.node_by_name("H1").unique_name,
+          f"leader {c.leader_uname()}, want H1")
+    return c
+
+
+async def _run_group_images(tmp, eng, files, out):
+    """img0 = H3 (primary) + H4 at dp 1 x tp 1: every node wired as a
+    production node is (`wire_group_backend`), so H3 serves on the lazy
+    `group_engine_backend` and the others on the shared engine. The group
+    engine takes the engine's weights through the store (H3 publishes
+    them and loads them back, which calls its `set_variables`), then a
+    ResNet50 job of GROUP_QUERIES queries runs on it. Returns the merged
+    output, K1 launches and the group engine's chunks."""
+    import threading
+
+    import torch
+    from dml_tpu_torch.config import MeshSpec, WorkerGroupSpec
+    from dml_tpu_torch.jobs.groups import wire_group_backend
+    from dml_tpu_torch.jobs.service import JobService
+    from dml_tpu_torch.observability import METRICS
+    from dml_tpu_torch.parallel import inference as pinf
+
+    group = WorkerGroupSpec("img0", ("H3", "H4"), MeshSpec(dp=1, tp=1))
+    gbs = {}
+
+    def make_jobs(node, store):
+        gb = wire_group_backend(node)
+        if gb is not None:
+            gbs[node.me.name] = gb
+        js = JobService(node, store, engine=eng, group_backend=gb)
+        js.scheduler.set_batch_size("ResNet50", BATCH)
+        return js
+
+    c = await _group_cluster(tmp, group, make_jobs)
+    chunks, lock = [0], threading.Lock()
+    forward = pinf.ShardedInference._forward
+
+    def counted(self, rows):
+        with lock:
+            chunks[0] += 1
+        return forward(self, rows)
+
+    pinf.ShardedInference._forward = counted
+    try:
+        check(sorted(gbs) == ["H3"], f"group engines wired on {sorted(gbs)}, want H3 only")
+        gb = gbs["H3"]
+        primary = c.nodes[c.spec.node_by_name("H3").unique_name].jobs
+        await primary.publish_model("ResNet50")
+        await primary.load_model_weights("ResNet50")
+        client = c.client()
+        for f in files:
+            await client.store.put(f, os.path.basename(f))
+        key = "jobs_group_batches_total{group=img0}"
+        batches0 = METRICS.snapshot()["counters"].get(key, 0.0)
+        coord = c.nodes[c.leader_uname()].jobs
+        timing0 = len(coord.batch_timing)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.monotonic()
+        jid = await client.jobs.submit_job("ResNet50", GROUP_QUERIES)
+        done = await client.jobs.wait_job(jid, timeout=300.0)
+        wall = time.monotonic() - t0
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        check(done["total_queries"] == GROUP_QUERIES, f"group image job: {done}")
+        merged = await client.jobs.get_output(jid, os.path.join(tmp, f"final_{jid}.json"))
+        gstats = coord.group_stats()["img0"]
+        batches = METRICS.snapshot()["counters"].get(key, 0.0) - batches0
+        timing = list(coord.batch_timing)[timing0:]
+    finally:
+        pinf.ShardedInference._forward = forward
+        await c.stop()
+    check(gstats["formed"], f"img0 not formed: {gstats}")
+    engines = sorted(f"{m} dp{s[0]} tp{s[1]} pp{s[2]}" for m, s in gb.engines)
+    check(engines == ["ResNet50 dp1 tp1 pp1"], f"group engines {engines}")
+    check(batches == len(timing) and batches >= 1,
+          f"{batches} group-served batches for {len(timing)} batches")
+    check(launches == {"normalize": chunks[0], "flash_attention": 0, "flash_bwd": 0,
+                       "flash_bwd_delta": 0, "decode_attention": 0},
+          f"the group image job launched {launches} for {chunks[0]} group-engine chunks")
+    per_query = sorted(s["exec"] * 1e3 for s in timing for _ in range(BATCH))
+    out["image"] = {
+        "group": "img0 = H3 (primary) + H4, dp 1 x tp 1 at world 1, param_gather",
+        "job": jid, "queries": GROUP_QUERIES, "wall_s": wall,
+        "images_per_s": GROUP_QUERIES / wall, "group_batches": batches,
+        "batch_exec_ms": [s["exec"] * 1e3 for s in timing],
+        "query_exec_ms_p50": _pct(per_query, 50), "query_exec_ms_p99": _pct(per_query, 99),
+        "capacity": gb.capacity, "engines": engines, "chunks": chunks[0],
+        "launches": launches}
+    return merged, launches
+
+
+async def _run_group_lm(tmp, eng, single, lm_files, out):
+    """tp0 = H3 (decode primary) + H4 (prefill role) at dp 1 x tp 1, every
+    node wired by `wire_lm_group`: H3 serves on `DisaggLMBackend` over the
+    resident engine, H4 prefills on `LMPrefillBackend`. Three arms through
+    H3's backend, with the launch counts of each: (a) a job of the 8
+    prompts, the streamed handoff; (b) the 8 prompts with H3's data plane
+    failing every pull, the whole-slab form, so each request falls back
+    to a local prefill; (c) the first 4 prompts, the whole-slab form.
+    Then H4 is crashed and the backend refuses a batch (GroupDegraded)."""
+    import torch
+    from dml_tpu_torch.cluster.store.data_plane import TunnelFault
+    from dml_tpu_torch.config import MeshSpec, WorkerGroupSpec
+    from dml_tpu_torch.inference.lm_sharded import DisaggLMBackend, wire_lm_group
+    from dml_tpu_torch.jobs.groups import GroupDegraded
+    from dml_tpu_torch.jobs.service import JobService
+
+    group = WorkerGroupSpec("tp0", ("H3", "H4"), MeshSpec(dp=1, tp=1),
+                            lm_models=(GROUP_LM_SPEC["name"],),
+                            roles={"H3": "decode", "H4": "prefill"})
+    wired = {}
+
+    def make_jobs(node, store):
+        gb, pf = wire_lm_group(node, store, GROUP_LM_SPEC)
+        wired[node.me.name] = (gb, pf, store, node)
+        js = JobService(node, store, engine=eng)
+        js.register_lm(GROUP_LM_SPEC["name"], backend=single.backend, cost=single.cost(),
+                       group_backend=gb, prefill=pf)
+        return js
+
+    c = await _group_cluster(tmp, group, make_jobs)
+    arms = {}
+    try:
+        roles = {k: (type(v[0]).__name__ if v[0] else None, type(v[1]).__name__ if v[1] else None)
+                 for k, v in wired.items()}
+        check(roles == {"H1": (None, None), "H2": (None, None),
+                        "H3": ("DisaggLMBackend", None), "H4": (None, "LMPrefillBackend")},
+              f"wire_lm_group roles {roles}")
+        gb, _, store3, node3 = wired["H3"]
+        pf = wired["H4"][1]
+        check(isinstance(gb, DisaggLMBackend) and gb.handoff == "stream", "H3's backend")
+        prefills = [0]
+        prefill_one = pf.prefill_one
+
+        def counted_prefill(*a, **kw):
+            prefills[0] += 1
+            return prefill_one(*a, **kw)
+
+        pf.prefill_one = counted_prefill
+        client = c.client(avoid=tuple(c.spec.group_members_unique("tp0")))
+        for f in lm_files:
+            await client.store.put(f, os.path.basename(f))
+
+        async def arm(name, run):
+            torch.cuda.synchronize()
+            d0, p0 = server_dispatches(), prefills[0]
+            h0, f0, b0 = gb.handoffs, gb.fallbacks, gb.handoff_bytes
+            reset_launch_counts()
+            t0 = time.monotonic()
+            results = await run()
+            wall = time.monotonic() - t0
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            d = {k: v - d0[k] for k, v in server_dispatches().items()}
+            remote = prefills[0] - p0
+            want = {"normalize": 0, "flash_bwd": 0, "flash_bwd_delta": 0,
+                    "flash_attention": LM_CFG["n_layers"] * (remote + d["prefill"]),
+                    "decode_attention": LM_CFG["n_layers"] * LMS_CHUNK * d["steps"]}
+            check(launches == want, f"arm {name}: launched {launches}; {remote} prefill-role "
+                                    f"prefills and the decode server's dispatches {d} give {want}")
+            tokens = sum(len(v["tokens"]) for v in results.values())
+            arms[name] = {"wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+                          "ttft_s": gb.last_ttft_s, "handoffs": gb.handoffs - h0,
+                          "fallbacks": gb.fallbacks - f0, "handoff_bytes": gb.handoff_bytes - b0,
+                          "prefill_role_prefills": remote, "decode_server_dispatches": d,
+                          "launches": launches}
+            return {os.path.basename(k): v["tokens"] for k, v in results.items()}
+
+        async def job():
+            jid = await client.jobs.submit_job(GROUP_LM_SPEC["name"], GROUP_LM_PROMPTS)
+            done = await client.jobs.wait_job(jid, timeout=300.0)
+            check(done["total_queries"] == GROUP_LM_PROMPTS, f"group LM job: {done}")
+            return await client.jobs.get_output(jid, os.path.join(tmp, f"final_{jid}.json"))
+
+        async def run_direct(paths):
+            return (await gb(GROUP_LM_SPEC["name"], paths))[0]
+
+        got = {"stream": await arm("stream", job)}
+        gb.handoff = "slab"
+        store3.data_plane.fault = TunnelFault(seed=3, fail_pct=100.0)
+        got["fallback"] = await arm("fallback", lambda: run_direct(lm_files))
+        store3.data_plane.fault = None
+        got["slab"] = await arm("slab", lambda: run_direct(lm_files[:GROUP_SLAB_PROMPTS]))
+        h4 = c.spec.node_by_name("H4").unique_name
+        await c.crash_node(h4)
+        await c.wait_for(lambda: h4 not in {n.unique_name for n in node3.membership.alive_nodes()},
+                         30.0, "H4 seen dead by H3")
+        degraded = False
+        try:
+            await gb(GROUP_LM_SPEC["name"], lm_files[:1])
+        except GroupDegraded:
+            degraded = True
+        check(degraded, "H3's backend served a batch with its prefill member dead")
+        gb.be.close()
+    finally:
+        await c.stop()
+    check((arms["stream"]["handoffs"], arms["stream"]["fallbacks"]) == (GROUP_LM_PROMPTS, 0),
+          f"arm stream: {arms['stream']}")
+    check((arms["fallback"]["handoffs"], arms["fallback"]["fallbacks"]) == (0, GROUP_LM_PROMPTS),
+          f"arm fallback: {arms['fallback']}")
+    check((arms["slab"]["handoffs"], arms["slab"]["fallbacks"]) == (GROUP_SLAB_PROMPTS, 0),
+          f"arm slab: {arms['slab']}")
+    check(arms["stream"]["handoff_bytes"] > 0 and arms["slab"]["handoff_bytes"] > 0,
+          "no slab bytes pulled")
+    out["lm"] = {"group": "tp0 = H3 (decode, resident form at dp 1 x tp 1) + H4 (prefill)",
+                 "arms": arms, "degraded_after_H4_crashed": degraded,
+                 "handoffs": gb.handoffs, "fallbacks": gb.fallbacks,
+                 "handoff_bytes": gb.handoff_bytes}
+    return got
+
+
+def phase_groups(timer):
+    """The worker groups' sharded backends on port LocalClusters (phase
+    20): a ResNet50 job on an image group's lazy group engine, and LM jobs
+    through a role-split group's disaggregated decode primary and its
+    prefill member; returns the path's launches: K1, K2 and K4."""
+    import asyncio
+
+    import torch
+    from dml_tpu_torch.inference import InferenceEngine
+    from dml_tpu_torch.inference import generate as gen
+    from dml_tpu_torch.inference.lm_backend import LMBackend, write_prompt_file
+    from dml_tpu_torch.inference.lm_sharded import lm_spec_parts_cached
+    from dml_tpu_torch.models.registry import get_model
+
+    t_phase = time.monotonic()
+    eng = InferenceEngine(dtype=torch.bfloat16)  # device None -> cuda
+    check(eng.device.type == "cuda", f"engine on {eng.device}")
+    eng.load_model("ResNet50", variables=seeded_weights(get_model("ResNet50"), seed=0),
+                   batch_size=BATCH)
+    single = LMBackend.from_spec(GROUP_LM_SPEC)  # the single-device LM backend of every node
+    out = {"nodes": GROUP_NODES, "engine": f"{eng.device} {eng.dtype} b{BATCH}, one for all nodes",
+           "lm": f"198M GQA-4 bf16: {LMS_SLOTS} slots, chunk {LMS_CHUNK}"}
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.RandomState(20)
+        imgs = np.clip(rng.randint(0, 256, (GROUP_FILES, 256, 256, 3)) // 2
+                       + rng.randint(0, 128, (GROUP_FILES, 1, 1, 3)), 0, 255).astype(np.uint8)
+        os.makedirs(os.path.join(tmp, "in"))
+        files = write_images(os.path.join(tmp, "in"), imgs, "jpeg")
+        lm_files = []
+        reqs = mixed_requests(LM_CFG["vocab_size"])[:GROUP_LM_PROMPTS]
+        for i, (p, b) in enumerate(reqs):
+            lm_files.append(os.path.join(tmp, "in", f"p{i}.tokens.txt"))
+            write_prompt_file(lm_files[-1], p, max_new_tokens=b)
+        merged, image_launches = asyncio.run(asyncio.wait_for(
+            _run_group_images(os.path.join(tmp, "img"), eng, files, out), 300))
+        direct = {os.path.basename(k): v for k, v in
+                  eng.infer_files("ResNet50", files).to_json_dict().items()}
+        check(set(merged) == set(direct), "group job keys != the files")
+        worst = 0.0
+        for f, rows in merged.items():
+            check([r["wnid"] for r in rows] == [r["wnid"] for r in direct[f]],
+                  f"group {f}: top-5 {[r['wnid'] for r in rows]} != the engine's "
+                  f"{[r['wnid'] for r in direct[f]]}")
+            worst = max(worst, max(abs(a["score"] - b["score"]) for a, b in zip(rows, direct[f])))
+        check(worst <= 1e-6, f"group scores differ from the engine's by {worst} (> 1e-6)")
+        out["image"]["vs_engine_infer_files"] = {"max_abs_score_diff": worst, "bar": 1e-6}
+
+        got = asyncio.run(asyncio.wait_for(
+            _run_group_lm(os.path.join(tmp, "lm"), eng, single, lm_files, out), 300))
+        lone, _, _ = single.serve_files(lm_files)
+        lone = {os.path.basename(k): v["tokens"] for k, v in lone.items()}
+        params, cfg = lm_spec_parts_cached(GROUP_LM_SPEC)
+        margins_of = {}
+        for arm, toks in got.items():
+            equal = ties = 0
+            for i, (p, b) in enumerate(reqs):
+                name = f"p{i}.tokens.txt"
+                if name not in toks:
+                    continue
+                check(len(toks[name]) == b, f"{arm} {name}: {len(toks[name])} tokens, budget {b}")
+                if list(toks[name]) == list(lone[name]):
+                    equal += 1
+                    continue
+                if i not in margins_of:
+                    margins_of[i] = lone_greedy(gen, params, cfg, p, b)
+                held, upto, _, _ = tie_compare(toks[name], *margins_of[i])
+                check(held, f"{arm} {name}: tokens differ from the lone serve at {upto} with no "
+                            f"near-tie before it")
+                ties += 1
+            out["lm"]["arms"][arm]["vs_lone_backend"] = {
+                "requests": len(toks), "equal": equal, "held_to_a_near_tie": ties,
+                "tie_margin": TIE_MARGIN}
+    single.close()
+    lm = [a["launches"] for a in out["lm"]["arms"].values()]
+    total = {"normalize": {"ResNet50": image_launches["normalize"]},
+             "flash_attention": sum(x["flash_attention"] for x in lm),
+             "decode_attention": sum(x["decode_attention"] for x in lm)}
+    del eng, single, params
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.monotonic() - t_phase
+    emit(phase="groups", handoffs=out["lm"]["handoffs"], fallbacks=out["lm"]["fallbacks"],
+         handoff_bytes=out["lm"]["handoff_bytes"], launches=total, **out)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -4782,6 +5123,10 @@ def main() -> int:
         phase_families(timer)
         print(smi, flush=True)
         return 0
+    if "--groups" in sys.argv[1:]:  # after a worker-group edit: build, phase 20, stop
+        phase_groups(timer)
+        print(smi, flush=True)
+        return 0
     timings = phase_kernel(timer)
     if kernel_only:  # a short call after a K1 edit: build, check, time, stop
         print(smi, flush=True)
@@ -4801,6 +5146,7 @@ def main() -> int:
     cluster_launches = phase_cluster(timer)
     ingress_launches = phase_ingress()
     families_launches = phase_families(timer)
+    groups_launches = phase_groups(timer)
 
     kernels = []
     for model, mode in MODELS:
@@ -4809,6 +5155,7 @@ def main() -> int:
         by_path = {"serve": launches[model], "train": image_train_launches[model]}
         if model == "ResNet50":
             by_path["parallel"] = parallel_launches
+            by_path["groups"] = groups_launches["normalize"]["ResNet50"]
         by_path["cluster"] = cluster_launches["normalize"].get(model, 0)
         by_path["ingress"] = ingress_launches["normalize"].get(model, 0)
         kernels.append(dict(
@@ -4829,7 +5176,7 @@ def main() -> int:
                       "lm_server": server_launches[kern], "moe": moe_launches[kern],
                       "seq_parallel": sp_launches[kern], "pipeline": pipe_launches[kern],
                       "cluster": cluster_launches[kern], "ingress": ingress_launches[kern],
-                      "families": families_launches[kern]}
+                      "families": families_launches[kern], "groups": groups_launches[kern]}
                for kern in ("flash_attention", "decode_attention")}
     for case, shape in (
             ("prefill_b8", f"prefill b{LM_BATCH} T{PROMPT_LEN} H16 KV4 D64 bf16 causal"),

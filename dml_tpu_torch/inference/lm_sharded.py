@@ -52,9 +52,17 @@ Metrics, under the JAX package's names: ``lm_sharded_*`` and
 ports, count batches, tokens and handoffs; `LMPrefillBackend` counts
 slabs).
 
-Not here yet: the group backends and the cluster wiring
-(`sharded_lm_group_backend`, `DisaggLMBackend`, `wire_lm_group`), which
-need the cluster and job layers, and the bench entry points.
+The cluster half: `sharded_lm_group_backend` (a JobService LM group
+backend over a mesh-sharded `LMBackend`), `DisaggLMBackend` (the decode
+primary of a role-split group: prompts scattered over the live
+prefill-role members, their KV slabs streamed back over the data plane
+and adopted, per-request fallback to a local prefill) and
+`wire_lm_group` (a node's role in a group declaring the model). The
+group mesh resolves over the ranks of the process's own world
+(`jobs.groups.group_ranks`), where the JAX primary takes the host's
+devices; a mesh of more ranks than the world has raises at wiring.
+
+Not here yet: the bench entry points (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -65,7 +73,7 @@ import json
 import logging
 import struct
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -73,6 +81,7 @@ import torch
 from ..models.lm_params import _flatten, _nest, resolve_device
 from ..models.transformer import rope_tables
 from ..observability import METRICS
+from ..tracing import TRACER, TraceContext, current_all_ctxs
 from ..ops.flash_attention import flash_attention
 from ..parallel.mesh import all_gather, all_reduce, resolve_mesh, ring_shift
 from ..parallel.pipeline import stack_stage_params
@@ -839,6 +848,552 @@ class LMPrefillBackend:
 
 
 # ----------------------------------------------------------------------
+# group backends (decode side)
+# ----------------------------------------------------------------------
+
+
+def _member_check(
+    group_name: Optional[str],
+    members: Tuple[str, ...],
+    alive_fn: Optional[Callable[[], Set[str]]],
+) -> None:
+    if members and alive_fn is not None:
+        from ..jobs.groups import _check_members
+
+        _check_members(group_name or "?", members, alive_fn)
+
+
+def sharded_lm_group_backend(
+    be,  # LMBackend over the group mesh (sharded_lm_backend)
+    *,
+    model_name: str,
+    group_name: str,
+    members: Tuple[str, ...] = (),
+    alive_fn: Optional[Callable[[], Set[str]]] = None,
+    capacity: Optional[float] = None,
+    mode: str = "resident",
+):
+    """JobService LM GROUP backend over a mesh-sharded `LMBackend`:
+    the LM analog of `jobs.groups.sharded_backend`. Serves exactly
+    one model (``backend.model``); member liveness is checked around
+    the decode so a mid-batch group degradation raises
+    `GroupDegraded` (-> TASK_FAIL -> requeue onto the single-chip
+    pool) instead of acking tokens a broken mesh could not have
+    produced."""
+    cap = float(capacity if capacity is not None
+                else max(len(members), 1))
+
+    async def backend(model: str, paths: List[str]):
+        _member_check(group_name, members, alive_fn)
+        results, infer_time, cost = await asyncio.to_thread(
+            be.serve_files, list(paths)
+        )
+        _member_check(group_name, members, alive_fn)
+        _M_SHARDED_BATCHES.inc(group=group_name, mode=mode)
+        _M_SHARDED_TOKENS.inc(
+            sum(len(v.get("tokens", ())) for v in results.values()),
+            group=group_name,
+        )
+        return results, infer_time, cost
+
+    backend.model = model_name
+    backend.group_name = group_name
+    backend.capacity = cap
+    backend.lm_backend = be
+    return backend
+
+
+class DisaggLMBackend:
+    """Decode-role group backend with the prefill offloaded: scatter
+    the batch's prompt token ids across EVERY live prefill-role
+    member (multi-prefill fan-out), pull each peer's serialized KV
+    slabs back over the data plane, adopt them into the
+    (weight-resident sharded) decode server, stream tokens through
+    the normal completion path.
+
+    Two handoff forms:
+
+    - ``handoff="stream"`` (default): each peer ACKs a live
+      data-plane stream token IMMEDIATELY and pushes per-request slab
+      chunks as its prefills complete (`LMPrefillBackend.stream_slabs`
+      -> `iter_slab_stream`); the decode primary adopts each request
+      into a free slot the moment ITS chunks land — transfer overlaps
+      prefill compute and the first decoded token leaves before the
+      last prefill chunk is even computed.
+    - ``handoff="slab"``: the whole-slab pull (one blob per peer
+      after its whole share prefilled), kept as the bench's measured
+      comparison baseline.
+
+    Fallback discipline is PER REQUEST: a dead/straggling peer, a
+    tunnel fault mid-stream, a garbled chunk, a truncated slab, or a
+    failed adoption demotes exactly the affected requests to LOCAL
+    prefill on the decode engine
+    (``jobs_kv_handoff_total{result="fallback"}`` per request; adopted
+    requests tick ``result="ok"``). Greedy outputs are identical
+    either way, so ANY handoff failure changes throughput
+    attribution, never answers."""
+
+    #: shares whose combined token count exceeds this ride the local
+    #: path: the UDP control frame caps at ~60 KB and the ids travel
+    #: as JSON ints
+    MAX_FRAME_TOKENS = 8_000
+
+    def __init__(
+        self,
+        be,  # LMBackend over the group mesh (decode side)
+        *,
+        model_name: str,
+        group_name: str,
+        node,
+        store,
+        members: Tuple[str, ...] = (),
+        alive_fn: Optional[Callable[[], Set[str]]] = None,
+        capacity: Optional[float] = None,
+        prefill_timeout: float = 30.0,
+        handoff: str = "stream",
+        fanout: int = 0,
+        draft_k: int = 0,
+    ):
+        if handoff not in ("stream", "slab"):
+            raise ValueError(f"unknown handoff form {handoff!r}")
+        self.be = be
+        self.model = model_name
+        self.group_name = group_name
+        self.node = node
+        self.store = store
+        self.members = tuple(members)
+        self.alive_fn = alive_fn
+        self.capacity = float(
+            capacity if capacity is not None else max(len(members), 1)
+        )
+        self.prefill_timeout = float(prefill_timeout)
+        self.handoff = handoff
+        #: max prefill peers a batch scatters across; 0 = all alive
+        self.fanout = int(fanout)
+        self._roles = node.spec.group_roles_unique(group_name)
+        self.handoffs = 0  # requests adopted from a peer slab
+        self.handoff_bytes = 0
+        self.fallbacks = 0  # requests locally prefilled instead
+        #: requests kept LOCAL because the decode server's KV prefix
+        #: cache already covers their prompt (inference/kv_cache.py) —
+        #: a warm start, not a handoff failure
+        self.warm_locals = 0
+        self.last_ttft_s: Optional[float] = None
+        self.lm_backend = be
+        #: remote-draft speculation: ask prefill peers to ship this
+        #: many draft tokens with each slab (0 = none). Peers without
+        #: a draft model simply omit the field; the decode side's
+        #: verify round treats an absent shipment as zero acceptance,
+        #: so a peer killed mid-verify (chaos) degrades to the plain
+        #: per-request local-fallback story with identical outputs.
+        self.draft_k = int(draft_k)
+
+    def _prefill_peers(self) -> List[Any]:
+        """Alive prefill-role members (not this node), deterministic
+        order, capped at `fanout` when set."""
+        alive = self.alive_fn() if self.alive_fn is not None else set()
+        me = self.node.me.unique_name
+        peers = [
+            self.node.spec.node_by_unique_name(u)
+            for u in sorted(self._roles)
+            if self._roles[u] == "prefill" and u != me and u in alive
+        ]
+        if self.fanout > 0:
+            peers = peers[: self.fanout]
+        return peers
+
+    async def _prefill_rpc(
+        self, peer, model: str, prompts: List[np.ndarray],
+        budgets: List[int], stream: bool,
+        traces: Optional[List[Dict[str, Any]]] = None,
+    ) -> Dict[str, Any]:
+        """LM_PREFILL_REQUEST with one retry (at-most-once UDP): a
+        single dropped frame costs half the window, not all of it;
+        a duplicate just mints another token/stream the TTL reaps.
+        ``traces`` ships the share's per-request trace contexts so the
+        prefill member's span lands in the stitched cross-node tree."""
+        from ..cluster.wire import MsgType
+
+        reply = None
+        for _ in range(2):
+            try:
+                reply = await self.node.request(
+                    peer, MsgType.LM_PREFILL_REQUEST,
+                    {
+                        "model": model,
+                        "prompts": [[int(t) for t in p] for p in prompts],
+                        "budgets": [int(b) for b in budgets],
+                        "stream": bool(stream),
+                        **({"draft_k": self.draft_k}
+                           if self.draft_k > 0 else {}),
+                        **({"traces": traces} if traces else {}),
+                    },
+                    timeout=self.prefill_timeout / 2,
+                )
+                break
+            except (TimeoutError, asyncio.TimeoutError):
+                continue
+        if reply is None:
+            raise TimeoutError(
+                f"prefill peer {peer} never answered "
+                f"({self.prefill_timeout:g}s)"
+            )
+        if not reply.get("ok"):
+            raise RuntimeError(f"prefill peer: {reply.get('error')}")
+        return reply
+
+    async def _fetch_slabs(
+        self, model: str, prompts: List[np.ndarray], budgets: List[int],
+        peer=None, traces: Optional[List[Dict[str, Any]]] = None,
+    ) -> Optional[List[Dict[str, Any]]]:
+        """Whole-slab pull of one peer's share (``handoff="slab"``).
+        Returns the share's slab entries, or None when no peer is
+        available/eligible."""
+        from ..cluster.store_service import data_addr
+
+        if peer is None:
+            peers = self._prefill_peers()
+            peer = peers[0] if peers else None
+        if peer is None:
+            return None
+        if sum(int(p.size) for p in prompts) > self.MAX_FRAME_TOKENS:
+            return None
+        t0 = time.monotonic()
+        reply = await self._prefill_rpc(
+            peer, model, prompts, budgets, stream=False, traces=traces
+        )
+        data = await self.store.data_plane.fetch_token_bytes(
+            data_addr(peer), reply["token"],
+            timeout=self.prefill_timeout,
+        )
+        slabs = kv_slab_from_bytes(data)
+        if len(slabs) != len(prompts):
+            raise ValueError(
+                f"peer returned {len(slabs)} slabs for "
+                f"{len(prompts)} prompts"
+            )
+        _M_HANDOFF_T.observe(time.monotonic() - t0)
+        _M_HANDOFF_BYTES.inc(len(data))
+        self.handoff_bytes += len(data)
+        return slabs
+
+    def _shares(
+        self, n: int, n_peers: int
+    ) -> List[List[int]]:
+        """Contiguous near-equal index shares, one per peer — request
+        order within a share is prompt order, so a peer's stream
+        adopts in the order the decode grid wants them."""
+        if n_peers <= 0:
+            return []
+        base, extra = divmod(n, n_peers)
+        shares: List[List[int]] = []
+        start = 0
+        for j in range(n_peers):
+            size = base + (1 if j < extra else 0)
+            shares.append(list(range(start, start + size)))
+            start += size
+        return shares
+
+    def _share_spans(
+        self, ctxs: Optional[List[Optional[TraceContext]]],
+        idxs: List[int], delivered: Set[int], peer,
+        t0_wall: float, failed: bool,
+    ) -> None:
+        """One `handoff` span per sampled request of a share; a
+        request the share failed to deliver carries the ``fallback``
+        event (a tail exemplar, captured regardless of sampling — the
+        demotion to local prefill is exactly what explains that
+        request's tail latency)."""
+        if not ctxs:
+            return
+        t1_wall = time.time()
+        for gi, c in zip(idxs, ctxs):
+            if c is None:
+                continue
+            s = TRACER.start_span(
+                "handoff", ctx=c, node=self.node.me.unique_name,
+                t0=t0_wall,
+                labels={"peer": getattr(peer, "unique_name", str(peer)),
+                        "group": self.group_name,
+                        "form": self.handoff},
+            )
+            if failed and gi not in delivered:
+                s.event("fallback")
+                s.label(result="fallback")
+            else:
+                s.label(result="ok")
+            s.end(t1_wall)
+
+    async def _pull_share_stream(
+        self, peer, model: str, idxs: List[int],
+        prompts: List[np.ndarray], budgets: List[int], arrivals,
+        ctxs: Optional[List[Optional[TraceContext]]] = None,
+    ) -> None:
+        """One peer's streamed share: RPC for the stream token, then
+        reassemble per-request entries as their chunks land, handing
+        each to the decode thread's arrival queue. ANY failure demotes
+        the share's REMAINING requests to local prefill — requests
+        already handed over stay adopted."""
+        from ..cluster.store_service import data_addr
+
+        t0 = time.monotonic()
+        t0_wall = time.time()
+        delivered: Set[int] = set()
+        try:
+            if sum(int(prompts[i].size) for i in idxs) \
+                    > self.MAX_FRAME_TOKENS:
+                raise ValueError("share exceeds control-frame budget")
+            reply = await self._prefill_rpc(
+                peer, model,
+                [prompts[i] for i in idxs],
+                [budgets[i] for i in idxs],
+                stream=True,
+                traces=[c.to_wire() for c in (ctxs or []) if c],
+            )
+            if not reply.get("stream"):
+                # old-form peer: its token is a whole-slab file —
+                # treat as a one-shot arrival of the whole share
+                data = await self.store.data_plane.fetch_token_bytes(
+                    data_addr(peer), reply["token"],
+                    timeout=self.prefill_timeout,
+                )
+                slabs = kv_slab_from_bytes(data)
+                if len(slabs) != len(idxs):
+                    raise ValueError("slab count mismatch")
+                _M_HANDOFF_BYTES.inc(len(data))
+                self.handoff_bytes += len(data)
+                for i, entry in zip(idxs, slabs):
+                    arrivals.put_nowait((i, entry))
+                    delivered.add(i)
+                self._share_spans(ctxs, idxs, delivered, peer,
+                                  t0_wall, failed=False)
+                return
+            chunks = self.store.data_plane.fetch_stream(
+                data_addr(peer), reply["token"],
+                timeout=self.prefill_timeout,
+            )
+            async for local_i, entry in iter_slab_stream(
+                _counting(chunks, lambda n: _note_bytes(self, n))
+            ):
+                if not (0 <= local_i < len(idxs)):
+                    raise ValueError(
+                        f"peer streamed unknown index {local_i}"
+                    )
+                gi = idxs[local_i]
+                arrivals.put_nowait((gi, entry))
+                delivered.add(gi)
+            if len(delivered) != len(idxs):
+                raise ValueError(
+                    f"stream ended after {len(delivered)}/{len(idxs)} "
+                    "entries"
+                )
+            _M_HANDOFF_T.observe(time.monotonic() - t0)
+            self._share_spans(ctxs, idxs, delivered, peer,
+                              t0_wall, failed=False)
+        except asyncio.CancelledError:
+            raise
+        except Exception as e:
+            log.warning(
+                "%s: streamed KV handoff from %s failed (%r); local "
+                "prefill for its %d remaining request(s)",
+                self.group_name, peer, e, len(idxs) - len(delivered),
+            )
+            self._share_spans(ctxs, idxs, delivered, peer,
+                              t0_wall, failed=True)
+            for i in idxs:
+                if i not in delivered:
+                    arrivals.put_nowait((i, None))
+
+    async def _pull_share_slab(
+        self, peer, model: str, idxs: List[int],
+        prompts: List[np.ndarray], budgets: List[int], arrivals,
+        ctxs: Optional[List[Optional[TraceContext]]] = None,
+    ) -> None:
+        """One peer's whole-slab share (the comparison form)."""
+        t0_wall = time.time()
+        try:
+            slabs = await self._fetch_slabs(
+                model,
+                [prompts[i] for i in idxs],
+                [budgets[i] for i in idxs],
+                peer=peer,
+                traces=[c.to_wire() for c in (ctxs or []) if c],
+            )
+            if slabs is None:
+                raise RuntimeError("no eligible peer/share")
+            for i, entry in zip(idxs, slabs):
+                arrivals.put_nowait((i, entry))
+            self._share_spans(ctxs, idxs, set(idxs), peer,
+                              t0_wall, failed=False)
+        except asyncio.CancelledError:
+            raise
+        except Exception as e:
+            log.warning(
+                "%s: KV handoff from %s failed (%r); local prefill "
+                "for its %d request(s)",
+                self.group_name, peer, e, len(idxs),
+            )
+            self._share_spans(ctxs, idxs, set(), peer,
+                              t0_wall, failed=True)
+            for i in idxs:
+                arrivals.put_nowait((i, None))
+
+    async def __call__(
+        self, model: str, paths: List[str], on_token=None
+    ):
+        import queue as _queue
+
+        from .lm_backend import parse_prompt_file
+
+        _member_check(self.group_name, self.members, self.alive_fn)
+        parsed = [
+            parse_prompt_file(p, self.be.cfg.vocab_size) for p in paths
+        ]
+        prompts = [ids for ids, _ in parsed]
+        budgets = [
+            b if b is not None else self.be.max_new_tokens
+            for _, b in parsed
+        ]
+        # validate against decode capacity BEFORE spending a handoff
+        for p, prompt, budget in zip(paths, prompts, budgets):
+            if prompt.size + budget > self.be.server.max_len:
+                raise ValueError(
+                    f"{p}: prompt of {prompt.size} tokens + budget "
+                    f"{budget} exceeds the server's max_len "
+                    f"{self.be.server.max_len}"
+                )
+        peers = self._prefill_peers()
+        arrivals: "_queue.Queue" = _queue.Queue()
+        tasks: List[asyncio.Task] = []
+        t_batch0 = time.monotonic()
+        # per-request trace contexts, routed by local path (the job
+        # service re-keyed them before the backend call): request i's
+        # prefill/handoff/decode spans land in ITS cross-node trace.
+        # UNFILTERED on purpose: a fallback on an unsampled request
+        # still pins its tail exemplar (the span records with the
+        # context's own sampled flag; the exemplar pin is always-on),
+        # while the decode span below gates on .sampled itself.
+        by_path = {c.key: c for c in current_all_ctxs()}
+        req_ctxs: List[Optional[TraceContext]] = [
+            by_path.get(p) for p in paths
+        ]
+        # KV-prefix warm hits stay LOCAL: a prompt the decode server's
+        # prefix cache already covers would have a peer recompute rows
+        # the adopter then throws away — route it down the local-
+        # prefill arm instead, where placement warm-starts with a
+        # suffix-only prefill (inference/kv_cache.py). Peeked without
+        # a pin: an entry evicted before placement just cold-prefills
+        # locally, so the routing choice can never change answers.
+        warm_idx: Set[int] = set()
+        kvc = getattr(self.be.server, "kv_cache", None)
+        if kvc is not None and self.be.server.temperature == 0.0:
+            for i, p in enumerate(prompts):
+                if kvc.match_len(p) > 0:
+                    warm_idx.add(i)
+                    arrivals.put_nowait((i, None))
+        remote = [i for i in range(len(prompts)) if i not in warm_idx]
+        if not peers:
+            # no live prefill peer at all: every request is a typed
+            # local fallback
+            for i in remote:
+                arrivals.put_nowait((i, None))
+                TRACER.note_exemplar(
+                    req_ctxs[i], "fallback",
+                    node=self.node.me.unique_name,
+                    labels={"group": self.group_name,
+                            "reason": "no_prefill_peer"},
+                )
+        else:
+            shares = self._shares(len(remote), len(peers))
+            pull = (
+                self._pull_share_stream if self.handoff == "stream"
+                else self._pull_share_slab
+            )
+            for peer, share in zip(peers, shares):
+                idxs = [remote[j] for j in share]
+                if not idxs:
+                    continue
+                tasks.append(asyncio.ensure_future(pull(
+                    peer, model, idxs, prompts, budgets, arrivals,
+                    ctxs=[req_ctxs[i] for i in idxs],
+                )))
+        _member_check(self.group_name, self.members, self.alive_fn)
+        ttft_box: List[float] = []
+
+        def on_first() -> None:
+            ttft_box.append(time.monotonic() - t_batch0)
+
+        decode_wall0 = time.time()
+        try:
+            toks, infer_time, stats = await asyncio.to_thread(
+                self.be.serve_prefilled_stream,
+                prompts, budgets, arrivals,
+                self.be._token_cbs(paths, on_token),
+                on_first,
+                max(self.prefill_timeout * 2, 30.0),
+            )
+        finally:
+            for t in tasks:
+                if not t.done():
+                    t.cancel()
+        decode_wall1 = time.time()
+        for c in req_ctxs:
+            if c is not None and c.sampled:
+                TRACER.start_span(
+                    "decode", ctx=c, node=self.node.me.unique_name,
+                    t0=decode_wall0,
+                    labels={"group": self.group_name,
+                            "mode": "disagg",
+                            "shared": len(prompts)},
+                ).end(decode_wall1)
+        self.last_ttft_s = ttft_box[0] if ttft_box else None
+        self.handoffs += stats["adopted"]
+        # warm-routed requests ride the "local" arm of the decode
+        # stream but are cache HITS, not handoff failures — count them
+        # apart so the fallback metric keeps meaning "a peer/handoff
+        # let us down" (an entry evicted between the routing peek and
+        # placement cold-prefills locally yet still counts warm here;
+        # a routing-accuracy approximation, never an answer change)
+        n_warm = len(warm_idx)
+        fallbacks = max(0, stats["local"] - n_warm)
+        self.fallbacks += fallbacks
+        self.warm_locals += n_warm
+        if stats["adopted"]:
+            _M_HANDOFF.inc(stats["adopted"], result="ok")
+        if fallbacks:
+            _M_HANDOFF.inc(fallbacks, result="fallback")
+        if n_warm:
+            _M_HANDOFF.inc(n_warm, result="local_warm")
+        results = {
+            p: {"tokens": [int(t) for t in ts]}
+            for p, ts in zip(paths, toks)
+        }
+        cost = self.be.cost_constants()
+        _member_check(self.group_name, self.members, self.alive_fn)
+        _M_SHARDED_BATCHES.inc(group=self.group_name, mode="disagg")
+        _M_SHARDED_TOKENS.inc(
+            sum(len(v.get("tokens", ())) for v in results.values()),
+            group=self.group_name,
+        )
+        return results, infer_time, cost
+
+
+def _counting(chunks, note):
+    """Wrap an async chunk iterator, reporting each chunk's size."""
+    async def it():
+        async for c in chunks:
+            note(len(c))
+            yield c
+
+    return it()
+
+
+def _note_bytes(gb: "DisaggLMBackend", n: int) -> None:
+    gb.handoff_bytes += n
+    _M_HANDOFF_BYTES.inc(n)
+
+
+# ----------------------------------------------------------------------
 # memory budget and the speculative-decoding support table
 # ----------------------------------------------------------------------
 
@@ -877,3 +1432,157 @@ SPEC_DECODE_SUPPORT: Dict[str, Any] = {
     "disagg": "shipped",
     "pp": False,
 }
+
+
+def wire_lm_group(node, store, lm_spec: Dict[str, Any], device=None):
+    """Production wiring for a NodeApp registering `lm_spec`: returns
+    ``(group_backend, prefill_backend)`` for this node's role in a
+    worker group that declares the model in ``lm_models`` — the LM
+    analog of `jobs.groups.wire_group_backend`.
+
+    - group PRIMARY: a sharded decode engine over the group mesh —
+      PIPELINE-parallel when the group mesh has a ``pp`` axis > 1
+      (each member holds only its layer-stack slice; models deeper
+      than one member's HBM), else weight-resident tp-sharded; when
+      any OTHER member carries the ``prefill`` role, the
+      disaggregated form (multi-peer streamed prefill handoff +
+      per-request local fallback; ``lm_spec["kv_handoff"]`` picks
+      "stream" (default) or "slab", ``lm_spec["prefill_fanout"]``
+      caps the peer fan-out, 0 = all alive);
+    - prefill-role members: an `LMPrefillBackend` (serves
+      LM_PREFILL_REQUEST, whole-slab and streamed forms);
+    - everyone else (lenders without a role, ungrouped nodes):
+      ``(None, None)`` — they serve single-chip like before.
+
+    The engines run on `device` (`cuda` when None; it raises where
+    there is none). The group mesh resolves over this process's
+    world (`jobs.groups.group_ranks`: one process per rank, where the
+    JAX primary takes the host's devices).
+
+    Raises at startup if the group mesh wants more ranks than this
+    process's world has (a group that silently served single-chip
+    while the pool weighted it at group capacity would be slower than
+    no groups at all — same contract as `group_engine_backend`), or if
+    the model's per-member weight bytes exceed a declared
+    ``hbm_bytes`` budget (`check_hbm_budget`).
+
+    ``lm_spec["kv_cache_mb"]`` gives the tp/disagg decode primary a
+    worker-resident KV prefix cache (inference/kv_cache.py): retired
+    requests' slabs warm-start prompts that extend a cached prefix,
+    and the disagg form keeps cache-covered prompts local instead of
+    shipping them to a prefill peer. The pp>1 engine is excluded —
+    its batch-granular stage schedule has no per-request slot
+    adoption to warm-start (the tp x pp x cache composition rides
+    with ROADMAP item 3's real-ICI remainder)."""
+    spec = node.spec
+    uname = node.me.unique_name
+    g = spec.group_of_unique(uname)
+    name = str(lm_spec.get("name", "LM"))
+    if g is None or name not in g.lm_models:
+        return None, None
+    members = spec.group_members_unique(g.name)
+    roles = spec.group_roles_unique(g.name)
+
+    def alive() -> Set[str]:
+        return {n.unique_name for n in node.membership.alive_nodes()}
+
+    spec_k = int(lm_spec.get("spec_k", 0) or 0)
+    prefill = None
+    if roles.get(uname) == "prefill":
+        if int(g.mesh.pp) == 1:
+            # the prefill backend materializes the FULL tree, so the
+            # budget gate must hold it to the full-tree bound
+            check_hbm_budget(g, lm_spec, pp=1)
+            params, cfg = lm_spec_parts_cached(lm_spec, device=device)
+            draft = None
+            if spec_k > 0:
+                # prefill-role members idle during decode-heavy
+                # phases; spec_k>0 puts the DRAFT model here so they
+                # propose tokens for the decode primary to verify
+                # (shipped in the slab header over the PR-8 wire
+                # path). Same derivation as the local-draft form so
+                # both placements propose identical tokens.
+                from .lm_backend import LMBackend, lm_spec_parts
+
+                dspec = LMBackend._draft_spec_of(lm_spec)
+                if dspec is not None:
+                    draft = lm_spec_parts(dspec, device=device)
+            prefill = LMPrefillBackend(
+                params, cfg, max_len=int(lm_spec.get("max_len", 1024)),
+                draft=draft, draft_k=spec_k,
+            )
+        else:
+            # a pp group's primary never sends LM_PREFILL_REQUEST (the
+            # pipelined engine owns its own prefill schedule), so
+            # building the full-tree prefill backend here would hold
+            # weights the declared budget says don't fit — and never
+            # serve a single slab (tp x pp x disagg composition is the
+            # real-ICI remainder, ROADMAP item 3)
+            log.warning(
+                "%s: prefill role on %s ignored — the pp>1 serving "
+                "form does not disaggregate", g.name, uname,
+            )
+    gb = None
+    if members and uname == members[0]:
+        from ..jobs.groups import group_ranks
+        from ..parallel.mesh import make_mesh
+
+        mesh = make_mesh(g.mesh, ranks=group_ranks(g.name, g.mesh))
+        pp = int(mesh.shape.get("pp", 1))
+        # budget-check against the RESOLVED pp: a spec axis of -1
+        # (fill remaining) may have resolved to a pipelined layout
+        # that fits where the full tree would not
+        check_hbm_budget(g, lm_spec, pp=pp)
+        disagg = any(
+            r == "prefill" for u, r in roles.items() if u != uname
+        )
+        if pp > 1:
+            # pipeline-parallel primary: the layer stack shards over
+            # pp; prefill disaggregation composes at the BATCH level
+            # only (the pp engine owns its own pipelined prefill), so
+            # role-split pp groups serve the pp form directly
+            if spec_k > 0:
+                # typed exclusion, not a crash: the pp engine's
+                # batch-granular stage schedule has no per-slot
+                # verify seam (SPEC_DECODE_SUPPORT["pp"] is False);
+                # spec decode on pp rides ROADMAP item 4's remainder
+                log.warning(
+                    "%s: spec_k=%d on %s ignored — the pp>1 serving "
+                    "form does not speculative-decode", g.name,
+                    spec_k, uname,
+                )
+            be_pp = PipelinedLMBackend(lm_spec, mesh, device=device)
+            cap = float(pp * mesh.shape.get("dp", 1))
+            gb = sharded_lm_group_backend(
+                be_pp, model_name=name, group_name=g.name,
+                members=members, alive_fn=alive, capacity=cap,
+                mode="pp",
+            )
+        else:
+            # disagg decode primary arms shipped-draft verification
+            # only (SPEC_DECODE_SUPPORT["disagg"] = "shipped"): the
+            # draft lives on prefill-role peers, so the primary's
+            # HBM and step loop carry zero draft cost; resident/
+            # gather forms host the draft locally ("local")
+            be = sharded_lm_backend(
+                lm_spec, mesh, form="resident",
+                spec_draft_local=not disagg, device=device,
+            )
+            cap = float(
+                mesh.shape.get("dp", 1) * mesh.shape.get("tp", 1)
+            )
+            if disagg:
+                gb = DisaggLMBackend(
+                    be, model_name=name, group_name=g.name, node=node,
+                    store=store, members=members, alive_fn=alive,
+                    capacity=cap,
+                    handoff=str(lm_spec.get("kv_handoff", "stream")),
+                    fanout=int(lm_spec.get("prefill_fanout", 0) or 0),
+                    draft_k=spec_k,
+                )
+            else:
+                gb = sharded_lm_group_backend(
+                    be, model_name=name, group_name=g.name,
+                    members=members, alive_fn=alive, capacity=cap,
+                )
+    return gb, prefill

@@ -23,11 +23,16 @@ cluster scheduler that shape:
   workers, and the coordinator requeues the primary's in-flight
   batches (the ICI mesh those batches were running on no longer
   exists). A member coming back re-forms the group automatically.
-- **Execution**: in the JAX package the group primary serves batches
-  on a ``param_gather=True`` ShardedInference over the group mesh. The
-  port's sharded group backends (`sharded_backend`,
-  `group_engine_backend`) are ROADMAP A6(b) and raise; the directory,
-  the reform ladder and `stub_group_backend` are here. Degradation mid-batch
+- **Execution**: the group primary serves batches on a
+  `parallel.inference.ShardedInference` built for the group mesh
+  with ``param_gather=True`` — weights stay tp-sharded at rest but are
+  all-gathered at forward entry, so group outputs are the one-device
+  engine's, bit for bit. The port's mesh is one process per rank
+  (`parallel.mesh`): a group mesh resolves over the ranks of the
+  primary's own world (`torch.distributed`; a world of 1 when it is
+  not initialized), where the JAX primary takes the host's devices.
+  A mesh that needs more ranks than the world has raises at the first
+  batch, never serving on one device in silence. Degradation mid-batch
   surfaces as `GroupDegraded`, riding the existing
   WORKER_TASK_FAIL -> requeue-at-front machinery; completion dedup in
   the scheduler keeps every acked batch counted exactly once no
@@ -37,7 +42,10 @@ cluster scheduler that shape:
   `JobService.group_stats()` in the CLI ``breakdown`` verb, and the
   ``cluster_sharded_serving`` bench section (ROADMAP A8 in the port).
 
-The port's copy of dml_tpu/jobs/groups.py: plain Python.
+The port's copy of dml_tpu/jobs/groups.py. The module stays free of
+torch at import time (the chaos/CLI stub paths build directories and
+stub group backends without touching a device); the sharded backends
+import it lazily.
 """
 
 from __future__ import annotations
@@ -536,6 +544,19 @@ class GroupDirectory:
 _Backend = Callable[..., Awaitable[Tuple[Dict[str, Any], float, Optional[Dict[str, float]]]]]
 
 
+def _check_members(
+    group_name: str, members: Tuple[str, ...],
+    alive_fn: Callable[[], Set[str]],
+) -> None:
+    alive = alive_fn()  # one snapshot: atomic view, not N rebuilds
+    dead = [m for m in members if m not in alive]
+    if dead:
+        raise GroupDegraded(
+            f"group {group_name} lost member(s) {dead}: the sharded "
+            "mesh is gone; batch requeues onto the degraded pool"
+        )
+
+
 def stub_group_backend(
     group_name: str,
     members,
@@ -601,24 +622,214 @@ def stub_group_backend(
     return backend
 
 
-def sharded_backend(si, **_kw):
-    """JobService `InferBackend` over a group's sharded engine. The
-    JAX group primary holds every chip of the group in one process; the
-    port's mesh is one process per rank, so its group backend is a
-    design of its own (ROADMAP A6(b))."""
-    raise NotImplementedError(
-        "jobs.groups.sharded_backend: the port's sharded group backend is ROADMAP A6(b)")
+def _sharded_run(si, paths: List[str], size: Tuple[int, int]):
+    """Decode -> sharded forward -> engine-shaped top-5 rows: the one
+    execution body both group backends share (thread context). The
+    result-dict shape is the service's re-key contract — keep it in
+    exactly one place."""
+    from ..models.labels import decode_predictions
+    from ..models.preprocess import load_images
+
+    t0 = time.monotonic()
+    imgs = load_images(list(paths), size)
+    probs = si(imgs)
+    infer_time = time.monotonic() - t0
+    top5 = decode_predictions(probs)
+    return {
+        p: [
+            {"wnid": w, "label": lbl, "score": s}
+            for (w, lbl, s) in t
+        ]
+        for p, t in zip(paths, top5)
+    }, infer_time
 
 
-def group_engine_backend(group_name: str, members, alive_fn: Callable[[], Set[str]],
-                         mesh_spec, batch_size: int = 32, seed: int = 0):
-    """The group primary's lazy multi-model sharded engine (ROADMAP
-    A6(b), as `sharded_backend`). `wire_group_backend` reaches it only
-    on the primary of a configured worker group; every other node
-    serves on its own engine."""
-    raise NotImplementedError(
-        f"jobs.groups.group_engine_backend (group {group_name}): the port's "
-        "sharded group backend is ROADMAP A6(b)")
+def sharded_backend(
+    si,  # parallel.inference.ShardedInference
+    *,
+    group_name: Optional[str] = None,
+    members: Tuple[str, ...] = (),
+    alive_fn: Optional[Callable[[], Set[str]]] = None,
+    input_size: Optional[Tuple[int, int]] = None,
+):
+    """JobService `InferBackend` over a `ShardedInference`: decode the
+    batch's images, run the mesh-sharded forward, emit the engine-shaped
+    top-5 result rows. With ``param_gather=True`` meshes the rows are
+    bitwise-identical to the single-device path (same decode, same
+    program, same float serialization).
+
+    `input_size` overrides the model's native decode size (tiny shapes
+    for dryruns/tests). When `members`/`alive_fn` are given, member
+    liveness is checked around the device call so a mid-batch group
+    degradation raises `GroupDegraded` instead of acking a result the
+    broken mesh could not actually have produced."""
+    # a one-rank mesh resolves to None (the one-device program)
+    mesh_shape = dict(si.mesh.shape) if si.mesh is not None else {}
+    cap = float(mesh_shape.get("dp", 1) * mesh_shape.get("tp", 1))
+    size = tuple(input_size or si.spec.input_size)
+
+    def _check() -> None:
+        if members and alive_fn is not None:
+            _check_members(group_name or "?", members, alive_fn)
+
+    async def backend(model: str, paths: List[str]):
+        _check()
+        results, infer_time = await asyncio.to_thread(
+            _sharded_run, si, paths, size
+        )
+        _check()
+        if group_name:
+            _M_GROUP_BATCHES.inc(group=group_name)
+        return results, infer_time, None
+
+    backend.capacity = cap
+    backend.group_name = group_name
+    # one ShardedInference serves exactly one model: the service must
+    # route only this model's batches here (anything else would run
+    # the wrong forward and ack wrong predictions under the job)
+    backend.model = si.spec.name
+    return backend
+
+
+def group_ranks(group_name: str, use_mesh) -> Optional[range]:
+    """The ranks a group mesh takes: a fully-specified mesh takes its
+    size off the front of the process's world (``range(want)``, the
+    counterpart of the JAX primary's ``jax.devices()[:want]``); a -1
+    axis fills with the whole world (None). Raises RuntimeError when
+    the world is smaller than the mesh — a group that served on fewer
+    chips while the pool weighted it at group capacity would be slower
+    than no groups at all."""
+    from ..parallel.mesh import _world
+
+    world = _world()
+    sizes = (use_mesh.dp, use_mesh.tp, use_mesh.sp,
+             use_mesh.pp, use_mesh.ep)
+    if -1 in sizes:
+        return None
+    want = 1
+    for s in sizes:
+        want *= s
+    if world < want:
+        raise RuntimeError(
+            f"group {group_name} mesh needs {want} "
+            f"ranks, host sees {world}"
+        )
+    return range(want)
+
+
+def group_engine_backend(
+    group_name: str,
+    members,
+    alive_fn: Callable[[], Set[str]],
+    mesh_spec,  # config.MeshSpec — the group's dp×tp layout
+    batch_size: int = 32,
+    seed: int = 0,
+    device=None,
+):
+    """The production group engine for CLI/NodeApp primaries: a lazy
+    MULTI-model sharded backend. On the first batch of each model it
+    builds (and caches) a ``param_gather=True`` `ShardedInference`
+    over the group mesh resolved from this process's world
+    (`group_ranks`), on `device` (`cuda` when None; it raises where
+    there is none), so any registry CNN serves sharded without
+    per-model wiring (``backend.model = None`` — the service routes
+    every non-LM model here). Weights init seed-deterministically (like
+    `LMBackend.from_spec`), so a rebuilt/restarted primary serves the
+    identical function until explicit weights arrive; published
+    weights flow through the ordinary load-model path — the service
+    calls ``backend.set_variables(model, tree)`` after a
+    `load_model_weights`, which rebuilds that model's group engine on
+    the fetched tree (group-served and single-chip answers must come
+    from the same weights, or formation state would change what a
+    query returns). `backend.capacity` starts at the chip-count prior
+    and updates to the resolved mesh size after the first build —
+    task ACKs read it per batch, so the fair-share weight
+    self-corrects.
+
+    Without this, a spec-configured group on a plain CLI node would
+    COLLAPSE the pool (lenders withdrawn, primary weighted at group
+    capacity) while the primary still served single-chip — less
+    throughput than no groups at all.
+
+    Reform-aware: each batch derives the ACTIVE member set (members ∩
+    alive, same derivation as the coordinator's reform ladder) and
+    builds/caches one engine per (model, reformed mesh). The
+    variables tree is identical across shapes (seed-deterministic, or
+    the one operator-loaded tree), so ``param_gather`` keeps reformed
+    outputs bitwise-equal to the full-mesh — and single-device — path;
+    re-sharding changes WHERE weight shards live, never the math."""
+    from ..config import MeshSpec
+
+    members_fn = members if callable(members) else (lambda: members)
+    cache: Dict[Tuple[str, Tuple[int, int, int]], Any] = {}
+    explicit: Dict[str, Any] = {}  # model -> operator-loaded tree
+
+    def _mesh_for(n_active: int, n_members: int):
+        """The mesh to serve on at this strength: the configured
+        layout at full membership, the reform-ladder rung otherwise
+        (None = no viable sharded mesh)."""
+        if n_active >= n_members:
+            return mesh_spec
+        rung = reform_ladder(mesh_spec, n_members, n_active)
+        if rung is None:
+            return None
+        return MeshSpec(dp=rung["dp"], tp=rung["tp"], pp=rung["pp"])
+
+    def _build(model: str, use_mesh):
+        from ..parallel.inference import ShardedInference
+        from ..parallel.mesh import make_mesh
+
+        mesh = make_mesh(use_mesh, ranks=group_ranks(group_name, use_mesh))
+        si = ShardedInference(
+            model, mesh, batch_size=batch_size, seed=seed,
+            variables=explicit.get(model), param_gather=True,
+            device=device,
+        )
+        cache[(model, (use_mesh.dp, use_mesh.tp, use_mesh.pp))] = si
+        backend.capacity = float(
+            mesh.shape.get("dp", 1) * mesh.shape.get("tp", 1)
+        )
+        return si
+
+    async def backend(model: str, paths: List[str]):
+        mem = members_fn()
+        alive = alive_fn()
+        active = tuple(m for m in mem if m in alive)
+        use_mesh = _mesh_for(len(active), max(len(mem), 1))
+        if use_mesh is None:
+            raise GroupDegraded(
+                f"group {group_name} has {len(active)} live "
+                "member(s): no sharded mesh; batch requeues"
+            )
+
+        def run():
+            key = (model, (use_mesh.dp, use_mesh.tp, use_mesh.pp))
+            si = cache.get(key) or _build(model, use_mesh)
+            return _sharded_run(si, paths, si.spec.input_size)
+
+        results, infer_time = await asyncio.to_thread(run)
+        now_active = tuple(m for m in members_fn() if m in alive_fn())
+        if now_active != active:
+            raise GroupDegraded(
+                f"group {group_name} membership changed mid-batch: "
+                "the mesh the batch ran on is gone; batch requeues"
+            )
+        _M_GROUP_BATCHES.inc(group=group_name)
+        return results, infer_time, None
+
+    def set_variables(model: str, variables: Any) -> None:
+        """Adopt operator-loaded weights (load-model): drop the cached
+        engines (every shape) so the next batch rebuilds on this tree."""
+        explicit[model] = variables
+        for key in [k for k in cache if k[0] == model]:
+            cache.pop(key, None)
+
+    backend.capacity = float(max(len(members_fn()), 1))
+    backend.group_name = group_name
+    backend.model = None  # lazy per-model engines: serves any CNN
+    backend.set_variables = set_variables
+    backend.engines = cache  # (model, (dp, tp, pp)) -> ShardedInference
+    return backend
 
 
 def wire_group_backend(node) -> Optional[Any]:
@@ -653,6 +864,30 @@ def bench_sharded_serving(**_kw) -> Dict[str, Any]:
     pipeline: the port's bench functions are ROADMAP A8."""
     raise NotImplementedError(
         "jobs.groups.bench_sharded_serving: the port's bench functions are ROADMAP A8")
+
+
+def _make_sharded_jobs(
+    node, store, JobService, si_group, si_one, group: WorkerGroupSpec,
+    image_size, model: str, batch: int,
+):
+    """Per-node JobService for the sharded bench/dryrun cluster: every
+    node can serve single-chip batches on the 1-device engine; the
+    group primary additionally carries the group's sharded engine."""
+    uname = node.me.unique_name
+    alive = lambda: {  # noqa: E731
+        n.unique_name for n in node.membership.alive_nodes()
+    }
+    members = node.spec.group_members_unique(group.name)
+    single = sharded_backend(si_one, input_size=image_size)
+    gb = None
+    if members and uname == members[0]:
+        gb = sharded_backend(
+            si_group, group_name=group.name, members=members,
+            alive_fn=alive, input_size=image_size,
+        )
+    js = JobService(node, store, infer_backend=single, group_backend=gb)
+    js.scheduler.set_batch_size(model, batch)
+    return js
 
 
 def _main() -> None:  # pragma: no cover - bench subprocess entry

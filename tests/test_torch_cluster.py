@@ -44,7 +44,12 @@ _PREFIX = "port_cases."
 # ----------------------------------------------------------------------
 # ports: contiguous free blocks in 50000-54999 (no test file binds a
 # literal port there); the introducer at base - 1, the store data plane
-# at base + 10000 (`cluster.store_service.DATA_PORT_OFFSET`)
+# at base + 10000 (`cluster.store_service.DATA_PORT_OFFSET`). Each
+# pytest-xdist worker probes its own slice of the range (`port_slice`):
+# a port that is free to bind may still be a live cluster's target (the
+# peers of a crashed node go on pinging and gossiping about it), and a
+# cluster of another process bound there would take that traffic as its
+# own node's.
 # ----------------------------------------------------------------------
 
 PORT_LO, PORT_HI = 50000, 54999
@@ -75,15 +80,33 @@ def _free(port: int) -> bool:
     return True
 
 
+def port_slice(worker=None, count=None):
+    """(lo, hi) of the probe range that this process's blocks come from:
+    the whole of PORT_LO..PORT_HI outside pytest-xdist, else worker gwI's
+    I-th of `count` equal slices (from PYTEST_XDIST_WORKER and
+    PYTEST_XDIST_WORKER_COUNT), so no two workers hand out one port."""
+    worker = os.environ.get("PYTEST_XDIST_WORKER", "") if worker is None else worker
+    if count is None:
+        count = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1") or 1)
+    if not worker.startswith("gw") or count <= 1:
+        return PORT_LO, PORT_HI
+    span = (PORT_HI - PORT_LO + 1) // count
+    lo = PORT_LO + (int(worker[2:]) % count) * span
+    return lo, lo + span - 1
+
+
 def free_port_block(n: int, tries: int = 200) -> int:
     """A base port B such that B-1 .. B+n-1 and their data-plane ports
-    (+10000) are free to bind on 127.0.0.1 (UDP and TCP) right now.
-    Blocks already handed out in this process are not handed out again
-    until `release_ports` gives them back. A later bind can still lose
-    a race to another process; callers retry on EADDRINUSE
-    (`port_cases` does)."""
+    (+10000) are free to bind on 127.0.0.1 (UDP and TCP) right now, in
+    this process's `port_slice`. Blocks already handed out in this
+    process are not handed out again until `release_ports` gives them
+    back. A later bind can still lose a race to another process (an
+    ephemeral port); callers retry on EADDRINUSE (`port_cases` does)."""
+    lo, hi = port_slice()
+    if hi - lo < n + 2:
+        lo, hi = PORT_LO, PORT_HI
     for _ in range(tries):
-        base = _rng.randrange(PORT_LO + 1, PORT_HI - n)
+        base = _rng.randrange(lo + 1, hi - n)
         with _lock:
             if any(b in _handed for b in range(base - 1, base + n)):
                 continue
@@ -92,7 +115,7 @@ def free_port_block(n: int, tries: int = 200) -> int:
             with _lock:
                 _handed.update(ports)
             return base
-    raise OSError(errno.EADDRINUSE, f"no free block of {n + 1} ports in {PORT_LO}-{PORT_HI}")
+    raise OSError(errno.EADDRINUSE, f"no free block of {n + 1} ports in {lo}-{hi}")
 
 
 def release_ports(base: int, n: int) -> None:
@@ -500,3 +523,28 @@ def test_join_leave_reply_macs_equal():
                      ("universe_entry_mac", ("s", {"op": "add", "e": 2, "node": node}))):
         assert getattr(tconfig, fn)(*args) == getattr(jconfig, fn)(*args), fn
     assert tconfig.reply_mac("s", "n2", 6, {"x": [1, 2]}) == jconfig.reply_mac("s", "n2", 6, {"x": [1, 2]})
+
+
+@pytest.mark.parametrize("count", [1, 2, 6, 8])
+def test_xdist_workers_probe_disjoint_port_slices(count, monkeypatch):
+    """Each pytest-xdist worker hands out blocks from its own slice of
+    the probe range, so a port that one worker's cluster still targets
+    (a crashed node's, which its peers go on pinging) is never bound by
+    another worker's cluster; a chaos case's block (n + JOIN_SPAN ports)
+    fits in every slice up to 8 workers."""
+    slices = [port_slice(f"gw{i}", count) for i in range(count)]
+    assert slices[0][0] == PORT_LO and slices[-1][1] <= PORT_HI
+    for (lo, hi), (lo2, _) in zip(slices, slices[1:]):
+        assert lo < hi < lo2
+        assert hi - lo >= 8 + JOIN_SPAN + 2
+    assert port_slice("", count) == port_slice("gw0", 1) == (PORT_LO, PORT_HI)
+    monkeypatch.setenv("PYTEST_XDIST_WORKER", f"gw{count - 1}")
+    monkeypatch.setenv("PYTEST_XDIST_WORKER_COUNT", str(count))
+    lo, hi = slices[-1]
+    bases = [free_port_block(5) for _ in range(4)]
+    try:
+        assert all(lo < b and b + 5 <= hi for b in bases)
+        assert len({p for b in bases for p in range(b - 1, b + 5)}) == 4 * 6  # none reused
+    finally:
+        for b in bases:
+            release_ports(b, 5)

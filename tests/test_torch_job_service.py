@@ -2,8 +2,9 @@
 
 - The `FakeBackend` cases of test_jobs_sim and test_cluster_sim, run on
   port nodes (`test_torch_cluster.port_cases`, every cluster on a probed
-  free port block). Left out: the sharded worker-group case (its group
-  backend is ROADMAP A6(b)).
+  free port block). Left out: the sharded worker-group case, which
+  builds a JAX mesh over two devices (its counterpart is
+  `test_torch_groups.test_group_sharded_serving_outputs_equal_single_chip`).
 - The slice as a whole, on the CPU: a 4-node JAX cluster serving
   ResNet50 float32 on the JAX engine and a 4-node port cluster on
   `InferenceEngine(device="cpu")`, the same weights (`jax_init` +
@@ -15,6 +16,10 @@
   read by the JAX package leaf for leaf.
 - An LM job through `register_lm` on port nodes gives the JAX
   `LMBackend`'s greedy tokens for the same tiny LM.
+
+The `flow` fixture runs these in named stages, each under its own time
+limit, so a failure names its stage; the weights are a fixture of their
+own, so the pure parity test does not depend on a cluster.
 """
 
 from __future__ import annotations
@@ -30,7 +35,8 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_cluster import TESTS, free_port_block, port_cases
+from dml_tpu.models.resnet import ResNet50 as JaxResNet50
+from test_torch_cluster import TESTS, free_port_block, port_cases, release_ports
 from test_torch_models import jax_init, perturb_bn
 
 SIM_FILES = (("test_jobs_sim", "jobs_sim", ("test_group_sharded_serving_outputs_equal_single_chip",)),
@@ -55,6 +61,14 @@ ENGINE_BS = 4
 LM_SHAPE = dict(vocab_size=61, d_model=32, n_heads=4, n_layers=2, d_ff=64, n_kv_heads=2)
 LM_NEW = 6
 LM_PROMPTS = (4, 9, 13, 16, 5, 7, 11, 3)
+#: the clusters' failure detector: a node is suspected after 3 missed
+#: acks of 1 s and dead 5 s later. The four nodes share one event loop,
+#: which a ~100 MB weights file stalls for 1.5 s when it is serialized,
+#: decoded or copied in the loop (more under load); at an ack timeout of
+#: 0.3 s and a cleanup of 1 s every node then declared the others dead
+#: and elected itself, and the leader RPCs of the weights round trip
+#: timed out. Failure detection is not under test here.
+FLOW_TIMING = dict(ping_interval=0.2, ack_timeout=1.0, cleanup_time=5.0, leader_rpc_timeout=10.0)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -87,11 +101,12 @@ def _pkg(name):
 class _Cluster:
     """An in-process cluster of one package: the introducer and N nodes,
     each Node + StoreService + JobService sharing `engine`; `lm()` makes
-    each node's LM backend when given."""
+    each node's LM backend when given. Its ports are a probed block,
+    given back when it stops."""
 
     def __init__(self, pkg, tmp, engine, lm=None):
         self.pkg, self.tmp, self.engine, self.lm = pkg, tmp, engine, lm
-        self.stack, self.dns, self.backends = [], None, []
+        self.stack, self.dns, self.backends, self.base = [], None, [], None
 
     async def start(self):
         for attempt in range(3):
@@ -104,11 +119,10 @@ class _Cluster:
 
     async def _start(self):
         config, Intro, Node, Store, Jobs, _ = _pkg(self.pkg)
-        base = free_port_block(N_NODES)
+        self.base = base = free_port_block(N_NODES)
         spec = config.ClusterSpec.localhost(
             N_NODES, base_port=base, introducer_port=base - 1,
-            timing=config.Timing(ping_interval=0.2, ack_timeout=0.3, cleanup_time=1.0,
-                                 leader_rpc_timeout=10.0),
+            timing=config.Timing(**FLOW_TIMING),
             store=config.StoreConfig(root=os.path.join(self.tmp, "roots"),
                                      download_dir=os.path.join(self.tmp, "dl")))
         self.dns = Intro(spec)
@@ -130,13 +144,21 @@ class _Cluster:
                    for n, _, _ in self.stack):
                 return
             await asyncio.sleep(0.1)
-        raise AssertionError(f"{self.pkg} cluster did not converge")
+        views = {n.me.unique_name: (n.joined, n.leader_unique,
+                                    sorted(m.unique_name for m in n.membership.alive_nodes()))
+                 for n, _, _ in self.stack}
+        raise AssertionError(f"{self.pkg} cluster did not converge: {views}")
 
     async def stop(self):
+        """Stop every part that started (a failed start leaves some that
+        did not), then give the ports back."""
+        errors = []
         for node, store, jobs in reversed(self.stack):
-            await jobs.stop()
-            await store.stop()
-            await node.stop()
+            for part in (jobs, store, node):
+                try:
+                    await part.stop()
+                except Exception as e:  # keep stopping the rest
+                    errors.append(e)
         self.stack = []
         if self.dns is not None:
             await self.dns.stop()
@@ -144,6 +166,11 @@ class _Cluster:
         for be in self.backends:
             be.close()
         self.backends = []
+        if self.base is not None:
+            release_ports(self.base, N_NODES)
+            self.base = None
+        if errors:
+            raise errors[0]
 
     @property
     def client(self):
@@ -157,7 +184,7 @@ class _Cluster:
     async def run_job(self, model, n):
         jobs = self.client[2]
         job = await jobs.submit_job(model, n)
-        done = await jobs.wait_job(job, timeout=120.0)
+        done = await jobs.wait_job(job, timeout=240.0)
         assert done["total_queries"] == n
         return await jobs.get_output(job, os.path.join(self.tmp, f"out_{model}_{job}.json"))
 
@@ -189,11 +216,31 @@ def _prompts(tmp):
     return paths
 
 
-async def _flow(tmp):
+async def _stage(name, aw, timeout):
+    """One stage of `_flow`, under its own time limit; a failure names
+    the stage (the module fixture's error then says which one)."""
+    try:
+        return await asyncio.wait_for(aw, timeout)
+    except Exception as e:
+        raise AssertionError(f"flow stage {name!r} failed: {e!r}") from e
+
+
+@pytest.fixture(scope="module")
+def weights():
+    """ResNet50's seeded weights from the JAX package (float32, BN
+    statistics perturbed)."""
+    return perturb_bn(jax_init(JaxResNet50(dtype=jnp.float32), 64), seed=5)
+
+
+async def _flow(tmp, weights):
+    """The slice end to end, in named stages: "JAX cluster up", "JAX
+    job" (ResNet50, then the node publishes its weights), "port cluster
+    up", "port image job", "LM job", "weights round trip" (the port
+    node publishes; the JAX node's file served by the port nodes) and
+    "JAX LM backend"."""
     from dml_tpu.inference.engine import InferenceEngine as JaxEngine
     from dml_tpu.inference.generate import LMConfig as JaxLMConfig
     from dml_tpu.inference.lm_backend import LMBackend as JaxLMBackend
-    from dml_tpu.models.resnet import ResNet50 as JaxResNet50
     from dml_tpu.models.transformer import TransformerLM
     from dml_tpu_torch.inference import InferenceEngine
     from dml_tpu_torch.inference.generate import LMConfig
@@ -201,8 +248,6 @@ async def _flow(tmp):
     from dml_tpu_torch.models.lm_params import lm_params_from_flax
 
     out = {}
-    weights = perturb_bn(jax_init(JaxResNet50(dtype=jnp.float32), 64), seed=5)
-    out["weights"] = weights
     images = _jpegs(tmp)
     prompts = _prompts(tmp)
     lm_jax = TransformerLM(dtype=jnp.float32, **LM_SHAPE).init(
@@ -213,13 +258,17 @@ async def _flow(tmp):
     jeng = JaxEngine(dtype=jnp.float32)
     jeng.load_model("ResNet50", variables=weights, batch_size=ENGINE_BS)
     jc = _Cluster("jax", os.path.join(tmp, "jax"), jeng)
-    await jc.start()
     try:
-        await jc.put_files(images)
-        out["jax_job"] = await jc.run_job("ResNet50", N_QUERIES)
-        await jc.client[2].publish_model("ResNet50")
-        name = _pkg("jax")[5]("ResNet50")
-        out["jax_published"] = await jc.client[1].get_bytes(name)
+        await _stage("JAX cluster up", jc.start(), 60.0)
+
+        async def jax_job():
+            await jc.put_files(images)
+            out["jax_job"] = await jc.run_job("ResNet50", N_QUERIES)
+            await jc.client[2].publish_model("ResNet50")
+            name = _pkg("jax")[5]("ResNet50")
+            out["jax_published"] = await jc.client[1].get_bytes(name)
+
+        await _stage("JAX job", jax_job(), 300.0)
     finally:
         await jc.stop()
 
@@ -227,35 +276,48 @@ async def _flow(tmp):
     teng.load_model("ResNet50", variables=weights, batch_size=ENGINE_BS)
     tc = _Cluster("port", os.path.join(tmp, "port"), teng,
                   lm=lambda: LMBackend(lm_port, LMConfig(dtype=torch.float32, **LM_SHAPE), **serve))
-    await tc.start()
     try:
-        await tc.put_files(images + prompts)
-        out["port_job"] = await tc.run_job("ResNet50", N_QUERIES)
-        out["lm_job"] = await tc.run_job("TinyLM", len(prompts))
-        node, store, jobs = tc.client
-        await jobs.publish_model("ResNet50")
-        name = _pkg("port")[5]("ResNet50")
-        out["port_published"] = await store.get_bytes(name)
-        # the JAX node's file, published into the port cluster's store
-        # as the newest version, then served by the port nodes
-        await store.put_bytes(name, out["jax_published"])
-        await jobs.load_model_weights("ResNet50")
-        out["port_job_jax_weights"] = await tc.run_job("ResNet50", N_QUERIES)
+        await _stage("port cluster up", tc.start(), 60.0)
+
+        async def port_job():
+            await tc.put_files(images + prompts)
+            out["port_job"] = await tc.run_job("ResNet50", N_QUERIES)
+
+        await _stage("port image job", port_job(), 300.0)
+
+        async def lm_job():
+            out["lm_job"] = await tc.run_job("TinyLM", len(prompts))
+
+        await _stage("LM job", lm_job(), 300.0)
+
+        async def round_trip():
+            node, store, jobs = tc.client
+            await jobs.publish_model("ResNet50")
+            name = _pkg("port")[5]("ResNet50")
+            out["port_published"] = await store.get_bytes(name)
+            # the JAX node's file, published into the port cluster's store
+            # as the newest version, then served by the port nodes
+            await store.put_bytes(name, out["jax_published"])
+            await jobs.load_model_weights("ResNet50")
+            out["port_job_jax_weights"] = await tc.run_job("ResNet50", N_QUERIES)
+
+        await _stage("weights round trip", round_trip(), 300.0)
     finally:
         await tc.stop()
 
     jbe = JaxLMBackend(lm_jax, JaxLMConfig(dtype=jnp.float32, **LM_SHAPE), **serve)
     try:
-        out["lm_jax"] = jbe.serve_files(prompts)[0]
+        out["lm_jax"] = (await _stage("JAX LM backend",
+                                      asyncio.to_thread(jbe.serve_files, prompts), 300.0))[0]
     finally:
         jbe.close()
     return out
 
 
 @pytest.fixture(scope="module")
-def flow(tmp_path_factory):
+def flow(tmp_path_factory, weights):
     tmp = str(tmp_path_factory.mktemp("slice"))
-    return asyncio.run(asyncio.wait_for(_flow(tmp), timeout=400.0))
+    return asyncio.run(_flow(tmp, weights))
 
 
 def _assert_close_outputs(got, want):
@@ -277,10 +339,10 @@ def test_jax_published_weights_served_by_port_nodes(flow):
     _assert_close_outputs(flow["port_job_jax_weights"], flow["jax_job"])
 
 
-def test_port_published_weights_read_by_jax_leaf_for_leaf(flow):
+def test_port_published_weights_read_by_jax_leaf_for_leaf(flow, weights):
     from dml_tpu.models.params_io import variables_from_bytes
 
-    w = flow["weights"]
+    w = weights
     back = variables_from_bytes(flow["port_published"], w)
     want = jax.tree_util.tree_leaves_with_path(w)
     got = dict(jax.tree_util.tree_leaves_with_path(back))
@@ -299,7 +361,7 @@ def test_lm_job_tokens_equal_the_jax_backend(flow):
 
 
 @pytest.mark.parametrize("model", ["ResNet50", "InceptionV3"])
-def test_to_flax_variables_inverts_from_flax(model, flow):
+def test_to_flax_variables_inverts_from_flax(model, weights):
     """`params_io.to_flax_variables` gives back the JAX package's tree,
     leaf for leaf (InceptionV3's BN layers have no scale), and JAX's
     `variables_from_bytes` reads the port's bytes of it."""
@@ -308,7 +370,7 @@ def test_to_flax_variables_inverts_from_flax(model, flow):
     from dml_tpu_torch.models import params_io
     from dml_tpu_torch.models.registry import get_model
 
-    w = flow["weights"] if model == "ResNet50" else perturb_bn(
+    w = weights if model == "ResNet50" else perturb_bn(
         jax_init(JaxInceptionV3(dtype=jnp.float32), 75), seed=6)
     module = get_model(model).build(dtype=torch.float32)
     back = params_io.to_flax_variables(params_io.from_flax_variables(w, module), module)

@@ -7,9 +7,9 @@ DepthController held to each other on one seeded event script.
 The cases that drive the chaos harness (`cluster.chaos.LocalCluster`),
 the request router or the load generator run on probed ports like the
 rest. Left out: the cases that need the tools (`dml_tpu.tools`, ROADMAP
-A8) or the disaggregated LM backend (the cluster half of
-`inference.lm_sharded`, ROADMAP A6(b)), which `port_cases` drops by
-itself, and the groups' sharded backends named in `EXCLUDE`.
+A8), which `port_cases` drops by itself, and the cases named in
+`EXCLUDE`, which build a JAX mesh over several devices (each has a
+counterpart on the port's world-1 group mesh or its gloo ranks).
 """
 
 from __future__ import annotations
@@ -26,10 +26,19 @@ JOB_FILES = (("test_scheduler", "scheduler"), ("test_train_job", "train_job"),
              ("test_signal", "signal"), ("test_autoscale", "autoscale"),
              ("test_tracing", "tracing"), ("test_observability", "observability"),
              ("test_groups", "groups"), ("test_depth_adaptive", "depth_adaptive"))
-#: the groups' sharded backends are ROADMAP A6(b): they raise in the port
-EXCLUDE = {"test_groups": ("test_wire_group_backend_primary_only",
-                           "test_group_engine_backend_lazy_models_and_equality",
-                           "test_param_gather_bitwise_equality")}
+#: cases that build a JAX mesh over two or four devices
+#: (`make_mesh(..., devices=jax.devices()[:n])`); the port resolves a
+#: group mesh over its own world, and each has a counterpart:
+#: - test_group_engine_backend_lazy_models_and_equality:
+#:   test_torch_groups.test_group_engine_backend_lazy_models_and_set_variables
+#:   (and ..._reform_rung_and_degraded, ..._larger_than_the_world_...);
+#: - test_param_gather_bitwise_equality: test_torch_parallel's
+#:   param_gather cases over four gloo ranks;
+#: - test_disagg_ingress_request_yields_full_stitched_trace:
+#:   test_torch_groups' case of the same name, at dp 1 x tp 1
+EXCLUDE = {"test_groups": ("test_group_engine_backend_lazy_models_and_equality",
+                           "test_param_gather_bitwise_equality"),
+           "test_tracing": ("test_disagg_ingress_request_yields_full_stitched_trace",)}
 for _name, _prefix in JOB_FILES:
     globals().update(port_cases(_name, _prefix, exclude=EXCLUDE.get(_name, ()),
                                 probe_ports=True))
@@ -37,7 +46,7 @@ for _name, _prefix in JOB_FILES:
 #: cases each file contributes at least (the rest need a module the port
 #: lacks or are in EXCLUDE); None: every case
 MIN_CASES = {"scheduler": None, "train_job": 14, "signal": None, "autoscale": 27,
-             "tracing": 16, "observability": 18, "groups": 17, "depth_adaptive": 16}
+             "tracing": 17, "observability": 18, "groups": 18, "depth_adaptive": 16}
 
 
 @pytest.mark.parametrize("name,prefix", JOB_FILES)

@@ -481,6 +481,58 @@ for form in ("resident", "gather"):
     R[form] = {"results": res, "infer_time": t, "cost": cost, "overlap": be.overlap,
                "moved": mv, "dispatches": d, "chunk": be.server.chunk}
     be.close()
+
+# worker groups: `wire_lm_group` on an unstarted node of a 4-node spec
+# (nothing binds); both ranks wire the primary H3, so both build the mesh
+import asyncio
+
+from dml_tpu_torch.cluster.node import Node
+from dml_tpu_torch.cluster.store_service import StoreService
+from dml_tpu_torch.config import ClusterSpec, StoreConfig, WorkerGroupSpec
+from dml_tpu_torch.jobs.groups import GroupDegraded
+
+
+def wired(group, name, spec_lm):
+    spec = ClusterSpec.localhost(
+        4, base_port=19451, introducer_port=19450, worker_groups=[group],
+        store=StoreConfig(root=os.path.join(out_dir, f"roots{rank}"),
+                          download_dir=os.path.join(out_dir, f"dl{rank}")))
+    node = Node(spec, spec.node_by_name(name))
+    store = StoreService(node, root=os.path.join(out_dir, f"st{rank}_{group.name}_{name}"))
+    return ls.wire_lm_group(node, store, spec_lm, device="cpu"), spec
+
+
+def serve(gb, model, mode):
+    """The wired engine through a group backend whose members are alive
+    (the unstarted node sees only itself, so the wired one degrades)."""
+    try:
+        asyncio.run(gb(model, cfg_in["paths"]))
+        degraded = False
+    except GroupDegraded:
+        degraded = True
+    members = ("a", "b")
+    live = ls.sharded_lm_group_backend(gb.lm_backend, model_name=model, group_name="g",
+                                       members=members, alive_fn=lambda: set(members),
+                                       capacity=gb.capacity, mode=mode)
+    (res, _, _), mv = moved(lambda: asyncio.run(live(model, cfg_in["paths"])))
+    return {"degraded": degraded, "results": res, "moved": mv, "capacity": gb.capacity,
+            "model": gb.model, "engine": type(gb.lm_backend).__name__}
+
+
+pp_group = WorkerGroupSpec("pp0", ("H3", "H4"), MeshSpec(dp=1, tp=1, pp=2),
+                           lm_models=("PPLM",), hbm_bytes=cfg_in["pp_budget"])
+(gb, pf), _ = wired(pp_group, "H3", cfg_in["pp_spec"])
+R["wire_pp"] = dict(serve(gb, "PPLM", "pp"), prefill=pf is None,
+                    stage=gb.lm_backend.stage, held=gb.lm_backend.held_bytes())
+R["wire_pp"]["lender"] = wired(pp_group, "H4", cfg_in["pp_spec"])[0] == (None, None)
+roles = WorkerGroupSpec("pp0", ("H3", "H4"), MeshSpec(dp=1, tp=1, pp=2), lm_models=("PPLM",),
+                        hbm_bytes=cfg_in["pp_budget"], roles={"H3": "decode", "H4": "prefill"})
+R["wire_pp"]["prefill_role_ignored"] = wired(roles, "H4", cfg_in["pp_spec"])[0] == (None, None)
+tp_group = WorkerGroupSpec("tp0", ("H3", "H4"), MeshSpec(dp=1, tp=2), lm_models=("ShardLM",))
+(gb, pf), _ = wired(tp_group, "H3", cfg_in["spec"])
+R["wire_tp"] = dict(serve(gb, "ShardLM", "resident"), prefill=pf is None,
+                    replicate=gb.lm_backend.server._gather_shardings.replicate)
+gb.lm_backend.close()
 torch.save(R, os.path.join(out_dir, f"rank{rank}.pt"))
 dist.barrier()
 print(f"RANK_OK {rank}", flush=True)
@@ -496,9 +548,11 @@ class Session:
             write_prompt_file(fp, p)
             paths.append(fp)
         self.paths = paths
+        rep = tls.pp_hbm_report(PP_SPEC, 2)
         (out_dir / "inputs.json").write_text(json.dumps({
             "spec": specs["spec"][1], "pp_spec": specs["pp"][1], "paths": paths,
-            "pp_prompts": [p.tolist() for p in _pp_prompts()], "pp_budgets": PP_BUDGETS}))
+            "pp_prompts": [p.tolist() for p in _pp_prompts()], "pp_budgets": PP_BUDGETS,
+            "pp_budget": (rep["per_member_bytes"] + rep["full_bytes"]) // 2}))
         (out_dir / "child.py").write_text(CHILD)
         env = dict(os.environ)
         env["PYTHONPATH"] = os.pathsep.join([REPO] + env.get("PYTHONPATH", "").split(os.pathsep))
@@ -605,4 +659,80 @@ def test_sharded_forms_token_identical(session, form):
         assert d["prefill"] >= 1 and d["steps"] >= 1
         assert row["moved"] == {"flash": n * d["prefill"],
                                 "decode": n * row["chunk"] * d["steps"]}, f"{form} rank {r}"
+    assert rows[0]["results"] == rows[1]["results"]
+
+
+def _jax_wired(tmp, group, spec_lm):
+    """JAX's `wire_lm_group` for the primary H3 of a 4-node spec."""
+    from dml_tpu.cluster.node import Node as JaxNode
+    from dml_tpu.cluster.store_service import StoreService as JaxStore
+    from dml_tpu.config import ClusterSpec as JaxClusterSpec
+    from dml_tpu.config import StoreConfig as JaxStoreConfig
+
+    spec = JaxClusterSpec.localhost(
+        4, base_port=19451, introducer_port=19450, worker_groups=[group],
+        store=JaxStoreConfig(root=str(tmp / "roots"), download_dir=str(tmp / "dl")))
+    node = JaxNode(spec, spec.node_by_name("H3"))
+    return jls.wire_lm_group(node, JaxStore(node, root=str(tmp / "st")), spec_lm)
+
+
+def _jax_group_tokens(gb, model, paths):
+    live = jls.sharded_lm_group_backend(gb.lm_backend, model_name=model, group_name="g",
+                                        members=("a", "b"), alive_fn=lambda: {"a", "b"},
+                                        capacity=gb.capacity)
+    return asyncio.run(live(model, paths))[0]
+
+
+@pytest.mark.pp
+def test_wire_lm_group_pp_primary(session, tmp_path):
+    """A group whose mesh has a pp axis wires its primary with the
+    pipelined engine under the budget gate, on both ranks (rank r holds
+    stage r, under the per-member bytes), with JAX's capacity; the lender
+    and a prefill role on a pp group wire nothing; the wired backend
+    degrades while its other member is not alive; served through a live
+    group backend, both ranks give JAX's wired pp-2 engine's tokens and
+    JAX's generate's, K2 (n_layers / pp) x pp microbatches once."""
+    from dml_tpu.config import WorkerGroupSpec as JaxWorkerGroupSpec
+
+    rep = jls.pp_hbm_report(PP_SPEC, 2)
+    budget = (rep["per_member_bytes"] + rep["full_bytes"]) // 2
+    jgb, jpf = _jax_wired(tmp_path, JaxWorkerGroupSpec(
+        "pp0", ("H3", "H4"), JaxMeshSpec(dp=1, tp=1, pp=2), lm_models=("PPLM",),
+        hbm_bytes=budget), PP_SPEC)
+    assert jpf is None and isinstance(jgb.lm_backend, jls.PipelinedLMBackend)
+    want = _jax_group_tokens(jgb, "PPLM", session.paths)
+    for r, res in enumerate(session.results()):
+        row = res["wire_pp"]
+        assert row["engine"] == "PipelinedLMBackend" and row["prefill"] and row["stage"] == r
+        assert row["capacity"] == jgb.capacity == 2.0 and row["model"] == jgb.model == "PPLM"
+        assert row["lender"] and row["prefill_role_ignored"] and row["degraded"]
+        assert row["held"] <= budget
+        for fp, p in zip(session.paths, _prompts()):
+            assert row["results"][fp]["tokens"] == list(want[fp]["tokens"]), f"rank {r}"
+            np.testing.assert_array_equal(row["results"][fp]["tokens"],
+                                          _expect(PP_SPEC, p, NEW_TOKENS))
+        assert row["moved"] == {"flash": PP_SPEC["n_layers"] // 2 * 2, "decode": 0}
+
+
+@pytest.mark.sharded
+def test_wire_lm_group_tp_primary_serves_the_resident_form(session, tmp_path):
+    """A tp-2 group without roles wires its primary with
+    `sharded_lm_group_backend` over the resident form on both ranks
+    (dispatches compute with the pieces, nothing replicated), capacity
+    dp x tp as JAX's; through a live group backend both ranks give JAX's
+    wired tp-2 backend's tokens (float32, exact)."""
+    from dml_tpu.config import WorkerGroupSpec as JaxWorkerGroupSpec
+
+    jgb, jpf = _jax_wired(tmp_path, JaxWorkerGroupSpec(
+        "tp0", ("H3", "H4"), JaxMeshSpec(dp=1, tp=2), lm_models=("ShardLM",)), SPEC)
+    assert jpf is None
+    want = _jax_group_tokens(jgb, "ShardLM", session.paths)
+    jgb.lm_backend.close()
+    rows = [res["wire_tp"] for res in session.results()]
+    for r, row in enumerate(rows):
+        assert row["engine"] == "LMBackend" and row["prefill"] and row["replicate"] is False
+        assert row["capacity"] == jgb.capacity == 2.0 and row["model"] == "ShardLM"
+        assert row["degraded"]
+        for fp in session.paths:
+            assert row["results"][fp]["tokens"] == list(want[fp]["tokens"]), f"rank {r}"
     assert rows[0]["results"] == rows[1]["results"]
