@@ -12,6 +12,7 @@
     python3 chip_smoke.py --ingress       # phases 1-2 and 18 (per-request traffic) alone
     python3 chip_smoke.py --families      # phases 1-2 and 19 (the other image families) alone
     python3 chip_smoke.py --groups        # phases 1-2 and 20 (the worker groups' backends) alone
+    python3 chip_smoke.py --cli           # phases 1-2 and 21 (python -m dml_tpu_torch) alone
 
 Phases, each printing one JSON line (with `t_s`, the seconds since the
 script started); any failure exits non-zero:
@@ -378,13 +379,39 @@ script started); any failure exits non-zero:
    server's placement prefills), K4 = 12 x chunk x the decode server's
    steps. Then H4 is crashed and H3's backend refuses a batch
    (GroupDegraded).
+21. cli: the port started as an operator starts it, as processes:
+    `python -m dml_tpu_torch localspec -n 3` (ports probed free; the
+    introducer, store root and timing edited into its JSON), `introducer
+    --spec` and three `node` processes, H1, H2 and H3, whose REPLs this
+    phase drives over stdin (each verb with its own time limit), all on
+    cuda, each with `--lm-spec` of the 198M LM (seed 0). Verbs on H1:
+    `load-testfiles` (32 seeded JPEGs), `submit-job ResNet50 32` twice,
+    `get-output`, `ls-all`, `C2 ResNet50`, `put` of 4 prompt files (phase
+    12's first 4 requests), `submit-job LM198M 4`, `get-output`, `profile
+    metrics cluster` around each job, `models`, `predict-locally
+    ResNet50` on 2 files, `C1`, `profile metrics`, `quit`; on all three,
+    `profile trace start` before the first job and `profile trace stop`
+    after predict-locally; then SIGTERM to the others. Every process exits
+    0; no process builds a kernel library (the build phase's serve them
+    all). Each ResNet50 result (job and predict-locally) equals this
+    process's `InferenceEngine().infer_files` top-5 on the same files
+    (scores within 1e-6); the LM job's tokens equal a lone
+    `LMBackend.from_spec` serve up to a near-tie (TIE_MARGIN). The path's
+    launches are the K1, K2 and K4 kernels in the three processes'
+    torch.profiler traces, which must equal the formula from the
+    cluster's counters: K1 = the jobs' batches + 2 warm-up forwards a
+    process that loaded ResNet50 + predict-locally's chunk (and warm-up),
+    K2 = 12 x placement prefills, K4 = 12 x chunk x chunk steps. J1
+    images/s and LM tokens/s (both under the traces), C2's per-image
+    time over the batches (one sample a batch), and each process's
+    start-to-joined seconds (from its `joined` log line).
 
 Then the card's name and power limit as nvidia-smi prints them, the
 kernels' summary line (K1's launches by path: serving, training,
-cluster, ingress and, for ResNet50, parallel and groups, and a row at
+cluster, ingress and, for ResNet50, parallel, groups and cli, and a row at
 the families' [32,224,224,3] tf shape with the families path; K2's and
 K4's: generate, train, lm_server, moe, seq_parallel, pipeline, cluster,
-ingress, families and groups, K2 timed at the LM's shapes and ViT-B16's; K3's
+ingress, families, groups and cli, K2 timed at the LM's shapes and ViT-B16's; K3's
 and the delta kernel's: train, moe, seq_parallel and families), and
 last `{"ok": true, "device": {...}}`.
 """
@@ -5073,6 +5100,439 @@ def phase_groups(timer):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the operator's entry points, `python -m dml_tpu_torch` as processes
+# ---------------------------------------------------------------------------
+
+CLI_NODES, CLI_FILES, CLI_QUERIES = 3, 32, 32
+CLI_LM_PROMPTS = 4  # the first 4 requests of phase 12's mixed-budget stream
+CLI_LM_SPEC = dict(LM_SPEC, name="LM198M")
+# a node's `profile trace start` and `stop` hold its event loop for
+# seconds (torch.profiler's start, the trace's export): a peer suspects
+# it then, and the cleanup time keeps a suspect from being declared dead
+CLI_TIMING = dict(ping_interval=0.2, ack_timeout=1.0, cleanup_time=30.0, leader_rpc_timeout=20.0)
+CLI_START_S, CLI_REPLY_S = 180.0, 120.0  # the first reply (a node's start), and each verb's
+#: device kernels counted in each node process's torch.profiler trace
+CLI_TRACE_KERNELS = {"normalize": "normalize_vec_kernel", "flash_attention": "flash_fwd",
+                     "decode_attention": "decode_kernel"}
+
+
+class ReplPipe:
+    """A node process's REPL driven over its stdin: each verb is followed
+    by an unknown one, whose `unknown command` reply ends the verb's
+    output; a verb with no reply within its time limit fails the phase."""
+
+    def __init__(self, proc, name):
+        import queue
+        import threading
+
+        self.proc, self.name, self.n = proc, name, 0
+        self.lines = queue.Queue()
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.put(line.rstrip("\n"))
+        self.lines.put(None)
+
+    def send(self, cmd):
+        """Write `cmd` and its end mark; `reply` reads what it printed."""
+        self.n += 1
+        self.proc.stdin.write(f"{cmd}\n__end_{self.n}\n")
+        self.proc.stdin.flush()
+        return cmd
+
+    def reply(self, cmd, timeout=CLI_REPLY_S):
+        import queue
+
+        mark = f"__end_{self.n}"
+        out, until = [], time.monotonic() + timeout
+        while True:
+            try:
+                line = self.lines.get(timeout=max(0.0, until - time.monotonic()))
+            except queue.Empty:
+                raise AssertionError(f"{self.name} `{cmd}`: no reply in {timeout} s; "
+                                     f"got {out[-20:]}") from None
+            check(line is not None, f"{self.name} `{cmd}`: the node exited; got {out[-20:]}")
+            if f"unknown command '{mark}'" in line:
+                check(not any(ln.startswith("!! ") for ln in out),
+                      f"{self.name} `{cmd}` failed: {out[-20:]}")
+                return out
+            out.append(line)
+
+    def run(self, cmd, timeout=CLI_REPLY_S):
+        return self.reply(self.send(cmd), timeout)
+
+    def json(self, cmd, timeout=CLI_REPLY_S):
+        return json.loads("\n".join(self.run(cmd, timeout)))
+
+
+def _tail(path, n=20):
+    try:
+        with open(path, errors="replace") as f:
+            return "".join(f.readlines()[-n:])
+    except OSError:
+        return ""
+
+
+def _joined_at(log_path, name):
+    """The wall time of the node's first `joined` or `is the leader` log
+    line (cli's file log): the first node of a cluster leads without a
+    join."""
+    import datetime
+    import re
+
+    with open(log_path, errors="replace") as f:
+        for line in f:
+            m = re.match(r"(\S+ \S+) INFO \S+: (\S+) (joined|is the leader)", line)
+            if m and m.group(2).startswith(name):
+                return datetime.datetime.strptime(m.group(1), "%Y-%m-%d %H:%M:%S,%f").timestamp()
+    return None
+
+
+def _cluster_counters(repl):
+    """Counters and histogram counts summed over every node process
+    (`profile metrics cluster`: the leader pulls each node's registry)."""
+    view = repl.json("profile metrics cluster")
+    check(view["merged_from"] == CLI_NODES, f"metrics from {view['nodes_reporting']} only")
+    s = view["summary"]
+    return {"resnet50_batches": s["counters"].get("worker_batches_total{model=ResNet50}", 0.0),
+            "lm_batches": s["counters"].get(f"worker_batches_total{{model={CLI_LM_SPEC['name']}}}",
+                                            0.0),
+            "prefill": s["histograms"].get("lm_server_prefill_dispatch_seconds",
+                                           {}).get("count", 0),
+            "steps": s["counters"].get("lm_server_steps_total", 0.0)}
+
+
+def _trace_kernels(logdir):
+    """Device kernels of each name in CLI_TRACE_KERNELS in the Chrome
+    traces that `profile trace stop` wrote under `logdir`."""
+    import glob
+
+    counts = {k: 0 for k in CLI_TRACE_KERNELS}
+    paths = glob.glob(os.path.join(logdir, "*.json"))
+    check(paths, f"no trace written under {logdir}")
+    for p in paths:
+        with open(p) as f:
+            events = json.load(f).get("traceEvents", [])
+        for e in events:
+            if e.get("cat") == "kernel":
+                for k, pat in CLI_TRACE_KERNELS.items():
+                    counts[k] += pat in e.get("name", "")
+    return counts
+
+
+def _drive_cli(tmp, out):
+    """The introducer and CLI_NODES node processes on probed ports, each
+    node's REPL over a pipe: H1's drives the verbs, every node traces its
+    device from the first job to the last kernel. Returns the merged
+    outputs, the files and the launches read from the traces."""
+    import re
+    import signal
+
+    from dml_tpu_torch import config
+    from dml_tpu_torch.inference.lm_backend import write_prompt_file
+
+    base = free_port_block(CLI_NODES)
+    spec_path, lm_path = os.path.join(tmp, "spec.json"), os.path.join(tmp, "lm.json")
+    subprocess.run([sys.executable, "-m", "dml_tpu_torch", "localspec", "-n", str(CLI_NODES),
+                    "--base-port", str(base), "-o", spec_path],
+                   cwd=tmp, env=_cli_env(), check=True, timeout=120)
+    # the operator's edits: the introducer beside the nodes, the store
+    # under tmp, this phase's failure-detector timing
+    with open(spec_path) as f:
+        raw = json.load(f)
+    raw["introducer"]["port"] = base - 1
+    raw["store"].update(root=os.path.join(tmp, "roots"), download_dir=os.path.join(tmp, "dl"))
+    raw["timing"].update(CLI_TIMING)
+    with open(spec_path, "w") as f:
+        json.dump(raw, f, indent=2)
+    with open(spec_path) as f:
+        spec = config.ClusterSpec.from_json(f.read())
+    check([n.port for n in spec.nodes] == list(range(base, base + CLI_NODES)),
+          f"localspec's ports {[n.port for n in spec.nodes]}, want from {base}")
+    with open(lm_path, "w") as f:
+        json.dump(CLI_LM_SPEC, f)
+    imgs = np.clip(np.random.RandomState(21).randint(0, 256, (CLI_FILES, 256, 256, 3)) // 2
+                   + np.random.RandomState(22).randint(0, 128, (CLI_FILES, 1, 1, 3)),
+                   0, 255).astype(np.uint8)
+    os.makedirs(os.path.join(tmp, "in"))
+    files = write_images(os.path.join(tmp, "in"), imgs, "jpeg")
+    lm_files = []
+    for i, (p, b) in enumerate(mixed_requests(CLI_LM_SPEC["vocab_size"])[:CLI_LM_PROMPTS]):
+        lm_files.append(os.path.join(tmp, f"p{i}.tokens.txt"))
+        write_prompt_file(lm_files[-1], p, max_new_tokens=b)
+
+    def start(name, *argv, **kw):
+        log = os.path.join(tmp, f"{name}.log")
+        err = open(os.path.join(tmp, f"{name}.err"), "w")
+        kw.setdefault("stdout", err)  # only the REPL node's stdout is read
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-u", "-m", "dml_tpu_torch", "--log-file", log, *argv],
+            cwd=tmp, env=_cli_env(), stderr=err, text=True, **kw), time.time())
+        err.close()
+
+    def fail_info():
+        return "\n".join(f"--- {n}: rc {p.poll()}\n{_tail(os.path.join(tmp, n + '.err'))}"
+                         f"{_tail(os.path.join(tmp, n + '.log'), 5)}"
+                         for n, (p, _) in procs.items())
+
+    procs, repls = {}, {}
+    node = ["node", "--spec", spec_path, "--lm-spec", lm_path]
+    try:
+        start("DNS", "introducer", "--spec", spec_path)
+        for n in spec.nodes:
+            start(n.name, *node, "--name", n.name, stdin=subprocess.PIPE, stdout=subprocess.PIPE)
+            repls[n.name] = ReplPipe(procs[n.name][0], n.name)
+        repl = repls["H1"]
+        try:
+            def on_all(cmd, timeout=CLI_REPLY_S):
+                """`cmd(node)` (or `cmd`) on every node at once; each node's
+                seconds to reply."""
+                t_all, took = time.monotonic(), {}
+                cmds = {k: cmd(k) if callable(cmd) else cmd for k in repls}
+                for k, r in repls.items():
+                    r.send(cmds[k])
+                for k, r in repls.items():
+                    r.reply(cmds[k], timeout)
+                    took[k] = time.monotonic() - t_all
+                return took
+
+            def converge():
+                t_c = time.monotonic()
+                while True:
+                    alive = [ln for ln in repl.run("list_mem") if "ALIVE" in ln]
+                    if len(alive) == CLI_NODES and any("*leader*" in ln for ln in alive):
+                        return alive
+                    check(time.monotonic() - t_c < 60,
+                          f"the node processes did not converge: {alive}")
+                    time.sleep(0.2)
+
+            t0 = time.monotonic()
+            on_all("self_id", CLI_START_S)
+            alive = converge()
+            joined = {n.name: _joined_at(os.path.join(tmp, f"{n.name}.log"), n.name)
+                      for n in spec.nodes}
+            check(all(joined.values()), f"no `joined` or `is the leader` log line: {joined}")
+            out["start_to_joined_s"] = {k: joined[k] - procs[k][1] for k in sorted(joined)}
+            leader = [ln for ln in alive if "*leader*" in ln][0]
+            check("H1" in leader, f"leader {leader}, want H1 (the REPL node)")
+
+            stages = {"start_to_converged": time.monotonic() - t0}
+
+            def job(model, n, results):
+                t_sub = time.monotonic()
+                done = repl.run(f"submit-job {model} {n}", 300)
+                wall = time.monotonic() - t_sub
+                m = re.search(r"job (\d+) DONE: (\d+) queries", "\n".join(done))
+                check(m and int(m.group(2)) == n, f"submit-job {model} {n}: {done}")
+                jid = int(m.group(1))
+                got = repl.run(f"get-output {jid}")
+                check(got == [f"ok {results} results -> final_{jid}.json"],
+                      f"get-output {jid}: {got}")
+                with open(os.path.join(tmp, f"final_{jid}.json")) as f:
+                    return jid, wall, json.load(f)
+
+            # ---- images: load-testfiles, then every node process traces
+            # its device (torch.profiler) until the last kernel of the
+            # phase; the same job twice: the first loads ResNet50 on its
+            # worker, the second finds it loaded
+            t = time.monotonic()
+            put = repl.run(f"load-testfiles {os.path.join(tmp, 'in')} {CLI_FILES}")
+            check(put[-1] == f"loaded {CLI_FILES} files", f"load-testfiles: {put[-3:]}")
+            logdirs = {k: os.path.join(tmp, f"trace_{k}") for k in repls}
+            trace_s = {"start": on_all(lambda k: f"profile trace start {logdirs[k]}")}
+            t_c = time.monotonic()
+            check("H1" in [ln for ln in converge() if "*leader*" in ln][0], "H1 lost the lead")
+            trace_s["reconverged"] = time.monotonic() - t_c
+            c0 = _cluster_counters(repl)
+            jobs = {k: job("ResNet50", CLI_QUERIES, CLI_FILES) for k in ("cold", "warm")}
+            c1 = _cluster_counters(repl)
+            # output_<job>_<batch>_<port>.json: the worker processes that ran the batches
+            name_of = {str(n.port): n.name for n in spec.nodes}
+            hosts = sorted({name_of[ln.split("_", 3)[3].split(".json")[0]]
+                            for jid, _, _ in jobs.values()
+                            for ln in repl.run(f"ls-all output_{jid}_*") if ln.startswith("output_")})
+            c2 = repl.json("C2 ResNet50")
+            batches = int(c1["resnet50_batches"] - c0["resnet50_batches"])
+            # C2 is the coordinator's per-image time of each batch (exec
+            # time / images): a sample a batch, not a tail over queries
+            out["image"] = {"jobs": {k: {"job": jid, "queries": CLI_QUERIES, "wall_s": wall,
+                                         "images_per_s": CLI_QUERIES / wall}
+                                     for k, (jid, wall, _) in jobs.items()},
+                            "batches": batches, "worker_processes": hosts,
+                            "c2_per_image_ms_over_batches": {
+                                "batch_samples": int(c2["count"]),
+                                "p50": c2["p50"] * 1e3, "p99": c2["p99"] * 1e3},
+                            "c2": c2}
+            merged = [m for _, _, m in jobs.values()]
+            stages["images"] = time.monotonic() - t
+
+            # ---- the LM: put the prompt files, submit-job, get-output
+            t = time.monotonic()
+            for p in lm_files:
+                got = repl.run(f"put {p} {os.path.basename(p)}")
+                check(any(ln.startswith("ok version=") for ln in got), f"put {p}: {got}")
+            lm_jid, lm_wall, lm_merged = job(CLI_LM_SPEC["name"], CLI_LM_PROMPTS, CLI_LM_PROMPTS)
+            c3 = _cluster_counters(repl)
+            d = {"prefill": int(c3["prefill"] - c1["prefill"]),
+                 "steps": int(c3["steps"] - c1["steps"])}
+            tokens = sum(len(v["tokens"]) for v in lm_merged.values())
+            out["lm"] = {"job": lm_jid, "prompts": CLI_LM_PROMPTS, "wall_s": lm_wall,
+                         "tokens": tokens, "tokens_per_s": tokens / lm_wall,
+                         "batches": int(c3["lm_batches"] - c1["lm_batches"]),
+                         "server_dispatches": d}
+            stages["lm"] = time.monotonic() - t
+            t = time.monotonic()
+
+            # ---- served by the REPL node itself; then every trace stops
+            before = repl.run("models")
+            local = repl.run(f"predict-locally ResNet50 {files[0]} {files[1]}")
+            trace_s["stop"] = on_all("profile trace stop", 300)
+            out["trace_s"] = trace_s
+            traced = {k: _trace_kernels(logdirs[k]) for k in repls}
+            after = repl.run("models")
+            c1_lines = repl.run("C1")
+            check(repl.json("profile metrics")["counters"], "no counters in the REPL node's registry")
+            local_json = json.loads("\n".join(local[:-1]))
+            check(local[-1].startswith("exec_time="), f"predict-locally: {local[-3:]}")
+            check(any(ln.startswith("ResNet50:") for ln in after), f"models: {after}")
+            stages["traced_stop_and_repl_verbs"] = time.monotonic() - t
+            t = time.monotonic()
+            # H1 quits from its REPL, the rest take SIGTERM (the nodes'
+            # stdin closed after it, so their REPL reader threads end)
+            procs["H1"][0].stdin.write("quit\n")
+            procs["H1"][0].stdin.close()
+        except BaseException as e:
+            raise AssertionError(f"{e}\n{fail_info()}") from e
+        codes = {"H1": procs["H1"][0].wait(timeout=120)}
+        for name, (p, _) in procs.items():
+            if name != "H1":
+                p.send_signal(signal.SIGTERM)
+        for name, (p, _) in procs.items():
+            if name not in ("H1", "DNS"):
+                p.stdin.close()
+        for name, (p, _) in procs.items():
+            codes[name] = p.wait(timeout=120)
+        check(all(c == 0 for c in codes.values()), f"exit codes {codes}\n{fail_info()}")
+        out["exit_codes"] = codes
+        stages["stop"] = time.monotonic() - t
+        out["stages_s"] = stages
+    finally:
+        for p, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    # the launches are the kernels in the three node processes' traces;
+    # the formula holds them: a ResNet50 batch (at most the engine's 32)
+    # is one engine chunk, each process that loads ResNet50 warms it up
+    # with 2 forwards, predict-locally is one more (after a load, if the
+    # REPL node had not served ResNet50); an LM placement prefill is 12
+    # K2, a chunk step 12 x chunk K4
+    launches = {k: sum(t[k] for t in traced.values()) for k in CLI_TRACE_KERNELS}
+    resident = any(ln.startswith("ResNet50:") for ln in before)
+    n_layers = CLI_LM_SPEC["n_layers"]
+    formula = {"normalize": batches + 2 * len(hosts) + 1 + (0 if resident else 2),
+               "flash_attention": n_layers * d["prefill"],
+               "decode_attention": n_layers * CLI_LM_SPEC["chunk"] * d["steps"]}
+    out["launches"] = {"traced": launches, "by_process": traced, "formula": formula,
+                       "repl_node_resnet50_resident_before": resident}
+    check(launches == formula, f"the node processes' traces hold {launches} kernels "
+                               f"({traced}); the counters give {formula}")
+    check(batches >= 1 and d["prefill"] >= 1 and d["steps"] >= 1,
+          f"counters moved by {batches} batches, {d}")
+    out["c1"] = c1_lines
+    return merged, lm_merged, files, lm_files, local_json, launches
+
+
+def _cli_env():
+    """The node processes' environment: this checkout on the path,
+    stdout unbuffered (the REPL answers over a pipe)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.environ.get("PYTHONPATH")
+    return dict(os.environ, PYTHONUNBUFFERED="1",
+                PYTHONPATH=root if not path else f"{root}{os.pathsep}{path}")
+
+
+def phase_cli():
+    """The port started the way an operator starts it (phase 21):
+    `python -m dml_tpu_torch` localspec, introducer and three node
+    processes on the card, their REPLs driven over stdin; returns the
+    path's launches as the processes' traces count them: K1, K2 and K4."""
+    import glob
+
+    import torch
+    from dml_tpu_torch.inference import InferenceEngine
+    from dml_tpu_torch.inference import generate as gen
+    from dml_tpu_torch.inference.lm_backend import LMBackend
+    from dml_tpu_torch.inference.lm_sharded import lm_spec_parts_cached
+    from dml_tpu_torch.ops import _build
+
+    t_phase = time.monotonic()
+    def kernel_libraries():  # nvcc's builds (the JPEG loader, built by g++, aside)
+        return sorted(p for p in glob.glob(os.path.join(_build.BUILD_DIR, "lib*.so"))
+                      if "dmlloader" not in os.path.basename(p))
+
+    built = kernel_libraries()
+    out = {"nodes": CLI_NODES, "files": CLI_FILES,
+           "lm": f"198M GQA-4 bf16 from --lm-spec: {LMS_SLOTS} slots, chunk {LMS_CHUNK}"}
+    with tempfile.TemporaryDirectory() as tmp:
+        merged, lm_merged, files, lm_files, local, launches = _drive_cli(tmp, out)
+        t = time.monotonic()
+        check(kernel_libraries() == built,
+              "a node process built a kernel library: the phase's build must serve them all")
+        # the outputs against this process's engine on the same files and weights
+        eng = InferenceEngine()  # device None -> cuda; seed 0, as every node's
+        check(eng.device.type == "cuda", f"engine on {eng.device}")
+        eng.load_model("ResNet50")
+        direct = {os.path.basename(k): v for k, v in
+                  eng.infer_files("ResNet50", files).to_json_dict().items()}
+        check(all(set(m) == set(direct) for m in merged), "job keys != the files")
+        worst = 0.0
+        pairs = [kv for m in merged for kv in m.items()]
+        pairs += [(os.path.basename(k), v) for k, v in local.items()]
+        for f, rows in pairs:
+            check([r["wnid"] for r in rows] == [r["wnid"] for r in direct[f]],
+                  f"{f}: top-5 {[r['wnid'] for r in rows]} != the engine's "
+                  f"{[r['wnid'] for r in direct[f]]}")
+            worst = max(worst, max(abs(a["score"] - b["score"]) for a, b in zip(rows, direct[f])))
+        check(worst <= 1e-6, f"scores differ from the engine's by {worst} (> 1e-6)")
+        out["image"]["vs_engine_infer_files"] = {
+            "max_abs_score_diff": worst, "bar": 1e-6, "checked": len(pairs),
+            "distinct_top1": len({rows[0]["wnid"] for rows in merged[0].values()})}
+        del eng
+        # the LM job against a lone serve of the same prompt files
+        be = LMBackend.from_spec(CLI_LM_SPEC)
+        try:
+            lone, _, _ = be.serve_files(lm_files)
+        finally:
+            be.close()
+        lone = {os.path.basename(k): v["tokens"] for k, v in lone.items()}
+        params, cfg = lm_spec_parts_cached(CLI_LM_SPEC)
+        equal = ties = 0
+        for i, (p, b) in enumerate(mixed_requests(cfg.vocab_size)[:CLI_LM_PROMPTS]):
+            name = f"p{i}.tokens.txt"
+            got = lm_merged[name]["tokens"]
+            check(len(got) == b, f"LM {name}: {len(got)} tokens, budget {b}")
+            if list(got) == list(lone[name]):
+                equal += 1
+                continue
+            held, upto, _, _ = tie_compare(got, *lone_greedy(gen, params, cfg, p, b))
+            check(held, f"LM {name}: tokens differ from the lone serve at {upto} with no "
+                        f"near-tie before it")
+            ties += 1
+        out["lm"]["vs_lone_backend"] = {"equal": equal, "held_to_a_near_tie": ties,
+                                       "tie_margin": TIE_MARGIN}
+        out["stages_s"]["references"] = time.monotonic() - t
+        del params
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.monotonic() - t_phase
+    emit(phase="cli", **out)
+    return {"normalize": {"ResNet50": launches["normalize"]},
+            "flash_attention": launches["flash_attention"],
+            "decode_attention": launches["decode_attention"]}
+
+
 def main() -> int:
     import torch
 
@@ -5127,6 +5587,10 @@ def main() -> int:
         phase_groups(timer)
         print(smi, flush=True)
         return 0
+    if "--cli" in sys.argv[1:]:  # after a CLI edit: build, phase 21, stop
+        phase_cli()
+        print(smi, flush=True)
+        return 0
     timings = phase_kernel(timer)
     if kernel_only:  # a short call after a K1 edit: build, check, time, stop
         print(smi, flush=True)
@@ -5147,6 +5611,7 @@ def main() -> int:
     ingress_launches = phase_ingress()
     families_launches = phase_families(timer)
     groups_launches = phase_groups(timer)
+    cli_launches = phase_cli()
 
     kernels = []
     for model, mode in MODELS:
@@ -5156,6 +5621,7 @@ def main() -> int:
         if model == "ResNet50":
             by_path["parallel"] = parallel_launches
             by_path["groups"] = groups_launches["normalize"]["ResNet50"]
+            by_path["cli"] = cli_launches["normalize"]["ResNet50"]
         by_path["cluster"] = cluster_launches["normalize"].get(model, 0)
         by_path["ingress"] = ingress_launches["normalize"].get(model, 0)
         kernels.append(dict(
@@ -5176,7 +5642,8 @@ def main() -> int:
                       "lm_server": server_launches[kern], "moe": moe_launches[kern],
                       "seq_parallel": sp_launches[kern], "pipeline": pipe_launches[kern],
                       "cluster": cluster_launches[kern], "ingress": ingress_launches[kern],
-                      "families": families_launches[kern], "groups": groups_launches[kern]}
+                      "families": families_launches[kern], "groups": groups_launches[kern],
+                      "cli": cli_launches[kern]}
                for kern in ("flash_attention", "decode_attention")}
     for case, shape in (
             ("prefill_b8", f"prefill b{LM_BATCH} T{PROMPT_LEN} H16 KV4 D64 bf16 causal"),

@@ -832,12 +832,13 @@ def group_engine_backend(
     return backend
 
 
-def wire_group_backend(node) -> Optional[Any]:
+def wire_group_backend(node, device=None) -> Optional[Any]:
     """Give a production node its group engine IF it is the primary
     of a configured worker group (CLI/NodeApp path): lenders and
     ungrouped nodes get None and serve single-chip. Membership is
     re-read from the spec per batch — elastic joins/leaves re-shape
-    the group under a running engine."""
+    the group under a running engine. The engine runs on `device`
+    (`cuda` when None)."""
     spec = node.spec
     uname = node.me.unique_name
     g = spec.group_of_unique(uname)
@@ -851,6 +852,7 @@ def wire_group_backend(node) -> Optional[Any]:
         lambda: spec.group_members_unique(g.name),
         lambda: {n.unique_name for n in node.membership.alive_nodes()},
         g.mesh,
+        device=device,
     )
 
 

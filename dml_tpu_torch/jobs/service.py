@@ -185,9 +185,12 @@ class JobService:
         engine=None,
         pipeline_depth: Optional[int] = None,
         group_backend: Optional[InferBackend] = None,
+        device=None,
     ):
         """`engine` shares one InferenceEngine across co-located
-        services (one weights copy + one compile per model per chip).
+        services (one weights copy + one compile per model per chip);
+        without one, the service builds its own on `device` (cuda when
+        None) at first use.
 
         `pipeline_depth=None` (default) runs the ADAPTIVE controller:
         the coordinator probes depth-1 vs depth-2 on real batches at
@@ -245,7 +248,8 @@ class JobService:
         # path (the single-chip case caches at register_lm time)
         self._gb_token_aware: Dict[Any, bool] = {}
         self.model_patterns: Dict[str, Tuple[str, ...]] = {}
-        self._engine = engine  # lazy InferenceEngine (cuda; built on first use)
+        self._engine = engine  # lazy InferenceEngine (built on first use)
+        self._engine_device = device
         # Decoded-input cache for the worker prepare stage, keyed by
         # (local path, mtime_ns, size, target hw). Store objects are
         # immutable per version (a re-PUT mints a new version and a
@@ -2617,7 +2621,7 @@ class JobService:
         if self._engine is None:
             from ..inference.engine import InferenceEngine
 
-            self._engine = InferenceEngine()
+            self._engine = InferenceEngine(device=self._engine_device)
         return self._engine
 
     # ------------------------------------------------------------------

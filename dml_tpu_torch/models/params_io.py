@@ -13,6 +13,19 @@ Two sources feed a model's `load_state_dict`, and one a trainer's state:
   `Trainer.state` (params, batch statistics, AdamW moments, step), which
   `parallel.train.Trainer.state` takes, so a JAX run resumes in the port.
 
+Keras weights come in as the JAX package's helpers bring them, in the
+Flax layout and with numpy alone: `from_keras_model` (a live Keras
+model), `load_keras_h5`/`from_keras_h5` (a Keras .h5 read with h5py, no
+TensorFlow) map them onto a Flax-layout variables tree of numpy arrays,
+which `from_flax_variables` then turns into a state_dict.
+`save_npz_fixture` writes the JAX package's one-file fixture;
+`save_checkpoint`/`load_checkpoint` keep such a tree in a directory as
+one flax-msgpack file (`variables_to_bytes`). That format is the port's
+own: the JAX package's functions of those names write and read an orbax
+directory (orbax needs jax), so neither package's `load_checkpoint`
+reads the other's checkpoint; the JAX package reads the port's file
+only through `variables_from_bytes`.
+
 `variables_to_bytes` / `variables_from_bytes` read and write the JAX
 package's one-file weights format (flax's msgpack serialization) without
 flax, jax or the msgpack package: a map with str keys; array leaves as
@@ -36,7 +49,9 @@ Layout mapping (Flax -> PyTorch):
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Tuple
+import os
+import re
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -83,6 +98,324 @@ def load_npz_fixture(path: str) -> Tuple[Dict[str, np.ndarray], Optional[str]]:
         flat = {k: data[k] for k in data.files if k != _CLASS_INDEX_KEY}
         cij = bytes(data[_CLASS_INDEX_KEY]).decode() if _CLASS_INDEX_KEY in data.files else None
     return flat, cij
+
+
+def _numpy(leaf: Any) -> np.ndarray:
+    """A leaf as a numpy array; a torch tensor from the CPU (bfloat16,
+    which numpy lacks, as float32: exact)."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return np.asarray(leaf)
+
+
+def _tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
+    """`fn` on every leaf of a nested dict (a dict is a node, anything
+    else a leaf)."""
+    if isinstance(tree, Mapping):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+# ----------------------------------------------------------------------
+# Keras -> Flax-layout conversion (numpy only)
+# ----------------------------------------------------------------------
+
+def _keras_layer_weights(layer) -> Dict[str, np.ndarray]:
+    """Extract a keras layer's weights keyed by role."""
+    cls = type(layer).__name__
+    ws = [np.asarray(w) for w in layer.get_weights()]
+    if cls == "Conv2D":
+        out = {"kernel": ws[0]}
+        if len(ws) > 1:
+            out["bias"] = ws[1]
+        return out
+    if cls == "DepthwiseConv2D":
+        # keras depthwise kernel is (k, k, C, depth_multiplier); flax
+        # grouped conv (feature_group_count=C) wants (k, k, 1, C)
+        out = {"kernel": ws[0].transpose(0, 1, 3, 2)}
+        if len(ws) > 1:
+            out["bias"] = ws[1]
+        return out
+    if cls == "Dense":
+        return {"kernel": ws[0], "bias": ws[1]}
+    if cls == "BatchNormalization":
+        # order is [gamma?, beta?, moving_mean, moving_var]
+        out: Dict[str, np.ndarray] = {}
+        i = 0
+        if getattr(layer, "scale", True):
+            out["scale"] = ws[i]
+            i += 1
+        if getattr(layer, "center", True):
+            out["bias"] = ws[i]
+            i += 1
+        out["mean"] = ws[i]
+        out["var"] = ws[i + 1]
+        return out
+    raise ValueError(f"unsupported keras layer {cls}")
+
+
+def _index_suffix(name: str) -> Tuple[str, int]:
+    m = re.match(r"^(.*?)_(\d+)$", name)
+    return (m.group(1), int(m.group(2))) if m else (name, -1)
+
+
+_LAYER_KINDS = ("Conv2D", "DepthwiseConv2D", "Dense", "BatchNormalization")
+
+
+def _kind_of_roles(roles: Dict[str, np.ndarray]) -> str:
+    """Layer kind from a normalized {role: array} dict (the shared
+    vocabulary both converters reduce their sources to)."""
+    if "mean" in roles:
+        return "BatchNormalization"
+    k = roles.get("kernel")
+    if k is not None and k.ndim == 4:
+        # grouped/depthwise convs carry kernel (k, k, 1, C)
+        return (
+            "DepthwiseConv2D"
+            if k.shape[2] == 1 and k.shape[3] > 1
+            else "Conv2D"
+        )
+    return "Dense"
+
+
+def _apply_keras_layers(
+    variables: Mapping[str, Any],
+    layers: Dict[str, Dict[str, np.ndarray]],
+) -> Dict[str, Any]:
+    """Map {keras_layer_name: {role: array}} onto a Flax-layout
+    variables tree (numpy or CPU-tensor leaves; `to_flax_variables` of a
+    model's state_dict gives one) — the single pairing/copy engine
+    behind `from_keras_model` and `from_keras_h5`. Returns a new tree of
+    numpy arrays in the template's dtypes.
+
+    Pairing: exact layer-name match first (works for ResNet50, whose
+    Keras graph uses stable semantic names like `conv2_block1_1_conv`).
+    For layers whose Keras names are autogenerated counters
+    (InceptionV3's `conv2d_N`), the pairing key is the numeric name
+    suffix: Keras's per-class counters advance once per layer created,
+    and the Flax-layout trees number their layers in the same creation
+    order, so sorting each type's pool by suffix aligns them
+    positionally — regardless of where the Keras counters started (a
+    second model in the same process begins at `conv2d_94`). A
+    greedy-by-kernel-shape pairing would silently swap same-shaped convs
+    across inception branches (b1x1 vs b3x3dbl heads share shapes).
+    Every copy is shape-checked, so drift raises instead of silently
+    corrupting.
+    """
+    params = _tree_map(_numpy, variables["params"])
+    stats = _tree_map(_numpy, variables.get("batch_stats", {}))
+    new_params = {k: dict(v) for k, v in params.items()}
+    new_stats = {k: dict(v) for k, v in stats.items()}
+
+    def flax_kind(name: str) -> str:
+        if name in stats:
+            return "BatchNormalization"
+        return _kind_of_roles(params.get(name, {}))
+
+    pools: Dict[str, list] = {t: [] for t in _LAYER_KINDS}
+    for name in params.keys():
+        pools[flax_kind(name)].append(name)
+    for t in pools:
+        pools[t].sort(key=_index_suffix)
+    kpools: Dict[str, list] = {t: [] for t in _LAYER_KINDS}
+    for name, roles in layers.items():
+        kpools[_kind_of_roles(roles)].append(name)
+
+    def copy_weights(fname: str, roles: Dict[str, np.ndarray]) -> None:
+        for role, arr in roles.items():
+            tgt = (
+                new_stats[fname]
+                if role in ("mean", "var")
+                else new_params[fname]
+            )
+            if role not in tgt:
+                raise ValueError(f"{fname} has no {role} in the Flax tree")
+            if tgt[role].shape != arr.shape:
+                raise ValueError(
+                    f"{fname}.{role}: flax {tgt[role].shape} "
+                    f"vs keras {arr.shape}"
+                )
+            tgt[role] = arr.astype(tgt[role].dtype)
+
+    for t in _LAYER_KINDS:
+        if len(pools[t]) != len(kpools[t]):
+            raise ValueError(
+                f"{t}: flax has {len(pools[t])} layers, "
+                f"keras has {len(kpools[t])}"
+            )
+
+    if all(n in layers for t in _LAYER_KINDS for n in pools[t]):
+        for t in _LAYER_KINDS:
+            for fname in pools[t]:
+                copy_weights(fname, layers[fname])
+    else:
+        # creation-order pairing by numeric name suffix (see docstring)
+        for t in _LAYER_KINDS:
+            for fname, kname in zip(
+                pools[t], sorted(kpools[t], key=_index_suffix)
+            ):
+                copy_weights(fname, layers[kname])
+
+    out = {"params": new_params}
+    if new_stats:
+        out["batch_stats"] = new_stats
+    return _tree_map(np.array, out)  # copies: nothing aliases the template
+
+
+def from_keras_model(keras_model, variables: Mapping[str, Any]) -> Dict[str, Any]:
+    """Map a live Keras model's weights onto a Flax-layout variables
+    tree — extracts each layer's weights by role, then defers to
+    `_apply_keras_layers` (pairing rules documented there)."""
+    layers = {
+        l.name: _keras_layer_weights(l)
+        for l in keras_model.layers
+        if type(l).__name__ in _LAYER_KINDS
+    }
+    return _apply_keras_layers(variables, layers)
+
+
+def load_keras_h5(h5_path: str) -> Dict[str, Dict[str, np.ndarray]]:
+    """Read a Keras weights .h5 directly with h5py — no TensorFlow.
+
+    Returns {layer_name: {role: array}} with roles normalized to the
+    Flax tree's vocabulary (kernel/bias/scale/mean/var), including the
+    depthwise-kernel transpose. Handles both weights-only files (layer
+    groups at the root, e.g. the keras.applications imagenet files the
+    reference downloads at models.py:26,51) and full-model saves (a
+    'model_weights' group)."""
+    import h5py
+
+    def role_of(wname: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
+        leaf = wname.rsplit("/", 1)[-1].split(":")[0]
+        if "depthwise_kernel" in leaf:
+            # keras depthwise (k, k, C, mult) -> flax grouped (k, k, 1, C)
+            return "kernel", arr.transpose(0, 1, 3, 2)
+        if "kernel" in leaf:
+            return "kernel", arr
+        if "gamma" in leaf:
+            return "scale", arr
+        if "beta" in leaf:
+            return "bias", arr
+        if "moving_mean" in leaf:
+            return "mean", arr
+        if "moving_variance" in leaf:
+            return "var", arr
+        if "bias" in leaf:
+            return "bias", arr
+        raise ValueError(f"unrecognized weight name {wname!r}")
+
+    out: Dict[str, Dict[str, np.ndarray]] = {}
+    with h5py.File(h5_path, "r") as f:
+        root = f["model_weights"] if "model_weights" in f else f
+        layer_names = [
+            n.decode() if isinstance(n, bytes) else n
+            for n in root.attrs.get("layer_names", list(root))
+        ]
+        for lname in layer_names:
+            g = root[lname]
+            wnames = [
+                n.decode() if isinstance(n, bytes) else n
+                for n in g.attrs.get("weight_names", [])
+            ]
+            if not wnames:
+                continue
+            layer: Dict[str, np.ndarray] = {}
+            for wn in wnames:
+                # weight paths are usually '<layer>/<name>:0' relative
+                # to the layer group, sometimes fully qualified
+                ds = g[wn] if wn in g else root[wn]
+                role, arr = role_of(wn, np.asarray(ds))
+                layer[role] = arr
+            out[lname] = layer
+    if not out:
+        raise ValueError(
+            f"{h5_path}: no legacy-format layer weights found (expects "
+            "the topological Keras h5 layout with layer_names/"
+            "weight_names attrs — the format of the stock "
+            "keras.applications imagenet files; Keras 3's native "
+            ".weights.h5 is a different, role-less layout)"
+        )
+    return out
+
+
+def from_keras_h5(h5_path: str, variables: Mapping[str, Any]) -> Dict[str, Any]:
+    """Map a Keras .h5 weight file onto a Flax-layout variables tree
+    without TensorFlow (drop the stock file in DML_TPU_KERAS_WEIGHTS_DIR
+    and this reads it with h5py). Same pairing/copy engine as
+    `from_keras_model` (`_apply_keras_layers`), fed from the file
+    instead of a live model."""
+    return _apply_keras_layers(variables, load_keras_h5(h5_path))
+
+
+# ----------------------------------------------------------------------
+# checkpoints and one-file fixtures of a Flax-layout tree
+# ----------------------------------------------------------------------
+
+_CHECKPOINT_FILE = "variables.msgpack"
+
+
+def save_checkpoint(path: str, variables: Mapping[str, Any]) -> None:
+    """Keep a variables tree (numpy or tensor leaves) in the directory
+    `path` as one flax-msgpack file, replacing any earlier one there
+    atomically (tmp file + `os.replace`). The port's own format, not
+    the JAX package's orbax directory (see the module docstring)."""
+    path = os.path.abspath(os.path.expanduser(path))
+    os.makedirs(path, exist_ok=True)
+    dest = os.path.join(path, _CHECKPOINT_FILE)
+    tmp = f"{dest}.tmp{os.getpid()}"
+    with open(tmp, "wb") as f:
+        f.write(variables_to_bytes(variables))
+    os.replace(tmp, dest)
+
+
+def load_checkpoint(path: str, like: Optional[Mapping[str, Any]] = None) -> Dict[str, Any]:
+    """Inverse of `save_checkpoint`: the tree with numpy leaves (a
+    bfloat16 leaf as float32, exact). With `like`, the result takes
+    like's structure, and a key of like the file lacks raises
+    ValueError, a shape unlike like's leaf too; a numpy leaf of like
+    gives its dtype."""
+    path = os.path.abspath(os.path.expanduser(path))
+    with open(os.path.join(path, _CHECKPOINT_FILE), "rb") as f:
+        tree = variables_from_bytes(f.read(), like)
+    if like is None:
+        return _tree_map(_numpy, tree)
+
+    def cast(got, want, key):
+        if not isinstance(want, Mapping):
+            arr = _numpy(got)
+            if tuple(arr.shape) != tuple(want.shape):
+                raise ValueError(f"{key}: shape {arr.shape} in the checkpoint, "
+                                 f"expected {tuple(want.shape)}")
+            return arr.astype(want.dtype) if isinstance(want, np.ndarray) else arr
+        return {k: cast(got[k], want[k], f"{key}/{k}") for k in want}
+
+    return cast(tree, like, "")
+
+
+def save_npz_fixture(
+    path: str,
+    variables: Mapping[str, Any],
+    class_index_json: Optional[str] = None,
+) -> None:
+    """Write a SINGLE-FILE pretrained-weight fixture: the converted
+    variables tree (flat 'a/b/c' keys) plus, optionally, the imagenet
+    class-index JSON embedded as a string — so any environment that
+    can place ONE file runs the full label-parity report
+    (tools/imagenet_parity.py). The JAX package's `load_npz_fixture`
+    reads it too. Produce it where weights ARE obtainable with:
+
+        like = to_flax_variables(init_variables(spec), spec.build())
+        save_npz_fixture("dml_tpu_ResNet50.npz",
+                         from_keras_h5("resnet50_....h5", like),
+                         open("imagenet_class_index.json").read())
+    """
+    flat = {k: _numpy(v) for k, v in _flatten(variables).items()}
+    if class_index_json is not None:
+        flat[_CLASS_INDEX_KEY] = np.frombuffer(
+            class_index_json.encode(), dtype=np.uint8
+        )
+    np.savez_compressed(path, **flat)
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:

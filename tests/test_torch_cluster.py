@@ -292,11 +292,20 @@ def _has_port(name: str) -> bool:
 _probing: set = set()
 
 
+def _port_has_names(name: str, fromlist) -> bool:
+    """Whether the port's counterpart of module `name` has every name of
+    `fromlist`, as an attribute or a submodule."""
+    port = importlib.import_module(_port_name(name))
+    return all(n == "*" or hasattr(port, n) or _has_port(f"{name}.{n}") for n in fromlist)
+
+
 def _port_import(name, globals=None, locals=None, fromlist=(), level=0):
     importer = str((globals or {}).get("__name__", ""))
+    # `from dml_tpu.X import y` where the port's X lacks y stays the JAX
+    # import, so the cases that use y are the ones left out (`_unported`)
     if not (level == 0 and importer.startswith(_PREFIX)
             and (name == "dml_tpu" or name.startswith("dml_tpu."))
-            and _has_port(name)):
+            and _has_port(name) and (not fromlist or _port_has_names(name, fromlist))):
         return _real_import(name, globals, locals, fromlist, level)
     mod = _real_import(_port_name(name), globals, locals, fromlist, level)
     if importer not in _probing or not fromlist:
