@@ -13,6 +13,8 @@
     python3 chip_smoke.py --families      # phases 1-2 and 19 (the other image families) alone
     python3 chip_smoke.py --groups        # phases 1-2 and 20 (the worker groups' backends) alone
     python3 chip_smoke.py --cli           # phases 1-2 and 21 (python -m dml_tpu_torch) alone
+    python3 chip_smoke.py --measure       # phases 1-2 and 22 (the measuring half) alone
+    python3 chip_smoke.py --seq-parallel --measure  # phases 1-2, 15 and 22
 
 Phases, each printing one JSON line (with `t_s`, the seconds since the
 script started); any failure exits non-zero:
@@ -250,7 +252,10 @@ script started); any failure exits non-zero:
    of sum(sin(out)) within atol 5e-5, rtol 5e-4 of the one-device K3,
    launches by formula (causal ring: sp-rank r makes r + 1 K2 and r + 1
    K3; full ring 2 of each; Ulysses 1; one delta kernel a backward), and
-   the two forms' forward timed in turns; the LM at full width, bf16,
+   the two forms' forward timed in turns, then (not counted) their bf16
+   causal forwards once more under `parallel.mesh.record_collectives()`
+   beside `tools.ring_vs_ulysses.point_on_mesh` at the same point, which
+   phase 22 holds equal; the LM at full width, bf16,
    B=1, T=2048 (1024 tokens a rank), AdamW lr 3e-4, 5 steps and a
    profiled one with the ring and as many with Ulysses: losses finite
    and falling and equal on both ranks, each step 12 x the formula's K2
@@ -405,13 +410,44 @@ script started); any failure exits non-zero:
     images/s and LM tokens/s (both under the traces), C2's per-image
     time over the batches (one sample a batch), and each process's
     start-to-joined seconds (from its `joined` log line).
+22. measure: the port's measuring half (`benchmarks`,
+    `tools.conv_roofline`, `tools.ring_vs_ulysses`, `lm_sharded`'s bench
+    arms). (a) An 8192^3 bf16 matmul through `device_seconds_per_iter`
+    (slopes on CUDA events): TF/s and its share of 989 TF/s, which must
+    lie in 0.5-1.05. (b) ResNet50 b32 224x224 and InceptionV3 b32
+    299x299, bf16, seeded weights, through the engine's `_forward` (K1,
+    then the model): `forward_rate_stats` at bench.py's b32 chains
+    (20, 120) and (15, 90), 5 reps: images/s with its range, MFU =
+    `compiled_flops` / slope / `peak_flops`, `dispatch_latency` p50/p99,
+    beside the busy times phases 4-5 measured; K1 once a forward (the
+    chains, the FLOP count's forward, 21 latency forwards). (c)
+    `conv_roofline.analyze` of ResNet50, InceptionV3 and EfficientNetB4
+    at b32 and b128, `microbench("EfficientNetB4", 128)` (each unique
+    conv shape slope-timed alone: the measured class bandwidths of
+    `eff_bw`) and `concat_microbench("InceptionV3", 128)`. (d) K2 and K4
+    on float32 inputs at the arms' shapes against their plain versions
+    (2e-5), then `bench_specdec_arm` (8 prompts, 32 tokens, k 4) and
+    `bench_cb_arm` (6 waves of 2, 16 tokens) on the 198M LM in float32,
+    TF32 off, max_slots 4, max_len 128, chunk 8: `outputs_equal` (tokens
+    exactly `generate`'s) and the random draft auto-disabled
+    ("acceptance", tokens exact) must hold; speedup and both arms' TTFT
+    p99; K2 and K4 launches equal to the formula from the arms'
+    dispatches (12 a `generate` prefill and 12 x (n - 1) its decode
+    steps; the layers of target or draft a server placement prefill;
+    12 x chunk a chunk step; the draft's layers x k a proposal). (e)
+    Phase 15's two gloo ranks ran their bf16 causal ring and Ulysses
+    forwards once more under `parallel.mesh.record_collectives()`, and
+    `ring_vs_ulysses.point_on_mesh` (analyze_point's body) at [1, 8192,
+    16, 64], sp 2, on the same mesh: the calls and bytes must be equal
+    and be 1 shift of 2 x the activation (ring) and 2 all-to-alls of 4 x
+    it (Ulysses). No process is spawned.
 
 Then the card's name and power limit as nvidia-smi prints them, the
 kernels' summary line (K1's launches by path: serving, training,
-cluster, ingress and, for ResNet50, parallel, groups and cli, and a row at
+cluster, ingress, measure and, for ResNet50, parallel, groups and cli, and a row at
 the families' [32,224,224,3] tf shape with the families path; K2's and
 K4's: generate, train, lm_server, moe, seq_parallel, pipeline, cluster,
-ingress, families, groups and cli, K2 timed at the LM's shapes and ViT-B16's; K3's
+ingress, families, groups, cli and measure, K2 timed at the LM's shapes and ViT-B16's; K3's
 and the delta kernel's: train, moe, seq_parallel and families), and
 last `{"ok": true, "device": {...}}`.
 """
@@ -442,6 +478,9 @@ LM_BATCH, PROMPT_LEN, NEW_TOKENS = 8, 2048, 64
 DECODE_CTX = 4096
 # training: bench.py's lm_198m_t2048 entry (bench.py:2867-2903), batch 1
 TRAIN_T, TRAIN_STEPS, TRAIN_NEW_TOKENS = 2048, 20, 16
+#: what an earlier phase measured for a later one (phase 22 reads the
+#: models' busy times of phases 4-5 and phase 15's recorded collectives)
+SHARED = {}
 
 
 def check(ok, msg):
@@ -850,6 +889,8 @@ def phase_model(name, mode, timer):
          forward_device_ms=fwd_ms,
          max_memory_allocated_mb=torch.cuda.max_memory_allocated() / 1e6)
     prof = profile_calls(lambda: eng.infer_arrays(name, batch), 5, IMAGE_KINDS, after="normalize_")
+    SHARED[f"busy/{name}"] = {"forward_device_ms": fwd_ms,
+                              "infer_arrays_device_busy_ms": prof["device_busy_ms_per_call"]}
     emit(phase="profile", model=name,
          normalize_share_of_busy=prof["by_kind_ms_per_call"].get("normalize", 0.0)
          / prof["device_busy_ms_per_call"], **prof)
@@ -3219,9 +3260,10 @@ def _seq_parallel_rank(rank, world, tmp):
     from dml_tpu_torch.config import MeshSpec
     from dml_tpu_torch.ops.flash_attention import flash_attention
     from dml_tpu_torch.parallel.long_context import LongContextLM
-    from dml_tpu_torch.parallel.mesh import make_mesh
+    from dml_tpu_torch.parallel.mesh import make_mesh, record_collectives
     from dml_tpu_torch.parallel.ring_attention import ring_attention
     from dml_tpu_torch.parallel.ulysses import ulysses_attention
+    from dml_tpu_torch.tools import ring_vs_ulysses as rvu
 
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous_gloo",
@@ -3285,6 +3327,18 @@ def _seq_parallel_rank(rank, world, tmp):
                 ms[f].append((time.monotonic() - t0) * 1e3)
         res["attention"][f"forward_ms/{dtype_name(dtype)}/causal"] = {
             f: statistics.median(v) for f, v in ms.items()}
+        if dtype == torch.bfloat16:
+            # not counted: the same bf16 causal forwards once more under the
+            # collective recorder, and the footprint tool's own body at this
+            # point on this mesh (phase 22 holds the two equal)
+            calls = {}
+            with torch.no_grad():
+                for f, fn in forms.items():
+                    with record_collectives() as rec:
+                        fn(*mine, sp_mesh, causal=True)
+                    calls[f] = rvu.collective_footprint(rec)
+                point = rvu.point_on_mesh(sp_mesh, SP_T, 16, head_dim=64, batch=1, device="cuda")
+            res["footprint"] = {"calls": calls, "point": point}
         del q, k, v, mine
     torch.cuda.empty_cache()
 
@@ -3543,6 +3597,7 @@ def phase_seq_parallel():
         del nlm
         out["world1"] = w1
         out["gloo_2_ranks"] = gloo
+        SHARED["sp_footprint"] = ranks[0]["footprint"]  # phase 22 reads it
         total = dict(world1)
         per_rank = [r["launches"] for r in ranks]
         for moved in per_rank:
@@ -5533,6 +5588,223 @@ def phase_cli():
             "decode_attention": launches["decode_attention"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the measuring half (benchmarks, the two tools, the bench arms)
+# ---------------------------------------------------------------------------
+
+MEASURE_MATMUL = 8192  # the yardstick's square bf16 product
+#: bench.py's b32 chains (bench.py:241-245 for ResNet50; InceptionV3 at b64's)
+MEASURE_MODELS = (("ResNet50", (20, 120)), ("InceptionV3", (15, 90)))
+MEASURE_REPS = 5  # forward_rate_stats' default
+MEASURE_LAT_REPS = 20  # dispatch_latency's default
+ROOFLINE_MODELS = ("ResNet50", "InceptionV3", "EfficientNetB4")
+#: the JAX bench arms' serving settings (dml_tpu/inference/lm_sharded.py:1993-1997),
+#: the 198M LM in float32 so that the arms hold tokens to generate exactly
+MEASURE_LM_SPEC = dict(LM_CFG, name="LM198M", dtype="float32", seed=0, max_slots=4,
+                       max_len=128, chunk=8)
+SPECDEC_NEW, CB_NEW = 32, 16
+
+
+def _measure_models(smi):
+    """(b): the engine's forward (K1, then the model) slope-timed at b32,
+    its FLOPs and the card's peak, and the dispatch latency. Returns the
+    rows and K1's launches with their formula."""
+    import torch
+    from dml_tpu_torch.benchmarks import (compiled_flops, dispatch_latency,
+                                          forward_rate_stats, peak_flops)
+    from dml_tpu_torch.inference import InferenceEngine
+    from dml_tpu_torch.models.registry import get_model
+
+    peak = peak_flops()
+    eng = InferenceEngine(dtype=torch.bfloat16)
+    check(eng.device.type == "cuda", f"engine on {eng.device}")
+    rows, k1, k1_want = {}, {}, {}
+    for name, chains in MEASURE_MODELS:
+        spec = get_model(name)
+        lm = eng.load_model(name, variables=seeded_weights(spec, seed=0), batch_size=BATCH)
+        x = torch.from_numpy(np.random.RandomState(2).randint(
+            0, 256, (BATCH, *spec.input_size, 3)).astype(np.uint8)).cuda()
+
+        def fwd(m, b):
+            return eng._forward(m, b)
+
+        reset_launch_counts()
+        st = forward_rate_stats(fwd, lm, x, chains=chains, reps=MEASURE_REPS)
+        flops = compiled_flops(fwd, lm, x)
+        p50, p99 = dispatch_latency(fwd, lm, x, reps=MEASURE_LAT_REPS)
+        torch.cuda.synchronize()
+        k1[name] = launch_counts()["normalize"]
+        k1_want[name] = sum(chains) * (MEASURE_REPS + 1) + 1 + MEASURE_LAT_REPS + 1
+        check(launch_counts() == _kernels() | {"normalize": k1_want[name]},
+              f"measure {name}: launched {launch_counts()}, K1 wants {k1_want[name]}")
+        sec = st["median"]
+        check(all(np.isfinite(v) and v > 0 for v in (sec, st["min"], st["max"]))
+              and "degenerate_reps" not in st, f"measure {name}: slope {st}")
+        busy = SHARED.get(f"busy/{name}")
+        rows[name] = {
+            "batch": BATCH, "chains": list(chains), "reps": MEASURE_REPS,
+            "slope_ms": sec * 1e3, "slope_ms_min": st["min"] * 1e3, "slope_ms_max": st["max"] * 1e3,
+            "images_per_s": BATCH / sec, "images_per_s_range": [BATCH / st["max"], BATCH / st["min"]],
+            "gflops_per_forward": flops / 1e9, "peak_flops": peak, "mfu": flops / sec / peak,
+            "dispatch_latency_ms_p50": p50 * 1e3, "dispatch_latency_ms_p99": p99 * 1e3,
+            "busy_from_phase_4_5": busy if busy else "not measured in this call",
+            "card": smi}
+        eng.unload_model(name)
+        del x
+    torch.cuda.empty_cache()
+    return rows, k1, k1_want
+
+
+def _measure_arms():
+    """(d): the two one-device bench arms on the 198M LM in float32, TF32
+    off, with K2 and K4 counted and held to the formula from the arms' own
+    dispatches (generate's prefills and decode steps, the server's
+    placement prefills (target and draft), chunk steps and draft
+    proposals)."""
+    import torch
+    from dml_tpu_torch.inference import lm_sharded
+    from dml_tpu_torch.inference.lm_backend import lm_spec_parts
+    from dml_tpu_torch.inference.lm_server import LMServer
+
+    want = {"flash_attention": 0, "decode_attention": 0}
+    orig = {"generate": lm_sharded.generate, "_prefill": LMServer._prefill,
+            "_chunk_impl": LMServer._chunk_impl, "_propose_impl": LMServer._propose_impl}
+
+    def generate(params, cfg, prompt, n, *a, **kw):
+        want["flash_attention"] += cfg.n_layers
+        want["decode_attention"] += cfg.n_layers * (n - 1)
+        return orig["generate"](params, cfg, prompt, n, *a, **kw)
+
+    def prefill(self, params, cfg, *a, **kw):
+        want["flash_attention"] += cfg.n_layers
+        return orig["_prefill"](self, params, cfg, *a, **kw)
+
+    def chunk(self, *a, **kw):
+        want["decode_attention"] += self.cfg.n_layers * self.chunk
+        return orig["_chunk_impl"](self, *a, **kw)
+
+    def propose(self, *a, **kw):
+        want["decode_attention"] += self._spec.draft_cfg.n_layers * self._spec.k
+        return orig["_propose_impl"](self, *a, **kw)
+
+    with tf32_off():
+        params, cfg = lm_spec_parts(MEASURE_LM_SPEC)
+        lm_sharded.generate = generate
+        LMServer._prefill, LMServer._chunk_impl, LMServer._propose_impl = prefill, chunk, propose
+        try:
+            reset_launch_counts()
+            spec = lm_sharded.bench_specdec_arm(params, cfg, MEASURE_LM_SPEC,
+                                                new_tokens=SPECDEC_NEW)
+            cb = lm_sharded.bench_cb_arm(params, cfg, MEASURE_LM_SPEC, new_tokens=CB_NEW)
+            torch.cuda.synchronize()
+            got = launch_counts()
+        finally:
+            lm_sharded.generate = orig["generate"]
+            LMServer._prefill, LMServer._chunk_impl = orig["_prefill"], orig["_chunk_impl"]
+            LMServer._propose_impl = orig["_propose_impl"]
+    del params
+    torch.cuda.empty_cache()
+    check(got == _kernels(want["flash_attention"], k4=want["decode_attention"]),
+          f"measure arms: launched {got}, the arms' dispatches give {want}")
+    check(spec["outputs_equal"], f"specdec arm: tokens differ from generate: {spec}")
+    auto = spec["auto_disable"]
+    check(auto["disabled"] and auto["reason"] == "acceptance" and auto["outputs_equal"],
+          f"specdec arm: the random draft was not auto-disabled with exact tokens: {auto}")
+    check(cb["outputs_equal"], f"cb arm: tokens differ from generate: {cb}")
+    return spec, cb, got
+
+
+def _measure_kernel_checks():
+    """Not counted: K2 and K4 on float32 inputs at the arms' shapes (a
+    placement prefill of 4 rows at the 32-token bucket, GQA-4; a decode
+    step over the 4-slot, 128-row cache at mixed positions) against their
+    plain versions, within the bars of phases 6-7 (2e-5)."""
+    import torch
+    from dml_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
+    from dml_tpu_torch.ops.flash_attention import attention_with_lse, flash_attention_lse
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    slots, t, heads, kv, d = MEASURE_LM_SPEC["max_slots"], MEASURE_LM_SPEC["max_len"], 16, 4, 64
+    q = torch.randn(slots, 32, heads, d, generator=g, device="cuda")
+    k, v = (torch.randn(slots, 32, kv, d, generator=g, device="cuda") for _ in range(2))
+    out, lse = flash_attention_lse(q, k, v, causal=True)
+    p_out, p_lse = attention_with_lse(q, k, v, causal=True)
+    k2 = max(float((out - p_out).abs().max()), float((lse - p_lse).abs().max()))
+    q1 = torch.randn(slots, 1, heads, d, generator=g, device="cuda")
+    ck, cv = (torch.randn(slots, kv, t, d, generator=g, device="cuda") for _ in range(2))
+    pos = torch.tensor([5, 40, 77, t - 1], dtype=torch.int32, device="cuda")
+    k4 = float((decode_attention(q1, ck, cv, pos) - decode_attention_plain(q1, ck, cv, pos))
+               .abs().max())
+    torch.cuda.synchronize()
+    check(k2 <= 2e-5 and k4 <= 2e-5, f"measure: K2 f32 {k2}, K4 f32 {k4} from the plain versions")
+    return {"flash_fwd_f32_max_abs_err": k2, "decode_f32_max_abs_err": k4, "bar": 2e-5}
+
+
+def _measure_footprint():
+    """(e): phase 15's recorded sp-2 calls against the footprint tool's
+    body at the same point on the same ranks, and the sizes they must
+    have: ring sp - 1 shifts of k and v (2 x the activation each),
+    Ulysses 2 all-to-alls (q, k, v in; out back: 4 x the activation)."""
+    fp = SHARED.get("sp_footprint")
+    if fp is None:
+        return {"skipped": "phase 15 did not run in this call"}
+    act = 1 * (SP_T // 2) * 16 * 64 * 2  # one rank's bf16 [1, T/2, 16, 64]
+    want = {"ring": (1, 2 * act), "ulysses": (2, 4 * act)}
+    point = fp["point"]
+    for form, (count, nbytes) in want.items():
+        got, tool = fp["calls"][form], point[form]["recorded"]
+        check(got["total_count"] == tool["total_count"] == count
+              and got["total_bytes"] == tool["total_bytes"] == nbytes,
+              f"footprint {form}: recorded {got}, analyze_point's {tool}, want {count} calls "
+              f"of {nbytes} bytes")
+    return {"point": point, "recorded_calls": fp["calls"],
+            "equal_to_analyze_point": True}
+
+
+def phase_measure(smi):
+    """Phase 22: the port's measuring half on the card. Returns K1's
+    launches by model and K2's and K4's on this path."""
+    import torch
+    from dml_tpu_torch.benchmarks import device_seconds_per_iter, peak_flops, poke
+    from dml_tpu_torch.tools import conv_roofline
+
+    t_phase = time.monotonic()
+    out = {"card": smi}
+    # (a) the timer's yardstick
+    n = MEASURE_MATMUL
+    g = torch.Generator(device="cuda").manual_seed(22)
+    a, b = (torch.randn(n, n, generator=g, device="cuda", dtype=torch.bfloat16) for _ in range(2))
+
+    def mm(i, acc, a, b):
+        return (poke(a, acc) @ b)[0, 0].float()
+
+    sec = device_seconds_per_iter(mm, a, b)
+    tfs = 2.0 * n ** 3 / sec / 1e12
+    share = tfs * 1e12 / peak_flops()
+    out["matmul"] = {"shape": [n, n, n], "dtype": "bfloat16", "ms": sec * 1e3,
+                     "tflops": tfs, "share_of_989": share}
+    check(0.5 <= share <= 1.05, f"matmul yardstick at {tfs:.1f} TF/s, {share:.3f} of the peak")
+    del a, b
+    # (b) the models
+    out["models"], k1, k1_want = _measure_models(smi)
+    # (c) the roofline
+    out["roofline"] = [conv_roofline.analyze(m, bt) for m in ROOFLINE_MODELS for bt in (32, 128)]
+    out["microbench"] = conv_roofline.microbench("EfficientNetB4", 128)
+    out["concat_microbench"] = conv_roofline.concat_microbench("InceptionV3", 128)
+    torch.cuda.empty_cache()
+    # (d) the bench arms, their kernels first held to the plain versions
+    out["kernel_checks"] = _measure_kernel_checks()
+    spec, cb, arms = _measure_arms()
+    out["specdec"], out["cb"] = spec, cb
+    # (e) the collective footprint of phase 15's calls
+    out["footprint"] = _measure_footprint()
+    out["launches"] = {"normalize": k1, "normalize_want": k1_want, "arms": arms}
+    out["phase_s"] = time.monotonic() - t_phase
+    emit(phase="measure", **out)
+    return {"normalize": k1, "flash_attention": arms["flash_attention"],
+            "decode_attention": arms["decode_attention"]}
+
+
 def main() -> int:
     import torch
 
@@ -5551,6 +5823,12 @@ def main() -> int:
     kernel_only = "--kernel-only" in sys.argv[1:]
     build_all(kernel_only)
     timer = Timer()
+    if "--measure" in sys.argv[1:]:  # after a measuring edit: build, phase 22 (15 first if asked)
+        if "--seq-parallel" in sys.argv[1:]:
+            phase_seq_parallel()
+        phase_measure(smi)
+        print(smi, flush=True)
+        return 0
     if "--lm-server" in sys.argv[1:]:  # a short call after a server edit: build, phase 12, stop
         phase_lm_server(timer)
         print(smi, flush=True)
@@ -5612,6 +5890,7 @@ def main() -> int:
     families_launches = phase_families(timer)
     groups_launches = phase_groups(timer)
     cli_launches = phase_cli()
+    measure_launches = phase_measure(smi)
 
     kernels = []
     for model, mode in MODELS:
@@ -5624,6 +5903,7 @@ def main() -> int:
             by_path["cli"] = cli_launches["normalize"]["ResNet50"]
         by_path["cluster"] = cluster_launches["normalize"].get(model, 0)
         by_path["ingress"] = ingress_launches["normalize"].get(model, 0)
+        by_path["measure"] = measure_launches["normalize"][model]
         kernels.append(dict(
             name=f"normalize_u8[{model} b32 {mode} bf16; 16-pixel vector groups; "
                  f"library call: x.to(bfloat16), the raw mode's call on the same bytes]",
@@ -5643,7 +5923,7 @@ def main() -> int:
                       "seq_parallel": sp_launches[kern], "pipeline": pipe_launches[kern],
                       "cluster": cluster_launches[kern], "ingress": ingress_launches[kern],
                       "families": families_launches[kern], "groups": groups_launches[kern],
-                      "cli": cli_launches[kern]}
+                      "cli": cli_launches[kern], "measure": measure_launches[kern]}
                for kern in ("flash_attention", "decode_attention")}
     for case, shape in (
             ("prefill_b8", f"prefill b{LM_BATCH} T{PROMPT_LEN} H16 KV4 D64 bf16 causal"),

@@ -40,7 +40,8 @@ cluster scheduler that shape:
 - **Observability**: ``jobs_group_*`` metrics (formed gauge, member
   liveness, degradation/reform counters, group-served batch counter),
   `JobService.group_stats()` in the CLI ``breakdown`` verb, and the
-  ``cluster_sharded_serving`` bench section (ROADMAP A8 in the port).
+  ``cluster_sharded_serving`` bench section (in the port it waits for
+  ROADMAP §A item 2, the rank-driven group form).
 
 The port's copy of dml_tpu/jobs/groups.py. The module stays free of
 torch at import time (the chaos/CLI stub paths build directories and
@@ -857,15 +858,25 @@ def wire_group_backend(node, device=None) -> Optional[Any]:
 
 
 # ----------------------------------------------------------------------
-# bench: sharded cluster serving (ROADMAP A8, after A6(b))
+# bench: sharded cluster serving (waits for ROADMAP §A item 2)
 # ----------------------------------------------------------------------
+
+_RANK_DRIVEN = (
+    "waits for ROADMAP §A item 2, the rank-driven group form: the bench's tp-2 "
+    "group lives in one process in JAX (jax.devices()[:2] beside a 5-node "
+    "LocalCluster) and on two ranks in the port, whose group primary has no "
+    "follower ranks yet (jobs.groups.group_ranks raises for a mesh larger than "
+    "the process's world)")
 
 
 def bench_sharded_serving(**_kw) -> Dict[str, Any]:
     """End-to-end sharded cluster serving against the single-device
-    pipeline: the port's bench functions are ROADMAP A8."""
-    raise NotImplementedError(
-        "jobs.groups.bench_sharded_serving: the port's bench functions are ROADMAP A8")
+    pipeline. Not in the port yet: it waits for ROADMAP §A item 2, the
+    rank-driven group form. The JAX bench holds its tp-2 group in one
+    process (`jax.devices()[:2]` beside a 5-node `LocalCluster`); the
+    port's mesh runs one process per rank, so the group needs a primary
+    with follower ranks. Raises NotImplementedError saying so."""
+    raise NotImplementedError(f"jobs.groups.bench_sharded_serving {_RANK_DRIVEN}")
 
 
 def _make_sharded_jobs(
@@ -893,8 +904,10 @@ def _make_sharded_jobs(
 
 
 def _main() -> None:  # pragma: no cover - bench subprocess entry
-    raise NotImplementedError(
-        "python -m dml_tpu_torch.jobs.groups: the port's bench functions are ROADMAP A8")
+    """`python -m dml_tpu_torch.jobs.groups`: `bench_sharded_serving`'s
+    entry, which waits for ROADMAP §A item 2 (the rank-driven group
+    form) for the same reason; raises NotImplementedError."""
+    raise NotImplementedError(f"python -m dml_tpu_torch.jobs.groups {_RANK_DRIVEN}")
 
 
 if __name__ == "__main__":  # pragma: no cover

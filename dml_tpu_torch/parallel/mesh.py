@@ -36,12 +36,22 @@ which a profile reads for the collectives' share of a step.
 collectives (JAX's `lax.all_to_all(tiled=True)` and the ring's
 `ppermute`); both are differentiable: the gradient of an all-to-all is
 the inverse all-to-all, and that of a shift the shift the other way.
+
+`record_collectives()` is the port's counterpart of reading the
+collectives out of an optimized HLO module (the JAX package's
+tools/ring_vs_ulysses.py): while it is active, each `all_reduce`,
+`all_gather`, all-to-all and shift of this thread appends `(op, axis,
+result bytes)` to the list it yields, under HLO's op names
+(`all-reduce`, `all-gather`, `all-to-all`, `collective-permute`). When
+it is inactive they record nothing.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from collections import OrderedDict
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -171,6 +181,31 @@ def resolve_mesh(mesh) -> Optional[Mesh]:
 
 # ---- collectives ----
 
+#: the list `record_collectives` yields, while one is active in this context
+_RECORDS: contextvars.ContextVar[Optional[List[Tuple[str, str, int]]]] = contextvars.ContextVar(
+    "mesh_collective_records", default=None)
+
+
+@contextlib.contextmanager
+def record_collectives() -> Iterator[List[Tuple[str, str, int]]]:
+    """Record every collective this thread calls inside the block:
+    yields a list that each call appends `(op, axis, result bytes)` to
+    (one entry a call, its result's bytes on this rank)."""
+    records: List[Tuple[str, str, int]] = []
+    token = _RECORDS.set(records)
+    try:
+        yield records
+    finally:
+        _RECORDS.reset(token)
+
+
+def _record(op: str, axis, result: torch.Tensor) -> None:
+    records = _RECORDS.get()
+    if records is not None:
+        name = axis if isinstance(axis, str) else "+".join(axis)
+        records.append((op, name, result.numel() * result.element_size()))
+
+
 def _staged(t: torch.Tensor, mesh: Mesh) -> bool:
     """gloo reduces host tensors: a CUDA tensor goes through the host."""
     return t.is_cuda and mesh.backend == "gloo"
@@ -187,6 +222,7 @@ def all_reduce(t: torch.Tensor, mesh: Mesh, axis) -> torch.Tensor:
             t.copy_(host)
         else:
             dist.all_reduce(t, group=mesh.group(axis))
+    _record("all-reduce", axis, t)
     return t
 
 
@@ -199,6 +235,7 @@ def all_gather(t: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0) -> torch.Te
         parts: List[torch.Tensor] = [torch.empty_like(src) for _ in range(n)]
         dist.all_gather(parts, src, group=mesh.group(axis))
         out = torch.cat(parts, dim)
+    _record("all-gather", axis, out)
     return out.to(t.device) if out.device != t.device else out
 
 
@@ -228,6 +265,7 @@ def _all_to_all(t: torch.Tensor, mesh: Mesh, axis: str, split_dim: int,
         got = torch.empty_like(x)
         dist.all_to_all_single(got, x, group=mesh.group(axis))
         got = got.to(t.device) if got.device != t.device else got
+        _record("all-to-all", axis, got)
         # got[i] came from rank i: concatenated along concat_dim in rank order
         return torch.cat([p.movedim(0, split_dim) for p in got.unbind(0)], concat_dim)
 
@@ -244,6 +282,7 @@ def _shift(t: torch.Tensor, mesh: Mesh, axis: str, reverse: bool) -> torch.Tenso
             dist.P2POp(dist.irecv, got, _group_rank(mesh, axis, frm), group)])
         for r in reqs:  # complete before the next exchange: each is matched in order
             r.wait()
+    _record("collective-permute", axis, got)
     return got.to(t.device) if got.device != t.device else got
 
 

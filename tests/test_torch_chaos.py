@@ -5,8 +5,9 @@
   run against the port (`test_torch_cluster.port_cases`). Every port a
   case names moves into a probed block in 50000-54999 (`PortMap`), so
   these copies never meet the JAX files' literal ports. Left out: the
-  cases that need `dml_tpu.tools.claim_check` (the tools are ROADMAP
-  A8; `port_cases` drops them by itself) and the one named in `EXCLUDE`.
+  cases that need `dml_tpu.tools.claim_check` (it stays with the JAX
+  package, beside bench.py; `port_cases` drops them by itself) and the
+  one named in `EXCLUDE`.
 - The plan generators of both packages give equal event lists, and the
   fuzzer byte-equal datagrams, for the same seeds.
 - A guard: every port a probed case bound, and every base a

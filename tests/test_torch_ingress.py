@@ -4,8 +4,8 @@ token streaming) on the port's `chaos.LocalCluster`.
 - The JAX package's own cases of test_ingress, run against the port
   (`test_torch_cluster.port_cases`, every cluster on a probed block in
   50000-54999). Left out: the case that needs `dml_tpu.tools.
-  claim_check` (the tools are ROADMAP A8; `port_cases` drops it by
-  itself).
+  claim_check` (it stays with the JAX package, beside bench.py;
+  `port_cases` drops it by itself).
 - The two packages on one seeded script: `open_loop_trace`,
   `diurnal_trace` and `multi_turn_trace` give equal arrivals, `summarize`
   an equal scorecard, and `BatchFormer` the same batches.
@@ -43,7 +43,7 @@ from test_torch_models import jax_init, perturb_bn
 
 globals().update(port_cases("test_ingress", "ingress", probe_ports=True))
 
-#: the case of test_ingress that needs the tools (ROADMAP A8)
+#: the case of test_ingress that needs `tools.claim_check` (the JAX package's alone)
 TOOLS_CASES = {"claim_check_request_block"}
 
 

@@ -6,8 +6,9 @@ DepthController held to each other on one seeded event script.
 
 The cases that drive the chaos harness (`cluster.chaos.LocalCluster`),
 the request router or the load generator run on probed ports like the
-rest. Left out: the cases that need the tools (`dml_tpu.tools`, ROADMAP
-A8), which `port_cases` drops by itself, and the cases named in
+rest. Left out: the cases that need `dml_tpu.tools.claim_check` (it
+stays with the JAX package, beside bench.py), which `port_cases` drops
+by itself, and the cases named in
 `EXCLUDE`, which build a JAX mesh over several devices (each has a
 counterpart on the port's world-1 group mesh or its gloo ranks).
 """
