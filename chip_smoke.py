@@ -15,6 +15,7 @@
     python3 chip_smoke.py --cli           # phases 1-2 and 21 (python -m dml_tpu_torch) alone
     python3 chip_smoke.py --measure       # phases 1-2 and 22 (the measuring half) alone
     python3 chip_smoke.py --seq-parallel --measure  # phases 1-2, 15 and 22
+    python3 chip_smoke.py --rank-groups   # phases 1-2, 21 and 23 (the group worlds)
 
 Phases, each printing one JSON line (with `t_s`, the seconds since the
 script started); any failure exits non-zero:
@@ -75,7 +76,8 @@ script started); any failure exits non-zero:
    (Tq=64, Tk=192; Tq=200, Tk=1000 GQA-4), ViT-B16's non-causal
    self-attention (vit_b16: [32,197,12,64], q/k/v strided views of one
    [32,197,2304] qkv output), bf16 D=32 (the mma.sync
-   route) and float32 cases; tolerances float32 2e-5 (out and lse),
+   route) and float32 cases (D 48 and 96 among them: the cluster LM
+   bench's ShardLM and its draft, phase 23); tolerances float32 2e-5 (out and lse),
    bf16 out 2e-2 and lse 1e-4. At prefill_b8, prefill_b1, mha_b1 and vit_b16 the
    wgmma kernel, the mma.sync kernel (checked too), SDPA and the plain
    version are timed in turns (new, mma.sync, SDPA, plain, SDPA,
@@ -84,7 +86,8 @@ script started); any failure exits non-zero:
 7. decode_check: the one-launch decode kernel against the plain
    version within 2e-5 for bf16, f32 and int8 caches; GQA-4, MQA and
    MHA; B=1 and B=8 at T=4096 with mixed per-slot positions, the LM's
-   own decode shape, D 16 int8, D 32 bf16, D 128 bf16 and f32, pos 0,
+   own decode shape, D 16 int8, D 32 bf16, D 128 bf16 and f32, D 48
+   and 96 (f32 at the ShardLM's shapes, bf16, int8), pos 0,
    T=1001, B=64 with short positions; q in bf16 (as generate gives it,
    int8 caches too), in f32, bf16 over an f32 cache (D 16, 64, 128), f32
    over a bf16 cache, and a strided view; each case run twice, bit-equal,
@@ -162,7 +165,8 @@ script started); any failure exits non-zero:
    median and p90, images/s, peak device memory, and a torch.profiler
    breakdown of one step with K1's share of the busy time;
 12. lm_server: the port's continuous-batching LMServer on cuda at the
-   same LM config, bf16, seeded weights. (a) bench.py's mixed-budget
+   same LM's width, cut to 6 of its 12 blocks since PR 20 (to pay for
+   phase 23; `LMS_CFG`), bf16, seeded weights. (a) bench.py's mixed-budget
    stream (32 requests of 12 prompt tokens, budgets from 32..512 drawn
    by RandomState(3), 8 slots, max_len 1024, chunk 32): a warm-up, in
    which K4 is held to its plain version (2e-5) on the live cache with
@@ -173,8 +177,8 @@ script started); any failure exits non-zero:
    tokens/s, the speedup, steps, mean slot occupancy, latency and TTFT
    p50/p99; the two modes' tokens must be equal. (b) 16 prompts of
    256-2048 tokens, budget 64, max_len 4096, chunk 16. On every counted
-   server run K2 must launch 12 x the server's placement prefills and
-   K4 12 x chunk x its chunk steps (plus the draft's launches under
+   server run K2 must launch 6 x the server's placement prefills and
+   K4 6 x chunk x its chunk steps (plus the draft's launches under
    speculation), and K1, K3 and delta never. bf16 tokens of (b) equal
    each request's lone generate path up to its first near-tie (top-1
    minus top-2 logit margin under TIE_MARGIN); sampled tokens
@@ -273,8 +277,9 @@ script started); any failure exits non-zero:
    device's; its dp-2 checkpoint restored bitwise at one device. A rank
    that exits non-zero fails the phase.
 16. pipeline: the pp and tp LM serving forms (`inference.lm_sharded`)
-   over torch.distributed, the 198M LM in bf16 with seeded weights.
-   First, not counted: K2 on GQA's kv head h // G (what a pipeline
+   over torch.distributed, the 198M LM's width in bf16 with seeded
+   weights, cut to 6 of its 12 blocks since PR 20 (to pay for phase 23;
+   `PIPE_LM_SPEC`). First, not counted: K2 on GQA's kv head h // G (what a pipeline
    stage launches) bit-equal to K2 on k/v repeated to 16 heads (JAX's
    pipelined prefill) at a stage's prefill shape, [4, 2048, 16, 64];
    the references (one device's server on 8 requests of phase 12's
@@ -282,8 +287,8 @@ script started); any failure exits non-zero:
    margins, the float32
    narrow LM's lone tokens). (a) NCCL at world size 1 on cuda:0 in this
    process: `sharded_lm_backend` in both forms at (dp 1, tp 1) over the
-   8 requests, tokens equal to `LMBackend`'s server's, K2 12 x placement
-   prefills and K4 12 x chunk x chunk steps; `LMPrefillBackend` (12 K2
+   8 requests, tokens equal to `LMBackend`'s server's, K2 6 x placement
+   prefills and K4 6 x chunk x chunk steps; `LMPrefillBackend` (6 K2
    a prompt; `slabs_bytes` equal to its `prefill_one` entries' blob) ->
    `kv_slab_from_bytes` (rows bit-equal, the blob re-serialized
    byte-equal, in bf16 and int8 kv_quant) -> `LMBackend.
@@ -291,9 +296,9 @@ script started); any failure exits non-zero:
    runs up to a near-tie (TIE_MARGIN) and counted where equal to the
    local serve's; the float32 narrow LM's slabs (TF32 off) adopted with
    tokens equal to its local serve's. (b) Two gloo ranks, both on cuda:0, spawned: at pp 2
-   `PipelinedLMBackend` (6 blocks a stage, 2 microbatches) on 8 prompts
+   `PipelinedLMBackend` (3 blocks a stage, 2 microbatches) on 8 prompts
    of 256-2048 tokens with budgets up to 64: a warm-up, 2 timed and a
-   profiled batch, each (n_layers / pp) x microbatches = 12 K2 launches
+   profiled batch, each (n_layers / pp) x microbatches = 6 K2 launches
    a rank, tokens equal on both ranks and to each prompt's lone run up
    to a near-tie, each rank's weight bytes `pp_hbm_report`'s
    per-member bytes, ms a batch, tokens/s, peak memory and the
@@ -389,24 +394,35 @@ script started); any failure exits non-zero:
     introducer, store root and timing edited into its JSON), `introducer
     --spec` and three `node` processes, H1, H2 and H3, whose REPLs this
     phase drives over stdin (each verb with its own time limit), all on
-    cuda, each with `--lm-spec` of the 198M LM (seed 0). Verbs on H1:
+    cuda, each with `--lm-spec` of the 198M LM (seed 0), and H3's group
+    follower: the spec's worker group `tp0` is H3 alone with a tp-2 mesh,
+    so H3 opens a group world at start (rank 0, gloo on the one card)
+    and a fourth process, `node --name H3 --follow 1`, joins it and runs
+    H3's device calls; H1 leads and H2 stands by, so every batch runs on
+    H3's group. Verbs on H1:
     `load-testfiles` (32 seeded JPEGs), `submit-job ResNet50 32` twice,
-    `get-output`, `ls-all`, `C2 ResNet50`, `put` of 4 prompt files (phase
-    12's first 4 requests), `submit-job LM198M 4`, `get-output`, `profile
+    `get-output`, `ls-all`, `C2 ResNet50`, `put` of 2 prompt files (phase
+    12's first 2 requests, budgets 128 and 32: cut from 4 in PR 20 to
+    pay for phase 23), `submit-job LM198M 2`, `get-output`, `profile
     metrics cluster` around each job, `models`, `predict-locally
     ResNet50` on 2 files, `C1`, `profile metrics`, `quit`; on all three,
     `profile trace start` before the first job and `profile trace stop`
-    after predict-locally; then SIGTERM to the others. Every process exits
-    0; no process builds a kernel library (the build phase's serve them
-    all). Each ResNet50 result (job and predict-locally) equals this
-    process's `InferenceEngine().infer_files` top-5 on the same files
-    (scores within 1e-6); the LM job's tokens equal a lone
-    `LMBackend.from_spec` serve up to a near-tie (TIE_MARGIN). The path's
-    launches are the K1, K2 and K4 kernels in the three processes'
-    torch.profiler traces, which must equal the formula from the
-    cluster's counters: K1 = the jobs' batches + 2 warm-up forwards a
-    process that loaded ResNet50 + predict-locally's chunk (and warm-up),
-    K2 = 12 x placement prefills, K4 = 12 x chunk x chunk steps. J1
+    after predict-locally (H3's traces both ranks of its world, rank r
+    under rank<r>); then SIGTERM to the nodes, and the follower leaves
+    when H3 closes its world. Every process exits 0 (the follower after
+    as many calls as H3 made, which H3 logs); no process builds a kernel
+    library (the build phase's serve them all). Each ResNet50 result
+    (job and predict-locally) equals this process's
+    `InferenceEngine().infer_files` top-5 on the same files (scores
+    within 1e-6), and each job row the one-rank group engine's (a
+    param_gather `ShardedInference` of the same seed) bit for bit; the
+    LM job's tokens equal a lone `LMBackend.from_spec` serve up to a
+    near-tie (TIE_MARGIN). The path's launches are the K1, K2 and K4
+    kernels in each process's (each rank's) torch.profiler trace, which
+    must equal the formula from the cluster's counters: on each of H3's
+    ranks K1 = the group's batches (one chunk each), K2 = 12 x placement
+    prefills, K4 = 12 x chunk x chunk steps; on H1 predict-locally's
+    chunk (and 2 warm-up forwards on loading ResNet50). J1
     images/s and LM tokens/s (both under the traces), C2's per-image
     time over the batches (one sample a batch), and each process's
     start-to-joined seconds (from its `joined` log line).
@@ -425,29 +441,44 @@ script started); any failure exits non-zero:
     at b32 and b128, `microbench("EfficientNetB4", 128)` (each unique
     conv shape slope-timed alone: the measured class bandwidths of
     `eff_bw`) and `concat_microbench("InceptionV3", 128)`. (d) K2 and K4
-    on float32 inputs at the arms' shapes against their plain versions
-    (2e-5), then `bench_specdec_arm` (8 prompts, 32 tokens, k 4) and
-    `bench_cb_arm` (6 waves of 2, 16 tokens) on the 198M LM in float32,
-    TF32 off, max_slots 4, max_len 128, chunk 8: `outputs_equal` (tokens
-    exactly `generate`'s) and the random draft auto-disabled
-    ("acceptance", tokens exact) must hold; speedup and both arms' TTFT
-    p99; K2 and K4 launches equal to the formula from the arms'
-    dispatches (12 a `generate` prefill and 12 x (n - 1) its decode
-    steps; the layers of target or draft a server placement prefill;
-    12 x chunk a chunk step; the draft's layers x k a proposal). (e)
+    on float32 inputs at the 198M LM's serving shapes (4 slots, max_len
+    128) against their plain versions (2e-5); the bench arms run in
+    phase 23. (e)
     Phase 15's two gloo ranks ran their bf16 causal ring and Ulysses
     forwards once more under `parallel.mesh.record_collectives()`, and
     `ring_vs_ulysses.point_on_mesh` (analyze_point's body) at [1, 8192,
     16, 64], sp 2, on the same mesh: the calls and bytes must be equal
     and be 1 shift of 2 x the activation (ring) and 2 all-to-alls of 4 x
     it (Ulysses). No process is spawned.
+23. rank_groups: K2 and K4 in float32 at the cluster LM bench's shapes
+    (D 96 and its draft's 48) against their plain versions (2e-5, not
+    counted), then `python -m dml_tpu_torch.jobs.groups` and `python -m
+    dml_tpu_torch.inference.lm_sharded` at their defaults (ResNet50 64x64
+    float32 batch 8, 64 queries over 16 files; ShardLM d 384, 4 layers,
+    float32, 16 prompts x 16 tokens), each process running its 5-node
+    cluster as rank 0 of its groups' world with one follower process it
+    starts (`node --follow 1`), run as `python -m` runs them with rank
+    0's kernel launches and dispatches written at exit. `equal_outputs`, every form's
+    token equality (gather, resident, pp, disaggregated), the handoff
+    ladder's, the chaos job's exactly-once tokens, and the spec-decode
+    and continuous-batching arms' checks (tokens exact, the random draft
+    auto-disabled) must hold, each world whole to its close, and rank 0
+    must have launched K1, K2 and K4, as many as the formula of its
+    dispatches gives (K1 one per engine forward and sharded chunk, K2 one
+    per layer of each prefill, K4 one per layer of each decode step;
+    counted in rank 0's process, those inside the world's calls apart):
+    rank 0 all of them, the follower, read from the line it prints when
+    its world closes, those inside the calls. q/s sharded against single-chip,
+    tokens/s per form, streamed against whole-slab TTFT, the worlds'
+    broadcast and call seconds.
 
 Then the card's name and power limit as nvidia-smi prints them, the
 kernels' summary line (K1's launches by path: serving, training,
-cluster, ingress, measure and, for ResNet50, parallel, groups and cli, and a row at
-the families' [32,224,224,3] tf shape with the families path; K2's and
-K4's: generate, train, lm_server, moe, seq_parallel, pipeline, cluster,
-ingress, families, groups, cli and measure, K2 timed at the LM's shapes and ViT-B16's; K3's
+cluster, ingress, measure and, for ResNet50, parallel, groups, cli and rank_groups,
+and a row at the families' [32,224,224,3] tf shape with the families path; K2's
+and K4's: generate, train, lm_server, moe, seq_parallel, pipeline, cluster,
+ingress, families, groups, cli, measure and rank_groups, K2 timed at the LM's
+shapes and ViT-B16's; K3's
 and the delta kernel's: train, moe, seq_parallel and families), and
 last `{"ok": true, "device": {...}}`.
 """
@@ -1117,6 +1148,12 @@ def phase_flash(timer):
         ("f32_t1000", 2, 1000, 1000, 8, 2, 64, True, f32),
         ("f32_cross", 2, 64, 192, 4, 4, 32, False, f32),
         ("f32_d16", 1, 130, 130, 2, 1, 16, True, f32),
+        # the cluster LM bench's ShardLM (d 384 over 4 heads, GQA-2, phase
+        # 23): its 4-row placement prefill at the 32 bucket, and a longer
+        # one; its draft's (d 192: D 48)
+        ("f32_d96_shardlm", 4, 32, 32, 4, 2, 96, True, f32),
+        ("f32_d96_t300", 2, 300, 300, 4, 2, 96, True, f32),
+        ("f32_d48_draft", 4, 64, 64, 4, 2, 48, True, f32),
     )
     timed = ("prefill_b8", "prefill_b1", "mha_b1", "vit_b16")
     timings = {}
@@ -1271,6 +1308,14 @@ DECODE_CASES = (  # name, b, kv, h, t, d, cache dtype, q dtype, positions (None:
     ("bf16q_f32_d128_mqa", 2, 1, 16, 1500, 128, F32, BF, None),
     ("f32q_bf16_d32", 4, 2, 8, 1000, 32, BF, F32, None),
     ("strided_q", 4, 4, 16, 1000, 64, BF, BF + "_strided", None),
+    # D 48 and 96: a row read by a power of two of lanes, those past D's
+    # slices idle; the cluster LM bench's ShardLM decode step (4 slots,
+    # GQA-2, max_len 128) and its draft's
+    ("f32_d96_shardlm", 4, 2, 4, 128, 96, F32, F32, None),
+    ("f32_d48_draft", 4, 2, 4, 128, 48, F32, F32, None),
+    ("bf16_d48", 4, 2, 8, 1000, 48, BF, BF, None),
+    ("bf16_d96_gqa4", 4, 4, 16, 2048, 96, BF, BF, None),
+    ("int8_d96", 4, 2, 8, 1000, 96, "int8", BF, None),
 )
 DECODE_TIMED = ("lm_b8", "gqa4_b8", "gqa4_b1", "mqa_b8", "mha_b1", "int8_gqa4_b8")
 
@@ -2109,6 +2154,9 @@ def phase_image_train():
 # bench.py's lm.mixed_budget_batching (bench.py:3373-3421): 32 requests of 12
 # prompt tokens, budgets drawn from 32..512, 8 slots, max_len 1024, chunk 32
 LMS_SLOTS, LMS_MAX_LEN, LMS_CHUNK = 8, 1024, 32
+#: phase 12's LM: the 198M LM's width, 6 of its 12 blocks (cut in PR 20,
+#: as phase 13's lm_moe8 in PR 14, to pay for phase 23)
+LMS_CFG = dict(LM_CFG, n_layers=6)
 # long prompts, so that K2 runs at real lengths: 16 requests of 256-2048 tokens
 LONG_REQS, LONG_BUDGET, LONG_MAX_LEN, LONG_CHUNK = 16, 64, 4096, 16
 # bf16 token checks: equal up to the first position where the lone run's top-1
@@ -2285,7 +2333,8 @@ def k4_live_check(srv, cfg):
 
 
 def phase_lm_server(timer):
-    """The continuous-batching LM server at full width and depth (phase 12)."""
+    """The continuous-batching LM server at full width, 6 of its 12 blocks
+    (phase 12)."""
     import dataclasses
 
     import torch
@@ -2299,12 +2348,12 @@ def phase_lm_server(timer):
     from dml_tpu_torch.models.params_io import variables_to_bytes
 
     t_phase = time.monotonic()
-    cfg = gen.LMConfig(**LM_CFG, dtype=torch.bfloat16)
+    cfg = gen.LMConfig(**LMS_CFG, dtype=torch.bfloat16)
     nl = cfg.n_layers
     p32 = init_lm_params(cfg, seed=0)  # device None -> cuda
     params = gen.serving_params(p32, cfg)
     reqs = mixed_requests(cfg.vocab_size)
-    out = {"config": dict(LM_CFG, dtype="bfloat16"), "slots": LMS_SLOTS,
+    out = {"config": dict(LMS_CFG, dtype="bfloat16"), "slots": LMS_SLOTS,
            "max_len": LMS_MAX_LEN, "chunk": LMS_CHUNK, "requests": len(reqs),
            "budgets": [b for _, b in reqs], "tie_margin": TIE_MARGIN}
 
@@ -2421,7 +2470,7 @@ def phase_lm_server(timer):
         spec_reqs = [(p, 64) for p, _ in reqs[:LMS_SLOTS]]
         plain32, _, plain_st = serve_stream(s32, spec_reqs)
         del s32
-        spec_lm = dict(LM_CFG, dtype="float32", seed=0)
+        spec_lm = dict(LMS_CFG, dtype="float32", seed=0)
         draft_spec = draft_lm_spec(spec_lm, n_layers=2)
         dparams, dcfg = lm_spec_parts(draft_spec, device="cuda")
         spec_out = {}
@@ -2551,7 +2600,7 @@ def phase_lm_server(timer):
         with open(wpath, "wb") as f:
             f.write(variables_to_bytes({"params": p32}))
         write_s = time.monotonic() - t0
-        spec = dict(LM_CFG, name="LM198M", dtype="bfloat16", max_new_tokens=32,
+        spec = dict(LMS_CFG, name="lm198m_6_blocks", dtype="bfloat16", max_new_tokens=32,
                     max_slots=LMS_SLOTS, max_len=LMS_MAX_LEN, chunk=LMS_CHUNK, weights=wpath)
         t0 = time.monotonic()
         be2 = LMBackend.from_spec(spec)  # device None -> cuda
@@ -3252,6 +3301,11 @@ def ring_k2(form, causal, r, sp=2):
     return r + 1 if causal else sp
 
 
+def lap(stages, name, t_start):
+    """A rank's seconds from its start to the end of stage `name`."""
+    stages[name] = time.monotonic() - t_start
+
+
 def _seq_parallel_rank(rank, world, tmp):
     """One of the two gloo ranks, both on cuda:0 (sp rank = rank). Writes
     its results to tmp/sp_rank<r>.pt; a failure exits non-zero."""
@@ -3265,6 +3319,7 @@ def _seq_parallel_rank(rank, world, tmp):
     from dml_tpu_torch.parallel.ulysses import ulysses_attention
     from dml_tpu_torch.tools import ring_vs_ulysses as rvu
 
+    t_start = time.monotonic()
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous_gloo",
                             world_size=world, rank=rank)
@@ -3272,7 +3327,7 @@ def _seq_parallel_rank(rank, world, tmp):
     ep_mesh = make_mesh(MeshSpec(dp=1, ep=2))
     dp_mesh = make_mesh(MeshSpec(dp=2))
     s = sp_mesh.coords["sp"]
-    res = {"attention": {}, "launches": {}}
+    res = {"attention": {}, "launches": {}, "stages_s": {"start": time.monotonic() - t_start}}
     forms = {"ring": ring_attention, "ulysses": ulysses_attention}
 
     # ---- 1. attention at long context, (dp 1, sp 2) ----
@@ -3342,6 +3397,7 @@ def _seq_parallel_rank(rank, world, tmp):
         del q, k, v, mine
     torch.cuda.empty_cache()
 
+    lap(res["stages_s"], "attention", t_start)
     # ---- 2. the LM at full width, (dp 1, sp 2): ring and Ulysses ----
     nl = LM_CFG["n_layers"]
     toks = torch_from_seed(5, (1, TRAIN_T), LM_CFG["vocab_size"])
@@ -3376,6 +3432,7 @@ def _seq_parallel_rank(rank, world, tmp):
         del lm
         torch.cuda.empty_cache()
 
+    lap(res["stages_s"], "lm", t_start)
     # ---- 3. lm_moe8 at (dp 1, ep 2) ----
     torch.cuda.reset_peak_memory_stats()
     lm = LongContextLM(ep_mesh, seq_len=TRAIN_T, dtype=torch.bfloat16, seed=0, **MOE, **LM_CFG)
@@ -3402,6 +3459,7 @@ def _seq_parallel_rank(rank, world, tmp):
     del lm
     torch.cuda.empty_cache()
 
+    lap(res["stages_s"], "moe", t_start)
     # ---- 4. the float32 narrow LM, TF32 off ----
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     ntoks = torch_from_seed(6, (SP_NARROW_B, SP_NARROW_T), SP_NARROW["vocab_size"])
@@ -3422,6 +3480,7 @@ def _seq_parallel_rank(rank, world, tmp):
             if rank == 0:
                 torch.save(state, os.path.join(tmp, "ck_dp2_lm_state.pt"))
         del nlm
+    lap(res["stages_s"], "narrow", t_start)
     torch.save(res, os.path.join(tmp, f"sp_rank{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()
@@ -3523,7 +3582,8 @@ def phase_seq_parallel():
         check(codes == [0, 0], f"gloo ranks exited {codes}")
         ranks = [torch.load(os.path.join(tmp, f"sp_rank{r}.pt"), weights_only=False)
                  for r in range(2)]
-        gloo = {"wall_s": time.monotonic() - t0, "attention": {}, "lm": {}}
+        gloo = {"wall_s": time.monotonic() - t0, "attention": {}, "lm": {},
+                "stages_s": [r["stages_s"] for r in ranks]}
         for key in ranks[0]["attention"]:
             rows = [r["attention"][key] for r in ranks]
             if key.startswith("forward_ms"):
@@ -3620,10 +3680,13 @@ def phase_seq_parallel():
 # holds its longest prompt (2048) and budget (64)
 LM_SPEC = dict(LM_CFG, name="lm198m", dtype="bfloat16", seed=0, max_new_tokens=64,
                max_slots=LMS_SLOTS, max_len=LMS_MAX_LEN, chunk=LMS_CHUNK)
+#: phase 16's LM: the 198M LM's width, 6 of its 12 blocks (cut in PR 20,
+#: as phase 13's lm_moe8 in PR 14, to pay for phase 23)
+PIPE_LM_SPEC = dict(LM_SPEC, name="lm198m_6_blocks", n_layers=6)
 PIPE_MICRO, PIPE_TIMED = 2, 2  # microbatches, timed batches
 PIPE_LENS = (256, 2048)  # prompt lengths: the least, and the most (the first prompt's)
 PIPE_BUDGETS = [64, 16, 48, 32, 64, 8, 40, 24]  # one per prompt
-PIPE_SPEC = dict(LM_SPEC, max_len=PIPE_LENS[1] + max(PIPE_BUDGETS))
+PIPE_SPEC = dict(PIPE_LM_SPEC, max_len=PIPE_LENS[1] + max(PIPE_BUDGETS))
 # the served requests: phase 12's mixed-budget stream cut to its first 8
 # (world 1) and 4 (tp 2) requests, budgets capped at 64 (its 128 and 256
 # cut): every collective of the resident form goes through the host under
@@ -3688,16 +3751,17 @@ def _pipeline_rank(rank, world, tmp):
     from dml_tpu_torch.inference.lm_sharded import PipelinedLMBackend, sharded_lm_backend
     from dml_tpu_torch.parallel.mesh import make_mesh
 
+    t_start = time.monotonic()
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous_gloo",
                             world_size=world, rank=rank)
     pp_mesh = make_mesh(MeshSpec(dp=1, pp=2))
     tp_mesh = make_mesh(MeshSpec(dp=1, tp=2))
     refs = torch.load(os.path.join(tmp, "pipe_refs.pt"), weights_only=False)
-    res = {"launches": {}}
+    res = {"launches": {}, "stages_s": {"start": time.monotonic() - t_start}}
     reset_launch_counts()
 
-    # ---- pp 2: the 198M LM, 6 blocks a stage ----
+    # ---- pp 2: the LM, 3 blocks a stage ----
     torch.cuda.reset_peak_memory_stats()
     be = PipelinedLMBackend(PIPE_SPEC, pp_mesh, microbatches=PIPE_MICRO)
     prompts, budgets = refs["pipe_prompts"], refs["pipe_budgets"]
@@ -3723,13 +3787,14 @@ def _pipeline_rank(rank, world, tmp):
                  "collectives": prof}
     del be
     torch.cuda.empty_cache()
+    lap(res["stages_s"], "pp", t_start)
 
     # ---- tp 2: both forms over the first TP_REQS requests of the stream ----
     reqs = refs["tp_reqs"]
     res["tp"] = {}
     for form in ("resident", "gather"):
         torch.cuda.reset_peak_memory_stats()
-        be = sharded_lm_backend(LM_SPEC, tp_mesh, form=form)
+        be = sharded_lm_backend(PIPE_LM_SPEC, tp_mesh, form=form)
         (toks, d, stats), moved = _counted(lambda: serve_stream(be.server, reqs))
         short = [(p, LMS_CHUNK) for p, _ in reqs[:2]]  # one placement group, one chunk step
         prof_box = {}
@@ -3748,6 +3813,7 @@ def _pipeline_rank(rank, world, tmp):
         del be
         torch.cuda.empty_cache()
 
+    lap(res["stages_s"], "tp", t_start)
     # ---- the float32 narrow dense LM at pp 2 and tp 2, TF32 off ----
     nreqs = refs["narrow_reqs"]
     with tf32_off():
@@ -3764,6 +3830,7 @@ def _pipeline_rank(rank, world, tmp):
                                    "moved": moved}
             del be
     res["launches"] = launch_counts()
+    lap(res["stages_s"], "narrow", t_start)
     torch.save(res, os.path.join(tmp, f"pipe_rank{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()
@@ -3791,14 +3858,14 @@ def phase_pipeline():
     tmp = tempfile.mkdtemp(prefix="chip_smoke_pipeline_")
     torch.cuda.set_device(0)
     # the host tree the sharded forms start from (built once), on the card
-    host, cfg = lm_spec_parts_cached(LM_SPEC, device="cpu")
+    host, cfg = lm_spec_parts_cached(PIPE_LM_SPEC, device="cpu")
     params = tree_cuda(host)
     nl = cfg.n_layers
     reqs = [(p, min(b, SERVE_CAP)) for p, b in mixed_requests(cfg.vocab_size)[:LMS_SLOTS]]
     prompts, budgets = [p for p, _ in reqs], [b for _, b in reqs]
     out = {"note": "world 1: NCCL, tp 1 (every leaf whole, no collective); two ranks: both on "
                    "the one card (cuda:0), gloo, every collective staged through the host",
-           "config": dict(LM_CFG, dtype="bfloat16"), "tie_margin": TIE_MARGIN}
+           "config": dict(LM_CFG, n_layers=nl, dtype="bfloat16"), "tie_margin": TIE_MARGIN}
 
     # ---- not counted: the references ----
     # K2 on GQA's kv head h // G (what the pipeline's stages launch)
@@ -3848,7 +3915,7 @@ def phase_pipeline():
         reset_launch_counts()
         w1 = {}
         for form in ("resident", "gather"):
-            be = sharded_lm_backend(LM_SPEC, mesh, form=form)
+            be = sharded_lm_backend(PIPE_LM_SPEC, mesh, form=form)
             (toks, d, stats), moved = _counted(lambda: serve_stream(be.server, reqs))
             check_server_launches(f"world-1 {form}", moved, d, nl, LMS_CHUNK)
             check(all(np.array_equal(a, b) for a, b in zip(toks, ref_toks)),
@@ -3932,7 +3999,7 @@ def phase_pipeline():
         check(codes == [0, 0], f"gloo ranks exited {codes}")
         ranks = [torch.load(os.path.join(tmp, f"pipe_rank{r}.pt"), weights_only=False)
                  for r in range(2)]
-        gloo = {"wall_s": time.monotonic() - t0}
+        gloo = {"wall_s": time.monotonic() - t0, "stages_s": [r["stages_s"] for r in ranks]}
         # pp 2
         rows = [r["pp"] for r in ranks]
         rep = pp_hbm_report(PIPE_SPEC, 2)
@@ -5160,8 +5227,17 @@ def phase_groups(timer):
 # ---------------------------------------------------------------------------
 
 CLI_NODES, CLI_FILES, CLI_QUERIES = 3, 32, 32
-CLI_LM_PROMPTS = 4  # the first 4 requests of phase 12's mixed-budget stream
+#: the first 2 requests of phase 12's mixed-budget stream (4 chunk steps
+#: over two ranks through the host; 4 requests took 8 and 30 s)
+CLI_LM_PROMPTS = 2
 CLI_LM_SPEC = dict(LM_SPEC, name="LM198M")
+#: H3's worker group (the operator's spec edit): its mesh takes two ranks,
+#: H3 (rank 0 of the group world) and a follower process (`--follow 1`);
+#: H1 leads and H2 stands by, so H3's group serves every batch
+CLI_GROUP = {"name": "tp0", "members": ["H3"],
+             "mesh": {"dp": 1, "tp": 2, "sp": 1, "pp": 1, "ep": 1},
+             "lm_models": [CLI_LM_SPEC["name"]], "roles": {}, "hbm_bytes": 0}
+CLI_FOLLOWER = "H3 rank 1"
 # a node's `profile trace start` and `stop` hold its event loop for
 # seconds (torch.profiler's start, the trace's export): a peer suspects
 # it then, and the cleanup time keeps a suspect from being declared dead
@@ -5256,7 +5332,9 @@ def _cluster_counters(repl):
                                             0.0),
             "prefill": s["histograms"].get("lm_server_prefill_dispatch_seconds",
                                            {}).get("count", 0),
-            "steps": s["counters"].get("lm_server_steps_total", 0.0)}
+            "steps": s["counters"].get("lm_server_steps_total", 0.0),
+            "group_batches": s["counters"].get(
+                f"jobs_group_batches_total{{group={CLI_GROUP['name']}}}", 0.0)}
 
 
 def _trace_kernels(logdir):
@@ -5279,9 +5357,10 @@ def _trace_kernels(logdir):
 
 def _drive_cli(tmp, out):
     """The introducer and CLI_NODES node processes on probed ports, each
-    node's REPL over a pipe: H1's drives the verbs, every node traces its
-    device from the first job to the last kernel. Returns the merged
-    outputs, the files and the launches read from the traces."""
+    node's REPL over a pipe, and H3's group follower (`node --follow 1`):
+    H1's REPL drives the verbs, every node traces its device from the
+    first job to the last kernel (H3 its world's two ranks). Returns the
+    merged outputs, the files and the launches read from the traces."""
     import re
     import signal
 
@@ -5300,6 +5379,7 @@ def _drive_cli(tmp, out):
     raw["introducer"]["port"] = base - 1
     raw["store"].update(root=os.path.join(tmp, "roots"), download_dir=os.path.join(tmp, "dl"))
     raw["timing"].update(CLI_TIMING)
+    raw["worker_groups"] = [CLI_GROUP]
     with open(spec_path, "w") as f:
         json.dump(raw, f, indent=2)
     with open(spec_path) as f:
@@ -5339,6 +5419,9 @@ def _drive_cli(tmp, out):
         for n in spec.nodes:
             start(n.name, *node, "--name", n.name, stdin=subprocess.PIPE, stdout=subprocess.PIPE)
             repls[n.name] = ReplPipe(procs[n.name][0], n.name)
+        # H3 opens its group world at start and waits for this rank
+        start(CLI_FOLLOWER.replace(" ", "_"), "node", "--spec", spec_path, "--name", "H3",
+              "--follow", "1")
         repl = repls["H1"]
         try:
             def on_all(cmd, timeout=CLI_REPLY_S):
@@ -5403,6 +5486,7 @@ def _drive_cli(tmp, out):
             c0 = _cluster_counters(repl)
             jobs = {k: job("ResNet50", CLI_QUERIES, CLI_FILES) for k in ("cold", "warm")}
             c1 = _cluster_counters(repl)
+            group_batches = int(c1["group_batches"] - c0["group_batches"])
             # output_<job>_<batch>_<port>.json: the worker processes that ran the batches
             name_of = {str(n.port): n.name for n in spec.nodes}
             hosts = sorted({name_of[ln.split("_", 3)[3].split(".json")[0]]
@@ -5445,7 +5529,10 @@ def _drive_cli(tmp, out):
             local = repl.run(f"predict-locally ResNet50 {files[0]} {files[1]}")
             trace_s["stop"] = on_all("profile trace stop", 300)
             out["trace_s"] = trace_s
-            traced = {k: _trace_kernels(logdirs[k]) for k in repls}
+            # H3 traced both ranks of its world (rank r under rank<r>)
+            traced = {k: _trace_kernels(logdirs[k]) for k in repls if k != "H3"}
+            traced["H3"] = _trace_kernels(os.path.join(logdirs["H3"], "rank0"))
+            traced[CLI_FOLLOWER] = _trace_kernels(os.path.join(logdirs["H3"], "rank1"))
             after = repl.run("models")
             c1_lines = repl.run("C1")
             check(repl.json("profile metrics")["counters"], "no counters in the REPL node's registry")
@@ -5461,15 +5548,30 @@ def _drive_cli(tmp, out):
         except BaseException as e:
             raise AssertionError(f"{e}\n{fail_info()}") from e
         codes = {"H1": procs["H1"][0].wait(timeout=120)}
+        # the follower leaves when H3 closes its world on stop
+        follower = CLI_FOLLOWER.replace(" ", "_")
         for name, (p, _) in procs.items():
-            if name != "H1":
+            if name not in ("H1", follower):
                 p.send_signal(signal.SIGTERM)
         for name, (p, _) in procs.items():
-            if name not in ("H1", "DNS"):
+            if name not in ("H1", "DNS", follower):
                 p.stdin.close()
         for name, (p, _) in procs.items():
             codes[name] = p.wait(timeout=120)
         check(all(c == 0 for c in codes.values()), f"exit codes {codes}\n{fail_info()}")
+        with open(os.path.join(tmp, follower + ".err"), errors="replace") as f:
+            said = f.read()
+        with open(os.path.join(tmp, follower + ".log"), errors="replace") as f:
+            up = re.search(r"rank 1 of 2 \((\w+), ([\w:]+)\)", f.read())
+        with open(os.path.join(tmp, "H3.log"), errors="replace") as f:
+            stats = re.search(r"group world closing: (\{.*\})", f.read())
+        calls = re.search(r"world closed after (\d+) calls", said)
+        check(up and calls and stats, f"the follower's log: {said[-2000:]}")
+        out["group_world"] = {"group": CLI_GROUP, "ranks": 2, "backend": up.group(1),
+                              "follower_device": up.group(2), "follower_calls": int(calls.group(1)),
+                              "primary_stats": json.loads(stats.group(1))}
+        check(out["group_world"]["primary_stats"]["calls"] == int(calls.group(1)),
+              f"the primary made {stats.group(1)}, the follower ran {calls.group(1)} calls")
         out["exit_codes"] = codes
         stages["stop"] = time.monotonic() - t
         out["stages_s"] = stages
@@ -5478,24 +5580,31 @@ def _drive_cli(tmp, out):
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    # the launches are the kernels in the three node processes' traces;
-    # the formula holds them: a ResNet50 batch (at most the engine's 32)
-    # is one engine chunk, each process that loads ResNet50 warms it up
-    # with 2 forwards, predict-locally is one more (after a load, if the
-    # REPL node had not served ResNet50); an LM placement prefill is 12
-    # K2, a chunk step 12 x chunk K4
+    # the launches are the kernels in the node processes' traces, H3's
+    # world's two ranks apart; the formula holds them: every ResNet50
+    # batch (at most the group engine's 32) runs on H3's group, one chunk
+    # on each rank, and H3 never loads ResNet50 into its own engine;
+    # predict-locally is one chunk on the REPL node (after a load and its
+    # 2 warm-up forwards, if it had not served ResNet50); an LM placement
+    # prefill is 12 K2, a chunk step 12 x chunk K4, on each rank
     launches = {k: sum(t[k] for t in traced.values()) for k in CLI_TRACE_KERNELS}
     resident = any(ln.startswith("ResNet50:") for ln in before)
     n_layers = CLI_LM_SPEC["n_layers"]
-    formula = {"normalize": batches + 2 * len(hosts) + 1 + (0 if resident else 2),
-               "flash_attention": n_layers * d["prefill"],
-               "decode_attention": n_layers * CLI_LM_SPEC["chunk"] * d["steps"]}
+    per_rank = {"normalize": batches, "flash_attention": n_layers * d["prefill"],
+                "decode_attention": n_layers * CLI_LM_SPEC["chunk"] * d["steps"]}
+    formula = {"H1": {"normalize": 1 + (0 if resident else 2), "flash_attention": 0,
+                      "decode_attention": 0},
+               "H2": {k: 0 for k in CLI_TRACE_KERNELS},
+               "H3": per_rank, CLI_FOLLOWER: per_rank}
     out["launches"] = {"traced": launches, "by_process": traced, "formula": formula,
-                       "repl_node_resnet50_resident_before": resident}
-    check(launches == formula, f"the node processes' traces hold {launches} kernels "
-                               f"({traced}); the counters give {formula}")
-    check(batches >= 1 and d["prefill"] >= 1 and d["steps"] >= 1,
-          f"counters moved by {batches} batches, {d}")
+                       "repl_node_resnet50_resident_before": resident,
+                       "group_batches": group_batches}
+    check(traced == formula, f"the node processes' traces hold {traced} kernels; the "
+                             f"counters give {formula}")
+    check(batches >= 1 and group_batches == batches and hosts == ["H3"]
+          and d["prefill"] >= 1 and d["steps"] >= 1,
+          f"counters moved by {batches} batches ({group_batches} on the group, on {hosts}), "
+          f"{d}")
     out["c1"] = c1_lines
     return merged, lm_merged, files, lm_files, local_json, launches
 
@@ -5556,6 +5665,24 @@ def phase_cli():
             "max_abs_score_diff": worst, "bar": 1e-6, "checked": len(pairs),
             "distinct_top1": len({rows[0]["wnid"] for rows in merged[0].values()})}
         del eng
+        # the two-rank group's rows against the one-rank group engine's
+        # (a param_gather ShardedInference of the same seed on this card):
+        # bit for bit
+        from dml_tpu_torch.jobs.groups import _sharded_run
+        from dml_tpu_torch.parallel.inference import ShardedInference
+
+        si = ShardedInference("ResNet50", None, batch_size=BATCH, seed=0)
+        check(si.device.type == "cuda", f"one-rank engine on {si.device}")
+        rows, _ = _sharded_run(si, files, si.spec.input_size)
+        one_rank = {os.path.basename(k): v for k, v in rows.items()}
+        unequal = sorted({f for m in merged for f, v in m.items() if v != one_rank[f]})
+        worst_one = max(abs(a["score"] - b["score"]) for m in merged for f, v in m.items()
+                        for a, b in zip(v, one_rank[f]))
+        check(not unequal, f"two-rank group rows differ from the one-rank engine's on "
+                           f"{unequal} (max {worst_one})")
+        out["image"]["vs_one_rank_group_engine"] = {"bit_equal": True, "checked": sum(
+            len(m) for m in merged), "max_abs_score_diff": worst_one}
+        del si
         # the LM job against a lone serve of the same prompt files
         be = LMBackend.from_spec(CLI_LM_SPEC)
         try:
@@ -5602,7 +5729,6 @@ ROOFLINE_MODELS = ("ResNet50", "InceptionV3", "EfficientNetB4")
 #: the 198M LM in float32 so that the arms hold tokens to generate exactly
 MEASURE_LM_SPEC = dict(LM_CFG, name="LM198M", dtype="float32", seed=0, max_slots=4,
                        max_len=128, chunk=8)
-SPECDEC_NEW, CB_NEW = 32, 16
 
 
 def _measure_models(smi):
@@ -5655,68 +5781,9 @@ def _measure_models(smi):
     return rows, k1, k1_want
 
 
-def _measure_arms():
-    """(d): the two one-device bench arms on the 198M LM in float32, TF32
-    off, with K2 and K4 counted and held to the formula from the arms' own
-    dispatches (generate's prefills and decode steps, the server's
-    placement prefills (target and draft), chunk steps and draft
-    proposals)."""
-    import torch
-    from dml_tpu_torch.inference import lm_sharded
-    from dml_tpu_torch.inference.lm_backend import lm_spec_parts
-    from dml_tpu_torch.inference.lm_server import LMServer
-
-    want = {"flash_attention": 0, "decode_attention": 0}
-    orig = {"generate": lm_sharded.generate, "_prefill": LMServer._prefill,
-            "_chunk_impl": LMServer._chunk_impl, "_propose_impl": LMServer._propose_impl}
-
-    def generate(params, cfg, prompt, n, *a, **kw):
-        want["flash_attention"] += cfg.n_layers
-        want["decode_attention"] += cfg.n_layers * (n - 1)
-        return orig["generate"](params, cfg, prompt, n, *a, **kw)
-
-    def prefill(self, params, cfg, *a, **kw):
-        want["flash_attention"] += cfg.n_layers
-        return orig["_prefill"](self, params, cfg, *a, **kw)
-
-    def chunk(self, *a, **kw):
-        want["decode_attention"] += self.cfg.n_layers * self.chunk
-        return orig["_chunk_impl"](self, *a, **kw)
-
-    def propose(self, *a, **kw):
-        want["decode_attention"] += self._spec.draft_cfg.n_layers * self._spec.k
-        return orig["_propose_impl"](self, *a, **kw)
-
-    with tf32_off():
-        params, cfg = lm_spec_parts(MEASURE_LM_SPEC)
-        lm_sharded.generate = generate
-        LMServer._prefill, LMServer._chunk_impl, LMServer._propose_impl = prefill, chunk, propose
-        try:
-            reset_launch_counts()
-            spec = lm_sharded.bench_specdec_arm(params, cfg, MEASURE_LM_SPEC,
-                                                new_tokens=SPECDEC_NEW)
-            cb = lm_sharded.bench_cb_arm(params, cfg, MEASURE_LM_SPEC, new_tokens=CB_NEW)
-            torch.cuda.synchronize()
-            got = launch_counts()
-        finally:
-            lm_sharded.generate = orig["generate"]
-            LMServer._prefill, LMServer._chunk_impl = orig["_prefill"], orig["_chunk_impl"]
-            LMServer._propose_impl = orig["_propose_impl"]
-    del params
-    torch.cuda.empty_cache()
-    check(got == _kernels(want["flash_attention"], k4=want["decode_attention"]),
-          f"measure arms: launched {got}, the arms' dispatches give {want}")
-    check(spec["outputs_equal"], f"specdec arm: tokens differ from generate: {spec}")
-    auto = spec["auto_disable"]
-    check(auto["disabled"] and auto["reason"] == "acceptance" and auto["outputs_equal"],
-          f"specdec arm: the random draft was not auto-disabled with exact tokens: {auto}")
-    check(cb["outputs_equal"], f"cb arm: tokens differ from generate: {cb}")
-    return spec, cb, got
-
-
 def _measure_kernel_checks():
-    """Not counted: K2 and K4 on float32 inputs at the arms' shapes (a
-    placement prefill of 4 rows at the 32-token bucket, GQA-4; a decode
+    """Not counted: K2 and K4 on float32 inputs at the 198M LM's float32
+    serving shapes (a placement prefill of 4 rows at the 32-token bucket, GQA-4; a decode
     step over the 4-slot, 128-row cache at mixed positions) against their
     plain versions, within the bars of phases 6-7 (2e-5)."""
     import torch
@@ -5792,17 +5859,209 @@ def phase_measure(smi):
     out["microbench"] = conv_roofline.microbench("EfficientNetB4", 128)
     out["concat_microbench"] = conv_roofline.concat_microbench("InceptionV3", 128)
     torch.cuda.empty_cache()
-    # (d) the bench arms, their kernels first held to the plain versions
+    # (d) K2 and K4 at the bench arms' float32 shapes against their plain
+    # versions (phase 23 runs the arms, inside bench_lm_sharded_serving)
     out["kernel_checks"] = _measure_kernel_checks()
-    spec, cb, arms = _measure_arms()
-    out["specdec"], out["cb"] = spec, cb
     # (e) the collective footprint of phase 15's calls
     out["footprint"] = _measure_footprint()
-    out["launches"] = {"normalize": k1, "normalize_want": k1_want, "arms": arms}
+    out["launches"] = {"normalize": k1, "normalize_want": k1_want}
     out["phase_s"] = time.monotonic() - t_phase
     emit(phase="measure", **out)
-    return {"normalize": k1, "flash_attention": arms["flash_attention"],
-            "decode_attention": arms["decode_attention"]}
+    return {"normalize": k1, "flash_attention": 0, "decode_attention": 0}
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the cluster benches on group worlds, at their defaults
+# ---------------------------------------------------------------------------
+
+#: (section, module): each run as `python -m <module>` runs it, on cuda
+RANK_BENCHES = (("image", "dml_tpu_torch.jobs.groups"),
+                ("lm", "dml_tpu_torch.inference.lm_sharded"))
+RANK_BENCH_S = 600  # each bench process's own limit
+RANK_KERNELS = ("normalize", "flash_attention", "decode_attention")
+#: runs a bench module as `python -m` does, with the formula's count of
+#: its dispatches, then writes rank 0's kernel launches and that count:
+#: K1 one per engine forward and per sharded chunk, K2 one per layer of
+#: each prefill (`generate.prefill`; a pipeline stage's, per microbatch),
+#: K4 one per layer of each decode step (`generate.batched_decode_step`,
+#: which `decode_step` and `generate` run). The dispatches inside the
+#: group world's calls are counted apart too: every follower rank runs
+#: exactly those (each pp stage holds n_layers / 2 blocks)
+RANK_BENCH_WRAP = """
+import atexit, json, runpy, sys, threading
+
+counts, module = sys.argv[1], sys.argv[2]
+
+import dml_tpu_torch.inference.generate as gen
+from dml_tpu_torch.inference.engine import InferenceEngine
+from dml_tpu_torch.inference.lm_sharded import PipelinedLMBackend
+from dml_tpu_torch.ops import decode_attention, flash_attention, preprocess
+from dml_tpu_torch.parallel import group_world
+from dml_tpu_torch.parallel.inference import ShardedInference
+
+KERNELS = ("normalize", "flash_attention", "decode_attention")
+want = {"all": dict.fromkeys(KERNELS, 0), "world": dict.fromkeys(KERNELS, 0)}
+lock = threading.Lock()
+
+
+def counted(fn, kernel, per):
+    def wrapper(*a, **kw):
+        w = group_world.current()
+        with lock:
+            for part in ("all", "world") if w is not None and w._inside() else ("all",):
+                want[part][kernel] += per(*a, **kw)
+        return fn(*a, **kw)
+
+    return wrapper
+
+
+funcs = {"prefill": counted(gen.prefill, "flash_attention", lambda p, cfg, *a, **kw: cfg.n_layers),
+         "batched_decode_step": counted(gen.batched_decode_step, "decode_attention",
+                                        lambda p, cfg, *a, **kw: cfg.n_layers)}
+orig = {name: getattr(gen, name) for name in funcs}
+for mod in [m for k, m in list(sys.modules.items()) if k.startswith("dml_tpu_torch")]:
+    for name, fn in funcs.items():
+        if getattr(mod, name, None) is orig[name]:
+            setattr(mod, name, fn)
+PipelinedLMBackend._prefill = counted(PipelinedLMBackend._prefill, "flash_attention",
+                                      lambda self, prompts_m, *a, **kw: self.l_per * prompts_m.shape[0])
+ShardedInference._forward = counted(ShardedInference._forward, "normalize", lambda *a, **kw: 1)
+InferenceEngine._forward = counted(InferenceEngine._forward, "normalize", lambda *a, **kw: 1)
+
+
+def dump():
+    with open(counts, "w") as f:
+        json.dump({"launches": {"normalize": preprocess.normalize_launches,
+                                "flash_attention": flash_attention.flash_launches,
+                                "decode_attention": decode_attention.decode_launches},
+                   "want": want}, f)
+
+
+atexit.register(dump)
+sys.argv = [module] + sys.argv[3:]
+runpy.run_module(module, run_name="__main__", alter_sys=True)
+"""
+
+
+def _follower_launches(bench_tmp):
+    """The follower rank's kernel launches, from the line it prints when
+    its world closes (`node --follow`)."""
+    import re
+
+    path = os.path.join(bench_tmp, "world", "follower_1.log")
+    text = _tail(path, 50)
+    m = re.search(r"world closed after (\d+) calls; kernel launches (\{.*\})", text)
+    check(m, f"the follower's log {path}: {text[-2000:]}")
+    return int(m.group(1)), json.loads(m.group(2))
+
+
+def _rank_kernel_checks():
+    """Not counted: K2 and K4 in float32 at the cluster LM bench's shapes
+    (ShardLM: d 384 over 4 heads, D 96, GQA-2; its draft: d 192, D 48) --
+    a 4-row placement prefill at the 32 bucket and a decode step over the
+    4-slot, 128-row cache at mixed positions -- against their plain
+    versions, within phase 22's 2e-5."""
+    import torch
+    from dml_tpu_torch.ops.decode_attention import decode_attention, decode_attention_plain
+    from dml_tpu_torch.ops.flash_attention import attention_with_lse, flash_attention_lse
+
+    g = torch.Generator(device="cuda").manual_seed(24)
+    slots, t, heads, kv = 4, 128, 4, 2
+    errs = {}
+    for d in (96, 48):
+        q = torch.randn(slots, 32, heads, d, generator=g, device="cuda")
+        k, v = (torch.randn(slots, 32, kv, d, generator=g, device="cuda") for _ in range(2))
+        out, lse = flash_attention_lse(q, k, v, causal=True)
+        p_out, p_lse = attention_with_lse(q, k, v, causal=True)
+        q1 = torch.randn(slots, 1, heads, d, generator=g, device="cuda")
+        ck, cv = (torch.randn(slots, kv, t, d, generator=g, device="cuda") for _ in range(2))
+        pos = torch.tensor([5, 40, 77, t - 1], dtype=torch.int32, device="cuda")
+        k4 = decode_attention(q1, ck, cv, pos) - decode_attention_plain(q1, ck, cv, pos)
+        torch.cuda.synchronize()
+        errs[f"flash_fwd_f32_d{d}_max_abs_err"] = max(float((out - p_out).abs().max()),
+                                                      float((lse - p_lse).abs().max()))
+        errs[f"decode_f32_d{d}_max_abs_err"] = float(k4.abs().max())
+    check(max(errs.values()) <= 2e-5, f"rank groups: K2/K4 from the plain versions: {errs}")
+    return dict(errs, bar=2e-5)
+
+
+def phase_rank_groups(smi):
+    """Phase 23: `bench_sharded_serving` and `bench_lm_sharded_serving` at
+    their defaults, each a process that runs its 5-node cluster and is
+    rank 0 of its groups' world, with one follower rank it starts
+    (`node --follow 1`): the sections' equality and token flags (the
+    spec-decode and continuous-batching arms' too, which phase 22 no
+    longer runs), the world's stats, and each rank's K1, K2 and K4
+    launches held to the formula of its dispatches (RANK_BENCH_WRAP):
+    rank 0's all of its process's, the follower's those inside the
+    world's calls. Returns the launches, both ranks summed."""
+    t_phase = time.monotonic()
+    out = {"card": smi, "kernel_checks": _rank_kernel_checks()}
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        wrap = os.path.join(tmp, "wrap.py")
+        with open(wrap, "w") as f:
+            f.write(RANK_BENCH_WRAP)
+        for name, module in RANK_BENCHES:
+            t = time.monotonic()
+            base = free_port_block(8)
+            counts, stats = os.path.join(tmp, f"{name}_counts.json"), os.path.join(
+                tmp, f"{name}_world.json")
+            bench_tmp = os.path.join(tmp, name)
+            run = subprocess.run(
+                [sys.executable, wrap, counts, module, "--base-port", str(base),
+                 "--tmp", bench_tmp, "--world-stats", stats],
+                cwd=tmp, env=_cli_env(), capture_output=True, text=True, timeout=RANK_BENCH_S)
+            check(run.returncode == 0, f"{module}: rc {run.returncode}\n{run.stderr[-3000:]}")
+            section = json.loads(run.stdout.strip().splitlines()[-1])
+            with open(counts) as f:
+                counted = json.load(f)
+            with open(stats) as f:
+                world = json.load(f)
+            calls, rank1 = _follower_launches(bench_tmp)
+            check((world["size"], world["broken"]) == (2, None) and world["calls"] > 0
+                  and calls == world["calls"],
+                  f"{module}: its group world {world}, the follower ran {calls} calls")
+            launches[name] = {"rank0": counted["launches"], "rank1": rank1}
+            formula = {"rank0": counted["want"]["all"], "rank1": counted["want"]["world"]}
+            check(launches[name] == formula,
+                  f"{module}: the ranks launched {launches[name]}; their dispatches give {formula}")
+            out[name] = {"section": section, "world": world, "follower_calls": calls,
+                         "launches": launches[name], "formula": formula,
+                         "process_s": time.monotonic() - t}
+    img, lm = out["image"]["section"], out["lm"]["section"]
+    check(img["equal_outputs"] is True and img["outputs_compared"] > 0,
+          f"bench_sharded_serving: outputs differ from single-chip: {img}")
+    check(img["groups"]["tp0"]["formed"], f"bench_sharded_serving: tp0 {img['groups']}")
+    check(lm["tokens_equal_single_chip"] is True
+          and all(m["outputs_equal"] for m in lm["modes"].values()),
+          f"bench_lm_sharded_serving: tokens differ from generate: {lm['modes']}")
+    check(not any("error" in lm["handoff"][f] for f in ("slab_f1", "stream_f1", "stream_f2")),
+          f"bench_lm_sharded_serving: a handoff trial's outputs diverged: {lm['handoff']}")
+    chaos = lm["chaos"]
+    check(chaos["completed"] and chaos["exactly_once_tokens"],
+          f"bench_lm_sharded_serving: the chaos job: {chaos}")
+    spec, cb = lm["specdec"], lm["cb"]
+    check(spec["outputs_equal"], f"specdec arm: tokens differ from generate: {spec}")
+    auto = spec["auto_disable"]
+    check(auto["disabled"] and auto["reason"] == "acceptance" and auto["outputs_equal"],
+          f"specdec arm: the random draft was not auto-disabled with exact tokens: {auto}")
+    check(cb["outputs_equal"], f"cb arm: tokens differ from generate: {cb}")
+    check(all(launches["image"][r]["normalize"] > 0 and launches["lm"][r]["flash_attention"] > 0
+              and launches["lm"][r]["decode_attention"] > 0 for r in ("rank0", "rank1")),
+          f"the benches' ranks launched {launches}")
+    out["summary"] = {
+        "card": smi, "backend": out["image"]["world"]["backend"],
+        "image_qps_sharded": img["qps_sharded"], "image_qps_single_chip": img["qps_single_chip"],
+        "lm_tok_s": {k: lm[f"tok_s_{k}"] for k in ("param_gather", "resident", "pp", "disagg",
+                                                   "single_chip")},
+        "ttft_stream_ms": lm["ttft_stream_ms"], "ttft_slab_ms": lm["handoff"].get("ttft_slab_ms"),
+        "stream_vs_slab_ttft": lm["stream_vs_slab_ttft"],
+        "specdec_speedup": lm["lm_specdec_speedup"], "cb_ttft_p99_ms": lm["lm_cb_ttft_ms"]}
+    out["phase_s"] = time.monotonic() - t_phase
+    emit(phase="rank_groups", **out)
+    return {k: sum(launches[b][r][k] for b in launches for r in ("rank0", "rank1"))
+            for k in RANK_KERNELS}
 
 
 def main() -> int:
@@ -5869,6 +6128,11 @@ def main() -> int:
         phase_cli()
         print(smi, flush=True)
         return 0
+    if "--rank-groups" in sys.argv[1:]:  # after a group-world edit: build, phases 21, 23
+        phase_cli()
+        phase_rank_groups(smi)
+        print(smi, flush=True)
+        return 0
     timings = phase_kernel(timer)
     if kernel_only:  # a short call after a K1 edit: build, check, time, stop
         print(smi, flush=True)
@@ -5891,6 +6155,7 @@ def main() -> int:
     groups_launches = phase_groups(timer)
     cli_launches = phase_cli()
     measure_launches = phase_measure(smi)
+    rank_launches = phase_rank_groups(smi)
 
     kernels = []
     for model, mode in MODELS:
@@ -5904,6 +6169,8 @@ def main() -> int:
         by_path["cluster"] = cluster_launches["normalize"].get(model, 0)
         by_path["ingress"] = ingress_launches["normalize"].get(model, 0)
         by_path["measure"] = measure_launches["normalize"][model]
+        if model == "ResNet50":
+            by_path["rank_groups"] = rank_launches["normalize"]
         kernels.append(dict(
             name=f"normalize_u8[{model} b32 {mode} bf16; 16-pixel vector groups; "
                  f"library call: x.to(bfloat16), the raw mode's call on the same bytes]",
@@ -5923,7 +6190,8 @@ def main() -> int:
                       "seq_parallel": sp_launches[kern], "pipeline": pipe_launches[kern],
                       "cluster": cluster_launches[kern], "ingress": ingress_launches[kern],
                       "families": families_launches[kern], "groups": groups_launches[kern],
-                      "cli": cli_launches[kern], "measure": measure_launches[kern]}
+                      "cli": cli_launches[kern], "measure": measure_launches[kern],
+                      "rank_groups": rank_launches[kern]}
                for kern in ("flash_attention", "decode_attention")}
     for case, shape in (
             ("prefill_b8", f"prefill b{LM_BATCH} T{PROMPT_LEN} H16 KV4 D64 bf16 causal"),

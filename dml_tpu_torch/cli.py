@@ -12,13 +12,21 @@ Run:
     python -m dml_tpu_torch introducer --spec cluster.json
     python -m dml_tpu_torch node --spec cluster.json --name H1
     python -m dml_tpu_torch node --spec cluster.json --name H2 --device cpu
+    python -m dml_tpu_torch node --spec cluster.json --name H3 --follow 1
     python -m dml_tpu_torch chaos run --seed 7 --soak   # seeded fault plan
     python -m dml_tpu_torch chaos run --seed 1 --scenario fuzz  # one family
     python -m dml_tpu_torch chaos run --seed 1 --scenario churn  # join/leave
     python -m dml_tpu_torch scale --nodes 128           # control-plane probe
 
 A node serves on the CUDA device unless `--device cpu` is given; with
-no CUDA device it refuses to start, before it joins the cluster. The
+no CUDA device it refuses to start, before it joins the cluster. A
+worker group's primary whose mesh takes more than one rank opens its
+group world at start (`parallel.group_world`: itself rank 0) and waits
+for its followers, each started as `node --name <the primary> --follow
+RANK`, one process a rank, which joins the world at the primary's port +
+`GROUP_PORT_OFFSET` and runs the primary's device calls (no SWIM node,
+store or scheduler) until the primary closes it; there `profile trace
+start [dir]` traces every rank (rank r under dir/rank<r>). The
 async-hazard/drift linter stays with the JAX package (`python -m
 dml_tpu lint`).
 """
@@ -139,7 +147,8 @@ class NodeApp:
     """One running cluster node: Node + StoreService + JobService +
     the interactive prompt."""
 
-    def __init__(self, spec: ClusterSpec, name: str, lm_specs=(), device=None):
+    def __init__(self, spec: ClusterSpec, name: str, lm_specs=(), device=None,
+                 world_join_s: Optional[float] = None):
         me = spec.node_by_name(name) or spec.node_by_unique_name(name)
         if me is None:
             raise SystemExit(f"unknown node {name!r}; spec has {[n.name for n in spec.nodes]}")
@@ -165,6 +174,31 @@ class NodeApp:
 
         self.ingress = RequestRouter(self.jobs)
         self._lm_specs = list(lm_specs)
+        self.world = None  # the group world this node opens as a primary
+        self._world_join_s = world_join_s
+
+    def _open_group_world(self) -> None:
+        """A group primary whose mesh takes more than one rank opens its
+        group world as rank 0 and waits for its followers
+        (`group_world.FollowersMissing` when they do not come): it never
+        serves on one rank in place of several."""
+        from .parallel import group_world
+
+        spec, me = self.spec, self.node.me
+        g = spec.group_of_unique(me.unique_name)
+        members = spec.group_members_unique(g.name) if g is not None else ()
+        if not members or members[0] != me.unique_name:
+            return
+        want = group_world.mesh_ranks(g.mesh)
+        if want < 2:
+            return
+        join_s = getattr(self, "_world_join_s", None) or group_world.JOIN_TIMEOUT_S
+        print(f"group {g.name}: opening its world of {want} ranks at "
+              f"{group_world.rendezvous_of(spec, me)}, waiting up to {join_s:g} s "
+              f"for {want - 1} follower(s)", flush=True)
+        self.world = group_world.open_primary(group_world.rendezvous_of(spec, me), want,
+                                              device=self.device, join_timeout_s=join_s)
+        print(f"group {g.name}: world of {want} ranks up ({self.world.backend})", flush=True)
 
     async def start(self) -> None:
         # a node without its card must never join: it would take
@@ -176,6 +210,10 @@ class NodeApp:
                 "no CUDA device: this node would join and fail every batch "
                 "(pass --device cpu to run the plain PyTorch path)"
             )
+        # a group primary of several ranks: its world before any model
+        # (the group engines are built through it)
+        if getattr(self, "spec", None) is not None and getattr(self, "node", None) is not None:
+            await asyncio.to_thread(self._open_group_world)
         # LM serving models from --lm-spec files: built BEFORE the
         # node joins (model init can take seconds; a joined-but-
         # unready worker would eat scheduled batches). Deterministic
@@ -219,6 +257,10 @@ class NodeApp:
         await self.jobs.stop()
         await self.store.stop()
         await self.node.stop()
+        world = getattr(self, "world", None)
+        if world is not None:
+            await asyncio.to_thread(world.close)
+            self.world = None
 
     # ---- command dispatch ----
 
@@ -380,10 +422,18 @@ class NodeApp:
                     raise RuntimeError("a trace is already running")
                 logdir = a[2] if len(a) > 2 else os.path.join(
                     tempfile.gettempdir(), "dml_tpu_torch_trace")
-                # the start half of observability.profile; `stop` runs
-                # its end half, which writes the trace
-                trace = profile(logdir)
-                trace.__enter__()
+                world = getattr(self, "world", None)
+                if world is not None:
+                    # a group primary traces every rank of its world
+                    # (rank r under <logdir>/rank<r>)
+                    from .parallel import group_world
+
+                    trace = group_world.build(group_world.RankTrace, logdir)
+                else:
+                    # the start half of observability.profile; `stop`
+                    # runs its end half, which writes the trace
+                    trace = profile(logdir)
+                    trace.__enter__()
                 self._trace = trace
                 print(f"tracing torch.profiler to {logdir} "
                       "('profile trace stop' to end)")
@@ -393,6 +443,10 @@ class NodeApp:
                     raise RuntimeError("no trace is running")
                 self._trace = None
                 trace.__exit__(None, None, None)
+                if getattr(self, "world", None) is not None:
+                    from .parallel import group_world
+
+                    group_world.drop(trace)
                 print("trace written (view with TensorBoard profile/Perfetto)")
             else:
                 print("usage: profile metrics [prom|json|cluster] | "
@@ -669,7 +723,8 @@ async def _run_node(args) -> None:
     for path in getattr(args, "lm_spec", []):
         with open(path) as f:
             lm_specs.append(json.load(f))
-    app = NodeApp(spec, args.name, lm_specs=lm_specs, device=args.device)
+    app = NodeApp(spec, args.name, lm_specs=lm_specs, device=args.device,
+                  world_join_s=args.join_timeout)
     await app.start()
     stop = asyncio.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
@@ -756,6 +811,18 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help="where this node's models run (default cuda; "
                          "without a CUDA device the node refuses to "
                          "start; cpu runs the plain PyTorch path)")
+    pn.add_argument("--follow", type=int, default=None, metavar="RANK",
+                    help="run as follower RANK of the group world of the "
+                         "primary --name (no SWIM node, store or "
+                         "scheduler): join it, run its device calls "
+                         "until it closes the world")
+    pn.add_argument("--rendezvous", default=None, metavar="URL",
+                    help="a follower's init method (default: tcp at the "
+                         "primary's host, its port + GROUP_PORT_OFFSET)")
+    pn.add_argument("--join-timeout", type=float, default=None, metavar="S",
+                    help="seconds a group primary waits for its "
+                         "followers, or a follower for its primary "
+                         "(default group_world.JOIN_TIMEOUT_S)")
     pn.add_argument("-v", "--verbose", action="store_true")
 
     pi = sub.add_parser("introducer", help="run the introducer DNS")
@@ -880,7 +947,22 @@ def main(argv: Optional[List[str]] = None) -> None:
         getattr(args, "verbose", False),
         logfile=getattr(args, "log_file", None),
     )
-    if args.command == "node":
+    if args.command == "node" and args.follow is not None:
+        from .parallel import group_world
+
+        calls = group_world.follow_from_spec(
+            ClusterSpec.from_file(args.spec), args.name, args.follow, device=args.device,
+            init_method=args.rendezvous,
+            join_timeout_s=args.join_timeout or group_world.JOIN_TIMEOUT_S)
+        from .ops import decode_attention, flash_attention, preprocess
+
+        # what this rank ran: the serving kernels it launched on its card
+        launches = {"normalize": preprocess.normalize_launches,
+                    "flash_attention": flash_attention.flash_launches,
+                    "decode_attention": decode_attention.decode_launches}
+        print(f"follower {args.follow} of {args.name}: world closed after {calls} calls; "
+              f"kernel launches {json.dumps(launches)}", flush=True)
+    elif args.command == "node":
         asyncio.run(_run_node(args))
     elif args.command == "introducer":
         asyncio.run(_run_introducer(args))

@@ -140,6 +140,10 @@ struct Vec<int8_t> {
 // query heads per warp: 32 floats of q and 32 of o per lane
 __host__ __device__ constexpr int group_heads(int itemsize) { return itemsize == 4 ? 8 : 4; }
 
+// the least power of two >= n (lanes per cache row: the xor shuffles
+// reduce over a power of two)
+__host__ __device__ constexpr int pow2_at_least(int n) { return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2); }
+
 // Byte offsets into the block's dynamic shared memory; every region is a
 // multiple of 16 bytes. The wrapper's smem_bytes mirrors `total`.
 struct Layout {
@@ -213,13 +217,17 @@ template <typename TC, int D>
 __global__ void __launch_bounds__(THREADS) decode_kernel(Args a) {
   using hopper::smem_u32;
   constexpr int EL = Vec<TC>::EL;
-  constexpr int LPR = D / EL;    // lanes per cache row
+  constexpr int LIVE = D / EL;   // lanes that hold a D-slice of a row
+  // lanes per cache row: LIVE, or at D 48 and 96 the power of two above it,
+  // whose lanes past LIVE read slice 0 (in bounds) with a zero q, so they
+  // add nothing to a score, and write no output
+  constexpr int LPR = pow2_at_least(LIVE);
   constexpr int NRP = 32 / LPR;  // rows per warp pass
   constexpr int NP = SUB / NRP;  // passes per sub-tile
   constexpr int GT = group_heads(sizeof(TC));
   constexpr int RB = D * sizeof(TC);  // bytes per cache row
   constexpr float LOG2E = 1.4426950408889634f;
-  static_assert(LPR >= 1 && LPR <= 32 && SUB % NRP == 0, "row split");
+  static_assert(LPR >= 1 && LPR <= 32 && SUB % NRP == 0 && LIVE * EL == D, "row split");
   static_assert(EL == 4 || EL == 8, "q is read 4 or 8 elements at a time");
   extern __shared__ __align__(128) unsigned char smem[];
 
@@ -237,13 +245,15 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Args a) {
   const bool active = hg < ng;  // G = 3 * GT leaves one warp idle
   const int g0 = hg * GT, gc = active ? min(GT, G - g0) : 0;
   const int rr = lane / LPR, c = lane % LPR;  // row in the pass, D-slice
+  const bool live = c < LIVE;
+  const int cs = live ? c : 0;  // the slice this lane reads
   // q slice of this warp's heads, pre-scaled so that scores come in log2
   // units; loaded before pos[b] is known, so the two loads overlap
   const float qscale = a.scale * LOG2E;
   float q[GT][EL], o[GT][EL], m[GT], l[GT];
 #pragma unroll
   for (int g = 0; g < GT; ++g) {  // vector loads, all issued before any is used
-    const long long qo = ((long long)b * a.KV * G + kv * G + min(g0 + g, G - 1)) * D + c * EL;
+    const long long qo = ((long long)b * a.KV * G + kv * G + min(g0 + g, G - 1)) * D + cs * EL;
     if (a.q_is_bf16) {
       const unsigned char* qp = static_cast<const unsigned char*>(a.q) + 2 * qo;
       if constexpr (EL == 8) {
@@ -263,7 +273,7 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Args a) {
 #pragma unroll
   for (int g = 0; g < GT; ++g) {
 #pragma unroll
-    for (int e = 0; e < EL; ++e) q[g][e] = g < gc ? q[g][e] * qscale : 0.f, o[g][e] = 0.f;
+    for (int e = 0; e < EL; ++e) q[g][e] = g < gc && live ? q[g][e] * qscale : 0.f, o[g][e] = 0.f;
     m[g] = NEG_INF;
     l[g] = 0.f;
   }
@@ -338,8 +348,8 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Args a) {
     const int np = (nr + NRP - 1) / NRP;                          // passes in sub-tile j
     const int first = (wi - (j * NP) % wg + wg) % wg;             // this warp's first pass
     if (first >= np) continue;  // warp-uniform: no pass of sub-tile j is this warp's
-    const unsigned char* Kt = Ks + j * SUB * RB + c * EL * sizeof(TC);
-    const unsigned char* Vt = Vs + j * SUB * RB + c * EL * sizeof(TC);
+    const unsigned char* Kt = Ks + j * SUB * RB + cs * EL * sizeof(TC);
+    const unsigned char* Vt = Vs + j * SUB * RB + cs * EL * sizeof(TC);
     const float* kst = sks + soff + j * SUB;
     const float* vst = svs + soff + j * SUB;
     hopper::mbar_wait(bars + 16 * j, 0);
@@ -414,7 +424,7 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Args a) {
   float* red_o = reinterpret_cast<float*>(smem + L.red_o);  // [WARPS, GT, D]
   float* red_m = reinterpret_cast<float*>(smem + L.red_m);  // [WARPS, GT]
   float* red_l = reinterpret_cast<float*>(smem + L.red_l);
-  if (lane < LPR) {
+  if (lane < LPR && live) {
 #pragma unroll
     for (int g = 0; g < GT; ++g)
 #pragma unroll
@@ -530,12 +540,15 @@ int launch_d(const Args& a, int B, int D, cudaStream_t s) {
     case 32: return launch_one<TC, 32>(a, B, s);
     case 64: return launch_one<TC, 64>(a, B, s);
     case 128: return launch_one<TC, 128>(a, B, s);
+    case 48: return launch_one<TC, 48>(a, B, s);
+    case 96: return launch_one<TC, 96>(a, B, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 bool valid_shape(int G, int D) {
-  return G >= 1 && G <= MAX_G && (D == 16 || D == 32 || D == 64 || D == 128);
+  return G >= 1 && G <= MAX_G &&
+         (D == 16 || D == 32 || D == 48 || D == 64 || D == 96 || D == 128);
 }
 
 }  // namespace

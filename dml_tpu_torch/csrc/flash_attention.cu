@@ -55,7 +55,9 @@
 //   shared memory. dml_flash_fwd_mma runs it at any D so one card can
 //   time it beside the wgmma route.
 // - float32: flash_fwd_f32_kernel, plain FMAs with the tiles and the
-//   accumulator in shared memory.
+//   accumulator in shared memory; also at D 48 and 96 (the cluster LM
+//   bench's ShardLM, d 384 over 4 heads, and its draft's d 192), which no
+//   bf16 route takes.
 //
 // Bound: tensor-core operations at the prefill shape. 4 * B * H * Tq *
 // Tk * D operations (halved for causal) against 2 * (q + k + v + out)
@@ -426,6 +428,17 @@ int launch(const Args& a, int B, int is_bf16, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// float32 only: the head dims the tensor-core routes do not take (D 48, 96)
+template <int D>
+int launch_f32(const Args& a, int B, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)F32Layout<D>::bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((a.Tq + BQ - 1) / BQ, a.H, B);
+  flash_fwd_f32_kernel<D><<<grid, THREADS, F32Layout<D>::bytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
 
 // ------------------------------------------ bf16, D 64 / 128: wgmma + TMA
 
@@ -768,6 +781,8 @@ int dispatch(const Args& a, int B, int D, int is_bf16, bool wgmma, cudaStream_t 
     case 32: return launch<32>(a, B, is_bf16, s);
     case 64: return launch<64>(a, B, is_bf16, s);
     case 128: return launch<128>(a, B, is_bf16, s);
+    case 48: return is_bf16 ? (int)cudaErrorInvalidValue : launch_f32<48>(a, B, s);
+    case 96: return is_bf16 ? (int)cudaErrorInvalidValue : launch_f32<96>(a, B, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -785,7 +800,7 @@ int flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
 }  // namespace
 
 // The kernel for (dtype, D): wgmma + TMA for bf16 at D 64 and 128,
-// mma.sync for bf16 at D 16 and 32, FMAs for float32.
+// mma.sync for bf16 at D 16 and 32, FMAs for float32 (those D, 48 and 96).
 extern "C" int dml_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                              int is_bf16, int B, int H, int G, int Tq, int Tk, int D,
                              long long qsb, long long qst, long long qsh,

@@ -129,7 +129,13 @@ class LMBackend:
 
     >>> be = LMBackend(params, cfg, max_new_tokens=32)
     >>> results, seconds, cost = be.serve_files(["a.tokens.txt"])
+
+    Built through a group primary's world (`parallel.group_world`), its
+    server's device calls run on every rank of the world.
     """
+
+    #: the parts whose seams a group world mirrors (`parallel.group_world`)
+    _world_parts = ("server",)
 
     def __init__(
         self,

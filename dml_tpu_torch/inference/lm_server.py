@@ -40,6 +40,15 @@ Differences from the JAX package, by design:
   the one-device program on what it returns, as JAX's `_maybe_gather`
   constrains the tree at each dispatch's entry.
 
+The device work of each dispatch is one `_dev_*` method (a placement
+group, an adopted or warm-started slab, a chunk, a speculative round, a
+retired request's capture), marked `@seam`: built through a group
+primary's world (`parallel.group_world`, the tp forms of
+`inference.lm_sharded`), the primary broadcasts each with its host
+arguments and the follower ranks run it on their copies of the server,
+while the host logic (queue, slots, readbacks, callbacks) runs on the
+primary alone. Its arguments are checked before it is called.
+
 The server clamps every position it hands a step to the cache
 (`_chunk_impl`, `_propose_impl`, `_verify_impl`): the port's decode step
 index-writes the cache at that position, so an unclamped freed slot,
@@ -58,6 +67,7 @@ import numpy as np
 import torch
 
 from ..observability import METRICS
+from ..parallel.group_world import seam
 from .generate import (
     LMConfig,
     _device_of,
@@ -278,16 +288,23 @@ class LMServer:
                 dst[slot].copy_(pcache[name][key][row])
         return cache
 
+    @staticmethod
+    def _check_rows(rows, tp: int) -> None:
+        """A slab's rows must hold exactly the prompt's tp positions."""
+        for name, kv in rows.items():
+            for key, arr in kv.items():
+                t_axis = 2 if key.endswith("_s") else 1
+                if arr.shape[t_axis] != tp:
+                    raise ValueError(f"slab {name}/{key}: T={arr.shape[t_axis]} != prompt {tp}")
+
     def _insert_rows(self, cache, slot: int, rows, tp: int):
         """`_insert_impl` for a slab of positions < tp (values [KV, tp,
-        D], kv_quant scales [KV, 1, tp]): the slab, then zeros to
-        max_len, as JAX's padded whole-row insert writes."""
+        D], kv_quant scales [KV, 1, tp]; `_check_rows` first): the slab,
+        then zeros to max_len, as JAX's padded whole-row insert writes."""
         for name, kv in rows.items():
             for key, arr in kv.items():
                 src = torch.as_tensor(arr)
                 t_axis = 2 if key.endswith("_s") else 1
-                if src.shape[t_axis] != tp:
-                    raise ValueError(f"slab {name}/{key}: T={src.shape[t_axis]} != prompt {tp}")
                 dst = cache[name][key][slot]
                 dst.narrow(t_axis, 0, tp).copy_(src, non_blocking=src.is_pinned())
                 dst.narrow(t_axis, tp, self.max_len - tp).zero_()
@@ -539,17 +556,41 @@ class LMServer:
         _M_SLOTS.set(_slots_in_use(self._slot_req))
         return req.rid
 
+    def _spec_draft_on(self) -> bool:
+        """Whether a device draft model shadows the grid."""
+        return (self._spec is not None and self._spec.enabled
+                and self._spec.draft_params is not None)
+
     def _place_prefilled(self, slot: int, req: _Request, rows, first_token: int) -> None:
-        """Place an already-prefilled request into `slot`: the core of
-        `submit_prefilled` and of the KV-prefix-cache warm placement."""
-        tp = req.prompt.size
+        """Place an already-prefilled request into `slot` (the core of
+        `submit_prefilled`): the rows on the device, then the request's
+        bookkeeping."""
+        self._check_rows(rows, req.prompt.size)
+        # the slab carried target rows only: the draft cache needs its own
+        # rows for positions < Tp before it can propose
+        draft = self._spec_draft_on() and req.max_new_tokens > 1
+        self._dev_place_rows(slot, rows, req.prompt.size, int(first_token), req.rid,
+                             req.prompt if draft else None)
+        self._adopt(slot, req, int(first_token))
+
+    @seam
+    def _dev_place_rows(self, slot: int, rows, tp: int, first_token: int, rid: int,
+                        draft_prompt: Optional[np.ndarray]) -> None:
+        """A prefilled slab into `slot`, the slot's cur/pos/rid merged;
+        with `draft_prompt`, the draft cache's rows for it too."""
         self.cache = self._insert_rows(self.cache, slot, rows, tp)
         slot_map = np.full(self.max_slots, -1, np.int32)
         slot_map[slot] = 0
         sm = self._upload(slot_map)
         self._cur_dev = self._merge_vec(self._cur_dev, self._upload(np.asarray([first_token], np.int32)), sm)
         self._pos_dev = self._merge_vec(self._pos_dev, self._upload(np.asarray([tp], np.int32)), sm)
-        self._rid_dev = self._merge_vec(self._rid_dev, self._upload(np.asarray([req.rid], np.int32)), sm)
+        self._rid_dev = self._merge_vec(self._rid_dev, self._upload(np.asarray([rid], np.int32)), sm)
+        if draft_prompt is not None:
+            self._spec_draft_prefill_one(slot, draft_prompt)
+
+    def _adopt(self, slot: int, req: _Request, first_token: int) -> None:
+        """The host half of placing a prefilled request: its first token
+        (a host value) delivered, the slot taken."""
         req.deliver([first_token])
         req.emitted = 1
         req.slot = slot
@@ -557,11 +598,6 @@ class LMServer:
         self.rid_vec[slot] = req.rid
         self.tokens_delivered += 1
         _M_TOKENS.inc()
-        if (self._spec is not None and self._spec.enabled
-                and self._spec.draft_params is not None and not req.done):
-            # the slab carried target rows only: the draft cache needs
-            # its own rows for positions < Tp before it can propose
-            self._spec_draft_prefill_one(slot, req.prompt)
         if req.done:  # max_new_tokens == 1: the slab's token was all
             self._retire(slot)
 
@@ -600,15 +636,17 @@ class LMServer:
             # cold group prefill. Greedy only (sampled firsts are
             # rid-keyed).
             cold: List[Tuple[int, _Request]] = []
-            params = self._maybe_gather(self.params)
-            for slot, req in pairs:
-                warm = self._warm.rows_for(params, req.prompt)
-                if warm is None:
+            draft = self._spec_draft_on()
+            hits = self._dev_warm_place([(slot, req.prompt, req.rid,
+                                          draft and req.max_new_tokens > 1)
+                                         for slot, req in pairs])
+            for (slot, req), hit in zip(pairs, hits):
+                if hit is None:
                     cold.append((slot, req))
                     continue
-                rows, first, saved = warm
+                first, saved = hit
                 _M_QUEUE_WAIT.observe(time.monotonic() - req.t_submit)
-                self._place_prefilled(slot, req, rows, first)
+                self._adopt(slot, req, first)
                 self.kv_cache.note_adopted(saved)
             pairs = cold
             if not pairs:
@@ -617,8 +655,7 @@ class LMServer:
         groups: Dict[int, List[Tuple[int, _Request]]] = {}
         for slot, req in pairs:
             groups.setdefault(min(_bucket(req.prompt.size), self.max_len), []).append((slot, req))
-        spec_draft = (self._spec is not None and self._spec.enabled
-                      and self._spec.draft_params is not None)
+        spec_draft = self._spec_draft_on()
         for bucket, grp in groups.items():
             t_grp0 = time.monotonic()
             k = len(grp)
@@ -642,35 +679,13 @@ class LMServer:
             for row in range(k, kp):  # dummy rows repeat row 0
                 padded[row] = padded[0]
                 tps[row] = tps[0]
-            # logits_index = tp - 1 per row: causal masking makes each
-            # row's logits there those of an unpadded prefill
-            logits, pcache = self._prefill(self._maybe_gather(self.params), self.cfg, padded, tps)
-            for row, (slot, req) in enumerate(grp):
-                self.cache = self._insert_impl(self.cache, pcache, slot, row)
-            del pcache
+            firsts = self._dev_place_group(padded, tps, rids, slot_map,
+                                           [slot for slot, _ in grp], spec_draft)
             if spec_draft:
-                # the draft cache shadows the grid: a second prefill of the
-                # same padded batch with the draft's params; its logits
-                # are unused (the first token is the target's)
-                _, dpcache = self._prefill(self._spec.draft_params, self._spec.draft_cfg,
-                                           padded, tps)
-                for row, (slot, req) in enumerate(grp):
-                    self._spec.draft_cache = self._insert_impl(self._spec.draft_cache, dpcache,
-                                                               slot, row)
-                del dpcache
                 dshape = ("draft_prefill", bucket, kp)
                 if dshape not in self._seen_shapes:
                     self._seen_shapes.add(dshape)
                     _M_COMPILES.inc()
-            rids_dev = self._upload(rids)
-            tps_dev = self._upload(tps)
-            # first tokens occupy position tp: the streams the chunk
-            # sampler continues
-            firsts = self._sample_slots(logits, rids_dev, tps_dev)
-            sm = self._upload(slot_map)
-            self._cur_dev = self._merge_vec(self._cur_dev, firsts, sm)
-            self._pos_dev = self._merge_vec(self._pos_dev, tps_dev, sm)
-            self._rid_dev = self._merge_vec(self._rid_dev, rids_dev, sm)
             self._pending_first.append(([req for _, req in grp], firsts))
             now = time.monotonic()
             shape = ("prefill", bucket, kp)
@@ -687,6 +702,94 @@ class LMServer:
                 if req.done:  # max_new_tokens == 1
                     self._retire(slot)
         _M_SLOTS.set(_slots_in_use(self._slot_req))
+
+    @seam
+    def _dev_place_group(self, padded: np.ndarray, tps: np.ndarray, rids: np.ndarray,
+                         slot_map: np.ndarray, slots: List[int], draft: bool) -> torch.Tensor:
+        """One bucket group's placement: a batched prefill (logits_index
+        = tp - 1 per row: causal masking makes each row's logits there
+        those of an unpadded prefill), row `i` into `slots[i]`, the first
+        tokens sampled and merged into cur/pos/rid; with `draft`, the
+        draft cache's rows too. Returns the first tokens (device)."""
+        logits, pcache = self._prefill(self._maybe_gather(self.params), self.cfg, padded, tps)
+        for row, slot in enumerate(slots):
+            self.cache = self._insert_impl(self.cache, pcache, slot, row)
+        del pcache
+        if draft:
+            # the draft cache shadows the grid: a second prefill of the
+            # same padded batch with the draft's params; its logits are
+            # unused (the first token is the target's)
+            _, dpcache = self._prefill(self._spec.draft_params, self._spec.draft_cfg,
+                                       padded, tps)
+            for row, slot in enumerate(slots):
+                self._spec.draft_cache = self._insert_impl(self._spec.draft_cache, dpcache,
+                                                           slot, row)
+            del dpcache
+        rids_dev = self._upload(rids)
+        tps_dev = self._upload(tps)
+        # first tokens occupy position tp: the streams the chunk sampler
+        # continues
+        firsts = self._sample_slots(logits, rids_dev, tps_dev)
+        sm = self._upload(slot_map)
+        self._cur_dev = self._merge_vec(self._cur_dev, firsts, sm)
+        self._pos_dev = self._merge_vec(self._pos_dev, tps_dev, sm)
+        self._rid_dev = self._merge_vec(self._rid_dev, rids_dev, sm)
+        return firsts
+
+    @seam
+    def _dev_warm_place(self, picks) -> List[Optional[Tuple[int, int]]]:
+        """Warm starts, in order: each `(slot, prompt, rid, draft)` whose
+        prompt extends a cached prefix adopts the cached rows plus a
+        suffix-only prefill (`_dev_place_rows`); returns per pick None (a
+        miss, for the cold group prefill) or (first token, saved
+        tokens)."""
+        params = self._maybe_gather(self.params)
+        out: List[Optional[Tuple[int, int]]] = []
+        for slot, prompt, rid, draft in picks:
+            warm = self._warm.rows_for(params, prompt)
+            if warm is None:
+                out.append(None)
+                continue
+            rows, first, saved = warm
+            self._dev_place_rows(slot, rows, prompt.size, int(first), rid,
+                                 prompt if draft else None)
+            out.append((int(first), int(saved)))
+        return out
+
+    @seam
+    def _dev_capture(self, slot: int, tokens: np.ndarray) -> None:
+        """A retiring slot's rows for `tokens` into the prefix cache. A
+        failure only forfeits the entry."""
+        from .kv_cache import capture_slot_rows
+
+        try:
+            self.kv_cache.offer(tokens, capture_slot_rows(self.cache, slot, int(tokens.size)))
+        except Exception as e:
+            log.warning("kv-cache capture failed at retire: %r", e)
+
+    @seam
+    def _dev_chunk(self) -> torch.Tensor:
+        """The chunk dispatch's device work: `chunk` decode steps of
+        every slot; returns the tokens [chunk, slots] (device)."""
+        self.cache, self._cur_dev, self._pos_dev, toks = self._chunk_impl(
+            self._maybe_gather(self.params), self.cache, self._cur_dev, self._pos_dev,
+            self._rid_dev)
+        return toks
+
+    @seam
+    def _dev_spec_round(self, d: Optional[np.ndarray]):
+        """A speculative round's device work: the draft model's
+        proposals (`d` None) or the host's `d` [slots, k], verified in one
+        target forward; returns (committed tokens, accept lengths)."""
+        sp = self._spec
+        if d is None:
+            sp.draft_cache, d_toks = self._propose_impl(sp.draft_params, sp.draft_cache,
+                                                        self._cur_dev, self._pos_dev)
+        else:
+            d_toks = self._upload(d)
+        self.cache, self._cur_dev, self._pos_dev, toks, acc = self._verify_impl(
+            self._maybe_gather(self.params), self.cache, self._cur_dev, self._pos_dev, d_toks)
+        return toks, acc
 
     def _retire(self, slot: int) -> None:
         req = self._slot_req[slot]
@@ -706,18 +809,12 @@ class LMServer:
         never fed back, so its row is unwritten. `capture_slot_rows`
         copies the rows out on the device before the slot can be reused;
         `KVPrefixCache.offer` moves them to the host, once per retired
-        request. A failure only forfeits the entry."""
-        from .kv_cache import capture_slot_rows
-
-        try:
-            n = req.prompt.size + req.emitted - 1
-            need = req.emitted - 1  # generated tokens with rows
-            if len(req.out) < need:
-                return
-            tokens = np.concatenate([req.prompt, np.asarray(req.out[:need], np.int32)])
-            self.kv_cache.offer(tokens, capture_slot_rows(self.cache, slot, n))
-        except Exception as e:
-            log.warning("kv-cache capture failed at retire: %r", e)
+        request (`_dev_capture`). A failure only forfeits the entry."""
+        need = req.emitted - 1  # generated tokens with rows
+        if len(req.out) < need:
+            return
+        self._dev_capture(slot, np.concatenate([req.prompt,
+                                                np.asarray(req.out[:need], np.int32)]))
 
     @staticmethod
     def _distribute_firsts(entries, vals, off) -> int:
@@ -803,8 +900,7 @@ class LMServer:
             if "spec_propose" not in self._seen_shapes:
                 self._seen_shapes.add("spec_propose")
                 _M_COMPILES.inc()
-            sp.draft_cache, d_toks = self._propose_impl(sp.draft_params, sp.draft_cache,
-                                                        self._cur_dev, self._pos_dev)
+            d = None
         else:
             # host proposals: shipped drafts first (consumed once), then
             # the proposer; slots with neither get zero rows (they still
@@ -826,12 +922,10 @@ class LMServer:
                 for r, row in zip(need, rows):
                     d[r.slot] = row
                     real[r.slot] = True
-            d_toks = self._upload(d)
         if "spec_verify" not in self._seen_shapes:
             self._seen_shapes.add("spec_verify")
             _M_COMPILES.inc()
-        self.cache, self._cur_dev, self._pos_dev, toks, acc = self._verify_impl(
-            self._maybe_gather(self.params), self.cache, self._cur_dev, self._pos_dev, d_toks)
+        toks, acc = self._dev_spec_round(d)
         packed = self._readback([toks, acc] + [v for _, v in firsts])
         n = b * k
         tokm = packed[:n].reshape(b, k)
@@ -892,9 +986,7 @@ class LMServer:
         if "chunk" not in self._seen_shapes:
             self._seen_shapes.add("chunk")
             _M_COMPILES.inc()
-        self.cache, self._cur_dev, self._pos_dev, toks = self._chunk_impl(
-            self._maybe_gather(self.params), self.cache, self._cur_dev, self._pos_dev,
-            self._rid_dev)
+        toks = self._dev_chunk()
         # one packed readback per step: the chunk's tokens and any
         # placement first tokens deferred since the last one
         packed = self._readback([toks] + [v for _, v in firsts])

@@ -62,14 +62,14 @@ group mesh resolves over the ranks of the process's own world
 (`jobs.groups.group_ranks`), where the JAX primary takes the host's
 devices; a mesh of more ranks than the world has raises at wiring.
 
-The bench half: `bench_specdec_arm` (speculative decoding against the
-plain chunk path at a declared acceptance, and a random draft's
-auto-disable) and `bench_cb_arm` (continuous batching's TTFT against
-batch drain under staggered waves), one device each, the JAX text but
-for `device=` (cuda when None) and tokens read back as Python ints.
-`bench_lm_sharded_serving` and `_main` raise NotImplementedError: their
-tp-2 and pp-2 groups wait for ROADMAP §A item 2, the rank-driven group
-form.
+The bench half: `bench_lm_sharded_serving` (the forms through a
+5-node cluster, its tp-2 and pp-2 groups over a group world of this
+process and one follower rank, `parallel.group_world`), then
+`bench_specdec_arm` (speculative decoding against the plain chunk path
+at a declared acceptance, and a random draft's auto-disable) and
+`bench_cb_arm` (continuous batching's TTFT against batch drain under
+staggered waves), one device each, the JAX text but for `device=` (cuda
+when None) and tokens read back as Python ints.
 """
 
 from __future__ import annotations
@@ -90,6 +90,7 @@ from ..models.transformer import rope_tables
 from ..observability import METRICS
 from ..tracing import TRACER, TraceContext, current_all_ctxs
 from ..ops.flash_attention import flash_attention
+from ..parallel.group_world import seam
 from ..parallel.mesh import all_gather, all_reduce, resolve_mesh, ring_shift
 from ..parallel.pipeline import stack_stage_params
 from ..parallel.sharding import gather_tree, partition_lm_params, shard, shard_dim
@@ -545,6 +546,18 @@ class PipelinedLMBackend:
             padded[i, : p.size] = p
             padded[i, p.size:] = p[-1]  # the server's pad policy
             tps[i] = p.size
+        firsts_host, rest = self._run_batch(padded, tps, t_new)
+        return [[int(firsts_host[i])] + [int(rest[k, i]) for k in range(1, budgets[i])]
+                for i in range(n)]
+
+    @seam
+    def _run_batch(self, padded: np.ndarray, tps: np.ndarray, t_new: int
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+        """The batch's device work (its prefill and decode ticks): the
+        first tokens [slots] and the decoded ones [t_new, slots], on the
+        host. Built through a group primary's world, every stage's rank
+        runs it with the primary's arguments."""
+        slots, bucket = padded.shape
         mb = slots // self.microbatches
         dev = self.device
         prompts_m = torch.from_numpy(padded).to(dev).reshape(self.microbatches, mb, bucket)
@@ -552,10 +565,7 @@ class PipelinedLMBackend:
         firsts, cache = self._prefill(prompts_m, tps_m, slots, bucket)
         toks = self._decode(cache, firsts, tps_m, t_new)
         del cache
-        firsts_host = firsts.reshape(-1).cpu().numpy()
-        rest = toks.reshape(t_new, -1).cpu().numpy()  # [t_new, slots]
-        return [[int(firsts_host[i])] + [int(rest[k, i]) for k in range(1, budgets[i])]
-                for i in range(n)]
+        return firsts.reshape(-1).cpu().numpy(), toks.reshape(t_new, -1).cpu().numpy()
 
     def serve_files(self, paths: Sequence[str], on_dispatch=None
                     ) -> Tuple[Dict[str, Any], float, Dict[str, float]]:
@@ -891,10 +901,17 @@ def sharded_lm_group_backend(
                 else max(len(members), 1))
 
     async def backend(model: str, paths: List[str]):
+        from ..parallel import group_world
+
         _member_check(group_name, members, alive_fn)
-        results, infer_time, cost = await asyncio.to_thread(
-            be.serve_files, list(paths)
-        )
+        group_world.refuse(backend, be)
+        try:
+            results, infer_time, cost = await asyncio.to_thread(
+                be.serve_files, list(paths)
+            )
+        except Exception as e:
+            group_world.refuse(backend, be, e)  # a lost rank: GroupDegraded
+            raise
         _member_check(group_name, members, alive_fn)
         _M_SHARDED_BATCHES.inc(group=group_name, mode=mode)
         _M_SHARDED_TOKENS.inc(
@@ -1250,9 +1267,11 @@ class DisaggLMBackend:
     ):
         import queue as _queue
 
+        from ..parallel import group_world
         from .lm_backend import parse_prompt_file
 
         _member_check(self.group_name, self.members, self.alive_fn)
+        group_world.refuse(self, self.be)
         parsed = [
             parse_prompt_file(p, self.be.cfg.vocab_size) for p in paths
         ]
@@ -1339,6 +1358,9 @@ class DisaggLMBackend:
                 on_first,
                 max(self.prefill_timeout * 2, 30.0),
             )
+        except Exception as e:
+            group_world.refuse(self, self.be, e)  # a lost rank: GroupDegraded
+            raise
         finally:
             for t in tasks:
                 if not t.done():
@@ -1462,9 +1484,11 @@ def wire_lm_group(node, store, lm_spec: Dict[str, Any], device=None):
       ``(None, None)`` — they serve single-chip like before.
 
     The engines run on `device` (`cuda` when None; it raises where
-    there is none). The group mesh resolves over this process's
-    world (`jobs.groups.group_ranks`: one process per rank, where the
-    JAX primary takes the host's devices).
+    there is none). The group mesh resolves over the group world
+    (`jobs.groups.group_ranks`: one process per rank, where the JAX
+    primary takes the host's devices); with a primary's world open
+    (`parallel.group_world`), the mesh and the engine are built through
+    it, and its follower ranks run every device call of the engine.
 
     Raises at startup if the group mesh wants more ranks than this
     process's world has (a group that silently served single-chip
@@ -1532,9 +1556,13 @@ def wire_lm_group(node, store, lm_spec: Dict[str, Any], device=None):
     gb = None
     if members and uname == members[0]:
         from ..jobs.groups import group_ranks
+        from ..parallel import group_world
         from ..parallel.mesh import make_mesh
 
-        mesh = make_mesh(g.mesh, ranks=group_ranks(g.name, g.mesh))
+        # through the primary's group world when one is open: every rank
+        # builds the mesh (collective) and its copy of the engine
+        mesh = group_world.build(
+            make_mesh, g.mesh, ranks=group_ranks(g.name, g.mesh))
         pp = int(mesh.shape.get("pp", 1))
         # budget-check against the RESOLVED pp: a spec axis of -1
         # (fill remaining) may have resolved to a pipelined layout
@@ -1558,7 +1586,8 @@ def wire_lm_group(node, store, lm_spec: Dict[str, Any], device=None):
                     "form does not speculative-decode", g.name,
                     spec_k, uname,
                 )
-            be_pp = PipelinedLMBackend(lm_spec, mesh, device=device)
+            be_pp = group_world.build(
+                PipelinedLMBackend, lm_spec, mesh, device=device)
             cap = float(pp * mesh.shape.get("dp", 1))
             gb = sharded_lm_group_backend(
                 be_pp, model_name=name, group_name=g.name,
@@ -1571,8 +1600,8 @@ def wire_lm_group(node, store, lm_spec: Dict[str, Any], device=None):
             # draft lives on prefill-role peers, so the primary's
             # HBM and step loop carry zero draft cost; resident/
             # gather forms host the draft locally ("local")
-            be = sharded_lm_backend(
-                lm_spec, mesh, form="resident",
+            be = group_world.build(
+                sharded_lm_backend, lm_spec, mesh, form="resident",
                 spec_draft_local=not disagg, device=device,
             )
             cap = float(
@@ -1596,26 +1625,604 @@ def wire_lm_group(node, store, lm_spec: Dict[str, Any], device=None):
 
 
 # ----------------------------------------------------------------------
-# bench: the `cluster_lm_sharded` section's body. The cluster forms wait
-# for the rank-driven group form; the two one-device arms run now.
+# bench: the `cluster_lm_sharded` section's body (python -m
+# dml_tpu_torch.inference.lm_sharded: this process runs the cluster and
+# is rank 0 of the group's world; its follower rank is a `node --follow`
+# process)
 # ----------------------------------------------------------------------
 
 
-def bench_lm_sharded_serving(**_kw) -> Dict[str, Any]:
-    """Sharded LM serving forms through the full cluster pipeline (the JAX
-    package's `bench_lm_sharded_serving`: param-gather vs resident tp 2,
-    pp 2, the disaggregated handoff ladder, a member kill mid-stream,
-    then `bench_specdec_arm` and `bench_cb_arm`). Not in the port yet:
-    it waits for ROADMAP §A item 2, the rank-driven group form. JAX builds
-    its tp-2 and pp-2 meshes over `jax.devices()[:2]` inside the one
-    process that runs a 5-node `LocalCluster`; the port's mesh runs one
-    process per rank, and `jobs.groups.group_ranks` raises for a group
-    mesh larger than the process's world until a group primary has
-    follower ranks. Raises NotImplementedError saying so."""
-    raise NotImplementedError(
-        "inference.lm_sharded.bench_lm_sharded_serving waits for ROADMAP §A item 2, the "
-        "rank-driven group form: its tp-2/pp-2 groups live in one process in JAX and on "
-        "two ranks in the port, whose group primary has no follower ranks yet")
+def bench_lm_sharded_serving(
+    n_prompts: int = 16,
+    new_tokens: int = 16,
+    base_port: int = 28961,
+    steady_s: float = 4.0,
+    tmp: Optional[str] = None,
+    device=None,
+    lm_overrides: Optional[Dict[str, Any]] = None,
+    stats: Optional[Dict[str, Any]] = None,
+) -> Dict[str, Any]:
+    """Sharded LM serving forms through the FULL cluster pipeline on
+    one topology (H3 decode primary, H4+H5 prefill roles):
+
+    - param_gather vs weight-resident tp=2,
+    - PIPELINE-parallel pp=2 (layer stack split across members —
+      models deeper than one member's HBM; `pp_hbm_report` records
+      the budget story),
+    - disaggregated prefill/decode with the handoff ladder: whole-
+      slab pull vs chunk-STREAMED handoff (time-to-first-token must
+      strictly drop — decode adopts request 0 while request N still
+      prefills), and 1- vs 2-prefill-peer FAN-OUT on a prefill-heavy
+      workload (context-phase throughput must rise),
+    - a member-kill-MID-STREAM chaos case: the dying peer's in-flight
+      share demotes to typed per-request local-prefill fallbacks,
+      the job completes exactly once, tokens unchanged. The peers
+      are DRAFT peers too (draft_k > 0, shipped-draft verification
+      on the decode primary), so the kill also covers draft-proposal
+      loss mid-verify,
+    - after the cluster stops: the speculative-decoding A/B
+      (`bench_specdec_arm` — speedup at a declared acceptance,
+      real-draft auto-disable, token equality) and the
+      continuous-batching TTFT A/B (`bench_cb_arm` — step-granular
+      adoption vs batch-drain under staggered load).
+
+    5-node topology: leader + standby + the three-member group means
+    the formed group is the pool's ONLY slot, so every timed batch
+    flows through the group engine and mode rates compare serving
+    forms. What transfers is the token-equality contract (every
+    mode's merged outputs == isolated generate(), f32 greedy) and the
+    handoff/exactly-once machinery.
+
+    The port's tp-2 and pp-2 meshes are a group world
+    (`parallel.group_world`) over the same two ranks: this process,
+    which runs the cluster, is rank 0, and one follower rank is a `node
+    --follow 1` process this bench starts, its rendezvous under `tmp`
+    (a fresh directory under the system's temporary root when None).
+    The four group backends (resident, gather, the disaggregated
+    form's resident backend with `spec_k`, pp) are built through it.
+    Engines run on `device` (cuda when None; it raises where there is
+    none); two ranks on one card exchange through the host (gloo), so
+    the tok/s of the group forms time host staging, not an
+    interconnect. `lm_overrides` updates the bench's LM spec (a
+    smaller model for a quick run); the isolated `generate` reference
+    is the port's own. `stats`, when given, receives the world's
+    (`World.stats()`: calls, bytes, host seconds of its broadcasts and
+    of the calls they carried)."""
+    import contextlib
+    import os
+    import shutil
+    import tempfile
+
+    from ..cluster.chaos import LocalCluster
+    from ..config import ClusterSpec, MeshSpec, Timing, WorkerGroupSpec, draft_lm_spec
+    from ..jobs.service import JobService
+    from ..models.lm_params import resolve_device
+    from ..parallel import group_world
+    from ..parallel.mesh import make_mesh
+    from .lm_backend import LMBackend, lm_spec_parts, write_prompt_file
+
+    dev = resolve_device(device)
+    tmp = tmp or os.path.join(tempfile.gettempdir(), "dml_tpu_torch_bench_lm_sharded")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp, exist_ok=True)
+
+    # d_model 384 (the JAX bench's): big enough that the gathered
+    # form's 2x per-rank compute outweighs its partitioning overhead
+    # (at d 64 the comparison would read backwards); head dim 96, its
+    # draft's 48, which K2's float32 route and K4 take. n_layers 4 so
+    # the pp=2 pipeline splits the stack evenly (2 blocks per stage).
+    lm_spec = {
+        "name": "ShardLM", "vocab_size": 128, "d_model": 384,
+        "n_heads": 4, "n_kv_heads": 2, "n_layers": 4, "d_ff": 1536,
+        "dtype": "float32", "max_new_tokens": new_tokens,
+        "max_slots": 4, "max_len": 128, "seed": 0, "chunk": 8,
+    }
+    lm_spec.update(lm_overrides or {})
+    params, cfg = lm_spec_parts(lm_spec, device=dev)
+    spec_k_bench = 4
+    # per-member HBM story: the pp split is what fits a member whose
+    # budget sits between its layer slice and the full tree
+    hbm = pp_hbm_report(lm_spec, 2)
+    hbm_budget = (hbm["per_member_bytes"] + hbm["full_bytes"]) // 2
+    group = WorkerGroupSpec(
+        "pd0", ("H3", "H4", "H5"), MeshSpec(dp=1, tp=2),
+        lm_models=("ShardLM",),
+        roles={"H3": "decode", "H4": "prefill", "H5": "prefill"},
+        hbm_bytes=hbm_budget,
+    )
+    model = "ShardLM"
+    # the tp-2 and pp-2 meshes: this process and one follower rank
+    worlds = contextlib.ExitStack()
+    world = worlds.enter_context(group_world.local_world(
+        ClusterSpec.localhost(5, base_port=base_port, worker_groups=[group]), "H3",
+        os.path.join(tmp, "world"), device=dev))
+    try:
+        mesh = group_world.build(make_mesh, MeshSpec(dp=1, tp=2), ranks=range(2))
+        mesh_pp = group_world.build(
+            make_mesh, MeshSpec(dp=1, tp=1, pp=2), ranks=range(2)
+        )
+        # the group-engine forms share one deterministic tree; the
+        # single-chip reference backend and the prefill workers use the
+        # plain (single-device) placement of the SAME tree
+        be_resident = group_world.build(
+            sharded_lm_backend, lm_spec, mesh, form="resident", device=dev)
+        be_gather = group_world.build(
+            sharded_lm_backend, lm_spec, mesh, form="gather", device=dev)
+        # the disagg decode primary arms SHIPPED-draft verification
+        # (SPEC_DECODE_SUPPORT["disagg"]): prefill peers run the derived
+        # draft and ship spec_k proposals in each slab header, the
+        # primary verifies them on the adoption round — so the kill-H5
+        # chaos case below doubles as the draft-peer-death-mid-verify
+        # case (typed fallback, exactly-once tokens, equality asserted)
+        be_disagg = group_world.build(
+            sharded_lm_backend,
+            {**lm_spec, "spec_k": spec_k_bench}, mesh, form="resident",
+            spec_draft_local=False, device=dev,
+        )
+        be_pp = group_world.build(PipelinedLMBackend, lm_spec, mesh_pp, device=dev)
+        be_single = LMBackend(
+            params, cfg, max_new_tokens=new_tokens,
+            max_slots=int(lm_spec["max_slots"]),
+            max_len=int(lm_spec["max_len"]), chunk=int(lm_spec["chunk"]),
+        )
+        # one prefill backend PER prefill-role node, so the fan-out phase
+        # can assert both peers actually built slabs; both carry the
+        # derived draft model (random weights — draft QUALITY is not what
+        # the handoff path scores; equality + exactly-once are)
+        draft_parts = lm_spec_parts(draft_lm_spec(lm_spec), device=dev)
+        prefill_bes = {
+            "H4": LMPrefillBackend(
+                params, cfg, max_len=lm_spec["max_len"],
+                draft=draft_parts, draft_k=spec_k_bench,
+            ),
+            "H5": LMPrefillBackend(
+                params, cfg, max_len=lm_spec["max_len"],
+                draft=draft_parts, draft_k=spec_k_bench,
+            ),
+        }
+
+        async def run() -> Dict[str, Any]:
+            root = os.path.join(tmp, "cluster")
+            os.makedirs(root, exist_ok=True)
+            services: Dict[str, JobService] = {}
+
+            def make_jobs(node, store):
+                uname = node.me.unique_name
+                alive = lambda: {  # noqa: E731
+                    n.unique_name for n in node.membership.alive_nodes()
+                }
+                js = JobService(node, store)
+                members = node.spec.group_members_unique(group.name)
+                is_primary = bool(members) and uname == members[0]
+                if is_primary:
+                    def disagg(handoff, fanout):
+                        return DisaggLMBackend(
+                            be_disagg, model_name=model,
+                            group_name=group.name, node=node, store=store,
+                            members=members, alive_fn=alive, capacity=3.0,
+                            prefill_timeout=8.0, handoff=handoff,
+                            fanout=fanout, draft_k=spec_k_bench,
+                        )
+
+                    # mode-swapped during the run via set_mode below
+                    js._lm_group_modes = {
+                        "resident": sharded_lm_group_backend(
+                            be_resident, model_name=model,
+                            group_name=group.name, members=members,
+                            alive_fn=alive, capacity=3.0, mode="resident",
+                        ),
+                        "gather": sharded_lm_group_backend(
+                            be_gather, model_name=model,
+                            group_name=group.name, members=members,
+                            alive_fn=alive, capacity=3.0, mode="gather",
+                        ),
+                        "pp": sharded_lm_group_backend(
+                            be_pp, model_name=model,
+                            group_name=group.name, members=members,
+                            alive_fn=alive, capacity=3.0, mode="pp",
+                        ),
+                        "disagg": disagg("stream", 0),
+                        "disagg_stream_f1": disagg("stream", 1),
+                        "disagg_stream_f2": disagg("stream", 2),
+                        "disagg_slab_f1": disagg("slab", 1),
+                    }
+                pf = prefill_bes.get(node.me.name)
+                js.register_lm(
+                    model, backend=be_single.backend, cost=be_single.cost(),
+                    prefill=pf,
+                    group_backend=(
+                        js._lm_group_modes["resident"] if is_primary
+                        else None
+                    ),
+                )
+                services[uname] = js
+                return js
+
+            cluster = LocalCluster(
+                5, root, base_port,
+                timing=Timing(ping_interval=0.2, ack_timeout=0.3,
+                              cleanup_time=1.0, leader_rpc_timeout=10.0),
+                worker_groups=[group],
+                make_jobs=make_jobs,
+            )
+            try:
+                await cluster.start()
+                await cluster.wait_for(
+                    cluster.converged, 20.0, "lm-sharded bench convergence"
+                )
+                members = cluster.spec.group_members_unique(group.name)
+                # the chaos phase kills a prefill peer: the client driving
+                # submit/wait/get-output must be NEITHER group member (a
+                # dead client wedges its own wait_job forever) nor the
+                # leader (client() excludes it)
+                client = cluster.client(avoid=members)
+                rng = np.random.RandomState(0)
+                reference: Dict[str, List[int]] = {}
+                for i in range(8):
+                    prompt = rng.randint(0, cfg.vocab_size,
+                                         int(rng.randint(6, 24)))
+                    fname = f"prompt_{i}.tokens.txt"
+                    p = os.path.join(root, fname)
+                    write_prompt_file(p, prompt)
+                    await client.store.put(p, fname)
+                    reference[fname] = _generated(
+                        params, cfg, np.asarray(prompt, np.int32), new_tokens)
+                # prefill-heavy files for the handoff-comparison phase:
+                # long prompts, tiny budgets — the wall IS context phase.
+                # LOCAL files only (never store-put): the steady-mode jobs
+                # wrap-sample every matching store object, and mixing
+                # budget-4 files into them would corrupt the tok/s
+                # accounting above
+                ctx_budget = 4
+                ctx_files = []
+                ctx_prompt_toks = 0
+                for i in range(6):
+                    prompt = rng.randint(0, cfg.vocab_size,
+                                         int(rng.randint(48, 64)))
+                    fname = f"ctx_{i}.tokens.txt"
+                    p = os.path.join(root, fname)
+                    write_prompt_file(p, prompt, max_new_tokens=ctx_budget)
+                    ctx_files.append(fname)
+                    ctx_prompt_toks += int(prompt.size)
+                    reference[fname] = _generated(
+                        params, cfg, np.asarray(prompt, np.int32), ctx_budget)
+
+                primary_js = services[members[0]]
+
+                def set_mode(mode: str) -> Any:
+                    gb = primary_js._lm_group_modes[mode]
+                    pf = prefill_bes.get(
+                        cluster.spec.node_by_unique_name(members[0]).name
+                    )
+                    primary_js.register_lm(
+                        model, backend=be_single.backend,
+                        cost=be_single.cost(), prefill=pf,
+                        group_backend=gb,
+                    )
+                    return gb
+
+                async def timed_job(n=None) -> Tuple[float, Dict[str, Any]]:
+                    n = n if n is not None else n_prompts
+                    t0 = time.monotonic()
+                    job_id = await client.jobs.submit_job(model, n)
+                    done = await client.jobs.wait_job(job_id, timeout=600.0)
+                    wall = time.monotonic() - t0
+                    assert done["total_queries"] == n, done
+                    merged = await client.jobs.get_output(
+                        job_id, os.path.join(root, f"out_{job_id}.json")
+                    )
+                    return wall, merged
+
+                def check_equal(merged: Dict[str, Any]) -> bool:
+                    return bool(merged) and all(
+                        merged[f]["tokens"] == reference[f]
+                        for f in merged
+                    )
+
+                modes_out: Dict[str, Any] = {}
+                all_equal = True
+                for mode in ("gather", "resident", "pp", "disagg"):
+                    gb = set_mode(mode)
+                    # warm the compiles outside the timed window
+                    _, merged = await timed_job()
+                    all_equal = all_equal and check_equal(merged)
+                    t0 = time.monotonic()
+                    tokens = 0
+                    jobs = 0
+                    while (
+                        time.monotonic() - t0 < steady_s or jobs < 2
+                    ):
+                        _, merged = await timed_job()
+                        all_equal = all_equal and check_equal(merged)
+                        # n_prompts queries per job, each decoding the
+                        # shared default budget (the ctx_* files carry
+                        # directives but this phase samples prompt_*)
+                        tokens += n_prompts * new_tokens
+                        jobs += 1
+                    wall = time.monotonic() - t0
+                    entry = {
+                        "tok_s": round(tokens / wall, 1),
+                        "jobs": jobs,
+                        "wall_s": round(wall, 2),
+                        "outputs_equal": check_equal(merged),
+                    }
+                    if mode == "disagg":
+                        entry["handoffs"] = gb.handoffs
+                        entry["fallbacks"] = gb.fallbacks
+                        entry["handoff_bytes"] = gb.handoff_bytes
+                    modes_out[mode] = entry
+
+                # ---- handoff ladder: whole-slab vs chunk-streamed, and
+                # 1- vs 2-peer fan-out, on the prefill-heavy files. The
+                # scheduler wrap-samples the WHOLE store set, so these
+                # jobs submit exactly len(ctx_files) queries after
+                # clearing the prompt_* files from sampling via explicit
+                # n = multiple of the file count — instead we drive the
+                # group backend DIRECTLY with the ctx paths: same engine,
+                # no sampling ambiguity, per-job ttft from the backend.
+                ctx_paths = [os.path.join(root, f) for f in ctx_files]
+
+                async def handoff_trial(mode: str) -> Dict[str, Any]:
+                    gb = set_mode(mode)
+                    pf_counts0 = {
+                        n: pf.slabs_built for n, pf in prefill_bes.items()
+                    }
+                    results, _, _ = await gb(model, ctx_paths)  # warm
+                    assert all(
+                        results[p]["tokens"]
+                        == reference[os.path.basename(p)]
+                        for p in ctx_paths
+                    )
+                    walls, ttfts = [], []
+                    for _ in range(3):
+                        t0 = time.monotonic()
+                        results, _, _ = await gb(model, ctx_paths)
+                        walls.append(time.monotonic() - t0)
+                        if gb.last_ttft_s is not None:
+                            ttfts.append(gb.last_ttft_s)
+                        ok = all(
+                            results[p]["tokens"]
+                            == reference[os.path.basename(p)]
+                            for p in ctx_paths
+                        )
+                        if not ok:
+                            return {"error": "outputs diverged"}
+                    med_wall = sorted(walls)[len(walls) // 2]
+                    med_ttft = (
+                        sorted(ttfts)[len(ttfts) // 2] if ttfts else None
+                    )
+                    return {
+                        "wall_s": round(med_wall, 3),
+                        "ttft_ms": (
+                            round(med_ttft * 1000, 1)
+                            if med_ttft is not None else None
+                        ),
+                        "ctx_tok_s": round(ctx_prompt_toks / med_wall, 1),
+                        "handoffs": gb.handoffs,
+                        "fallbacks": gb.fallbacks,
+                        "peer_slabs": {
+                            n: pf.slabs_built - pf_counts0[n]
+                            for n, pf in prefill_bes.items()
+                        },
+                    }
+
+                # declared per-request prefill device floor for the
+                # ladder (and the chaos case below): the in-process sim
+                # shares 2 host cores between every "peer", so raw peer
+                # COMPUTE cannot scale with fan-out here no matter what
+                # the orchestration does — the floor (same declared-stub
+                # discipline as the chaos/request stub backends) makes
+                # the ladder measure what the handoff machinery actually
+                # controls: per-request overlap of transfer, adoption,
+                # and peer device time. Token equality still runs the
+                # real engine end-to-end.
+                prefill_floor_s = 0.12
+                for pf in prefill_bes.values():
+                    pf.min_prefill_s = prefill_floor_s
+                handoff = {
+                    "prompt_tokens_per_job": ctx_prompt_toks,
+                    "budget_per_prompt": ctx_budget,
+                    "simulated_prefill_floor_s": prefill_floor_s,
+                    "slab_f1": await handoff_trial("disagg_slab_f1"),
+                    "stream_f1": await handoff_trial("disagg_stream_f1"),
+                    "stream_f2": await handoff_trial("disagg_stream_f2"),
+                }
+                s1, s2 = handoff["stream_f1"], handoff["stream_f2"]
+                sl = handoff["slab_f1"]
+                if sl.get("ttft_ms") and s1.get("ttft_ms"):
+                    handoff["ttft_stream_ms"] = s1["ttft_ms"]
+                    handoff["ttft_slab_ms"] = sl["ttft_ms"]
+                    handoff["stream_vs_slab_ttft"] = round(
+                        sl["ttft_ms"] / max(s1["ttft_ms"], 1e-9), 2
+                    )
+                    handoff["stream_vs_slab_wall"] = round(
+                        sl["wall_s"] / max(s1["wall_s"], 1e-9), 2
+                    )
+                if s1.get("ctx_tok_s") and s2.get("ctx_tok_s"):
+                    handoff["fanout_ctx_speedup"] = round(
+                        s2["ctx_tok_s"] / max(s1["ctx_tok_s"], 1e-9), 2
+                    )
+
+                # single-chip comparison rate on the SAME topology:
+                # grouping disabled, the members serve as individual
+                # chips (context for the mode rates; also re-checks
+                # equality through the ungrouped path)
+                set_mode("resident")
+                for js in services.values():
+                    js.groups.enabled = False
+                _, merged = await timed_job()  # warm the ungrouped route
+                all_equal = all_equal and check_equal(merged)
+                t0 = time.monotonic()
+                sc_tokens = sc_jobs = 0
+                while time.monotonic() - t0 < steady_s or sc_jobs < 2:
+                    _, merged = await timed_job()
+                    all_equal = all_equal and check_equal(merged)
+                    sc_tokens += n_prompts * new_tokens
+                    sc_jobs += 1
+                tok_s_single = round(sc_tokens / (time.monotonic() - t0), 1)
+                for js in services.values():
+                    js.groups.enabled = True
+
+                # ---- member-kill-MID-STREAM chaos: a prefill peer dies
+                # while its streamed share is in flight. The affected
+                # requests demote to typed local-prefill fallbacks
+                # (jobs_kv_handoff_total{result=fallback}), the group
+                # degrades on SWIM detection, the job completes exactly
+                # once with tokens unchanged, and the group re-forms when
+                # the peer returns.
+                gb_chaos = set_mode("disagg_stream_f2")
+                leader_js = services[cluster.leader_uname()]
+                fallbacks_before = gb_chaos.fallbacks
+                bytes_before = gb_chaos.handoff_bytes
+                victim = cluster.resolve_target("H5")
+                chaos_n = 4 * n_prompts
+                job_id = await client.jobs.submit_job(model, chaos_n)
+                # kill while slab bytes are actively flowing (mid-stream,
+                # not between batches)
+                for _ in range(400):
+                    if gb_chaos.handoff_bytes > bytes_before:
+                        break
+                    await asyncio.sleep(0.02)
+                await cluster.crash_node(victim)
+                # the degradation edge arrives with SWIM detection (~1-2s
+                # at this timing); wait for it so "degrades" is an
+                # observed fact, not a race against a fast job
+                try:
+                    await cluster.wait_for(
+                        lambda: leader_js.groups.degradations.get(
+                            group.name, 0) >= 1,
+                        20.0, "group degradation edge",
+                    )
+                except AssertionError:  # wait_for timeout
+                    pass  # recorded as degraded=False below
+                done = await client.jobs.wait_job(job_id, timeout=600.0)
+                merged = await client.jobs.get_output(
+                    job_id, os.path.join(root, "chaos_out.json")
+                )
+                chaos_equal = check_equal(merged)
+                gstats = leader_js.group_stats().get(group.name, {})
+                degraded = gstats.get("degradations", 0) >= 1
+                fallback_ticks = gb_chaos.fallbacks - fallbacks_before
+                await cluster.restart_node(victim)
+
+                def reformed() -> bool:
+                    st = leader_js.group_stats().get(group.name, {})
+                    return bool(st.get("formed"))
+
+                try:
+                    await cluster.wait_for(reformed, 30.0, "group reform")
+                    did_reform = True
+                except Exception:
+                    did_reform = False
+                chaos = {
+                    "member_killed": "H5 (prefill role, mid-stream)",
+                    "completed": done["total_queries"] == chaos_n,
+                    "exactly_once_tokens": chaos_equal,
+                    # shipped-draft evidence: the dead peer was a DRAFT
+                    # peer too (draft_k > 0), so this kill also covers
+                    # draft-proposal loss mid-verify — acceptance may
+                    # drop to the local-fallback path, tokens may not
+                    "draft_k": spec_k_bench,
+                    "drafts_shipped": sum(
+                        pf.drafts_shipped for pf in prefill_bes.values()
+                    ),
+                    "typed_fallbacks": fallback_ticks,
+                    "degraded": degraded,
+                    "reformed": did_reform,
+                    # green = completed exactly once with unchanged
+                    # tokens AND the kill was actually felt (per-request
+                    # fallback or a degradation edge — whichever side of
+                    # the SWIM race the kill landed on)
+                    "verdict_green": bool(
+                        done["total_queries"] == chaos_n and chaos_equal
+                        and (fallback_ticks > 0 or degraded)
+                    ),
+                }
+
+                return {
+                    "nodes": 5,
+                    "prompts_per_job": n_prompts,
+                    "new_tokens_per_prompt": new_tokens,
+                    "model_cfg": {
+                        k: lm_spec[k]
+                        for k in ("d_model", "n_heads", "n_kv_heads",
+                                  "n_layers", "dtype", "max_slots")
+                    },
+                    "groups": {
+                        group.name: {
+                            "members": list(
+                                cluster.spec.group_members_unique(group.name)
+                            ),
+                            "mesh": {"dp": 1, "tp": 2},
+                            "pp_mesh": {"dp": 1, "tp": 1, "pp": 2},
+                            "lm_models": list(group.lm_models),
+                            "roles": dict(group.roles),
+                        }
+                    },
+                    "hbm": {
+                        **hbm,
+                        "budget_bytes": hbm_budget,
+                        # the acceptance story: the full tree does NOT
+                        # fit the configured member budget; the pp slice
+                        # does — only the pipelined layout serves
+                        "fits_only_pipelined": bool(
+                            hbm["per_member_bytes"] <= hbm_budget
+                            < hbm["full_bytes"]
+                        ),
+                    },
+                    "modes": modes_out,
+                    "handoff": handoff,
+                    "tok_s_param_gather": modes_out["gather"]["tok_s"],
+                    "tok_s_resident": modes_out["resident"]["tok_s"],
+                    "tok_s_pp": modes_out["pp"]["tok_s"],
+                    "tok_s_disagg": modes_out["disagg"]["tok_s"],
+                    "tok_s_single_chip": tok_s_single,
+                    "resident_vs_gather": round(
+                        modes_out["resident"]["tok_s"]
+                        / max(modes_out["gather"]["tok_s"], 1e-9), 2
+                    ),
+                    "tokens_equal_single_chip": bool(all_equal and chaos_equal),
+                    "kv_handoff_bytes": modes_out["disagg"]["handoff_bytes"],
+                    "ttft_stream_ms": handoff.get("ttft_stream_ms"),
+                    "stream_vs_slab_ttft": handoff.get("stream_vs_slab_ttft"),
+                    "fanout_ctx_speedup": handoff.get("fanout_ctx_speedup"),
+                    "chaos": chaos,
+                    "note": "a group world of two ranks on one host: "
+                            "the equality flag (every mode's merged "
+                            "outputs == isolated generate() per prompt, "
+                            "f32 greedy) and the handoff/exactly-once "
+                            "machinery are the product claims; the group "
+                            "forms' tok/s time the world's host-staged "
+                            "gloo exchange, not an interconnect",
+                }
+            finally:
+                await cluster.stop()
+                be_single.close()
+
+        result = asyncio.run(run())
+        if stats is not None:
+            stats.update(world.stats(), device=str(dev))
+    finally:
+        worlds.close()
+    if result.get("error"):
+        return result
+    # the world is closed: these arms run on this process's device alone
+    # ---- raw-decode arms, AFTER the cluster is down so heartbeat/
+    # gossip threads don't pollute the single-device A/B walls:
+    # speculative decoding (oracle proposer at a declared acceptance
+    # + real-draft auto-disable) and step-granular continuous
+    # batching (overlap-adoption vs batch-drain TTFT under staggered
+    # load). Top-level mirrors feed the bench summary + claim gates.
+    result["specdec"] = bench_specdec_arm(
+        params, cfg, lm_spec, new_tokens=max(new_tokens, 32), device=dev
+    )
+    result["cb"] = bench_cb_arm(
+        params, cfg, lm_spec, new_tokens=new_tokens, device=dev
+    )
+    result["lm_specdec_speedup"] = result["specdec"].get("speedup")
+    result["lm_specdec_accept"] = result["specdec"].get("accept_rate")
+    result["lm_cb_ttft_ms"] = result["cb"].get("ttft_p99_overlap_ms")
+    return result
 
 
 def _pctl(vals: List[float], p: float) -> Optional[float]:
@@ -1913,11 +2520,37 @@ def _value_of(counter_name: str) -> float:
         return 0.0
 
 
-def _main() -> None:  # pragma: no cover - bench subprocess entry
-    """`python -m dml_tpu_torch.inference.lm_sharded`:
-    `bench_lm_sharded_serving`'s entry, which waits for ROADMAP §A item
-    2 (the rank-driven group form); raises NotImplementedError."""
-    print(json.dumps(bench_lm_sharded_serving(), default=str))
+def _main(argv: Optional[List[str]] = None) -> None:  # pragma: no cover - bench entry
+    """`python -m dml_tpu_torch.inference.lm_sharded [options]`: one JSON
+    line, `bench_lm_sharded_serving` at JAX's defaults unless the options
+    say otherwise (cuda unless --device cpu; --lm-spec-json updates the
+    bench's LM spec)."""
+    import argparse
+
+    p = argparse.ArgumentParser(prog="python -m dml_tpu_torch.inference.lm_sharded")
+    p.add_argument("--n-prompts", type=int, default=16)
+    p.add_argument("--new-tokens", type=int, default=16)
+    p.add_argument("--base-port", type=int, default=28961)
+    p.add_argument("--steady-s", type=float, default=4.0)
+    p.add_argument("--tmp", default=None)
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    p.add_argument("--lm-spec-json", default=None, metavar="JSON")
+    p.add_argument("--world-stats", default=None, metavar="PATH",
+                   help="write the group world's stats there (JSON)")
+    a = p.parse_args(argv)
+    stats: Dict[str, Any] = {}
+    # the package's module, not __main__: a group world builds objects by
+    # their module's name on every rank
+    from . import lm_sharded
+
+    print(json.dumps(lm_sharded.bench_lm_sharded_serving(
+        n_prompts=a.n_prompts, new_tokens=a.new_tokens, base_port=a.base_port,
+        steady_s=a.steady_s, tmp=a.tmp, device=a.device,
+        lm_overrides=json.loads(a.lm_spec_json) if a.lm_spec_json else None, stats=stats),
+        default=str), flush=True)
+    if a.world_stats:
+        with open(a.world_stats, "w") as f:
+            json.dump(stats, f)
 
 
 if __name__ == "__main__":  # pragma: no cover

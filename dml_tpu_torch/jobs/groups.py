@@ -29,10 +29,12 @@ cluster scheduler that shape:
   all-gathered at forward entry, so group outputs are the one-device
   engine's, bit for bit. The port's mesh is one process per rank
   (`parallel.mesh`): a group mesh resolves over the ranks of the
-  primary's own world (`torch.distributed`; a world of 1 when it is
-  not initialized), where the JAX primary takes the host's devices.
-  A mesh that needs more ranks than the world has raises at the first
-  batch, never serving on one device in silence. Degradation mid-batch
+  primary's group world (`parallel.group_world`: the primary is rank
+  0, follower processes run its device calls; a world of 1 when none
+  is open), where the JAX primary takes the host's devices. A mesh
+  that needs more ranks than the world has raises at the first batch,
+  never serving on one device in silence; a world that loses a rank
+  makes the backend refuse its batches (`GroupDegraded`). Degradation mid-batch
   surfaces as `GroupDegraded`, riding the existing
   WORKER_TASK_FAIL -> requeue-at-front machinery; completion dedup in
   the scheduler keeps every acked batch counted exactly once no
@@ -40,8 +42,7 @@ cluster scheduler that shape:
 - **Observability**: ``jobs_group_*`` metrics (formed gauge, member
   liveness, degradation/reform counters, group-served batch counter),
   `JobService.group_stats()` in the CLI ``breakdown`` verb, and the
-  ``cluster_sharded_serving`` bench section (in the port it waits for
-  ROADMAP §A item 2, the rank-driven group form).
+  ``cluster_sharded_serving`` bench section (`bench_sharded_serving`).
 
 The port's copy of dml_tpu/jobs/groups.py. The module stays free of
 torch at import time (the chaos/CLI stub paths build directories and
@@ -674,10 +675,17 @@ def sharded_backend(
             _check_members(group_name or "?", members, alive_fn)
 
     async def backend(model: str, paths: List[str]):
+        from ..parallel import group_world
+
         _check()
-        results, infer_time = await asyncio.to_thread(
-            _sharded_run, si, paths, size
-        )
+        group_world.refuse(backend, si)
+        try:
+            results, infer_time = await asyncio.to_thread(
+                _sharded_run, si, paths, size
+            )
+        except Exception as e:
+            group_world.refuse(backend, si, e)  # a lost rank: GroupDegraded
+            raise
         _check()
         if group_name:
             _M_GROUP_BATCHES.inc(group=group_name)
@@ -694,12 +702,13 @@ def sharded_backend(
 
 def group_ranks(group_name: str, use_mesh) -> Optional[range]:
     """The ranks a group mesh takes: a fully-specified mesh takes its
-    size off the front of the process's world (``range(want)``, the
-    counterpart of the JAX primary's ``jax.devices()[:want]``); a -1
-    axis fills with the whole world (None). Raises RuntimeError when
-    the world is smaller than the mesh — a group that served on fewer
-    chips while the pool weighted it at group capacity would be slower
-    than no groups at all."""
+    size off the front of the process's torch.distributed world
+    (``range(want)``, the counterpart of the JAX primary's
+    ``jax.devices()[:want]``): a group primary's world when one is open
+    (`parallel.group_world`: rank 0 and its followers), 1 without one;
+    a -1 axis fills with the whole world (None). Raises RuntimeError when the world is smaller than the mesh
+    — a group that served on fewer chips while the pool weighted it at
+    group capacity would be slower than no groups at all."""
     from ..parallel.mesh import _world
 
     world = _world()
@@ -730,8 +739,9 @@ def group_engine_backend(
     """The production group engine for CLI/NodeApp primaries: a lazy
     MULTI-model sharded backend. On the first batch of each model it
     builds (and caches) a ``param_gather=True`` `ShardedInference`
-    over the group mesh resolved from this process's world
-    (`group_ranks`), on `device` (`cuda` when None; it raises where
+    over the group mesh resolved from the group world (`group_ranks`;
+    built through the primary's world when one is open, so its
+    follower ranks serve each batch with it), on `device` (`cuda` when None; it raises where
     there is none), so any registry CNN serves sharded without
     per-model wiring (``backend.model = None`` — the service routes
     every non-LM model here). Weights init seed-deterministically (like
@@ -764,6 +774,7 @@ def group_engine_backend(
     members_fn = members if callable(members) else (lambda: members)
     cache: Dict[Tuple[str, Tuple[int, int, int]], Any] = {}
     explicit: Dict[str, Any] = {}  # model -> operator-loaded tree
+    retired: List[Any] = []  # engines replaced by set_variables
 
     def _mesh_for(n_active: int, n_members: int):
         """The mesh to serve on at this strength: the configured
@@ -777,13 +788,17 @@ def group_engine_backend(
         return MeshSpec(dp=rung["dp"], tp=rung["tp"], pp=rung["pp"])
 
     def _build(model: str, use_mesh):
+        from ..parallel import group_world
         from ..parallel.inference import ShardedInference
         from ..parallel.mesh import make_mesh
 
-        mesh = make_mesh(use_mesh, ranks=group_ranks(group_name, use_mesh))
-        si = ShardedInference(
-            model, mesh, batch_size=batch_size, seed=seed,
-            variables=explicit.get(model), param_gather=True,
+        # through the primary's group world when one is open: every
+        # rank builds the mesh (collective) and its copy of the engine
+        mesh = group_world.build(
+            make_mesh, use_mesh, ranks=group_ranks(group_name, use_mesh))
+        si = group_world.build(
+            ShardedInference, model, mesh, batch_size=batch_size,
+            seed=seed, variables=explicit.get(model), param_gather=True,
             device=device,
         )
         cache[(model, (use_mesh.dp, use_mesh.tp, use_mesh.pp))] = si
@@ -793,6 +808,9 @@ def group_engine_backend(
         return si
 
     async def backend(model: str, paths: List[str]):
+        from ..parallel import group_world
+
+        group_world.refuse(backend)
         mem = members_fn()
         alive = alive_fn()
         active = tuple(m for m in mem if m in alive)
@@ -804,11 +822,19 @@ def group_engine_backend(
             )
 
         def run():
+            from ..parallel import group_world
+
+            while retired:
+                group_world.drop(retired.pop())
             key = (model, (use_mesh.dp, use_mesh.tp, use_mesh.pp))
             si = cache.get(key) or _build(model, use_mesh)
             return _sharded_run(si, paths, si.spec.input_size)
 
-        results, infer_time = await asyncio.to_thread(run)
+        try:
+            results, infer_time = await asyncio.to_thread(run)
+        except Exception as e:
+            group_world.refuse(backend, cause=e)  # a lost rank: GroupDegraded
+            raise
         now_active = tuple(m for m in members_fn() if m in alive_fn())
         if now_active != active:
             raise GroupDegraded(
@@ -823,7 +849,9 @@ def group_engine_backend(
         engines (every shape) so the next batch rebuilds on this tree."""
         explicit[model] = variables
         for key in [k for k in cache if k[0] == model]:
-            cache.pop(key, None)
+            # forgotten on every rank by the next batch's thread (a
+            # world call can wait for a running batch: not on the loop)
+            retired.append(cache.pop(key))
 
     backend.capacity = float(max(len(members_fn()), 1))
     backend.group_name = group_name
@@ -858,25 +886,160 @@ def wire_group_backend(node, device=None) -> Optional[Any]:
 
 
 # ----------------------------------------------------------------------
-# bench: sharded cluster serving (waits for ROADMAP §A item 2)
+# bench: sharded cluster serving on a group world
+# (`python -m dml_tpu_torch.jobs.groups`: this process runs the cluster
+# and is rank 0 of the group's world; its follower rank is a `node
+# --follow` process)
 # ----------------------------------------------------------------------
 
-_RANK_DRIVEN = (
-    "waits for ROADMAP §A item 2, the rank-driven group form: the bench's tp-2 "
-    "group lives in one process in JAX (jax.devices()[:2] beside a 5-node "
-    "LocalCluster) and on two ranks in the port, whose group primary has no "
-    "follower ranks yet (jobs.groups.group_ranks raises for a mesh larger than "
-    "the process's world)")
 
+def bench_sharded_serving(
+    n_queries: int = 64,
+    n_files: int = 16,
+    base_port: int = 28941,
+    image_size: Tuple[int, int] = (64, 64),
+    batch: int = 8,
+    model: str = "ResNet50",
+    tmp: Optional[str] = None,
+    device=None,
+    stats: Optional[Dict[str, Any]] = None,
+) -> Dict[str, Any]:
+    """End-to-end sharded cluster serving vs the single-chip pipeline.
 
-def bench_sharded_serving(**_kw) -> Dict[str, Any]:
-    """End-to-end sharded cluster serving against the single-device
-    pipeline. Not in the port yet: it waits for ROADMAP §A item 2, the
-    rank-driven group form. The JAX bench holds its tp-2 group in one
-    process (`jax.devices()[:2]` beside a 5-node `LocalCluster`); the
-    port's mesh runs one process per rank, so the group needs a primary
-    with follower ranks. Raises NotImplementedError saying so."""
-    raise NotImplementedError(f"jobs.groups.bench_sharded_serving {_RANK_DRIVEN}")
+    Stands up the SAME `chaos.LocalCluster` chassis the soaks
+    validate — 5 nodes, H4+H5 pooled into one dp=1×tp=2 group whose
+    primary serves on a ``param_gather`` ShardedInference — serves an
+    image job through the full store/scheduler/ACK pipeline, then
+    disables grouping and serves the identical job on single chips.
+    Records q/s both ways, the group topology in force, and the
+    output-equality flag (merged job outputs must match KEY FOR KEY,
+    BIT FOR BIT — the param_gather contract). float32 so the equality
+    claim is about reduction order, not dtype noise.
+
+    The port's tp-2 group is a group world (`parallel.group_world`):
+    this process, which runs the cluster, is rank 0 and H4's engine
+    runs on it and on one follower rank, a `node --follow 1` process
+    this bench starts, with the rendezvous under `tmp` (a fresh
+    directory under the system's temporary root when None). Engines run
+    on `device` (cuda when None; it raises where there is none); two
+    ranks on one card exchange through the host (gloo). `stats`, when
+    given, receives the world's (`World.stats()`: calls, bytes, host
+    seconds of its broadcasts and of the calls they carried)."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ..cluster.chaos import LocalCluster
+    from ..config import ClusterSpec, MeshSpec, Timing, WorkerGroupSpec
+    from ..models.lm_params import resolve_device
+    from ..parallel import group_world
+    from ..parallel.inference import ShardedInference
+    from ..parallel.mesh import make_mesh
+    from .service import JobService
+
+    dev = resolve_device(device)
+    tmp = tmp or os.path.join(tempfile.gettempdir(), "dml_tpu_torch_bench_sharded")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp, exist_ok=True)
+    group = WorkerGroupSpec("tp0", ("H4", "H5"), MeshSpec(dp=1, tp=2))
+    spec = ClusterSpec.localhost(5, base_port=base_port, worker_groups=[group])
+    with group_world.local_world(spec, "H4", os.path.join(tmp, "world"), device=dev) as world:
+        mesh_group = group_world.build(make_mesh, MeshSpec(dp=1, tp=2), ranks=range(2))
+        # every rank inits the same seeded tree; the one-device engine
+        # (no mesh: this process alone) takes it too
+        si_group = group_world.build(
+            ShardedInference, model, mesh_group, batch_size=batch, seed=0,
+            dtype=torch.float32, param_gather=True, device=dev,
+        )
+        si_one = ShardedInference(
+            model, None, batch_size=batch, seed=0, dtype=torch.float32, device=dev,
+        )
+        # pay both first calls BEFORE the timed serves: the q/s ratio must
+        # compare serving, not who ate the warmup (cuDNN's algorithm
+        # choice, the gloo pairs' first exchange)
+        warm = np.zeros((1, *image_size, 3), np.uint8)
+        si_group(warm)
+        si_one(warm)
+
+        async def run() -> Dict[str, Any]:
+            root = os.path.join(tmp, "cluster")
+            os.makedirs(root, exist_ok=True)
+            cluster = LocalCluster(
+                5, root, base_port,
+                timing=Timing(ping_interval=0.2, ack_timeout=0.3,
+                              cleanup_time=1.0, leader_rpc_timeout=10.0),
+                worker_groups=[group],
+                make_jobs=lambda node, store: _make_sharded_jobs(
+                    node, store, JobService, si_group, si_one, group,
+                    image_size, model, batch,
+                ),
+            )
+            try:
+                await cluster.start()
+                await cluster.wait_for(
+                    cluster.converged, 20.0, "sharded bench convergence"
+                )
+                stack = [sn for _, sn in sorted(cluster.nodes.items())]
+                client = stack[-1]
+                from PIL import Image
+
+                rng = np.random.RandomState(0)
+                for i in range(n_files):
+                    p = os.path.join(root, f"img_{i}.jpeg")
+                    Image.fromarray(
+                        rng.randint(0, 255, (96, 96, 3), np.uint8)
+                    ).save(p)
+                    await client.store.put(p, f"img_{i}.jpeg")
+
+                async def timed_job() -> Tuple[float, Dict[str, Any]]:
+                    t0 = time.monotonic()
+                    job_id = await client.jobs.submit_job(model, n_queries)
+                    done = await client.jobs.wait_job(job_id, timeout=600.0)
+                    wall = time.monotonic() - t0
+                    assert done["total_queries"] == n_queries
+                    merged = await client.jobs.get_output(
+                        job_id, os.path.join(root, f"out_{job_id}.json")
+                    )
+                    return wall, merged
+
+                wall_g, merged_g = await timed_job()
+                leader = next(sn for sn in stack if sn.node.is_leader)
+                group_stats = leader.jobs.group_stats()
+                for sn in stack:
+                    sn.jobs.groups.enabled = False
+                wall_s, merged_s = await timed_job()
+                equal = merged_g == merged_s and bool(merged_g)
+                return {
+                    "nodes": 5,
+                    "queries": n_queries,
+                    "model": model,
+                    "image_size": list(image_size),
+                    "groups": {
+                        name: g for name, g in group_stats.items()
+                        if isinstance(g, dict)
+                    },
+                    "qps_sharded": round(n_queries / wall_g, 1),
+                    "qps_single_chip": round(n_queries / wall_s, 1),
+                    "sharded_vs_single": round(wall_s / wall_g, 2),
+                    "equal_outputs": equal,
+                    "outputs_compared": len(merged_g),
+                    "note": "a group world of two ranks on one host: the "
+                            "equality flag is the product claim — "
+                            "param_gather tp keeps group outputs "
+                            "bit-identical to single-chip — while the q/s "
+                            "ratio times the world's host-staged gloo "
+                            "exchange, not an interconnect",
+                }
+            finally:
+                await cluster.stop()
+
+        result = asyncio.run(run())
+        if stats is not None:
+            stats.update(world.stats(), device=str(dev))
+    return result
 
 
 def _make_sharded_jobs(
@@ -903,11 +1066,32 @@ def _make_sharded_jobs(
     return js
 
 
-def _main() -> None:  # pragma: no cover - bench subprocess entry
-    """`python -m dml_tpu_torch.jobs.groups`: `bench_sharded_serving`'s
-    entry, which waits for ROADMAP §A item 2 (the rank-driven group
-    form) for the same reason; raises NotImplementedError."""
-    raise NotImplementedError(f"python -m dml_tpu_torch.jobs.groups {_RANK_DRIVEN}")
+def _main(argv: Optional[List[str]] = None) -> None:  # pragma: no cover - bench entry
+    """`python -m dml_tpu_torch.jobs.groups [options]`: one JSON line,
+    `bench_sharded_serving` at JAX's defaults unless the options say
+    otherwise (cuda unless --device cpu)."""
+    import argparse
+    import json
+
+    p = argparse.ArgumentParser(prog="python -m dml_tpu_torch.jobs.groups")
+    p.add_argument("--n-queries", type=int, default=64)
+    p.add_argument("--n-files", type=int, default=16)
+    p.add_argument("--base-port", type=int, default=28941)
+    p.add_argument("--image-size", type=int, nargs=2, default=(64, 64))
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--tmp", default=None)
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    p.add_argument("--world-stats", default=None, metavar="PATH",
+                   help="write the group world's stats there (JSON)")
+    a = p.parse_args(argv)
+    stats: Dict[str, Any] = {}
+    print(json.dumps(bench_sharded_serving(
+        n_queries=a.n_queries, n_files=a.n_files, base_port=a.base_port,
+        image_size=tuple(a.image_size), batch=a.batch, tmp=a.tmp,
+        device=a.device, stats=stats), default=str), flush=True)
+    if a.world_stats:
+        with open(a.world_stats, "w") as f:
+            json.dump(stats, f)
 
 
 if __name__ == "__main__":  # pragma: no cover

@@ -552,10 +552,10 @@ class JobService:
         """True when a batch of `model` executing NOW would run on
         this node's group engine: a group backend is wired for it, it
         serves this model (gb.model pins a single compiled engine;
-        None = any CNN), and this node is the primary of a formed
-        group."""
+        None = any CNN), its group world is not lost (gb.lost), and
+        this node is the primary of a formed group."""
         gb = self._group_backend_for(model)
-        if gb is None:
+        if gb is None or getattr(gb, "lost", False):
             return False
         if getattr(gb, "model", None) not in (None, model):
             return False

@@ -30,7 +30,10 @@ import torch
 
 NEG_INF = -1e30
 MAX_GROUP = 16    # query heads per kv head the kernel takes
-HEAD_DIMS = (16, 32, 64, 128)
+#: D 48 and 96 (the cluster LM bench's ShardLM, d 384 over 4 heads, and its
+#: draft's d 192) read a row with a power of two of lanes, those past D's
+#: slices idle (csrc/decode_attention.cu)
+HEAD_DIMS = (16, 32, 48, 64, 96, 128)
 _CACHE_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 # the one-launch kernel's plan (mirrors csrc/decode_attention.cu)

@@ -53,6 +53,10 @@ import torch
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
+#: the forward's float32 route also takes D 48 and 96 (the cluster LM
+#: bench's ShardLM, d 384 over 4 heads, and its draft's d 192); no bf16
+#: route and no backward does
+F32_HEAD_DIMS = HEAD_DIMS + (48, 96)
 _DTYPES = (torch.bfloat16, torch.float32)
 
 #: kernel launches since the last reset (plain ints; a test or
@@ -86,8 +90,10 @@ def _library() -> ctypes.CDLL:
 def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
     """The forward kernel that `dml_flash_fwd` launches for (dtype, D),
     as the C entry point picks it: "wgmma+tma" for bf16 at D 64 and 128,
-    "mma.sync" for bf16 at D 16 and 32, "fma" for float32."""
-    if dtype not in _DTYPES or head_dim not in HEAD_DIMS:
+    "mma.sync" for bf16 at D 16 and 32, "fma" for float32 (also at D 48
+    and 96)."""
+    dims = F32_HEAD_DIMS if dtype == torch.float32 else HEAD_DIMS
+    if dtype not in _DTYPES or head_dim not in dims:
         raise ValueError(f"no flash attention kernel for {dtype} at head_dim {head_dim}")
     if dtype == torch.float32:
         return "fma"
@@ -97,7 +103,10 @@ def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
 def bwd_kernel_route(dtype: torch.dtype, head_dim: int) -> str:
     """The backward kernels that `dml_flash_bwd` launches for (dtype, D),
     as the C entry point picks them: "wgmma+tma" for bf16 at D 64 and
-    128, "mma.sync" for bf16 at D 16 and 32, "fma" for float32."""
+    128, "mma.sync" for bf16 at D 16 and 32, "fma" for float32 (not at
+    the forward's extra D 48 and 96)."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"no flash attention kernel for {dtype} at head_dim {head_dim}")
     return kernel_route(dtype, head_dim)
 
 
@@ -260,9 +269,9 @@ def _kernel_view(x: torch.Tensor) -> torch.Tensor:
     return x if ok else x.clone(memory_format=torch.contiguous_format)
 
 
-def _check_cuda(q, k, v):
-    if q.shape[3] not in HEAD_DIMS:
-        raise ValueError(f"head_dim {q.shape[3]} not supported by the kernel (one of {HEAD_DIMS})")
+def _check_cuda(q, k, v, dims=HEAD_DIMS):
+    if q.shape[3] not in dims:
+        raise ValueError(f"head_dim {q.shape[3]} not supported by the kernel (one of {dims})")
     if not (k.device == v.device == q.device):
         raise ValueError("q, k and v must be on one device")
 
@@ -272,7 +281,7 @@ def _flash_cuda(q, k, v, causal, scale, mma_sync=False):
     runs the mma.sync kernel whatever D is (to time it beside the
     wgmma route); the wrappers never pass it. Counts one launch."""
     global flash_launches
-    _check_cuda(q, k, v)
+    _check_cuda(q, k, v, F32_HEAD_DIMS if q.dtype == torch.float32 else HEAD_DIMS)
     b, tq, h, d = q.shape
     tk, kv = k.shape[1], k.shape[2]
     q, k, v = _kernel_view(q), _kernel_view(k), _kernel_view(v)

@@ -38,6 +38,7 @@ from ..models.lm_params import resolve_device
 from ..models.params_io import from_flax_variables, init_variables
 from ..models.registry import get_model
 from ..ops.preprocess import normalize_sharded
+from .group_world import seam
 from .mesh import all_gather, resolve_mesh
 from .sharding import gather_tree, partition_params, shard, shard_dim
 
@@ -141,9 +142,12 @@ class ShardedInference:
                 self._release()
         return probs if self.mesh is None else all_gather(probs, self.mesh, "dp", 0)
 
+    @seam
     def __call__(self, images_u8: np.ndarray) -> np.ndarray:
         """uint8 (N,H,W,3) -> float32 probs (N, classes); N padded up to
-        the batch size, chunk by chunk."""
+        the batch size, chunk by chunk. Built through a group primary's
+        world (`parallel.group_world`), the call is a device call: the
+        primary's decoded rows go to every rank, which runs it too."""
         n, bs = images_u8.shape[0], self.batch_size
         dp, i = (1, 0) if self.mesh is None else (self.mesh.shape["dp"], self.mesh.coords["dp"])
         k = bs // dp

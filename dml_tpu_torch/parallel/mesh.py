@@ -18,7 +18,10 @@ of a batch, over which the LM sums its gradients in one collective; the
 dp or sp group itself where the other axis has size 1).
 `make_mesh` is collective: every rank of the world calls it, in
 the same order, as `torch.distributed.new_group` requires, whether or
-not the rank is in the mesh (`ranks=`).
+not the rank is in the mesh (`ranks=`). In a group primary's world
+(`parallel.group_world`) the primary builds its meshes through the
+world, so its followers call it with it, and the mesh's groups take the
+world's collective timeout.
 
 Without torch.distributed a mesh of one rank is a plain one-device mesh
 (`resolve_mesh` gives None for it, and the forms run their one-device
@@ -129,6 +132,10 @@ def make_mesh(spec: Optional[MeshSpec] = None, ranks: Optional[Sequence[int]] = 
     if world == 1 and not (dist.is_available() and dist.is_initialized()):
         return Mesh(sizes, grid, 0, {}, None, None)
     me = dist.get_rank()
+    # a group world states its collective timeout (parallel.group_world)
+    from .group_world import collective_timeout
+
+    timeout = collective_timeout()
     groups = {}
     grouped = [(a, (a,)) for a in AXES if sizes[a] > 1 or a in _ALWAYS_GROUPED]
     # a plane with at most one axis longer than 1 is that axis's line (or
@@ -140,13 +147,14 @@ def make_mesh(spec: Optional[MeshSpec] = None, ranks: Optional[Sequence[int]] = 
         n = int(np.prod([sizes[a] for a in axes]))
         for line in np.moveaxis(grid, at, range(-len(at), 0)).reshape(-1, n):
             members = [int(r) for r in line]
-            group = dist.new_group(members)
+            group = dist.new_group(members, timeout=timeout)
             if me in members:
                 groups[key] = group
     for plane, axis in shared.items():
         if axis in groups:
             groups[plane] = groups[axis]
-    group_all = dist.group.WORLD if len(ranks) == world else dist.new_group(ranks)
+    group_all = (dist.group.WORLD if len(ranks) == world
+                 else dist.new_group(ranks, timeout=timeout))
     rank = me if me in ranks else None
     return Mesh(sizes, grid, rank, groups if rank is not None else {}, group_all,
                 dist.get_backend())

@@ -13,10 +13,9 @@ carries them).
   draft's own weights are each package's seeded init, so its
   acceptance rate is not compared), and the continuous-batching arm's
   `outputs_equal`. Timing fields are not compared.
-- The cluster benches that wait for the rank-driven group form raise
-  NotImplementedError naming it: `bench_lm_sharded_serving` and
-  `lm_sharded._main`, `jobs.groups.bench_sharded_serving` and
-  `jobs.groups._main`.
+
+The cluster benches that run the arms after their group forms are in
+`test_torch_cluster_benches.py`.
 """
 
 from __future__ import annotations
@@ -31,7 +30,6 @@ from dml_tpu.inference.lm_backend import lm_spec_parts as jax_lm_spec_parts
 from dml_tpu.models import params_io as jpio
 from dml_tpu_torch.inference import lm_sharded as tls
 from dml_tpu_torch.inference.lm_backend import lm_spec_parts
-from dml_tpu_torch.jobs import groups as tgroups
 
 SPEC = {"name": "ShardLM", "vocab_size": 64, "d_model": 32, "n_heads": 4, "n_kv_heads": 2,
         "n_layers": 2, "d_ff": 64, "dtype": "float32", "max_new_tokens": 8, "max_slots": 2,
@@ -133,12 +131,3 @@ def test_arms_default_to_cuda(parts, arm):
     (_jp, _jc), (tp, tc) = parts
     with pytest.raises(RuntimeError, match="no CUDA device"):
         arm(tp, tc, SPEC)
-
-
-@pytest.mark.parametrize("fn", [tls.bench_lm_sharded_serving, tls._main,
-                                tgroups.bench_sharded_serving, tgroups._main],
-                         ids=["bench_lm_sharded_serving", "lm_sharded_main",
-                              "bench_sharded_serving", "groups_main"])
-def test_cluster_benches_wait_for_the_rank_driven_form(fn):
-    with pytest.raises(NotImplementedError, match="ROADMAP §A item 2, the rank-driven group form"):
-        fn()
