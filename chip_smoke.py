@@ -16,6 +16,8 @@
     python3 chip_smoke.py --measure       # phases 1-2 and 22 (the measuring half) alone
     python3 chip_smoke.py --seq-parallel --measure  # phases 1-2, 15 and 22
     python3 chip_smoke.py --rank-groups   # phases 1-2, 21 and 23 (the group worlds)
+    python3 chip_smoke.py --head-dims     # phases 1-2, 6, 7, 9 and 24 (every head dim and group)
+    python3 chip_smoke.py --decode-ab DIR # the decode kernel of checkout DIR and of this one, in turns
 
 Phases, each printing one JSON line (with `t_s`, the seconds since the
 script started); any failure exits non-zero:
@@ -77,12 +79,20 @@ script started); any failure exits non-zero:
    self-attention (vit_b16: [32,197,12,64], q/k/v strided views of one
    [32,197,2304] qkv output), bf16 D=32 (the mma.sync
    route) and float32 cases (D 48 and 96 among them: the cluster LM
-   bench's ShardLM and its draft, phase 23); tolerances float32 2e-5 (out and lse),
+   bench's ShardLM and its draft, phase 23); the head dims
+   past 64/128 (`HEAD_DIM_FLASH_CASES`): Phi-2's prefill [1,2048,32,80],
+   Phi-3-mini's [1,2048,32,96], Gemma-2B's (q [1,2048,8,256], k/v one
+   head), ShardLM's D 96 and its draft's D 48 in both dtypes, a D-80
+   target's D-40 draft in both, the JAX tests' D 8 in both, an odd D 20
+   at one head (the wrapper's zero-padded copy, timed alone beside the
+   call as `copy_ms`) and D 200 cross attention (checked only); each
+   case names its route and native width; tolerances float32 2e-5 (out and lse),
    bf16 out 2e-2 and lse 1e-4. At prefill_b8, prefill_b1, mha_b1 and vit_b16 the
    wgmma kernel, the mma.sync kernel (checked too), SDPA and the plain
    version are timed in turns (new, mma.sync, SDPA, plain, SDPA,
    mma.sync, new) beside the tensor-core operation bound, with TFLOP/s
-   and share of the bound;
+   and share of the bound; every new case likewise (kernel, SDPA with
+   `enable_gqa`, plain);
 7. decode_check: the one-launch decode kernel against the plain
    version within 2e-5 for bf16, f32 and int8 caches; GQA-4, MQA and
    MHA; B=1 and B=8 at T=4096 with mixed per-slot positions, the LM's
@@ -90,9 +100,14 @@ script started); any failure exits non-zero:
    and 96 (f32 at the ShardLM's shapes, bf16, int8), pos 0,
    T=1001, B=64 with short positions; q in bf16 (as generate gives it,
    int8 caches too), in f32, bf16 over an f32 cache (D 16, 64, 128), f32
-   over a bf16 cache, and a strided view; each case run twice, bit-equal,
-   with a call at another (B, KV) between the two; rows past each slot's
-   position poisoned with +-1e4 must not change the output. A profiler
+   over a bf16 cache, and a strided view; then
+   (`HEAD_DIM_DECODE_CASES`) B=8 over a 2112-row cache in bf16 and int8
+   at StarCoder's 48 query heads on 1 kv head (D 128), Falcon-7B's 71 on 1
+   (D 64), Gemma-2B's 8 on 1 (D 256), Phi-3-mini's 32 on 32 (D 96) and
+   Phi-2's (D 80), each timed, then int8 D 48, D 8 in each cache form,
+   int8 D 40, bf16 D 20 and f32 D 200; each case run twice, bit-equal,
+   with a call at another (B, KV) between the two, and one launch a call;
+   rows past each slot's position poisoned with +-1e4 must not change the output. A profiler
    line shows one device kernel per call. At lm_b8, gqa4_b8, gqa4_b1,
    mqa_b8, mha_b1 and int8_gqa4_b8 the kernel, SDPA (bf16) and the plain
    version are timed in turns (kernel, SDPA, plain, SDPA, kernel) beside
@@ -113,7 +128,7 @@ script started); any failure exits non-zero:
    its time alone on one layer's cache (`decode_in_step`);
 9. flash_bwd_check: the flash backward (the delta kernel, then the dq
    and dkv kernels) against the plain `attention_backward` on the card,
-   each case naming its route (`bwd_kernel_route`) and run with and
+   each case naming its route (`kernel_route`) and run with and
    without an lse cotangent: the training shape (q/k/v [1,2048,16,64]
    bf16, causal, k/v repeated to 16 heads as the LM's blocks send them),
    GQA k/v [1,2048,4,64], D=128 (MHA, and GQA-4 at T=2048), ragged
@@ -123,7 +138,10 @@ script started); any failure exits non-zero:
    projection's output, dO transposed), non-causal cross attention
    (Tq=64, Tk=192; Tq=200, Tk=1000 GQA-4), ViT-B16's shape (vit_b16:
    [32,197,12,64] non-causal, strided as above), bf16 D=32 (the mma.sync
-   route) and float32 at T=1000, cross and D=16; float32 within atol
+   route) and float32 at T=1000, cross and D=16, and phase 6's head-dim
+   cases (timed where phase 6 times them: the kernels whole and apart,
+   the delta kernel, SDPA's backward with `enable_gqa`, the plain
+   version; at odd D 20 the six zero-padded copies alone); float32 within atol
    5e-5 + rtol 5e-4, bf16 within 1e-2 of the largest reference
    magnitude. The delta kernel's row arrays against `bwd_rows_plain`
    (lse and the pad rows exact, delta within 1e-4). Two backwards on the
@@ -165,8 +183,8 @@ script started); any failure exits non-zero:
    median and p90, images/s, peak device memory, and a torch.profiler
    breakdown of one step with K1's share of the busy time;
 12. lm_server: the port's continuous-batching LMServer on cuda at the
-   same LM's width, cut to 6 of its 12 blocks since PR 20 (to pay for
-   phase 23; `LMS_CFG`), bf16, seeded weights. (a) bench.py's mixed-budget
+   same LM's width, cut to 2 of its 12 blocks (`LMS_CFG`), bf16, seeded
+   weights. (a) bench.py's mixed-budget
    stream (32 requests of 12 prompt tokens, budgets from 32..512 drawn
    by RandomState(3), 8 slots, max_len 1024, chunk 32): a warm-up, in
    which K4 is held to its plain version (2e-5) on the live cache with
@@ -197,9 +215,9 @@ script started); any failure exits non-zero:
    breakdown of one chunk step;
 13. moe: lm_moe8, the same LM with the repo's MoE option on (8 experts
    in every second block, capacity factor 1.25; 550.05M parameters at
-   12 blocks), cut to 6 blocks (3 MoE blocks, every width kept),
-   seeded weights, bf16, on cuda; the launch counts below are per
-   block, 6 where they say 12. (a) generate at B=8, 2048-token
+   12 blocks), cut to 2 blocks (1 MoE block, every width kept),
+   seeded weights, bf16, on cuda; the launch
+   counts below are per block, 2 where they say 12. (a) generate at B=8, 2048-token
    prompts, 64 new tokens (K2 12, K4 12 x 63, no other kernel; equal to
    prefill plus decode steps), the int8 form (int8 weights and KV cache,
    16 tokens); prefill ms, decode ms a step and tokens/s, peak memory,
@@ -278,8 +296,7 @@ script started); any failure exits non-zero:
    that exits non-zero fails the phase.
 16. pipeline: the pp and tp LM serving forms (`inference.lm_sharded`)
    over torch.distributed, the 198M LM's width in bf16 with seeded
-   weights, cut to 6 of its 12 blocks since PR 20 (to pay for phase 23;
-   `PIPE_LM_SPEC`). First, not counted: K2 on GQA's kv head h // G (what a pipeline
+   weights, cut to 2 of its 12 blocks (`PIPE_LM_SPEC`). First, not counted: K2 on GQA's kv head h // G (what a pipeline
    stage launches) bit-equal to K2 on k/v repeated to 16 heads (JAX's
    pipelined prefill) at a stage's prefill shape, [4, 2048, 16, 64];
    the references (one device's server on 8 requests of phase 12's
@@ -296,9 +313,9 @@ script started); any failure exits non-zero:
    runs up to a near-tie (TIE_MARGIN) and counted where equal to the
    local serve's; the float32 narrow LM's slabs (TF32 off) adopted with
    tokens equal to its local serve's. (b) Two gloo ranks, both on cuda:0, spawned: at pp 2
-   `PipelinedLMBackend` (3 blocks a stage, 2 microbatches) on 8 prompts
+   `PipelinedLMBackend` (1 block a stage, 2 microbatches) on 8 prompts
    of 256-2048 tokens with budgets up to 64: a warm-up, 2 timed and a
-   profiled batch, each (n_layers / pp) x microbatches = 6 K2 launches
+   profiled batch, each (n_layers / pp) x microbatches = 2 K2 launches
    a rank, tokens equal on both ranks and to each prompt's lone run up
    to a near-tie, each rank's weight bytes `pp_hbm_report`'s
    per-member bytes, ms a batch, tokens/s, peak memory and the
@@ -472,6 +489,25 @@ script started); any failure exits non-zero:
     tokens/s per form, streamed against whole-slab TTFT, the worlds'
     broadcast and call seconds.
 
+24. head_dims: the cluster LM bench's ShardLM at its full width (d 384
+    over 4 heads, GQA-2, 4 layers, d_ff 1536, vocab 128: D 96) in bf16,
+    the LM spec's default, with its draft_lm_spec draft (d 192, 2 layers:
+    D 48), through `LMBackend.from_spec` on cuda: 8 prompt files of
+    16-112 tokens, 32 tokens each, served with speculative decoding (k 4,
+    never auto-disabled: every dispatch a draft round, K4 at D 48) and
+    without (the target's chunk steps, K4 at D 96), each with the bf16
+    and with the int8 cache (the draft's too), and with speculation in
+    float32 (TF32 off). K2 (D 96 and 48) and K4 by phase 12's formula
+    from the server's counters; the float32 tokens equal each request's
+    lone float32 greedy run, both bf16 runs' tokens held to them up to a
+    near-tie (TIE_MARGIN). Then
+    `LongContextLM` at the same geometry, [2, 512] tokens, in bf16 and in
+    float32: one loss's gradients through the kernels against the plain
+    attention on the card (float32 within atol 5e-5 + rtol 5e-4, bf16
+    within 1e-2 of the largest magnitude a tensor; 4 K2, 4 K3, 4 delta
+    launches, none for the plain pass), then 3 train steps, losses
+    finite, each step 4 K2, 4 K3 and 4 delta launches. Under 60 s.
+
 Then the card's name and power limit as nvidia-smi prints them, the
 kernels' summary line (K1's launches by path: serving, training,
 cluster, ingress, measure and, for ResNet50, parallel, groups, cli and rank_groups,
@@ -479,8 +515,19 @@ and a row at the families' [32,224,224,3] tf shape with the families path; K2's
 and K4's: generate, train, lm_server, moe, seq_parallel, pipeline, cluster,
 ingress, families, groups, cli, measure and rank_groups, K2 timed at the LM's
 shapes and ViT-B16's; K3's
-and the delta kernel's: train, moe, seq_parallel and families), and
+and the delta kernel's: train, moe, seq_parallel and families; K2's
+mma.sync route timed at Phi-3-mini's D 96 prefill and K3's mma.sync pair
+at its D 96, with phase 24's launches; K4 at Phi-3-mini's decode with
+phase 24's served launches, bf16 and int8 caches, and at Falcon-7B's (5
+head chunks) with phase 7's launches at G 48 and 71), and
 last `{"ok": true, "device": {...}}`.
+
+`--decode-ab DIR` times the decode kernel of the checkout at DIR and of
+this one in turns on one card (DIR, this, this, DIR), one process a
+turn, each building its own library: `DECODE_AB_CASES` on the inputs of
+this file's `DECODE_CASES`, three medians of 50 launches a case a turn.
+It prints one `decode_ab` line (each side's sorted medians and the
+ratio of their medians), then the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -1071,7 +1118,7 @@ def ptxas_usage(report):
             name = f"{m.group(1)}<{','.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
             usage[name] = {}
             continue
-        m = re.search(r"Function properties for \S*?(decode_(?:split_)?kernel)I(f|a|13__nv_bfloat16)"
+        m = re.search(r"Function properties for \S*?(decode_(?:split_|general_)?kernel)I(f|a|13__nv_bfloat16)"
                       r"((?:Li\d+E)*)E", line)
         if m:
             args = [types[m.group(2)], *re.findall(r"Li(\d+)E", m.group(3))]
@@ -1123,6 +1170,37 @@ def dtype_name(dtype):
     return str(dtype).split(".")[-1]
 
 
+BF, F32 = "bfloat16", "float32"
+# The head dims and groups of public models and of the repo's own LMs,
+# past the D 16/32/64/128 the main path runs (name, b, tq, tk, h, kv, d,
+# causal, dtype): Phi-2's prefill (D 80), Phi-3-mini's (D 96), Gemma-2B's
+# (D 256, 8 query heads on 1 kv head), the cluster LM bench's ShardLM (d
+# 384 over 4 heads, GQA-2: D 96) and its draft_lm_spec draft (D 48) in
+# both dtypes, the draft of a D-80 target (D 40), the JAX tests' D 8, an
+# odd D whose bf16 rows are not whole 16-byte units (D 20 at H 1: the
+# wrapper's zero-padded copy), and a D past 128 that is not native (200,
+# non-causal cross attention). Phases 6 and 9 check and time each.
+HEAD_DIM_FLASH_CASES = (
+    ("phi2_d80", 1, 2048, 2048, 32, 32, 80, True, BF),
+    ("phi3mini_d96", 1, 2048, 2048, 32, 32, 96, True, BF),
+    ("gemma2b_d256", 1, 2048, 2048, 8, 1, 256, True, BF),
+    ("shardlm_d96", 4, 300, 300, 4, 2, 96, True, BF),
+    ("f32_shardlm_d96", 4, 300, 300, 4, 2, 96, True, F32),
+    ("draft_d48", 4, 300, 300, 4, 2, 48, True, BF),
+    ("f32_draft_d48", 4, 300, 300, 4, 2, 48, True, F32),
+    ("draft_d40", 2, 512, 512, 32, 32, 40, True, BF),
+    ("f32_draft_d40", 2, 512, 512, 32, 32, 40, True, F32),
+    ("jax_d8", 2, 128, 128, 4, 2, 8, True, BF),
+    ("f32_jax_d8", 2, 128, 128, 4, 2, 8, True, F32),
+    ("odd_d20_h1", 2, 130, 130, 1, 1, 20, True, BF),
+    ("d200_cross", 1, 100, 300, 4, 2, 200, False, BF),
+)
+HEAD_DIM_TIMED = tuple(c[0] for c in HEAD_DIM_FLASH_CASES[:-1])  # the last is checked only
+#: the timed case whose rows take the wrapper's zero-padded copy: the
+#: copy (`_kernel_view` of each input) is timed alone beside the call
+HEAD_DIM_PADDED = "odd_d20_h1"
+
+
 def phase_flash(timer):
     """The flash kernel against its plain version; the wgmma route beside
     the mma.sync route, the plain version and SDPA at the LM's shapes."""
@@ -1154,10 +1232,11 @@ def phase_flash(timer):
         ("f32_d96_shardlm", 4, 32, 32, 4, 2, 96, True, f32),
         ("f32_d96_t300", 2, 300, 300, 4, 2, 96, True, f32),
         ("f32_d48_draft", 4, 64, 64, 4, 2, 48, True, f32),
-    )
-    timed = ("prefill_b8", "prefill_b1", "mha_b1", "vit_b16")
+    ) + HEAD_DIM_FLASH_CASES
+    timed = ("prefill_b8", "prefill_b1", "mha_b1", "vit_b16") + HEAD_DIM_TIMED
     timings = {}
     for name, b, tq, tk, h, kv, d, causal, dtype in cases:
+        dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
         q = torch.randn((b, tq, h, d), generator=g, device="cuda").to(dtype)
         clean = None
         if name.startswith("prefill"):
@@ -1198,20 +1277,24 @@ def phase_flash(timer):
         if clean is not None:
             extra["equal_to_clean_run"] = bool(torch.equal(clean[0], out) and torch.equal(clean[1], lse))
             ok &= extra["equal_to_clean_run"]
+        route = fa.kernel_route(dtype, d)
         case = dict(phase="flash_check", case=name, q=[b, tq, h, d], kv=[b, tk, kv, d],
-                    causal=causal, dtype=dtype_name(dtype), route=fa.kernel_route(dtype, d),
+                    causal=causal, dtype=dtype_name(dtype), route=route.kind, width=route.width,
                     max_abs_err_out=err_out, max_abs_err_lse=err_lse, tol_out=tol_out,
                     tol_lse=tol_lse, ok=ok, **extra)
         emit(**case)
         check(ok, f"flash kernel disagrees: {case}")
         if name in timed:
             scale = d ** -0.5
-            m_out, m_lse = fa._flash_cuda(q, k, v, causal, scale, mma_sync=True)
-            torch.cuda.synchronize()
-            m_err = float((m_out.float() - p_out.float()).abs().max())
-            m_err_lse = float((m_lse - p_lse).abs().max())
-            check(m_err <= tol_out and m_err_lse <= tol_lse,
-                  f"{name}: mma.sync route disagrees ({m_err}, {m_err_lse})")
+            # the mma.sync kernel beside the wgmma route where D takes both
+            both = route.kind == "wgmma+tma"
+            if both:
+                m_out, m_lse = fa._flash_cuda(q, k, v, causal, scale, mma_sync=True)
+                torch.cuda.synchronize()
+                m_err = float((m_out.float() - p_out.float()).abs().max())
+                m_err_lse = float((m_lse - p_lse).abs().max())
+                check(m_err <= tol_out and m_err_lse <= tol_lse,
+                      f"{name}: mma.sync route disagrees ({m_err}, {m_err_lse})")
             qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
             def library():
@@ -1219,18 +1302,25 @@ def phase_flash(timer):
                                                       enable_gqa=kv != h)
 
             lib_diff = float((library().transpose(1, 2).float() - p_out.float()).abs().max())
-            runs = {"wgmma": lambda: fa.flash_attention_lse(q, k, v, causal=causal),
-                    "mma_sync": lambda: fa._flash_cuda(q, k, v, causal, scale, mma_sync=True),
+            runs = {"kernel": lambda: fa.flash_attention_lse(q, k, v, causal=causal),
                     "sdpa": library}
+            if both:
+                runs["mma_sync"] = lambda: fa._flash_cuda(q, k, v, causal, scale, mma_sync=True)
             # in turns on one card: new, mma.sync, SDPA, plain, SDPA, mma.sync, new
+            order = [key for key in ("kernel", "mma_sync", "sdpa") if key in runs]
             turns = {key: [] for key in runs}
-            for key in ("wgmma", "mma_sync", "sdpa"):
+            for key in order:
                 turns[key].append(timer.ms(runs[key], iters=20))
             p_ms = timer.ms(lambda: fa.attention_with_lse(q, k, v, causal=causal), iters=5,
                             warmup=1)
-            for key in ("sdpa", "mma_sync", "wgmma"):
+            for key in reversed(order):
                 turns[key].append(timer.ms(runs[key], iters=20))
-            k_ms, m_ms, l_ms = (statistics.mean(turns[key]) for key in ("wgmma", "mma_sync", "sdpa"))
+            k_ms, l_ms = (statistics.mean(turns[key]) for key in ("kernel", "sdpa"))
+            m_ms = statistics.mean(turns["mma_sync"]) if both else None
+            extra = {}
+            if name == HEAD_DIM_PADDED:
+                copy_ms = timer.ms(lambda: [fa._kernel_view(x) for x in (q, k, v)], iters=20)
+                extra = dict(copy_ms=copy_ms, copy_share=copy_ms / k_ms)
             ops = 4 * b * h * tq * tk * d / (2 if causal else 1)
             nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * q.element_size() \
                 + lse.numel() * 4
@@ -1240,15 +1330,16 @@ def phase_flash(timer):
             timings[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound,
                                  bound_by="operations" if t_ops >= t_bytes else "bytes",
                                  max_abs_err=err_out, mma_sync_ms=m_ms)
-            emit(phase="flash_time", case=name, route=fa.kernel_route(dtype, d), ms=k_ms,
+            if both:
+                extra = dict(speedup_vs_mma_sync=m_ms / k_ms, mma_sync_max_abs_err_out=m_err,
+                             mma_sync_tflop_s=ops / (m_ms * 1e-3) / 1e12,
+                             mma_sync_share_of_bound=bound / m_ms)
+            emit(phase="flash_time", case=name, route=route.kind, width=route.width, ms=k_ms,
                  mma_sync_ms=m_ms, plain_ms=p_ms, sdpa_ms=l_ms, turns_ms=turns,
-                 speedup_vs_mma_sync=m_ms / k_ms, vs_sdpa=k_ms / l_ms,
-                 mma_sync_max_abs_err_out=m_err, sdpa_vs_plain_max_abs=lib_diff, ops=ops,
+                 vs_sdpa=k_ms / l_ms, sdpa_vs_plain_max_abs=lib_diff, ops=ops,
                  bytes=nbytes, ops_bound_ms=t_ops, bytes_bound_ms=t_bytes,
                  achieved_tflop_s=ops / (k_ms * 1e-3) / 1e12,
-                 mma_sync_tflop_s=ops / (m_ms * 1e-3) / 1e12,
-                 sdpa_tflop_s=ops / (l_ms * 1e-3) / 1e12,
-                 share_of_bound=bound / k_ms, mma_sync_share_of_bound=bound / m_ms)
+                 sdpa_tflop_s=ops / (l_ms * 1e-3) / 1e12, share_of_bound=bound / k_ms, **extra)
         del q, k, v, out, lse, p_out, p_lse, clean
     torch.cuda.empty_cache()
     return timings
@@ -1284,7 +1375,28 @@ def _decode_bytes(pos, kv, h, d, k, q, ks):
     return nbytes, 4 * rows * h * d
 
 
-BF, F32 = "bfloat16", "float32"
+# Public models' decode steps at B 8 over a 2112-row cache (a 2048-token
+# prompt and 64 new tokens), bf16 and int8: StarCoder's 48 query heads on 1
+# kv head (D 128) and Falcon-7B's 71 on 1 (D 64), past one block's 16 heads
+# (head chunks); Gemma-2B's 8 on 1 at D 256; Phi-3-mini's 32 on 32 at D 96;
+# Phi-2's 32 on 32 at D 80. Then the rest of the head dims, untimed: the
+# ShardLM draft's D 48 on int8, the JAX tests' D 8 (int8 rows of 8 bytes:
+# the threads' copy), a D-80 target's draft (int8 D 40, the same), an odd
+# D (bf16 D 20: element by element) and f32 at D 200 (two vectors a lane).
+HEAD_DIM_DECODE_CASES = tuple(
+    (f"{p}{name}", 8, kv, h, 2112, d, c, BF, None)
+    for name, kv, h, d in (("starcoder_g48_d128", 1, 48, 128), ("falcon7b_g71_d64", 1, 71, 64),
+                           ("gemma2b_g8_d256", 1, 8, 256), ("phi3mini_mha_d96", 32, 32, 96),
+                           ("phi2_mha_d80", 32, 32, 80))
+    for p, c in (("", BF), ("int8_", "int8"))) + (
+    ("int8_d48_draft", 4, 2, 4, 128, 48, "int8", BF, None),
+    ("f32_jax_d8", 3, 2, 4, 80, 8, F32, F32, [79, 5, 40]),
+    ("bf16_jax_d8", 3, 2, 4, 80, 8, BF, BF, [79, 5, 40]),
+    ("int8_jax_d8", 3, 2, 4, 80, 8, "int8", BF, [79, 5, 40]),
+    ("int8_d40_draft", 4, 2, 8, 1000, 40, "int8", BF, None),
+    ("bf16_d20_odd", 3, 2, 6, 1001, 20, BF, BF, None),
+    ("f32_d200", 2, 2, 4, 700, 200, F32, F32, None),
+)
 DECODE_CASES = (  # name, b, kv, h, t, d, cache dtype, q dtype, positions (None: mixed, one at the end)
     ("lm_b8", 8, 4, 16, PROMPT_LEN + NEW_TOKENS, 64, BF, BF, [PROMPT_LEN + NEW_TOKENS // 2] * 8),
     ("gqa4_b8", 8, 4, 16, DECODE_CTX, 64, BF, BF, None),
@@ -1316,8 +1428,9 @@ DECODE_CASES = (  # name, b, kv, h, t, d, cache dtype, q dtype, positions (None:
     ("bf16_d48", 4, 2, 8, 1000, 48, BF, BF, None),
     ("bf16_d96_gqa4", 4, 4, 16, 2048, 96, BF, BF, None),
     ("int8_d96", 4, 2, 8, 1000, 96, "int8", BF, None),
-)
-DECODE_TIMED = ("lm_b8", "gqa4_b8", "gqa4_b1", "mqa_b8", "mha_b1", "int8_gqa4_b8")
+) + HEAD_DIM_DECODE_CASES
+DECODE_TIMED = ("lm_b8", "gqa4_b8", "gqa4_b1", "mqa_b8", "mha_b1", "int8_gqa4_b8") + tuple(
+    c[0] for c in HEAD_DIM_DECODE_CASES[:10])
 
 
 def phase_decode(timer):
@@ -1325,12 +1438,15 @@ def phase_decode(timer):
     cache and q form, each case twice (bit-equal, with a call at another
     (B, KV) in between); poisoned rows; one device kernel per call; the
     kernel, SDPA and the plain version timed in turns at the LM's decode
-    shapes."""
+    shapes. Returns the timings and the checks' launches at a plan of
+    more than one head chunk (G > 16: no path that the repo serves has
+    such a group)."""
     import torch
     import torch.nn.functional as F
     from dml_tpu_torch.ops import decode_attention as da
 
     g = torch.Generator(device="cuda").manual_seed(2)
+    hc_launches = 0
     other = _decode_inputs(g, 2, 3, 6, 300, 64, torch.bfloat16, BF)  # the call in between
     other_pos = torch.tensor([299, 100], dtype=torch.int32, device="cuda")
     timings = {}
@@ -1349,7 +1465,9 @@ def phase_decode(timer):
         def new():
             return da.decode_attention(q, k, v, pos_t, k_scale=ks, v_scale=vs)
 
+        before = case_before = da.decode_launches
         out = new()
+        launches = da.decode_launches - before
         da.decode_attention(*other[:3], other_pos)  # another (B, KV) between the two runs
         again = new()
         plain = da.decode_attention_plain(q, k, v, pos_t, k_scale=ks, v_scale=vs)
@@ -1364,19 +1482,23 @@ def phase_decode(timer):
                 ksp[i, :, :, p + 1:] = 1e4
                 vsp[i, :, :, p + 1:] = 1e4
         poisoned = da.decode_attention(q, kp, vp, pos_t, k_scale=ksp, v_scale=vsp)
+        checked = da.decode_launches - case_before - 1  # out, again, poisoned; not the call between
         torch.cuda.synchronize()
         err = float((out - plain).abs().max())
         ok = (out.dtype == torch.float32 and tuple(out.shape) == (b, 1, h, d) and err <= 2e-5
-              and torch.equal(poisoned, out) and torch.equal(again, out))
+              and torch.equal(poisoned, out) and torch.equal(again, out) and launches == 1)
         plan = da.split_plan(b, kv, t, d, h // kv, k.element_size(), ks is not None,
                              da._sms(q.device))
         case = dict(phase="decode_check", case=name, b=b, kv=kv, h=h, t=t, d=d, cache=cname, q=qname,
                     pos=pos if b <= 8 else f"{b} slots, max {max(pos)}", max_abs_err=err,
                     rerun_bit_equal=torch.equal(again, out),
                     poisoned_rows_change_output=not torch.equal(poisoned, out),
+                    launches=launches, bulk_rows=da.bulk_rows(d, k.element_size()),
                     plan=plan._asdict(), ok=ok)
         emit(**case)
         check(ok, f"decode kernel disagrees: {case}")
+        if plan.n_hc > 1:
+            hc_launches += checked
         del kp, vp, ksp, vsp, poisoned
         if name == "lm_b8":  # one device kernel per call
             before = da.decode_launches
@@ -1429,10 +1551,10 @@ def phase_decode(timer):
                  ops_bound_ms=t_ops, achieved_gb_s=nbytes / (k_ms * 1e-3) / 1e9,
                  share_of_bound=max(t_bytes, t_ops) / k_ms,
                  vs_sdpa=k_ms / l_ms if l_ms else None,
-                 grid=[plan.n_split, kv, b], chunk=plan.chunk, **extra)
+                 grid=[plan.n_split, kv * plan.n_hc, b], chunk=plan.chunk, **extra)
         del q, k, v, ks, vs, out, again, plain
     torch.cuda.empty_cache()
-    return timings
+    return timings, hc_launches
 
 
 def wall_ms(fn, reps=5, warmup=1):
@@ -1627,25 +1749,27 @@ def _bwd_inputs(name, b, tq, tk, h, kv, d, dtype, g):
     return [randn(b, tq, h, d), randn(b, tk, kv, d), randn(b, tk, kv, d), randn(b, tq, h, d)], None
 
 
-def _bwd_bounds(b, tq, tk, h, d, causal, el):
+def _bwd_bounds(b, tq, tk, h, kv, d, causal, el, dtype="bfloat16"):
     """(operations, bytes) and the bound of the whole backward at its
     minimum (5 products; q, k, v, out, dO, lse in; dq, dk, dv out), the
     split's 7, each kernel's own (dq: S, dP, dQ; dkv: S, dP, dV, dK; both
     read q, k, v, dO and the two row arrays), and the delta kernel's
-    (out, dO, lse in; the two padded row arrays out)."""
+    (out, dO, lse in; the two padded row arrays out). Products at the
+    dtype's peak (the tensor cores' for bf16, the FMA units' for f32)."""
     from dml_tpu_torch.ops.flash_attention import _rows_len
 
     product = 2 * b * h * tq * tk * d / (2 if causal else 1)
-    qkvo = b * tq * h * d * el  # one [B, T, H, D] tensor (k/v have H heads here)
+    qo = b * tq * h * d * el   # one [B, Tq, H, D] tensor: q, out, dO, dq
+    kvb = b * tk * kv * d * el  # one [B, Tk, KV, D] tensor: k, v, dk, dv
     rows = b * h * tq * 4
     prows = b * h * _rows_len(tq) * 4
     bound = {}
     for key, ops, nbytes, peak in (
-            ("min", 5 * product, 8 * qkvo + rows, "bfloat16"),
-            ("split", 7 * product, 8 * qkvo + rows, "bfloat16"),
-            ("dq", 3 * product, 5 * qkvo + 2 * prows, "bfloat16"),
-            ("dkv", 4 * product, 6 * qkvo + 2 * prows, "bfloat16"),
-            ("delta", 2 * b * tq * h * d, 2 * qkvo + rows + 2 * prows, "float32")):
+            ("min", 5 * product, 4 * qo + 4 * kvb + rows, dtype),
+            ("split", 7 * product, 4 * qo + 4 * kvb + rows, dtype),
+            ("dq", 3 * product, 3 * qo + 2 * kvb + 2 * prows, dtype),
+            ("dkv", 4 * product, 2 * qo + 4 * kvb + 2 * prows, dtype),
+            ("delta", 2 * b * tq * h * d, 2 * qo + rows + 2 * prows, "float32")):
         t_ops = ops / PEAK_FLOPS[peak] * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         bound[key] = dict(ops=ops, bytes=nbytes, ops_bound_ms=t_ops, bytes_bound_ms=t_bytes,
@@ -1681,8 +1805,8 @@ def phase_flash_bwd(timer):
         ("f32_t1000", 2, 1000, 1000, 8, 2, 64, True, f32),
         ("f32_cross", 2, 64, 192, 4, 4, 32, False, f32),
         ("f32_d16", 1, 130, 130, 2, 1, 16, True, f32),
-    )
-    deterministic = ("train", "gqa4", "vit_b16")
+    ) + HEAD_DIM_FLASH_CASES
+    deterministic = ("train", "gqa4", "vit_b16", "phi3mini_d96", "gemma2b_d256")
     names = ("dq", "dk", "dv")
 
     def held(got, want, dtype):
@@ -1699,6 +1823,7 @@ def phase_flash_bwd(timer):
 
     timings = {}
     for name, b, tq, tk, h, kv, d, causal, dtype in cases:
+        dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
         (q, k, v, dout), clean = _bwd_inputs(name, b, tq, tk, h, kv, d, dtype, g)
         out, lse = fa.flash_attention_lse(q, k, v, causal=causal)
         for with_lse in (False, True):
@@ -1724,8 +1849,9 @@ def phase_flash_bwd(timer):
                 again = fa.flash_attention_backward(q, k, v, out, lse, dout, dlse, causal=causal)
                 extra["bit_equal_rerun"] = all(torch.equal(a, c) for a, c in zip(got, again))
                 ok &= extra["bit_equal_rerun"]
+            route = fa.kernel_route(dtype, d)
             case = dict(phase="flash_bwd_check", case=name, q=[b, tq, h, d], kv=[b, tk, kv, d],
-                        causal=causal, dtype=dtype_name(dtype), route=fa.bwd_kernel_route(dtype, d),
+                        causal=causal, dtype=dtype_name(dtype), route=route.kind, width=route.width,
                         lse_cotangent=with_lse, max_abs_err=errs,
                         max_abs_ref={n: float(r.float().abs().max()) for n, r in zip(names, want)},
                         bar="atol 5e-5 + rtol 5e-4" if dtype == f32 else "1e-2 of max |ref|",
@@ -1733,7 +1859,7 @@ def phase_flash_bwd(timer):
             emit(**case)
             check(ok, f"flash backward kernels disagree: {case}")
             del got, want, rows, p_rows
-        if name in ("train", "vit_b16"):
+        if name in ("train", "vit_b16") + HEAD_DIM_TIMED:
             timings[name] = time_flash_bwd(timer, name, q, k, v, out, lse, dout, causal, errs)
         del q, k, v, dout, out, lse, clean
     torch.cuda.empty_cache()
@@ -1741,25 +1867,30 @@ def phase_flash_bwd(timer):
 
 
 def time_flash_bwd(timer, case, q, k, v, out, lse, dout, causal, errs):
-    """K3 at one shape: the new pair and the mma.sync pair (checked
-    against the plain version first), whole and per kernel, the delta
-    kernel, SDPA's backward and the plain version, in turns."""
+    """K3 at one shape: the kernels (and, where D takes the wgmma route,
+    the mma.sync pair beside it, checked against the plain version
+    first), whole and per kernel, the delta kernel, SDPA's backward and
+    the plain version, in turns."""
     import torch
     import torch.nn.functional as F
     from dml_tpu_torch.ops import flash_attention as fa
 
     b, tq, h, d = q.shape
-    tk = k.shape[1]
+    tk, kv = k.shape[1], k.shape[2]
     scale = d ** -0.5
+    route = fa.kernel_route(q.dtype, d)
+    both = route.kind == "wgmma+tma"
     lse_r, delta_r = fa._bwd_rows_cuda(out, dout, lse, None)
     delta_err = float((delta_r - fa.bwd_rows_plain(out, dout, lse)[1]).abs().max())
-    m_got = fa._flash_bwd_cuda(q, k, v, dout, lse_r, delta_r, causal, scale, mma_sync=True)
-    want = fa.attention_backward(q, k, v, out, lse, dout, causal=causal)
-    torch.cuda.synchronize()
-    m_err = max(float((a.float() - r.float()).abs().max()) for a, r in zip(m_got, want))
-    m_bar = max(1e-2 * float(r.float().abs().max()) for r in want)
-    check(m_err <= m_bar, f"mma.sync backward disagrees ({m_err} > {m_bar})")
-    del m_got, want
+    m_err = None
+    if both:
+        m_got = fa._flash_bwd_cuda(q, k, v, dout, lse_r, delta_r, causal, scale, mma_sync=True)
+        want = fa.attention_backward(q, k, v, out, lse, dout, causal=causal)
+        torch.cuda.synchronize()
+        m_err = max(float((a.float() - r.float()).abs().max()) for a, r in zip(m_got, want))
+        m_bar = max(1e-2 * float(r.float().abs().max()) for r in want)
+        check(m_err <= m_bar, f"mma.sync backward disagrees ({m_err} > {m_bar})")
+        del m_got, want
 
     def part(n, mma_sync=False):
         return lambda: fa._flash_bwd_cuda(q, k, v, dout, lse_r, delta_r, causal, scale, parts=n,
@@ -1770,17 +1901,19 @@ def time_flash_bwd(timer, case, q, k, v, out, lse, dout, causal, errs):
         return fa._flash_bwd_cuda(q, k, v, dout, *rows, causal, scale, mma_sync=True)
 
     qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-    oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)
+    oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal, enable_gqa=kv != h)
     doh = dout.transpose(1, 2)
     runs = {
         "k3": lambda: fa.flash_attention_backward(q, k, v, out, lse, dout, causal=causal),
         "dq": part(1), "dkv": part(2),
         "delta": lambda: fa._bwd_rows_cuda(out, dout, lse, None),
-        "k3_mma_sync": k3_mma, "dq_mma_sync": part(1, True), "dkv_mma_sync": part(2, True),
         "sdpa": lambda: torch.autograd.grad(oh, (qh, kh, vh), doh, retain_graph=True),
     }
+    if both:
+        runs.update(k3_mma_sync=k3_mma, dq_mma_sync=part(1, True), dkv_mma_sync=part(2, True))
     # in turns on one card: new, mma.sync, SDPA, plain, SDPA, mma.sync, new
-    order = ("k3", "dq", "dkv", "delta", "k3_mma_sync", "dq_mma_sync", "dkv_mma_sync", "sdpa")
+    order = [key for key in ("k3", "dq", "dkv", "delta", "k3_mma_sync", "dq_mma_sync",
+                             "dkv_mma_sync", "sdpa") if key in runs]
     turns = {key: [] for key in runs}
     for key in order:
         turns[key].append(timer.ms(runs[key], iters=20))
@@ -1790,21 +1923,26 @@ def time_flash_bwd(timer, case, q, k, v, out, lse, dout, causal, errs):
     for key in reversed(order):
         turns[key].append(timer.ms(runs[key], iters=20))
     ms = {key: statistics.mean(v) for key, v in turns.items()}
-    bound = _bwd_bounds(b, tq, tk, h, d, causal, q.element_size())
-    emit(phase="flash_bwd_time", case=case, route=fa.bwd_kernel_route(q.dtype, d),
+    extra = {}
+    if case == HEAD_DIM_PADDED:  # the delta kernel's copies (out, dO), then dq/dkv's (q, k, v, dO)
+        copy_ms = timer.ms(lambda: [fa._kernel_view(x) for x in (out, dout, q, k, v, dout)], iters=20)
+        extra.update(copy_ms=copy_ms, copy_share=copy_ms / ms["k3"])
+    bound = _bwd_bounds(b, tq, tk, h, kv, d, causal, q.element_size(), dtype_name(q.dtype))
+    share = {"k3_min": bound["min"]["bound_ms"] / ms["k3"],
+             "k3_split": bound["split"]["bound_ms"] / ms["k3"],
+             "dq": bound["dq"]["bound_ms"] / ms["dq"],
+             "dkv": bound["dkv"]["bound_ms"] / ms["dkv"],
+             "delta": bound["delta"]["bound_ms"] / ms["delta"]}
+    if both:
+        share.update(k3_split_mma_sync=bound["split"]["bound_ms"] / ms["k3_mma_sync"],
+                     dq_mma_sync=bound["dq"]["bound_ms"] / ms["dq_mma_sync"],
+                     dkv_mma_sync=bound["dkv"]["bound_ms"] / ms["dkv_mma_sync"])
+        extra["speedup_vs_mma_sync"] = {key: ms[f"{key}_mma_sync"] / ms[key] for key in ("k3", "dq", "dkv")}
+    emit(phase="flash_bwd_time", case=case, route=route.kind, width=route.width,
          ms=ms, turns_ms=turns, plain_ms=p_ms, delta_plain_ms=p_delta_ms, bound=bound,
          mma_sync_max_abs_err=m_err, delta_max_abs_err=delta_err,
-         speedup_vs_mma_sync={key: ms[f"{key}_mma_sync"] / ms[key] for key in ("k3", "dq", "dkv")},
-         vs_sdpa=ms["k3"] / ms["sdpa"],
-         share_of_bound={"k3_min": bound["min"]["bound_ms"] / ms["k3"],
-                         "k3_split": bound["split"]["bound_ms"] / ms["k3"],
-                         "dq": bound["dq"]["bound_ms"] / ms["dq"],
-                         "dkv": bound["dkv"]["bound_ms"] / ms["dkv"],
-                         "delta": bound["delta"]["bound_ms"] / ms["delta"],
-                         "k3_split_mma_sync": bound["split"]["bound_ms"] / ms["k3_mma_sync"],
-                         "dq_mma_sync": bound["dq"]["bound_ms"] / ms["dq_mma_sync"],
-                         "dkv_mma_sync": bound["dkv"]["bound_ms"] / ms["dkv_mma_sync"]},
-         achieved_tflop_s_split=bound["split"]["ops"] / (ms["k3"] * 1e-3) / 1e12)
+         vs_sdpa=ms["k3"] / ms["sdpa"], share_of_bound=share,
+         achieved_tflop_s_split=bound["split"]["ops"] / (ms["k3"] * 1e-3) / 1e12, **extra)
     del qh, kh, vh, oh, doh
     return dict(ms=ms, plain_ms=p_ms, delta_plain_ms=p_delta_ms, library_ms=ms["sdpa"],
                 bound=bound, max_abs_err=max(errs.values()), delta_max_abs_err=delta_err)
@@ -2154,9 +2292,9 @@ def phase_image_train():
 # bench.py's lm.mixed_budget_batching (bench.py:3373-3421): 32 requests of 12
 # prompt tokens, budgets drawn from 32..512, 8 slots, max_len 1024, chunk 32
 LMS_SLOTS, LMS_MAX_LEN, LMS_CHUNK = 8, 1024, 32
-#: phase 12's LM: the 198M LM's width, 6 of its 12 blocks (cut in PR 20,
-#: as phase 13's lm_moe8 in PR 14, to pay for phase 23)
-LMS_CFG = dict(LM_CFG, n_layers=6)
+#: phase 12's LM: the 198M LM's width, 2 of its 12 blocks (depth cut to
+#: keep the whole run inside its time limit on slow hosts)
+LMS_CFG = dict(LM_CFG, n_layers=2)
 # long prompts, so that K2 runs at real lengths: 16 requests of 256-2048 tokens
 LONG_REQS, LONG_BUDGET, LONG_MAX_LEN, LONG_CHUNK = 16, 64, 4096, 16
 # bf16 token checks: equal up to the first position where the lone run's top-1
@@ -2333,7 +2471,7 @@ def k4_live_check(srv, cfg):
 
 
 def phase_lm_server(timer):
-    """The continuous-batching LM server at full width, 6 of its 12 blocks
+    """The continuous-batching LM server at full width, 2 of its 12 blocks
     (phase 12)."""
     import dataclasses
 
@@ -2600,7 +2738,7 @@ def phase_lm_server(timer):
         with open(wpath, "wb") as f:
             f.write(variables_to_bytes({"params": p32}))
         write_s = time.monotonic() - t0
-        spec = dict(LMS_CFG, name="lm198m_6_blocks", dtype="bfloat16", max_new_tokens=32,
+        spec = dict(LMS_CFG, name="lm198m_2_blocks", dtype="bfloat16", max_new_tokens=32,
                     max_slots=LMS_SLOTS, max_len=LMS_MAX_LEN, chunk=LMS_CHUNK, weights=wpath)
         t0 = time.monotonic()
         be2 = LMBackend.from_spec(spec)  # device None -> cuda
@@ -2630,9 +2768,9 @@ def phase_lm_server(timer):
 # (dml_tpu/models/transformer.py:117-121), 6 MoE blocks of 8 experts at
 # d_ff 4096, 550.05M parameters
 MOE = dict(num_experts=8, moe_every=2)
-# phase 13 runs lm_moe8 cut to 6 of its 12 blocks (3 MoE blocks), every
-# width kept: half the depth pays for phase 17
-MOE_LM_CFG = dict(LM_CFG, n_layers=6)
+# phase 13 runs lm_moe8 cut to 2 of its 12 blocks (1 MoE block), every
+# width kept, to keep the whole run inside its time limit on slow hosts
+MOE_LM_CFG = dict(LM_CFG, n_layers=2)
 MOE_LAYER_TOKENS = (300, 1100)  # one serving chunk, and three (chunked)
 MOE_TRAIN_STEPS = 10
 
@@ -3680,9 +3818,9 @@ def phase_seq_parallel():
 # holds its longest prompt (2048) and budget (64)
 LM_SPEC = dict(LM_CFG, name="lm198m", dtype="bfloat16", seed=0, max_new_tokens=64,
                max_slots=LMS_SLOTS, max_len=LMS_MAX_LEN, chunk=LMS_CHUNK)
-#: phase 16's LM: the 198M LM's width, 6 of its 12 blocks (cut in PR 20,
-#: as phase 13's lm_moe8 in PR 14, to pay for phase 23)
-PIPE_LM_SPEC = dict(LM_SPEC, name="lm198m_6_blocks", n_layers=6)
+#: phase 16's LM: the 198M LM's width, 2 of its 12 blocks (one a pp
+#: stage; depth cut to keep the whole run inside its time limit)
+PIPE_LM_SPEC = dict(LM_SPEC, name="lm198m_2_blocks", n_layers=2)
 PIPE_MICRO, PIPE_TIMED = 2, 2  # microbatches, timed batches
 PIPE_LENS = (256, 2048)  # prompt lengths: the least, and the most (the first prompt's)
 PIPE_BUDGETS = [64, 16, 48, 32, 64, 8, 40, 24]  # one per prompt
@@ -3761,7 +3899,7 @@ def _pipeline_rank(rank, world, tmp):
     res = {"launches": {}, "stages_s": {"start": time.monotonic() - t_start}}
     reset_launch_counts()
 
-    # ---- pp 2: the LM, 3 blocks a stage ----
+    # ---- pp 2: the LM, 1 block a stage ----
     torch.cuda.reset_peak_memory_stats()
     be = PipelinedLMBackend(PIPE_SPEC, pp_mesh, microbatches=PIPE_MICRO)
     prompts, budgets = refs["pipe_prompts"], refs["pipe_budgets"]
@@ -6064,6 +6202,220 @@ def phase_rank_groups(smi):
             for k in RANK_KERNELS}
 
 
+# Phase 24: the cluster LM bench's ShardLM at its full width (d 384 over 4
+# heads, GQA-2, 4 layers, d_ff 1536, vocab 128: D 96) in bf16, the LM spec's
+# default dtype, with its draft_lm_spec draft (d 192 over 4 heads, 2
+# layers: D 48) for speculative decoding (k 4, never auto-disabled: every
+# dispatch is a draft round, whose decode attention is the draft's, D 48;
+# the target's own decode steps, D 96, run in the same spec without
+# speculation, HD_PLAIN_SPEC)
+HD_LM_SPEC = dict(name="ShardLM", vocab_size=128, d_model=384, n_heads=4, n_kv_heads=2,
+                  n_layers=4, d_ff=1536, dtype="bfloat16", seed=0, max_new_tokens=32,
+                  max_slots=4, max_len=256, chunk=8, spec_k=4, spec_min_accept=0.0)
+HD_PLAIN_SPEC = {k: v for k, v in HD_LM_SPEC.items() if not k.startswith("spec_")}
+HD_PROMPTS = 8           # prompts of 16-112 tokens drawn by RandomState(24)
+HD_TRAIN_SHAPE = (2, 512)  # LongContextLM's tokens [B, T]
+HD_TRAIN_STEPS = 3
+HD_SECONDS = 60          # the phase's own limit
+
+
+def phase_head_dims():
+    """ShardLM and its draft served in bf16 (K2 at D 96 and 48; K4 on the
+    bf16 and the int8 cache at D 96 and 48) and trained in each dtype (K3
+    at D 96), through the port's LMBackend.from_spec and LongContextLM on
+    cuda; counted."""
+    import torch
+    from dml_tpu_torch.inference import generate as gen
+    from dml_tpu_torch.inference.lm_backend import LMBackend, lm_spec_parts, write_prompt_file
+    from dml_tpu_torch.ops import flash_attention as fa
+    from dml_tpu_torch.parallel.long_context import LongContextLM
+
+    t_start = time.monotonic()
+    rng = np.random.RandomState(24)
+    vocab, budget = HD_LM_SPEC["vocab_size"], HD_LM_SPEC["max_new_tokens"]
+    prompts = [rng.randint(0, vocab, int(n)).astype(np.int32) for n in rng.randint(16, 113, HD_PROMPTS)]
+    out, paths_launches = {}, {}
+
+    def serve(name, spec, paths):
+        """Serve the prompt files through LMBackend.from_spec; K2 and K4
+        held to phase 12's formula from the server's own counters."""
+        be = LMBackend.from_spec(spec)
+        draft = LMBackend._draft_spec_of(spec)  # None without speculation
+        reset_launch_counts()
+        d0 = server_dispatches()
+        t0 = time.monotonic()
+        res, _, _ = be.serve_files(paths)
+        wall = time.monotonic() - t0
+        d = {k: v - d0[k] for k, v in server_dispatches().items()}
+        sp = be.spec_stats()
+        if draft is not None:
+            check(sp and sp["enabled"] and sp["rounds"] > 0, f"{name}: speculative decoding did not run: {sp}")
+        want = check_server_launches(name, launch_counts(), d, be.cfg.n_layers, spec["chunk"],
+                                     spec=dict(sp, draft_layers=draft["n_layers"]) if draft else None)
+        be.close()
+        toks = [res[p]["tokens"] for p in paths]
+        check(all(len(t) == budget and all(0 <= x < vocab for x in t) for t in toks),
+              f"{name}: a request's tokens are short or out of range")
+        out[name] = dict(launches=want, dispatches=d, spec=sp, wall_s=wall,
+                         tokens_per_s=sum(map(len, toks)) / wall,
+                         head_dim=be.cfg.d_model // be.cfg.n_heads,
+                         draft_head_dim=draft["d_model"] // draft["n_heads"] if draft else None)
+        paths_launches[name] = want
+        return toks
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for i, p in enumerate(prompts):
+            paths.append(os.path.join(tmp, f"p{i}.tokens.txt"))
+            write_prompt_file(paths[-1], p, max_new_tokens=budget)
+        bf16 = serve("serve_bf16", HD_LM_SPEC, paths)
+        bf16_plain = serve("serve_bf16_plain", HD_PLAIN_SPEC, paths)
+        int8 = serve("serve_bf16_int8_cache",
+                     dict(HD_LM_SPEC, kv_quant=True, spec_draft={"kv_quant": True}), paths)
+        serve("serve_bf16_int8_cache_plain", dict(HD_PLAIN_SPEC, kv_quant=True), paths)
+        with tf32_off():
+            spec32 = dict(HD_LM_SPEC, dtype="float32")
+            f32 = serve("serve_f32", spec32, paths)
+            params32, cfg32 = lm_spec_parts(spec32, device="cuda")
+            lone = [lone_greedy(gen, params32, cfg32, p, budget) for p in prompts]
+            del params32
+    check(all(t == want for t, (want, _) in zip(f32, lone)),
+          "head_dims: float32 served tokens != each request's lone float32 greedy run")
+    out["f32_exact_vs_lone"] = HD_PROMPTS
+    # bf16 against the float32 backend's tokens, up to a near-tie of its logits
+    out["bf16_vs_f32"] = held_to_lone("head_dims bf16", bf16, lone)
+    out["bf16_plain_vs_f32"] = held_to_lone("head_dims bf16 plain", bf16_plain, lone)
+    out["int8_cache_agreement_with_f32"] = prefix_agreement(
+        [np.array(t) for t in int8], [np.array(t) for t, _ in lone])
+
+    geometry = {k: HD_LM_SPEC[k] for k in ("vocab_size", "d_model", "n_heads", "n_kv_heads",
+                                           "n_layers", "d_ff")}
+    tokens = torch_from_seed(24, HD_TRAIN_SHAPE, vocab)
+    n_layers = HD_LM_SPEC["n_layers"]
+
+    def plain_attention(q, k, v, causal=True, **_):
+        return fa.attention_with_lse(q, k, v, causal=causal)[0]
+
+    for dtype in (torch.bfloat16, torch.float32):
+        name = f"train_{dtype_name(dtype)}"
+        with tf32_off():
+            lm = LongContextLM(seq_len=HD_TRAIN_SHAPE[1], dtype=dtype, seed=0, **geometry)
+            blocks = [m for m in lm.model.modules() if hasattr(m, "attention") and hasattr(m, "qkv")]
+            kernel_attention = blocks[0].attention
+            # one loss's gradients through the kernels (K2, then K3 and the
+            # delta kernel) and through the plain attention on the card
+            grads = {}
+            for which, attn in (("kernels", kernel_attention), ("plain", plain_attention)):
+                for blk in blocks:
+                    blk.attention = attn
+                lm.model.zero_grad(set_to_none=True)
+                reset_launch_counts()
+                lm.loss(tokens).backward()
+                grads[which] = ({n: p.grad.detach().float().clone() for n, p in lm.model.named_parameters()},
+                                launch_counts())
+            for blk in blocks:
+                blk.attention = kernel_attention
+            lm.model.zero_grad(set_to_none=True)
+            want1 = {"normalize": 0, "flash_attention": n_layers, "flash_bwd": n_layers,
+                     "flash_bwd_delta": n_layers, "decode_attention": 0}
+            check(grads["kernels"][1] == want1 and not any(grads["plain"][1].values()),
+                  f"{name}: gradient pass launched {grads['kernels'][1]} (kernels), "
+                  f"{grads['plain'][1]} (plain); want {want1} and none")
+            errs, ok = {}, True
+            for n, r in grads["plain"][0].items():
+                a = grads["kernels"][0][n]
+                diff = (a - r).abs()
+                errs[n] = float(diff.max())
+                if dtype == torch.float32:
+                    ok &= bool((diff <= 5e-5 + 5e-4 * r.abs()).all())
+                else:
+                    ok &= errs[n] <= 1e-2 * float(r.abs().max())
+            check(ok, f"{name}: kernel gradients differ from the plain attention's: {errs}")
+            del grads
+            reset_launch_counts()
+            t0 = time.monotonic()
+            losses = [lm.train_step(tokens) for _ in range(HD_TRAIN_STEPS)]
+            torch.cuda.synchronize()
+            step_s = (time.monotonic() - t0) / HD_TRAIN_STEPS
+            counts = launch_counts()
+            want = {"normalize": 0, "flash_attention": n_layers * HD_TRAIN_STEPS,
+                    "flash_bwd": n_layers * HD_TRAIN_STEPS,
+                    "flash_bwd_delta": n_layers * HD_TRAIN_STEPS, "decode_attention": 0}
+            check(counts == want, f"{name}: launched {counts}, want {want}")
+            check(all(np.isfinite(x) for x in losses), f"{name}: a loss is not finite: {losses}")
+            out[name] = dict(losses=losses, step_ms=step_s * 1e3, launches=counts,
+                             grad_max_abs_err=max(errs.values()),
+                             grad_bar="atol 5e-5 + rtol 5e-4" if dtype == torch.float32
+                             else "1e-2 of max |ref| per tensor")
+            paths_launches[name] = counts
+            del lm
+    torch.cuda.empty_cache()
+    seconds = time.monotonic() - t_start
+    emit(phase="head_dims", lm=HD_LM_SPEC, train_tokens=list(HD_TRAIN_SHAPE), seconds=seconds, **out)
+    check(seconds < HD_SECONDS, f"head_dims took {seconds:.1f} s, over its {HD_SECONDS} s")
+    return paths_launches
+
+
+# ---------------------------------------------------------------------------
+# --decode-ab DIR: the decode kernel of two checkouts in turns
+# ---------------------------------------------------------------------------
+
+#: the main path's decode shapes, and D 16 and 32 (decode_general_kernel,
+#: D at run time, where D < 64)
+DECODE_AB_CASES = ("lm_b8", "gqa4_b8", "gqa4_b1", "mqa_b8", "mha_b1", "int8_gqa4_b8", "int8_d16",
+                   "bf16_d32")
+#: one turn: put the checkout first on the path, then load this file by
+#: its path (the checkout has a chip_smoke.py of its own)
+_AB_TURN = ("import importlib.util, sys; sys.path.insert(0, sys.argv[1]); "
+            "spec = importlib.util.spec_from_file_location('chip_smoke_ab', sys.argv[2]); "
+            "m = importlib.util.module_from_spec(spec); spec.loader.exec_module(m); "
+            "m.decode_ab_turn(sys.argv[1])")
+
+
+def decode_ab_turn(tree):
+    """One turn: the decode kernel of the checkout at `tree`, built from
+    its sources, on DECODE_AB_CASES; prints `TURN {case: [3 medians]}`."""
+    import torch
+    from dml_tpu_torch.ops import decode_attention as da
+
+    where = os.path.abspath(da.__file__)
+    check(where.startswith(os.path.join(os.path.abspath(tree), "")), f"imported {where}, not {tree}'s")
+    timer = Timer()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    res = {}
+    for name, b, kv, h, t, d, cname, qname, pos in DECODE_CASES:
+        if name not in DECODE_AB_CASES:
+            continue
+        if pos is None:
+            pos = torch.randint(0, t, (b,), generator=g, device="cuda").tolist()
+            pos[0] = t - 1
+        pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        q, k, v, ks, vs = _decode_inputs(g, b, kv, h, t, d, getattr(torch, cname), qname)
+        res[name] = [timer.ms(lambda: da.decode_attention(q, k, v, pos_t, k_scale=ks, v_scale=vs),
+                              iters=50) for _ in range(3)]
+    print("TURN " + json.dumps(res), flush=True)
+
+
+def decode_ab(parent, smi):
+    """The turns parent, this checkout, this checkout, parent; one
+    `decode_ab` line."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = {"parent": [], "change": []}
+    for side, tree in (("parent", parent), ("change", here), ("change", here), ("parent", parent)):
+        tree = os.path.abspath(tree)
+        r = subprocess.run([sys.executable, "-c", _AB_TURN, tree, os.path.abspath(__file__)],
+                           cwd=tree, capture_output=True, text=True, timeout=600)
+        line = [x for x in r.stdout.splitlines() if x.startswith("TURN ")]
+        check(r.returncode == 0 and line, f"a decode_ab turn in {tree}: rc {r.returncode}\n"
+              f"{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+        runs[side].append(json.loads(line[0][5:]))
+    cases = {c: {side: sorted(x for run in v for x in run[c]) for side, v in runs.items()}
+             for c in DECODE_AB_CASES}
+    emit(phase="decode_ab", parent=os.path.abspath(parent), card=smi, cases=cases,
+         change_over_parent={c: statistics.median(v["change"]) / statistics.median(v["parent"])
+                             for c, v in cases.items()})
+
+
 def main() -> int:
     import torch
 
@@ -6078,6 +6430,10 @@ def main() -> int:
     emit(phase="device", name=name, capability=list(cap), count=torch.cuda.device_count(),
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
     check(cap[0] == 9, f"expected a Hopper card (9.x), got {cap}")
+    if "--decode-ab" in sys.argv[1:]:  # each turn builds its own checkout's library
+        decode_ab(sys.argv[sys.argv.index("--decode-ab") + 1], smi)
+        print(smi, flush=True)
+        return 0
 
     kernel_only = "--kernel-only" in sys.argv[1:]
     build_all(kernel_only)
@@ -6133,13 +6489,20 @@ def main() -> int:
         phase_rank_groups(smi)
         print(smi, flush=True)
         return 0
+    if "--head-dims" in sys.argv[1:]:  # after an attention-kernel edit: build, phases 6, 7, 9, 24
+        phase_flash(timer)
+        phase_decode(timer)
+        phase_flash_bwd(timer)
+        phase_head_dims()
+        print(smi, flush=True)
+        return 0
     timings = phase_kernel(timer)
     if kernel_only:  # a short call after a K1 edit: build, check, time, stop
         print(smi, flush=True)
         return 0
     launches = {m: phase_model(m, mode, timer) for m, mode in MODELS}
     flash = phase_flash(timer)
-    decode = phase_decode(timer)
+    decode, hc_launches = phase_decode(timer)
     lm_launches = phase_lm(timer)
     bwd = phase_flash_bwd(timer)
     train_launches = phase_train()
@@ -6156,6 +6519,7 @@ def main() -> int:
     cli_launches = phase_cli()
     measure_launches = phase_measure(smi)
     rank_launches = phase_rank_groups(smi)
+    hd_launches = phase_head_dims()
 
     kernels = []
     for model, mode in MODELS:
@@ -6244,6 +6608,52 @@ def main() -> int:
         max_abs_err=t["delta_max_abs_err"],
         ms=t["ms"]["delta"], plain_ms=t["delta_plain_ms"], bound_ms=t["bound"]["delta"]["bound_ms"],
         bound_by=t["bound"]["delta"]["bound_by"], library_ms=None))
+    # the routes past D 64/128, each timed at a public model's shape and
+    # launched by phase 24's ShardLM (bf16: its D 96 and its draft's 48)
+    served, trained = hd_launches["serve_bf16"], hd_launches["train_bfloat16"]
+    plain = hd_launches["serve_bf16_plain"]
+    k4_int8 = (hd_launches["serve_bf16_int8_cache"]["decode_attention"]
+               + hd_launches["serve_bf16_int8_cache_plain"]["decode_attention"])
+    t = dict(flash["phi3mini_d96"])
+    kernels.append(dict(
+        name="flash_fwd[Phi-3-mini prefill b1 T2048 H32 D96 bf16 causal; mma.sync at native "
+             "width 96; launches: ShardLM's D 96 and its draft's D 48, served in bf16]",
+        route="cuda", variant="mma.sync", source="dml_tpu_torch/csrc/flash_attention.cu",
+        replaces="dml_tpu/ops/flash_attention.py:65",
+        launches=served["flash_attention"] + plain["flash_attention"] + trained["flash_attention"],
+        launches_by_path={"head_dims_serve": served["flash_attention"],
+                          "head_dims_serve_plain": plain["flash_attention"],
+                          "head_dims_train": trained["flash_attention"]}, **t))
+    t = decode["phi3mini_mha_d96"]
+    kernels.append(dict(
+        name="decode_attention[Phi-3-mini b8 cache 2112 KV32 G1 D96 bf16; row width 128; "
+             "launches: ShardLM's D 96 and its draft's D 48, served in bf16, bf16 and int8 "
+             "caches]",
+        route="cuda", variant="one_launch", source="dml_tpu_torch/csrc/decode_attention.cu",
+        replaces="dml_tpu/ops/decode_attention.py:53",
+        launches=served["decode_attention"] + plain["decode_attention"] + k4_int8,
+        launches_by_path={"head_dims_serve": served["decode_attention"],
+                          "head_dims_serve_plain": plain["decode_attention"],
+                          "head_dims_serve_int8": k4_int8}, **t))
+    t = decode["falcon7b_g71_d64"]
+    kernels.append(dict(
+        name="decode_attention[Falcon-7B b8 cache 2112 KV1 G71 D64 bf16; 5 head chunks; "
+             "launches: phase 7's checks of G 48 and 71 (no path the repo serves has G > 16)]",
+        route="cuda", variant="head chunks", source="dml_tpu_torch/csrc/decode_attention.cu",
+        replaces="dml_tpu/ops/decode_attention.py:53", launches=hc_launches,
+        launches_by_path={"decode_check_head_chunks": hc_launches}, **t))
+    t = bwd["phi3mini_d96"]
+    for part, line in (("dq", 113), ("dkv", 166)):
+        kernels.append(dict(
+            name=f"flash_bwd_{part}[Phi-3-mini b1 T2048 H32 D96 bf16 causal; mma.sync at native "
+                 f"width 96; launches: ShardLM trained in bf16; plain and library times are the "
+                 f"whole backward's]",
+            route="cuda", variant="mma.sync", source="dml_tpu_torch/csrc/flash_attention_bwd.cu",
+            replaces=f"dml_tpu/ops/flash_attention.py:{line}", launches=trained["flash_bwd"],
+            launches_by_path={"head_dims_train": trained["flash_bwd"]},
+            max_abs_err=t["max_abs_err"], ms=t["ms"][part], plain_ms=t["plain_ms"],
+            bound_ms=t["bound"][part]["bound_ms"], bound_by=t["bound"][part]["bound_by"],
+            library_ms=t["library_ms"]))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,6 +5,8 @@
 // attends the head-major cache [B, KV, T, D] (bf16, f32, or int8 with f32
 // scales [B, KV, 1, T]); slot b sees cache rows t <= pos[b]. H = KV * G
 // with kv-major head order (head h = kv * G + g). Output f32 [B, 1, H, D].
+// Every head dim 1 <= D <= 256 and every group G, as the TPU kernel takes
+// them (it asks only that KV divide H).
 //
 // Numerics: f32 throughout. Cache elements widen exactly (bf16 and int8
 // are exact in f32). For an int8 cache the K scale multiplies the score
@@ -23,60 +25,79 @@
 //
 // - Work split. The TPU kernel folds every kv head of a slot into one
 //   program; on an H100 B * KV programs (32 at B=8, GQA-4) would leave
-//   most of the 132 SMs idle, so T is split as well. Block (split, kv, b)
-//   owns rows [split * chunk, min((split + 1) * chunk, pos[b] + 1)) of its
-//   (b, kv) plane: n contiguous rows of K and of V. The wrapper sizes the
-//   chunk by bytes (at most 64 KB of K + V, a multiple of SUB = 32 rows)
-//   and the grid so that every block is resident at once where the step's
-//   bytes fit the SMs' shared memory (ops/decode_attention.py::split_plan).
-//   Blocks wholly past pos[b] return before they load anything.
-// - Loads. Thread 0 initialises one mbarrier per K and per V sub-tile of
-//   32 rows and issues each sub-tile as a 1-D bulk copy (cp.async.bulk,
-//   completing on the sub-tile's barrier by its byte count) into its own
-//   slot of shared memory: the first `ahead` (2 from the wrapper) at block
-//   start, then sub-tile j + ahead before the block waits on sub-tile j, so
-//   no thread waits on a load before asking for the next. Two sub-tiles in
-//   flight per block (32 KB of K + V at bf16 D 64) rather than the whole
-//   chunk at once: an SM serves its copies in issue order, so with
-//   everything issued at block start the last resident block gets its
-//   first rows only after the others' last ones and computes its whole
-//   chunk after the stream has ended (an `ahead` as large as a chunk,
-//   which issues it all at once, measured slower: PERF.md). The last
-//   sub-tile is sized by n, so no row past pos[b] is ever
-//   read. Cache rows are D * itemsize >= 16 bytes and the cache is 16-byte
-//   aligned, so every K and V copy is aligned. int8 scale rows (4 bytes
-//   each) are bulk-copied over their 16-byte-aligned interior at block
-//   start; the at most three rows at either ragged end are loaded by hand.
-// - Math. The four warps split into ceil(G / GT) head groups of GT query
-//   heads (8 for f32, 4 otherwise); the warps of a group take turns over
-//   the passes of NRP rows through the chunk. In a pass, LPR = D / EL
-//   lanes split a row's D into vectors of EL elements (16 bytes of f32 or
-//   bf16, 8 of int8) and hold their slice of the GT query rows in
-//   registers, pre-scaled by scale * log2(e). Scores: per-lane partial
-//   dots reduced by __shfl_xor_sync over the row's lanes. Softmax: online
-//   and per lane, in log2 units (ex2), over the rows that lane's row group
-//   sees, two rows at a time, with lazy rescaling: the running max moves
-//   only when a score passes it by more than RESCALE = 8, so p <= 2^8 and
-//   the accumulator is rarely rescaled. P V: each lane accumulates its
-//   D-slice of its heads' output rows from V vectors. Rows past n read
-//   row 0 and are masked, so the loop has no branch around its shuffles
-//   (the warp index is broadcast from lane 0 so the compiler knows it is
-//   uniform). A warp waits only on the sub-tile it needs next while the
-//   later ones are still landing. At the end the row groups of a warp
-//   merge by shuffles and the warps of a head group once through shared
-//   memory.
+//   most of the 132 SMs idle, so T is split as well, and the G query heads
+//   of a kv head are cut into n_hc chunks of at most 16 (gc heads each,
+//   the last one fewer): block (split, kv * n_hc + chunk, b) owns rows
+//   [split * chunk_rows, min((split + 1) * chunk_rows, pos[b] + 1)) of its
+//   (b, kv) plane for its chunk's heads: n contiguous rows of K and of V.
+//   The chunks of one plane read the same rows, the first from memory, the
+//   others mostly from L2. The wrapper sizes the row chunk by bytes (at
+//   most 64 KB of K + V, a multiple of SUB = 32 rows) and the grid so that
+//   every block is resident at once where the step's bytes fit the SMs'
+//   shared memory (ops/decode_attention.py::split_plan). Blocks wholly past
+//   pos[b] return before they load anything.
+// - Loads. Where a cache row is a multiple of 16 bytes (D * itemsize;
+//   every f32 D % 4 == 0, bf16 D % 8 == 0 and int8 D % 16 == 0), thread 0
+//   initialises one mbarrier per K and per V sub-tile of 32 rows and issues
+//   each sub-tile as a 1-D bulk copy (cp.async.bulk, completing on the
+//   sub-tile's barrier by its byte count) into its own slot of shared
+//   memory: the first `ahead` (2 from the wrapper) at block start, then
+//   sub-tile j + ahead before the block waits on sub-tile j, so no thread
+//   waits on a load before asking for the next. Two sub-tiles in flight per
+//   block (32 KB of K + V at bf16 D 64) rather than the whole chunk at
+//   once: an SM serves its copies in issue order, so with everything issued
+//   at block start the last resident block gets its first rows only after
+//   the others' last ones and computes its whole chunk after the stream has
+//   ended (an `ahead` as large as a chunk, which issues it all at once,
+//   measured slower: PERF.md). The last sub-tile is sized by n, so no row
+//   past pos[b] is ever read. Other rows (an odd D, int8 at D 8 or 40) make
+//   spans that start and end inside a 16-byte unit, which a bulk copy
+//   cannot take: there the block's threads copy its span before they
+//   compute, in 16-byte words over its aligned interior and bytes at its
+//   two ends, into shared memory at the same offset modulo 16 (`pre`).
+//   int8 scale rows (4 bytes each) are bulk-copied over their
+//   16-byte-aligned interior at block start; the at most three rows at
+//   either ragged end are loaded by hand.
+// - Math. A cache row is read at its native width DP = 16, 32, 64, 128 or
+//   256 (the least power of two >= D), by one of two kernels sharing one
+//   body: decode_kernel<DP> where D = DP >= 64, with D and the row's bytes
+//   at compile time (the main path's D 64), and decode_general_kernel<DP>
+//   for any other D, decided at run time, whose general code would
+//   otherwise cost the first one registers and its speed: LPR lanes split
+//   it into slices of LEL elements (16 bytes of f32 or bf16, 8 of int8, or
+//   two such vectors at f32 DP 256), and the lanes or elements past D read
+//   element 0 of the row with a zero q, so they add nothing to a score and
+//   write no output. Rows whose D is not a multiple of the vector are read
+//   element by element. The four warps split into ceil(gn / GT) head
+//   groups of GT = 32 / LEL query heads (8 for f32 up to DP 128, 4
+//   otherwise); the warps of a group take turns over the passes of NRP =
+//   32 / LPR rows through the chunk. In a pass, each lane holds its slice
+//   of the GT query rows in registers, pre-scaled by scale * log2(e).
+//   Scores: per-lane partial dots reduced by __shfl_xor_sync over the
+//   row's lanes. Softmax: online and per lane, in log2 units (ex2), over
+//   the rows that lane's row group sees, two rows at a time, with lazy
+//   rescaling: the running max moves only when a score passes it by more
+//   than RESCALE = 8, so p <= 2^8 and the accumulator is rarely rescaled.
+//   P V: each lane accumulates its slice of its heads' output rows from V
+//   vectors. Rows past n read row 0 and are masked, so the loop has no
+//   branch around its shuffles (the warp index is broadcast from lane 0 so
+//   the compiler knows it is uniform). A warp waits only on the sub-tile it
+//   needs next while the later ones are still landing. At the end the row
+//   groups of a warp merge by shuffles and the warps of a head group once
+//   through shared memory.
 // - Merge folded in. With one split of valid rows the block writes out
 //   directly. Otherwise it writes its partial (o, m, l) and thread 0 takes
-//   a ticket from the plane's counter (an acq_rel atomic: it releases the
-//   block's partial and acquires the others'); the block that draws the last
-//   ticket (only splits holding rows <= pos[b] take one) merges the
-//   plane's partials in split order, so the result does not depend on the
-//   order blocks finish in, writes out, and resets the counter to 0 for
+//   a ticket from its (b, kv, head chunk) counter (an acq_rel atomic: it
+//   releases the block's partial and acquires the others'); the block that
+//   draws the last ticket (only splits holding rows <= pos[b] take one)
+//   merges the partials in split order, so the result does not depend on
+//   the order blocks finish in, writes out, and resets the counter to 0 for
 //   the next call. Partials merge by the online-softmax rule, folded one
 //   split at a time (8 splits' loads in flight per thread): M = max m_s,
 //   L = sum l_s 2^(m_s - M), out = sum o_s 2^(m_s - M) / max(L, 1e-30).
-//   The plan keeps a plane's partials within 64 KB, which that one block
-//   reads.
+//   A partial is [gc, DPAD] floats (DPAD = D rounded up to 4, so it is read
+//   as float4s); the plan keeps a chunk's partials within 64 KB, which that
+//   one block reads.
 //
 // Plain C interface for ctypes; launches on the caller's stream and
 // returns cudaGetLastError() so a refused launch raises in the wrapper.
@@ -89,7 +110,8 @@
 
 namespace {
 
-constexpr int MAX_G = 16;  // query heads per kv head
+constexpr int MAX_HC = 16;     // query heads per head chunk (one block's heads)
+constexpr int MAX_D = 256;     // head dim
 constexpr float NEG_INF = -1e30f;
 
 // ---------------------------------------------------------------------------
@@ -102,7 +124,8 @@ constexpr int SUB = 32;           // rows per bulk sub-tile
 constexpr int MAX_CHUNK = 1024;   // rows per block at most (32 sub-tiles)
 constexpr float RESCALE = 8.f;    // log2 units a score may pass the running max by
 
-// Cache elements a lane reads at once, and their widening into floats.
+// Cache elements a vector load reads, their widening into floats, and one
+// element alone.
 template <typename TC>
 struct Vec;
 template <>
@@ -112,6 +135,7 @@ struct Vec<float> {
     const float4 u = *reinterpret_cast<const float4*>(p);
     f[0] = u.x, f[1] = u.y, f[2] = u.z, f[3] = u.w;
   }
+  __device__ static float one(const unsigned char* p) { return *reinterpret_cast<const float*>(p); }
 };
 template <>
 struct Vec<__nv_bfloat16> {
@@ -125,6 +149,9 @@ struct Vec<__nv_bfloat16> {
       f[2 * j] = x.x, f[2 * j + 1] = x.y;
     }
   }
+  __device__ static float one(const unsigned char* p) {
+    return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(p));
+  }
 };
 template <>
 struct Vec<int8_t> {
@@ -135,14 +162,19 @@ struct Vec<int8_t> {
     for (int j = 0; j < 8; ++j)
       f[j] = static_cast<float>(static_cast<int8_t>((j < 4 ? u.x : u.y) >> (8 * (j % 4))));
   }
+  __device__ static float one(const unsigned char* p) { return static_cast<float>(*reinterpret_cast<const int8_t*>(p)); }
 };
 
+// the least power of two >= d, at least 16: the row width an instance reads
+__host__ __device__ constexpr int row_width(int d) {
+  return d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : d <= 256 ? 256 : 512;
+}
+// elements a lane holds of a row of DP: one vector, or two at f32 DP 256
+__host__ __device__ constexpr int lane_elems(int itemsize, int dp) {
+  return (itemsize == 4 ? 4 : 8) > dp / 32 ? (itemsize == 4 ? 4 : 8) : dp / 32;
+}
 // query heads per warp: 32 floats of q and 32 of o per lane
-__host__ __device__ constexpr int group_heads(int itemsize) { return itemsize == 4 ? 8 : 4; }
-
-// the least power of two >= n (lanes per cache row: the xor shuffles
-// reduce over a power of two)
-__host__ __device__ constexpr int pow2_at_least(int n) { return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2); }
+__host__ __device__ constexpr int group_heads(int itemsize, int dp) { return 32 / lane_elems(itemsize, dp); }
 
 // Byte offsets into the block's dynamic shared memory; every region is a
 // multiple of 16 bytes. The wrapper's smem_bytes mirrors `total`.
@@ -151,14 +183,19 @@ struct Layout {
 };
 
 __host__ __device__ inline Layout layout(int chunk, int D, int itemsize, bool quant) {
-  const int gt = group_heads(itemsize);
+  const int dp = row_width(D);
+  const int gt = group_heads(itemsize, dp);
+  // K and V spans 128-byte aligned (a warp's row vectors then cover the
+  // fewest 128-byte lines); + pre (< 16) where rows are not 16-byte units
+  const int bytes = chunk * D * itemsize;
+  const int span = (bytes + (D * itemsize % 16 == 0 ? 0 : 16) + 127) / 128 * 128;
   Layout L{};
   int off = 0;
-  L.k = off, off += chunk * D * itemsize;
-  L.v = off, off += chunk * D * itemsize;
+  L.k = off, off += span;
+  L.v = off, off += span;
   L.ks = off, off += quant ? (chunk + 4) * 4 : 0;
   L.vs = off, off += quant ? (chunk + 4) * 4 : 0;
-  L.red_o = off, off += WARPS * gt * D * 4;
+  L.red_o = off, off += WARPS * gt * dp * 4;
   L.red_m = off, off += WARPS * gt * 4;
   L.red_l = off, off += WARPS * gt * 4;
   L.mw = off, off += THREADS * 8;  // the merge's (m, l) per thread
@@ -176,12 +213,13 @@ struct Args {
   const float* ks;  // [B, KV, 1, T] or null
   const float* vs;
   const int* pos;   // [B]
-  float* o_part;    // [B, KV, n_split, G, D]
-  float* m_part;    // [B, KV, n_split, G], log2 units
+  float* o_part;    // [B, KV, n_hc, n_split, gc, DPAD]
+  float* m_part;    // [B, KV, n_hc, n_split, gc], log2 units
   float* l_part;
-  int* counters;    // [B * KV], 0 between calls
+  int* counters;    // [B * KV * n_hc], 0 between calls
   float* out;       // [B, 1, H, D]
-  int KV, G, T, chunk, n_split, q_is_bf16;
+  int KV, G, T, D, chunk, n_split, q_is_bf16;
+  int n_hc, gc;     // head chunks per kv head, heads per chunk
   int ahead;        // sub-tiles of K and V a block keeps in flight
   float scale;
 };
@@ -209,94 +247,151 @@ __device__ __forceinline__ int ticket(int* counter) {
   return old;
 }
 
-__device__ __forceinline__ float4 div4(float4 x, float d) {
-  return make_float4(x.x / d, x.y / d, x.z / d, x.w / d);
+// A lane's LEL elements of one cache row, widened to floats: `row` is the
+// row's start + off[0]; vectors at off[u] (vec), else element by element,
+// those past D read at element 0.
+template <typename TC, int LEL>
+__device__ __forceinline__ void load_row(const unsigned char* row, float* f, bool vec, const int* off,
+                                         int e0, int D) {
+  constexpr int EL = Vec<TC>::EL;
+  if (vec) {
+#pragma unroll
+    for (int u = 0; u < LEL / EL; ++u) Vec<TC>::load(row + (off[u] - off[0]), f + u * EL);
+  } else {
+#pragma unroll
+    for (int e = 0; e < LEL; ++e) f[e] = Vec<TC>::one(row - off[0] + (e0 + e < D ? e0 + e : 0) * sizeof(TC));
+  }
 }
 
-template <typename TC, int D>
-__global__ void __launch_bounds__(THREADS) decode_kernel(Args a) {
+// Copy the bytes [src, src + n) of global memory to dst (dst and src
+// equal modulo 16) with the block's threads: 16-byte words over the
+// aligned interior, bytes at the two ends.
+__device__ __forceinline__ void copy_span(unsigned char* dst, const unsigned char* src, long long n) {
+  const long long lo = (16 - (reinterpret_cast<uintptr_t>(src) & 15)) & 15;  // bytes before the interior
+  const long long head = lo < n ? lo : n;
+  const long long words = (n - head) / 16;
+  for (long long i = threadIdx.x; i < words; i += THREADS)
+    reinterpret_cast<uint4*>(dst + head)[i] = reinterpret_cast<const uint4*>(src + head)[i];
+  const long long tail = head + 16 * words;
+  for (long long i = threadIdx.x; i < head + (n - tail); i += THREADS) {
+    const long long j = i < head ? i : tail + (i - head);
+    dst[j] = src[j];
+  }
+}
+
+// The kernel's body. FULL = 1 (decode_kernel): D is the row width DP (D
+// 64, 128, 256): every lane live, rows read in vectors and bulk-copied, D
+// and the row's bytes known at compile time. FULL = 0
+// (decode_general_kernel): any other D, decided at run time; its own
+// kernel, so that the general code costs the first one no registers.
+template <typename TC, int DP, int FULL>
+__device__ __forceinline__ void decode_body(const Args& a) {
   using hopper::smem_u32;
-  constexpr int EL = Vec<TC>::EL;
-  constexpr int LIVE = D / EL;   // lanes that hold a D-slice of a row
-  // lanes per cache row: LIVE, or at D 48 and 96 the power of two above it,
-  // whose lanes past LIVE read slice 0 (in bounds) with a zero q, so they
-  // add nothing to a score, and write no output
-  constexpr int LPR = pow2_at_least(LIVE);
-  constexpr int NRP = 32 / LPR;  // rows per warp pass
-  constexpr int NP = SUB / NRP;  // passes per sub-tile
-  constexpr int GT = group_heads(sizeof(TC));
-  constexpr int RB = D * sizeof(TC);  // bytes per cache row
+  constexpr int EL = Vec<TC>::EL;                       // elements a vector load reads
+  constexpr int LEL = lane_elems(sizeof(TC), DP);       // elements a lane holds
+  constexpr int NV = LEL / EL;                          // vectors a lane reads
+  constexpr int LPR = DP / LEL;                         // lanes per cache row
+  constexpr int NRP = 32 / LPR;                         // rows per warp pass
+  constexpr int NP = SUB / NRP;                         // passes per sub-tile
+  constexpr int GT = group_heads(sizeof(TC), DP);
   constexpr float LOG2E = 1.4426950408889634f;
-  static_assert(LPR >= 1 && LPR <= 32 && SUB % NRP == 0 && LIVE * EL == D, "row split");
-  static_assert(EL == 4 || EL == 8, "q is read 4 or 8 elements at a time");
+  static_assert(LPR >= 1 && LPR <= 32 && SUB % NRP == 0 && LPR * LEL == DP && NV * EL == LEL, "row split");
   extern __shared__ __align__(128) unsigned char smem[];
 
-  const int split = blockIdx.x, kv = blockIdx.y, b = blockIdx.z;
+  const int D = FULL ? DP : a.D;
+  const int RB = D * sizeof(TC);                 // bytes per cache row
+  const bool vec = FULL || D % EL == 0;          // rows read in vectors, else element by element
+  const bool bulk = FULL || RB % 16 == 0;        // spans bulk-copied, else copied by the threads
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int kv = blockIdx.y / a.n_hc, hc = blockIdx.y % a.n_hc;
   const int tid = threadIdx.x, lane = tid & 31;
   // the warp index broadcast from lane 0, so the compiler knows it is
   // warp-uniform and emits plain shuffles in the loops that depend on it
   const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
   const int G = a.G;
-  const int plane = b * a.KV + kv;
+  const int h0 = hc * a.gc;                     // the chunk's first head within the kv head
+  const int gn = min(a.gc, G - h0);             // the chunk's heads
+  const int plane = b * a.KV + kv;              // the cache plane
+  const int cplane = plane * a.n_hc + hc;       // the chunk's counter and partials
   const int t0 = split * a.chunk;
   // warps split into ng head groups of GT heads, wg warps (pass owners) each
-  const int ng = (G + GT - 1) / GT, wg = WARPS / ng;
+  const int ng = (gn + GT - 1) / GT, wg = WARPS / ng;
   const int hg = warp / wg, wi = warp % wg;
-  const bool active = hg < ng;  // G = 3 * GT leaves one warp idle
-  const int g0 = hg * GT, gc = active ? min(GT, G - g0) : 0;
-  const int rr = lane / LPR, c = lane % LPR;  // row in the pass, D-slice
-  const bool live = c < LIVE;
-  const int cs = live ? c : 0;  // the slice this lane reads
-  // q slice of this warp's heads, pre-scaled so that scores come in log2
-  // units; loaded before pos[b] is known, so the two loads overlap
-  const float qscale = a.scale * LOG2E;
-  float q[GT][EL], o[GT][EL], m[GT], l[GT];
+  const bool active = hg < ng;  // gn = 3 * GT leaves one warp idle
+  const int g0 = hg * GT, gcnt = active ? min(GT, gn - g0) : 0;
+  const int rr = lane / LPR, c = lane % LPR;  // row in the pass, slice
+  const int e0 = c * LEL;                      // the slice's first element
+  const bool live = e0 < D;
+  // byte offsets in a row of this lane's vectors (vec) or elements, those
+  // past D at element 0; the sub-tile pointers below start at off[0]
+  int off[NV];
 #pragma unroll
-  for (int g = 0; g < GT; ++g) {  // vector loads, all issued before any is used
-    const long long qo = ((long long)b * a.KV * G + kv * G + min(g0 + g, G - 1)) * D + cs * EL;
-    if (a.q_is_bf16) {
-      const unsigned char* qp = static_cast<const unsigned char*>(a.q) + 2 * qo;
-      if constexpr (EL == 8) {
-        Vec<__nv_bfloat16>::load(qp, q[g]);
-      } else {  // an f32 cache: 4 bf16 of q, 8 bytes
-        const uint2 u = *reinterpret_cast<const uint2*>(qp);
-        const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-        const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-        q[g][0] = x.x, q[g][1] = x.y, q[g][2] = y.x, q[g][3] = y.y;
+  for (int u = 0; u < NV; ++u) off[u] = (e0 + u * EL < D ? e0 + u * EL : 0) * (int)sizeof(TC);
+  // q slice of this warp's heads, pre-scaled so that scores come in log2
+  // units, zero past D; loaded before pos[b] is known, so the loads overlap
+  const float qscale = a.scale * LOG2E;
+  float q[GT][LEL], o[GT][LEL], m[GT], l[GT];
+#pragma unroll
+  for (int g = 0; g < GT; ++g) {
+    const long long qo = ((long long)plane * G + h0 + min(g0 + g, gn - 1)) * D;
+    if constexpr (FULL) {  // vector loads (q is 16-byte aligned), all issued before any is used
+#pragma unroll
+      for (int u = 0; u < NV; ++u) {
+        const long long qe = qo + e0 + u * EL;
+        float* f = &q[g][u * EL];
+        if (a.q_is_bf16) {
+          const unsigned char* qp = static_cast<const unsigned char*>(a.q) + 2 * qe;
+          if constexpr (EL == 8) {
+            Vec<__nv_bfloat16>::load(qp, f);
+          } else {  // an f32 cache: 4 bf16 of q, 8 bytes
+            const uint2 w = *reinterpret_cast<const uint2*>(qp);
+            const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w.x));
+            const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w.y));
+            f[0] = x.x, f[1] = x.y, f[2] = y.x, f[3] = y.y;
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < EL; e += 4)
+            Vec<float>::load(static_cast<const unsigned char*>(a.q) + 4 * (qe + e), f + e);
+        }
       }
     } else {
 #pragma unroll
-      for (int e = 0; e < EL; e += 4)
-        Vec<float>::load(static_cast<const unsigned char*>(a.q) + 4 * (qo + e), &q[g][e]);
+      for (int e = 0; e < LEL; ++e) {
+        const long long i = qo + (e0 + e < D ? e0 + e : 0);
+        q[g][e] = a.q_is_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(a.q)[i])
+                              : static_cast<const float*>(a.q)[i];
+      }
     }
   }
 #pragma unroll
   for (int g = 0; g < GT; ++g) {
 #pragma unroll
-    for (int e = 0; e < EL; ++e) q[g][e] = g < gc && live ? q[g][e] * qscale : 0.f, o[g][e] = 0.f;
+    for (int e = 0; e < LEL; ++e) q[g][e] = g < gcnt && e0 + e < D ? q[g][e] * qscale : 0.f, o[g][e] = 0.f;
     m[g] = NEG_INF;
     l[g] = 0.f;
   }
   const int seen = min(a.pos[b] + 1, a.T);  // rows slot b attends
   const int n = min(t0 + a.chunk, seen) - t0;
   const int nvs = seen > 0 ? (seen + a.chunk - 1) / a.chunk : 0;  // splits holding rows
-  float* out = a.out + ((long long)b * a.KV + kv) * G * D;
+  float* out = a.out + ((long long)plane * G + h0) * D;
   if (n <= 0) {  // every row of this split is past pos[b]: nothing to load
     if (nvs == 0 && split == 0)
-      for (int i = tid; i < G * D; i += THREADS) out[i] = 0.f;
+      for (int i = tid; i < gn * D; i += THREADS) out[i] = 0.f;
     return;
   }
 
   const bool quant = a.ks != nullptr;
   const Layout L = layout(a.chunk, D, sizeof(TC), quant);
-  unsigned char* Ks = smem + L.k;
-  unsigned char* Vs = smem + L.v;
+  const long long row0 = (long long)plane * a.T + t0;  // cache row of (b, kv, t0)
+  const int pre = static_cast<int>((row0 * RB) & 15);   // 0 where bulk
+  unsigned char* Ks = smem + L.k + pre;
+  unsigned char* Vs = smem + L.v + pre;
   float* sks = reinterpret_cast<float*>(smem + L.ks);
   float* svs = reinterpret_cast<float*>(smem + L.vs);
   const uint32_t bars = smem_u32(smem + L.bars);  // K_j at 16 j, V_j at 16 j + 8, scales last
   const int nsub = (n + SUB - 1) / SUB;
   const uint32_t bar_s = bars + 16 * nsub;
-  const long long row0 = (long long)plane * a.T + t0;  // cache row of (b, kv, t0)
 
   // int8 scales: smem index soff + i holds row t0 + i, so a 16-byte
   // aligned global address lands on a 16-byte aligned smem address
@@ -316,21 +411,28 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Args a) {
     hopper::bulk_load(smem_u32(Vs + j * SUB * RB), a.v + src, bytes, bars + 16 * j + 8);
   };
   if (tid == 0) {
-    for (int j = 0; j < nsub; ++j) {
-      hopper::mbar_init(bars + 16 * j, 1);
-      hopper::mbar_init(bars + 16 * j + 8, 1);
+    if (bulk) {
+      for (int j = 0; j < nsub; ++j) {
+        hopper::mbar_init(bars + 16 * j, 1);
+        hopper::mbar_init(bars + 16 * j + 8, 1);
+      }
     }
     hopper::mbar_init(bar_s, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     // the first `ahead` sub-tiles, K_j before V_j in the order they are
     // used; the rest as the block works through them (below)
-    for (int j = 0; j < min(nsub, a.ahead); ++j) issue(j);
+    if (bulk)
+      for (int j = 0; j < min(nsub, a.ahead); ++j) issue(j);
     if (s_hi > s_lo) {
       const uint32_t bytes = static_cast<uint32_t>((s_hi - s_lo) * 4);
       hopper::mbar_expect_tx(bar_s, 2 * bytes);
       hopper::bulk_load(smem_u32(sks + soff + s_lo), a.ks + row0 + s_lo, bytes, bar_s);
       hopper::bulk_load(smem_u32(svs + soff + s_lo), a.vs + row0 + s_lo, bytes, bar_s);
     }
+  }
+  if (!bulk) {  // the whole span by the threads, before anyone computes
+    copy_span(Ks, a.k + row0 * RB, (long long)n * RB);
+    copy_span(Vs, a.v + row0 * RB, (long long)n * RB);
   }
   if (quant) {  // the ragged ends by hand (every row if there is no interior)
     const int head = s_hi > s_lo ? s_lo : n;
@@ -339,21 +441,23 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Args a) {
       sks[soff + i] = a.ks[row0 + i], svs[soff + i] = a.vs[row0 + i];
   }
 
-  __syncthreads();  // barriers initialised, hand-loaded scales written
+  __syncthreads();  // barriers initialised, hand-loaded scales (and rows) written
   if (s_hi > s_lo) hopper::mbar_wait(bar_s, 0);
 
   for (int j = 0; active && j < nsub; ++j) {
-    if (tid == 0 && j + a.ahead < nsub) issue(j + a.ahead);  // before waiting on j
+    if (bulk && tid == 0 && j + a.ahead < nsub) issue(j + a.ahead);  // before waiting on j
     const int nr = min(SUB, n - j * SUB);
     const int np = (nr + NRP - 1) / NRP;                          // passes in sub-tile j
     const int first = (wi - (j * NP) % wg + wg) % wg;             // this warp's first pass
     if (first >= np) continue;  // warp-uniform: no pass of sub-tile j is this warp's
-    const unsigned char* Kt = Ks + j * SUB * RB + cs * EL * sizeof(TC);
-    const unsigned char* Vt = Vs + j * SUB * RB + cs * EL * sizeof(TC);
+    const unsigned char* Kt = Ks + j * SUB * RB + off[0];
+    const unsigned char* Vt = Vs + j * SUB * RB + off[0];
     const float* kst = sks + soff + j * SUB;
     const float* vst = svs + soff + j * SUB;
-    hopper::mbar_wait(bars + 16 * j, 0);
-    hopper::mbar_wait(bars + 16 * j + 8, 0);
+    if (bulk) {
+      hopper::mbar_wait(bars + 16 * j, 0);
+      hopper::mbar_wait(bars + 16 * j + 8, 0);
+    }
     // two passes at a time: rows r0 and r1 of this lane's row group. A
     // row past nr reads row 0 instead (always loaded, so finite) and is
     // masked below: no branch, so the shuffles stay convergent
@@ -361,28 +465,28 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Args a) {
       const int r0 = p * NRP + rr, r1 = (p + wg) * NRP + rr;
       const bool ok0 = r0 < nr, ok1 = p + wg < np && r1 < nr;
       const int i0 = ok0 ? r0 : 0, i1 = ok1 ? r1 : 0;
-      float k0[EL], k1[EL], s0[GT], s1[GT];
-      Vec<TC>::load(Kt + i0 * RB, k0);
-      Vec<TC>::load(Kt + i1 * RB, k1);
+      float k0[LEL], k1[LEL], s0[GT], s1[GT];
+      load_row<TC, LEL>(Kt + i0 * RB, k0, vec, off, e0, D);
+      load_row<TC, LEL>(Kt + i1 * RB, k1, vec, off, e0, D);
 #pragma unroll
       for (int g = 0; g < GT; ++g) {
         s0[g] = 0.f, s1[g] = 0.f;
 #pragma unroll
-        for (int e = 0; e < EL; ++e) s0[g] = fmaf(q[g][e], k0[e], s0[g]), s1[g] = fmaf(q[g][e], k1[e], s1[g]);
+        for (int e = 0; e < LEL; ++e) s0[g] = fmaf(q[g][e], k0[e], s0[g]), s1[g] = fmaf(q[g][e], k1[e], s1[g]);
       }
 #pragma unroll
-      for (int off = LPR / 2; off > 0; off >>= 1)
+      for (int sh = LPR / 2; sh > 0; sh >>= 1)
 #pragma unroll
         for (int g = 0; g < GT; ++g) {
-          s0[g] += __shfl_xor_sync(0xffffffffu, s0[g], off);
-          s1[g] += __shfl_xor_sync(0xffffffffu, s1[g], off);
+          s0[g] += __shfl_xor_sync(0xffffffffu, s0[g], sh);
+          s1[g] += __shfl_xor_sync(0xffffffffu, s1[g], sh);
         }
       // per-lane online softmax over the rows this lane's group sees
       const float ks0 = quant ? kst[i0] : 1.f, ks1 = quant ? kst[i1] : 1.f;
       const float vs0 = quant ? vst[i0] : 1.f, vs1 = quant ? vst[i1] : 1.f;
-      float v0[EL], v1[EL];
-      Vec<TC>::load(Vt + i0 * RB, v0);
-      Vec<TC>::load(Vt + i1 * RB, v1);
+      float v0[LEL], v1[LEL];
+      load_row<TC, LEL>(Vt + i0 * RB, v0, vec, off, e0, D);
+      load_row<TC, LEL>(Vt + i1 * RB, v1, vec, off, e0, D);
 #pragma unroll
       for (int g = 0; g < GT; ++g) {
         const float x0 = ok0 ? s0[g] * ks0 : NEG_INF, x1 = ok1 ? s1[g] * ks1 : NEG_INF;
@@ -394,31 +498,31 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Args a) {
           const float corr = hopper::ex2(m[g] - m_new);
           l[g] *= corr;
 #pragma unroll
-          for (int e = 0; e < EL; ++e) o[g][e] *= corr;
+          for (int e = 0; e < LEL; ++e) o[g][e] *= corr;
           m[g] = m_new;
         }
         const float p0 = ok0 ? hopper::ex2(x0 - m[g]) : 0.f, p1 = ok1 ? hopper::ex2(x1 - m[g]) : 0.f;
         l[g] += p0 + p1;  // the denominator before the V scale
         const float w0 = p0 * vs0, w1 = p1 * vs1;
 #pragma unroll
-        for (int e = 0; e < EL; ++e) o[g][e] = fmaf(w1, v1[e], fmaf(w0, v0[e], o[g][e]));
+        for (int e = 0; e < LEL; ++e) o[g][e] = fmaf(w1, v1[e], fmaf(w0, v0[e], o[g][e]));
       }
     }
   }
 
-  // the warp's row groups: merge (m, l, o) across lanes of equal D-slice
+  // the warp's row groups: merge (m, l, o) across lanes of equal slice
 #pragma unroll
-  for (int off = 16; off >= LPR; off >>= 1) {
+  for (int sh = 16; sh >= LPR; sh >>= 1) {
 #pragma unroll
     for (int g = 0; g < GT; ++g) {
-      const float mo = __shfl_xor_sync(0xffffffffu, m[g], off);
-      const float lo = __shfl_xor_sync(0xffffffffu, l[g], off);
+      const float mo = __shfl_xor_sync(0xffffffffu, m[g], sh);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[g], sh);
       const float m_new = fmaxf(m[g], mo);
       const float fa = hopper::ex2(m[g] - m_new), fb = hopper::ex2(mo - m_new);
       l[g] = l[g] * fa + lo * fb;
       m[g] = m_new;
 #pragma unroll
-      for (int e = 0; e < EL; ++e) o[g][e] = o[g][e] * fa + __shfl_xor_sync(0xffffffffu, o[g][e], off) * fb;
+      for (int e = 0; e < LEL; ++e) o[g][e] = o[g][e] * fa + __shfl_xor_sync(0xffffffffu, o[g][e], sh) * fb;
     }
   }
   float* red_o = reinterpret_cast<float*>(smem + L.red_o);  // [WARPS, GT, D]
@@ -428,7 +532,8 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Args a) {
 #pragma unroll
     for (int g = 0; g < GT; ++g)
 #pragma unroll
-      for (int e = 0; e < EL; ++e) red_o[(warp * GT + g) * D + c * EL + e] = o[g][e];
+      for (int e = 0; e < LEL; ++e)
+        if (e0 + e < D) red_o[(warp * GT + g) * D + e0 + e] = o[g][e];
   }
   if (lane == 0) {
 #pragma unroll
@@ -436,8 +541,9 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Args a) {
   }
   __syncthreads();
   // the block's partial: head g merges the wg warps of its group
-  const long long part = (long long)plane * a.n_split + split;
-  for (int i = tid; i < G * D; i += THREADS) {
+  const int DPAD = (D + 3) & ~3;  // a partial's row, a whole number of float4s
+  const long long part = (long long)cplane * a.n_split + split;
+  for (int i = tid; i < gn * D; i += THREADS) {
     const int g = i / D, d = i % D;
     const int w0 = (g / GT) * wg, gl = g % GT;
     float M = NEG_INF;
@@ -451,38 +557,39 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Args a) {
     if (nvs == 1) {
       out[i] = O / fmaxf(Lsum, 1e-30f);
     } else {
-      a.o_part[part * G * D + i] = O;
-      if (d == 0) a.m_part[part * G + g] = M, a.l_part[part * G + g] = Lsum;
+      a.o_part[(part * a.gc + g) * DPAD + d] = O;
+      if (d == 0) a.m_part[part * a.gc + g] = M, a.l_part[part * a.gc + g] = Lsum;
     }
   }
   if (nvs == 1) return;
 
-  // ticket: the last of the plane's nvs blocks merges
+  // ticket: the last of the chunk's nvs blocks merges
   // (the barrier orders the block's partial before thread 0's release; its
   // acquire, and the barrier after it, order the other blocks' partials
   // before the reads below)
   int* last = reinterpret_cast<int*>(smem + L.flag);
   __syncthreads();
-  if (tid == 0) *last = ticket(a.counters + plane) == nvs - 1;
+  if (tid == 0) *last = ticket(a.counters + cplane) == nvs - 1;
   __syncthreads();
   if (!*last) return;
 
-  // one pass over the plane's partials, in split order: thread (grp, v)
+  // one pass over the chunk's partials, in split order: thread (grp, v)
   // folds splits grp, grp + groups, ... of float4 v into a running
-  // (M, L, O); the groups then fold in order
-  const int GD4 = G * D / 4;  // float4s of one partial
-  const long long pbase = (long long)plane * a.n_split;
-  const float4* op = reinterpret_cast<const float4*>(a.o_part) + pbase * GD4;
-  const float* mp = a.m_part + pbase * G;
-  const float* lp = a.l_part + pbase * G;
-  float4* out4 = reinterpret_cast<float4*>(out);
+  // (M, L, O); the groups then fold in order. Padding columns (D..DPAD)
+  // are folded but never written.
+  const int GD4 = gn * DPAD / 4;   // float4s of one partial's gn heads
+  const int PD4 = a.gc * DPAD / 4;  // float4s between two splits' partials
+  const long long pbase = (long long)cplane * a.n_split;
+  const float4* op = reinterpret_cast<const float4*>(a.o_part) + pbase * PD4;
+  const float* mp = a.m_part + pbase * a.gc;
+  const float* lp = a.l_part + pbase * a.gc;
   const int groups = GD4 >= THREADS ? 1 : THREADS / GD4;
   float4* red_o4 = reinterpret_cast<float4*>(smem + L.red4);  // [groups, GD4]
   float* red_ml = reinterpret_cast<float*>(smem + L.mw);      // [groups, GD4, 2]
   for (int v0 = 0; v0 < GD4; v0 += THREADS) {
     const int v = groups == 1 ? v0 + tid : tid % GD4, grp = groups == 1 ? 0 : tid / GD4;
     const bool mine = v < GD4 && grp < groups;
-    const int g = v * 4 / D;
+    const int g = v * 4 / DPAD;
     Merge acc;
     for (int s0 = grp; mine && s0 < nvs; s0 += 8 * groups) {  // 8 splits' loads in flight
       float ms[8], ls[8];
@@ -490,13 +597,14 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Args a) {
 #pragma unroll
       for (int u = 0; u < 8; ++u) {
         const int s = min(s0 + u * groups, nvs - 1);
-        ms[u] = __ldcg(mp + s * G + g), ls[u] = __ldcg(lp + s * G + g);
-        os[u] = __ldcg(op + (long long)s * GD4 + v);
+        ms[u] = __ldcg(mp + s * a.gc + g), ls[u] = __ldcg(lp + s * a.gc + g);
+        os[u] = __ldcg(op + (long long)s * PD4 + v);
       }
 #pragma unroll
       for (int u = 0; u < 8; ++u)
         if (s0 + u * groups < nvs) acc.fold(ms[u], ls[u], os[u]);
     }
+    int vo = v;  // the float4 this thread writes
     if (groups > 1) {
       if (mine) {
         red_o4[grp * GD4 + v] = acc.o;
@@ -507,16 +615,38 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(Args a) {
       acc = Merge();
       for (int r = 0; r < groups; ++r)
         acc.fold(red_ml[2 * (r * GD4 + tid)], red_ml[2 * (r * GD4 + tid) + 1], red_o4[r * GD4 + tid]);
+      vo = tid;
     }
-    if (mine || groups > 1) out4[v] = div4(acc.o, fmaxf(acc.l, 1e-30f));
+    if (mine || groups > 1) {
+      const float inv = 1.f / fmaxf(acc.l, 1e-30f);
+      const float ov[4] = {acc.o.x, acc.o.y, acc.o.z, acc.o.w};
+      const int gg = vo * 4 / DPAD, d0 = vo * 4 % DPAD;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (d0 + e < D) out[gg * D + d0 + e] = ov[e] * inv;
+    }
   }
-  if (tid == 0) a.counters[plane] = 0;  // ready for the next call
+  if (tid == 0) a.counters[cplane] = 0;  // ready for the next call
 }
 
-template <typename TC, int D>
+template <typename TC, int DP>
+__global__ void __launch_bounds__(THREADS) decode_kernel(Args a) {
+  decode_body<TC, DP, 1>(a);
+}
+
+// ptxas holds a kernel without a register limit to 128 registers a thread
+// here and spills the general body's few extra values; 168 keeps them in
+// registers (3 blocks of 128 threads an SM, as many as shared memory
+// allows at the plan's largest chunks)
+template <typename TC, int DP>
+__global__ void __maxnreg__(168) decode_general_kernel(Args a) {
+  decode_body<TC, DP, 0>(a);
+}
+
+template <typename TC, int DP, int FULL>
 int launch_one(const Args& a, int B, cudaStream_t stream) {
-  const Layout L = layout(a.chunk, D, sizeof(TC), a.ks != nullptr);
-  auto kernel = decode_kernel<TC, D>;
+  const Layout L = layout(a.chunk, a.D, sizeof(TC), a.ks != nullptr);
+  auto kernel = FULL ? decode_kernel<TC, DP> : decode_general_kernel<TC, DP>;
   // the most this instantiation was allowed so far, per device (the
   // attribute is set per device)
   constexpr int MAX_DEVICES = 64;
@@ -529,42 +659,41 @@ int launch_one(const Args& a, int B, cudaStream_t stream) {
     if (err != cudaSuccess) return (int)err;
     if (dev < MAX_DEVICES) attr_bytes[dev] = L.total;
   }
-  kernel<<<dim3(a.n_split, a.KV, B), THREADS, L.total, stream>>>(a);
+  kernel<<<dim3(a.n_split, a.KV * a.n_hc, B), THREADS, L.total, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <typename TC>
-int launch_d(const Args& a, int B, int D, cudaStream_t s) {
-  switch (D) {
-    case 16: return launch_one<TC, 16>(a, B, s);
-    case 32: return launch_one<TC, 32>(a, B, s);
-    case 64: return launch_one<TC, 64>(a, B, s);
-    case 128: return launch_one<TC, 128>(a, B, s);
-    case 48: return launch_one<TC, 48>(a, B, s);
-    case 96: return launch_one<TC, 96>(a, B, s);
+int launch_d(const Args& a, int B, cudaStream_t s) {
+  // D 16 and 32 take the general kernel too: no path runs them, and two
+  // instances fewer per cache type shorten the build
+  const bool full = a.D == row_width(a.D);
+  switch (row_width(a.D)) {
+    case 16: return launch_one<TC, 16, 0>(a, B, s);
+    case 32: return launch_one<TC, 32, 0>(a, B, s);
+    case 64: return full ? launch_one<TC, 64, 1>(a, B, s) : launch_one<TC, 64, 0>(a, B, s);
+    case 128: return full ? launch_one<TC, 128, 1>(a, B, s) : launch_one<TC, 128, 0>(a, B, s);
+    case 256: return full ? launch_one<TC, 256, 1>(a, B, s) : launch_one<TC, 256, 0>(a, B, s);
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-bool valid_shape(int G, int D) {
-  return G >= 1 && G <= MAX_G &&
-         (D == 16 || D == 32 || D == 48 || D == 64 || D == 96 || D == 128);
 }
 
 }  // namespace
 
 // cache_kind: 0 = f32, 1 = bf16, 2 = int8 (ks and vs required). q is
-// contiguous and 16-byte aligned. `ahead`: K and V sub-tiles a block keeps
-// in flight (>= 1). One launch of decode_kernel; `counters` holds B * KV
-// zeros and is left so.
+// contiguous. 1 <= D <= 256; the G heads of a kv head in n_hc chunks of gc
+// <= 16 (n_hc * gc >= G > (n_hc - 1) * gc). `ahead`: K and V sub-tiles a
+// block keeps in flight (>= 1). One launch of decode_kernel; `counters`
+// holds B * KV * n_hc zeros and is left so.
 extern "C" int dml_decode_attention(const void* q, const void* k, const void* v,
                                     const void* ks, const void* vs, const void* pos,
                                     void* o_part, void* m_part, void* l_part, void* counters,
                                     void* out, int cache_kind, int q_is_bf16, int B, int KV,
-                                    int G, int T, int D, int chunk, int n_split, int ahead,
-                                    float scale, void* stream) {
+                                    int G, int T, int D, int chunk, int n_split, int n_hc, int gc,
+                                    int ahead, float scale, void* stream) {
   if (B <= 0) return 0;
-  if (!valid_shape(G, D) || chunk < SUB || chunk > MAX_CHUNK || chunk % SUB ||
+  if (G < 1 || D < 1 || D > MAX_D || gc < 1 || gc > MAX_HC || n_hc < 1 || (long long)n_hc * gc < G ||
+      (long long)(n_hc - 1) * gc >= G || chunk < SUB || chunk > MAX_CHUNK || chunk % SUB ||
       (long long)chunk * n_split < T || ahead < 1)
     return (int)cudaErrorInvalidValue;
   Args a{q, static_cast<const unsigned char*>(k), static_cast<const unsigned char*>(v),
@@ -572,14 +701,14 @@ extern "C" int dml_decode_attention(const void* q, const void* k, const void* v,
          static_cast<const int*>(pos), static_cast<float*>(o_part),
          static_cast<float*>(m_part), static_cast<float*>(l_part),
          static_cast<int*>(counters), static_cast<float*>(out),
-         KV, G, T, chunk, n_split, q_is_bf16, ahead, scale};
+         KV, G, T, D, chunk, n_split, q_is_bf16, n_hc, gc, ahead, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (cache_kind) {
-    case 0: a.ks = a.vs = nullptr; return launch_d<float>(a, B, D, s);
-    case 1: a.ks = a.vs = nullptr; return launch_d<__nv_bfloat16>(a, B, D, s);
+    case 0: a.ks = a.vs = nullptr; return launch_d<float>(a, B, s);
+    case 1: a.ks = a.vs = nullptr; return launch_d<__nv_bfloat16>(a, B, s);
     case 2:
       if (!a.ks || !a.vs) return (int)cudaErrorInvalidValue;
-      return launch_d<int8_t>(a, B, D, s);
+      return launch_d<int8_t>(a, B, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

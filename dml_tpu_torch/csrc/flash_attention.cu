@@ -1,10 +1,12 @@
 // Flash attention forward: the Hopper counterpart of the TPU kernel
 // dml_tpu/ops/flash_attention.py::_fwd_kernel.
 //
-// q [B, Tq, H, D], k and v [B, Tk, KV, D] (BTHD, read through strides so
+// q [B, Tq, H, d], k and v [B, Tk, KV, d] (BTHD, read through strides so
 // no transpose copy is made; KV divides H and query head h reads kv head
 // h / (H / KV), which is jnp.repeat's mapping in generate.prefill) ->
-// out [B, Tq, H, D] in q's dtype and lse [B, H, Tq] f32.
+// out [B, Tq, H, d] in q's dtype and lse [B, H, Tq] f32. Every head dim
+// 1 <= d <= 256 and every group H / KV, as the TPU kernel (a full-d block)
+// takes them.
 //
 // What every route computes, in the TPU kernel's order: S = Q K^T * scale
 // in f32; columns at Tk and beyond and, if causal, columns past the row's
@@ -18,9 +20,20 @@
 // in scratch across its sequential innermost grid axis; here one block
 // loops over the k-tiles itself and keeps them in registers.
 //
-// Routes, picked from the dtype and D alone:
+// Head dims (hopper.cuh::native_head_dim): the kernels are instantiated at
+// D = 16, 32, 48, 64, 80, 96, 128 and 256, the widths of real geometries
+// (48: a D-96 model's speculative draft; 80: Phi-2; 96: Phi-3-mini and the
+// cluster LM bench's ShardLM; 256: Gemma-2B). A head dim d runs on the
+// least D >= d: tile columns at d and beyond are loaded as zeros (the
+// caller's scale is of the true d, and zero columns leave Q K^T and P V
+// unchanged, so the result is exact), and output columns past d are never
+// written. Rows are read in 16-byte chunks, so a row must hold a whole
+// number of them: the wrapper pads a head dim that does not (bf16 d % 8,
+// f32 d % 4) with zero columns in its copy.
 //
-// - bf16, D 64 or 128 (every main-path shape): flash_fwd_wgmma_kernel. One
+// Routes, picked from the dtype and d alone:
+//
+// - bf16, d 64 or 128 (every main-path shape): flash_fwd_wgmma_kernel. One
 //   block per (q-tile, head, batch) of a producer warpgroup and NC consumer
 //   warpgroups of 64 query rows each: NC = 3 (192-row q-tiles) at D 64 when
 //   that still gives four waves of blocks, else 2 (128-row q-tiles; always
@@ -49,15 +62,17 @@
 //   three consumers). D = 128 is two 64-column sub-tiles per tile (a
 //   128-byte swizzle row holds 64 bf16): S steps its descriptors across
 //   them, P V issues one 64-column product per sub-tile.
-// - bf16, D 16 or 32: flash_fwd_mma_kernel, the first Hopper version:
-//   one block of 4 warps per 64-row q-tile, synchronous tile loads,
-//   mma.sync m16n8k16 with S, P and O in registers, V transposed in
-//   shared memory. dml_flash_fwd_mma runs it at any D so one card can
-//   time it beside the wgmma route.
-// - float32: flash_fwd_f32_kernel, plain FMAs with the tiles and the
-//   accumulator in shared memory; also at D 48 and 96 (the cluster LM
-//   bench's ShardLM, d 384 over 4 heads, and its draft's d 192), which no
-//   bf16 route takes.
+// - bf16, every other d: flash_fwd_mma_kernel<D>, the first Hopper
+//   version: one block of 4 warps per 64-row q-tile, synchronous tile
+//   loads, mma.sync m16n8k16 with S, P and O in registers, V transposed in
+//   shared memory. Q's fragments stay in registers up to D 128; at D 256
+//   the O accumulator takes 128 registers a thread, so they are read from
+//   the shared Q tile at each step instead. dml_flash_fwd_mma runs it at
+//   any d (D 64 and 128 too) so one card can time it beside the wgmma
+//   route.
+// - float32: flash_fwd_f32_kernel<D>, plain FMAs with the tiles and the
+//   accumulator in shared memory: 64-row tiles up to D 128, 32-row tiles
+//   at D 256 (the four tiles of 64 rows would not fit shared memory).
 //
 // Bound: tensor-core operations at the prefill shape. 4 * B * H * Tq *
 // Tk * D operations (halved for causal) against 2 * (q + k + v + out)
@@ -79,7 +94,8 @@
 // refused launch raises in the wrapper. That function is looked up at run
 // time (cudaGetDriverEntryPoint), so the library links no libcuda.
 // The Hopper building blocks (mbarriers, TMA, wgmma descriptors and forms,
-// tensor maps) live in hopper.cuh, shared with flash_attention_bwd.cu.
+// tensor maps, the head dims) live in hopper.cuh, shared with
+// flash_attention_bwd.cu.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -90,8 +106,8 @@
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // key rows per k-tile
+constexpr int BQ = 64;        // query rows per block (mma.sync)
+constexpr int BK = 64;        // key rows per k-tile (mma.sync)
 constexpr int THREADS = 128;  // 4 warps; warp w owns query rows [16w, 16w + 16)
 constexpr float NEG_INF = -1e30f;
 
@@ -102,24 +118,27 @@ struct Args {
   void* out;
   float* lse;
   int H, G, Tq, Tk;
+  int d;  // the head dim; the kernel's D is the native width >= d
   long long qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh;
   float scale;
   int causal;
 };
 
-// Copy rows [row0, row0 + 64) of one head ([T, D] with row stride
-// `stride_t` elements) into a shared tile with row stride `ld`, 16 bytes
-// per thread per step; rows at `n_rows` and beyond are zero.
-template <typename T, int D>
+// Copy rows [row0, row0 + R) of one head ([T, d] with row stride
+// `stride_t` elements) into a shared tile of D columns with row stride
+// `ld`, 16 bytes per thread per step; rows at `n_rows` and beyond and
+// columns at d and beyond are zero. A row holds whole 16-byte chunks (the
+// wrapper pads it so), so a chunk is all in or all out.
+template <typename T, int D, int R>
 __device__ __forceinline__ void load_tile(T* dst, int ld, const T* src, long long stride_t,
-                                          int row0, int n_rows) {
+                                          int row0, int n_rows, int d) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int CHUNKS = D / VEC;
-  for (int i = threadIdx.x; i < 64 * CHUNKS; i += THREADS) {
+  for (int i = threadIdx.x; i < R * CHUNKS; i += THREADS) {
     const int r = i / CHUNKS;
     const int c = (i % CHUNKS) * VEC;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows) {
+    if (row0 + r < n_rows && c < d) {
       val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * stride_t + c);
     }
     *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
@@ -149,6 +168,17 @@ __device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// This warp's A fragment of columns [16 kk, 16 kk + 16) of a row-major
+// shared tile whose 16 rows start at `rows` (row stride `ld`).
+__device__ __forceinline__ void a_frag(uint32_t* a, const __nv_bfloat16* rows, int ld, int kk, int g,
+                                       int t) {
+  const __nv_bfloat16* base = rows + 16 * kk + 2 * t;
+  a[0] = ld32(base + g * ld);
+  a[1] = ld32(base + (g + 8) * ld);
+  a[2] = ld32(base + g * ld + 8);
+  a[3] = ld32(base + (g + 8) * ld + 8);
+}
+
 template <int D>
 struct MmaLayout {
   static constexpr int LDK = D + 8;   // Q and K tiles, row-major
@@ -160,6 +190,9 @@ template <int D>
 __global__ void __launch_bounds__(THREADS) flash_fwd_mma_kernel(Args a) {
   using L = MmaLayout<D>;
   using bf16 = __nv_bfloat16;
+  // Q's fragments in registers up to D 128; at D 256 O takes 128 registers
+  // a thread and the fragments are read from the shared Q tile
+  constexpr bool QREG = D <= 128;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Ks = Qs + BQ * L::LDK;
@@ -174,16 +207,13 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_mma_kernel(Args a) {
   const bf16* kp = static_cast<const bf16*>(a.k) + b * a.ksb + kvh * a.ksh;
   const bf16* vp = static_cast<const bf16*>(a.v) + b * a.vsb + kvh * a.vsh;
 
-  load_tile<bf16, D>(Qs, L::LDK, qp, a.qst, q0, a.Tq);
+  load_tile<bf16, D, BQ>(Qs, L::LDK, qp, a.qst, q0, a.Tq, a.d);
   __syncthreads();
-  uint32_t qf[D / 16][4];  // this warp's 16 query rows as A fragments
+  const bf16* qrows = Qs + 16 * warp * L::LDK;
+  uint32_t qf[QREG ? D / 16 : 1][4];  // this warp's 16 query rows as A fragments
+  if constexpr (QREG) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const bf16* base = Qs + (16 * warp) * L::LDK + 16 * kk + 2 * t;
-    qf[kk][0] = ld32(base + g * L::LDK);
-    qf[kk][1] = ld32(base + (g + 8) * L::LDK);
-    qf[kk][2] = ld32(base + g * L::LDK + 8);
-    qf[kk][3] = ld32(base + (g + 8) * L::LDK + 8);
+    for (int kk = 0; kk < D / 16; ++kk) a_frag(qf[kk], qrows, L::LDK, kk, g, t);
   }
 
   float o[D / 8][4];
@@ -198,12 +228,12 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_mma_kernel(Args a) {
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<bf16, D>(Ks, L::LDK, kp, a.kst, k0, a.Tk);
+    load_tile<bf16, D, BK>(Ks, L::LDK, kp, a.kst, k0, a.Tk, a.d);
     // V transposed: thread i takes key i % 64 and 8 consecutive d
     for (int i = tid; i < BK * (D / 8); i += THREADS) {
       const int key = i % BK, c = (i / BK) * 8;
       uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + key < a.Tk) val = *reinterpret_cast<const uint4*>(vp + (long long)(k0 + key) * a.vst + c);
+      if (k0 + key < a.Tk && c < a.d) val = *reinterpret_cast<const uint4*>(vp + (long long)(k0 + key) * a.vst + c);
       const bf16* e = reinterpret_cast<const bf16*>(&val);
 #pragma unroll
       for (int j = 0; j < 8; ++j) Vt[(c + j) * L::LDV + key] = e[j];
@@ -213,11 +243,20 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_mma_kernel(Args a) {
     // S = Q K^T for this warp's 16 rows x 64 keys: 8 tiles of 16x8
     float s[BK / 8][4];
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const bf16* kr = Ks + (8 * nt + g) * L::LDK + 2 * t;
+    for (int nt = 0; nt < BK / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) mma16816(s[nt], qf[kk], ld32(kr + 16 * kk), ld32(kr + 16 * kk + 8));
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qa[4];
+      if constexpr (QREG) {
+        qa[0] = qf[kk][0], qa[1] = qf[kk][1], qa[2] = qf[kk][2], qa[3] = qf[kk][3];
+      } else {
+        a_frag(qa, qrows, L::LDK, kk, g, t);
+      }
+#pragma unroll
+      for (int nt = 0; nt < BK / 8; ++nt) {
+        const bf16* kr = Ks + (8 * nt + g) * L::LDK + 16 * kk + 2 * t;
+        mma16816(s[nt], qa, ld32(kr), ld32(kr + 8));
+      }
     }
 
     // scale, mask, row max over the 4 threads of a row
@@ -287,12 +326,9 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_mma_kernel(Args a) {
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= a.Tq) continue;
     const float inv_l = 1.f / fmaxf(l[r], 1e-30f);
-    bf16* orow = out + (((long long)b * a.Tq + row[r]) * a.H + h) * D + 2 * t;
+    bf16* orow = out + (((long long)b * a.Tq + row[r]) * a.H + h) * a.d;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const __nv_bfloat162 v = __floats2bfloat162_rn(o[j][2 * r] * inv_l, o[j][2 * r + 1] * inv_l);
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = v;
-    }
+    for (int j = 0; j < D / 8; ++j) hopper::store_pair(orow, 8 * j + 2 * t, a.d, o[j][2 * r] * inv_l, o[j][2 * r + 1] * inv_l);
     if (t == 0) a.lse[((long long)b * a.H + h) * a.Tq + row[r]] = m[r] + logf(fmaxf(l[r], 1e-30f));
   }
 }
@@ -301,56 +337,60 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_mma_kernel(Args a) {
 
 template <int D>
 struct F32Layout {
+  static constexpr int R = D > 128 ? 32 : 64;  // query rows per block, key rows per k-tile
   static constexpr int LDT = D + 4;   // Q, K, V tiles
-  static constexpr int LDS = BK + 4;  // S, then P
+  static constexpr int LDS = R + 4;   // S, then P
   static constexpr int LDO = D + 4;   // O accumulator
   static constexpr size_t bytes =
-      sizeof(float) * (size_t)(3 * 64 * LDT + BQ * LDS + BQ * LDO + 2 * BQ);
+      sizeof(float) * (size_t)(3 * R * LDT + R * LDS + R * LDO + 2 * R);
 };
 
 template <int D>
 __global__ void __launch_bounds__(THREADS) flash_fwd_f32_kernel(Args a) {
   using L = F32Layout<D>;
+  constexpr int R = L::R;
+  constexpr int TPR = THREADS / R;  // softmax threads per row: 2 or 4
+  constexpr int CPT = R / TPR;      // columns each takes
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
-  float* Ks = Qs + 64 * L::LDT;
-  float* Vs = Ks + 64 * L::LDT;
-  float* S = Vs + 64 * L::LDT;
-  float* O = S + BQ * L::LDS;
-  float* m_s = O + BQ * L::LDO;
-  float* l_s = m_s + BQ;
+  float* Ks = Qs + R * L::LDT;
+  float* Vs = Ks + R * L::LDT;
+  float* S = Vs + R * L::LDT;
+  float* O = S + R * L::LDS;
+  float* m_s = O + R * L::LDO;
+  float* l_s = m_s + R;
 
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / a.G;
-  const int q0 = qt * BQ;
+  const int q0 = qt * R;
   const int tid = threadIdx.x;
   const float* qp = static_cast<const float*>(a.q) + b * a.qsb + h * a.qsh;
   const float* kp = static_cast<const float*>(a.k) + b * a.ksb + kvh * a.ksh;
   const float* vp = static_cast<const float*>(a.v) + b * a.vsb + kvh * a.vsh;
 
-  load_tile<float, D>(Qs, L::LDT, qp, a.qst, q0, a.Tq);
-  for (int i = tid; i < BQ * L::LDO; i += THREADS) O[i] = 0.f;
-  if (tid < BQ) {
+  load_tile<float, D, R>(Qs, L::LDT, qp, a.qst, q0, a.Tq, a.d);
+  for (int i = tid; i < R * L::LDO; i += THREADS) O[i] = 0.f;
+  if (tid < R) {
     m_s[tid] = NEG_INF;
     l_s[tid] = 0.f;
   }
 
-  int n_tiles = (a.Tk + BK - 1) / BK;
-  if (a.causal) n_tiles = min(n_tiles, (q0 + BQ - 1) / BK + 1);
+  int n_tiles = (a.Tk + R - 1) / R;
+  if (a.causal) n_tiles = min(n_tiles, (q0 + R - 1) / R + 1);
 
-  // softmax mapping: two threads per row, 32 columns each
-  const int r = tid >> 1, half = tid & 1;
+  // softmax mapping: TPR threads per row, CPT columns each
+  const int r = tid / TPR, part = tid % TPR;
   const int qpos = q0 + r;
 
   for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BK;
+    const int k0 = kt * R;
     __syncthreads();
-    load_tile<float, D>(Ks, L::LDT, kp, a.kst, k0, a.Tk);
-    load_tile<float, D>(Vs, L::LDT, vp, a.vst, k0, a.Tk);
+    load_tile<float, D, R>(Ks, L::LDT, kp, a.kst, k0, a.Tk, a.d);
+    load_tile<float, D, R>(Vs, L::LDT, vp, a.vst, k0, a.Tk, a.d);
     __syncthreads();
 
-    for (int i = tid; i < BQ * BK; i += THREADS) {
-      const int rr = i / BK, c = i % BK;
+    for (int i = tid; i < R * R; i += THREADS) {
+      const int rr = i / R, c = i % R;
       const float* qr = Qs + rr * L::LDT;
       const float* kr = Ks + c * L::LDT;
       float acc = 0.f;
@@ -365,78 +405,70 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_f32_kernel(Args a) {
       const float l_prev = l_s[r];
       float* srow = S + r * L::LDS;
       float mx = NEG_INF;
-      for (int c = half * 32; c < half * 32 + 32; ++c) {
+      for (int c = part * CPT; c < part * CPT + CPT; ++c) {
         const int kpos = k0 + c;
         float v = srow[c];
         if (kpos >= a.Tk || (a.causal && kpos > qpos)) v = NEG_INF;
         srow[c] = v;
         mx = fmaxf(mx, v);
       }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+#pragma unroll
+      for (int off = 1; off < TPR; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_new = fmaxf(m_prev, mx);
       float sum = 0.f;
-      for (int c = half * 32; c < half * 32 + 32; ++c) {
+      for (int c = part * CPT; c < part * CPT + CPT; ++c) {
         const float p = expf(srow[c] - m_new);
         sum += p;
         srow[c] = p;
       }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+#pragma unroll
+      for (int off = 1; off < TPR; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
       const float alpha = expf(m_prev - m_new);
       float* orow = O + r * L::LDO;
-      for (int d = half * (D / 2); d < half * (D / 2) + D / 2; ++d) orow[d] *= alpha;
+      for (int d = part * (D / TPR); d < (part + 1) * (D / TPR); ++d) orow[d] *= alpha;
       __syncwarp();
-      if (half == 0) {
+      if (part == 0) {
         m_s[r] = m_new;
         l_s[r] = l_prev * alpha + sum;
       }
     }
     __syncthreads();
 
-    for (int i = tid; i < BQ * D; i += THREADS) {
+    for (int i = tid; i < R * D; i += THREADS) {
       const int rr = i / D, d = i % D;
       const float* pr = S + rr * L::LDS;
       float acc = O[rr * L::LDO + d];
 #pragma unroll 16
-      for (int c = 0; c < BK; ++c) acc = fmaf(pr[c], Vs[c * L::LDT + d], acc);
+      for (int c = 0; c < R; ++c) acc = fmaf(pr[c], Vs[c * L::LDT + d], acc);
       O[rr * L::LDO + d] = acc;
     }
   }
   __syncthreads();
 
   float* out = static_cast<float*>(a.out);
-  for (int i = tid; i < BQ * D; i += THREADS) {
+  for (int i = tid; i < R * D; i += THREADS) {
     const int rr = i / D, d = i % D;
     const int tq = q0 + rr;
-    if (tq < a.Tq) {
-      out[(((long long)b * a.Tq + tq) * a.H + h) * D + d] = O[rr * L::LDO + d] / fmaxf(l_s[rr], 1e-30f);
+    if (tq < a.Tq && d < a.d) {
+      out[(((long long)b * a.Tq + tq) * a.H + h) * a.d + d] = O[rr * L::LDO + d] / fmaxf(l_s[rr], 1e-30f);
     }
   }
-  if (tid < BQ && q0 + tid < a.Tq) {
+  if (tid < R && q0 + tid < a.Tq) {
     a.lse[((long long)b * a.H + h) * a.Tq + q0 + tid] = m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
   }
 }
 
+// The mma.sync kernel (bf16) or the FMA kernel (float32) at native width D.
 template <int D>
 int launch(const Args& a, int B, int is_bf16, cudaStream_t stream) {
   auto kernel = is_bf16 ? flash_fwd_mma_kernel<D> : flash_fwd_f32_kernel<D>;
   const size_t bytes = is_bf16 ? MmaLayout<D>::bytes : F32Layout<D>::bytes;
+  const int rows = is_bf16 ? BQ : F32Layout<D>::R;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.Tq + BQ - 1) / BQ, a.H, B);
+  dim3 grid((a.Tq + rows - 1) / rows, a.H, B);
   kernel<<<grid, THREADS, bytes, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-// float32 only: the head dims the tensor-core routes do not take (D 48, 96)
-template <int D>
-int launch_f32(const Args& a, int B, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)F32Layout<D>::bytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.Tq + BQ - 1) / BQ, a.H, B);
-  flash_fwd_f32_kernel<D><<<grid, THREADS, F32Layout<D>::bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -773,17 +805,19 @@ int launch_d64(const Args& a, int B, cudaStream_t stream) {
 
 }  // namespace wg
 
-int dispatch(const Args& a, int B, int D, int is_bf16, bool wgmma, cudaStream_t s) {
-  if (is_bf16 && wgmma && D == 64) return wg::launch_d64(a, B, s);
-  if (is_bf16 && wgmma && D == 128) return wg::launch<128, 2>(a, B, s);
-  switch (D) {
+int dispatch(const Args& a, int B, int is_bf16, bool wgmma, cudaStream_t s) {
+  if (is_bf16 && wgmma && a.d == 64) return wg::launch_d64(a, B, s);
+  if (is_bf16 && wgmma && a.d == 128) return wg::launch<128, 2>(a, B, s);
+  switch (hopper::native_head_dim(a.d)) {
     case 16: return launch<16>(a, B, is_bf16, s);
     case 32: return launch<32>(a, B, is_bf16, s);
+    case 48: return launch<48>(a, B, is_bf16, s);
     case 64: return launch<64>(a, B, is_bf16, s);
+    case 80: return launch<80>(a, B, is_bf16, s);
+    case 96: return launch<96>(a, B, is_bf16, s);
     case 128: return launch<128>(a, B, is_bf16, s);
-    case 48: return is_bf16 ? (int)cudaErrorInvalidValue : launch_f32<48>(a, B, s);
-    case 96: return is_bf16 ? (int)cudaErrorInvalidValue : launch_f32<96>(a, B, s);
-    default: return (int)cudaErrorInvalidValue;
+    case 256: return launch<256>(a, B, is_bf16, s);
+    default: return (int)cudaErrorInvalidValue;  // d < 1 or d > MAX_HEAD_DIM
   }
 }
 
@@ -792,15 +826,16 @@ int flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
               long long ksb, long long kst, long long ksh, long long vsb, long long vst,
               long long vsh, float scale, int causal, void* stream, bool wgmma) {
   if (B <= 0 || Tq <= 0) return 0;
-  Args a{q, k, v, out, static_cast<float*>(lse), H, G, Tq, Tk,
+  Args a{q, k, v, out, static_cast<float*>(lse), H, G, Tq, Tk, D,
          qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, scale, causal};
-  return dispatch(a, B, D, is_bf16, wgmma, static_cast<cudaStream_t>(stream));
+  return dispatch(a, B, is_bf16, wgmma, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
 
 // The kernel for (dtype, D): wgmma + TMA for bf16 at D 64 and 128,
-// mma.sync for bf16 at D 16 and 32, FMAs for float32 (those D, 48 and 96).
+// mma.sync for bf16 at every other D, FMAs for float32, each at the native
+// width >= D (1 <= D <= 256; cudaErrorInvalidValue past it).
 extern "C" int dml_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                              int is_bf16, int B, int H, int G, int Tq, int Tk, int D,
                              long long qsb, long long qst, long long qsh,

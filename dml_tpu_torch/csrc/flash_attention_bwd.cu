@@ -2,11 +2,12 @@
 // dml_tpu/ops/flash_attention.py::_bwd_dq_kernel and ::_bwd_dkv_kernel
 // (K3), plus the rowwise delta that the JAX code computes beside them.
 //
-// q and dO [B, Tq, H, D], k and v [B, Tk, KV, D] (BTHD, read through
+// q and dO [B, Tq, H, d], k and v [B, Tk, KV, d] (BTHD, read through
 // strides; KV divides H and query head h reads kv head h / (H / KV)), the
-// forward's out [B, Tq, H, D] and lse [B, H, Tq] f32, the optional lse
-// cotangent g_lse [B, H, Tq] f32 -> dq [B, Tq, H, D] in q's dtype, dk and
-// dv [B, Tk, KV, D] in k's and v's dtype, all contiguous.
+// forward's out [B, Tq, H, d] and lse [B, H, Tq] f32, the optional lse
+// cotangent g_lse [B, H, Tq] f32 -> dq [B, Tq, H, d] in q's dtype, dk and
+// dv [B, Tk, KV, d] in k's and v's dtype, all contiguous. Every head dim
+// 1 <= d <= 256 and every group H / KV, as the forward takes them.
 //
 // What every route computes, by recomputation from the saved lse, in the
 // TPU's two kernels:
@@ -27,6 +28,12 @@
 // that adds dq with atomics would save the dkv kernel's recomputation of
 // S and dP, which is not where the time goes (below).
 //
+// Head dims as in the forward (hopper.cuh::native_head_dim): instances at
+// D = 16, 32, 48, 64, 80, 96, 128 and 256, a head dim d on the least D >=
+// d with its columns past d loaded as zeros and never written. With K, Q
+// and dO zero there, S, dP and delta are unchanged and dq, dk and dv are
+// zero past d, so the result is exact.
+//
 // flash_bwd_delta_kernel runs first: delta' (in f32, from out and dO
 // through their strides) and a copy of lse into row arrays [B, H, Tp], Tp
 // = Tq rounded up to 128, whose rows past Tq hold lse = +1e30 and delta'
@@ -36,9 +43,9 @@
 // sequential innermost grid axis; here each block loops over that axis
 // itself and keeps the accumulators in registers.
 //
-// Routes, picked from the dtype and D alone:
+// Routes, picked from the dtype and d alone:
 //
-// - bf16, D 64 or 128 (every main-path shape): flash_bwd_dq_wgmma_kernel
+// - bf16, d 64 or 128 (every main-path shape): flash_bwd_dq_wgmma_kernel
 //   and flash_bwd_dkv_wgmma_kernel. Each block is a producer warpgroup and
 //   two consumer warpgroups of 64 rows each; setmaxnreg gives the
 //   consumers 232 registers and the producer 40. One producer thread
@@ -67,14 +74,18 @@
 //   Masks are applied only on tiles that cross the diagonal (or Tk, in
 //   dq); a consumer skips the products of a causal tile wholly past (or
 //   before) its rows. An mbarrier wait that outlasts ~2 s traps.
-// - bf16, D 16 or 32: flash_bwd_dq_mma_kernel and flash_bwd_dkv_mma_kernel,
-//   the first Hopper version: 64-row tiles, 4-warp blocks, synchronous
-//   tile loads, mma.sync m16n8k16 with dS, P^T and dS^T in registers as A
-//   operands and the operands read along the sequence copied transposed
-//   into shared memory. dml_flash_bwd_mma runs them at any bf16 D so one
-//   card can time them beside the wgmma route.
-// - float32: flash_bwd_dq_f32_kernel and flash_bwd_dkv_f32_kernel, plain
-//   FMAs with the tiles in shared memory.
+// - bf16, every other d: flash_bwd_dq_mma_kernel<D> and
+//   flash_bwd_dkv_mma_kernel<D>, the first Hopper version: 64-row tiles,
+//   4-warp blocks, synchronous tile loads, mma.sync m16n8k16 with dS, P^T
+//   and dS^T in registers as A operands and the operands read along the
+//   sequence copied transposed into shared memory. At D 256 the gradient
+//   accumulators (dk and dv: 256 registers a thread) do not fit, so each
+//   tile's block is two blocks, one per 128 gradient columns, which both
+//   compute S and dP over the whole D. dml_flash_bwd_mma runs them at any
+//   bf16 d so one card can time them beside the wgmma route.
+// - float32: flash_bwd_dq_f32_kernel<D> and flash_bwd_dkv_f32_kernel<D>,
+//   plain FMAs with the tiles in shared memory: 64-row tiles up to D 128,
+//   32-row tiles at D 256.
 //
 // Bound: tensor-core operations at the training shape. The backward needs
 // 5 products of 2 * Tq * Tk * D operations per head (S, dP, dV, dK, dQ;
@@ -99,8 +110,8 @@
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per tile
-constexpr int BK = 64;        // key rows per tile
+constexpr int BQ = 64;        // query rows per tile (mma.sync)
+constexpr int BK = 64;        // key rows per tile (mma.sync)
 constexpr int THREADS = 128;  // 4 warps
 constexpr float NEG_INF = -1e30f;
 
@@ -115,48 +126,53 @@ struct Args {
   void* dk;
   void* dv;
   int H, G, KV, Tq, Tk, Tp;
+  int d;  // the head dim; the kernel's D is the native width >= d
   long long qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, dsb, dst, dsh;
   float scale;
   int causal;
 };
 
-// Copy rows [row0, row0 + 64) of one head ([T, D] with row stride
-// `stride_t` elements) into a shared tile with row stride `ld`, 16 bytes
-// per thread per step; rows at `n_rows` and beyond are zero.
-template <typename T, int D>
+// Copy rows [row0, row0 + R) of one head ([T, d] with row stride
+// `stride_t` elements) into a shared tile of D columns with row stride
+// `ld`, 16 bytes per thread per step; rows at `n_rows` and beyond and
+// columns at d and beyond are zero. A row holds whole 16-byte chunks (the
+// wrapper pads it so), so a chunk is all in or all out.
+template <typename T, int D, int R>
 __device__ __forceinline__ void load_tile(T* dst, int ld, const T* src, long long stride_t,
-                                          int row0, int n_rows) {
+                                          int row0, int n_rows, int d) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int CHUNKS = D / VEC;
-  for (int i = threadIdx.x; i < 64 * CHUNKS; i += THREADS) {
+  for (int i = threadIdx.x; i < R * CHUNKS; i += THREADS) {
     const int r = i / CHUNKS;
     const int c = (i % CHUNKS) * VEC;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows) {
+    if (row0 + r < n_rows && c < d) {
       val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * stride_t + c);
     }
     *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
   }
 }
 
-// The same rows, stored transposed: dst[d * ldt + r] = src[row0 + r][d].
-template <int D>
+// DC columns of the same 64 rows, stored transposed: dst[c * ldt + r] =
+// src[row0 + r][c], zero past n_rows and past d columns.
+template <int DC>
 __device__ __forceinline__ void load_tile_t(__nv_bfloat16* dst, int ldt, const __nv_bfloat16* src,
-                                            long long stride_t, int row0, int n_rows) {
-  for (int i = threadIdx.x; i < 64 * (D / 8); i += THREADS) {
+                                            long long stride_t, int row0, int n_rows, int d) {
+  for (int i = threadIdx.x; i < 64 * (DC / 8); i += THREADS) {
     const int r = i % 64, c = (i / 64) * 8;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows) val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * stride_t + c);
+    if (row0 + r < n_rows && c < d) val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * stride_t + c);
     const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
 #pragma unroll
     for (int j = 0; j < 8; ++j) dst[(c + j) * ldt + r] = e[j];
   }
 }
 
-// Per-row f32 values of one (batch, head) for rows [row0, row0 + 64) into
+// Per-row f32 values of one (batch, head) for rows [row0, row0 + R) into
 // shared memory; rows at `n_rows` and beyond are zero.
+template <int R>
 __device__ __forceinline__ void load_rows(float* dst, const float* src, int row0, int n_rows) {
-  if (threadIdx.x < 64) {
+  if (threadIdx.x < R) {
     const int r = row0 + threadIdx.x;
     dst[threadIdx.x] = r < n_rows ? src[r] : 0.f;
   }
@@ -171,42 +187,47 @@ struct RowArgs {
   const float* glse;  // nullptr when the lse output has no cotangent
   float* lse_r;
   float* delta_r;
-  int H, Tq, Tp, lane_shift;  // log2 of the lanes per row: D * sizeof(T) / 16
+  int H, Tq, Tp;
+  int lane_shift;  // log2 of the lanes per row (2..32)
+  int chunks;      // 16-byte chunks of a row that hold its d columns
   long long osb, ost, osh, dsb, dst, dsh;
 };
 
 // Grid (Tp * lanes / 256, H, B): one row t of head h per 2^lane_shift
-// lanes, each reading 16 bytes of out and of dO, so a row is whole cache
-// lines and a warp's rows are consecutive in t (the row arrays are written
-// in runs). The lanes' partial sums meet by shuffles.
+// lanes, lane `part` reading the 16-byte chunks part, part + lanes, ... of
+// out and of dO, so a row is whole cache lines and a warp's rows are
+// consecutive in t (the row arrays are written in runs). The lanes'
+// partial sums meet by shuffles.
 template <int BF16>
 __global__ void __launch_bounds__(256) flash_bwd_delta_kernel(RowArgs r) {
+  const int lanes = 1 << r.lane_shift;
   const int i = blockIdx.x * 256 + threadIdx.x;
   const int t = i >> r.lane_shift;
-  const int part = i & ((1 << r.lane_shift) - 1);
+  const int part = i & (lanes - 1);
   const int h = blockIdx.y, b = blockIdx.z;
   float sum = 0.f;
   if (t < r.Tq) {
-    const uint4 o = *(reinterpret_cast<const uint4*>(
-        static_cast<const unsigned char*>(r.out) +
-        (b * r.osb + t * r.ost + h * r.osh) * (BF16 ? 2 : 4)) + part);
-    const uint4 d = *(reinterpret_cast<const uint4*>(
-        static_cast<const unsigned char*>(r.dout) +
-        (b * r.dsb + t * r.dst + h * r.dsh) * (BF16 ? 2 : 4)) + part);
-    const uint32_t ov[4] = {o.x, o.y, o.z, o.w}, dv[4] = {d.x, d.y, d.z, d.w};
+    const uint4* orow = reinterpret_cast<const uint4*>(
+        static_cast<const unsigned char*>(r.out) + (b * r.osb + t * r.ost + h * r.osh) * (BF16 ? 2 : 4));
+    const uint4* drow = reinterpret_cast<const uint4*>(
+        static_cast<const unsigned char*>(r.dout) + (b * r.dsb + t * r.dst + h * r.dsh) * (BF16 ? 2 : 4));
+    for (int c = part; c < r.chunks; c += lanes) {
+      const uint4 o = orow[c], d = drow[c];
+      const uint32_t ov[4] = {o.x, o.y, o.z, o.w}, dv[4] = {d.x, d.y, d.z, d.w};
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (BF16) {
-        const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ov[j]));
-        const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&dv[j]));
-        sum = fmaf(c.x, a.x, sum);
-        sum = fmaf(c.y, a.y, sum);
-      } else {
-        sum = fmaf(__uint_as_float(dv[j]), __uint_as_float(ov[j]), sum);
+      for (int j = 0; j < 4; ++j) {
+        if (BF16) {
+          const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ov[j]));
+          const float2 e = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&dv[j]));
+          sum = fmaf(e.x, a.x, sum);
+          sum = fmaf(e.y, a.y, sum);
+        } else {
+          sum = fmaf(__uint_as_float(dv[j]), __uint_as_float(ov[j]), sum);
+        }
       }
     }
   }
-  for (int off = (1 << r.lane_shift) / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  for (int off = lanes / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
   if (part == 0) {
     const long long bh = (long long)b * r.H + h;
     const long long slot = bh * r.Tp + t;
@@ -265,16 +286,23 @@ __device__ __forceinline__ void c_to_a(uint32_t* a, const float (*c)[4], int kk)
   a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
 }
 
+// Gradient columns a block of the mma.sync kernels accumulates: all D up
+// to 128, half of them at D 256 (two blocks per tile).
+template <int D>
+__host__ __device__ constexpr int grad_cols() { return D > 128 ? 128 : D; }
+
 template <int D>
 struct DqLayout {
+  static constexpr int DO = grad_cols<D>();
   static constexpr int LD = D + 8;    // Q, dO, K, V tiles, row-major
-  static constexpr int LDT = BK + 8;  // K tile transposed: [D, 64]
-  static constexpr size_t bytes = sizeof(bf16) * (size_t)(2 * BQ * LD + 2 * BK * LD + D * LDT);
+  static constexpr int LDT = BK + 8;  // the block's DO columns of the K tile transposed: [DO, 64]
+  static constexpr size_t bytes = sizeof(bf16) * (size_t)(2 * BQ * LD + 2 * BK * LD + DO * LDT);
 };
 
 template <int D>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dq_mma_kernel(Args a) {
   using L = DqLayout<D>;
+  constexpr int DO = L::DO, NS = D / DO;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* dOs = Qs + BQ * L::LD;
@@ -282,7 +310,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_mma_kernel(Args a) {
   bf16* Vs = Ks + BK * L::LD;
   bf16* Kt = Vs + BK * L::LD;
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int qt = blockIdx.x / NS, col0 = (blockIdx.x % NS) * DO;  // this block's dQ columns
+  const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / a.G;
   const int q0 = qt * BQ;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -292,8 +321,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_mma_kernel(Args a) {
   const bf16* kp = static_cast<const bf16*>(a.k) + b * a.ksb + kvh * a.ksh;
   const bf16* vp = static_cast<const bf16*>(a.v) + b * a.vsb + kvh * a.vsh;
 
-  load_tile<bf16, D>(Qs, L::LD, qp, a.qst, q0, a.Tq);
-  load_tile<bf16, D>(dOs, L::LD, dp_, a.dst, q0, a.Tq);
+  load_tile<bf16, D, BQ>(Qs, L::LD, qp, a.qst, q0, a.Tq, a.d);
+  load_tile<bf16, D, BQ>(dOs, L::LD, dp_, a.dst, q0, a.Tq, a.d);
 
   const int row[2] = {q0 + 16 * warp + g, q0 + 16 * warp + g + 8};
   const long long rbase = ((long long)b * a.H + h) * a.Tp;
@@ -304,9 +333,9 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_mma_kernel(Args a) {
     delta[r] = a.delta[rbase + row[r]];
   }
 
-  float acc[D / 8][4];
+  float acc[DO / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int j = 0; j < DO / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 
   int n_tiles = (a.Tk + BK - 1) / BK;
   if (a.causal) n_tiles = min(n_tiles, (q0 + BQ - 1) / BK + 1);  // skip tiles above the diagonal
@@ -316,9 +345,9 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_mma_kernel(Args a) {
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // every warp is done with the previous K/V tiles (and Q, dO are in)
-    load_tile<bf16, D>(Ks, L::LD, kp, a.kst, k0, a.Tk);
-    load_tile<bf16, D>(Vs, L::LD, vp, a.vst, k0, a.Tk);
-    load_tile_t<D>(Kt, L::LDT, kp, a.kst, k0, a.Tk);
+    load_tile<bf16, D, BK>(Ks, L::LD, kp, a.kst, k0, a.Tk, a.d);
+    load_tile<bf16, D, BK>(Vs, L::LD, vp, a.vst, k0, a.Tk, a.d);
+    load_tile_t<DO>(Kt, L::LDT, kp + col0, a.kst, k0, a.Tk, a.d - col0);
     __syncthreads();
 
     // S = Q K^T and dP = dO V^T for this warp's 16 rows x 64 keys
@@ -363,7 +392,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_mma_kernel(Args a) {
       uint32_t sa[4];
       c_to_a(sa, s, kk);
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DO / 8; ++j) {
         const bf16* kr = Kt + (8 * j + g) * L::LDT + 16 * kk + 2 * t;
         mma16816(acc[j], sa, ld32(kr), ld32(kr + 8));
       }
@@ -374,49 +403,49 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_mma_kernel(Args a) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= a.Tq) continue;
-    bf16* out = dq + (((long long)b * a.Tq + row[r]) * a.H + h) * D + 2 * t;
+    bf16* out = dq + (((long long)b * a.Tq + row[r]) * a.H + h) * a.d;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
-          __floats2bfloat162_rn(acc[j][2 * r], acc[j][2 * r + 1]);
-    }
+    for (int j = 0; j < DO / 8; ++j) hopper::store_pair(out, col0 + 8 * j + 2 * t, a.d, acc[j][2 * r], acc[j][2 * r + 1]);
   }
 }
 
 template <int D>
 struct DkvLayout {
+  static constexpr int DO = grad_cols<D>();
   static constexpr int LD = D + 8;    // K, V, Q, dO tiles, row-major
-  static constexpr int LDT = BQ + 8;  // Q and dO tiles transposed: [D, 64]
+  static constexpr int LDT = BQ + 8;  // the block's DO columns of the Q and dO tiles transposed: [DO, 64]
   static constexpr size_t bytes =
-      sizeof(bf16) * (size_t)(2 * BK * LD + 2 * BQ * LD + 2 * D * LDT) + sizeof(float) * 2 * BQ;
+      sizeof(bf16) * (size_t)(2 * BK * LD + 2 * BQ * LD + 2 * DO * LDT) + sizeof(float) * 2 * BQ;
 };
 
 template <int D>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_mma_kernel(Args a) {
   using L = DkvLayout<D>;
+  constexpr int DO = L::DO, NS = D / DO;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + BK * L::LD;
   bf16* Qs = Vs + BK * L::LD;
   bf16* dOs = Qs + BQ * L::LD;
   bf16* Qt = dOs + BQ * L::LD;
-  bf16* dOt = Qt + D * L::LDT;
-  float* lse_s = reinterpret_cast<float*>(dOt + D * L::LDT);
+  bf16* dOt = Qt + DO * L::LDT;
+  float* lse_s = reinterpret_cast<float*>(dOt + DO * L::LDT);
   float* delta_s = lse_s + BQ;
 
-  const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int kt = blockIdx.x / NS, col0 = (blockIdx.x % NS) * DO;  // this block's dK, dV columns
+  const int kvh = blockIdx.y, b = blockIdx.z;
   const int k0 = kt * BK;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const bf16* kp = static_cast<const bf16*>(a.k) + b * a.ksb + kvh * a.ksh;
   const bf16* vp = static_cast<const bf16*>(a.v) + b * a.vsb + kvh * a.vsh;
-  load_tile<bf16, D>(Ks, L::LD, kp, a.kst, k0, a.Tk);
-  load_tile<bf16, D>(Vs, L::LD, vp, a.vst, k0, a.Tk);
+  load_tile<bf16, D, BK>(Ks, L::LD, kp, a.kst, k0, a.Tk, a.d);
+  load_tile<bf16, D, BK>(Vs, L::LD, vp, a.vst, k0, a.Tk, a.d);
 
   const int key[2] = {k0 + 16 * warp + g, k0 + 16 * warp + g + 8};
-  float dk[D / 8][4], dv[D / 8][4];
+  float dk[DO / 8][4], dv[DO / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < DO / 8; ++j) {
     dk[j][0] = dk[j][1] = dk[j][2] = dk[j][3] = 0.f;
     dv[j][0] = dv[j][1] = dv[j][2] = dv[j][3] = 0.f;
   }
@@ -434,12 +463,12 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_mma_kernel(Args a) {
     for (int qt = qt0; qt < n_qt; ++qt) {
       const int q0 = qt * BQ;
       __syncthreads();  // every warp is done with the previous Q/dO tiles
-      load_tile<bf16, D>(Qs, L::LD, qp, a.qst, q0, a.Tq);
-      load_tile<bf16, D>(dOs, L::LD, dp_, a.dst, q0, a.Tq);
-      load_tile_t<D>(Qt, L::LDT, qp, a.qst, q0, a.Tq);
-      load_tile_t<D>(dOt, L::LDT, dp_, a.dst, q0, a.Tq);
-      load_rows(lse_s, a.lse + rbase, q0, a.Tq);
-      load_rows(delta_s, a.delta + rbase, q0, a.Tq);
+      load_tile<bf16, D, BQ>(Qs, L::LD, qp, a.qst, q0, a.Tq, a.d);
+      load_tile<bf16, D, BQ>(dOs, L::LD, dp_, a.dst, q0, a.Tq, a.d);
+      load_tile_t<DO>(Qt, L::LDT, qp + col0, a.qst, q0, a.Tq, a.d - col0);
+      load_tile_t<DO>(dOt, L::LDT, dp_ + col0, a.dst, q0, a.Tq, a.d - col0);
+      load_rows<BQ>(lse_s, a.lse + rbase, q0, a.Tq);
+      load_rows<BQ>(delta_s, a.delta + rbase, q0, a.Tq);
       __syncthreads();
 
       // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x 64 queries
@@ -487,7 +516,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_mma_kernel(Args a) {
         c_to_a(pa, s, kk);
         c_to_a(sa, dpv, kk);
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
+        for (int j = 0; j < DO / 8; ++j) {
           const bf16* dr = dOt + (8 * j + g) * L::LDT + 16 * kk + 2 * t;
           const bf16* qr = Qt + (8 * j + g) * L::LDT + 16 * kk + 2 * t;
           mma16816(dv[j], pa, ld32(dr), ld32(dr + 8));
@@ -502,42 +531,48 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_mma_kernel(Args a) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (key[r] >= a.Tk) continue;
-    const long long off = (((long long)b * a.Tk + key[r]) * a.KV + kvh) * D + 2 * t;
+    const long long off = (((long long)b * a.Tk + key[r]) * a.KV + kvh) * a.d;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(dkp + off + 8 * j) =
-          __floats2bfloat162_rn(dk[j][2 * r], dk[j][2 * r + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dvp + off + 8 * j) =
-          __floats2bfloat162_rn(dv[j][2 * r], dv[j][2 * r + 1]);
+    for (int j = 0; j < DO / 8; ++j) {
+      const int c = col0 + 8 * j + 2 * t;
+      hopper::store_pair(dkp + off, c, a.d, dk[j][2 * r], dk[j][2 * r + 1]);
+      hopper::store_pair(dvp + off, c, a.d, dv[j][2 * r], dv[j][2 * r + 1]);
     }
   }
 }
 
 // ---------------------------------------------------------------- f32
 
+// rows per tile of the float32 kernels: 64, or 32 at D 256 so that the
+// tiles fit shared memory
+template <int D>
+__host__ __device__ constexpr int f32_rows() { return D > 128 ? 32 : 64; }
+
 template <int D>
 struct F32DqLayout {
+  static constexpr int R = f32_rows<D>();
   static constexpr int LDT = D + 4;   // Q, dO, K, V tiles and the dQ accumulator
-  static constexpr int LDS = BK + 4;  // dS
-  static constexpr size_t bytes = sizeof(float) * (size_t)(5 * 64 * LDT + BQ * LDS + 2 * BQ);
+  static constexpr int LDS = R + 4;   // dS
+  static constexpr size_t bytes = sizeof(float) * (size_t)(5 * R * LDT + R * LDS + 2 * R);
 };
 
 template <int D>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dq_f32_kernel(Args a) {
   using L = F32DqLayout<D>;
+  constexpr int R = L::R;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
-  float* dOs = Qs + 64 * L::LDT;
-  float* Ks = dOs + 64 * L::LDT;
-  float* Vs = Ks + 64 * L::LDT;
-  float* dQ = Vs + 64 * L::LDT;
-  float* dS = dQ + 64 * L::LDT;
-  float* lse_s = dS + BQ * L::LDS;
-  float* delta_s = lse_s + BQ;
+  float* dOs = Qs + R * L::LDT;
+  float* Ks = dOs + R * L::LDT;
+  float* Vs = Ks + R * L::LDT;
+  float* dQ = Vs + R * L::LDT;
+  float* dS = dQ + R * L::LDT;
+  float* lse_s = dS + R * L::LDS;
+  float* delta_s = lse_s + R;
 
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / a.G;
-  const int q0 = qt * BQ;
+  const int q0 = qt * R;
   const int tid = threadIdx.x;
   const float* qp = static_cast<const float*>(a.q) + b * a.qsb + h * a.qsh;
   const float* dp_ = static_cast<const float*>(a.dout) + b * a.dsb + h * a.dsh;
@@ -545,24 +580,24 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_f32_kernel(Args a) {
   const float* vp = static_cast<const float*>(a.v) + b * a.vsb + kvh * a.vsh;
   const long long rbase = ((long long)b * a.H + h) * a.Tp;
 
-  load_tile<float, D>(Qs, L::LDT, qp, a.qst, q0, a.Tq);
-  load_tile<float, D>(dOs, L::LDT, dp_, a.dst, q0, a.Tq);
-  for (int i = tid; i < 64 * L::LDT; i += THREADS) dQ[i] = 0.f;
-  load_rows(lse_s, a.lse + rbase, q0, a.Tq);
-  load_rows(delta_s, a.delta + rbase, q0, a.Tq);
+  load_tile<float, D, R>(Qs, L::LDT, qp, a.qst, q0, a.Tq, a.d);
+  load_tile<float, D, R>(dOs, L::LDT, dp_, a.dst, q0, a.Tq, a.d);
+  for (int i = tid; i < R * L::LDT; i += THREADS) dQ[i] = 0.f;
+  load_rows<R>(lse_s, a.lse + rbase, q0, a.Tq);
+  load_rows<R>(delta_s, a.delta + rbase, q0, a.Tq);
 
-  int n_tiles = (a.Tk + BK - 1) / BK;
-  if (a.causal) n_tiles = min(n_tiles, (q0 + BQ - 1) / BK + 1);
+  int n_tiles = (a.Tk + R - 1) / R;
+  if (a.causal) n_tiles = min(n_tiles, (q0 + R - 1) / R + 1);
 
   for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BK;
+    const int k0 = kt * R;
     __syncthreads();
-    load_tile<float, D>(Ks, L::LDT, kp, a.kst, k0, a.Tk);
-    load_tile<float, D>(Vs, L::LDT, vp, a.vst, k0, a.Tk);
+    load_tile<float, D, R>(Ks, L::LDT, kp, a.kst, k0, a.Tk, a.d);
+    load_tile<float, D, R>(Vs, L::LDT, vp, a.vst, k0, a.Tk, a.d);
     __syncthreads();
 
-    for (int i = tid; i < BQ * BK; i += THREADS) {
-      const int r = i / BK, c = i % BK;
+    for (int i = tid; i < R * R; i += THREADS) {
+      const int r = i / R, c = i % R;
       const float* qr = Qs + r * L::LDT;
       const float* dr = dOs + r * L::LDT;
       const float* kr = Ks + c * L::LDT;
@@ -581,77 +616,81 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_f32_kernel(Args a) {
     }
     __syncthreads();
 
-    for (int i = tid; i < BQ * D; i += THREADS) {
+    for (int i = tid; i < R * D; i += THREADS) {
       const int r = i / D, d = i % D;
       const float* sr = dS + r * L::LDS;
       float acc = dQ[r * L::LDT + d];
 #pragma unroll 16
-      for (int c = 0; c < BK; ++c) acc = fmaf(sr[c], Ks[c * L::LDT + d], acc);
+      for (int c = 0; c < R; ++c) acc = fmaf(sr[c], Ks[c * L::LDT + d], acc);
       dQ[r * L::LDT + d] = acc;
     }
   }
   __syncthreads();
 
   float* dq = static_cast<float*>(a.dq);
-  for (int i = tid; i < BQ * D; i += THREADS) {
+  for (int i = tid; i < R * D; i += THREADS) {
     const int r = i / D, d = i % D;
-    if (q0 + r < a.Tq) dq[(((long long)b * a.Tq + q0 + r) * a.H + h) * D + d] = dQ[r * L::LDT + d];
+    if (q0 + r < a.Tq && d < a.d) dq[(((long long)b * a.Tq + q0 + r) * a.H + h) * a.d + d] = dQ[r * L::LDT + d];
   }
 }
 
 template <int D>
 struct F32DkvLayout {
+  static constexpr int R = f32_rows<D>();
   static constexpr int LDT = D + 4;   // K, V, Q, dO tiles
-  static constexpr int LDS = BQ + 4;  // P^T and dS^T
-  static constexpr size_t bytes = sizeof(float) * (size_t)(4 * 64 * LDT + 2 * BK * LDS + 2 * BQ);
+  static constexpr int LDS = R + 4;   // P^T and dS^T
+  static constexpr size_t bytes = sizeof(float) * (size_t)(4 * R * LDT + 2 * R * LDS + 2 * R);
 };
 
 template <int D>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_f32_kernel(Args a) {
   using L = F32DkvLayout<D>;
+  constexpr int R = L::R;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Ks = reinterpret_cast<float*>(smem);
-  float* Vs = Ks + 64 * L::LDT;
-  float* Qs = Vs + 64 * L::LDT;
-  float* dOs = Qs + 64 * L::LDT;
-  float* Pt = dOs + 64 * L::LDT;
-  float* dSt = Pt + BK * L::LDS;
-  float* lse_s = dSt + BK * L::LDS;
-  float* delta_s = lse_s + BQ;
+  float* Vs = Ks + R * L::LDT;
+  float* Qs = Vs + R * L::LDT;
+  float* dOs = Qs + R * L::LDT;
+  float* Pt = dOs + R * L::LDT;
+  float* dSt = Pt + R * L::LDS;
+  float* lse_s = dSt + R * L::LDS;
+  float* delta_s = lse_s + R;
 
   const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int k0 = kt * BK;
+  const int k0 = kt * R;
   const int tid = threadIdx.x;
   const float* kp = static_cast<const float*>(a.k) + b * a.ksb + kvh * a.ksh;
   const float* vp = static_cast<const float*>(a.v) + b * a.vsb + kvh * a.vsh;
-  load_tile<float, D>(Ks, L::LDT, kp, a.kst, k0, a.Tk);
-  load_tile<float, D>(Vs, L::LDT, vp, a.vst, k0, a.Tk);
+  load_tile<float, D, R>(Ks, L::LDT, kp, a.kst, k0, a.Tk, a.d);
+  load_tile<float, D, R>(Vs, L::LDT, vp, a.vst, k0, a.Tk, a.d);
 
-  // accumulators in registers: thread owns key row `own` and half the D columns
-  const int own = tid >> 1, half = tid & 1;
-  constexpr int HD = D / 2;
+  // accumulators in registers: TPR threads per key row `own`, each HD of
+  // the D columns (64 at D 128 and 256)
+  constexpr int TPR = THREADS / R;
+  constexpr int HD = D / TPR;
+  const int own = tid / TPR, part = tid % TPR;
   float dk[HD], dv[HD];
 #pragma unroll
   for (int j = 0; j < HD; ++j) dk[j] = dv[j] = 0.f;
 
-  const int n_qt = (a.Tq + BQ - 1) / BQ;
-  const int qt0 = a.causal ? k0 / BQ : 0;
+  const int n_qt = (a.Tq + R - 1) / R;
+  const int qt0 = a.causal ? k0 / R : 0;
   for (int gi = 0; gi < a.G; ++gi) {
     const int h = kvh * a.G + gi;
     const float* qp = static_cast<const float*>(a.q) + b * a.qsb + h * a.qsh;
     const float* dp_ = static_cast<const float*>(a.dout) + b * a.dsb + h * a.dsh;
     const long long rbase = ((long long)b * a.H + h) * a.Tp;
     for (int qt = qt0; qt < n_qt; ++qt) {
-      const int q0 = qt * BQ;
+      const int q0 = qt * R;
       __syncthreads();
-      load_tile<float, D>(Qs, L::LDT, qp, a.qst, q0, a.Tq);
-      load_tile<float, D>(dOs, L::LDT, dp_, a.dst, q0, a.Tq);
-      load_rows(lse_s, a.lse + rbase, q0, a.Tq);
-      load_rows(delta_s, a.delta + rbase, q0, a.Tq);
+      load_tile<float, D, R>(Qs, L::LDT, qp, a.qst, q0, a.Tq, a.d);
+      load_tile<float, D, R>(dOs, L::LDT, dp_, a.dst, q0, a.Tq, a.d);
+      load_rows<R>(lse_s, a.lse + rbase, q0, a.Tq);
+      load_rows<R>(delta_s, a.delta + rbase, q0, a.Tq);
       __syncthreads();
 
-      for (int i = tid; i < BK * BQ; i += THREADS) {
-        const int r = i / BQ, c = i % BQ;  // key r, query c
+      for (int i = tid; i < R * R; i += THREADS) {
+        const int r = i / R, c = i % R;  // key r, query c
         const float* kr = Ks + r * L::LDT;
         const float* vr = Vs + r * L::LDT;
         const float* qr = Qs + c * L::LDT;
@@ -673,10 +712,10 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_f32_kernel(Args a) {
 
       const float* pr = Pt + own * L::LDS;
       const float* sr = dSt + own * L::LDS;
-      for (int c = 0; c < BQ; ++c) {
+      for (int c = 0; c < R; ++c) {
         const float pv = pr[c], sv = sr[c];
-        const float* dr = dOs + c * L::LDT + half * HD;
-        const float* qr = Qs + c * L::LDT + half * HD;
+        const float* dr = dOs + c * L::LDT + part * HD;
+        const float* qr = Qs + c * L::LDT + part * HD;
 #pragma unroll
         for (int j = 0; j < HD; ++j) {
           dv[j] = fmaf(pv, dr[j], dv[j]);
@@ -687,13 +726,16 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_f32_kernel(Args a) {
   }
 
   if (k0 + own < a.Tk) {
-    const long long off = (((long long)b * a.Tk + k0 + own) * a.KV + kvh) * D + half * HD;
+    const long long off = (((long long)b * a.Tk + k0 + own) * a.KV + kvh) * a.d;
     float* dkp = static_cast<float*>(a.dk) + off;
     float* dvp = static_cast<float*>(a.dv) + off;
 #pragma unroll
     for (int j = 0; j < HD; ++j) {
-      dkp[j] = dk[j];
-      dvp[j] = dv[j];
+      const int c = part * HD + j;
+      if (c < a.d) {
+        dkp[c] = dk[j];
+        dvp[c] = dv[j];
+      }
     }
   }
 }
@@ -707,11 +749,15 @@ int launch_one(K kernel, size_t bytes, dim3 grid, const Args& a, cudaStream_t st
   return (int)cudaGetLastError();
 }
 
-// parts: 1 = the dq kernel, 2 = the dkv kernel, 3 = both
+// The mma.sync kernels (bf16) or the FMA kernels (float32) at native
+// width D. parts: 1 = the dq kernel, 2 = the dkv kernel, 3 = both
 template <int D>
 int launch(const Args& a, int B, int is_bf16, int parts, cudaStream_t stream) {
-  const dim3 dq_grid((a.Tq + BQ - 1) / BQ, a.H, B);
-  const dim3 dkv_grid((a.Tk + BK - 1) / BK, a.KV, B);
+  // mma.sync: 64-row tiles, D / grad_cols blocks a tile; f32: f32_rows
+  const int rows = is_bf16 ? BQ : f32_rows<D>();
+  const int split = is_bf16 ? D / grad_cols<D>() : 1;
+  const dim3 dq_grid((a.Tq + rows - 1) / rows * split, a.H, B);
+  const dim3 dkv_grid((a.Tk + rows - 1) / rows * split, a.KV, B);
   int err = 0;
   if (parts & 1) {
     err = is_bf16 ? launch_one(flash_bwd_dq_mma_kernel<D>, DqLayout<D>::bytes, dq_grid, a, stream)
@@ -725,6 +771,7 @@ int launch(const Args& a, int B, int is_bf16, int parts, cudaStream_t stream) {
   }
   return err;
 }
+
 
 
 // ------------------------------------------ bf16, D 64 / 128: wgmma + TMA
@@ -1240,17 +1287,21 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* dout, con
   if (B <= 0 || Tq <= 0 || Tk <= 0) return 0;
   Args a{q, k, v, dout,
          static_cast<const float*>(lse_r), static_cast<const float*>(delta_r), dq, dk, dv,
-         H, H / KV, KV, Tq, Tk, Tp,
+         H, H / KV, KV, Tq, Tk, Tp, D,
          qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, dsb, dst, dsh, scale, causal};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16 && wgmma && D == 64) return wg::launch<64>(a, B, parts, s);
   if (is_bf16 && wgmma && D == 128) return wg::launch<128>(a, B, parts, s);
-  switch (D) {
+  switch (hopper::native_head_dim(D)) {
     case 16: return launch<16>(a, B, is_bf16, parts, s);
     case 32: return launch<32>(a, B, is_bf16, parts, s);
+    case 48: return launch<48>(a, B, is_bf16, parts, s);
     case 64: return launch<64>(a, B, is_bf16, parts, s);
+    case 80: return launch<80>(a, B, is_bf16, parts, s);
+    case 96: return launch<96>(a, B, is_bf16, parts, s);
     case 128: return launch<128>(a, B, is_bf16, parts, s);
-    default: return (int)cudaErrorInvalidValue;
+    case 256: return launch<256>(a, B, is_bf16, parts, s);
+    default: return (int)cudaErrorInvalidValue;  // D < 1 or D > MAX_HEAD_DIM
   }
 }
 
@@ -1258,19 +1309,22 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* dout, con
 
 // The row arrays of one backward: lse_r and delta_r [B, H, Tp] f32 (Tp a
 // multiple of 128, at least Tq) from out and dO [B, Tq, H, D] (strided;
-// 16-byte aligned rows), lse and the optional g_lse [B, H, Tq].
+// 16-byte aligned rows of whole 16-byte chunks), lse and the optional
+// g_lse [B, H, Tq].
 extern "C" int dml_flash_bwd_rows(const void* out, const void* dout, const void* lse, const void* glse,
                                   void* lse_r, void* delta_r, int is_bf16, int B, int H, int Tq, int Tp,
                                   int D, long long osb, long long ost, long long osh,
                                   long long dsb, long long dst, long long dsh, void* stream) {
   if (B <= 0 || Tq <= 0) return 0;
-  const int lanes = D / (is_bf16 ? 8 : 4);  // 2..32
-  if (Tp % 128 != 0 || Tp < Tq || lanes < 2 || lanes > 32 || (lanes & (lanes - 1)))
-    return (int)cudaErrorInvalidValue;
+  const int vec = is_bf16 ? 8 : 4;
+  const int chunks = (D + vec - 1) / vec;
+  if (Tp % 128 != 0 || Tp < Tq || D < 1 || D > hopper::MAX_HEAD_DIM) return (int)cudaErrorInvalidValue;
+  int lanes = 2;  // at least 2, so that Tp * lanes is a multiple of 256
+  while (lanes < chunks && lanes < 32) lanes *= 2;
   RowArgs r{out, dout, static_cast<const float*>(lse), static_cast<const float*>(glse),
             static_cast<float*>(lse_r), static_cast<float*>(delta_r), H, Tq, Tp, __builtin_ctz(lanes),
-            osb, ost, osh, dsb, dst, dsh};
-  const dim3 grid(Tp * lanes / 256, H, B);  // Tp * lanes: a multiple of 256
+            chunks, osb, ost, osh, dsb, dst, dsh};
+  const dim3 grid(Tp * lanes / 256, H, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     flash_bwd_delta_kernel<1><<<grid, 256, 0, s>>>(r);
@@ -1280,9 +1334,11 @@ extern "C" int dml_flash_bwd_rows(const void* out, const void* dout, const void*
   return (int)cudaGetLastError();
 }
 
-// dq, dk and dv given the row arrays, on the kernel for (dtype, D): wgmma
-// + TMA for bf16 at D 64 and 128, mma.sync for bf16 at D 16 and 32, FMAs
-// for float32. parts: 1 = the dq kernel, 2 = the dkv kernel, 3 = both.
+// dq, dk and dv given the row arrays, on the kernels for (dtype, D): wgmma
+// + TMA for bf16 at D 64 and 128, mma.sync for bf16 at every other D, FMAs
+// for float32, each at the native width >= D (1 <= D <= 256;
+// cudaErrorInvalidValue past it). parts: 1 = the dq kernel, 2 = the dkv
+// kernel, 3 = both.
 extern "C" int dml_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse_r, const void* delta_r,
                              void* dq, void* dk, void* dv,
@@ -1297,7 +1353,7 @@ extern "C" int dml_flash_bwd(const void* q, const void* k, const void* v, const 
 }
 
 // The same call on the mma.sync kernels at every bf16 D (float32 as
-// above), so one card can time the two routes side by side.
+// above), so one card can time them beside the wgmma route.
 extern "C" int dml_flash_bwd_mma(const void* q, const void* k, const void* v, const void* dout,
                                  const void* lse_r, const void* delta_r,
                                  void* dq, void* dk, void* dv,

@@ -2,7 +2,9 @@
 // (flash_attention.cu, the forward, and flash_attention_bwd.cu, the
 // backward): mbarriers, TMA loads and stores, wgmma shared-memory
 // descriptors in the 128-byte swizzle that TMA writes, the wgmma forms
-// the kernels issue, and the tensor maps over BTHD tensors.
+// the kernels issue, the tensor maps over BTHD tensors, and the head dims
+// the kernels are built for. decode_attention.cu takes the mbarrier and
+// bulk-copy pieces.
 //
 // Everything here sits in the including file's unnamed namespace: each
 // source is its own library, so nothing is exported twice.
@@ -11,6 +13,7 @@
 
 #include <cuda.h>
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
@@ -19,6 +22,29 @@ namespace hopper {
 constexpr int ROW_BYTES = 128;  // one swizzle row: 64 bf16
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
+
+// The head dims the flash kernels are instantiated at. A head dim d runs
+// on the least of them at or above d: its columns past d are read as zeros
+// (zero columns change neither Q K^T nor P V) and never written. Past
+// MAX_HEAD_DIM there is no kernel (0): the forward's O accumulator alone
+// is D / 2 float32 registers a thread for 64 query rows on 128 threads.
+constexpr int MAX_HEAD_DIM = 256;
+__host__ __device__ constexpr int native_head_dim(int d) {
+  return d < 1 ? 0 : d <= 16 ? 16 : d <= 32 ? 32 : d <= 48 ? 48 : d <= 64 ? 64 : d <= 80 ? 80
+       : d <= 96 ? 96 : d <= 128 ? 128 : d <= MAX_HEAD_DIM ? MAX_HEAD_DIM : 0;
+}
+
+// Columns c and c + 1 of a bf16 output row of d columns: the pair as one
+// 4-byte store where d is even (c is even, so the pair is aligned), else
+// each column apart; columns at d and beyond are not written.
+__device__ __forceinline__ void store_pair(__nv_bfloat16* row, int c, int d, float lo, float hi) {
+  if ((d & 1) == 0) {
+    if (c < d) *reinterpret_cast<__nv_bfloat162*>(row + c) = __floats2bfloat162_rn(lo, hi);
+  } else {
+    if (c < d) row[c] = __float2bfloat16_rn(lo);
+    if (c + 1 < d) row[c + 1] = __float2bfloat16_rn(hi);
+  }
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

@@ -16,8 +16,11 @@ tensor it runs the plain version, `decode_attention_plain`: the float32
 einsum of `dml_tpu/inference/generate.py::batched_decode_step`
 (`:369-376`), which is also what the JAX package runs off the TPU. Every
 cache form goes to the kernel on CUDA (bf16, f32, int8; MHA, GQA, MQA):
-there is no switch. `split_plan` sizes the grid; it is a pure function
-of the shapes and the SM count, so the CPU tests hold it to its rules.
+there is no switch, and every head dim 1 <= D <= 256 and every group G =
+H / KV launches it (the JAX kernel asks only that KV divide H; past D
+256 it raises, naming the limit). `split_plan` sizes the grid; it is a
+pure function of the shapes and the SM count, so the CPU tests hold it
+to its rules.
 """
 
 from __future__ import annotations
@@ -29,11 +32,12 @@ from typing import NamedTuple, Optional
 import torch
 
 NEG_INF = -1e30
-MAX_GROUP = 16    # query heads per kv head the kernel takes
-#: D 48 and 96 (the cluster LM bench's ShardLM, d 384 over 4 heads, and its
-#: draft's d 192) read a row with a power of two of lanes, those past D's
-#: slices idle (csrc/decode_attention.cu)
-HEAD_DIMS = (16, 32, 48, 64, 96, 128)
+MAX_HEAD_DIM = 256    # the widest cache row the kernel reads
+MAX_CHUNK_HEADS = 16  # query heads one block takes: a kv head's G heads go in chunks of at most this
+#: a row of D elements is read at the least of these >= D, the lanes or
+#: elements past D idle (`decode_kernel` where D is a width of 64 or more,
+#: `decode_general_kernel` for every other D)
+ROW_WIDTHS = (16, 32, 64, 128, 256)
 _CACHE_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 # the one-launch kernel's plan (mirrors csrc/decode_attention.cu)
@@ -62,7 +66,7 @@ def _library() -> ctypes.CDLL:
 
     lib = load_library("dml_decode_attention", ["decode_attention.cu"])
     fn = lib.dml_decode_attention
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 12 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -89,32 +93,72 @@ def decode_attention_plain(q, k, v, pos, *, k_scale=None, v_scale=None, scale=No
 
 class Plan(NamedTuple):
     chunk: int          # rows per block (a multiple of SUB_ROWS)
-    n_split: int        # blocks along T per (b, kv) plane
+    n_split: int        # blocks along T per (b, kv, head chunk)
     smem_bytes: int     # dynamic shared memory per block
     blocks_per_sm: int  # blocks an SM holds at once at that size
+    width: int          # the row width the kernel instance reads (>= D)
+    n_hc: int           # head chunks per kv head
+    gc: int             # query heads per chunk (the last may hold fewer)
+
+
+def row_width(d: int) -> int:
+    """The kernel instance for head dim d: the least of ROW_WIDTHS >= d;
+    raises past MAX_HEAD_DIM."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"no decode attention kernel at head_dim {d}: "
+                         f"the kernel takes 1 <= head_dim <= {MAX_HEAD_DIM}")
+    return next(w for w in ROW_WIDTHS if w >= d)
+
+
+def group_heads(itemsize: int, width: int) -> int:
+    """Query heads a warp holds (csrc/decode_attention.cu::group_heads):
+    32 / the elements a lane reads of a row (one 16-byte vector of f32
+    or bf16, 8 bytes of int8, two f32 vectors at width 256)."""
+    return 32 // max(4 if itemsize == 4 else 8, width // 32)
+
+
+def head_chunks(g: int):
+    """(n_hc, gc): a kv head's g query heads in n_hc chunks of gc heads
+    (the last one fewer), as even as chunks of at most MAX_CHUNK_HEADS
+    allow."""
+    n_hc = -(-g // MAX_CHUNK_HEADS)
+    return n_hc, -(-g // n_hc)
+
+
+def bulk_rows(d: int, itemsize: int) -> bool:
+    """Whether the kernel bulk-copies its rows (a cache row a multiple of
+    16 bytes) or its threads copy them (an odd D; int8 at D % 16 != 0)."""
+    return d * itemsize % 16 == 0
 
 
 def smem_bytes(chunk: int, d: int, itemsize: int, quantized: bool) -> int:
     """Dynamic shared memory of one block: csrc/decode_attention.cu::layout."""
-    gt = 8 if itemsize == 4 else 4  # query heads per warp
-    return (2 * chunk * d * itemsize + (2 * (chunk + 4) * 4 if quantized else 0)
-            + WARPS * gt * d * 4 + 2 * WARPS * gt * 4 + THREADS * 8 + THREADS * 16 + 16
+    width = row_width(d)
+    gt = group_heads(itemsize, width)
+    # K and V spans 128-byte aligned, + the offset of a span that is not
+    # 16-byte aligned where rows are not whole 16-byte units
+    span = -(-(chunk * d * itemsize + (0 if bulk_rows(d, itemsize) else 16)) // 128) * 128
+    return (2 * span + (2 * (chunk + 4) * 4 if quantized else 0)
+            + WARPS * gt * width * 4 + 2 * WARPS * gt * 4 + THREADS * 8 + THREADS * 16 + 16
             + (chunk // SUB_ROWS + 1) * 16)
 
 
 def split_plan(b: int, kv: int, t: int, d: int, g: int, itemsize: int, quantized: bool,
                n_sm: int) -> Plan:
-    """The one-launch kernel's grid: block (split, kv, b) owns rows
-    [split * chunk, (split + 1) * chunk) of its plane, cut short at
-    pos[b] by the kernel. The chunk is sized by bytes (at most
-    CHUNK_BYTES of K + V, at most MAX_CHUNK rows, a multiple of
-    SUB_ROWS); within that, the plane is cut into as many splits as keep
-    the whole grid resident in one wave (at most MAX_SPLIT, at least one
-    sub-tile each), so every SM holds a similar share of the bytes, and
-    no more than keep a plane's partials (G * D floats a split) within
-    MERGE_BYTES, which the plane's last block reads alone. When
-    even the fewest splits the byte budget allows overflow one wave
-    (long contexts at large B * KV), the plan takes those fewest."""
+    """The one-launch kernel's grid: block (split, kv * n_hc + chunk, b)
+    owns rows [split * chunk_rows, (split + 1) * chunk_rows) of its
+    (b, kv) plane for the chunk's query heads, cut short at pos[b] by the
+    kernel. The rows are sized by bytes (at most CHUNK_BYTES of K + V, at
+    most MAX_CHUNK rows, a multiple of SUB_ROWS); within that, each
+    (b, kv, head chunk) is cut into as many splits as keep the whole grid
+    resident in one wave (at most MAX_SPLIT, at least one sub-tile each),
+    so every SM holds a similar share of the bytes, and no more than keep
+    a chunk's partials (gc * D floats a split, D rounded up to 4) within
+    MERGE_BYTES, which its last block reads alone. When even the fewest
+    splits the byte budget allows overflow one wave (long contexts at
+    large B * KV), the plan takes those fewest."""
+    width = row_width(d)
+    n_hc, gc = head_chunks(g)
     row = 2 * d * itemsize + (8 if quantized else 0)
     max_rows = min(MAX_CHUNK, CHUNK_BYTES // row // SUB_ROWS * SUB_ROWS)
     min_split = -(-t // max_rows)
@@ -123,11 +167,13 @@ def split_plan(b: int, kv: int, t: int, d: int, g: int, itemsize: int, quantized
         return min(MAX_BLOCKS_PER_SM, SMEM_PER_SM // (smem_bytes(chunk, d, itemsize, quantized) + 1024))
 
     slots = n_sm * per_sm(max_rows)  # at the largest block: conservative
-    want = max(min_split, min(slots // (b * kv), -(-t // SUB_ROWS), MAX_SPLIT,
-                              max(1, MERGE_BYTES // (g * d * 4))))
+    dpad = -(-d // 4) * 4
+    want = max(min_split, min(slots // (b * kv * n_hc), -(-t // SUB_ROWS), MAX_SPLIT,
+                              max(1, MERGE_BYTES // (gc * dpad * 4))))
     chunk = -(-(-(-t // want)) // SUB_ROWS) * SUB_ROWS
     n_split = -(-t // chunk)
-    return Plan(chunk, n_split, smem_bytes(chunk, d, itemsize, quantized), per_sm(chunk))
+    return Plan(chunk, n_split, smem_bytes(chunk, d, itemsize, quantized), per_sm(chunk),
+                width, n_hc, gc)
 
 
 def _sms(device) -> int:
@@ -138,7 +184,7 @@ def _sms(device) -> int:
 
 def _counters(device, stream: int, n: int) -> torch.Tensor:
     """The ticket counters of (device, stream): zeroed once, left zero by
-    every call, grown (zeroed again) when B * KV outgrows them."""
+    every call, grown (zeroed again) when B * KV * n_hc outgrows them."""
     key = (device.index, stream)
     with _workspace_lock:
         ws = _workspace.get(key)
@@ -154,10 +200,7 @@ def _decode_cuda(q, k, v, pos, k_scale, v_scale, scale):
     b, _, h, d = q.shape
     kv, t = k.shape[1], k.shape[2]
     g = h // kv
-    if g > MAX_GROUP:
-        raise ValueError(f"{g} query heads per kv head; the kernel takes at most {MAX_GROUP}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not supported by the kernel (one of {HEAD_DIMS})")
+    row_width(d)  # raises past MAX_HEAD_DIM, naming the limit
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     tensors = [q, k, v, pos] + ([k_scale, v_scale] if k_scale is not None else [])
@@ -172,15 +215,18 @@ def _decode_cuda(q, k, v, pos, k_scale, v_scale, scale):
         raise TypeError("int8 cache scales must be float32")
     if quantized and (k_scale.data_ptr() % 16 or v_scale.data_ptr() % 16):
         raise ValueError("decode_attention needs 16-byte aligned cache scales")
-    # the kernel reads a contiguous q in 8- or 16-byte vectors
+    # the kernel reads a contiguous q (at D = its row width in 8- or 16-byte vectors)
     if not q.is_contiguous() or q.data_ptr() % 16:
         q = q.clone(memory_format=torch.contiguous_format)
     pos = pos.to(torch.int32).contiguous()
     out = torch.empty((b, 1, h, d), dtype=torch.float32, device=q.device)
     plan = split_plan(b, kv, t, d, g, k.element_size(), quantized, _sms(q.device))
-    chunk, n_split = plan.chunk, plan.n_split
-    o_part = torch.empty((b, kv, n_split, g, d), dtype=torch.float32, device=q.device)
-    m_part = torch.empty((b, kv, n_split, g), dtype=torch.float32, device=q.device)
+    chunk, n_split, n_hc, gc = plan.chunk, plan.n_split, plan.n_hc, plan.gc
+    # partials of each (b, kv, head chunk): gc heads of D rounded up to 4
+    # floats a split
+    o_part = torch.empty((b, kv, n_hc, n_split, gc, -(-d // 4) * 4), dtype=torch.float32,
+                         device=q.device)
+    m_part = torch.empty((b, kv, n_hc, n_split, gc), dtype=torch.float32, device=q.device)
     l_part = torch.empty_like(m_part)
     lib = _library()
     with torch.cuda.device(q.device):
@@ -190,10 +236,10 @@ def _decode_cuda(q, k, v, pos, k_scale, v_scale, scale):
                 v_scale.data_ptr() if quantized else None,
                 pos.data_ptr(), o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr())
         kind, q_bf16 = _CACHE_KINDS[k.dtype], int(q.dtype == torch.bfloat16)
-        counters = _counters(q.device, stream, b * kv)
+        counters = _counters(q.device, stream, b * kv * n_hc)
         err = lib.dml_decode_attention(
             *ptrs, counters.data_ptr(), out.data_ptr(), kind, q_bf16, b, kv, g, t, d, chunk,
-            n_split, AHEAD, float(scale), stream)
+            n_split, n_hc, gc, AHEAD, float(scale), stream)
         if err != 0:
             counters.zero_()  # a launch that failed may have left tickets behind
     if err != 0:

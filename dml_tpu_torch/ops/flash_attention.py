@@ -7,17 +7,23 @@ _fwd_kernel` (K2) and the backward pair `_bwd_dq_kernel` and
 `dml_tpu_torch/csrc/flash_attention.cu` and `csrc/flash_attention_bwd.cu`,
 built with nvcc for sm_90a at first use and called through ctypes.
 
-Routes follow from the dtype and the head dim alone (`kernel_route` for
-the forward, `bwd_kernel_route` for the backward): bf16 at D 64 and 128,
-every main-path shape, runs warp-specialized kernels (a TMA producer
-streaming tiles through a shared-memory ring, consumer warpgroups on
-`wgmma`, P and dS kept in registers); bf16 at D 16 and 32 runs `mma.sync`
-kernels; float32 runs plain FMAs. The backward keeps the TPU's two-kernel
-split (dq over k-tiles, dk and dv over q-tiles, no atomics), after a
-small kernel that computes delta = rowsum(dO * O) and pads the row
-arrays the two read. The source files say what bounds each kernel and
-how it is laid out. The kernels pick their own tiles, so the TPU knobs
-`block_q`, `block_k` and `interpret` are not part of these signatures.
+Routes follow from the dtype and the head dim alone (`kernel_route`,
+one rule for the forward and the backward):
+bf16 at D 64 and 128, every main-path shape, runs warp-specialized
+kernels (a TMA producer streaming tiles through a shared-memory ring,
+consumer warpgroups on `wgmma`, P and dS kept in registers); bf16 at
+every other D runs `mma.sync` kernels; float32 runs plain FMAs. The
+kernels take every head dim 1 <= D <= 256 (the JAX kernels' full-D
+block takes any D; past 256 the forward's accumulator alone would need
+D / 2 float32 registers a thread, so there they raise): a D runs on the
+least native width >= D (`NATIVE_HEAD_DIMS`), its columns past D read as
+zeros and never written, which is exact. The backward keeps the TPU's
+two-kernel split (dq over k-tiles, dk and dv over q-tiles, no atomics),
+after a small kernel that computes delta = rowsum(dO * O) and pads the
+row arrays the two read. The source files say what bounds each kernel
+and how it is laid out. The kernels pick their own tiles, so the TPU
+knobs `block_q`, `block_k` and `interpret` are not part of these
+signatures.
 
 `flash_attention` and `flash_attention_lse` are the forward kernel's
 wrappers. On a CUDA tensor they launch the kernel (and count the launch
@@ -47,16 +53,15 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
-#: the forward's float32 route also takes D 48 and 96 (the cluster LM
-#: bench's ShardLM, d 384 over 4 heads, and its draft's d 192); no bf16
-#: route and no backward does
-F32_HEAD_DIMS = HEAD_DIMS + (48, 96)
+#: the widths the kernels are built at (csrc/hopper.cuh::native_head_dim):
+#: a head dim D runs on the least of them >= D
+NATIVE_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 128, 256)
+MAX_HEAD_DIM = NATIVE_HEAD_DIMS[-1]
 _DTYPES = (torch.bfloat16, torch.float32)
 
 #: kernel launches since the last reset (plain ints; a test or
@@ -87,27 +92,32 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
-    """The forward kernel that `dml_flash_fwd` launches for (dtype, D),
-    as the C entry point picks it: "wgmma+tma" for bf16 at D 64 and 128,
-    "mma.sync" for bf16 at D 16 and 32, "fma" for float32 (also at D 48
-    and 96)."""
-    dims = F32_HEAD_DIMS if dtype == torch.float32 else HEAD_DIMS
-    if dtype not in _DTYPES or head_dim not in dims:
+class Route(NamedTuple):
+    kind: str   # "wgmma+tma", "mma.sync" or "fma"
+    width: int  # the native head dim the kernel runs at (>= D)
+
+
+def native_head_dim(head_dim: int) -> int:
+    """The least native width >= head_dim, as the C entry points pick it;
+    raises past MAX_HEAD_DIM."""
+    if not 1 <= head_dim <= MAX_HEAD_DIM:
+        raise ValueError(f"no flash attention kernel at head_dim {head_dim}: "
+                         f"the kernels take 1 <= head_dim <= {MAX_HEAD_DIM}")
+    return next(w for w in NATIVE_HEAD_DIMS if w >= head_dim)
+
+
+def kernel_route(dtype: torch.dtype, head_dim: int) -> Route:
+    """The kernels that `dml_flash_fwd` and `dml_flash_bwd` launch for
+    (dtype, D), as the C entry points pick them, and the width they run
+    at: "wgmma+tma"
+    for bf16 at D 64 and 128, "mma.sync" for bf16 at every other D,
+    "fma" for float32, each at `native_head_dim(D)`."""
+    if dtype not in _DTYPES:
         raise ValueError(f"no flash attention kernel for {dtype} at head_dim {head_dim}")
+    width = native_head_dim(head_dim)
     if dtype == torch.float32:
-        return "fma"
-    return "wgmma+tma" if head_dim in (64, 128) else "mma.sync"
-
-
-def bwd_kernel_route(dtype: torch.dtype, head_dim: int) -> str:
-    """The backward kernels that `dml_flash_bwd` launches for (dtype, D),
-    as the C entry point picks them: "wgmma+tma" for bf16 at D 64 and
-    128, "mma.sync" for bf16 at D 16 and 32, "fma" for float32 (not at
-    the forward's extra D 48 and 96)."""
-    if head_dim not in HEAD_DIMS:
-        raise ValueError(f"no flash attention kernel for {dtype} at head_dim {head_dim}")
-    return kernel_route(dtype, head_dim)
+        return Route("fma", width)
+    return Route("wgmma+tma" if head_dim in (64, 128) else "mma.sync", width)
 
 
 def _bwd_library() -> ctypes.CDLL:
@@ -261,17 +271,24 @@ def _kernel_view(x: torch.Tensor) -> torch.Tensor:
     """x itself if the kernels can read it through strides (unit last
     stride, a 16-byte aligned base, 16-byte multiples for the other
     strides, none of them 0 where the dim is longer than 1: what a TMA
-    tensor map takes), else a contiguous copy in a new allocation (for a
-    contiguous x at a misaligned offset, `x.contiguous()` would be x)."""
+    tensor map takes, and whole 16-byte chunks a row for the other
+    kernels' vector loads), else a contiguous copy in a new allocation
+    (for a contiguous x at a misaligned offset, `x.contiguous()` would be
+    x). Where D itself is not a multiple of 16 bytes (bf16 D % 8, float32
+    D % 4) even a contiguous copy breaks that rule, so the copy pads D
+    with zero columns to the next multiple: the kernels read zeros there,
+    as they read the columns past D up to their native width."""
     vec = 16 // x.element_size()
+    d = x.shape[3]
+    if d % vec:
+        return torch.nn.functional.pad(x, (0, -d % vec))
     ok = (x.stride(3) == 1 and x.data_ptr() % 16 == 0
           and all(s % vec == 0 and (s > 0 or n == 1) for s, n in zip(x.stride()[:3], x.shape[:3])))
     return x if ok else x.clone(memory_format=torch.contiguous_format)
 
 
-def _check_cuda(q, k, v, dims=HEAD_DIMS):
-    if q.shape[3] not in dims:
-        raise ValueError(f"head_dim {q.shape[3]} not supported by the kernel (one of {dims})")
+def _check_cuda(q, k, v):
+    native_head_dim(q.shape[3])  # raises past MAX_HEAD_DIM, naming the limit
     if not (k.device == v.device == q.device):
         raise ValueError("q, k and v must be on one device")
 
@@ -281,7 +298,7 @@ def _flash_cuda(q, k, v, causal, scale, mma_sync=False):
     runs the mma.sync kernel whatever D is (to time it beside the
     wgmma route); the wrappers never pass it. Counts one launch."""
     global flash_launches
-    _check_cuda(q, k, v, F32_HEAD_DIMS if q.dtype == torch.float32 else HEAD_DIMS)
+    _check_cuda(q, k, v)
     b, tq, h, d = q.shape
     tk, kv = k.shape[1], k.shape[2]
     q, k, v = _kernel_view(q), _kernel_view(k), _kernel_view(v)
@@ -312,6 +329,7 @@ def _bwd_rows_cuda(out, dout, lse, dlse):
     (lse_r, delta_r) of `bwd_rows_plain`. Counts one launch."""
     global flash_bwd_delta_launches
     b, tq, h, d = out.shape
+    native_head_dim(d)  # raises past MAX_HEAD_DIM, naming the limit
     if dout.shape != out.shape or dout.dtype != out.dtype or dout.device != out.device:
         raise ValueError(f"dout {dout.dtype} {tuple(dout.shape)} does not fit out {out.dtype} {tuple(out.shape)}")
     rows = [lse] + ([] if dlse is None else [dlse])

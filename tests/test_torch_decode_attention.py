@@ -132,32 +132,54 @@ def _scale_spans(row0, n):
     return range(lo - row0, hi - row0), list(range(lo - row0)) + list(range(hi - row0, n))
 
 
-@pytest.mark.parametrize("d", da.HEAD_DIMS)
+def _span_copy(addr, nbytes):
+    """The kernel's copy of a span whose rows are not whole 16-byte units
+    (csrc/decode_attention.cu::copy_span): bytes up to the first 16-byte
+    boundary, 16-byte words, bytes after the last."""
+    head = min((16 - addr % 16) % 16, nbytes)
+    words = (nbytes - head) // 16
+    return head, words, nbytes - head - 16 * words
+
+
+#: D 16-128 (every kernel instance but 256, and D 48 and 96, whose rows
+#: leave lanes idle), then the new head dims: the JAX tests' 8, an odd
+#: 20, a D-80 target's draft 40, Phi-2's 80 and Gemma-2B's 256
+PLAN_HEAD_DIMS = (16, 32, 48, 64, 96, 128, 8, 20, 40, 80, 256)
+
+
+@pytest.mark.parametrize("d", PLAN_HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8],
                          ids=["f32", "bf16", "int8"])
 def test_split_plan_covers_budgets_aligns_and_fits_one_wave(dtype, d):
     itemsize = torch.tensor([], dtype=dtype).element_size()
     quantized = dtype == torch.int8
     rng = np.random.RandomState(d + itemsize)
+    dpad = -(-d // 4) * 4
     for n_sm in (132, 114):
-        for b, kv, g in ((1, 4, 4), (8, 4, 4), (8, 1, 16), (1, 16, 1), (64, 4, 4), (3, 2, 3)):
+        # (8, 1, 48): StarCoder's MQA, past one block's 16 heads
+        for b, kv, g in ((1, 4, 4), (8, 4, 4), (8, 1, 16), (1, 16, 1), (64, 4, 4), (3, 2, 3),
+                         (8, 1, 48)):
             for t in (1, 16, 100, 2112, 4096, 4099):
                 plan = da.split_plan(b, kv, t, d, g, itemsize, quantized, n_sm)
                 chunk, n_split = plan.chunk, plan.n_split
                 assert chunk % da.SUB_ROWS == 0 and da.SUB_ROWS <= chunk <= da.MAX_CHUNK
                 assert n_split * chunk >= t > (n_split - 1) * chunk
+                # every head in one chunk of at most 16, the instance wide enough
+                assert plan.gc <= da.MAX_CHUNK_HEADS and plan.n_hc * plan.gc >= g > (plan.n_hc - 1) * plan.gc
+                assert plan.width >= d and plan.width in da.ROW_WIDTHS
                 # the byte budget, and what an SM can hold
                 row = 2 * d * itemsize + (8 if quantized else 0)
                 assert chunk * row <= da.CHUNK_BYTES or chunk == da.SUB_ROWS
                 assert plan.smem_bytes <= 227 << 10 and plan.blocks_per_sm >= 1
                 # one wave wherever the budget's fewest splits fit one
+                planes = b * kv * plan.n_hc
                 min_split = -(-t // min(da.MAX_CHUNK, da.CHUNK_BYTES // row // 32 * 32))
-                if b * kv * min_split <= n_sm * plan.blocks_per_sm:
-                    assert b * kv * n_split <= n_sm * plan.blocks_per_sm
+                if planes * min_split <= n_sm * plan.blocks_per_sm:
+                    assert planes * n_split <= n_sm * plan.blocks_per_sm
                 else:
                     assert n_split == min_split
-                # the plane's partials stay small enough for one block to merge
-                assert n_split * g * d * 4 <= da.MERGE_BYTES or n_split == min_split
+                # a chunk's partials stay small enough for one block to merge
+                assert n_split * plan.gc * dpad * 4 <= da.MERGE_BYTES or n_split == min_split
                 # every row <= pos read exactly once, sub-tiles and scales aligned
                 for p in {0, t - 1, t // 2, int(rng.randint(0, t)), t + 5}:
                     seen = []
@@ -168,10 +190,15 @@ def test_split_plan_covers_budgets_aligns_and_fits_one_wave(dtype, d):
                         assert n * row <= max(da.CHUNK_BYTES, da.SUB_ROWS * row)
                         for plane in (0, 1, b * kv - 1):
                             row0 = plane * t + split * chunk
-                            for j in range(0, n, da.SUB_ROWS):
-                                nr = min(da.SUB_ROWS, n - j)
-                                assert ((row0 + j) * d * itemsize) % 16 == 0
-                                assert (nr * d * itemsize) % 16 == 0
+                            if da.bulk_rows(d, itemsize):
+                                for j in range(0, n, da.SUB_ROWS):
+                                    nr = min(da.SUB_ROWS, n - j)
+                                    assert ((row0 + j) * d * itemsize) % 16 == 0
+                                    assert (nr * d * itemsize) % 16 == 0
+                            else:  # the threads' copy: aligned words, < 16 bytes at each end
+                                head, words, tail = _span_copy(row0 * d * itemsize, n * d * itemsize)
+                                assert head < 16 and tail < 16 and head + 16 * words + tail == n * d * itemsize
+                                assert not words or (row0 * d * itemsize + head) % 16 == 0
                             if quantized:
                                 bulk, by_hand = _scale_spans(row0, n)
                                 assert not bulk or ((row0 + bulk.start) * 4) % 16 == 0

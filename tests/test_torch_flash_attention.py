@@ -162,10 +162,10 @@ def test_gqa4_strided_v_matches_jax():
 
 
 ROUTES = [
-    (torch.bfloat16, 16, "mma.sync"), (torch.bfloat16, 32, "mma.sync"),
-    (torch.bfloat16, 64, "wgmma+tma"), (torch.bfloat16, 128, "wgmma+tma"),
-    (torch.float32, 16, "fma"), (torch.float32, 32, "fma"),
-    (torch.float32, 64, "fma"), (torch.float32, 128, "fma"),
+    (torch.bfloat16, 16, ("mma.sync", 16)), (torch.bfloat16, 32, ("mma.sync", 32)),
+    (torch.bfloat16, 64, ("wgmma+tma", 64)), (torch.bfloat16, 128, ("wgmma+tma", 128)),
+    (torch.float32, 16, ("fma", 16)), (torch.float32, 32, ("fma", 32)),
+    (torch.float32, 64, ("fma", 64)), (torch.float32, 128, ("fma", 128)),
 ]
 
 
@@ -176,15 +176,16 @@ def test_kernel_route_by_dtype_and_head_dim(dtype, d, route):
 
 @pytest.mark.parametrize("dtype,d,route", ROUTES)
 def test_bwd_kernel_route_by_dtype_and_head_dim(dtype, d, route):
-    assert fa.bwd_kernel_route(dtype, d) == route
+    # dml_flash_bwd picks its kernels by the forward's rule: one table
+    assert fa.kernel_route(dtype, d) == route
 
 
 def test_kernel_route_refuses_what_no_kernel_takes():
-    for route in (fa.kernel_route, fa.bwd_kernel_route):
+    for d in (0, fa.MAX_HEAD_DIM + 1):
         with pytest.raises(ValueError, match="no flash attention kernel"):
-            route(torch.bfloat16, 96)
-        with pytest.raises(ValueError, match="no flash attention kernel"):
-            route(torch.float16, 64)
+            fa.kernel_route(torch.bfloat16, d)
+    with pytest.raises(ValueError, match="no flash attention kernel"):
+        fa.kernel_route(torch.float16, 64)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
