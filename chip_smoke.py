@@ -16,7 +16,7 @@
     python3 chip_smoke.py --measure       # phases 1-2 and 22 (the measuring half) alone
     python3 chip_smoke.py --seq-parallel --measure  # phases 1-2, 15 and 22
     python3 chip_smoke.py --rank-groups   # phases 1-2, 21 and 23 (the group worlds)
-    python3 chip_smoke.py --head-dims     # phases 1-2, 6, 7, 9 and 24 (every head dim and group)
+    python3 chip_smoke.py --head-dims     # phases 1-2, 6, 7, 9, 24 and 25 (every head dim and group)
     python3 chip_smoke.py --decode-ab DIR # the decode kernel of checkout DIR and of this one, in turns
 
 Phases, each printing one JSON line (with `t_s`, the seconds since the
@@ -85,14 +85,20 @@ script started); any failure exits non-zero:
    head), ShardLM's D 96 and its draft's D 48 in both dtypes, a D-80
    target's D-40 draft in both, the JAX tests' D 8 in both, an odd D 20
    at one head (the wrapper's zero-padded copy, timed alone beside the
-   call as `copy_ms`) and D 200 cross attention (checked only); each
-   case names its route and native width; tolerances float32 2e-5 (out and lse),
+   call as `copy_ms`) and D 200 cross attention (checked only); past 256
+   (`WIDE_FLASH_CASES`, the chunked route) phase 25's wide-head LM (D 512
+   on 2 heads over 1, its B=8 prefill in both dtypes and its training
+   shape), the absorbed form of multi-head latent attention (MQA at D 576,
+   16 heads), D 1024, an odd D 257 (the padded copy timed) and D 320
+   cross attention (checked only); each case names its route and native
+   width (the chunked route's column chunk), one launch a call;
+   tolerances float32 2e-5 (out and lse),
    bf16 out 2e-2 and lse 1e-4. At prefill_b8, prefill_b1, mha_b1 and vit_b16 the
    wgmma kernel, the mma.sync kernel (checked too), SDPA and the plain
    version are timed in turns (new, mma.sync, SDPA, plain, SDPA,
    mma.sync, new) beside the tensor-core operation bound, with TFLOP/s
    and share of the bound; every new case likewise (kernel, SDPA with
-   `enable_gqa`, plain);
+   `enable_gqa`, plain), naming the backend SDPA dispatched to;
 7. decode_check: the one-launch decode kernel against the plain
    version within 2e-5 for bf16, f32 and int8 caches; GQA-4, MQA and
    MHA; B=1 and B=8 at T=4096 with mixed per-slot positions, the LM's
@@ -105,11 +111,17 @@ script started); any failure exits non-zero:
    at StarCoder's 48 query heads on 1 kv head (D 128), Falcon-7B's 71 on 1
    (D 64), Gemma-2B's 8 on 1 (D 256), Phi-3-mini's 32 on 32 (D 96) and
    Phi-2's (D 80), each timed, then int8 D 48, D 8 in each cache form,
-   int8 D 40, bf16 D 20 and f32 D 200; each case run twice, bit-equal,
+   int8 D 40, bf16 D 20 and f32 D 200; past 256 (`WIDE_DECODE_CASES`,
+   `decode_wide_kernel`) the wide-head LM's B=8 step (D 512, bf16 and
+   int8), multi-head latent attention's absorbed decode at B 4 over 2112
+   rows with v = k (DeepSeek-V2-Lite's 16 heads and V3's 128 on one
+   576-column latent row), D 1024, each timed, an odd D 257 and f32 D
+   320; each case run twice, bit-equal,
    with a call at another (B, KV) between the two, and one launch a call;
    rows past each slot's position poisoned with +-1e4 must not change the output. A profiler
    line shows one device kernel per call. At lm_b8, gqa4_b8, gqa4_b1,
-   mqa_b8, mha_b1 and int8_gqa4_b8 the kernel, SDPA (bf16) and the plain
+   mqa_b8, mha_b1, int8_gqa4_b8, int8_d16, bf16_d32 and the timed head-dim
+   cases the kernel, SDPA (bf16 caches; named by its backend) and the plain
    version are timed in turns (kernel, SDPA, plain, SDPA, kernel) beside
    the byte bound of the valid cache rows (lm_b8 also under an L2
    flushed by reads);
@@ -129,9 +141,9 @@ script started); any failure exits non-zero:
 9. flash_bwd_check: the flash backward (the delta kernel, then the dq
    and dkv kernels) against the plain `attention_backward` on the card,
    each case naming its route (`kernel_route`) and run with and
-   without an lse cotangent: the training shape (q/k/v [1,2048,16,64]
-   bf16, causal, k/v repeated to 16 heads as the LM's blocks send them),
-   GQA k/v [1,2048,4,64], D=128 (MHA, and GQA-4 at T=2048), ragged
+   without an lse cotangent, one K3 and one delta launch a call: the
+   training shape (q/k/v [1,2048,16,64] bf16, causal, k/v repeated to
+   16 heads as the LM's blocks send them), GQA k/v [1,2048,4,64], D=128 (MHA, and GQA-4 at T=2048), ragged
    T=100, 129, 193 and 1000, a poisoned tail (q, k, v and dO [:, :1000]
    views of longer buffers holding NaN past row 1000: the gradients must
    equal the clean copies'), strided views (q, k, v cut from a qkv
@@ -139,7 +151,7 @@ script started); any failure exits non-zero:
    (Tq=64, Tk=192; Tq=200, Tk=1000 GQA-4), ViT-B16's shape (vit_b16:
    [32,197,12,64] non-causal, strided as above), bf16 D=32 (the mma.sync
    route) and float32 at T=1000, cross and D=16, and phase 6's head-dim
-   cases (timed where phase 6 times them: the kernels whole and apart,
+   and chunked-route cases (timed where phase 6 times them: the kernels whole and apart,
    the delta kernel, SDPA's backward with `enable_gqa`, the plain
    version; at odd D 20 the six zero-padded copies alone); float32 within atol
    5e-5 + rtol 5e-4, bf16 within 1e-2 of the largest reference
@@ -507,6 +519,18 @@ script started); any failure exits non-zero:
     within 1e-2 of the largest magnitude a tensor; 4 K2, 4 K3, 4 delta
     launches, none for the plain pass), then 3 train steps, losses
     finite, each step 4 K2, 4 K3 and 4 delta launches. Under 60 s.
+25. wide_heads: the 198M LM's widths (vocab 32000, d_model 1024, d_ff
+    4096) with its heads regrouped to 2 query heads on 1 kv head, so D
+    512, cut to 2 of its 12 blocks (`WIDE_LM_SPEC`), seeded weights:
+    served through `LMBackend.from_spec` on cuda in bf16 on a bf16 and an
+    int8 cache and in float32 (TF32 off), 8 prompt files of 16-112
+    tokens, 32 tokens each: K2 (the chunked route) in every placement
+    prefill and K4 (`decode_wide_kernel`) in every decode step, by phase
+    12's formula from the server's counters; the float32 tokens equal
+    each request's lone float32 greedy run, bf16 held to them up to a
+    near-tie (TIE_MARGIN). Then `LongContextLM.train_step` at [1, 512]
+    in bf16 and in float32, 3 steps each: losses finite and falling, each
+    step 2 K2, 2 K3 (the chunked pair) and 2 delta launches. Under 60 s.
 
 Then the card's name and power limit as nvidia-smi prints them, the
 kernels' summary line (K1's launches by path: serving, training,
@@ -519,8 +543,10 @@ and the delta kernel's: train, moe, seq_parallel and families; K2's
 mma.sync route timed at Phi-3-mini's D 96 prefill and K3's mma.sync pair
 at its D 96, with phase 24's launches; K4 at Phi-3-mini's decode with
 phase 24's served launches, bf16 and int8 caches, and at Falcon-7B's (5
-head chunks) with phase 7's launches at G 48 and 71), and
-last `{"ok": true, "device": {...}}`.
+head chunks) with phase 7's launches at G 48 and 71; the chunked routes
+past D 256, K2 in bf16 and float32, K3's pairs in bf16 and float32 and
+`decode_wide_kernel`, timed at phase 25's wide-head LM with its served
+and trained launches), and last `{"ok": true, "device": {...}}`.
 
 `--decode-ab DIR` times the decode kernel of the checkout at DIR and of
 this one in turns on one card (DIR, this, this, DIR), one process a
@@ -544,7 +570,7 @@ import time
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM dense, published
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}  # H100 SXM dense, published
 BATCH = 32
 N_IMAGES = 40  # 2 chunks at batch 32: one full, one padded
 N_FILES = 8
@@ -1113,12 +1139,13 @@ def ptxas_usage(report):
     types = {"f": "float", "a": "int8", "13__nv_bfloat16": "bf16"}
     usage, name = {}, None
     for line in report.splitlines():
-        m = re.search(r"Function properties for \S*?(flash_(?:fwd|bwd)_\w+?_kernel)I((?:Li\d+E)+)E", line)
-        if m:
-            name = f"{m.group(1)}<{','.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
+        m = re.search(r"Function properties for \S*?(flash_(?:fwd|bwd)_\w+?_kernel)(?:I((?:Li\d+E)+)E|ENS_)", line)
+        if m:  # a width-templated kernel, or a chunked-route one (D at run time)
+            widths = re.findall(r'Li(\d+)E', m.group(2) or "")
+            name = f"{m.group(1)}<{','.join(widths)}>" if widths else m.group(1)
             usage[name] = {}
             continue
-        m = re.search(r"Function properties for \S*?(decode_(?:split_|general_)?kernel)I(f|a|13__nv_bfloat16)"
+        m = re.search(r"Function properties for \S*?(decode_(?:split_|general_|wide_)?kernel)I(f|a|13__nv_bfloat16)"
                       r"((?:Li\d+E)*)E", line)
         if m:
             args = [types[m.group(2)], *re.findall(r"Li(\d+)E", m.group(3))]
@@ -1195,10 +1222,40 @@ HEAD_DIM_FLASH_CASES = (
     ("odd_d20_h1", 2, 130, 130, 1, 1, 20, True, BF),
     ("d200_cross", 1, 100, 300, 4, 2, 200, False, BF),
 )
-HEAD_DIM_TIMED = tuple(c[0] for c in HEAD_DIM_FLASH_CASES[:-1])  # the last is checked only
-#: the timed case whose rows take the wrapper's zero-padded copy: the
+# Past 256, the chunked route (fwd: 256 output columns a block; bwd: 128
+# gradient columns a block): phase 25's wide-head LM (the 198M LM's d_model
+# 1024 over 2 query heads on 1 kv head: D 512) at a B=8 placement prefill
+# of 128 rows and at its training shape, in both dtypes; the absorbed form
+# of multi-head latent attention (DeepSeek-V2-Lite: 16 query heads over one
+# latent row of 576 columns) as MQA at D 576; D 1024 (MHA); an odd D 257
+# (bf16 rows not whole 16-byte units: the wrapper's zero-padded copy, timed
+# alone beside the call) and D 320 cross attention (checked only).
+WIDE_FLASH_CASES = (
+    ("widelm_d512", 8, 128, 128, 2, 1, 512, True, BF),
+    ("f32_widelm_d512", 8, 128, 128, 2, 1, 512, True, F32),
+    ("widelm_train_d512", 1, 512, 512, 2, 1, 512, True, BF),
+    ("mla_d576", 1, 1024, 1024, 16, 1, 576, True, BF),
+    ("d1024", 1, 1024, 1024, 4, 4, 1024, True, BF),
+    ("odd_d257", 2, 300, 300, 4, 2, 257, True, BF),
+    ("f32_d320_cross", 1, 100, 300, 4, 2, 320, False, F32),
+)
+HEAD_DIM_TIMED = tuple(c[0] for c in HEAD_DIM_FLASH_CASES[:-1] + WIDE_FLASH_CASES[:-1])  # the last ones checked only
+#: the timed cases whose rows take the wrapper's zero-padded copy: the
 #: copy (`_kernel_view` of each input) is timed alone beside the call
-HEAD_DIM_PADDED = "odd_d20_h1"
+HEAD_DIM_PADDED = ("odd_d20_h1", "odd_d257")
+
+
+def sdpa_backend(q, k, v, **kw):
+    """The backend F.scaled_dot_product_attention dispatches to for these
+    (head-major) inputs, by torch's own choice function; None where this
+    torch has none."""
+    import torch
+
+    try:
+        choice = torch._fused_sdp_choice(q, k, v, **kw)
+        return torch.nn.attention.SDPBackend(choice).name
+    except Exception:
+        return None
 
 
 def phase_flash(timer):
@@ -1232,7 +1289,7 @@ def phase_flash(timer):
         ("f32_d96_shardlm", 4, 32, 32, 4, 2, 96, True, f32),
         ("f32_d96_t300", 2, 300, 300, 4, 2, 96, True, f32),
         ("f32_d48_draft", 4, 64, 64, 4, 2, 48, True, f32),
-    ) + HEAD_DIM_FLASH_CASES
+    ) + HEAD_DIM_FLASH_CASES + WIDE_FLASH_CASES
     timed = ("prefill_b8", "prefill_b1", "mha_b1", "vit_b16") + HEAD_DIM_TIMED
     timings = {}
     for name, b, tq, tk, h, kv, d, causal, dtype in cases:
@@ -1263,7 +1320,9 @@ def phase_flash(timer):
         else:
             k = torch.randn((b, tk, kv, d), generator=g, device="cuda").to(dtype)
             v = torch.randn((b, tk, kv, d), generator=g, device="cuda").to(dtype)
+        before = fa.flash_launches
         out, lse = fa.flash_attention_lse(q, k, v, causal=causal)
+        launches = fa.flash_launches - before
         p_out, p_lse = fa.attention_with_lse(q, k, v, causal=causal)
         torch.cuda.synchronize()
         err_out = float((out.float() - p_out.float()).abs().max())
@@ -1271,7 +1330,7 @@ def phase_flash(timer):
         # bf16 lse: the scores are the same bf16 products summed in f32
         # on both sides, only in another order
         tol_out, tol_lse = (2e-5, 2e-5) if dtype == f32 else (2e-2, 1e-4)
-        ok = (out.dtype == dtype and tuple(out.shape) == (b, tq, h, d)
+        ok = (out.dtype == dtype and tuple(out.shape) == (b, tq, h, d) and launches == 1
               and tuple(lse.shape) == (b, h, tq) and err_out <= tol_out and err_lse <= tol_lse)
         extra = {}
         if clean is not None:
@@ -1280,8 +1339,8 @@ def phase_flash(timer):
         route = fa.kernel_route(dtype, d)
         case = dict(phase="flash_check", case=name, q=[b, tq, h, d], kv=[b, tk, kv, d],
                     causal=causal, dtype=dtype_name(dtype), route=route.kind, width=route.width,
-                    max_abs_err_out=err_out, max_abs_err_lse=err_lse, tol_out=tol_out,
-                    tol_lse=tol_lse, ok=ok, **extra)
+                    launches=launches, max_abs_err_out=err_out, max_abs_err_lse=err_lse,
+                    tol_out=tol_out, tol_lse=tol_lse, ok=ok, **extra)
         emit(**case)
         check(ok, f"flash kernel disagrees: {case}")
         if name in timed:
@@ -1301,6 +1360,7 @@ def phase_flash(timer):
                 return F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal,
                                                       enable_gqa=kv != h)
 
+            backend = sdpa_backend(qh, kh, vh, is_causal=causal, enable_gqa=kv != h)
             lib_diff = float((library().transpose(1, 2).float() - p_out.float()).abs().max())
             runs = {"kernel": lambda: fa.flash_attention_lse(q, k, v, causal=causal),
                     "sdpa": library}
@@ -1318,7 +1378,7 @@ def phase_flash(timer):
             k_ms, l_ms = (statistics.mean(turns[key]) for key in ("kernel", "sdpa"))
             m_ms = statistics.mean(turns["mma_sync"]) if both else None
             extra = {}
-            if name == HEAD_DIM_PADDED:
+            if name in HEAD_DIM_PADDED:
                 copy_ms = timer.ms(lambda: [fa._kernel_view(x) for x in (q, k, v)], iters=20)
                 extra = dict(copy_ms=copy_ms, copy_share=copy_ms / k_ms)
             ops = 4 * b * h * tq * tk * d / (2 if causal else 1)
@@ -1329,13 +1389,13 @@ def phase_flash(timer):
             bound = max(t_ops, t_bytes)
             timings[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound,
                                  bound_by="operations" if t_ops >= t_bytes else "bytes",
-                                 max_abs_err=err_out, mma_sync_ms=m_ms)
+                                 max_abs_err=err_out, mma_sync_ms=m_ms, library_backend=backend)
             if both:
                 extra = dict(speedup_vs_mma_sync=m_ms / k_ms, mma_sync_max_abs_err_out=m_err,
                              mma_sync_tflop_s=ops / (m_ms * 1e-3) / 1e12,
                              mma_sync_share_of_bound=bound / m_ms)
             emit(phase="flash_time", case=name, route=route.kind, width=route.width, ms=k_ms,
-                 mma_sync_ms=m_ms, plain_ms=p_ms, sdpa_ms=l_ms, turns_ms=turns,
+                 mma_sync_ms=m_ms, plain_ms=p_ms, sdpa_ms=l_ms, sdpa_backend=backend, turns_ms=turns,
                  vs_sdpa=k_ms / l_ms, sdpa_vs_plain_max_abs=lib_diff, ops=ops,
                  bytes=nbytes, ops_bound_ms=t_ops, bytes_bound_ms=t_bytes,
                  achieved_tflop_s=ops / (k_ms * 1e-3) / 1e12,
@@ -1366,11 +1426,12 @@ def _decode_inputs(g, b, kv, h, t, d, cdt, qname):
     return q, k, v, ks, vs
 
 
-def _decode_bytes(pos, kv, h, d, k, q, ks):
+def _decode_bytes(pos, kv, h, d, k, q, ks, planes=2):
     """Bytes a decode call must move (valid cache rows, their scales, q,
-    out, pos) and its operations (4 per cache element per query head)."""
+    out, pos) and its operations (4 per cache element per query head).
+    `planes` 1: K and V are one tensor (the absorbed latent row), read once."""
     rows = sum(min(p + 1, k.shape[2]) for p in pos)
-    nbytes = 2 * rows * kv * d * k.element_size() + (8 * rows * kv if ks is not None else 0) \
+    nbytes = planes * rows * kv * d * k.element_size() + (8 * rows * kv if ks is not None else 0) \
         + q.numel() * q.element_size() + q.numel() * 4 + len(pos) * 4
     return nbytes, 4 * rows * h * d
 
@@ -1396,6 +1457,22 @@ HEAD_DIM_DECODE_CASES = tuple(
     ("int8_d40_draft", 4, 2, 8, 1000, 40, "int8", BF, None),
     ("bf16_d20_odd", 3, 2, 6, 1001, 20, BF, BF, None),
     ("f32_d200", 2, 2, 4, 700, 200, F32, F32, None),
+)
+# Past a row of 256 (decode_wide_kernel): phase 25's wide-head LM (2 query
+# heads on 1 kv head, D 512) at its B=8 decode step over a 256-row cache,
+# bf16 and int8; the absorbed form of multi-head latent attention at B 4
+# over a 2112-row cache, v = k (one latent row of 576 columns):
+# DeepSeek-V2-Lite's 16 query heads and DeepSeek-V3's 128 (8 head chunks);
+# D 1024; an odd D 257 (element by element) and f32 at D 320. The first
+# five are timed.
+WIDE_DECODE_CASES = (
+    ("widelm_d512", 8, 1, 2, 256, 512, BF, BF, None),
+    ("mla_v2lite_g16_d576", 4, 1, 16, 2112, 576, BF, BF, None),
+    ("mla_v3_g128_d576", 4, 1, 128, 2112, 576, BF, BF, None),
+    ("d1024_gqa4", 2, 2, 8, 1500, 1024, BF, BF, None),
+    ("int8_widelm_d512", 8, 1, 2, 256, 512, "int8", BF, None),
+    ("bf16_d257_odd", 3, 2, 6, 1001, 257, BF, BF, None),
+    ("f32_d320", 2, 2, 4, 700, 320, F32, F32, None),
 )
 DECODE_CASES = (  # name, b, kv, h, t, d, cache dtype, q dtype, positions (None: mixed, one at the end)
     ("lm_b8", 8, 4, 16, PROMPT_LEN + NEW_TOKENS, 64, BF, BF, [PROMPT_LEN + NEW_TOKENS // 2] * 8),
@@ -1428,9 +1505,9 @@ DECODE_CASES = (  # name, b, kv, h, t, d, cache dtype, q dtype, positions (None:
     ("bf16_d48", 4, 2, 8, 1000, 48, BF, BF, None),
     ("bf16_d96_gqa4", 4, 4, 16, 2048, 96, BF, BF, None),
     ("int8_d96", 4, 2, 8, 1000, 96, "int8", BF, None),
-) + HEAD_DIM_DECODE_CASES
-DECODE_TIMED = ("lm_b8", "gqa4_b8", "gqa4_b1", "mqa_b8", "mha_b1", "int8_gqa4_b8") + tuple(
-    c[0] for c in HEAD_DIM_DECODE_CASES[:10])
+) + HEAD_DIM_DECODE_CASES + WIDE_DECODE_CASES
+DECODE_TIMED = ("lm_b8", "gqa4_b8", "gqa4_b1", "mqa_b8", "mha_b1", "int8_gqa4_b8", "int8_d16",
+                "bf16_d32") + tuple(c[0] for c in HEAD_DIM_DECODE_CASES[:10] + WIDE_DECODE_CASES[:5])
 
 
 def phase_decode(timer):
@@ -1460,6 +1537,8 @@ def phase_decode(timer):
             pos[0] = t - 1
         pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
         q, k, v, ks, vs = _decode_inputs(g, b, kv, h, t, d, cdt, qname)
+        if name.startswith("mla_"):  # the absorbed form: V is the latent row itself
+            v = k
         scale = d ** -0.5
 
         def new():
@@ -1522,6 +1601,9 @@ def phase_decode(timer):
                                                           enable_gqa=kv != h)
 
                 runs["sdpa"] = library
+                backend = sdpa_backend(qh, k, v, attn_mask=mask, enable_gqa=kv != h)
+            else:
+                backend = None
             # in turns on one card: new, SDPA, plain, SDPA, new
             turns = {key: [] for key in runs}
             for key in ("new", "sdpa"):
@@ -1534,20 +1616,20 @@ def phase_decode(timer):
                     turns[key].append(timer.ms(runs[key], iters=50))
             k_ms = statistics.mean(turns["new"])
             l_ms = statistics.mean(turns["sdpa"]) if "sdpa" in turns else None
-            nbytes, ops = _decode_bytes(pos, kv, h, d, k, q, ks)
+            nbytes, ops = _decode_bytes(pos, kv, h, d, k, q, ks, planes=1 if v is k else 2)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = ops / PEAK_FLOPS["float32"] * 1e3
+            t_ops = ops / PEAK_FLOPS[dtype_name(cdt)] * 1e3  # at the cache's type
             timings[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
                                  bound_ms=max(t_bytes, t_ops),
                                  bound_by="bytes" if t_bytes >= t_ops else "operations",
-                                 max_abs_err=err)
+                                 max_abs_err=err, library_backend=backend)
             extra = {}
             if name == "lm_b8":  # the same, with an L2 flushed by reads (no dirty lines)
                 clean = {key: timer.ms(runs[key], iters=50, clean=True) for key in runs}
                 extra = {"clean_flush_ms": clean,
                          "clean_flush_share_of_bound": max(t_bytes, t_ops) / clean["new"]}
             emit(phase="decode_time", case=name, ms=k_ms, plain_ms=p_ms,
-                 sdpa_ms=l_ms, turns_ms=turns, bytes=nbytes, bytes_bound_ms=t_bytes,
+                 sdpa_ms=l_ms, sdpa_backend=backend, turns_ms=turns, bytes=nbytes, bytes_bound_ms=t_bytes,
                  ops_bound_ms=t_ops, achieved_gb_s=nbytes / (k_ms * 1e-3) / 1e9,
                  share_of_bound=max(t_bytes, t_ops) / k_ms,
                  vs_sdpa=k_ms / l_ms if l_ms else None,
@@ -1805,8 +1887,8 @@ def phase_flash_bwd(timer):
         ("f32_t1000", 2, 1000, 1000, 8, 2, 64, True, f32),
         ("f32_cross", 2, 64, 192, 4, 4, 32, False, f32),
         ("f32_d16", 1, 130, 130, 2, 1, 16, True, f32),
-    ) + HEAD_DIM_FLASH_CASES
-    deterministic = ("train", "gqa4", "vit_b16", "phi3mini_d96", "gemma2b_d256")
+    ) + HEAD_DIM_FLASH_CASES + WIDE_FLASH_CASES
+    deterministic = ("train", "gqa4", "vit_b16", "phi3mini_d96", "gemma2b_d256", "widelm_train_d512")
     names = ("dq", "dk", "dv")
 
     def held(got, want, dtype):
@@ -1828,12 +1910,15 @@ def phase_flash_bwd(timer):
         out, lse = fa.flash_attention_lse(q, k, v, causal=causal)
         for with_lse in (False, True):
             dlse = torch.randn((b, h, tq), generator=g, device="cuda") if with_lse else None
+            before = (fa.flash_bwd_launches, fa.flash_bwd_delta_launches)
             got = fa.flash_attention_backward(q, k, v, out, lse, dout, dlse, causal=causal)
+            launches = [fa.flash_bwd_launches - before[0], fa.flash_bwd_delta_launches - before[1]]
             want = fa.attention_backward(q, k, v, out, lse, dout, dlse, causal=causal)
             rows = fa._bwd_rows_cuda(out, dout, lse, dlse)
             p_rows = fa.bwd_rows_plain(out, dout, lse, dlse)
             torch.cuda.synchronize()
             errs, ok = held(got, want, dtype)
+            ok &= launches == [1, 1]  # one K3 (the dq and dkv pair) and one delta launch a call
             delta_err = float((rows[1] - p_rows[1]).abs().max())
             rows_ok = torch.equal(rows[0], p_rows[0]) and delta_err <= 1e-4 and torch.equal(
                 rows[1][..., tq:], p_rows[1][..., tq:])
@@ -1849,10 +1934,10 @@ def phase_flash_bwd(timer):
                 again = fa.flash_attention_backward(q, k, v, out, lse, dout, dlse, causal=causal)
                 extra["bit_equal_rerun"] = all(torch.equal(a, c) for a, c in zip(got, again))
                 ok &= extra["bit_equal_rerun"]
-            route = fa.kernel_route(dtype, d)
+            route = fa.kernel_route(dtype, d, backward=True)
             case = dict(phase="flash_bwd_check", case=name, q=[b, tq, h, d], kv=[b, tk, kv, d],
                         causal=causal, dtype=dtype_name(dtype), route=route.kind, width=route.width,
-                        lse_cotangent=with_lse, max_abs_err=errs,
+                        lse_cotangent=with_lse, launches=launches, max_abs_err=errs,
                         max_abs_ref={n: float(r.float().abs().max()) for n, r in zip(names, want)},
                         bar="atol 5e-5 + rtol 5e-4" if dtype == f32 else "1e-2 of max |ref|",
                         delta_max_abs_err=delta_err, rows_ok=rows_ok, ok=ok, **extra)
@@ -1878,7 +1963,7 @@ def time_flash_bwd(timer, case, q, k, v, out, lse, dout, causal, errs):
     b, tq, h, d = q.shape
     tk, kv = k.shape[1], k.shape[2]
     scale = d ** -0.5
-    route = fa.kernel_route(q.dtype, d)
+    route = fa.kernel_route(q.dtype, d, backward=True)
     both = route.kind == "wgmma+tma"
     lse_r, delta_r = fa._bwd_rows_cuda(out, dout, lse, None)
     delta_err = float((delta_r - fa.bwd_rows_plain(out, dout, lse)[1]).abs().max())
@@ -1901,6 +1986,7 @@ def time_flash_bwd(timer, case, q, k, v, out, lse, dout, causal, errs):
         return fa._flash_bwd_cuda(q, k, v, dout, *rows, causal, scale, mma_sync=True)
 
     qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    backend = sdpa_backend(qh, kh, vh, is_causal=causal, enable_gqa=kv != h)
     oh = F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal, enable_gqa=kv != h)
     doh = dout.transpose(1, 2)
     runs = {
@@ -1924,7 +2010,7 @@ def time_flash_bwd(timer, case, q, k, v, out, lse, dout, causal, errs):
         turns[key].append(timer.ms(runs[key], iters=20))
     ms = {key: statistics.mean(v) for key, v in turns.items()}
     extra = {}
-    if case == HEAD_DIM_PADDED:  # the delta kernel's copies (out, dO), then dq/dkv's (q, k, v, dO)
+    if case in HEAD_DIM_PADDED:  # the delta kernel's copies (out, dO), then dq/dkv's (q, k, v, dO)
         copy_ms = timer.ms(lambda: [fa._kernel_view(x) for x in (out, dout, q, k, v, dout)], iters=20)
         extra.update(copy_ms=copy_ms, copy_share=copy_ms / ms["k3"])
     bound = _bwd_bounds(b, tq, tk, h, kv, d, causal, q.element_size(), dtype_name(q.dtype))
@@ -1939,13 +2025,14 @@ def time_flash_bwd(timer, case, q, k, v, out, lse, dout, causal, errs):
                      dkv_mma_sync=bound["dkv"]["bound_ms"] / ms["dkv_mma_sync"])
         extra["speedup_vs_mma_sync"] = {key: ms[f"{key}_mma_sync"] / ms[key] for key in ("k3", "dq", "dkv")}
     emit(phase="flash_bwd_time", case=case, route=route.kind, width=route.width,
-         ms=ms, turns_ms=turns, plain_ms=p_ms, delta_plain_ms=p_delta_ms, bound=bound,
+         ms=ms, turns_ms=turns, plain_ms=p_ms, delta_plain_ms=p_delta_ms, bound=bound, sdpa_backend=backend,
          mma_sync_max_abs_err=m_err, delta_max_abs_err=delta_err,
          vs_sdpa=ms["k3"] / ms["sdpa"], share_of_bound=share,
          achieved_tflop_s_split=bound["split"]["ops"] / (ms["k3"] * 1e-3) / 1e12, **extra)
     del qh, kh, vh, oh, doh
     return dict(ms=ms, plain_ms=p_ms, delta_plain_ms=p_delta_ms, library_ms=ms["sdpa"],
-                bound=bound, max_abs_err=max(errs.values()), delta_max_abs_err=delta_err)
+                library_backend=backend, bound=bound, max_abs_err=max(errs.values()),
+                delta_max_abs_err=delta_err)
 
 
 TRAIN_KINDS = (
@@ -6219,6 +6306,40 @@ HD_TRAIN_STEPS = 3
 HD_SECONDS = 60          # the phase's own limit
 
 
+def serve_counted(name, spec, paths, out, paths_launches):
+    """Serve the prompt files through LMBackend.from_spec; K2 and K4 held
+    to phase 12's formula from the server's own counters (each launched);
+    the record goes into out[name], the launches into paths_launches[name].
+    Returns each request's tokens."""
+    from dml_tpu_torch.inference.lm_backend import LMBackend
+
+    vocab, budget = spec["vocab_size"], spec["max_new_tokens"]
+    be = LMBackend.from_spec(spec)
+    draft = LMBackend._draft_spec_of(spec)  # None without speculation
+    reset_launch_counts()
+    d0 = server_dispatches()
+    t0 = time.monotonic()
+    res, _, _ = be.serve_files(paths)
+    wall = time.monotonic() - t0
+    d = {k: v - d0[k] for k, v in server_dispatches().items()}
+    sp = be.spec_stats()
+    if draft is not None:
+        check(sp and sp["enabled"] and sp["rounds"] > 0, f"{name}: speculative decoding did not run: {sp}")
+    want = check_server_launches(name, launch_counts(), d, be.cfg.n_layers, spec["chunk"],
+                                 spec=dict(sp, draft_layers=draft["n_layers"]) if draft else None)
+    check(want["flash_attention"] > 0 and want["decode_attention"] > 0, f"{name}: K2 or K4 never ran: {want}")
+    be.close()
+    toks = [res[p]["tokens"] for p in paths]
+    check(all(len(t) == budget and all(0 <= x < vocab for x in t) for t in toks),
+          f"{name}: a request's tokens are short or out of range")
+    out[name] = dict(launches=want, dispatches=d, spec=sp, wall_s=wall,
+                     tokens_per_s=sum(map(len, toks)) / wall,
+                     head_dim=be.cfg.d_model // be.cfg.n_heads,
+                     draft_head_dim=draft["d_model"] // draft["n_heads"] if draft else None)
+    paths_launches[name] = want
+    return toks
+
+
 def phase_head_dims():
     """ShardLM and its draft served in bf16 (K2 at D 96 and 48; K4 on the
     bf16 and the int8 cache at D 96 and 48) and trained in each dtype (K3
@@ -6226,7 +6347,7 @@ def phase_head_dims():
     cuda; counted."""
     import torch
     from dml_tpu_torch.inference import generate as gen
-    from dml_tpu_torch.inference.lm_backend import LMBackend, lm_spec_parts, write_prompt_file
+    from dml_tpu_torch.inference.lm_backend import lm_spec_parts, write_prompt_file
     from dml_tpu_torch.ops import flash_attention as fa
     from dml_tpu_torch.parallel.long_context import LongContextLM
 
@@ -6237,31 +6358,7 @@ def phase_head_dims():
     out, paths_launches = {}, {}
 
     def serve(name, spec, paths):
-        """Serve the prompt files through LMBackend.from_spec; K2 and K4
-        held to phase 12's formula from the server's own counters."""
-        be = LMBackend.from_spec(spec)
-        draft = LMBackend._draft_spec_of(spec)  # None without speculation
-        reset_launch_counts()
-        d0 = server_dispatches()
-        t0 = time.monotonic()
-        res, _, _ = be.serve_files(paths)
-        wall = time.monotonic() - t0
-        d = {k: v - d0[k] for k, v in server_dispatches().items()}
-        sp = be.spec_stats()
-        if draft is not None:
-            check(sp and sp["enabled"] and sp["rounds"] > 0, f"{name}: speculative decoding did not run: {sp}")
-        want = check_server_launches(name, launch_counts(), d, be.cfg.n_layers, spec["chunk"],
-                                     spec=dict(sp, draft_layers=draft["n_layers"]) if draft else None)
-        be.close()
-        toks = [res[p]["tokens"] for p in paths]
-        check(all(len(t) == budget and all(0 <= x < vocab for x in t) for t in toks),
-              f"{name}: a request's tokens are short or out of range")
-        out[name] = dict(launches=want, dispatches=d, spec=sp, wall_s=wall,
-                         tokens_per_s=sum(map(len, toks)) / wall,
-                         head_dim=be.cfg.d_model // be.cfg.n_heads,
-                         draft_head_dim=draft["d_model"] // draft["n_heads"] if draft else None)
-        paths_launches[name] = want
-        return toks
+        return serve_counted(name, spec, paths, out, paths_launches)
 
     with tempfile.TemporaryDirectory() as tmp:
         paths = []
@@ -6353,6 +6450,85 @@ def phase_head_dims():
     seconds = time.monotonic() - t_start
     emit(phase="head_dims", lm=HD_LM_SPEC, train_tokens=list(HD_TRAIN_SHAPE), seconds=seconds, **out)
     check(seconds < HD_SECONDS, f"head_dims took {seconds:.1f} s, over its {HD_SECONDS} s")
+    return paths_launches
+
+
+# Phase 25: the 198M LM's widths (vocab 32000, d_model 1024, d_ff 4096) with
+# its heads regrouped to 2 query heads on 1 kv head, so D 512: K2, K3 and K4
+# on their chunked routes. Cut to 2 of its 12 blocks, as phases 12, 13 and 16.
+WIDE_LM_SPEC = dict(name="WideLM", vocab_size=32000, d_model=1024, n_heads=2, n_kv_heads=1,
+                    n_layers=2, d_ff=4096, dtype="bfloat16", seed=0, max_new_tokens=32,
+                    max_slots=8, max_len=256, chunk=8)
+WIDE_PROMPTS = 8             # prompts of 16-112 tokens drawn by RandomState(25)
+WIDE_TRAIN_SHAPE = (1, 512)  # LongContextLM's tokens [B, T]
+WIDE_TRAIN_STEPS = 3
+WIDE_SECONDS = 60            # the phase's own limit
+
+
+def phase_wide_heads():
+    """The wide-head LM served in bf16 on a bf16 and an int8 cache and in
+    float32 (K2 in every placement prefill, K4 in every decode step, at D
+    512) through LMBackend.from_spec, and trained in bf16 and float32 (K3)
+    through LongContextLM.train_step, on cuda; counted."""
+    import torch
+    from dml_tpu_torch.inference import generate as gen
+    from dml_tpu_torch.inference.lm_backend import lm_spec_parts, write_prompt_file
+    from dml_tpu_torch.parallel.long_context import LongContextLM
+
+    t_start = time.monotonic()
+    spec = WIDE_LM_SPEC
+    check(spec["d_model"] // spec["n_heads"] == 512, "the wide-head LM is not at D 512")
+    rng = np.random.RandomState(25)
+    vocab, budget = spec["vocab_size"], spec["max_new_tokens"]
+    prompts = [rng.randint(0, vocab, int(n)).astype(np.int32) for n in rng.randint(16, 113, WIDE_PROMPTS)]
+    out, paths_launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for i, p in enumerate(prompts):
+            paths.append(os.path.join(tmp, f"p{i}.tokens.txt"))
+            write_prompt_file(paths[-1], p, max_new_tokens=budget)
+        bf16 = serve_counted("serve_bf16", spec, paths, out, paths_launches)
+        int8 = serve_counted("serve_bf16_int8_cache", dict(spec, kv_quant=True), paths, out, paths_launches)
+        with tf32_off():
+            spec32 = dict(spec, dtype="float32")
+            f32 = serve_counted("serve_f32", spec32, paths, out, paths_launches)
+            params32, cfg32 = lm_spec_parts(spec32, device="cuda")
+            lone = [lone_greedy(gen, params32, cfg32, p, budget) for p in prompts]
+            del params32
+    check(all(t == want for t, (want, _) in zip(f32, lone)),
+          "wide_heads: float32 served tokens != each request's lone float32 greedy run")
+    out["f32_exact_vs_lone"] = WIDE_PROMPTS
+    out["bf16_vs_f32"] = held_to_lone("wide_heads bf16", bf16, lone)
+    out["int8_cache_agreement_with_f32"] = prefix_agreement(
+        [np.array(t) for t in int8], [np.array(t) for t, _ in lone])
+
+    geometry = {k: spec[k] for k in ("vocab_size", "d_model", "n_heads", "n_kv_heads", "n_layers", "d_ff")}
+    tokens = torch_from_seed(25, WIDE_TRAIN_SHAPE, vocab)
+    n_layers = spec["n_layers"]
+    for dtype in (torch.bfloat16, torch.float32):
+        name = f"train_{dtype_name(dtype)}"
+        with tf32_off():
+            lm = LongContextLM(seq_len=WIDE_TRAIN_SHAPE[1], dtype=dtype, seed=0, **geometry)
+            reset_launch_counts()
+            t0 = time.monotonic()
+            losses = [lm.train_step(tokens) for _ in range(WIDE_TRAIN_STEPS)]
+            torch.cuda.synchronize()
+            step_s = (time.monotonic() - t0) / WIDE_TRAIN_STEPS
+        counts = launch_counts()
+        want = {"normalize": 0, "flash_attention": n_layers * WIDE_TRAIN_STEPS,
+                "flash_bwd": n_layers * WIDE_TRAIN_STEPS,
+                "flash_bwd_delta": n_layers * WIDE_TRAIN_STEPS, "decode_attention": 0}
+        check(counts == want, f"wide_heads {name}: launched {counts}, want {want}")
+        check(all(np.isfinite(x) for x in losses) and losses[-1] < losses[0],
+              f"wide_heads {name}: losses not finite and falling: {losses}")
+        out[name] = dict(losses=losses, step_ms=step_s * 1e3, launches=counts)
+        paths_launches[name] = counts
+        del lm
+    torch.cuda.empty_cache()
+    seconds = time.monotonic() - t_start
+    emit(phase="wide_heads", lm=spec, head_dim=spec["d_model"] // spec["n_heads"],
+         train_tokens=list(WIDE_TRAIN_SHAPE), seconds=seconds, **out)
+    check(seconds < WIDE_SECONDS, f"wide_heads took {seconds:.1f} s, over its {WIDE_SECONDS} s")
     return paths_launches
 
 
@@ -6489,11 +6665,12 @@ def main() -> int:
         phase_rank_groups(smi)
         print(smi, flush=True)
         return 0
-    if "--head-dims" in sys.argv[1:]:  # after an attention-kernel edit: build, phases 6, 7, 9, 24
+    if "--head-dims" in sys.argv[1:]:  # after an attention-kernel edit: build, phases 6, 7, 9, 24, 25
         phase_flash(timer)
         phase_decode(timer)
         phase_flash_bwd(timer)
         phase_head_dims()
+        phase_wide_heads()
         print(smi, flush=True)
         return 0
     timings = phase_kernel(timer)
@@ -6520,6 +6697,7 @@ def main() -> int:
     measure_launches = phase_measure(smi)
     rank_launches = phase_rank_groups(smi)
     hd_launches = phase_head_dims()
+    wide_launches = phase_wide_heads()
 
     kernels = []
     for model, mode in MODELS:
@@ -6654,6 +6832,46 @@ def main() -> int:
             max_abs_err=t["max_abs_err"], ms=t["ms"][part], plain_ms=t["plain_ms"],
             bound_ms=t["bound"][part]["bound_ms"], bound_by=t["bound"][part]["bound_by"],
             library_ms=t["library_ms"]))
+    # the chunked routes past D 256, each timed at phase 25's wide-head LM
+    # (D 512) and launched by it
+    w = {k: wide_launches[k] for k in ("serve_bf16", "serve_bf16_int8_cache", "serve_f32",
+                                       "train_bfloat16", "train_float32")}
+    for case, dt, keys, variant in (
+            ("widelm_d512", "bf16", ("serve_bf16", "serve_bf16_int8_cache", "train_bfloat16"),
+             "mma.sync chunked"),
+            ("f32_widelm_d512", "float32", ("serve_f32", "train_float32"), "fma chunked")):
+        t = dict(flash[case])
+        by = {f"wide_heads_{k}": w[k]["flash_attention"] for k in keys}
+        kernels.append(dict(
+            name=f"flash_fwd[wide-head LM prefill b8 T128 H2 KV1 D512 {dt} causal; {variant}, "
+                 f"256 output columns a block; launches: phase 25 served and trained]",
+            route="cuda", variant=variant, source="dml_tpu_torch/csrc/flash_attention.cu",
+            replaces="dml_tpu/ops/flash_attention.py:65", launches=sum(by.values()),
+            launches_by_path=by, **t))
+    t = decode["widelm_d512"]
+    by = {f"wide_heads_{k}": w[k]["decode_attention"]
+          for k in ("serve_bf16", "serve_bf16_int8_cache", "serve_f32")}
+    kernels.append(dict(
+        name="decode_attention[wide-head LM b8 cache 256 KV1 G2 D512 bf16; decode_wide_kernel, "
+             "rows in slices of 512 columns; launches: phase 25 served on bf16, int8 and f32 caches]",
+        route="cuda", variant="wide rows", source="dml_tpu_torch/csrc/decode_attention.cu",
+        replaces="dml_tpu/ops/decode_attention.py:53", launches=sum(by.values()),
+        launches_by_path=by, **t))
+    for case, dt, key, variant in (("widelm_train_d512", "bf16", "train_bfloat16", "mma.sync chunked"),
+                                   ("f32_widelm_d512", "float32", "train_float32", "fma chunked")):
+        t = bwd[case]
+        shape = "train b1 T512" if case == "widelm_train_d512" else "prefill-shaped b8 T128"
+        for part, line in (("dq", 113), ("dkv", 166)):
+            kernels.append(dict(
+                name=f"flash_bwd_{part}[wide-head LM {shape} H2 KV1 D512 {dt} causal; {variant}, "
+                     f"128 gradient columns a block; launches: phase 25 trained in {dt}; plain and "
+                     f"library times are the whole backward's]",
+                route="cuda", variant=variant, source="dml_tpu_torch/csrc/flash_attention_bwd.cu",
+                replaces=f"dml_tpu/ops/flash_attention.py:{line}", launches=w[key]["flash_bwd"],
+                launches_by_path={f"wide_heads_{key}": w[key]["flash_bwd"]},
+                max_abs_err=t["max_abs_err"], ms=t["ms"][part], plain_ms=t["plain_ms"],
+                bound_ms=t["bound"][part]["bound_ms"], bound_by=t["bound"][part]["bound_by"],
+                library_ms=t["library_ms"], library_backend=t["library_backend"]))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,9 @@
 // attends the head-major cache [B, KV, T, D] (bf16, f32, or int8 with f32
 // scales [B, KV, 1, T]); slot b sees cache rows t <= pos[b]. H = KV * G
 // with kv-major head order (head h = kv * G + g). Output f32 [B, 1, H, D].
-// Every head dim 1 <= D <= 256 and every group G, as the TPU kernel takes
-// them (it asks only that KV divide H).
+// Every head dim D >= 1 and every group G, as the TPU kernel takes them (it
+// asks only that KV divide H); past a row of 256, decode_wide_kernel
+// (below).
 //
 // Numerics: f32 throughout. Cache elements widen exactly (bf16 and int8
 // are exact in f32). For an int8 cache the K scale multiplies the score
@@ -111,7 +112,7 @@
 namespace {
 
 constexpr int MAX_HC = 16;     // query heads per head chunk (one block's heads)
-constexpr int MAX_D = 256;     // head dim
+constexpr int MAX_ROW = 256;   // the widest row decode_kernel reads; past it, decode_wide_kernel
 constexpr float NEG_INF = -1e30f;
 
 // ---------------------------------------------------------------------------
@@ -643,6 +644,269 @@ __global__ void __maxnreg__(168) decode_general_kernel(Args a) {
   decode_body<TC, DP, 0>(a);
 }
 
+// ---------------------------------------------------------------------------
+// decode_wide_kernel: D > 256
+// ---------------------------------------------------------------------------
+//
+// Past a row width of 256 a lane's share of q and o no longer fits in
+// registers, so the row is taken in D-slices. The grid and the block's rows
+// are decode_kernel's (block (split, kv * n_hc + chunk, b) owns rows
+// [t0, t0 + n) of its plane for the chunk's gn <= 16 heads), and so is the
+// merge by ticket. The block works in two passes over its rows:
+//   scores: for each slice of WIDE_SLICE columns, the chunk's q slice goes
+//     into shared memory (pre-scaled into log2 units, zero past gn heads);
+//     warp w takes rows w, w + 4, ...: each lane reads the row's elements
+//     lane, lane + 32, ... (8 loads in flight) and keeps 16 partial dots, which one transposing
+//     butterfly (16 shuffles) sums so that lanes 2g and 2g + 1 hold head g's;
+//     the row's score adds into s[row][g] in shared memory;
+//   softmax: warp w takes heads w, w + 4, ...: the int8 K scale, the max m
+//     over the block's rows, p = 2^(s - m), l = sum p, and p times the int8
+//     V scale (the denominator sums p before the V scale, as decode_kernel);
+//   P V: thread i takes columns i, i + 128, ... and sums p[row][g] V[row]
+//     over the rows for the 16 heads in registers (p read as float4s; 8
+//     rows' loads in flight).
+// Shared memory: the q slice (16 x WIDE_SLICE floats), the scores (rows x
+// 16 floats, rows <= WIDE_MAX_CHUNK) and a few words: bounded at every D.
+// The block's (o, m, l) is a partial as decode_kernel's, merged by the
+// block that draws the last ticket with decode_kernel's rule (Merge),
+// folded in split order, one float4 of the chunk's heads a thread.
+
+constexpr int WIDE_SLICE = 512;       // columns of q a block holds at a time
+constexpr int WIDE_MAX_CHUNK = 512;   // rows a block at most: its scores stay in shared memory
+constexpr int LOADS = 8;              // cache elements a thread keeps in flight (decode_wide_kernel)
+
+struct WideLayout {
+  int qs, p, ml, flag, total;
+};
+
+__host__ __device__ constexpr WideLayout wide_layout(int chunk) {
+  WideLayout L{};
+  int off = 0;
+  L.qs = off, off += MAX_HC * WIDE_SLICE * 4;  // the q slice [16, WIDE_SLICE]
+  L.p = off, off += chunk * MAX_HC * 4;        // scores, then p [chunk, 16]
+  L.ml = off, off += 2 * MAX_HC * 4;           // m and l of each head
+  L.flag = off, off += 16;
+  L.total = off;
+  return L;
+}
+// the largest block a plan makes (split_plan caps its rows at WIDE_MAX_CHUNK)
+static_assert(wide_layout(WIDE_MAX_CHUNK).total <= hopper::SMEM_PER_BLOCK, "one block of decode_wide_kernel at every d");
+
+template <typename TC>
+__global__ void __launch_bounds__(THREADS) decode_wide_kernel(Args a) {
+  constexpr float LOG2E = 1.4426950408889634f;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int D = a.D;
+  const long long RB = (long long)D * sizeof(TC);  // bytes per cache row
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int kv = blockIdx.y / a.n_hc, hc = blockIdx.y % a.n_hc;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int G = a.G;
+  const int h0 = hc * a.gc;
+  const int gn = min(a.gc, G - h0);
+  const int plane = b * a.KV + kv;
+  const int cplane = plane * a.n_hc + hc;
+  const int t0 = split * a.chunk;
+  const int seen = min(a.pos[b] + 1, a.T);
+  const int n = min(t0 + a.chunk, seen) - t0;
+  const int nvs = seen > 0 ? (seen + a.chunk - 1) / a.chunk : 0;
+  float* out = a.out + ((long long)plane * G + h0) * D;
+  if (n <= 0) {
+    if (nvs == 0 && split == 0)
+      for (int i = tid; i < gn * D; i += THREADS) out[i] = 0.f;
+    return;
+  }
+
+  const WideLayout L = wide_layout(a.chunk);
+  float* qs = reinterpret_cast<float*>(smem + L.qs);
+  float* ps = reinterpret_cast<float*>(smem + L.p);
+  float* ms = reinterpret_cast<float*>(smem + L.ml);
+  float* ls = ms + MAX_HC;
+  const bool quant = a.ks != nullptr;
+  const long long row0 = (long long)plane * a.T + t0;  // cache row of (b, kv, t0)
+  const unsigned char* Kp = a.k + row0 * RB;
+  const unsigned char* Vp = a.v + row0 * RB;
+  const long long qbase = ((long long)plane * G + h0) * D;
+  const float qscale = a.scale * LOG2E;
+  const int ngq = (gn + 3) / 4;  // live groups of 4 heads
+
+  for (int s0 = 0; s0 < D; s0 += WIDE_SLICE) {
+    const int sw = min(WIDE_SLICE, D - s0);
+    __syncthreads();  // the last slice's q is consumed
+    for (int i = tid; i < MAX_HC * WIDE_SLICE; i += THREADS) {
+      const int g = i / WIDE_SLICE, e = i % WIDE_SLICE;
+      float x = 0.f;
+      if (g < gn && e < sw) {
+        const long long qi = qbase + (long long)g * D + s0 + e;
+        x = (a.q_is_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(a.q)[qi])
+                         : static_cast<const float*>(a.q)[qi]) * qscale;
+      }
+      qs[i] = x;
+    }
+    __syncthreads();
+    for (int r = warp; r < n; r += WARPS) {
+      const unsigned char* krow = Kp + r * RB + (long long)s0 * sizeof(TC);
+      float acc[MAX_HC];
+#pragma unroll
+      for (int g = 0; g < MAX_HC; ++g) acc[g] = 0.f;
+      // LOADS elements of the row in flight a lane; an element past the
+      // slice reads as 0 against q's last (finite) column
+      for (int e0 = lane; e0 < sw; e0 += 32 * LOADS) {
+        float kx[LOADS];
+#pragma unroll
+        for (int u = 0; u < LOADS; ++u) {
+          const int e = e0 + 32 * u;
+          kx[u] = e < sw ? Vec<TC>::one(krow + e * sizeof(TC)) : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < LOADS; ++u) {
+          const int e = min(e0 + 32 * u, WIDE_SLICE - 1);
+#pragma unroll
+          for (int gq = 0; gq < MAX_HC / 4; ++gq)
+            if (gq < ngq) {
+#pragma unroll
+              for (int w = 0; w < 4; ++w)
+                acc[4 * gq + w] = fmaf(qs[(4 * gq + w) * WIDE_SLICE + e], kx[u], acc[4 * gq + w]);
+            }
+        }
+      }
+      // transposing butterfly: at step `w` a lane keeps the half of its
+      // values its lane bit selects and adds its partner's; after 16 -> 1
+      // values, lanes 2g and 2g + 1 hold head g's whole dot
+#pragma unroll
+      for (int w = 8, bit = 16; w >= 1; w >>= 1, bit >>= 1) {
+        const bool hi = lane & bit;
+#pragma unroll
+        for (int i = 0; i < w; ++i) {
+          const float send = hi ? acc[i] : acc[i + w];
+          const float keep = hi ? acc[i + w] : acc[i];
+          acc[i] = keep + __shfl_xor_sync(0xffffffffu, send, bit);
+        }
+      }
+      acc[0] += __shfl_xor_sync(0xffffffffu, acc[0], 1);
+      const int g = lane >> 1;
+      if ((lane & 1) == 0 && g < gn) {
+        float* sp = ps + r * MAX_HC + g;
+        *sp = s0 == 0 ? acc[0] : *sp + acc[0];
+      }
+    }
+  }
+  __syncthreads();
+
+  for (int g = warp; g < gn; g += WARPS) {
+    float mx = NEG_INF;
+    for (int r = lane; r < n; r += 32) {
+      const float x = ps[r * MAX_HC + g] * (quant ? a.ks[row0 + r] : 1.f);
+      ps[r * MAX_HC + g] = x;
+      mx = fmaxf(mx, x);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    float sum = 0.f;
+    for (int r = lane; r < n; r += 32) {
+      const float p = hopper::ex2(ps[r * MAX_HC + g] - mx);
+      sum += p;
+      ps[r * MAX_HC + g] = p * (quant ? a.vs[row0 + r] : 1.f);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (lane == 0) ms[g] = mx, ls[g] = sum;
+  }
+  __syncthreads();
+
+  const int DPAD = (D + 3) & ~3;
+  const long long part = (long long)cplane * a.n_split + split;
+  for (int e = tid; e < D; e += THREADS) {
+    float acc[MAX_HC];
+#pragma unroll
+    for (int g = 0; g < MAX_HC; ++g) acc[g] = 0.f;
+    const unsigned char* vcol = Vp + e * sizeof(TC);
+    for (int r0 = 0; r0 < n; r0 += LOADS) {  // LOADS rows' elements in flight
+      float vx[LOADS];
+#pragma unroll
+      for (int u = 0; u < LOADS; ++u) vx[u] = r0 + u < n ? Vec<TC>::one(vcol + (r0 + u) * RB) : 0.f;
+#pragma unroll
+      for (int u = 0; u < LOADS; ++u) {
+        const float4* pr = reinterpret_cast<const float4*>(ps + (r0 + u) * MAX_HC);
+#pragma unroll
+        for (int gq = 0; gq < MAX_HC / 4; ++gq)
+          if (gq < ngq && r0 + u < n) {
+            const float4 p = pr[gq];
+            acc[4 * gq] = fmaf(p.x, vx[u], acc[4 * gq]);
+            acc[4 * gq + 1] = fmaf(p.y, vx[u], acc[4 * gq + 1]);
+            acc[4 * gq + 2] = fmaf(p.z, vx[u], acc[4 * gq + 2]);
+            acc[4 * gq + 3] = fmaf(p.w, vx[u], acc[4 * gq + 3]);
+          }
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < MAX_HC; ++g) {
+      if (g < gn) {
+        if (nvs == 1) out[(long long)g * D + e] = acc[g] / fmaxf(ls[g], 1e-30f);
+        else a.o_part[(part * a.gc + g) * DPAD + e] = acc[g];
+      }
+    }
+  }
+  if (nvs == 1) return;
+  if (tid < gn) a.m_part[part * a.gc + tid] = ms[tid], a.l_part[part * a.gc + tid] = ls[tid];
+
+  // ticket: the last of the chunk's nvs blocks merges (ordering as in
+  // decode_body)
+  int* last = reinterpret_cast<int*>(smem + L.flag);
+  __syncthreads();
+  if (tid == 0) *last = ticket(a.counters + cplane) == nvs - 1;
+  __syncthreads();
+  if (!*last) return;
+  // thread v folds float4 v of every split's partial, in split order, 8
+  // splits' loads in flight (decode_body's fold, without its thread groups)
+  const long long pbase = (long long)cplane * a.n_split;
+  const int GD4 = gn * DPAD / 4, PD4 = a.gc * DPAD / 4;
+  const float4* op = reinterpret_cast<const float4*>(a.o_part) + pbase * PD4;
+  const float* mp = a.m_part + pbase * a.gc;
+  const float* lp = a.l_part + pbase * a.gc;
+  for (int v = tid; v < GD4; v += THREADS) {
+    const int g = v * 4 / DPAD, d0 = v * 4 % DPAD;
+    Merge acc;
+    for (int s0 = 0; s0 < nvs; s0 += 8) {
+      float msu[8], lsu[8];
+      float4 osu[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int s = min(s0 + u, nvs - 1);
+        msu[u] = __ldcg(mp + s * a.gc + g), lsu[u] = __ldcg(lp + s * a.gc + g);
+        osu[u] = __ldcg(op + (long long)s * PD4 + v);
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (s0 + u < nvs) acc.fold(msu[u], lsu[u], osu[u]);
+    }
+    const float inv = 1.f / fmaxf(acc.l, 1e-30f);
+    const float ov[4] = {acc.o.x, acc.o.y, acc.o.z, acc.o.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (d0 + e < D) out[(long long)g * D + d0 + e] = ov[e] * inv;
+  }
+  if (tid == 0) a.counters[cplane] = 0;  // ready for the next call
+}
+
+template <typename TC>
+int launch_wide(const Args& a, int B, cudaStream_t stream) {
+  const WideLayout L = wide_layout(a.chunk);
+  auto kernel = decode_wide_kernel<TC>;
+  constexpr int MAX_DEVICES = 64;
+  static int attr_bytes[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (L.total > 48 * 1024 && (dev >= MAX_DEVICES || L.total > attr_bytes[dev])) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < MAX_DEVICES) attr_bytes[dev] = L.total;
+  }
+  kernel<<<dim3(a.n_split, a.KV * a.n_hc, B), THREADS, L.total, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 template <typename TC, int DP, int FULL>
 int launch_one(const Args& a, int B, cudaStream_t stream) {
   const Layout L = layout(a.chunk, a.D, sizeof(TC), a.ks != nullptr);
@@ -674,14 +938,14 @@ int launch_d(const Args& a, int B, cudaStream_t s) {
     case 64: return full ? launch_one<TC, 64, 1>(a, B, s) : launch_one<TC, 64, 0>(a, B, s);
     case 128: return full ? launch_one<TC, 128, 1>(a, B, s) : launch_one<TC, 128, 0>(a, B, s);
     case 256: return full ? launch_one<TC, 256, 1>(a, B, s) : launch_one<TC, 256, 0>(a, B, s);
-    default: return (int)cudaErrorInvalidValue;
+    default: return launch_wide<TC>(a, B, s);  // D > 256
   }
 }
 
 }  // namespace
 
 // cache_kind: 0 = f32, 1 = bf16, 2 = int8 (ks and vs required). q is
-// contiguous. 1 <= D <= 256; the G heads of a kv head in n_hc chunks of gc
+// contiguous. D >= 1 (past 256 decode_wide_kernel, chunk <= WIDE_MAX_CHUNK); the G heads of a kv head in n_hc chunks of gc
 // <= 16 (n_hc * gc >= G > (n_hc - 1) * gc). `ahead`: K and V sub-tiles a
 // block keeps in flight (>= 1). One launch of decode_kernel; `counters`
 // holds B * KV * n_hc zeros and is left so.
@@ -692,9 +956,9 @@ extern "C" int dml_decode_attention(const void* q, const void* k, const void* v,
                                     int G, int T, int D, int chunk, int n_split, int n_hc, int gc,
                                     int ahead, float scale, void* stream) {
   if (B <= 0) return 0;
-  if (G < 1 || D < 1 || D > MAX_D || gc < 1 || gc > MAX_HC || n_hc < 1 || (long long)n_hc * gc < G ||
-      (long long)(n_hc - 1) * gc >= G || chunk < SUB || chunk > MAX_CHUNK || chunk % SUB ||
-      (long long)chunk * n_split < T || ahead < 1)
+  if (G < 1 || D < 1 || gc < 1 || gc > MAX_HC || n_hc < 1 || (long long)n_hc * gc < G ||
+      (long long)(n_hc - 1) * gc >= G || chunk < SUB || chunk > (D > MAX_ROW ? WIDE_MAX_CHUNK : MAX_CHUNK) ||
+      chunk % SUB || (long long)chunk * n_split < T || ahead < 1)
     return (int)cudaErrorInvalidValue;
   Args a{q, static_cast<const unsigned char*>(k), static_cast<const unsigned char*>(v),
          static_cast<const float*>(ks), static_cast<const float*>(vs),

@@ -5,8 +5,9 @@
 // no transpose copy is made; KV divides H and query head h reads kv head
 // h / (H / KV), which is jnp.repeat's mapping in generate.prefill) ->
 // out [B, Tq, H, d] in q's dtype and lse [B, H, Tq] f32. Every head dim
-// 1 <= d <= 256 and every group H / KV, as the TPU kernel (a full-d block)
-// takes them.
+// d >= 1 and every group H / KV, as the TPU kernel (a full-d block) takes
+// them: up to 256 on a native width (below), past it on the chunked route
+// (column chunks over a grid axis, "D > 256" below).
 //
 // What every route computes, in the TPU kernel's order: S = Q K^T * scale
 // in f32; columns at Tk and beyond and, if causal, columns past the row's
@@ -73,6 +74,8 @@
 // - float32: flash_fwd_f32_kernel<D>, plain FMAs with the tiles and the
 //   accumulator in shared memory: 64-row tiles up to D 128, 32-row tiles
 //   at D 256 (the four tiles of 64 rows would not fit shared memory).
+// - d > 256, either dtype: the chunked route, flash_fwd_mma_wide_kernel
+//   (bf16) and flash_fwd_f32_wide_kernel, d at run time ("D > 256" below).
 //
 // Bound: tensor-core operations at the prefill shape. 4 * B * H * Tq *
 // Tk * D operations (halved for causal) against 2 * (q + k + v + out)
@@ -186,6 +189,111 @@ struct MmaLayout {
   static constexpr size_t bytes = sizeof(__nv_bfloat16) * (size_t)(BQ * LDK + BK * LDK + D * LDV);
 };
 
+// W columns of V's k-tile at k0 (from vp, row stride vst; columns at d
+// and beyond and rows at Tk and beyond zero), transposed into Vt [W, 64]
+// (row stride LDV): thread i takes key i % 64 and 8 consecutive columns.
+template <int W, int LDV>
+__device__ __forceinline__ void load_vt(__nv_bfloat16* Vt, const __nv_bfloat16* vp, long long vst, int k0,
+                                        int Tk, int d) {
+  for (int i = threadIdx.x; i < BK * (W / 8); i += THREADS) {
+    const int key = i % BK, c = (i / BK) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (k0 + key < Tk && c < d) val = *reinterpret_cast<const uint4*>(vp + (long long)(k0 + key) * vst + c);
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) Vt[(c + j) * LDV + key] = e[j];
+  }
+}
+
+// The online softmax on this warp's S tile (16 rows x 64 keys from k0):
+// scale, mask, the row max over the 4 threads of a row, p = exp(s - m_new)
+// left in s, l = l * alpha + sum p, and O's W columns rescaled by alpha.
+template <int W>
+__device__ __forceinline__ void online_softmax(float (*s)[4], float (*o)[4], float* m, float* l,
+                                               const int* row, int k0, int t, const Args& a) {
+  float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int nt = 0; nt < BK / 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      const int key = k0 + 8 * nt + 2 * t + (e & 1);
+      float v = s[nt][e] * a.scale;
+      if (key >= a.Tk || (a.causal && key > row[r])) v = NEG_INF;
+      s[nt][e] = v;
+      mx[r] = fmaxf(mx[r], v);
+    }
+  }
+  float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    alpha[r] = expf(m[r] - m_new);
+    m[r] = m_new;
+  }
+#pragma unroll
+  for (int nt = 0; nt < BK / 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = expf(s[nt][e] - m[e >> 1]);
+      s[nt][e] = p;
+      sum[e >> 1] += p;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+    l[r] = l[r] * alpha[r] + sum[r];
+  }
+#pragma unroll
+  for (int j = 0; j < W / 8; ++j) {
+    o[j][0] *= alpha[0];
+    o[j][1] *= alpha[0];
+    o[j][2] *= alpha[1];
+    o[j][3] *= alpha[1];
+  }
+}
+
+// O += P V over W columns: P (bf16, as the TPU kernel casts it) straight
+// from the S accumulators into A fragments, 16 keys at a time, V^T from Vt.
+template <int W, int LDV>
+__device__ __forceinline__ void pv_product(float (*o)[4], const float (*s)[4], const __nv_bfloat16* Vt, int g,
+                                           int t) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const uint32_t pa[4] = {
+        pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+        pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+        pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+    for (int j = 0; j < W / 8; ++j) {
+      const __nv_bfloat16* vr = Vt + (8 * j + g) * LDV + 16 * kk + 2 * t;
+      mma16816(o[j], pa, ld32(vr), ld32(vr + 8));
+    }
+  }
+}
+
+// O / l into columns [c0, c0 + W) of this thread's two rows (none at d and
+// beyond), and the lse where c0 is 0.
+template <int W>
+__device__ __forceinline__ void store_rows(const float (*o)[4], const float* m, const float* l, const int* row,
+                                           int c0, int b, int h, int t, const Args& a) {
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= a.Tq) continue;
+    const float inv_l = 1.f / fmaxf(l[r], 1e-30f);
+    __nv_bfloat16* orow = out + (((long long)b * a.Tq + row[r]) * a.H + h) * a.d;
+#pragma unroll
+    for (int j = 0; j < W / 8; ++j)
+      hopper::store_pair(orow, c0 + 8 * j + 2 * t, a.d, o[j][2 * r] * inv_l, o[j][2 * r + 1] * inv_l);
+    if (t == 0 && c0 == 0) a.lse[((long long)b * a.H + h) * a.Tq + row[r]] = m[r] + logf(fmaxf(l[r], 1e-30f));
+  }
+}
+
 template <int D>
 __global__ void __launch_bounds__(THREADS) flash_fwd_mma_kernel(Args a) {
   using L = MmaLayout<D>;
@@ -229,15 +337,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_mma_kernel(Args a) {
     const int k0 = kt * BK;
     __syncthreads();  // every warp is done with the previous K/V tile
     load_tile<bf16, D, BK>(Ks, L::LDK, kp, a.kst, k0, a.Tk, a.d);
-    // V transposed: thread i takes key i % 64 and 8 consecutive d
-    for (int i = tid; i < BK * (D / 8); i += THREADS) {
-      const int key = i % BK, c = (i / BK) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + key < a.Tk && c < a.d) val = *reinterpret_cast<const uint4*>(vp + (long long)(k0 + key) * a.vst + c);
-      const bf16* e = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) Vt[(c + j) * L::LDV + key] = e[j];
-    }
+    load_vt<D, L::LDV>(Vt, vp, a.vst, k0, a.Tk, a.d);
     __syncthreads();
 
     // S = Q K^T for this warp's 16 rows x 64 keys: 8 tiles of 16x8
@@ -258,79 +358,10 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_mma_kernel(Args a) {
         mma16816(s[nt], qa, ld32(kr), ld32(kr + 8));
       }
     }
-
-    // scale, mask, row max over the 4 threads of a row
-    float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int key = k0 + 8 * nt + 2 * t + (e & 1);
-        float v = s[nt][e] * a.scale;
-        if (key >= a.Tk || (a.causal && key > row[r])) v = NEG_INF;
-        s[nt][e] = v;
-        mx[r] = fmaxf(mx[r], v);
-      }
-    }
-    float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      alpha[r] = expf(m[r] - m_new);
-      m[r] = m_new;
-    }
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[nt][e] - m[e >> 1]);
-        s[nt][e] = p;
-        sum[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-      l[r] = l[r] * alpha[r] + sum[r];
-    }
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      o[j][0] *= alpha[0];
-      o[j][1] *= alpha[0];
-      o[j][2] *= alpha[1];
-      o[j][3] *= alpha[1];
-    }
-
-    // O += P V: P (bf16, as the TPU kernel casts it) straight from the
-    // S accumulators into A fragments, 16 keys at a time
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        const bf16* vr = Vt + (8 * j + g) * L::LDV + 16 * kk + 2 * t;
-        mma16816(o[j], pa, ld32(vr), ld32(vr + 8));
-      }
-    }
+    online_softmax<D>(s, o, m, l, row, k0, t, a);
+    pv_product<D, L::LDV>(o, s, Vt, g, t);
   }
-
-  bf16* out = static_cast<bf16*>(a.out);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (row[r] >= a.Tq) continue;
-    const float inv_l = 1.f / fmaxf(l[r], 1e-30f);
-    bf16* orow = out + (((long long)b * a.Tq + row[r]) * a.H + h) * a.d;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) hopper::store_pair(orow, 8 * j + 2 * t, a.d, o[j][2 * r] * inv_l, o[j][2 * r + 1] * inv_l);
-    if (t == 0) a.lse[((long long)b * a.H + h) * a.Tq + row[r]] = m[r] + logf(fmaxf(l[r], 1e-30f));
-  }
+  store_rows<D>(o, m, l, row, 0, b, h, t, a);
 }
 
 // ---------------------------------------------------------------- f32
@@ -468,6 +499,222 @@ int launch(const Args& a, int B, int is_bf16, cudaStream_t stream) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((a.Tq + rows - 1) / rows, a.H, B);
+  kernel<<<grid, THREADS, bytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------- D > 256: column chunks
+//
+// Past the widest native width no block holds a whole row of D: the O
+// accumulator alone would be D / 2 float32 registers a thread (mma.sync)
+// and a 64-row f32 tile at D 1024 is 256 KB. A grid axis splits the
+// output's columns into chunks of CHUNK = 256 (the last cut at d); the
+// block of chunk j reduces S = Q K^T over the whole of d in column slices
+// of Q and K staged through shared memory (SLICE columns at a time, so
+// shared memory is bounded at every d), runs the online softmax on it and
+// P V over its own chunk of V's columns only. Every chunk of a q-tile
+// computes S, m and l with the same arithmetic in the same order, so they
+// agree bit for bit; the first chunk writes the lse. The cost is S
+// computed once per chunk.
+
+constexpr int CHUNK = 256;      // output columns a block of the chunked route owns
+constexpr int SLICE = 128;      // columns of Q and K staged at a time (bf16)
+constexpr int F32_SLICE = 64;   // the same, float32
+constexpr int F32_WIDE_R = 32;  // query rows a block, key rows a k-tile (float32)
+
+struct MmaWideLayout {
+  static constexpr int LDS = SLICE + 8;  // Q and K slices, row-major
+  static constexpr int LDV = BK + 8;     // the block's CHUNK columns of the V tile transposed
+  static constexpr size_t bytes = sizeof(__nv_bfloat16) * (size_t)(BQ * LDS + BK * LDS + CHUNK * LDV);
+};
+static_assert(MmaWideLayout::bytes <= hopper::SMEM_PER_BLOCK, "one block of the chunked route at every d");
+
+__global__ void __launch_bounds__(THREADS) flash_fwd_mma_wide_kernel(Args a) {
+  using L = MmaWideLayout;
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = Qs + BQ * L::LDS;
+  bf16* Vt = Ks + BK * L::LDS;
+
+  const int n_cc = (a.d + CHUNK - 1) / CHUNK;
+  const int qt = blockIdx.x / n_cc, c0 = (blockIdx.x % n_cc) * CHUNK;  // output columns [c0, c0 + CHUNK)
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / a.G;
+  const int q0 = qt * BQ;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const bf16* qp = static_cast<const bf16*>(a.q) + b * a.qsb + h * a.qsh;
+  const bf16* kp = static_cast<const bf16*>(a.k) + b * a.ksb + kvh * a.ksh;
+  const bf16* vp = static_cast<const bf16*>(a.v) + b * a.vsb + kvh * a.vsh;
+
+  float o[CHUNK / 8][4];
+#pragma unroll
+  for (int j = 0; j < CHUNK / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  const int row[2] = {q0 + 16 * warp + g, q0 + 16 * warp + g + 8};
+
+  int n_tiles = (a.Tk + BK - 1) / BK;
+  if (a.causal) n_tiles = min(n_tiles, (q0 + BQ - 1) / BK + 1);  // skip tiles above the diagonal
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * BK;
+    // S = Q K^T for this warp's 16 rows x 64 keys, over d in slices
+    float s[BK / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    for (int c = 0; c < a.d; c += SLICE) {
+      __syncthreads();  // every warp is done with the previous slices (and P V with V^T)
+      load_tile<bf16, SLICE, BQ>(Qs, L::LDS, qp + c, a.qst, q0, a.Tq, a.d - c);
+      load_tile<bf16, SLICE, BK>(Ks, L::LDS, kp + c, a.kst, k0, a.Tk, a.d - c);
+      __syncthreads();
+      const bf16* qrows = Qs + 16 * warp * L::LDS;
+#pragma unroll
+      for (int kk = 0; kk < SLICE / 16; ++kk) {
+        uint32_t qa[4];
+        a_frag(qa, qrows, L::LDS, kk, g, t);
+#pragma unroll
+        for (int nt = 0; nt < BK / 8; ++nt) {
+          const bf16* kr = Ks + (8 * nt + g) * L::LDS + 16 * kk + 2 * t;
+          mma16816(s[nt], qa, ld32(kr), ld32(kr + 8));
+        }
+      }
+    }
+    load_vt<CHUNK, L::LDV>(Vt, vp + c0, a.vst, k0, a.Tk, a.d - c0);  // this block's chunk of V
+    __syncthreads();
+    online_softmax<CHUNK>(s, o, m, l, row, k0, t, a);
+    pv_product<CHUNK, L::LDV>(o, s, Vt, g, t);
+  }
+  store_rows<CHUNK>(o, m, l, row, c0, b, h, t, a);
+}
+
+struct F32WideLayout {
+  static constexpr int R = F32_WIDE_R;
+  static constexpr int LDT = F32_SLICE + 4;  // Q and K slices
+  static constexpr int LDV = CHUNK + 4;      // the block's chunk of the V tile
+  static constexpr int LDS = R + 4;          // S, then P
+  static constexpr size_t bytes = sizeof(float) * (size_t)(2 * R * LDT + R * LDV + R * LDS);
+};
+static_assert(F32WideLayout::bytes <= hopper::SMEM_PER_BLOCK, "one block of the chunked route at every d");
+
+// Float32, d > 256: 32-row tiles; thread i accumulates S at the pairs
+// (i / 32 + 4 j, i % 32), j < 8, over the slices, and owns row i / 4 of
+// O at columns [64 (i % 4), 64 (i % 4) + 64) of the chunk, in registers.
+__global__ void __launch_bounds__(THREADS) flash_fwd_f32_wide_kernel(Args a) {
+  using L = F32WideLayout;
+  constexpr int R = L::R;
+  constexpr int TPR = THREADS / R;      // threads a row: 4
+  constexpr int CPT = R / TPR;          // softmax columns each
+  constexpr int OPT = CHUNK / TPR;      // O columns each
+  constexpr int NP = R * R / THREADS;   // S pairs each
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* Ks = Qs + R * L::LDT;
+  float* Vs = Ks + R * L::LDT;
+  float* S = Vs + R * L::LDV;
+
+  const int n_cc = (a.d + CHUNK - 1) / CHUNK;
+  const int qt = blockIdx.x / n_cc, c0 = (blockIdx.x % n_cc) * CHUNK;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / a.G;
+  const int q0 = qt * R;
+  const int tid = threadIdx.x;
+  const float* qp = static_cast<const float*>(a.q) + b * a.qsb + h * a.qsh;
+  const float* kp = static_cast<const float*>(a.k) + b * a.ksb + kvh * a.ksh;
+  const float* vp = static_cast<const float*>(a.v) + b * a.vsb + kvh * a.vsh;
+
+  const int r = tid / TPR, part = tid % TPR;  // softmax row and O columns
+  const int qpos = q0 + r;
+  float o[OPT];
+#pragma unroll
+  for (int j = 0; j < OPT; ++j) o[j] = 0.f;
+  float m = NEG_INF, l = 0.f;
+
+  int n_tiles = (a.Tk + R - 1) / R;
+  if (a.causal) n_tiles = min(n_tiles, (q0 + R - 1) / R + 1);
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * R;
+    float acc[NP];
+#pragma unroll
+    for (int j = 0; j < NP; ++j) acc[j] = 0.f;
+    for (int c = 0; c < a.d; c += F32_SLICE) {
+      __syncthreads();
+      load_tile<float, F32_SLICE, R>(Qs, L::LDT, qp + c, a.qst, q0, a.Tq, a.d - c);
+      load_tile<float, F32_SLICE, R>(Ks, L::LDT, kp + c, a.kst, k0, a.Tk, a.d - c);
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < NP; ++j) {
+        const int i = tid + THREADS * j;
+        const float* qr = Qs + (i / R) * L::LDT;
+        const float* kr = Ks + (i % R) * L::LDT;
+#pragma unroll 16
+        for (int e = 0; e < F32_SLICE; ++e) acc[j] = fmaf(qr[e], kr[e], acc[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NP; ++j) {
+      const int i = tid + THREADS * j;
+      S[(i / R) * L::LDS + i % R] = acc[j] * a.scale;
+    }
+    load_tile<float, CHUNK, R>(Vs, L::LDV, vp + c0, a.vst, k0, a.Tk, a.d - c0);
+    __syncthreads();
+
+    float* srow = S + r * L::LDS;
+    float mx = NEG_INF;
+    for (int c = part * CPT; c < part * CPT + CPT; ++c) {
+      const int kpos = k0 + c;
+      float v = srow[c];
+      if (kpos >= a.Tk || (a.causal && kpos > qpos)) v = NEG_INF;
+      srow[c] = v;
+      mx = fmaxf(mx, v);
+    }
+#pragma unroll
+    for (int off = 1; off < TPR; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float m_new = fmaxf(m, mx);
+    float sum = 0.f;
+    for (int c = part * CPT; c < part * CPT + CPT; ++c) {
+      const float p = expf(srow[c] - m_new);
+      sum += p;
+      srow[c] = p;
+    }
+#pragma unroll
+    for (int off = 1; off < TPR; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    const float alpha = expf(m - m_new);
+    m = m_new;
+    l = l * alpha + sum;
+    __syncwarp();  // the row's four threads (one warp) wrote its P
+#pragma unroll
+    for (int j = 0; j < OPT; ++j) o[j] *= alpha;
+    for (int c = 0; c < R; ++c) {
+      const float p = srow[c];
+      const float* vr = Vs + c * L::LDV + part * OPT;
+#pragma unroll
+      for (int j = 0; j < OPT; ++j) o[j] = fmaf(p, vr[j], o[j]);
+    }
+  }
+
+  if (qpos < a.Tq) {
+    float* orow = static_cast<float*>(a.out) + (((long long)b * a.Tq + qpos) * a.H + h) * a.d;
+    const float inv_l = 1.f / fmaxf(l, 1e-30f);
+#pragma unroll
+    for (int j = 0; j < OPT; ++j) {
+      const int c = c0 + part * OPT + j;
+      if (c < a.d) orow[c] = o[j] * inv_l;
+    }
+    if (c0 == 0 && part == 0) a.lse[((long long)b * a.H + h) * a.Tq + qpos] = m + logf(fmaxf(l, 1e-30f));
+  }
+}
+
+// The chunked route: one launch, ceil(d / CHUNK) blocks a q-tile.
+int launch_wide(const Args& a, int B, int is_bf16, cudaStream_t stream) {
+  auto kernel = is_bf16 ? flash_fwd_mma_wide_kernel : flash_fwd_f32_wide_kernel;
+  const size_t bytes = is_bf16 ? MmaWideLayout::bytes : F32WideLayout::bytes;
+  const int rows = is_bf16 ? BQ : F32_WIDE_R;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((a.Tq + rows - 1) / rows * ((a.d + CHUNK - 1) / CHUNK), a.H, B);
   kernel<<<grid, THREADS, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -817,7 +1064,8 @@ int dispatch(const Args& a, int B, int is_bf16, bool wgmma, cudaStream_t s) {
     case 96: return launch<96>(a, B, is_bf16, s);
     case 128: return launch<128>(a, B, is_bf16, s);
     case 256: return launch<256>(a, B, is_bf16, s);
-    default: return (int)cudaErrorInvalidValue;  // d < 1 or d > MAX_HEAD_DIM
+    default: return a.d > hopper::WIDEST_NATIVE ? launch_wide(a, B, is_bf16, s)
+                                                : (int)cudaErrorInvalidValue;  // d < 1
   }
 }
 
@@ -835,7 +1083,8 @@ int flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
 
 // The kernel for (dtype, D): wgmma + TMA for bf16 at D 64 and 128,
 // mma.sync for bf16 at every other D, FMAs for float32, each at the native
-// width >= D (1 <= D <= 256; cudaErrorInvalidValue past it).
+// width >= D up to 256 and on the chunked route past it
+// (cudaErrorInvalidValue at D < 1).
 extern "C" int dml_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                              int is_bf16, int B, int H, int G, int Tq, int Tk, int D,
                              long long qsb, long long qst, long long qsh,

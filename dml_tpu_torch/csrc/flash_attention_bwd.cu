@@ -7,7 +7,8 @@
 // forward's out [B, Tq, H, d] and lse [B, H, Tq] f32, the optional lse
 // cotangent g_lse [B, H, Tq] f32 -> dq [B, Tq, H, d] in q's dtype, dk and
 // dv [B, Tk, KV, d] in k's and v's dtype, all contiguous. Every head dim
-// 1 <= d <= 256 and every group H / KV, as the forward takes them.
+// d >= 1 and every group H / KV, as the forward takes them (past 256 on
+// the chunked route, "D > 256" below).
 //
 // What every route computes, by recomputation from the saved lse, in the
 // TPU's two kernels:
@@ -86,6 +87,9 @@
 // - float32: flash_bwd_dq_f32_kernel<D> and flash_bwd_dkv_f32_kernel<D>,
 //   plain FMAs with the tiles in shared memory: 64-row tiles up to D 128,
 //   32-row tiles at D 256.
+// - d > 256, either dtype: the chunked pair, flash_bwd_{dq,dkv}_mma_wide_
+//   kernel (bf16) and flash_bwd_{dq,dkv}_f32_wide_kernel, d at run time
+//   ("D > 256" below). The delta kernel takes every d as it is.
 //
 // Bound: tensor-core operations at the training shape. The backward needs
 // 5 products of 2 * Tq * Tk * D operations per head (S, dP, dV, dK, dQ;
@@ -291,6 +295,114 @@ __device__ __forceinline__ void c_to_a(uint32_t* a, const float (*c)[4], int kk)
 template <int D>
 __host__ __device__ constexpr int grad_cols() { return D > 128 ? 128 : D; }
 
+// dS = P (dP - delta') scale in place of S, for this warp's 16 query rows
+// (row[0], row[1]) x 64 keys from k0: the dq kernels' step.
+__device__ __forceinline__ void ds_rows(float (*s)[4], const float (*dpv)[4], const float* lse,
+                                        const float* delta, const int* row, int k0, int t, const Args& a) {
+#pragma unroll
+  for (int nt = 0; nt < BK / 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      const int key = k0 + 8 * nt + 2 * t + (e & 1);
+      float sv = s[nt][e] * a.scale;
+      if (key >= a.Tk || (a.causal && key > row[r])) sv = NEG_INF;
+      const float p = expf(sv - lse[r]);
+      s[nt][e] = p * (dpv[nt][e] - delta[r]) * a.scale;
+    }
+  }
+}
+
+// dQ += dS K over W gradient columns: dS (bf16) straight from the
+// accumulators into A fragments, K^T from the transposed tile Kt [W, 64]
+// (row stride LDT), 16 keys at a time.
+template <int W, int LDT>
+__device__ __forceinline__ void dq_product(float (*acc)[4], const float (*s)[4], const bf16* Kt, int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    uint32_t sa[4];
+    c_to_a(sa, s, kk);
+#pragma unroll
+    for (int j = 0; j < W / 8; ++j) {
+      const bf16* kr = Kt + (8 * j + g) * LDT + 16 * kk + 2 * t;
+      mma16816(acc[j], sa, ld32(kr), ld32(kr + 8));
+    }
+  }
+}
+
+// dQ's columns [col0, col0 + W) of this thread's two rows (none at d and beyond).
+template <int W>
+__device__ __forceinline__ void store_dq(const float (*acc)[4], const int* row, int col0, int b, int h, int t,
+                                         const Args& a) {
+  bf16* dq = static_cast<bf16*>(a.dq);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= a.Tq) continue;
+    bf16* out = dq + (((long long)b * a.Tq + row[r]) * a.H + h) * a.d;
+#pragma unroll
+    for (int j = 0; j < W / 8; ++j) hopper::store_pair(out, col0 + 8 * j + 2 * t, a.d, acc[j][2 * r], acc[j][2 * r + 1]);
+  }
+}
+
+// P^T in place of S^T and dS^T in place of dP^T, for this warp's 16 keys
+// (key[0], key[1]) x 64 queries from q0: the dkv kernels' step.
+__device__ __forceinline__ void p_ds_cols(float (*s)[4], float (*dpv)[4], const float* lse_s, const float* delta_s,
+                                          const int* key, int q0, int t, const Args& a) {
+#pragma unroll
+  for (int nt = 0; nt < BQ / 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      const int c = 8 * nt + 2 * t + (e & 1);  // query within the tile
+      const int qpos = q0 + c;
+      float sv = s[nt][e] * a.scale;
+      if (qpos >= a.Tq || (a.causal && key[r] > qpos)) sv = NEG_INF;
+      const float p = expf(sv - lse_s[c]);
+      s[nt][e] = p;
+      dpv[nt][e] = p * (dpv[nt][e] - delta_s[c]) * a.scale;
+    }
+  }
+}
+
+// dV += P^T dO and dK += dS^T Q over W gradient columns, 16 queries at a
+// time; dO and Q from their transposed tiles [W, 64] (row stride LDT).
+template <int W, int LDT>
+__device__ __forceinline__ void dkv_product(float (*dk)[4], float (*dv)[4], const float (*s)[4],
+                                            const float (*dpv)[4], const bf16* Qt, const bf16* dOt, int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < BQ / 16; ++kk) {
+    uint32_t pa[4], sa[4];
+    c_to_a(pa, s, kk);
+    c_to_a(sa, dpv, kk);
+#pragma unroll
+    for (int j = 0; j < W / 8; ++j) {
+      const bf16* dr = dOt + (8 * j + g) * LDT + 16 * kk + 2 * t;
+      const bf16* qr = Qt + (8 * j + g) * LDT + 16 * kk + 2 * t;
+      mma16816(dv[j], pa, ld32(dr), ld32(dr + 8));
+      mma16816(dk[j], sa, ld32(qr), ld32(qr + 8));
+    }
+  }
+}
+
+// dK's and dV's columns [col0, col0 + W) of this thread's two keys.
+template <int W>
+__device__ __forceinline__ void store_dkv(const float (*dk)[4], const float (*dv)[4], const int* key, int col0,
+                                          int kvh, int b, int t, const Args& a) {
+  bf16* dkp = static_cast<bf16*>(a.dk);
+  bf16* dvp = static_cast<bf16*>(a.dv);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (key[r] >= a.Tk) continue;
+    const long long off = (((long long)b * a.Tk + key[r]) * a.KV + kvh) * a.d;
+#pragma unroll
+    for (int j = 0; j < W / 8; ++j) {
+      const int c = col0 + 8 * j + 2 * t;
+      hopper::store_pair(dkp + off, c, a.d, dk[j][2 * r], dk[j][2 * r + 1]);
+      hopper::store_pair(dvp + off, c, a.d, dv[j][2 * r], dv[j][2 * r + 1]);
+    }
+  }
+}
+
 template <int D>
 struct DqLayout {
   static constexpr int DO = grad_cols<D>();
@@ -371,42 +483,10 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_mma_kernel(Args a) {
       }
     }
 
-    // dS = P (dP - delta') scale, in place of S
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int key = k0 + 8 * nt + 2 * t + (e & 1);
-        float sv = s[nt][e] * a.scale;
-        if (key >= a.Tk || (a.causal && key > row[r])) sv = NEG_INF;
-        const float p = expf(sv - lse[r]);
-        s[nt][e] = p * (dpv[nt][e] - delta[r]) * a.scale;
-      }
-    }
-
-    // dQ += dS K: dS (bf16) straight from the accumulators into A
-    // fragments, K^T from the transposed tile, 16 keys at a time
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t sa[4];
-      c_to_a(sa, s, kk);
-#pragma unroll
-      for (int j = 0; j < DO / 8; ++j) {
-        const bf16* kr = Kt + (8 * j + g) * L::LDT + 16 * kk + 2 * t;
-        mma16816(acc[j], sa, ld32(kr), ld32(kr + 8));
-      }
-    }
+    ds_rows(s, dpv, lse, delta, row, k0, t, a);
+    dq_product<DO, L::LDT>(acc, s, Kt, g, t);
   }
-
-  bf16* dq = static_cast<bf16*>(a.dq);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (row[r] >= a.Tq) continue;
-    bf16* out = dq + (((long long)b * a.Tq + row[r]) * a.H + h) * a.d;
-#pragma unroll
-    for (int j = 0; j < DO / 8; ++j) hopper::store_pair(out, col0 + 8 * j + 2 * t, a.d, acc[j][2 * r], acc[j][2 * r + 1]);
-  }
+  store_dq<DO>(acc, row, col0, b, h, t, a);
 }
 
 template <int D>
@@ -492,53 +572,11 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_mma_kernel(Args a) {
         }
       }
 
-      // P^T in place of S^T, dS^T in place of dP^T
-#pragma unroll
-      for (int nt = 0; nt < BQ / 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1;
-          const int c = 8 * nt + 2 * t + (e & 1);  // query within the tile
-          const int qpos = q0 + c;
-          float sv = s[nt][e] * a.scale;
-          if (qpos >= a.Tq || (a.causal && key[r] > qpos)) sv = NEG_INF;
-          const float p = expf(sv - lse_s[c]);
-          s[nt][e] = p;
-          dpv[nt][e] = p * (dpv[nt][e] - delta_s[c]) * a.scale;
-        }
-      }
-
-      // dV += P^T dO and dK += dS^T Q, 16 queries at a time; dO and Q
-      // from their transposed tiles
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) {
-        uint32_t pa[4], sa[4];
-        c_to_a(pa, s, kk);
-        c_to_a(sa, dpv, kk);
-#pragma unroll
-        for (int j = 0; j < DO / 8; ++j) {
-          const bf16* dr = dOt + (8 * j + g) * L::LDT + 16 * kk + 2 * t;
-          const bf16* qr = Qt + (8 * j + g) * L::LDT + 16 * kk + 2 * t;
-          mma16816(dv[j], pa, ld32(dr), ld32(dr + 8));
-          mma16816(dk[j], sa, ld32(qr), ld32(qr + 8));
-        }
-      }
+      p_ds_cols(s, dpv, lse_s, delta_s, key, q0, t, a);
+      dkv_product<DO, L::LDT>(dk, dv, s, dpv, Qt, dOt, g, t);
     }
   }
-
-  bf16* dkp = static_cast<bf16*>(a.dk);
-  bf16* dvp = static_cast<bf16*>(a.dv);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (key[r] >= a.Tk) continue;
-    const long long off = (((long long)b * a.Tk + key[r]) * a.KV + kvh) * a.d;
-#pragma unroll
-    for (int j = 0; j < DO / 8; ++j) {
-      const int c = col0 + 8 * j + 2 * t;
-      hopper::store_pair(dkp + off, c, a.d, dk[j][2 * r], dk[j][2 * r + 1]);
-      hopper::store_pair(dvp + off, c, a.d, dv[j][2 * r], dv[j][2 * r + 1]);
-    }
-  }
+  store_dkv<DO>(dk, dv, key, col0, kvh, b, t, a);
 }
 
 // ---------------------------------------------------------------- f32
@@ -773,6 +811,404 @@ int launch(const Args& a, int B, int is_bf16, int parts, cudaStream_t stream) {
 }
 
 
+
+// ------------------------------------------------- D > 256: column chunks
+//
+// Past the widest native width no block holds a whole row of d (the dk and
+// dv accumulators at 128 columns already take 128 registers a thread), so
+// D 256's split of the gradient columns over blocks is taken to
+// ceil(d / CHUNK) blocks a tile, CHUNK = 128 columns each. Each block
+// reduces S = Q K^T and dP = dO V^T over the whole of d in column slices
+// staged through shared memory (SLICE columns at a time: shared memory is
+// bounded at every d), then writes dq (or dk and dv) for its own chunk of
+// columns only, from the chunk of K (or Q and dO) it stages transposed.
+// Still no atomics: every gradient element is summed by one block in a
+// fixed order.
+
+constexpr int CHUNK = 128;      // gradient columns a block of the chunked route owns
+constexpr int SLICE = 128;      // columns of each operand of S and dP staged at a time (bf16)
+constexpr int F32_SLICE = 64;   // the same, float32
+constexpr int F32_WIDE_R = 32;  // rows a tile (float32)
+
+struct DqWideLayout {
+  static constexpr int LD = SLICE + 8;  // Q, dO, K, V slices, row-major
+  static constexpr int LDT = BK + 8;    // the block's CHUNK columns of the K tile transposed
+  static constexpr size_t bytes = sizeof(bf16) * (size_t)(2 * BQ * LD + 2 * BK * LD + CHUNK * LDT);
+};
+static_assert(DqWideLayout::bytes <= hopper::SMEM_PER_BLOCK, "one block of the chunked route at every d");
+
+// S and dP (this warp's 16 rows x 64 columns) over d in slices: rows of
+// A1 and A2 (Q and dO, or K and V) against rows of B1 and B2 (K and V, or
+// Q and dO), each [64, d] at row0a / row0b with row strides sa / sb.
+__device__ __forceinline__ void products_by_slices(float (*s)[4], float (*dp)[4], bf16* A1s, bf16* A2s,
+                                                   bf16* B1s, bf16* B2s, const bf16* a1, const bf16* a2,
+                                                   long long sa1, long long sa2, int row0a, int na,
+                                                   const bf16* b1, const bf16* b2, long long sb1,
+                                                   long long sb2, int row0b, int nb, int d, int warp,
+                                                   int g, int t) {
+  constexpr int LD = DqWideLayout::LD;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
+  }
+  for (int c = 0; c < d; c += SLICE) {
+    __syncthreads();  // every warp is done with the previous slices (and the last tile's products)
+    load_tile<bf16, SLICE, 64>(A1s, LD, a1 + c, sa1, row0a, na, d - c);
+    load_tile<bf16, SLICE, 64>(A2s, LD, a2 + c, sa2, row0a, na, d - c);
+    load_tile<bf16, SLICE, 64>(B1s, LD, b1 + c, sb1, row0b, nb, d - c);
+    load_tile<bf16, SLICE, 64>(B2s, LD, b2 + c, sb2, row0b, nb, d - c);
+    __syncthreads();
+    const bf16* r1 = A1s + 16 * warp * LD;
+    const bf16* r2 = A2s + 16 * warp * LD;
+#pragma unroll
+    for (int kk = 0; kk < SLICE / 16; ++kk) {
+      uint32_t x1[4], x2[4];
+      a_frag(x1, r1, LD, kk, g, t);
+      a_frag(x2, r2, LD, kk, g, t);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const bf16* y1 = B1s + (8 * nt + g) * LD + 16 * kk + 2 * t;
+        const bf16* y2 = B2s + (8 * nt + g) * LD + 16 * kk + 2 * t;
+        mma16816(s[nt], x1, ld32(y1), ld32(y1 + 8));
+        mma16816(dp[nt], x2, ld32(y2), ld32(y2 + 8));
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS) flash_bwd_dq_mma_wide_kernel(Args a) {
+  using L = DqWideLayout;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* dOs = Qs + BQ * L::LD;
+  bf16* Ks = dOs + BQ * L::LD;
+  bf16* Vs = Ks + BK * L::LD;
+  bf16* Kt = Vs + BK * L::LD;
+
+  const int n_cc = (a.d + CHUNK - 1) / CHUNK;
+  const int qt = blockIdx.x / n_cc, col0 = (blockIdx.x % n_cc) * CHUNK;  // this block's dQ columns
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / a.G;
+  const int q0 = qt * BQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const bf16* qp = static_cast<const bf16*>(a.q) + b * a.qsb + h * a.qsh;
+  const bf16* dp_ = static_cast<const bf16*>(a.dout) + b * a.dsb + h * a.dsh;
+  const bf16* kp = static_cast<const bf16*>(a.k) + b * a.ksb + kvh * a.ksh;
+  const bf16* vp = static_cast<const bf16*>(a.v) + b * a.vsb + kvh * a.vsh;
+
+  const int row[2] = {q0 + 16 * warp + g, q0 + 16 * warp + g + 8};
+  const long long rbase = ((long long)b * a.H + h) * a.Tp;
+  float lse[2], delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // rows past Tq read the arrays' pad rows
+    lse[r] = a.lse[rbase + row[r]];
+    delta[r] = a.delta[rbase + row[r]];
+  }
+  float acc[CHUNK / 8][4];
+#pragma unroll
+  for (int j = 0; j < CHUNK / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  int n_tiles = (a.Tk + BK - 1) / BK;
+  if (a.causal) n_tiles = min(n_tiles, (q0 + BQ - 1) / BK + 1);  // skip tiles above the diagonal
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * BK;
+    float s[BK / 8][4], dpv[BK / 8][4];
+    products_by_slices(s, dpv, Qs, dOs, Ks, Vs, qp, dp_, a.qst, a.dst, q0, a.Tq, kp, vp, a.kst, a.vst,
+                       k0, a.Tk, a.d, warp, g, t);
+    load_tile_t<CHUNK>(Kt, L::LDT, kp + col0, a.kst, k0, a.Tk, a.d - col0);
+    __syncthreads();
+
+    ds_rows(s, dpv, lse, delta, row, k0, t, a);
+    dq_product<CHUNK, L::LDT>(acc, s, Kt, g, t);  // over this block's columns
+  }
+  store_dq<CHUNK>(acc, row, col0, b, h, t, a);
+}
+
+struct DkvWideLayout {
+  static constexpr int LD = SLICE + 8;  // K, V, Q, dO slices, row-major
+  static constexpr int LDT = BQ + 8;    // the block's CHUNK columns of the Q and dO tiles transposed
+  static constexpr size_t bytes =
+      sizeof(bf16) * (size_t)(2 * BK * LD + 2 * BQ * LD + 2 * CHUNK * LDT) + sizeof(float) * 2 * BQ;
+};
+static_assert(DkvWideLayout::bytes <= hopper::SMEM_PER_BLOCK, "one block of the chunked route at every d");
+
+__global__ void __launch_bounds__(THREADS) flash_bwd_dkv_mma_wide_kernel(Args a) {
+  using L = DkvWideLayout;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + BK * L::LD;
+  bf16* Qs = Vs + BK * L::LD;
+  bf16* dOs = Qs + BQ * L::LD;
+  bf16* Qt = dOs + BQ * L::LD;
+  bf16* dOt = Qt + CHUNK * L::LDT;
+  float* lse_s = reinterpret_cast<float*>(dOt + CHUNK * L::LDT);
+  float* delta_s = lse_s + BQ;
+
+  const int n_cc = (a.d + CHUNK - 1) / CHUNK;
+  const int kt = blockIdx.x / n_cc, col0 = (blockIdx.x % n_cc) * CHUNK;  // this block's dK, dV columns
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int k0 = kt * BK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const bf16* kp = static_cast<const bf16*>(a.k) + b * a.ksb + kvh * a.ksh;
+  const bf16* vp = static_cast<const bf16*>(a.v) + b * a.vsb + kvh * a.vsh;
+
+  const int key[2] = {k0 + 16 * warp + g, k0 + 16 * warp + g + 8};
+  float dk[CHUNK / 8][4], dv[CHUNK / 8][4];
+#pragma unroll
+  for (int j = 0; j < CHUNK / 8; ++j) {
+    dk[j][0] = dk[j][1] = dk[j][2] = dk[j][3] = 0.f;
+    dv[j][0] = dv[j][1] = dv[j][2] = dv[j][3] = 0.f;
+  }
+  const int n_qt = (a.Tq + BQ - 1) / BQ;
+  const int qt0 = a.causal ? k0 / BQ : 0;  // q-tiles wholly above the diagonal see none of these keys
+
+  for (int gi = 0; gi < a.G; ++gi) {
+    const int h = kvh * a.G + gi;
+    const bf16* qp = static_cast<const bf16*>(a.q) + b * a.qsb + h * a.qsh;
+    const bf16* dp_ = static_cast<const bf16*>(a.dout) + b * a.dsb + h * a.dsh;
+    const long long rbase = ((long long)b * a.H + h) * a.Tp;
+    for (int qt = qt0; qt < n_qt; ++qt) {
+      const int q0 = qt * BQ;
+      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x 64 queries
+      float s[BQ / 8][4], dpv[BQ / 8][4];
+      products_by_slices(s, dpv, Ks, Vs, Qs, dOs, kp, vp, a.kst, a.vst, k0, a.Tk, qp, dp_, a.qst, a.dst,
+                         q0, a.Tq, a.d, warp, g, t);
+      load_tile_t<CHUNK>(Qt, L::LDT, qp + col0, a.qst, q0, a.Tq, a.d - col0);
+      load_tile_t<CHUNK>(dOt, L::LDT, dp_ + col0, a.dst, q0, a.Tq, a.d - col0);
+      load_rows<BQ>(lse_s, a.lse + rbase, q0, a.Tq);
+      load_rows<BQ>(delta_s, a.delta + rbase, q0, a.Tq);
+      __syncthreads();
+
+      p_ds_cols(s, dpv, lse_s, delta_s, key, q0, t, a);
+      dkv_product<CHUNK, L::LDT>(dk, dv, s, dpv, Qt, dOt, g, t);  // over this block's columns
+    }
+  }
+  store_dkv<CHUNK>(dk, dv, key, col0, kvh, b, t, a);
+}
+
+// Float32, d > 256: 32-row tiles. Thread i accumulates S and dP at the
+// pairs (i / 32 + 4 j, i % 32), j < 8, over the slices, and owns row i / 4
+// of its gradients at columns [32 (i % 4), 32 (i % 4) + 32) of the chunk,
+// in registers.
+struct F32WideLayout {
+  static constexpr int R = F32_WIDE_R;
+  static constexpr int LDT = F32_SLICE + 4;  // the four slices
+  static constexpr int LDC = CHUNK + 4;      // chunks of K (dq) or of Q and dO (dkv)
+  static constexpr int LDS = R + 4;          // dS (dq) or P^T and dS^T (dkv)
+  static constexpr size_t bytes = sizeof(float) * (size_t)(4 * R * LDT + 2 * R * LDC + 2 * R * LDS + 2 * R);
+};
+static_assert(F32WideLayout::bytes <= hopper::SMEM_PER_BLOCK, "one block of the chunked route at every d");
+
+// S (or S^T) and dP (or dP^T) at this thread's pairs, over d in slices:
+// rows of A1, A2 against rows of B1, B2 (as products_by_slices).
+__device__ __forceinline__ void f32_products_by_slices(float* s, float* dp, float* A1s, float* A2s,
+                                                       float* B1s, float* B2s, const float* a1,
+                                                       const float* a2, long long sa1, long long sa2,
+                                                       int row0a, int na, const float* b1,
+                                                       const float* b2, long long sb1, long long sb2,
+                                                       int row0b, int nb, int d) {
+  constexpr int R = F32WideLayout::R, LDT = F32WideLayout::LDT, NP = R * R / THREADS;
+#pragma unroll
+  for (int j = 0; j < NP; ++j) s[j] = dp[j] = 0.f;
+  for (int c = 0; c < d; c += F32_SLICE) {
+    __syncthreads();
+    load_tile<float, F32_SLICE, R>(A1s, LDT, a1 + c, sa1, row0a, na, d - c);
+    load_tile<float, F32_SLICE, R>(A2s, LDT, a2 + c, sa2, row0a, na, d - c);
+    load_tile<float, F32_SLICE, R>(B1s, LDT, b1 + c, sb1, row0b, nb, d - c);
+    load_tile<float, F32_SLICE, R>(B2s, LDT, b2 + c, sb2, row0b, nb, d - c);
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < NP; ++j) {
+      const int i = threadIdx.x + THREADS * j;
+      const float* x1 = A1s + (i / R) * LDT;
+      const float* x2 = A2s + (i / R) * LDT;
+      const float* y1 = B1s + (i % R) * LDT;
+      const float* y2 = B2s + (i % R) * LDT;
+#pragma unroll 16
+      for (int e = 0; e < F32_SLICE; ++e) {
+        s[j] = fmaf(x1[e], y1[e], s[j]);
+        dp[j] = fmaf(x2[e], y2[e], dp[j]);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS) flash_bwd_dq_f32_wide_kernel(Args a) {
+  using L = F32WideLayout;
+  constexpr int R = L::R, NP = R * R / THREADS, TPR = THREADS / R, GPT = CHUNK / TPR;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* dOs = Qs + R * L::LDT;
+  float* Ks = dOs + R * L::LDT;
+  float* Vs = Ks + R * L::LDT;
+  float* Kc = Vs + R * L::LDT;
+  float* dS = Kc + 2 * R * L::LDC;
+  float* lse_s = dS + 2 * R * L::LDS;
+  float* delta_s = lse_s + R;
+
+  const int n_cc = (a.d + CHUNK - 1) / CHUNK;
+  const int qt = blockIdx.x / n_cc, col0 = (blockIdx.x % n_cc) * CHUNK;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / a.G;
+  const int q0 = qt * R;
+  const int tid = threadIdx.x;
+  const int own = tid / TPR, part = tid % TPR;
+  const float* qp = static_cast<const float*>(a.q) + b * a.qsb + h * a.qsh;
+  const float* dp_ = static_cast<const float*>(a.dout) + b * a.dsb + h * a.dsh;
+  const float* kp = static_cast<const float*>(a.k) + b * a.ksb + kvh * a.ksh;
+  const float* vp = static_cast<const float*>(a.v) + b * a.vsb + kvh * a.vsh;
+  const long long rbase = ((long long)b * a.H + h) * a.Tp;
+  load_rows<R>(lse_s, a.lse + rbase, q0, a.Tq);
+  load_rows<R>(delta_s, a.delta + rbase, q0, a.Tq);
+
+  float acc[GPT];
+#pragma unroll
+  for (int j = 0; j < GPT; ++j) acc[j] = 0.f;
+  int n_tiles = (a.Tk + R - 1) / R;
+  if (a.causal) n_tiles = min(n_tiles, (q0 + R - 1) / R + 1);
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * R;
+    float s[NP], dp[NP];
+    f32_products_by_slices(s, dp, Qs, dOs, Ks, Vs, qp, dp_, a.qst, a.dst, q0, a.Tq, kp, vp, a.kst,
+                           a.vst, k0, a.Tk, a.d);
+#pragma unroll
+    for (int j = 0; j < NP; ++j) {
+      const int i = tid + THREADS * j, r = i / R, c = i % R;
+      const int key = k0 + c;
+      float sv = s[j] * a.scale;
+      if (key >= a.Tk || (a.causal && key > q0 + r)) sv = NEG_INF;
+      const float p = expf(sv - lse_s[r]);
+      dS[r * L::LDS + c] = p * (dp[j] - delta_s[r]) * a.scale;
+    }
+    load_tile<float, CHUNK, R>(Kc, L::LDC, kp + col0, a.kst, k0, a.Tk, a.d - col0);
+    __syncthreads();
+    const float* sr = dS + own * L::LDS;
+    for (int c = 0; c < R; ++c) {
+      const float sv = sr[c];
+      const float* kr = Kc + c * L::LDC + part * GPT;
+#pragma unroll
+      for (int j = 0; j < GPT; ++j) acc[j] = fmaf(sv, kr[j], acc[j]);
+    }
+  }
+
+  if (q0 + own < a.Tq) {
+    float* dq = static_cast<float*>(a.dq) + (((long long)b * a.Tq + q0 + own) * a.H + h) * a.d;
+#pragma unroll
+    for (int j = 0; j < GPT; ++j) {
+      const int c = col0 + part * GPT + j;
+      if (c < a.d) dq[c] = acc[j];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS) flash_bwd_dkv_f32_wide_kernel(Args a) {
+  using L = F32WideLayout;
+  constexpr int R = L::R, NP = R * R / THREADS, TPR = THREADS / R, GPT = CHUNK / TPR;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Ks = reinterpret_cast<float*>(smem);
+  float* Vs = Ks + R * L::LDT;
+  float* Qs = Vs + R * L::LDT;
+  float* dOs = Qs + R * L::LDT;
+  float* Qc = dOs + R * L::LDT;
+  float* dOc = Qc + R * L::LDC;
+  float* Pt = dOc + R * L::LDC;
+  float* dSt = Pt + R * L::LDS;
+  float* lse_s = dSt + R * L::LDS;
+  float* delta_s = lse_s + R;
+
+  const int n_cc = (a.d + CHUNK - 1) / CHUNK;
+  const int kt = blockIdx.x / n_cc, col0 = (blockIdx.x % n_cc) * CHUNK;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int k0 = kt * R;
+  const int tid = threadIdx.x;
+  const int own = tid / TPR, part = tid % TPR;
+  const float* kp = static_cast<const float*>(a.k) + b * a.ksb + kvh * a.ksh;
+  const float* vp = static_cast<const float*>(a.v) + b * a.vsb + kvh * a.vsh;
+  float dk[GPT], dv[GPT];
+#pragma unroll
+  for (int j = 0; j < GPT; ++j) dk[j] = dv[j] = 0.f;
+
+  const int n_qt = (a.Tq + R - 1) / R;
+  const int qt0 = a.causal ? k0 / R : 0;
+  for (int gi = 0; gi < a.G; ++gi) {
+    const int h = kvh * a.G + gi;
+    const float* qp = static_cast<const float*>(a.q) + b * a.qsb + h * a.qsh;
+    const float* dp_ = static_cast<const float*>(a.dout) + b * a.dsb + h * a.dsh;
+    const long long rbase = ((long long)b * a.H + h) * a.Tp;
+    for (int qt = qt0; qt < n_qt; ++qt) {
+      const int q0 = qt * R;
+      float s[NP], dp[NP];  // key i / 32 + 4 j, query i % 32
+      f32_products_by_slices(s, dp, Ks, Vs, Qs, dOs, kp, vp, a.kst, a.vst, k0, a.Tk, qp, dp_, a.qst,
+                             a.dst, q0, a.Tq, a.d);
+      load_tile<float, CHUNK, R>(Qc, L::LDC, qp + col0, a.qst, q0, a.Tq, a.d - col0);
+      load_tile<float, CHUNK, R>(dOc, L::LDC, dp_ + col0, a.dst, q0, a.Tq, a.d - col0);
+      load_rows<R>(lse_s, a.lse + rbase, q0, a.Tq);
+      load_rows<R>(delta_s, a.delta + rbase, q0, a.Tq);
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < NP; ++j) {
+        const int i = tid + THREADS * j, r = i / R, c = i % R;
+        const int qpos = q0 + c;
+        float sv = s[j] * a.scale;
+        if (qpos >= a.Tq || (a.causal && k0 + r > qpos)) sv = NEG_INF;
+        const float p = expf(sv - lse_s[c]);
+        Pt[r * L::LDS + c] = p;
+        dSt[r * L::LDS + c] = p * (dp[j] - delta_s[c]) * a.scale;
+      }
+      __syncthreads();
+      const float* pr = Pt + own * L::LDS;
+      const float* sr = dSt + own * L::LDS;
+      for (int c = 0; c < R; ++c) {
+        const float pv = pr[c], sv = sr[c];
+        const float* dr = dOc + c * L::LDC + part * GPT;
+        const float* qr = Qc + c * L::LDC + part * GPT;
+#pragma unroll
+        for (int j = 0; j < GPT; ++j) {
+          dv[j] = fmaf(pv, dr[j], dv[j]);
+          dk[j] = fmaf(sv, qr[j], dk[j]);
+        }
+      }
+    }
+  }
+
+  if (k0 + own < a.Tk) {
+    const long long off = (((long long)b * a.Tk + k0 + own) * a.KV + kvh) * a.d;
+    float* dkp = static_cast<float*>(a.dk) + off;
+    float* dvp = static_cast<float*>(a.dv) + off;
+#pragma unroll
+    for (int j = 0; j < GPT; ++j) {
+      const int c = col0 + part * GPT + j;
+      if (c < a.d) {
+        dkp[c] = dk[j];
+        dvp[c] = dv[j];
+      }
+    }
+  }
+}
+
+// The chunked route: ceil(d / CHUNK) blocks a tile. parts as in launch.
+int launch_wide(const Args& a, int B, int is_bf16, int parts, cudaStream_t stream) {
+  const int rows = is_bf16 ? BQ : F32_WIDE_R;
+  const int n_cc = (a.d + CHUNK - 1) / CHUNK;
+  const dim3 dq_grid((a.Tq + rows - 1) / rows * n_cc, a.H, B);
+  const dim3 dkv_grid((a.Tk + rows - 1) / rows * n_cc, a.KV, B);
+  int err = 0;
+  if (parts & 1) {
+    err = is_bf16 ? launch_one(flash_bwd_dq_mma_wide_kernel, DqWideLayout::bytes, dq_grid, a, stream)
+                  : launch_one(flash_bwd_dq_f32_wide_kernel, F32WideLayout::bytes, dq_grid, a, stream);
+    if (err != 0) return err;
+  }
+  if (parts & 2) {
+    err = is_bf16 ? launch_one(flash_bwd_dkv_mma_wide_kernel, DkvWideLayout::bytes, dkv_grid, a, stream)
+                  : launch_one(flash_bwd_dkv_f32_wide_kernel, F32WideLayout::bytes, dkv_grid, a, stream);
+  }
+  return err;
+}
 
 // ------------------------------------------ bf16, D 64 / 128: wgmma + TMA
 
@@ -1301,7 +1737,8 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* dout, con
     case 96: return launch<96>(a, B, is_bf16, parts, s);
     case 128: return launch<128>(a, B, is_bf16, parts, s);
     case 256: return launch<256>(a, B, is_bf16, parts, s);
-    default: return (int)cudaErrorInvalidValue;  // D < 1 or D > MAX_HEAD_DIM
+    default: return D > hopper::WIDEST_NATIVE ? launch_wide(a, B, is_bf16, parts, s)
+                                              : (int)cudaErrorInvalidValue;  // D < 1
   }
 }
 
@@ -1318,7 +1755,7 @@ extern "C" int dml_flash_bwd_rows(const void* out, const void* dout, const void*
   if (B <= 0 || Tq <= 0) return 0;
   const int vec = is_bf16 ? 8 : 4;
   const int chunks = (D + vec - 1) / vec;
-  if (Tp % 128 != 0 || Tp < Tq || D < 1 || D > hopper::MAX_HEAD_DIM) return (int)cudaErrorInvalidValue;
+  if (Tp % 128 != 0 || Tp < Tq || D < 1) return (int)cudaErrorInvalidValue;
   int lanes = 2;  // at least 2, so that Tp * lanes is a multiple of 256
   while (lanes < chunks && lanes < 32) lanes *= 2;
   RowArgs r{out, dout, static_cast<const float*>(lse), static_cast<const float*>(glse),
@@ -1336,8 +1773,8 @@ extern "C" int dml_flash_bwd_rows(const void* out, const void* dout, const void*
 
 // dq, dk and dv given the row arrays, on the kernels for (dtype, D): wgmma
 // + TMA for bf16 at D 64 and 128, mma.sync for bf16 at every other D, FMAs
-// for float32, each at the native width >= D (1 <= D <= 256;
-// cudaErrorInvalidValue past it). parts: 1 = the dq kernel, 2 = the dkv
+// for float32, each at the native width >= D up to 256 and on the chunked
+// route past it (cudaErrorInvalidValue at D < 1). parts: 1 = the dq kernel, 2 = the dkv
 // kernel, 3 = both.
 extern "C" int dml_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse_r, const void* delta_r,

@@ -20,18 +20,21 @@ namespace {
 namespace hopper {
 
 constexpr int ROW_BYTES = 128;  // one swizzle row: 64 bf16
+constexpr size_t SMEM_PER_BLOCK = 227 * 1024;  // an H100 block's dynamic shared memory at most
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 // The head dims the flash kernels are instantiated at. A head dim d runs
 // on the least of them at or above d: its columns past d are read as zeros
 // (zero columns change neither Q K^T nor P V) and never written. Past
-// MAX_HEAD_DIM there is no kernel (0): the forward's O accumulator alone
-// is D / 2 float32 registers a thread for 64 query rows on 128 threads.
-constexpr int MAX_HEAD_DIM = 256;
+// WIDEST_NATIVE native_head_dim is 0: no block holds a whole row of d
+// there (the forward's O accumulator alone would be d / 2 float32
+// registers a thread for 64 query rows on 128 threads), so such a d takes
+// the chunked route (each source's launch_wide), d a run-time argument.
+constexpr int WIDEST_NATIVE = 256;
 __host__ __device__ constexpr int native_head_dim(int d) {
   return d < 1 ? 0 : d <= 16 ? 16 : d <= 32 ? 32 : d <= 48 ? 48 : d <= 64 ? 64 : d <= 80 ? 80
-       : d <= 96 ? 96 : d <= 128 ? 128 : d <= MAX_HEAD_DIM ? MAX_HEAD_DIM : 0;
+       : d <= 96 ? 96 : d <= 128 ? 128 : d <= WIDEST_NATIVE ? WIDEST_NATIVE : 0;
 }
 
 // Columns c and c + 1 of a bf16 output row of d columns: the pair as one

@@ -49,7 +49,7 @@ import torch.nn.functional as F
 
 from ..models.lm_params import resolve_device
 from ..models.transformer import rms_norm as _rms_norm
-from ..models.transformer import apply_rope, rope_tables, silu
+from ..models.transformer import RMS_EPS, apply_rope, rope_tables, silu  # noqa: F401  (RMS_EPS: the JAX module's public name)
 from ..ops.decode_attention import decode_attention
 from ..ops.flash_attention import flash_attention
 from .quantize import is_quantized, kernel_of

@@ -31,6 +31,7 @@ from ..ops.flash_attention import reference_attention
 from .lm_params import is_moe_block
 
 RMS_EPS = 1e-6  # flax nn.RMSNorm default, as used by TransformerLM
+AttentionFn = Callable[..., torch.Tensor]  # (q, k, v, causal=...) -> out
 
 
 def rope_tables(positions: torch.Tensor, d: int, base: float = 10000.0):
@@ -113,7 +114,7 @@ class Embed(nn.Module):
 
 class Block(nn.Module):
     def __init__(self, d_model: int, n_heads: int, d_ff: int,
-                 attention: Callable[..., torch.Tensor], dtype: torch.dtype = torch.bfloat16,
+                 attention: AttentionFn, dtype: torch.dtype = torch.bfloat16,
                  n_kv_heads: Optional[int] = None, num_experts: int = 0,
                  capacity_factor: float = 1.25, mesh=None):
         super().__init__()
@@ -166,7 +167,7 @@ class TransformerLM(nn.Module):
 
     def __init__(self, vocab_size: int = 32_000, d_model: int = 512, n_heads: int = 8,
                  n_layers: int = 6, d_ff: int = 2048,
-                 attention: Optional[Callable[..., torch.Tensor]] = None,
+                 attention: Optional[AttentionFn] = None,
                  dtype: torch.dtype = torch.bfloat16, n_kv_heads: Optional[int] = None,
                  num_experts: int = 0, moe_every: int = 2, capacity_factor: float = 1.25,
                  mesh=None):

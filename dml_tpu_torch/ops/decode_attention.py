@@ -16,11 +16,12 @@ tensor it runs the plain version, `decode_attention_plain`: the float32
 einsum of `dml_tpu/inference/generate.py::batched_decode_step`
 (`:369-376`), which is also what the JAX package runs off the TPU. Every
 cache form goes to the kernel on CUDA (bf16, f32, int8; MHA, GQA, MQA):
-there is no switch, and every head dim 1 <= D <= 256 and every group G =
-H / KV launches it (the JAX kernel asks only that KV divide H; past D
-256 it raises, naming the limit). `split_plan` sizes the grid; it is a
-pure function of the shapes and the SM count, so the CPU tests hold it
-to its rules.
+there is no switch, and every head dim D >= 1 and every group G = H / KV
+launches it, as the JAX kernel takes them (it asks only that KV divide
+H): up to a row of 256 the kernel holds a lane's share of each row in
+registers; past it, `decode_wide_kernel` takes the row in slices of
+WIDE_SLICE columns. `split_plan` sizes the grid; it is a pure function
+of the shapes and the SM count, so the CPU tests hold it to its rules.
 """
 
 from __future__ import annotations
@@ -32,12 +33,17 @@ from typing import NamedTuple, Optional
 import torch
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 256    # the widest cache row the kernel reads
 MAX_CHUNK_HEADS = 16  # query heads one block takes: a kv head's G heads go in chunks of at most this
-#: a row of D elements is read at the least of these >= D, the lanes or
-#: elements past D idle (`decode_kernel` where D is a width of 64 or more,
-#: `decode_general_kernel` for every other D)
+#: a row of D <= 256 elements is read at the least of these >= D, the
+#: lanes or elements past D idle (`decode_kernel` where D is a width of 64
+#: or more, `decode_general_kernel` for every other D)
 ROW_WIDTHS = (16, 32, 64, 128, 256)
+#: past the widest row width (`decode_wide_kernel`): q's columns a block
+#: holds at a time, and the rows a block takes at most (their scores stay
+#: in shared memory)
+WIDE_SLICE = 512
+WIDE_MAX_CHUNK = 512
+WIDE_MERGE_BYTES = 1 << 20  # partials of one plane, read by its last block (D > 256)
 _CACHE_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 # the one-launch kernel's plan (mirrors csrc/decode_attention.cu)
@@ -96,18 +102,18 @@ class Plan(NamedTuple):
     n_split: int        # blocks along T per (b, kv, head chunk)
     smem_bytes: int     # dynamic shared memory per block
     blocks_per_sm: int  # blocks an SM holds at once at that size
-    width: int          # the row width the kernel instance reads (>= D)
+    width: int          # the row width the kernel instance reads (>= D), or past 256 its slice
     n_hc: int           # head chunks per kv head
     gc: int             # query heads per chunk (the last may hold fewer)
 
 
 def row_width(d: int) -> int:
     """The kernel instance for head dim d: the least of ROW_WIDTHS >= d;
-    raises past MAX_HEAD_DIM."""
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"no decode attention kernel at head_dim {d}: "
-                         f"the kernel takes 1 <= head_dim <= {MAX_HEAD_DIM}")
-    return next(w for w in ROW_WIDTHS if w >= d)
+    past the widest, WIDE_SLICE (`decode_wide_kernel` takes the row in
+    slices of that many columns). Raises below 1."""
+    if d < 1:
+        raise ValueError(f"no decode attention kernel at head_dim {d}: the kernel takes head_dim >= 1")
+    return next((w for w in ROW_WIDTHS if w >= d), WIDE_SLICE)
 
 
 def group_heads(itemsize: int, width: int) -> int:
@@ -132,7 +138,11 @@ def bulk_rows(d: int, itemsize: int) -> bool:
 
 
 def smem_bytes(chunk: int, d: int, itemsize: int, quantized: bool) -> int:
-    """Dynamic shared memory of one block: csrc/decode_attention.cu::layout."""
+    """Dynamic shared memory of one block: csrc/decode_attention.cu::layout
+    (::wide_layout past a row of 256: the q slice, the scores and m, l of
+    16 heads, the ticket's flag)."""
+    if d > ROW_WIDTHS[-1]:
+        return MAX_CHUNK_HEADS * WIDE_SLICE * 4 + chunk * MAX_CHUNK_HEADS * 4 + 2 * MAX_CHUNK_HEADS * 4 + 16
     width = row_width(d)
     gt = group_heads(itemsize, width)
     # K and V spans 128-byte aligned, + the offset of a span that is not
@@ -156,11 +166,18 @@ def split_plan(b: int, kv: int, t: int, d: int, g: int, itemsize: int, quantized
     a chunk's partials (gc * D floats a split, D rounded up to 4) within
     MERGE_BYTES, which its last block reads alone. When even the fewest
     splits the byte budget allows overflow one wave (long contexts at
-    large B * KV), the plan takes those fewest."""
+    large B * KV), the plan takes those fewest. Past a row of 256
+    (`decode_wide_kernel`, whose rows go from memory to registers, not
+    through shared memory) a block takes at most WIDE_MAX_CHUNK rows and
+    the partials' budget is WIDE_MERGE_BYTES."""
     width = row_width(d)
     n_hc, gc = head_chunks(g)
+    wide = d > ROW_WIDTHS[-1]
     row = 2 * d * itemsize + (8 if quantized else 0)
-    max_rows = min(MAX_CHUNK, CHUNK_BYTES // row // SUB_ROWS * SUB_ROWS)
+    if wide:
+        max_rows = WIDE_MAX_CHUNK
+    else:
+        max_rows = min(MAX_CHUNK, CHUNK_BYTES // row // SUB_ROWS * SUB_ROWS)
     min_split = -(-t // max_rows)
 
     def per_sm(chunk):
@@ -168,8 +185,9 @@ def split_plan(b: int, kv: int, t: int, d: int, g: int, itemsize: int, quantized
 
     slots = n_sm * per_sm(max_rows)  # at the largest block: conservative
     dpad = -(-d // 4) * 4
+    merge = WIDE_MERGE_BYTES if wide else MERGE_BYTES
     want = max(min_split, min(slots // (b * kv * n_hc), -(-t // SUB_ROWS), MAX_SPLIT,
-                              max(1, MERGE_BYTES // (gc * dpad * 4))))
+                              max(1, merge // (gc * dpad * 4))))
     chunk = -(-(-(-t // want)) // SUB_ROWS) * SUB_ROWS
     n_split = -(-t // chunk)
     return Plan(chunk, n_split, smem_bytes(chunk, d, itemsize, quantized), per_sm(chunk),
@@ -200,7 +218,7 @@ def _decode_cuda(q, k, v, pos, k_scale, v_scale, scale):
     b, _, h, d = q.shape
     kv, t = k.shape[1], k.shape[2]
     g = h // kv
-    row_width(d)  # raises past MAX_HEAD_DIM, naming the limit
+    row_width(d)  # raises at D < 1
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     tensors = [q, k, v, pos] + ([k_scale, v_scale] if k_scale is not None else [])

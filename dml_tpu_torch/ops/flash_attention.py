@@ -13,11 +13,14 @@ bf16 at D 64 and 128, every main-path shape, runs warp-specialized
 kernels (a TMA producer streaming tiles through a shared-memory ring,
 consumer warpgroups on `wgmma`, P and dS kept in registers); bf16 at
 every other D runs `mma.sync` kernels; float32 runs plain FMAs. The
-kernels take every head dim 1 <= D <= 256 (the JAX kernels' full-D
-block takes any D; past 256 the forward's accumulator alone would need
-D / 2 float32 registers a thread, so there they raise): a D runs on the
-least native width >= D (`NATIVE_HEAD_DIMS`), its columns past D read as
-zeros and never written, which is exact. The backward keeps the TPU's
+kernels take every head dim D >= 1, as the JAX kernels' full-D block
+does: a D up to 256 runs on the least native width >= D
+(`NATIVE_HEAD_DIMS`), its columns past D read as zeros and never
+written, which is exact. Past 256 no block holds a whole row (the
+forward's accumulator alone would need D / 2 float32 registers a
+thread), so the chunked route splits the output's columns over a grid
+axis (FWD_CHUNK columns a block forward, BWD_CHUNK backward), each block reducing Q K^T (and dO V^T) over the whole of D in
+slices staged through shared memory. The backward keeps the TPU's
 two-kernel split (dq over k-tiles, dk and dv over q-tiles, no atomics),
 after a small kernel that computes delta = rowsum(dO * O) and pads the
 row arrays the two read. The source files say what bounds each kernel
@@ -61,7 +64,10 @@ NEG_INF = -1e30
 #: the widths the kernels are built at (csrc/hopper.cuh::native_head_dim):
 #: a head dim D runs on the least of them >= D
 NATIVE_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 128, 256)
-MAX_HEAD_DIM = NATIVE_HEAD_DIMS[-1]
+#: past the widest native width, the chunked route's output columns a
+#: block (csrc/flash_attention.cu::CHUNK, csrc/flash_attention_bwd.cu::CHUNK)
+FWD_CHUNK = 256
+BWD_CHUNK = 128
 _DTYPES = (torch.bfloat16, torch.float32)
 
 #: kernel launches since the last reset (plain ints; a test or
@@ -93,31 +99,36 @@ def _library() -> ctypes.CDLL:
 
 
 class Route(NamedTuple):
-    kind: str   # "wgmma+tma", "mma.sync" or "fma"
-    width: int  # the native head dim the kernel runs at (>= D)
+    kind: str   # "wgmma+tma", "mma.sync", "fma", or past 256 "mma.sync chunked", "fma chunked"
+    width: int  # the native head dim the kernel runs at (>= D), or past 256 its column chunk
 
 
-def native_head_dim(head_dim: int) -> int:
-    """The least native width >= head_dim, as the C entry points pick it;
-    raises past MAX_HEAD_DIM."""
-    if not 1 <= head_dim <= MAX_HEAD_DIM:
+def native_head_dim(head_dim: int, backward: bool = False) -> int:
+    """The columns one block computes, as the C entry points pick them:
+    the least native width >= head_dim, or past the widest the chunked
+    route's column chunk of that direction (FWD_CHUNK, BWD_CHUNK). Raises
+    below 1."""
+    if head_dim < 1:
         raise ValueError(f"no flash attention kernel at head_dim {head_dim}: "
-                         f"the kernels take 1 <= head_dim <= {MAX_HEAD_DIM}")
+                         "the kernels take head_dim >= 1")
+    if head_dim > NATIVE_HEAD_DIMS[-1]:
+        return BWD_CHUNK if backward else FWD_CHUNK
     return next(w for w in NATIVE_HEAD_DIMS if w >= head_dim)
 
 
-def kernel_route(dtype: torch.dtype, head_dim: int) -> Route:
+def kernel_route(dtype: torch.dtype, head_dim: int, backward: bool = False) -> Route:
     """The kernels that `dml_flash_fwd` and `dml_flash_bwd` launch for
     (dtype, D), as the C entry points pick them, and the width they run
-    at: "wgmma+tma"
-    for bf16 at D 64 and 128, "mma.sync" for bf16 at every other D,
-    "fma" for float32, each at `native_head_dim(D)`."""
+    at: "wgmma+tma" for bf16 at D 64 and 128, "mma.sync" for bf16 at
+    every other D up to 256, "fma" for float32, each at
+    `native_head_dim(D)`; past 256 the chunked route ("mma.sync chunked",
+    "fma chunked") at its column chunk (`backward` picks the backward's)."""
     if dtype not in _DTYPES:
         raise ValueError(f"no flash attention kernel for {dtype} at head_dim {head_dim}")
-    width = native_head_dim(head_dim)
-    if dtype == torch.float32:
-        return Route("fma", width)
-    return Route("wgmma+tma" if head_dim in (64, 128) else "mma.sync", width)
+    width = native_head_dim(head_dim, backward)
+    kind = "fma" if dtype == torch.float32 else (
+        "wgmma+tma" if head_dim in (64, 128) else "mma.sync")
+    return Route(kind + " chunked" if head_dim > NATIVE_HEAD_DIMS[-1] else kind, width)
 
 
 def _bwd_library() -> ctypes.CDLL:
@@ -288,7 +299,7 @@ def _kernel_view(x: torch.Tensor) -> torch.Tensor:
 
 
 def _check_cuda(q, k, v):
-    native_head_dim(q.shape[3])  # raises past MAX_HEAD_DIM, naming the limit
+    native_head_dim(q.shape[3])  # raises at D < 1
     if not (k.device == v.device == q.device):
         raise ValueError("q, k and v must be on one device")
 
@@ -329,7 +340,7 @@ def _bwd_rows_cuda(out, dout, lse, dlse):
     (lse_r, delta_r) of `bwd_rows_plain`. Counts one launch."""
     global flash_bwd_delta_launches
     b, tq, h, d = out.shape
-    native_head_dim(d)  # raises past MAX_HEAD_DIM, naming the limit
+    native_head_dim(d)  # raises at D < 1
     if dout.shape != out.shape or dout.dtype != out.dtype or dout.device != out.device:
         raise ValueError(f"dout {dout.dtype} {tuple(dout.shape)} does not fit out {out.dtype} {tuple(out.shape)}")
     rows = [lse] + ([] if dlse is None else [dlse])

@@ -180,12 +180,19 @@ def test_bwd_kernel_route_by_dtype_and_head_dim(dtype, d, route):
     assert fa.kernel_route(dtype, d) == route
 
 
-def test_kernel_route_refuses_what_no_kernel_takes():
-    for d in (0, fa.MAX_HEAD_DIM + 1):
+# D 0 and float16 have no kernel; a D past the widest native width (257)
+# takes the chunked route in both directions
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 0, None), (torch.float16, 64, None),
+    (torch.bfloat16, 257, ("mma.sync chunked", 256)),
+], ids=["d0", "float16", "d257"])
+def test_kernel_route_refuses_what_no_kernel_takes(dtype, d, route):
+    if route is None:
         with pytest.raises(ValueError, match="no flash attention kernel"):
-            fa.kernel_route(torch.bfloat16, d)
-    with pytest.raises(ValueError, match="no flash attention kernel"):
-        fa.kernel_route(torch.float16, 64)
+            fa.kernel_route(dtype, d)
+    else:
+        assert fa.kernel_route(dtype, d) == route
+        assert fa.kernel_route(dtype, d, backward=True) == ("mma.sync chunked", 128)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

@@ -20,7 +20,8 @@ same plain versions on the card (chip_smoke.py, phases 6, 7, 9 and 24).
   on one G per D its Pallas kernel in interpret mode (f32 and int8).
 - The route tables: every D in 1..256 gets a native width >= D from
   `kernel_route` (the forward's and the backward's rule) and the decode
-  plan; 257 raises.
+  plan; D 0 raises, and 257 takes the chunked route (every D past 256:
+  tests/test_torch_wide_heads.py).
 
 The path that runs these head dims (ShardLM and its draft served in
 bfloat16, LongContextLM trained at D 96 and 48) is held to the JAX
@@ -192,33 +193,46 @@ def test_decode_matches_jax_at_every_head_dim_and_group(d, cache, g):
 # ----------------------------------------------------------------------
 
 
-def test_routes_give_a_native_width_for_every_head_dim_and_raise_past_256():
-    for d in range(1, 257):
-        for dtype in (torch.float32, torch.bfloat16):
-            route = fa.kernel_route(dtype, d)
-            assert route.width == min(w for w in fa.NATIVE_HEAD_DIMS if w >= d)
-            if dtype == torch.float32:
-                assert route.kind == "fma"
-            else:
-                assert route.kind == ("wgmma+tma" if d in (64, 128) else "mma.sync")
-        for itemsize, quantized in ((4, False), (2, False), (1, True)):
-            plan = da.split_plan(2, 1, 100, d, 71, itemsize, quantized, 132)
-            assert plan.width == min(w for w in da.ROW_WIDTHS if w >= d)
-            assert (plan.n_hc, plan.gc) == (5, 15) and plan.smem_bytes <= 227 << 10
-    with pytest.raises(ValueError, match="head_dim <= 256"):
-        fa.kernel_route(torch.bfloat16, 257)
-    with pytest.raises(ValueError, match="head_dim <= 256"):
-        da.split_plan(1, 1, 100, 257, 1, 2, False, 132)
-    # past 256 the wrappers raise before any launch, naming the limit
-    with pytest.raises(ValueError, match="head_dim <= 256"):
-        fa._flash_cuda(*(torch.zeros((1, 4, 1, 257)),) * 3, True, 1.0)
-    with pytest.raises(ValueError, match="head_dim <= 256"):
-        da._decode_cuda(torch.zeros((1, 1, 1, 257)), torch.zeros((1, 1, 4, 257)),
-                        torch.zeros((1, 1, 4, 257)), torch.zeros(1, dtype=torch.int32), None, None, 1.0)
-    # a row that is not whole 16-byte units (bf16 D 20 at one head) is
-    # copied with zero columns to D 24; the kernels' strides need it
-    x = torch.randn((1, 3, 1, 20)).bfloat16()
-    view = fa._kernel_view(x)
-    assert view.shape == (1, 3, 1, 24) and torch.equal(view[..., :20], x)
-    assert not view[..., 20:].any() and view.stride(2) * 2 % 16 == 0
-    assert fa._kernel_view(torch.randn((1, 3, 2, 48)).bfloat16()).shape[-1] == 48
+@pytest.mark.parametrize("case", ["native_widths", "d0_raises", "d257_routes", "padded_copy"])
+def test_routes_give_a_native_width_for_every_head_dim_and_raise_past_256(case):
+    # the test's name is older than the chunked route: past 256 a head dim
+    # now routes (case d257_routes), and D 0 is what raises
+    if case == "native_widths":
+        for d in range(1, 257):
+            for dtype in (torch.float32, torch.bfloat16):
+                route = fa.kernel_route(dtype, d)
+                assert route.width == min(w for w in fa.NATIVE_HEAD_DIMS if w >= d)
+                if dtype == torch.float32:
+                    assert route.kind == "fma"
+                else:
+                    assert route.kind == ("wgmma+tma" if d in (64, 128) else "mma.sync")
+            for itemsize, quantized in ((4, False), (2, False), (1, True)):
+                plan = da.split_plan(2, 1, 100, d, 71, itemsize, quantized, 132)
+                assert plan.width == min(w for w in da.ROW_WIDTHS if w >= d)
+                assert (plan.n_hc, plan.gc) == (5, 15) and plan.smem_bytes <= 227 << 10
+    elif case == "d0_raises":
+        with pytest.raises(ValueError, match="head_dim >= 1"):
+            fa.kernel_route(torch.bfloat16, 0)
+        with pytest.raises(ValueError, match="head_dim >= 1"):
+            da.split_plan(1, 1, 100, 0, 1, 2, False, 132)
+        # the wrappers raise before any launch, naming the domain
+        with pytest.raises(ValueError, match="head_dim >= 1"):
+            fa._flash_cuda(*(torch.zeros((1, 4, 1, 0)),) * 3, True, 1.0)
+        with pytest.raises(ValueError, match="head_dim >= 1"):
+            da._decode_cuda(torch.zeros((1, 1, 1, 0)), torch.zeros((1, 1, 4, 0)),
+                            torch.zeros((1, 1, 4, 0)), torch.zeros(1, dtype=torch.int32), None, None, 1.0)
+    elif case == "d257_routes":
+        assert fa.kernel_route(torch.bfloat16, 257) == ("mma.sync chunked", fa.FWD_CHUNK)
+        assert fa.kernel_route(torch.float32, 257, backward=True) == ("fma chunked", fa.BWD_CHUNK)
+        plan = da.split_plan(1, 1, 100, 257, 1, 2, False, 132)
+        assert plan.width == da.WIDE_SLICE and plan.smem_bytes <= 227 << 10
+    else:
+        # a row that is not whole 16-byte units (bf16 D 20 at one head) is
+        # copied with zero columns to D 24; the kernels' strides need it
+        x = torch.randn((1, 3, 1, 20)).bfloat16()
+        view = fa._kernel_view(x)
+        assert view.shape == (1, 3, 1, 24) and torch.equal(view[..., :20], x)
+        assert not view[..., 20:].any() and view.stride(2) * 2 % 16 == 0
+        assert fa._kernel_view(torch.randn((1, 3, 2, 48)).bfloat16()).shape[-1] == 48
+        # and past 256 the same (bf16 D 257 to 264)
+        assert fa._kernel_view(torch.randn((1, 3, 1, 257)).bfloat16()).shape[-1] == 264
