@@ -85,7 +85,14 @@ script started); any failure exits non-zero:
    head), ShardLM's D 96 and its draft's D 48 in both dtypes, a D-80
    target's D-40 draft in both, the JAX tests' D 8 in both, an odd D 20
    at one head (the wrapper's zero-padded copy, timed alone beside the
-   call as `copy_ms`) and D 200 cross attention (checked only); past 256
+   call as `copy_ms`), D 200 cross attention, D 56 at the LM's B=8
+   prefill shape (GQA-4) and D 256 GQA-4 at [2,1024,16,256] (the three
+   checked only) and MHA at D 256; every
+   bf16 case at 48 < D <= 256 with D % 8 == 0 names the wgmma + TMA
+   route and its width (64, 128 or 256) and shows, from one
+   torch.profiler trace of all such cases (three calls each), that
+   `flash_fwd_wgmma_kernel` at that width ran (with three consumers at
+   D 56); past 256
    (`WIDE_FLASH_CASES`, the chunked route) phase 25's wide-head LM (D 512
    on 2 heads over 1, its B=8 prefill in both dtypes and its training
    shape), the absorbed form of multi-head latent attention (MQA at D 576,
@@ -156,8 +163,13 @@ script started); any failure exits non-zero:
    version; at odd D 20 the six zero-padded copies alone); float32 within atol
    5e-5 + rtol 5e-4, bf16 within 1e-2 of the largest reference
    magnitude. The delta kernel's row arrays against `bwd_rows_plain`
-   (lse and the pad rows exact, delta within 1e-4). Two backwards on the
-   same inputs give bit-equal dq, dk and dv (train, gqa4, vit_b16). At the
+   (lse and the pad rows exact, delta within 1e-4); the wgmma route's
+   cases show `flash_bwd_dq_wgmma_kernel` and `flash_bwd_dkv_wgmma_kernel`
+   at their width (and the dkv form `dkv_split` names) in one trace of
+   all of them. Two backwards on the
+   same inputs give bit-equal dq, dk and dv (train, gqa4, vit_b16, and
+   Phi-2, Phi-3-mini, Gemma-2B, D 200, D 56, MHA and GQA-4 at D 256).
+   At the
    training shape and at vit_b16 the new pair, the mma.sync pair (checked too), the
    delta kernel, SDPA's backward and the plain version are timed in
    turns, whole and per kernel, beside the operation bounds (the
@@ -539,9 +551,11 @@ and a row at the families' [32,224,224,3] tf shape with the families path; K2's
 and K4's: generate, train, lm_server, moe, seq_parallel, pipeline, cluster,
 ingress, families, groups, cli, measure and rank_groups, K2 timed at the LM's
 shapes and ViT-B16's; K3's
-and the delta kernel's: train, moe, seq_parallel and families; K2's
-mma.sync route timed at Phi-3-mini's D 96 prefill and K3's mma.sync pair
-at its D 96, with phase 24's launches; K4 at Phi-3-mini's decode with
+and the delta kernel's: train, moe, seq_parallel and families; K2 and
+K3's wgmma routes at Phi-3-mini's D 96 with phase 24's launches of that
+route, K2's mma.sync route at the draft's D 48 with its launches there,
+K2 and K3 at Gemma-2B's D 256 and K3's one-block dkv form at MHA D 256
+with phases 6 and 9's checked launches of each instance; K4 at Phi-3-mini's decode with
 phase 24's served launches, bf16 and int8 caches, and at Falcon-7B's (5
 head chunks) with phase 7's launches at G 48 and 71; the chunked routes
 past D 256, K2 in bf16 and float32, K3's pairs in bf16 and float32 and
@@ -558,6 +572,7 @@ ratio of their medians), then the card's name and power limit.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -617,6 +632,7 @@ def reset_launch_counts():
     flash_attention.flash_launches = 0
     flash_attention.flash_bwd_launches = 0
     flash_attention.flash_bwd_delta_launches = 0
+    flash_attention.route_launches.clear()
     decode_attention.decode_launches = 0
 
 
@@ -628,6 +644,15 @@ def launch_counts():
             "flash_bwd": flash_attention.flash_bwd_launches,
             "flash_bwd_delta": flash_attention.flash_bwd_delta_launches,
             "decode_attention": decode_attention.decode_launches}
+
+
+def route_counts():
+    """The flash kernels' launches since the last reset by the kernels they
+    ran (ops.flash_attention.route_launches), "direction kind width split"
+    -> count; `split` is the dkv kernel's blocks a kv head."""
+    from dml_tpu_torch.ops import flash_attention
+
+    return {" ".join(map(str, k)): n for k, n in sorted(flash_attention.route_launches.items())}
 
 
 def bf16_ulp(ref):
@@ -1205,8 +1230,15 @@ BF, F32 = "bfloat16", "float32"
 # 384 over 4 heads, GQA-2: D 96) and its draft_lm_spec draft (D 48) in
 # both dtypes, the draft of a D-80 target (D 40), the JAX tests' D 8, an
 # odd D whose bf16 rows are not whole 16-byte units (D 20 at H 1: the
-# wrapper's zero-padded copy), and a D past 128 that is not native (200,
-# non-causal cross attention). Phases 6 and 9 check and time each.
+# wrapper's zero-padded copy), a D past 128 that no kernel is built at
+# (200, non-causal cross attention: the <256> wgmma instance over 56 zero
+# columns), D 56 at the LM's B=8 prefill shape (the <64> instance over 8
+# zero columns, its forward with three consumers), MHA at D 256 (one block
+# a kv head's group in the dkv kernel, where Gemma-2B's and D 200's split
+# the group over a two-block cluster) and D 256 GQA-4 at B=2 (the cluster
+# form over 512 blocks, several waves on 132 SMs). Every bf16 D past 48
+# that is a multiple of 8 runs the wgmma + TMA kernels at 64, 128 or 256.
+# Phases 6 and 9 check each and time all but D 200, D 56 and D 256 GQA-4.
 HEAD_DIM_FLASH_CASES = (
     ("phi2_d80", 1, 2048, 2048, 32, 32, 80, True, BF),
     ("phi3mini_d96", 1, 2048, 2048, 32, 32, 96, True, BF),
@@ -1221,6 +1253,9 @@ HEAD_DIM_FLASH_CASES = (
     ("f32_jax_d8", 2, 128, 128, 4, 2, 8, True, F32),
     ("odd_d20_h1", 2, 130, 130, 1, 1, 20, True, BF),
     ("d200_cross", 1, 100, 300, 4, 2, 200, False, BF),
+    ("d56_gqa4_b8", LM_BATCH, PROMPT_LEN, PROMPT_LEN, 16, 4, 56, True, BF),
+    ("d256_mha", 1, 512, 512, 4, 4, 256, True, BF),
+    ("d256_gqa4_b2", 2, 1024, 1024, 16, 4, 256, True, BF),
 )
 # Past 256, the chunked route (fwd: 256 output columns a block; bwd: 128
 # gradient columns a block): phase 25's wide-head LM (the 198M LM's d_model
@@ -1239,10 +1274,80 @@ WIDE_FLASH_CASES = (
     ("odd_d257", 2, 300, 300, 4, 2, 257, True, BF),
     ("f32_d320_cross", 1, 100, 300, 4, 2, 320, False, F32),
 )
-HEAD_DIM_TIMED = tuple(c[0] for c in HEAD_DIM_FLASH_CASES[:-1] + WIDE_FLASH_CASES[:-1])  # the last ones checked only
+#: launches of the checks in phases 6 and 9 by the kernels they ran
+#: (`route_counts`): the <256> wgmma instances' rows of the kernels line
+#: count these
+CHECK_LAUNCHES = collections.Counter()
+HEAD_DIM_CHECKED_ONLY = ("d200_cross", "d56_gqa4_b8", "d256_gqa4_b2", "f32_d320_cross")
+HEAD_DIM_TIMED = tuple(c[0] for c in HEAD_DIM_FLASH_CASES + WIDE_FLASH_CASES
+                       if c[0] not in HEAD_DIM_CHECKED_ONLY)
 #: the timed cases whose rows take the wrapper's zero-padded copy: the
 #: copy (`_kernel_view` of each input) is timed alone beside the call
 HEAD_DIM_PADDED = ("odd_d20_h1", "odd_d257")
+
+
+def device_kernel_names(fns, calls=3):
+    """For each named function of `fns`, the names of the device kernels
+    that `calls` calls of it launched, read from one torch.profiler trace
+    of them all: each function's calls and a synchronize inside a
+    `record_function` of its name, 1 ms apart, and a kernel that starts
+    inside that range on the trace's clock taken as its. Which kernels a
+    route took on the card. A trace can miss the kernels launched just
+    after it starts (all three calls of the first function once), so
+    every function runs once before the first range."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for fn in fns.values():
+            fn()
+        torch.cuda.synchronize()
+        for name, fn in fns.items():
+            time.sleep(1e-3)
+            with record_function(name):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+    events = prof.events()
+    ranges = [(e.time_range.start, e.time_range.end, e.name) for e in events
+              if e.name in fns and e.device_type == torch.autograd.DeviceType.CPU]
+    found = {name: set() for name in fns}
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+            continue
+        for start, end, name in ranges:
+            if start <= e.time_range.start <= end:
+                found[name].add(e.name)
+    return {name: sorted(v) for name, v in found.items()}
+
+
+def ran_wgmma(names, wanted):
+    """(the flash kernels among `names`, whether each of `wanted` (a
+    kernel's name and template arguments) ran and no mma.sync kernel
+    did): the proof that a bf16 case on the wgmma route ran its wgmma +
+    TMA kernel instances."""
+    flash = [n for n in names if "flash_" in n]
+    ok = all(any(w in n for n in flash) for w in wanted)
+    return flash, ok and not any("_mma_kernel" in n for n in flash)
+
+
+def check_traced(phase, traced):
+    """Trace the wgmma cases a phase kept (name -> (fn, wanted kernels))
+    in one profiler session, emit which kernels each ran and the trace's
+    seconds, and fail unless each ran its wanted kernels (and no mma.sync
+    kernel)."""
+    t0 = time.monotonic()
+    names = device_kernel_names({n: fn for n, (fn, _) in traced.items()})
+    # a case the trace saw no kernel of at all is traced once more
+    missed = {n: traced[n][0] for n, v in names.items() if not v}
+    if missed:
+        names.update(device_kernel_names(missed))
+    ran = {n: ran_wgmma(names[n], wanted) for n, (_, wanted) in traced.items()}
+    rec = dict(phase=phase, seconds=time.monotonic() - t0,
+               wanted={n: wanted for n, (_, wanted) in traced.items()},
+               kernels={n: r[0] for n, r in ran.items()}, ran_wgmma={n: r[1] for n, r in ran.items()})
+    emit(**rec)
+    check(all(rec["ran_wgmma"].values()), f"a wgmma case ran other kernels: {rec}")
 
 
 def sdpa_backend(q, k, v, **kw):
@@ -1291,7 +1396,7 @@ def phase_flash(timer):
         ("f32_d48_draft", 4, 64, 64, 4, 2, 48, True, f32),
     ) + HEAD_DIM_FLASH_CASES + WIDE_FLASH_CASES
     timed = ("prefill_b8", "prefill_b1", "mha_b1", "vit_b16") + HEAD_DIM_TIMED
-    timings = {}
+    timings, traced = {}, {}
     for name, b, tq, tk, h, kv, d, causal, dtype in cases:
         dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
         q = torch.randn((b, tq, h, d), generator=g, device="cuda").to(dtype)
@@ -1320,9 +1425,10 @@ def phase_flash(timer):
         else:
             k = torch.randn((b, tk, kv, d), generator=g, device="cuda").to(dtype)
             v = torch.randn((b, tk, kv, d), generator=g, device="cuda").to(dtype)
-        before = fa.flash_launches
+        before, by_route = fa.flash_launches, collections.Counter(route_counts())
         out, lse = fa.flash_attention_lse(q, k, v, causal=causal)
         launches = fa.flash_launches - before
+        CHECK_LAUNCHES.update(collections.Counter(route_counts()) - by_route)
         p_out, p_lse = fa.attention_with_lse(q, k, v, causal=causal)
         torch.cuda.synchronize()
         err_out = float((out.float() - p_out.float()).abs().max())
@@ -1337,6 +1443,11 @@ def phase_flash(timer):
             extra["equal_to_clean_run"] = bool(torch.equal(clean[0], out) and torch.equal(clean[1], lse))
             ok &= extra["equal_to_clean_run"]
         route = fa.kernel_route(dtype, d)
+        if route.kind == "wgmma+tma" and d not in (64, 128):
+            # three consumers at D 56's B=8 prefill (launch_d64's four waves)
+            nc = 3 if name == "d56_gqa4_b8" else 2
+            traced[name] = (lambda q=q, k=k, v=v, causal=causal: fa.flash_attention_lse(
+                q, k, v, causal=causal), [f"flash_fwd_wgmma_kernel<{route.width}, {nc}>"])
         case = dict(phase="flash_check", case=name, q=[b, tq, h, d], kv=[b, tk, kv, d],
                     causal=causal, dtype=dtype_name(dtype), route=route.kind, width=route.width,
                     launches=launches, max_abs_err_out=err_out, max_abs_err_lse=err_lse,
@@ -1401,6 +1512,8 @@ def phase_flash(timer):
                  achieved_tflop_s=ops / (k_ms * 1e-3) / 1e12,
                  sdpa_tflop_s=ops / (l_ms * 1e-3) / 1e12, share_of_bound=bound / k_ms, **extra)
         del q, k, v, out, lse, p_out, p_lse, clean
+    check_traced("flash_trace", traced)
+    del traced
     torch.cuda.empty_cache()
     return timings
 
@@ -1888,7 +2001,8 @@ def phase_flash_bwd(timer):
         ("f32_cross", 2, 64, 192, 4, 4, 32, False, f32),
         ("f32_d16", 1, 130, 130, 2, 1, 16, True, f32),
     ) + HEAD_DIM_FLASH_CASES + WIDE_FLASH_CASES
-    deterministic = ("train", "gqa4", "vit_b16", "phi3mini_d96", "gemma2b_d256", "widelm_train_d512")
+    deterministic = ("train", "gqa4", "vit_b16", "phi2_d80", "phi3mini_d96", "gemma2b_d256",
+                     "d200_cross", "d56_gqa4_b8", "d256_mha", "d256_gqa4_b2", "widelm_train_d512")
     names = ("dq", "dk", "dv")
 
     def held(got, want, dtype):
@@ -1903,7 +2017,7 @@ def phase_flash_bwd(timer):
                 ok &= errs[n] <= 1e-2 * float(r.float().abs().max())
         return errs, ok
 
-    timings = {}
+    timings, traced = {}, {}
     for name, b, tq, tk, h, kv, d, causal, dtype in cases:
         dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
         (q, k, v, dout), clean = _bwd_inputs(name, b, tq, tk, h, kv, d, dtype, g)
@@ -1911,8 +2025,10 @@ def phase_flash_bwd(timer):
         for with_lse in (False, True):
             dlse = torch.randn((b, h, tq), generator=g, device="cuda") if with_lse else None
             before = (fa.flash_bwd_launches, fa.flash_bwd_delta_launches)
+            by_route = collections.Counter(route_counts())
             got = fa.flash_attention_backward(q, k, v, out, lse, dout, dlse, causal=causal)
             launches = [fa.flash_bwd_launches - before[0], fa.flash_bwd_delta_launches - before[1]]
+            CHECK_LAUNCHES.update(collections.Counter(route_counts()) - by_route)
             want = fa.attention_backward(q, k, v, out, lse, dout, dlse, causal=causal)
             rows = fa._bwd_rows_cuda(out, dout, lse, dlse)
             p_rows = fa.bwd_rows_plain(out, dout, lse, dlse)
@@ -1935,6 +2051,12 @@ def phase_flash_bwd(timer):
                 extra["bit_equal_rerun"] = all(torch.equal(a, c) for a, c in zip(got, again))
                 ok &= extra["bit_equal_rerun"]
             route = fa.kernel_route(dtype, d, backward=True)
+            if route.kind == "wgmma+tma" and d not in (64, 128) and not with_lse:
+                traced[name] = (
+                    lambda q=q, k=k, v=v, out=out, lse=lse, dout=dout, causal=causal:
+                    fa.flash_attention_backward(q, k, v, out, lse, dout, causal=causal),
+                    [f"flash_bwd_dq_wgmma_kernel<{route.width}>",
+                     f"flash_bwd_dkv_wgmma_kernel<{route.width}, {fa.dkv_split(route, h // kv)}>"])
             case = dict(phase="flash_bwd_check", case=name, q=[b, tq, h, d], kv=[b, tk, kv, d],
                         causal=causal, dtype=dtype_name(dtype), route=route.kind, width=route.width,
                         lse_cotangent=with_lse, launches=launches, max_abs_err=errs,
@@ -1947,6 +2069,8 @@ def phase_flash_bwd(timer):
         if name in ("train", "vit_b16") + HEAD_DIM_TIMED:
             timings[name] = time_flash_bwd(timer, name, q, k, v, out, lse, dout, causal, errs)
         del q, k, v, dout, out, lse, clean
+    check_traced("flash_bwd_trace", traced)
+    del traced
     torch.cuda.empty_cache()
     return timings
 
@@ -6321,6 +6445,7 @@ def serve_counted(name, spec, paths, out, paths_launches):
     t0 = time.monotonic()
     res, _, _ = be.serve_files(paths)
     wall = time.monotonic() - t0
+    routes = route_counts()
     d = {k: v - d0[k] for k, v in server_dispatches().items()}
     sp = be.spec_stats()
     if draft is not None:
@@ -6332,11 +6457,11 @@ def serve_counted(name, spec, paths, out, paths_launches):
     toks = [res[p]["tokens"] for p in paths]
     check(all(len(t) == budget and all(0 <= x < vocab for x in t) for t in toks),
           f"{name}: a request's tokens are short or out of range")
-    out[name] = dict(launches=want, dispatches=d, spec=sp, wall_s=wall,
+    out[name] = dict(launches=want, routes=routes, dispatches=d, spec=sp, wall_s=wall,
                      tokens_per_s=sum(map(len, toks)) / wall,
                      head_dim=be.cfg.d_model // be.cfg.n_heads,
                      draft_head_dim=draft["d_model"] // draft["n_heads"] if draft else None)
-    paths_launches[name] = want
+    paths_launches[name] = dict(want, routes=routes)
     return toks
 
 
@@ -6378,6 +6503,10 @@ def phase_head_dims():
             del params32
     check(all(t == want for t, (want, _) in zip(f32, lone)),
           "head_dims: float32 served tokens != each request's lone float32 greedy run")
+    # the target's D 96 on the wgmma kernels and the draft's D 48 on mma.sync
+    routes = out["serve_bf16"]["routes"]
+    check(set(routes) == {"fwd wgmma+tma 128 1", "fwd mma.sync 48 1"},
+          f"head_dims: bf16 serving with speculation launched {routes}")
     out["f32_exact_vs_lone"] = HD_PROMPTS
     # bf16 against the float32 backend's tokens, up to a near-tie of its logits
     out["bf16_vs_f32"] = held_to_lone("head_dims bf16", bf16, lone)
@@ -6434,17 +6563,22 @@ def phase_head_dims():
             losses = [lm.train_step(tokens) for _ in range(HD_TRAIN_STEPS)]
             torch.cuda.synchronize()
             step_s = (time.monotonic() - t0) / HD_TRAIN_STEPS
-            counts = launch_counts()
+            counts, routes = launch_counts(), route_counts()
             want = {"normalize": 0, "flash_attention": n_layers * HD_TRAIN_STEPS,
                     "flash_bwd": n_layers * HD_TRAIN_STEPS,
                     "flash_bwd_delta": n_layers * HD_TRAIN_STEPS, "decode_attention": 0}
             check(counts == want, f"{name}: launched {counts}, want {want}")
+            # every launch on D 96's route: wgmma at width 128 in bf16, FMAs in float32
+            route = fa.kernel_route(dtype, geometry["d_model"] // geometry["n_heads"])
+            n = n_layers * HD_TRAIN_STEPS
+            want_routes = {f"{way} {route.kind} {route.width} 1": n for way in ("bwd", "fwd")}
+            check(routes == want_routes, f"{name}: launched {routes}, want {want_routes}")
             check(all(np.isfinite(x) for x in losses), f"{name}: a loss is not finite: {losses}")
-            out[name] = dict(losses=losses, step_ms=step_s * 1e3, launches=counts,
+            out[name] = dict(losses=losses, step_ms=step_s * 1e3, launches=counts, routes=routes,
                              grad_max_abs_err=max(errs.values()),
                              grad_bar="atol 5e-5 + rtol 5e-4" if dtype == torch.float32
                              else "1e-2 of max |ref| per tensor")
-            paths_launches[name] = counts
+            paths_launches[name] = dict(counts, routes=routes)
             del lm
     torch.cuda.empty_cache()
     seconds = time.monotonic() - t_start
@@ -6787,21 +6921,39 @@ def main() -> int:
         ms=t["ms"]["delta"], plain_ms=t["delta_plain_ms"], bound_ms=t["bound"]["delta"]["bound_ms"],
         bound_by=t["bound"]["delta"]["bound_by"], library_ms=None))
     # the routes past D 64/128, each timed at a public model's shape and
-    # launched by phase 24's ShardLM (bf16: its D 96 and its draft's 48)
+    # launched by phase 24's ShardLM (bf16: its D 96 and its draft's 48),
+    # each row counting the launches of its own kernels (`route_counts`)
     served, trained = hd_launches["serve_bf16"], hd_launches["train_bfloat16"]
     plain = hd_launches["serve_bf16_plain"]
     k4_int8 = (hd_launches["serve_bf16_int8_cache"]["decode_attention"]
                + hd_launches["serve_bf16_int8_cache_plain"]["decode_attention"])
-    t = dict(flash["phi3mini_d96"])
+
+    def by_route(key, **paths):
+        by = {path: launches["routes"].get(key, 0) for path, launches in paths.items()}
+        return dict(launches=sum(by.values()), launches_by_path=by)
+
+    for case, route, shape in (
+            ("phi3mini_d96", "wgmma+tma 128",
+             "Phi-3-mini prefill b1 T2048 H32 D96 bf16 causal; wgmma+TMA at width 128, mma_sync_ms "
+             "the mma.sync kernel at 96; launches: ShardLM's D 96, served in bf16 and trained"),
+            ("draft_d48", "mma.sync 48",
+             "ShardLM's draft prefill b4 T300 H4 KV2 D48 bf16 causal; mma.sync at width 48; "
+             "launches: the draft's D 48, served in bf16 with speculation")):
+        t = dict(flash[case])
+        kernels.append(dict(
+            name=f"flash_fwd[{shape}]", route="cuda", variant=route.split()[0],
+            source="dml_tpu_torch/csrc/flash_attention.cu", replaces="dml_tpu/ops/flash_attention.py:65",
+            **by_route(f"fwd {route} 1", head_dims_serve=served, head_dims_serve_plain=plain,
+                       head_dims_train=trained), **t))
+    t = dict(flash["gemma2b_d256"])
+    n = CHECK_LAUNCHES["fwd wgmma+tma 256 1"]
     kernels.append(dict(
-        name="flash_fwd[Phi-3-mini prefill b1 T2048 H32 D96 bf16 causal; mma.sync at native "
-             "width 96; launches: ShardLM's D 96 and its draft's D 48, served in bf16]",
-        route="cuda", variant="mma.sync", source="dml_tpu_torch/csrc/flash_attention.cu",
-        replaces="dml_tpu/ops/flash_attention.py:65",
-        launches=served["flash_attention"] + plain["flash_attention"] + trained["flash_attention"],
-        launches_by_path={"head_dims_serve": served["flash_attention"],
-                          "head_dims_serve_plain": plain["flash_attention"],
-                          "head_dims_train": trained["flash_attention"]}, **t))
+        name="flash_fwd[Gemma-2B prefill b1 T2048 H8 KV1 D256 bf16 causal; wgmma+TMA at width 256, "
+             "64-key tiles; mma_sync_ms the mma.sync kernel at 256; launches: phase 6's checks at "
+             "width 256 (no path the repo serves has D 256)]",
+        route="cuda", variant="wgmma+tma", source="dml_tpu_torch/csrc/flash_attention.cu",
+        replaces="dml_tpu/ops/flash_attention.py:65", launches=n,
+        launches_by_path={"flash_check_width_256": n}, **t))
     t = decode["phi3mini_mha_d96"]
     kernels.append(dict(
         name="decode_attention[Phi-3-mini b8 cache 2112 KV32 G1 D96 bf16; row width 128; "
@@ -6820,16 +6972,33 @@ def main() -> int:
         route="cuda", variant="head chunks", source="dml_tpu_torch/csrc/decode_attention.cu",
         replaces="dml_tpu/ops/decode_attention.py:53", launches=hc_launches,
         launches_by_path={"decode_check_head_chunks": hc_launches}, **t))
-    t = bwd["phi3mini_d96"]
-    for part, line in (("dq", 113), ("dkv", 166)):
+    # K3 at width 256: one dq instance; dkv <256, 2> where a kv head has
+    # several query heads (Gemma-2B), <256, 1> at one (MHA)
+    c256 = {split: CHECK_LAUNCHES[f"bwd wgmma+tma 256 {split}"] for split in (1, 2)}
+    k3_rows = [
+        ("phi3mini_d96", "dq", "Phi-3-mini b1 T2048 H32 D96 bf16 causal; wgmma+TMA at width 128",
+         {"head_dims_train": trained["routes"].get("bwd wgmma+tma 128 1", 0)}),
+        ("phi3mini_d96", "dkv", "Phi-3-mini b1 T2048 H32 D96 bf16 causal; wgmma+TMA at width 128",
+         {"head_dims_train": trained["routes"].get("bwd wgmma+tma 128 1", 0)}),
+        ("gemma2b_d256", "dq", "Gemma-2B b1 T2048 H8 KV1 D256 bf16 causal; wgmma+TMA at width 256, "
+         "32-key tiles; launches: phase 9's checks at width 256, both dkv forms (no path the repo "
+         "trains has D 256)", {f"flash_bwd_check_width_256_split_{k}": n for k, n in c256.items()}),
+        ("gemma2b_d256", "dkv", "Gemma-2B b1 T2048 H8 KV1 D256 bf16 causal; wgmma+TMA <256, 2>: "
+         "64-key tiles x 2 column halves, the group's heads split over a two-block cluster; "
+         "launches: phase 9's checks of this form", {"flash_bwd_check_width_256_split_2": c256[2]}),
+        ("d256_mha", "dkv", "MHA b1 T512 H4 KV4 D256 bf16 causal; wgmma+TMA <256, 1>: 64-key "
+         "tiles x 2 column halves, one block a kv head; launches: phase 9's checks of this form",
+         {"flash_bwd_check_width_256_split_1": c256[1]})]
+    for case, part, shape, paths in k3_rows:
+        t = bwd[case]
+        line = 113 if part == "dq" else 166
         kernels.append(dict(
-            name=f"flash_bwd_{part}[Phi-3-mini b1 T2048 H32 D96 bf16 causal; mma.sync at native "
-                 f"width 96; launches: ShardLM trained in bf16; plain and library times are the "
-                 f"whole backward's]",
-            route="cuda", variant="mma.sync", source="dml_tpu_torch/csrc/flash_attention_bwd.cu",
-            replaces=f"dml_tpu/ops/flash_attention.py:{line}", launches=trained["flash_bwd"],
-            launches_by_path={"head_dims_train": trained["flash_bwd"]},
-            max_abs_err=t["max_abs_err"], ms=t["ms"][part], plain_ms=t["plain_ms"],
+            name=f"flash_bwd_{part}[{shape}; mma_sync_ms the mma.sync kernel at the native "
+                 f"width; plain and library times are the whole backward's]",
+            route="cuda", variant="wgmma+tma", source="dml_tpu_torch/csrc/flash_attention_bwd.cu",
+            replaces=f"dml_tpu/ops/flash_attention.py:{line}", launches=sum(paths.values()),
+            launches_by_path=paths, max_abs_err=t["max_abs_err"], ms=t["ms"][part],
+            mma_sync_ms=t["ms"][f"{part}_mma_sync"], plain_ms=t["plain_ms"],
             bound_ms=t["bound"][part]["bound_ms"], bound_by=t["bound"][part]["bound_by"],
             library_ms=t["library_ms"]))
     # the chunked routes past D 256, each timed at phase 25's wide-head LM

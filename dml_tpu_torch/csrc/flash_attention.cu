@@ -21,20 +21,24 @@
 // in scratch across its sequential innermost grid axis; here one block
 // loops over the k-tiles itself and keeps them in registers.
 //
-// Head dims (hopper.cuh::native_head_dim): the kernels are instantiated at
-// D = 16, 32, 48, 64, 80, 96, 128 and 256, the widths of real geometries
-// (48: a D-96 model's speculative draft; 80: Phi-2; 96: Phi-3-mini and the
-// cluster LM bench's ShardLM; 256: Gemma-2B). A head dim d runs on the
-// least D >= d: tile columns at d and beyond are loaded as zeros (the
-// caller's scale is of the true d, and zero columns leave Q K^T and P V
-// unchanged, so the result is exact), and output columns past d are never
-// written. Rows are read in 16-byte chunks, so a row must hold a whole
-// number of them: the wrapper pads a head dim that does not (bf16 d % 8,
-// f32 d % 4) with zero columns in its copy.
+// Head dims: the wgmma kernel is instantiated at D = 64, 128 and 256
+// (hopper.cuh::wgmma_head_dim), the mma.sync and f32 kernels at D = 16,
+// 32, 48, 64, 80, 96, 128 and 256 (hopper.cuh::native_head_dim), the
+// widths of real geometries (48: a D-96 model's speculative draft; 80:
+// Phi-2; 96: Phi-3-mini and the cluster LM bench's ShardLM; 256:
+// Gemma-2B). A head dim d runs on the least D >= d of its route: tile
+// columns at d and beyond are loaded as zeros (the caller's scale is of
+// the true d, and zero columns leave Q K^T and P V unchanged, so the
+// result is exact), and output columns past d are never written. Rows are
+// read in 16-byte chunks, so a row must hold a whole number of them: the
+// wrapper pads a head dim that does not (bf16 d % 8, f32 d % 4) with zero
+// columns in its copy. Such a d stays off the wgmma route, whose TMA store
+// of out (d wide) needs whole 16-byte rows.
 //
 // Routes, picked from the dtype and d alone:
 //
-// - bf16, d 64 or 128 (every main-path shape): flash_fwd_wgmma_kernel. One
+// - bf16, 48 < d <= 256, d % 8 == 0 (every main-path shape, and the public
+//   LMs' 80, 96 and 256): flash_fwd_wgmma_kernel at D 64, 128 or 256. One
 //   block per (q-tile, head, batch) of a producer warpgroup and NC consumer
 //   warpgroups of 64 query rows each: NC = 3 (192-row q-tiles) at D 64 when
 //   that still gives four waves of blocks, else 2 (128-row q-tiles; always
@@ -62,15 +66,17 @@
 //   gives the consumers 232 registers and the producer 40 (160 and 32 with
 //   three consumers). D = 128 is two 64-column sub-tiles per tile (a
 //   128-byte swizzle row holds 64 bf16): S steps its descriptors across
-//   them, P V issues one 64-column product per sub-tile.
-// - bf16, every other d: flash_fwd_mma_kernel<D>, the first Hopper
+//   them, P V issues one 64-column product per sub-tile. D = 256 is four,
+//   over k-tiles of 64 keys (S m64n64), so that Q (64 KB) and two stages
+//   of K and V (32 KB each) fit one block: there the first consumer skips
+//   the causal k-tile wholly past its rows.
+// - bf16, d <= 48 or d % 8 != 0: flash_fwd_mma_kernel<D>, the first Hopper
 //   version: one block of 4 warps per 64-row q-tile, synchronous tile
 //   loads, mma.sync m16n8k16 with S, P and O in registers, V transposed in
 //   shared memory. Q's fragments stay in registers up to D 128; at D 256
 //   the O accumulator takes 128 registers a thread, so they are read from
 //   the shared Q tile at each step instead. dml_flash_fwd_mma runs it at
-//   any d (D 64 and 128 too) so one card can time it beside the wgmma
-//   route.
+//   any d up to 256 so one card can time it beside the wgmma route.
 // - float32: flash_fwd_f32_kernel<D>, plain FMAs with the tiles and the
 //   accumulator in shared memory: 64-row tiles up to D 128, 32-row tiles
 //   at D 256 (the four tiles of 64 rows would not fit shared memory).
@@ -719,32 +725,37 @@ int launch_wide(const Args& a, int B, int is_bf16, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------ bf16, D 64 / 128: wgmma + TMA
+// ------------------------------------- bf16, D 49 to 256: wgmma + TMA
 
 namespace wg {
 
 using namespace hopper;
 
-constexpr int BK = 128;               // key rows per k-tile
-constexpr int SUB_BYTES = 128 * 128;  // one K/V sub-tile: 128 rows of 64 bf16 (128 B)
-
-// Shape of one block for head dim D with NC consumer warpgroups of 64
-// query rows each (warpgroup 0 produces). NC = 3 puts three consumer warps
-// on each SM sub-partition, which hides more of the softmax's latency than
-// two, but makes 192-row q-tiles: fewer blocks, so a short grid ends in a
-// ragged wave. D = 128 takes NC = 2 (its O accumulator needs the
-// registers). Registers after setmaxnreg: 128 * P + 128 * NC * C <= 65536.
+// Shape of one block at width D (64, 128 or 256; a head dim d runs on the
+// least of them >= d, the tensor maps' innermost extent d, so the columns
+// past d arrive as zeros and TMA stores clip at d) with NC consumer
+// warpgroups of 64 query rows each (warpgroup 0 produces). NC = 3 puts
+// three consumer warps on each SM sub-partition, which hides more of the
+// softmax's latency than two, but makes 192-row q-tiles: fewer blocks, so
+// a short grid ends in a ragged wave. D = 128 and 256 take NC = 2 (their O
+// accumulators need the registers). Registers after setmaxnreg: 128 * P +
+// 128 * NC * C <= 65536.
 template <int D, int NC>
 struct Smem {
   static constexpr int BQ = 64 * NC;  // query rows per block
+  // key rows per k-tile: 128, but 64 at D 256, where K and V tiles of 128
+  // rows (64 KB each a stage) beside Q's 64 KB would pass 227 KB at two
+  // stages; S is then m64n64 (32 registers) and P 16 packed
+  static constexpr int BK = D == 256 ? 64 : 128;
   static constexpr int THREADS = 128 * (NC + 1);
   static constexpr int PRODUCER_REGS = NC == 3 ? 32 : 40;
   static constexpr int CONSUMER_REGS = NC == 3 ? 160 : 232;
   // K/V ring depth: 3 at D = 64 (96 KB of tiles), 2 at D = 128 (128 KB;
-  // a third stage there fits but timed slower on the H100)
+  // a third stage there fits but timed slower on the H100) and at 256
   static constexpr int STAGES = D == 64 ? 3 : 2;
   static constexpr int SUBS = D / 64;            // 64-column sub-tiles per tile
-  static constexpr int TILE = SUBS * SUB_BYTES;  // one K or V tile
+  static constexpr int KSUB = BK * ROW_BYTES;    // one K/V sub-tile: BK rows of 64 bf16 (128 B)
+  static constexpr int TILE = SUBS * KSUB;       // one K or V tile
   static constexpr int QSUB = BQ * ROW_BYTES;    // one 64-column sub-tile of Q
   static constexpr int Q = 0;
   static constexpr int K = Q + SUBS * QSUB;      // + stage * TILE
@@ -753,6 +764,13 @@ struct Smem {
   static constexpr int bytes = BAR + 8 * (1 + 3 * STAGES) + 1024;  // + slack for 1024-B alignment
 };
 
+// D 256: Q 64 KB + K and V 2 x 32 KB each = 192 KB of tiles (197,688 bytes
+// with the barriers and the alignment slack); a consumer holds O in 128
+// f32 registers (four m64n64 accumulators), S in 32 and P in 16.
+static_assert(Smem<256, 2>::bytes <= SMEM_PER_BLOCK, "the D-256 forward block passes 227 KB");
+static_assert(Smem<128, 2>::bytes <= SMEM_PER_BLOCK && Smem<64, 3>::bytes <= SMEM_PER_BLOCK,
+              "a forward block passes 227 KB");
+
 struct Params {
   float* lse;
   int H, G, Tq, Tk, n_qt;
@@ -760,40 +778,47 @@ struct Params {
   int causal;
 };
 
-// S = Q K^T for one k-tile: D / 16 steps of m64n128k16, stepping across
-// the 64-column sub-tiles; one commit group (the caller fences and waits).
-template <int D, int QSUB>
+// S = Q K^T for one k-tile of BK keys: D / 16 steps of m64nBKk16, stepping
+// across the 64-column sub-tiles (K's KSUB bytes apart); one commit group
+// (the caller fences and waits).
+template <int D, int QSUB, int BK>
 __device__ __forceinline__ void issue_qk(float* s, uint32_t q_addr, uint32_t k_addr) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t step = (kk % 4) * 32;
-    wgmma_ss_m64n128(s, kmajor_desc(q_addr + (kk / 4) * QSUB + step),
-                     kmajor_desc(k_addr + (kk / 4) * SUB_BYTES + step), kk > 0);
+    const uint64_t da = kmajor_desc(q_addr + (kk / 4) * QSUB + step);
+    const uint64_t db = kmajor_desc(k_addr + (kk / 4) * BK * ROW_BYTES + step);
+    if constexpr (BK == 128) {
+      wgmma_ss_m64n128(s, da, db, kk > 0);
+    } else {
+      wgmma_ss_m64n64(s, da, db, kk > 0);
+    }
   }
   wgmma_commit();
 }
 
 // O += P V for one k-tile: V MN-major as TMA left it, 16 keys (2048 B)
 // a step, one m64n64 product per 64-column sub-tile; one commit group.
-template <int SUBS>
+template <int SUBS, int BK>
 __device__ __forceinline__ void issue_pv(float (*o)[32], const uint32_t (*pa)[4], uint32_t v_addr) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
+  for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
     for (int j = 0; j < SUBS; ++j)
-      wgmma_rs_m64n64_tb(o[j], pa[kk], mnmajor_desc(v_addr + j * SUB_BYTES + kk * 16 * ROW_BYTES));
+      wgmma_rs_m64n64_tb(o[j], pa[kk], mnmajor_desc(v_addr + j * BK * ROW_BYTES + kk * 16 * ROW_BYTES));
   wgmma_commit();
 }
 
-// The online softmax on one S tile, in the log2 domain: mask (only when
-// asked: the last tile), the row max over the 4 threads of a row, alpha =
+// The online softmax on one S tile of BK keys, in the log2 domain: mask
+// (only when asked), the row max over the 4 threads of a row, alpha =
 // exp2(m - m_new), p = exp2(s * scale * log2(e) - m_new) left in s (one FMA
 // and one exp2 per element), l = l * alpha + this thread's sum of p.
+template <int BK>
 __device__ __forceinline__ void softmax_tile(float* s, float* m, float* l, float* alpha, bool masked,
                                              int k0, int row0, int t, const Params& a) {
   if (masked) {
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = k0 + 8 * j + 2 * t + (e & 1);
@@ -802,7 +827,7 @@ __device__ __forceinline__ void softmax_tile(float* s, float* m, float* l, float
   }
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < BK / 8; ++j) {
     mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
     mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
   }
@@ -818,7 +843,7 @@ __device__ __forceinline__ void softmax_tile(float* s, float* m, float* l, float
   }
   float sum[2] = {0.f, 0.f};
 #pragma unroll
-  for (int j = 0; j < 16; ++j)
+  for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float p = ex2(fmaf(s[4 * j + e], a.scale_log2, neg_m[e >> 1]));
@@ -844,9 +869,10 @@ __device__ __forceinline__ void rescale(float (*o)[32], const float* alpha) {
 
 // P in bf16 (as the TPU kernel casts it) as A registers, 16 keys a step:
 // the S accumulator's fragment of keys 16kk..16kk+15 is the A fragment.
+template <int BK>
 __device__ __forceinline__ void pack_p(uint32_t (*pa)[4], const float* s) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
+  for (int kk = 0; kk < BK / 16; ++kk) {
     pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
     pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
     pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
@@ -861,6 +887,7 @@ __global__ void __launch_bounds__(Smem<D, NC>::THREADS, 1)
                            const __grid_constant__ CUtensorMap tm_v,
                            const __grid_constant__ CUtensorMap tm_o, const Params a) {
   using L = Smem<D, NC>;
+  constexpr int BK = L::BK;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzled tiles need 1024-B alignment
@@ -903,11 +930,11 @@ __global__ void __launch_bounds__(Smem<D, NC>::THREADS, 1)
         mbar_expect_tx(bar_k + 8 * s, L::TILE);
 #pragma unroll
         for (int j = 0; j < L::SUBS; ++j)
-          tma_load(base + L::K + s * L::TILE + j * SUB_BYTES, &tm_k, bar_k + 8 * s, 64 * j, kvh, k0, b);
+          tma_load(base + L::K + s * L::TILE + j * L::KSUB, &tm_k, bar_k + 8 * s, 64 * j, kvh, k0, b);
         mbar_expect_tx(bar_v + 8 * s, L::TILE);
 #pragma unroll
         for (int j = 0; j < L::SUBS; ++j)
-          tma_load(base + L::V + s * L::TILE + j * SUB_BYTES, &tm_v, bar_v + 8 * s, 64 * j, kvh, k0, b);
+          tma_load(base + L::V + s * L::TILE + j * L::KSUB, &tm_v, bar_v + 8 * s, 64 * j, kvh, k0, b);
       }
     }
   } else {
@@ -915,17 +942,18 @@ __global__ void __launch_bounds__(Smem<D, NC>::THREADS, 1)
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(L::CONSUMER_REGS));
     const int c = tid / 128 - 1;  // rows [64c, 64c + 64) of the q-tile
     const int tw = tid % 128, warp = tw / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
-    const int row0 = q0 + 64 * c + 16 * warp + g;  // this thread's rows: row0, row0 + 8
+    const int first = q0 + 64 * c;             // this consumer's first row
+    const int row0 = first + 16 * warp + g;  // this thread's rows: row0, row0 + 8
     const uint32_t q_addr = base + L::Q + c * 64 * ROW_BYTES;
 
     float o[L::SUBS][32];  // O, one m64n64 accumulator per 64-column sub-tile
-    float s[64];           // S, then P: one m64n128 accumulator
+    float s[BK / 2];       // S, then P: one m64nBK accumulator
 #pragma unroll
     for (int j = 0; j < L::SUBS; ++j)
 #pragma unroll
       for (int i = 0; i < 32; ++i) o[j][i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 64; ++i) s[i] = 0.f;
+    for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
     float m[2] = {NEG_INF, NEG_INF};  // running max, log2 domain
     float l[2] = {0.f, 0.f};          // this thread's share of the row sums
 
@@ -934,37 +962,40 @@ __global__ void __launch_bounds__(Smem<D, NC>::THREADS, 1)
     // consumers, one whose rows all lie past Tq (in the last q-tile) only
     // releases the stages. With two, such a consumer (Tq <= 64 past the
     // last q0) computes on zero rows that the store clips: the NC == 3
-    // tests compile away there, as they slowed its loop.
-    const bool active = NC == 2 || q0 + 64 * c < a.Tq;
+    // tests compile away there, as they slowed its loop. With 64-key
+    // tiles (D 256) the first consumer skips the causal tile wholly past
+    // its rows; the second, which reads it, keeps the stage until V landed.
+    const bool active = NC == 2 || first < a.Tq;
     mbar_wait(bar_q, 0);
     for (int i = 0; i < n_tiles; ++i) {
       const int st = i % L::STAGES;
       const uint32_t parity = (i / L::STAGES) & 1;
       mbar_wait(bar_k + 8 * st, parity);
-      if (!active) {
+      if (!active || (BK < 128 && a.causal && i * BK > first + 63)) {
         mbar_arrive(bar_e + 8 * st);
         continue;
       }
-      fence_regs<64>(s);
+      fence_regs<BK / 2>(s);
       wgmma_fence();
-      issue_qk<D, L::QSUB>(s, q_addr, base + L::K + st * L::TILE);
+      issue_qk<D, L::QSUB, BK>(s, q_addr, base + L::K + st * L::TILE);
       wgmma_wait<0>();
-      fence_regs<64>(s);
+      fence_regs<BK / 2>(s);
       // a mask where some key passes this consumer's first row, or past
-      // Tk; with 128-row q-tiles only the last k-tile can need one
+      // Tk; with 128-row q-tiles of 128-key tiles only the last k-tile
+      // can need one
       const bool last = i == n_tiles - 1;
-      const bool masked = NC == 2 ? (a.causal || ragged) && last
-                                  : (a.causal && i * BK + BK - 1 > q0 + 64 * c) || (ragged && last);
+      const bool masked = NC == 2 && BK == 128 ? (a.causal || ragged) && last
+                                               : (a.causal && i * BK + BK - 1 > first) || (ragged && last);
       float alpha[2];
-      softmax_tile(s, m, l, alpha, masked, i * BK, row0, t, a);
+      softmax_tile<BK>(s, m, l, alpha, masked, i * BK, row0, t, a);
       rescale<L::SUBS>(o, alpha);
-      uint32_t pa[8][4];
-      pack_p(pa, s);
+      uint32_t pa[BK / 16][4];
+      pack_p<BK>(pa, s);
       mbar_wait(bar_v + 8 * st, parity);
 #pragma unroll
       for (int j = 0; j < L::SUBS; ++j) fence_regs<32>(o[j]);
       wgmma_fence();  // P and the rescaled O were written since the last products
-      issue_pv<L::SUBS>(o, pa, base + L::V + st * L::TILE);
+      issue_pv<L::SUBS, BK>(o, pa, base + L::V + st * L::TILE);
       wgmma_wait<0>();
 #pragma unroll
       for (int j = 0; j < L::SUBS; ++j) fence_regs<32>(o[j]);
@@ -1019,11 +1050,14 @@ int launch(const Args& a, int B, cudaStream_t stream) {
   CUtensorMap tq, tk, tv, to;
   const int KV = a.H / a.G;
   int err;
-  if ((err = encode_map(&tq, a.q, D, a.H, a.Tq, B, a.qsh, a.qst, a.qsb, L::BQ))) return err;
-  if ((err = encode_map(&tk, a.k, D, KV, a.Tk, B, a.ksh, a.kst, a.ksb, BK))) return err;
-  if ((err = encode_map(&tv, a.v, D, KV, a.Tk, B, a.vsh, a.vst, a.vsb, BK))) return err;
-  // out is contiguous [B, Tq, H, D]; each consumer stores its 64 rows
-  if ((err = encode_map(&to, a.out, D, a.H, a.Tq, B, D, (long long)a.H * D, (long long)a.Tq * a.H * D, 64)))
+  // every map's innermost extent is d: a box's columns past it arrive as
+  // zeros (and count toward the expected bytes), a store stops at it
+  const int d = a.d;
+  if ((err = encode_map(&tq, a.q, d, a.H, a.Tq, B, a.qsh, a.qst, a.qsb, L::BQ))) return err;
+  if ((err = encode_map(&tk, a.k, d, KV, a.Tk, B, a.ksh, a.kst, a.ksb, L::BK))) return err;
+  if ((err = encode_map(&tv, a.v, d, KV, a.Tk, B, a.vsh, a.vst, a.vsb, L::BK))) return err;
+  // out is contiguous [B, Tq, H, d]; each consumer stores its 64 rows
+  if ((err = encode_map(&to, a.out, d, a.H, a.Tq, B, d, (long long)a.H * d, (long long)a.Tq * a.H * d, 64)))
     return err;
   const int n_qt = (a.Tq + L::BQ - 1) / L::BQ;
   const Params p{a.lse, a.H, a.G, a.Tq, a.Tk, n_qt, a.scale * LOG2E, a.causal};
@@ -1039,13 +1073,8 @@ int launch(const Args& a, int B, cudaStream_t stream) {
 // 5% faster than two consumers), else two (B = 1: three would leave 176
 // blocks, 1.33 waves, and ran 10% slower).
 int launch_d64(const Args& a, int B, cudaStream_t stream) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const int sms = sm_count();
+  if (sms == 0) return (int)cudaErrorInvalidDevice;
   const long long blocks = (long long)((a.Tq + 191) / 192) * a.H * B;
   return blocks >= 4ll * sms ? launch<64, 3>(a, B, stream) : launch<64, 2>(a, B, stream);
 }
@@ -1053,8 +1082,14 @@ int launch_d64(const Args& a, int B, cudaStream_t stream) {
 }  // namespace wg
 
 int dispatch(const Args& a, int B, int is_bf16, bool wgmma, cudaStream_t s) {
-  if (is_bf16 && wgmma && a.d == 64) return wg::launch_d64(a, B, s);
-  if (is_bf16 && wgmma && a.d == 128) return wg::launch<128, 2>(a, B, s);
+  if (is_bf16 && wgmma) {
+    switch (hopper::wgmma_head_dim(a.d)) {
+      case 64: return wg::launch_d64(a, B, s);
+      case 128: return wg::launch<128, 2>(a, B, s);
+      case 256: return wg::launch<256, 2>(a, B, s);
+      default: break;  // d <= 48, d % 8 != 0 or past 256
+    }
+  }
   switch (hopper::native_head_dim(a.d)) {
     case 16: return launch<16>(a, B, is_bf16, s);
     case 32: return launch<32>(a, B, is_bf16, s);
@@ -1081,10 +1116,12 @@ int flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
 
 }  // namespace
 
-// The kernel for (dtype, D): wgmma + TMA for bf16 at D 64 and 128,
-// mma.sync for bf16 at every other D, FMAs for float32, each at the native
-// width >= D up to 256 and on the chunked route past it
-// (cudaErrorInvalidValue at D < 1).
+// The kernel for (dtype, D): wgmma + TMA for bf16 at 48 < D <= 256 with D
+// a multiple of 8, as the TMA store of out needs rows of whole 16-byte
+// units (at width 64, 128 or 256, the least >= D), mma.sync for bf16 at
+// every other D up to 256, FMAs for float32, each at the native width >= D
+// up to 256 and on the chunked route past it (cudaErrorInvalidValue at
+// D < 1).
 extern "C" int dml_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                              int is_bf16, int B, int H, int G, int Tq, int Tk, int D,
                              long long qsb, long long qst, long long qsh,

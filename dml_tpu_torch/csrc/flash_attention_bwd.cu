@@ -29,11 +29,14 @@
 // that adds dq with atomics would save the dkv kernel's recomputation of
 // S and dP, which is not where the time goes (below).
 //
-// Head dims as in the forward (hopper.cuh::native_head_dim): instances at
-// D = 16, 32, 48, 64, 80, 96, 128 and 256, a head dim d on the least D >=
-// d with its columns past d loaded as zeros and never written. With K, Q
-// and dO zero there, S, dP and delta are unchanged and dq, dk and dv are
-// zero past d, so the result is exact.
+// Head dims as in the forward: the wgmma instances at D = 64, 128 and 256
+// (hopper.cuh::wgmma_head_dim), the mma.sync and f32 ones at D = 16, 32,
+// 48, 64, 80, 96, 128 and 256 (hopper.cuh::native_head_dim), a head dim d
+// on the least D >= d of its route with its columns past d loaded as
+// zeros and never written. With K, Q and dO zero there, S, dP and delta
+// are unchanged and dq, dk and dv are zero past d, so the result is
+// exact. A bf16 d % 8 != 0 stays off the wgmma route: its TMA stores of
+// dq, dk and dv (d wide) need rows of whole 16-byte units.
 //
 // flash_bwd_delta_kernel runs first: delta' (in f32, from out and dO
 // through their strides) and a copy of lse into row arrays [B, H, Tp], Tp
@@ -46,8 +49,10 @@
 //
 // Routes, picked from the dtype and d alone:
 //
-// - bf16, d 64 or 128 (every main-path shape): flash_bwd_dq_wgmma_kernel
-//   and flash_bwd_dkv_wgmma_kernel. Each block is a producer warpgroup and
+// - bf16, 48 < d <= 256, d % 8 == 0 (every main-path shape, and the
+//   public LMs' 80, 96 and 256): flash_bwd_dq_wgmma_kernel and
+//   flash_bwd_dkv_wgmma_kernel
+//   at D 64, 128 or 256. Each block is a producer warpgroup and
 //   two consumer warpgroups of 64 rows each; setmaxnreg gives the
 //   consumers 232 registers and the producer 40. One producer thread
 //   loads the block's own tiles once and streams the other operand's
@@ -60,7 +65,7 @@
 //   tile is ever transposed):
 //     dq:  blocks of 128 query rows, longest causal q-tiles first; Q and
 //          dO loaded once; K and V streamed in k-tiles of 128 rows (64 at
-//          D 128). S = Q K^T (SS), dP = dO V^T (SS), P and dS in
+//          D 128, 32 at D 256). S = Q K^T (SS), dP = dO V^T (SS), P and dS in
 //          registers, dQ += dS K (RS, dS packed from the accumulator into
 //          A registers, K MN-major). dQ goes out by TMA store (rows past
 //          Tq clipped).
@@ -71,11 +76,21 @@
 //          registers (each thread reads its columns' lse and delta' from
 //          shared memory), dV += P^T dO (RS, dO MN-major), dK += dS^T Q
 //          (RS, Q MN-major). dK and dV are stored once per block by TMA.
+//          At D 256 dK and dV would take 256 registers a thread: a block
+//          is 64 keys and 128 of the gradient columns (a grid axis of two
+//          column halves, each block computing S^T and dP^T over all 256
+//          columns), the two consumers take the two 32-row halves of each
+//          q-tile (S^T and dP^T m64n32), and consumer 1's dK and dV are
+//          added to consumer 0's through shared memory at the end, in
+//          that order. Where a kv head has several query heads (G > 1:
+//          Gemma-2B's 8 on 1), two blocks of a thread-block cluster split
+//          them, rank 1's sums added to rank 0's through distributed
+//          shared memory (no atomics: bit-equal reruns).
 //   P = exp2(S * scale * log2(e) - lse * log2(e)), one FMA and one exp2.
 //   Masks are applied only on tiles that cross the diagonal (or Tk, in
 //   dq); a consumer skips the products of a causal tile wholly past (or
 //   before) its rows. An mbarrier wait that outlasts ~2 s traps.
-// - bf16, every other d: flash_bwd_dq_mma_kernel<D> and
+// - bf16, d <= 48 or d % 8 != 0: flash_bwd_dq_mma_kernel<D> and
 //   flash_bwd_dkv_mma_kernel<D>, the first Hopper version: 64-row tiles,
 //   4-warp blocks, synchronous tile loads, mma.sync m16n8k16 with dS, P^T
 //   and dS^T in registers as A operands and the operands read along the
@@ -83,7 +98,7 @@
 //   accumulators (dk and dv: 256 registers a thread) do not fit, so each
 //   tile's block is two blocks, one per 128 gradient columns, which both
 //   compute S and dP over the whole D. dml_flash_bwd_mma runs them at any
-//   bf16 d so one card can time them beside the wgmma route.
+//   bf16 d up to 256 so one card can time them beside the wgmma route.
 // - float32: flash_bwd_dq_f32_kernel<D> and flash_bwd_dkv_f32_kernel<D>,
 //   plain FMAs with the tiles in shared memory: 64-row tiles up to D 128,
 //   32-row tiles at D 256.
@@ -1210,7 +1225,7 @@ int launch_wide(const Args& a, int B, int is_bf16, int parts, cudaStream_t strea
   return err;
 }
 
-// ------------------------------------------ bf16, D 64 / 128: wgmma + TMA
+// ------------------------------------- bf16, D 49 to 256: wgmma + TMA
 
 namespace wg {
 
@@ -1234,12 +1249,15 @@ struct Params {
 // dq: 128 query rows per block (Q and dO loaded once), k-tiles of BN
 // keys streamed. At D 64 the k-tile is 128 keys (S and dP take 64
 // registers each beside dQ's 32); at D 128 it is 64 keys, so S, dP (32
-// each) and dQ (64) fit the consumers' 232 registers.
+// each) and dQ (64) fit the consumers' 232 registers; at D 256 it is 32
+// keys: Q and dO take 128 KB, so K and V tiles of 64 keys (32 KB each a
+// stage) would pass 227 KB at two stages, and dQ takes 128 registers
+// beside S and dP's 16 each.
 template <int D>
 struct DqSmem {
   static constexpr int BQ = 64 * NC;
-  static constexpr int BN = D == 64 ? 128 : 64;
-  static constexpr int STAGES = D == 64 ? 3 : 2;
+  static constexpr int BN = D == 64 ? 128 : D == 128 ? 64 : 32;
+  static constexpr int STAGES = D == 128 ? 2 : 3;
   static constexpr int SUBS = D / 64;             // 64-column sub-tiles
   static constexpr int QSUB = BQ * ROW_BYTES;     // one sub-tile of Q or dO
   static constexpr int KSUB = BN * ROW_BYTES;     // one sub-tile of a K or V tile
@@ -1252,15 +1270,31 @@ struct DqSmem {
   static constexpr int bytes = BAR + 8 * (1 + 3 * STAGES) + 1024;  // + slack for 1024-B alignment
 };
 
-// dkv: 128 key rows per block (K and V loaded once), q-tiles of 64 rows
-// streamed with their lse and delta' rows. dK and dV (32 registers each
-// at D 64, 64 at D 128) stay in registers beside S^T and dP^T (32 each).
+// dkv: K and V loaded once, q-tiles of 64 rows streamed with their lse
+// and delta' rows. At D 64 and 128 a block is 128 key rows, consumer c's
+// keys [64c, 64c + 64) over every column: dK and dV (32 registers each at
+// D 64, 64 at D 128) stay in registers beside S^T and dP^T (32 each). At
+// D 256 dK and dV would take 256 registers a thread, so a block is 64 key
+// rows and 128 gradient columns (a grid axis of NCOL = 2 column halves,
+// each block computing S^T and dP^T over all 256 columns); both
+// consumers own those keys and columns, consumer c taking the 32 query
+// rows [32c, 32c + 32) of each q-tile (S^T and dP^T m64n32, 16 registers
+// each; dK and dV 64 each), and consumer 1's sums are added to consumer
+// 0's at the end, in that order. Where a kv head has more than one query
+// head (G > 1: Gemma-2B's 8 heads on 1), HS = 2 blocks of a thread-block
+// cluster split the group's heads, and rank
+// 1's sums are added to rank 0's through distributed shared memory, in
+// that order: still one fixed order for each gradient row, no atomics.
 template <int D>
 struct DkvSmem {
-  static constexpr int BK = 64 * NC;
+  static constexpr bool QSPLIT = D == 256;     // consumers split each q-tile's rows
+  static constexpr int NCOL = QSPLIT ? 2 : 1;  // column chunks over the grid
+  static constexpr int BK = QSPLIT ? 64 : 64 * NC;
   static constexpr int BQ = 64;
-  static constexpr int STAGES = 3;
+  static constexpr int QN = QSPLIT ? BQ / NC : BQ;  // query rows of a q-tile a consumer takes
+  static constexpr int STAGES = QSPLIT ? 2 : 3;
   static constexpr int SUBS = D / 64;
+  static constexpr int CSUBS = SUBS / NCOL;   // gradient sub-tiles a block owns
   static constexpr int KSUB = BK * ROW_BYTES;     // one sub-tile of K or V
   static constexpr int QSUB = BQ * ROW_BYTES;     // one sub-tile of a Q or dO tile
   static constexpr int QTILE = SUBS * QSUB;
@@ -1274,14 +1308,27 @@ struct DkvSmem {
   static constexpr int bytes = BAR + 8 * (1 + 2 * STAGES) + 1024;
 };
 
+// D 256: dq's Q and dO 2 x 64 KB + K and V 3 x 16 KB each = 224 KB of tiles
+// (230,480 bytes with the barriers and the alignment slack); dkv's K and V
+// 2 x 32 KB + Q and dO 2 x 32 KB each + the row arrays 2 x 512 B = 193 KB
+// (198,696 bytes). Registers a consumer: dq's dQ 128 (four m64n64
+// accumulators), S and dP 16 each; dkv's dK and dV 64 each, S^T and dP^T
+// 16 each.
+static_assert(DqSmem<256>::bytes <= SMEM_PER_BLOCK, "the D-256 dq block passes 227 KB");
+static_assert(DkvSmem<256>::bytes <= SMEM_PER_BLOCK, "the D-256 dkv block passes 227 KB");
+static_assert(DqSmem<128>::bytes <= SMEM_PER_BLOCK && DkvSmem<128>::bytes <= SMEM_PER_BLOCK,
+              "a D-128 backward block passes 227 KB");
+
 // d (+)= A B for one k16 step with both operands K-major in shared memory,
-// N = 64 or 128.
+// N = 32, 64 or 128.
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int scale_d) {
   if constexpr (N == 128) {
     wgmma_ss_m64n128(d, da, db, scale_d);
-  } else {
+  } else if constexpr (N == 64) {
     wgmma_ss_m64n64(d, da, db, scale_d);
+  } else {
+    wgmma_ss_m64n32(d, da, db, scale_d);
   }
 }
 
@@ -1497,7 +1544,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   }
 }
 
-template <int D>
+template <int D, int HS>
 __global__ void __launch_bounds__(WG_THREADS, 1)
     flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                                const __grid_constant__ CUtensorMap tm_do,
@@ -1506,7 +1553,9 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
                                const __grid_constant__ CUtensorMap tm_dk,
                                const __grid_constant__ CUtensorMap tm_dv, const Params a) {
   using L = DkvSmem<D>;
+  static_assert(HS == 1 || (L::QSPLIT && HS == 2), "head splits only at D 256, over two blocks");
   constexpr int BQW = L::BQ;
+  constexpr int QN = L::QN;  // query rows of a q-tile this consumer takes
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -1515,8 +1564,13 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   const uint32_t bar_f = bar_kv + 8;              // + 8 * stage
   const uint32_t bar_e = bar_f + 8 * L::STAGES;   // + 8 * stage
 
-  const int kvh = blockIdx.x, b = blockIdx.y;
-  const int k0 = blockIdx.z * L::BK;  // longest causal k-tiles (the first) first
+  // HS blocks of a cluster share a kv head, rank hr walking the group's
+  // heads hr, hr + HS, ...
+  const int kvh = blockIdx.x / HS, hr = HS > 1 ? (int)cluster_ctarank() : 0, b = blockIdx.y;
+  // longest causal k-tiles (the first) first; with column chunks, the
+  // chunk's first sub-tile cs0
+  const int k0 = (blockIdx.z / L::NCOL) * L::BK;
+  const int cs0 = (blockIdx.z % L::NCOL) * L::CSUBS;
   const int n_qt = (a.Tq + BQW - 1) / BQW;
   const int qt0 = a.causal ? k0 / BQW : 0;  // q-tiles wholly above the diagonal see none of these keys
 
@@ -1542,7 +1596,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
         tma_load(base + L::V + j * L::KSUB, &tm_v, bar_kv, 64 * j, kvh, k0, b);
       }
       int i = 0;
-      for (int gi = 0; gi < a.G; ++gi) {
+      for (int gi = hr; gi < a.G; gi += HS) {
         const int h = kvh * a.G + gi;
         const long long rbase = ((long long)b * a.H + h) * a.Tp;
         for (int qt = qt0; qt < n_qt; ++qt, ++i) {
@@ -1565,84 +1619,90 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   } else {
     // ------------------------------------------------------------ consumers
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
-    const int c = tid / 128 - 1;  // keys [64c, 64c + 64) of the k-tile
+    // keys [64c, 64c + 64) of the k-tile and every query of a q-tile, or
+    // (QSPLIT) the block's 64 keys and queries [32c, 32c + 32) of each
+    const int c = tid / 128 - 1;
     const int tw = tid % 128, warp = tw / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
-    const int first = k0 + 64 * c;          // this consumer's first key
+    const int kc = L::QSPLIT ? 0 : c;
+    const int qoff = L::QSPLIT ? QN * c : 0;  // this consumer's first row of a q-tile
+    const int first = k0 + 64 * kc;          // this consumer's first key
     const int key0 = first + 16 * warp + g;  // this thread's keys: key0, key0 + 8
-    const uint32_t k_addr = base + L::K + c * 64 * ROW_BYTES;
-    const uint32_t v_addr = base + L::V + c * 64 * ROW_BYTES;
+    const uint32_t k_addr = base + L::K + kc * 64 * ROW_BYTES;
+    const uint32_t v_addr = base + L::V + kc * 64 * ROW_BYTES;
 
-    float dk[L::SUBS][32], dv[L::SUBS][32];  // one m64n64 accumulator per sub-tile
-    float s[BQW / 2];   // S^T, then P^T: keys x queries
-    float dp[BQW / 2];  // dP^T, then dS^T
+    float dk[L::CSUBS][32], dv[L::CSUBS][32];  // one m64n64 accumulator per sub-tile
+    float s[QN / 2];   // S^T, then P^T: keys x queries
+    float dp[QN / 2];  // dP^T, then dS^T
 #pragma unroll
-    for (int j = 0; j < L::SUBS; ++j)
+    for (int j = 0; j < L::CSUBS; ++j)
 #pragma unroll
       for (int i = 0; i < 32; ++i) dk[j][i] = dv[j][i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < BQW / 2; ++i) s[i] = dp[i] = 0.f;
+    for (int i = 0; i < QN / 2; ++i) s[i] = dp[i] = 0.f;
 
     mbar_wait(bar_kv, 0);
     int i = 0;
-    for (int gi = 0; gi < a.G; ++gi) {
+    for (int gi = hr; gi < a.G; gi += HS) {
       for (int qt = qt0; qt < n_qt; ++qt, ++i) {
         const int st = i % L::STAGES;
         const uint32_t parity = (i / L::STAGES) & 1;
         const int q0 = qt * BQW;
+        const int qc = q0 + qoff;  // this consumer's first query of the tile
         mbar_wait(bar_f + 8 * st, parity);
-        if (a.causal && q0 + BQW - 1 < first) {  // every query before every key of this consumer
+        if (a.causal && qc + QN - 1 < first) {  // every query before every key of this consumer
           mbar_arrive(bar_e + 8 * st);
           continue;
         }
-        const uint32_t q_addr = base + L::Q + st * L::QTILE;
-        const uint32_t do_addr = base + L::DO + st * L::QTILE;
-        const float* rows = reinterpret_cast<const float*>(smem + L::ROWS + st * L::ROWS_BYTES);
-        fence_regs<BQW / 2>(s);
-        fence_regs<BQW / 2>(dp);
+        const uint32_t q_addr = base + L::Q + st * L::QTILE + qoff * ROW_BYTES;
+        const uint32_t do_addr = base + L::DO + st * L::QTILE + qoff * ROW_BYTES;
+        const float* rows = reinterpret_cast<const float*>(smem + L::ROWS + st * L::ROWS_BYTES) + qoff;
+        fence_regs<QN / 2>(s);
+        fence_regs<QN / 2>(dp);
         wgmma_fence();
-        issue_abt<D, BQW>(s, k_addr, L::KSUB, q_addr, L::QSUB);
-        issue_abt<D, BQW>(dp, v_addr, L::KSUB, do_addr, L::QSUB);
+        issue_abt<D, QN>(s, k_addr, L::KSUB, q_addr, L::QSUB);
+        issue_abt<D, QN>(dp, v_addr, L::KSUB, do_addr, L::QSUB);
         wgmma_wait<1>();
-        fence_regs<BQW / 2>(s);
+        fence_regs<QN / 2>(s);
         // P^T: each thread's columns are the queries 8j + 2t and 8j + 2t + 1
-        const bool masked = a.causal && q0 < first + 63;  // some key of this consumer past a query
+        const bool masked = a.causal && qc < first + 63;  // some key of this consumer past a query
 #pragma unroll
-        for (int j = 0; j < BQW / 8; ++j) {
+        for (int j = 0; j < QN / 8; ++j) {
           const float2 l2 = *reinterpret_cast<const float2*>(rows + 8 * j + 2 * t);
           const float nl[2] = {-l2.x * LOG2E, -l2.y * LOG2E};
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             float x = s[4 * j + e];
-            if (masked && key0 + 8 * (e >> 1) > q0 + 8 * j + 2 * t + (e & 1)) x = -INFINITY;
+            if (masked && key0 + 8 * (e >> 1) > qc + 8 * j + 2 * t + (e & 1)) x = -INFINITY;
             s[4 * j + e] = ex2(fmaf(x, a.scale_log2, nl[e & 1]));
           }
         }
         wgmma_wait<0>();
-        fence_regs<BQW / 2>(dp);
+        fence_regs<QN / 2>(dp);
         // dS^T = P^T (dP^T - delta') scale
 #pragma unroll
-        for (int j = 0; j < BQW / 8; ++j) {
+        for (int j = 0; j < QN / 8; ++j) {
           const float2 d2 = *reinterpret_cast<const float2*>(rows + BQW + 8 * j + 2 * t);
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? d2.y : d2.x)) * a.scale;
         }
         // P^T in dO's dtype and dS^T in Q's, as A registers
-        uint32_t pa[BQW / 16][4], da[BQW / 16][4];
-        pack_a<BQW / 16>(pa, s);
-        pack_a<BQW / 16>(da, dp);
+        uint32_t pa[QN / 16][4], da[QN / 16][4];
+        pack_a<QN / 16>(pa, s);
+        pack_a<QN / 16>(da, dp);
 #pragma unroll
-        for (int j = 0; j < L::SUBS; ++j) {
+        for (int j = 0; j < L::CSUBS; ++j) {
           fence_regs<32>(dv[j]);
           fence_regs<32>(dk[j]);
         }
         wgmma_fence();
-        issue_rs<L::SUBS, BQW / 16>(dv, pa, do_addr, L::QSUB);  // dV += P^T dO
-        issue_rs<L::SUBS, BQW / 16>(dk, da, q_addr, L::QSUB);   // dK += dS^T Q
+        // dV += P^T dO, dK += dS^T Q over the block's gradient sub-tiles
+        issue_rs<L::CSUBS, QN / 16>(dv, pa, do_addr + cs0 * L::QSUB, L::QSUB);
+        issue_rs<L::CSUBS, QN / 16>(dk, da, q_addr + cs0 * L::QSUB, L::QSUB);
         wgmma_commit();
         wgmma_wait<0>();
 #pragma unroll
-        for (int j = 0; j < L::SUBS; ++j) {
+        for (int j = 0; j < L::CSUBS; ++j) {
           fence_regs<32>(dv[j]);
           fence_regs<32>(dk[j]);
         }
@@ -1650,17 +1710,76 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       }
     }
 
+    if constexpr (L::QSPLIT) {
+      // consumer 1's dK and dV into the Q/dO ring (every tile there read
+      // once both consumers pass the first barrier), added to consumer 0's
+      // in that order: one fixed order for each gradient row. Each thread
+      // moves its own registers, so both consumers' fragments line up.
+      float* part = reinterpret_cast<float*>(smem + L::Q);
+      static_assert(2 * L::CSUBS * 32 * 128 * 4 <= 2 * L::STAGES * L::QTILE, "partials past the ring");
+      asm volatile("bar.sync 3, 256;\n" ::: "memory");
+      if (c == 1) {
+#pragma unroll
+        for (int j = 0; j < L::CSUBS; ++j)
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            part[((2 * j) * 32 + i) * 128 + tw] = dk[j][i];
+            part[((2 * j + 1) * 32 + i) * 128 + tw] = dv[j][i];
+          }
+      }
+      asm volatile("bar.sync 3, 256;\n" ::: "memory");
+      if (c == 1) return;
+#pragma unroll
+      for (int j = 0; j < L::CSUBS; ++j)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          dk[j][i] += part[((2 * j) * 32 + i) * 128 + tw];
+          dv[j][i] += part[((2 * j + 1) * 32 + i) * 128 + tw];
+        }
+      if constexpr (HS > 1) {
+        // rank 1's sums into rank 0's ring, past the slot just read, once
+        // both ranks are past their loops; rank 0 adds them after its own
+        constexpr int SLOT = 2 * L::CSUBS * 32 * 128;  // floats of one rank's sums
+        static_assert(2 * SLOT * 4 <= 2 * L::STAGES * L::QTILE, "a rank's sums past the ring");
+        cluster_sync();
+        if (hr == 1) {
+          const uint32_t dst = map_shared_rank(smem_u32(part + SLOT), 0);
+#pragma unroll
+          for (int j = 0; j < L::CSUBS; ++j)
+#pragma unroll
+            for (int i = 0; i < 32; i += 4) {
+              st_cluster_v4(dst + ((((2 * j) * 32 + i) / 4 * 128 + tw) << 4), dk[j][i], dk[j][i + 1], dk[j][i + 2],
+                            dk[j][i + 3]);
+              st_cluster_v4(dst + ((((2 * j + 1) * 32 + i) / 4 * 128 + tw) << 4), dv[j][i], dv[j][i + 1],
+                            dv[j][i + 2], dv[j][i + 3]);
+            }
+        }
+        cluster_sync();
+        if (hr == 1) return;
+        const float4* other = reinterpret_cast<const float4*>(part + SLOT);
+#pragma unroll
+        for (int j = 0; j < L::CSUBS; ++j)
+#pragma unroll
+          for (int i = 0; i < 32; i += 4) {
+            const float4 k4 = other[((2 * j) * 32 + i) / 4 * 128 + tw];
+            const float4 v4 = other[((2 * j + 1) * 32 + i) / 4 * 128 + tw];
+            dk[j][i] += k4.x, dk[j][i + 1] += k4.y, dk[j][i + 2] += k4.z, dk[j][i + 3] += k4.w;
+            dv[j][i] += v4.x, dv[j][i + 1] += v4.y, dv[j][i + 2] += v4.z, dv[j][i + 3] += v4.w;
+          }
+      }
+    }
+
     // epilogue: dK and dV as bf16 into this consumer's own K and V rows
     // (no longer read), TMA stores; rows past Tk are clipped
-    stage_out<L::SUBS>(smem + L::K + c * 64 * ROW_BYTES, L::KSUB, dk, warp, g, t);
-    stage_out<L::SUBS>(smem + L::V + c * 64 * ROW_BYTES, L::KSUB, dv, warp, g, t);
+    stage_out<L::CSUBS>(smem + L::K + kc * 64 * ROW_BYTES, L::KSUB, dk, warp, g, t);
+    stage_out<L::CSUBS>(smem + L::V + kc * 64 * ROW_BYTES, L::KSUB, dv, warp, g, t);
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
     if (tw == 0) {
 #pragma unroll
-      for (int j = 0; j < L::SUBS; ++j) {
-        tma_store(&tm_dk, k_addr + j * L::KSUB, 64 * j, kvh, first, b);
-        tma_store(&tm_dv, v_addr + j * L::KSUB, 64 * j, kvh, first, b);
+      for (int j = 0; j < L::CSUBS; ++j) {
+        tma_store(&tm_dk, k_addr + j * L::KSUB, 64 * (cs0 + j), kvh, first, b);
+        tma_store(&tm_dv, v_addr + j * L::KSUB, 64 * (cs0 + j), kvh, first, b);
       }
       asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
       asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
@@ -1668,19 +1787,61 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   }
 }
 
+template <int D, int HS>
+int launch_dkv(const Args& a, int B, int d, const Params& base, cudaStream_t stream) {
+  using L = DkvSmem<D>;
+  int err;
+  CUtensorMap tq, tdo, tk, tv, tdk, tdv;
+  if ((err = encode_map(&tq, a.q, d, a.H, a.Tq, B, a.qsh, a.qst, a.qsb, L::BQ))) return err;
+  if ((err = encode_map(&tdo, a.dout, d, a.H, a.Tq, B, a.dsh, a.dst, a.dsb, L::BQ))) return err;
+  if ((err = encode_map(&tk, a.k, d, a.KV, a.Tk, B, a.ksh, a.kst, a.ksb, L::BK))) return err;
+  if ((err = encode_map(&tv, a.v, d, a.KV, a.Tk, B, a.vsh, a.vst, a.vsb, L::BK))) return err;
+  // dk and dv are contiguous [B, Tk, KV, d]
+  const long long st = (long long)a.KV * d, sb = (long long)a.Tk * a.KV * d;
+  if ((err = encode_map(&tdk, a.dk, d, a.KV, a.Tk, B, d, st, sb, 64))) return err;
+  if ((err = encode_map(&tdv, a.dv, d, a.KV, a.Tk, B, d, st, sb, 64))) return err;
+  Params p = base;
+  p.n_tiles = (a.Tk + L::BK - 1) / L::BK;
+  auto kernel = flash_bwd_dkv_wgmma_kernel<D, HS>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(a.KV * HS, B, p.n_tiles * L::NCOL);
+  if constexpr (HS == 1) {
+    kernel<<<grid, WG_THREADS, L::bytes, stream>>>(tq, tdo, tk, tv, tdk, tdv, p);
+  } else {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(WG_THREADS);
+    cfg.dynamicSmemBytes = L::bytes;
+    cfg.stream = stream;
+    cudaLaunchAttribute cluster[1];
+    cluster[0].id = cudaLaunchAttributeClusterDimension;
+    cluster[0].val.clusterDim.x = HS;  // the HS blocks of one kv head
+    cluster[0].val.clusterDim.y = 1;
+    cluster[0].val.clusterDim.z = 1;
+    cfg.attrs = cluster;
+    cfg.numAttrs = 1;
+    if ((e = cudaLaunchKernelEx(&cfg, kernel, tq, tdo, tk, tv, tdk, tdv, p)) != cudaSuccess) return (int)e;
+  }
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 int launch(const Args& a, int B, int parts, cudaStream_t stream) {
   int err;
   const Params base{a.lse, a.delta, a.H, a.G, a.Tq, a.Tk, a.Tp, 0, a.scale, a.scale * LOG2E, a.causal};
+  // every map's innermost extent is d: a box's columns past it arrive as
+  // zeros (and count toward the expected bytes), a store stops at it
+  const int d = a.d;
   if (parts & 1) {
     using L = DqSmem<D>;
     CUtensorMap tq, tdo, tk, tv, tdq;
-    if ((err = encode_map(&tq, a.q, D, a.H, a.Tq, B, a.qsh, a.qst, a.qsb, L::BQ))) return err;
-    if ((err = encode_map(&tdo, a.dout, D, a.H, a.Tq, B, a.dsh, a.dst, a.dsb, L::BQ))) return err;
-    if ((err = encode_map(&tk, a.k, D, a.KV, a.Tk, B, a.ksh, a.kst, a.ksb, L::BN))) return err;
-    if ((err = encode_map(&tv, a.v, D, a.KV, a.Tk, B, a.vsh, a.vst, a.vsb, L::BN))) return err;
-    // dq is contiguous [B, Tq, H, D]; each consumer stores its 64 rows
-    if ((err = encode_map(&tdq, a.dq, D, a.H, a.Tq, B, D, (long long)a.H * D, (long long)a.Tq * a.H * D, 64)))
+    if ((err = encode_map(&tq, a.q, d, a.H, a.Tq, B, a.qsh, a.qst, a.qsb, L::BQ))) return err;
+    if ((err = encode_map(&tdo, a.dout, d, a.H, a.Tq, B, a.dsh, a.dst, a.dsb, L::BQ))) return err;
+    if ((err = encode_map(&tk, a.k, d, a.KV, a.Tk, B, a.ksh, a.kst, a.ksb, L::BN))) return err;
+    if ((err = encode_map(&tv, a.v, d, a.KV, a.Tk, B, a.vsh, a.vst, a.vsb, L::BN))) return err;
+    // dq is contiguous [B, Tq, H, d]; each consumer stores its 64 rows
+    if ((err = encode_map(&tdq, a.dq, d, a.H, a.Tq, B, d, (long long)a.H * d, (long long)a.Tq * a.H * d, 64)))
       return err;
     Params p = base;
     p.n_tiles = (a.Tq + L::BQ - 1) / L::BQ;
@@ -1691,23 +1852,14 @@ int launch(const Args& a, int B, int parts, cudaStream_t stream) {
     if ((err = (int)cudaGetLastError())) return err;
   }
   if (parts & 2) {
-    using L = DkvSmem<D>;
-    CUtensorMap tq, tdo, tk, tv, tdk, tdv;
-    if ((err = encode_map(&tq, a.q, D, a.H, a.Tq, B, a.qsh, a.qst, a.qsb, L::BQ))) return err;
-    if ((err = encode_map(&tdo, a.dout, D, a.H, a.Tq, B, a.dsh, a.dst, a.dsb, L::BQ))) return err;
-    if ((err = encode_map(&tk, a.k, D, a.KV, a.Tk, B, a.ksh, a.kst, a.ksb, L::BK))) return err;
-    if ((err = encode_map(&tv, a.v, D, a.KV, a.Tk, B, a.vsh, a.vst, a.vsb, L::BK))) return err;
-    // dk and dv are contiguous [B, Tk, KV, D]
-    const long long st = (long long)a.KV * D, sb = (long long)a.Tk * a.KV * D;
-    if ((err = encode_map(&tdk, a.dk, D, a.KV, a.Tk, B, D, st, sb, 64))) return err;
-    if ((err = encode_map(&tdv, a.dv, D, a.KV, a.Tk, B, D, st, sb, 64))) return err;
-    Params p = base;
-    p.n_tiles = (a.Tk + L::BK - 1) / L::BK;
-    auto kernel = flash_bwd_dkv_wgmma_kernel<D>;
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
-    if (e != cudaSuccess) return (int)e;
-    kernel<<<dim3(a.KV, B, p.n_tiles), WG_THREADS, L::bytes, stream>>>(tq, tdo, tk, tv, tdk, tdv, p);
-    if ((err = (int)cudaGetLastError())) return err;
+    if constexpr (D == 256) {
+      // two blocks a kv head split its group's heads where it has more
+      // than one (ops/flash_attention.py::dkv_split says the same)
+      err = a.G > 1 ? launch_dkv<256, 2>(a, B, d, base, stream) : launch_dkv<256, 1>(a, B, d, base, stream);
+    } else {
+      err = launch_dkv<D, 1>(a, B, d, base, stream);
+    }
+    if (err) return err;
   }
   return 0;
 }
@@ -1726,8 +1878,14 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* dout, con
          H, H / KV, KV, Tq, Tk, Tp, D,
          qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, dsb, dst, dsh, scale, causal};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16 && wgmma && D == 64) return wg::launch<64>(a, B, parts, s);
-  if (is_bf16 && wgmma && D == 128) return wg::launch<128>(a, B, parts, s);
+  if (is_bf16 && wgmma) {
+    switch (hopper::wgmma_head_dim(D)) {
+      case 64: return wg::launch<64>(a, B, parts, s);
+      case 128: return wg::launch<128>(a, B, parts, s);
+      case 256: return wg::launch<256>(a, B, parts, s);
+      default: break;  // D <= 48, D % 8 != 0 or past 256
+    }
+  }
   switch (hopper::native_head_dim(D)) {
     case 16: return launch<16>(a, B, is_bf16, parts, s);
     case 32: return launch<32>(a, B, is_bf16, parts, s);
@@ -1772,10 +1930,12 @@ extern "C" int dml_flash_bwd_rows(const void* out, const void* dout, const void*
 }
 
 // dq, dk and dv given the row arrays, on the kernels for (dtype, D): wgmma
-// + TMA for bf16 at D 64 and 128, mma.sync for bf16 at every other D, FMAs
-// for float32, each at the native width >= D up to 256 and on the chunked
-// route past it (cudaErrorInvalidValue at D < 1). parts: 1 = the dq kernel, 2 = the dkv
-// kernel, 3 = both.
+// + TMA for bf16 at 48 < D <= 256 with D a multiple of 8, as the TMA
+// stores need rows of whole 16-byte units (at width 64, 128 or 256),
+// mma.sync for bf16 at every other D up to 256, FMAs for float32, each at
+// the native width >= D up to 256 and on the chunked route past it
+// (cudaErrorInvalidValue at D < 1).
+// parts: 1 = the dq kernel, 2 = the dkv kernel, 3 = both.
 extern "C" int dml_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse_r, const void* delta_r,
                              void* dq, void* dk, void* dv,

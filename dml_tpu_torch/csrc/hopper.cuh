@@ -37,6 +37,16 @@ __host__ __device__ constexpr int native_head_dim(int d) {
        : d <= 96 ? 96 : d <= 128 ? 128 : d <= WIDEST_NATIVE ? WIDEST_NATIVE : 0;
 }
 
+// The width of the wgmma + TMA kernels (bf16) for a head dim d: the least
+// of 64, 128 and 256 at or above d for 48 < d <= 256 with d % 8 == 0, the
+// tensor maps' innermost extent d (a box's columns past d arrive as zeros;
+// a store stops at d); 0 at other d, which take the mma.sync kernels (d <=
+// 48, and d % 8 != 0: a TMA row stride must be whole 16-byte units, and
+// out, dq, dk and dv are d wide) or the chunked route.
+__host__ __device__ constexpr int wgmma_head_dim(int d) {
+  return d <= 48 || d > WIDEST_NATIVE || d % 8 ? 0 : d <= 64 ? 64 : d <= 128 ? 128 : 256;
+}
+
 // Columns c and c + 1 of a bf16 output row of d columns: the pair as one
 // 4-byte store where d is even (c is even, so the pair is aligned), else
 // each column apart; columns at d and beyond are not written.
@@ -51,6 +61,31 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* row, int c, int d, flo
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Thread-block clusters: this block's rank, a barrier over every thread of
+// the cluster that has not exited (release, then acquire), the address in
+// block `rank`'s shared memory of a local shared address, and a 16-byte
+// store there.
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\nbarrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t map_shared_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void st_cluster_v4(uint32_t addr, float a, float b, float c, float d) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(a), "f"(b), "f"(c), "f"(d)
+               : "memory");
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -176,6 +211,18 @@ __device__ __forceinline__ void wgmma_ss_m64n128(float* d, uint64_t da, uint64_t
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d[16] (+)= A B for one k16 step, m64n32k16 bf16 -> f32, A and B both
+// K-major in shared memory; scale_d = 0 starts the sum from zero.
+__device__ __forceinline__ void wgmma_ss_m64n32(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d[32] (+)= A B for one k16 step, m64n64k16 bf16 -> f32, A and B both
 // K-major in shared memory; scale_d = 0 starts the sum from zero.
 __device__ __forceinline__ void wgmma_ss_m64n64(float* d, uint64_t da, uint64_t db, int scale_d) {
@@ -199,6 +246,18 @@ __device__ __forceinline__ void wgmma_rs_m64n64_tb(float* d, const uint32_t* a, 
       "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The card's SM count (read once), or 0 where the runtime cannot say.
+inline int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      sms = 0;
+  }
+  return sms;
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,

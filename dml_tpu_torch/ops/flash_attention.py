@@ -9,14 +9,18 @@ built with nvcc for sm_90a at first use and called through ctypes.
 
 Routes follow from the dtype and the head dim alone (`kernel_route`,
 one rule for the forward and the backward):
-bf16 at D 64 and 128, every main-path shape, runs warp-specialized
+bf16 at 48 < D <= 256 with D a multiple of 8, every main-path shape (D
+64) and the public LMs' 80, 96 and 256 among them, runs warp-specialized
 kernels (a TMA producer streaming tiles through a shared-memory ring,
-consumer warpgroups on `wgmma`, P and dS kept in registers); bf16 at
-every other D runs `mma.sync` kernels; float32 runs plain FMAs. The
-kernels take every head dim D >= 1, as the JAX kernels' full-D block
-does: a D up to 256 runs on the least native width >= D
-(`NATIVE_HEAD_DIMS`), its columns past D read as zeros and never
-written, which is exact. Past 256 no block holds a whole row (the
+consumer warpgroups on `wgmma`, P and dS kept in registers) at width 64,
+128 or 256 (`WGMMA_HEAD_DIMS`); every other bf16 D up to 256 runs
+`mma.sync` kernels (D <= 48, and a D % 8 != 0, since the wgmma kernels
+store their D-wide outputs by TMA, whose rows must be whole 16-byte
+units); float32 runs plain FMAs. The kernels take every head dim D >= 1,
+as the JAX kernels' full-D block does: a D up to 256 runs on the least
+width >= D of its route (`NATIVE_HEAD_DIMS` off the wgmma route), its
+columns past D read as zeros and never written, which is exact. Past 256
+no block holds a whole row (the
 forward's accumulator alone would need D / 2 float32 registers a
 thread), so the chunked route splits the output's columns over a grid
 axis (FWD_CHUNK columns a block forward, BWD_CHUNK backward), each block reducing Q K^T (and dO V^T) over the whole of D in
@@ -54,6 +58,7 @@ dk and dv, which is the repeat's gradient.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import threading
 from typing import NamedTuple, Optional, Tuple
@@ -61,9 +66,15 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 NEG_INF = -1e30
-#: the widths the kernels are built at (csrc/hopper.cuh::native_head_dim):
-#: a head dim D runs on the least of them >= D
+#: the widths the mma.sync and FMA kernels are built at
+#: (csrc/hopper.cuh::native_head_dim): a head dim D runs on the least of
+#: them >= D
 NATIVE_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 128, 256)
+#: the widths of the bf16 wgmma + TMA kernels (csrc/hopper.cuh::
+#: wgmma_head_dim), which take every bf16 D past WGMMA_MIN_HEAD_DIM up to
+#: 256 that is a multiple of 8
+WGMMA_HEAD_DIMS = (64, 128, 256)
+WGMMA_MIN_HEAD_DIM = 48
 #: past the widest native width, the chunked route's output columns a
 #: block (csrc/flash_attention.cu::CHUNK, csrc/flash_attention_bwd.cu::CHUNK)
 FWD_CHUNK = 256
@@ -77,6 +88,10 @@ _DTYPES = (torch.bfloat16, torch.float32)
 flash_launches = 0
 flash_bwd_launches = 0
 flash_bwd_delta_launches = 0
+#: the forward and backward launches again, by the kernels they ran:
+#: (direction "fwd" or "bwd", route kind, width, dkv split) -> count, the
+#: split being `dkv_split` (1 forward); cleared with the counts above
+route_launches: collections.Counter = collections.Counter()
 #: the backward's row arrays (lse, delta) are padded to a multiple of this
 ROW_PAD = 128
 _count_lock = threading.Lock()
@@ -104,10 +119,10 @@ class Route(NamedTuple):
 
 
 def native_head_dim(head_dim: int, backward: bool = False) -> int:
-    """The columns one block computes, as the C entry points pick them:
-    the least native width >= head_dim, or past the widest the chunked
-    route's column chunk of that direction (FWD_CHUNK, BWD_CHUNK). Raises
-    below 1."""
+    """The columns one block of the mma.sync and FMA kernels computes, as
+    the C entry points pick them: the least native width >= head_dim, or
+    past the widest the chunked route's column chunk of that direction
+    (FWD_CHUNK, BWD_CHUNK). Raises below 1."""
     if head_dim < 1:
         raise ValueError(f"no flash attention kernel at head_dim {head_dim}: "
                          "the kernels take head_dim >= 1")
@@ -119,15 +134,19 @@ def native_head_dim(head_dim: int, backward: bool = False) -> int:
 def kernel_route(dtype: torch.dtype, head_dim: int, backward: bool = False) -> Route:
     """The kernels that `dml_flash_fwd` and `dml_flash_bwd` launch for
     (dtype, D), as the C entry points pick them, and the width they run
-    at: "wgmma+tma" for bf16 at D 64 and 128, "mma.sync" for bf16 at
-    every other D up to 256, "fma" for float32, each at
-    `native_head_dim(D)`; past 256 the chunked route ("mma.sync chunked",
-    "fma chunked") at its column chunk (`backward` picks the backward's)."""
+    at: "wgmma+tma" for bf16 at 48 < D <= 256 with D % 8 == 0, at the
+    least of `WGMMA_HEAD_DIMS` >= D (64, 128 or 256); "mma.sync" for
+    every other bf16 D up to 256 and "fma" for float32, each at
+    `native_head_dim(D)`; past 256
+    the chunked route ("mma.sync chunked", "fma chunked") at its column
+    chunk (`backward` picks the backward's)."""
     if dtype not in _DTYPES:
         raise ValueError(f"no flash attention kernel for {dtype} at head_dim {head_dim}")
     width = native_head_dim(head_dim, backward)
-    kind = "fma" if dtype == torch.float32 else (
-        "wgmma+tma" if head_dim in (64, 128) else "mma.sync")
+    if (dtype == torch.bfloat16 and WGMMA_MIN_HEAD_DIM < head_dim <= WGMMA_HEAD_DIMS[-1]
+            and head_dim % 8 == 0):
+        return Route("wgmma+tma", next(w for w in WGMMA_HEAD_DIMS if w >= head_dim))
+    kind = "fma" if dtype == torch.float32 else "mma.sync"
     return Route(kind + " chunked" if head_dim > NATIVE_HEAD_DIMS[-1] else kind, width)
 
 
@@ -298,6 +317,23 @@ def _kernel_view(x: torch.Tensor) -> torch.Tensor:
     return x if ok else x.clone(memory_format=torch.contiguous_format)
 
 
+def dkv_split(route: Route, group: int) -> int:
+    """The blocks that share one kv head's group of `group` query heads in
+    the dkv kernel on `route` (csrc/flash_attention_bwd.cu, launch<256>):
+    2 on the wgmma route at width 256 where the group has more than one
+    head (a thread-block cluster, flash_bwd_dkv_wgmma_kernel<256, 2>),
+    else 1."""
+    return 2 if route == ("wgmma+tma", 256) and group > 1 else 1
+
+
+def _count(direction: str, dtype: torch.dtype, d: int, mma_sync: bool, group: int = 1) -> None:
+    """Count one launch in `route_launches`, under the kernels it ran."""
+    route = (Route("mma.sync", native_head_dim(d)) if mma_sync
+             else kernel_route(dtype, d, direction == "bwd"))
+    split = dkv_split(route, group) if direction == "bwd" else 1
+    route_launches[(direction, route.kind, route.width, split)] += 1
+
+
 def _check_cuda(q, k, v):
     native_head_dim(q.shape[3])  # raises at D < 1
     if not (k.device == v.device == q.device):
@@ -332,6 +368,7 @@ def _flash_cuda(q, k, v, causal, scale, mma_sync=False):
                            "(a cudaError, or 10000 + the CUresult of a tensor map)")
     with _count_lock:
         flash_launches += 1
+        _count("fwd", q.dtype, d, mma_sync)
     return out, lse
 
 
@@ -409,6 +446,7 @@ def _flash_bwd_cuda(q, k, v, dout, lse_r, delta_r, causal, scale, parts=3, mma_s
                            "(a cudaError, or 10000 + the CUresult of a tensor map)")
     with _count_lock:
         flash_bwd_launches += 1
+        _count("bwd", q.dtype, d, mma_sync, h // kv)
     return dq, dk, dv
 
 

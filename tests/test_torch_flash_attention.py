@@ -161,11 +161,23 @@ def test_gqa4_strided_v_matches_jax():
     np.testing.assert_allclose(lse.numpy(), np.asarray(j_lse), atol=1e-4)
 
 
+# bf16 past D 48 up to 256 runs the wgmma + TMA kernels at the least of
+# 64, 128 and 256 >= D (Phi-2's 80, Phi-3-mini's 96, Gemma-2B's 256)
+# where D is a multiple of 8 (the TMA stores' rows are whole 16-byte
+# units); every other bf16 D mma.sync and float32 FMAs at the least native
+# width >= D
 ROUTES = [
     (torch.bfloat16, 16, ("mma.sync", 16)), (torch.bfloat16, 32, ("mma.sync", 32)),
-    (torch.bfloat16, 64, ("wgmma+tma", 64)), (torch.bfloat16, 128, ("wgmma+tma", 128)),
+    (torch.bfloat16, 48, ("mma.sync", 48)), (torch.bfloat16, 56, ("wgmma+tma", 64)),
+    (torch.bfloat16, 64, ("wgmma+tma", 64)), (torch.bfloat16, 80, ("wgmma+tma", 128)),
+    (torch.bfloat16, 96, ("wgmma+tma", 128)), (torch.bfloat16, 128, ("wgmma+tma", 128)),
+    (torch.bfloat16, 136, ("wgmma+tma", 256)), (torch.bfloat16, 200, ("wgmma+tma", 256)),
+    (torch.bfloat16, 256, ("wgmma+tma", 256)),
+    (torch.bfloat16, 50, ("mma.sync", 64)), (torch.bfloat16, 100, ("mma.sync", 128)),
+    (torch.bfloat16, 129, ("mma.sync", 256)), (torch.bfloat16, 201, ("mma.sync", 256)),
     (torch.float32, 16, ("fma", 16)), (torch.float32, 32, ("fma", 32)),
-    (torch.float32, 64, ("fma", 64)), (torch.float32, 128, ("fma", 128)),
+    (torch.float32, 64, ("fma", 64)), (torch.float32, 80, ("fma", 80)),
+    (torch.float32, 128, ("fma", 128)), (torch.float32, 256, ("fma", 256)),
 ]
 
 
@@ -177,7 +189,24 @@ def test_kernel_route_by_dtype_and_head_dim(dtype, d, route):
 @pytest.mark.parametrize("dtype,d,route", ROUTES)
 def test_bwd_kernel_route_by_dtype_and_head_dim(dtype, d, route):
     # dml_flash_bwd picks its kernels by the forward's rule: one table
-    assert fa.kernel_route(dtype, d) == route
+    assert fa.kernel_route(dtype, d, backward=True) == route
+
+
+# the dkv kernel's blocks a kv head, as the backward's launch counts key
+# them: a two-block cluster only on the wgmma route at width 256 with more
+# than one query head a kv head (Gemma-2B's 8 on 1)
+@pytest.mark.parametrize("dtype,d,group,split", [
+    (torch.bfloat16, 256, 8, 2), (torch.bfloat16, 200, 2, 2), (torch.bfloat16, 256, 1, 1),
+    (torch.bfloat16, 96, 2, 1), (torch.bfloat16, 64, 4, 1), (torch.bfloat16, 201, 2, 1),
+    (torch.float32, 256, 8, 1), (torch.bfloat16, 512, 2, 1),
+], ids=["gemma2b_d256", "d200_gqa2", "d256_mha", "d96_gqa2", "d64_gqa4", "odd_d201_mma_sync",
+        "f32_d256", "d512_chunked"])
+def test_dkv_split_by_route_and_group(dtype, d, group, split):
+    route = fa.kernel_route(dtype, d, backward=True)
+    assert fa.dkv_split(route, group) == split
+    before = fa.route_launches.copy()
+    fa._count("bwd", dtype, d, False, group)
+    assert fa.route_launches - before == {("bwd", route.kind, route.width, split): 1}
 
 
 # D 0 and float16 have no kernel; a D past the widest native width (257)

@@ -201,11 +201,13 @@ def test_routes_give_a_native_width_for_every_head_dim_and_raise_past_256(case):
         for d in range(1, 257):
             for dtype in (torch.float32, torch.bfloat16):
                 route = fa.kernel_route(dtype, d)
-                assert route.width == min(w for w in fa.NATIVE_HEAD_DIMS if w >= d)
-                if dtype == torch.float32:
-                    assert route.kind == "fma"
+                if dtype == torch.bfloat16 and d > 48 and d % 8 == 0:
+                    # the wgmma + TMA kernels at 64, 128 or 256, the least >= d
+                    assert route == ("wgmma+tma", min(w for w in fa.WGMMA_HEAD_DIMS if w >= d))
                 else:
-                    assert route.kind == ("wgmma+tma" if d in (64, 128) else "mma.sync")
+                    assert route.width == min(w for w in fa.NATIVE_HEAD_DIMS if w >= d)
+                    assert route.kind == ("fma" if dtype == torch.float32 else "mma.sync")
+                assert fa.kernel_route(dtype, d, backward=True) == route
             for itemsize, quantized in ((4, False), (2, False), (1, True)):
                 plan = da.split_plan(2, 1, 100, d, 71, itemsize, quantized, 132)
                 assert plan.width == min(w for w in da.ROW_WIDTHS if w >= d)
