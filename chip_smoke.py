@@ -24,14 +24,16 @@ script started); any failure exits non-zero:
 
 1. device: the card's name, capability (must be 9.x, Hopper) and power
    limit;
-2. build: nvcc builds the four kernel libraries (normalize, flash
-   attention forward and backward, decode attention) from
-   dml_tpu_torch/csrc/, and g++ the native JPEG loader
-   (dml_tpu_torch/native/), all started together, with seconds for each;
-   beside them ptxas reports the normalize, flash forward, backward and
-   decode kernels (registers, spills; one `ptxas` line per source, with
-   the wgmma kernels' setmaxnreg counts); a spill in a wgmma kernel or
-   in any normalize or decode kernel fails;
+2. build: nvcc builds the five kernel libraries (normalize, flash
+   attention forward, backward (bf16) and backward (float32, split TF32),
+   decode attention) from dml_tpu_torch/csrc/, and g++ the native JPEG
+   loader (dml_tpu_torch/native/), all started together; phases 3-5 start
+   once normalize and the loader are built, and the attention libraries
+   finish behind them (the `build` line, with seconds for each, comes
+   after phase 5); each build's own `-Xptxas -v` output reports its
+   kernels (registers, spills; one `ptxas` line per source, with the
+   wgmma kernels' setmaxnreg counts); a spill in a wgmma or split-TF32
+   kernel or in any normalize or decode kernel fails;
 3. kernel: the normalize kernel (K1) against its plain PyTorch version
    on the card, in every mode (caffe, tf, unit) and output dtype (bf16,
    f32), at [32,224,224,3], [32,299,299,3] and the pixel counts that
@@ -63,7 +65,7 @@ script started); any failure exits non-zero:
    sum to 1; top-1 must match the same module fed by the plain
    normalize, and, on 4 images, the port's float32 CPU engine (both the
    bf16 engine and a float32 CUDA engine with TF32 off). Per-batch
-   latency p50/p90/p99 over 1000 batches and images/s at batch 32, the
+   latency p50/p90/p99 over 200 batches and images/s at batch 32, the
    device time of one forward, and a torch.profiler breakdown of where
    a batch's time goes, with the normalize kernel's share of the busy
    time and the device operations that follow it into the stem conv;
@@ -82,7 +84,8 @@ script started); any failure exits non-zero:
    bench's ShardLM and its draft, phase 23); the head dims
    past 64/128 (`HEAD_DIM_FLASH_CASES`): Phi-2's prefill [1,2048,32,80],
    Phi-3-mini's [1,2048,32,96], Gemma-2B's (q [1,2048,8,256], k/v one
-   head), ShardLM's D 96 and its draft's D 48 in both dtypes, a D-80
+   head), ShardLM's D 96 and its draft's D 48 in both dtypes (ShardLM's
+   float32 training shape too, [2,512,4,96] with k/v repeated), a D-80
    target's D-40 draft in both, the JAX tests' D 8 in both, an odd D 20
    at one head (the wrapper's zero-padded copy, timed alone beside the
    call as `copy_ms`), D 200 cross attention, D 56 at the LM's B=8
@@ -92,10 +95,12 @@ script started); any failure exits non-zero:
    route and its width (64, 128 or 256) and shows, from one
    torch.profiler trace of all such cases (three calls each), that
    `flash_fwd_wgmma_kernel` at that width ran (with three consumers at
-   D 56); past 256
+   D 56), and every float32 case its split-TF32 instance
+   (`flash_fwd_tf32_kernel<W>`, `flash_fwd_tf32_wide_kernel` past 256),
+   a second call bit-equal to the first; past 256
    (`WIDE_FLASH_CASES`, the chunked route) phase 25's wide-head LM (D 512
    on 2 heads over 1, its B=8 prefill in both dtypes and its training
-   shape), the absorbed form of multi-head latent attention (MQA at D 576,
+   shape in both, float32's with k/v repeated as trained), the absorbed form of multi-head latent attention (MQA at D 576,
    16 heads), D 1024, an odd D 257 (the padded copy timed) and D 320
    cross attention (checked only); each case names its route and native
    width (the chunked route's column chunk), one launch a call;
@@ -166,7 +171,9 @@ script started); any failure exits non-zero:
    (lse and the pad rows exact, delta within 1e-4); the wgmma route's
    cases show `flash_bwd_dq_wgmma_kernel` and `flash_bwd_dkv_wgmma_kernel`
    at their width (and the dkv form `dkv_split` names) in one trace of
-   all of them. Two backwards on the
+   all of them, the float32 cases `flash_bwd_dq_tf32_kernel<W>` and
+   `flash_bwd_dkv_tf32_kernel<W>` (the chunked pair past 256), with
+   bit-equal reruns. Two backwards on the
    same inputs give bit-equal dq, dk and dv (train, gqa4, vit_b16, and
    Phi-2, Phi-3-mini, Gemma-2B, D 200, D 56, MHA and GQA-4 at D 256).
    At the
@@ -262,7 +269,11 @@ script started); any failure exits non-zero:
    profile of one step; 16 tokens served from the trained weights.
 
 14. parallel: the dp and tp forms over torch.distributed, ResNet50 at
-   224x224 with seeded weights. (a) NCCL at world size 1 on cuda:0 in
+   224x224 with seeded weights. Phases 14-16 run their (a) parts in
+   turn, then their (b) parts at once (`run_overlapped`: six rank
+   processes on the card, each phase checked and printed after its
+   ranks are joined; a rank's host times are taken beside the others').
+   (a) NCCL at world size 1 on cuda:0 in
    this process (real collectives on groups of one): ShardedInference
    over local_mesh(dp=1), b32, float32 and bf16, both forms (one K1
    launch a call; at tp 1 the two forms must agree bit for bit), the
@@ -302,7 +313,7 @@ script started); any failure exits non-zero:
    causal forwards once more under `parallel.mesh.record_collectives()`
    beside `tools.ring_vs_ulysses.point_on_mesh` at the same point, which
    phase 22 holds equal; the LM at full width, bf16,
-   B=1, T=2048 (1024 tokens a rank), AdamW lr 3e-4, 5 steps and a
+   B=1, T=2048 (1024 tokens a rank), AdamW lr 3e-4, 3 steps and a
    profiled one with the ring and as many with Ulysses: losses finite
    and falling and equal on both ranks, each step 12 x the formula's K2
    and K3 and 12 delta launches, step ms median and p90, tokens/s, peak
@@ -443,8 +454,9 @@ script started); any failure exits non-zero:
     H3's group. Verbs on H1:
     `load-testfiles` (32 seeded JPEGs), `submit-job ResNet50 32` twice,
     `get-output`, `ls-all`, `C2 ResNet50`, `put` of 2 prompt files (phase
-    12's first 2 requests, budgets 128 and 32: cut from 4 in PR 20 to
-    pay for phase 23), `submit-job LM198M 2`, `get-output`, `profile
+    12's first 2 requests, cut from 4 in PR 20 to pay for phase 23; their
+    budgets, 128 and 32, capped at CLI_LM_CAP, 32), `submit-job LM198M
+    2`, `get-output`, `profile
     metrics cluster` around each job, `models`, `predict-locally
     ResNet50` on 2 files, `C1`, `profile metrics`, `quit`; on all three,
     `profile trace start` before the first job and `profile trace stop`
@@ -586,10 +598,14 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}  # H100 SXM dense, published
+#: float32 attention products in split TF32 (the flash kernels' "tf32x3"
+#: route): three TF32 tensor-core products (495 TFLOP/s dense) a float32 one
+TF32X3_FLOPS = 495e12 / 3
 BATCH = 32
 N_IMAGES = 40  # 2 chunks at batch 32: one full, one padded
 N_FILES = 8
 MODELS = (("ResNet50", "caffe"), ("InceptionV3", "tf"))
+LATENCY_SAMPLES = 200  # phase 4's infer_arrays calls at batch 32, each timed
 # the LM that bench.py's _bench_lm measures (bench.py:3077-3085, GQA-4 at
 # :3229-3232): about 198M parameters
 LM_CFG = dict(vocab_size=32000, d_model=1024, n_heads=16, n_layers=12, d_ff=4096, n_kv_heads=4)
@@ -994,8 +1010,8 @@ def phase_model(name, mode, timer):
     batch = imgs[:BATCH]
     for _ in range(3):
         eng.infer_arrays(name, batch)
-    lat = []  # 1000 samples: p99 has 10 beyond it
-    for _ in range(1000):
+    lat = []  # LATENCY_SAMPLES: p99 has 2 beyond it
+    for _ in range(LATENCY_SAMPLES):
         t0 = time.monotonic()
         eng.infer_arrays(name, batch)
         lat.append((time.monotonic() - t0) * 1e3)
@@ -1116,44 +1132,84 @@ def profile_calls(fn, iters, kinds, after=None, ranges=()):
     )
 
 
-def build_all(kernel_only=False):
+#: each kernel library: (its loader's module attribute, its name and source
+#: as `_build.load_library` takes them)
+LIBRARIES = {"normalize": ("preprocess._library", "dml_normalize", "normalize.cu"),
+             "flash_attention": ("flash_attention._library", "dml_flash_attention",
+                                 "flash_attention.cu"),
+             "flash_attention_bwd": ("flash_attention._bwd_library", "dml_flash_attention_bwd",
+                                     "flash_attention_bwd.cu"),
+             "flash_attention_bwd_tf32": ("flash_attention._bwd_tf32_library",
+                                          "dml_flash_attention_bwd_tf32",
+                                          "flash_attention_bwd_tf32.cu"),
+             "decode_attention": ("decode_attention._library", "dml_decode_attention",
+                                  "decode_attention.cu")}
+
+
+def start_builds(kernel_only=False):
     """nvcc for every kernel library at once, one thread (and one nvcc)
-    each; seconds per library. kernel_only: the normalize library alone."""
+    each, each build keeping its own `-Xptxas -v` report. Waits for K1's
+    library and the JPEG loader (g++, host code), which phases 3 and 4
+    need; the attention libraries go on building behind those phases
+    (`finish_builds` waits for them). kernel_only: K1's library alone."""
     from concurrent.futures import ThreadPoolExecutor
 
     from dml_tpu_torch.native import loader
-    from dml_tpu_torch.ops import _build, decode_attention, flash_attention, preprocess
+    from dml_tpu_torch.ops import decode_attention, flash_attention, preprocess
 
-    libs = {"normalize": preprocess._library, "flash_attention": flash_attention._library,
-            "flash_attention_bwd": flash_attention._bwd_library,
-            "decode_attention": decode_attention._library,
-            "jpeg_loader": loader.get_loader}  # g++, host code; None if it cannot build
+    mods = {"preprocess": preprocess, "flash_attention": flash_attention,
+            "decode_attention": decode_attention}
+    names = ["normalize"] if kernel_only else list(LIBRARIES)
 
     def timed(fn):
         t0 = time.monotonic()
         fn()
         return time.monotonic() - t0
 
-    sources = ("normalize.cu", "flash_attention.cu", "flash_attention_bwd.cu",
-               "decode_attention.cu")
-    if kernel_only:
-        libs, sources = {"normalize": libs["normalize"]}, sources[:1]
     t0 = time.monotonic()
-    with ThreadPoolExecutor(len(libs) + len(sources)) as ex:
-        reports = {src: ex.submit(_build.ptxas_report, [src]) for src in sources}
-        futures = {k: ex.submit(timed, fn) for k, fn in libs.items()}
-        seconds = {k: f.result() for k, f in futures.items()}
-        ptxas = {src: ptxas_usage(r.result()) for src, r in reports.items()}
-    emit(phase="build", seconds=seconds, wall_seconds=time.monotonic() - t0)
-    for src in sources:
-        wgmma = src.startswith("flash")
-        emit(phase="ptxas", source=f"dml_tpu_torch/csrc/{src}", kernels=ptxas[src],
-             **({"setmaxnreg": setmaxnreg_counts(src)} if wgmma else {}))
-        check(ptxas[src], f"ptxas reported no kernel of {src}")
-        # the wgmma kernels of the flash sources, every kernel of the others
-        spills = {k: u for k, u in ptxas[src].items()
-                  if ("wgmma" in k or not wgmma) and (u.get("spill_stores") or u.get("spill_loads"))}
+    ex = ThreadPoolExecutor(len(names) + 1)
+    futures = {}
+    for k in names:
+        mod, attr = LIBRARIES[k][0].split(".")
+        futures[k] = ex.submit(timed, getattr(mods[mod], attr))
+    if not kernel_only:  # None if it cannot build
+        futures["jpeg_loader"] = ex.submit(timed, loader.get_loader)
+    for k in ("normalize", "jpeg_loader"):
+        if k in futures:
+            futures[k].result()
+    return {"ex": ex, "futures": futures, "t0": time.monotonic() - t0, "start": t0}
+
+
+def finish_builds(builds):
+    """Waits for every library `start_builds` began; emits each build's
+    seconds and each source's ptxas report, and fails on a spill."""
+    from dml_tpu_torch.ops import _build
+
+    if builds.get("done"):
+        return
+    builds["done"] = True
+    seconds = {k: f.result() for k, f in builds["futures"].items()}
+    builds["ex"].shutdown()
+    emit(phase="build", seconds=seconds, wall_seconds=time.monotonic() - builds["start"],
+         first_phase_after_s=builds["t0"])
+    for lib in seconds:
+        if lib not in LIBRARIES:
+            continue
+        _, name, src = LIBRARIES[lib]
+        ptxas = ptxas_usage(_build.ptxas_report(name, [src]))
+        flash = src.startswith("flash")
+        emit(phase="ptxas", source=f"dml_tpu_torch/csrc/{src}", kernels=ptxas,
+             **({"setmaxnreg": setmaxnreg_counts(src)} if src in WGMMA_SOURCES else {}))
+        check(ptxas, f"ptxas reported no kernel of {src}")
+        # the wgmma and split-TF32 kernels of the flash sources, every
+        # kernel of the others
+        spills = {k: u for k, u in ptxas.items()
+                  if ("wgmma" in k or "tf32" in k or not flash) and (u.get("spill_stores") or u.get("spill_loads"))}
         check(not spills, f"{src}: kernels spill registers: {spills}")
+
+
+#: the sources whose wgmma kernels set their registers by setmaxnreg
+WGMMA_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu")
 
 
 def ptxas_usage(report):
@@ -1228,7 +1284,9 @@ BF, F32 = "bfloat16", "float32"
 # causal, dtype): Phi-2's prefill (D 80), Phi-3-mini's (D 96), Gemma-2B's
 # (D 256, 8 query heads on 1 kv head), the cluster LM bench's ShardLM (d
 # 384 over 4 heads, GQA-2: D 96) and its draft_lm_spec draft (D 48) in
-# both dtypes, the draft of a D-80 target (D 40), the JAX tests' D 8, an
+# both dtypes, ShardLM's float32 training shape (phase 24's [2, 512]
+# tokens, k and v repeated to the 4 query heads, as the blocks train), the
+# draft of a D-80 target (D 40), the JAX tests' D 8, an
 # odd D whose bf16 rows are not whole 16-byte units (D 20 at H 1: the
 # wrapper's zero-padded copy), a D past 128 that no kernel is built at
 # (200, non-causal cross attention: the <256> wgmma instance over 56 zero
@@ -1245,6 +1303,7 @@ HEAD_DIM_FLASH_CASES = (
     ("gemma2b_d256", 1, 2048, 2048, 8, 1, 256, True, BF),
     ("shardlm_d96", 4, 300, 300, 4, 2, 96, True, BF),
     ("f32_shardlm_d96", 4, 300, 300, 4, 2, 96, True, F32),
+    ("f32_shardlm_train_d96", 2, 512, 512, 4, 4, 96, True, F32),
     ("draft_d48", 4, 300, 300, 4, 2, 48, True, BF),
     ("f32_draft_d48", 4, 300, 300, 4, 2, 48, True, F32),
     ("draft_d40", 2, 512, 512, 32, 32, 40, True, BF),
@@ -1260,7 +1319,8 @@ HEAD_DIM_FLASH_CASES = (
 # Past 256, the chunked route (fwd: 256 output columns a block; bwd: 128
 # gradient columns a block): phase 25's wide-head LM (the 198M LM's d_model
 # 1024 over 2 query heads on 1 kv head: D 512) at a B=8 placement prefill
-# of 128 rows and at its training shape, in both dtypes; the absorbed form
+# of 128 rows and at its training shape, in both dtypes (float32's with k
+# and v repeated to both heads, as the blocks train); the absorbed form
 # of multi-head latent attention (DeepSeek-V2-Lite: 16 query heads over one
 # latent row of 576 columns) as MQA at D 576; D 1024 (MHA); an odd D 257
 # (bf16 rows not whole 16-byte units: the wrapper's zero-padded copy, timed
@@ -1268,6 +1328,7 @@ HEAD_DIM_FLASH_CASES = (
 WIDE_FLASH_CASES = (
     ("widelm_d512", 8, 128, 128, 2, 1, 512, True, BF),
     ("f32_widelm_d512", 8, 128, 128, 2, 1, 512, True, F32),
+    ("f32_widelm_train_d512", 1, 512, 512, 2, 2, 512, True, F32),
     ("widelm_train_d512", 1, 512, 512, 2, 1, 512, True, BF),
     ("mla_d576", 1, 1024, 1024, 16, 1, 576, True, BF),
     ("d1024", 1, 1024, 1024, 4, 4, 1024, True, BF),
@@ -1321,33 +1382,42 @@ def device_kernel_names(fns, calls=3):
     return {name: sorted(v) for name, v in found.items()}
 
 
-def ran_wgmma(names, wanted):
+def tf32_kernels(part, route):
+    """The split-TF32 kernel instance that `part` ("fwd", "dq" or "dkv")
+    runs on a float32 route, as torch.profiler names it."""
+    prefix = "flash_fwd" if part == "fwd" else f"flash_bwd_{part}"
+    if route.kind.endswith(" chunked"):
+        return f"{prefix}_tf32_wide_kernel"
+    return f"{prefix}_tf32_kernel<{route.width}>"
+
+
+def ran_wanted(names, wanted):
     """(the flash kernels among `names`, whether each of `wanted` (a
     kernel's name and template arguments) ran and no mma.sync kernel
     did): the proof that a bf16 case on the wgmma route ran its wgmma +
-    TMA kernel instances."""
+    TMA kernel instances, and a float32 case its split-TF32 ones."""
     flash = [n for n in names if "flash_" in n]
     ok = all(any(w in n for n in flash) for w in wanted)
     return flash, ok and not any("_mma_kernel" in n for n in flash)
 
 
 def check_traced(phase, traced):
-    """Trace the wgmma cases a phase kept (name -> (fn, wanted kernels))
-    in one profiler session, emit which kernels each ran and the trace's
-    seconds, and fail unless each ran its wanted kernels (and no mma.sync
-    kernel)."""
+    """Trace the wgmma and float32 cases a phase kept (name -> (fn, wanted
+    kernels)) in one profiler session, emit which kernels each ran and the
+    trace's seconds, and fail unless each ran its wanted kernels (and no
+    mma.sync kernel)."""
     t0 = time.monotonic()
     names = device_kernel_names({n: fn for n, (fn, _) in traced.items()})
     # a case the trace saw no kernel of at all is traced once more
     missed = {n: traced[n][0] for n, v in names.items() if not v}
     if missed:
         names.update(device_kernel_names(missed))
-    ran = {n: ran_wgmma(names[n], wanted) for n, (_, wanted) in traced.items()}
+    ran = {n: ran_wanted(names[n], wanted) for n, (_, wanted) in traced.items()}
     rec = dict(phase=phase, seconds=time.monotonic() - t0,
                wanted={n: wanted for n, (_, wanted) in traced.items()},
-               kernels={n: r[0] for n, r in ran.items()}, ran_wgmma={n: r[1] for n, r in ran.items()})
+               kernels={n: r[0] for n, r in ran.items()}, ran_wanted={n: r[1] for n, r in ran.items()})
     emit(**rec)
-    check(all(rec["ran_wgmma"].values()), f"a wgmma case ran other kernels: {rec}")
+    check(all(rec["ran_wanted"].values()), f"a traced case ran other kernels: {rec}")
 
 
 def sdpa_backend(q, k, v, **kw):
@@ -1443,11 +1513,19 @@ def phase_flash(timer):
             extra["equal_to_clean_run"] = bool(torch.equal(clean[0], out) and torch.equal(clean[1], lse))
             ok &= extra["equal_to_clean_run"]
         route = fa.kernel_route(dtype, d)
+        if dtype == f32:  # split TF32 sums in a fixed order: a rerun is bit-equal
+            again = fa.flash_attention_lse(q, k, v, causal=causal)
+            extra["bit_equal_rerun"] = bool(torch.equal(again[0], out) and torch.equal(again[1], lse))
+            ok &= extra["bit_equal_rerun"]
+            del again
         if route.kind == "wgmma+tma" and d not in (64, 128):
             # three consumers at D 56's B=8 prefill (launch_d64's four waves)
             nc = 3 if name == "d56_gqa4_b8" else 2
             traced[name] = (lambda q=q, k=k, v=v, causal=causal: fa.flash_attention_lse(
                 q, k, v, causal=causal), [f"flash_fwd_wgmma_kernel<{route.width}, {nc}>"])
+        elif dtype == f32:
+            traced[name] = (lambda q=q, k=k, v=v, causal=causal: fa.flash_attention_lse(
+                q, k, v, causal=causal), [tf32_kernels("fwd", route)])
         case = dict(phase="flash_check", case=name, q=[b, tq, h, d], kv=[b, tk, kv, d],
                     causal=causal, dtype=dtype_name(dtype), route=route.kind, width=route.width,
                     launches=launches, max_abs_err_out=err_out, max_abs_err_lse=err_lse,
@@ -1495,12 +1573,17 @@ def phase_flash(timer):
             ops = 4 * b * h * tq * tk * d / (2 if causal else 1)
             nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * q.element_size() \
                 + lse.numel() * 4
-            t_ops = ops / PEAK_FLOPS[dtype_name(dtype)] * 1e3
+            # float32 runs split TF32: its bound at 165 TFLOP/s, and beside
+            # it the float32 FMA units' (67 TFLOP/s), the earlier rows' bound
+            t_ops = ops / (TF32X3_FLOPS if dtype == f32 else PEAK_FLOPS[dtype_name(dtype)]) * 1e3
+            t_ops_fma = ops / PEAK_FLOPS["float32"] * 1e3 if dtype == f32 else None
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             bound = max(t_ops, t_bytes)
             timings[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound,
                                  bound_by="operations" if t_ops >= t_bytes else "bytes",
                                  max_abs_err=err_out, mma_sync_ms=m_ms, library_backend=backend)
+            if t_ops_fma is not None:
+                timings[name]["fma_bound_ms"] = max(t_ops_fma, t_bytes)
             if both:
                 extra = dict(speedup_vs_mma_sync=m_ms / k_ms, mma_sync_max_abs_err_out=m_err,
                              mma_sync_tflop_s=ops / (m_ms * 1e-3) / 1e12,
@@ -1508,7 +1591,7 @@ def phase_flash(timer):
             emit(phase="flash_time", case=name, route=route.kind, width=route.width, ms=k_ms,
                  mma_sync_ms=m_ms, plain_ms=p_ms, sdpa_ms=l_ms, sdpa_backend=backend, turns_ms=turns,
                  vs_sdpa=k_ms / l_ms, sdpa_vs_plain_max_abs=lib_diff, ops=ops,
-                 bytes=nbytes, ops_bound_ms=t_ops, bytes_bound_ms=t_bytes,
+                 bytes=nbytes, ops_bound_ms=t_ops, ops_bound_ms_fma=t_ops_fma, bytes_bound_ms=t_bytes,
                  achieved_tflop_s=ops / (k_ms * 1e-3) / 1e12,
                  sdpa_tflop_s=ops / (l_ms * 1e-3) / 1e12, share_of_bound=bound / k_ms, **extra)
         del q, k, v, out, lse, p_out, p_lse, clean
@@ -1950,7 +2033,10 @@ def _bwd_bounds(b, tq, tk, h, kv, d, causal, el, dtype="bfloat16"):
     split's 7, each kernel's own (dq: S, dP, dQ; dkv: S, dP, dV, dK; both
     read q, k, v, dO and the two row arrays), and the delta kernel's
     (out, dO, lse in; the two padded row arrays out). Products at the
-    dtype's peak (the tensor cores' for bf16, the FMA units' for f32)."""
+    dtype's peak: the tensor cores' for bf16, split TF32's for float32
+    (TF32X3_FLOPS), with the float32 FMA units' beside it (`ops_bound_ms_fma`,
+    the bound of the rows before the split); the delta kernel's FMAs at
+    the float32 peak."""
     from dml_tpu_torch.ops.flash_attention import _rows_len
 
     product = 2 * b * h * tq * tk * d / (2 if causal else 1)
@@ -1959,17 +2045,21 @@ def _bwd_bounds(b, tq, tk, h, kv, d, causal, el, dtype="bfloat16"):
     rows = b * h * tq * 4
     prows = b * h * _rows_len(tq) * 4
     bound = {}
+    products = "tf32x3" if dtype == "float32" else dtype
     for key, ops, nbytes, peak in (
-            ("min", 5 * product, 4 * qo + 4 * kvb + rows, dtype),
-            ("split", 7 * product, 4 * qo + 4 * kvb + rows, dtype),
-            ("dq", 3 * product, 3 * qo + 2 * kvb + 2 * prows, dtype),
-            ("dkv", 4 * product, 2 * qo + 4 * kvb + 2 * prows, dtype),
+            ("min", 5 * product, 4 * qo + 4 * kvb + rows, products),
+            ("split", 7 * product, 4 * qo + 4 * kvb + rows, products),
+            ("dq", 3 * product, 3 * qo + 2 * kvb + 2 * prows, products),
+            ("dkv", 4 * product, 2 * qo + 4 * kvb + 2 * prows, products),
             ("delta", 2 * b * tq * h * d, 2 * qo + rows + 2 * prows, "float32")):
-        t_ops = ops / PEAK_FLOPS[peak] * 1e3
+        t_ops = ops / (TF32X3_FLOPS if peak == "tf32x3" else PEAK_FLOPS[peak]) * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         bound[key] = dict(ops=ops, bytes=nbytes, ops_bound_ms=t_ops, bytes_bound_ms=t_bytes,
                           bound_ms=max(t_ops, t_bytes),
                           bound_by="operations" if t_ops >= t_bytes else "bytes")
+        if peak == "tf32x3":
+            bound[key]["ops_bound_ms_fma"] = ops / PEAK_FLOPS["float32"] * 1e3
+            bound[key]["bound_ms_fma"] = max(bound[key]["ops_bound_ms_fma"], t_bytes)
     return bound
 
 
@@ -2046,7 +2136,7 @@ def phase_flash_bwd(timer):
                                                     causal=causal)
                 extra["equal_to_clean_run"] = all(torch.equal(a, c) for a, c in zip(got, c_got))
                 ok &= extra["equal_to_clean_run"]
-            if name in deterministic:
+            if name in deterministic or dtype == f32:
                 again = fa.flash_attention_backward(q, k, v, out, lse, dout, dlse, causal=causal)
                 extra["bit_equal_rerun"] = all(torch.equal(a, c) for a, c in zip(got, again))
                 ok &= extra["bit_equal_rerun"]
@@ -2057,6 +2147,11 @@ def phase_flash_bwd(timer):
                     fa.flash_attention_backward(q, k, v, out, lse, dout, causal=causal),
                     [f"flash_bwd_dq_wgmma_kernel<{route.width}>",
                      f"flash_bwd_dkv_wgmma_kernel<{route.width}, {fa.dkv_split(route, h // kv)}>"])
+            elif dtype == f32 and not with_lse:
+                traced[name] = (
+                    lambda q=q, k=k, v=v, out=out, lse=lse, dout=dout, causal=causal:
+                    fa.flash_attention_backward(q, k, v, out, lse, dout, causal=causal),
+                    [tf32_kernels("dq", route), tf32_kernels("dkv", route)])
             case = dict(phase="flash_bwd_check", case=name, q=[b, tq, h, d], kv=[b, tk, kv, d],
                         causal=causal, dtype=dtype_name(dtype), route=route.kind, width=route.width,
                         lse_cotangent=with_lse, launches=launches, max_abs_err=errs,
@@ -3260,7 +3355,7 @@ def phase_moe(timer):
 # phase 14: data and tensor parallelism over torch.distributed
 # ---------------------------------------------------------------------------
 
-PAR_STEPS, PAR_GLOO_STEPS, PAR_NARROW_STEPS, PAR_SERVE_CALLS = 20, 5, 3, 3
+PAR_STEPS, PAR_GLOO_STEPS, PAR_NARROW_STEPS, PAR_SERVE_CALLS = 20, 5, 3, 2
 PAR_MESHES = ((2, 1), (1, 2))  # (dp, tp) of the two gloo ranks
 PAR_KINDS = (("nccl", "collective"),) + IMAGE_TRAIN_KINDS
 
@@ -3409,12 +3504,73 @@ def _parallel_rank(rank, world, tmp):
     dist.destroy_process_group()
 
 
-def phase_parallel():
-    """Data and tensor parallelism: NCCL at world size 1 on cuda:0 in
-    this process, then two gloo ranks sharing the card. Returns K1's
-    launches on the path (this process's and both ranks')."""
+def _start_ranks(target, tmp):
+    """The two gloo ranks of a phase, spawned, each running target(rank,
+    2, tmp)."""
     import multiprocessing
 
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, 2, tmp)) for r in range(2)]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def _stop_ranks(procs, timeout):
+    """Waits up to `timeout` seconds for each rank, kills what is left;
+    fails unless both exited 0."""
+    for p in procs:
+        p.join(timeout=timeout)
+    codes = [p.exitcode for p in procs]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    check(codes == [0, 0], f"gloo ranks exited {codes}")
+
+
+def _ranks_running(procs):
+    """The yield at which a phase's ranks run beside the other phases'; a
+    phase closed there (another one failed) kills its ranks."""
+    try:
+        yield
+    except GeneratorExit:
+        for p in procs:
+            p.kill()
+            p.join()
+        raise
+
+
+def run_overlapped(*phases):
+    """Phases 14-16, each a generator in three steps: its world-1 part
+    (the card to itself, in turn), then its two gloo ranks started, then
+    the ranks joined and held to world 1. Every phase's ranks run at
+    once, six processes on the one card, while the others' run too.
+    Returns each phase's result."""
+    try:
+        for g in phases:  # the world-1 parts, one after another
+            next(g)
+        for g in phases:  # every pair of ranks started
+            next(g)
+        results = []
+        for g in phases:  # each joined and checked
+            try:
+                next(g)
+            except StopIteration as e:
+                results.append(e.value)
+            else:
+                raise RuntimeError("an overlapped phase took more than three steps")
+        return results
+    finally:
+        for g in phases:
+            g.close()
+
+
+def phase_parallel():
+    """Data and tensor parallelism: NCCL at world size 1 on cuda:0 in
+    this process, then two gloo ranks sharing the card; three steps, as
+    `run_overlapped` drives them. Returns K1's launches on the path (this
+    process's and both ranks')."""
     import torch
     import torch.distributed as dist
     from dml_tpu_torch.models.registry import get_model
@@ -3516,23 +3672,21 @@ def phase_parallel():
             profile_one_device=profile_calls(lambda: one.step(x, y), 2, PAR_KINDS))
         out["world1"]["narrow_f32_losses"] = narrow_ref
         del tr, one, tn
+    finally:
+        dist.destroy_process_group()
         torch.cuda.empty_cache()
+    yield
 
-        # ---- two gloo ranks on the one card ----
-        t0 = time.monotonic()
-        ctx = multiprocessing.get_context("spawn")
-        procs = [ctx.Process(target=_parallel_rank, args=(r, 2, tmp)) for r in range(2)]
-        for p in procs:
-            p.start()
-        for p in procs:
-            p.join(timeout=600)
-        codes = [p.exitcode for p in procs]
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-        check(codes == [0, 0], f"gloo ranks exited {codes}")
-        gloo_s = time.monotonic() - t0
+    # ---- two gloo ranks on the one card ----
+    t0 = time.monotonic()
+    procs = _start_ranks(_parallel_rank, tmp)
+    yield from _ranks_running(procs)
+    _stop_ranks(procs, 600)
+    gloo_s = time.monotonic() - t0
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous_nccl_restore",
+                            world_size=1, rank=0)
+    try:
+        mesh = local_mesh(dp=1)
         ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
                  for r in range(2)]
         gloo = {"wall_s": gloo_s, "gloo_cuda_all_gather": [r["gloo_cuda_all_gather"] for r in ranks],
@@ -3607,7 +3761,7 @@ def phase_parallel():
 # ---------------------------------------------------------------------------
 
 SP_T = 8192  # the long-context attention: q/k/v [1, 8192, 16, 64], 4096 rows a rank
-SP_LM_STEPS, SP_MOE_STEPS, SP_NARROW_STEPS, SP_NEW_TOKENS = 5, 3, 3, 16
+SP_LM_STEPS, SP_MOE_STEPS, SP_NARROW_STEPS, SP_NEW_TOKENS = 3, 3, 3, 16
 # the float32 narrow LM: GQA-2 and an MoE block; T 2048 puts MoE's routing
 # groups (1024 tokens) inside each sp shard, so sp 2 routes as world 1 does
 SP_NARROW = dict(vocab_size=512, d_model=128, n_heads=4, n_kv_heads=2, n_layers=2, d_ff=256,
@@ -3837,11 +3991,9 @@ def _seq_parallel_rank(rank, world, tmp):
 
 def phase_seq_parallel():
     """Sequence and expert parallelism: NCCL at world size 1 on cuda:0 in
-    this process, then two gloo ranks sharing the card. Returns K2's, K3's
-    and the delta kernel's launches on the path (this process's and both
-    ranks')."""
-    import multiprocessing
-
+    this process, then two gloo ranks sharing the card; three steps, as
+    `run_overlapped` drives them. Returns K2's, K3's and the delta
+    kernel's launches on the path (this process's and both ranks')."""
     import torch
     import torch.distributed as dist
     from dml_tpu_torch.ops.flash_attention import flash_attention
@@ -3913,22 +4065,17 @@ def phase_seq_parallel():
             del nlm
         finally:
             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    finally:
+        dist.destroy_process_group()
         torch.cuda.empty_cache()
+    yield
 
-        # ---- two gloo ranks on the one card ----
-        t0 = time.monotonic()
-        ctx = multiprocessing.get_context("spawn")
-        procs = [ctx.Process(target=_seq_parallel_rank, args=(r, 2, tmp)) for r in range(2)]
-        for p in procs:
-            p.start()
-        for p in procs:
-            p.join(timeout=900)
-        codes = [p.exitcode for p in procs]
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-        check(codes == [0, 0], f"gloo ranks exited {codes}")
+    # ---- two gloo ranks on the one card ----
+    t0 = time.monotonic()
+    procs = _start_ranks(_seq_parallel_rank, tmp)
+    yield from _ranks_running(procs)
+    _stop_ranks(procs, 900)
+    try:
         ranks = [torch.load(os.path.join(tmp, f"sp_rank{r}.pt"), weights_only=False)
                  for r in range(2)]
         gloo = {"wall_s": time.monotonic() - t0, "attention": {}, "lm": {},
@@ -4013,7 +4160,6 @@ def phase_seq_parallel():
             _add(total, moved)
         out["launches"] = {"world1": world1, "gloo_ranks": per_rank, "total": total}
     finally:
-        dist.destroy_process_group()
         torch.cuda.empty_cache()
     out["phase_s"] = time.monotonic() - t_phase
     emit(phase="seq_parallel", **out)
@@ -4187,11 +4333,10 @@ def _pipeline_rank(rank, world, tmp):
 
 def phase_pipeline():
     """The pipeline form and the pp/tp LM serving forms: NCCL at world size
-    1 on cuda:0 in this process, then two gloo ranks sharing the card.
-    Returns K2's and K4's launches on the path (this process's and both
-    ranks')."""
+    1 on cuda:0 in this process, then two gloo ranks sharing the card;
+    three steps, as `run_overlapped` drives them. Returns K2's and K4's
+    launches on the path (this process's and both ranks')."""
     import dataclasses
-    import multiprocessing
 
     import torch
     import torch.distributed as dist
@@ -4331,21 +4476,17 @@ def phase_pipeline():
                        "serve_prefilled_launches": amoved, "serve_prefilled_dispatches": d}
         world1 = launch_counts()
         out["world1"] = w1
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    yield
 
-        # ---- two gloo ranks on the one card ----
-        t0 = time.monotonic()
-        ctx = multiprocessing.get_context("spawn")
-        procs = [ctx.Process(target=_pipeline_rank, args=(r, 2, tmp)) for r in range(2)]
-        for p in procs:
-            p.start()
-        for p in procs:
-            p.join(timeout=600)
-        codes = [p.exitcode for p in procs]
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
-        check(codes == [0, 0], f"gloo ranks exited {codes}")
+    # ---- two gloo ranks on the one card ----
+    t0 = time.monotonic()
+    procs = _start_ranks(_pipeline_rank, tmp)
+    yield from _ranks_running(procs)
+    _stop_ranks(procs, 600)
+    try:
         ranks = [torch.load(os.path.join(tmp, f"pipe_rank{r}.pt"), weights_only=False)
                  for r in range(2)]
         gloo = {"wall_s": time.monotonic() - t0, "stages_s": [r["stages_s"] for r in ranks]}
@@ -4408,7 +4549,6 @@ def phase_pipeline():
             _add(total, moved)
         out["launches"] = {"world1": world1, "gloo_ranks": per_rank, "total": total}
     finally:
-        dist.destroy_process_group()
         torch.cuda.empty_cache()
     out["phase_s"] = time.monotonic() - t_phase
     emit(phase="pipeline", **out)
@@ -5579,6 +5719,15 @@ CLI_NODES, CLI_FILES, CLI_QUERIES = 3, 32, 32
 #: the first 2 requests of phase 12's mixed-budget stream (4 chunk steps
 #: over two ranks through the host; 4 requests took 8 and 30 s)
 CLI_LM_PROMPTS = 2
+CLI_LM_CAP = 32  # each prompt's budget, at most: the job decodes under the nodes' traces
+
+
+def cli_lm_requests(vocab):
+    """The LM job's prompts: the first of phase 12's mixed-budget stream,
+    budgets capped at CLI_LM_CAP."""
+    return [(p, min(b, CLI_LM_CAP)) for p, b in mixed_requests(vocab)[:CLI_LM_PROMPTS]]
+
+
 CLI_LM_SPEC = dict(LM_SPEC, name="LM198M")
 #: H3's worker group (the operator's spec edit): its mesh takes two ranks,
 #: H3 (rank 0 of the group world) and a follower process (`--follow 1`);
@@ -5743,7 +5892,7 @@ def _drive_cli(tmp, out):
     os.makedirs(os.path.join(tmp, "in"))
     files = write_images(os.path.join(tmp, "in"), imgs, "jpeg")
     lm_files = []
-    for i, (p, b) in enumerate(mixed_requests(CLI_LM_SPEC["vocab_size"])[:CLI_LM_PROMPTS]):
+    for i, (p, b) in enumerate(cli_lm_requests(CLI_LM_SPEC["vocab_size"])):
         lm_files.append(os.path.join(tmp, f"p{i}.tokens.txt"))
         write_prompt_file(lm_files[-1], p, max_new_tokens=b)
 
@@ -6041,7 +6190,7 @@ def phase_cli():
         lone = {os.path.basename(k): v["tokens"] for k, v in lone.items()}
         params, cfg = lm_spec_parts_cached(CLI_LM_SPEC)
         equal = ties = 0
-        for i, (p, b) in enumerate(mixed_requests(cfg.vocab_size)[:CLI_LM_PROMPTS]):
+        for i, (p, b) in enumerate(cli_lm_requests(cfg.vocab_size)):
             name = f"p{i}.tokens.txt"
             got = lm_merged[name]["tokens"]
             check(len(got) == b, f"LM {name}: {len(got)} tokens, budget {b}")
@@ -6229,7 +6378,8 @@ RANK_BENCHES = (("image", "dml_tpu_torch.jobs.groups"),
 RANK_BENCH_S = 600  # each bench process's own limit
 RANK_KERNELS = ("normalize", "flash_attention", "decode_attention")
 #: runs a bench module as `python -m` does, with the formula's count of
-#: its dispatches, then writes rank 0's kernel launches and that count:
+#: its dispatches, then writes rank 0's kernel launches (the flash ones
+#: by route too, as `route_counts` keys them) and that count:
 #: K1 one per engine forward and per sharded chunk, K2 one per layer of
 #: each prefill (`generate.prefill`; a pipeline stage's, per microbatch),
 #: K4 one per layer of each decode step (`generate.batched_decode_step`,
@@ -6283,6 +6433,8 @@ def dump():
         json.dump({"launches": {"normalize": preprocess.normalize_launches,
                                 "flash_attention": flash_attention.flash_launches,
                                 "decode_attention": decode_attention.decode_launches},
+                   "routes": {" ".join(map(str, k)): n
+                              for k, n in sorted(flash_attention.route_launches.items())},
                    "want": want}, f)
 
 
@@ -6293,15 +6445,17 @@ runpy.run_module(module, run_name="__main__", alter_sys=True)
 
 
 def _follower_launches(bench_tmp):
-    """The follower rank's kernel launches, from the line it prints when
-    its world closes (`node --follow`)."""
+    """The follower rank's calls, kernel launches and flash launches by
+    route, from the line it prints when its world closes (`node
+    --follow`)."""
     import re
 
     path = os.path.join(bench_tmp, "world", "follower_1.log")
     text = _tail(path, 50)
-    m = re.search(r"world closed after (\d+) calls; kernel launches (\{.*\})", text)
+    m = re.search(r"world closed after (\d+) calls; kernel launches (\{.*?\}); "
+                  r"flash launches by route (\{.*?\})", text)
     check(m, f"the follower's log {path}: {text[-2000:]}")
-    return int(m.group(1)), json.loads(m.group(2))
+    return int(m.group(1)), json.loads(m.group(2)), json.loads(m.group(3))
 
 
 def _rank_kernel_checks():
@@ -6343,10 +6497,12 @@ def phase_rank_groups(smi):
     longer runs), the world's stats, and each rank's K1, K2 and K4
     launches held to the formula of its dispatches (RANK_BENCH_WRAP):
     rank 0's all of its process's, the follower's those inside the
-    world's calls. Returns the launches, both ranks summed."""
+    world's calls; the flash launches by route too (`route_counts`' keys),
+    which must add up to the K2 counts. Returns the launches, both ranks
+    summed, with the flash ones by route under "routes"."""
     t_phase = time.monotonic()
     out = {"card": smi, "kernel_checks": _rank_kernel_checks()}
-    launches = {}
+    launches, routes = {}, collections.Counter()
     with tempfile.TemporaryDirectory() as tmp:
         wrap = os.path.join(tmp, "wrap.py")
         with open(wrap, "w") as f:
@@ -6367,7 +6523,7 @@ def phase_rank_groups(smi):
                 counted = json.load(f)
             with open(stats) as f:
                 world = json.load(f)
-            calls, rank1 = _follower_launches(bench_tmp)
+            calls, rank1, routes1 = _follower_launches(bench_tmp)
             check((world["size"], world["broken"]) == (2, None) and world["calls"] > 0
                   and calls == world["calls"],
                   f"{module}: its group world {world}, the follower ran {calls} calls")
@@ -6375,8 +6531,14 @@ def phase_rank_groups(smi):
             formula = {"rank0": counted["want"]["all"], "rank1": counted["want"]["world"]}
             check(launches[name] == formula,
                   f"{module}: the ranks launched {launches[name]}; their dispatches give {formula}")
+            by_route = {"rank0": counted["routes"], "rank1": routes1}
+            check(all(sum(by_route[r].values()) == launches[name][r]["flash_attention"]
+                      for r in by_route),
+                  f"{module}: flash launches by route {by_route} against {launches[name]}")
+            for r in by_route:
+                routes.update(by_route[r])
             out[name] = {"section": section, "world": world, "follower_calls": calls,
-                         "launches": launches[name], "formula": formula,
+                         "launches": launches[name], "flash_routes": by_route, "formula": formula,
                          "process_s": time.monotonic() - t}
     img, lm = out["image"]["section"], out["lm"]["section"]
     check(img["equal_outputs"] is True and img["outputs_compared"] > 0,
@@ -6409,8 +6571,8 @@ def phase_rank_groups(smi):
         "specdec_speedup": lm["lm_specdec_speedup"], "cb_ttft_p99_ms": lm["lm_cb_ttft_ms"]}
     out["phase_s"] = time.monotonic() - t_phase
     emit(phase="rank_groups", **out)
-    return {k: sum(launches[b][r][k] for b in launches for r in ("rank0", "rank1"))
-            for k in RANK_KERNELS}
+    return dict({k: sum(launches[b][r][k] for b in launches for r in ("rank0", "rank1"))
+                 for k in RANK_KERNELS}, routes=dict(routes))
 
 
 # Phase 24: the cluster LM bench's ShardLM at its full width (d 384 over 4
@@ -6568,9 +6730,10 @@ def phase_head_dims():
                     "flash_bwd": n_layers * HD_TRAIN_STEPS,
                     "flash_bwd_delta": n_layers * HD_TRAIN_STEPS, "decode_attention": 0}
             check(counts == want, f"{name}: launched {counts}, want {want}")
-            # every launch on D 96's route: wgmma at width 128 in bf16, FMAs in float32
+            # every launch on D 96's route: wgmma at width 128 in bf16, split TF32 in float32
             route = fa.kernel_route(dtype, geometry["d_model"] // geometry["n_heads"])
             n = n_layers * HD_TRAIN_STEPS
+            # (the blocks repeat k and v to every query head: G 1, one dkv block a k-tile)
             want_routes = {f"{way} {route.kind} {route.width} 1": n for way in ("bwd", "fwd")}
             check(routes == want_routes, f"{name}: launched {routes}, want {want_routes}")
             check(all(np.isfinite(x) for x in losses), f"{name}: a loss is not finite: {losses}")
@@ -6746,11 +6909,13 @@ def main() -> int:
         return 0
 
     kernel_only = "--kernel-only" in sys.argv[1:]
-    build_all(kernel_only)
+    builds = start_builds(kernel_only)
+    if len(sys.argv) > 1 and not kernel_only:  # a short call: every library before its phases
+        finish_builds(builds)
     timer = Timer()
     if "--measure" in sys.argv[1:]:  # after a measuring edit: build, phase 22 (15 first if asked)
         if "--seq-parallel" in sys.argv[1:]:
-            phase_seq_parallel()
+            run_overlapped(phase_seq_parallel())
         phase_measure(smi)
         print(smi, flush=True)
         return 0
@@ -6763,15 +6928,15 @@ def main() -> int:
         print(smi, flush=True)
         return 0
     if "--parallel" in sys.argv[1:]:  # a short call after a mesh edit: build, phase 14, stop
-        phase_parallel()
+        run_overlapped(phase_parallel())
         print(smi, flush=True)
         return 0
     if "--seq-parallel" in sys.argv[1:]:  # after a sequence/expert-form edit: build, phase 15
-        phase_seq_parallel()
+        run_overlapped(phase_seq_parallel())
         print(smi, flush=True)
         return 0
     if "--pipeline" in sys.argv[1:]:  # after a pp/tp serving edit: build, phase 16, stop
-        phase_pipeline()
+        run_overlapped(phase_pipeline())
         print(smi, flush=True)
         return 0
     if "--cluster" in sys.argv[1:]:  # after a cluster or job-layer edit: build, phase 17, stop
@@ -6809,9 +6974,11 @@ def main() -> int:
         return 0
     timings = phase_kernel(timer)
     if kernel_only:  # a short call after a K1 edit: build, check, time, stop
+        finish_builds(builds)
         print(smi, flush=True)
         return 0
     launches = {m: phase_model(m, mode, timer) for m, mode in MODELS}
+    finish_builds(builds)  # the attention libraries, built behind phases 3 and 4
     flash = phase_flash(timer)
     decode, hc_launches = phase_decode(timer)
     lm_launches = phase_lm(timer)
@@ -6820,9 +6987,8 @@ def main() -> int:
     image_train_launches = phase_image_train()
     server_launches = phase_lm_server(timer)
     moe_launches = phase_moe(timer)
-    parallel_launches = phase_parallel()
-    sp_launches = phase_seq_parallel()
-    pipe_launches = phase_pipeline()
+    parallel_launches, sp_launches, pipe_launches = run_overlapped(
+        phase_parallel(), phase_seq_parallel(), phase_pipeline())
     cluster_launches = phase_cluster(timer)
     ingress_launches = phase_ingress()
     families_launches = phase_families(timer)
@@ -6869,6 +7035,9 @@ def main() -> int:
                       "cli": cli_launches[kern], "measure": measure_launches[kern],
                       "rank_groups": rank_launches[kern]}
                for kern in ("flash_attention", "decode_attention")}
+    # phase 23 serves ShardLM in float32: its K2 launches by route (D 96 and
+    # the draft's D 48 on their split-TF32 rows below), none of them here
+    by_path["flash_attention"]["rank_groups"] = rank_launches["routes"].get("fwd wgmma+tma 64 1", 0)
     for case, shape in (
             ("prefill_b8", f"prefill b{LM_BATCH} T{PROMPT_LEN} H16 KV4 D64 bf16 causal"),
             ("mha_b1", f"train forward b1 T{TRAIN_T} H16 D64 bf16 causal, k/v repeated"),
@@ -7008,7 +7177,7 @@ def main() -> int:
     for case, dt, keys, variant in (
             ("widelm_d512", "bf16", ("serve_bf16", "serve_bf16_int8_cache", "train_bfloat16"),
              "mma.sync chunked"),
-            ("f32_widelm_d512", "float32", ("serve_f32", "train_float32"), "fma chunked")):
+            ("f32_widelm_d512", "float32", ("serve_f32", "train_float32"), "tf32x3 chunked")):
         t = dict(flash[case])
         by = {f"wide_heads_{k}": w[k]["flash_attention"] for k in keys}
         kernels.append(dict(
@@ -7026,21 +7195,55 @@ def main() -> int:
         route="cuda", variant="wide rows", source="dml_tpu_torch/csrc/decode_attention.cu",
         replaces="dml_tpu/ops/decode_attention.py:53", launches=sum(by.values()),
         launches_by_path=by, **t))
-    for case, dt, key, variant in (("widelm_train_d512", "bf16", "train_bfloat16", "mma.sync chunked"),
-                                   ("f32_widelm_d512", "float32", "train_float32", "fma chunked")):
+    for case, dt, key, variant, shape in (
+            ("widelm_train_d512", "bf16", "train_bfloat16", "mma.sync chunked", "KV1"),
+            ("f32_widelm_train_d512", "float32", "train_float32", "tf32x3 chunked",
+             "KV2 (k and v repeated, as trained)")):
         t = bwd[case]
-        shape = "train b1 T512" if case == "widelm_train_d512" else "prefill-shaped b8 T128"
         for part, line in (("dq", 113), ("dkv", 166)):
             kernels.append(dict(
-                name=f"flash_bwd_{part}[wide-head LM {shape} H2 KV1 D512 {dt} causal; {variant}, "
+                name=f"flash_bwd_{part}[wide-head LM train b1 T512 H2 {shape} D512 {dt} causal; {variant}, "
                      f"128 gradient columns a block; launches: phase 25 trained in {dt}; plain and "
                      f"library times are the whole backward's]",
-                route="cuda", variant=variant, source="dml_tpu_torch/csrc/flash_attention_bwd.cu",
+                route="cuda", variant=variant,
+                source="dml_tpu_torch/csrc/flash_attention_bwd" + ("_tf32" if dt == "float32" else "") + ".cu",
                 replaces=f"dml_tpu/ops/flash_attention.py:{line}", launches=w[key]["flash_bwd"],
                 launches_by_path={f"wide_heads_{key}": w[key]["flash_bwd"]},
                 max_abs_err=t["max_abs_err"], ms=t["ms"][part], plain_ms=t["plain_ms"],
                 bound_ms=t["bound"][part]["bound_ms"], bound_by=t["bound"][part]["bound_by"],
+                fma_bound_ms=t["bound"][part].get("bound_ms_fma"),
                 library_ms=t["library_ms"], library_backend=t["library_backend"]))
+    # float32 up to D 256 on the split-TF32 kernels (bound at 165 TFLOP/s;
+    # fma_bound_ms at the FMA units' 67), timed at ShardLM's D 96 and its
+    # draft's D 48 and launched by phase 23's float32 ShardLM benches and
+    # phase 24's float32 serving and training
+    served32, trained32 = hd_launches["serve_f32"], hd_launches["train_float32"]
+    for case, width, shape in (
+            ("f32_shardlm_d96", 96, "ShardLM prefill b4 T300 H4 KV2 D96 float32 causal"),
+            ("f32_draft_d48", 48, "ShardLM's draft prefill b4 T300 H4 KV2 D48 float32 causal")):
+        t = dict(flash[case])
+        key = f"fwd tf32x3 {width} 1"
+        by = {"head_dims_serve_f32": served32["routes"].get(key, 0),
+              "head_dims_train_f32": trained32["routes"].get(key, 0),
+              "rank_groups": rank_launches["routes"].get(key, 0)}
+        kernels.append(dict(
+            name=f"flash_fwd[{shape}; tf32x3 (split TF32 on mma.sync) at width {width}; launches: "
+                 f"phase 24 served and trained in float32, phase 23's float32 ShardLM benches]",
+            route="cuda", variant="tf32x3", source="dml_tpu_torch/csrc/flash_attention.cu",
+            replaces="dml_tpu/ops/flash_attention.py:65", launches=sum(by.values()), launches_by_path=by, **t))
+    t = bwd["f32_shardlm_train_d96"]
+    n = trained32["routes"].get("bwd tf32x3 96 1", 0)
+    for part, line in (("dq", 113), ("dkv", 166)):
+        kernels.append(dict(
+            name=f"flash_bwd_{part}[ShardLM train b2 T512 H4 KV4 (k and v repeated, as trained) D96 "
+                 f"float32 causal; tf32x3 (split TF32 on mma.sync) at width 96; launches: phase 24 "
+                 f"trained in float32; plain and library times are the whole backward's]",
+            route="cuda", variant="tf32x3", source="dml_tpu_torch/csrc/flash_attention_bwd_tf32.cu",
+            replaces=f"dml_tpu/ops/flash_attention.py:{line}", launches=n,
+            launches_by_path={"head_dims_train_f32": n}, max_abs_err=t["max_abs_err"], ms=t["ms"][part],
+            plain_ms=t["plain_ms"], bound_ms=t["bound"][part]["bound_ms"],
+            bound_by=t["bound"][part]["bound_by"], fma_bound_ms=t["bound"][part]["bound_ms_fma"],
+            library_ms=t["library_ms"], library_backend=t["library_backend"]))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -956,12 +956,15 @@ def main(argv: Optional[List[str]] = None) -> None:
             join_timeout_s=args.join_timeout or group_world.JOIN_TIMEOUT_S)
         from .ops import decode_attention, flash_attention, preprocess
 
-        # what this rank ran: the serving kernels it launched on its card
+        # what this rank ran: the serving kernels it launched on its card,
+        # and the flash launches by the kernels they ran
         launches = {"normalize": preprocess.normalize_launches,
                     "flash_attention": flash_attention.flash_launches,
                     "decode_attention": decode_attention.decode_launches}
+        routes = {" ".join(map(str, k)): n for k, n in sorted(flash_attention.route_launches.items())}
         print(f"follower {args.follow} of {args.name}: world closed after {calls} calls; "
-              f"kernel launches {json.dumps(launches)}", flush=True)
+              f"kernel launches {json.dumps(launches)}; flash launches by route {json.dumps(routes)}",
+              flush=True)
     elif args.command == "node":
         asyncio.run(_run_node(args))
     elif args.command == "introducer":

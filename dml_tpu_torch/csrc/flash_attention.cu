@@ -22,7 +22,7 @@
 // loops over the k-tiles itself and keeps them in registers.
 //
 // Head dims: the wgmma kernel is instantiated at D = 64, 128 and 256
-// (hopper.cuh::wgmma_head_dim), the mma.sync and f32 kernels at D = 16,
+// (hopper.cuh::wgmma_head_dim), the mma.sync and tf32 kernels at D = 16,
 // 32, 48, 64, 80, 96, 128 and 256 (hopper.cuh::native_head_dim), the
 // widths of real geometries (48: a D-96 model's speculative draft; 80:
 // Phi-2; 96: Phi-3-mini and the cluster LM bench's ShardLM; 256:
@@ -77,11 +77,24 @@
 //   the O accumulator takes 128 registers a thread, so they are read from
 //   the shared Q tile at each step instead. dml_flash_fwd_mma runs it at
 //   any d up to 256 so one card can time it beside the wgmma route.
-// - float32: flash_fwd_f32_kernel<D>, plain FMAs with the tiles and the
-//   accumulator in shared memory: 64-row tiles up to D 128, 32-row tiles
-//   at D 256 (the four tiles of 64 rows would not fit shared memory).
+// - float32: flash_fwd_tf32_kernel<D>, the mma.sync kernel's plan with
+//   every product in split TF32 (hopper.cuh: three m16n8k8 TF32 products
+//   a float32 one, held to the JAX package's float32 bars): 64-row
+//   q-tiles, K and V in two stages by cp.async (the next k-tile's copy in
+//   flight during this one's products), S and O in registers, P taken
+//   straight from the S accumulator as A fragments (its columns in the
+//   order 0, 2, 4, 6, 1, 3, 5, 7, with V's rows read in the same order, so
+//   no transpose and no shuffle). k-tiles of 64 keys, 32 at D 256 (O takes
+//   128 registers a thread there). Bound: the split's three products at
+//   495 TFLOP/s (165 TFLOP/s of float32 work; the published dense rates of
+//   an NVIDIA H100 80GB HBM3 at 700.00 W); the splits (integer rounding
+//   and a subtraction an operand element, every warp splitting the K and
+//   V fragments it reads) and the softmax's expf share the warps' issue
+//   slots with the mma.sync. There: ShardLM's [4,300,4,96] 0.03873 ms,
+//   4.3% of that bound, 0.38x SDPA; 0.2220 ms on the FMA kernel this
+//   replaced (PERF.md §6).
 // - d > 256, either dtype: the chunked route, flash_fwd_mma_wide_kernel
-//   (bf16) and flash_fwd_f32_wide_kernel, d at run time ("D > 256" below).
+//   (bf16) and flash_fwd_tf32_wide_kernel, d at run time ("D > 256" below).
 //
 // Bound: tensor-core operations at the prefill shape. 4 * B * H * Tq *
 // Tk * D operations (halved for causal) against 2 * (q + k + v + out)
@@ -211,15 +224,15 @@ __device__ __forceinline__ void load_vt(__nv_bfloat16* Vt, const __nv_bfloat16* 
   }
 }
 
-// The online softmax on this warp's S tile (16 rows x 64 keys from k0):
+// The online softmax on this warp's S tile (16 rows x BN keys from k0):
 // scale, mask, the row max over the 4 threads of a row, p = exp(s - m_new)
 // left in s, l = l * alpha + sum p, and O's W columns rescaled by alpha.
-template <int W>
+template <int W, int BN = BK>
 __device__ __forceinline__ void online_softmax(float (*s)[4], float (*o)[4], float* m, float* l,
                                                const int* row, int k0, int t, const Args& a) {
   float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-  for (int nt = 0; nt < BK / 8; ++nt) {
+  for (int nt = 0; nt < BN / 8; ++nt) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int r = e >> 1;
@@ -240,7 +253,7 @@ __device__ __forceinline__ void online_softmax(float (*s)[4], float (*o)[4], flo
     m[r] = m_new;
   }
 #pragma unroll
-  for (int nt = 0; nt < BK / 8; ++nt) {
+  for (int nt = 0; nt < BN / 8; ++nt) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float p = expf(s[nt][e] - m[e >> 1]);
@@ -283,16 +296,16 @@ __device__ __forceinline__ void pv_product(float (*o)[4], const float (*s)[4], c
 }
 
 // O / l into columns [c0, c0 + W) of this thread's two rows (none at d and
-// beyond), and the lse where c0 is 0.
-template <int W>
+// beyond) of out in T, and the lse where c0 is 0.
+template <int W, typename T = __nv_bfloat16>
 __device__ __forceinline__ void store_rows(const float (*o)[4], const float* m, const float* l, const int* row,
                                            int c0, int b, int h, int t, const Args& a) {
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
+  T* out = static_cast<T*>(a.out);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= a.Tq) continue;
     const float inv_l = 1.f / fmaxf(l[r], 1e-30f);
-    __nv_bfloat16* orow = out + (((long long)b * a.Tq + row[r]) * a.H + h) * a.d;
+    T* orow = out + (((long long)b * a.Tq + row[r]) * a.H + h) * a.d;
 #pragma unroll
     for (int j = 0; j < W / 8; ++j)
       hopper::store_pair(orow, c0 + 8 * j + 2 * t, a.d, o[j][2 * r] * inv_l, o[j][2 * r + 1] * inv_l);
@@ -370,141 +383,89 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_mma_kernel(Args a) {
   store_rows<D>(o, m, l, row, 0, b, h, t, a);
 }
 
-// ---------------------------------------------------------------- f32
+// ---------------------------------------------------- f32: split TF32
 
+// The float32 kernel at width D: 64 query rows a block (4 warps of 16),
+// k-tiles of BN keys in two stages, rows of D + 4 floats (hopper.cuh's
+// split-TF32 section). At D 256 the O accumulator takes 128 registers a
+// thread, so the k-tiles are 32 keys (S in 16) and Q with two stages of K
+// and V is 200 KB.
 template <int D>
-struct F32Layout {
-  static constexpr int R = D > 128 ? 32 : 64;  // query rows per block, key rows per k-tile
-  static constexpr int LDT = D + 4;   // Q, K, V tiles
-  static constexpr int LDS = R + 4;   // S, then P
-  static constexpr int LDO = D + 4;   // O accumulator
-  static constexpr size_t bytes =
-      sizeof(float) * (size_t)(3 * R * LDT + R * LDS + R * LDO + 2 * R);
+struct Tf32Layout {
+  static constexpr int BN = D > 128 ? 32 : 64;
+  static constexpr int LD = D + 4;
+  static constexpr size_t bytes = sizeof(float) * (size_t)(BQ + 2 * 2 * BN) * LD;  // Q; K and V a stage
 };
+static_assert(Tf32Layout<256>::bytes <= hopper::SMEM_PER_BLOCK && Tf32Layout<128>::bytes <= hopper::SMEM_PER_BLOCK,
+              "a float32 forward block passes 227 KB");
+
+// K's and V's k-tile at k0 into one stage (K, then V, BN rows each).
+template <int D, int BN>
+__device__ __forceinline__ void load_kv_f32(float* stage, const float* kp, const float* vp, int k0, const Args& a) {
+  constexpr int LD = D + 4;
+  hopper::load_f32_async<BN, D, THREADS>(stage, LD, kp, a.kst, k0, a.Tk, a.d);
+  hopper::load_f32_async<BN, D, THREADS>(stage + BN * LD, LD, vp, a.vst, k0, a.Tk, a.d);
+}
 
 template <int D>
-__global__ void __launch_bounds__(THREADS) flash_fwd_f32_kernel(Args a) {
-  using L = F32Layout<D>;
-  constexpr int R = L::R;
-  constexpr int TPR = THREADS / R;  // softmax threads per row: 2 or 4
-  constexpr int CPT = R / TPR;      // columns each takes
+__global__ void __launch_bounds__(THREADS, 1) flash_fwd_tf32_kernel(Args a) {
+  using L = Tf32Layout<D>;
+  constexpr int BN = L::BN, LD = L::LD;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
-  float* Ks = Qs + R * L::LDT;
-  float* Vs = Ks + R * L::LDT;
-  float* S = Vs + R * L::LDT;
-  float* O = S + R * L::LDS;
-  float* m_s = O + R * L::LDO;
-  float* l_s = m_s + R;
+  float* stages = Qs + BQ * LD;  // stage s: K at stages + 2 s BN LD, V BN LD after it
 
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / a.G;
-  const int q0 = qt * R;
-  const int tid = threadIdx.x;
+  const int q0 = qt * BQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
   const float* qp = static_cast<const float*>(a.q) + b * a.qsb + h * a.qsh;
   const float* kp = static_cast<const float*>(a.k) + b * a.ksb + kvh * a.ksh;
   const float* vp = static_cast<const float*>(a.v) + b * a.vsb + kvh * a.vsh;
 
-  load_tile<float, D, R>(Qs, L::LDT, qp, a.qst, q0, a.Tq, a.d);
-  for (int i = tid; i < R * L::LDO; i += THREADS) O[i] = 0.f;
-  if (tid < R) {
-    m_s[tid] = NEG_INF;
-    l_s[tid] = 0.f;
-  }
+  int n_tiles = (a.Tk + BN - 1) / BN;
+  if (a.causal) n_tiles = min(n_tiles, (q0 + BQ - 1) / BN + 1);  // skip tiles above the diagonal
 
-  int n_tiles = (a.Tk + R - 1) / R;
-  if (a.causal) n_tiles = min(n_tiles, (q0 + R - 1) / R + 1);
+  hopper::load_f32_async<BQ, D, THREADS>(Qs, LD, qp, a.qst, q0, a.Tq, a.d);
+  if (n_tiles > 0) load_kv_f32<D, BN>(stages, kp, vp, 0, a);
+  hopper::cp_async_commit();
 
-  // softmax mapping: TPR threads per row, CPT columns each
-  const int r = tid / TPR, part = tid % TPR;
-  const int qpos = q0 + r;
+  float o[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  const int row[2] = {q0 + 16 * warp + g, q0 + 16 * warp + g + 8};
 
   for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * R;
+    // the next k-tile's copy in flight during this one's products
+    if (kt + 1 < n_tiles) load_kv_f32<D, BN>(stages + ((kt + 1) & 1) * 2 * BN * LD, kp, vp, (kt + 1) * BN, a);
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<1>();
     __syncthreads();
-    load_tile<float, D, R>(Ks, L::LDT, kp, a.kst, k0, a.Tk, a.d);
-    load_tile<float, D, R>(Vs, L::LDT, vp, a.vst, k0, a.Tk, a.d);
-    __syncthreads();
-
-    for (int i = tid; i < R * R; i += THREADS) {
-      const int rr = i / R, c = i % R;
-      const float* qr = Qs + rr * L::LDT;
-      const float* kr = Ks + c * L::LDT;
-      float acc = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) acc = fmaf(qr[d], kr[d], acc);
-      S[rr * L::LDS + c] = acc * a.scale;
-    }
-    __syncthreads();
-
-    {
-      const float m_prev = m_s[r];
-      const float l_prev = l_s[r];
-      float* srow = S + r * L::LDS;
-      float mx = NEG_INF;
-      for (int c = part * CPT; c < part * CPT + CPT; ++c) {
-        const int kpos = k0 + c;
-        float v = srow[c];
-        if (kpos >= a.Tk || (a.causal && kpos > qpos)) v = NEG_INF;
-        srow[c] = v;
-        mx = fmaxf(mx, v);
-      }
+    const float* Ks = stages + (kt & 1) * 2 * BN * LD;
+    float s[BN / 8][4];
 #pragma unroll
-      for (int off = 1; off < TPR; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int c = part * CPT; c < part * CPT + CPT; ++c) {
-        const float p = expf(srow[c] - m_new);
-        sum += p;
-        srow[c] = p;
-      }
-#pragma unroll
-      for (int off = 1; off < TPR; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const float alpha = expf(m_prev - m_new);
-      float* orow = O + r * L::LDO;
-      for (int d = part * (D / TPR); d < (part + 1) * (D / TPR); ++d) orow[d] *= alpha;
-      __syncwarp();
-      if (part == 0) {
-        m_s[r] = m_new;
-        l_s[r] = l_prev * alpha + sum;
-      }
-    }
-    __syncthreads();
-
-    for (int i = tid; i < R * D; i += THREADS) {
-      const int rr = i / D, d = i % D;
-      const float* pr = S + rr * L::LDS;
-      float acc = O[rr * L::LDO + d];
-#pragma unroll 16
-      for (int c = 0; c < R; ++c) acc = fmaf(pr[c], Vs[c * L::LDT + d], acc);
-      O[rr * L::LDO + d] = acc;
-    }
+    for (int nt = 0; nt < BN / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    hopper::product_abt<D, BN>(s, Qs + 16 * warp * LD, LD, Ks, LD, g, t);
+    online_softmax<D, BN>(s, o, m, l, row, kt * BN, t, a);
+    hopper::product_cb<D, BN>(o, s, Ks + BN * LD, LD, g, t);  // O += P V, P in float32
+    __syncthreads();  // every warp is done with this stage before k-tile kt + 2 lands in it
   }
-  __syncthreads();
-
-  float* out = static_cast<float*>(a.out);
-  for (int i = tid; i < R * D; i += THREADS) {
-    const int rr = i / D, d = i % D;
-    const int tq = q0 + rr;
-    if (tq < a.Tq && d < a.d) {
-      out[(((long long)b * a.Tq + tq) * a.H + h) * a.d + d] = O[rr * L::LDO + d] / fmaxf(l_s[rr], 1e-30f);
-    }
-  }
-  if (tid < R && q0 + tid < a.Tq) {
-    a.lse[((long long)b * a.H + h) * a.Tq + q0 + tid] = m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
-  }
+  hopper::cp_async_wait<0>();
+  store_rows<D, float>(o, m, l, row, 0, b, h, t, a);
 }
 
-// The mma.sync kernel (bf16) or the FMA kernel (float32) at native width D.
+// The mma.sync kernel (bf16) or the split-TF32 kernel (float32) at native
+// width D, one block a 64-row q-tile.
 template <int D>
 int launch(const Args& a, int B, int is_bf16, cudaStream_t stream) {
-  auto kernel = is_bf16 ? flash_fwd_mma_kernel<D> : flash_fwd_f32_kernel<D>;
-  const size_t bytes = is_bf16 ? MmaLayout<D>::bytes : F32Layout<D>::bytes;
-  const int rows = is_bf16 ? BQ : F32Layout<D>::R;
+  auto kernel = is_bf16 ? flash_fwd_mma_kernel<D> : flash_fwd_tf32_kernel<D>;
+  const size_t bytes = is_bf16 ? MmaLayout<D>::bytes : Tf32Layout<D>::bytes;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.Tq + rows - 1) / rows, a.H, B);
+  dim3 grid((a.Tq + BQ - 1) / BQ, a.H, B);
   kernel<<<grid, THREADS, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -525,8 +486,6 @@ int launch(const Args& a, int B, int is_bf16, cudaStream_t stream) {
 
 constexpr int CHUNK = 256;      // output columns a block of the chunked route owns
 constexpr int SLICE = 128;      // columns of Q and K staged at a time (bf16)
-constexpr int F32_SLICE = 64;   // the same, float32
-constexpr int F32_WIDE_R = 32;  // query rows a block, key rows a k-tile (float32)
 
 struct MmaWideLayout {
   static constexpr int LDS = SLICE + 8;  // Q and K slices, row-major
@@ -594,133 +553,71 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_mma_wide_kernel(Args a) {
   store_rows<CHUNK>(o, m, l, row, c0, b, h, t, a);
 }
 
-struct F32WideLayout {
-  static constexpr int R = F32_WIDE_R;
-  static constexpr int LDT = F32_SLICE + 4;  // Q and K slices
-  static constexpr int LDV = CHUNK + 4;      // the block's chunk of the V tile
-  static constexpr int LDS = R + 4;          // S, then P
-  static constexpr size_t bytes = sizeof(float) * (size_t)(2 * R * LDT + R * LDV + R * LDS);
+// Float32, d > 256: the bf16 kernel's plan in split TF32 (hopper.cuh):
+// S over d in slices of TF32_SLICE columns of Q and K, each slice's S
+// added in float32 (hopper.cuh::slice_product: chained over all of d, out
+// and lse at d 1000 came within 10% of the 2e-5 bar), two stages, the
+// next slice's copy in flight during a slice's products; the block's
+// chunk of the V tile lands during S. k-tiles of 16 keys: O takes 128
+// registers a thread, and ptxas spilled at 32 and 64 keys (as it did with
+// __maxnreg__(255), a fence between the products or a partial unroll).
+struct Tf32WideLayout {
+  static constexpr int BN = 16;  // keys a k-tile: S in 8 registers beside O's 128
+  static constexpr int SLICES = hopper::tf32_slice_floats<BN, 1>();
+  static constexpr int LDV = CHUNK + 4;  // the block's chunk of the V tile
+  static constexpr size_t bytes = sizeof(float) * (size_t)(SLICES + BN * LDV);
 };
-static_assert(F32WideLayout::bytes <= hopper::SMEM_PER_BLOCK, "one block of the chunked route at every d");
+static_assert(Tf32WideLayout::bytes <= hopper::SMEM_PER_BLOCK, "one block of the chunked route at every d");
 
-// Float32, d > 256: 32-row tiles; thread i accumulates S at the pairs
-// (i / 32 + 4 j, i % 32), j < 8, over the slices, and owns row i / 4 of
-// O at columns [64 (i % 4), 64 (i % 4) + 64) of the chunk, in registers.
-__global__ void __launch_bounds__(THREADS) flash_fwd_f32_wide_kernel(Args a) {
-  using L = F32WideLayout;
-  constexpr int R = L::R;
-  constexpr int TPR = THREADS / R;      // threads a row: 4
-  constexpr int CPT = R / TPR;          // softmax columns each
-  constexpr int OPT = CHUNK / TPR;      // O columns each
-  constexpr int NP = R * R / THREADS;   // S pairs each
+__global__ void __launch_bounds__(THREADS, 1) flash_fwd_tf32_wide_kernel(Args a) {
+  using L = Tf32WideLayout;
   extern __shared__ __align__(128) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);
-  float* Ks = Qs + R * L::LDT;
-  float* Vs = Ks + R * L::LDT;
-  float* S = Vs + R * L::LDV;
+  float* slices = reinterpret_cast<float*>(smem);
+  float* Vs = slices + L::SLICES;
 
   const int n_cc = (a.d + CHUNK - 1) / CHUNK;
-  const int qt = blockIdx.x / n_cc, c0 = (blockIdx.x % n_cc) * CHUNK;
+  const int qt = blockIdx.x / n_cc, c0 = (blockIdx.x % n_cc) * CHUNK;  // output columns [c0, c0 + CHUNK)
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / a.G;
-  const int q0 = qt * R;
-  const int tid = threadIdx.x;
+  const int q0 = qt * BQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
   const float* qp = static_cast<const float*>(a.q) + b * a.qsb + h * a.qsh;
   const float* kp = static_cast<const float*>(a.k) + b * a.ksb + kvh * a.ksh;
   const float* vp = static_cast<const float*>(a.v) + b * a.vsb + kvh * a.vsh;
 
-  const int r = tid / TPR, part = tid % TPR;  // softmax row and O columns
-  const int qpos = q0 + r;
-  float o[OPT];
+  float o[CHUNK / 8][4];
 #pragma unroll
-  for (int j = 0; j < OPT; ++j) o[j] = 0.f;
-  float m = NEG_INF, l = 0.f;
+  for (int j = 0; j < CHUNK / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  const int row[2] = {q0 + 16 * warp + g, q0 + 16 * warp + g + 8};
 
-  int n_tiles = (a.Tk + R - 1) / R;
-  if (a.causal) n_tiles = min(n_tiles, (q0 + R - 1) / R + 1);
+  constexpr int BN = L::BN;
+  int n_tiles = (a.Tk + BN - 1) / BN;
+  if (a.causal) n_tiles = min(n_tiles, (q0 + BQ - 1) / BN + 1);  // skip tiles above the diagonal
 
   for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * R;
-    float acc[NP];
-#pragma unroll
-    for (int j = 0; j < NP; ++j) acc[j] = 0.f;
-    for (int c = 0; c < a.d; c += F32_SLICE) {
-      __syncthreads();
-      load_tile<float, F32_SLICE, R>(Qs, L::LDT, qp + c, a.qst, q0, a.Tq, a.d - c);
-      load_tile<float, F32_SLICE, R>(Ks, L::LDT, kp + c, a.kst, k0, a.Tk, a.d - c);
-      __syncthreads();
-#pragma unroll
-      for (int j = 0; j < NP; ++j) {
-        const int i = tid + THREADS * j;
-        const float* qr = Qs + (i / R) * L::LDT;
-        const float* kr = Ks + (i % R) * L::LDT;
-#pragma unroll 16
-        for (int e = 0; e < F32_SLICE; ++e) acc[j] = fmaf(qr[e], kr[e], acc[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < NP; ++j) {
-      const int i = tid + THREADS * j;
-      S[(i / R) * L::LDS + i % R] = acc[j] * a.scale;
-    }
-    load_tile<float, CHUNK, R>(Vs, L::LDV, vp + c0, a.vst, k0, a.Tk, a.d - c0);
-    __syncthreads();
-
-    float* srow = S + r * L::LDS;
-    float mx = NEG_INF;
-    for (int c = part * CPT; c < part * CPT + CPT; ++c) {
-      const int kpos = k0 + c;
-      float v = srow[c];
-      if (kpos >= a.Tk || (a.causal && kpos > qpos)) v = NEG_INF;
-      srow[c] = v;
-      mx = fmaxf(mx, v);
-    }
-#pragma unroll
-    for (int off = 1; off < TPR; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    const float m_new = fmaxf(m, mx);
-    float sum = 0.f;
-    for (int c = part * CPT; c < part * CPT + CPT; ++c) {
-      const float p = expf(srow[c] - m_new);
-      sum += p;
-      srow[c] = p;
-    }
-#pragma unroll
-    for (int off = 1; off < TPR; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    const float alpha = expf(m - m_new);
-    m = m_new;
-    l = l * alpha + sum;
-    __syncwarp();  // the row's four threads (one warp) wrote its P
-#pragma unroll
-    for (int j = 0; j < OPT; ++j) o[j] *= alpha;
-    for (int c = 0; c < R; ++c) {
-      const float p = srow[c];
-      const float* vr = Vs + c * L::LDV + part * OPT;
-#pragma unroll
-      for (int j = 0; j < OPT; ++j) o[j] = fmaf(p, vr[j], o[j]);
-    }
+    const int k0 = kt * BN;
+    __syncthreads();  // every warp is done with the previous tile's V
+    hopper::load_f32_async<BN, CHUNK, THREADS>(Vs, L::LDV, vp + c0, a.vst, k0, a.Tk, a.d - c0);
+    hopper::cp_async_commit();
+    float s[BN / 8][4];
+    hopper::tf32_products_by_slices<BN, 1, THREADS>(s, nullptr, slices, qp, nullptr, a.qst, 0, q0, a.Tq, kp,
+                                                    nullptr, a.kst, 0, k0, a.Tk, a.d, warp, g, t);
+    online_softmax<CHUNK, BN>(s, o, m, l, row, k0, t, a);
+    hopper::product_cb<CHUNK, BN>(o, s, Vs, L::LDV, g, t);  // over this block's chunk
   }
-
-  if (qpos < a.Tq) {
-    float* orow = static_cast<float*>(a.out) + (((long long)b * a.Tq + qpos) * a.H + h) * a.d;
-    const float inv_l = 1.f / fmaxf(l, 1e-30f);
-#pragma unroll
-    for (int j = 0; j < OPT; ++j) {
-      const int c = c0 + part * OPT + j;
-      if (c < a.d) orow[c] = o[j] * inv_l;
-    }
-    if (c0 == 0 && part == 0) a.lse[((long long)b * a.H + h) * a.Tq + qpos] = m + logf(fmaxf(l, 1e-30f));
-  }
+  store_rows<CHUNK, float>(o, m, l, row, c0, b, h, t, a);
 }
 
 // The chunked route: one launch, ceil(d / CHUNK) blocks a q-tile.
 int launch_wide(const Args& a, int B, int is_bf16, cudaStream_t stream) {
-  auto kernel = is_bf16 ? flash_fwd_mma_wide_kernel : flash_fwd_f32_wide_kernel;
-  const size_t bytes = is_bf16 ? MmaWideLayout::bytes : F32WideLayout::bytes;
-  const int rows = is_bf16 ? BQ : F32_WIDE_R;
+  auto kernel = is_bf16 ? flash_fwd_mma_wide_kernel : flash_fwd_tf32_wide_kernel;
+  const size_t bytes = is_bf16 ? MmaWideLayout::bytes : Tf32WideLayout::bytes;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.Tq + rows - 1) / rows * ((a.d + CHUNK - 1) / CHUNK), a.H, B);
+  dim3 grid((a.Tq + BQ - 1) / BQ * ((a.d + CHUNK - 1) / CHUNK), a.H, B);
   kernel<<<grid, THREADS, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -1119,9 +1016,9 @@ int flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
 // The kernel for (dtype, D): wgmma + TMA for bf16 at 48 < D <= 256 with D
 // a multiple of 8, as the TMA store of out needs rows of whole 16-byte
 // units (at width 64, 128 or 256, the least >= D), mma.sync for bf16 at
-// every other D up to 256, FMAs for float32, each at the native width >= D
-// up to 256 and on the chunked route past it (cudaErrorInvalidValue at
-// D < 1).
+// every other D up to 256, split TF32 for float32, each at the native
+// width >= D up to 256 and on the chunked route past it
+// (cudaErrorInvalidValue at D < 1).
 extern "C" int dml_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                              int is_bf16, int B, int H, int G, int Tq, int Tk, int D,
                              long long qsb, long long qst, long long qsh,

@@ -30,7 +30,7 @@
 // S and dP, which is not where the time goes (below).
 //
 // Head dims as in the forward: the wgmma instances at D = 64, 128 and 256
-// (hopper.cuh::wgmma_head_dim), the mma.sync and f32 ones at D = 16, 32,
+// (hopper.cuh::wgmma_head_dim), the mma.sync ones (and the float32 ones) at D = 16, 32,
 // 48, 64, 80, 96, 128 and 256 (hopper.cuh::native_head_dim), a head dim d
 // on the least D >= d of its route with its columns past d loaded as
 // zeros and never written. With K, Q and dO zero there, S, dP and delta
@@ -99,12 +99,13 @@
 //   tile's block is two blocks, one per 128 gradient columns, which both
 //   compute S and dP over the whole D. dml_flash_bwd_mma runs them at any
 //   bf16 d up to 256 so one card can time them beside the wgmma route.
-// - float32: flash_bwd_dq_f32_kernel<D> and flash_bwd_dkv_f32_kernel<D>,
-//   plain FMAs with the tiles in shared memory: 64-row tiles up to D 128,
-//   32-row tiles at D 256.
-// - d > 256, either dtype: the chunked pair, flash_bwd_{dq,dkv}_mma_wide_
-//   kernel (bf16) and flash_bwd_{dq,dkv}_f32_wide_kernel, d at run time
-//   ("D > 256" below). The delta kernel takes every d as it is.
+// - float32, every d: the split-TF32 pair (tensor cores, three TF32
+//   products a float32 one) in flash_attention_bwd_tf32.cu, its own
+//   library built in parallel with this one (dml_flash_bwd_tf32); the two
+//   share flash_bwd_common.cuh.
+// - bf16 d > 256: the chunked pair, flash_bwd_{dq,dkv}_mma_wide_kernel, d
+//   at run time ("D > 256" below). The delta kernel takes every d and
+//   both dtypes as they are.
 //
 // Bound: tensor-core operations at the training shape. The backward needs
 // 5 products of 2 * Tq * Tk * D operations per head (S, dP, dV, dK, dQ;
@@ -125,31 +126,9 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include "hopper.cuh"
+#include "flash_bwd_common.cuh"
 
 namespace {
-
-constexpr int BQ = 64;        // query rows per tile (mma.sync)
-constexpr int BK = 64;        // key rows per tile (mma.sync)
-constexpr int THREADS = 128;  // 4 warps
-constexpr float NEG_INF = -1e30f;
-
-struct Args {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* dout;
-  const float* lse;    // [B, H, Tp]: the forward's lse, +1e30 past Tq
-  const float* delta;  // [B, H, Tp]: rowsum(dO * O) - g_lse, 0 past Tq
-  void* dq;
-  void* dk;
-  void* dv;
-  int H, G, KV, Tq, Tk, Tp;
-  int d;  // the head dim; the kernel's D is the native width >= d
-  long long qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, dsb, dst, dsh;
-  float scale;
-  int causal;
-};
 
 // Copy rows [row0, row0 + R) of one head ([T, d] with row stride
 // `stride_t` elements) into a shared tile of D columns with row stride
@@ -305,29 +284,6 @@ __device__ __forceinline__ void c_to_a(uint32_t* a, const float (*c)[4], int kk)
   a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
 }
 
-// Gradient columns a block of the mma.sync kernels accumulates: all D up
-// to 128, half of them at D 256 (two blocks per tile).
-template <int D>
-__host__ __device__ constexpr int grad_cols() { return D > 128 ? 128 : D; }
-
-// dS = P (dP - delta') scale in place of S, for this warp's 16 query rows
-// (row[0], row[1]) x 64 keys from k0: the dq kernels' step.
-__device__ __forceinline__ void ds_rows(float (*s)[4], const float (*dpv)[4], const float* lse,
-                                        const float* delta, const int* row, int k0, int t, const Args& a) {
-#pragma unroll
-  for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = e >> 1;
-      const int key = k0 + 8 * nt + 2 * t + (e & 1);
-      float sv = s[nt][e] * a.scale;
-      if (key >= a.Tk || (a.causal && key > row[r])) sv = NEG_INF;
-      const float p = expf(sv - lse[r]);
-      s[nt][e] = p * (dpv[nt][e] - delta[r]) * a.scale;
-    }
-  }
-}
-
 // dQ += dS K over W gradient columns: dS (bf16) straight from the
 // accumulators into A fragments, K^T from the transposed tile Kt [W, 64]
 // (row stride LDT), 16 keys at a time.
@@ -341,40 +297,6 @@ __device__ __forceinline__ void dq_product(float (*acc)[4], const float (*s)[4],
     for (int j = 0; j < W / 8; ++j) {
       const bf16* kr = Kt + (8 * j + g) * LDT + 16 * kk + 2 * t;
       mma16816(acc[j], sa, ld32(kr), ld32(kr + 8));
-    }
-  }
-}
-
-// dQ's columns [col0, col0 + W) of this thread's two rows (none at d and beyond).
-template <int W>
-__device__ __forceinline__ void store_dq(const float (*acc)[4], const int* row, int col0, int b, int h, int t,
-                                         const Args& a) {
-  bf16* dq = static_cast<bf16*>(a.dq);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (row[r] >= a.Tq) continue;
-    bf16* out = dq + (((long long)b * a.Tq + row[r]) * a.H + h) * a.d;
-#pragma unroll
-    for (int j = 0; j < W / 8; ++j) hopper::store_pair(out, col0 + 8 * j + 2 * t, a.d, acc[j][2 * r], acc[j][2 * r + 1]);
-  }
-}
-
-// P^T in place of S^T and dS^T in place of dP^T, for this warp's 16 keys
-// (key[0], key[1]) x 64 queries from q0: the dkv kernels' step.
-__device__ __forceinline__ void p_ds_cols(float (*s)[4], float (*dpv)[4], const float* lse_s, const float* delta_s,
-                                          const int* key, int q0, int t, const Args& a) {
-#pragma unroll
-  for (int nt = 0; nt < BQ / 8; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = e >> 1;
-      const int c = 8 * nt + 2 * t + (e & 1);  // query within the tile
-      const int qpos = q0 + c;
-      float sv = s[nt][e] * a.scale;
-      if (qpos >= a.Tq || (a.causal && key[r] > qpos)) sv = NEG_INF;
-      const float p = expf(sv - lse_s[c]);
-      s[nt][e] = p;
-      dpv[nt][e] = p * (dpv[nt][e] - delta_s[c]) * a.scale;
     }
   }
 }
@@ -395,25 +317,6 @@ __device__ __forceinline__ void dkv_product(float (*dk)[4], float (*dv)[4], cons
       const bf16* qr = Qt + (8 * j + g) * LDT + 16 * kk + 2 * t;
       mma16816(dv[j], pa, ld32(dr), ld32(dr + 8));
       mma16816(dk[j], sa, ld32(qr), ld32(qr + 8));
-    }
-  }
-}
-
-// dK's and dV's columns [col0, col0 + W) of this thread's two keys.
-template <int W>
-__device__ __forceinline__ void store_dkv(const float (*dk)[4], const float (*dv)[4], const int* key, int col0,
-                                          int kvh, int b, int t, const Args& a) {
-  bf16* dkp = static_cast<bf16*>(a.dk);
-  bf16* dvp = static_cast<bf16*>(a.dv);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (key[r] >= a.Tk) continue;
-    const long long off = (((long long)b * a.Tk + key[r]) * a.KV + kvh) * a.d;
-#pragma unroll
-    for (int j = 0; j < W / 8; ++j) {
-      const int c = col0 + 8 * j + 2 * t;
-      hopper::store_pair(dkp + off, c, a.d, dk[j][2 * r], dk[j][2 * r + 1]);
-      hopper::store_pair(dvp + off, c, a.d, dv[j][2 * r], dv[j][2 * r + 1]);
     }
   }
 }
@@ -594,238 +497,22 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_mma_kernel(Args a) {
   store_dkv<DO>(dk, dv, key, col0, kvh, b, t, a);
 }
 
-// ---------------------------------------------------------------- f32
-
-// rows per tile of the float32 kernels: 64, or 32 at D 256 so that the
-// tiles fit shared memory
+// The mma.sync kernels (bf16) at native width D: 64-row tiles, D /
+// grad_cols blocks a tile. parts: 1 = the dq kernel, 2 = the dkv kernel,
+// 3 = both
 template <int D>
-__host__ __device__ constexpr int f32_rows() { return D > 128 ? 32 : 64; }
-
-template <int D>
-struct F32DqLayout {
-  static constexpr int R = f32_rows<D>();
-  static constexpr int LDT = D + 4;   // Q, dO, K, V tiles and the dQ accumulator
-  static constexpr int LDS = R + 4;   // dS
-  static constexpr size_t bytes = sizeof(float) * (size_t)(5 * R * LDT + R * LDS + 2 * R);
-};
-
-template <int D>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dq_f32_kernel(Args a) {
-  using L = F32DqLayout<D>;
-  constexpr int R = L::R;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);
-  float* dOs = Qs + R * L::LDT;
-  float* Ks = dOs + R * L::LDT;
-  float* Vs = Ks + R * L::LDT;
-  float* dQ = Vs + R * L::LDT;
-  float* dS = dQ + R * L::LDT;
-  float* lse_s = dS + R * L::LDS;
-  float* delta_s = lse_s + R;
-
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / a.G;
-  const int q0 = qt * R;
-  const int tid = threadIdx.x;
-  const float* qp = static_cast<const float*>(a.q) + b * a.qsb + h * a.qsh;
-  const float* dp_ = static_cast<const float*>(a.dout) + b * a.dsb + h * a.dsh;
-  const float* kp = static_cast<const float*>(a.k) + b * a.ksb + kvh * a.ksh;
-  const float* vp = static_cast<const float*>(a.v) + b * a.vsb + kvh * a.vsh;
-  const long long rbase = ((long long)b * a.H + h) * a.Tp;
-
-  load_tile<float, D, R>(Qs, L::LDT, qp, a.qst, q0, a.Tq, a.d);
-  load_tile<float, D, R>(dOs, L::LDT, dp_, a.dst, q0, a.Tq, a.d);
-  for (int i = tid; i < R * L::LDT; i += THREADS) dQ[i] = 0.f;
-  load_rows<R>(lse_s, a.lse + rbase, q0, a.Tq);
-  load_rows<R>(delta_s, a.delta + rbase, q0, a.Tq);
-
-  int n_tiles = (a.Tk + R - 1) / R;
-  if (a.causal) n_tiles = min(n_tiles, (q0 + R - 1) / R + 1);
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * R;
-    __syncthreads();
-    load_tile<float, D, R>(Ks, L::LDT, kp, a.kst, k0, a.Tk, a.d);
-    load_tile<float, D, R>(Vs, L::LDT, vp, a.vst, k0, a.Tk, a.d);
-    __syncthreads();
-
-    for (int i = tid; i < R * R; i += THREADS) {
-      const int r = i / R, c = i % R;
-      const float* qr = Qs + r * L::LDT;
-      const float* dr = dOs + r * L::LDT;
-      const float* kr = Ks + c * L::LDT;
-      const float* vr = Vs + c * L::LDT;
-      float s = 0.f, dp = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) {
-        s = fmaf(qr[d], kr[d], s);
-        dp = fmaf(dr[d], vr[d], dp);
-      }
-      const int key = k0 + c;
-      s *= a.scale;
-      if (key >= a.Tk || (a.causal && key > q0 + r)) s = NEG_INF;
-      const float p = expf(s - lse_s[r]);
-      dS[r * L::LDS + c] = p * (dp - delta_s[r]) * a.scale;
-    }
-    __syncthreads();
-
-    for (int i = tid; i < R * D; i += THREADS) {
-      const int r = i / D, d = i % D;
-      const float* sr = dS + r * L::LDS;
-      float acc = dQ[r * L::LDT + d];
-#pragma unroll 16
-      for (int c = 0; c < R; ++c) acc = fmaf(sr[c], Ks[c * L::LDT + d], acc);
-      dQ[r * L::LDT + d] = acc;
-    }
-  }
-  __syncthreads();
-
-  float* dq = static_cast<float*>(a.dq);
-  for (int i = tid; i < R * D; i += THREADS) {
-    const int r = i / D, d = i % D;
-    if (q0 + r < a.Tq && d < a.d) dq[(((long long)b * a.Tq + q0 + r) * a.H + h) * a.d + d] = dQ[r * L::LDT + d];
-  }
-}
-
-template <int D>
-struct F32DkvLayout {
-  static constexpr int R = f32_rows<D>();
-  static constexpr int LDT = D + 4;   // K, V, Q, dO tiles
-  static constexpr int LDS = R + 4;   // P^T and dS^T
-  static constexpr size_t bytes = sizeof(float) * (size_t)(4 * R * LDT + 2 * R * LDS + 2 * R);
-};
-
-template <int D>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dkv_f32_kernel(Args a) {
-  using L = F32DkvLayout<D>;
-  constexpr int R = L::R;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Ks = reinterpret_cast<float*>(smem);
-  float* Vs = Ks + R * L::LDT;
-  float* Qs = Vs + R * L::LDT;
-  float* dOs = Qs + R * L::LDT;
-  float* Pt = dOs + R * L::LDT;
-  float* dSt = Pt + R * L::LDS;
-  float* lse_s = dSt + R * L::LDS;
-  float* delta_s = lse_s + R;
-
-  const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int k0 = kt * R;
-  const int tid = threadIdx.x;
-  const float* kp = static_cast<const float*>(a.k) + b * a.ksb + kvh * a.ksh;
-  const float* vp = static_cast<const float*>(a.v) + b * a.vsb + kvh * a.vsh;
-  load_tile<float, D, R>(Ks, L::LDT, kp, a.kst, k0, a.Tk, a.d);
-  load_tile<float, D, R>(Vs, L::LDT, vp, a.vst, k0, a.Tk, a.d);
-
-  // accumulators in registers: TPR threads per key row `own`, each HD of
-  // the D columns (64 at D 128 and 256)
-  constexpr int TPR = THREADS / R;
-  constexpr int HD = D / TPR;
-  const int own = tid / TPR, part = tid % TPR;
-  float dk[HD], dv[HD];
-#pragma unroll
-  for (int j = 0; j < HD; ++j) dk[j] = dv[j] = 0.f;
-
-  const int n_qt = (a.Tq + R - 1) / R;
-  const int qt0 = a.causal ? k0 / R : 0;
-  for (int gi = 0; gi < a.G; ++gi) {
-    const int h = kvh * a.G + gi;
-    const float* qp = static_cast<const float*>(a.q) + b * a.qsb + h * a.qsh;
-    const float* dp_ = static_cast<const float*>(a.dout) + b * a.dsb + h * a.dsh;
-    const long long rbase = ((long long)b * a.H + h) * a.Tp;
-    for (int qt = qt0; qt < n_qt; ++qt) {
-      const int q0 = qt * R;
-      __syncthreads();
-      load_tile<float, D, R>(Qs, L::LDT, qp, a.qst, q0, a.Tq, a.d);
-      load_tile<float, D, R>(dOs, L::LDT, dp_, a.dst, q0, a.Tq, a.d);
-      load_rows<R>(lse_s, a.lse + rbase, q0, a.Tq);
-      load_rows<R>(delta_s, a.delta + rbase, q0, a.Tq);
-      __syncthreads();
-
-      for (int i = tid; i < R * R; i += THREADS) {
-        const int r = i / R, c = i % R;  // key r, query c
-        const float* kr = Ks + r * L::LDT;
-        const float* vr = Vs + r * L::LDT;
-        const float* qr = Qs + c * L::LDT;
-        const float* dr = dOs + c * L::LDT;
-        float s = 0.f, dp = 0.f;
-#pragma unroll 16
-        for (int d = 0; d < D; ++d) {
-          s = fmaf(kr[d], qr[d], s);
-          dp = fmaf(vr[d], dr[d], dp);
-        }
-        const int qpos = q0 + c;
-        s *= a.scale;
-        if (qpos >= a.Tq || (a.causal && k0 + r > qpos)) s = NEG_INF;
-        const float p = expf(s - lse_s[c]);
-        Pt[r * L::LDS + c] = p;
-        dSt[r * L::LDS + c] = p * (dp - delta_s[c]) * a.scale;
-      }
-      __syncthreads();
-
-      const float* pr = Pt + own * L::LDS;
-      const float* sr = dSt + own * L::LDS;
-      for (int c = 0; c < R; ++c) {
-        const float pv = pr[c], sv = sr[c];
-        const float* dr = dOs + c * L::LDT + part * HD;
-        const float* qr = Qs + c * L::LDT + part * HD;
-#pragma unroll
-        for (int j = 0; j < HD; ++j) {
-          dv[j] = fmaf(pv, dr[j], dv[j]);
-          dk[j] = fmaf(sv, qr[j], dk[j]);
-        }
-      }
-    }
-  }
-
-  if (k0 + own < a.Tk) {
-    const long long off = (((long long)b * a.Tk + k0 + own) * a.KV + kvh) * a.d;
-    float* dkp = static_cast<float*>(a.dk) + off;
-    float* dvp = static_cast<float*>(a.dv) + off;
-#pragma unroll
-    for (int j = 0; j < HD; ++j) {
-      const int c = part * HD + j;
-      if (c < a.d) {
-        dkp[c] = dk[j];
-        dvp[c] = dv[j];
-      }
-    }
-  }
-}
-
-template <typename K>
-int launch_one(K kernel, size_t bytes, dim3 grid, const Args& a, cudaStream_t stream) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, THREADS, bytes, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-// The mma.sync kernels (bf16) or the FMA kernels (float32) at native
-// width D. parts: 1 = the dq kernel, 2 = the dkv kernel, 3 = both
-template <int D>
-int launch(const Args& a, int B, int is_bf16, int parts, cudaStream_t stream) {
-  // mma.sync: 64-row tiles, D / grad_cols blocks a tile; f32: f32_rows
-  const int rows = is_bf16 ? BQ : f32_rows<D>();
-  const int split = is_bf16 ? D / grad_cols<D>() : 1;
-  const dim3 dq_grid((a.Tq + rows - 1) / rows * split, a.H, B);
-  const dim3 dkv_grid((a.Tk + rows - 1) / rows * split, a.KV, B);
+int launch(const Args& a, int B, int parts, cudaStream_t stream) {
+  constexpr int split = D / grad_cols<D>();
+  const dim3 dq_grid((a.Tq + BQ - 1) / BQ * split, a.H, B);
+  const dim3 dkv_grid((a.Tk + BK - 1) / BK * split, a.KV, B);
   int err = 0;
   if (parts & 1) {
-    err = is_bf16 ? launch_one(flash_bwd_dq_mma_kernel<D>, DqLayout<D>::bytes, dq_grid, a, stream)
-                  : launch_one(flash_bwd_dq_f32_kernel<D>, F32DqLayout<D>::bytes, dq_grid, a, stream);
+    err = launch_one(flash_bwd_dq_mma_kernel<D>, DqLayout<D>::bytes, dq_grid, a, stream);
     if (err != 0) return err;
   }
-  if (parts & 2) {
-    err = is_bf16
-              ? launch_one(flash_bwd_dkv_mma_kernel<D>, DkvLayout<D>::bytes, dkv_grid, a, stream)
-              : launch_one(flash_bwd_dkv_f32_kernel<D>, F32DkvLayout<D>::bytes, dkv_grid, a, stream);
-  }
+  if (parts & 2) err = launch_one(flash_bwd_dkv_mma_kernel<D>, DkvLayout<D>::bytes, dkv_grid, a, stream);
   return err;
 }
-
-
 
 // ------------------------------------------------- D > 256: column chunks
 //
@@ -840,10 +527,7 @@ int launch(const Args& a, int B, int is_bf16, int parts, cudaStream_t stream) {
 // Still no atomics: every gradient element is summed by one block in a
 // fixed order.
 
-constexpr int CHUNK = 128;      // gradient columns a block of the chunked route owns
 constexpr int SLICE = 128;      // columns of each operand of S and dP staged at a time (bf16)
-constexpr int F32_SLICE = 64;   // the same, float32
-constexpr int F32_WIDE_R = 32;  // rows a tile (float32)
 
 struct DqWideLayout {
   static constexpr int LD = SLICE + 8;  // Q, dO, K, V slices, row-major
@@ -1005,223 +689,17 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_mma_wide_kernel(Args a)
   store_dkv<CHUNK>(dk, dv, key, col0, kvh, b, t, a);
 }
 
-// Float32, d > 256: 32-row tiles. Thread i accumulates S and dP at the
-// pairs (i / 32 + 4 j, i % 32), j < 8, over the slices, and owns row i / 4
-// of its gradients at columns [32 (i % 4), 32 (i % 4) + 32) of the chunk,
-// in registers.
-struct F32WideLayout {
-  static constexpr int R = F32_WIDE_R;
-  static constexpr int LDT = F32_SLICE + 4;  // the four slices
-  static constexpr int LDC = CHUNK + 4;      // chunks of K (dq) or of Q and dO (dkv)
-  static constexpr int LDS = R + 4;          // dS (dq) or P^T and dS^T (dkv)
-  static constexpr size_t bytes = sizeof(float) * (size_t)(4 * R * LDT + 2 * R * LDC + 2 * R * LDS + 2 * R);
-};
-static_assert(F32WideLayout::bytes <= hopper::SMEM_PER_BLOCK, "one block of the chunked route at every d");
-
-// S (or S^T) and dP (or dP^T) at this thread's pairs, over d in slices:
-// rows of A1, A2 against rows of B1, B2 (as products_by_slices).
-__device__ __forceinline__ void f32_products_by_slices(float* s, float* dp, float* A1s, float* A2s,
-                                                       float* B1s, float* B2s, const float* a1,
-                                                       const float* a2, long long sa1, long long sa2,
-                                                       int row0a, int na, const float* b1,
-                                                       const float* b2, long long sb1, long long sb2,
-                                                       int row0b, int nb, int d) {
-  constexpr int R = F32WideLayout::R, LDT = F32WideLayout::LDT, NP = R * R / THREADS;
-#pragma unroll
-  for (int j = 0; j < NP; ++j) s[j] = dp[j] = 0.f;
-  for (int c = 0; c < d; c += F32_SLICE) {
-    __syncthreads();
-    load_tile<float, F32_SLICE, R>(A1s, LDT, a1 + c, sa1, row0a, na, d - c);
-    load_tile<float, F32_SLICE, R>(A2s, LDT, a2 + c, sa2, row0a, na, d - c);
-    load_tile<float, F32_SLICE, R>(B1s, LDT, b1 + c, sb1, row0b, nb, d - c);
-    load_tile<float, F32_SLICE, R>(B2s, LDT, b2 + c, sb2, row0b, nb, d - c);
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < NP; ++j) {
-      const int i = threadIdx.x + THREADS * j;
-      const float* x1 = A1s + (i / R) * LDT;
-      const float* x2 = A2s + (i / R) * LDT;
-      const float* y1 = B1s + (i % R) * LDT;
-      const float* y2 = B2s + (i % R) * LDT;
-#pragma unroll 16
-      for (int e = 0; e < F32_SLICE; ++e) {
-        s[j] = fmaf(x1[e], y1[e], s[j]);
-        dp[j] = fmaf(x2[e], y2[e], dp[j]);
-      }
-    }
-  }
-}
-
-__global__ void __launch_bounds__(THREADS) flash_bwd_dq_f32_wide_kernel(Args a) {
-  using L = F32WideLayout;
-  constexpr int R = L::R, NP = R * R / THREADS, TPR = THREADS / R, GPT = CHUNK / TPR;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);
-  float* dOs = Qs + R * L::LDT;
-  float* Ks = dOs + R * L::LDT;
-  float* Vs = Ks + R * L::LDT;
-  float* Kc = Vs + R * L::LDT;
-  float* dS = Kc + 2 * R * L::LDC;
-  float* lse_s = dS + 2 * R * L::LDS;
-  float* delta_s = lse_s + R;
-
-  const int n_cc = (a.d + CHUNK - 1) / CHUNK;
-  const int qt = blockIdx.x / n_cc, col0 = (blockIdx.x % n_cc) * CHUNK;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / a.G;
-  const int q0 = qt * R;
-  const int tid = threadIdx.x;
-  const int own = tid / TPR, part = tid % TPR;
-  const float* qp = static_cast<const float*>(a.q) + b * a.qsb + h * a.qsh;
-  const float* dp_ = static_cast<const float*>(a.dout) + b * a.dsb + h * a.dsh;
-  const float* kp = static_cast<const float*>(a.k) + b * a.ksb + kvh * a.ksh;
-  const float* vp = static_cast<const float*>(a.v) + b * a.vsb + kvh * a.vsh;
-  const long long rbase = ((long long)b * a.H + h) * a.Tp;
-  load_rows<R>(lse_s, a.lse + rbase, q0, a.Tq);
-  load_rows<R>(delta_s, a.delta + rbase, q0, a.Tq);
-
-  float acc[GPT];
-#pragma unroll
-  for (int j = 0; j < GPT; ++j) acc[j] = 0.f;
-  int n_tiles = (a.Tk + R - 1) / R;
-  if (a.causal) n_tiles = min(n_tiles, (q0 + R - 1) / R + 1);
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * R;
-    float s[NP], dp[NP];
-    f32_products_by_slices(s, dp, Qs, dOs, Ks, Vs, qp, dp_, a.qst, a.dst, q0, a.Tq, kp, vp, a.kst,
-                           a.vst, k0, a.Tk, a.d);
-#pragma unroll
-    for (int j = 0; j < NP; ++j) {
-      const int i = tid + THREADS * j, r = i / R, c = i % R;
-      const int key = k0 + c;
-      float sv = s[j] * a.scale;
-      if (key >= a.Tk || (a.causal && key > q0 + r)) sv = NEG_INF;
-      const float p = expf(sv - lse_s[r]);
-      dS[r * L::LDS + c] = p * (dp[j] - delta_s[r]) * a.scale;
-    }
-    load_tile<float, CHUNK, R>(Kc, L::LDC, kp + col0, a.kst, k0, a.Tk, a.d - col0);
-    __syncthreads();
-    const float* sr = dS + own * L::LDS;
-    for (int c = 0; c < R; ++c) {
-      const float sv = sr[c];
-      const float* kr = Kc + c * L::LDC + part * GPT;
-#pragma unroll
-      for (int j = 0; j < GPT; ++j) acc[j] = fmaf(sv, kr[j], acc[j]);
-    }
-  }
-
-  if (q0 + own < a.Tq) {
-    float* dq = static_cast<float*>(a.dq) + (((long long)b * a.Tq + q0 + own) * a.H + h) * a.d;
-#pragma unroll
-    for (int j = 0; j < GPT; ++j) {
-      const int c = col0 + part * GPT + j;
-      if (c < a.d) dq[c] = acc[j];
-    }
-  }
-}
-
-__global__ void __launch_bounds__(THREADS) flash_bwd_dkv_f32_wide_kernel(Args a) {
-  using L = F32WideLayout;
-  constexpr int R = L::R, NP = R * R / THREADS, TPR = THREADS / R, GPT = CHUNK / TPR;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Ks = reinterpret_cast<float*>(smem);
-  float* Vs = Ks + R * L::LDT;
-  float* Qs = Vs + R * L::LDT;
-  float* dOs = Qs + R * L::LDT;
-  float* Qc = dOs + R * L::LDT;
-  float* dOc = Qc + R * L::LDC;
-  float* Pt = dOc + R * L::LDC;
-  float* dSt = Pt + R * L::LDS;
-  float* lse_s = dSt + R * L::LDS;
-  float* delta_s = lse_s + R;
-
-  const int n_cc = (a.d + CHUNK - 1) / CHUNK;
-  const int kt = blockIdx.x / n_cc, col0 = (blockIdx.x % n_cc) * CHUNK;
-  const int kvh = blockIdx.y, b = blockIdx.z;
-  const int k0 = kt * R;
-  const int tid = threadIdx.x;
-  const int own = tid / TPR, part = tid % TPR;
-  const float* kp = static_cast<const float*>(a.k) + b * a.ksb + kvh * a.ksh;
-  const float* vp = static_cast<const float*>(a.v) + b * a.vsb + kvh * a.vsh;
-  float dk[GPT], dv[GPT];
-#pragma unroll
-  for (int j = 0; j < GPT; ++j) dk[j] = dv[j] = 0.f;
-
-  const int n_qt = (a.Tq + R - 1) / R;
-  const int qt0 = a.causal ? k0 / R : 0;
-  for (int gi = 0; gi < a.G; ++gi) {
-    const int h = kvh * a.G + gi;
-    const float* qp = static_cast<const float*>(a.q) + b * a.qsb + h * a.qsh;
-    const float* dp_ = static_cast<const float*>(a.dout) + b * a.dsb + h * a.dsh;
-    const long long rbase = ((long long)b * a.H + h) * a.Tp;
-    for (int qt = qt0; qt < n_qt; ++qt) {
-      const int q0 = qt * R;
-      float s[NP], dp[NP];  // key i / 32 + 4 j, query i % 32
-      f32_products_by_slices(s, dp, Ks, Vs, Qs, dOs, kp, vp, a.kst, a.vst, k0, a.Tk, qp, dp_, a.qst,
-                             a.dst, q0, a.Tq, a.d);
-      load_tile<float, CHUNK, R>(Qc, L::LDC, qp + col0, a.qst, q0, a.Tq, a.d - col0);
-      load_tile<float, CHUNK, R>(dOc, L::LDC, dp_ + col0, a.dst, q0, a.Tq, a.d - col0);
-      load_rows<R>(lse_s, a.lse + rbase, q0, a.Tq);
-      load_rows<R>(delta_s, a.delta + rbase, q0, a.Tq);
-      __syncthreads();
-#pragma unroll
-      for (int j = 0; j < NP; ++j) {
-        const int i = tid + THREADS * j, r = i / R, c = i % R;
-        const int qpos = q0 + c;
-        float sv = s[j] * a.scale;
-        if (qpos >= a.Tq || (a.causal && k0 + r > qpos)) sv = NEG_INF;
-        const float p = expf(sv - lse_s[c]);
-        Pt[r * L::LDS + c] = p;
-        dSt[r * L::LDS + c] = p * (dp[j] - delta_s[c]) * a.scale;
-      }
-      __syncthreads();
-      const float* pr = Pt + own * L::LDS;
-      const float* sr = dSt + own * L::LDS;
-      for (int c = 0; c < R; ++c) {
-        const float pv = pr[c], sv = sr[c];
-        const float* dr = dOc + c * L::LDC + part * GPT;
-        const float* qr = Qc + c * L::LDC + part * GPT;
-#pragma unroll
-        for (int j = 0; j < GPT; ++j) {
-          dv[j] = fmaf(pv, dr[j], dv[j]);
-          dk[j] = fmaf(sv, qr[j], dk[j]);
-        }
-      }
-    }
-  }
-
-  if (k0 + own < a.Tk) {
-    const long long off = (((long long)b * a.Tk + k0 + own) * a.KV + kvh) * a.d;
-    float* dkp = static_cast<float*>(a.dk) + off;
-    float* dvp = static_cast<float*>(a.dv) + off;
-#pragma unroll
-    for (int j = 0; j < GPT; ++j) {
-      const int c = col0 + part * GPT + j;
-      if (c < a.d) {
-        dkp[c] = dk[j];
-        dvp[c] = dv[j];
-      }
-    }
-  }
-}
-
 // The chunked route: ceil(d / CHUNK) blocks a tile. parts as in launch.
-int launch_wide(const Args& a, int B, int is_bf16, int parts, cudaStream_t stream) {
-  const int rows = is_bf16 ? BQ : F32_WIDE_R;
+int launch_wide(const Args& a, int B, int parts, cudaStream_t stream) {
   const int n_cc = (a.d + CHUNK - 1) / CHUNK;
-  const dim3 dq_grid((a.Tq + rows - 1) / rows * n_cc, a.H, B);
-  const dim3 dkv_grid((a.Tk + rows - 1) / rows * n_cc, a.KV, B);
+  const dim3 dq_grid((a.Tq + BQ - 1) / BQ * n_cc, a.H, B);
+  const dim3 dkv_grid((a.Tk + BK - 1) / BK * n_cc, a.KV, B);
   int err = 0;
   if (parts & 1) {
-    err = is_bf16 ? launch_one(flash_bwd_dq_mma_wide_kernel, DqWideLayout::bytes, dq_grid, a, stream)
-                  : launch_one(flash_bwd_dq_f32_wide_kernel, F32WideLayout::bytes, dq_grid, a, stream);
+    err = launch_one(flash_bwd_dq_mma_wide_kernel, DqWideLayout::bytes, dq_grid, a, stream);
     if (err != 0) return err;
   }
-  if (parts & 2) {
-    err = is_bf16 ? launch_one(flash_bwd_dkv_mma_wide_kernel, DkvWideLayout::bytes, dkv_grid, a, stream)
-                  : launch_one(flash_bwd_dkv_f32_wide_kernel, F32WideLayout::bytes, dkv_grid, a, stream);
-  }
+  if (parts & 2) err = launch_one(flash_bwd_dkv_mma_wide_kernel, DkvWideLayout::bytes, dkv_grid, a, stream);
   return err;
 }
 
@@ -1878,7 +1356,8 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* dout, con
          H, H / KV, KV, Tq, Tk, Tp, D,
          qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, dsb, dst, dsh, scale, causal};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16 && wgmma) {
+  if (!is_bf16) return (int)cudaErrorInvalidValue;  // float32: flash_attention_bwd_tf32.cu
+  if (wgmma) {
     switch (hopper::wgmma_head_dim(D)) {
       case 64: return wg::launch<64>(a, B, parts, s);
       case 128: return wg::launch<128>(a, B, parts, s);
@@ -1887,15 +1366,15 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* dout, con
     }
   }
   switch (hopper::native_head_dim(D)) {
-    case 16: return launch<16>(a, B, is_bf16, parts, s);
-    case 32: return launch<32>(a, B, is_bf16, parts, s);
-    case 48: return launch<48>(a, B, is_bf16, parts, s);
-    case 64: return launch<64>(a, B, is_bf16, parts, s);
-    case 80: return launch<80>(a, B, is_bf16, parts, s);
-    case 96: return launch<96>(a, B, is_bf16, parts, s);
-    case 128: return launch<128>(a, B, is_bf16, parts, s);
-    case 256: return launch<256>(a, B, is_bf16, parts, s);
-    default: return D > hopper::WIDEST_NATIVE ? launch_wide(a, B, is_bf16, parts, s)
+    case 16: return launch<16>(a, B, parts, s);
+    case 32: return launch<32>(a, B, parts, s);
+    case 48: return launch<48>(a, B, parts, s);
+    case 64: return launch<64>(a, B, parts, s);
+    case 80: return launch<80>(a, B, parts, s);
+    case 96: return launch<96>(a, B, parts, s);
+    case 128: return launch<128>(a, B, parts, s);
+    case 256: return launch<256>(a, B, parts, s);
+    default: return D > hopper::WIDEST_NATIVE ? launch_wide(a, B, parts, s)
                                               : (int)cudaErrorInvalidValue;  // D < 1
   }
 }
@@ -1929,12 +1408,12 @@ extern "C" int dml_flash_bwd_rows(const void* out, const void* dout, const void*
   return (int)cudaGetLastError();
 }
 
-// dq, dk and dv given the row arrays, on the kernels for (dtype, D): wgmma
-// + TMA for bf16 at 48 < D <= 256 with D a multiple of 8, as the TMA
-// stores need rows of whole 16-byte units (at width 64, 128 or 256),
-// mma.sync for bf16 at every other D up to 256, FMAs for float32, each at
-// the native width >= D up to 256 and on the chunked route past it
-// (cudaErrorInvalidValue at D < 1).
+// bf16 dq, dk and dv given the row arrays, on the kernels for D: wgmma +
+// TMA at 48 < D <= 256 with D a multiple of 8, as the TMA stores need rows
+// of whole 16-byte units (at width 64, 128 or 256), mma.sync at every
+// other D up to 256, at the native width >= D, and on the chunked route
+// past it (cudaErrorInvalidValue at D < 1 and for float32, which
+// dml_flash_bwd_tf32 in flash_attention_bwd_tf32.cu takes).
 // parts: 1 = the dq kernel, 2 = the dkv kernel, 3 = both.
 extern "C" int dml_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse_r, const void* delta_r,
@@ -1949,8 +1428,8 @@ extern "C" int dml_flash_bwd(const void* q, const void* k, const void* v, const 
                    qsh, ksb, kst, ksh, vsb, vst, vsh, dsb, dst, dsh, scale, causal, parts, stream, true);
 }
 
-// The same call on the mma.sync kernels at every bf16 D (float32 as
-// above), so one card can time them beside the wgmma route.
+// The same call on the mma.sync kernels at every bf16 D, so one card can
+// time them beside the wgmma route.
 extern "C" int dml_flash_bwd_mma(const void* q, const void* k, const void* v, const void* dout,
                                  const void* lse_r, const void* delta_r,
                                  void* dq, void* dk, void* dv,

@@ -3,8 +3,9 @@
 // backward): mbarriers, TMA loads and stores, wgmma shared-memory
 // descriptors in the 128-byte swizzle that TMA writes, the wgmma forms
 // the kernels issue, the tensor maps over BTHD tensors, and the head dims
-// the kernels are built for. decode_attention.cu takes the mbarrier and
-// bulk-copy pieces.
+// the kernels are built for, cp.async tile copies and the split-TF32
+// products of the float32 kernels. decode_attention.cu takes the mbarrier
+// and bulk-copy pieces.
 //
 // Everything here sits in the including file's unnamed namespace: each
 // source is its own library, so nothing is exported twice.
@@ -56,6 +57,16 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* row, int c, int d, flo
   } else {
     if (c < d) row[c] = __float2bfloat16_rn(lo);
     if (c + 1 < d) row[c + 1] = __float2bfloat16_rn(hi);
+  }
+}
+
+// The same for a float32 row: the pair as one 8-byte store where d is even.
+__device__ __forceinline__ void store_pair(float* row, int c, int d, float lo, float hi) {
+  if ((d & 1) == 0) {
+    if (c < d) *reinterpret_cast<float2*>(row + c) = make_float2(lo, hi);
+  } else {
+    if (c < d) row[c] = lo;
+    if (c + 1 < d) row[c + 1] = hi;
   }
 }
 
@@ -304,6 +315,316 @@ int encode_map(CUtensorMap* map, const void* ptr, int d, int heads, int t, int b
                       elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : 10000 + (int)r;
+}
+
+// cp.async: 16 bytes from global into shared memory, or 16 zero bytes
+// where !valid (a source size of 0 reads nothing).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+// Wait until at most N of this thread's commit groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [row0, row0 + R) x columns [0, C) of one head's float32 rows (row
+// stride `stride` elements) into a shared tile of row stride `ld` by
+// cp.async, 16 bytes a thread a step over NT threads; rows at n_rows and
+// beyond and columns at d and beyond arrive as zeros. A row holds whole
+// 16-byte chunks (the wrapper pads it so).
+template <int R, int C, int NT>
+__device__ __forceinline__ void load_f32_async(float* dst, int ld, const float* src, long long stride, int row0,
+                                               int n_rows, int d) {
+  constexpr int CH = C / 4;
+  for (int i = threadIdx.x; i < R * CH; i += NT) {
+    const int r = i / CH, c = (i % CH) * 4;
+    const bool ok = row0 + r < n_rows && c < d;
+    cp_async16(dst + r * ld + c, ok ? src + (long long)(row0 + r) * stride + c : src, ok);
+  }
+}
+
+// ------------------------------------------------ split TF32 (float32)
+//
+// Float32 products on the tensor cores: x = hi + lo with hi = tf32(x) and
+// lo = tf32(x - hi) (rounded as cvt.rna.tf32.f32 rounds: to nearest, ties
+// away from zero), and a b as
+// hi_a lo_b + lo_a hi_b + hi_a hi_b, three mma.sync m16n8k8 TF32 products
+// into one float32 accumulator, the small terms first (long sums: from
+// zero, then added in float32, product_cb_rn and slice_product). A TF32
+// product is exact in float32; what is dropped (lo_a lo_b, and lo's own rounding) is
+// about 2^-22 of a b, float32's own order, where one TF32 product alone is
+// off by about 2^-11 (5e-4, past the JAX package's float32 bars of 2e-5).
+// Three TF32 products a float32 one: 495 / 3 = 165 TFLOP/s dense, against
+// 67 TFLOP/s of float32 FMAs (an NVIDIA H100 80GB HBM3 at 700.00 W,
+// published rates). mma.sync, not wgmma: wgmma's
+// tf32 form reads B from shared memory K-major only, so P V, dS K, P^T dO
+// and dS^T Q would each need a transposed copy, and hi and lo copies of
+// every operand; here the threads load and split their B fragments
+// themselves, in any layout. Tiles are rows of D + 4 floats: both fragment
+// patterns below (along a row; down rows 2t and 2t + 1) are free of bank
+// conflicts at every D that is a multiple of 16.
+
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds it: the bits plus half a
+// TF32 ulp (0x1000), the low 13 cleared. Two integer operations: ptxas
+// expands the cvt into a longer sequence with NaN tests (FSETP, SEL), and
+// with it the splits of the B fragments that every warp reads, not the
+// mma.sync, bound the kernels.
+__device__ __forceinline__ uint32_t tf32_rna(float x) { return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u; }
+
+// hi and lo of x. lo = tf32(x - hi) with the low 13 bits of lo's sum left
+// in place: the tensor cores read only a TF32 operand's top 19 bits.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+}
+
+struct SplitA {
+  uint32_t hi[4], lo[4];
+};
+struct SplitB {
+  uint32_t hi[2], lo[2];
+};
+
+// c[16x8] += a[16x8] b[8x8], tf32 in, f32 accumulate. Fragments (lane =
+// 4 g + t): a = {(g, t), (g+8, t), (g, t+4), (g+8, t+4)}, b = {(t, g),
+// (t+4, g)}, c = {(g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)}.
+__device__ __forceinline__ void mma1688(float* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d[16x8] = a[16x8] b[8x8] from zero.
+__device__ __forceinline__ void mma1688_zero(float* d, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
+}
+
+// c += a b in split TF32, the three products chained into c.
+__device__ __forceinline__ void mma_tf32x3(float* c, const SplitA& a, const SplitB& b) {
+  mma1688(c, a.hi, b.lo);
+  mma1688(c, a.lo, b.hi);
+  mma1688(c, a.hi, b.hi);
+}
+
+// The A fragment of 16 rows (from `rows`, row stride ld) x columns [c, c + 8).
+__device__ __forceinline__ SplitA a_split(const float* rows, int ld, int c, int g, int t) {
+  SplitA a;
+  const float* p = rows + g * ld + c + t;
+  split_tf32(p[0], a.hi[0], a.lo[0]);
+  split_tf32(p[8 * ld], a.hi[1], a.lo[1]);
+  split_tf32(p[4], a.hi[2], a.lo[2]);
+  split_tf32(p[8 * ld + 4], a.hi[3], a.lo[3]);
+  return a;
+}
+
+// The B fragment B[k][n] = rows[n][c + k]: n over 8 rows from `rows` (row
+// stride ld), k over columns [c, c + 8) (a product along both rows).
+__device__ __forceinline__ SplitB b_split_t(const float* rows, int ld, int c, int g, int t) {
+  SplitB b;
+  const float* p = rows + g * ld + c + t;
+  split_tf32(p[0], b.hi[0], b.lo[0]);
+  split_tf32(p[4], b.hi[1], b.lo[1]);
+  return b;
+}
+
+// An accumulator's 16 x 8 tile as the A fragment of a k8 step, its 8
+// columns taken in the order 0, 2, 4, 6, 1, 3, 5, 7 (slot t is column 2t,
+// slot t + 4 column 2t + 1), so that each thread's own values fill its own
+// slots with no shuffle; b_split_pk reads B's rows in the same order.
+__device__ __forceinline__ SplitA c_split(const float* c) {
+  SplitA a;
+  split_tf32(c[0], a.hi[0], a.lo[0]);
+  split_tf32(c[2], a.hi[1], a.lo[1]);
+  split_tf32(c[1], a.hi[2], a.lo[2]);
+  split_tf32(c[3], a.hi[3], a.lo[3]);
+  return a;
+}
+
+// The B fragment of 8 rows x 8 columns of a row-major tile at p (row
+// stride ld), rows in c_split's order: slot t is row 2t, slot t + 4 row 2t + 1.
+__device__ __forceinline__ SplitB b_split_pk(const float* p, int ld, int g, int t) {
+  SplitB b;
+  const float* r = p + 2 * t * ld + g;
+  split_tf32(r[0], b.hi[0], b.lo[0]);
+  split_tf32(r[ld], b.hi[1], b.lo[1]);
+  return b;
+}
+
+// acc += A B^T for this warp's 16 rows of A (`arows`, row stride lda) and
+// NB rows of B (`brows`, row stride ldb), over W columns of both: S = Q
+// K^T, dP = dO V^T, S^T = K Q^T, dP^T = V dO^T. acc is NB / 8 tiles.
+template <int W, int NB>
+__device__ __forceinline__ void product_abt(float (*acc)[4], const float* arows, int lda, const float* brows,
+                                            int ldb, int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < W / 8; ++kk) {
+    const SplitA a = a_split(arows, lda, 8 * kk, g, t);
+#pragma unroll
+    for (int n = 0; n < NB / 8; ++n) mma_tf32x3(acc[n], a, b_split_t(brows + 8 * n * ldb, ldb, 8 * kk, g, t));
+  }
+}
+
+// acc += C B for C an accumulator of this warp's 16 rows x K columns (K / 8
+// tiles: P, dS, P^T, dS^T) and B the K rows of a row-major tile at `b` (row
+// stride ldb), W columns: O += P V, dQ += dS K, dV += P^T dO, dK += dS^T Q;
+// the products chained into acc.
+template <int W, int K>
+__device__ __forceinline__ void product_cb(float (*acc)[4], const float (*c)[4], const float* b, int ldb, int g,
+                                           int t) {
+#pragma unroll
+  for (int j = 0; j < K / 8; ++j) {
+    const SplitA a = c_split(c[j]);
+#pragma unroll
+    for (int n = 0; n < W / 8; ++n) mma_tf32x3(acc[n], a, b_split_pk(b + 8 * j * ldb + 8 * n, ldb, g, t));
+  }
+}
+
+// The backward's long sums (dQ over k-tiles, dK and dV over a group's
+// heads and q-tiles) are not chained: the tensor cores' own sums align
+// their addends to the largest by truncation, an error that leans one
+// way, and chained into an accumulator that outgrows each product it
+// grows with the chain, past the float32 bars at 4 heads x 1000 queries a
+// kv head. So each column tile's products of a step are summed from zero
+// (tile_sum), then added to the accumulator in float32, rounded to nearest.
+
+// d = column tile n of C B (as product_cb), summed from zero over the K rows.
+template <int K>
+__device__ __forceinline__ void tile_sum(float* d, const float (*c)[4], const float* b, int ldb, int n, int g,
+                                         int t) {
+#pragma unroll
+  for (int j = 0; j < K / 8; ++j) {
+    const SplitA a = c_split(c[j]);  // the same for every n: made once
+    const SplitB bn = b_split_pk(b + 8 * j * ldb + 8 * n, ldb, g, t);
+    if (j == 0) {
+      mma1688_zero(d, a.hi, bn.lo);
+    } else {
+      mma1688(d, a.hi, bn.lo);
+    }
+    mma1688(d, a.lo, bn.hi);
+    mma1688(d, a.hi, bn.hi);
+  }
+}
+
+// acc += C B, each tile's sum added in float32.
+template <int W, int K>
+__device__ __forceinline__ void product_cb_rn(float (*acc)[4], const float (*c)[4], const float* b, int ldb, int g,
+                                              int t) {
+#pragma unroll
+  for (int n = 0; n < W / 8; ++n) {
+    float d[4];
+    tile_sum<K>(d, c, b, ldb, n, g, t);
+    acc[n][0] += d[0], acc[n][1] += d[1], acc[n][2] += d[2], acc[n][3] += d[3];
+  }
+}
+
+// The same with the accumulator in shared memory, where registers run out:
+// this thread's 4 floats of tile n at acc_s[n NT + thread].
+template <int W, int K, int NT>
+__device__ __forceinline__ void product_cb_rn_shared(float4* acc_s, const float (*c)[4], const float* b, int ldb,
+                                                     int g, int t) {
+#pragma unroll
+  for (int n = 0; n < W / 8; ++n) {
+    float d[4];
+    tile_sum<K>(d, c, b, ldb, n, g, t);
+    float4& s = acc_s[n * NT + threadIdx.x];
+    const float4 v = s;
+    s = make_float4(v.x + d[0], v.y + d[1], v.z + d[2], v.w + d[3]);
+  }
+}
+
+// The chunked routes' float32 slices: S (and dP) over d in TF32_SLICE
+// columns at a time, two stages.
+constexpr int TF32_SLICE = 64;
+constexpr int TF32_LDS = TF32_SLICE + 4;
+
+// Floats of the two stages of slices for P products of 64 x NB.
+template <int NB, int P>
+__host__ __device__ constexpr int tf32_slice_floats() { return 2 * P * (64 + NB) * TF32_LDS; }
+
+// One stage of tf32_products_by_slices: slice si's columns of A1 and B1
+// (and A2, B2) into stage si % 2 of `bufs`, one commit group.
+template <int NB, int P, int NT>
+__device__ __forceinline__ void issue_slice(float* bufs, int si, const float* a1, const float* a2, long long sa1,
+                                            long long sa2, int row0a, int na, const float* b1, const float* b2,
+                                            long long sb1, long long sb2, int row0b, int nb, int d) {
+  float* st = bufs + (si & 1) * (P * (64 + NB) * TF32_LDS);
+  const int c = si * TF32_SLICE;
+  load_f32_async<64, TF32_SLICE, NT>(st, TF32_LDS, a1 + c, sa1, row0a, na, d - c);
+  load_f32_async<NB, TF32_SLICE, NT>(st + 64 * TF32_LDS, TF32_LDS, b1 + c, sb1, row0b, nb, d - c);
+  if constexpr (P == 2) {
+    load_f32_async<64, TF32_SLICE, NT>(st + (64 + NB) * TF32_LDS, TF32_LDS, a2 + c, sa2, row0a, na, d - c);
+    load_f32_async<NB, TF32_SLICE, NT>(st + (128 + NB) * TF32_LDS, TF32_LDS, b2 + c, sb2, row0b, nb, d - c);
+  }
+  cp_async_commit();
+}
+
+// acc += one slice's A B^T (product_abt over TF32_SLICE columns), the
+// slice's products summed from zero, then added in float32: a chain over
+// all of d into one accumulator leans as product_cb_rn says (at d 1000 the
+// forward's out and lse came within 10% of the 2e-5 bar).
+template <int NB>
+__device__ __forceinline__ void slice_product(float (*acc)[4], const float* arows, const float* brows, int g, int t) {
+  float ps[NB / 8][4];
+#pragma unroll
+  for (int n = 0; n < NB / 8; ++n) ps[n][0] = ps[n][1] = ps[n][2] = ps[n][3] = 0.f;
+  product_abt<TF32_SLICE, NB>(ps, arows, TF32_LDS, brows, TF32_LDS, g, t);
+#pragma unroll
+  for (int n = 0; n < NB / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += ps[n][e];
+}
+
+// S = A1 B1^T (and dP = A2 B2^T where P is 2) for this warp's 16 of the 64
+// rows [row0a, row0a + 64) of A1 (A2) against rows [row0b, row0b + NB) of
+// B1 (B2), each with d columns (row strides sa1, ... in elements), over d
+// in slices staged through `bufs` by cp.async, the next slice's copy in
+// flight during a slice's products. Waits for every cp.async group
+// committed before it (the caller's chunk tiles) and ends on
+// __syncthreads with both stages free; the caller syncs before it.
+template <int NB, int P, int NT>
+__device__ __forceinline__ void tf32_products_by_slices(float (*s)[4], float (*dp)[4], float* bufs, const float* a1,
+                                                        const float* a2, long long sa1, long long sa2, int row0a,
+                                                        int na, const float* b1, const float* b2, long long sb1,
+                                                        long long sb2, int row0b, int nb, int d, int warp, int g,
+                                                        int t) {
+  constexpr int STAGE = P * (64 + NB) * TF32_LDS;
+#pragma unroll
+  for (int n = 0; n < NB / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[n][e] = 0.f;
+      if constexpr (P == 2) dp[n][e] = 0.f;
+    }
+  const int ns = (d + TF32_SLICE - 1) / TF32_SLICE;
+  issue_slice<NB, P, NT>(bufs, 0, a1, a2, sa1, sa2, row0a, na, b1, b2, sb1, sb2, row0b, nb, d);
+  for (int si = 0; si < ns; ++si) {
+    if (si + 1 < ns) {
+      issue_slice<NB, P, NT>(bufs, si + 1, a1, a2, sa1, sa2, row0a, na, b1, b2, sb1, sb2, row0b, nb, d);
+    } else {
+      cp_async_commit();  // an empty group keeps the count: slice si and all before it land
+    }
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* st = bufs + (si & 1) * STAGE;
+    slice_product<NB>(s, st + 16 * warp * TF32_LDS, st + 64 * TF32_LDS, g, t);
+    if constexpr (P == 2) {
+      // the second product's loads after the first's products: interleaved,
+      // their fragments spilled the chunked kernels' registers
+      asm volatile("" ::: "memory");
+      slice_product<NB>(dp, st + (64 + NB + 16 * warp) * TF32_LDS, st + (128 + NB) * TF32_LDS, g, t);
+    }
+    __syncthreads();  // every warp is done with this stage before slice si + 2 lands in it
+  }
 }
 
 }  // namespace hopper

@@ -25,6 +25,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers and spills of every kernel, kept beside the build
 )
 
 _lock = threading.Lock()  # guards the two dicts below
@@ -54,20 +55,17 @@ def _digest(paths: Sequence[str]) -> str:
     return h.hexdigest()[:16]
 
 
-def ptxas_report(sources: Sequence[str]) -> str:
-    """What ptxas says of each kernel in `sources` (file names under
-    csrc/) under the build's own flags plus `-Xptxas -v`: registers,
-    shared memory, spills. Compiles into a temporary file; raises if
-    nvcc fails."""
-    import tempfile
-
+def _library_path(name: str, sources: Sequence[str]) -> str:
     paths = [os.path.join(CSRC_DIR, s) for s in sources]
-    with tempfile.TemporaryDirectory() as tmp:
-        cmd = [_find_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", os.path.join(tmp, "lib.so"), *paths]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr[-4000:]}")
-    return proc.stderr
+    return os.path.join(BUILD_DIR, f"lib{name}-{_digest(paths)}.so")
+
+
+def ptxas_report(name: str, sources: Sequence[str]) -> str:
+    """What ptxas said of each kernel (registers, shared memory, spills)
+    when lib<name>.so was built from `sources`: the build's `-Xptxas -v`
+    output, kept beside the library. Raises if that build is not there."""
+    with open(_library_path(name, sources) + ".ptxas") as f:
+        return f.read()
 
 
 def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
@@ -81,7 +79,7 @@ def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
         if lib is not None:
             return lib
         paths = [os.path.join(CSRC_DIR, s) for s in sources]
-        so = os.path.join(BUILD_DIR, f"lib{name}-{_digest(paths)}.so")
+        so = _library_path(name, sources)
         if not os.path.exists(so):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{so}.{os.getpid()}.tmp"
@@ -92,6 +90,9 @@ def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
                     f"nvcc failed building {name} ({proc.returncode}):\n"
                     f"{' '.join(cmd)}\n{proc.stderr[-4000:]}"
                 )
+            with open(f"{tmp}.ptxas", "w") as f:
+                f.write(proc.stderr)
+            os.replace(f"{tmp}.ptxas", f"{so}.ptxas")  # before the library: one that exists has its report
             os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
         lib = ctypes.CDLL(so)
         with _lock:

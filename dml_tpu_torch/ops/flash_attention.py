@@ -4,8 +4,9 @@ dml_tpu/ops/flash_attention.py.
 The TPU kernels it replaces are `dml_tpu/ops/flash_attention.py::
 _fwd_kernel` (K2) and the backward pair `_bwd_dq_kernel` and
 `_bwd_dkv_kernel` (K3). On Hopper they are the CUDA C++ kernels in
-`dml_tpu_torch/csrc/flash_attention.cu` and `csrc/flash_attention_bwd.cu`,
-built with nvcc for sm_90a at first use and called through ctypes.
+`dml_tpu_torch/csrc/flash_attention.cu` and `csrc/flash_attention_bwd.cu`
+(the float32 backward in `csrc/flash_attention_bwd_tf32.cu`), built with
+nvcc for sm_90a at first use and called through ctypes.
 
 Routes follow from the dtype and the head dim alone (`kernel_route`,
 one rule for the forward and the backward):
@@ -16,7 +17,16 @@ consumer warpgroups on `wgmma`, P and dS kept in registers) at width 64,
 128 or 256 (`WGMMA_HEAD_DIMS`); every other bf16 D up to 256 runs
 `mma.sync` kernels (D <= 48, and a D % 8 != 0, since the wgmma kernels
 store their D-wide outputs by TMA, whose rows must be whole 16-byte
-units); float32 runs plain FMAs. The kernels take every head dim D >= 1,
+units); float32 runs the same `mma.sync` plan in split TF32 ("tf32x3":
+x = hi + lo with hi = tf32(x), lo = tf32(x - hi), and a b as hi lo + lo
+hi + hi hi, three TF32 tensor-core products into a float32 sum, within
+the JAX package's float32 bars, where one TF32 product alone is not; the
+long sums (dQ, dK and dV along the sequence, S past 256 columns) added
+step by step in float32, since the tensor cores' own sums truncate;
+bound by those products at 495 / 3 = 165 TFLOP/s of float32 work, against
+67 TFLOP/s of float32 FMAs, on an NVIDIA H100 80GB HBM3 at 700.00 W; the
+float32 backward's kernels are their own source,
+`csrc/flash_attention_bwd_tf32.cu`). The kernels take every head dim D >= 1,
 as the JAX kernels' full-D block does: a D up to 256 runs on the least
 width >= D of its route (`NATIVE_HEAD_DIMS` off the wgmma route), its
 columns past D read as zeros and never written, which is exact. Past 256
@@ -66,7 +76,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 NEG_INF = -1e30
-#: the widths the mma.sync and FMA kernels are built at
+#: the widths the mma.sync and split-TF32 kernels are built at
 #: (csrc/hopper.cuh::native_head_dim): a head dim D runs on the least of
 #: them >= D
 NATIVE_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 128, 256)
@@ -76,7 +86,7 @@ NATIVE_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 128, 256)
 WGMMA_HEAD_DIMS = (64, 128, 256)
 WGMMA_MIN_HEAD_DIM = 48
 #: past the widest native width, the chunked route's output columns a
-#: block (csrc/flash_attention.cu::CHUNK, csrc/flash_attention_bwd.cu::CHUNK)
+#: block (csrc/flash_attention.cu::CHUNK, csrc/flash_bwd_common.cuh::CHUNK)
 FWD_CHUNK = 256
 BWD_CHUNK = 128
 _DTYPES = (torch.bfloat16, torch.float32)
@@ -114,12 +124,14 @@ def _library() -> ctypes.CDLL:
 
 
 class Route(NamedTuple):
-    kind: str   # "wgmma+tma", "mma.sync", "fma", or past 256 "mma.sync chunked", "fma chunked"
+    # "wgmma+tma", "mma.sync" (bf16), "tf32x3" (float32: split TF32 on
+    # mma.sync), or past 256 "mma.sync chunked", "tf32x3 chunked"
+    kind: str
     width: int  # the native head dim the kernel runs at (>= D), or past 256 its column chunk
 
 
 def native_head_dim(head_dim: int, backward: bool = False) -> int:
-    """The columns one block of the mma.sync and FMA kernels computes, as
+    """The columns one block of the mma.sync and split-TF32 kernels computes, as
     the C entry points pick them: the least native width >= head_dim, or
     past the widest the chunked route's column chunk of that direction
     (FWD_CHUNK, BWD_CHUNK). Raises below 1."""
@@ -136,38 +148,53 @@ def kernel_route(dtype: torch.dtype, head_dim: int, backward: bool = False) -> R
     (dtype, D), as the C entry points pick them, and the width they run
     at: "wgmma+tma" for bf16 at 48 < D <= 256 with D % 8 == 0, at the
     least of `WGMMA_HEAD_DIMS` >= D (64, 128 or 256); "mma.sync" for
-    every other bf16 D up to 256 and "fma" for float32, each at
-    `native_head_dim(D)`; past 256
-    the chunked route ("mma.sync chunked", "fma chunked") at its column
-    chunk (`backward` picks the backward's)."""
+    every other bf16 D up to 256 and "tf32x3" (split TF32) for float32,
+    each at `native_head_dim(D)`; past 256 the chunked route ("mma.sync
+    chunked", "tf32x3 chunked") at its column chunk (`backward` picks the
+    backward's)."""
     if dtype not in _DTYPES:
         raise ValueError(f"no flash attention kernel for {dtype} at head_dim {head_dim}")
     width = native_head_dim(head_dim, backward)
     if (dtype == torch.bfloat16 and WGMMA_MIN_HEAD_DIM < head_dim <= WGMMA_HEAD_DIMS[-1]
             and head_dim % 8 == 0):
         return Route("wgmma+tma", next(w for w in WGMMA_HEAD_DIMS if w >= head_dim))
-    kind = "fma" if dtype == torch.float32 else "mma.sync"
+    kind = "tf32x3" if dtype == torch.float32 else "mma.sync"
     return Route(kind + " chunked" if head_dim > NATIVE_HEAD_DIMS[-1] else kind, width)
 
 
+_BWD_ARGTYPES = (
+    [ctypes.c_void_p] * 9
+    + [ctypes.c_int] * 8
+    + [ctypes.c_longlong] * 12
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+)
+
+
 def _bwd_library() -> ctypes.CDLL:
-    """Build (at first use) and load the backward kernels' library."""
+    """Build (at first use) and load the backward kernels' library: the
+    bf16 pair and the delta kernel."""
     from ._build import load_library
 
     lib = load_library("dml_flash_attention_bwd", ["flash_attention_bwd.cu"])
     for fn in (lib.dml_flash_bwd, lib.dml_flash_bwd_mma):
-        fn.argtypes = (
-            [ctypes.c_void_p] * 9
-            + [ctypes.c_int] * 8
-            + [ctypes.c_longlong] * 12
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        )
+        fn.argtypes = _BWD_ARGTYPES
         fn.restype = ctypes.c_int
     fn = lib.dml_flash_bwd_rows
     fn.argtypes = (
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 6 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
+    return lib
+
+
+def _bwd_tf32_library() -> ctypes.CDLL:
+    """Build (at first use) and load the float32 backward pair's library
+    (its own source, so that nvcc builds it beside the bf16 one)."""
+    from ._build import load_library
+
+    lib = load_library("dml_flash_attention_bwd_tf32", ["flash_attention_bwd_tf32.cu"])
+    lib.dml_flash_bwd_tf32.argtypes = _BWD_ARGTYPES
+    lib.dml_flash_bwd_tf32.restype = ctypes.c_int
     return lib
 
 
@@ -426,10 +453,13 @@ def _flash_bwd_cuda(q, k, v, dout, lse_r, delta_r, causal, scale, parts=3, mma_s
     dq = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, tk, kv, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, tk, kv, d), dtype=v.dtype, device=q.device)
-    lib = _bwd_library()
+    if q.dtype == torch.float32:
+        fn = _bwd_tf32_library().dml_flash_bwd_tf32
+    else:
+        lib = _bwd_library()
+        fn = lib.dml_flash_bwd_mma if mma_sync else lib.dml_flash_bwd
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        fn = lib.dml_flash_bwd_mma if mma_sync else lib.dml_flash_bwd
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse_r.data_ptr(), delta_r.data_ptr(),

@@ -164,8 +164,8 @@ def test_gqa4_strided_v_matches_jax():
 # bf16 past D 48 up to 256 runs the wgmma + TMA kernels at the least of
 # 64, 128 and 256 >= D (Phi-2's 80, Phi-3-mini's 96, Gemma-2B's 256)
 # where D is a multiple of 8 (the TMA stores' rows are whole 16-byte
-# units); every other bf16 D mma.sync and float32 FMAs at the least native
-# width >= D
+# units); every other bf16 D mma.sync and float32 split TF32 ("tf32x3") at
+# the least native width >= D
 ROUTES = [
     (torch.bfloat16, 16, ("mma.sync", 16)), (torch.bfloat16, 32, ("mma.sync", 32)),
     (torch.bfloat16, 48, ("mma.sync", 48)), (torch.bfloat16, 56, ("wgmma+tma", 64)),
@@ -175,9 +175,10 @@ ROUTES = [
     (torch.bfloat16, 256, ("wgmma+tma", 256)),
     (torch.bfloat16, 50, ("mma.sync", 64)), (torch.bfloat16, 100, ("mma.sync", 128)),
     (torch.bfloat16, 129, ("mma.sync", 256)), (torch.bfloat16, 201, ("mma.sync", 256)),
-    (torch.float32, 16, ("fma", 16)), (torch.float32, 32, ("fma", 32)),
-    (torch.float32, 64, ("fma", 64)), (torch.float32, 80, ("fma", 80)),
-    (torch.float32, 128, ("fma", 128)), (torch.float32, 256, ("fma", 256)),
+    (torch.float32, 16, ("tf32x3", 16)), (torch.float32, 32, ("tf32x3", 32)),
+    (torch.float32, 64, ("tf32x3", 64)), (torch.float32, 80, ("tf32x3", 80)),
+    (torch.float32, 128, ("tf32x3", 128)), (torch.float32, 256, ("tf32x3", 256)),
+    (torch.float32, 40, ("tf32x3", 48)), (torch.float32, 100, ("tf32x3", 128)),
 ]
 
 
@@ -190,6 +191,18 @@ def test_kernel_route_by_dtype_and_head_dim(dtype, d, route):
 def test_bwd_kernel_route_by_dtype_and_head_dim(dtype, d, route):
     # dml_flash_bwd picks its kernels by the forward's rule: one table
     assert fa.kernel_route(dtype, d, backward=True) == route
+
+
+# past 256 the chunked route in both dtypes, at each direction's column
+# chunk (256 output columns a forward block, 128 gradient columns a
+# backward one)
+@pytest.mark.parametrize("dtype,kind", [(torch.bfloat16, "mma.sync chunked"),
+                                        (torch.float32, "tf32x3 chunked")])
+@pytest.mark.parametrize("d", [257, 512])
+@pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
+def test_kernel_route_past_256_by_direction(dtype, kind, d, backward):
+    width = fa.BWD_CHUNK if backward else fa.FWD_CHUNK
+    assert fa.kernel_route(dtype, d, backward=backward) == (kind, width)
 
 
 # the dkv kernel's blocks a kv head, as the backward's launch counts key

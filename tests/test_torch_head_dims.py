@@ -206,7 +206,7 @@ def test_routes_give_a_native_width_for_every_head_dim_and_raise_past_256(case):
                     assert route == ("wgmma+tma", min(w for w in fa.WGMMA_HEAD_DIMS if w >= d))
                 else:
                     assert route.width == min(w for w in fa.NATIVE_HEAD_DIMS if w >= d)
-                    assert route.kind == ("fma" if dtype == torch.float32 else "mma.sync")
+                    assert route.kind == ("tf32x3" if dtype == torch.float32 else "mma.sync")
                 assert fa.kernel_route(dtype, d, backward=True) == route
             for itemsize, quantized in ((4, False), (2, False), (1, True)):
                 plan = da.split_plan(2, 1, 100, d, 71, itemsize, quantized, 132)
@@ -225,7 +225,7 @@ def test_routes_give_a_native_width_for_every_head_dim_and_raise_past_256(case):
                             torch.zeros((1, 1, 4, 0)), torch.zeros(1, dtype=torch.int32), None, None, 1.0)
     elif case == "d257_routes":
         assert fa.kernel_route(torch.bfloat16, 257) == ("mma.sync chunked", fa.FWD_CHUNK)
-        assert fa.kernel_route(torch.float32, 257, backward=True) == ("fma chunked", fa.BWD_CHUNK)
+        assert fa.kernel_route(torch.float32, 257, backward=True) == ("tf32x3 chunked", fa.BWD_CHUNK)
         plan = da.split_plan(1, 1, 100, 257, 1, 2, False, 132)
         assert plan.width == da.WIDE_SLICE and plan.smem_bytes <= 227 << 10
     else:
