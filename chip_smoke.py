@@ -18,15 +18,17 @@
     python3 chip_smoke.py --rank-groups   # phases 1-2, 21 and 23 (the group worlds)
     python3 chip_smoke.py --head-dims     # phases 1-2, 6, 7, 9, 24 and 25 (every head dim and group)
     python3 chip_smoke.py --decode-ab DIR # the decode kernel of checkout DIR and of this one, in turns
+    python3 chip_smoke.py --bwd-wide-ab DIR  # K3 past head dim 256 (bf16) of checkout DIR and of this one
 
 Phases, each printing one JSON line (with `t_s`, the seconds since the
 script started); any failure exits non-zero:
 
 1. device: the card's name, capability (must be 9.x, Hopper) and power
    limit;
-2. build: nvcc builds the five kernel libraries (normalize, flash
-   attention forward, backward (bf16) and backward (float32, split TF32),
-   decode attention) from dml_tpu_torch/csrc/, and g++ the native JPEG
+2. build: nvcc builds the six kernel libraries (normalize, flash
+   attention forward, backward (bf16), backward (float32, split TF32),
+   backward (bf16 past head dim 256, wgmma + TMA), decode attention)
+   from dml_tpu_torch/csrc/, and g++ the native JPEG
    loader (dml_tpu_torch/native/), all started together; phases 3-5 start
    once normalize and the loader are built, and the attention libraries
    finish behind them (the `build` line, with seconds for each, comes
@@ -172,10 +174,13 @@ script started); any failure exits non-zero:
    cases show `flash_bwd_dq_wgmma_kernel` and `flash_bwd_dkv_wgmma_kernel`
    at their width (and the dkv form `dkv_split` names) in one trace of
    all of them, the float32 cases `flash_bwd_dq_tf32_kernel<W>` and
-   `flash_bwd_dkv_tf32_kernel<W>` (the chunked pair past 256), with
-   bit-equal reruns. Two backwards on the
+   `flash_bwd_dkv_tf32_kernel<W>` (the chunked pair past 256), and the
+   bf16 cases past 256 `flash_bwd_dq_wgmma_wide_kernel<n>` and
+   `flash_bwd_dkv_wgmma_wide_kernel<m>` at the clusters `wide_bwd_plan`
+   gives, with bit-equal reruns. Two backwards on the
    same inputs give bit-equal dq, dk and dv (train, gqa4, vit_b16, and
-   Phi-2, Phi-3-mini, Gemma-2B, D 200, D 56, MHA and GQA-4 at D 256).
+   Phi-2, Phi-3-mini, Gemma-2B, D 200, D 56, MHA and GQA-4 at D 256,
+   every bf16 case past 256).
    At the
    training shape and at vit_b16 the new pair, the mma.sync pair (checked too), the
    delta kernel, SDPA's backward and the plain version are timed in
@@ -554,7 +559,9 @@ script started); any failure exits non-zero:
     each request's lone float32 greedy run, bf16 held to them up to a
     near-tie (TIE_MARGIN). Then `LongContextLM.train_step` at [1, 512]
     in bf16 and in float32, 3 steps each: losses finite and falling, each
-    step 2 K2, 2 K3 (the chunked pair) and 2 delta launches. Under 60 s.
+    step 2 K2, 2 K3 (the chunked pair; in bf16 the wgmma + TMA pair,
+    `flash_bwd_{dq,dkv}_wgmma_wide_kernel<8>`, read by instance from
+    `route_launches`) and 2 delta launches. Under 60 s.
 
 Then the card's name and power limit as nvidia-smi prints them, the
 kernels' summary line (K1's launches by path: serving, training,
@@ -580,6 +587,11 @@ turn, each building its own library: `DECODE_AB_CASES` on the inputs of
 this file's `DECODE_CASES`, three medians of 50 launches a case a turn.
 It prints one `decode_ab` line (each side's sorted medians and the
 ratio of their medians), then the card's name and power limit.
+`--bwd-wide-ab DIR` does the same for K3 past head dim 256 in bf16
+(`BWD_WIDE_AB_CASES`, phase 9's timed chunked bf16 cases on its inputs:
+dq, dkv and K3 whole with the delta kernel, three medians of 20 launches
+each, every side's gradients first held to the plain version's bar) and
+prints one `bwd_wide_ab` line.
 """
 
 from __future__ import annotations
@@ -1142,6 +1154,9 @@ LIBRARIES = {"normalize": ("preprocess._library", "dml_normalize", "normalize.cu
              "flash_attention_bwd_tf32": ("flash_attention._bwd_tf32_library",
                                           "dml_flash_attention_bwd_tf32",
                                           "flash_attention_bwd_tf32.cu"),
+             "flash_attention_bwd_wide": ("flash_attention._bwd_wide_library",
+                                          "dml_flash_attention_bwd_wide",
+                                          "flash_attention_bwd_wide.cu"),
              "decode_attention": ("decode_attention._library", "dml_decode_attention",
                                   "decode_attention.cu")}
 
@@ -1209,7 +1224,7 @@ def finish_builds(builds):
 
 
 #: the sources whose wgmma kernels set their registers by setmaxnreg
-WGMMA_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu")
+WGMMA_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "flash_attention_bwd_wide.cu")
 
 
 def ptxas_usage(report):
@@ -2092,7 +2107,8 @@ def phase_flash_bwd(timer):
         ("f32_d16", 1, 130, 130, 2, 1, 16, True, f32),
     ) + HEAD_DIM_FLASH_CASES + WIDE_FLASH_CASES
     deterministic = ("train", "gqa4", "vit_b16", "phi2_d80", "phi3mini_d96", "gemma2b_d256",
-                     "d200_cross", "d56_gqa4_b8", "d256_mha", "d256_gqa4_b2", "widelm_train_d512")
+                     "d200_cross", "d56_gqa4_b8", "d256_mha", "d256_gqa4_b2", "widelm_train_d512",
+                     "widelm_d512", "mla_d576", "d1024", "odd_d257")
     names = ("dq", "dk", "dv")
 
     def held(got, want, dtype):
@@ -2152,6 +2168,13 @@ def phase_flash_bwd(timer):
                     lambda q=q, k=k, v=v, out=out, lse=lse, dout=dout, causal=causal:
                     fa.flash_attention_backward(q, k, v, out, lse, dout, causal=causal),
                     [tf32_kernels("dq", route), tf32_kernels("dkv", route)])
+            elif route.kind == "wgmma+tma chunked" and not with_lse:
+                plan = fa.wide_bwd_plan(b, tq, tk, h, kv, d)
+                traced[name] = (
+                    lambda q=q, k=k, v=v, out=out, lse=lse, dout=dout, causal=causal:
+                    fa.flash_attention_backward(q, k, v, out, lse, dout, causal=causal),
+                    [f"flash_bwd_dq_wgmma_wide_kernel<{plan.dq_cluster}>",
+                     f"flash_bwd_dkv_wgmma_wide_kernel<{plan.dkv_cluster}>"])
             case = dict(phase="flash_bwd_check", case=name, q=[b, tq, h, d], kv=[b, tk, kv, d],
                         causal=causal, dtype=dtype_name(dtype), route=route.kind, width=route.width,
                         lse_cotangent=with_lse, launches=launches, max_abs_err=errs,
@@ -6770,6 +6793,7 @@ def phase_wide_heads():
     import torch
     from dml_tpu_torch.inference import generate as gen
     from dml_tpu_torch.inference.lm_backend import lm_spec_parts, write_prompt_file
+    from dml_tpu_torch.ops import flash_attention as fa
     from dml_tpu_torch.parallel.long_context import LongContextLM
 
     t_start = time.monotonic()
@@ -6811,15 +6835,25 @@ def phase_wide_heads():
             losses = [lm.train_step(tokens) for _ in range(WIDE_TRAIN_STEPS)]
             torch.cuda.synchronize()
             step_s = (time.monotonic() - t0) / WIDE_TRAIN_STEPS
-        counts = launch_counts()
+        counts, routes = launch_counts(), route_counts()
         want = {"normalize": 0, "flash_attention": n_layers * WIDE_TRAIN_STEPS,
                 "flash_bwd": n_layers * WIDE_TRAIN_STEPS,
                 "flash_bwd_delta": n_layers * WIDE_TRAIN_STEPS, "decode_attention": 0}
         check(counts == want, f"wide_heads {name}: launched {counts}, want {want}")
+        # K3 by the instances it ran: in bf16 only the chunked wgmma pair
+        # (the blocks send k and v at their kv heads), in float32 the
+        # split-TF32 chunked pair (k and v repeated)
+        kv = spec["n_kv_heads"] if dtype == torch.bfloat16 else spec["n_heads"]
+        bwd = fa.kernel_route(dtype, 512, backward=True)
+        plan = fa.wide_bwd_plan(*WIDE_TRAIN_SHAPE, WIDE_TRAIN_SHAPE[1], spec["n_heads"], kv, 512)
+        want_routes = {
+            "fwd {} {} 1".format(*fa.kernel_route(dtype, 512)): n_layers * WIDE_TRAIN_STEPS,
+            "bwd {} {} {}".format(*bwd, fa.dkv_split(bwd, spec["n_heads"] // kv, plan)): n_layers * WIDE_TRAIN_STEPS}
+        check(routes == want_routes, f"wide_heads {name}: launched {routes}, want {want_routes}")
         check(all(np.isfinite(x) for x in losses) and losses[-1] < losses[0],
               f"wide_heads {name}: losses not finite and falling: {losses}")
-        out[name] = dict(losses=losses, step_ms=step_s * 1e3, launches=counts)
-        paths_launches[name] = counts
+        out[name] = dict(losses=losses, step_ms=step_s * 1e3, launches=counts, routes=routes)
+        paths_launches[name] = dict(counts, routes=routes)
         del lm
     torch.cuda.empty_cache()
     seconds = time.monotonic() - t_start
@@ -6842,7 +6876,7 @@ DECODE_AB_CASES = ("lm_b8", "gqa4_b8", "gqa4_b1", "mqa_b8", "mha_b1", "int8_gqa4
 _AB_TURN = ("import importlib.util, sys; sys.path.insert(0, sys.argv[1]); "
             "spec = importlib.util.spec_from_file_location('chip_smoke_ab', sys.argv[2]); "
             "m = importlib.util.module_from_spec(spec); spec.loader.exec_module(m); "
-            "m.decode_ab_turn(sys.argv[1])")
+            "getattr(m, sys.argv[3])(sys.argv[1])")
 
 
 def decode_ab_turn(tree):
@@ -6869,24 +6903,89 @@ def decode_ab_turn(tree):
     print("TURN " + json.dumps(res), flush=True)
 
 
-def decode_ab(parent, smi):
-    """The turns parent, this checkout, this checkout, parent; one
-    `decode_ab` line."""
+def ab_turns(parent, turn):
+    """The turns parent, this checkout, this checkout, parent, each a
+    process running this file's function `turn` on its checkout; each
+    side's runs."""
     here = os.path.dirname(os.path.abspath(__file__))
     runs = {"parent": [], "change": []}
     for side, tree in (("parent", parent), ("change", here), ("change", here), ("parent", parent)):
         tree = os.path.abspath(tree)
-        r = subprocess.run([sys.executable, "-c", _AB_TURN, tree, os.path.abspath(__file__)],
+        r = subprocess.run([sys.executable, "-c", _AB_TURN, tree, os.path.abspath(__file__), turn],
                            cwd=tree, capture_output=True, text=True, timeout=600)
         line = [x for x in r.stdout.splitlines() if x.startswith("TURN ")]
-        check(r.returncode == 0 and line, f"a decode_ab turn in {tree}: rc {r.returncode}\n"
+        check(r.returncode == 0 and line, f"a {turn} in {tree}: rc {r.returncode}\n"
               f"{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
         runs[side].append(json.loads(line[0][5:]))
+    return runs
+
+
+def decode_ab(parent, smi):
+    """The turns parent, this checkout, this checkout, parent; one
+    `decode_ab` line."""
+    runs = ab_turns(parent, "decode_ab_turn")
     cases = {c: {side: sorted(x for run in v for x in run[c]) for side, v in runs.items()}
              for c in DECODE_AB_CASES}
     emit(phase="decode_ab", parent=os.path.abspath(parent), card=smi, cases=cases,
          change_over_parent={c: statistics.median(v["change"]) / statistics.median(v["parent"])
                              for c, v in cases.items()})
+
+
+#: phase 9's timed chunked bf16 cases (K3 past head dim 256)
+BWD_WIDE_AB_CASES = tuple(c[0] for c in WIDE_FLASH_CASES if c[-1] == BF and c[0] in HEAD_DIM_TIMED)
+
+
+def bwd_wide_ab_turn(tree):
+    """One turn: K3 of the checkout at `tree`, built from its sources, at
+    BWD_WIDE_AB_CASES, each side's gradients held to the plain version
+    (1e-2 of the largest reference magnitude) first; prints `TURN {case:
+    {"dq" | "dkv" | "k3": [3 medians]}}`."""
+    import threading
+
+    import torch
+    from dml_tpu_torch.ops import flash_attention as fa
+
+    where = os.path.abspath(fa.__file__)
+    check(where.startswith(os.path.join(os.path.abspath(tree), "")), f"imported {where}, not {tree}'s")
+    builds = [threading.Thread(target=getattr(fa, n)) for n in ("_library", "_bwd_library", "_bwd_wide_library")
+              if hasattr(fa, n)]
+    for t in builds:
+        t.start()
+    for t in builds:
+        t.join()
+    timer = Timer()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    res = {}
+    for name, b, tq, tk, h, kv, d, causal, _ in WIDE_FLASH_CASES:
+        if name not in BWD_WIDE_AB_CASES:
+            continue
+        q, k, v, dout = (torch.randn(s, generator=g, device="cuda").bfloat16()
+                         for s in ((b, tq, h, d), (b, tk, kv, d), (b, tk, kv, d), (b, tq, h, d)))
+        out, lse = fa.flash_attention_lse(q, k, v, causal=causal)
+        got = fa.flash_attention_backward(q, k, v, out, lse, dout, causal=causal)
+        want = fa.attention_backward(q, k, v, out, lse, dout, causal=causal)
+        for n, a, r in zip(("dq", "dk", "dv"), got, want):
+            err, bar = float((a.float() - r.float()).abs().max()), 1e-2 * float(r.float().abs().max())
+            check(err <= bar, f"{tree} {name} {n}: {err} from the plain version, past {bar}")
+        rows = fa._bwd_rows_cuda(out, dout, lse, None)
+        scale = d ** -0.5
+        runs = {"k3": lambda: fa.flash_attention_backward(q, k, v, out, lse, dout, causal=causal),
+                "dq": lambda: fa._flash_bwd_cuda(q, k, v, dout, *rows, causal, scale, parts=1),
+                "dkv": lambda: fa._flash_bwd_cuda(q, k, v, dout, *rows, causal, scale, parts=2)}
+        res[name] = {part: [timer.ms(fn, iters=20) for _ in range(3)] for part, fn in runs.items()}
+        del q, k, v, dout, out, lse, got, want, rows
+    print("TURN " + json.dumps(res), flush=True)
+
+
+def bwd_wide_ab(parent, smi):
+    """K3 past head dim 256 of the checkout at `parent` and of this one in
+    the turns parent, change, change, parent; one `bwd_wide_ab` line."""
+    runs = ab_turns(parent, "bwd_wide_ab_turn")
+    cases = {c: {part: {side: sorted(x for run in v for x in run[c][part]) for side, v in runs.items()}
+                 for part in ("dq", "dkv", "k3")} for c in BWD_WIDE_AB_CASES}
+    emit(phase="bwd_wide_ab", parent=os.path.abspath(parent), card=smi, cases=cases,
+         change_over_parent={c: {p: statistics.median(v["change"]) / statistics.median(v["parent"])
+                                 for p, v in parts.items()} for c, parts in cases.items()})
 
 
 def main() -> int:
@@ -6905,6 +7004,10 @@ def main() -> int:
     check(cap[0] == 9, f"expected a Hopper card (9.x), got {cap}")
     if "--decode-ab" in sys.argv[1:]:  # each turn builds its own checkout's library
         decode_ab(sys.argv[sys.argv.index("--decode-ab") + 1], smi)
+        print(smi, flush=True)
+        return 0
+    if "--bwd-wide-ab" in sys.argv[1:]:  # likewise, K3 past head dim 256
+        bwd_wide_ab(sys.argv[sys.argv.index("--bwd-wide-ab") + 1], smi)
         print(smi, flush=True)
         return 0
 
@@ -7195,20 +7298,27 @@ def main() -> int:
         route="cuda", variant="wide rows", source="dml_tpu_torch/csrc/decode_attention.cu",
         replaces="dml_tpu/ops/decode_attention.py:53", launches=sum(by.values()),
         launches_by_path=by, **t))
-    for case, dt, key, variant, shape in (
-            ("widelm_train_d512", "bf16", "train_bfloat16", "mma.sync chunked", "KV1"),
+    from dml_tpu_torch.ops import flash_attention as fa
+
+    wide = fa.wide_bwd_plan(1, 512, 512, 2, 1, 512)
+    for case, dt, key, variant, shape, src, detail in (
+            ("widelm_train_d512", "bf16", "train_bfloat16", "wgmma+tma chunked", "KV1", "_wide",
+             f"wgmma + TMA, 256 gradient columns a block, clusters of {wide.dq_cluster} (dq) and "
+             f"{wide.dkv_cluster} (dkv) splitting the items"),
             ("f32_widelm_train_d512", "float32", "train_float32", "tf32x3 chunked",
-             "KV2 (k and v repeated, as trained)")):
+             "KV2 (k and v repeated, as trained)", "_tf32", "128 gradient columns a block")):
         t = bwd[case]
+        routes = w[key]["routes"]
+        n = sum(v for r, v in routes.items() if r.startswith(f"bwd {variant} "))
         for part, line in (("dq", 113), ("dkv", 166)):
             kernels.append(dict(
                 name=f"flash_bwd_{part}[wide-head LM train b1 T512 H2 {shape} D512 {dt} causal; {variant}, "
-                     f"128 gradient columns a block; launches: phase 25 trained in {dt}; plain and "
+                     f"{detail}; launches: phase 25 trained in {dt}, by instance; plain and "
                      f"library times are the whole backward's]",
                 route="cuda", variant=variant,
-                source="dml_tpu_torch/csrc/flash_attention_bwd" + ("_tf32" if dt == "float32" else "") + ".cu",
-                replaces=f"dml_tpu/ops/flash_attention.py:{line}", launches=w[key]["flash_bwd"],
-                launches_by_path={f"wide_heads_{key}": w[key]["flash_bwd"]},
+                source=f"dml_tpu_torch/csrc/flash_attention_bwd{src}.cu",
+                replaces=f"dml_tpu/ops/flash_attention.py:{line}", launches=n,
+                launches_by_path={f"wide_heads_{key}": n},
                 max_abs_err=t["max_abs_err"], ms=t["ms"][part], plain_ms=t["plain_ms"],
                 bound_ms=t["bound"][part]["bound_ms"], bound_by=t["bound"][part]["bound_by"],
                 fma_bound_ms=t["bound"][part].get("bound_ms_fma"),

@@ -7,8 +7,9 @@
 // forward's out [B, Tq, H, d] and lse [B, H, Tq] f32, the optional lse
 // cotangent g_lse [B, H, Tq] f32 -> dq [B, Tq, H, d] in q's dtype, dk and
 // dv [B, Tk, KV, d] in k's and v's dtype, all contiguous. Every head dim
-// d >= 1 and every group H / KV, as the forward takes them (past 256 on
-// the chunked route, "D > 256" below).
+// 1 <= d <= 256 and every group H / KV; past 256 the bf16 pair is
+// flash_attention_bwd_wide.cu's and the float32 one
+// flash_attention_bwd_tf32.cu's.
 //
 // What every route computes, by recomputation from the saved lse, in the
 // TPU's two kernels:
@@ -103,9 +104,10 @@
 //   products a float32 one) in flash_attention_bwd_tf32.cu, its own
 //   library built in parallel with this one (dml_flash_bwd_tf32); the two
 //   share flash_bwd_common.cuh.
-// - bf16 d > 256: the chunked pair, flash_bwd_{dq,dkv}_mma_wide_kernel, d
-//   at run time ("D > 256" below). The delta kernel takes every d and
-//   both dtypes as they are.
+// - bf16 d > 256: the wgmma + TMA pair in flash_attention_bwd_wide.cu,
+//   its own library (dml_flash_bwd_wide): 256 gradient columns a block,
+//   S and dP over all of d in 64-column sub-tiles streamed by TMA. The
+//   delta kernel here takes every d and both dtypes as they are.
 //
 // Bound: tensor-core operations at the training shape. The backward needs
 // 5 products of 2 * Tq * Tk * D operations per head (S, dP, dV, dK, dQ;
@@ -511,195 +513,6 @@ int launch(const Args& a, int B, int parts, cudaStream_t stream) {
     if (err != 0) return err;
   }
   if (parts & 2) err = launch_one(flash_bwd_dkv_mma_kernel<D>, DkvLayout<D>::bytes, dkv_grid, a, stream);
-  return err;
-}
-
-// ------------------------------------------------- D > 256: column chunks
-//
-// Past the widest native width no block holds a whole row of d (the dk and
-// dv accumulators at 128 columns already take 128 registers a thread), so
-// D 256's split of the gradient columns over blocks is taken to
-// ceil(d / CHUNK) blocks a tile, CHUNK = 128 columns each. Each block
-// reduces S = Q K^T and dP = dO V^T over the whole of d in column slices
-// staged through shared memory (SLICE columns at a time: shared memory is
-// bounded at every d), then writes dq (or dk and dv) for its own chunk of
-// columns only, from the chunk of K (or Q and dO) it stages transposed.
-// Still no atomics: every gradient element is summed by one block in a
-// fixed order.
-
-constexpr int SLICE = 128;      // columns of each operand of S and dP staged at a time (bf16)
-
-struct DqWideLayout {
-  static constexpr int LD = SLICE + 8;  // Q, dO, K, V slices, row-major
-  static constexpr int LDT = BK + 8;    // the block's CHUNK columns of the K tile transposed
-  static constexpr size_t bytes = sizeof(bf16) * (size_t)(2 * BQ * LD + 2 * BK * LD + CHUNK * LDT);
-};
-static_assert(DqWideLayout::bytes <= hopper::SMEM_PER_BLOCK, "one block of the chunked route at every d");
-
-// S and dP (this warp's 16 rows x 64 columns) over d in slices: rows of
-// A1 and A2 (Q and dO, or K and V) against rows of B1 and B2 (K and V, or
-// Q and dO), each [64, d] at row0a / row0b with row strides sa / sb.
-__device__ __forceinline__ void products_by_slices(float (*s)[4], float (*dp)[4], bf16* A1s, bf16* A2s,
-                                                   bf16* B1s, bf16* B2s, const bf16* a1, const bf16* a2,
-                                                   long long sa1, long long sa2, int row0a, int na,
-                                                   const bf16* b1, const bf16* b2, long long sb1,
-                                                   long long sb2, int row0b, int nb, int d, int warp,
-                                                   int g, int t) {
-  constexpr int LD = DqWideLayout::LD;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-  }
-  for (int c = 0; c < d; c += SLICE) {
-    __syncthreads();  // every warp is done with the previous slices (and the last tile's products)
-    load_tile<bf16, SLICE, 64>(A1s, LD, a1 + c, sa1, row0a, na, d - c);
-    load_tile<bf16, SLICE, 64>(A2s, LD, a2 + c, sa2, row0a, na, d - c);
-    load_tile<bf16, SLICE, 64>(B1s, LD, b1 + c, sb1, row0b, nb, d - c);
-    load_tile<bf16, SLICE, 64>(B2s, LD, b2 + c, sb2, row0b, nb, d - c);
-    __syncthreads();
-    const bf16* r1 = A1s + 16 * warp * LD;
-    const bf16* r2 = A2s + 16 * warp * LD;
-#pragma unroll
-    for (int kk = 0; kk < SLICE / 16; ++kk) {
-      uint32_t x1[4], x2[4];
-      a_frag(x1, r1, LD, kk, g, t);
-      a_frag(x2, r2, LD, kk, g, t);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const bf16* y1 = B1s + (8 * nt + g) * LD + 16 * kk + 2 * t;
-        const bf16* y2 = B2s + (8 * nt + g) * LD + 16 * kk + 2 * t;
-        mma16816(s[nt], x1, ld32(y1), ld32(y1 + 8));
-        mma16816(dp[nt], x2, ld32(y2), ld32(y2 + 8));
-      }
-    }
-  }
-}
-
-__global__ void __launch_bounds__(THREADS) flash_bwd_dq_mma_wide_kernel(Args a) {
-  using L = DqWideLayout;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + BQ * L::LD;
-  bf16* Ks = dOs + BQ * L::LD;
-  bf16* Vs = Ks + BK * L::LD;
-  bf16* Kt = Vs + BK * L::LD;
-
-  const int n_cc = (a.d + CHUNK - 1) / CHUNK;
-  const int qt = blockIdx.x / n_cc, col0 = (blockIdx.x % n_cc) * CHUNK;  // this block's dQ columns
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / a.G;
-  const int q0 = qt * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const bf16* qp = static_cast<const bf16*>(a.q) + b * a.qsb + h * a.qsh;
-  const bf16* dp_ = static_cast<const bf16*>(a.dout) + b * a.dsb + h * a.dsh;
-  const bf16* kp = static_cast<const bf16*>(a.k) + b * a.ksb + kvh * a.ksh;
-  const bf16* vp = static_cast<const bf16*>(a.v) + b * a.vsb + kvh * a.vsh;
-
-  const int row[2] = {q0 + 16 * warp + g, q0 + 16 * warp + g + 8};
-  const long long rbase = ((long long)b * a.H + h) * a.Tp;
-  float lse[2], delta[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {  // rows past Tq read the arrays' pad rows
-    lse[r] = a.lse[rbase + row[r]];
-    delta[r] = a.delta[rbase + row[r]];
-  }
-  float acc[CHUNK / 8][4];
-#pragma unroll
-  for (int j = 0; j < CHUNK / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  int n_tiles = (a.Tk + BK - 1) / BK;
-  if (a.causal) n_tiles = min(n_tiles, (q0 + BQ - 1) / BK + 1);  // skip tiles above the diagonal
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BK;
-    float s[BK / 8][4], dpv[BK / 8][4];
-    products_by_slices(s, dpv, Qs, dOs, Ks, Vs, qp, dp_, a.qst, a.dst, q0, a.Tq, kp, vp, a.kst, a.vst,
-                       k0, a.Tk, a.d, warp, g, t);
-    load_tile_t<CHUNK>(Kt, L::LDT, kp + col0, a.kst, k0, a.Tk, a.d - col0);
-    __syncthreads();
-
-    ds_rows(s, dpv, lse, delta, row, k0, t, a);
-    dq_product<CHUNK, L::LDT>(acc, s, Kt, g, t);  // over this block's columns
-  }
-  store_dq<CHUNK>(acc, row, col0, b, h, t, a);
-}
-
-struct DkvWideLayout {
-  static constexpr int LD = SLICE + 8;  // K, V, Q, dO slices, row-major
-  static constexpr int LDT = BQ + 8;    // the block's CHUNK columns of the Q and dO tiles transposed
-  static constexpr size_t bytes =
-      sizeof(bf16) * (size_t)(2 * BK * LD + 2 * BQ * LD + 2 * CHUNK * LDT) + sizeof(float) * 2 * BQ;
-};
-static_assert(DkvWideLayout::bytes <= hopper::SMEM_PER_BLOCK, "one block of the chunked route at every d");
-
-__global__ void __launch_bounds__(THREADS) flash_bwd_dkv_mma_wide_kernel(Args a) {
-  using L = DkvWideLayout;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + BK * L::LD;
-  bf16* Qs = Vs + BK * L::LD;
-  bf16* dOs = Qs + BQ * L::LD;
-  bf16* Qt = dOs + BQ * L::LD;
-  bf16* dOt = Qt + CHUNK * L::LDT;
-  float* lse_s = reinterpret_cast<float*>(dOt + CHUNK * L::LDT);
-  float* delta_s = lse_s + BQ;
-
-  const int n_cc = (a.d + CHUNK - 1) / CHUNK;
-  const int kt = blockIdx.x / n_cc, col0 = (blockIdx.x % n_cc) * CHUNK;  // this block's dK, dV columns
-  const int kvh = blockIdx.y, b = blockIdx.z;
-  const int k0 = kt * BK;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const bf16* kp = static_cast<const bf16*>(a.k) + b * a.ksb + kvh * a.ksh;
-  const bf16* vp = static_cast<const bf16*>(a.v) + b * a.vsb + kvh * a.vsh;
-
-  const int key[2] = {k0 + 16 * warp + g, k0 + 16 * warp + g + 8};
-  float dk[CHUNK / 8][4], dv[CHUNK / 8][4];
-#pragma unroll
-  for (int j = 0; j < CHUNK / 8; ++j) {
-    dk[j][0] = dk[j][1] = dk[j][2] = dk[j][3] = 0.f;
-    dv[j][0] = dv[j][1] = dv[j][2] = dv[j][3] = 0.f;
-  }
-  const int n_qt = (a.Tq + BQ - 1) / BQ;
-  const int qt0 = a.causal ? k0 / BQ : 0;  // q-tiles wholly above the diagonal see none of these keys
-
-  for (int gi = 0; gi < a.G; ++gi) {
-    const int h = kvh * a.G + gi;
-    const bf16* qp = static_cast<const bf16*>(a.q) + b * a.qsb + h * a.qsh;
-    const bf16* dp_ = static_cast<const bf16*>(a.dout) + b * a.dsb + h * a.dsh;
-    const long long rbase = ((long long)b * a.H + h) * a.Tp;
-    for (int qt = qt0; qt < n_qt; ++qt) {
-      const int q0 = qt * BQ;
-      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x 64 queries
-      float s[BQ / 8][4], dpv[BQ / 8][4];
-      products_by_slices(s, dpv, Ks, Vs, Qs, dOs, kp, vp, a.kst, a.vst, k0, a.Tk, qp, dp_, a.qst, a.dst,
-                         q0, a.Tq, a.d, warp, g, t);
-      load_tile_t<CHUNK>(Qt, L::LDT, qp + col0, a.qst, q0, a.Tq, a.d - col0);
-      load_tile_t<CHUNK>(dOt, L::LDT, dp_ + col0, a.dst, q0, a.Tq, a.d - col0);
-      load_rows<BQ>(lse_s, a.lse + rbase, q0, a.Tq);
-      load_rows<BQ>(delta_s, a.delta + rbase, q0, a.Tq);
-      __syncthreads();
-
-      p_ds_cols(s, dpv, lse_s, delta_s, key, q0, t, a);
-      dkv_product<CHUNK, L::LDT>(dk, dv, s, dpv, Qt, dOt, g, t);  // over this block's columns
-    }
-  }
-  store_dkv<CHUNK>(dk, dv, key, col0, kvh, b, t, a);
-}
-
-// The chunked route: ceil(d / CHUNK) blocks a tile. parts as in launch.
-int launch_wide(const Args& a, int B, int parts, cudaStream_t stream) {
-  const int n_cc = (a.d + CHUNK - 1) / CHUNK;
-  const dim3 dq_grid((a.Tq + BQ - 1) / BQ * n_cc, a.H, B);
-  const dim3 dkv_grid((a.Tk + BK - 1) / BK * n_cc, a.KV, B);
-  int err = 0;
-  if (parts & 1) {
-    err = launch_one(flash_bwd_dq_mma_wide_kernel, DqWideLayout::bytes, dq_grid, a, stream);
-    if (err != 0) return err;
-  }
-  if (parts & 2) err = launch_one(flash_bwd_dkv_mma_wide_kernel, DkvWideLayout::bytes, dkv_grid, a, stream);
   return err;
 }
 
@@ -1374,8 +1187,7 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* dout, con
     case 96: return launch<96>(a, B, parts, s);
     case 128: return launch<128>(a, B, parts, s);
     case 256: return launch<256>(a, B, parts, s);
-    default: return D > hopper::WIDEST_NATIVE ? launch_wide(a, B, parts, s)
-                                              : (int)cudaErrorInvalidValue;  // D < 1
+    default: return (int)cudaErrorInvalidValue;  // D < 1, and past 256: flash_attention_bwd_wide.cu
   }
 }
 
@@ -1411,9 +1223,9 @@ extern "C" int dml_flash_bwd_rows(const void* out, const void* dout, const void*
 // bf16 dq, dk and dv given the row arrays, on the kernels for D: wgmma +
 // TMA at 48 < D <= 256 with D a multiple of 8, as the TMA stores need rows
 // of whole 16-byte units (at width 64, 128 or 256), mma.sync at every
-// other D up to 256, at the native width >= D, and on the chunked route
-// past it (cudaErrorInvalidValue at D < 1 and for float32, which
-// dml_flash_bwd_tf32 in flash_attention_bwd_tf32.cu takes).
+// other D up to 256, at the native width >= D (cudaErrorInvalidValue at
+// D < 1; past 256, dml_flash_bwd_wide in flash_attention_bwd_wide.cu; for
+// float32, dml_flash_bwd_tf32 in flash_attention_bwd_tf32.cu).
 // parts: 1 = the dq kernel, 2 = the dkv kernel, 3 = both.
 extern "C" int dml_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse_r, const void* delta_r,
@@ -1428,8 +1240,8 @@ extern "C" int dml_flash_bwd(const void* q, const void* k, const void* v, const 
                    qsh, ksb, kst, ksh, vsb, vst, vsh, dsb, dst, dsh, scale, causal, parts, stream, true);
 }
 
-// The same call on the mma.sync kernels at every bf16 D, so one card can
-// time them beside the wgmma route.
+// The same call on the mma.sync kernels at every bf16 D up to 256, so one
+// card can time them beside the wgmma route.
 extern "C" int dml_flash_bwd_mma(const void* q, const void* k, const void* v, const void* dout,
                                  const void* lse_r, const void* delta_r,
                                  void* dq, void* dk, void* dv,

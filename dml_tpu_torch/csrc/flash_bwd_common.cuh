@@ -37,7 +37,7 @@ struct Args {
   int causal;
 };
 
-constexpr int CHUNK = 128;  // gradient columns a block of the chunked route (d > 256) owns
+constexpr int CHUNK = 128;  // gradient columns a block of the float32 chunked route (d > 256) owns
 
 // Gradient columns a block of the mma.sync kernels accumulates: all D up
 // to 128, half of them at D 256 (two blocks per tile).

@@ -31,7 +31,9 @@ constexpr float LN2 = 0.6931471805599453f;
 // WIDEST_NATIVE native_head_dim is 0: no block holds a whole row of d
 // there (the forward's O accumulator alone would be d / 2 float32
 // registers a thread for 64 query rows on 128 threads), so such a d takes
-// the chunked route (each source's launch_wide), d a run-time argument.
+// the chunked route (launch_wide in flash_attention.cu and
+// flash_attention_bwd_tf32.cu; the bf16 backward's is
+// flash_attention_bwd_wide.cu), d a run-time argument.
 constexpr int WIDEST_NATIVE = 256;
 __host__ __device__ constexpr int native_head_dim(int d) {
   return d < 1 ? 0 : d <= 16 ? 16 : d <= 32 ? 32 : d <= 48 ? 48 : d <= 64 ? 64 : d <= 80 ? 80

@@ -5,11 +5,12 @@ The TPU kernels it replaces are `dml_tpu/ops/flash_attention.py::
 _fwd_kernel` (K2) and the backward pair `_bwd_dq_kernel` and
 `_bwd_dkv_kernel` (K3). On Hopper they are the CUDA C++ kernels in
 `dml_tpu_torch/csrc/flash_attention.cu` and `csrc/flash_attention_bwd.cu`
-(the float32 backward in `csrc/flash_attention_bwd_tf32.cu`), built with
-nvcc for sm_90a at first use and called through ctypes.
+(the float32 backward in `csrc/flash_attention_bwd_tf32.cu`, the bf16
+backward past head dim 256 in `csrc/flash_attention_bwd_wide.cu`), built
+with nvcc for sm_90a at first use and called through ctypes.
 
-Routes follow from the dtype and the head dim alone (`kernel_route`,
-one rule for the forward and the backward):
+Routes follow from the dtype and the head dim (`kernel_route`), by one
+rule for the forward and the backward up to 256:
 bf16 at 48 < D <= 256 with D a multiple of 8, every main-path shape (D
 64) and the public LMs' 80, 96 and 256 among them, runs warp-specialized
 kernels (a TMA producer streaming tiles through a shared-memory ring,
@@ -30,11 +31,20 @@ float32 backward's kernels are their own source,
 as the JAX kernels' full-D block does: a D up to 256 runs on the least
 width >= D of its route (`NATIVE_HEAD_DIMS` off the wgmma route), its
 columns past D read as zeros and never written, which is exact. Past 256
-no block holds a whole row (the
-forward's accumulator alone would need D / 2 float32 registers a
-thread), so the chunked route splits the output's columns over a grid
-axis (FWD_CHUNK columns a block forward, BWD_CHUNK backward), each block reducing Q K^T (and dO V^T) over the whole of D in
-slices staged through shared memory. The backward keeps the TPU's
+no block holds a whole row (the forward's accumulator alone would need D
+/ 2 float32 registers a thread), so the chunked routes split the output's
+columns over a grid axis, each block reducing Q K^T (and dO V^T) over the
+whole of D, and there the directions differ. The forward and the float32
+backward stage D in slices through shared memory on `mma.sync` (FWD_CHUNK
+output columns a forward block, BWD_CHUNK gradient columns a float32
+backward one); the bf16 backward runs `wgmma` + TMA ("wgmma+tma chunked",
+WIDE_BWD_CHUNK = 256 gradient columns a block: a TMA producer streams
+D's 64-column sub-tiles of Q, dO, K and V, one consumer warpgroup forms S
+and P, the other dP and dS, handing them to each other through shared
+memory, and each owns 128 of the block's columns; where the grid is small
+a thread-block cluster splits a block's k-tiles, or its kv head's (query
+head, q-tile) pairs, and adds the ranks' sums in rank order:
+`wide_bwd_plan` mirrors that launch). The backward keeps the TPU's
 two-kernel split (dq over k-tiles, dk and dv over q-tiles, no atomics),
 after a small kernel that computes delta = rowsum(dO * O) and pads the
 row arrays the two read. The source files say what bounds each kernel
@@ -85,10 +95,20 @@ NATIVE_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 128, 256)
 #: 256 that is a multiple of 8
 WGMMA_HEAD_DIMS = (64, 128, 256)
 WGMMA_MIN_HEAD_DIM = 48
-#: past the widest native width, the chunked route's output columns a
-#: block (csrc/flash_attention.cu::CHUNK, csrc/flash_bwd_common.cuh::CHUNK)
+#: past the widest native width, the chunked routes' output columns a
+#: block: the forward's (csrc/flash_attention.cu::CHUNK) and the float32
+#: backward's (csrc/flash_bwd_common.cuh::CHUNK)
 FWD_CHUNK = 256
 BWD_CHUNK = 128
+#: the bf16 backward past 256 (csrc/flash_attention_bwd_wide.cu): the
+#: gradient columns a block owns, its rows (own and streamed, one wgmma M),
+#: the largest cluster it splits a block's items over, the blocks a grid
+#: grows to by clusters, and an H100 block's shared memory at most
+WIDE_BWD_CHUNK = 256
+WIDE_ROWS = 64
+WIDE_MAX_CLUSTER = 8
+WIDE_TARGET_BLOCKS = 256
+SMEM_PER_BLOCK = 227 * 1024
 _DTYPES = (torch.bfloat16, torch.float32)
 
 #: kernel launches since the last reset (plain ints; a test or
@@ -100,7 +120,8 @@ flash_bwd_launches = 0
 flash_bwd_delta_launches = 0
 #: the forward and backward launches again, by the kernels they ran:
 #: (direction "fwd" or "bwd", route kind, width, dkv split) -> count, the
-#: split being `dkv_split` (1 forward); cleared with the counts above
+#: split being `dkv_split` (1 forward; "dq{n} dkv{m}", both kernels'
+#: clusters, on the bf16 backward past 256); cleared with the counts above
 route_launches: collections.Counter = collections.Counter()
 #: the backward's row arrays (lse, delta) are padded to a multiple of this
 ROW_PAD = 128
@@ -125,7 +146,8 @@ def _library() -> ctypes.CDLL:
 
 class Route(NamedTuple):
     # "wgmma+tma", "mma.sync" (bf16), "tf32x3" (float32: split TF32 on
-    # mma.sync), or past 256 "mma.sync chunked", "tf32x3 chunked"
+    # mma.sync), or past 256 "mma.sync chunked" (bf16 forward), "wgmma+tma
+    # chunked" (bf16 backward), "tf32x3 chunked" (float32)
     kind: str
     width: int  # the native head dim the kernel runs at (>= D), or past 256 its column chunk
 
@@ -134,7 +156,7 @@ def native_head_dim(head_dim: int, backward: bool = False) -> int:
     """The columns one block of the mma.sync and split-TF32 kernels computes, as
     the C entry points pick them: the least native width >= head_dim, or
     past the widest the chunked route's column chunk of that direction
-    (FWD_CHUNK, BWD_CHUNK). Raises below 1."""
+    (FWD_CHUNK; BWD_CHUNK, float32's backward). Raises below 1."""
     if head_dim < 1:
         raise ValueError(f"no flash attention kernel at head_dim {head_dim}: "
                          "the kernels take head_dim >= 1")
@@ -149,15 +171,20 @@ def kernel_route(dtype: torch.dtype, head_dim: int, backward: bool = False) -> R
     at: "wgmma+tma" for bf16 at 48 < D <= 256 with D % 8 == 0, at the
     least of `WGMMA_HEAD_DIMS` >= D (64, 128 or 256); "mma.sync" for
     every other bf16 D up to 256 and "tf32x3" (split TF32) for float32,
-    each at `native_head_dim(D)`; past 256 the chunked route ("mma.sync
-    chunked", "tf32x3 chunked") at its column chunk (`backward` picks the
-    backward's)."""
+    each at `native_head_dim(D)`, the same both ways (`dml_flash_bwd`
+    and `dml_flash_bwd_tf32` launch the backward); past 256 the chunked
+    routes at their column chunk, where the directions differ: in bf16
+    "mma.sync chunked" forward and "wgmma+tma chunked" (WIDE_BWD_CHUNK
+    columns, `dml_flash_bwd_wide`) backward, in float32 "tf32x3 chunked"
+    (`backward` picks the backward's)."""
     if dtype not in _DTYPES:
         raise ValueError(f"no flash attention kernel for {dtype} at head_dim {head_dim}")
     width = native_head_dim(head_dim, backward)
     if (dtype == torch.bfloat16 and WGMMA_MIN_HEAD_DIM < head_dim <= WGMMA_HEAD_DIMS[-1]
             and head_dim % 8 == 0):
         return Route("wgmma+tma", next(w for w in WGMMA_HEAD_DIMS if w >= head_dim))
+    if dtype == torch.bfloat16 and backward and head_dim > NATIVE_HEAD_DIMS[-1]:
+        return Route("wgmma+tma chunked", WIDE_BWD_CHUNK)
     kind = "tf32x3" if dtype == torch.float32 else "mma.sync"
     return Route(kind + " chunked" if head_dim > NATIVE_HEAD_DIMS[-1] else kind, width)
 
@@ -196,6 +223,95 @@ def _bwd_tf32_library() -> ctypes.CDLL:
     lib.dml_flash_bwd_tf32.argtypes = _BWD_ARGTYPES
     lib.dml_flash_bwd_tf32.restype = ctypes.c_int
     return lib
+
+
+def _bwd_wide_library() -> ctypes.CDLL:
+    """Build (at first use) and load the bf16 backward's library past head
+    dim 256 (its own source, built beside the others)."""
+    from ._build import load_library
+
+    lib = load_library("dml_flash_attention_bwd_wide", ["flash_attention_bwd_wide.cu"])
+    lib.dml_flash_bwd_wide.argtypes = _BWD_ARGTYPES
+    lib.dml_flash_bwd_wide.restype = ctypes.c_int
+    return lib
+
+
+def _wide_cluster(blocks: int, items: int) -> int:
+    """csrc/flash_attention_bwd_wide.cu::cluster_size: doubled from 1 while
+    the grid has fewer than WIDE_TARGET_BLOCKS blocks, up to
+    WIDE_MAX_CLUSTER and while every rank of the busiest block (`items`
+    items) keeps one."""
+    cs = 1
+    while cs < WIDE_MAX_CLUSTER and blocks * cs < WIDE_TARGET_BLOCKS and 2 * cs <= items:
+        cs *= 2
+    return cs
+
+
+def _wide_smem(stages: int, chunk_subs: int, row_arrays: bool) -> int:
+    """csrc/flash_attention_bwd_wide.cu::Smem::bytes: the ring's stages (a
+    64 x 64 bf16 sub-tile of each of Q, dO, K and V), a chunk buffer of
+    `chunk_subs` sub-tiles (and a q-tile's lse and delta' rows), P in
+    float32 and dS in bf16 for 128 threads, the mbarriers and 1 KB of
+    alignment."""
+    sub = WIDE_ROWS * 128
+    return (stages * 4 * sub + chunk_subs * sub + (2 * WIDE_ROWS * 4 if row_arrays else 0)
+            + 32 * 128 * 4 + 16 * 128 * 4 + 8 * (2 * stages + 2) + 1024)
+
+
+class WideBwdPlan(NamedTuple):
+    """The launches of the bf16 backward past head dim 256, as
+    `dml_flash_bwd_wide` makes them (csrc/flash_attention_bwd_wide.cu)."""
+    b: int
+    tq: int
+    tk: int
+    h: int
+    kv: int
+    d: int
+    n_sub: int       # 64-column sub-tiles of D
+    n_chunks: int    # column chunks of WIDE_BWD_CHUNK (4 sub-tiles; the last may hold fewer)
+    dq_cluster: int  # blocks a cluster splits one dq block's k-tiles over
+    dkv_cluster: int  # blocks a cluster splits one kv head's (query head, q-tile) pairs over
+    dq_grid: Tuple[int, int, int]   # (cluster x chunks x H, B, q-tiles)
+    dkv_grid: Tuple[int, int, int]  # (cluster x chunks x KV, B, k-tiles)
+    dq_smem: int
+    dkv_smem: int
+
+    def columns(self, chunk: int, consumer: int) -> range:
+        """The gradient columns consumer 0 or 1 of a block of `chunk` owns."""
+        lo = min(self.d, chunk * WIDE_BWD_CHUNK + consumer * WIDE_BWD_CHUNK // 2)
+        return range(lo, min(self.d, lo + WIDE_BWD_CHUNK // 2))
+
+    def dq_items(self, q_tile: int, rank: int, causal: bool) -> list:
+        """The k-tiles that rank `rank` of q-tile `q_tile`'s cluster walks."""
+        n_kt = -(-self.tk // WIDE_ROWS)
+        if causal:
+            n_kt = min(n_kt, q_tile + 1)
+        return list(range(rank, n_kt, self.dq_cluster))
+
+    def dkv_items(self, k_tile: int, rank: int, causal: bool) -> list:
+        """The (query head within the group, q-tile) pairs that rank `rank`
+        of k-tile `k_tile`'s cluster walks."""
+        n_qt = -(-self.tq // WIDE_ROWS)
+        qt0 = k_tile if causal else 0
+        nq = n_qt - qt0
+        return [(m // nq, qt0 + m % nq) for m in range(rank, (self.h // self.kv) * nq, self.dkv_cluster)]
+
+
+def wide_bwd_plan(b: int, tq: int, tk: int, h: int, kv: int, d: int) -> WideBwdPlan:
+    """The launch plan of the bf16 backward at head dim d > 256 for q
+    [b, tq, h, d] and k, v [b, tk, kv, d]: blocks of WIDE_ROWS own rows x
+    WIDE_BWD_CHUNK gradient columns, and the clusters that split a block's
+    items where the grid would be small."""
+    if d <= NATIVE_HEAD_DIMS[-1]:
+        raise ValueError(f"head_dim {d} is not on the chunked route (past {NATIVE_HEAD_DIMS[-1]})")
+    n_sub = -(-d // 64)
+    n_cc = -(-n_sub // (WIDE_BWD_CHUNK // 64))
+    n_qt, n_kt = -(-tq // WIDE_ROWS), -(-tk // WIDE_ROWS)
+    cq = _wide_cluster(n_qt * n_cc * h * b, n_kt)
+    ck = _wide_cluster(n_kt * n_cc * kv * b, (h // kv) * n_qt)
+    return WideBwdPlan(b, tq, tk, h, kv, d, n_sub, n_cc, cq, ck,
+                       (cq * n_cc * h, b, n_qt), (ck * n_cc * kv, b, n_kt),
+                       _wide_smem(5, 4, False), _wide_smem(4, 8, True))
 
 
 def _expand_kv(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -344,20 +460,27 @@ def _kernel_view(x: torch.Tensor) -> torch.Tensor:
     return x if ok else x.clone(memory_format=torch.contiguous_format)
 
 
-def dkv_split(route: Route, group: int) -> int:
+def dkv_split(route: Route, group: int, plan: Optional[WideBwdPlan] = None):
     """The blocks that share one kv head's group of `group` query heads in
     the dkv kernel on `route` (csrc/flash_attention_bwd.cu, launch<256>):
     2 on the wgmma route at width 256 where the group has more than one
     head (a thread-block cluster, flash_bwd_dkv_wgmma_kernel<256, 2>),
-    else 1."""
+    else 1. On the chunked wgmma route past 256 both kernels' clusters
+    follow the shape: "dq{n} dkv{m}" from its `plan` (the instances
+    flash_bwd_dq_wgmma_wide_kernel<n> and flash_bwd_dkv_wgmma_wide_kernel<m>)."""
+    if route.kind == "wgmma+tma chunked":
+        if plan is None:
+            raise ValueError("the chunked wgmma route's clusters follow the shape: pass its wide_bwd_plan")
+        return f"dq{plan.dq_cluster} dkv{plan.dkv_cluster}"
     return 2 if route == ("wgmma+tma", 256) and group > 1 else 1
 
 
-def _count(direction: str, dtype: torch.dtype, d: int, mma_sync: bool, group: int = 1) -> None:
+def _count(direction: str, dtype: torch.dtype, d: int, mma_sync: bool, group: int = 1,
+           plan: Optional[WideBwdPlan] = None) -> None:
     """Count one launch in `route_launches`, under the kernels it ran."""
     route = (Route("mma.sync", native_head_dim(d)) if mma_sync
              else kernel_route(dtype, d, direction == "bwd"))
-    split = dkv_split(route, group) if direction == "bwd" else 1
+    split = dkv_split(route, group, plan) if direction == "bwd" else 1
     route_launches[(direction, route.kind, route.width, split)] += 1
 
 
@@ -437,11 +560,13 @@ def _flash_bwd_cuda(q, k, v, dout, lse_r, delta_r, causal, scale, parts=3, mma_s
     """Launch K3's dq kernel (parts & 1) and dkv kernel (parts & 2) on
     the current stream, given the row arrays of `_bwd_rows_cuda`; returns
     (dq, dk, dv), a part not launched left unwritten. `mma_sync` runs the
-    mma.sync kernels whatever D is (to time them beside the wgmma route);
-    the wrappers never pass it. Counts one backward launch."""
+    mma.sync kernels at any bf16 D up to 256 (to time them beside the
+    wgmma route); the wrappers never pass it. Counts one backward launch."""
     global flash_bwd_launches
     _check_cuda(q, k, v)
     b, tq, h, d = q.shape
+    if mma_sync and d > NATIVE_HEAD_DIMS[-1]:
+        raise ValueError(f"no mma.sync backward past head_dim {NATIVE_HEAD_DIMS[-1]} (got {d})")
     tk, kv = k.shape[1], k.shape[2]
     if dout.shape != q.shape or dout.dtype != q.dtype or dout.device != q.device:
         raise ValueError(f"dout {dout.dtype} {tuple(dout.shape)} does not fit q {q.dtype} {tuple(q.shape)}")
@@ -453,8 +578,12 @@ def _flash_bwd_cuda(q, k, v, dout, lse_r, delta_r, causal, scale, parts=3, mma_s
     dq = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, tk, kv, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, tk, kv, d), dtype=v.dtype, device=q.device)
+    plan = None
     if q.dtype == torch.float32:
         fn = _bwd_tf32_library().dml_flash_bwd_tf32
+    elif d > NATIVE_HEAD_DIMS[-1]:
+        fn = _bwd_wide_library().dml_flash_bwd_wide
+        plan = wide_bwd_plan(b, tq, tk, h, kv, d)
     else:
         lib = _bwd_library()
         fn = lib.dml_flash_bwd_mma if mma_sync else lib.dml_flash_bwd
@@ -476,7 +605,7 @@ def _flash_bwd_cuda(q, k, v, dout, lse_r, delta_r, causal, scale, parts=3, mma_s
                            "(a cudaError, or 10000 + the CUresult of a tensor map)")
     with _count_lock:
         flash_bwd_launches += 1
-        _count("bwd", q.dtype, d, mma_sync, h // kv)
+        _count("bwd", q.dtype, d, mma_sync, h // kv, plan)
     return dq, dk, dv
 
 

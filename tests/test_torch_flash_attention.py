@@ -193,37 +193,44 @@ def test_bwd_kernel_route_by_dtype_and_head_dim(dtype, d, route):
     assert fa.kernel_route(dtype, d, backward=True) == route
 
 
-# past 256 the chunked route in both dtypes, at each direction's column
-# chunk (256 output columns a forward block, 128 gradient columns a
-# backward one)
+# past 256 the chunked routes, at each direction's column chunk: `kind`
+# forward (256 output columns a block) and float32's backward (128
+# gradient columns a block); bf16's backward is the wgmma + TMA pair at
+# 256 gradient columns a block
 @pytest.mark.parametrize("dtype,kind", [(torch.bfloat16, "mma.sync chunked"),
                                         (torch.float32, "tf32x3 chunked")])
 @pytest.mark.parametrize("d", [257, 512])
 @pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
 def test_kernel_route_past_256_by_direction(dtype, kind, d, backward):
+    if backward and dtype == torch.bfloat16:
+        assert fa.kernel_route(dtype, d, backward=True) == ("wgmma+tma chunked", fa.WIDE_BWD_CHUNK)
+        return
     width = fa.BWD_CHUNK if backward else fa.FWD_CHUNK
     assert fa.kernel_route(dtype, d, backward=backward) == (kind, width)
 
 
 # the dkv kernel's blocks a kv head, as the backward's launch counts key
-# them: a two-block cluster only on the wgmma route at width 256 with more
-# than one query head a kv head (Gemma-2B's 8 on 1)
+# them: a two-block cluster on the wgmma route at width 256 with more than
+# one query head a kv head (Gemma-2B's 8 on 1); past 256 in bf16 the
+# clusters of both chunked wgmma kernels, from the shape's plan (here the
+# wide-head LM's training shape, [1, 512] over 2 query heads on 1)
 @pytest.mark.parametrize("dtype,d,group,split", [
     (torch.bfloat16, 256, 8, 2), (torch.bfloat16, 200, 2, 2), (torch.bfloat16, 256, 1, 1),
     (torch.bfloat16, 96, 2, 1), (torch.bfloat16, 64, 4, 1), (torch.bfloat16, 201, 2, 1),
-    (torch.float32, 256, 8, 1), (torch.bfloat16, 512, 2, 1),
+    (torch.float32, 256, 8, 1), (torch.bfloat16, 512, 2, "dq8 dkv8"),
 ], ids=["gemma2b_d256", "d200_gqa2", "d256_mha", "d96_gqa2", "d64_gqa4", "odd_d201_mma_sync",
         "f32_d256", "d512_chunked"])
 def test_dkv_split_by_route_and_group(dtype, d, group, split):
     route = fa.kernel_route(dtype, d, backward=True)
-    assert fa.dkv_split(route, group) == split
+    plan = fa.wide_bwd_plan(1, 512, 512, group, 1, d) if d > 256 else None
+    assert fa.dkv_split(route, group, plan) == split
     before = fa.route_launches.copy()
-    fa._count("bwd", dtype, d, False, group)
+    fa._count("bwd", dtype, d, False, group, plan)
     assert fa.route_launches - before == {("bwd", route.kind, route.width, split): 1}
 
 
 # D 0 and float16 have no kernel; a D past the widest native width (257)
-# takes the chunked route in both directions
+# takes the chunked routes: mma.sync forward, wgmma + TMA backward
 @pytest.mark.parametrize("dtype,d,route", [
     (torch.bfloat16, 0, None), (torch.float16, 64, None),
     (torch.bfloat16, 257, ("mma.sync chunked", 256)),
@@ -234,7 +241,7 @@ def test_kernel_route_refuses_what_no_kernel_takes(dtype, d, route):
             fa.kernel_route(dtype, d)
     else:
         assert fa.kernel_route(dtype, d) == route
-        assert fa.kernel_route(dtype, d, backward=True) == ("mma.sync chunked", 128)
+        assert fa.kernel_route(dtype, d, backward=True) == ("wgmma+tma chunked", fa.WIDE_BWD_CHUNK)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

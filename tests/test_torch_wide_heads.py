@@ -232,13 +232,17 @@ def test_every_head_dim_to_4096_has_a_route_whose_chunks_cover_it():
                 route = fa.kernel_route(dtype, d, backward)
                 if dtype == torch.bfloat16 and 48 < d <= 256 and d % 8 == 0:  # wgmma + TMA
                     assert route == ("wgmma+tma", min(w for w in fa.WGMMA_HEAD_DIMS if w >= d))
+                elif dtype == torch.bfloat16 and backward and d > 256:  # wgmma + TMA, chunked
+                    assert route == ("wgmma+tma chunked", fa.WIDE_BWD_CHUNK)
                 else:
                     assert route.width == fa.native_head_dim(d, backward)
                 n = -(-d // route.width)  # the blocks of a tile, one column chunk each
                 assert n * route.width >= d > (n - 1) * route.width
                 if d > fa.NATIVE_HEAD_DIMS[-1]:
                     assert route.kind.endswith(" chunked")
-                    assert route.width == (fa.BWD_CHUNK if backward else fa.FWD_CHUNK)
+                    wide = dtype == torch.bfloat16 and backward
+                    assert route.width == (fa.WIDE_BWD_CHUNK if wide else fa.BWD_CHUNK if backward
+                                           else fa.FWD_CHUNK)
                 else:
                     assert n == 1 and not route.kind.endswith(" chunked")
         for itemsize, quantized in ((4, False), (2, False), (1, True)):
