@@ -81,23 +81,26 @@ script started); any failure exits non-zero:
    output must equal the clean copies'), non-causal cross attention
    (Tq=64, Tk=192; Tq=200, Tk=1000 GQA-4), ViT-B16's non-causal
    self-attention (vit_b16: [32,197,12,64], q/k/v strided views of one
-   [32,197,2304] qkv output), bf16 D=32 (the mma.sync
-   route) and float32 cases (D 48 and 96 among them: the cluster LM
+   [32,197,2304] qkv output), bf16 D=32 (the wgmma route at width 64, one
+   consumer a block) and float32 cases (D 48 and 96 among them: the cluster LM
    bench's ShardLM and its draft, phase 23); the head dims
    past 64/128 (`HEAD_DIM_FLASH_CASES`): Phi-2's prefill [1,2048,32,80],
    Phi-3-mini's [1,2048,32,96], Gemma-2B's (q [1,2048,8,256], k/v one
    head), ShardLM's D 96 and its draft's D 48 in both dtypes (ShardLM's
    float32 training shape too, [2,512,4,96] with k/v repeated), a D-80
-   target's D-40 draft in both, the JAX tests' D 8 in both, an odd D 20
+   target's D-40 draft in both, the JAX tests' D 8 in both, the 198M
+   LM's draft's D 32 at its B=8 prefill [8,2048,16,32] GQA-4, an odd D 20
    at one head (the wrapper's zero-padded copy, timed alone beside the
    call as `copy_ms`), D 200 cross attention, D 56 at the LM's B=8
    prefill shape (GQA-4) and D 256 GQA-4 at [2,1024,16,256] (the three
    checked only) and MHA at D 256; every
-   bf16 case at 48 < D <= 256 with D % 8 == 0 names the wgmma + TMA
+   bf16 case at 8 <= D <= 256 with D % 8 == 0 names the wgmma + TMA
    route and its width (64, 128 or 256) and shows, from one
    torch.profiler trace of all such cases (three calls each), that
-   `flash_fwd_wgmma_kernel` at that width ran (with three consumers at
-   D 56), and every float32 case its split-TF32 instance
+   `flash_fwd_wgmma_kernel` at that width ran with the consumers a block
+   that `wgmma_fwd_plan` gives (three at D 56's and D 32's B=8 prefill,
+   one at the drafts' small grids and at D 64's under one wave), and
+   every float32 case its split-TF32 instance
    (`flash_fwd_tf32_kernel<W>`, `flash_fwd_tf32_wide_kernel` past 256),
    a second call bit-equal to the first; past 256
    (`WIDE_FLASH_CASES`, the chunked route) phase 25's wide-head LM (D 512
@@ -107,10 +110,14 @@ script started); any failure exits non-zero:
    cross attention (checked only); each case names its route and native
    width (the chunked route's column chunk), one launch a call;
    tolerances float32 2e-5 (out and lse),
-   bf16 out 2e-2 and lse 1e-4. At prefill_b8, prefill_b1, mha_b1 and vit_b16 the
+   bf16 out 2e-2 and lse 1e-4. At prefill_b8, prefill_b1, mha_b1, vit_b16
+   and the LM's two D-64 grids under one wave (lm_served_d64, phase 12's
+   [8,16,16,64] prefill, and prefill_b1_t1024) the
    wgmma kernel, the mma.sync kernel (checked too), SDPA and the plain
    version are timed in turns (new, mma.sync, SDPA, plain, SDPA,
-   mma.sync, new) beside the tensor-core operation bound, with TFLOP/s
+   mma.sync, new; where the plan gives one consumer a block, the
+   two-consumer form beside it, checked too) beside the tensor-core
+   operation bound, with TFLOP/s
    and share of the bound; every new case likewise (kernel, SDPA with
    `enable_gqa`, plain), naming the backend SDPA dispatched to;
 7. decode_check: the one-launch decode kernel against the plain
@@ -241,7 +248,14 @@ script started); any failure exits non-zero:
    generate exactly, and speculative decoding (k=4) with the target as
    its own draft accepts every proposal and with a 2-layer
    draft_lm_spec draft prints its acceptance, both giving the plain
-   server's tokens. The KV prefix cache warm-starts second turns (hits
+   server's tokens; in bf16 the same 2-layer draft (d 512, 16 heads on
+   4: D 32, the wgmma route at width 64) proposes for the bf16 server,
+   K2 and K4 by the formula with the draft's layers, every K2 launch on
+   `fwd wgmma+tma 64`, counted by head dim as the target's layers (D 64)
+   and the draft's (D 32) x placement prefills (the draft's at phase 6's
+   `lm198m_draft_served_d32` shape, held to the plain version there), tokens
+   held to each request's lone bf16 greedy run up to a near-tie
+   (TIE_MARGIN). The KV prefix cache warm-starts second turns (hits
    and saved tokens > 0; warm and cold tokens against the lone run as
    above; TTFT warm and cold); an int8 server (int8 weights and KV
    cache); LMDriver with 4 threads of 8 requests equals a serial run;
@@ -539,7 +553,8 @@ script started); any failure exits non-zero:
     without (the target's chunk steps, K4 at D 96), each with the bf16
     and with the int8 cache (the draft's too), and with speculation in
     float32 (TF32 off). K2 (D 96 and 48) and K4 by phase 12's formula
-    from the server's counters; the float32 tokens equal each request's
+    from the server's counters, bf16's K2 on the wgmma routes at width
+    128 (D 96) and 64 (the draft's D 48) alone; the float32 tokens equal each request's
     lone float32 greedy run, both bf16 runs' tokens held to them up to a
     near-tie (TIE_MARGIN). Then
     `LongContextLM` at the same geometry, [2, 512] tokens, in bf16 and in
@@ -572,7 +587,8 @@ ingress, families, groups, cli, measure and rank_groups, K2 timed at the LM's
 shapes and ViT-B16's; K3's
 and the delta kernel's: train, moe, seq_parallel and families; K2 and
 K3's wgmma routes at Phi-3-mini's D 96 with phase 24's launches of that
-route, K2's mma.sync route at the draft's D 48 with its launches there,
+route, K2's wgmma route at ShardLM's draft's D 48 with its launches there
+and at the 198M LM's draft's D 32 with phase 12's bf16 draft's,
 K2 and K3 at Gemma-2B's D 256 and K3's one-block dkv form at MHA D 256
 with phases 6 and 9's checked launches of each instance; K4 at Phi-3-mini's decode with
 phase 24's served launches, bf16 and int8 caches, and at Falcon-7B's (5
@@ -622,6 +638,9 @@ LATENCY_SAMPLES = 200  # phase 4's infer_arrays calls at batch 32, each timed
 # :3229-3232): about 198M parameters
 LM_CFG = dict(vocab_size=32000, d_model=1024, n_heads=16, n_layers=12, d_ff=4096, n_kv_heads=4)
 LM_BATCH, PROMPT_LEN, NEW_TOKENS = 8, 2048, 64
+#: the prompts' tokens in phase 12's served streams (`mixed_requests`),
+#: and the bucket the server pads them to (powers of two from 16)
+LMS_PROMPT, LMS_BUCKET = 12, 16
 DECODE_CTX = 4096
 # training: bench.py's lm_198m_t2048 entry (bench.py:2867-2903), batch 1
 TRAIN_T, TRAIN_STEPS, TRAIN_NEW_TOKENS = 2048, 20, 16
@@ -661,6 +680,7 @@ def reset_launch_counts():
     flash_attention.flash_bwd_launches = 0
     flash_attention.flash_bwd_delta_launches = 0
     flash_attention.route_launches.clear()
+    flash_attention.head_dim_launches.clear()
     decode_attention.decode_launches = 0
 
 
@@ -681,6 +701,14 @@ def route_counts():
     from dml_tpu_torch.ops import flash_attention
 
     return {" ".join(map(str, k)): n for k, n in sorted(flash_attention.route_launches.items())}
+
+
+def head_dim_counts():
+    """The flash kernels' launches since the last reset by head dim
+    (ops.flash_attention.head_dim_launches), "direction D" -> count."""
+    from dml_tpu_torch.ops import flash_attention
+
+    return {" ".join(map(str, k)): n for k, n in sorted(flash_attention.head_dim_launches.items())}
 
 
 def bf16_ulp(ref):
@@ -1281,11 +1309,13 @@ def setmaxnreg_counts(source):
         src = f.read()
     regs = {}
     for role in ("PRODUCER", "CONSUMER"):
-        m = re.search(role + r"_REGS = NC == 3 \? (\d+) : (\d+);", src)
-        if m:
-            regs[role.lower()] = {"3 consumers": int(m.group(1)), "2 consumers": int(m.group(2))}
-        else:
-            regs[role.lower()] = int(re.search(role + r"_REGS = (\d+);", src).group(1))
+        # "NC == 3 ? 160 : NC == 1 ? 216 : 232;" (the last for every other
+        # consumer count), or one count
+        expr = re.search(role + r"_REGS = ([^;]+);", src).group(1)
+        forms = re.findall(r"NC == (\d) \? (\d+) :", expr)
+        last = int(re.search(r"(\d+)\s*$", expr).group(1))
+        regs[role.lower()] = ({f"{n} consumers": int(v) for n, v in forms} | {"other": last}
+                              if forms else last)
     return regs
 
 
@@ -1309,9 +1339,12 @@ BF, F32 = "bfloat16", "float32"
 # zero columns, its forward with three consumers), MHA at D 256 (one block
 # a kv head's group in the dkv kernel, where Gemma-2B's and D 200's split
 # the group over a two-block cluster) and D 256 GQA-4 at B=2 (the cluster
-# form over 512 blocks, several waves on 132 SMs). Every bf16 D past 48
-# that is a multiple of 8 runs the wgmma + TMA kernels at 64, 128 or 256.
-# Phases 6 and 9 check each and time all but D 200, D 56 and D 256 GQA-4.
+# form over 512 blocks, several waves on 132 SMs) and the 198M LM's 2-layer
+# draft_lm_spec draft (d 512 over 16 heads on 4: D 32) at the LM's B=8
+# prefill and at the shape phase 12 serves it (8 prompts in the 16-token
+# bucket: one consumer a block). Every bf16 D up to 256 that is a multiple of 8 runs the wgmma +
+# TMA kernels at 64, 128 or 256 (the drafts' D 8-48 at 64). Phases 6 and 9
+# check each and time all but D 200, D 56 and D 256 GQA-4.
 HEAD_DIM_FLASH_CASES = (
     ("phi2_d80", 1, 2048, 2048, 32, 32, 80, True, BF),
     ("phi3mini_d96", 1, 2048, 2048, 32, 32, 96, True, BF),
@@ -1330,6 +1363,8 @@ HEAD_DIM_FLASH_CASES = (
     ("d56_gqa4_b8", LM_BATCH, PROMPT_LEN, PROMPT_LEN, 16, 4, 56, True, BF),
     ("d256_mha", 1, 512, 512, 4, 4, 256, True, BF),
     ("d256_gqa4_b2", 2, 1024, 1024, 16, 4, 256, True, BF),
+    ("lm198m_draft_d32", LM_BATCH, PROMPT_LEN, PROMPT_LEN, 16, 4, 32, True, BF),
+    ("lm198m_draft_served_d32", LM_BATCH, LMS_BUCKET, LMS_BUCKET, 16, 4, 32, True, BF),
 )
 # Past 256, the chunked route (fwd: 256 output columns a block; bwd: 128
 # gradient columns a block): phase 25's wide-head LM (the 198M LM's d_model
@@ -1365,35 +1400,36 @@ HEAD_DIM_PADDED = ("odd_d20_h1", "odd_d257")
 def device_kernel_names(fns, calls=3):
     """For each named function of `fns`, the names of the device kernels
     that `calls` calls of it launched, read from one torch.profiler trace
-    of them all: each function's calls and a synchronize inside a
-    `record_function` of its name, 1 ms apart, and a kernel that starts
-    inside that range on the trace's clock taken as its. Which kernels a
-    route took on the card. A trace can miss the kernels launched just
-    after it starts (all three calls of the first function once), so
-    every function runs once before the first range."""
+    of them all: a marker kernel (torch.cuda._sleep's `spin_kernel`) on
+    the stream before each function's calls and after the last, and the
+    kernels between two markers in the trace's device order taken as the
+    first one's function. Which kernels a route took on the card. The
+    device order needs no clock shared with the host (a kernel matched to
+    a host range by its time can land in a neighbour's range). A trace
+    can miss the kernels launched just after it starts (all three calls
+    of the first function once), so every function runs once before the
+    first marker."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for fn in fns.values():
             fn()
         torch.cuda.synchronize()
-        for name, fn in fns.items():
-            time.sleep(1e-3)
-            with record_function(name):
-                for _ in range(calls):
-                    fn()
-                torch.cuda.synchronize()
-    events = prof.events()
-    ranges = [(e.time_range.start, e.time_range.end, e.name) for e in events
-              if e.name in fns and e.device_type == torch.autograd.DeviceType.CPU]
+        for fn in fns.values():
+            torch.cuda._sleep(1000)
+            for _ in range(calls):
+                fn()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    kernels = sorted((e.time_range.start, e.name) for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not getattr(e, "is_user_annotation", False))
+    marks = [i for i, (_, n) in enumerate(kernels) if "spin_kernel" in n]
     found = {name: set() for name in fns}
-    for e in events:
-        if e.device_type != torch.autograd.DeviceType.CUDA or getattr(e, "is_user_annotation", False):
-            continue
-        for start, end, name in ranges:
-            if start <= e.time_range.start <= end:
-                found[name].add(e.name)
+    if len(marks) == len(fns) + 1:  # else every function is missed, and traced again
+        for name, lo, hi in zip(fns, marks, marks[1:]):
+            found[name].update(n for _, n in kernels[lo + 1:hi])
     return {name: sorted(v) for name, v in found.items()}
 
 
@@ -1469,6 +1505,11 @@ def phase_flash(timer):
         ("cross", 2, 64, 192, 16, 16, 64, False, bf16),
         ("cross_ragged", 2, 200, 1000, 16, 4, 64, False, bf16),
         ("vit_b16", BATCH, 197, 197, 12, 12, 64, False, bf16),
+        # the 198M LM's D-64 grids under one wave of two-consumer blocks:
+        # phase 12's placement prefill of 8 prompts and the longest B=1
+        # prompt there (1024 tokens: 128 blocks of two)
+        ("lm_served_d64", LM_BATCH, LMS_BUCKET, LMS_BUCKET, 16, 4, 64, True, bf16),
+        ("prefill_b1_t1024", 1, 1024, 1024, 16, 4, 64, True, bf16),
         ("d32", 2, 300, 300, 4, 2, 32, True, bf16),
         ("f32_t1000", 2, 1000, 1000, 8, 2, 64, True, f32),
         ("f32_cross", 2, 64, 192, 4, 4, 32, False, f32),
@@ -1480,8 +1521,10 @@ def phase_flash(timer):
         ("f32_d96_t300", 2, 300, 300, 4, 2, 96, True, f32),
         ("f32_d48_draft", 4, 64, 64, 4, 2, 48, True, f32),
     ) + HEAD_DIM_FLASH_CASES + WIDE_FLASH_CASES
-    timed = ("prefill_b8", "prefill_b1", "mha_b1", "vit_b16") + HEAD_DIM_TIMED
+    timed = ("prefill_b8", "prefill_b1", "mha_b1", "vit_b16", "lm_served_d64",
+             "prefill_b1_t1024") + HEAD_DIM_TIMED
     timings, traced = {}, {}
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     for name, b, tq, tk, h, kv, d, causal, dtype in cases:
         dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
         q = torch.randn((b, tq, h, d), generator=g, device="cuda").to(dtype)
@@ -1533,11 +1576,14 @@ def phase_flash(timer):
             extra["bit_equal_rerun"] = bool(torch.equal(again[0], out) and torch.equal(again[1], lse))
             ok &= extra["bit_equal_rerun"]
             del again
-        if route.kind == "wgmma+tma" and d not in (64, 128):
-            # three consumers at D 56's B=8 prefill (launch_d64's four waves)
-            nc = 3 if name == "d56_gqa4_b8" else 2
+        plan = fa.wgmma_fwd_plan(b, tq, h, d, n_sm) if route.kind == "wgmma+tma" else None
+        if plan is not None and (d not in (64, 128) or plan.consumers == 1):
+            # the consumers a block by launch_d64's rule: three at the B=8
+            # prefill's four waves (D 56, the 198M LM's draft's D 32), one
+            # where blocks of two would fill less than one wave (the drafts,
+            # the LM's served prefills)
             traced[name] = (lambda q=q, k=k, v=v, causal=causal: fa.flash_attention_lse(
-                q, k, v, causal=causal), [f"flash_fwd_wgmma_kernel<{route.width}, {nc}>"])
+                q, k, v, causal=causal), [f"flash_fwd_wgmma_kernel<{route.width}, {plan.consumers}>"])
         elif dtype == f32:
             traced[name] = (lambda q=q, k=k, v=v, causal=causal: fa.flash_attention_lse(
                 q, k, v, causal=causal), [tf32_kernels("fwd", route)])
@@ -1549,15 +1595,24 @@ def phase_flash(timer):
         check(ok, f"flash kernel disagrees: {case}")
         if name in timed:
             scale = d ** -0.5
-            # the mma.sync kernel beside the wgmma route where D takes both
+            # the mma.sync kernel beside the wgmma route where D takes both,
+            # and where the wgmma route runs one consumer a block, the
+            # two-consumer form it replaces at that grid
             both = route.kind == "wgmma+tma"
+            one = both and plan.consumers == 1
             if both:
-                m_out, m_lse = fa._flash_cuda(q, k, v, causal, scale, mma_sync=True)
+                m_out, m_lse = fa._flash_cuda(q, k, v, causal, scale, route=fa.FWD_MMA_SYNC)
                 torch.cuda.synchronize()
                 m_err = float((m_out.float() - p_out.float()).abs().max())
                 m_err_lse = float((m_lse - p_lse).abs().max())
                 check(m_err <= tol_out and m_err_lse <= tol_lse,
                       f"{name}: mma.sync route disagrees ({m_err}, {m_err_lse})")
+            if one:
+                t_out, t_lse = fa._flash_cuda(q, k, v, causal, scale, route=2)
+                torch.cuda.synchronize()
+                two_err = float((t_out.float() - p_out.float()).abs().max())
+                check(two_err <= tol_out and float((t_lse - p_lse).abs().max()) <= tol_lse,
+                      f"{name}: the two-consumer wgmma form disagrees ({two_err})")
             qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
             def library():
@@ -1569,9 +1624,12 @@ def phase_flash(timer):
             runs = {"kernel": lambda: fa.flash_attention_lse(q, k, v, causal=causal),
                     "sdpa": library}
             if both:
-                runs["mma_sync"] = lambda: fa._flash_cuda(q, k, v, causal, scale, mma_sync=True)
-            # in turns on one card: new, mma.sync, SDPA, plain, SDPA, mma.sync, new
-            order = [key for key in ("kernel", "mma_sync", "sdpa") if key in runs]
+                runs["mma_sync"] = lambda: fa._flash_cuda(q, k, v, causal, scale, route=fa.FWD_MMA_SYNC)
+            if one:
+                runs["two_consumers"] = lambda: fa._flash_cuda(q, k, v, causal, scale, route=2)
+            # in turns on one card: new, (two consumers,) mma.sync, SDPA,
+            # plain, SDPA, mma.sync, (two consumers,) new
+            order = [key for key in ("kernel", "two_consumers", "mma_sync", "sdpa") if key in runs]
             turns = {key: [] for key in runs}
             for key in order:
                 turns[key].append(timer.ms(runs[key], iters=20))
@@ -1597,12 +1655,21 @@ def phase_flash(timer):
             timings[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound,
                                  bound_by="operations" if t_ops >= t_bytes else "bytes",
                                  max_abs_err=err_out, mma_sync_ms=m_ms, library_backend=backend)
+            if plan is not None:
+                timings[name]["consumers"] = plan.consumers
+            if one:
+                timings[name]["two_consumers_ms"] = statistics.mean(turns["two_consumers"])
             if t_ops_fma is not None:
                 timings[name]["fma_bound_ms"] = max(t_ops_fma, t_bytes)
             if both:
-                extra = dict(speedup_vs_mma_sync=m_ms / k_ms, mma_sync_max_abs_err_out=m_err,
+                extra.update(speedup_vs_mma_sync=m_ms / k_ms, mma_sync_max_abs_err_out=m_err,
                              mma_sync_tflop_s=ops / (m_ms * 1e-3) / 1e12,
-                             mma_sync_share_of_bound=bound / m_ms)
+                             mma_sync_share_of_bound=bound / m_ms, consumers=plan.consumers,
+                             blocks=plan.blocks)
+            if one:
+                two_ms = timings[name]["two_consumers_ms"]
+                extra.update(two_consumers_ms=two_ms, speedup_vs_two_consumers=two_ms / k_ms,
+                             two_consumers_max_abs_err_out=two_err)
             emit(phase="flash_time", case=name, route=route.kind, width=route.width, ms=k_ms,
                  mma_sync_ms=m_ms, plain_ms=p_ms, sdpa_ms=l_ms, sdpa_backend=backend, turns_ms=turns,
                  vs_sdpa=k_ms / l_ms, sdpa_vs_plain_max_abs=lib_diff, ops=ops,
@@ -1868,7 +1935,8 @@ def wall_ms(fn, reps=5, warmup=1):
 
 def greedy_with_margins(gen, params, cfg, prompt, n):
     """Greedy tokens through prefill and batched_decode_step, with the
-    top-1 minus top-2 logit margin of every step."""
+    top-1 minus top-2 logit margin of every step ([step][row]), read back
+    once at the end so that the host enqueues the steps ahead of the card."""
     import torch
 
     b, tp = prompt.shape
@@ -1876,12 +1944,12 @@ def greedy_with_margins(gen, params, cfg, prompt, n):
     toks, margins = [], []
     for i in range(n):
         top2 = logits.topk(2, dim=-1).values
-        margins.append((top2[:, 0] - top2[:, 1]).tolist())
+        margins.append(top2[:, 0] - top2[:, 1])
         toks.append(logits.argmax(-1).to(torch.int32))
         if i < n - 1:
             pos = torch.full((b,), tp + i, dtype=torch.int32, device=prompt.device)
             logits, cache = gen.batched_decode_step(params, cfg, cache, toks[-1], pos)
-    return torch.stack(toks, 1), margins
+    return torch.stack(toks, 1), torch.stack(margins).tolist()
 
 
 def phase_lm(timer):
@@ -2108,7 +2176,8 @@ def phase_flash_bwd(timer):
     ) + HEAD_DIM_FLASH_CASES + WIDE_FLASH_CASES
     deterministic = ("train", "gqa4", "vit_b16", "phi2_d80", "phi3mini_d96", "gemma2b_d256",
                      "d200_cross", "d56_gqa4_b8", "d256_mha", "d256_gqa4_b2", "widelm_train_d512",
-                     "widelm_d512", "mla_d576", "d1024", "odd_d257")
+                     "widelm_d512", "mla_d576", "d1024", "odd_d257", "draft_d48", "draft_d40",
+                     "jax_d8", "lm198m_draft_d32")
     names = ("dq", "dk", "dv")
 
     def held(got, want, dtype):
@@ -2634,7 +2703,7 @@ TIE_MARGIN = 0.1
 
 def mixed_requests(vocab):
     rng = np.random.RandomState(3)
-    return [(rng.randint(0, vocab, 12).astype(np.int32), int(b))
+    return [(rng.randint(0, vocab, LMS_PROMPT).astype(np.int32), int(b))
             for b in rng.choice([32, 64, 128, 256, 512], size=32)]
 
 
@@ -2813,6 +2882,7 @@ def phase_lm_server(timer):
     from dml_tpu_torch.inference.quantize import quantize_lm_params
     from dml_tpu_torch.models.lm_params import init_lm_params
     from dml_tpu_torch.models.params_io import variables_to_bytes
+    from dml_tpu_torch.ops import flash_attention as fa
 
     t_phase = time.monotonic()
     cfg = gen.LMConfig(**LMS_CFG, dtype=torch.bfloat16)
@@ -2964,6 +3034,46 @@ def phase_lm_server(timer):
         del dparams
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    # ---- check 6, bf16: the same 2-layer draft in bf16 (d 512 over 16
+    # heads on 4 kv heads: D 32) proposes for the bf16 server; its prefills'
+    # K2 run the wgmma route at width 64, as the target's D 64 does
+    bdraft_spec = draft_lm_spec(dict(LMS_CFG, dtype="bfloat16", seed=0), n_layers=2)
+    bdparams, bdcfg = lm_spec_parts(bdraft_spec, device="cuda")
+    draft_route = fa.kernel_route(torch.bfloat16, bdcfg.head_dim)
+    check(bdcfg.head_dim == 32 and draft_route == ("wgmma+tma", 64),
+          f"the bf16 draft: D {bdcfg.head_dim} on {draft_route}, want 32 on ('wgmma+tma', 64)")
+    spec_reqs = [(p, 64) for p, _ in reqs[:LMS_SLOTS]]
+    bsrv = LMServer(params, cfg, max_slots=LMS_SLOTS, max_len=LMS_MAX_LEN, chunk=LMS_CHUNK)
+    bsrv.enable_spec_decode(4, draft_params=bdparams, draft_cfg=bdcfg)
+    reset_launch_counts()
+    btoks, d, bst = serve_stream(bsrv, spec_reqs)
+    sp = bsrv.spec_stats()
+    bwant = check_server_launches("spec_bf16_draft", launch_counts(), d, nl, LMS_CHUNK,
+                                  spec=dict(sp, draft_layers=bdcfg.n_layers))
+    broutes, bdims = route_counts(), head_dim_counts()
+    # K2 as launched, by head dim: the target's D 64 a layer and the
+    # draft's D 32 a draft layer, each placement prefill
+    draft_k2 = bdims.get("fwd 32", 0)
+    check(sp["enabled"] and sp["rounds"] > 0 and broutes == {"fwd wgmma+tma 64 1": bwant["flash_attention"]}
+          and bdims == {"fwd 32": bdcfg.n_layers * d["prefill"], "fwd 64": nl * d["prefill"]},
+          f"bf16 spec with the D-32 draft: {sp}, K2 by route {broutes}, by head dim {bdims}")
+    bties, bcompared = 0, []
+    for (p, n), got in zip(spec_reqs, btoks):
+        want, margins = lone_greedy(gen, params, cfg, p, n)
+        held, upto, tie, _ = tie_compare(got, want, margins)
+        check(held, f"bf16 spec tokens differ from the lone run at {upto} with no near-tie before it")
+        bties += tie is not None
+        bcompared.append(upto)
+    out["spec_bf16"] = dict(sp, draft_spec={k: bdraft_spec[k] for k in ("d_model", "n_heads", "n_kv_heads",
+                                                                         "n_layers", "d_ff")},
+                            draft_head_dim=bdcfg.head_dim, draft_route=list(draft_route),
+                            draft_k2_launches=draft_k2, launches=bwant, routes=broutes, head_dims=bdims,
+                            near_ties=bties, tokens_compared=bcompared, wall_s=bst["wall_s"],
+                            tokens_per_s=bst["tokens_per_s"],
+                            steps=bst["steps"])
+    SHARED["lm_server_bf16_draft_k2"] = draft_k2
+    del bsrv, bdparams
 
     # ---- check 7: the KV prefix cache, warm second turns against cold
     turn1 = [(rng.randint(0, cfg.vocab_size, 500).astype(np.int32), 32) for _ in range(LMS_SLOTS)]
@@ -6688,9 +6798,9 @@ def phase_head_dims():
             del params32
     check(all(t == want for t, (want, _) in zip(f32, lone)),
           "head_dims: float32 served tokens != each request's lone float32 greedy run")
-    # the target's D 96 on the wgmma kernels and the draft's D 48 on mma.sync
+    # the target's D 96 on the wgmma kernels at width 128, the draft's D 48 at 64
     routes = out["serve_bf16"]["routes"]
-    check(set(routes) == {"fwd wgmma+tma 128 1", "fwd mma.sync 48 1"},
+    check(set(routes) == {"fwd wgmma+tma 128 1", "fwd wgmma+tma 64 1"},
           f"head_dims: bf16 serving with speculation launched {routes}")
     out["f32_exact_vs_lone"] = HD_PROMPTS
     # bf16 against the float32 backend's tokens, up to a near-tie of its logits
@@ -7148,7 +7258,8 @@ def main() -> int:
                         f"of the qkv output")):
         t = dict(flash[case])
         kernels.append(dict(
-            name=f"flash_fwd[{shape}; wgmma+TMA]", route="cuda", variant="wgmma+tma",
+            name=f"flash_fwd[{shape}; wgmma+TMA, {t['consumers']} consumers a block; launches: every "
+                 f"D-64 forward, whatever consumers its grid gives]", route="cuda", variant="wgmma+tma",
             source="dml_tpu_torch/csrc/flash_attention.cu",
             replaces="dml_tpu/ops/flash_attention.py:65",
             launches=sum(by_path["flash_attention"].values()),
@@ -7208,15 +7319,29 @@ def main() -> int:
             ("phi3mini_d96", "wgmma+tma 128",
              "Phi-3-mini prefill b1 T2048 H32 D96 bf16 causal; wgmma+TMA at width 128, mma_sync_ms "
              "the mma.sync kernel at 96; launches: ShardLM's D 96, served in bf16 and trained"),
-            ("draft_d48", "mma.sync 48",
-             "ShardLM's draft prefill b4 T300 H4 KV2 D48 bf16 causal; mma.sync at width 48; "
-             "launches: the draft's D 48, served in bf16 with speculation")):
+            ("draft_d48", "wgmma+tma 64",
+             "ShardLM's draft prefill b4 T300 H4 KV2 D48 bf16 causal; wgmma+TMA at width 64, one "
+             "consumer a block (two_consumers_ms the two-consumer form), mma_sync_ms the mma.sync "
+             "kernel at 48; launches: the draft's D 48, served in bf16 with speculation")):
         t = dict(flash[case])
         kernels.append(dict(
             name=f"flash_fwd[{shape}]", route="cuda", variant=route.split()[0],
             source="dml_tpu_torch/csrc/flash_attention.cu", replaces="dml_tpu/ops/flash_attention.py:65",
             **by_route(f"fwd {route} 1", head_dims_serve=served, head_dims_serve_plain=plain,
                        head_dims_train=trained), **t))
+    # the 198M LM's bf16 draft (D 32) at the shape phase 12's bf16
+    # speculation serves it, with the D-32 launches counted there (the
+    # target's D 64 shares the route, not the head dim)
+    n = SHARED["lm_server_bf16_draft_k2"]
+    t = dict(flash["lm198m_draft_served_d32"])
+    kernels.append(dict(
+        name=f"flash_fwd[the 198M LM's 2-layer draft prefill b{LM_BATCH} T{LMS_BUCKET} H16 KV4 D32 bf16 "
+             f"causal (the server's 16-token bucket); wgmma+TMA at width 64, {t['consumers']} consumer(s) "
+             f"a block (two_consumers_ms the two-consumer form); mma_sync_ms the mma.sync kernel at 32; "
+             f"launches: phase 12's bf16 speculation, counted at D 32]",
+        route="cuda", variant="wgmma+tma", source="dml_tpu_torch/csrc/flash_attention.cu",
+        replaces="dml_tpu/ops/flash_attention.py:65", launches=n,
+        launches_by_path={"lm_server_spec_bf16_draft": n}, **t))
     t = dict(flash["gemma2b_d256"])
     n = CHECK_LAUNCHES["fwd wgmma+tma 256 1"]
     kernels.append(dict(

@@ -26,7 +26,9 @@
 // 32, 48, 64, 80, 96, 128 and 256 (hopper.cuh::native_head_dim), the
 // widths of real geometries (48: a D-96 model's speculative draft; 80:
 // Phi-2; 96: Phi-3-mini and the cluster LM bench's ShardLM; 256:
-// Gemma-2B). A head dim d runs on the least D >= d of its route: tile
+// Gemma-2B); bf16 d 8-48 (the drafts: the 198M LM's 32, ShardLM's and
+// Phi-3-mini's 48, Phi-2's 40) runs the wgmma kernel at 64. A head dim d
+// runs on the least D >= d of its route: tile
 // columns at d and beyond are loaded as zeros (the caller's scale is of
 // the true d, and zero columns leave Q K^T and P V unchanged, so the
 // result is exact), and output columns past d are never written. Rows are
@@ -37,12 +39,15 @@
 //
 // Routes, picked from the dtype and d alone:
 //
-// - bf16, 48 < d <= 256, d % 8 == 0 (every main-path shape, and the public
-//   LMs' 80, 96 and 256): flash_fwd_wgmma_kernel at D 64, 128 or 256. One
+// - bf16, 8 <= d <= 256, d % 8 == 0 (every main-path shape, the public
+//   LMs' 80, 96 and 256, and the drafts' 8-48 at 64): flash_fwd_wgmma_kernel
+//   at D 64, 128 or 256. One
 //   block per (q-tile, head, batch) of a producer warpgroup and NC consumer
-//   warpgroups of 64 query rows each: NC = 3 (192-row q-tiles) at D 64 when
-//   that still gives four waves of blocks, else 2 (128-row q-tiles; always
-//   at D 128). One thread of warpgroup 0 is the producer: it loads the Q
+//   warpgroups of 64 query rows each: at D 64 NC = 3 (192-row q-tiles) when
+//   that still gives four waves of blocks, NC = 1 (64-row q-tiles, twice
+//   the blocks of NC = 2, two blocks an SM) where two-consumer blocks would
+//   fill less than one wave (the drafts' small prefills), else 2 (128-row
+//   q-tiles; always at D 128 and 256). One thread of warpgroup 0 is the producer: it loads the Q
 //   tile once and streams 128-row K and V tiles through a ring in shared
 //   memory (3 stages at D 64, 2 at D 128) with TMA (cp.async.bulk.tensor
 //   over 4-d tensor maps {D, heads, T, B} built from the tensors' strides,
@@ -64,19 +69,19 @@
 //   swizzled layout and stores it with one TMA store per 64 columns (rows
 //   past Tq are clipped); lse comes from one thread per row. setmaxnreg
 //   gives the consumers 232 registers and the producer 40 (160 and 32 with
-//   three consumers). D = 128 is two 64-column sub-tiles per tile (a
+//   three consumers, 216 and 40 with one). D = 128 is two 64-column sub-tiles per tile (a
 //   128-byte swizzle row holds 64 bf16): S steps its descriptors across
 //   them, P V issues one 64-column product per sub-tile. D = 256 is four,
 //   over k-tiles of 64 keys (S m64n64), so that Q (64 KB) and two stages
 //   of K and V (32 KB each) fit one block: there the first consumer skips
 //   the causal k-tile wholly past its rows.
-// - bf16, d <= 48 or d % 8 != 0: flash_fwd_mma_kernel<D>, the first Hopper
+// - bf16, d % 8 != 0: flash_fwd_mma_kernel<D>, the first Hopper
 //   version: one block of 4 warps per 64-row q-tile, synchronous tile
 //   loads, mma.sync m16n8k16 with S, P and O in registers, V transposed in
 //   shared memory. Q's fragments stay in registers up to D 128; at D 256
 //   the O accumulator takes 128 registers a thread, so they are read from
-//   the shared Q tile at each step instead. dml_flash_fwd_mma runs it at
-//   any d up to 256 so one card can time it beside the wgmma route.
+//   the shared Q tile at each step instead. dml_flash_fwd's route MMA_SYNC
+//   runs it at any d up to 256 so one card can time it beside the wgmma route.
 // - float32: flash_fwd_tf32_kernel<D>, the mma.sync kernel's plan with
 //   every product in split TF32 (hopper.cuh: three m16n8k8 TF32 products
 //   a float32 one, held to the JAX package's float32 bars): 64-row
@@ -622,7 +627,7 @@ int launch_wide(const Args& a, int B, int is_bf16, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------- bf16, D 49 to 256: wgmma + TMA
+// ------------------------------------- bf16, D 8 to 256: wgmma + TMA
 
 namespace wg {
 
@@ -634,19 +639,27 @@ using namespace hopper;
 // warpgroups of 64 query rows each (warpgroup 0 produces). NC = 3 puts
 // three consumer warps on each SM sub-partition, which hides more of the
 // softmax's latency than two, but makes 192-row q-tiles: fewer blocks, so
-// a short grid ends in a ragged wave. D = 128 and 256 take NC = 2 (their O
-// accumulators need the registers). Registers after setmaxnreg: 128 * P +
-// 128 * NC * C <= 65536.
+// a short grid ends in a ragged wave. NC = 1 (D 64 only) makes 64-row
+// q-tiles, twice NC = 2's blocks, for grids that fill less than one wave
+// of two-consumer blocks: there a consumer has the SM's exponential units
+// to itself. D = 128 and 256 take NC = 2 (their O accumulators need the
+// registers). Registers after setmaxnreg: 128 * P + 128 * NC * C <= the
+// block's at entry, 65536 (one block an SM) at NC 2 and 3; NC = 1 is
+// compiled for two blocks an SM (MIN_BLOCKS), 128 registers a thread at
+// entry, so 128 * P + 128 * C <= 32768, which leaves a consumer more than
+// NC = 3's 160 (its shared memory, 105 KB, also fits twice in an SM's 228).
 template <int D, int NC>
 struct Smem {
+  static_assert(NC == 2 || (D == 64 && (NC == 1 || NC == 3)), "NC 1 and 3 are D 64's forms");
   static constexpr int BQ = 64 * NC;  // query rows per block
   // key rows per k-tile: 128, but 64 at D 256, where K and V tiles of 128
   // rows (64 KB each a stage) beside Q's 64 KB would pass 227 KB at two
   // stages; S is then m64n64 (32 registers) and P 16 packed
   static constexpr int BK = D == 256 ? 64 : 128;
   static constexpr int THREADS = 128 * (NC + 1);
+  static constexpr int MIN_BLOCKS = NC == 1 ? 2 : 1;  // __launch_bounds__'s blocks an SM
   static constexpr int PRODUCER_REGS = NC == 3 ? 32 : 40;
-  static constexpr int CONSUMER_REGS = NC == 3 ? 160 : 232;
+  static constexpr int CONSUMER_REGS = NC == 3 ? 160 : NC == 1 ? 216 : 232;
   // K/V ring depth: 3 at D = 64 (96 KB of tiles), 2 at D = 128 (128 KB;
   // a third stage there fits but timed slower on the H100) and at 256
   static constexpr int STAGES = D == 64 ? 3 : 2;
@@ -667,6 +680,12 @@ struct Smem {
 static_assert(Smem<256, 2>::bytes <= SMEM_PER_BLOCK, "the D-256 forward block passes 227 KB");
 static_assert(Smem<128, 2>::bytes <= SMEM_PER_BLOCK && Smem<64, 3>::bytes <= SMEM_PER_BLOCK,
               "a forward block passes 227 KB");
+// NC = 1: Q 8 KB + K and V 3 x 16 KB each = 104 KB (107,600 bytes with the
+// barriers and the slack), twice in an SM's 228 KB with 1 KB reserved a block
+static_assert(2 * (Smem<64, 1>::bytes + 1024) <= 228 * 1024, "two one-consumer blocks pass an SM");
+static_assert(128 * (Smem<64, 1>::PRODUCER_REGS + Smem<64, 1>::CONSUMER_REGS) <=
+                  65536 / Smem<64, 1>::MIN_BLOCKS,
+              "the one-consumer split passes the registers a block holds at entry");
 
 struct Params {
   float* lse;
@@ -778,7 +797,7 @@ __device__ __forceinline__ void pack_p(uint32_t (*pa)[4], const float* s) {
 }
 
 template <int D, int NC>
-__global__ void __launch_bounds__(Smem<D, NC>::THREADS, 1)
+__global__ void __launch_bounds__(Smem<D, NC>::THREADS, Smem<D, NC>::MIN_BLOCKS)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
                            const __grid_constant__ CUtensorMap tm_v,
@@ -961,30 +980,55 @@ int launch(const Args& a, int B, cudaStream_t stream) {
   auto kernel = flash_fwd_wgmma_kernel<D, NC>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
   if (e != cudaSuccess) return (int)e;
+  if (L::MIN_BLOCKS > 1 &&  // the shared memory of two blocks an SM
+      (e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                (int)cudaSharedmemCarveoutMaxShared)) != cudaSuccess)
+    return (int)e;
   kernel<<<dim3(a.H, B, n_qt), L::THREADS, L::bytes, stream>>>(tq, tk, tv, to, p);
   return (int)cudaGetLastError();
 }
 
 // D = 64 takes three consumers when their 192-row q-tiles still give at
 // least four waves of blocks (the B = 8 prefill: 1408 blocks on 132 SMs,
-// 5% faster than two consumers), else two (B = 1: three would leave 176
-// blocks, 1.33 waves, and ran 10% slower).
-int launch_d64(const Args& a, int B, cudaStream_t stream) {
+// 5% faster than two consumers); one where two-consumer blocks would fill
+// less than one wave (a draft's prefill: ShardLM's [4, 300, 4] leaves 48
+// blocks of two, 80 of one), else two (B = 1: three would leave 176
+// blocks, 1.33 waves, and ran 10% slower). `nc` > 0 forces that form (to
+// time the forms side by side; ops/flash_attention.py::wgmma_fwd_plan
+// mirrors the rule).
+int launch_d64(const Args& a, int B, cudaStream_t stream, int nc) {
   const int sms = sm_count();
   if (sms == 0) return (int)cudaErrorInvalidDevice;
-  const long long blocks = (long long)((a.Tq + 191) / 192) * a.H * B;
-  return blocks >= 4ll * sms ? launch<64, 3>(a, B, stream) : launch<64, 2>(a, B, stream);
+  if (nc == 0) {
+    const long long three = (long long)((a.Tq + 191) / 192) * a.H * B;
+    const long long two = (long long)((a.Tq + 127) / 128) * a.H * B;
+    nc = three >= 4ll * sms ? 3 : two < sms ? 1 : 2;
+  }
+  switch (nc) {
+    case 1: return launch<64, 1>(a, B, stream);
+    case 2: return launch<64, 2>(a, B, stream);
+    case 3: return launch<64, 3>(a, B, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace wg
 
-int dispatch(const Args& a, int B, int is_bf16, bool wgmma, cudaStream_t s) {
-  if (is_bf16 && wgmma) {
+// route: AUTO (the rule above, the wrappers' only route), MMA_SYNC (the
+// mma.sync kernel at every bf16 d <= 256) or n > 0 (the width-64 wgmma
+// kernel with n consumer warpgroups whatever the grid): the last two let
+// one card time a route or a form beside the one the rule picks.
+constexpr int MMA_SYNC = -1, AUTO = 0;
+
+int dispatch(const Args& a, int B, int is_bf16, int route, cudaStream_t s) {
+  if (route < MMA_SYNC || (route > AUTO && (!is_bf16 || hopper::wgmma_head_dim(a.d) != 64)))
+    return (int)cudaErrorInvalidValue;
+  if (is_bf16 && route != MMA_SYNC) {
     switch (hopper::wgmma_head_dim(a.d)) {
-      case 64: return wg::launch_d64(a, B, s);
+      case 64: return wg::launch_d64(a, B, s, route);
       case 128: return wg::launch<128, 2>(a, B, s);
       case 256: return wg::launch<256, 2>(a, B, s);
-      default: break;  // d <= 48, d % 8 != 0 or past 256
+      default: break;  // d % 8 != 0 or past 256
     }
   }
   switch (hopper::native_head_dim(a.d)) {
@@ -1001,42 +1045,23 @@ int dispatch(const Args& a, int B, int is_bf16, bool wgmma, cudaStream_t s) {
   }
 }
 
-int flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int is_bf16, int B,
-              int H, int G, int Tq, int Tk, int D, long long qsb, long long qst, long long qsh,
-              long long ksb, long long kst, long long ksh, long long vsb, long long vst,
-              long long vsh, float scale, int causal, void* stream, bool wgmma) {
-  if (B <= 0 || Tq <= 0) return 0;
-  Args a{q, k, v, out, static_cast<float*>(lse), H, G, Tq, Tk, D,
-         qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, scale, causal};
-  return dispatch(a, B, is_bf16, wgmma, static_cast<cudaStream_t>(stream));
-}
-
 }  // namespace
 
-// The kernel for (dtype, D): wgmma + TMA for bf16 at 48 < D <= 256 with D
+// The kernel for (dtype, D): wgmma + TMA for bf16 at 8 <= D <= 256 with D
 // a multiple of 8, as the TMA store of out needs rows of whole 16-byte
 // units (at width 64, 128 or 256, the least >= D), mma.sync for bf16 at
 // every other D up to 256, split TF32 for float32, each at the native
-// width >= D up to 256 and on the chunked route past it
-// (cudaErrorInvalidValue at D < 1).
+// width >= D up to 256 and on the chunked route past it; `route` as
+// dispatch takes it, AUTO on the wrappers' path (cudaErrorInvalidValue at
+// D < 1, or a route the dtype and D do not take).
 extern "C" int dml_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                              int is_bf16, int B, int H, int G, int Tq, int Tk, int D,
                              long long qsb, long long qst, long long qsh,
                              long long ksb, long long kst, long long ksh,
                              long long vsb, long long vst, long long vsh,
-                             float scale, int causal, void* stream) {
-  return flash_fwd(q, k, v, out, lse, is_bf16, B, H, G, Tq, Tk, D, qsb, qst, qsh, ksb, kst, ksh, vsb,
-                   vst, vsh, scale, causal, stream, true);
-}
-
-// The same call on the mma.sync kernel at every bf16 D (float32 as above),
-// so one card can time the two routes side by side.
-extern "C" int dml_flash_fwd_mma(const void* q, const void* k, const void* v, void* out, void* lse,
-                                 int is_bf16, int B, int H, int G, int Tq, int Tk, int D,
-                                 long long qsb, long long qst, long long qsh,
-                                 long long ksb, long long kst, long long ksh,
-                                 long long vsb, long long vst, long long vsh,
-                                 float scale, int causal, void* stream) {
-  return flash_fwd(q, k, v, out, lse, is_bf16, B, H, G, Tq, Tk, D, qsb, qst, qsh, ksb, kst, ksh, vsb,
-                   vst, vsh, scale, causal, stream, false);
+                             float scale, int causal, void* stream, int route) {
+  if (B <= 0 || Tq <= 0) return 0;
+  Args a{q, k, v, out, static_cast<float*>(lse), H, G, Tq, Tk, D,
+         qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh, scale, causal};
+  return dispatch(a, B, is_bf16, route, static_cast<cudaStream_t>(stream));
 }

@@ -37,7 +37,10 @@
 // zeros and never written. With K, Q and dO zero there, S, dP and delta
 // are unchanged and dq, dk and dv are zero past d, so the result is
 // exact. A bf16 d % 8 != 0 stays off the wgmma route: its TMA stores of
-// dq, dk and dv (d wide) need rows of whole 16-byte units.
+// dq, dk and dv (d wide) need rows of whole 16-byte units. The drafts'
+// bf16 d 8-48 run the <64> pair: the maps' innermost extent is d, so a
+// box's columns past d arrive as zeros and every store (dq, dk, dv, each
+// a TMA store through a d-wide map) stops at d.
 //
 // flash_bwd_delta_kernel runs first: delta' (in f32, from out and dO
 // through their strides) and a copy of lse into row arrays [B, H, Tp], Tp
@@ -50,8 +53,8 @@
 //
 // Routes, picked from the dtype and d alone:
 //
-// - bf16, 48 < d <= 256, d % 8 == 0 (every main-path shape, and the
-//   public LMs' 80, 96 and 256): flash_bwd_dq_wgmma_kernel and
+// - bf16, 8 <= d <= 256, d % 8 == 0 (every main-path shape, the public
+//   LMs' 80, 96 and 256, and the drafts' 8-48 at 64): flash_bwd_dq_wgmma_kernel and
 //   flash_bwd_dkv_wgmma_kernel
 //   at D 64, 128 or 256. Each block is a producer warpgroup and
 //   two consumer warpgroups of 64 rows each; setmaxnreg gives the
@@ -91,7 +94,7 @@
 //   Masks are applied only on tiles that cross the diagonal (or Tk, in
 //   dq); a consumer skips the products of a causal tile wholly past (or
 //   before) its rows. An mbarrier wait that outlasts ~2 s traps.
-// - bf16, d <= 48 or d % 8 != 0: flash_bwd_dq_mma_kernel<D> and
+// - bf16, d % 8 != 0: flash_bwd_dq_mma_kernel<D> and
 //   flash_bwd_dkv_mma_kernel<D>, the first Hopper version: 64-row tiles,
 //   4-warp blocks, synchronous tile loads, mma.sync m16n8k16 with dS, P^T
 //   and dS^T in registers as A operands and the operands read along the
@@ -516,7 +519,7 @@ int launch(const Args& a, int B, int parts, cudaStream_t stream) {
   return err;
 }
 
-// ------------------------------------- bf16, D 49 to 256: wgmma + TMA
+// ------------------------------------- bf16, D 8 to 256: wgmma + TMA
 
 namespace wg {
 
@@ -1175,7 +1178,7 @@ int flash_bwd(const void* q, const void* k, const void* v, const void* dout, con
       case 64: return wg::launch<64>(a, B, parts, s);
       case 128: return wg::launch<128>(a, B, parts, s);
       case 256: return wg::launch<256>(a, B, parts, s);
-      default: break;  // D <= 48, D % 8 != 0 or past 256
+      default: break;  // D % 8 != 0 or past 256
     }
   }
   switch (hopper::native_head_dim(D)) {
@@ -1221,7 +1224,7 @@ extern "C" int dml_flash_bwd_rows(const void* out, const void* dout, const void*
 }
 
 // bf16 dq, dk and dv given the row arrays, on the kernels for D: wgmma +
-// TMA at 48 < D <= 256 with D a multiple of 8, as the TMA stores need rows
+// TMA at 8 <= D <= 256 with D a multiple of 8, as the TMA stores need rows
 // of whole 16-byte units (at width 64, 128 or 256), mma.sync at every
 // other D up to 256, at the native width >= D (cudaErrorInvalidValue at
 // D < 1; past 256, dml_flash_bwd_wide in flash_attention_bwd_wide.cu; for

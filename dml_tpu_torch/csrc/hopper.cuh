@@ -41,13 +41,15 @@ __host__ __device__ constexpr int native_head_dim(int d) {
 }
 
 // The width of the wgmma + TMA kernels (bf16) for a head dim d: the least
-// of 64, 128 and 256 at or above d for 48 < d <= 256 with d % 8 == 0, the
+// of 64, 128 and 256 at or above d for 8 <= d <= 256 with d % 8 == 0, the
 // tensor maps' innermost extent d (a box's columns past d arrive as zeros;
-// a store stops at d); 0 at other d, which take the mma.sync kernels (d <=
-// 48, and d % 8 != 0: a TMA row stride must be whole 16-byte units, and
-// out, dq, dk and dv are d wide) or the chunked route.
+// a store stops at d); 0 at other d, which take the mma.sync kernels (d %
+// 8 != 0: a TMA row stride must be whole 16-byte units, and out, dq, dk
+// and dv are d wide) or the chunked route. The drafts' d 8-48 run at 64:
+// there one exponential a score sets the pace whatever d is, so the zero
+// columns cost tensor-core instructions, not time.
 __host__ __device__ constexpr int wgmma_head_dim(int d) {
-  return d <= 48 || d > WIDEST_NATIVE || d % 8 ? 0 : d <= 64 ? 64 : d <= 128 ? 128 : 256;
+  return d < 8 || d > WIDEST_NATIVE || d % 8 ? 0 : d <= 64 ? 64 : d <= 128 ? 128 : 256;
 }
 
 // Columns c and c + 1 of a bf16 output row of d columns: the pair as one

@@ -11,16 +11,18 @@ with nvcc for sm_90a at first use and called through ctypes.
 
 Routes follow from the dtype and the head dim (`kernel_route`), by one
 rule for the forward and the backward up to 256:
-bf16 at 48 < D <= 256 with D a multiple of 8, every main-path shape (D
-64) and the public LMs' 80, 96 and 256 among them, runs warp-specialized
-kernels (a TMA producer streaming tiles through a shared-memory ring,
-consumer warpgroups on `wgmma`, P and dS kept in registers) at width 64,
-128 or 256 (`WGMMA_HEAD_DIMS`); every other bf16 D up to 256 runs
-`mma.sync` kernels (D <= 48, and a D % 8 != 0, since the wgmma kernels
-store their D-wide outputs by TMA, whose rows must be whole 16-byte
-units); float32 runs the same `mma.sync` plan in split TF32 ("tf32x3":
-x = hi + lo with hi = tf32(x), lo = tf32(x - hi), and a b as hi lo + lo
-hi + hi hi, three TF32 tensor-core products into a float32 sum, within
+bf16 at 8 <= D <= 256 with D a multiple of 8, every main-path shape (D
+64), the public LMs' 80, 96 and 256 and the speculative drafts' 8-48
+among them, runs warp-specialized kernels (a TMA producer streaming
+tiles through a shared-memory ring, consumer warpgroups on `wgmma`, P
+and dS kept in registers) at width 64, 128 or 256 (`WGMMA_HEAD_DIMS`;
+the forward's consumers a block follow the grid, `wgmma_fwd_plan`);
+every other bf16 D up to 256 (D % 8 != 0, since the wgmma kernels store
+their D-wide outputs by TMA, whose rows must be whole 16-byte units)
+runs `mma.sync` kernels; float32 runs the same `mma.sync` plan in split
+TF32 ("tf32x3": x = hi + lo with hi = tf32(x), lo = tf32(x - hi), and a
+b as hi lo + lo hi + hi hi, three TF32 tensor-core products into a
+float32 sum, within
 the JAX package's float32 bars, where one TF32 product alone is not; the
 long sums (dQ, dK and dV along the sequence, S past 256 columns) added
 step by step in float32, since the tensor cores' own sums truncate;
@@ -91,10 +93,15 @@ NEG_INF = -1e30
 #: them >= D
 NATIVE_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 128, 256)
 #: the widths of the bf16 wgmma + TMA kernels (csrc/hopper.cuh::
-#: wgmma_head_dim), which take every bf16 D past WGMMA_MIN_HEAD_DIM up to
-#: 256 that is a multiple of 8
+#: wgmma_head_dim), which take every bf16 D from WGMMA_MIN_HEAD_DIM up to
+#: 256 that is a multiple of 8 (the drafts' 8-48 at 64)
 WGMMA_HEAD_DIMS = (64, 128, 256)
-WGMMA_MIN_HEAD_DIM = 48
+WGMMA_MIN_HEAD_DIM = 8
+#: `_flash_cuda`'s `route` (dml_flash_fwd's last argument): AUTO the rule
+#: of `kernel_route` and `wgmma_fwd_plan` (the wrappers' only route),
+#: MMA_SYNC the mma.sync kernel at every bf16 D up to 256, n > 0 the
+#: width-64 wgmma kernel with n consumer warpgroups whatever the grid
+FWD_AUTO, FWD_MMA_SYNC = 0, -1
 #: past the widest native width, the chunked routes' output columns a
 #: block: the forward's (csrc/flash_attention.cu::CHUNK) and the float32
 #: backward's (csrc/flash_bwd_common.cuh::CHUNK)
@@ -123,6 +130,9 @@ flash_bwd_delta_launches = 0
 #: split being `dkv_split` (1 forward; "dq{n} dkv{m}", both kernels'
 #: clusters, on the bf16 backward past 256); cleared with the counts above
 route_launches: collections.Counter = collections.Counter()
+#: the same launches by (direction, head dim) -> count, which tells apart
+#: the models that share a route (a target and its draft)
+head_dim_launches: collections.Counter = collections.Counter()
 #: the backward's row arrays (lse, delta) are padded to a multiple of this
 ROW_PAD = 128
 _count_lock = threading.Lock()
@@ -133,14 +143,13 @@ def _library() -> ctypes.CDLL:
     from ._build import load_library
 
     lib = load_library("dml_flash_attention", ["flash_attention.cu"])
-    for fn in (lib.dml_flash_fwd, lib.dml_flash_fwd_mma):
-        fn.argtypes = (
-            [ctypes.c_void_p] * 5
-            + [ctypes.c_int] * 7
-            + [ctypes.c_longlong] * 9
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
+    lib.dml_flash_fwd.argtypes = (
+        [ctypes.c_void_p] * 5
+        + [ctypes.c_int] * 7
+        + [ctypes.c_longlong] * 9
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+    )
+    lib.dml_flash_fwd.restype = ctypes.c_int
     return lib
 
 
@@ -168,7 +177,7 @@ def native_head_dim(head_dim: int, backward: bool = False) -> int:
 def kernel_route(dtype: torch.dtype, head_dim: int, backward: bool = False) -> Route:
     """The kernels that `dml_flash_fwd` and `dml_flash_bwd` launch for
     (dtype, D), as the C entry points pick them, and the width they run
-    at: "wgmma+tma" for bf16 at 48 < D <= 256 with D % 8 == 0, at the
+    at: "wgmma+tma" for bf16 at 8 <= D <= 256 with D % 8 == 0, at the
     least of `WGMMA_HEAD_DIMS` >= D (64, 128 or 256); "mma.sync" for
     every other bf16 D up to 256 and "tf32x3" (split TF32) for float32,
     each at `native_head_dim(D)`, the same both ways (`dml_flash_bwd`
@@ -180,13 +189,42 @@ def kernel_route(dtype: torch.dtype, head_dim: int, backward: bool = False) -> R
     if dtype not in _DTYPES:
         raise ValueError(f"no flash attention kernel for {dtype} at head_dim {head_dim}")
     width = native_head_dim(head_dim, backward)
-    if (dtype == torch.bfloat16 and WGMMA_MIN_HEAD_DIM < head_dim <= WGMMA_HEAD_DIMS[-1]
+    if (dtype == torch.bfloat16 and WGMMA_MIN_HEAD_DIM <= head_dim <= WGMMA_HEAD_DIMS[-1]
             and head_dim % 8 == 0):
         return Route("wgmma+tma", next(w for w in WGMMA_HEAD_DIMS if w >= head_dim))
     if dtype == torch.bfloat16 and backward and head_dim > NATIVE_HEAD_DIMS[-1]:
         return Route("wgmma+tma chunked", WIDE_BWD_CHUNK)
     kind = "tf32x3" if dtype == torch.float32 else "mma.sync"
     return Route(kind + " chunked" if head_dim > NATIVE_HEAD_DIMS[-1] else kind, width)
+
+
+class WgmmaFwdPlan(NamedTuple):
+    """The launch of the bf16 wgmma + TMA forward, as `dml_flash_fwd`
+    makes it (csrc/flash_attention.cu, launch_d64 and dispatch)."""
+    width: int      # 64, 128 or 256
+    consumers: int  # consumer warpgroups a block, 64 query rows each
+    rows: int       # query rows a block: 64 x consumers
+    blocks: int     # the grid: H x B x ceil(Tq / rows)
+
+
+def wgmma_fwd_plan(b: int, tq: int, h: int, d: int, n_sm: int) -> WgmmaFwdPlan:
+    """The consumers a block of the bf16 wgmma forward gets for q [b, tq,
+    h, d] on a card of `n_sm` SMs (the C rule reads the device's count;
+    chip_smoke.py's traces hold the two to each other), and its grid. At
+    width 64: three (192-row
+    q-tiles) where their blocks still make four waves, one (64-row
+    q-tiles, twice the blocks of two) where two-consumer blocks would fill
+    less than one wave, else two; two at 128 and 256."""
+    route = kernel_route(torch.bfloat16, d)
+    if route.kind != "wgmma+tma":
+        raise ValueError(f"head_dim {d} is not on the bf16 wgmma route ({route.kind})")
+    nc = 2
+    if route.width == 64:
+        if -(-tq // 192) * h * b >= 4 * n_sm:
+            nc = 3
+        elif -(-tq // 128) * h * b < n_sm:
+            nc = 1
+    return WgmmaFwdPlan(route.width, nc, 64 * nc, -(-tq // (64 * nc)) * h * b)
 
 
 _BWD_ARGTYPES = (
@@ -477,11 +515,13 @@ def dkv_split(route: Route, group: int, plan: Optional[WideBwdPlan] = None):
 
 def _count(direction: str, dtype: torch.dtype, d: int, mma_sync: bool, group: int = 1,
            plan: Optional[WideBwdPlan] = None) -> None:
-    """Count one launch in `route_launches`, under the kernels it ran."""
+    """Count one launch in `route_launches`, under the kernels it ran, and
+    in `head_dim_launches`."""
     route = (Route("mma.sync", native_head_dim(d)) if mma_sync
              else kernel_route(dtype, d, direction == "bwd"))
     split = dkv_split(route, group, plan) if direction == "bwd" else 1
     route_launches[(direction, route.kind, route.width, split)] += 1
+    head_dim_launches[(direction, d)] += 1
 
 
 def _check_cuda(q, k, v):
@@ -490,10 +530,11 @@ def _check_cuda(q, k, v):
         raise ValueError("q, k and v must be on one device")
 
 
-def _flash_cuda(q, k, v, causal, scale, mma_sync=False):
-    """Launch K2 on the current stream; returns (out, lse). `mma_sync`
-    runs the mma.sync kernel whatever D is (to time it beside the
-    wgmma route); the wrappers never pass it. Counts one launch."""
+def _flash_cuda(q, k, v, causal, scale, route=FWD_AUTO):
+    """Launch K2 on the current stream; returns (out, lse). `route` other
+    than FWD_AUTO (FWD_MMA_SYNC, or n consumers at width 64) times a
+    route or a form beside the one the rule picks; the wrappers never
+    pass it. Counts one launch."""
     global flash_launches
     _check_cuda(q, k, v)
     b, tq, h, d = q.shape
@@ -504,21 +545,20 @@ def _flash_cuda(q, k, v, causal, scale, mma_sync=False):
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        fn = lib.dml_flash_fwd_mma if mma_sync else lib.dml_flash_fwd
-        err = fn(
+        err = lib.dml_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             int(q.dtype == torch.bfloat16), b, h, h // kv, tq, tk, d,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
-            float(scale), int(causal), stream,
+            float(scale), int(causal), stream, int(route),
         )
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed: error {err} "
                            "(a cudaError, or 10000 + the CUresult of a tensor map)")
     with _count_lock:
         flash_launches += 1
-        _count("fwd", q.dtype, d, mma_sync)
+        _count("fwd", q.dtype, d, route == FWD_MMA_SYNC)
     return out, lse
 
 

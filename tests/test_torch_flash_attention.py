@@ -161,14 +161,14 @@ def test_gqa4_strided_v_matches_jax():
     np.testing.assert_allclose(lse.numpy(), np.asarray(j_lse), atol=1e-4)
 
 
-# bf16 past D 48 up to 256 runs the wgmma + TMA kernels at the least of
-# 64, 128 and 256 >= D (Phi-2's 80, Phi-3-mini's 96, Gemma-2B's 256)
-# where D is a multiple of 8 (the TMA stores' rows are whole 16-byte
-# units); every other bf16 D mma.sync and float32 split TF32 ("tf32x3") at
-# the least native width >= D
+# bf16 from D 8 up to 256 runs the wgmma + TMA kernels at the least of
+# 64, 128 and 256 >= D (the drafts' 8-48 at 64, Phi-2's 80, Phi-3-mini's
+# 96, Gemma-2B's 256) where D is a multiple of 8 (the TMA stores' rows are
+# whole 16-byte units); every other bf16 D mma.sync and float32 split TF32
+# ("tf32x3") at the least native width >= D
 ROUTES = [
-    (torch.bfloat16, 16, ("mma.sync", 16)), (torch.bfloat16, 32, ("mma.sync", 32)),
-    (torch.bfloat16, 48, ("mma.sync", 48)), (torch.bfloat16, 56, ("wgmma+tma", 64)),
+    (torch.bfloat16, 16, ("wgmma+tma", 64)), (torch.bfloat16, 32, ("wgmma+tma", 64)),
+    (torch.bfloat16, 48, ("wgmma+tma", 64)), (torch.bfloat16, 56, ("wgmma+tma", 64)),
     (torch.bfloat16, 64, ("wgmma+tma", 64)), (torch.bfloat16, 80, ("wgmma+tma", 128)),
     (torch.bfloat16, 96, ("wgmma+tma", 128)), (torch.bfloat16, 128, ("wgmma+tma", 128)),
     (torch.bfloat16, 136, ("wgmma+tma", 256)), (torch.bfloat16, 200, ("wgmma+tma", 256)),
@@ -179,6 +179,8 @@ ROUTES = [
     (torch.float32, 64, ("tf32x3", 64)), (torch.float32, 80, ("tf32x3", 80)),
     (torch.float32, 128, ("tf32x3", 128)), (torch.float32, 256, ("tf32x3", 256)),
     (torch.float32, 40, ("tf32x3", 48)), (torch.float32, 100, ("tf32x3", 128)),
+    (torch.bfloat16, 8, ("wgmma+tma", 64)), (torch.bfloat16, 24, ("wgmma+tma", 64)),
+    (torch.bfloat16, 40, ("wgmma+tma", 64)), (torch.bfloat16, 20, ("mma.sync", 32)),
 ]
 
 
@@ -191,6 +193,38 @@ def test_kernel_route_by_dtype_and_head_dim(dtype, d, route):
 def test_bwd_kernel_route_by_dtype_and_head_dim(dtype, d, route):
     # dml_flash_bwd picks its kernels by the forward's rule: one table
     assert fa.kernel_route(dtype, d, backward=True) == route
+
+
+H100_SMS = 132  # an H100 SXM's SMs
+
+
+# the bf16 wgmma forward's consumers a block and its grid on an H100's 132
+# SMs (csrc/flash_attention.cu::launch_d64 picks the same): at width 64
+# three consumers (192-row q-tiles) where their blocks make four waves (the
+# B=8 prefill and its draft's), one (64-row q-tiles) where blocks of two
+# would fill less than one wave (the drafts' small prefills, the JAX
+# tests' D 8, the 198M LM's served prefills at D 64 and its draft's at
+# D 32), else two; two at 128 and 256 (ShardLM's D 96)
+@pytest.mark.parametrize("shape,plan", [
+    ((4, 300, 4, 48), (64, 1, 64, 80)), ((2, 128, 4, 8), (64, 1, 64, 16)),
+    ((8, 2048, 16, 64), (64, 3, 192, 1408)), ((8, 2048, 16, 32), (64, 3, 192, 1408)),
+    ((1, 2048, 16, 64), (64, 2, 128, 256)), ((2, 512, 32, 40), (64, 2, 128, 256)),
+    ((2, 300, 4, 32), (64, 1, 64, 40)), ((4, 300, 4, 96), (128, 2, 128, 48)),
+    ((8, 16, 16, 32), (64, 1, 64, 128)), ((8, 16, 16, 64), (64, 1, 64, 128)),
+    ((1, 1024, 16, 64), (64, 1, 64, 256)),
+], ids=["draft_d48", "jax_d8", "prefill_b8", "lm198m_draft_d32", "prefill_b1", "draft_d40", "d32",
+        "shardlm_d96", "lm198m_draft_served_d32", "lm_served_d64", "prefill_b1_t1024"])
+def test_wgmma_fwd_plan_by_grid(shape, plan):
+    b, tq, h, d = shape
+    got = fa.wgmma_fwd_plan(b, tq, h, d, H100_SMS)
+    assert got == plan and got.blocks == -(-tq // got.rows) * h * b
+    # one consumer exactly below one wave of two-consumer blocks
+    assert fa.wgmma_fwd_plan(1, 128 * 131, 1, 64, H100_SMS).consumers == 1
+    assert fa.wgmma_fwd_plan(1, 128 * 132, 1, 64, H100_SMS).consumers == 2
+    assert fa.wgmma_fwd_plan(b, tq, h, d, n_sm=1).consumers == (3 if got.width == 64 else 2)
+    for off_route in (20, 257):
+        with pytest.raises(ValueError, match="not on the bf16 wgmma route"):
+            fa.wgmma_fwd_plan(b, tq, h, off_route, H100_SMS)
 
 
 # past 256 the chunked routes, at each direction's column chunk: `kind`

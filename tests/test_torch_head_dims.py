@@ -10,7 +10,7 @@ wrappers run the plain versions, so these tests hold the port's
 arithmetic and its route tables; the kernels themselves are held to the
 same plain versions on the card (chip_smoke.py, phases 6, 7, 9 and 24).
 
-- K2 (flash forward) out and lse at D 8, 40, 48, 80, 96 and 256, float32
+- K2 (flash forward) out and lse at D 8, 32, 40, 48, 80, 96 and 256, float32
   and bfloat16, causal and full, GQA-2, against JAX's Pallas kernel in
   interpret mode on k/v repeated to full heads; K3's dq, dk and dv at the
   same D through `jax.grad` of its custom VJP (lse cotangent included).
@@ -43,13 +43,15 @@ import numpy as np
 import pytest
 import torch
 
+from dml_tpu import config as jconfig
 from dml_tpu.ops.decode_attention import decode_attention as jax_decode
 from dml_tpu.ops.flash_attention import flash_attention_lse as jax_flash_lse
+from dml_tpu_torch import config as tconfig
 from dml_tpu_torch.ops import decode_attention as da
 from dml_tpu_torch.ops import flash_attention as fa
 
 BLOCK = 64  # JAX kernel blocks (a full one at T 64; T 96 pads to two)
-FLASH_DIMS = (8, 40, 48, 80, 96, 256)
+FLASH_DIMS = (8, 32, 40, 48, 80, 96, 256)
 DECODE_DIMS = (8, 48, 80, 96, 256)
 GROUPS = (1, 4, 24, 48, 71)
 DTYPES = [pytest.param(torch.float32, id="f32"), pytest.param(torch.bfloat16, id="bf16")]
@@ -201,7 +203,7 @@ def test_routes_give_a_native_width_for_every_head_dim_and_raise_past_256(case):
         for d in range(1, 257):
             for dtype in (torch.float32, torch.bfloat16):
                 route = fa.kernel_route(dtype, d)
-                if dtype == torch.bfloat16 and d > 48 and d % 8 == 0:
+                if dtype == torch.bfloat16 and d % 8 == 0 and d <= 256:
                     # the wgmma + TMA kernels at 64, 128 or 256, the least >= d
                     assert route == ("wgmma+tma", min(w for w in fa.WGMMA_HEAD_DIMS if w >= d))
                 else:
@@ -238,3 +240,25 @@ def test_routes_give_a_native_width_for_every_head_dim_and_raise_past_256(case):
         assert fa._kernel_view(torch.randn((1, 3, 2, 48)).bfloat16()).shape[-1] == 48
         # and past 256 the same (bf16 D 257 to 264)
         assert fa._kernel_view(torch.randn((1, 3, 1, 257)).bfloat16()).shape[-1] == 264
+
+
+# the repo's 198M LM as the cluster LM bench specifies it (bench.py:2421-2425)
+LM198M = dict(name="BenchLM", vocab_size=32000, d_model=1024, n_heads=16, n_kv_heads=4, n_layers=12,
+              d_ff=4096, dtype="bfloat16", max_new_tokens=32, max_slots=8, max_len=256, seed=0)
+
+
+@pytest.mark.parametrize("n_layers", [None, 2], ids=["default", "2_layers"])
+def test_198m_lm_draft_has_head_dim_32_on_the_wgmma_route(n_layers):
+    # draft_lm_spec halves d_model and keeps the heads: the speculative
+    # draft of the target's D 64 has D 32, which runs the wgmma + TMA pair at
+    # width 64 both ways, as the target does
+    kw = {} if n_layers is None else {"n_layers": n_layers}
+    draft = tconfig.draft_lm_spec(LM198M, **kw)
+    assert draft == jconfig.draft_lm_spec(LM198M, **kw)
+    assert (draft["d_model"], draft["n_heads"], draft["n_kv_heads"]) == (512, 16, 4)
+    d = draft["d_model"] // draft["n_heads"]
+    assert d == 32 and draft["dtype"] == "bfloat16"
+    for backward in (False, True):
+        assert fa.kernel_route(torch.bfloat16, d, backward) == ("wgmma+tma", 64)
+        assert fa.kernel_route(torch.bfloat16, LM198M["d_model"] // LM198M["n_heads"], backward) == \
+            ("wgmma+tma", 64)

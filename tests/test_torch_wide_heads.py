@@ -230,7 +230,7 @@ def test_every_head_dim_to_4096_has_a_route_whose_chunks_cover_it():
         for backward in (False, True):
             for dtype in (torch.float32, torch.bfloat16):
                 route = fa.kernel_route(dtype, d, backward)
-                if dtype == torch.bfloat16 and 48 < d <= 256 and d % 8 == 0:  # wgmma + TMA
+                if dtype == torch.bfloat16 and d <= 256 and d % 8 == 0:  # wgmma + TMA
                     assert route == ("wgmma+tma", min(w for w in fa.WGMMA_HEAD_DIMS if w >= d))
                 elif dtype == torch.bfloat16 and backward and d > 256:  # wgmma + TMA, chunked
                     assert route == ("wgmma+tma chunked", fa.WIDE_BWD_CHUNK)
