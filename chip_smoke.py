@@ -19,6 +19,7 @@
     python3 chip_smoke.py --head-dims     # phases 1-2, 6, 7, 9, 24 and 25 (every head dim and group)
     python3 chip_smoke.py --decode-ab DIR # the decode kernel of checkout DIR and of this one, in turns
     python3 chip_smoke.py --bwd-wide-ab DIR  # K3 past head dim 256 (bf16) of checkout DIR and of this one
+    python3 chip_smoke.py --fwd-wide-ab DIR  # K2 past head dim 256 (bf16) of checkout DIR and of this one
 
 Phases, each printing one JSON line (with `t_s`, the seconds since the
 script started); any failure exits non-zero:
@@ -106,9 +107,14 @@ script started); any failure exits non-zero:
    (`WIDE_FLASH_CASES`, the chunked route) phase 25's wide-head LM (D 512
    on 2 heads over 1, its B=8 prefill in both dtypes and its training
    shape in both, float32's with k/v repeated as trained), the absorbed form of multi-head latent attention (MQA at D 576,
-   16 heads), D 1024, an odd D 257 (the padded copy timed) and D 320
-   cross attention (checked only); each case names its route and native
-   width (the chunked route's column chunk), one launch a call;
+   16 heads), D 1024, an odd D 257 (the padded copy timed), D 320
+   cross attention and an odd D 300 over one kv head (both checked only);
+   each case names its route and native width (the chunked route's
+   column chunk), one launch a call; every bf16 case there runs
+   `flash_fwd_wgmma_wide_kernel<CS>` at the cluster that `wide_fwd_plan`
+   gives (traced), a second call bit-equal to the first, and its timed
+   cases also time SDPA on k and v repeated to H heads before the call
+   (torch picks MATH for grouped k and v past 256), backend named;
    tolerances float32 2e-5 (out and lse),
    bf16 out 2e-2 and lse 1e-4. At prefill_b8, prefill_b1, mha_b1, vit_b16
    and the LM's two D-64 grids under one wave (lm_served_d64, phase 12's
@@ -568,13 +574,15 @@ script started); any failure exits non-zero:
     512, cut to 2 of its 12 blocks (`WIDE_LM_SPEC`), seeded weights:
     served through `LMBackend.from_spec` on cuda in bf16 on a bf16 and an
     int8 cache and in float32 (TF32 off), 8 prompt files of 16-112
-    tokens, 32 tokens each: K2 (the chunked route) in every placement
-    prefill and K4 (`decode_wide_kernel`) in every decode step, by phase
+    tokens, 32 tokens each: K2 (the chunked route; in bf16 each launch on
+    the cluster that `wide_fwd_plan` gives its shape, read by instance
+    from `route_launches`) in every placement prefill and K4 (`decode_wide_kernel`) in every decode step, by phase
     12's formula from the server's counters; the float32 tokens equal
     each request's lone float32 greedy run, bf16 held to them up to a
     near-tie (TIE_MARGIN). Then `LongContextLM.train_step` at [1, 512]
     in bf16 and in float32, 3 steps each: losses finite and falling, each
-    step 2 K2, 2 K3 (the chunked pair; in bf16 the wgmma + TMA pair,
+    step 2 K2, 2 K3 (the chunked routes; in bf16 the wgmma + TMA kernels,
+    `flash_fwd_wgmma_wide_kernel<8>` and
     `flash_bwd_{dq,dkv}_wgmma_wide_kernel<8>`, read by instance from
     `route_launches`) and 2 delta launches. Under 60 s.
 
@@ -593,9 +601,9 @@ K2 and K3 at Gemma-2B's D 256 and K3's one-block dkv form at MHA D 256
 with phases 6 and 9's checked launches of each instance; K4 at Phi-3-mini's decode with
 phase 24's served launches, bf16 and int8 caches, and at Falcon-7B's (5
 head chunks) with phase 7's launches at G 48 and 71; the chunked routes
-past D 256, K2 in bf16 and float32, K3's pairs in bf16 and float32 and
-`decode_wide_kernel`, timed at phase 25's wide-head LM with its served
-and trained launches), and last `{"ok": true, "device": {...}}`.
+past D 256, K2 in bf16 (served and trained rows) and float32, K3's
+pairs in bf16 and float32 and `decode_wide_kernel`, timed at phase 25's
+wide-head LM with its served and trained launches), and last `{"ok": true, "device": {...}}`.
 
 `--decode-ab DIR` times the decode kernel of the checkout at DIR and of
 this one in turns on one card (DIR, this, this, DIR), one process a
@@ -604,10 +612,13 @@ this file's `DECODE_CASES`, three medians of 50 launches a case a turn.
 It prints one `decode_ab` line (each side's sorted medians and the
 ratio of their medians), then the card's name and power limit.
 `--bwd-wide-ab DIR` does the same for K3 past head dim 256 in bf16
-(`BWD_WIDE_AB_CASES`, phase 9's timed chunked bf16 cases on its inputs:
+(`WIDE_AB_CASES`, phase 9's timed chunked bf16 cases on its inputs:
 dq, dkv and K3 whole with the delta kernel, three medians of 20 launches
 each, every side's gradients first held to the plain version's bar) and
-prints one `bwd_wide_ab` line.
+prints one `bwd_wide_ab` line; `--fwd-wide-ab DIR` for K2 there (the
+wrapper's call, an odd D's padded copy included, three medians of 20
+launches, each side's out and lse first held to the plain version's
+bars), one `fwd_wide_ab` line.
 """
 
 from __future__ import annotations
@@ -697,7 +708,8 @@ def launch_counts():
 def route_counts():
     """The flash kernels' launches since the last reset by the kernels they
     ran (ops.flash_attention.route_launches), "direction kind width split"
-    -> count; `split` is the dkv kernel's blocks a kv head."""
+    -> count; `split` is the forward's cluster past 256 in bf16 ("cs{n}",
+    else 1) or the dkv kernel's blocks a kv head (`dkv_split`)."""
     from dml_tpu_torch.ops import flash_attention
 
     return {" ".join(map(str, k)): n for k, n in sorted(flash_attention.route_launches.items())}
@@ -1366,15 +1378,19 @@ HEAD_DIM_FLASH_CASES = (
     ("lm198m_draft_d32", LM_BATCH, PROMPT_LEN, PROMPT_LEN, 16, 4, 32, True, BF),
     ("lm198m_draft_served_d32", LM_BATCH, LMS_BUCKET, LMS_BUCKET, 16, 4, 32, True, BF),
 )
-# Past 256, the chunked route (fwd: 256 output columns a block; bwd: 128
-# gradient columns a block): phase 25's wide-head LM (the 198M LM's d_model
+# Past 256, the chunked routes (256 output columns a block; bwd: 256
+# gradient columns a bf16 block, 128 a float32 one; bf16 on wgmma + TMA, a
+# cluster splitting a block's k-tiles where the grid is small): phase 25's
+# wide-head LM (the 198M LM's d_model
 # 1024 over 2 query heads on 1 kv head: D 512) at a B=8 placement prefill
 # of 128 rows and at its training shape, in both dtypes (float32's with k
 # and v repeated to both heads, as the blocks train); the absorbed form
 # of multi-head latent attention (DeepSeek-V2-Lite: 16 query heads over one
 # latent row of 576 columns) as MQA at D 576; D 1024 (MHA); an odd D 257
 # (bf16 rows not whole 16-byte units: the wrapper's zero-padded copy, timed
-# alone beside the call) and D 320 cross attention (checked only).
+# alone beside the call), D 320 cross attention and an odd D 300 over one
+# kv head (a padded row under a single head's tensor map; both checked
+# only).
 WIDE_FLASH_CASES = (
     ("widelm_d512", 8, 128, 128, 2, 1, 512, True, BF),
     ("f32_widelm_d512", 8, 128, 128, 2, 1, 512, True, F32),
@@ -1384,12 +1400,13 @@ WIDE_FLASH_CASES = (
     ("d1024", 1, 1024, 1024, 4, 4, 1024, True, BF),
     ("odd_d257", 2, 300, 300, 4, 2, 257, True, BF),
     ("f32_d320_cross", 1, 100, 300, 4, 2, 320, False, F32),
+    ("odd_d300_mqa", 2, 65, 65, 4, 1, 300, True, BF),
 )
 #: launches of the checks in phases 6 and 9 by the kernels they ran
 #: (`route_counts`): the <256> wgmma instances' rows of the kernels line
 #: count these
 CHECK_LAUNCHES = collections.Counter()
-HEAD_DIM_CHECKED_ONLY = ("d200_cross", "d56_gqa4_b8", "d256_gqa4_b2", "f32_d320_cross")
+HEAD_DIM_CHECKED_ONLY = ("d200_cross", "d56_gqa4_b8", "d256_gqa4_b2", "f32_d320_cross", "odd_d300_mqa")
 HEAD_DIM_TIMED = tuple(c[0] for c in HEAD_DIM_FLASH_CASES + WIDE_FLASH_CASES
                        if c[0] not in HEAD_DIM_CHECKED_ONLY)
 #: the timed cases whose rows take the wrapper's zero-padded copy: the
@@ -1571,7 +1588,10 @@ def phase_flash(timer):
             extra["equal_to_clean_run"] = bool(torch.equal(clean[0], out) and torch.equal(clean[1], lse))
             ok &= extra["equal_to_clean_run"]
         route = fa.kernel_route(dtype, d)
-        if dtype == f32:  # split TF32 sums in a fixed order: a rerun is bit-equal
+        wide = fa.wide_fwd_plan(b, tq, tk, h, kv, d) if route.kind == "wgmma+tma chunked" else None
+        if dtype == f32 or wide is not None:
+            # split TF32 and the chunked wgmma kernel (its cluster's partials
+            # added in rank order) sum in a fixed order: a rerun is bit-equal
             again = fa.flash_attention_lse(q, k, v, causal=causal)
             extra["bit_equal_rerun"] = bool(torch.equal(again[0], out) and torch.equal(again[1], lse))
             ok &= extra["bit_equal_rerun"]
@@ -1587,6 +1607,10 @@ def phase_flash(timer):
         elif dtype == f32:
             traced[name] = (lambda q=q, k=k, v=v, causal=causal: fa.flash_attention_lse(
                 q, k, v, causal=causal), [tf32_kernels("fwd", route)])
+        elif wide is not None:  # the instance of the cluster its plan gives
+            traced[name] = (lambda q=q, k=k, v=v, causal=causal: fa.flash_attention_lse(
+                q, k, v, causal=causal), [f"flash_fwd_wgmma_wide_kernel<{wide.cluster}>"])
+            extra.update(cluster=wide.cluster, grid=list(wide.grid))
         case = dict(phase="flash_check", case=name, q=[b, tq, h, d], kv=[b, tk, kv, d],
                     causal=causal, dtype=dtype_name(dtype), route=route.kind, width=route.width,
                     launches=launches, max_abs_err_out=err_out, max_abs_err_lse=err_lse,
@@ -1623,13 +1647,21 @@ def phase_flash(timer):
             lib_diff = float((library().transpose(1, 2).float() - p_out.float()).abs().max())
             runs = {"kernel": lambda: fa.flash_attention_lse(q, k, v, causal=causal),
                     "sdpa": library}
+            if wide is not None and kv != h:
+                # past 256 torch picks MATH for grouped k and v: beside it, SDPA
+                # on k and v repeated to H heads before the timed call, on the
+                # backend it picks there
+                kx, vx = (x.repeat_interleave(h // kv, dim=1) for x in (kh, vh))
+                runs["sdpa_expanded"] = lambda: F.scaled_dot_product_attention(qh, kx, vx, is_causal=causal)
+                expanded_backend = sdpa_backend(qh, kx, vx, is_causal=causal)
             if both:
                 runs["mma_sync"] = lambda: fa._flash_cuda(q, k, v, causal, scale, route=fa.FWD_MMA_SYNC)
             if one:
                 runs["two_consumers"] = lambda: fa._flash_cuda(q, k, v, causal, scale, route=2)
             # in turns on one card: new, (two consumers,) mma.sync, SDPA,
-            # plain, SDPA, mma.sync, (two consumers,) new
-            order = [key for key in ("kernel", "two_consumers", "mma_sync", "sdpa") if key in runs]
+            # (SDPA on expanded k and v,) plain, then back in reverse
+            order = [key for key in ("kernel", "two_consumers", "mma_sync", "sdpa", "sdpa_expanded")
+                     if key in runs]
             turns = {key: [] for key in runs}
             for key in order:
                 turns[key].append(timer.ms(runs[key], iters=20))
@@ -1657,6 +1689,14 @@ def phase_flash(timer):
                                  max_abs_err=err_out, mma_sync_ms=m_ms, library_backend=backend)
             if plan is not None:
                 timings[name]["consumers"] = plan.consumers
+            if wide is not None:
+                timings[name]["cluster"] = wide.cluster
+                extra.update(cluster=wide.cluster, blocks=int(np.prod(wide.grid)))
+            if "sdpa_expanded" in runs:
+                x_ms = statistics.mean(turns["sdpa_expanded"])
+                timings[name].update(library_expanded_ms=x_ms, library_expanded_backend=expanded_backend)
+                extra.update(sdpa_expanded_ms=x_ms, sdpa_expanded_backend=expanded_backend,
+                             vs_sdpa_expanded=k_ms / x_ms)
             if one:
                 timings[name]["two_consumers_ms"] = statistics.mean(turns["two_consumers"])
             if t_ops_fma is not None:
@@ -6918,8 +6958,13 @@ def phase_wide_heads():
         for i, p in enumerate(prompts):
             paths.append(os.path.join(tmp, f"p{i}.tokens.txt"))
             write_prompt_file(paths[-1], p, max_new_tokens=budget)
-        bf16 = serve_counted("serve_bf16", spec, paths, out, paths_launches)
-        int8 = serve_counted("serve_bf16_int8_cache", dict(spec, kv_quant=True), paths, out, paths_launches)
+        # the bf16 forwards by cluster: each prefill's shape gives its plan
+        with fwd_shapes() as shapes:
+            bf16 = serve_counted("serve_bf16", spec, paths, out, paths_launches)
+        check_wide_fwd_routes("wide_heads serve_bf16", out["serve_bf16"]["routes"], shapes)
+        with fwd_shapes() as shapes:
+            int8 = serve_counted("serve_bf16_int8_cache", dict(spec, kv_quant=True), paths, out, paths_launches)
+        check_wide_fwd_routes("wide_heads serve_bf16_int8_cache", out["serve_bf16_int8_cache"]["routes"], shapes)
         with tf32_off():
             spec32 = dict(spec, dtype="float32")
             f32 = serve_counted("serve_f32", spec32, paths, out, paths_launches)
@@ -6950,14 +6995,17 @@ def phase_wide_heads():
                 "flash_bwd": n_layers * WIDE_TRAIN_STEPS,
                 "flash_bwd_delta": n_layers * WIDE_TRAIN_STEPS, "decode_attention": 0}
         check(counts == want, f"wide_heads {name}: launched {counts}, want {want}")
-        # K3 by the instances it ran: in bf16 only the chunked wgmma pair
-        # (the blocks send k and v at their kv heads), in float32 the
-        # split-TF32 chunked pair (k and v repeated)
+        # K2 and K3 by the instances they ran: in bf16 only the chunked
+        # wgmma kernels at the clusters of the shape's plans (the blocks
+        # send k and v at their kv heads), in float32 the split-TF32
+        # chunked kernels (k and v repeated)
         kv = spec["n_kv_heads"] if dtype == torch.bfloat16 else spec["n_heads"]
-        bwd = fa.kernel_route(dtype, 512, backward=True)
-        plan = fa.wide_bwd_plan(*WIDE_TRAIN_SHAPE, WIDE_TRAIN_SHAPE[1], spec["n_heads"], kv, 512)
+        fwd, bwd = fa.kernel_route(dtype, 512), fa.kernel_route(dtype, 512, backward=True)
+        shape = (*WIDE_TRAIN_SHAPE, WIDE_TRAIN_SHAPE[1], spec["n_heads"], kv, 512)
+        plan = fa.wide_bwd_plan(*shape)
+        fplan = fa.wide_fwd_plan(*shape) if dtype == torch.bfloat16 else None
         want_routes = {
-            "fwd {} {} 1".format(*fa.kernel_route(dtype, 512)): n_layers * WIDE_TRAIN_STEPS,
+            "fwd {} {} {}".format(*fwd, fa.fwd_split(fwd, fplan)): n_layers * WIDE_TRAIN_STEPS,
             "bwd {} {} {}".format(*bwd, fa.dkv_split(bwd, spec["n_heads"] // kv, plan)): n_layers * WIDE_TRAIN_STEPS}
         check(routes == want_routes, f"wide_heads {name}: launched {routes}, want {want_routes}")
         check(all(np.isfinite(x) for x in losses) and losses[-1] < losses[0],
@@ -6971,6 +7019,37 @@ def phase_wide_heads():
          train_tokens=list(WIDE_TRAIN_SHAPE), seconds=seconds, **out)
     check(seconds < WIDE_SECONDS, f"wide_heads took {seconds:.1f} s, over its {WIDE_SECONDS} s")
     return paths_launches
+
+
+@contextlib.contextmanager
+def fwd_shapes():
+    """The (b, tq, tk, h, kv, d) of every K2 launch inside the block, read
+    from the arguments of the wrapper's launch (ops.flash_attention.
+    _flash_cuda), which runs as it is."""
+    from dml_tpu_torch.ops import flash_attention as fa
+
+    shapes, launch = [], fa._flash_cuda
+
+    def recorded(q, k, v, *args, **kw):
+        shapes.append((*q.shape[:2], k.shape[1], q.shape[2], k.shape[2], q.shape[3]))
+        return launch(q, k, v, *args, **kw)
+
+    fa._flash_cuda = recorded
+    try:
+        yield shapes
+    finally:
+        fa._flash_cuda = launch
+
+
+def check_wide_fwd_routes(name, routes, shapes):
+    """A bf16 path past head dim 256 launched K2 only on the chunked wgmma
+    route, each launch on the cluster that `wide_fwd_plan` gives its shape."""
+    from dml_tpu_torch.ops import flash_attention as fa
+
+    want = collections.Counter("fwd wgmma+tma chunked {} cs{}".format(
+        fa.FWD_CHUNK, fa.wide_fwd_plan(*shape).cluster) for shape in shapes)
+    got = {k: v for k, v in routes.items() if k.startswith("fwd ")}
+    check(shapes and got == dict(want), f"{name}: K2 launched {got}, its shapes' plans want {dict(want)}")
 
 
 # ---------------------------------------------------------------------------
@@ -7041,13 +7120,53 @@ def decode_ab(parent, smi):
                              for c, v in cases.items()})
 
 
-#: phase 9's timed chunked bf16 cases (K3 past head dim 256)
-BWD_WIDE_AB_CASES = tuple(c[0] for c in WIDE_FLASH_CASES if c[-1] == BF and c[0] in HEAD_DIM_TIMED)
+#: phases 6 and 9's timed chunked bf16 cases (K2 and K3 past head dim 256)
+WIDE_AB_CASES = tuple(c[0] for c in WIDE_FLASH_CASES if c[-1] == BF and c[0] in HEAD_DIM_TIMED)
+
+
+def fwd_wide_ab_turn(tree):
+    """One turn: K2 of the checkout at `tree`, built from its sources, at
+    WIDE_AB_CASES (the wrapper's call, the padded copy of an odd D
+    included), each side's out and lse held to the plain version (out
+    2e-2, lse 1e-4) first; prints `TURN {case: [3 medians]}`."""
+    import torch
+    from dml_tpu_torch.ops import flash_attention as fa
+
+    where = os.path.abspath(fa.__file__)
+    check(where.startswith(os.path.join(os.path.abspath(tree), "")), f"imported {where}, not {tree}'s")
+    fa._library()
+    timer = Timer()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    res = {}
+    for name, b, tq, tk, h, kv, d, causal, _ in WIDE_FLASH_CASES:
+        if name not in WIDE_AB_CASES:
+            continue
+        q, k, v = (torch.randn(s, generator=g, device="cuda").bfloat16()
+                   for s in ((b, tq, h, d), (b, tk, kv, d), (b, tk, kv, d)))
+        out, lse = fa.flash_attention_lse(q, k, v, causal=causal)
+        p_out, p_lse = fa.attention_with_lse(q, k, v, causal=causal)
+        err, err_lse = float((out.float() - p_out.float()).abs().max()), float((lse - p_lse).abs().max())
+        check(err <= 2e-2 and err_lse <= 1e-4, f"{tree} {name}: out {err}, lse {err_lse} from the plain version")
+        res[name] = [timer.ms(lambda: fa.flash_attention_lse(q, k, v, causal=causal), iters=20)
+                     for _ in range(3)]
+        del q, k, v, out, lse, p_out, p_lse
+    print("TURN " + json.dumps(res), flush=True)
+
+
+def fwd_wide_ab(parent, smi):
+    """K2 past head dim 256 of the checkout at `parent` and of this one in
+    the turns parent, change, change, parent; one `fwd_wide_ab` line."""
+    runs = ab_turns(parent, "fwd_wide_ab_turn")
+    cases = {c: {side: sorted(x for run in v for x in run[c]) for side, v in runs.items()}
+             for c in WIDE_AB_CASES}
+    emit(phase="fwd_wide_ab", parent=os.path.abspath(parent), card=smi, cases=cases,
+         change_over_parent={c: statistics.median(v["change"]) / statistics.median(v["parent"])
+                             for c, v in cases.items()})
 
 
 def bwd_wide_ab_turn(tree):
     """One turn: K3 of the checkout at `tree`, built from its sources, at
-    BWD_WIDE_AB_CASES, each side's gradients held to the plain version
+    WIDE_AB_CASES, each side's gradients held to the plain version
     (1e-2 of the largest reference magnitude) first; prints `TURN {case:
     {"dq" | "dkv" | "k3": [3 medians]}}`."""
     import threading
@@ -7067,7 +7186,7 @@ def bwd_wide_ab_turn(tree):
     g = torch.Generator(device="cuda").manual_seed(4)
     res = {}
     for name, b, tq, tk, h, kv, d, causal, _ in WIDE_FLASH_CASES:
-        if name not in BWD_WIDE_AB_CASES:
+        if name not in WIDE_AB_CASES:
             continue
         q, k, v, dout = (torch.randn(s, generator=g, device="cuda").bfloat16()
                          for s in ((b, tq, h, d), (b, tk, kv, d), (b, tk, kv, d), (b, tq, h, d)))
@@ -7092,7 +7211,7 @@ def bwd_wide_ab(parent, smi):
     the turns parent, change, change, parent; one `bwd_wide_ab` line."""
     runs = ab_turns(parent, "bwd_wide_ab_turn")
     cases = {c: {part: {side: sorted(x for run in v for x in run[c][part]) for side, v in runs.items()}
-                 for part in ("dq", "dkv", "k3")} for c in BWD_WIDE_AB_CASES}
+                 for part in ("dq", "dkv", "k3")} for c in WIDE_AB_CASES}
     emit(phase="bwd_wide_ab", parent=os.path.abspath(parent), card=smi, cases=cases,
          change_over_parent={c: {p: statistics.median(v["change"]) / statistics.median(v["parent"])
                                  for p, v in parts.items()} for c, parts in cases.items()})
@@ -7118,6 +7237,10 @@ def main() -> int:
         return 0
     if "--bwd-wide-ab" in sys.argv[1:]:  # likewise, K3 past head dim 256
         bwd_wide_ab(sys.argv[sys.argv.index("--bwd-wide-ab") + 1], smi)
+        print(smi, flush=True)
+        return 0
+    if "--fwd-wide-ab" in sys.argv[1:]:  # likewise, K2 past head dim 256
+        fwd_wide_ab(sys.argv[sys.argv.index("--fwd-wide-ab") + 1], smi)
         print(smi, flush=True)
         return 0
 
@@ -7402,15 +7525,23 @@ def main() -> int:
     # (D 512) and launched by it
     w = {k: wide_launches[k] for k in ("serve_bf16", "serve_bf16_int8_cache", "serve_f32",
                                        "train_bfloat16", "train_float32")}
-    for case, dt, keys, variant in (
-            ("widelm_d512", "bf16", ("serve_bf16", "serve_bf16_int8_cache", "train_bfloat16"),
-             "mma.sync chunked"),
-            ("f32_widelm_d512", "float32", ("serve_f32", "train_float32"), "tf32x3 chunked")):
+    # bf16 on wgmma + TMA: the served prefill's row and the trained shape's
+    # (a cluster of 8), each with the launches of its own paths; SDPA also
+    # on k and v expanded to the 2 heads (library_expanded_*)
+    for case, dt, keys, variant, shape, paths in (
+            ("widelm_d512", "bf16", ("serve_bf16", "serve_bf16_int8_cache"), "wgmma+tma chunked",
+             "prefill b8 T128", "served on bf16 and int8 caches"),
+            ("widelm_train_d512", "bf16", ("train_bfloat16",), "wgmma+tma chunked", "train b1 T512",
+             "trained in bf16"),
+            ("f32_widelm_d512", "float32", ("serve_f32", "train_float32"), "tf32x3 chunked",
+             "prefill b8 T128", "served and trained in float32")):
         t = dict(flash[case])
         by = {f"wide_heads_{k}": w[k]["flash_attention"] for k in keys}
+        form = (f"flash_fwd_wgmma_wide_kernel<{t['cluster']}>, a cluster of {t['cluster']} splitting a "
+                f"block's k-tiles" if "cluster" in t else "64-column slices")
         kernels.append(dict(
-            name=f"flash_fwd[wide-head LM prefill b8 T128 H2 KV1 D512 {dt} causal; {variant}, "
-                 f"256 output columns a block; launches: phase 25 served and trained]",
+            name=f"flash_fwd[wide-head LM {shape} H2 KV1 D512 {dt} causal; {variant}, {form}, "
+                 f"256 output columns a block; launches: phase 25 {paths}]",
             route="cuda", variant=variant, source="dml_tpu_torch/csrc/flash_attention.cu",
             replaces="dml_tpu/ops/flash_attention.py:65", launches=sum(by.values()),
             launches_by_path=by, **t))

@@ -98,8 +98,12 @@
 //   slots with the mma.sync. There: ShardLM's [4,300,4,96] 0.03873 ms,
 //   4.3% of that bound, 0.38x SDPA; 0.2220 ms on the FMA kernel this
 //   replaced (PERF.md §6).
-// - d > 256, either dtype: the chunked route, flash_fwd_mma_wide_kernel
-//   (bf16) and flash_fwd_tf32_wide_kernel, d at run time ("D > 256" below).
+// - d > 256: the chunked routes, d at run time: a grid axis over 256-column
+//   chunks of the output, each block reducing S over all of d. bf16 on
+//   wg::flash_fwd_wgmma_wide_kernel<CS> (wgmma + TMA, Q and K streamed in
+//   64-column sub-tiles, a thread-block cluster of CS blocks splitting a
+//   block's k-tiles where the grid is small; "bf16, D > 256" below), float32
+//   on flash_fwd_tf32_wide_kernel ("f32, D > 256").
 //
 // Bound: tensor-core operations at the prefill shape. 4 * B * H * Tq *
 // Tk * D operations (halved for causal) against 2 * (q + k + v + out)
@@ -121,8 +125,8 @@
 // refused launch raises in the wrapper. That function is looked up at run
 // time (cudaGetDriverEntryPoint), so the library links no libcuda.
 // The Hopper building blocks (mbarriers, TMA, wgmma descriptors and forms,
-// tensor maps, the head dims) live in hopper.cuh, shared with
-// flash_attention_bwd.cu.
+// tensor maps, clusters, the head dims) live in hopper.cuh, shared with
+// the backward's sources.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -475,90 +479,23 @@ int launch(const Args& a, int B, int is_bf16, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------------- D > 256: column chunks
+// ------------------------------------------------ f32, D > 256: column chunks
 //
 // Past the widest native width no block holds a whole row of D: the O
 // accumulator alone would be D / 2 float32 registers a thread (mma.sync)
 // and a 64-row f32 tile at D 1024 is 256 KB. A grid axis splits the
 // output's columns into chunks of CHUNK = 256 (the last cut at d); the
 // block of chunk j reduces S = Q K^T over the whole of d in column slices
-// of Q and K staged through shared memory (SLICE columns at a time, so
-// shared memory is bounded at every d), runs the online softmax on it and
-// P V over its own chunk of V's columns only. Every chunk of a q-tile
-// computes S, m and l with the same arithmetic in the same order, so they
-// agree bit for bit; the first chunk writes the lse. The cost is S
-// computed once per chunk.
+// of Q and K staged through shared memory (so shared memory is bounded at
+// every d), runs the online softmax on it and P V over its own chunk of
+// V's columns only. Every chunk of a q-tile computes S, m and l with the
+// same arithmetic in the same order, so they agree bit for bit; the first
+// chunk writes the lse. The cost is S computed once per chunk. bf16 takes
+// the same plan on wgmma + TMA (wg::flash_fwd_wgmma_wide_kernel below).
 
-constexpr int CHUNK = 256;      // output columns a block of the chunked route owns
-constexpr int SLICE = 128;      // columns of Q and K staged at a time (bf16)
+constexpr int CHUNK = 256;      // output columns a block of the chunked routes owns
 
-struct MmaWideLayout {
-  static constexpr int LDS = SLICE + 8;  // Q and K slices, row-major
-  static constexpr int LDV = BK + 8;     // the block's CHUNK columns of the V tile transposed
-  static constexpr size_t bytes = sizeof(__nv_bfloat16) * (size_t)(BQ * LDS + BK * LDS + CHUNK * LDV);
-};
-static_assert(MmaWideLayout::bytes <= hopper::SMEM_PER_BLOCK, "one block of the chunked route at every d");
-
-__global__ void __launch_bounds__(THREADS) flash_fwd_mma_wide_kernel(Args a) {
-  using L = MmaWideLayout;
-  using bf16 = __nv_bfloat16;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + BQ * L::LDS;
-  bf16* Vt = Ks + BK * L::LDS;
-
-  const int n_cc = (a.d + CHUNK - 1) / CHUNK;
-  const int qt = blockIdx.x / n_cc, c0 = (blockIdx.x % n_cc) * CHUNK;  // output columns [c0, c0 + CHUNK)
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / a.G;
-  const int q0 = qt * BQ;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const bf16* qp = static_cast<const bf16*>(a.q) + b * a.qsb + h * a.qsh;
-  const bf16* kp = static_cast<const bf16*>(a.k) + b * a.ksb + kvh * a.ksh;
-  const bf16* vp = static_cast<const bf16*>(a.v) + b * a.vsb + kvh * a.vsh;
-
-  float o[CHUNK / 8][4];
-#pragma unroll
-  for (int j = 0; j < CHUNK / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  const int row[2] = {q0 + 16 * warp + g, q0 + 16 * warp + g + 8};
-
-  int n_tiles = (a.Tk + BK - 1) / BK;
-  if (a.causal) n_tiles = min(n_tiles, (q0 + BQ - 1) / BK + 1);  // skip tiles above the diagonal
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BK;
-    // S = Q K^T for this warp's 16 rows x 64 keys, over d in slices
-    float s[BK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    for (int c = 0; c < a.d; c += SLICE) {
-      __syncthreads();  // every warp is done with the previous slices (and P V with V^T)
-      load_tile<bf16, SLICE, BQ>(Qs, L::LDS, qp + c, a.qst, q0, a.Tq, a.d - c);
-      load_tile<bf16, SLICE, BK>(Ks, L::LDS, kp + c, a.kst, k0, a.Tk, a.d - c);
-      __syncthreads();
-      const bf16* qrows = Qs + 16 * warp * L::LDS;
-#pragma unroll
-      for (int kk = 0; kk < SLICE / 16; ++kk) {
-        uint32_t qa[4];
-        a_frag(qa, qrows, L::LDS, kk, g, t);
-#pragma unroll
-        for (int nt = 0; nt < BK / 8; ++nt) {
-          const bf16* kr = Ks + (8 * nt + g) * L::LDS + 16 * kk + 2 * t;
-          mma16816(s[nt], qa, ld32(kr), ld32(kr + 8));
-        }
-      }
-    }
-    load_vt<CHUNK, L::LDV>(Vt, vp + c0, a.vst, k0, a.Tk, a.d - c0);  // this block's chunk of V
-    __syncthreads();
-    online_softmax<CHUNK>(s, o, m, l, row, k0, t, a);
-    pv_product<CHUNK, L::LDV>(o, s, Vt, g, t);
-  }
-  store_rows<CHUNK>(o, m, l, row, c0, b, h, t, a);
-}
-
-// Float32, d > 256: the bf16 kernel's plan in split TF32 (hopper.cuh):
+// Float32, d > 256: split TF32 (hopper.cuh):
 // S over d in slices of TF32_SLICE columns of Q and K, each slice's S
 // added in float32 (hopper.cuh::slice_product: chained over all of d, out
 // and lse at d 1000 came within 10% of the 2e-5 bar), two stages, the
@@ -615,10 +552,10 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_tf32_wide_kernel(Args a)
   store_rows<CHUNK, float>(o, m, l, row, c0, b, h, t, a);
 }
 
-// The chunked route: one launch, ceil(d / CHUNK) blocks a q-tile.
-int launch_wide(const Args& a, int B, int is_bf16, cudaStream_t stream) {
-  auto kernel = is_bf16 ? flash_fwd_mma_wide_kernel : flash_fwd_tf32_wide_kernel;
-  const size_t bytes = is_bf16 ? MmaWideLayout::bytes : Tf32WideLayout::bytes;
+// The float32 chunked route: one launch, ceil(d / CHUNK) blocks a q-tile.
+int launch_wide(const Args& a, int B, cudaStream_t stream) {
+  auto kernel = flash_fwd_tf32_wide_kernel;
+  const size_t bytes = Tf32WideLayout::bytes;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
@@ -714,14 +651,17 @@ __device__ __forceinline__ void issue_qk(float* s, uint32_t q_addr, uint32_t k_a
 }
 
 // O += P V for one k-tile: V MN-major as TMA left it, 16 keys (2048 B)
-// a step, one m64n64 product per 64-column sub-tile; one commit group.
+// a step, one m64n64 product per 64-column sub-tile, the first `subs` of
+// them (a chunk past d holds fewer); one commit group.
 template <int SUBS, int BK>
-__device__ __forceinline__ void issue_pv(float (*o)[32], const uint32_t (*pa)[4], uint32_t v_addr) {
+__device__ __forceinline__ void issue_pv(float (*o)[32], const uint32_t (*pa)[4], uint32_t v_addr,
+                                         int subs = SUBS) {
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
     for (int j = 0; j < SUBS; ++j)
-      wgmma_rs_m64n64_tb(o[j], pa[kk], mnmajor_desc(v_addr + j * BK * ROW_BYTES + kk * 16 * ROW_BYTES));
+      if (j < subs)
+        wgmma_rs_m64n64_tb(o[j], pa[kk], mnmajor_desc(v_addr + j * BK * ROW_BYTES + kk * 16 * ROW_BYTES));
   wgmma_commit();
 }
 
@@ -729,9 +669,9 @@ __device__ __forceinline__ void issue_pv(float (*o)[32], const uint32_t (*pa)[4]
 // (only when asked), the row max over the 4 threads of a row, alpha =
 // exp2(m - m_new), p = exp2(s * scale * log2(e) - m_new) left in s (one FMA
 // and one exp2 per element), l = l * alpha + this thread's sum of p.
-template <int BK>
+template <int BK, typename P>
 __device__ __forceinline__ void softmax_tile(float* s, float* m, float* l, float* alpha, bool masked,
-                                             int k0, int row0, int t, const Params& a) {
+                                             int k0, int row0, int t, const P& a) {
   if (masked) {
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j)
@@ -1012,6 +952,338 @@ int launch_d64(const Args& a, int B, cudaStream_t stream, int nc) {
   }
 }
 
+// ---------------------------------- bf16, D > 256: wgmma + TMA, column chunks
+//
+// The chunked plan above (CHUNK = 256 output columns a block, S reduced
+// over all of d by every chunk's block, the first chunk writing the lse)
+// on the <256, 2> kernel's machinery: a block is one 128-row q-tile over
+// two consumer warpgroups of 64 rows, one chunk of 4 64-column output
+// sub-tiles (O in 4 m64n64 accumulators, 128 registers a consumer thread),
+// one head and one batch, plus a TMA producer warpgroup. For each k-tile
+// of the block (64 keys: S is m64n64) the producer streams the 64-column
+// sub-tiles of Q (both consumers' rows) and K through a ring of
+// WIDE_STAGES stages, and the k-tile's chunk of V (the block's 4
+// sub-tiles) into one of two buffers. Each consumer chains S over d's
+// sub-tiles (hopper.cuh::reduce_over_d), runs the online softmax in
+// registers (softmax_tile) and adds P V with P from registers and V read
+// MN-major, as the <256, 2> kernel does. Every chunk of a q-tile computes
+// S, m and l by the same instructions in the same order, so they agree
+// bit for bit. Tensor maps {d, heads, T, B} over the tensors' strides
+// (GQA reads kv head h / G; rows past T and columns past d arrive as
+// zeros).
+//
+// What bounds it: no q-tile's rows stay in shared memory (128 rows at d
+// 576 are 147 KB), so every k-tile streams the q-tile's Q and the
+// k-tile's K over all of d from L2 again (at MLA's D 576 about 250 KB and
+// 13.6 M operations a 128 x 64 tile, 54 a byte: the tensor cores' 989
+// TFLOP/s would need ~18 TB/s from L2): L2's rate, not the tensor cores',
+// bounds it once the card is full, and the ring holds as many stages as
+// fit beside V's buffers. S is computed once a chunk,
+// (ceil(d / 256) + 1) / 2 of the minimum's operations.
+//
+// Small grids: where (q-tiles x chunks x heads x batch) is under
+// TARGET_BLOCKS blocks, the k-tiles of a block are split over the CS
+// blocks of a thread-block cluster (CS 2, 4 or 8; rank r takes k-tiles r,
+// r + CS, ...; hopper.cuh::cluster_size, the busiest q-tile walking every
+// k-tile; ops/flash_attention.py::wide_fwd_plan mirrors the launch). Each rank
+// ends with its own (m, l, O), and they meet in distributed shared memory:
+// rank r owns 128 / CS of every consumer thread's O slots, every rank
+// writes those slots and its m and l into the owner's shared memory, and
+// the owner rescales and adds the CS partials in rank order (no atomics:
+// two runs are bit-equal). A rank with no k-tile (early causal q-tiles)
+// holds m = NEG_INF, l = 0, O = 0, so its factor exp2(m - max) is 0 (or 1
+// on zero sums, where no rank saw a key) and the sum stays finite. The
+// first consumer skips a causal k-tile wholly past its rows (it only
+// releases the stages). Out goes from registers as bf16 pairs
+// (hopper.cuh::store_pair; nothing past Tq or d), so an odd d needs no
+// store map; its loads read the wrapper's zero-padded copy.
+
+constexpr int WIDE_NC = 2;                          // consumer warpgroups
+constexpr int WIDE_THREADS = 128 * (WIDE_NC + 1);   // + the producer warpgroup
+constexpr int WIDE_BQ = 64 * WIDE_NC;               // query rows a block
+constexpr int WIDE_BK = 64;                         // keys a k-tile
+constexpr int WIDE_SUBS = CHUNK / 64;               // output sub-tiles a block owns
+constexpr int WIDE_STAGES = 6;                      // the ring: as many as fit beside V's two buffers
+
+// Shared memory, in bytes from the 1024-aligned base: the ring (a stage is
+// one sub-tile of Q's 128 rows and of K's 64), V's two chunk buffers and
+// the mbarriers. A cluster's partials reuse the start once every rank is
+// past its k-tiles.
+struct WideSmem {
+  static constexpr int QSUB = WIDE_BQ * ROW_BYTES;  // 16 KB
+  static constexpr int KSUB = WIDE_BK * ROW_BYTES;  // 8 KB, and a V sub-tile
+  static constexpr int STAGE = QSUB + KSUB;
+  static constexpr int VBUF = WIDE_SUBS * KSUB;     // V's chunk of one k-tile: 32 KB
+  static constexpr int RING = 0;                    // + stage * STAGE
+  static constexpr int V = RING + WIDE_STAGES * STAGE;  // + buffer * VBUF
+  static constexpr int BAR = V + 2 * VBUF;          // mbarriers: full[S], empty[S], vfull[2], vempty[2]
+  static constexpr int bytes = BAR + 8 * (2 * WIDE_STAGES + 4) + 1024;  // + slack for the alignment
+};
+static_assert(WideSmem::bytes <= SMEM_PER_BLOCK, "the chunked wgmma forward block passes 227 KB");
+
+// A cluster's partials in an owner's shared memory: CS ranks x 2 consumers
+// x (128 / CS O slots, then m and l: 128 / CS / 4 + 1 float4) x 128 threads
+constexpr int wide_partial_bytes(int cs) { return cs * WIDE_NC * (128 / cs / 4 + 1) * 128 * 16; }
+static_assert(wide_partial_bytes(2) <= WideSmem::BAR && wide_partial_bytes(4) <= WideSmem::BAR &&
+                  wide_partial_bytes(8) <= WideSmem::BAR,
+              "a cluster's partials past the free shared memory");
+
+struct WideParams {
+  __nv_bfloat16* out;  // contiguous [B, Tq, H, d]
+  float* lse;
+  int H, G, Tq, Tk, d;
+  int nsub;          // 64-column sub-tiles of d
+  int n_cc;          // column chunks of WIDE_SUBS sub-tiles
+  int n_qt;          // q-tiles of WIDE_BQ rows
+  float scale_log2;  // scale * log2(e)
+  int causal;
+};
+
+// Columns (col, col + 1) of rows `row` and `row + 8` of out, O / l in bf16;
+// nothing past Tq or d.
+__device__ __forceinline__ void store_rows2(const WideParams& a, int b, int h, int row, int col,
+                                            float x0, float x1, float y0, float y1) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rr = row + 8 * r;
+    if (rr < a.Tq)
+      store_pair(a.out + (((long long)b * a.Tq + rr) * a.H + h) * a.d, col, a.d, r ? y0 : x0, r ? y1 : x1);
+  }
+}
+
+template <int CS>
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+    flash_fwd_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                const __grid_constant__ CUtensorMap tm_k,
+                                const __grid_constant__ CUtensorMap tm_v, const WideParams a) {
+  using L = WideSmem;
+  constexpr int STAGES = WIDE_STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzled tiles need 1024-B alignment
+  const uint32_t bar_full = base + L::BAR, bar_empty = bar_full + 8 * STAGES;
+  const uint32_t bar_vfull = bar_empty + 8 * STAGES, bar_vempty = bar_vfull + 16;  // + 8 * buffer
+
+  const int rank = CS > 1 ? (int)cluster_ctarank() : 0;
+  const int bx = blockIdx.x / CS;
+  const int cc = bx % a.n_cc, h = bx / a.n_cc, b = blockIdx.y;
+  const int q0 = (a.n_qt - 1 - blockIdx.z) * WIDE_BQ;  // longest causal q-tiles first
+  const int kvh = h / a.G;
+  int n_kt = (a.Tk + WIDE_BK - 1) / WIDE_BK;
+  if (a.causal) n_kt = min(n_kt, (q0 + WIDE_BQ - 1) / WIDE_BK + 1);  // past the diagonal: never
+  const int n_items = n_kt > rank ? (n_kt - 1 - rank) / CS + 1 : 0;
+  const int cs0 = cc * WIDE_SUBS, csubs = min(WIDE_SUBS, a.nsub - cs0);
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, WIDE_NC * 128);  // every consumer thread releases a stage
+    }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(bar_vfull + 8 * s, 1);
+      mbar_init(bar_vempty + 8 * s, WIDE_NC * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(Smem<256, 2>::PRODUCER_REGS));
+    if (tid == 0) {
+      int i = 0;
+      for (int n = 0; n < n_items; ++n) {
+        const int k0 = (rank + n * CS) * WIDE_BK;
+        for (int j = 0; j < a.nsub; ++j, ++i) {
+          const int st = i % STAGES;
+          if (i >= STAGES) mbar_wait(bar_empty + 8 * st, ((i / STAGES) - 1) & 1);
+          const uint32_t stage = base + L::RING + st * L::STAGE, full = bar_full + 8 * st;
+          mbar_expect_tx(full, L::STAGE);
+          tma_load(stage, &tm_q, full, 64 * j, h, q0, b);
+          tma_load(stage + L::QSUB, &tm_k, full, 64 * j, kvh, k0, b);
+          if (j == 0) {
+            // the k-tile's chunk of V, behind its first sub-tiles, into buffer
+            // n % 2 once the consumers' P V of item n - 2 is done
+            const int vb = n & 1;
+            if (n >= 2) mbar_wait(bar_vempty + 8 * vb, ((n >> 1) - 1) & 1);
+            mbar_expect_tx(bar_vfull + 8 * vb, csubs * L::KSUB);
+            for (int s = 0; s < csubs; ++s)
+              tma_load(base + L::V + vb * L::VBUF + s * L::KSUB, &tm_v, bar_vfull + 8 * vb, 64 * (cs0 + s), kvh,
+                       k0, b);
+          }
+        }
+      }
+    }
+    return;
+  }
+  // -------------------------------------------------------------- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(Smem<256, 2>::CONSUMER_REGS));
+  const int c = tid / 128 - 1;  // rows [64c, 64c + 64) of the q-tile
+  const int tw = tid % 128, warp = tw / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
+  const int first = q0 + 64 * c;             // this consumer's first row
+  const int row0 = first + 16 * warp + g;  // this thread's rows: row0, row0 + 8
+  float o[WIDE_SUBS][32];  // O, one m64n64 accumulator per 64-column sub-tile of the chunk
+  float s[32];             // S, then P: one m64n64 accumulator
+#pragma unroll
+  for (int j = 0; j < WIDE_SUBS; ++j)
+#pragma unroll
+    for (int r = 0; r < 32; ++r) o[j][r] = 0.f;
+#pragma unroll
+  for (int r = 0; r < 32; ++r) s[r] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF};  // running max, log2 domain
+  float l[2] = {0.f, 0.f};          // this thread's share of the row sums
+
+  int i = 0;
+  for (int n = 0; n < n_items; ++n) {
+    const int k0 = (rank + n * CS) * WIDE_BK;
+    const int vb = n & 1;
+    const uint32_t vparity = (n >> 1) & 1;
+    if (a.causal && k0 > first + 63) {
+      // wholly past this consumer's rows: only release what the producer brought
+      for (int j = 0; j < a.nsub; ++j, ++i) {
+        const int st = i % STAGES;
+        mbar_wait(bar_full + 8 * st, (i / STAGES) & 1);
+        mbar_arrive(bar_empty + 8 * st);
+      }
+      mbar_wait(bar_vfull + 8 * vb, vparity);
+      mbar_arrive(bar_vempty + 8 * vb);
+      continue;
+    }
+    reduce_over_d<STAGES, L::STAGE>(s, base + L::RING, bar_full, bar_empty, c * 64 * ROW_BYTES, L::QSUB,
+                                    a.nsub, i);
+    // a mask where some key passes this consumer's first row, or past Tk
+    const bool masked = (a.causal && k0 + WIDE_BK - 1 > first) || k0 + WIDE_BK > a.Tk;
+    float alpha[2];
+    softmax_tile<WIDE_BK>(s, m, l, alpha, masked, k0, row0, t, a);
+    rescale<WIDE_SUBS>(o, alpha);
+    uint32_t pa[WIDE_BK / 16][4];
+    pack_p<WIDE_BK>(pa, s);
+    mbar_wait(bar_vfull + 8 * vb, vparity);
+#pragma unroll
+    for (int j = 0; j < WIDE_SUBS; ++j) fence_regs<32>(o[j]);
+    wgmma_fence();  // P and the rescaled O were written since the last products
+    issue_pv<WIDE_SUBS, WIDE_BK>(o, pa, base + L::V + vb * L::VBUF, csubs);
+    wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < WIDE_SUBS; ++j) fence_regs<32>(o[j]);
+    mbar_arrive(bar_vempty + 8 * vb);
+  }
+
+  // A thread's O slot e (sub-tile e / 32, register r = e % 32 = 4 i2 + 2 hi
+  // + lo) is row row0 + 8 hi, column 64 (cs0 + e / 32) + 8 i2 + 2t + lo.
+  const bool lse_writer = cc == 0 && rank == 0 && t == 0;
+  const long long lse_row = ((long long)b * a.H + h) * a.Tq;
+  if constexpr (CS == 1) {
+    float inv_l[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      inv_l[r] = 1.f / fmaxf(l[r], 1e-30f);
+    }
+#pragma unroll
+    for (int j = 0; j < WIDE_SUBS; ++j) {
+      if (j >= csubs) continue;
+#pragma unroll
+      for (int i2 = 0; i2 < 8; ++i2)
+        store_rows2(a, b, h, row0, 64 * (cs0 + j) + 8 * i2 + 2 * t, o[j][4 * i2] * inv_l[0],
+                    o[j][4 * i2 + 1] * inv_l[0], o[j][4 * i2 + 2] * inv_l[1], o[j][4 * i2 + 3] * inv_l[1]);
+    }
+    if (lse_writer) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (row0 + 8 * r < a.Tq) a.lse[lse_row + row0 + 8 * r] = (m[r] + log2f(fmaxf(l[r], 1e-30f))) * LN2;
+    }
+  } else {
+    constexpr int E = 128 / CS;     // O slots a rank owns: 64, 32 or 16
+    constexpr int PER = E / 4 + 1;  // float4 a (rank, consumer, thread): its O slots, then m and l
+    // float4 k of rank r's partial for consumer c, thread tw: ((r NC + c) PER + k) 128 + tw
+    cluster_sync();  // every rank is past its k-tiles: its shared memory is free
+    uint32_t dst[CS];
+#pragma unroll
+    for (int ow = 0; ow < CS; ++ow) dst[ow] = map_shared_rank(base, ow);
+#pragma unroll
+    for (int e = 0; e < 128; e += 4) {
+      const int j = e / 32, r = e % 32, ow = e / E, k4 = (e % E) / 4;
+      st_cluster_v4(dst[ow] + ((((rank * WIDE_NC + c) * PER + k4) * 128 + tw) << 4), o[j][r], o[j][r + 1],
+                    o[j][r + 2], o[j][r + 3]);
+    }
+#pragma unroll
+    for (int ow = 0; ow < CS; ++ow)
+      st_cluster_v4(dst[ow] + ((((rank * WIDE_NC + c) * PER + E / 4) * 128 + tw) << 4), m[0], m[1], l[0], l[1]);
+    cluster_sync();
+    const float4* part = reinterpret_cast<const float4*>(smem_raw + (base - raw));
+    // the row max over the ranks, each rank's factor, the row sums in rank order
+    float4 ml[CS];
+#pragma unroll
+    for (int r = 0; r < CS; ++r) ml[r] = part[((r * WIDE_NC + c) * PER + E / 4) * 128 + tw];
+    float mx[2] = {ml[0].x, ml[0].y};
+#pragma unroll
+    for (int r = 1; r < CS; ++r) mx[0] = fmaxf(mx[0], ml[r].x), mx[1] = fmaxf(mx[1], ml[r].y);
+    float f[CS][2], ls[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < CS; ++r) {
+      f[r][0] = ex2(ml[r].x - mx[0]);
+      f[r][1] = ex2(ml[r].y - mx[1]);
+      ls[0] += f[r][0] * ml[r].z;
+      ls[1] += f[r][1] * ml[r].w;
+    }
+    float inv_l[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      ls[r] += __shfl_xor_sync(0xffffffffu, ls[r], 1);
+      ls[r] += __shfl_xor_sync(0xffffffffu, ls[r], 2);
+      inv_l[r] = 1.f / fmaxf(ls[r], 1e-30f);
+    }
+#pragma unroll
+    for (int k4 = 0; k4 < E / 4; ++k4) {
+      const int e = rank * E + 4 * k4, j = e / 32, i2 = (e % 32) / 4;
+      float4 sum = part[(c * PER + k4) * 128 + tw];
+      sum.x *= f[0][0], sum.y *= f[0][0], sum.z *= f[0][1], sum.w *= f[0][1];
+#pragma unroll
+      for (int r = 1; r < CS; ++r) {
+        const float4 p = part[((r * WIDE_NC + c) * PER + k4) * 128 + tw];
+        sum.x += f[r][0] * p.x, sum.y += f[r][0] * p.y, sum.z += f[r][1] * p.z, sum.w += f[r][1] * p.w;
+      }
+      if (j < csubs)
+        store_rows2(a, b, h, row0, 64 * (cs0 + j) + 8 * i2 + 2 * t, sum.x * inv_l[0], sum.y * inv_l[0],
+                    sum.z * inv_l[1], sum.w * inv_l[1]);
+    }
+    if (lse_writer) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (row0 + 8 * r < a.Tq) a.lse[lse_row + row0 + 8 * r] = (mx[r] + log2f(fmaxf(ls[r], 1e-30f))) * LN2;
+    }
+  }
+}
+
+// bf16 at d > 256: one launch, grid (CS x chunks x H, B, q-tiles).
+int launch_wgmma_wide(const Args& a, int B, cudaStream_t stream) {
+  const int KV = a.H / a.G;
+  const int nsub = (a.d + 63) / 64, n_cc = (nsub + WIDE_SUBS - 1) / WIDE_SUBS;
+  const int n_qt = (a.Tq + WIDE_BQ - 1) / WIDE_BQ, n_kt = (a.Tk + WIDE_BK - 1) / WIDE_BK;
+  int err;
+  CUtensorMap tq, tk, tv;
+  // every map's innermost extent is d: a box's columns past it arrive as
+  // zeros (and count toward the expected bytes)
+  if ((err = encode_map(&tq, a.q, a.d, a.H, a.Tq, B, a.qsh, a.qst, a.qsb, WIDE_BQ))) return err;
+  if ((err = encode_map(&tk, a.k, a.d, KV, a.Tk, B, a.ksh, a.kst, a.ksb, WIDE_BK))) return err;
+  if ((err = encode_map(&tv, a.v, a.d, KV, a.Tk, B, a.vsh, a.vst, a.vsb, WIDE_BK))) return err;
+  const WideParams p{static_cast<__nv_bfloat16*>(a.out), a.lse, a.H, a.G, a.Tq, a.Tk, a.d, nsub, n_cc, n_qt,
+                     a.scale * LOG2E, a.causal};
+  // the busiest q-tile walks every k-tile
+  const int cs = cluster_size((long long)n_qt * n_cc * a.H * B, n_kt);
+  const dim3 grid(cs * n_cc * a.H, B, n_qt);  // a cluster: the cs consecutive blocks of one (chunk, head)
+  constexpr int T = WIDE_THREADS, M = WideSmem::bytes;
+  switch (cs) {
+    case 1: return launch_cluster(flash_fwd_wgmma_wide_kernel<1>, 1, grid, T, M, stream, tq, tk, tv, p);
+    case 2: return launch_cluster(flash_fwd_wgmma_wide_kernel<2>, 2, grid, T, M, stream, tq, tk, tv, p);
+    case 4: return launch_cluster(flash_fwd_wgmma_wide_kernel<4>, 4, grid, T, M, stream, tq, tk, tv, p);
+    default: return launch_cluster(flash_fwd_wgmma_wide_kernel<8>, 8, grid, T, M, stream, tq, tk, tv, p);
+  }
+}
+
 }  // namespace wg
 
 // route: AUTO (the rule above, the wrappers' only route), MMA_SYNC (the
@@ -1023,12 +1295,14 @@ constexpr int MMA_SYNC = -1, AUTO = 0;
 int dispatch(const Args& a, int B, int is_bf16, int route, cudaStream_t s) {
   if (route < MMA_SYNC || (route > AUTO && (!is_bf16 || hopper::wgmma_head_dim(a.d) != 64)))
     return (int)cudaErrorInvalidValue;
+  if (is_bf16 && a.d > hopper::WIDEST_NATIVE)  // the chunked wgmma kernel, no other form
+    return route == AUTO ? wg::launch_wgmma_wide(a, B, s) : (int)cudaErrorInvalidValue;
   if (is_bf16 && route != MMA_SYNC) {
     switch (hopper::wgmma_head_dim(a.d)) {
       case 64: return wg::launch_d64(a, B, s, route);
       case 128: return wg::launch<128, 2>(a, B, s);
       case 256: return wg::launch<256, 2>(a, B, s);
-      default: break;  // d % 8 != 0 or past 256
+      default: break;  // d % 8 != 0
     }
   }
   switch (hopper::native_head_dim(a.d)) {
@@ -1040,7 +1314,7 @@ int dispatch(const Args& a, int B, int is_bf16, int route, cudaStream_t s) {
     case 96: return launch<96>(a, B, is_bf16, s);
     case 128: return launch<128>(a, B, is_bf16, s);
     case 256: return launch<256>(a, B, is_bf16, s);
-    default: return a.d > hopper::WIDEST_NATIVE ? launch_wide(a, B, is_bf16, s)
+    default: return a.d > hopper::WIDEST_NATIVE ? launch_wide(a, B, s)  // float32
                                                 : (int)cudaErrorInvalidValue;  // d < 1
   }
 }
@@ -1051,9 +1325,10 @@ int dispatch(const Args& a, int B, int is_bf16, int route, cudaStream_t s) {
 // a multiple of 8, as the TMA store of out needs rows of whole 16-byte
 // units (at width 64, 128 or 256, the least >= D), mma.sync for bf16 at
 // every other D up to 256, split TF32 for float32, each at the native
-// width >= D up to 256 and on the chunked route past it; `route` as
-// dispatch takes it, AUTO on the wrappers' path (cudaErrorInvalidValue at
-// D < 1, or a route the dtype and D do not take).
+// width >= D up to 256, and past it the chunked routes (bf16 on wgmma +
+// TMA, AUTO only); `route` as dispatch takes it, AUTO on the wrappers'
+// path (cudaErrorInvalidValue at D < 1, or a route the dtype and D do not
+// take).
 extern "C" int dml_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                              int is_bf16, int B, int H, int G, int Tq, int Tk, int D,
                              long long qsb, long long qst, long long qsh,

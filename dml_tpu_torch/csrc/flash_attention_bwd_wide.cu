@@ -51,7 +51,7 @@
 //   where that grid is small (MLA's 16 k-tiles x 3 chunks on one kv head:
 //   48 dkv blocks; the wide LM's 32 dq blocks) the items of a block are
 //   split over the CS blocks of a thread-block cluster (CS = 2, 4 or 8,
-//   `cluster_size`): rank r takes the items r, r + CS, ... (dq: its
+//   hopper.cuh::cluster_size): rank r takes the items r, r + CS, ... (dq: its
 //   k-tiles; dkv: the (query head, q-tile) pairs of the kv head). The
 //   ranks' sums meet through distributed shared memory: each rank owns
 //   1/CS of every thread's accumulator slots, every rank writes its slots
@@ -92,8 +92,6 @@ constexpr int ROWS = 64;                // a block's own rows, and an item's: on
 constexpr int SUB = ROWS * ROW_BYTES;   // one 64 x 64 sub-tile: 8 KB
 constexpr int STAGE = 4 * SUB;          // a ring stage: one sub-tile of each operand of S and dP
 constexpr int CHUNK_SUBS = 4;           // gradient sub-tiles a block owns (256 columns), 2 a consumer
-constexpr int MAX_CLUSTER = 8;          // blocks of a cluster at most (the portable size)
-constexpr int TARGET_BLOCKS = 256;      // clusters grow until a grid has this many blocks (2 an SM of 132)
 
 // Shared memory, in bytes from the 1024-aligned base: the ring, one chunk
 // buffer (loaded after its item's stream, so that the ring's stages, the
@@ -142,47 +140,12 @@ __device__ __forceinline__ void bar_consumers(int id) {
   asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
 }
 
-// acc (+)= A B^T over one 64-column sub-tile: A's and B's 64 rows, both
-// K-major in the swizzle TMA wrote; `first` starts the sum from zero.
-__device__ __forceinline__ void issue_sub(float* acc, uint32_t a, uint32_t b, bool first) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_ss_m64n64(acc, kmajor_desc(a + 32 * kk), kmajor_desc(b + 32 * kk), !(first && kk == 0));
-  wgmma_commit();
-}
-
 // acc += A B with A = 64 x 64 bf16 from registers (the k16 steps of an
 // m64n64 accumulator, pack_a's order) and B one 64 x 64 sub-tile read
 // MN-major (the sequence axis K, 16 rows a step); no commit.
 __device__ __forceinline__ void issue_rs(float* acc, const uint32_t (*a)[4], uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) wgmma_rs_m64n64_tb(acc, a[kk], mnmajor_desc(b + kk * 16 * ROW_BYTES));
-}
-
-// S (or dP) over all of d for this item, chained over the sub-tiles that
-// the ring brings: operand A at byte `opa` of a stage, B at `opb`. Each
-// stage is released once the products that read it are done. i counts the
-// ring's stages over the block's items.
-template <int STAGES>
-__device__ __forceinline__ void reduce_over_d(float* x, uint32_t ring, uint32_t bar_full, uint32_t bar_empty,
-                                              int opa, int opb, int nsub, int& i) {
-  fence_regs<32>(x);
-  wgmma_fence();
-  int prev = 0;
-  for (int j = 0; j < nsub; ++j, ++i) {
-    const int st = i % STAGES;
-    mbar_wait(bar_full + 8 * st, (i / STAGES) & 1);
-    const uint32_t stage = ring + st * STAGE;
-    issue_sub(x, stage + opa, stage + opb, j == 0);
-    if (j > 0) {
-      wgmma_wait<1>();  // the previous sub-tile's products are done: its stage is free
-      mbar_arrive(bar_empty + 8 * prev);
-    }
-    prev = st;
-  }
-  wgmma_wait<0>();
-  fence_regs<32>(x);
-  mbar_arrive(bar_empty + 8 * prev);
 }
 
 // One gradient pair of columns (c, c + 1) of row `row` of a contiguous
@@ -350,7 +313,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   int i = 0;
   for (int n = 0; n < n_items; ++n) {
     const int k0 = (rank + n * CS) * ROWS;
-    reduce_over_d<STAGES>(x, base + L::RING, bar_full, bar_empty, c * SUB, (2 + c) * SUB, a.nsub, i);
+    reduce_over_d<STAGES, STAGE>(x, base + L::RING, bar_full, bar_empty, c * SUB, (2 + c) * SUB, a.nsub, i);
     uint32_t da[4][4];
     if (c == 0) {
       // P = exp2(S scale log2(e) - lse log2(e)); masked only where a key of
@@ -504,7 +467,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   for (int n = 0; n < n_items; ++n) {
     const int m = rank + n * CS;
     const int q0 = (qt0 + m % nq) * ROWS;
-    reduce_over_d<STAGES>(x, base + L::RING, bar_full, bar_empty, c * SUB, (2 + c) * SUB, a.nsub, i);
+    reduce_over_d<STAGES, STAGE>(x, base + L::RING, bar_full, bar_empty, c * SUB, (2 + c) * SUB, a.nsub, i);
     mbar_wait(bar_cfull, n & 1);
     const float* rows = reinterpret_cast<const float*>(smem + L::ROWSB);
     const uint32_t qc = base + L::CHUNK + 2 * c * SUB, dc = qc + QC;
@@ -575,42 +538,6 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   finish<2, CS>(acc, smem, base, rank, c, tw, own, cs0 + 2 * c, k0, outs, b, kvh, a.Tk, a.KV, a.d);
 }
 
-// The cluster size for a grid of `blocks` blocks whose busiest block has
-// `items` items: doubled from 1 while the grid has fewer than
-// TARGET_BLOCKS blocks, up to MAX_CLUSTER and as long as each rank of the
-// busiest block keeps an item (ops/flash_attention.py::wide_bwd_plan says
-// the same).
-int cluster_size(long long blocks, int items) {
-  int cs = 1;
-  while (cs < MAX_CLUSTER && blocks * cs < TARGET_BLOCKS && 2 * cs <= items) cs *= 2;
-  return cs;
-}
-
-template <typename K>
-int launch_cluster(K kernel, int cs, dim3 grid, int bytes, cudaStream_t stream, const CUtensorMap& tq,
-                   const CUtensorMap& tdo, const CUtensorMap& tk, const CUtensorMap& tv, const Params& p) {
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e != cudaSuccess) return (int)e;
-  if (cs == 1) {
-    kernel<<<grid, WG_THREADS, bytes, stream>>>(tq, tdo, tk, tv, p);
-    return (int)cudaGetLastError();
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(WG_THREADS);
-  cfg.dynamicSmemBytes = bytes;
-  cfg.stream = stream;
-  cudaLaunchAttribute cluster[1];
-  cluster[0].id = cudaLaunchAttributeClusterDimension;
-  cluster[0].val.clusterDim.x = cs;  // the cs consecutive blocks of one (tile, chunk, head)
-  cluster[0].val.clusterDim.y = 1;
-  cluster[0].val.clusterDim.z = 1;
-  cfg.attrs = cluster;
-  cfg.numAttrs = 1;
-  if ((e = cudaLaunchKernelEx(&cfg, kernel, tq, tdo, tk, tv, p)) != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // bf16 dq, dk and dv past head dim 256 given the row arrays of
@@ -648,10 +575,10 @@ extern "C" int dml_flash_bwd_wide(const void* q, const void* k, const void* v, c
     pq.n_tiles = n_qt;
     const dim3 grid(cs * n_cc * H, B, n_qt);
     switch (cs) {
-      case 1: err = launch_cluster(flash_bwd_dq_wgmma_wide_kernel<1>, 1, grid, DqSmem::bytes, s, tq, tdo, tk, tv, pq); break;
-      case 2: err = launch_cluster(flash_bwd_dq_wgmma_wide_kernel<2>, 2, grid, DqSmem::bytes, s, tq, tdo, tk, tv, pq); break;
-      case 4: err = launch_cluster(flash_bwd_dq_wgmma_wide_kernel<4>, 4, grid, DqSmem::bytes, s, tq, tdo, tk, tv, pq); break;
-      default: err = launch_cluster(flash_bwd_dq_wgmma_wide_kernel<8>, 8, grid, DqSmem::bytes, s, tq, tdo, tk, tv, pq);
+      case 1: err = launch_cluster(flash_bwd_dq_wgmma_wide_kernel<1>, 1, grid, WG_THREADS, DqSmem::bytes, s, tq, tdo, tk, tv, pq); break;
+      case 2: err = launch_cluster(flash_bwd_dq_wgmma_wide_kernel<2>, 2, grid, WG_THREADS, DqSmem::bytes, s, tq, tdo, tk, tv, pq); break;
+      case 4: err = launch_cluster(flash_bwd_dq_wgmma_wide_kernel<4>, 4, grid, WG_THREADS, DqSmem::bytes, s, tq, tdo, tk, tv, pq); break;
+      default: err = launch_cluster(flash_bwd_dq_wgmma_wide_kernel<8>, 8, grid, WG_THREADS, DqSmem::bytes, s, tq, tdo, tk, tv, pq);
     }
     if (err) return err;
   }
@@ -663,10 +590,10 @@ extern "C" int dml_flash_bwd_wide(const void* q, const void* k, const void* v, c
     pk.n_tiles = n_kt;
     const dim3 grid(cs * n_cc * KV, B, n_kt);
     switch (cs) {
-      case 1: err = launch_cluster(flash_bwd_dkv_wgmma_wide_kernel<1>, 1, grid, DkvSmem::bytes, s, tq, tdo, tk, tv, pk); break;
-      case 2: err = launch_cluster(flash_bwd_dkv_wgmma_wide_kernel<2>, 2, grid, DkvSmem::bytes, s, tq, tdo, tk, tv, pk); break;
-      case 4: err = launch_cluster(flash_bwd_dkv_wgmma_wide_kernel<4>, 4, grid, DkvSmem::bytes, s, tq, tdo, tk, tv, pk); break;
-      default: err = launch_cluster(flash_bwd_dkv_wgmma_wide_kernel<8>, 8, grid, DkvSmem::bytes, s, tq, tdo, tk, tv, pk);
+      case 1: err = launch_cluster(flash_bwd_dkv_wgmma_wide_kernel<1>, 1, grid, WG_THREADS, DkvSmem::bytes, s, tq, tdo, tk, tv, pk); break;
+      case 2: err = launch_cluster(flash_bwd_dkv_wgmma_wide_kernel<2>, 2, grid, WG_THREADS, DkvSmem::bytes, s, tq, tdo, tk, tv, pk); break;
+      case 4: err = launch_cluster(flash_bwd_dkv_wgmma_wide_kernel<4>, 4, grid, WG_THREADS, DkvSmem::bytes, s, tq, tdo, tk, tv, pk); break;
+      default: err = launch_cluster(flash_bwd_dkv_wgmma_wide_kernel<8>, 8, grid, WG_THREADS, DkvSmem::bytes, s, tq, tdo, tk, tv, pk);
     }
     if (err) return err;
   }

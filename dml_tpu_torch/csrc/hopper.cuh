@@ -31,9 +31,10 @@ constexpr float LN2 = 0.6931471805599453f;
 // WIDEST_NATIVE native_head_dim is 0: no block holds a whole row of d
 // there (the forward's O accumulator alone would be d / 2 float32
 // registers a thread for 64 query rows on 128 threads), so such a d takes
-// the chunked route (launch_wide in flash_attention.cu and
-// flash_attention_bwd_tf32.cu; the bf16 backward's is
-// flash_attention_bwd_wide.cu), d a run-time argument.
+// the chunked routes (in flash_attention.cu, float32's launch_wide and
+// bf16's wg::launch_wgmma_wide; float32's backward in
+// flash_attention_bwd_tf32.cu, bf16's in flash_attention_bwd_wide.cu), d a
+// run-time argument.
 constexpr int WIDEST_NATIVE = 256;
 __host__ __device__ constexpr int native_head_dim(int d) {
   return d < 1 ? 0 : d <= 16 ? 16 : d <= 32 ? 32 : d <= 48 ? 48 : d <= 64 ? 64 : d <= 80 ? 80
@@ -263,6 +264,85 @@ __device__ __forceinline__ void wgmma_rs_m64n64_tb(float* d, const uint32_t* a, 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// acc (+)= A B^T over one 64-column sub-tile: 64 rows of A and 64 of B,
+// both K-major in the swizzle TMA wrote; `first` starts the sum from zero.
+// One commit group.
+__device__ __forceinline__ void issue_sub(float* acc, uint32_t a, uint32_t b, bool first) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss_m64n64(acc, kmajor_desc(a + 32 * kk), kmajor_desc(b + 32 * kk), !(first && kk == 0));
+  wgmma_commit();
+}
+
+// x = A B^T over all of d (the chunked routes' S, and dP), chained over the
+// nsub sub-tiles that a ring of STAGES stages of STAGE_BYTES each brings:
+// operand A at byte `opa` of a stage, B at `opb`. Each stage is released
+// (`bar_empty`) once the products that read it are done. i counts the
+// ring's stages over the block's items.
+template <int STAGES, int STAGE_BYTES>
+__device__ __forceinline__ void reduce_over_d(float* x, uint32_t ring, uint32_t bar_full, uint32_t bar_empty,
+                                              int opa, int opb, int nsub, int& i) {
+  fence_regs<32>(x);
+  wgmma_fence();
+  int prev = 0;
+  for (int j = 0; j < nsub; ++j, ++i) {
+    const int st = i % STAGES;
+    mbar_wait(bar_full + 8 * st, (i / STAGES) & 1);
+    const uint32_t stage = ring + st * STAGE_BYTES;
+    issue_sub(x, stage + opa, stage + opb, j == 0);
+    if (j > 0) {
+      wgmma_wait<1>();  // the previous sub-tile's products are done: its stage is free
+      mbar_arrive(bar_empty + 8 * prev);
+    }
+    prev = st;
+  }
+  wgmma_wait<0>();
+  fence_regs<32>(x);
+  mbar_arrive(bar_empty + 8 * prev);
+}
+
+// The chunked routes' thread-block clusters: a grid of `blocks` blocks
+// whose busiest block has `items` items (k-tiles, or (query head, q-tile)
+// pairs) splits each block's items over a cluster of CS blocks, CS doubled
+// from 1 while the grid has fewer than TARGET_BLOCKS blocks (2 an SM of
+// 132), up to MAX_CLUSTER (the portable size) and as long as each rank of
+// the busiest block keeps an item (ops/flash_attention.py::_wide_cluster
+// says the same).
+constexpr int MAX_CLUSTER = 8;
+constexpr int TARGET_BLOCKS = 256;
+inline int cluster_size(long long blocks, int items) {
+  int cs = 1;
+  while (cs < MAX_CLUSTER && blocks * cs < TARGET_BLOCKS && 2 * cs <= items) cs *= 2;
+  return cs;
+}
+
+// Launch `kernel` over `grid` with `bytes` of dynamic shared memory, in
+// clusters of the cs consecutive blocks along x (a plain launch at cs 1);
+// returns the launch's error.
+template <typename K, typename... A>
+int launch_cluster(K kernel, int cs, dim3 grid, int threads, int bytes, cudaStream_t stream, const A&... args) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return (int)e;
+  if (cs == 1) {
+    kernel<<<grid, threads, bytes, stream>>>(args...);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = cs;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  if ((e = cudaLaunchKernelEx(&cfg, kernel, args...)) != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 // The card's SM count (read once), or 0 where the runtime cannot say.
 inline int sm_count() {
   static int sms = 0;
@@ -307,8 +387,10 @@ int encode_map(CUtensorMap* map, const void* ptr, int d, int heads, int t, int b
   cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)t, (cuuint64_t)b};
   cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2, (cuuint64_t)sb * 2};
   // a dimension of size 1 is never stepped, but its stride must still be
-  // a legal one (a multiple of 16 B, not 0): the span of the dims inside
-  cuuint64_t span = (cuuint64_t)d * 2;
+  // a legal one (a multiple of 16 B, not 0): the span of the dims inside,
+  // a row's d * 2 bytes rounded up to 16 (an odd d's padded copy: a single
+  // head at d 300 has rows of 608 bytes, and 600 is refused)
+  cuuint64_t span = ((cuuint64_t)d * 2 + 15) / 16 * 16;
   for (int i = 1; i < 4; ++i) {
     if (dims[i] == 1) strides[i - 1] = span;
     span = strides[i - 1] * dims[i];

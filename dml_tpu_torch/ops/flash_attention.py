@@ -36,17 +36,18 @@ columns past D read as zeros and never written, which is exact. Past 256
 no block holds a whole row (the forward's accumulator alone would need D
 / 2 float32 registers a thread), so the chunked routes split the output's
 columns over a grid axis, each block reducing Q K^T (and dO V^T) over the
-whole of D, and there the directions differ. The forward and the float32
-backward stage D in slices through shared memory on `mma.sync` (FWD_CHUNK
-output columns a forward block, BWD_CHUNK gradient columns a float32
-backward one); the bf16 backward runs `wgmma` + TMA ("wgmma+tma chunked",
-WIDE_BWD_CHUNK = 256 gradient columns a block: a TMA producer streams
-D's 64-column sub-tiles of Q, dO, K and V, one consumer warpgroup forms S
-and P, the other dP and dS, handing them to each other through shared
-memory, and each owns 128 of the block's columns; where the grid is small
-a thread-block cluster splits a block's k-tiles, or its kv head's (query
-head, q-tile) pairs, and adds the ranks' sums in rank order:
-`wide_bwd_plan` mirrors that launch). The backward keeps the TPU's
+whole of D. float32 stages D in slices through shared memory on
+`mma.sync` ("tf32x3 chunked": FWD_CHUNK output columns a forward block,
+BWD_CHUNK gradient columns a backward one); bf16 runs `wgmma` + TMA both
+ways ("wgmma+tma chunked", 256 columns a block: a TMA producer streams
+D's 64-column sub-tiles of the operands of S (Q and K; in the backward
+also dO and V for dP) through a ring in shared memory; the forward's two
+consumer warpgroups split a 128-row q-tile, the backward's form S and P
+and dP and dS and hand them to each other through shared memory; where
+the grid is small a thread-block cluster splits a block's k-tiles, or
+its kv head's (query head, q-tile) pairs, and adds the ranks' partials
+in rank order: `wide_fwd_plan` and `wide_bwd_plan` mirror those
+launches). The backward keeps the TPU's
 two-kernel split (dq over k-tiles, dk and dv over q-tiles, no atomics),
 after a small kernel that computes delta = rowsum(dO * O) and pads the
 row arrays the two read. The source files say what bounds each kernel
@@ -103,14 +104,21 @@ WGMMA_MIN_HEAD_DIM = 8
 #: width-64 wgmma kernel with n consumer warpgroups whatever the grid
 FWD_AUTO, FWD_MMA_SYNC = 0, -1
 #: past the widest native width, the chunked routes' output columns a
-#: block: the forward's (csrc/flash_attention.cu::CHUNK) and the float32
-#: backward's (csrc/flash_bwd_common.cuh::CHUNK)
+#: block: the forward's in both dtypes (csrc/flash_attention.cu::CHUNK) and
+#: the float32 backward's (csrc/flash_bwd_common.cuh::CHUNK)
 FWD_CHUNK = 256
 BWD_CHUNK = 128
+#: the bf16 forward past 256 (csrc/flash_attention.cu,
+#: flash_fwd_wgmma_wide_kernel): query rows a block (two consumer
+#: warpgroups of 64), keys a k-tile, and its ring's stages
+WIDE_FWD_ROWS = 128
+WIDE_FWD_KEYS = 64
+WIDE_FWD_STAGES = 6
 #: the bf16 backward past 256 (csrc/flash_attention_bwd_wide.cu): the
-#: gradient columns a block owns, its rows (own and streamed, one wgmma M),
-#: the largest cluster it splits a block's items over, the blocks a grid
-#: grows to by clusters, and an H100 block's shared memory at most
+#: gradient columns a block owns, its rows (own and streamed, one wgmma M);
+#: for it and the bf16 forward past 256, the largest cluster that splits a
+#: block's items, the blocks a grid grows to by clusters, and an H100
+#: block's shared memory at most
 WIDE_BWD_CHUNK = 256
 WIDE_ROWS = 64
 WIDE_MAX_CLUSTER = 8
@@ -126,9 +134,11 @@ flash_launches = 0
 flash_bwd_launches = 0
 flash_bwd_delta_launches = 0
 #: the forward and backward launches again, by the kernels they ran:
-#: (direction "fwd" or "bwd", route kind, width, dkv split) -> count, the
-#: split being `dkv_split` (1 forward; "dq{n} dkv{m}", both kernels'
-#: clusters, on the bf16 backward past 256); cleared with the counts above
+#: (direction "fwd" or "bwd", route kind, width, split) -> count, the
+#: split being `fwd_split` forward (1; "cs{n}", the cluster, on the bf16
+#: route past 256) and `dkv_split` backward (the dkv kernel's blocks a kv
+#: head; "dq{n} dkv{m}", both kernels' clusters, on the bf16 route past
+#: 256); cleared with the counts above
 route_launches: collections.Counter = collections.Counter()
 #: the same launches by (direction, head dim) -> count, which tells apart
 #: the models that share a route (a target and its draft)
@@ -155,8 +165,8 @@ def _library() -> ctypes.CDLL:
 
 class Route(NamedTuple):
     # "wgmma+tma", "mma.sync" (bf16), "tf32x3" (float32: split TF32 on
-    # mma.sync), or past 256 "mma.sync chunked" (bf16 forward), "wgmma+tma
-    # chunked" (bf16 backward), "tf32x3 chunked" (float32)
+    # mma.sync), or past 256 "wgmma+tma chunked" (bf16), "tf32x3 chunked"
+    # (float32)
     kind: str
     width: int  # the native head dim the kernel runs at (>= D), or past 256 its column chunk
 
@@ -182,18 +192,18 @@ def kernel_route(dtype: torch.dtype, head_dim: int, backward: bool = False) -> R
     every other bf16 D up to 256 and "tf32x3" (split TF32) for float32,
     each at `native_head_dim(D)`, the same both ways (`dml_flash_bwd`
     and `dml_flash_bwd_tf32` launch the backward); past 256 the chunked
-    routes at their column chunk, where the directions differ: in bf16
-    "mma.sync chunked" forward and "wgmma+tma chunked" (WIDE_BWD_CHUNK
-    columns, `dml_flash_bwd_wide`) backward, in float32 "tf32x3 chunked"
-    (`backward` picks the backward's)."""
+    routes at their column chunk: in bf16 "wgmma+tma chunked" both ways
+    (FWD_CHUNK forward, WIDE_BWD_CHUNK backward, `dml_flash_bwd_wide`: 256
+    columns each), in float32 "tf32x3 chunked" (FWD_CHUNK forward,
+    BWD_CHUNK backward; `backward` picks the backward's)."""
     if dtype not in _DTYPES:
         raise ValueError(f"no flash attention kernel for {dtype} at head_dim {head_dim}")
     width = native_head_dim(head_dim, backward)
     if (dtype == torch.bfloat16 and WGMMA_MIN_HEAD_DIM <= head_dim <= WGMMA_HEAD_DIMS[-1]
             and head_dim % 8 == 0):
         return Route("wgmma+tma", next(w for w in WGMMA_HEAD_DIMS if w >= head_dim))
-    if dtype == torch.bfloat16 and backward and head_dim > NATIVE_HEAD_DIMS[-1]:
-        return Route("wgmma+tma chunked", WIDE_BWD_CHUNK)
+    if dtype == torch.bfloat16 and head_dim > NATIVE_HEAD_DIMS[-1]:
+        return Route("wgmma+tma chunked", WIDE_BWD_CHUNK if backward else FWD_CHUNK)
     kind = "tf32x3" if dtype == torch.float32 else "mma.sync"
     return Route(kind + " chunked" if head_dim > NATIVE_HEAD_DIMS[-1] else kind, width)
 
@@ -275,7 +285,8 @@ def _bwd_wide_library() -> ctypes.CDLL:
 
 
 def _wide_cluster(blocks: int, items: int) -> int:
-    """csrc/flash_attention_bwd_wide.cu::cluster_size: doubled from 1 while
+    """csrc/hopper.cuh::cluster_size, the chunked wgmma kernels' rule (the
+    bf16 backward's and forward's): doubled from 1 while
     the grid has fewer than WIDE_TARGET_BLOCKS blocks, up to
     WIDE_MAX_CLUSTER and while every rank of the busiest block (`items`
     items) keeps one."""
@@ -350,6 +361,54 @@ def wide_bwd_plan(b: int, tq: int, tk: int, h: int, kv: int, d: int) -> WideBwdP
     return WideBwdPlan(b, tq, tk, h, kv, d, n_sub, n_cc, cq, ck,
                        (cq * n_cc * h, b, n_qt), (ck * n_cc * kv, b, n_kt),
                        _wide_smem(5, 4, False), _wide_smem(4, 8, True))
+
+
+class WideFwdPlan(NamedTuple):
+    """The launch of the bf16 forward past head dim 256, as `dml_flash_fwd`
+    makes it (csrc/flash_attention.cu, wg::launch_wgmma_wide)."""
+    b: int
+    tq: int
+    tk: int
+    h: int
+    kv: int
+    d: int
+    n_sub: int     # 64-column sub-tiles of D
+    n_chunks: int  # output column chunks of FWD_CHUNK (4 sub-tiles; the last may hold fewer)
+    q_tiles: int   # q-tiles of WIDE_FWD_ROWS rows
+    cluster: int   # blocks a cluster splits one block's k-tiles over
+    grid: Tuple[int, int, int]  # (cluster x chunks x H, B, q-tiles)
+    smem: int      # one block's shared memory: the ring, V's two chunk buffers, the barriers
+    merge_smem: int  # the cluster's partials in one owner's shared memory (0 without a cluster)
+
+    def columns(self, chunk: int) -> range:
+        """The output columns a block of `chunk` owns."""
+        return range(min(self.d, chunk * FWD_CHUNK), min(self.d, (chunk + 1) * FWD_CHUNK))
+
+    def items(self, q_tile: int, rank: int, causal: bool) -> list:
+        """The k-tiles that rank `rank` of q-tile `q_tile`'s cluster walks."""
+        n_kt = -(-self.tk // WIDE_FWD_KEYS)
+        if causal:
+            n_kt = min(n_kt, ((q_tile + 1) * WIDE_FWD_ROWS - 1) // WIDE_FWD_KEYS + 1)
+        return list(range(rank, n_kt, self.cluster))
+
+
+def wide_fwd_plan(b: int, tq: int, tk: int, h: int, kv: int, d: int) -> WideFwdPlan:
+    """The launch plan of the bf16 forward at head dim d > 256 for q [b,
+    tq, h, d] and k, v [b, tk, kv, d]: blocks of WIDE_FWD_ROWS query rows x
+    FWD_CHUNK output columns, and the cluster that splits a block's k-tiles
+    where the grid would be small (`_wide_cluster`'s rule, the busiest
+    q-tile walking every k-tile)."""
+    if d <= NATIVE_HEAD_DIMS[-1]:
+        raise ValueError(f"head_dim {d} is not on the chunked route (past {NATIVE_HEAD_DIMS[-1]})")
+    n_sub = -(-d // 64)
+    n_cc = -(-n_sub // (FWD_CHUNK // 64))
+    n_qt, n_kt = -(-tq // WIDE_FWD_ROWS), -(-tk // WIDE_FWD_KEYS)
+    cs = _wide_cluster(n_qt * n_cc * h * b, n_kt)
+    stage = (WIDE_FWD_ROWS + WIDE_FWD_KEYS) * 128  # a 64-column sub-tile of Q's rows and K's
+    vbuf = FWD_CHUNK // 64 * WIDE_FWD_KEYS * 128
+    smem = WIDE_FWD_STAGES * stage + 2 * vbuf + 8 * (2 * WIDE_FWD_STAGES + 4) + 1024
+    merge = cs * 2 * (128 // cs // 4 + 1) * 128 * 16 if cs > 1 else 0
+    return WideFwdPlan(b, tq, tk, h, kv, d, n_sub, n_cc, n_qt, cs, (cs * n_cc * h, b, n_qt), smem, merge)
 
 
 def _expand_kv(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -513,13 +572,25 @@ def dkv_split(route: Route, group: int, plan: Optional[WideBwdPlan] = None):
     return 2 if route == ("wgmma+tma", 256) and group > 1 else 1
 
 
+def fwd_split(route: Route, plan: Optional[WideFwdPlan] = None):
+    """The forward's launches past their route and width: on the chunked
+    wgmma route the cluster of the shape's `plan`, "cs{n}" (the instance
+    flash_fwd_wgmma_wide_kernel<n>), else 1."""
+    if route.kind == "wgmma+tma chunked":
+        if plan is None:
+            raise ValueError("the chunked wgmma forward's cluster follows the shape: pass its wide_fwd_plan")
+        return f"cs{plan.cluster}"
+    return 1
+
+
 def _count(direction: str, dtype: torch.dtype, d: int, mma_sync: bool, group: int = 1,
-           plan: Optional[WideBwdPlan] = None) -> None:
+           plan=None) -> None:
     """Count one launch in `route_launches`, under the kernels it ran, and
-    in `head_dim_launches`."""
+    in `head_dim_launches`; `plan` is the shape's `wide_bwd_plan` or
+    `wide_fwd_plan` on a chunked wgmma route."""
     route = (Route("mma.sync", native_head_dim(d)) if mma_sync
              else kernel_route(dtype, d, direction == "bwd"))
-    split = dkv_split(route, group, plan) if direction == "bwd" else 1
+    split = dkv_split(route, group, plan) if direction == "bwd" else fwd_split(route, plan)
     route_launches[(direction, route.kind, route.width, split)] += 1
     head_dim_launches[(direction, d)] += 1
 
@@ -533,12 +604,17 @@ def _check_cuda(q, k, v):
 def _flash_cuda(q, k, v, causal, scale, route=FWD_AUTO):
     """Launch K2 on the current stream; returns (out, lse). `route` other
     than FWD_AUTO (FWD_MMA_SYNC, or n consumers at width 64) times a
-    route or a form beside the one the rule picks; the wrappers never
-    pass it. Counts one launch."""
+    route or a form beside the one the rule picks, up to head dim 256; the
+    wrappers never pass it. Counts one launch."""
     global flash_launches
     _check_cuda(q, k, v)
     b, tq, h, d = q.shape
+    if route != FWD_AUTO and d > NATIVE_HEAD_DIMS[-1]:
+        raise ValueError(f"no forward route but the rule's past head_dim {NATIVE_HEAD_DIMS[-1]} "
+                         f"(got route {route} at {d})")
     tk, kv = k.shape[1], k.shape[2]
+    plan = (wide_fwd_plan(b, tq, tk, h, kv, d)
+            if q.dtype == torch.bfloat16 and d > NATIVE_HEAD_DIMS[-1] else None)
     q, k, v = _kernel_view(q), _kernel_view(k), _kernel_view(v)
     out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
@@ -558,7 +634,7 @@ def _flash_cuda(q, k, v, causal, scale, route=FWD_AUTO):
                            "(a cudaError, or 10000 + the CUresult of a tensor map)")
     with _count_lock:
         flash_launches += 1
-        _count("fwd", q.dtype, d, route == FWD_MMA_SYNC)
+        _count("fwd", q.dtype, d, route == FWD_MMA_SYNC, plan=plan)
     return out, lse
 
 

@@ -230,8 +230,8 @@ def test_wgmma_fwd_plan_by_grid(shape, plan):
 # past 256 the chunked routes, at each direction's column chunk: `kind`
 # forward (256 output columns a block) and float32's backward (128
 # gradient columns a block); bf16's backward is the wgmma + TMA pair at
-# 256 gradient columns a block
-@pytest.mark.parametrize("dtype,kind", [(torch.bfloat16, "mma.sync chunked"),
+# 256 gradient columns a block, as its forward is
+@pytest.mark.parametrize("dtype,kind", [(torch.bfloat16, "wgmma+tma chunked"),
                                         (torch.float32, "tf32x3 chunked")])
 @pytest.mark.parametrize("d", [257, 512])
 @pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
@@ -264,10 +264,10 @@ def test_dkv_split_by_route_and_group(dtype, d, group, split):
 
 
 # D 0 and float16 have no kernel; a D past the widest native width (257)
-# takes the chunked routes: mma.sync forward, wgmma + TMA backward
+# takes the chunked routes: wgmma + TMA both ways
 @pytest.mark.parametrize("dtype,d,route", [
     (torch.bfloat16, 0, None), (torch.float16, 64, None),
-    (torch.bfloat16, 257, ("mma.sync chunked", 256)),
+    (torch.bfloat16, 257, ("wgmma+tma chunked", 256)),
 ], ids=["d0", "float16", "d257"])
 def test_kernel_route_refuses_what_no_kernel_takes(dtype, d, route):
     if route is None:

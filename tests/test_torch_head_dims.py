@@ -226,7 +226,7 @@ def test_routes_give_a_native_width_for_every_head_dim_and_raise_past_256(case):
             da._decode_cuda(torch.zeros((1, 1, 1, 0)), torch.zeros((1, 1, 4, 0)),
                             torch.zeros((1, 1, 4, 0)), torch.zeros(1, dtype=torch.int32), None, None, 1.0)
     elif case == "d257_routes":
-        assert fa.kernel_route(torch.bfloat16, 257) == ("mma.sync chunked", fa.FWD_CHUNK)
+        assert fa.kernel_route(torch.bfloat16, 257) == ("wgmma+tma chunked", fa.FWD_CHUNK)
         assert fa.kernel_route(torch.float32, 257, backward=True) == ("tf32x3 chunked", fa.BWD_CHUNK)
         plan = da.split_plan(1, 1, 100, 257, 1, 2, False, 132)
         assert plan.width == da.WIDE_SLICE and plan.smem_bytes <= 227 << 10

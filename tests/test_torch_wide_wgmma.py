@@ -51,7 +51,7 @@ def test_backward_route_past_256_and_the_forward_it_keeps(dtype):
         if d <= 256:  # one rule both ways
             assert bwd == fwd
         elif dtype == torch.bfloat16:
-            assert fwd == ("mma.sync chunked", fa.FWD_CHUNK)
+            assert fwd == ("wgmma+tma chunked", fa.FWD_CHUNK)
             assert bwd == ("wgmma+tma chunked", fa.WIDE_BWD_CHUNK)
         else:
             assert fwd == ("tf32x3 chunked", fa.FWD_CHUNK)
